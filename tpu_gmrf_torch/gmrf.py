@@ -27,7 +27,7 @@ class GMRF:
 
     mean: torch.Tensor  # (n,) or (B, n)
     Q: SparseMatrix
-    factor: object  # backend factorization (TridiagFactor)
+    factor: object  # backend factorization (TridiagFactor or SupernodalFactor)
     solver: SolverSpec = SolverSpec()
 
     # ---- construction ------------------------------------------------------

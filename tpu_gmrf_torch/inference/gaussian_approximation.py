@@ -14,9 +14,14 @@ x and α. The line search is masked the same way.
 
 Differentiation splits at the mode: `NewtonMode` runs the loop without
 autograd, and its backward is the implicit-function rule of the reference
-(``_newton_mode_jvp``): one refactorization of Q_post(x*) (K1), one opaque
-solve v = Q_post⁻¹ x̄ (K2), and the input cotangents from the score
-Q_p (x* − μ_p) − ∇loglik(x*) pulled back with −v.
+(``_newton_mode_jvp``): one refactorization of Q_post(x*), one opaque
+solve v = Q_post⁻¹ x̄, and the input cotangents from the score
+Q_p (x* − μ_p) − ∇loglik(x*) pulled back with −v. The loop and its backward
+use only ``factorize`` and the factor's ``solve``, so they run unchanged on
+the tridiagonal (K1, K2) and the supernodal (K5-K8) backends. Q_p − H is
+formed on the union pattern by ``sp_add`` (K5); for a pattern that holds
+its diagonal (every GMRF precision here) that union is Q_p's own pattern,
+so one supernodal plan serves the prior and every posterior.
 """
 
 from __future__ import annotations

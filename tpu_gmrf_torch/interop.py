@@ -11,6 +11,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .fem.discretization import FEMDiscretization
+from .fem.mesh import TriangleMesh
+from .fem.spde import MaternModel
 from .gmrf import GMRF
 from .observations.exponential_family import EFLikelihood
 from .samplers.hmc import HMCState
@@ -18,7 +21,10 @@ from .solvers.base import SolverSpec
 from .sparse.matrix import SparseMatrix
 from .sparse.pattern import SparsePattern
 
-__all__ = ["sparse_from_numpy", "gmrf_from_numpy", "ef_likelihood_from_numpy", "hmc_state_from_numpy"]
+__all__ = [
+    "sparse_from_numpy", "gmrf_from_numpy", "ef_likelihood_from_numpy", "hmc_state_from_numpy",
+    "plan_to_numpy", "matern_model_from_numpy",
+]
 
 
 def _t(a, dtype, device):
@@ -52,3 +58,26 @@ def ef_likelihood_from_numpy(family: str, link: str, y, params: dict | None = No
 
 def hmc_state_from_numpy(position, logdensity, grad, *, dtype=torch.float64, device="cpu") -> HMCState:
     return HMCState(_t(position, dtype, device), _t(logdensity, dtype, device), _t(grad, dtype, device))
+
+
+def matern_model_from_numpy(nodes, triangles, *, smoothness: int = 1, bc: str = "neumann",
+                            boundary_noise: float = 1e-4, diffusion_factor=None,
+                            solver: SolverSpec | None = None) -> MaternModel:
+    """The port's MaternModel on a given mesh (vertices (n, 2), triangles (m, 3)),
+    e.g. the arrays of the reference model's ``disc.mesh``."""
+    disc = FEMDiscretization(TriangleMesh(np.asarray(nodes), np.asarray(triangles)))
+    return MaternModel(disc, smoothness=smoothness, bc=bc, boundary_noise=boundary_noise,
+                       diffusion_factor=diffusion_factor, solver=solver)
+
+
+def plan_to_numpy(plan):
+    """A supernodal plan dict (nested dicts, lists, arrays, numbers) with every
+    array as a NumPy array, e.g. the reference's plan for a table-by-table
+    comparison with ``tpu_gmrf_torch.solvers.supernodal.supernodal_plan``."""
+    if isinstance(plan, dict):
+        return {k: plan_to_numpy(v) for k, v in plan.items()}
+    if isinstance(plan, (list, tuple)):
+        return type(plan)(plan_to_numpy(v) for v in plan)
+    if hasattr(plan, "shape") and hasattr(plan, "dtype"):
+        return np.asarray(plan)
+    return plan

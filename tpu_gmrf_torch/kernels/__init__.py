@@ -1,11 +1,23 @@
 """Hand-written Hopper kernels of the port, with wrappers and plain versions.
 
-K1 ``tridiag_factor``, K2 ``tridiag_solve``, K3 ``tridiag_selinv`` and K4
-``csr_spmv``. Sources are in ``tpu_gmrf_torch/csrc/``; ``build`` compiles
-them with nvcc at first use on a CUDA tensor.
+K1 ``tridiag_factor``, K2 ``tridiag_solve``, K3 ``tridiag_selinv``, K4
+``csr_spmv``, K5 ``gather_segsum`` (and its second entry ``fct_init``), K6 ``sn_panel``, K7 ``sn_trsv`` and K8
+``sn_takahashi``. Sources are in ``tpu_gmrf_torch/csrc/``; ``build``
+compiles them with nvcc at first use on a CUDA tensor.
 """
 
+from .segsum import InitPlan, SegPlan, fct_init, fct_init_plain, gather_segsum, gather_segsum_plain
 from .spmv import csr_spmv, csr_spmv_plain
+from .supernodal import (
+    BACKWARD,
+    FORWARD,
+    sn_panel,
+    sn_panel_plain,
+    sn_takahashi,
+    sn_takahashi_plain,
+    sn_trsv,
+    sn_trsv_plain,
+)
 from .tridiag import (
     SOLVE_BOTH,
     SOLVE_L,
@@ -25,6 +37,9 @@ __all__ = [
     "tridiag_solve", "tridiag_solve_plain",
     "tridiag_selinv", "tridiag_selinv_plain",
     "SOLVE_L", "SOLVE_LT", "SOLVE_BOTH",
+    "SegPlan", "gather_segsum", "gather_segsum_plain", "InitPlan", "fct_init", "fct_init_plain",
+    "sn_panel", "sn_panel_plain", "sn_trsv", "sn_trsv_plain", "sn_takahashi", "sn_takahashi_plain",
+    "FORWARD", "BACKWARD",
 ]
 
 KERNELS = {
@@ -32,6 +47,11 @@ KERNELS = {
     "tridiag_solve": tridiag_solve,
     "tridiag_selinv": tridiag_selinv,
     "csr_spmv": csr_spmv,
+    "gather_segsum": gather_segsum,
+    "fct_init": fct_init,
+    "sn_panel": sn_panel,
+    "sn_trsv": sn_trsv,
+    "sn_takahashi": sn_takahashi,
 }
 
 

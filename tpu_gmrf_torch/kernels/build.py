@@ -28,11 +28,26 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+_D = ctypes.c_double
 _SIGNATURES = {
     "tg_tridiag_factor": [_P, _P, _P, _P, _P, _I, _I, _P],
     "tg_tridiag_solve": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "tg_tridiag_selinv": [_P, _P, _P, _P, _I, _I, _P],
-    "tg_csr_spmv": [_P, _P, _P, ctypes.c_longlong, _P, _P, _P, _I, _I, _P],
+    "tg_csr_spmv": [_P, _P, _P, _L, _P, _P, _P, _I, _I, _P],
+    # out, ostride, t, ptr, width, xi, x, xstride, yi, y, ystride, zi, z, zstride,
+    # alpha, accumulate, R, B, stream
+    "tg_gather_segsum": [_P, _L, _P, _P, _I, _P, _P, _L, _P, _P, _L, _P, _P, _L, _D, _I, _I, _I, _P],
+    # vals, vstride, s, nls, nlsstride, a, astride, tperm, diag, rows, cols, src, dst, n, m, B, stream
+    "tg_fct_init": [_P, _L, _P, _P, _L, _P, _L, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # vals, vstride, panel_idx, cols_idx, P, W, M, dummy, ndummy, u, ustride, ubase,
+    # logpiv, n, boost, work, tile, delta, B, stream
+    "tg_sn_panel": [_P, _L, _P, _P, _I, _I, _I, _I, _I, _P, _L, _L, _P, _I, _P, _P, _I, _D, _I, _P],
+    # vals, vstride, panel_idx, cols_idx, rows_idx, P, W, M, ndummy, x, xstride, k,
+    # u, ustride, ubase, mode, B, stream
+    "tg_sn_trsv": [_P, _L, _P, _P, _P, _I, _I, _I, _I, _P, _L, _I, _P, _L, _L, _I, _I, _P],
+    # vals, vstride, sig, sstride, panel_idx, schur_idx, P, W, M, dummy, work, B, stream
+    "tg_sn_takahashi": [_P, _L, _P, _L, _P, _P, _I, _I, _I, _I, _P, _I, _P],
 }
 
 _lib = None
@@ -62,11 +77,28 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *[str(s) for s in _sources() if s.suffix == ".cu"]]
+    nvcc, tag = _nvcc(), f"{out.stem}.{os.getpid()}"
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    # one nvcc per source, all started together, then one link
+    jobs = []
+    for src in (s for s in _sources() if s.suffix == ".cu"):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *compile_flags, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    failures = []
+    for cmd, _, proc in jobs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failures.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{err}")
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    tmp = out.with_name(f"{tag}.tmp.so")
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *[str(obj) for _, obj, _ in jobs]]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}")
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}")
+    for _, obj, _ in jobs:
+        obj.unlink()
     os.replace(tmp, out)
     return out
 
@@ -87,8 +119,8 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
-def check(code: int, name: str) -> None:
+def check(code: int, name: str, context: str = "") -> None:
     """Raise if a launch returned a CUDA error code."""
     if code != 0:
         msg = library().tg_error_string(code).decode()
-        raise RuntimeError(f"{name} launch failed: CUDA error {code} ({msg})")
+        raise RuntimeError(f"{name} launch failed: CUDA error {code} ({msg}){context}")

@@ -2,8 +2,9 @@
 
 Counterpart of ``tpu_gmrf.solvers.base``. Every backend implements
 ``solve(b)``, ``logdet()``, ``backward_solve(z)``, ``selinv_diag()`` and
-``selinv(pattern)``. Only the tridiagonal backend is ported; the other
-kinds raise `NotImplementedError` naming the ROADMAP item that ports them.
+``selinv(pattern)``. The tridiagonal and supernodal backends are ported;
+the other kinds raise `NotImplementedError` naming the ROADMAP item that
+ports them.
 
 The reference wraps its backends in ``mxu_f32`` because TPU matmuls default
 to bf16 passes. The port has no such wrapper: TF32, the card's reduced
@@ -28,7 +29,6 @@ DENSE_AUTO_MAX = 4096
 _NOT_PORTED = {
     "dense": "ROADMAP queue 2, item 2.5 (solvers/dense.py)",
     "banded": "ROADMAP queue 2, item 2.14 (solvers/banded.py)",
-    "supernodal": "ROADMAP queue 2, items 2.6-2.13 (solvers/supernodal.py)",
     "cg": "ROADMAP queue 2, item 2.21 (solvers/cg.py)",
 }
 
@@ -38,12 +38,15 @@ class SolverSpec:
     """Static solver configuration.
 
     kind: "auto" | "dense" | "tridiag" | "banded" | "supernodal" | "cg".
-    The reference's per-backend fields (block, max_width, ordering,
-    cg_tol, cg_max_iter) arrive with their backends.
+    max_width / ordering configure the supernodal plan. The reference's
+    other per-backend fields (block, cg_tol, cg_max_iter) arrive with their
+    backends.
     """
 
     kind: str = "auto"
     dense_max: int = DENSE_AUTO_MAX
+    max_width: int = 2048
+    ordering: str = "auto"
 
     def resolve(self, pattern) -> "SolverSpec":
         if self.kind != "auto":
@@ -53,8 +56,8 @@ class SolverSpec:
         if pattern.shape[0] <= self.dense_max:
             return dataclasses.replace(self, kind="dense")
         raise NotImplementedError(
-            "choosing banded vs supernodal for a large sparse pattern is not ported "
-            "(ROADMAP queue 2, items 2.6-2.14)"
+            "choosing banded vs supernodal for a large sparse pattern needs the banded "
+            "cost model, not ported (ROADMAP queue 2, item 2.14); pass kind='supernodal'"
         )
 
 
@@ -70,6 +73,10 @@ def factorize(Q, spec: SolverSpec = SolverSpec()):
         from .tridiag import tridiag_factorize
 
         return tridiag_factorize(Q)
+    if spec.kind == "supernodal":
+        from .supernodal import supernodal_factorize
+
+        return supernodal_factorize(Q, spec.max_width, spec.ordering)
     if spec.kind in _NOT_PORTED:
         raise NotImplementedError(f"solver kind {spec.kind!r} is not ported yet: {_NOT_PORTED[spec.kind]}")
     raise ValueError(f"unknown solver kind: {spec.kind}")

@@ -17,10 +17,10 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from ..kernels import csr_spmv
-from .pattern import SparsePattern, union_patterns
+from ..kernels import SegPlan, csr_spmv, gather_segsum
+from .pattern import SparsePattern, spgemm_pattern, union_patterns
 
-__all__ = ["SparseMatrix", "spdiag", "sp_tridiag", "sp_add"]
+__all__ = ["SparseMatrix", "spdiag", "sp_tridiag", "sp_add", "sp_matmul"]
 
 
 def _index(pattern: SparsePattern, key: str, array, device, dtype=torch.long) -> torch.Tensor:
@@ -103,6 +103,53 @@ class _Quad(torch.autograd.Function):
         return gdata, gx, None
 
 
+def _linear_plans(rows, srcs, n_rows: int, n_srcs: int):
+    """K5 plans of the 0/1 map out[rows[k]] += x[srcs[k]] and of its transpose."""
+    return (SegPlan.grouped(rows, srcs, n_rows), SegPlan.grouped(srcs, rows, n_srcs))
+
+
+class _Linear(torch.autograd.Function):
+    """out (B, R) = S x for a static 0/1 plan S (K5); x̄ = Sᵀ ḡ (K5)."""
+
+    @staticmethod
+    def forward(ctx, x, plans):
+        ctx.plan_t = plans[1]
+        return gather_segsum(plans[0], x.contiguous())
+
+    @staticmethod
+    def backward(ctx, g):
+        return gather_segsum(ctx.plan_t, g.contiguous()), None
+
+
+def _as_rows(data: torch.Tensor) -> torch.Tensor:
+    return data.reshape(-1, data.shape[-1])
+
+
+class _SpGEMM(torch.autograd.Function):
+    """c = segment_sum(a[a_idx] · b[b_idx], out_idx) (K5); ā and b̄ by K5 over
+    the plans grouped by a_idx and by b_idx. a, b are (nnz,) or (B, nnz)."""
+
+    @staticmethod
+    def forward(ctx, a, b, plans):
+        ctx.plans = plans
+        ctx.save_for_backward(a, b)
+        return gather_segsum(plans[0], a.contiguous(), y=b.contiguous())
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        _, plan_a, plan_b = ctx.plans
+        g = g.contiguous()
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = gather_segsum(plan_a, g, y=b.contiguous())
+            ga = ga.sum(0) if a.ndim == 1 else ga
+        if ctx.needs_input_grad[1]:
+            gb = gather_segsum(plan_b, g, y=a.contiguous())
+            gb = gb.sum(0) if b.ndim == 1 else gb
+        return ga, gb, None
+
+
 @dataclasses.dataclass(frozen=True)
 class SparseMatrix:
     """COO (canonically sorted) sparse matrix; `pattern` is static host data."""
@@ -171,6 +218,9 @@ class SparseMatrix:
     # ---- arithmetic (fixed-pattern aware) ----------------------------------
 
     def __mul__(self, s):
+        """Scale by a number, or per chain by a tensor of shape (B,)."""
+        if torch.is_tensor(s) and s.ndim > 0:
+            s = s[..., None]
         return SparseMatrix(self.data * s, self.pattern)
 
     __rmul__ = __mul__
@@ -186,26 +236,26 @@ class SparseMatrix:
     def __sub__(self, other: "SparseMatrix") -> "SparseMatrix":
         return self + (other * -1.0)
 
+    def __matmul__(self, other):
+        if isinstance(other, SparseMatrix):
+            return sp_matmul(self, other)
+        return self.matvec(other)
+
     def pad_to(self, pattern: SparsePattern) -> "SparseMatrix":
-        """Embed this matrix's values into a super-pattern (fixed scatter)."""
+        """Embed this matrix's values into a super-pattern (fixed scatter, K5)."""
         if pattern == self.pattern:
             return self
-        smap = _scatter_map(pattern, self.pattern, self.data.device)
-        data = self.data.new_zeros(self.data.shape[:-1] + (pattern.nnz,))
-        return SparseMatrix(data.index_add(-1, smap, self.data), pattern)
+        cache = pattern.__dict__.setdefault("_pad_plans", {})
+        plans = cache.get(self.pattern)
+        if plans is None:
+            smap = pattern.scatter_map(self.pattern)
+            plans = _linear_plans(smap, np.arange(self.nnz), pattern.nnz, self.nnz)
+            cache[self.pattern] = plans
+        data = _Linear.apply(_as_rows(self.data), plans)
+        return SparseMatrix(data.reshape(self.data.shape[:-1] + (pattern.nnz,)), pattern)
 
     def with_data(self, data) -> "SparseMatrix":
         return SparseMatrix(data, self.pattern)
-
-
-def _scatter_map(pattern: SparsePattern, sub: SparsePattern, device) -> torch.Tensor:
-    cache = pattern.__dict__.setdefault("_torch_scatter", {})
-    key = (sub, str(device))
-    t = cache.get(key)
-    if t is None:
-        t = torch.as_tensor(pattern.scatter_map(sub), dtype=torch.long, device=device)
-        cache[key] = t
-    return t
 
 
 @lru_cache(maxsize=32)
@@ -227,16 +277,48 @@ def spdiag(d: torch.Tensor) -> SparseMatrix:
 
 
 _ADD_CACHE: dict = {}
+_MUL_CACHE: dict = {}
 
 
 def sp_add(a: SparseMatrix, b: SparseMatrix) -> SparseMatrix:
-    """A + B on the union pattern (fixed scatter-adds; plain torch)."""
+    """A + B on the union pattern: each union entry sums at most two terms of
+    the concatenated data (K5)."""
     key = (a.pattern, b.pattern)
-    pat = _ADD_CACHE.get(key)
-    if pat is None:
+    plan = _ADD_CACHE.get(key)
+    if plan is None:
         pat = union_patterns(a.pattern, b.pattern)
-        _ADD_CACHE[key] = pat
-    return SparseMatrix(a.pad_to(pat).data + b.pad_to(pat).data, pat)
+        rows = np.concatenate([pat.scatter_map(a.pattern), pat.scatter_map(b.pattern)])
+        plan = (pat, _linear_plans(rows, np.arange(a.nnz + b.nnz), pat.nnz, a.nnz + b.nnz))
+        _ADD_CACHE[key] = plan
+    pat, plans = plan
+    batch = torch.broadcast_shapes(a.data.shape[:-1], b.data.shape[:-1])
+    dtype = torch.promote_types(a.data.dtype, b.data.dtype)
+    both = torch.cat([a.data.to(dtype).expand(batch + (a.nnz,)), b.data.to(dtype).expand(batch + (b.nnz,))], -1)
+    data = _Linear.apply(_as_rows(both), plans)
+    return SparseMatrix(data.reshape(batch + (pat.nnz,)), pat)
+
+
+def sp_matmul(a: SparseMatrix, b: SparseMatrix) -> SparseMatrix:
+    """Numeric SpGEMM over a cached symbolic plan (``spgemm_pattern``), K5."""
+    key = (a.pattern, b.pattern)
+    plan = _MUL_CACHE.get(key)
+    if plan is None:
+        pat, a_idx, b_idx, out_idx = spgemm_pattern(a.pattern, b.pattern)
+        plans = (
+            SegPlan.grouped(out_idx, a_idx, pat.nnz, yi=b_idx),
+            SegPlan.grouped(a_idx, out_idx, a.nnz, yi=b_idx),
+            SegPlan.grouped(b_idx, out_idx, b.nnz, yi=a_idx),
+        )
+        plan = (pat, plans)
+        _MUL_CACHE[key] = plan
+    pat, plans = plan
+    if a.data.ndim > 2 or b.data.ndim > 2:
+        raise ValueError("sp_matmul: data must be (nnz,) or (B, nnz)")
+    dtype = torch.promote_types(a.data.dtype, b.data.dtype)
+    data = _SpGEMM.apply(a.data.to(dtype), b.data.to(dtype), plans)
+    if a.data.ndim == 1 and b.data.ndim == 1:
+        data = data[0]
+    return SparseMatrix(data, pat)
 
 
 def sp_tridiag(main: torch.Tensor, off: torch.Tensor) -> SparseMatrix:
