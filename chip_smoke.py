@@ -1,22 +1,26 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (tpu_gmrf_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
-
     python3 chip_smoke.py [--profile]
 
 Phases, each printing its own lines; any failure raises and exits non-zero:
 
 1. the device: needs CUDA; prints the card's name and power limit;
-2. the build: compiles the kernels K1-K8 (K5 with its second entry,
-   fct_init) from tpu_gmrf_torch/csrc with nvcc
-   (one nvcc per source, in parallel) and the host symbolic core with g++;
+2. the build: compiles the kernels K1-K12 (K5 with its second entry,
+   fct_init; K10 with its second entry, dense_selinv) from
+   tpu_gmrf_torch/csrc with nvcc (one nvcc per source, in parallel) and
+   the host symbolic core with g++;
 3. K1-K4 against their plain PyTorch versions on the card, at the flagship
    shapes (B=256 chains, n=500), in float64 and float32;
 3b. K5-K8 against their plain versions on the card at the spatial shapes
    (Matérn α=2 on the 63×63 grid, n=5741, B=4 chains: the prior at τ=1,
    range=0.25 and the posterior with a random positive diagonal H), in
    float64 and float32, over the whole supernodal schedule;
+3c. K9-K10 and dense_selinv (the dense backend, g=16 posterior, n=450,
+   B=8) and K11-K12 (the banded backend, n=5741, B=4, s=512, K=12; K12
+   also with its vector in global memory, the path for npad beyond shared
+   memory) against their plain versions and against the library call,
+   where one exists, in float64 and float32;
 4. the flagship slice: batched value and θ-gradient of the Laplace marginal
    of an AR1 + Poisson model (256 chains, n=500) through the kernels, in
    float32, checked against the plain path in float64 (the same code on CPU
@@ -30,13 +34,25 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    float64 plain paths on CPU tensors and the float64 kernel path; the
    Newton iterations are counted (``--profile`` adds a
    torch.profiler trace of one value+grad: device busy time and idle share);
-8. 3 HMC steps x 8 leapfrogs over the 4 chains, in float64.
+8. 3 HMC steps x 8 leapfrogs over the 4 chains, in float64;
+9. the flagship run_nuts (bench.py:445-504): 256 chains, n=500, float32,
+   max_depth 8, with the draws cut (NUTS_FLAGSHIP_DRAWS);
+10. the spatial run_nuts at g=16 (bench.py:308-312): n=450, 8 chains,
+   max_depth 6, 15 Newton iterations, supernodal prior, the default inner
+   solver (auto -> dense, K9/K10), float64;
+11. the spatial run_nuts at n=5741 (bench.py:315-332, uncut): 4 chains,
+   4 warmup + 4 samples, max_depth 3, 10 Newton iterations, supernodal
+   prior, the default inner solver (auto -> banded, K11/K12), float64; one
+   value+grad on the banded inner solver against the supernodal one, and
+   one NUTS transition with fixed draws on the kernels against the plain
+   path on CPU tensors.
 
 Every kernel's launch counter is zeroed just before each main path (phases
-4-5, the flagship; phases 7-8, the spatial slice) and read after it; a
-kernel of the path that was never launched fails the run. The line before
-the last is one JSON object with the kernels' launches, errors and times;
-the last line is the result object. Needs no network and imports no JAX.
+4-5, the flagship; 7-8, the spatial slice; 9, 10 and 11) and read after
+it; a kernel of the path that was never launched fails the run. The line
+before the last is one JSON object with the kernels' launches, errors,
+times and bounds; the last line is the result object. Needs no network and
+imports no JAX.
 """
 
 from __future__ import annotations
@@ -47,6 +63,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -111,6 +128,36 @@ SN_TOL = {
     torch.float32: {"gather_segsum": 1e-5, "fct_init": 1e-5, "sn_panel": 1e-3, "logdet": 1e-4,
                     "sn_trsv": 1e-4, "sn_takahashi": 5e-3},
 }
+# K9-K12 against their plain versions on the same inputs (phase 3c).
+# float64: exact up to rounding order, held to 1e-12. float32: the limits
+# are set from the first readings on the H100 (K9 factor 1.5e-6, K10
+# 3.2e-7, K11 factor 1.2e-5, K12 7.7e-7), about ten times above them.
+# K10's second entry dense_selinv (Σ at Q's pattern) read 2.5e-7 in f32.
+SN_TOL[torch.float64].update(dense_chol=1e-12, dense_trsv=1e-12, dense_selinv=1e-12, bt_factor=1e-12,
+                             bt_trsv=1e-12)
+SN_TOL[torch.float32].update(dense_chol=2e-5, dense_trsv=5e-6, dense_selinv=3e-6, bt_factor=1e-4, bt_trsv=1e-5)
+DN_GRID, DN_CHAINS = 16, 8  # the dense backend's shape: the g=16 posterior, as phase 10
+
+# Bounds (the least time the card could take): the larger of the bytes a
+# function must move over HBM's rate and its operations over the card's
+# peak rate for their type, H100 SXM data sheet: 3.35 TB/s; 67 TFLOP/s
+# float32 (no tensor-core f32 product is exact in f32) and 67 TFLOP/s
+# float64 (the FP64 tensor cores, DMMA; 34 TFLOP/s without them). The
+# bound is the card's, whether or not a kernel uses those units.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 67e12}
+
+# Phases 9-11: run_nuts as the reference's benches (bench.py) set it up.
+# The flagship's draws are cut from 100 + 100 to fit the time limit; the
+# spatial runs are uncut.
+NUTS_FLAGSHIP = dict(warmup=10, samples=10, depth=8)
+NUTS_G16 = dict(grid=16, chains=8, warmup=25, samples=25, depth=6, ga_iter=15)
+NUTS_5741 = dict(chains=4, warmup=4, samples=4, depth=3, ga_iter=10)
+# Phase 11's cross-checks: the banded inner solver against the supernodal
+# one (the same Laplace fixed point, float64: 1e-8 value, 1e-6 gradient) and
+# one NUTS transition with fixed draws on the kernels against the plain
+# path (equal depth and leaves; positions within 1e-6).
+NUTS_TOL = {"value": 1e-8, "grad": 1e-6, "position": 1e-6}
 
 SOURCES = {
     "tridiag_factor": ("tpu_gmrf_torch/csrc/tridiag.cu", "tpu_gmrf/solvers/prefix.py:53"),
@@ -122,9 +169,20 @@ SOURCES = {
     "sn_panel": ("tpu_gmrf_torch/csrc/supernodal.cu", "tpu_gmrf/solvers/supernodal.py:907"),
     "sn_trsv": ("tpu_gmrf_torch/csrc/supernodal.cu", "tpu_gmrf/solvers/supernodal.py:1171"),
     "sn_takahashi": ("tpu_gmrf_torch/csrc/supernodal.cu", "tpu_gmrf/solvers/supernodal.py:1000"),
+    "dense_chol": ("tpu_gmrf_torch/csrc/dense.cu", "tpu_gmrf/solvers/dense.py:102"),
+    "dense_trsv": ("tpu_gmrf_torch/csrc/dense.cu", "tpu_gmrf/solvers/dense.py:47"),
+    "dense_selinv": ("tpu_gmrf_torch/csrc/dense.cu", "tpu_gmrf/solvers/dense.py:74"),
+    "bt_factor": ("tpu_gmrf_torch/csrc/banded.cu", "tpu_gmrf/solvers/banded.py:354"),
+    "bt_trsv": ("tpu_gmrf_torch/csrc/banded.cu", "tpu_gmrf/solvers/banded.py:145"),
 }
 FLAGSHIP_KERNELS = ("tridiag_factor", "tridiag_solve", "tridiag_selinv", "csr_spmv", "gather_segsum")
 SPATIAL_KERNELS = ("csr_spmv", "gather_segsum", "fct_init", "sn_panel", "sn_trsv", "sn_takahashi")
+# The NUTS paths factor and differentiate the supernodal prior (K5, K6, K8)
+# but never solve with it, so K7 is not on them; the inner solver is K9/K10
+# at g=16 and K11/K12 at n=5741.
+SPATIAL_NUTS_KERNELS = ("csr_spmv", "gather_segsum", "fct_init", "sn_panel", "sn_takahashi")
+NUTS_G16_KERNELS = SPATIAL_NUTS_KERNELS + ("dense_chol", "dense_trsv")
+NUTS_5741_KERNELS = SPATIAL_NUTS_KERNELS + ("bt_factor", "bt_trsv")
 
 
 def log(msg: str) -> None:
@@ -152,6 +210,17 @@ def cuda_ms(fn, reps: int = REPS, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bound(flops: float, nbytes: float, dtype) -> dict:
+    """bound_ms / bound_by of a function of `flops` operations moving `nbytes`."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "operations" if t_ops > t_bytes else "bytes"}
+
+
+def table_bytes(*plans) -> int:
+    """Bytes of the int tables (NumPy arrays) a plan object holds."""
+    return sum(a.nbytes for p in plans for a in vars(p).values() if isinstance(a, np.ndarray))
 
 
 def rel_err(got, ref) -> tuple[float, float]:
@@ -186,6 +255,22 @@ def check_kernels(dtype, dev):
     Q = sp_tridiag(a, c)
     rp, col = _csr(Q.pattern, dev)
     data = Q.data.contiguous()
+    el, nnz = a.element_size(), col.numel()
+    costs = {  # (operations, bytes): inputs read once, outputs written once
+        "tridiag_factor": (5 * CHAINS * N, el * CHAINS * 4 * N),
+        "tridiag_solve": (6 * CHAINS * N, el * CHAINS * 4 * N),
+        "tridiag_selinv": (5 * CHAINS * N, el * CHAINS * 4 * N),
+        "csr_spmv": (2 * CHAINS * (nnz + N), 4 * (N + 1 + nnz) + el * CHAINS * (nnz + 2 * N + 1)),
+    }
+    # the library call beside K4: one CSR product, the chains as a block-diagonal matrix
+    crow = torch.cat([rp[:-1].long() + b * nnz for b in range(CHAINS)]
+                     + [torch.tensor([CHAINS * nnz], device=dev)])
+    with warnings.catch_warnings():  # "beta" and invariant-check notices of sparse CSR
+        warnings.simplefilter("ignore", UserWarning)
+        bd = torch.sparse_csr_tensor(crow, torch.cat([col.long() + b * N for b in range(CHAINS)]), data.reshape(-1),
+                                     size=(CHAINS * N, CHAINS * N))
+    xcol = x.reshape(-1, 1).contiguous()
+    library = {"csr_spmv": lambda: torch.sparse.mm(bd, xcol)}
     cases = {
         "tridiag_factor": (lambda: kernels.tridiag_factor(a, c), lambda: kernels.tridiag_factor_plain(a, c)),
         "tridiag_solve": (lambda: kernels.tridiag_solve(d, e, b), lambda: kernels.tridiag_solve_plain(d, e, b)),
@@ -204,11 +289,15 @@ def check_kernels(dtype, dev):
             raise AssertionError(f"{name} {name_t}: non-finite kernel output")
         abs_err, rel = rel_err(got, ref)
         ms, plain_ms = cuda_ms(kern), cuda_ms(plain)
+        lib_ms = cuda_ms(library[name]) if name in library else None
+        bnd = bound(*costs[name], dtype)
         log(f"kernel {name} {name_t} B={CHAINS} n={N}: max_abs_err={abs_err:.3e} rel={rel:.3e} "
-            f"(tol {KERNEL_TOL[dtype]:.0e}) kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}")
+            f"(tol {KERNEL_TOL[dtype]:.0e}) kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={lib_ms} "
+            f"bound_ms={bnd['bound_ms']:.5f} ({bnd['bound_by']})")
         if not rel <= KERNEL_TOL[dtype]:
             raise AssertionError(f"{name} {name_t}: kernel disagrees with its plain version ({rel:.3e})")
-        results[name] = {"max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms}
+        results[name] = {"max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, **bnd,
+                         "dtype": name_t, "shape": f"B={CHAINS} n={N}"}
     return results
 
 
@@ -248,7 +337,8 @@ def spatial_y(model, g: int) -> np.ndarray:
     return rng.poisson(np.exp(np.clip(field, -3, 3))).astype(np.float32)
 
 
-def check(name: str, dtype, got, ref, tol_key: str, results: dict, ms=None, plain_ms=None, extra=""):
+def check(name: str, dtype, got, ref, tol_key: str, results: dict, ms=None, plain_ms=None, extra="",
+          cost=None, library_ms=None, shape=""):
     torch.cuda.synchronize()
     got = got if isinstance(got, (tuple, list)) else (got,)
     ref = ref if isinstance(ref, (tuple, list)) else (ref,)
@@ -256,12 +346,18 @@ def check(name: str, dtype, got, ref, tol_key: str, results: dict, ms=None, plai
         raise AssertionError(f"{name}: non-finite kernel output")
     abs_err, rel = rel_err(got, ref)
     tol = SN_TOL[dtype][tol_key]
+    bnd = bound(*cost, dtype) if cost is not None else None
     times = f" kernel_ms={ms:.3f} plain_ms={plain_ms:.3f}" if ms is not None else ""
+    if library_ms is not None:
+        times += f" library_ms={library_ms:.3f}"
+    if bnd is not None:
+        times += f" bound_ms={bnd['bound_ms']:.4f} ({bnd['bound_by']})"
     log(f"  {name} {dtype_name(dtype)}: max_abs_err={abs_err:.3e} rel={rel:.3e} (tol {tol:.0e}){times}{extra}")
     if not rel <= tol:
         raise AssertionError(f"{name} {dtype_name(dtype)}: kernel disagrees with its plain version ({rel:.3e})")
     if ms is not None:
-        results[tol_key] = {"max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms}
+        results[tol_key] = {"max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                            **(bnd or {}), "dtype": dtype_name(dtype), "shape": shape}
 
 
 def dtype_name(dtype) -> str:
@@ -280,6 +376,32 @@ def with_plain_steps(f):
     from tpu_gmrf_torch.solvers import supernodal as sn
 
     return dataclasses.replace(f, _ops=sn._PLAIN_OPS)
+
+
+def sn_costs(levels, B: int, el: int, nnz: int, nnzL: int, n: int) -> dict:
+    """(operations, bytes) of a whole factorization (K6), solve (K7) and
+    Takahashi sweep (K8) over the schedule's class batches, from each
+    supernode's live width ns and live row count m (Cholesky ns³/3, panel
+    solve m·ns², update m²·ns; the K5 reductions between levels, a few
+    percent of the work, are not counted) and the bytes of the values and
+    the class tables the steps read."""
+    ns_all, m_all, tabs = [], [], {k: 0 for k in ("panel", "cols", "rows", "schur")}
+    for lv in levels:
+        for c in lv.classes:
+            pan, W = c["panel"].cpu().numpy(), c["W"]
+            ns_all.append((pan[:, np.arange(W), np.arange(W)] != c["dummy"]).sum(1))
+            m_all.append((pan[:, W:, 0] != c["dummy"]).sum(1) if c["M"] else np.zeros(len(pan), np.int64))
+            for k in tabs:
+                tabs[k] += c[k].numel() * 4
+    ns, m = np.concatenate(ns_all).astype(float), np.concatenate(m_all).astype(float)
+    return {
+        "sn_panel": (B * float(np.sum(ns**3 / 3 + m * ns**2 + m**2 * ns)),
+                     el * B * (nnz + nnzL + 1) + tabs["panel"] + tabs["cols"]),
+        "sn_trsv": (B * float(np.sum(2 * ns**2 + 4 * m * ns)),
+                    el * B * (nnzL + 2 * n) + tabs["panel"] + tabs["cols"] + tabs["rows"]),
+        "sn_takahashi": (B * float(np.sum(2 * ns**3 / 3 + 2 * m * ns**2 + 2 * m**2 * ns)),
+                         el * B * 2 * (nnzL + 1) + tabs["panel"] + tabs["schur"]),
+    }
 
 
 def check_spatial_kernels(model, dtype, dev):
@@ -303,10 +425,13 @@ def check_spatial_kernels(model, dtype, dev):
     A, Bm = K.T, model.spde._on(rng_)["Cinv"] @ K
     fwd, back_a, _ = _MUL_CACHE[(A.pattern, Bm.pattern)][1]
     a, bd = A.data.contiguous(), Bm.data.contiguous()
+    el, shape = a.element_size(), f"B={B} n={n}"
     check("gather_segsum sp_matmul fwd", dtype, kernels.gather_segsum(fwd, a, y=bd),
           kernels.gather_segsum_plain(fwd, a, y=bd), "gather_segsum", results,
           cuda_ms(lambda: kernels.gather_segsum(fwd, a, y=bd)),
-          cuda_ms(lambda: kernels.gather_segsum_plain(fwd, a, y=bd)))
+          cuda_ms(lambda: kernels.gather_segsum_plain(fwd, a, y=bd)),
+          cost=(2 * B * len(fwd.xi), table_bytes(fwd) + el * B * (a.shape[1] + bd.shape[1] + fwd.rows)),
+          shape=shape)
     g = torch.tensor(rng.normal(size=(B, fwd.rows)), dtype=dtype, device=dev)
     check("gather_segsum sp_matmul bwd", dtype, kernels.gather_segsum(back_a, g, y=bd),
           kernels.gather_segsum_plain(back_a, g, y=bd), "gather_segsum", {})
@@ -321,7 +446,9 @@ def check_spatial_kernels(model, dtype, dev):
         return vals, s, nls
 
     check("fct_init", dtype, init(kernels.fct_init), init(kernels.fct_init_plain), "fct_init", results,
-          cuda_ms(lambda: init(kernels.fct_init)), cuda_ms(lambda: init(kernels.fct_init_plain)))
+          cuda_ms(lambda: init(kernels.fct_init)), cuda_ms(lambda: init(kernels.fct_init_plain)),
+          cost=(4 * B * post.nnz, table_bytes(dp["init"]) + el * B * (post.nnz + nnzL + 1 + 2 * n)), shape=shape)
+    costs = sn_costs(dp["levels"], B, el, post.nnz, nnzL, n)
     levels = dp["levels"]
     lv = max(levels, key=lambda lv: sum(e.rows for e in lv.schur))
     u = torch.tensor(rng.normal(size=(B, lv.zu + 1)), dtype=dtype, device=dev)
@@ -341,15 +468,17 @@ def check_spatial_kernels(model, dtype, dev):
         timing = label == "posterior"
         ms = (cuda_ms(lambda: sn.supernodal_factorize(Q), SN_REPS, 1),
               cuda_ms(lambda: plain_factorize(Q), SN_REPS, 1)) if timing else (None, None)
-        check(f"sn_panel factor vals [{label}]", dtype, fk.vals, fp.vals, "sn_panel", results, *ms, extra=boosts)
+        check(f"sn_panel factor vals [{label}]", dtype, fk.vals, fp.vals, "sn_panel", results, *ms, extra=boosts,
+              cost=costs["sn_panel"], shape=shape)
         check(f"sn_panel logdet [{label}]", dtype, fk.logdet(), fp.logdet(), "logdet", {},
               extra=f" logdet={fk.logdet().tolist()}")
         ms = (cuda_ms(lambda: fk.solve(b), SN_REPS, 1), cuda_ms(lambda: fkp.solve(b), SN_REPS, 1)) if timing \
             else (None, None)
-        check(f"sn_trsv solve [{label}]", dtype, fk.solve(b), fkp.solve(b), "sn_trsv", results, *ms)
+        check(f"sn_trsv solve [{label}]", dtype, fk.solve(b), fkp.solve(b), "sn_trsv", results, *ms,
+              cost=costs["sn_trsv"], shape=shape)
         ms = (cuda_ms(fk._sigma_vals, SN_REPS, 1), cuda_ms(fkp._sigma_vals, SN_REPS, 1)) if timing else (None, None)
         check(f"sn_takahashi sigma [{label}]", dtype, fk._sigma_vals(), fkp._sigma_vals(), "sn_takahashi",
-              results, *ms)
+              results, *ms, cost=costs["sn_takahashi"], shape=shape)
     return results
 
 
@@ -390,7 +519,9 @@ def gmrf_statistics(dev):
             f"{var:.8e} (f64 plain {var64:.8e}); boost {fk.boost.tolist()}")
 
 
-def spatial_logdensity(model, y):
+def spatial_logdensity(model, y, ga_iter: int = SP_GA_ITER, inner: str | None = "supernodal"):
+    """The bench's log-density over (τ, range); `inner` None is the default
+    (auto) inner solver."""
     import tpu_gmrf_torch as tg
     from tpu_gmrf_torch.samplers import LogTransform, ParamSpec, make_logdensity
 
@@ -398,7 +529,8 @@ def spatial_logdensity(model, y):
         tau=(LogTransform(), lambda t: -0.5 * torch.log(t) ** 2),
         range=(LogTransform(), lambda r: -0.5 * (torch.log(r) - np.log(0.3)) ** 2),
     )
-    opts = tg.GAOptions(max_iter=SP_GA_ITER, inner_solver=tg.SolverSpec(kind="supernodal"))
+    opts = tg.GAOptions(max_iter=ga_iter) if inner is None else \
+        tg.GAOptions(max_iter=ga_iter, inner_solver=tg.SolverSpec(kind=inner))
     obs = tg.ExponentialFamily("poisson")
     return make_logdensity(lambda th: tg.laplace_marginal(model, obs, y, th, options=opts), spec)
 
@@ -471,6 +603,14 @@ def logdensity(y):
     return make_logdensity(lambda th: tg.laplace_marginal(model, obs, y, th, options=opts), spec)
 
 
+def tg_resolve(model) -> str:
+    """The kind the default (auto) inner solver resolves to on `model`'s pattern."""
+    import tpu_gmrf_torch as tg
+
+    Q = model.precision(tau=torch.tensor(1.0, dtype=torch.float64), range=torch.tensor(0.3, dtype=torch.float64))
+    return tg.SolverSpec().resolve(Q.pattern).kind
+
+
 def launched(counts: dict, path: tuple, label: str) -> None:
     log(f"launches on the {label} main path: {counts}")
     missing = [k for k in path if counts[k] == 0]
@@ -512,6 +652,166 @@ def run_hmc(ld, z, steps, step_size, dev):
     return state, accepts, (time.perf_counter() - t0) / steps * 1e3
 
 
+# ---- phase 3c: the dense and banded kernels -------------------------------------
+
+
+def random_posterior(model, B: int, dtype, dev, seed: int):
+    """B posterior-like precisions of `model`: the prior at τ=1, range=0.3
+    plus a random positive diagonal (the Newton Hessian's role)."""
+    from tpu_gmrf_torch.sparse.matrix import spdiag
+
+    rng = np.random.default_rng(seed)
+    Q = model.precision(tau=torch.ones(B, dtype=dtype, device=dev), range=torch.full((B,), 0.3, dtype=dtype, device=dev))
+    return Q + spdiag(torch.tensor(np.exp(rng.normal(size=(B, model.n))), dtype=dtype, device=dev))
+
+
+def check_dense_kernels(dn_model, sp_model, dtype, dev):
+    """Phase 3c: K9-K10 at the g=16 posterior (B=8) and K11-K12 at n=5741
+    (B=4) against their plain versions and their library calls."""
+    from tpu_gmrf_torch import kernels
+    from tpu_gmrf_torch.solvers import banded as tb
+    from tpu_gmrf_torch.solvers import dense as td
+
+    results = {}
+    B, n = DN_CHAINS, dn_model.n
+    Q = random_posterior(dn_model, B, dtype, dev, 6)
+    data, t, el, shape = Q.data.contiguous(), td._tables(Q.pattern), Q.data.element_size(), f"B={B} n={n}"
+    got, ref = kernels.dense_chol(data, t), kernels.dense_chol_plain(data, t)
+    if got[2].tolist() != ref[2].tolist() or got[2].any():
+        raise AssertionError(f"dense_chol: rescue levels kernel {got[2].tolist()} plain {ref[2].tolist()}")
+    L, s = got[0], got[1]
+    A = L @ L.mT  # the equilibrated matrix K9 factors, for the library call
+    check("dense_chol", dtype, (L, s, got[3]), (ref[0], ref[1], ref[3]), "dense_chol", results,
+          cuda_ms(lambda: kernels.dense_chol(data, t)), cuda_ms(lambda: kernels.dense_chol_plain(data, t)),
+          cost=(B * n**3 / 3, table_bytes(t) + el * B * (Q.nnz + n * n + n + 1)),
+          library_ms=cuda_ms(lambda: torch.linalg.cholesky_ex(A)), shape=shape,
+          extra=f" (library: torch.linalg.cholesky_ex of the equilibrated (B, n, n))")
+    b = torch.tensor(np.random.default_rng(7).normal(size=(B, n, 1)), dtype=dtype, device=dev)
+    sb = s[..., None] * b
+    # the Newton solve: both triangles (mode 2), one right-hand side
+    check("dense_trsv solve", dtype, kernels.dense_trsv(L, s, b, 2), kernels.dense_trsv_plain(L, s, b, 2),
+          "dense_trsv", results, cuda_ms(lambda: kernels.dense_trsv(L, s, b, 2)),
+          cuda_ms(lambda: kernels.dense_trsv_plain(L, s, b, 2)),
+          cost=(B * 2 * n * n, el * B * (n * (n + 1) // 2 + 3 * n)),
+          library_ms=cuda_ms(lambda: torch.cholesky_solve(sb, L)), shape=f"{shape} k=1",
+          extra=" (library: torch.cholesky_solve, both triangles)")
+    for mode, label in ((0, "L^-1"), (1, "L^-T")):
+        check(f"dense_trsv {label}", dtype, kernels.dense_trsv(L, s, b, mode), kernels.dense_trsv_plain(L, s, b, mode),
+              "dense_trsv", {}, extra=f" solve_triangular {cuda_ms(lambda: torch.linalg.solve_triangular(L, sb, upper=False)):.3f} ms"
+              if mode == 0 else "")
+    # K10's second entry: Σ on Q's pattern (DenseLogdet's backward, selinv)
+    r, c = t.on(dev)["rows"], t.on(dev)["cols"]
+    rl, cl = r.long(), c.long()
+    terms = float((n - torch.maximum(rl, cl)).sum())  # products of the row dots: X is upper triangular
+    check("dense_selinv Σ on Q's pattern", dtype, kernels.dense_selinv(L, s, r, c),
+          kernels.dense_selinv_plain(L, s, r, c), "dense_selinv", results,
+          cuda_ms(lambda: kernels.dense_selinv(L, s, r, c), 5), cuda_ms(lambda: kernels.dense_selinv_plain(L, s, r, c), 5),
+          cost=(B * (n**3 / 3 + 2 * terms), 8 * Q.nnz + el * B * (n * (n + 1) // 2 + n + Q.nnz)),
+          shape=f"{shape} m={Q.nnz}",
+          extra=f" (library: none; torch.cholesky_inverse, all of Q⁻¹ without the gather, "
+                f"{cuda_ms(lambda: torch.cholesky_inverse(L), 5):.3f} ms)")
+
+    B, n = SP_CHAINS, sp_model.n
+    Q = random_posterior(sp_model, B, dtype, dev, 8)
+    data, t = Q.data.contiguous(), tb._tables(Q.pattern, None)
+    K, sblk, shape = t.K, t.s, f"B={B} n={n} s={t.s} K={t.K}"
+    P, boost, logdet = kernels.bt_factor(data, t)
+    Pp, boostp, logdetp = kernels.bt_factor_plain(data, t)
+    if boost.tolist() != boostp.tolist() or (dtype == torch.float64 and boost.any()):
+        raise AssertionError(f"bt_factor: boosts kernel {boost.tolist()} plain {boostp.tolist()}")
+    flops = B * sum(sblk**3 / 3 + (2 * sblk**3 if k < K - 1 else 0) for k in range(K))
+    check("bt_factor", dtype, (P, logdet), (Pp, logdetp), "bt_factor", results,
+          cuda_ms(lambda: kernels.bt_factor(data, t), 5), cuda_ms(lambda: kernels.bt_factor_plain(data, t), 5),
+          cost=(flops, table_bytes(t) + el * B * (Q.nnz + K * 2 * sblk * sblk + 1) + 4 * B), shape=shape,
+          extra=f" boost {boost.tolist()}")
+    rows = torch.tensor(np.random.default_rng(9).normal(size=(B, n)), dtype=dtype, device=dev)
+    check("bt_trsv solve", dtype, kernels.bt_trsv(P, t, rows, 1, 2), kernels.bt_trsv_plain(P, t, rows, 1, 2),
+          "bt_trsv", results, cuda_ms(lambda: kernels.bt_trsv(P, t, rows, 1, 2)),
+          cuda_ms(lambda: kernels.bt_trsv_plain(P, t, rows, 1, 2)),
+          cost=(B * (2 * K * sblk**2 + 4 * (K - 1) * sblk**2),
+                4 * n + el * B * (K * sblk * (sblk + 1) // 2 + (K - 1) * sblk**2 + 2 * n)), shape=f"{shape} k=1")
+    for mode in (0, 1):
+        check(f"bt_trsv mode {mode}", dtype, kernels.bt_trsv(P, t, rows, 1, mode),
+              kernels.bt_trsv_plain(P, t, rows, 1, mode), "bt_trsv", {},
+              extra=f" kernel_ms={cuda_ms(lambda: kernels.bt_trsv(P, t, rows, 1, mode)):.3f}")
+    # the path for a permuted vector beyond shared memory (npad·size > SMEM_MAX), forced here
+    from unittest import mock
+
+    with mock.patch.object(kernels.banded, "SMEM_MAX", 0):
+        check("bt_trsv solve, vector in global memory", dtype, kernels.bt_trsv(P, t, rows, 1, 2),
+              kernels.bt_trsv_plain(P, t, rows, 1, 2), "bt_trsv", {},
+              extra=f" kernel_ms={cuda_ms(lambda: kernels.bt_trsv(P, t, rows, 1, 2)):.3f}")
+    # the banded Takahashi sweep: K8 once per block (W = M = s), off the NUTS path
+    meta = (Q.pattern, None)
+    check("sn_takahashi banded sigma", dtype, tb._sigma_vals(P, meta),
+          tb._sigma_vals(P, meta, kernels.sn_takahashi_plain), "sn_takahashi", {},
+          extra=f" kernel_ms={cuda_ms(lambda: tb._sigma_vals(P, meta), 3, 1):.3f} plain_ms="
+                f"{cuda_ms(lambda: tb._sigma_vals(P, meta, kernels.sn_takahashi_plain), 3, 1):.3f} (whole sweep)")
+    return results
+
+
+# ---- phases 9-11: run_nuts ----------------------------------------------------------
+
+
+def timed_nuts(ld, init, warmup: int, samples: int, depth: int, seed: int = 3):
+    """run_nuts with its wall time (synchronized) and the launches it made."""
+    import tpu_gmrf_torch as tg
+    from tpu_gmrf_torch import kernels
+
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = tg.run_nuts(ld, seed, init, num_warmup=warmup, num_samples=samples, max_depth=depth)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = kernels.launches()
+    if not bool(torch.isfinite(res.samples).all()):
+        raise AssertionError("run_nuts samples are not finite")
+    return res, secs, counts
+
+
+def timed_value_and_grad(ld, z):
+    """One value+grad with its wall time in ms (synchronized) and the launches it made."""
+    from tpu_gmrf_torch import kernels
+    from tpu_gmrf_torch.samplers import value_and_grad
+
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = value_and_grad(ld, z)
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3, kernels.launches()
+
+
+def nuts_line(res, secs: float) -> str:
+    chains, samples = res.samples.shape[:2]
+    return (f"{chains * samples / secs:.4f} samples/s ({chains} chains x {samples} draws in {secs:.1f} s, warmup "
+            f"included), depth per sampling transition mean {res.depth.float().mean():.2f} max "
+            f"{int(res.depth.max())}, mean acceptance {res.accept_prob.mean():.3f}, divergences "
+            f"{int(res.diverging.sum())}, step sizes {[round(x, 4) for x in res.step_size.tolist()]}")
+
+
+def nuts_fixed_draws(ld, z, step_size, inv_mass, depth: int, dev):
+    """One NUTS transition with the same fixed draws on the kernels (CUDA
+    tensors) and on the plain path (CPU tensors, float64)."""
+    from tpu_gmrf_torch.samplers import NUTSDraws, hmc_init, nuts_transition
+
+    gen = torch.Generator().manual_seed(11)
+    B, d = z.shape
+    kw = dict(generator=gen, dtype=torch.float64)
+    im = inv_mass.double().cpu()
+    draws = NUTSDraws(torch.randn((B, d), **kw) * torch.sqrt(1.0 / im), torch.rand((B, depth), **kw),
+                      torch.rand((B, depth), **kw), torch.rand((B, depth, 2 ** (depth - 1)), **kw))
+    out = {}
+    for where in (dev, torch.device("cpu")):
+        zz = z.double().to(where)
+        dr = NUTSDraws(*(x.to(where) for x in draws))
+        t0 = time.perf_counter()
+        out[where.type] = nuts_transition(ld, hmc_init(ld, zz), dr, step_size.double().to(where), im.to(where), depth)
+        out[where.type + "_s"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -543,6 +843,12 @@ def main() -> int:
     sp_model = spatial_model(SP_GRID)
     check_spatial_kernels(sp_model, torch.float64, dev)
     results.update(check_spatial_kernels(sp_model, torch.float32, dev))
+
+    log(f"phase 3c kernels K9-K12 vs plain and library: dense at g={DN_GRID} B={DN_CHAINS}, banded at g={SP_GRID} "
+        f"B={SP_CHAINS}, on {card}")
+    dn_model = spatial_model(DN_GRID)
+    check_dense_kernels(dn_model, sp_model, torch.float32, dev)
+    results.update(check_dense_kernels(dn_model, sp_model, torch.float64, dev))  # the NUTS paths run float64
 
     log(f"phase 4 flagship slice: laplace_marginal value+grad, B={CHAINS}, n={N}, max_iter={GA_MAX_ITER}")
     y = flagship_y()
@@ -636,10 +942,68 @@ def main() -> int:
         f"{sp_hmc_ms:.1f} ms per step, mean acceptance {np.mean(sp_accepts):.3f} "
         f"(per step {', '.join(f'{a:.3f}' for a in sp_accepts)}) on {card}")
 
+    w, ns_, dp_ = NUTS_FLAGSHIP["warmup"], NUTS_FLAGSHIP["samples"], NUTS_FLAGSHIP["depth"]
+    log(f"phase 9 flagship run_nuts: B={CHAINS}, n={N}, f32, max_depth {dp_}, {w} warmup + {ns_} samples "
+        f"(cut from the bench's 100 + 100)")
+    # ---- flagship NUTS main path ----
+    res, secs, counts9 = timed_nuts(ld, torch.zeros(CHAINS, 2, dtype=torch.float32, device=dev), w, ns_, dp_, 1)
+    # ---- end of the flagship NUTS main path ----
+    launched(counts9, FLAGSHIP_KERNELS, "flagship NUTS")
+    log(f"  flagship NUTS: {nuts_line(res, secs)} on {card}")
+
+    cfg = NUTS_G16
+    log(f"phase 10 spatial run_nuts at g={cfg['grid']}: n={dn_model.n}, {cfg['chains']} chains, max_depth "
+        f"{cfg['depth']}, {cfg['warmup']} warmup + {cfg['samples']} samples (uncut), ga_iters {cfg['ga_iter']}, "
+        f"supernodal prior, inner solver auto -> {tg_resolve(dn_model)}, f64")
+    ld16 = spatial_logdensity(dn_model, spatial_y(dn_model, cfg["grid"]), cfg["ga_iter"], inner=None)
+    init16 = torch.tensor(np.tile([0.0, np.log(0.3)], (cfg["chains"], 1)), dtype=torch.float64, device=dev)
+    # ---- g=16 NUTS main path ----
+    res, secs, counts10 = timed_nuts(ld16, init16, cfg["warmup"], cfg["samples"], cfg["depth"])
+    # ---- end of the g=16 NUTS main path ----
+    launched(counts10, NUTS_G16_KERNELS, "g=16 NUTS")
+    log(f"  g=16 NUTS: {nuts_line(res, secs)} on {card}")
+
+    cfg = NUTS_5741
+    log(f"phase 11 spatial run_nuts at n={sp_model.n}: {cfg['chains']} chains, max_depth {cfg['depth']}, "
+        f"{cfg['warmup']} warmup + {cfg['samples']} samples (uncut), ga_iters {cfg['ga_iter']}, supernodal prior, "
+        f"inner solver auto -> {tg_resolve(sp_model)}, f64")
+    ld11 = spatial_logdensity(sp_model, sp_y, cfg["ga_iter"], inner=None)
+    init11 = torch.tensor(np.tile([0.0, np.log(0.3)], (cfg["chains"], 1)), dtype=torch.float64, device=dev)
+    # ---- n=5741 NUTS main path ----
+    res, secs, counts11 = timed_nuts(ld11, init11, cfg["warmup"], cfg["samples"], cfg["depth"])
+    # ---- end of the n=5741 NUTS main path ----
+    launched(counts11, NUTS_5741_KERNELS, "n=5741 NUTS")
+    log(f"  n={sp_model.n} NUTS: {nuts_line(res, secs)} on {card}; depth per transition "
+        f"{res.depth.tolist()}; launches of K4-K12 "
+        f"{ {k: v for k, v in counts11.items() if not k.startswith('tridiag')} }")
+    z = res.samples[:, -1].contiguous()
+    (vb, gb), banded_ms, one_vg = timed_value_and_grad(ld11, z)
+    (vs, gs), sn_ms, _ = timed_value_and_grad(
+        spatial_logdensity(sp_model, sp_y, cfg["ga_iter"], inner="supernodal"), z)
+    log(f"  one value+grad at the last draws: {banded_ms:.1f} ms on the banded inner solver, {sn_ms:.1f} ms on "
+        f"the supernodal one, on {card}; launches per value+grad on the banded path "
+        f"{ {k: v for k, v in one_vg.items() if v} }")
+    v_rel, g_rel, per_chain = slice_errors(vb, gb, vs, gs)
+    log(f"  value+grad, banded inner vs supernodal inner, same θ: value max rel {v_rel:.3e} (tol "
+        f"{NUTS_TOL['value']:.0e}), grad max rel {g_rel:.3e} (tol {NUTS_TOL['grad']:.0e}){per_chain}")
+    if not (v_rel <= NUTS_TOL["value"] and g_rel <= NUTS_TOL["grad"]):
+        raise AssertionError("the banded and supernodal inner solvers disagree")
+    fixed = nuts_fixed_draws(ld11, z, res.step_size, res.inv_mass, cfg["depth"], dev)
+    (sk, ik), (sp_, ip) = fixed["cuda"], fixed["cpu"]
+    pos_err = float((sk.position.cpu() - sp_.position).abs().max())
+    log(f"  nuts_transition, fixed draws, kernels vs plain (CPU tensors): depth {ik.depth.tolist()} / "
+        f"{ip.depth.tolist()}, leaves {ik.num_leaves.tolist()} / {ip.num_leaves.tolist()}, positions max abs "
+        f"diff {pos_err:.3e} (tol {NUTS_TOL['position']:.0e}); {fixed['cuda_s']:.2f} s on the card, "
+        f"{fixed['cpu_s']:.2f} s on the host CPU")
+    if ik.depth.tolist() != ip.depth.tolist() or ik.num_leaves.tolist() != ip.num_leaves.tolist() \
+            or not pos_err <= NUTS_TOL["position"]:
+        raise AssertionError("nuts_transition on the kernels disagrees with the plain path")
+
+    paths = (counts, sp_counts, counts9, counts10, counts11)
     report = {
         "kernels": [
             {"name": name, "route": "cuda", "source": SOURCES[name][0], "replaces": SOURCES[name][1],
-             "launches": counts[name] + sp_counts[name], **results[name]}
+             "launches": sum(c[name] for c in paths), **results[name]}
             for name in kernels.KERNELS
         ]
     }

@@ -29,11 +29,15 @@ from tpu_gmrf.fem import discretization as jdisc
 from tpu_gmrf.fem import mesh as jmesh
 from tpu_gmrf.fem import spde as jspde
 from tpu_gmrf.solvers.base import SolverSpec as JaxSolverSpec
+from tpu_gmrf_torch import set_default_device
 import tpu_gmrf_torch as tg
 from tpu_gmrf_torch import interop
 from tpu_gmrf_torch.fem import discretization as tdisc
 from tpu_gmrf_torch.fem import mesh as tmesh
 from tpu_gmrf_torch.fem import spde as tspde
+
+# these tests hold the plain versions (CPU tensors) against the JAX package
+set_default_device("cpu")
 
 F64 = torch.float64
 

@@ -20,10 +20,14 @@ from tpu_gmrf import MaternModel as JaxMatern
 from tpu_gmrf.solvers import supernodal as jsn
 from tpu_gmrf.sparse.matrix import SparseMatrix as JaxSparseMatrix
 from tpu_gmrf.sparse.pattern import SparsePattern as JaxPattern
+from tpu_gmrf_torch import set_default_device
 from tpu_gmrf_torch import interop, kernels
 from tpu_gmrf_torch.solvers import supernodal as tsn
 from tpu_gmrf_torch.sparse.matrix import SparseMatrix, sp_add, sp_matmul
 from tpu_gmrf_torch.sparse.pattern import SparsePattern
+
+# these tests hold the plain versions (CPU tensors) against the JAX package
+set_default_device("cpu")
 
 F64 = torch.float64
 RTOL = 1e-10

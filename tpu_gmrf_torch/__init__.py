@@ -5,18 +5,24 @@ batch axis B written out (no vmap): sparse data is (nnz,) or (B, nnz) over
 one pattern, latent vectors are (B, n) and θ entries (B,). The hot path
 runs on hand-written CUDA kernels (``tpu_gmrf_torch.kernels``), built
 with nvcc at first use on a CUDA tensor; CPU tensors take their plain
-PyTorch versions. This package never imports JAX.
+PyTorch versions. Tensors a caller passes keep their device; Python
+numbers and NumPy arrays go to the default device, ``"cuda"`` unless
+`set_default_device` says otherwise. This package never imports JAX.
 """
 
+from ._device import default_device, set_default_device
 from .fem import MaternModel
 from .gmrf import GMRF
 from .inference import GAOptions, gaussian_approximation, laplace_marginal, marginal_loglikelihood
 from .models import AR1Model, ARModel, LatentModel
 from .observations import ExponentialFamily
+from .samplers import IdentityTransform, LogitTransform, LogTransform, ParamSpec, make_logdensity, run_hmc, run_nuts
 from .solvers import SolverSpec, factorize
 from .sparse import SparseMatrix, SparsePattern
 
 __all__ = [
+    "set_default_device",
+    "default_device",
     "GMRF",
     "SparseMatrix",
     "SparsePattern",
@@ -31,4 +37,11 @@ __all__ = [
     "gaussian_approximation",
     "marginal_loglikelihood",
     "laplace_marginal",
+    "IdentityTransform",
+    "LogitTransform",
+    "LogTransform",
+    "ParamSpec",
+    "make_logdensity",
+    "run_hmc",
+    "run_nuts",
 ]

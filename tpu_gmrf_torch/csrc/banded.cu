@@ -1,0 +1,278 @@
+// K11 bt_factor and K12 bt_trsv: the RCM block-tridiagonal Cholesky of B
+// chains and its block substitutions.
+//
+// Replaces (JAX reference, tpu_gmrf/solvers/banded.py):
+//   K11 :354-388 `banded_factorize`: symmetrize Q (when its pattern is
+//       symmetric), scatter it through the plan's d_idx / e_idx into the
+//       diagonal blocks D_k and the sub-diagonal blocks E_k (s x s; a unit
+//       diagonal on the padding rows), then the scan `step` (:376):
+//       L_k = chol_boosted(D_k - U_{k-1}), M_k = E_k L_k^-T, U_k = M_k M_k^T,
+//       with supernodal.py:775 `_chol_boosted` semantics (breakdown at a
+//       non-finite pivot or one <= 30 eps; retry + delta I, delta = 2e-6 s;
+//       then + (Gershgorin bound + delta) I), plus the logdet (:204-206);
+//   K12 :145 `forward_solve_blocks` and :162 `backward_solve_blocks` with
+//       the permutation and padding of :135-202 (`_to_blocks`,
+//       `_from_blocks`): y_k = L_k^-1 (b_k - M_{k-1} y_{k-1}),
+//       x_k = L_k^-T (y_k - M_k^T x_{k+1}).
+//
+// What bounds them on the card. K11 does about K s^3 (7/3) flops per chain
+// (n = 5741, s = 512, K = 12, B = 4: ~1.5e10) on K 2 s^2 values: bound by
+// the FMA rate of the trailing updates and, at B = 4, by the latency of the
+// dependent diagonal tiles (K s / 64 of them per factorization, one block
+// per chain each). K12 reads L and M once per direction: bound by that read
+// from one block per right-hand side.
+// Design: chain b's factor is one array P[b] of K panels (2s x s each, rows
+// 0..s the diagonal block, rows s..2s the sub-diagonal block below it); a
+// panel is factored by the blocked panel Cholesky of dense_blocks.cuh, so
+// L_k and M_k come out of one pass, and U_k is applied to the next panel's
+// diagonal block as it stands (one trailing update). The pivot boost is
+// decided as the reference decides it, per chain and block: a fast pass
+// factors every chain without boost and flags breakdowns; one flag readback
+// follows; the chains that broke down (rare: f32 at extreme conditioning)
+// are redone from the scatter on, block by block, each block retried as
+// `_chol_boosted` does. K12 runs one block per (chain, right-hand side)
+// with the whole permuted vector in shared memory, or, when it does not
+// fit (npad above ~25k in float64), in a global workspace row.
+
+#include "dense_blocks.cuh"
+
+namespace {
+
+using namespace tgdense;
+
+// P[b][dst[e]] = Q's value at src[e] (averaged with its transpose when
+// tperm is given), or 1 where src[e] < 0 (padding diagonal). The host has
+// checked that dst holds no position twice.
+template <typename T>
+__global__ void bt_scatter_kernel(const T* data, long long ds, const int* src, const int* dst, int ntab,
+                                  const int* tperm, T* P, long long pstride, const int* active) {
+  const long long b = blockIdx.y;
+  if (active && !active[b]) return;
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= ntab) return;
+  const int p = src[e];
+  T v = T(1);
+  if (p >= 0) {
+    const T* d = data + b * ds;
+    v = tperm ? T(0.5) * (d[p] + d[tperm[p]]) : d[p];
+  }
+  P[b * pstride + dst[e]] = v;
+}
+
+// dst[b][0:count] = src[b][0:count] (rows of s), plus (delta + dom[b]) on
+// the diagonal (dom may be null), for the chains in `active`.
+template <typename T>
+__global__ void copy_shift_kernel(T* dst, long long dstride, const T* src, long long sstride, long long count, int s,
+                                  T delta, const T* dom, const int* active) {
+  const long long b = blockIdx.y;
+  if (!active[b]) return;
+  const T shift = dom ? dom[b] + delta : delta;
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < count;
+       i += (long long)gridDim.x * blockDim.x) {
+    T v = src[b * sstride + i];
+    if (i / s == i % s) v += shift;
+    dst[b * dstride + i] = v;
+  }
+}
+
+template <typename T>
+int copy_shift(T* dst, long long dstride, const T* src, long long sstride, long long count, int s, T delta,
+               const T* dom, const int* active, int B, cudaStream_t st) {
+  const long long want = (count + kThreads - 1) / kThreads;
+  copy_shift_kernel<T><<<dim3(want < 1024 ? (int)want : 1024, B), kThreads, 0, st>>>(dst, dstride, src, sstride,
+                                                                                       count, s, delta, dom, active);
+  return (int)cudaGetLastError();
+}
+
+// Gershgorin bound of the symmetric s x s block stored as its lower
+// triangle: the largest absolute row sum (NaN if any entry is NaN).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    bt_dom_kernel(const T* W, long long wstride, int s, T* dom, const int* active) {
+  __shared__ T red[kThreads];
+  const long long b = blockIdx.x;
+  if (!active[b]) return;
+  const T* D = W + b * wstride;
+  T m = T(0);
+  for (int i = threadIdx.x; i < s; i += blockDim.x) {
+    T acc = T(0);
+    for (int j = 0; j <= i; ++j) acc += fabs(D[(long long)i * s + j]);
+    for (int j = i + 1; j < s; ++j) acc += fabs(D[(long long)j * s + i]);
+    m = (acc > m || isnan(acc)) ? acc : m;
+  }
+  red[threadIdx.x] = m;
+  __syncthreads();
+  for (int off = blockDim.x / 2; off > 0; off >>= 1) {
+    if ((int)threadIdx.x < off) {
+      const T o = red[threadIdx.x + off];
+      if (o > red[threadIdx.x] || isnan(o)) red[threadIdx.x] = o;
+    }
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) dom[b] = red[0];
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) bt_logdet_kernel(const T* P, long long pstride, int K, int s, T* logdet) {
+  __shared__ T red[kThreads];
+  const long long b = blockIdx.x;
+  const long long panel = 2LL * s * s;
+  T acc = T(0);
+  for (int e = threadIdx.x; e < K * s; e += blockDim.x) {
+    const int k = e / s, i = e % s;
+    acc += log(P[b * pstride + k * panel + (long long)i * s + i]);
+  }
+  red[threadIdx.x] = acc;
+  __syncthreads();
+  for (int off = blockDim.x / 2; off > 0; off >>= 1) {
+    if ((int)threadIdx.x < off) red[threadIdx.x] += red[threadIdx.x + off];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) logdet[b] = T(2) * red[0];
+}
+
+// Panel k of the chains in `active`: factor it; then, if a next block
+// exists, D_{k+1} -= M_k M_k^T.
+template <typename T>
+int factor_block(T* P, long long pstride, int k, int K, int s, T tiny, const int* active, int* fail, int B,
+                 cudaStream_t st) {
+  const long long panel = 2LL * s * s;
+  T* Pk = P + k * panel;
+  int rc = factor_panels<T>(Pk, pstride, s, k < K - 1 ? 2 * s : s, s, tiny, active, fail, B, st);
+  if (rc || k == K - 1) return rc;
+  syrk_lower_kernel<T><<<dim3(cdiv(s, kGB), cdiv(s, kGB), B), kThreads, 0, st>>>(
+      Pk + panel, pstride, s, Pk + (long long)s * s, pstride, s, s, s, s, active);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_factor(const T* data, long long ds, const int* src, const int* dst, int ntab, const int* tperm, T* P,
+                  int K, int s, T* ws, T* dom, int* boost, T* logdet, int* flags, int B, void* stream) {
+  if (B == 0) return 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  int* fail = flags;
+  int* redo = flags + B;
+  int* r1 = flags + 2 * B;
+  int* r2 = flags + 3 * B;
+  const long long panel = 2LL * s * s, pstride = panel * K;
+  const T tiny = T(30) * Eps<T>::v, delta = T(2e-6 * s);
+  const dim3 sgrid(cdiv(ntab, kThreads), B);
+  int rc = (int)cudaMemsetAsync(fail, 0, sizeof(int) * B, st);
+  if (!rc) rc = (int)cudaMemsetAsync(boost, 0, sizeof(int) * B, st);
+  if (!rc) rc = (int)cudaMemsetAsync(P, 0, sizeof(T) * pstride * B, st);
+  if (rc) return rc;
+  // fast pass: every chain, every block, no boost
+  bt_scatter_kernel<T><<<sgrid, kThreads, 0, st>>>(data, ds, src, dst, ntab, tperm, P, pstride, nullptr);
+  if ((rc = (int)cudaGetLastError())) return rc;
+  for (int k = 0; k < K && !rc; ++k) rc = factor_block<T>(P, pstride, k, K, s, tiny, nullptr, fail, B, st);
+  bool any;
+  if (rc || (rc = any_failed(fail, B, st, &any))) return rc;
+  if (any) {
+    // the chains that broke down are redone block by block with the boost
+    if ((rc = take_failed(nullptr, fail, redo, nullptr, B, st))) return rc;
+    if ((rc = fill<T>(P, pstride, pstride, T(0), redo, B, st))) return rc;
+    bt_scatter_kernel<T><<<sgrid, kThreads, 0, st>>>(data, ds, src, dst, ntab, tperm, P, pstride, redo);
+    if ((rc = (int)cudaGetLastError())) return rc;
+    for (int k = 0; k < K; ++k) {
+      T* Pk = P + k * panel;
+      const long long count = (long long)(k < K - 1 ? 2 * s : s) * s;
+      if ((rc = copy_shift<T>(ws, panel, Pk, pstride, count, s, T(0), nullptr, redo, B, st))) return rc;
+      if ((rc = factor_panels<T>(Pk, pstride, s, k < K - 1 ? 2 * s : s, s, tiny, redo, fail, B, st))) return rc;
+      if ((rc = any_failed(fail, B, st, &any))) return rc;
+      if (any) {
+        if ((rc = take_failed(redo, fail, r1, boost, B, st))) return rc;
+        if ((rc = copy_shift<T>(Pk, pstride, ws, panel, count, s, delta, nullptr, r1, B, st))) return rc;
+        if ((rc = factor_panels<T>(Pk, pstride, s, k < K - 1 ? 2 * s : s, s, tiny, r1, fail, B, st))) return rc;
+        if ((rc = any_failed(fail, B, st, &any))) return rc;
+        if (any) {
+          // the last attempt is PD by Gershgorin; it is not checked
+          if ((rc = take_failed(r1, fail, r2, nullptr, B, st))) return rc;
+          bt_dom_kernel<T><<<B, kThreads, 0, st>>>(ws, panel, s, dom, r2);
+          if ((rc = (int)cudaGetLastError())) return rc;
+          if ((rc = copy_shift<T>(Pk, pstride, ws, panel, count, s, delta, dom, r2, B, st))) return rc;
+          if ((rc = factor_panels<T>(Pk, pstride, s, k < K - 1 ? 2 * s : s, s, tiny, r2, fail, B, st))) return rc;
+          if ((rc = (int)cudaMemsetAsync(fail, 0, sizeof(int) * B, st))) return rc;
+        }
+      }
+      if (k < K - 1) {
+        syrk_lower_kernel<T><<<dim3(cdiv(s, kGB), cdiv(s, kGB), B), kThreads, 0, st>>>(
+            Pk + panel, pstride, s, Pk + (long long)s * s, pstride, s, s, s, s, redo);
+        if ((rc = (int)cudaGetLastError())) return rc;
+      }
+    }
+  }
+  bt_logdet_kernel<T><<<B, kThreads, 0, st>>>(P, pstride, K, s, logdet);
+  return (int)cudaGetLastError();
+}
+
+// One block per (chain, right-hand side) row of b / out (R, n), chain-major:
+// v = b permuted and padded (in shared memory, or in row `row` of the
+// (R, K s) workspace when one is given), forward (mode 0), backward (mode 1)
+// or both (mode 2) block substitution, out = v unpermuted.
+template <typename T>
+__global__ void __launch_bounds__(kVecThreads)
+    bt_trsv_kernel(const T* P, long long pstride, int K, int s, int n, const int* perm, const T* b, T* out, int k,
+                   int mode, T* work) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* v = work ? work + (long long)blockIdx.x * K * s : reinterpret_cast<T*>(smem_raw);  // K s
+  __shared__ T red[kVecThreads];
+  const long long row = blockIdx.x;
+  const T* Pb = P + (row / k) * pstride;
+  const T* br = b + row * n;
+  T* orow = out + row * n;
+  const long long panel = 2LL * s * s;
+  for (int j = threadIdx.x; j < K * s; j += blockDim.x) v[j] = j < n ? br[perm[j]] : T(0);
+  __syncthreads();
+  if (mode != 1) {
+    for (int blk = 0; blk < K; ++blk) {
+      T* vb = v + (long long)blk * s;
+      if (blk) sub_matvec(vb, Pb + (blk - 1) * panel + (long long)s * s, s, vb - s, s, s);
+      __syncthreads();
+      tri_lower_solve(Pb + blk * panel, s, vb, s);
+    }
+  }
+  if (mode != 0) {
+    for (int blk = K - 1; blk >= 0; --blk) {
+      T* vb = v + (long long)blk * s;
+      if (blk < K - 1) sub_matvec_t(vb, Pb + blk * panel + (long long)s * s, s, vb + s, s, s, red);
+      __syncthreads();
+      tri_lower_t_solve(Pb + blk * panel, s, vb, s, red);
+    }
+  }
+  for (int j = threadIdx.x; j < n; j += blockDim.x) orow[perm[j]] = v[j];
+}
+
+template <typename T>
+int launch_trsv(const T* P, int K, int s, int n, const int* perm, const T* b, T* out, int k, int mode, int R,
+                T* work, void* stream) {
+  if (R == 0) return 0;
+  const size_t smem = work ? 0 : sizeof(T) * (size_t)K * s;
+  int rc = set_smem(bt_trsv_kernel<T>, smem);
+  if (rc) return rc;
+  bt_trsv_kernel<T><<<R, kVecThreads, smem, (cudaStream_t)stream>>>(P, 2LL * s * s * K, K, s, n, perm, b, out, k,
+                                                                 mode, work);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+#define TG_BT_ENTRY(SUF, T)                                                                                     \
+  int tg_bt_factor_##SUF(const T* data, long long ds, const int* src, const int* dst, int ntab,               \
+                         const int* tperm, T* P, int K, int s, T* ws, T* dom, int* boost, T* logdet,          \
+                         int* flags, int B, void* stream) {                                                   \
+    return launch_factor<T>(data, ds, src, dst, ntab, tperm, P, K, s, ws, dom, boost, logdet, flags, B,       \
+                            stream);                                                                          \
+  }                                                                                                           \
+  int tg_bt_trsv_##SUF(const T* P, int K, int s, int n, const int* perm, const T* b, T* out, int k, int mode, \
+                       int R, T* work, void* stream) {                                                        \
+    return launch_trsv<T>(P, K, s, n, perm, b, out, k, mode, R, work, stream);                                \
+  }
+
+TG_BT_ENTRY(f32, float)
+TG_BT_ENTRY(f64, double)
+
+#undef TG_BT_ENTRY
+
+}  // extern "C"

@@ -37,28 +37,17 @@
 // column tiles held in shared memory with the rank-tile update of the
 // trailing columns and of U fused (`factor_tiled`). K8 keeps its operands
 // in shared memory or in a workspace slice the same way and does its
-// products with a shared-memory tiled block GEMM (`block_gemm`). The pivot
+// products with the shared-memory tiled block GEMM `block_gemm` of
+// dense_blocks.cuh (the tile K9-K12's trailing updates use). The pivot
 // boost of the reference is decided per block, exactly as the reference
 // decides it per batch element. No tensor cores: wgmma tiling and a
 // multi-block path for the few top separators are later work.
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include "dense_blocks.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-
-template <typename T>
-struct Eps;
-template <>
-struct Eps<float> {
-  static constexpr float v = 1.1920928955078125e-07f;
-};
-template <>
-struct Eps<double> {
-  static constexpr double v = 2.220446049250313e-16;
-};
+using namespace tgdense;  // kThreads, Eps, set_smem, the tiled block product block_gemm
 
 // Live width ns (diagonal of the D block present) and live row count m
 // (column 0 of the Bm block present) of one panel.
@@ -73,67 +62,6 @@ __device__ void live_dims(const int* pidx, int W, int M, int dummy, int* s_ns, i
     *s_m = m;
   }
   __syncthreads();
-}
-
-// ---- shared: a block-level GEMM -------------------------------------------
-
-constexpr int kGB = 64, kGK = 16;  // output tile and depth step of block_gemm
-constexpr int kLd = kGB + 1;       // padded row of the staged operand tiles (no bank conflicts)
-
-// Cm = beta Cm + alpha A B over one block, with A(i,k) = A[i sai + k sak] and
-// B(k,j) = B[k sbk + j sbj] (transposes are strides). 64 x 64 output tiles,
-// 16-deep operand tiles staged in shared memory (As, Bs: kGK x kLd each),
-// 4 x 4 outputs per thread in registers. `lower` computes and writes only
-// j <= i.
-template <typename T>
-__device__ void block_gemm(T* Cm, long long ldc, const T* A, long long sai, long long sak, const T* B,
-                           long long sbk, long long sbj, int Mr, int Nc, int Kd, T alpha, T beta,
-                           bool lower, T* As, T* Bs) {
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  for (int i0 = 0; i0 < Mr; i0 += kGB) {
-    for (int j0 = 0; j0 < Nc; j0 += kGB) {
-      if (lower && j0 > i0 + kGB - 1) continue;
-      T acc[4][4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[r][c] = T(0);
-      for (int k0 = 0; k0 < Kd; k0 += kGK) {
-        // neighbouring lanes load along each operand's unit stride (coalesced)
-        for (int e = threadIdx.x; e < kGB * kGK; e += blockDim.x) {
-          const int ii = sai == 1 ? e % kGB : e / kGK, ka = sai == 1 ? e / kGB : e % kGK;
-          const int jj = sbk == 1 ? e / kGK : e % kGB, kb = sbk == 1 ? e % kGK : e / kGB;
-          const int gi = i0 + ii, gka = k0 + ka, gkb = k0 + kb, gj = j0 + jj;
-          As[ka * kLd + ii] = (gi < Mr && gka < Kd) ? A[gi * sai + gka * sak] : T(0);
-          Bs[kb * kLd + jj] = (gkb < Kd && gj < Nc) ? B[gkb * sbk + gj * sbj] : T(0);
-        }
-        __syncthreads();
-#pragma unroll 4
-        for (int kk = 0; kk < kGK; ++kk) {
-          T a[4], b[4];
-#pragma unroll
-          for (int r = 0; r < 4; ++r) a[r] = As[kk * kLd + ty * 4 + r];
-#pragma unroll
-          for (int c = 0; c < 4; ++c) b[c] = Bs[kk * kLd + tx * 4 + c];
-#pragma unroll
-          for (int r = 0; r < 4; ++r)
-#pragma unroll
-            for (int c = 0; c < 4; ++c) acc[r][c] += a[r] * b[c];
-        }
-        __syncthreads();
-      }
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int gi = i0 + ty * 4 + r, gj = j0 + tx * 4 + c;
-          if (gi < Mr && gj < Nc && (!lower || gj <= gi)) {
-            T* o = Cm + gi * ldc + gj;
-            *o = beta == T(0) ? alpha * acc[r][c] : beta * *o + alpha * acc[r][c];
-          }
-        }
-    }
-  }
 }
 
 // ---- K6 -------------------------------------------------------------------
@@ -475,14 +403,6 @@ __global__ void __launch_bounds__(kThreads)
     const int i = (int)(e / ns), j = (int)(e % ns);
     if (j <= i) sb[pidx[(long long)i * W + j]] = L[e];
   }
-}
-
-// Opt in to the dynamic shared memory of this launch. Always set: the 48 KB
-// default bounds static + dynamic together, so a request just under 48 KB
-// can still be refused without it.
-template <typename K>
-int set_smem(K kernel, size_t smem) {
-  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
 template <typename T>

@@ -18,6 +18,7 @@ import math
 import numpy as np
 import torch
 
+from .._device import as_tensor
 from ..models.base import LatentModel, process_constraint
 from ..sparse.matrix import SparseMatrix, spdiag
 from ..sparse.pattern import diag_pattern, union_patterns
@@ -109,7 +110,7 @@ class MaternSPDE:
         return Q.with_data(data.index_fill(-1, bpos, value))
 
     def K(self, kappa) -> SparseMatrix:
-        kappa = torch.as_tensor(kappa)
+        kappa = as_tensor(kappa)
         c = self._on(kappa)
         k2c = (kappa**2)[..., None] * c["C"]
         K = spdiag(k2c).pad_to(self.K_pattern) + c["G"]
@@ -120,7 +121,7 @@ class MaternSPDE:
 
     def precision(self, kappa) -> SparseMatrix:
         """Q(κ) with the variance normalized to `self.variance`; κ scalar or (B,)."""
-        kappa = torch.as_tensor(kappa)
+        kappa = as_tensor(kappa)
         K = self.K(kappa)
         Cinv = self._on(kappa)["Cinv"]
         alpha = self.alpha
@@ -198,7 +199,7 @@ class MaternModel(LatentModel):
         return ("tau", "range")
 
     def precision(self, tau, range) -> SparseMatrix:
-        range = torch.as_tensor(range)
+        range = as_tensor(range)
         tau = torch.as_tensor(tau, dtype=range.dtype, device=range.device)
         return self.spde.precision(range_to_kappa(range, self.spde.nu)) * tau
 

@@ -1,9 +1,10 @@
 """Carry objects across from NumPy arrays into the port.
 
 Each function takes NumPy arrays (as ``np.asarray`` gives them from the JAX
-package's objects) and returns the port's object on the given device and
-dtype. Entry order is preserved: ``rows``/``cols`` are the pattern's
-canonical order, so ``data`` transfers index for index.
+package's objects) and returns the port's object on the given device (the
+package's default device when none is given) and dtype. Entry order is
+preserved: ``rows``/``cols`` are the pattern's canonical order, so ``data``
+transfers index for index.
 """
 
 from __future__ import annotations
@@ -11,27 +12,33 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ._device import default_device
 from .fem.discretization import FEMDiscretization
 from .fem.mesh import TriangleMesh
 from .fem.spde import MaternModel
 from .gmrf import GMRF
 from .observations.exponential_family import EFLikelihood
+from .samplers.adaptation import DualAveragingState, WelfordState
 from .samplers.hmc import HMCState
+from .samplers.run import NUTSResult
 from .solvers.base import SolverSpec
 from .sparse.matrix import SparseMatrix
 from .sparse.pattern import SparsePattern
 
 __all__ = [
     "sparse_from_numpy", "gmrf_from_numpy", "ef_likelihood_from_numpy", "hmc_state_from_numpy",
-    "plan_to_numpy", "matern_model_from_numpy",
+    "plan_to_numpy", "matern_model_from_numpy", "nuts_result_from_numpy", "da_state_from_numpy",
+    "welford_state_from_numpy",
 ]
 
 
 def _t(a, dtype, device):
-    return None if a is None else torch.tensor(np.asarray(a), dtype=dtype, device=device)
+    if a is None:
+        return None
+    return torch.tensor(np.asarray(a), dtype=dtype, device=default_device() if device is None else device)
 
 
-def sparse_from_numpy(rows, cols, shape, data, *, dtype=torch.float64, device="cpu") -> SparseMatrix:
+def sparse_from_numpy(rows, cols, shape, data, *, dtype=torch.float64, device=None) -> SparseMatrix:
     pattern = SparsePattern(rows, cols, shape)
     if not np.array_equal(pattern.sort_order, np.arange(pattern.nnz)):
         raise ValueError("rows/cols must be in canonical (row, col) order, as a SparsePattern stores them")
@@ -39,13 +46,13 @@ def sparse_from_numpy(rows, cols, shape, data, *, dtype=torch.float64, device="c
 
 
 def gmrf_from_numpy(mean, rows, cols, shape, data, *, solver: SolverSpec = SolverSpec(),
-                    dtype=torch.float64, device="cpu") -> GMRF:
+                    dtype=torch.float64, device=None) -> GMRF:
     Q = sparse_from_numpy(rows, cols, shape, data, dtype=dtype, device=device)
     return GMRF.from_precision(_t(mean, dtype, device), Q, solver)
 
 
 def ef_likelihood_from_numpy(family: str, link: str, y, params: dict | None = None, offset=None,
-                             indices=None, *, dtype=torch.float64, device="cpu") -> EFLikelihood:
+                             indices=None, *, dtype=torch.float64, device=None) -> EFLikelihood:
     return EFLikelihood(
         y=_t(y, dtype, device),
         params={k: _t(v, dtype, device) for k, v in (params or {}).items()},
@@ -56,8 +63,27 @@ def ef_likelihood_from_numpy(family: str, link: str, y, params: dict | None = No
     )
 
 
-def hmc_state_from_numpy(position, logdensity, grad, *, dtype=torch.float64, device="cpu") -> HMCState:
+def hmc_state_from_numpy(position, logdensity, grad, *, dtype=torch.float64, device=None) -> HMCState:
     return HMCState(_t(position, dtype, device), _t(logdensity, dtype, device), _t(grad, dtype, device))
+
+
+def nuts_result_from_numpy(samples, logdensity, step_size, inv_mass, accept_prob, diverging, depth, *,
+                           dtype=torch.float64, device=None) -> NUTSResult:
+    """The fields of the reference's NUTSResult, in its order."""
+    return NUTSResult(
+        *(_t(a, dtype, device) for a in (samples, logdensity, step_size, inv_mass, accept_prob)),
+        _t(diverging, torch.bool, device), _t(depth, torch.long, device),
+    )
+
+
+def da_state_from_numpy(log_step, log_step_avg, avg_error, mu, count, *, dtype=torch.float64,
+                        device=None) -> DualAveragingState:
+    """The reference's DualAveragingState, fields in its order."""
+    return DualAveragingState(*(_t(a, dtype, device) for a in (log_step, log_step_avg, avg_error, mu, count)))
+
+
+def welford_state_from_numpy(mean, m2, count, *, dtype=torch.float64, device=None) -> WelfordState:
+    return WelfordState(_t(mean, dtype, device), _t(m2, dtype, device), _t(count, dtype, device))
 
 
 def matern_model_from_numpy(nodes, triangles, *, smoothness: int = 1, bc: str = "neumann",

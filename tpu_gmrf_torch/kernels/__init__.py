@@ -1,11 +1,23 @@
 """Hand-written Hopper kernels of the port, with wrappers and plain versions.
 
 K1 ``tridiag_factor``, K2 ``tridiag_solve``, K3 ``tridiag_selinv``, K4
-``csr_spmv``, K5 ``gather_segsum`` (and its second entry ``fct_init``), K6 ``sn_panel``, K7 ``sn_trsv`` and K8
-``sn_takahashi``. Sources are in ``tpu_gmrf_torch/csrc/``; ``build``
+``csr_spmv``, K5 ``gather_segsum`` (and its second entry ``fct_init``), K6 ``sn_panel``, K7 ``sn_trsv``, K8
+``sn_takahashi``, K9 ``dense_chol``, K10 ``dense_trsv`` (and its second
+entry ``dense_selinv``), K11 ``bt_factor``
+and K12 ``bt_trsv``. Sources are in ``tpu_gmrf_torch/csrc/``; ``build``
 compiles them with nvcc at first use on a CUDA tensor.
 """
 
+from .banded import BandedTables, bt_factor, bt_factor_plain, bt_trsv, bt_trsv_plain
+from .dense import (
+    DenseTables,
+    dense_chol,
+    dense_chol_plain,
+    dense_selinv,
+    dense_selinv_plain,
+    dense_trsv,
+    dense_trsv_plain,
+)
 from .segsum import InitPlan, SegPlan, fct_init, fct_init_plain, gather_segsum, gather_segsum_plain
 from .spmv import csr_spmv, csr_spmv_plain
 from .supernodal import (
@@ -40,6 +52,9 @@ __all__ = [
     "SegPlan", "gather_segsum", "gather_segsum_plain", "InitPlan", "fct_init", "fct_init_plain",
     "sn_panel", "sn_panel_plain", "sn_trsv", "sn_trsv_plain", "sn_takahashi", "sn_takahashi_plain",
     "FORWARD", "BACKWARD",
+    "DenseTables", "dense_chol", "dense_chol_plain", "dense_trsv", "dense_trsv_plain", "dense_selinv",
+    "dense_selinv_plain",
+    "BandedTables", "bt_factor", "bt_factor_plain", "bt_trsv", "bt_trsv_plain",
 ]
 
 KERNELS = {
@@ -52,6 +67,11 @@ KERNELS = {
     "sn_panel": sn_panel,
     "sn_trsv": sn_trsv,
     "sn_takahashi": sn_takahashi,
+    "dense_chol": dense_chol,
+    "dense_trsv": dense_trsv,
+    "dense_selinv": dense_selinv,
+    "bt_factor": bt_factor,
+    "bt_trsv": bt_trsv,
 }
 
 

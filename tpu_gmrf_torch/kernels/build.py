@@ -48,6 +48,16 @@ _SIGNATURES = {
     "tg_sn_trsv": [_P, _L, _P, _P, _P, _I, _I, _I, _I, _P, _L, _I, _P, _L, _L, _I, _I, _P],
     # vals, vstride, sig, sstride, panel_idx, schur_idx, P, W, M, dummy, work, B, stream
     "tg_sn_takahashi": [_P, _L, _P, _L, _P, _P, _I, _I, _I, _I, _P, _I, _P],
+    # data, dstride, rows, cols, tperm, diag_pos, nnz, n, L, s, level, logdet, flags, B, stream
+    "tg_dense_chol": [_P, _L, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _P],
+    # L, s, b, out, n, k, mode, B, stream
+    "tg_dense_trsv": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # L, s, X (workspace), rows, cols, m, n, out, B, stream
+    "tg_dense_selinv": [_P, _P, _P, _P, _P, _I, _I, _P, _I, _P],
+    # data, dstride, src, dst, ntab, tperm, P, K, s, ws, dom, boost, logdet, flags, B, stream
+    "tg_bt_factor": [_P, _L, _P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _P],
+    # P, K, s, n, perm, b, out, k, mode, rows, work (null: shared memory), stream
+    "tg_bt_trsv": [_P, _I, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P],
 }
 
 _lib = None

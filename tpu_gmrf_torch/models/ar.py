@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from .._device import as_tensor
 from ..sparse.matrix import SparseMatrix, sp_tridiag
 from .base import LatentModel, process_constraint
 
@@ -45,7 +46,7 @@ class ARModel(LatentModel):
 
     def precision(self, tau, rho) -> SparseMatrix:
         n = self._n
-        tau = torch.as_tensor(tau)
+        tau = as_tensor(tau)
         rho = torch.as_tensor(rho, dtype=tau.dtype, device=tau.device)
         interior = (1.0 + rho**2) * tau
         main = torch.cat(

@@ -12,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .._device import as_tensor
 from ..gmrf import GMRF
 from ..solvers.base import SolverSpec
 
@@ -42,7 +43,7 @@ class LatentModel:
 
     def mean(self, **theta):
         t = next(iter(theta.values()), None)
-        t = torch.as_tensor(0.0 if t is None else t)
+        t = as_tensor(0.0 if t is None else t)
         return torch.zeros(self.n, dtype=t.dtype, device=t.device)
 
     def constraints(self):

@@ -20,6 +20,7 @@ from typing import Any
 
 import torch
 
+from .._device import as_tensor
 from .base import ObservationLikelihood, ObservationModel
 
 __all__ = [
@@ -62,8 +63,8 @@ class PoissonObservations:
 
     @staticmethod
     def create(counts, exposure=None):
-        le = None if exposure is None else torch.log(torch.as_tensor(exposure))
-        return PoissonObservations(torch.as_tensor(counts), le)
+        le = None if exposure is None else torch.log(as_tensor(exposure))
+        return PoissonObservations(as_tensor(counts), le)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,8 +80,8 @@ class NegativeBinomialObservations:
 
     @staticmethod
     def create(counts, exposure=None):
-        le = None if exposure is None else torch.log(torch.as_tensor(exposure))
-        return NegativeBinomialObservations(torch.as_tensor(counts), le)
+        le = None if exposure is None else torch.log(as_tensor(exposure))
+        return NegativeBinomialObservations(as_tensor(counts), le)
 
 
 # ---- materialized likelihood ----------------------------------------------
@@ -252,7 +253,7 @@ _FAMILY_PARAMS = {
 
 
 def _tensor(v):
-    return v if isinstance(v, torch.Tensor) else torch.as_tensor(v)
+    return as_tensor(v)
 
 
 class ExponentialFamily(ObservationModel):
@@ -267,7 +268,7 @@ class ExponentialFamily(ObservationModel):
         self.link = link if link is not None else _CANONICAL[family]
         if self.link not in _INVLINKS:
             raise ValueError(f"unknown link {self.link}")
-        self.indices = None if indices is None else torch.as_tensor(indices, dtype=torch.long)
+        self.indices = None if indices is None else as_tensor(indices, dtype=torch.long)
         for k in aliases:
             if k not in _FAMILY_PARAMS[family]:
                 raise ValueError(f"unknown parameter alias {k} for family {family}")

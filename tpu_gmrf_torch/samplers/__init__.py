@@ -1,4 +1,7 @@
+from .adaptation import da_init, da_update, warmup_schedule, welford_init, welford_update, welford_variance
 from .hmc import HMCState, hmc_init, hmc_kernel, hmc_transition, leapfrog, value_and_grad
+from .nuts import NUTSDraws, NUTSInfo, nuts_kernel, nuts_transition
+from .run import NUTSResult, run_hmc, run_nuts
 from .transforms import (
     IdentityTransform,
     LogitTransform,
@@ -15,6 +18,19 @@ __all__ = [
     "hmc_transition",
     "leapfrog",
     "value_and_grad",
+    "nuts_kernel",
+    "nuts_transition",
+    "NUTSInfo",
+    "NUTSDraws",
+    "run_nuts",
+    "run_hmc",
+    "NUTSResult",
+    "da_init",
+    "da_update",
+    "warmup_schedule",
+    "welford_init",
+    "welford_update",
+    "welford_variance",
     "Transform",
     "IdentityTransform",
     "LogTransform",

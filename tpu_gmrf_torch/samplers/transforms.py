@@ -14,6 +14,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from .._device import as_tensor
+
 __all__ = ["Transform", "LogTransform", "LogitTransform", "IdentityTransform", "ParamSpec", "make_logdensity"]
 
 
@@ -85,7 +87,7 @@ class ParamSpec:
 
     def unconstrain(self, theta: dict):
         return torch.stack(
-            [torch.as_tensor(t.inverse(torch.as_tensor(theta[name]))) for name, t in zip(self.names, self.transforms)],
+            [t.inverse(as_tensor(theta[name])) for name, t in zip(self.names, self.transforms)],
             -1,
         )
 
