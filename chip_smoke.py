@@ -6,12 +6,16 @@
 Phases, each printing its own lines; any failure raises and exits non-zero:
 
 1. the device: needs CUDA; prints the card's name and power limit;
-2. the build: compiles the kernels K1-K12 (K5 with its second entry,
-   fct_init; K10 with its second entry, dense_selinv) from
+2. the build: compiles the kernels K1-K15 (K5 with its second entry,
+   fct_init; K7 with its multiply mode; K10 with its second entry,
+   dense_selinv; K13 with its second entry, bt_sqrt) from
    tpu_gmrf_torch/csrc with nvcc (one nvcc per source, in parallel) and
    the host symbolic core with g++;
 3. K1-K4 against their plain PyTorch versions on the card, at the flagship
-   shapes (B=256 chains, n=500), in float64 and float32;
+   shapes (B=256 chains, n=500), in float64 and float32; then beyond shared
+   memory: K4 at n=14058 (B=1 and 8, values shared and per chain, with the
+   quadratic form) also against CSR ``torch.sparse.mm``, and K1-K3 at
+   n=20000, B=4;
 3b. K5-K8 against their plain versions on the card at the spatial shapes
    (Matérn α=2 on the 63×63 grid, n=5741, B=4 chains: the prior at τ=1,
    range=0.25 and the posterior with a random positive diagonal H), in
@@ -21,6 +25,13 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    also with its vector in global memory, the path for npad beyond shared
    memory) against their plain versions and against the library call,
    where one exists, in float64 and float32;
+3d. the multiply kernels against their plain versions, in float64 and
+   float32: K13 bt_matvec and K14 bsr_spmm at the bench_spmv operator
+   (Matérn α=2 on 100x100 points, n=14058, 8 vectors) and at the 316x316
+   grid precision (n=99856), K14 at each block size forward and
+   transposed, K15 bsr_outer, the BSR gradient against the plain version's
+   autograd, K4 at those sizes, bt_sqrt on the n=5741 banded factor and K7's
+   multiply mode on the n=14058 supernodal factor;
 4. the flagship slice: batched value and θ-gradient of the Laplace marginal
    of an AR1 + Poisson model (256 chains, n=500) through the kernels, in
    float32, checked against the plain path in float64 (the same code on CPU
@@ -45,11 +56,24 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    prior, the default inner solver (auto -> banded, K11/K12), float64; one
    value+grad on the banded inner solver against the supernodal one, and
    one NUTS transition with fixed draws on the kernels against the plain
-   path on CPU tensors.
+   path on CPU tensors;
+12. the multiply path, bench_spmv as the reference wrote it (bench.py:507):
+   n=14058, 8 vectors, float32, 64 chained normalized multiplies per
+   timing, through K4, K13, K14 and whatever hot_matvec picks; one gradient
+   through the BSR operator (K15);
+13. the CG path at n=99856 (the 316x316 grid precision): factorize with
+   SolverSpec(kind="cg"), 8 right-hand sides, once per formulation and once
+   through hot_matvec, float64 and float32; GMRF.from_information;
+13b. CG on the Matérn operator at n=14058, float64: Jacobi, and the full
+   Cholesky preconditioner, against the supernodal solve;
+14. RBMC variances: rbmc_var at n=14058 (1000 samples) against selinv_diag,
+   block_rbmc_var at n=5741; N(0, Q) draws through CholeskySqrtMap on the
+   banded and the supernodal factor.
 
 Every kernel's launch counter is zeroed just before each main path (phases
 4-5, the flagship; 7-8, the spatial slice; 9, 10 and 11) and read after
-it; a kernel of the path that was never launched fails the run. The line
+it, and so before and after each of the paths 12, 13, 13b and 14; a
+kernel of the path that was never launched fails the run. The line
 before the last is one JSON object with the kernels' launches, errors,
 times and bounds; the last line is the result object. Needs no network and
 imports no JAX.
@@ -136,6 +160,15 @@ SN_TOL = {
 SN_TOL[torch.float64].update(dense_chol=1e-12, dense_trsv=1e-12, dense_selinv=1e-12, bt_factor=1e-12,
                              bt_trsv=1e-12)
 SN_TOL[torch.float32].update(dense_chol=2e-5, dense_trsv=5e-6, dense_selinv=3e-6, bt_factor=1e-4, bt_trsv=1e-5)
+# K13-K15, bt_sqrt, K7's multiply mode and K4 at the large shapes, against
+# their plain versions on the same inputs: float64 sums of a few hundred
+# terms in another order, 1e-12; float32 1e-5 (the first readings on the
+# H100 were at most 4.4e-6, the supernodal product's). "identity" holds
+# L (L⁻¹ z) = z, which carries the factor's conditioning.
+SN_TOL[torch.float64].update(csr_spmv=1e-12, bt_matvec=1e-12, bt_sqrt=1e-12, bsr_spmm=1e-12, bsr_outer=1e-12,
+                             sn_multiply=1e-10, tridiag=1e-10, identity=1e-9)
+SN_TOL[torch.float32].update(csr_spmv=1e-5, bt_matvec=1e-5, bt_sqrt=1e-5, bsr_spmm=1e-5, bsr_outer=1e-5,
+                             sn_multiply=1e-4, tridiag=1e-4, identity=1e-3)
 DN_GRID, DN_CHAINS = 16, 8  # the dense backend's shape: the g=16 posterior, as phase 10
 
 # Bounds (the least time the card could take): the larger of the bytes a
@@ -174,6 +207,11 @@ SOURCES = {
     "dense_selinv": ("tpu_gmrf_torch/csrc/dense.cu", "tpu_gmrf/solvers/dense.py:74"),
     "bt_factor": ("tpu_gmrf_torch/csrc/banded.cu", "tpu_gmrf/solvers/banded.py:354"),
     "bt_trsv": ("tpu_gmrf_torch/csrc/banded.cu", "tpu_gmrf/solvers/banded.py:145"),
+    "sn_multiply": ("tpu_gmrf_torch/csrc/supernodal.cu", "tpu_gmrf/solvers/supernodal.py:1287"),
+    "bt_matvec": ("tpu_gmrf_torch/csrc/banded.cu", "tpu_gmrf/solvers/banded.py:297"),
+    "bt_sqrt": ("tpu_gmrf_torch/csrc/banded.cu", "tpu_gmrf/solvers/banded.py:272"),
+    "bsr_spmm": ("tpu_gmrf_torch/csrc/bsr.cu", "tpu_gmrf/kernels/bsr_spmv.py:182"),
+    "bsr_outer": ("tpu_gmrf_torch/csrc/bsr.cu", "tpu_gmrf/kernels/bsr_spmv.py:215"),
 }
 FLAGSHIP_KERNELS = ("tridiag_factor", "tridiag_solve", "tridiag_selinv", "csr_spmv", "gather_segsum")
 SPATIAL_KERNELS = ("csr_spmv", "gather_segsum", "fct_init", "sn_panel", "sn_trsv", "sn_takahashi")
@@ -183,6 +221,37 @@ SPATIAL_KERNELS = ("csr_spmv", "gather_segsum", "fct_init", "sn_panel", "sn_trsv
 SPATIAL_NUTS_KERNELS = ("csr_spmv", "gather_segsum", "fct_init", "sn_panel", "sn_takahashi")
 NUTS_G16_KERNELS = SPATIAL_NUTS_KERNELS + ("dense_chol", "dense_trsv")
 NUTS_5741_KERNELS = SPATIAL_NUTS_KERNELS + ("bt_factor", "bt_trsv")
+# The matrix-free paths (phases 12-14).
+MULTIPLY_KERNELS = ("csr_spmv", "bt_matvec", "bsr_spmm", "bsr_outer")
+MULTIPLY_KERNEL_NAMES = {"csr_spmv": "csr_spmv", "bt_matvec": "bt_matvec_kernel", "bsr_spmm": "bsr_spmm_kernel"}  # in a trace
+CG_KERNELS = ("csr_spmv", "bt_matvec", "bsr_spmm")
+# phase 13b multiplies by whatever hot_matvec picks (added to the list there) and preconditions with the supernodal solve
+CG_MATERN_KERNELS = ("fct_init", "sn_panel", "sn_trsv", "gather_segsum")
+RBMC_KERNELS = ("csr_spmv", "sn_trsv", "gather_segsum", "sn_multiply", "bt_factor", "bt_sqrt")
+
+# Phases 12-14. bench_spmv: 64 chained multiplies, 5 timed repetitions, 8
+# vectors. The CG path: 316x316 grid, 8 right-hand sides; float32 cannot
+# reach the default cg_tol = 1e-8 (its rounding is 6e-8), so the float32
+# runs ask for 1e-5. The formulations' solutions agree within 100 tol
+# (each stops at its own residual below tol; κ = 25 here).
+SPMV_CHAIN, SPMV_REPS, SPMV_VECS = 64, 5, 8
+CG_GRID, CG_RHS = 316, 8
+CG_TOL = {torch.float64: 1e-8, torch.float32: 1e-5}
+# RBMC: S = 1000 samples at n = 14058; block RBMC at n = 5741 with its
+# default S = 100. Both add the sample variance of S Gaussian draws to an
+# exact part; a sample variance has relative standard deviation
+# σ_S = sqrt(2 / (S - 1)) (0.045 at S = 1000, 0.142 at S = 100), and on the
+# Matérn α=2 prior at range 0.25 nearly all of a node's variance is in that
+# sampled part. Held: 6 σ_S at every node (the largest of 14058 skewed
+# errors) and 1.5 σ_S on average (the expected mean |error| is 0.8 σ_S; the
+# nodes share the S draws, so their mean does not settle like 1/sqrt(n)).
+# The reference's test takes rtol 0.15 at S = 4000 on n = 20: 6.7 σ_S.
+RBMC_SAMPLES, BLOCK_RBMC_SAMPLES = 1000, 100
+
+
+def rbmc_tol(S: int) -> dict:
+    sigma = (2.0 / (S - 1)) ** 0.5
+    return {"max": 6 * sigma, "mean": 1.5 * sigma}
 
 
 def log(msg: str) -> None:
@@ -401,6 +470,8 @@ def sn_costs(levels, B: int, el: int, nnz: int, nnzL: int, n: int) -> dict:
                     el * B * (nnzL + 2 * n) + tabs["panel"] + tabs["cols"] + tabs["rows"]),
         "sn_takahashi": (B * float(np.sum(2 * ns**3 / 3 + 2 * m * ns**2 + 2 * m**2 * ns)),
                          el * B * 2 * (nnzL + 1) + tabs["panel"] + tabs["schur"]),
+        "sn_multiply": (B * float(np.sum(ns**2 + 2 * m * ns)),
+                        el * B * (nnzL + 2 * n) + tabs["panel"] + tabs["cols"]),
     }
 
 
@@ -482,11 +553,10 @@ def check_spatial_kernels(model, dtype, dev):
     return results
 
 
-def gmrf_statistics(dev):
+def gmrf_statistics(model, dev):
     """Phase 6: factorize, logdet, selinv_diag, solve, sample at n=14058, B=1."""
     from tpu_gmrf_torch.solvers import supernodal as sn
 
-    model = spatial_model(STATS_GRID)
     n = model.n
     pts = model.disc.mesh.vertices
     mid = int(np.argmin(np.linalg.norm(pts - 0.5, axis=1)))
@@ -812,6 +882,524 @@ def nuts_fixed_draws(ld, z, step_size, inv_mass, depth: int, dev):
     return out
 
 
+# ---- phases 3 (extended), 3d, 12-14: the matrix-free path ---------------------------
+
+
+def unbatched(Q):
+    """A (1, nnz) precision as one matrix, data (nnz,)."""
+    from tpu_gmrf_torch.sparse.matrix import SparseMatrix
+
+    return SparseMatrix(Q.data.reshape(-1).contiguous(), Q.pattern)
+
+
+def matern_precision(model, dtype, dev):
+    """The bench_spmv operator: `model`'s precision at τ=1, range=0.25, data (nnz,)."""
+    return unbatched(model.precision(tau=torch.ones(1, dtype=dtype, device=dev),
+                                     range=torch.full((1,), 0.25, dtype=dtype, device=dev)))
+
+
+def grid_precision(dtype, dev):
+    from tpu_gmrf_torch.models import grid_matern2_precision
+
+    return grid_matern2_precision(CG_GRID, dtype=dtype, device=dev)
+
+
+def formulation(mv, Q) -> tuple[str, str]:
+    """(label, kernel name) of the multiply `hot_matvec(Q)` returned."""
+    from tpu_gmrf_torch.solvers.banded import BlockTridiagMV
+
+    if isinstance(mv, BlockTridiagMV):
+        return "block_tridiag (K13)", "bt_matvec"
+    if getattr(mv, "__self__", None) is Q:
+        return "csr (K4)", "csr_spmv"
+    return "bsr (K14)", "bsr_spmm"
+
+
+def csr_library(Q):
+    """Q as a torch CSR tensor, for the library product beside K4, K13 and K14."""
+    from tpu_gmrf_torch.sparse.matrix import _csr
+
+    rp, col = _csr(Q.pattern, Q.data.device)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        return torch.sparse_csr_tensor(rp.long(), col.long(), Q.data, size=Q.shape)
+
+
+def spmv_cost(Q, rows: int, el: int):
+    """(operations, bytes) of K4 on `rows` vectors with shared values."""
+    n = Q.shape[0]
+    return 2 * rows * (Q.nnz + n), 4 * (n + 1 + Q.nnz) + el * (Q.nnz + rows * (2 * n + 1))
+
+
+def check_beyond_shared_memory(model, dev):
+    """Phase 3 (extended): K4 at n=14058 on its tiled path, and K1-K3 at
+    n=20000 with their rows in global memory."""
+    from tpu_gmrf_torch import kernels
+    from tpu_gmrf_torch.sparse.matrix import _csr
+
+    rng = np.random.default_rng(12)
+    for dtype in (torch.float64, torch.float32):
+        Q = matern_precision(model, dtype, dev)
+        n, el = Q.shape[0], Q.data.element_size()
+        rp, col = _csr(Q.pattern, dev)
+        lib = csr_library(Q)
+        for B in (1, 8):
+            x = torch.tensor(rng.normal(size=(B, n)), dtype=dtype, device=dev)
+            xt = x.T.contiguous()
+            scale = torch.linspace(1.0, 2.0, B, dtype=dtype, device=dev)[:, None]
+            for label, data in (("shared", Q.data), ("per chain", (Q.data[None] * scale).contiguous())):
+                path = kernels.spmv_path(n, B, dtype)
+                if path != "tiled":
+                    raise AssertionError(f"csr_spmv at n={n} B={B} took the {path} path")
+                kern = lambda: kernels.csr_spmv(rp, col, data, x, quad=True)
+                plain = lambda: kernels.csr_spmv_plain(rp, col, data, x, quad=True)
+                shared = data.ndim == 1
+                if shared:  # the library product computes the same y (not the quadratic form)
+                    _, rel = rel_err((kern()[0],), (torch.sparse.mm(lib, xt).T,))
+                    if not rel <= SN_TOL[dtype]["csr_spmv"]:
+                        raise AssertionError(f"csr_spmv disagrees with CSR torch.sparse.mm ({rel:.3e})")
+                ops, nbytes = spmv_cost(Q, B, el)
+                check(f"csr_spmv n={n} B={B} values {label}, quad ({path} path)", dtype, kern(), plain(), "csr_spmv", {},
+                      cuda_ms(kern), cuda_ms(plain), cost=(ops, nbytes + (0 if shared else el * (B - 1) * Q.nnz)),
+                      library_ms=cuda_ms(lambda: torch.sparse.mm(lib, xt)) if shared else None)
+        B, n = 4, 20000
+        a = torch.tensor(2.5 + rng.random((B, n)), dtype=dtype, device=dev)
+        c = torch.tensor(-rng.random((B, n - 1)), dtype=dtype, device=dev)
+        b = torch.tensor(rng.normal(size=(B, n)), dtype=dtype, device=dev)
+        if kernels.tridiag_path(n, 1, dtype) != "global" or kernels.tridiag_path(n, 0, dtype) != "global":
+            raise AssertionError("n=20000 was expected on the global-memory path of K1-K3")
+        d, e, _ = kernels.tridiag_factor_plain(a, c)
+        cost = (5 * B * n, el * B * 4 * n)
+        for name, kern, plain in (
+            ("tridiag_factor", lambda: kernels.tridiag_factor(a, c), lambda: kernels.tridiag_factor_plain(a, c)),
+            ("tridiag_solve", lambda: kernels.tridiag_solve(d, e, b), lambda: kernels.tridiag_solve_plain(d, e, b)),
+            ("tridiag_selinv", lambda: kernels.tridiag_selinv(d, e), lambda: kernels.tridiag_selinv_plain(d, e)),
+        ):
+            check(f"{name} n={n} B={B} (rows in global memory)", dtype, kern(), plain(), "tridiag", {},
+                  cuda_ms(kern, 5), cuda_ms(plain, 5), cost=cost)
+    # the user's entry points at the sizes that used to raise
+    import tpu_gmrf_torch as tg
+
+    with torch.no_grad():
+        g = tg.AR1Model(20000)(tau=torch.tensor(1.3, dtype=torch.float64, device=dev),
+                               rho=torch.tensor(0.6, dtype=torch.float64, device=dev))
+        x = torch.tensor(rng.normal(size=20000), dtype=torch.float64, device=dev)
+        got = (g.logpdf(x), g.var(), g.solve(x))
+    var_ref = 1.0 / (1.3 * (1.0 - 0.6**2))  # the interior marginal variance of a stationary AR1
+    torch.cuda.synchronize()
+    if not all(bool(torch.isfinite(t).all()) for t in got) or abs(got[1][10000].item() / var_ref - 1.0) > 1e-8:
+        raise AssertionError("AR1Model(20000) statistics are wrong")
+    log(f"  AR1Model(20000) f64: logpdf {got[0].item():.6f}, interior var {got[1][10000].item():.10f} "
+        f"(closed form {var_ref:.10f}), solve finite")
+
+
+def bsr_library(Bm, dev):
+    """A BSRMatrix as torch.sparse_bsr_tensor (the yardstick beside K14)."""
+    t = Bm.plan.on(dev)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        return torch.sparse_bsr_tensor(t["rowptr_l"], t["block_cols_l"], Bm.blocks,
+                                       size=(Bm.plan.nb * Bm.plan.bs,) * 2)
+
+
+def check_operator_kernels(label, Q, dtype, dev, results, block_sizes, timed):
+    """K13, K14 (forward and transposed), K15 and K4 on one operator Q
+    (data (nnz,)) with SPMV_VECS vectors, against plain and library."""
+    from tpu_gmrf_torch import kernels
+    from tpu_gmrf_torch.kernels.bsr_spmv import bsr_spmv
+    from tpu_gmrf_torch.solvers.banded import block_tridiag_matvec
+    from tpu_gmrf_torch.sparse.matrix import _csr
+
+    rng = np.random.default_rng(13)
+    n, k, el = Q.shape[0], SPMV_VECS, Q.data.element_size()
+    x = torch.tensor(rng.normal(size=(k, n)), dtype=dtype, device=dev)
+    g = torch.tensor(rng.normal(size=(k, n)), dtype=dtype, device=dev)
+    xt, lib = x.T.contiguous(), csr_library(Q)
+    lib_ms = cuda_ms(lambda: torch.sparse.mm(lib, xt))
+    rp, col = _csr(Q.pattern, dev)
+    shape = f"{label} n={n} k={k}"
+    res = results if timed else {}
+    check(f"csr_spmv {shape}", dtype, kernels.csr_spmv(rp, col, Q.data, x)[0], kernels.csr_spmv_plain(rp, col, Q.data, x)[0],
+          "csr_spmv", {}, cuda_ms(lambda: kernels.csr_spmv(rp, col, Q.data, x)),
+          cuda_ms(lambda: kernels.csr_spmv_plain(rp, col, Q.data, x)), cost=spmv_cost(Q, k, el), library_ms=lib_ms)
+    with torch.no_grad():
+        mv = block_tridiag_matvec(Q)
+        K, s = mv.D.shape[0], mv.D.shape[1]
+        dense = (2 * K - 1) * s * s
+        check(f"bt_matvec {shape} s={s} K={K} ({dense * el / 1e6:.1f} MB of blocks)", dtype, mv(x),
+              kernels.bt_matvec_plain(mv.D, mv.E, mv.perm, x), "bt_matvec", res, cuda_ms(lambda: mv(x)),
+              cuda_ms(lambda: kernels.bt_matvec_plain(mv.D, mv.E, mv.perm, x)),
+              cost=(2 * (3 * K - 2) * s * s * k, el * (dense + 2 * n * k) + 4 * n), library_ms=lib_ms,
+              shape=f"{shape} s={s} K={K}", extra=" (library: CSR torch.sparse.mm)")
+        _, rel = rel_err((mv(x),), (torch.sparse.mm(lib, xt).T,))
+        if not rel <= SN_TOL[dtype]["bt_matvec"]:
+            raise AssertionError(f"bt_matvec disagrees with CSR torch.sparse.mm ({rel:.3e})")
+    del mv
+    best = kernels.best_block_size(Q.pattern)
+    for bs in block_sizes:
+        Bm = kernels.bsr_from_sparse(Q, bs)
+        plan, blocks = Bm.plan, Bm.blocks
+        nbl = plan.nblocks
+        keep = res if bs == best else {}
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            bl = bsr_library(Bm, dev)
+            xpad = torch.nn.functional.pad(xt, (0, 0, 0, plan.nb * bs - n))
+            bsr_ms = cuda_ms(lambda: bl @ xpad)
+        cost = (2 * nbl * bs * bs * k, el * (nbl * bs * bs + 2 * n * k) + 4 * (nbl + plan.nb + 1))
+        tag = f"{shape} bs={bs} nblocks={nbl}" + (" (best_block_size)" if bs == best else "")
+        check(f"bsr_spmm {tag}", dtype, kernels.bsr_spmm(blocks, plan, x), kernels.bsr_spmm_plain(blocks, plan, x),
+              "bsr_spmm", keep, cuda_ms(lambda: kernels.bsr_spmm(blocks, plan, x)),
+              cuda_ms(lambda: kernels.bsr_spmm_plain(blocks, plan, x)), cost=cost, library_ms=bsr_ms, shape=tag,
+              extra=" (library: torch.sparse_bsr_tensor @ x)")
+        check(f"bsr_spmm transposed {tag}", dtype, kernels.bsr_spmm(blocks, plan, x, True),
+              kernels.bsr_spmm_plain(blocks, plan, x, True), "bsr_spmm", {},
+              cuda_ms(lambda: kernels.bsr_spmm(blocks, plan, x, True)),
+              cuda_ms(lambda: kernels.bsr_spmm_plain(blocks, plan, x, True)))
+        check(f"bsr_outer {tag}", dtype, kernels.bsr_outer(plan, g, x), kernels.bsr_outer_plain(plan, g, x),
+              "bsr_outer", keep, cuda_ms(lambda: kernels.bsr_outer(plan, g, x)),
+              cuda_ms(lambda: kernels.bsr_outer_plain(plan, g, x)),
+              cost=(2 * nbl * bs * bs * k, el * (nbl * bs * bs + 2 * n * k) + 8 * nbl), shape=tag)
+        if bs == best:  # the gradient of the BSR product against the plain version's autograd
+            grads = []
+            xs = x / kernels.bsr_spmm(blocks, plan, x).abs().max()  # sin's argument of order one
+            for fn in (lambda b_, x_: bsr_spmv(b_, x_, plan), lambda b_, x_: kernels.bsr_spmm_plain(b_, plan, x_)):
+                b_, x_ = blocks.clone().requires_grad_(), xs.clone().requires_grad_()
+                torch.sin(fn(b_, x_)).sum().backward()
+                grads.append((b_.grad, x_.grad))
+            check(f"bsr_spmv gradient (blocks, x) {tag}", dtype, grads[0], grads[1], "bsr_outer", {})
+
+
+def check_multiply_kernels(stats_model, sp_model, grid_q, dtype, dev):
+    """Phase 3d."""
+    from tpu_gmrf_torch import kernels
+    from tpu_gmrf_torch.solvers import banded as tb
+    from tpu_gmrf_torch.solvers import supernodal as sn
+
+    results = {}
+    Q = matern_precision(stats_model, dtype, dev)
+    check_operator_kernels("Matérn", Q, dtype, dev, results, (8, 16, 32), timed=True)
+    check_operator_kernels("grid", grid_q[dtype], dtype, dev, results, (kernels.best_block_size(grid_q[dtype].pattern),),
+                           timed=False)
+    rng = np.random.default_rng(14)
+    with torch.no_grad():
+        # bt_sqrt on the banded factor of phase 3c's shape
+        B, n, el = SP_CHAINS, sp_model.n, Q.data.element_size()
+        f = tb.banded_factorize(random_posterior(sp_model, B, dtype, dev, 8))
+        t = tb._TABLES[f.meta]
+        z = torch.tensor(rng.normal(size=(B, n)), dtype=dtype, device=dev)
+        elems = t.K * t.s * (t.s + 1) // 2 + (t.K - 1) * t.s * t.s
+        check(f"bt_sqrt B={B} n={n} s={t.s} K={t.K}", dtype, kernels.bt_sqrt(f.P, t, z), kernels.bt_sqrt_plain(f.P, t, z),
+              "bt_sqrt", results, cuda_ms(lambda: kernels.bt_sqrt(f.P, t, z)),
+              cuda_ms(lambda: kernels.bt_sqrt_plain(f.P, t, z)),
+              cost=(2 * B * elems, el * B * (elems + 2 * n) + 4 * n), shape=f"B={B} n={n} s={t.s} K={t.K} k=1")
+        check("bt_sqrt: sqrt_matvec(forward_solve(z)) = z", dtype, f.sqrt_matvec(f.forward_solve(z)), z,
+              "identity", {})
+        del f
+        # K7's multiply mode over the n=14058 schedule
+        Q1 = stats_model.precision(tau=torch.ones(1, dtype=dtype, device=dev),
+                                   range=torch.full((1,), 0.25, dtype=dtype, device=dev))
+        fk = sn.supernodal_factorize(Q1)
+        fkp = with_plain_steps(fk)
+        n = stats_model.n
+        z = torch.tensor(rng.normal(size=(1, n)), dtype=dtype, device=dev)
+        nnzL = fk.vals.shape[1] - 1
+        cost = sn_costs(sn._device_plan(fk.meta, dev)["levels"], 1, el, Q1.nnz, nnzL, n)["sn_multiply"]
+        w = fk.sqrt_matvec(z)
+        check(f"sn_multiply sqrt_matvec n={n}", dtype, w, fkp.sqrt_matvec(z), "sn_multiply", results,
+              cuda_ms(lambda: fk.sqrt_matvec(z), SN_REPS, 1), cuda_ms(lambda: fkp.sqrt_matvec(z), SN_REPS, 1),
+              cost=cost, shape=f"B=1 n={n}")
+        quad, zz = (w * fk.solve(w)).sum().item(), (z * z).sum().item()
+        log(f"  sqrt_matvec identity wᵀ solve(w) = zᵀz, {dtype_name(dtype)}: {quad:.8e} vs {zz:.8e} "
+            f"(rel {abs(quad / zz - 1):.3e})")
+        if dtype == torch.float64 and abs(quad / zz - 1) > 1e-8:
+            raise AssertionError("supernodal sqrt_matvec fails wᵀ Q⁻¹ w = zᵀz")
+    return results
+
+
+def device_idle(fn) -> tuple[float, float]:
+    """(wall ms, device idle share) of fn() from a torch.profiler trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy_us = sum(e.device_time_total for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+    return wall * 1e3, 1.0 - busy_us / 1e6 / wall
+
+
+def kernel_device_ms(fn, kernel: str) -> float:
+    """Mean device time (ms) of the launches of `kernel` (a substring of its
+    name) inside fn(), from a torch.profiler trace: no host gaps in it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    times = [e.device_time_total for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name]
+    if not times:
+        raise AssertionError(f"the trace shows no launch of {kernel}")
+    return sum(times) / len(times) / 1e3
+
+
+def multiply_path(model, dev, card):
+    """Phase 12: bench_spmv as the reference wrote it (bench.py:507-564)."""
+    from tpu_gmrf_torch import kernels
+    from tpu_gmrf_torch.solvers.banded import block_tridiag_matvec
+
+    Q = matern_precision(model, torch.float32, dev)
+    n, k = Q.shape[0], SPMV_VECS
+    x = torch.tensor(np.random.default_rng(0).normal(size=(k, n)), dtype=torch.float32, device=dev)
+
+    def chain(mv):
+        def run():
+            v = x
+            for _ in range(SPMV_CHAIN):
+                y = mv(v)
+                v = y / torch.linalg.matrix_norm(y)  # no readback inside the chain
+            return v
+        return run
+
+    kernels.reset_launches()
+    # ---- the multiply main path ----
+    with torch.no_grad():
+        ops = {"csr (K4)": Q.matvec, "block_tridiag (K13)": block_tridiag_matvec(Q),
+               "bsr (K14)": kernels.bsr_from_sparse(Q).matvec}
+        hot = kernels.hot_matvec(Q)
+        picked = formulation(hot, Q)[0]
+        ops["hot_matvec -> " + picked] = hot
+        ms = {name: cuda_ms(chain(mv), SPMV_REPS, 1) / SPMV_CHAIN for name, mv in ops.items()}
+        dev_ms = {name: kernel_device_ms(chain(mv), MULTIPLY_KERNEL_NAMES[formulation(mv, Q)[1]])
+                  for name, mv in ops.items()}
+        one = {name: mv(x) for name, mv in ops.items()}
+        ends = {name: chain(mv)() for name, mv in ops.items()}
+    # one gradient through the BSR operator: d/d(values) and d/dx of sum(sin(Q x)), Q x of order one
+    xs = x / Q.matvec(x).abs().max()
+    data, xg = Q.data.clone().requires_grad_(), xs.clone().requires_grad_()
+    from tpu_gmrf_torch.sparse.matrix import SparseMatrix
+    torch.sin(kernels.bsr_from_sparse(SparseMatrix(data, Q.pattern)).matvec(xg)).sum().backward()
+    torch.cuda.synchronize()
+    counts = kernels.launches()
+    # ---- end of the multiply main path ----
+    launched(counts, MULTIPLY_KERNELS, "multiply")
+    d2, x2 = Q.data.clone().requires_grad_(), xs.clone().requires_grad_()
+    torch.sin(SparseMatrix(d2, Q.pattern).matvec(x2)).sum().backward()  # the same gradient through K4's autograd
+    _, rel_d = rel_err((data.grad,), (d2.grad,))
+    _, rel_x = rel_err((xg.grad,), (x2.grad,))
+    log(f"  gradient of sum(sin(Q x)) through the BSR operator vs through K4: values {rel_d:.3e}, x {rel_x:.3e} "
+        f"(tol 1e-4: float32 sums of terms of mixed sign, taken in two orders)")
+    if not max(rel_d, rel_x) <= 1e-4:
+        raise AssertionError("the BSR operator's gradient disagrees with K4's")
+    payload = Q.nnz * 4 + 2 * n * k * 4
+    mv13, plan14 = ops["block_tridiag (K13)"], kernels.bsr_from_sparse(Q).plan
+    streamed = {"block_tridiag (K13)": (2 * mv13.D.shape[0] - 1) * mv13.D.shape[1] ** 2 * 4,
+                "bsr (K14)": plan14.nblocks * plan14.bs**2 * 4}
+    ref = one["csr (K4)"]
+    for name in ops:
+        _, rel = rel_err((one[name],), (ref,))
+        _, rel_end = rel_err((ends[name],), (ends["csr (K4)"],))
+        extra = ""
+        if name in streamed:
+            extra = (f", streams {streamed[name] / 1e6:.2f} MB of blocks: {streamed[name] / dev_ms[name] / 1e6:.1f} GB/s "
+                     f"achieved by the kernel")
+        log(f"  {name}: {ms[name]:.4f} ms per multiply of the chain (CUDA events, host gaps included), payload "
+            f"{payload / ms[name] / 1e6:.2f} GB/s; the multiply kernel alone {dev_ms[name]:.4f} ms (torch.profiler), payload "
+            f"{payload / dev_ms[name] / 1e6:.2f} GB/s{extra}; one multiply vs K4 rel {rel:.3e} (tol 1e-5), after "
+            f"{SPMV_CHAIN} chained {rel_end:.3e} (tol 1e-3)")
+        if not (rel <= 1e-5 and rel_end <= 1e-3):
+            raise AssertionError(f"{name} disagrees with K4")
+    three = ("csr (K4)", "block_tridiag (K13)", "bsr (K14)")
+    log(f"  hot_matvec picked {picked}; fastest chain {min(three, key=lambda nm: ms[nm])}, fastest kernel "
+        f"{min(three, key=lambda nm: dev_ms[nm])}; speedup of the pick over K4 "
+        f"{ms['csr (K4)'] / ms['hot_matvec -> ' + picked]:.3f}x by the chain, "
+        f"{dev_ms['csr (K4)'] / dev_ms['hot_matvec -> ' + picked]:.3f}x by the kernel; the rule's rates from this run "
+        f"(blocks streamed over the kernel's device time): K13 "
+        f"{streamed['block_tridiag (K13)'] / dev_ms['block_tridiag (K13)'] * 1e3:.3e} B/s, K14 "
+        f"{streamed['bsr (K14)'] / dev_ms['bsr (K14)'] * 1e3:.3e} B/s on {card}")
+    return counts
+
+
+def cg_path(grid_q, dev, card):
+    """Phase 13: CG at n=99856, once per formulation and once through hot_matvec."""
+    import tpu_gmrf_torch as tg
+    from tpu_gmrf_torch import kernels
+    from tpu_gmrf_torch.solvers.banded import block_tridiag_matvec
+    from tpu_gmrf_torch.solvers.cg import cg_solve, jacobi_preconditioner
+
+    rng = np.random.default_rng(15)
+    counts_all = None
+    kernels.reset_launches()
+    # ---- the CG main path ----
+    for dtype in (torch.float64, torch.float32):
+        Q = grid_q[dtype]
+        n, tol = Q.shape[0], CG_TOL[dtype]
+        spec = tg.SolverSpec(kind="cg", cg_tol=tol)
+        b = torch.tensor(rng.normal(size=(CG_RHS, n)), dtype=dtype, device=dev)
+        bnorm = torch.linalg.vector_norm(b, dim=-1)
+        M = jacobi_preconditioner(Q)
+        torch.cuda.reset_peak_memory_stats()
+        mv13 = block_tridiag_matvec(Q)
+        log(f"  {dtype_name(dtype)}: K13 storage s={mv13.D.shape[1]} K={mv13.D.shape[0]}, "
+            f"{(mv13.D.numel() + mv13.E.numel()) * Q.data.element_size() / 1e9:.3f} GB of blocks; device memory in use "
+            f"{torch.cuda.memory_allocated() / 1e9:.3f} GB, peak {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+        ops = {"csr (K4)": Q.matvec, "block_tridiag (K13)": mv13, "bsr (K14)": kernels.bsr_from_sparse(Q).matvec}
+        sols = {}
+        for name, mv in ops.items():
+            run = lambda: cg_solve(mv, b, preconditioner=M, tol=tol, max_iter=spec.cg_max_iter)
+            run()  # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            x, it, res = run()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            true_res = torch.linalg.vector_norm(b - Q.matvec(x), dim=-1) / bnorm  # recomputed with K4
+            sols[name] = x
+            idle = f", device idle {100 * device_idle(run)[1]:.1f}% (torch.profiler)" if dtype == torch.float64 else ""
+            log(f"  {dtype_name(dtype)} CG on {name}: iterations per column {it.tolist()}, {wall / int(it.max()):.4f} ms "
+                f"per iteration ({wall:.1f} ms), returned residual max {res.max().item():.3e}, recomputed with K4 max "
+                f"{true_res.max().item():.3e} (limit {10 * tol:.0e}){idle}")
+            if not (bool(torch.isfinite(x).all()) and true_res.max().item() <= 10 * tol):
+                raise AssertionError(f"CG on {name} did not reach the tolerance")
+        del mv13, ops
+        f = tg.factorize(Q, spec)
+        picked = formulation(f.matvec, Q)[0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x, it, res = f.solve_info(b.T.contiguous())
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        sols["factorize(kind='cg')"] = x.T
+        log(f"  {dtype_name(dtype)} factorize(Q, SolverSpec(kind='cg')).solve, hot_matvec -> {picked}: iterations "
+            f"{it.tolist()}, {wall / int(it.max()):.4f} ms per iteration, residual max {res.max().item():.3e}")
+        ref = sols["csr (K4)"]
+        for name, x in sols.items():
+            _, rel = rel_err((x,), (ref,))
+            if not rel <= 100 * tol:
+                raise AssertionError(f"CG solution on {name} is {rel:.3e} from K4's (limit {100 * tol:.0e})")
+        log(f"  {dtype_name(dtype)}: the solutions of the formulations agree within {100 * tol:.0e} of K4's")
+        if dtype == torch.float64:
+            g = tg.GMRF.from_information(b[0], Q, spec)
+            r = torch.linalg.vector_norm(g.information_vector() - b[0]) / bnorm[0]
+            log(f"  GMRF.from_information(b, Q, SolverSpec(kind='cg')): ‖Qμ − b‖/‖b‖ = {r.item():.3e}")
+            if not r.item() <= 10 * tol:
+                raise AssertionError("GMRF.from_information on the CG backend missed the tolerance")
+            del g
+        del f, sols
+    counts_all = kernels.launches()
+    # ---- end of the CG main path ----
+    launched(counts_all, CG_KERNELS, "CG")
+    return counts_all
+
+
+def cg_matern_path(model, dev, card):
+    """Phase 13b: CG on the stiff Matérn operator against the supernodal solve."""
+    import tpu_gmrf_torch as tg
+    from tpu_gmrf_torch import kernels
+    from tpu_gmrf_torch.solvers.cg import cg_solve, full_cholesky_preconditioner
+
+    Q = matern_precision(model, torch.float64, dev)
+    n = Q.shape[0]
+    b = torch.tensor(np.random.default_rng(16).normal(size=n), dtype=torch.float64, device=dev)
+    kernels.reset_launches()
+    # ---- the Matérn CG main path ----
+    f = tg.factorize(Q, tg.SolverSpec(kind="cg"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    xj, itj, resj = f.solve_info(b)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    M = full_cholesky_preconditioner(Q, tg.SolverSpec(kind="supernodal"))
+    xf, itf, resf = cg_solve(f.matvec, b, preconditioner=M, tol=f.tol, max_iter=f.max_iter)
+    with torch.no_grad():
+        ref = tg.factorize(Q, tg.SolverSpec(kind="supernodal")).solve(b)
+    torch.cuda.synchronize()
+    counts = kernels.launches()
+    # ---- end of the Matérn CG main path ----
+    picked, kernel = formulation(f.matvec, Q)
+    launched(counts, CG_MATERN_KERNELS + (kernel,), "Matérn CG")
+    _, rel_j = rel_err((xj,), (ref,))
+    _, rel_f = rel_err((xf,), (ref,))
+    log(f"  Jacobi CG on hot_matvec -> {picked} (cg_tol {f.tol:.0e}, cg_max_iter {f.max_iter}): {int(itj)} iterations, {wall / max(int(itj), 1):.4f} "
+        f"ms per iteration, residual {resj.item():.3e}, {rel_j:.3e} from the supernodal solve "
+        f"({'converged' if resj.item() <= f.tol else 'stopped at cg_max_iter, unconverged'})")
+    log(f"  full Cholesky preconditioner: {int(itf)} iteration(s), residual {resf.item():.3e}, {rel_f:.3e} from the "
+        f"supernodal solve (limit 1e-8)")
+    # unconverged, the recurrence's residual wanders (CG lowers the error's Q-norm, not the residual): the
+    # reference's CG on this operator also ends at cg_max_iter with a residual above 1, so only this is held
+    converged = resj.item() <= f.tol
+    if not (bool(torch.isfinite(xj).all()) and (converged or int(itj) == f.max_iter) and (not converged or rel_j <= 1e-4)):
+        raise AssertionError("Jacobi CG on the Matérn operator went wrong")
+    if not (int(itf) <= 2 and rel_f <= 1e-8):
+        raise AssertionError("CG with the full Cholesky preconditioner did not converge at once")
+    return counts
+
+
+def rbmc_path(stats_model, sp_model, dev, card):
+    """Phase 14: RBMC variances against selinv_diag; N(0, Q) draws by sqrt_matvec."""
+    import tpu_gmrf_torch as tg
+    from tpu_gmrf_torch import kernels
+    from tpu_gmrf_torch.linear_maps import CholeskySqrtMap
+    from tpu_gmrf_torch.solvers.rbmc import _block_rbmc_plan, block_rbmc_var, rbmc_var
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    Q = matern_precision(stats_model, torch.float64, dev)
+    Qs = matern_precision(sp_model, torch.float64, dev)
+    t0 = time.perf_counter()
+    blk_idx = _block_rbmc_plan(Qs.pattern, 1)[0]  # host Python, outside the timed region
+    plan_s = time.perf_counter() - t0
+    kernels.reset_launches()
+    # ---- the RBMC main path ----
+    with torch.no_grad():
+        g = tg.GMRF.from_precision(torch.zeros(Q.shape[0], dtype=torch.float64, device=dev), Q,
+                                   tg.SolverSpec(kind="supernodal"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    v = rbmc_var(g, gen, n_samples=RBMC_SAMPLES)
+    torch.cuda.synchronize()
+    rbmc_ms = (time.perf_counter() - t0) * 1e3
+    with torch.no_grad():
+        exact = g.var()
+        gs = tg.GMRF.from_precision(torch.zeros(Qs.shape[0], dtype=torch.float64, device=dev), Qs,
+                                    tg.SolverSpec(kind="supernodal"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vb = block_rbmc_var(gs, gen, n_samples=BLOCK_RBMC_SAMPLES)
+    torch.cuda.synchronize()
+    block_ms = (time.perf_counter() - t0) * 1e3
+    with torch.no_grad():
+        exact_s = gs.var()
+        # N(0, Q) draws: w = L z through the square-root map of a banded and a supernodal factor
+        z = torch.randn(Qs.shape[0], 4, generator=gen, dtype=torch.float64, device=dev)
+        draws = {}
+        for kind in ("banded", "supernodal"):
+            f = tg.factorize(Qs, tg.SolverSpec(kind=kind))
+            w = CholeskySqrtMap(f) @ z
+            draws[kind] = ((w * f.solve(w)).sum(0) / (z * z).sum(0) - 1).abs().max().item()
+    torch.cuda.synchronize()
+    counts = kernels.launches()
+    # ---- end of the RBMC main path ----
+    launched(counts, RBMC_KERNELS, "RBMC")
+    for name, est, ref, ms, S in (("rbmc_var n=%d" % Q.shape[0], v, exact, rbmc_ms, RBMC_SAMPLES),
+                                  ("block_rbmc_var n=%d" % Qs.shape[0], vb, exact_s, block_ms, BLOCK_RBMC_SAMPLES)):
+        err, tol = (est / ref - 1).abs(), rbmc_tol(S)
+        log(f"  {name}, S={S}: {ms:.1f} ms; vs selinv_diag max rel {err.max().item():.4f} (tol {tol['max']:.3f}), mean rel "
+            f"{err.mean().item():.4f} (tol {tol['mean']:.3f})")
+        if not (bool(torch.isfinite(est).all()) and err.max().item() <= tol["max"] and err.mean().item() <= tol["mean"]):
+            raise AssertionError(f"{name} is outside its Monte Carlo tolerance")
+    log(f"  _block_rbmc_plan at n={Qs.shape[0]}: {plan_s:.2f} s of host Python, {blk_idx.shape[0]} blocks of width "
+        f"{blk_idx.shape[1]} (not in the timed region)")
+    log(f"  N(0, Q) draws w = L z by CholeskySqrtMap, n={Qs.shape[0]}, 4 columns: |wᵀQ⁻¹w / zᵀz − 1| banded "
+        f"{draws['banded']:.3e}, supernodal {draws['supernodal']:.3e} (limit 1e-8)")
+    if max(draws.values()) > 1e-8:
+        raise AssertionError("sqrt_matvec draws fail wᵀ Q⁻¹ w = zᵀz")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -839,6 +1427,10 @@ def main() -> int:
     check_kernels(torch.float64, dev)
     results = check_kernels(torch.float32, dev)
 
+    log(f"phase 3 (extended) K4 and K1-K3 beyond shared memory, on {card}")
+    stats_model = spatial_model(STATS_GRID)
+    check_beyond_shared_memory(stats_model, dev)
+
     log(f"phase 3b kernels K5-K8 vs plain, g={SP_GRID}, B={SP_CHAINS}, on {card}")
     sp_model = spatial_model(SP_GRID)
     check_spatial_kernels(sp_model, torch.float64, dev)
@@ -849,6 +1441,11 @@ def main() -> int:
     dn_model = spatial_model(DN_GRID)
     check_dense_kernels(dn_model, sp_model, torch.float32, dev)
     results.update(check_dense_kernels(dn_model, sp_model, torch.float64, dev))  # the NUTS paths run float64
+
+    log(f"phase 3d multiply kernels K13-K15, bt_sqrt, K7 multiply vs plain and library, on {card}")
+    grid_q = {dt: grid_precision(dt, dev) for dt in (torch.float64, torch.float32)}
+    check_multiply_kernels(stats_model, sp_model, grid_q, torch.float64, dev)
+    results.update(check_multiply_kernels(stats_model, sp_model, grid_q, torch.float32, dev))
 
     log(f"phase 4 flagship slice: laplace_marginal value+grad, B={CHAINS}, n={N}, max_iter={GA_MAX_ITER}")
     y = flagship_y()
@@ -886,7 +1483,7 @@ def main() -> int:
         f"(per step {', '.join(f'{a:.3f}' for a in accepts)}) on {card}")
 
     log(f"phase 6 GMRF statistics, g={STATS_GRID}, B=1, kernels vs plain on {card}")
-    gmrf_statistics(dev)
+    gmrf_statistics(stats_model, dev)
 
     log(f"phase 7 spatial slice: Matérn + Poisson laplace_marginal value+grad, n={sp_model.n}, "
         f"B={SP_CHAINS}, max_iter={SP_GA_ITER}, supernodal")
@@ -999,7 +1596,18 @@ def main() -> int:
             or not pos_err <= NUTS_TOL["position"]:
         raise AssertionError("nuts_transition on the kernels disagrees with the plain path")
 
-    paths = (counts, sp_counts, counts9, counts10, counts11)
+    log(f"phase 12 the multiply path: bench_spmv, n={stats_model.n}, k={SPMV_VECS}, f32, {SPMV_CHAIN} chained "
+        f"normalized multiplies per timing, on {card}")
+    counts12 = multiply_path(stats_model, dev, card)
+    log(f"phase 13 the CG path: {CG_GRID}x{CG_GRID} grid precision, n={CG_GRID * CG_GRID}, {CG_RHS} right-hand sides, "
+        f"on {card}")
+    counts13 = cg_path(grid_q, dev, card)
+    log(f"phase 13b CG on the Matérn operator, n={stats_model.n}, f64, on {card}")
+    counts13b = cg_matern_path(stats_model, dev, card)
+    log(f"phase 14 RBMC variances and N(0, Q) draws, on {card}")
+    counts14 = rbmc_path(stats_model, sp_model, dev, card)
+
+    paths = (counts, sp_counts, counts9, counts10, counts11, counts12, counts13, counts13b, counts14)
     report = {
         "kernels": [
             {"name": name, "route": "cuda", "source": SOURCES[name][0], "replaces": SOURCES[name][1],

@@ -165,12 +165,8 @@ def test_selinv_and_logdet_gradient_match_reference(matern10, kind):
     f.logdet().sum().backward()
     assert _rel(td_.grad.numpy(), grad) <= 1e-8
     z = _t(np.random.default_rng(3).normal(size=(B, shape[0])))
-    if kind == "dense":
-        # L z undoes L⁻¹ z
-        torch.testing.assert_close(f.sqrt_matvec(f.forward_solve(z)), z, rtol=1e-9, atol=1e-9)
-    else:
-        with pytest.raises(NotImplementedError, match="2.14b"):
-            f.sqrt_matvec(z)
+    # L z undoes L⁻¹ z
+    torch.testing.assert_close(f.sqrt_matvec(f.forward_solve(z)), z, rtol=1e-9, atol=1e-9)
 
 
 @pytest.mark.parametrize("case", ["matern", "random"])
@@ -192,9 +188,15 @@ def test_dense_selinv_matches_reference_inverse(matern10, case):
 
 
 def test_block_tridiag_matvec_raises(matern10):
+    """The block-tridiagonal SpMV multiplies as `Q.matvec` does on a symmetric
+    pattern and raises on a non-symmetric one (its storage mirrors the lower triangle)."""
     rows, cols, shape, data = matern10
-    with pytest.raises(NotImplementedError, match="2.15"):
-        tb.block_tridiag_matvec(SparseMatrix(_t(data[0]), SparsePattern(rows, cols, shape)))
+    Q = SparseMatrix(_t(data[0]), SparsePattern(rows, cols, shape))
+    x = _t(np.random.default_rng(4).normal(size=shape[0]))
+    torch.testing.assert_close(tb.block_tridiag_matvec(Q)(x), Q.matvec(x), rtol=1e-12, atol=1e-12)
+    lower = rows >= cols
+    with pytest.raises(ValueError, match="symmetric sparsity pattern"):
+        tb.block_tridiag_matvec(SparseMatrix(_t(data[0][lower]), SparsePattern(rows[lower], cols[lower], shape)))
 
 
 # ---- rescue paths -----------------------------------------------------------------------

@@ -265,7 +265,9 @@ def test_port_never_imports_jax():
         assert root / "tpu_gmrf_torch" / sub / "__init__.py" in files
     assert root / "tpu_gmrf_torch" / "fem" / "spde.py" in files
     for mod in ("samplers/nuts.py", "samplers/run.py", "samplers/adaptation.py", "solvers/dense.py",
-                "solvers/banded.py", "kernels/dense.py", "kernels/banded.py", "_device.py"):
+                "solvers/banded.py", "kernels/dense.py", "kernels/banded.py", "_device.py",
+                "kernels/bsr_spmv.py", "kernels/hot.py", "solvers/cg.py", "solvers/rbmc.py", "linear_maps.py",
+                "models/grid.py"):
         assert root / "tpu_gmrf_torch" / mod in files
     offenders = []
     for path in files:

@@ -160,8 +160,10 @@ def test_noncanonical_links_and_unported_paths_raise():
     with pytest.raises(NotImplementedError):
         tg.AR1Model(8, constraint="sumtozero")(tau=_t(1.0), rho=_t(0.5))
     Q = tg.AR1Model(8).precision(_t(1.0), _t(0.5))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tg.factorize(Q, tg.SolverSpec(kind="cg"))
+    cg = tg.factorize(Q, tg.SolverSpec(kind="cg"))  # solves only, as in the reference
+    torch.testing.assert_close(Q.matvec(cg.solve(torch.ones(8, dtype=F64))), torch.ones(8, dtype=F64), rtol=1e-6, atol=1e-6)
+    with pytest.raises(NotImplementedError, match="CG backend does not support logdet"):
+        cg.logdet()
     prior = tg.AR1Model(8)(tau=_t(1.0), rho=_t(0.5))
     with pytest.raises(NotImplementedError):
         tg.gaussian_approximation(prior, tg.ExponentialFamily("normal")(np.ones(8), sigma=_t(1.0)))

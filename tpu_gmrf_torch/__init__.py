@@ -12,18 +12,38 @@ numbers and NumPy arrays go to the default device, ``"cuda"`` unless
 
 from ._device import default_device, set_default_device
 from .fem import MaternModel
-from .gmrf import GMRF
+from .gmrf import GMRF, logpdf, sample
 from .inference import GAOptions, gaussian_approximation, laplace_marginal, marginal_loglikelihood
+from .linear_maps import (
+    CholeskySqrtMap,
+    OuterProductMap,
+    SSMBidiagonalMap,
+    SymmetricBlockTridiagonalMap,
+    ZeroMap,
+    block_tridiag_to_sparse,
+)
 from .models import AR1Model, ARModel, LatentModel
 from .observations import ExponentialFamily
 from .samplers import IdentityTransform, LogitTransform, LogTransform, ParamSpec, make_logdensity, run_hmc, run_nuts
 from .solvers import SolverSpec, factorize
+from .solvers.cg import cg_solve
+from .solvers.rbmc import rbmc_var
 from .sparse import SparseMatrix, SparsePattern
 
 __all__ = [
     "set_default_device",
     "default_device",
     "GMRF",
+    "logpdf",
+    "sample",
+    "CholeskySqrtMap",
+    "OuterProductMap",
+    "SSMBidiagonalMap",
+    "SymmetricBlockTridiagonalMap",
+    "ZeroMap",
+    "block_tridiag_to_sparse",
+    "rbmc_var",
+    "cg_solve",
     "SparseMatrix",
     "SparsePattern",
     "SolverSpec",

@@ -1,5 +1,6 @@
-// K11 bt_factor and K12 bt_trsv: the RCM block-tridiagonal Cholesky of B
-// chains and its block substitutions.
+// K11 bt_factor, K12 bt_trsv and K13 bt_matvec (with its second entry
+// bt_sqrt): the RCM block-tridiagonal Cholesky of B chains, its block
+// substitutions, and the products with block-tridiagonal storage.
 //
 // Replaces (JAX reference, tpu_gmrf/solvers/banded.py):
 //   K11 :354-388 `banded_factorize`: symmetrize Q (when its pattern is
@@ -14,6 +15,12 @@
 //       the permutation and padding of :135-202 (`_to_blocks`,
 //       `_from_blocks`): y_k = L_k^-1 (b_k - M_{k-1} y_{k-1}),
 //       x_k = L_k^-T (y_k - M_k^T x_{k+1}).
+//   K13 :297-315 `BlockTridiagMV.__call__`: y_k = D_k x_k + E_{k-1} x_{k-1} +
+//       E_k^T x_{k+1} over the dense diagonal blocks D (K, s, s; both
+//       triangles stored) and sub-diagonal blocks E (K-1, s, s), with the RCM
+//       permutation of x and y; and, as `bt_sqrt`, :272-280
+//       `BandedFactor.sqrt_matvec`: y_k = L_k z_k + M_{k-1} z_{k-1} on K11's
+//       panels (L_k lower triangular: its upper triangle is not read).
 //
 // What bounds them on the card. K11 does about K s^3 (7/3) flops per chain
 // (n = 5741, s = 512, K = 12, B = 4: ~1.5e10) on K 2 s^2 values: bound by
@@ -33,12 +40,27 @@
 // `_chol_boosted` does. K12 runs one block per (chain, right-hand side)
 // with the whole permuted vector in shared memory, or, when it does not
 // fit (npad above ~25k in float64), in a global workspace row.
+// K13 streams (2K-1) s^2 values against 2 (3K-2) s^2 flops per vector: with
+// a handful of vectors it is bound by that stream (the blocks are 30-100x
+// the sparse values, most of them zeros). One block of threads owns 64 rows
+// of one block row and up to 8 vectors, so a row of y has one owner and
+// nothing is atomic. It gathers the three x blocks it needs through the
+// permutation into shared memory; the terms that read rows of a matrix
+// block (D_k, E_{k-1}; L_k, M_{k-1}) run one warp per row, lanes along the
+// row (coalesced), with a shuffle reduction; the E_k^T term reads E_k by
+// columns: there the lanes run along the 64 output rows, so a warp reads 32
+// neighbouring values of one row of E_k (coalesced too), and the 8 warps
+// split the rows of E_k and add up through shared memory in a fixed order.
+// E is thus read twice per product (once as E_{k-1}, once as E_k^T); the
+// bound counts it once. The result is scattered through the permutation.
 
 #include "dense_blocks.cuh"
 
 namespace {
 
 using namespace tgdense;
+
+__device__ __forceinline__ int cdiv_dev(int a, int b) { return (a + b - 1) / b; }
 
 // P[b][dst[e]] = Q's value at src[e] (averaged with its transpose when
 // tperm is given), or 1 where src[e] < 0 (padding diagonal). The host has
@@ -254,6 +276,138 @@ int launch_trsv(const T* P, int K, int s, int n, const int* perm, const T* b, T*
   return (int)cudaGetLastError();
 }
 
+// ---- K13 ------------------------------------------------------------------
+
+constexpr int kMvRows = 64;  // rows of y per block
+constexpr int kMvVecs = 8;   // vectors per block (accumulators in registers)
+constexpr int kMvWarps = kThreads / 32;
+
+// Block (k, tile) x (chain, vector chunk). Matrix block k of chain b is at
+// diag + b diag_b + k diag_k (s x s, row-major); sub-diagonal block k (rows of
+// block row k+1, columns of block row k) at sub + b sub_b + k sub_k. x and y
+// are (B kk, n) rows, chain-major; a chunk is rc <= kMvVecs rows of one chain.
+// lower: only j <= i of the diagonal block is read; upper: the sub^T term.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    bt_matvec_kernel(const T* __restrict__ diag, long long diag_k, long long diag_b, const T* __restrict__ sub,
+                     long long sub_k, long long sub_b, int K, int s, int n, const int* __restrict__ perm,
+                     const T* __restrict__ x, T* __restrict__ y, int kk, int rc, int lower, int upper) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* xs = reinterpret_cast<T*>(smem_raw);              // [3][rc][s]: x of block rows k-1, k, k+1
+  T* red = xs + 3LL * rc * s;                          // [warps][rc][kMvRows]: partial sums of the E_k^T term
+  T* yacc = red + (long long)kMvWarps * rc * kMvRows;  // [rc][kMvRows]: the row terms
+  const int tiles = cdiv_dev(s, kMvRows);
+  const int k = blockIdx.x / tiles, i0 = (blockIdx.x % tiles) * kMvRows;
+  const int chunks = cdiv_dev(kk, rc);
+  const long long b = blockIdx.y / chunks;
+  const int c0 = (blockIdx.y % chunks) * rc;
+  const int nc = min(rc, kk - c0);
+  const long long row0 = b * kk + c0;
+  const int rows = min(kMvRows, s - i0);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+
+  for (long long e = threadIdx.x; e < 3LL * rc * s; e += blockDim.x) {
+    const int which = (int)(e / ((long long)rc * s)), c = (int)((e / s) % rc), j = (int)(e % s);
+    const int kb = k - 1 + which;
+    const long long g = (long long)kb * s + j;
+    T v = T(0);
+    if (kb >= 0 && kb < K && c < nc && g < n && (which < 2 || upper)) v = x[(row0 + c) * n + perm[g]];
+    xs[e] = v;
+  }
+  __syncthreads();
+  const T* xprev = xs;
+  const T* xcur = xs + (long long)rc * s;
+  const T* xnext = xs + 2LL * rc * s;
+
+  // the terms that read matrix rows: one warp per row, lanes along the row
+  for (int ii = warp; ii < rows; ii += kMvWarps) {
+    const int i = i0 + ii;
+    T acc[kMvVecs];
+#pragma unroll
+    for (int c = 0; c < kMvVecs; ++c) acc[c] = T(0);
+    const T* drow = diag + b * diag_b + k * diag_k + (long long)i * s;
+    const int jend = lower ? i + 1 : s;
+    for (int j = lane; j < jend; j += 32) {
+      const T v = drow[j];
+#pragma unroll
+      for (int c = 0; c < kMvVecs; ++c)
+        if (c < rc) acc[c] += v * xcur[(long long)c * s + j];
+    }
+    if (k > 0) {
+      const T* srow = sub + b * sub_b + (k - 1) * sub_k + (long long)i * s;
+      for (int j = lane; j < s; j += 32) {
+        const T v = srow[j];
+#pragma unroll
+        for (int c = 0; c < kMvVecs; ++c)
+          if (c < rc) acc[c] += v * xprev[(long long)c * s + j];
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < kMvVecs; ++c) {
+      if (c < rc) {
+        T a = acc[c];
+        for (int off = 16; off > 0; off >>= 1) a += __shfl_down_sync(0xffffffffu, a, off);
+        if (lane == 0) yacc[c * kMvRows + ii] = a;
+      }
+    }
+  }
+
+  // the E_k^T term: lanes along the output rows, the warps split E_k's rows
+  const bool up = upper && k < K - 1;
+  if (up) {
+    const T* eblk = sub + b * sub_b + k * sub_k;
+    T a0[kMvVecs], a1[kMvVecs];
+#pragma unroll
+    for (int c = 0; c < kMvVecs; ++c) a0[c] = a1[c] = T(0);
+    const bool in0 = lane < rows, in1 = lane + 32 < rows;
+    for (int j = warp; j < s; j += kMvWarps) {
+      const T* erow = eblk + (long long)j * s + i0;
+      const T v0 = in0 ? erow[lane] : T(0);
+      const T v1 = in1 ? erow[lane + 32] : T(0);
+#pragma unroll
+      for (int c = 0; c < kMvVecs; ++c) {
+        if (c < rc) {
+          const T xv = xnext[(long long)c * s + j];
+          a0[c] += v0 * xv;
+          a1[c] += v1 * xv;
+        }
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < kMvVecs; ++c) {
+      if (c < rc) {
+        red[((long long)warp * rc + c) * kMvRows + lane] = a0[c];
+        red[((long long)warp * rc + c) * kMvRows + lane + 32] = a1[c];
+      }
+    }
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < nc * kMvRows; e += blockDim.x) {
+    const int c = e / kMvRows, ii = e % kMvRows;
+    const long long g = (long long)k * s + i0 + ii;
+    if (ii >= rows || g >= n) continue;
+    T v = yacc[c * kMvRows + ii];
+    if (up)
+      for (int w = 0; w < kMvWarps; ++w) v += red[((long long)w * rc + c) * kMvRows + ii];
+    y[(row0 + c) * n + perm[g]] = v;
+  }
+}
+
+template <typename T>
+int launch_matvec(const T* diag, long long diag_k, long long diag_b, const T* sub, long long sub_k, long long sub_b,
+                  int K, int s, int n, const int* perm, const T* x, T* y, int kk, int B, int rc, int lower,
+                  int upper, void* stream) {
+  if (B == 0 || kk == 0 || n == 0) return 0;
+  if (rc < 1 || rc > kMvVecs) return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(T) * ((size_t)3 * rc * s + (size_t)(kMvWarps + 1) * rc * kMvRows);
+  const int err = set_smem(bt_matvec_kernel<T>, smem);
+  if (err) return err;
+  const dim3 grid(K * cdiv(s, kMvRows), B * cdiv(kk, rc));
+  bt_matvec_kernel<T><<<grid, kThreads, smem, (cudaStream_t)stream>>>(diag, diag_k, diag_b, sub, sub_k, sub_b, K, s,
+                                                                      n, perm, x, y, kk, rc, lower, upper);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -268,6 +422,12 @@ extern "C" {
   int tg_bt_trsv_##SUF(const T* P, int K, int s, int n, const int* perm, const T* b, T* out, int k, int mode, \
                        int R, T* work, void* stream) {                                                        \
     return launch_trsv<T>(P, K, s, n, perm, b, out, k, mode, R, work, stream);                                \
+  }                                                                                                           \
+  int tg_bt_matvec_##SUF(const T* diag, long long diag_k, long long diag_b, const T* sub, long long sub_k,    \
+                         long long sub_b, int K, int s, int n, const int* perm, const T* x, T* y, int kk,     \
+                         int B, int rc, int lower, int upper, void* stream) {                                 \
+    return launch_matvec<T>(diag, diag_k, diag_b, sub, sub_k, sub_b, K, s, n, perm, x, y, kk, B, rc, lower,   \
+                            upper, stream);                                                                   \
   }
 
 TG_BT_ENTRY(f32, float)

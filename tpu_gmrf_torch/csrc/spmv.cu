@@ -22,6 +22,14 @@
 // per chain. With quad != nullptr the block also reduces x_r * y_r over its
 // rows (warp shuffles, then one value per warp in shared memory) and writes
 // one x^T A x per chain; no atomics, so the result is deterministic.
+//
+// A chain's x that does not fit the 48 KB of shared memory a launch gets
+// without an opt-in, or a batch of too few chains to fill the card, takes the
+// tiled path instead: the grid runs over (row tile, chain), one thread per
+// row, x read from global memory (it stays in L2: one chain's x is at most a
+// few hundred KB). The quadratic form is then reduced in two passes, still
+// without atomics: each block writes its partial sum, and a second small
+// kernel adds a chain's partials in a fixed order.
 
 #include <cuda_runtime.h>
 
@@ -63,12 +71,66 @@ __global__ void csr_spmv_kernel(const int* __restrict__ row_ptr, const int* __re
   }
 }
 
+// The tiled path: block (tile, chain) owns rows tile * kThreads ..., one
+// thread per row; partial[chain * tiles + tile] = sum of x_r y_r over the tile.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    csr_spmv_tiled_kernel(const int* __restrict__ row_ptr, const int* __restrict__ col,
+                          const T* __restrict__ data, long long data_stride, const T* __restrict__ x,
+                          T* __restrict__ y, T* __restrict__ partial, int n) {
+  __shared__ T swarp[kThreads / 32];
+  const long long b = blockIdx.y;
+  const T* xb = x + b * n;
+  const T* db = data + b * data_stride;
+  const int r = blockIdx.x * kThreads + threadIdx.x;
+  T acc = T(0);
+  if (r < n) {
+    T s = T(0);
+    const int end = row_ptr[r + 1];
+    for (int p = row_ptr[r]; p < end; ++p) s += db[p] * xb[col[p]];
+    y[b * n + r] = s;
+    acc = xb[r] * s;
+  }
+  if (partial == nullptr) return;
+  for (int off = 16; off > 0; off >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, off);
+  if ((threadIdx.x & 31) == 0) swarp[threadIdx.x >> 5] = acc;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    T total = T(0);
+    for (int w = 0; w < kThreads / 32; ++w) total += swarp[w];
+    partial[b * gridDim.x + blockIdx.x] = total;
+  }
+}
+
+// quad[chain] = sum of the chain's `tiles` partials, in order (one warp per chain).
+template <typename T>
+__global__ void quad_sum_kernel(const T* __restrict__ partial, T* __restrict__ quad, int tiles) {
+  const long long b = blockIdx.x;
+  T acc = T(0);
+  for (int t = threadIdx.x; t < tiles; t += 32) acc += partial[b * tiles + t];
+  for (int off = 16; off > 0; off >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, off);
+  if (threadIdx.x == 0) quad[b] = acc;
+}
+
+// `tiled` != 0 takes the tiled path; `partial` is then its (B, tiles)
+// workspace, tiles = ceil(n / kThreads), needed only with quad.
 template <typename T>
 int launch_spmv(const int* row_ptr, const int* col, const T* data, long long data_stride, const T* x,
-                T* y, T* quad, int B, int n, void* stream) {
-  size_t smem = sizeof(T) * ((size_t)n + kThreads / 32);
-  csr_spmv_kernel<T><<<B, kThreads, smem, (cudaStream_t)stream>>>(row_ptr, col, data,
-                                                                  data_stride, x, y, quad, n);
+                T* y, T* quad, int B, int n, int tiled, T* partial, void* stream) {
+  if (B == 0 || n == 0) return 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (!tiled) {
+    size_t smem = sizeof(T) * ((size_t)n + kThreads / 32);
+    csr_spmv_kernel<T><<<B, kThreads, smem, st>>>(row_ptr, col, data, data_stride, x, y, quad, n);
+    return (int)cudaGetLastError();
+  }
+  if (quad != nullptr && partial == nullptr) return (int)cudaErrorInvalidValue;
+  const int tiles = (n + kThreads - 1) / kThreads;
+  csr_spmv_tiled_kernel<T><<<dim3(tiles, B), kThreads, 0, st>>>(row_ptr, col, data, data_stride, x, y,
+                                                                quad ? partial : nullptr, n);
+  int rc = (int)cudaGetLastError();
+  if (rc || quad == nullptr) return rc;
+  quad_sum_kernel<T><<<B, 32, 0, st>>>(partial, quad, tiles);
   return (int)cudaGetLastError();
 }
 
@@ -77,12 +139,14 @@ int launch_spmv(const int* row_ptr, const int* col, const T* data, long long dat
 extern "C" {
 
 int tg_csr_spmv_f32(const int* row_ptr, const int* col, const float* data, long long data_stride,
-                    const float* x, float* y, float* quad, int B, int n, void* stream) {
-  return launch_spmv<float>(row_ptr, col, data, data_stride, x, y, quad, B, n, stream);
+                    const float* x, float* y, float* quad, int B, int n, int tiled, float* partial,
+                    void* stream) {
+  return launch_spmv<float>(row_ptr, col, data, data_stride, x, y, quad, B, n, tiled, partial, stream);
 }
 int tg_csr_spmv_f64(const int* row_ptr, const int* col, const double* data, long long data_stride,
-                    const double* x, double* y, double* quad, int B, int n, void* stream) {
-  return launch_spmv<double>(row_ptr, col, data, data_stride, x, y, quad, B, n, stream);
+                    const double* x, double* y, double* quad, int B, int n, int tiled, double* partial,
+                    void* stream) {
+  return launch_spmv<double>(row_ptr, col, data, data_stride, x, y, quad, B, n, tiled, partial, stream);
 }
 
 }  // extern "C"

@@ -6,7 +6,9 @@
 //       :987 `_plain_step` (gather panel, boosted diagonal Cholesky,
 //       Lb = Bm Ld^-T, U = Lb Lb^T, unique write-back), plus the pivots that
 //       :1339 `logdet` gathers;
-//   K7: :1171 `_forward` / :1214 `_backward` (`fwd_step`, `bwd_step`);
+//   K7: :1171 `_forward` / :1214 `_backward` (`fwd_step`, `bwd_step`), and,
+//       as mode 2, :1296 `sqrt_step` of `sqrt_matvec` (out[cols] += Ld z[cols],
+//       Lb z[cols] into the level's update buffer);
 //   K8: :1000 `_sig_step` (block Takahashi: Sigma_RJ = -Sigma_RR C,
 //       Sigma_JJ = Ld^-T Ld^-1 + C^T Sigma_RR C with C = Lb Ld^-1).
 //
@@ -250,7 +252,7 @@ __global__ void __launch_bounds__(kThreads)
     sn_trsv_kernel(const T* __restrict__ vals, long long vs, const int* __restrict__ panel_idx,
                    const int* __restrict__ cols_idx, const int* __restrict__ rows_idx, int W, int M,
                    int ndummy, T* __restrict__ x, long long xs, int k, T* __restrict__ u, long long us,
-                   long long ubase, int mode) {
+                   long long ubase, int mode, const T* __restrict__ z) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ int s_ns, s_m;
   __shared__ T s_y;
@@ -275,6 +277,26 @@ __global__ void __launch_bounds__(kThreads)
   const int ns = s_ns, m = s_m;
   if (ns == 0) return;
   auto L = [&](int r, int c) { return vb[pidx[(long long)r * W + c]]; };
+  if (mode == 2) {
+    // the product, not a solve: x[cols] += Ld z[cols] (lower triangle, live
+    // columns only: a padded column of the reference multiplies a zero),
+    // u = Lb z[cols]; a column of x has one owner, so the sum needs no atomics
+    const T* zb = z + bx * xs;
+    for (int c = threadIdx.x; c < ns; c += blockDim.x) yc[c] = zb[cidx[c]];
+    __syncthreads();
+    for (int i = threadIdx.x; i < ns; i += blockDim.x) {
+      T s = T(0);
+      for (int j = 0; j <= i; ++j) s += L(i, j) * yc[j];
+      xb[cidx[i]] += s;
+    }
+    T* ub = u + bx * us + ubase + (long long)p * M;
+    for (int r = threadIdx.x; r < m; r += blockDim.x) {
+      T s = T(0);
+      for (int c = 0; c < ns; ++c) s += L(W + r, c) * yc[c];
+      ub[r] = s;
+    }
+    return;
+  }
   for (int c = threadIdx.x; c < ns; c += blockDim.x) yc[c] = xb[cidx[c]];
   if (mode == 0) {
     __syncthreads();
@@ -423,13 +445,14 @@ int launch_panel(T* vals, long long vs, const int* panel_idx, const int* cols_id
 template <typename T>
 int launch_trsv(const T* vals, long long vs, const int* panel_idx, const int* cols_idx,
                 const int* rows_idx, int P, int W, int M, int ndummy, T* x, long long xs, int k, T* u,
-                long long us, long long ubase, int mode, int B, void* stream) {
+                long long us, long long ubase, int mode, int B, const T* z, void* stream) {
   if (P == 0 || B == 0) return 0;
+  if (mode == 2 && z == nullptr) return (int)cudaErrorInvalidValue;
   const size_t smem = sizeof(T) * (size_t)(W + M);
   int rc = set_smem(sn_trsv_kernel<T>, smem);
   if (rc) return rc;
   sn_trsv_kernel<T><<<dim3(P, B), kThreads, smem, (cudaStream_t)stream>>>(
-      vals, vs, panel_idx, cols_idx, rows_idx, W, M, ndummy, x, xs, k, u, us, ubase, mode);
+      vals, vs, panel_idx, cols_idx, rows_idx, W, M, ndummy, x, xs, k, u, us, ubase, mode, z);
   return (int)cudaGetLastError();
 }
 
@@ -461,9 +484,10 @@ extern "C" {
   }                                                                                                \
   int tg_sn_trsv_##SUF(const T* vals, long long vs, const int* panel_idx, const int* cols_idx,     \
                        const int* rows_idx, int P, int W, int M, int ndummy, T* x, long long xs,   \
-                       int k, T* u, long long us, long long ubase, int mode, int B, void* stream) { \
+                       int k, T* u, long long us, long long ubase, int mode, int B, const T* z,    \
+                       void* stream) {                                                             \
     return launch_trsv<T>(vals, vs, panel_idx, cols_idx, rows_idx, P, W, M, ndummy, x, xs, k, u,   \
-                          us, ubase, mode, B, stream);                                             \
+                          us, ubase, mode, B, z, stream);                                          \
   }                                                                                                \
   int tg_sn_takahashi_##SUF(const T* vals, long long vs, T* sig, long long ss,                     \
                             const int* panel_idx, const int* schur_idx, int P, int W, int M,       \

@@ -22,8 +22,14 @@
 // memory with coalesced loads, one thread runs the recurrence out of shared
 // memory (no global-memory latency inside the dependent chain), and the
 // block writes the results back coalesced. 256 chains give 256 blocks, about
-// two per SM. Nothing is allocated here; the wrapper allocates every output
-// and checks that the rows fit the 48 KB of static-launch shared memory.
+// two per SM. Nothing is allocated here; the wrapper allocates every output.
+// A chain whose rows do not fit the 48 KB of shared memory a launch gets
+// without an opt-in (`in_global` != 0, the kernels' InGlobal) keeps them in
+// global memory instead (a template parameter, so the shared-memory version
+// compiles to shared-memory loads as it did before there was a choice):
+// the outputs are the workspace. The block copies the inputs into the output
+// rows, one thread runs the recurrence there in place (K2 reads d and e where
+// they are), and nothing is copied back.
 // Each entry point launches on the given stream and returns
 // cudaGetLastError() so the Python wrapper can raise.
 
@@ -60,14 +66,14 @@ __device__ __forceinline__ void store_row(T* dst, const T* src, int len) {
 // e_k = c_k / d_k, logdet = 2 sum log d. A non-positive pivot gives a NaN
 // (or -inf) logdet exactly as the reference does: no clamping, because a
 // NaN is how a chain rejects downstream.
-template <typename T>
+template <typename T, bool InGlobal>
 __global__ void tridiag_factor_kernel(const T* __restrict__ a, const T* __restrict__ c,
                                       T* __restrict__ d, T* __restrict__ e,
                                       T* __restrict__ logdet, int n) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sa = reinterpret_cast<T*>(smem_raw);  // a, overwritten by d
-  T* sc = sa + n;                          // c, overwritten by e
   const long b = blockIdx.x;
+  T* sa = InGlobal ? d + b * n : reinterpret_cast<T*>(smem_raw);  // a, overwritten by d
+  T* sc = InGlobal ? e + b * (n - 1) : sa + n;                    // c, overwritten by e
   load_row(sa, a + b * n, n);
   load_row(sc, c + b * (n - 1), n - 1);
   __syncthreads();
@@ -86,6 +92,7 @@ __global__ void tridiag_factor_kernel(const T* __restrict__ a, const T* __restri
     }
     logdet[b] = T(2) * acc;
   }
+  if (InGlobal) return;
   __syncthreads();
   store_row(d + b * n, sa, n);
   store_row(e + b * (n - 1), sc, n - 1);
@@ -93,17 +100,21 @@ __global__ void tridiag_factor_kernel(const T* __restrict__ a, const T* __restri
 
 // K2. mode 0: L y = b; mode 1: L^T x = b; mode 2: both (Q x = b) fused.
 // b is (n, k) per chain, row-major; thread j < k runs column j.
-template <typename T>
+template <typename T, bool InGlobal>
 __global__ void tridiag_solve_kernel(const T* __restrict__ d, const T* __restrict__ e,
                                      const T* __restrict__ rhs, T* __restrict__ out,
                                      int n, int k, int mode) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sd = reinterpret_cast<T*>(smem_raw);
-  T* se = sd + n;
-  T* sb = se + (n - 1);  // n*k
   const long b = blockIdx.x;
-  load_row(sd, d + b * n, n);
-  load_row(se, e + b * (n - 1), n - 1);
+  T* sd_w = reinterpret_cast<T*>(smem_raw);
+  T* se_w = sd_w + n;
+  const T* sd = InGlobal ? d + b * n : sd_w;
+  const T* se = InGlobal ? e + b * (n - 1) : se_w;
+  T* sb = InGlobal ? out + b * (long)n * k : se_w + (n - 1);  // n*k
+  if (!InGlobal) {
+    load_row(sd_w, d + b * n, n);
+    load_row(se_w, e + b * (n - 1), n - 1);
+  }
   load_row(sb, rhs + b * (long)n * k, n * k);
   __syncthreads();
   for (int j = threadIdx.x; j < k; j += blockDim.x) {
@@ -124,19 +135,20 @@ __global__ void tridiag_solve_kernel(const T* __restrict__ d, const T* __restric
       }
     }
   }
+  if (InGlobal) return;
   __syncthreads();
   store_row(out + b * (long)n * k, sb, n * k);
 }
 
 // K3. Takahashi: z_{n-1} = 1/d_{n-1}^2; z_j = 1/d_j^2 + r_j^2 z_{j+1};
 // zoff_j = -r_j z_{j+1}, with r_j = e_j / d_j.
-template <typename T>
+template <typename T, bool InGlobal>
 __global__ void tridiag_selinv_kernel(const T* __restrict__ d, const T* __restrict__ e,
                                       T* __restrict__ zdiag, T* __restrict__ zoff, int n) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sd = reinterpret_cast<T*>(smem_raw);  // d, overwritten by zdiag
-  T* se = sd + n;                          // e, overwritten by zoff
   const long b = blockIdx.x;
+  T* sd = InGlobal ? zdiag + b * n : reinterpret_cast<T*>(smem_raw);  // d, overwritten by zdiag
+  T* se = InGlobal ? zoff + b * (n - 1) : sd + n;                     // e, overwritten by zoff
   load_row(sd, d + b * n, n);
   load_row(se, e + b * (n - 1), n - 1);
   __syncthreads();
@@ -152,6 +164,7 @@ __global__ void tridiag_selinv_kernel(const T* __restrict__ d, const T* __restri
       sd[j] = z;
     }
   }
+  if (InGlobal) return;
   __syncthreads();
   store_row(zdiag + b * n, sd, n);
   store_row(zoff + b * (n - 1), se, n - 1);
@@ -160,27 +173,38 @@ __global__ void tridiag_selinv_kernel(const T* __restrict__ d, const T* __restri
 constexpr int kThreads = 128;
 
 template <typename T>
-int launch_factor(const T* a, const T* c, T* d, T* e, T* logdet, int B, int n, void* stream) {
-  size_t smem = sizeof(T) * (2 * (size_t)n - 1);
-  tridiag_factor_kernel<T><<<B, kThreads, smem, (cudaStream_t)stream>>>(a, c, d, e, logdet, n);
+int launch_factor(const T* a, const T* c, T* d, T* e, T* logdet, int B, int n, int in_global,
+                  void* stream) {
+  size_t smem = in_global ? 0 : sizeof(T) * (2 * (size_t)n - 1);
+  if (in_global)
+    tridiag_factor_kernel<T, true><<<B, kThreads, smem, (cudaStream_t)stream>>>(a, c, d, e, logdet, n);
+  else
+    tridiag_factor_kernel<T, false><<<B, kThreads, smem, (cudaStream_t)stream>>>(a, c, d, e, logdet, n);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_solve(const T* d, const T* e, const T* rhs, T* out, int B, int n, int k, int mode,
-                 void* stream) {
-  size_t smem = sizeof(T) * (2 * (size_t)n - 1 + (size_t)n * k);
+                 int in_global, void* stream) {
+  size_t smem = in_global ? 0 : sizeof(T) * (2 * (size_t)n - 1 + (size_t)n * k);
   int threads = ((k + 31) / 32) * 32;
   if (threads < kThreads) threads = kThreads;
   if (threads > 1024) threads = 1024;
-  tridiag_solve_kernel<T><<<B, threads, smem, (cudaStream_t)stream>>>(d, e, rhs, out, n, k, mode);
+  if (in_global)
+    tridiag_solve_kernel<T, true><<<B, threads, smem, (cudaStream_t)stream>>>(d, e, rhs, out, n, k, mode);
+  else
+    tridiag_solve_kernel<T, false><<<B, threads, smem, (cudaStream_t)stream>>>(d, e, rhs, out, n, k, mode);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_selinv(const T* d, const T* e, T* zdiag, T* zoff, int B, int n, void* stream) {
-  size_t smem = sizeof(T) * (2 * (size_t)n - 1);
-  tridiag_selinv_kernel<T><<<B, kThreads, smem, (cudaStream_t)stream>>>(d, e, zdiag, zoff, n);
+int launch_selinv(const T* d, const T* e, T* zdiag, T* zoff, int B, int n, int in_global,
+                  void* stream) {
+  size_t smem = in_global ? 0 : sizeof(T) * (2 * (size_t)n - 1);
+  if (in_global)
+    tridiag_selinv_kernel<T, true><<<B, kThreads, smem, (cudaStream_t)stream>>>(d, e, zdiag, zoff, n);
+  else
+    tridiag_selinv_kernel<T, false><<<B, kThreads, smem, (cudaStream_t)stream>>>(d, e, zdiag, zoff, n);
   return (int)cudaGetLastError();
 }
 
@@ -188,32 +212,24 @@ int launch_selinv(const T* d, const T* e, T* zdiag, T* zoff, int B, int n, void*
 
 extern "C" {
 
-int tg_tridiag_factor_f32(const float* a, const float* c, float* d, float* e, float* logdet,
-                          int B, int n, void* stream) {
-  return launch_factor<float>(a, c, d, e, logdet, B, n, stream);
-}
-int tg_tridiag_factor_f64(const double* a, const double* c, double* d, double* e,
-                          double* logdet, int B, int n, void* stream) {
-  return launch_factor<double>(a, c, d, e, logdet, B, n, stream);
-}
+#define TG_TRIDIAG_ENTRY(SUF, T)                                                                  \
+  int tg_tridiag_factor_##SUF(const T* a, const T* c, T* d, T* e, T* logdet, int B, int n,        \
+                              int in_global, void* stream) {                                      \
+    return launch_factor<T>(a, c, d, e, logdet, B, n, in_global, stream);                         \
+  }                                                                                               \
+  int tg_tridiag_solve_##SUF(const T* d, const T* e, const T* rhs, T* out, int B, int n, int k,   \
+                             int mode, int in_global, void* stream) {                             \
+    return launch_solve<T>(d, e, rhs, out, B, n, k, mode, in_global, stream);                     \
+  }                                                                                               \
+  int tg_tridiag_selinv_##SUF(const T* d, const T* e, T* zdiag, T* zoff, int B, int n,            \
+                              int in_global, void* stream) {                                      \
+    return launch_selinv<T>(d, e, zdiag, zoff, B, n, in_global, stream);                          \
+  }
 
-int tg_tridiag_solve_f32(const float* d, const float* e, const float* rhs, float* out, int B,
-                         int n, int k, int mode, void* stream) {
-  return launch_solve<float>(d, e, rhs, out, B, n, k, mode, stream);
-}
-int tg_tridiag_solve_f64(const double* d, const double* e, const double* rhs, double* out,
-                         int B, int n, int k, int mode, void* stream) {
-  return launch_solve<double>(d, e, rhs, out, B, n, k, mode, stream);
-}
+TG_TRIDIAG_ENTRY(f32, float)
+TG_TRIDIAG_ENTRY(f64, double)
 
-int tg_tridiag_selinv_f32(const float* d, const float* e, float* zdiag, float* zoff, int B,
-                          int n, void* stream) {
-  return launch_selinv<float>(d, e, zdiag, zoff, B, n, stream);
-}
-int tg_tridiag_selinv_f64(const double* d, const double* e, double* zdiag, double* zoff, int B,
-                          int n, void* stream) {
-  return launch_selinv<double>(d, e, zdiag, zoff, B, n, stream);
-}
+#undef TG_TRIDIAG_ENTRY
 
 const char* tg_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 

@@ -16,7 +16,7 @@ import torch
 from .solvers.base import SolverSpec, factorize
 from .sparse.matrix import SparseMatrix
 
-__all__ = ["GMRF"]
+__all__ = ["GMRF", "logpdf", "sample", "gradlogpdf", "information_vector"]
 
 _LOG2PI = 1.8378770664093453
 
@@ -27,7 +27,7 @@ class GMRF:
 
     mean: torch.Tensor  # (n,) or (B, n)
     Q: SparseMatrix
-    factor: object  # backend factorization (TridiagFactor or SupernodalFactor)
+    factor: object  # backend factorization (TridiagFactor, SupernodalFactor, CGFactor, ...)
     solver: SolverSpec = SolverSpec()
 
     # ---- construction ------------------------------------------------------
@@ -36,6 +36,16 @@ class GMRF:
     def from_precision(mean, Q: SparseMatrix, solver: SolverSpec = SolverSpec()) -> "GMRF":
         mean = torch.as_tensor(mean, dtype=Q.dtype, device=Q.device)
         return GMRF(mean=mean, Q=Q, factor=factorize(Q, solver), solver=solver)
+
+    @staticmethod
+    def from_information(info, Q: SparseMatrix, solver: SolverSpec = SolverSpec()) -> "GMRF":
+        """Construct from the information vector b = Qμ — solves Qμ = b once
+        (reference `InformationVector` constructor, src/gmrf.jl:144-156)."""
+        factor = factorize(Q, solver)
+        info = torch.as_tensor(info, dtype=Q.dtype, device=Q.device)
+        with torch.no_grad():
+            mean = factor.solve(info)
+        return GMRF(mean=mean, Q=Q, factor=factor, solver=solver)
 
     # ---- distribution interface -------------------------------------------
 
@@ -97,3 +107,33 @@ class GMRF:
             "dense covariance deliberately unavailable (reference src/gmrf.jl:90); "
             "use var()/std()/selinv"
         )
+
+    # ---- elementary arithmetic (reference src/arithmetic/elementary.jl) ----
+
+    def __add__(self, v):
+        """Shift by a deterministic vector: (x + v) ~ N(μ + v, Q⁻¹)."""
+        return dataclasses.replace(self, mean=self.mean + torch.as_tensor(v, dtype=self.dtype, device=self.Q.device))
+
+    __radd__ = __add__
+
+    def __sub__(self, v):
+        return dataclasses.replace(self, mean=self.mean - torch.as_tensor(v, dtype=self.dtype, device=self.Q.device))
+
+
+# Functional aliases
+
+
+def logpdf(g: GMRF, x) -> torch.Tensor:
+    return g.logpdf(x)
+
+
+def gradlogpdf(g: GMRF, x) -> torch.Tensor:
+    return g.gradlogpdf(x)
+
+
+def sample(generator: torch.Generator, g: GMRF, shape: tuple = ()) -> torch.Tensor:
+    return g.sample(generator, shape)
+
+
+def information_vector(g: GMRF) -> torch.Tensor:
+    return g.information_vector()

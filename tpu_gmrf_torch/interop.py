@@ -28,7 +28,7 @@ from .sparse.pattern import SparsePattern
 __all__ = [
     "sparse_from_numpy", "gmrf_from_numpy", "ef_likelihood_from_numpy", "hmc_state_from_numpy",
     "plan_to_numpy", "matern_model_from_numpy", "nuts_result_from_numpy", "da_state_from_numpy",
-    "welford_state_from_numpy",
+    "welford_state_from_numpy", "bsr_from_numpy", "block_tridiag_mv_from_numpy",
 ]
 
 
@@ -107,3 +107,34 @@ def plan_to_numpy(plan):
     if hasattr(plan, "shape") and hasattr(plan, "dtype"):
         return np.asarray(plan)
     return plan
+
+
+def bsr_from_numpy(blocks, n: int, bs: int, block_rows, block_cols, *, dtype=torch.float64, device=None):
+    """The port's `BSRMatrix` from a reference BSR matrix's blocks
+    (nblocks, bs, bs) and its plan's ``block_rows`` / ``block_cols`` (sorted
+    by block row, then column): the row pointers, the transpose order and
+    the transposed plan are rebuilt from them."""
+    from .kernels.bsr_spmv import BSRMatrix, _BSRPlan
+
+    br, bc = np.asarray(block_rows, np.int32), np.asarray(block_cols, np.int32)
+    nb = -(-n // bs)
+    if np.any(np.diff(br.astype(np.int64) * nb + bc) <= 0):
+        raise ValueError("block_rows/block_cols must be sorted by (row, col) without duplicates")
+
+    def rowptr(r):
+        return np.cumsum(np.bincount(r.astype(np.int64) + 1, minlength=nb + 1), dtype=np.int32)
+
+    t_order = np.lexsort((br, bc)).astype(np.int32)
+    empty = np.zeros(0, np.int32)
+    plan = _BSRPlan(n, bs, nb, br, bc, rowptr(br), empty, empty, empty, t_order)
+    plan.transpose = _BSRPlan(n, bs, nb, bc[t_order], br[t_order], rowptr(bc), empty, empty, empty,
+                              np.argsort(t_order).astype(np.int32), transpose=plan)
+    return BSRMatrix(_t(blocks, dtype, device), plan)
+
+
+def block_tridiag_mv_from_numpy(D, E, inv_perm, n: int, npad: int, *, dtype=torch.float64, device=None):
+    """The port's `BlockTridiagMV` from the reference operator's fields."""
+    from .solvers.banded import BlockTridiagMV
+
+    return BlockTridiagMV(D=_t(D, dtype, device), E=_t(E, dtype, device), inv_perm=_t(inv_perm, torch.long, device),
+                          n=n, npad=npad)

@@ -3,12 +3,35 @@
 K1 ``tridiag_factor``, K2 ``tridiag_solve``, K3 ``tridiag_selinv``, K4
 ``csr_spmv``, K5 ``gather_segsum`` (and its second entry ``fct_init``), K6 ``sn_panel``, K7 ``sn_trsv``, K8
 ``sn_takahashi``, K9 ``dense_chol``, K10 ``dense_trsv`` (and its second
-entry ``dense_selinv``), K11 ``bt_factor``
-and K12 ``bt_trsv``. Sources are in ``tpu_gmrf_torch/csrc/``; ``build``
-compiles them with nvcc at first use on a CUDA tensor.
+entry ``dense_selinv``), K11 ``bt_factor``,
+K12 ``bt_trsv``, K13 ``bt_matvec`` (and its second entry ``bt_sqrt``), K14
+``bsr_spmm`` and K15 ``bsr_outer``; K7 has a second mode, ``sn_multiply``.
+Sources are in ``tpu_gmrf_torch/csrc/``; ``build`` compiles them with nvcc
+at first use on a CUDA tensor. ``hot_matvec`` picks the repeated-multiply
+formulation (K4, K13 or K14) for a fixed sparse matrix.
 """
 
-from .banded import BandedTables, bt_factor, bt_factor_plain, bt_trsv, bt_trsv_plain
+from .banded import (
+    BandedTables,
+    bt_factor,
+    bt_factor_plain,
+    bt_matvec,
+    bt_matvec_plain,
+    bt_sqrt,
+    bt_sqrt_plain,
+    bt_trsv,
+    bt_trsv_plain,
+)
+from .bsr_spmv import (
+    BSRMatrix,
+    best_block_size,
+    bsr_from_sparse,
+    bsr_outer,
+    bsr_outer_plain,
+    bsr_spmm,
+    bsr_spmm_plain,
+    bsr_spmv,
+)
 from .dense import (
     DenseTables,
     dense_chol,
@@ -19,10 +42,14 @@ from .dense import (
     dense_trsv_plain,
 )
 from .segsum import InitPlan, SegPlan, fct_init, fct_init_plain, gather_segsum, gather_segsum_plain
-from .spmv import csr_spmv, csr_spmv_plain
+from .hot import hot_matvec
+from .spmv import csr_spmv, csr_spmv_plain, spmv_path
 from .supernodal import (
     BACKWARD,
     FORWARD,
+    MULTIPLY,
+    sn_multiply,
+    sn_multiply_plain,
     sn_panel,
     sn_panel_plain,
     sn_takahashi,
@@ -38,6 +65,7 @@ from .tridiag import (
     tridiag_factor_plain,
     tridiag_selinv,
     tridiag_selinv_plain,
+    tridiag_path,
     tridiag_solve,
     tridiag_solve_plain,
 )
@@ -55,6 +83,10 @@ __all__ = [
     "DenseTables", "dense_chol", "dense_chol_plain", "dense_trsv", "dense_trsv_plain", "dense_selinv",
     "dense_selinv_plain",
     "BandedTables", "bt_factor", "bt_factor_plain", "bt_trsv", "bt_trsv_plain",
+    "bt_matvec", "bt_matvec_plain", "bt_sqrt", "bt_sqrt_plain",
+    "BSRMatrix", "best_block_size", "bsr_from_sparse", "bsr_spmv", "bsr_spmm", "bsr_spmm_plain",
+    "bsr_outer", "bsr_outer_plain", "hot_matvec",
+    "MULTIPLY", "sn_multiply", "sn_multiply_plain", "spmv_path", "tridiag_path",
 ]
 
 KERNELS = {
@@ -66,12 +98,17 @@ KERNELS = {
     "fct_init": fct_init,
     "sn_panel": sn_panel,
     "sn_trsv": sn_trsv,
+    "sn_multiply": sn_multiply,
     "sn_takahashi": sn_takahashi,
     "dense_chol": dense_chol,
     "dense_trsv": dense_trsv,
     "dense_selinv": dense_selinv,
     "bt_factor": bt_factor,
     "bt_trsv": bt_trsv,
+    "bt_matvec": bt_matvec,
+    "bt_sqrt": bt_sqrt,
+    "bsr_spmm": bsr_spmm,
+    "bsr_outer": bsr_outer,
 }
 
 

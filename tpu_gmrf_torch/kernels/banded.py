@@ -1,5 +1,6 @@
-"""Wrappers of the block-tridiagonal kernels K11 `bt_factor` and K12
-`bt_trsv` (``csrc/banded.cu``) and their plain versions.
+"""Wrappers of the block-tridiagonal kernels K11 `bt_factor`, K12 `bt_trsv`
+and K13 `bt_matvec` (with its second entry `bt_sqrt`) of ``csrc/banded.cu``,
+and their plain versions.
 
 The factor of B chains is one array P (B, K, 2s, s): panel k holds the
 lower Cholesky factor L_k of the k-th diagonal block in rows 0..s and
@@ -12,6 +13,15 @@ L y = b, mode 1 Lᵀ x = b, mode 2 both, in the original numbering (the RCM
 permutation and padding are applied inside); the permuted vector is kept in
 shared memory while npad entries fit in ``SMEM_MAX`` bytes, else in a
 global workspace.
+
+K13 multiplies by block-tridiagonal storage, one launch per product with
+the RCM permutation of x and y fused in. `bt_matvec` takes the symmetric
+matrix as D (K, s, s) (both triangles) and E (K-1, s, s), shared by all
+rows of x (R, n), or one set per row ((B, K, s, s), (B, K-1, s, s) with
+x (B, n)); `bt_sqrt` takes K11's factor P and computes
+y_k = L_k z_k + M_{k-1} z_{k-1} on rows (B·k, n), chain-major. A block of
+threads keeps 3·rc·s values of x in shared memory, rc ≤ 8 vectors at a
+time (`matvec_chunk` picks rc so that they fit ``SMEM_MAX``).
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises. ``<wrapper>.launches`` counts launches.
@@ -26,7 +36,10 @@ from . import build
 from .supernodal import SMEM_MAX, _chol_boosted
 from .tridiag import SOLVE_BOTH, SOLVE_L, SOLVE_LT, _fn, _on_cuda, _stream
 
-__all__ = ["BandedTables", "bt_factor", "bt_factor_plain", "bt_trsv", "bt_trsv_plain"]
+__all__ = ["BandedTables", "bt_factor", "bt_factor_plain", "bt_trsv", "bt_trsv_plain",
+           "bt_matvec", "bt_matvec_plain", "bt_sqrt", "bt_sqrt_plain", "matvec_chunk"]
+
+MV_ROWS, MV_VECS, MV_WARPS = 64, 8, 8  # kMvRows, kMvVecs, kMvWarps of the source
 
 
 class BandedTables:
@@ -134,6 +147,46 @@ def bt_trsv_plain(P: torch.Tensor, tables: BandedTables, b: torch.Tensor, k: int
     return out
 
 
+def _permuted_blocks(x: torch.Tensor, perm: torch.Tensor, K: int, s: int) -> torch.Tensor:
+    """Rows x (R, n) in the block order, zero-padded: (R, K, s)."""
+    xp = x.new_zeros(x.shape[0], K * s)
+    xp[:, : perm.shape[0]] = x[:, perm]
+    return xp.view(x.shape[0], K, s)
+
+
+def _unpermuted(y: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
+    out = y.new_empty(y.shape[0], perm.shape[0])
+    out[:, perm] = y.reshape(y.shape[0], -1)[:, : perm.shape[0]]
+    return out
+
+
+def bt_matvec_plain(D: torch.Tensor, E: torch.Tensor, perm: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """K13's function, as ``banded.py:297-315``: three batched products and
+    the index operations. D (K, s, s) with x (R, n), or (B, K, s, s) with
+    x (B, n); perm (n,) maps block position j to the original index."""
+    perm = perm.long()
+    K, s = D.shape[-3], D.shape[-1]
+    xb = _permuted_blocks(x, perm, K, s)
+    mat = "kij" if D.ndim == 3 else "rkij"
+    y = torch.einsum(f"{mat},rkj->rki", D, xb)
+    if K > 1:
+        y[:, 1:] += torch.einsum(f"{mat},rkj->rki", E, xb[:, :-1])
+        y[:, :-1] += torch.einsum(f"{mat.replace('ij', 'ji')},rkj->rki", E, xb[:, 1:])
+    return _unpermuted(y, perm)
+
+
+def bt_sqrt_plain(P: torch.Tensor, tables: BandedTables, z: torch.Tensor, k: int = 1) -> torch.Tensor:
+    """`bt_sqrt`'s function (``banded.py:272-280``) on rows z (B·k, n)."""
+    perm = tables.on(z.device)["perm_l"]
+    K, s = tables.K, tables.s
+    Pr = P if k == 1 else P.repeat_interleave(k, 0)
+    zb = _permuted_blocks(z, perm, K, s)
+    y = torch.einsum("rkij,rkj->rki", torch.tril(Pr[:, :, :s]), zb)
+    if K > 1:
+        y[:, 1:] += torch.einsum("rkij,rkj->rki", Pr[:, :-1, s:], zb[:, :-1])
+    return _unpermuted(y, perm)
+
+
 # ---- wrappers -------------------------------------------------------------------
 
 
@@ -187,5 +240,75 @@ def bt_trsv(P: torch.Tensor, tables: BandedTables, b: torch.Tensor, k: int = 1, 
     return out
 
 
+def matvec_chunk(s: int, rows: int, element_size: int) -> int:
+    """Vectors per block of K13: at most 8 and `rows`, fewer while the
+    block's 3·rc·s values of x and (warps+1)·rc·64 partial sums exceed
+    ``SMEM_MAX`` bytes; raises if not even one vector fits."""
+    rc = max(1, min(MV_VECS, rows))
+    while rc > 1 and element_size * rc * (3 * s + (MV_WARPS + 1) * MV_ROWS) > SMEM_MAX:
+        rc -= 1
+    if element_size * rc * (3 * s + (MV_WARPS + 1) * MV_ROWS) > SMEM_MAX:
+        raise ValueError(f"bt_matvec: blocks of {s} rows do not fit a block's shared memory")
+    return rc
+
+
+def _launch_matvec(name, diag, diag_k, diag_b, sub, sub_k, sub_b, K, s, n, perm, x, kk, B, lower, upper):
+    """One K13 launch; `diag` is a tensor, `sub` the address of sub-diagonal block 0 (or None)."""
+    if perm.device != x.device or perm.dtype != torch.int32 or not perm.is_contiguous() or perm.shape != (n,):
+        raise ValueError(f"{name}: perm must be contiguous int32 (n,) on the vectors' device")
+    y = torch.empty_like(x)
+    rc = matvec_chunk(s, kk, x.element_size())
+    code = _fn("tg_bt_matvec", x.dtype)(
+        diag.data_ptr(), diag_k, diag_b, sub, sub_k, sub_b,
+        K, s, n, perm.data_ptr(), x.data_ptr(), y.data_ptr(), kk, B, rc, lower, upper, _stream(x),
+    )
+    build.check(code, name, f" at K={K} s={s} rows={x.shape[0]} rc={rc} {x.dtype}")
+    return y
+
+
+def bt_matvec(D: torch.Tensor, E: torch.Tensor, perm: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """K13: y (R, n) = Q x for the symmetric block-tridiagonal Q given by
+    D (K, s, s), E (K-1, s, s) (shared by the R rows of x) or D (B, K, s, s),
+    E (B, K-1, s, s) with x (B, n); perm (n,) int32 maps block position j
+    to the original index. One launch; not differentiable."""
+    if D.ndim not in (3, 4) or E.ndim != D.ndim or x.ndim != 2:
+        raise ValueError(f"bt_matvec: shapes D {tuple(D.shape)}, E {tuple(E.shape)}, x {tuple(x.shape)}")
+    K, s = D.shape[-3], D.shape[-1]
+    n = perm.shape[0]
+    batched = D.ndim == 4
+    if D.shape[-2] != s or E.shape[-3:] != (max(K - 1, 0), s, s) or x.shape[1] != n or not K * s >= n > (K - 1) * s \
+            or (batched and (D.shape[0] != x.shape[0] or E.shape[0] != x.shape[0])):
+        raise ValueError(f"bt_matvec: shapes D {tuple(D.shape)}, E {tuple(E.shape)}, x {tuple(x.shape)}, n={n}")
+    if torch.is_grad_enabled() and (D.requires_grad or E.requires_grad or x.requires_grad):
+        raise NotImplementedError("bt_matvec has no backward; call it under torch.no_grad()")
+    if not _on_cuda("bt_matvec", D, E, x):
+        return bt_matvec_plain(D, E, perm, x)
+    B, kk = (x.shape[0], 1) if batched else (1, x.shape[0])
+    y = _launch_matvec("bt_matvec", D, s * s, K * s * s if batched else 0, E.data_ptr() if K > 1 else None, s * s,
+                       (K - 1) * s * s if batched else 0, K, s, n, perm, x, kk, B, 0, int(K > 1))
+    bt_matvec.launches += 1
+    return y
+
+
+def bt_sqrt(P: torch.Tensor, tables: BandedTables, z: torch.Tensor, k: int = 1) -> torch.Tensor:
+    """K13's second entry: y = L z with K11's factor P (B, K, 2s, s) on rows
+    z (B·k, n), chain-major, in the original numbering. Not differentiable."""
+    K, s, n = tables.K, tables.s, tables.n
+    if P.shape[1:] != (K, 2 * s, s) or z.ndim != 2 or z.shape != (P.shape[0] * k, n):
+        raise ValueError(f"bt_sqrt: shapes P {tuple(P.shape)}, z {tuple(z.shape)}, k={k}")
+    if torch.is_grad_enabled() and (P.requires_grad or z.requires_grad):
+        raise NotImplementedError("bt_sqrt has no backward; call it under torch.no_grad()")
+    if not _on_cuda("bt_sqrt", P, z):
+        return bt_sqrt_plain(P, tables, z, k)
+    panel = 2 * s * s
+    sub = P.data_ptr() + s * s * P.element_size()  # M_k: rows s..2s of panel k
+    y = _launch_matvec("bt_sqrt", P, panel, K * panel, sub, panel, K * panel, K, s, n,
+                       tables.on(z.device)["perm"], z, k, P.shape[0], 1, 0)
+    bt_sqrt.launches += 1
+    return y
+
+
 bt_factor.launches = 0
 bt_trsv.launches = 0
+bt_matvec.launches = 0
+bt_sqrt.launches = 0

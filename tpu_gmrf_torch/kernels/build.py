@@ -31,10 +31,12 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _D = ctypes.c_double
 _SIGNATURES = {
-    "tg_tridiag_factor": [_P, _P, _P, _P, _P, _I, _I, _P],
-    "tg_tridiag_solve": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "tg_tridiag_selinv": [_P, _P, _P, _P, _I, _I, _P],
-    "tg_csr_spmv": [_P, _P, _P, _L, _P, _P, _P, _I, _I, _P],
+    # the last int of each: 1 keeps the chain's rows in global memory
+    "tg_tridiag_factor": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "tg_tridiag_solve": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "tg_tridiag_selinv": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # row_ptr, col, data, dstride, x, y, quad, B, n, tiled, partial, stream
+    "tg_csr_spmv": [_P, _P, _P, _L, _P, _P, _P, _I, _I, _I, _P, _P],
     # out, ostride, t, ptr, width, xi, x, xstride, yi, y, ystride, zi, z, zstride,
     # alpha, accumulate, R, B, stream
     "tg_gather_segsum": [_P, _L, _P, _P, _I, _P, _P, _L, _P, _P, _L, _P, _P, _L, _D, _I, _I, _I, _P],
@@ -44,8 +46,8 @@ _SIGNATURES = {
     # logpiv, n, boost, work, tile, delta, B, stream
     "tg_sn_panel": [_P, _L, _P, _P, _I, _I, _I, _I, _I, _P, _L, _L, _P, _I, _P, _P, _I, _D, _I, _P],
     # vals, vstride, panel_idx, cols_idx, rows_idx, P, W, M, ndummy, x, xstride, k,
-    # u, ustride, ubase, mode, B, stream
-    "tg_sn_trsv": [_P, _L, _P, _P, _P, _I, _I, _I, _I, _P, _L, _I, _P, _L, _L, _I, _I, _P],
+    # u, ustride, ubase, mode, B, z (mode 2), stream
+    "tg_sn_trsv": [_P, _L, _P, _P, _P, _I, _I, _I, _I, _P, _L, _I, _P, _L, _L, _I, _I, _P, _P],
     # vals, vstride, sig, sstride, panel_idx, schur_idx, P, W, M, dummy, work, B, stream
     "tg_sn_takahashi": [_P, _L, _P, _L, _P, _P, _I, _I, _I, _I, _P, _I, _P],
     # data, dstride, rows, cols, tperm, diag_pos, nnz, n, L, s, level, logdet, flags, B, stream
@@ -58,6 +60,12 @@ _SIGNATURES = {
     "tg_bt_factor": [_P, _L, _P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _P],
     # P, K, s, n, perm, b, out, k, mode, rows, work (null: shared memory), stream
     "tg_bt_trsv": [_P, _I, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P],
+    # diag, diag_k, diag_b, sub, sub_k, sub_b, K, s, n, perm, x, y, kk, B, rc, lower, upper, stream
+    "tg_bt_matvec": [_P, _L, _L, _P, _L, _L, _I, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # blocks, block_stride, rowptr, bcols, tperm (null: forward), bs, nb, n, x, y, R, stream
+    "tg_bsr_spmm": [_P, _L, _P, _P, _P, _I, _I, _I, _P, _P, _I, _P],
+    # brows, bcols, nblocks, bs, n, g, x, R, per_chain, dblocks, stream
+    "tg_bsr_outer": [_P, _P, _I, _I, _I, _P, _P, _I, _I, _P, _P],
 }
 
 _lib = None

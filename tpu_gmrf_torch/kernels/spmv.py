@@ -4,6 +4,12 @@ A CPU tensor goes to the plain version (gather + ``index_add``, the
 segment-sum of ``sparse/matrix.py:58-65`` in the reference); a CUDA tensor
 launches the kernel and raises if it cannot. ``csr_spmv.launches`` counts
 the kernel launches.
+
+The kernel has two paths, chosen by `spmv_path` from (n, B, dtype): one block
+per chain with the chain's x in shared memory (many chains of a short
+vector, the flagship shape), or rows tiled over blocks with x read from
+global memory (a vector beyond the 48 KB of shared memory, or fewer chains
+than the card has multiprocessors). Neither has a size limit of its own.
 """
 
 from __future__ import annotations
@@ -13,7 +19,19 @@ import torch
 from . import build
 from .tridiag import SMEM_LIMIT, _fn, _on_cuda, _stream
 
-__all__ = ["csr_spmv", "csr_spmv_plain"]
+__all__ = ["csr_spmv", "csr_spmv_plain", "spmv_path"]
+
+ROWS_PER_TILE = 256  # rows per block of the tiled path (kThreads in the source)
+FEW_CHAINS = 132  # below one chain per multiprocessor of an H100 the tiled path fills the card better
+TILED_MIN_N = 1024  # ... once a chain has several tiles of rows
+
+
+def spmv_path(n: int, B: int, dtype: torch.dtype) -> str:
+    """"shared" (one block per chain, x in shared memory) or "tiled" (rows
+    over blocks, x in global memory) for B chains of length n."""
+    if (n + 8) * (torch.finfo(dtype).bits // 8) > SMEM_LIMIT:
+        return "tiled"
+    return "tiled" if B < FEW_CHAINS and n >= TILED_MIN_N else "shared"
 
 
 def csr_spmv_plain(row_ptr: torch.Tensor, col: torch.Tensor, data: torch.Tensor, x: torch.Tensor,
@@ -48,16 +66,16 @@ def csr_spmv(row_ptr: torch.Tensor, col: torch.Tensor, data: torch.Tensor, x: to
     for t in (row_ptr, col):
         if t.device != x.device or t.dtype != torch.int32 or not t.is_contiguous():
             raise ValueError("csr_spmv: row_ptr/col must be contiguous int32 on the data's device")
-    need = (n + 8) * data.element_size()
-    if need > SMEM_LIMIT:
-        raise ValueError(f"csr_spmv: n={n} needs {need} bytes of shared memory, over {SMEM_LIMIT}")
+    tiled = spmv_path(n, B, x.dtype) == "tiled"
     y = torch.empty_like(x)
     q = x.new_empty(B) if quad else None
+    partial = x.new_empty(B, -(-n // ROWS_PER_TILE)) if tiled and quad else None
     code = _fn("tg_csr_spmv", x.dtype)(
         row_ptr.data_ptr(), col.data_ptr(), data.data_ptr(), nnz if data.ndim == 2 else 0,
-        x.data_ptr(), y.data_ptr(), q.data_ptr() if quad else None, B, n, _stream(x),
+        x.data_ptr(), y.data_ptr(), q.data_ptr() if quad else None, B, n, int(tiled),
+        None if partial is None else partial.data_ptr(), _stream(x),
     )
-    build.check(code, "csr_spmv")
+    build.check(code, "csr_spmv", f" at B={B} n={n} {x.dtype}, {'tiled' if tiled else 'shared'} path")
     csr_spmv.launches += 1
     return y, q
 

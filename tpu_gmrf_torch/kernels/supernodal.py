@@ -3,7 +3,9 @@ their plain versions.
 
 Each call runs one size-class batch of one level of the schedule, for all
 chains: K6 `sn_panel` factors the panels, K7 `sn_trsv` does the forward or
-backward block triangular solve, K8 `sn_takahashi` the block Takahashi step.
+backward block triangular solve (and, as `sn_multiply`, its mode MULTIPLY:
+the product with the class batch's panels), K8 `sn_takahashi` the block
+Takahashi step.
 A class batch `c` is a dict of device tables for the P supernodes of this
 level: ``panel`` (P, W+M, W), ``cols`` (P, W), ``rows`` (P, M) and
 ``schur`` (P, M, M), int32, padded with ``dummy`` (= nnzL) / ``ndummy``
@@ -25,12 +27,12 @@ from . import build
 from .tridiag import _fn, _on_cuda, _stream
 
 __all__ = [
-    "sn_panel", "sn_trsv", "sn_takahashi",
-    "sn_panel_plain", "sn_trsv_plain", "sn_takahashi_plain",
-    "FORWARD", "BACKWARD",
+    "sn_panel", "sn_trsv", "sn_multiply", "sn_takahashi",
+    "sn_panel_plain", "sn_trsv_plain", "sn_multiply_plain", "sn_takahashi_plain",
+    "FORWARD", "BACKWARD", "MULTIPLY",
 ]
 
-FORWARD, BACKWARD = 0, 1
+FORWARD, BACKWARD, MULTIPLY = 0, 1, 2
 # Dynamic shared memory a block may take before the kernel falls back to a
 # global-memory workspace (the H100 allows 227 KB per block; some room is
 # left for the kernels' static shared arrays).
@@ -142,6 +144,24 @@ def sn_trsv_plain(vals, c, x, u, mode: int, k: int = 1):
     x[:, t["live_cols"]] = yc.reshape(x.shape[0], -1).index_select(1, t["cmask_at"])
 
 
+def sn_multiply_plain(vals, c, out, z, u, k: int = 1):
+    """K7's mode MULTIPLY (``supernodal.py:1296`` `sqrt_step`): out[cols] +=
+    Ld·z[cols] without the padded columns' unit diagonal, u = Lb·z[cols];
+    out, z (B·k, n+1) rows, chain-major."""
+    W = c["W"]
+    t = _plain_tables(c, vals.device)
+    Ld, Lb = _panels(vals, t, W)
+    Ld = Ld - torch.diag_embed((~t["cmask"]).to(vals.dtype))
+    if k > 1:
+        Ld, Lb = Ld.repeat_interleave(k, 0), Lb.repeat_interleave(k, 0)
+    zc = _gather(z, t["cols"])[..., None]
+    add = (Ld @ zc)[..., 0].reshape(out.shape[0], -1).index_select(1, t["cmask_at"])
+    out[:, t["live_cols"]] += add
+    if c["M"]:
+        P = t["cols"].shape[0]
+        u[:, c["fbase"]: c["fbase"] + P * c["M"]] = (Lb @ zc)[..., 0].reshape(out.shape[0], -1)
+
+
 def sn_takahashi_plain(vals, sig, c):
     """K8's function: Σ on the panels of class batch `c` (``_sig_step``)."""
     W = c["W"]
@@ -209,16 +229,34 @@ def sn_trsv(vals, c, x, u, mode: int, k: int = 1):
     if not _on_cuda("sn_trsv", vals, x, *([u] if u is not None else [])):
         return sn_trsv_plain(vals, c, x, u, mode, k)
     _check_class("sn_trsv", c, vals)
+    _launch_trsv("sn_trsv", vals, c, x, u, mode, k, None)
+    sn_trsv.launches += 1
+
+
+def _launch_trsv(name, vals, c, x, u, mode, k, z):
     W, M = c["W"], c["M"]
     P = c["panel"].shape[0]
     code = _fn("tg_sn_trsv", vals.dtype)(
         vals.data_ptr(), vals.shape[1], c["panel"].data_ptr(), c["cols"].data_ptr(),
         c["rows"].data_ptr(), P, W, M, c["ndummy"], x.data_ptr(), x.shape[1], k,
         u.data_ptr() if u is not None else None, u.shape[1] if u is not None else 0,
-        c["fbase"], mode, x.shape[0], _stream(vals),
+        c["fbase"], mode, x.shape[0], z.data_ptr() if z is not None else None, _stream(vals),
     )
-    build.check(code, "sn_trsv", f" at W={W} M={M} P={P} rows={x.shape[0]} {vals.dtype}")
-    sn_trsv.launches += 1
+    build.check(code, name, f" at W={W} M={M} P={P} rows={x.shape[0]} {vals.dtype}")
+
+
+def sn_multiply(vals, c, out, z, u, k: int = 1):
+    """K7, mode MULTIPLY: out[cols] += Ld·z[cols] and Lb·z[cols] into u at
+    c["fbase"], for class batch `c`; out and z are (B·k, n+1) rows. The
+    supernodes of a product do not depend on each other; the caller adds u
+    into out through the level's forward ELL plans (K5)."""
+    if out.shape != z.shape or out.shape[0] != vals.shape[0] * k:
+        raise ValueError("sn_multiply: out and z must hold k rows of n+1 per chain")
+    if not _on_cuda("sn_multiply", vals, out, z, *([u] if u is not None else [])):
+        return sn_multiply_plain(vals, c, out, z, u, k)
+    _check_class("sn_multiply", c, vals)
+    _launch_trsv("sn_multiply", vals, c, out, u, MULTIPLY, k, z)
+    sn_multiply.launches += 1
 
 
 def sn_takahashi(vals, sig, c):
@@ -244,4 +282,5 @@ def sn_takahashi(vals, sig, c):
 
 sn_panel.launches = 0
 sn_trsv.launches = 0
+sn_multiply.launches = 0
 sn_takahashi.launches = 0

@@ -5,6 +5,11 @@ plain PyTorch version (the Hillis-Steele scans of ``solvers/prefix.py``); a
 CUDA tensor launches the hand-written kernel of ``csrc/tridiag.cu`` and
 raises if it cannot. Any other device raises. ``<wrapper>.launches`` counts
 the kernel launches.
+
+A chain's rows (2n-1 values, plus n·k right-hand sides for K2) live in shared
+memory while they fit `SMEM_LIMIT`; beyond it (`tridiag_path` says "global")
+the kernels run the same recurrences in the output rows in global memory, so
+no n is refused.
 """
 
 from __future__ import annotations
@@ -17,7 +22,7 @@ from . import build
 __all__ = [
     "tridiag_factor", "tridiag_solve", "tridiag_selinv",
     "tridiag_factor_plain", "tridiag_solve_plain", "tridiag_selinv_plain",
-    "SOLVE_L", "SOLVE_LT", "SOLVE_BOTH",
+    "SOLVE_L", "SOLVE_LT", "SOLVE_BOTH", "tridiag_path",
 ]
 
 SOLVE_L, SOLVE_LT, SOLVE_BOTH = 0, 1, 2
@@ -92,13 +97,11 @@ def _check_rows(name: str, diag: torch.Tensor, off: torch.Tensor):
     return B, n
 
 
-def _check_smem(name: str, elems: int, dtype: torch.dtype):
-    need = elems * (4 if dtype == torch.float32 else 8)
-    if need > SMEM_LIMIT:
-        raise ValueError(
-            f"{name}: one chain needs {need} bytes of shared memory, over the "
-            f"{SMEM_LIMIT}-byte limit of this kernel"
-        )
+def tridiag_path(n: int, k: int, dtype: torch.dtype) -> str:
+    """"shared" while a chain's 2n-1 values and n·k right-hand sides (k = 0
+    for K1 and K3) fit shared memory, else "global"."""
+    need = (2 * n - 1 + n * k) * (4 if dtype == torch.float32 else 8)
+    return "shared" if need <= SMEM_LIMIT else "global"
 
 
 def _fn(name: str, dtype: torch.dtype):
@@ -117,12 +120,12 @@ def tridiag_factor(a: torch.Tensor, c: torch.Tensor):
     B, n = _check_rows("tridiag_factor", a, c)
     if not _on_cuda("tridiag_factor", a, c):
         return tridiag_factor_plain(a, c)
-    _check_smem("tridiag_factor", 2 * n - 1, a.dtype)
     d = torch.empty_like(a)
     e = torch.empty_like(c)
     logdet = a.new_empty(B)
     code = _fn("tg_tridiag_factor", a.dtype)(
-        a.data_ptr(), c.data_ptr(), d.data_ptr(), e.data_ptr(), logdet.data_ptr(), B, n, _stream(a)
+        a.data_ptr(), c.data_ptr(), d.data_ptr(), e.data_ptr(), logdet.data_ptr(), B, n,
+        int(tridiag_path(n, 0, a.dtype) == "global"), _stream(a)
     )
     build.check(code, "tridiag_factor")
     tridiag_factor.launches += 1
@@ -143,10 +146,10 @@ def tridiag_solve(d: torch.Tensor, e: torch.Tensor, b: torch.Tensor, mode: int =
     if not _on_cuda("tridiag_solve", d, e, b):
         return tridiag_solve_plain(d, e, b, mode)
     k = 1 if b.ndim == 2 else b.shape[2]
-    _check_smem("tridiag_solve", 2 * n - 1 + n * k, d.dtype)
     out = torch.empty_like(b)
     code = _fn("tg_tridiag_solve", d.dtype)(
-        d.data_ptr(), e.data_ptr(), b.data_ptr(), out.data_ptr(), B, n, k, mode, _stream(d)
+        d.data_ptr(), e.data_ptr(), b.data_ptr(), out.data_ptr(), B, n, k, mode,
+        int(tridiag_path(n, k, d.dtype) == "global"), _stream(d)
     )
     build.check(code, "tridiag_solve")
     tridiag_solve.launches += 1
@@ -158,11 +161,11 @@ def tridiag_selinv(d: torch.Tensor, e: torch.Tensor):
     B, n = _check_rows("tridiag_selinv", d, e)
     if not _on_cuda("tridiag_selinv", d, e):
         return tridiag_selinv_plain(d, e)
-    _check_smem("tridiag_selinv", 2 * n - 1, d.dtype)
     zdiag = torch.empty_like(d)
     zoff = torch.empty_like(e)
     code = _fn("tg_tridiag_selinv", d.dtype)(
-        d.data_ptr(), e.data_ptr(), zdiag.data_ptr(), zoff.data_ptr(), B, n, _stream(d)
+        d.data_ptr(), e.data_ptr(), zdiag.data_ptr(), zoff.data_ptr(), B, n,
+        int(tridiag_path(n, 0, d.dtype) == "global"), _stream(d)
     )
     build.check(code, "tridiag_selinv")
     tridiag_selinv.launches += 1

@@ -3,7 +3,7 @@
 # import the kernels.
 import importlib
 
-from .base import DENSE_AUTO_MAX, SolverSpec, factorize
+from .base import DENSE_AUTO_MAX, CGFactor, SolverSpec, factorize
 from .prefix import linear_recurrence, mobius_recurrence
 
 _BACKENDS = {
@@ -11,9 +11,12 @@ _BACKENDS = {
     "TridiagFactor": "tridiag", "tridiag_factorize": "tridiag",
     "BandedFactor": "banded", "banded_factorize": "banded", "banded_plan": "banded",
     "SupernodalFactor": "supernodal", "supernodal_factorize": "supernodal", "supernodal_plan": "supernodal",
+    "rbmc_var": "rbmc", "block_rbmc_var": "rbmc",
+    "cg_solve": "cg", "jacobi_preconditioner": "cg", "block_jacobi_preconditioner": "cg",
+    "temporal_block_gauss_seidel_preconditioner": "cg", "full_cholesky_preconditioner": "cg",
 }
 
-__all__ = ["SolverSpec", "factorize", "DENSE_AUTO_MAX", "linear_recurrence", "mobius_recurrence", *_BACKENDS]
+__all__ = ["SolverSpec", "factorize", "CGFactor", "DENSE_AUTO_MAX", "linear_recurrence", "mobius_recurrence", *_BACKENDS]
 
 
 def __getattr__(name):

@@ -16,8 +16,10 @@ launch per block from the last one up: block k is a supernode of width s
 whose rows are block k+1 (Ld = L_k, Lb = M_k, Σ_RR = Σ_{k+1,k+1}); the
 selected-inverse gathers and sums are K5 `gather_segsum` launches. The
 logdet is differentiable through `BandedLogdet`, whose backward is Σ on
-Q's pattern. Not ported yet, and raising: `sqrt_matvec` and the
-block-tridiagonal SpMV (`BlockTridiagMV`, `block_tridiag_matvec`).
+Q's pattern. `sqrt_matvec` (L z) and the block-tridiagonal SpMV
+(`BlockTridiagMV`, `block_tridiag_matvec`: x ↦ Qx over dense blocks, for
+CG and RBMC through `kernels.hot_matvec`) run on K13 (`bt_sqrt`,
+`bt_matvec`). Vectors of the SpMV are rows: x is (n,) or (k, n).
 """
 
 from __future__ import annotations
@@ -27,7 +29,18 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..kernels import SOLVE_BOTH, SOLVE_L, SOLVE_LT, BandedTables, bt_factor, bt_trsv, gather_segsum, sn_takahashi
+from ..kernels import (
+    SOLVE_BOTH,
+    SOLVE_L,
+    SOLVE_LT,
+    BandedTables,
+    bt_factor,
+    bt_matvec,
+    bt_sqrt,
+    bt_trsv,
+    gather_segsum,
+    sn_takahashi,
+)
 from ..sparse.matrix import SparseMatrix
 from ..sparse.pattern import SparsePattern
 from .supernodal import _one_term, _sum_plans
@@ -260,15 +273,18 @@ class BandedFactor:
 
     # -- right-hand sides: (*batch, n) or (*batch, n, k) ↔ (B·k, n) rows -----------
 
-    def _solve(self, b: torch.Tensor, mode: int) -> torch.Tensor:
+    def _on_rows(self, b: torch.Tensor, op) -> torch.Tensor:
+        """op(rows (B·k, n), k) on b (*batch, n) or (*batch, n, k), back in b's shape."""
         n, bs = self.n, tuple(self.batch_shape)
         if b.shape[: len(bs) + 1] != bs + (n,) or b.ndim not in (len(bs) + 1, len(bs) + 2):
             raise ValueError(f"rhs of shape {tuple(b.shape)} does not match a factor of {bs} x {n}")
         k = 1 if b.ndim == len(bs) + 1 else b.shape[-1]
         B = self.P.shape[0]
         rows = b.reshape(B, n, k).transpose(1, 2).reshape(B * k, n).contiguous()
-        out = bt_trsv(self.P, _TABLES[self.meta], rows, k, mode)
-        return out.reshape(B, k, n).transpose(1, 2).reshape(b.shape)
+        return op(rows, k).reshape(B, k, n).transpose(1, 2).reshape(b.shape)
+
+    def _solve(self, b: torch.Tensor, mode: int) -> torch.Tensor:
+        return self._on_rows(b, lambda rows, k: bt_trsv(self.P, _TABLES[self.meta], rows, k, mode))
 
     def solve(self, b: torch.Tensor) -> torch.Tensor:
         """Q x = b (K12, forward and backward in one launch)."""
@@ -307,19 +323,88 @@ class BandedFactor:
         chunks, total = _sum_plans(other.nnz, dot=True)
         return gather_segsum(total, gather_segsum(chunks, z, y=y))[:, 0].reshape(tuple(self.batch_shape))
 
-    def sqrt_matvec(self, z):
-        raise NotImplementedError("banded sqrt_matvec is not ported yet (ROADMAP queue 2, item 2.14b)")
+    def sqrt_matvec(self, z: torch.Tensor) -> torch.Tensor:
+        """L z in the permuted block basis, mapped back (K13 `bt_sqrt`):
+        maps N(0, I) to N(0, Q). z (*batch, n) or (*batch, n, k)."""
+        return self._on_rows(z, lambda rows, k: bt_sqrt(self.P, _TABLES[self.meta], rows, k))
 
 
+class _BtMatvec(torch.autograd.Function):
+    """y = Q x on K13; Q is symmetric, so x̄ = Q ȳ is the same product."""
+
+    @staticmethod
+    def forward(ctx, x, mv):
+        ctx.mv = mv
+        return bt_matvec(mv.D, mv.E, mv.perm, x)
+
+    @staticmethod
+    def backward(ctx, gy):
+        mv = ctx.mv
+        return bt_matvec(mv.D, mv.E, mv.perm, gy.contiguous()), None
+
+
+@dataclasses.dataclass(frozen=True)
 class BlockTridiagMV:
-    """x ↦ Qx over dense block-tridiagonal storage: not ported yet."""
+    """x ↦ Qx over dense block-tridiagonal storage, on K13 `bt_matvec`.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError("the block-tridiagonal SpMV is not ported yet (ROADMAP queue 2, item 2.15)")
+    Callable on x (n,) or rows (k, n) (the reference takes (n, k) columns);
+    with D (B, K, s, s) and E (B, K-1, s, s), one matrix per chain, on
+    x (B, n). Differentiable in x (not in D and E)."""
+
+    D: torch.Tensor  # (K, s, s) diagonal blocks (full symmetric)
+    E: torch.Tensor  # (K-1, s, s) sub-diagonal blocks A[j+1, j]
+    inv_perm: torch.Tensor  # (n,) RCM permutation map: original index → block position
+    n: int
+    npad: int
+    perm: torch.Tensor = dataclasses.field(repr=False, default=None)  # (n,) int32: block position → original index
+
+    def __post_init__(self):
+        if self.perm is None:
+            inv = self.inv_perm.long()
+            perm = torch.empty_like(inv)
+            perm[inv] = torch.arange(self.n, device=inv.device)
+            object.__setattr__(self, "perm", perm.to(torch.int32))
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        squeeze = x.ndim == 1
+        y = _BtMatvec.apply((x[None] if squeeze else x).contiguous(), self)
+        return y[0] if squeeze else y
 
 
 def block_tridiag_matvec(Q: SparseMatrix, block: int | None = None) -> BlockTridiagMV:
-    raise NotImplementedError("the block-tridiagonal SpMV is not ported yet (ROADMAP queue 2, item 2.15)")
+    """Build the dense block-tridiagonal SpMV for banded-after-RCM patterns:
+    scatter the values once into (K, s, s) diagonal and sub-diagonal blocks;
+    a multiply is then one K13 launch streaming (2K−1)·s² values. Used by
+    `kernels.hot_matvec` for CG/RBMC hot loops.
+
+    Only valid for symmetric matrices: the storage keeps the lower triangle
+    and mirrors it, so an asymmetric input would silently yield the
+    symmetrized product. Raises on asymmetric patterns; values are averaged
+    with their transpose (exact when values are symmetric)."""
+    if not Q.pattern.is_symmetric:
+        raise ValueError(
+            "block_tridiag_matvec requires a symmetric sparsity pattern "
+            "(lower-triangle storage is mirrored); use the BSR/COO paths "
+            "for general matrices"
+        )
+    if Q.data.ndim > 2:
+        raise ValueError("data must be (nnz,) or (B, nnz)")
+    Q = Q.symmetrize()
+    plan = banded_plan(Q.pattern, block)
+    s, K, n = plan["s"], plan["K"], plan["n"]
+    dev, batch = Q.data.device, tuple(Q.data.shape[:-1])
+
+    def scatter(nblk, idx):
+        blk, r, c, sel = (torch.as_tensor(np.asarray(a, np.int64), device=dev) for a in idx)
+        out = Q.data.new_zeros(batch + (nblk * s * s,))
+        return out.index_add_(-1, (blk * s + r) * s + c, Q.data[..., sel]).reshape(batch + (nblk, s, s))
+
+    with torch.no_grad():
+        D = scatter(K, plan["d_idx"])
+        E = scatter(max(K - 1, 0), plan["e_idx"])
+    return BlockTridiagMV(D=D, E=E, inv_perm=torch.as_tensor(np.ascontiguousarray(plan["inv_perm"], np.int64), device=dev),
+                          n=n, npad=plan["npad"],
+                          perm=torch.as_tensor(np.ascontiguousarray(plan["perm"], np.int32), device=dev))
 
 
 def banded_factorize(Q: SparseMatrix, block: int | None = None) -> BandedFactor:

@@ -2,9 +2,8 @@
 
 Counterpart of ``tpu_gmrf.solvers.base``. Every backend implements
 ``solve(b)``, ``logdet()``, ``backward_solve(z)``, ``selinv_diag()`` and
-``selinv(pattern)``. The tridiagonal, dense, banded and supernodal backends
-are ported (the banded one without its selected inverse); ``cg`` raises
-`NotImplementedError` naming the ROADMAP item that ports it.
+``selinv(pattern)``; the iterative ``cg`` backend (`CGFactor`) solves only
+and raises on the rest, as in the reference.
 
 ``kind="auto"`` resolves as the reference does: tridiagonal patterns to
 ``tridiag``, n ≤ dense_max to ``dense``, larger patterns to ``banded`` or
@@ -25,7 +24,7 @@ import dataclasses
 import numpy as np
 import torch
 
-__all__ = ["SolverSpec", "factorize", "DENSE_AUTO_MAX"]
+__all__ = ["SolverSpec", "factorize", "CGFactor", "DENSE_AUTO_MAX"]
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -33,9 +32,6 @@ torch.backends.cudnn.allow_tf32 = False
 # Above this dimension "auto" stops materializing dense factors.
 DENSE_AUTO_MAX = 4096
 
-_NOT_PORTED = {
-    "cg": "ROADMAP queue 2, item 2.21 (solvers/cg.py)",
-}
 _RESOLVED: dict = {}
 
 
@@ -45,8 +41,7 @@ class SolverSpec:
 
     kind: "auto" | "dense" | "tridiag" | "banded" | "supernodal" | "cg".
     block: block-size multiple of the banded backend; max_width / ordering
-    configure the supernodal plan. The reference's CG fields (cg_tol,
-    cg_max_iter) arrive with that backend.
+    configure the supernodal plan; cg_tol / cg_max_iter the CG backend.
     """
 
     kind: str = "auto"
@@ -54,6 +49,8 @@ class SolverSpec:
     dense_max: int = DENSE_AUTO_MAX
     max_width: int = 2048
     ordering: str = "auto"
+    cg_tol: float = 1e-8
+    cg_max_iter: int = 2000
 
     def resolve(self, pattern) -> "SolverSpec":
         if self.kind != "auto":
@@ -101,6 +98,78 @@ def _is_tridiagonal(pattern) -> bool:
     return bool(np.all(np.abs(pattern.rows.astype(np.int64) - pattern.cols) <= 1))
 
 
+@dataclasses.dataclass(frozen=True)
+class CGFactor:
+    """Iterative 'factorization': preconditioned CG solves only.
+
+    Mirrors the reference's supports_selinv=false / supports_backward_solve
+    =false algorithms (src/solvers/selinv.jl:16-29): statistics that need a
+    factor (logdet, sampling, selected inversion) must use a direct backend
+    or the RBMC variance estimators.
+
+    CG multiplies by the same Q hundreds of times: `hot_matvec` picks the
+    formulation (K4, K13 or K14) for the pattern, once, at construction.
+    """
+
+    Q: object  # SparseMatrix, data (nnz,) or (B, nnz)
+    tol: float
+    max_iter: int
+    matvec: object = dataclasses.field(repr=False, compare=False, default=None)
+
+    def __post_init__(self):
+        if self.matvec is None:
+            from ..kernels import hot_matvec
+
+            object.__setattr__(self, "matvec", hot_matvec(self.Q))
+
+    @property
+    def batch_shape(self):
+        return tuple(self.Q.data.shape[:-1])
+
+    def solve_info(self, b: torch.Tensor):
+        """(x, iterations, relative residual) of Q x = b by Jacobi-preconditioned
+        CG; b (*batch, n) or (*batch, n, k). Every right-hand side has its own
+        iteration count and residual (shape of b without the n axis)."""
+        from .cg import cg_solve, jacobi_preconditioner
+
+        n, bs = self.Q.shape[0], self.batch_shape
+        if b.shape[: len(bs) + 1] != bs + (n,) or b.ndim not in (len(bs) + 1, len(bs) + 2):
+            raise ValueError(f"rhs of shape {tuple(b.shape)} does not match a factor of {bs} x {n}")
+        M = jacobi_preconditioner(self.Q)
+
+        def run(rows):
+            return cg_solve(self.matvec, rows, preconditioner=M, tol=self.tol, max_iter=self.max_iter)
+
+        if b.ndim == len(bs) + 1:  # one vector (per chain)
+            return run(b.contiguous())
+        if not bs:  # k columns of one matrix: the rows of one batched loop
+            x, it, res = run(b.mT.contiguous())
+            return x.mT, it, res
+        cols = [run(b[..., j].contiguous()) for j in range(b.shape[-1])]  # per chain and column
+        return tuple(torch.stack([c[i] for c in cols], -1) for i in range(3))
+
+    def solve(self, b: torch.Tensor) -> torch.Tensor:
+        return self.solve_info(b)[0]
+
+    def _unsupported(self, what):
+        raise NotImplementedError(
+            f"CG backend does not support {what}; use SolverSpec(kind="
+            f"'supernodal'/'banded'/'dense') or the RBMC variance estimators"
+        )
+
+    def logdet(self):
+        self._unsupported("logdet")
+
+    def backward_solve(self, z):
+        self._unsupported("backward_solve (sampling)")
+
+    def selinv_diag(self):
+        self._unsupported("selected inversion")
+
+    def selinv(self, pattern):
+        self._unsupported("selected inversion")
+
+
 def factorize(Q, spec: SolverSpec = SolverSpec()):
     """Factorize symmetric positive-definite sparse precision matrices
     (data (nnz,) or (B, nnz))."""
@@ -121,6 +190,6 @@ def factorize(Q, spec: SolverSpec = SolverSpec()):
         from .supernodal import supernodal_factorize
 
         return supernodal_factorize(Q, spec.max_width, spec.ordering)
-    if spec.kind in _NOT_PORTED:
-        raise NotImplementedError(f"solver kind {spec.kind!r} is not ported yet: {_NOT_PORTED[spec.kind]}")
+    if spec.kind == "cg":
+        return CGFactor(Q=Q, tol=spec.cg_tol, max_iter=spec.cg_max_iter)
     raise ValueError(f"unknown solver kind: {spec.kind}")

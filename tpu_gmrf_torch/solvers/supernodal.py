@@ -27,8 +27,8 @@ reference library.
   factor; the solves have no backward and raise if asked for one.
 
 Not ported from the reference: the staged multi-dispatch path (a TPU
-compile-helper workaround), the ``mesh`` variant of ``_factorize``,
-``sqrt_matvec`` and ``solve_refined``.
+compile-helper workaround), the ``mesh`` variant of ``_factorize`` and
+``solve_refined``.
 """
 
 from __future__ import annotations
@@ -48,6 +48,8 @@ from ..kernels import (
     fct_init_plain,
     gather_segsum,
     gather_segsum_plain,
+    sn_multiply,
+    sn_multiply_plain,
     sn_panel,
     sn_panel_plain,
     sn_takahashi,
@@ -719,10 +721,10 @@ def supernodal_plan(
 
 _DEVICE_CACHE: dict = {}
 
-_KERNEL_OPS = dict(init=fct_init, panel=sn_panel, trsv=sn_trsv, takahashi=sn_takahashi,
+_KERNEL_OPS = dict(init=fct_init, panel=sn_panel, trsv=sn_trsv, multiply=sn_multiply, takahashi=sn_takahashi,
                    segsum=gather_segsum)
 # the plain versions, for comparisons of the kernels with them on the card
-_PLAIN_OPS = dict(init=fct_init_plain, panel=sn_panel_plain, trsv=sn_trsv_plain,
+_PLAIN_OPS = dict(init=fct_init_plain, panel=sn_panel_plain, trsv=sn_trsv_plain, multiply=sn_multiply_plain,
                   takahashi=sn_takahashi_plain, segsum=gather_segsum_plain)
 _LOGDET_CHUNK = 64  # terms per row of the logdet's first K5 reduction
 
@@ -1022,6 +1024,26 @@ class SupernodalFactor:
         rows, k = self._rows(z)
         zp = torch.cat([rows, rows.new_zeros(rows.shape[0], 1)], -1)
         return self._unrows(self._unperm(self._backward(zp, k), k), z, k)
+
+    def sqrt_matvec(self, z: torch.Tensor) -> torch.Tensor:
+        """(S⁻¹L) z — maps N(0, I) to N(0, Q); z (*batch, n) or (*batch, n, k),
+        taken in the permuted basis as `backward_solve` takes it. The
+        supernodes of a product are independent; the level order only keeps
+        the sums in the reference's order: K7 `sn_multiply` per class, then
+        the level's forward ELL plans (K5) add Lb·z into the rows."""
+        rows, k = self._rows(z)
+        ops = self._ops
+        zp = torch.cat([rows, rows.new_zeros(rows.shape[0], 1)], -1)
+        out = torch.zeros_like(zp)
+        for lv in self._levels():
+            u = _buffer(zp, zp.shape[0], lv.zf)
+            for c in lv.classes:
+                ops["multiply"](self.vals, c, out, zp, u, k)
+            for ell in lv.fwd:
+                ops["segsum"](ell, u, out=out, alpha=1.0, accumulate=True)
+        dp = _device_plan(self.meta, out.device)
+        x = ops["segsum"](dp["unperm"], out, y=1.0 / self._scale_rows(k), out=out.new_empty(out.shape[0], self.n))
+        return self._unrows(x, z, k)
 
     # -- statistics -----------------------------------------------------------------
 

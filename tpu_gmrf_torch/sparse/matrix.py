@@ -176,6 +176,13 @@ class SparseMatrix:
     def _idx(self, key: str, array):
         return _index(self.pattern, key, array, self.data.device)
 
+    def todense(self) -> torch.Tensor:
+        """The dense matrix, (n, m) or (B, n, m)."""
+        n, m = self.shape
+        flat = self._idx("rows", self.pattern.rows) * m + self._idx("cols", self.pattern.cols)
+        out = self.data.new_zeros(self.data.shape[:-1] + (n * m,))
+        return out.index_add_(-1, flat, self.data).reshape(self.data.shape[:-1] + (n, m))
+
     # ---- linear ops --------------------------------------------------------
 
     def _batched(self, x: torch.Tensor):
