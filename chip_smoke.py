@@ -6,7 +6,7 @@
 Phases, each printing its own lines; any failure raises and exits non-zero:
 
 1. the device: needs CUDA; prints the card's name and power limit;
-2. the build: compiles the kernels K1-K15 (K5 with its second entry,
+2. the build: compiles the kernels K1-K17 (K5 with its second entry,
    fct_init; K7 with its multiply mode; K10 with its second entry,
    dense_selinv; K13 with its second entry, bt_sqrt) from
    tpu_gmrf_torch/csrc with nvcc (one nvcc per source, in parallel) and
@@ -32,6 +32,12 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    transposed, K15 bsr_outer, the BSR gradient against the plain version's
    autograd, K4 at those sizes, bt_sqrt on the n=5741 banded factor and K7's
    multiply mode on the n=14058 supernodal factor;
+3e. K16 kl_columns on the column buckets of example 09's KL factor at
+   n=10,000 (rho = 3 and 6) and on one bucket beyond shared memory, K17
+   block_inv on the n=1000 graphical lasso's cliques and separators (and one
+   set of 200, beyond shared memory), rectangular K4 on a 500 x 14058
+   selection matrix and its transpose, against their plain versions and the
+   library yardsticks, in float64 and float32;
 4. the flagship slice: batched value and θ-gradient of the Laplace marginal
    of an AR1 + Poisson model (256 chains, n=500) through the kernels, in
    float32, checked against the plain path in float64 (the same code on CPU
@@ -68,15 +74,23 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    Cholesky preconditioner, against the supernodal solve;
 14. RBMC variances: rbmc_var at n=14058 (1000 samples) against selinv_diag,
    block_rbmc_var at n=5741; N(0, Q) draws through CholeskySqrtMap on the
-   banded and the supernodal factor.
+   banded and the supernodal factor;
+15. the KL path (examples/09_kl_approximation.py): approximate_gmrf_kl at
+   g=30 (n=900, auto -> dense) with the example's checks, a sum-to-zero
+   ConstrainedGMRF, linear_condition on both; then g=100 (n=10,000, auto ->
+   supernodal) with 50 observations; against the plain path, float64;
+16. the graphical lasso (examples/10_graphical_lasso.py): n=200 with the
+   example's checks for lambda and the restricted Lambda, then n=1000,
+   m=20,000 and the logpdf of 100 held-out samples; against the plain
+   versions, float64.
 
 Every kernel's launch counter is zeroed just before each main path (phases
 4-5, the flagship; 7-8, the spatial slice; 9, 10 and 11) and read after
-it, and so before and after each of the paths 12, 13, 13b and 14; a
-kernel of the path that was never launched fails the run. The line
-before the last is one JSON object with the kernels' launches, errors,
-times and bounds; the last line is the result object. Needs no network and
-imports no JAX.
+it, and so before and after each of the paths 12, 13, 13b, 14, 15 and 16;
+a kernel of the path that was never launched fails the run. Each phase's
+seconds are printed when the next begins. The line before the last is one
+JSON object with the kernels' launches, errors, times and bounds; the last
+line is the result object. Needs no network and imports no JAX.
 """
 
 from __future__ import annotations
@@ -212,6 +226,8 @@ SOURCES = {
     "bt_sqrt": ("tpu_gmrf_torch/csrc/banded.cu", "tpu_gmrf/solvers/banded.py:272"),
     "bsr_spmm": ("tpu_gmrf_torch/csrc/bsr.cu", "tpu_gmrf/kernels/bsr_spmv.py:182"),
     "bsr_outer": ("tpu_gmrf_torch/csrc/bsr.cu", "tpu_gmrf/kernels/bsr_spmv.py:215"),
+    "kl_columns": ("tpu_gmrf_torch/csrc/kl.cu", "tpu_gmrf/kl_cholesky.py:116"),
+    "block_inv": ("tpu_gmrf_torch/csrc/block_inv.cu", "tpu_gmrf/graphical_lasso.py:150"),
 }
 FLAGSHIP_KERNELS = ("tridiag_factor", "tridiag_solve", "tridiag_selinv", "csr_spmv", "gather_segsum")
 SPATIAL_KERNELS = ("csr_spmv", "gather_segsum", "fct_init", "sn_panel", "sn_trsv", "sn_takahashi")
@@ -228,6 +244,12 @@ CG_KERNELS = ("csr_spmv", "bt_matvec", "bsr_spmm")
 # phase 13b multiplies by whatever hot_matvec picks (added to the list there) and preconditions with the supernodal solve
 CG_MATERN_KERNELS = ("fct_init", "sn_panel", "sn_trsv", "gather_segsum")
 RBMC_KERNELS = ("csr_spmv", "sn_trsv", "gather_segsum", "sn_multiply", "bt_factor", "bt_sqrt")
+# Phase 15: K16 per bucket, K5's SpGEMM L Lᵀ, K4 for the rectangular observation matrix, the dense backend
+# at n=900 and the supernodal one at n=10,000 (auto). Phase 16: K17 and K5's signed sums, the dense backend
+# (n ≤ 1000, auto) and K4's quadratic form in logpdf.
+KL_KERNELS = ("kl_columns", "gather_segsum", "csr_spmv", "dense_chol", "dense_trsv", "fct_init", "sn_panel",
+              "sn_trsv", "sn_takahashi")
+GLASSO_KERNELS = ("block_inv", "gather_segsum", "dense_chol", "csr_spmv")
 
 # Phases 12-14. bench_spmv: 64 chained multiplies, 5 timed repetitions, 8
 # vectors. The CG path: 316x316 grid, 8 right-hand sides; float32 cannot
@@ -248,13 +270,43 @@ CG_TOL = {torch.float64: 1e-8, torch.float32: 1e-5}
 # The reference's test takes rtol 0.15 at S = 4000 on n = 20: 6.7 σ_S.
 RBMC_SAMPLES, BLOCK_RBMC_SAMPLES = 1000, 100
 
+# Phases 3e, 15, 16: example 09 (examples/09_kl_approximation.py: Matérn-3/2, ℓ = 0.3, on a g x g grid of the
+# unit square, ρ = 3, jitter 1e-8, 12 probe columns, 5 observations at Q_ε = 1e4) at g = 30 and, as
+# large as the reference's O(n²) host ordering allows here, g = 100 (n = 10,000) with 50 observations; K16
+# also at ρ = 6. Example 10 (examples/10_graphical_lasso.py: a sparse diagonally dominant truth, λ = 0.03)
+# at n = 200, m = 4000 and at n = 1000, m = 20,000, density 0.004 (its O(n²) chordal cover bounds n).
+KL_GRID_SMALL, KL_GRID, KL_RHO, KL_RHO_WIDE, KL_JITTER, KL_ELL, KL_OBS = 30, 100, 3.0, 6.0, 1e-8, 0.3, 50
+GL_SMALL = dict(n=200, m=4000, density=0.02, lam=0.03)
+GL = dict(n=1000, m=20000, density=0.004, lam=0.03, held_out=100)
+# K16 and K17 against their plain versions: both round every operation once in the same order, so they
+# agree to the bit (the first readings on the H100: 0 in f64 and f32); the limits below hold them, with
+# the NaN masks of kernel and plain required equal. The KL and glasso paths against their plain paths, f64:
+# Q's data 1e-9 (the KL path's plain run is on CPU tensors, whose exp and sqrt in the cov_fn differ from
+# the card's in the last bit, and each column's solve amplifies that by its block's condition, up to
+# ~1/jitter: the first readings on the H100 were 3.6e-13 at n=900 and 1.1e-11 at n=10,000; on the card
+# the glasso's Q is K5's sums in another order); logdet 1e-10; var, conditional means and logpdf 1e-8 (the
+# dense and supernodal Choleskys of a precision of condition up to ~1e8 round in another order).
+SN_TOL[torch.float64].update(kl_columns=1e-12, block_inv=1e-10)
+SN_TOL[torch.float32].update(kl_columns=1e-4, block_inv=1e-3)
+PATH_TOL = {"data": 1e-9, "logdet": 1e-10, "stat": 1e-8}
+
 
 def rbmc_tol(S: int) -> dict:
     sigma = (2.0 / (S - 1)) ** 0.5
     return {"max": 6 * sigma, "mean": 1.5 * sigma}
 
 
+_PHASE: dict = {}
+
+
 def log(msg: str) -> None:
+    """Print a line; a line that opens a phase first prints the seconds since
+    the previous phase's line."""
+    if msg.startswith("phase ") or msg.startswith("total "):
+        now = time.perf_counter()
+        if _PHASE:
+            print(f"  ({_PHASE['name']}: {now - _PHASE['t']:.1f} s)", flush=True)
+        _PHASE.update(name=msg.split(":")[0][:48], t=now)
     print(msg, flush=True)
 
 
@@ -326,9 +378,9 @@ def check_kernels(dtype, dev):
     data = Q.data.contiguous()
     el, nnz = a.element_size(), col.numel()
     costs = {  # (operations, bytes): inputs read once, outputs written once
-        "tridiag_factor": (5 * CHAINS * N, el * CHAINS * 4 * N),
-        "tridiag_solve": (6 * CHAINS * N, el * CHAINS * 4 * N),
-        "tridiag_selinv": (5 * CHAINS * N, el * CHAINS * 4 * N),
+        "tridiag_factor": (5 * CHAINS * N, el * CHAINS * (4 * N - 1)),  # a, c in; d, e, logdet out
+        "tridiag_solve": (6 * CHAINS * N, el * CHAINS * (4 * N - 1)),  # d, e, b in; x out
+        "tridiag_selinv": (5 * CHAINS * N, el * CHAINS * (4 * N - 2)),  # d, e in; zdiag, zoff out
         "csr_spmv": (2 * CHAINS * (nnz + N), 4 * (N + 1 + nnz) + el * CHAINS * (nnz + 2 * N + 1)),
     }
     # the library call beside K4: one CSR product, the chains as a block-diagonal matrix
@@ -811,12 +863,19 @@ def check_dense_kernels(dn_model, sp_model, dtype, dev):
         check("bt_trsv solve, vector in global memory", dtype, kernels.bt_trsv(P, t, rows, 1, 2),
               kernels.bt_trsv_plain(P, t, rows, 1, 2), "bt_trsv", {},
               extra=f" kernel_ms={cuda_ms(lambda: kernels.bt_trsv(P, t, rows, 1, 2)):.3f}")
-    # the banded Takahashi sweep: K8 once per block (W = M = s), off the NUTS path
+    # the banded Takahashi sweep: K8 once per block (W = M = s), off the NUTS path; its bound from K8's
+    # own step count per block (ns = s, m = s rows below it, none below the last) and the factor's blocks
+    # read once plus Σ's blocks written once
     meta = (Q.pattern, None)
+    sweep_flops = B * sum(2 * sblk**3 / 3 + (2 * sblk**3 + 2 * sblk**3 if k < K - 1 else 0) for k in range(K))
+    sweep_bytes = el * B * 2 * (K * sblk * (sblk + 1) // 2 + (K - 1) * sblk * sblk)
+    sweep = bound(sweep_flops, sweep_bytes, dtype)
     check("sn_takahashi banded sigma", dtype, tb._sigma_vals(P, meta),
           tb._sigma_vals(P, meta, kernels.sn_takahashi_plain), "sn_takahashi", {},
           extra=f" kernel_ms={cuda_ms(lambda: tb._sigma_vals(P, meta), 3, 1):.3f} plain_ms="
-                f"{cuda_ms(lambda: tb._sigma_vals(P, meta, kernels.sn_takahashi_plain), 3, 1):.3f} (whole sweep)")
+                f"{cuda_ms(lambda: tb._sigma_vals(P, meta, kernels.sn_takahashi_plain), 3, 1):.3f} (whole sweep) "
+                f"bound_ms={sweep['bound_ms']:.4f} ({sweep['bound_by']}; {sweep_flops:.3e} flops, "
+                f"{sweep_bytes / 1e6:.1f} MB)")
     return results
 
 
@@ -969,11 +1028,13 @@ def check_beyond_shared_memory(model, dev):
         if kernels.tridiag_path(n, 1, dtype) != "global" or kernels.tridiag_path(n, 0, dtype) != "global":
             raise AssertionError("n=20000 was expected on the global-memory path of K1-K3")
         d, e, _ = kernels.tridiag_factor_plain(a, c)
-        cost = (5 * B * n, el * B * 4 * n)
-        for name, kern, plain in (
-            ("tridiag_factor", lambda: kernels.tridiag_factor(a, c), lambda: kernels.tridiag_factor_plain(a, c)),
-            ("tridiag_solve", lambda: kernels.tridiag_solve(d, e, b), lambda: kernels.tridiag_solve_plain(d, e, b)),
-            ("tridiag_selinv", lambda: kernels.tridiag_selinv(d, e), lambda: kernels.tridiag_selinv_plain(d, e)),
+        for name, kern, plain, cost in (  # (operations, bytes) of each: inputs read once, outputs written once
+            ("tridiag_factor", lambda: kernels.tridiag_factor(a, c), lambda: kernels.tridiag_factor_plain(a, c),
+             (5 * B * n, el * B * (4 * n - 1))),
+            ("tridiag_solve", lambda: kernels.tridiag_solve(d, e, b), lambda: kernels.tridiag_solve_plain(d, e, b),
+             (6 * B * n, el * B * (4 * n - 1))),
+            ("tridiag_selinv", lambda: kernels.tridiag_selinv(d, e), lambda: kernels.tridiag_selinv_plain(d, e),
+             (5 * B * n, el * B * (4 * n - 2))),
         ):
             check(f"{name} n={n} B={B} (rows in global memory)", dtype, kern(), plain(), "tridiag", {},
                   cuda_ms(kern, 5), cuda_ms(plain, 5), cost=cost)
@@ -1400,6 +1461,504 @@ def rbmc_path(stats_model, sp_model, dev, card):
     return counts
 
 
+# ---- phases 3e, 15, 16: the GP-approximation and structure-learning path -------------------
+
+
+def matern32(a, b, ell=KL_ELL):
+    """Example 09's pairwise Matérn-3/2 kernel (examples/09_kl_approximation.py:30), in torch."""
+    r = torch.sqrt(torch.sum((a - b) ** 2) + 1e-12)
+    s = 3.0**0.5 * r / ell
+    return (1.0 + s) * torch.exp(-s)
+
+
+def matern32_cols(X: np.ndarray, probe) -> np.ndarray:
+    """The kernel's columns K[:, probe] on the host (float64)."""
+    d = np.sqrt(((X[:, None, :] - X[None, probe, :]) ** 2).sum(-1) + 1e-12)
+    s = np.sqrt(3.0) * d / KL_ELL
+    return (1.0 + s) * np.exp(-s)
+
+
+def kl_problem(g: int) -> dict:
+    """Example 09's points on the g x g grid, their reverse-maximin ordering,
+    and the patterns and column buckets at ρ = 3 and 6, with host times."""
+    from tpu_gmrf_torch.kl_cholesky import kl_buckets, reverse_maximin_ordering, sparsity_pattern_from_ordering
+
+    X = grid_points(g)
+    t0 = time.perf_counter()
+    order, ell = reverse_maximin_ordering(X)
+    host = {"ordering": time.perf_counter() - t0}
+    pats = {}
+    for rho in (KL_RHO, KL_RHO_WIDE):
+        t0 = time.perf_counter()
+        pat = sparsity_pattern_from_ordering(X, order, ell, rho)
+        host[f"pattern rho={rho:g}"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        buckets = kl_buckets(pat)
+        host[f"buckets rho={rho:g}"] = time.perf_counter() - t0
+        pats[rho] = (pat, buckets)
+        sizes = {cap: len(cols) for cap, cols, *_ in buckets}
+        log(f"  KL g={g} rho={rho:g}: n={len(X)}, nnz(L)={pat.nnz}, buckets {dict(sorted(sizes.items()))}")
+    log(f"  KL g={g} host: " + ", ".join(f"{k} {v:.2f} s" for k, v in host.items()))
+    return dict(X=X, order=order, ell=ell, pats=pats, host=host)
+
+
+def kl_bucket_inputs(kp: dict, rho: float, dtype, dev):
+    """Per bucket: (cap, Θ, count, entry_pos) on the card, Θ = cov_fn of the padded points."""
+    from tpu_gmrf_torch.kl_cholesky import gram
+
+    cov = gram(matern32)
+    X = torch.tensor(kp["X"][kp["order"]], dtype=dtype, device=dev)
+    out = []
+    for cap, _, S_idx, entry_pos, count in kp["pats"][rho][1]:
+        pts = X[torch.as_tensor(S_idx, device=dev)]
+        out.append((cap, cov(pts, pts).contiguous(), torch.as_tensor(count, dtype=torch.int32, device=dev),
+                    torch.as_tensor(entry_pos, dtype=torch.int32, device=dev)))
+    return out
+
+
+def kl_library(theta, count):
+    """The yardstick beside K16: the reference's formulation (kl_cholesky.py:118-128) in two library calls
+    on the padded bucket, torch.linalg.cholesky_ex of Θᵀ and solve_triangular of Uᵀ against e_last."""
+    B, cap = theta.shape[:2]
+    valid = torch.arange(cap, device=theta.device) >= (cap - count.long())[:, None]
+    eye = torch.eye(cap, dtype=theta.dtype, device=theta.device)
+    A = torch.where(valid[:, :, None] & valid[:, None, :], theta, 0.0) + KL_JITTER * eye \
+        + (~valid).to(theta.dtype)[:, :, None] * eye
+    e = theta.new_zeros(B, cap, 1)
+    e[:, -1] = 1.0
+    At = A.mT.contiguous()
+
+    def run():
+        L, _ = torch.linalg.cholesky_ex(At)
+        return torch.linalg.solve_triangular(L.mT, e, upper=True)
+    return run
+
+
+def check_kl_buckets(label, inputs, nnz: int, dtype, results=None, reps: int = 10):
+    """K16 against its plain version (and the library yardstick) on every bucket of `inputs`."""
+    from tpu_gmrf_torch import kernels
+
+    el, tot = torch.finfo(dtype).bits // 8, dict(ms=0.0, plain_ms=0.0, library_ms=0.0, flops=0.0, bytes=0.0)
+    err = scale = 0.0
+    nans = [0, 0]
+    for cap, theta, count, pos in inputs:
+        out_k, out_p = theta.new_zeros(nnz), theta.new_zeros(nnz)
+        kernels.kl_columns(theta, count, pos, KL_JITTER, out_k)
+        kernels.kl_columns_plain(theta, count, pos, KL_JITTER, out_p)
+        torch.cuda.synchronize()
+        sel = pos[pos >= 0].long()
+        k, p = out_k[sel], out_p[sel]
+        if not torch.equal(k.isnan(), p.isnan()):
+            raise AssertionError(f"kl_columns {label} cap={cap}: NaN masks of kernel and plain differ")
+        fin = ~p.isnan()
+        nans[0] += int(k.isnan().sum())
+        b_err = float((k[fin] - p[fin]).abs().max()) if bool(fin.any()) else 0.0
+        err, scale = max(err, b_err), max(scale, float(p[fin].abs().max()) if bool(fin.any()) else 0.0)
+        nans[1] += broken_columns(k, count)
+        N = count.double()
+        flops = float((N**3 / 3 + N**2).sum())
+        nbytes = el * float((N**2 + N).sum()) + 4 * (count.numel() * (cap + 1))
+        ms = cuda_ms(lambda: kernels.kl_columns(theta, count, pos, KL_JITTER, out_k), reps, 2)
+        pms = cuda_ms(lambda: kernels.kl_columns_plain(theta, count, pos, KL_JITTER, out_p), 2, 1)
+        lms = cuda_ms(kl_library(theta, count), 3, 1)
+        bnd = bound(flops, nbytes, dtype)
+        log(f"    cap={cap} B={count.numel()} ({kernels.kl_path(cap, dtype)} path): max_abs_err={b_err:.3e} "
+            f"kernel_ms={ms:.4f} plain_ms={pms:.3f} library_ms={lms:.3f} bound_ms={bnd['bound_ms']:.5f} "
+            f"({bnd['bound_by']}), NaN entries {int(k.isnan().sum())}")
+        for key, v in (("ms", ms), ("plain_ms", pms), ("library_ms", lms), ("flops", flops), ("bytes", nbytes)):
+            tot[key] += v
+    rel, tol = err / max(scale, 1e-300), SN_TOL[dtype]["kl_columns"]
+    bnd = bound(tot["flops"], tot["bytes"], dtype)
+    log(f"  kl_columns {label} {dtype_name(dtype)}: max_abs_err={err:.3e} rel={rel:.3e} (tol {tol:.0e}), NaN "
+        f"entries {nans[0]} (kernel and plain masks equal), columns broken down {nans[1]}; all buckets: "
+        f"kernel_ms={tot['ms']:.4f} plain_ms={tot['plain_ms']:.3f} library_ms={tot['library_ms']:.3f} (two library "
+        f"calls per bucket) bound_ms={bnd['bound_ms']:.5f} ({bnd['bound_by']})")
+    if not rel <= tol:
+        raise AssertionError(f"kl_columns {label}: kernel disagrees with its plain version ({rel:.3e})")
+    if results is not None:
+        results["kl_columns"] = {"max_abs_err": err, "ms": tot["ms"], "plain_ms": tot["plain_ms"],
+                                 "library_ms": tot["library_ms"], **bnd, "dtype": dtype_name(dtype), "shape": label}
+
+
+def broken_columns(vals, count) -> int:
+    """How many columns of a bucket have NaN values (the flat `vals` in column order)."""
+    col = torch.repeat_interleave(torch.arange(count.numel(), device=vals.device), count.long())
+    return int(torch.unique(col[vals.isnan()]).numel())
+
+
+def glasso_problem(n: int, m: int, density: float, extra: int = 0):
+    """Example 10's generator (examples/10_graphical_lasso.py:26-33): the sparse truth A, Q_t, and
+    m + extra samples of N(0, Q_t⁻¹)."""
+    import scipy.linalg
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(42)
+    A = sp.random(n, n, density=density, random_state=np.random.RandomState(7))
+    A = A + A.T
+    A = A + sp.diags(np.abs(A).sum(axis=1).A1 + 1.0)
+    Qt = A.toarray()
+    L = np.linalg.cholesky(Qt)
+    X = scipy.linalg.solve_triangular(L.T, rng.normal(size=(n, m + extra)), lower=False).T
+    return A.tocsr(), Qt, X
+
+
+def glasso_host(X: np.ndarray, lam) -> dict:
+    """The host half of graphical_lasso, timed: soft-thresholded covariance, chordal cover, plans."""
+    from tpu_gmrf_torch import kernels
+    from tpu_gmrf_torch.graphical_lasso import chordal_cover, embed_plan, soft_threshold_cov
+
+    host = {}
+    t0 = time.perf_counter()
+    C, pat, mu = soft_threshold_cov(X, lam)
+    host["covariance"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cover, cliques, seps = chordal_cover(pat)
+    host["chordal_cover"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sets = list(cliques) + list(seps)
+    blocks = kernels.BlockSets(sets, [1.0] * len(cliques) + [-1.0] * len(seps))
+    pos = embed_plan(cover, sets)
+    plan = kernels.SegPlan.grouped(pos, np.arange(pos.size), cover.nnz)
+    host["plans"] = time.perf_counter() - t0
+    return dict(C=C, pat=pat, mu=mu, cover=cover, cliques=cliques, seps=seps, blocks=blocks, plan=plan, host=host)
+
+
+def block_inv_library(C, blocks):
+    """The yardstick beside K17: the reference's formulation, torch.linalg.inv per size bucket of the
+    gathered blocks (one gather and one inverse per bucket)."""
+    by_size: dict = {}
+    for b, s in enumerate(blocks.sizes):
+        by_size.setdefault(int(s), []).append(b)
+    idx = [torch.as_tensor(np.stack([blocks.idx[blocks.ptr[b]:blocks.ptr[b + 1]] for b in group]),
+                           dtype=torch.long, device=C.device) for group in by_size.values()]
+
+    def run():
+        return [torch.linalg.inv(C[i[:, :, None], i[:, None, :]]) for i in idx]
+    return run, len(idx)
+
+
+def check_block_inv(label, C, blocks, dtype, results=None):
+    """K17 against its plain version and the library yardstick."""
+    from tpu_gmrf_torch import kernels
+
+    got, ref = kernels.block_inv(C, blocks), kernels.block_inv_plain(C, blocks)
+    torch.cuda.synchronize()
+    if not torch.equal(got.isnan(), ref.isnan()):
+        raise AssertionError(f"block_inv {label}: NaN masks of kernel and plain differ")
+    el, s = torch.finfo(dtype).bits // 8, blocks.sizes.astype(float)
+    flops = float((2 * s**3).sum())
+    nbytes = el * 2 * float((s**2).sum()) + 4 * float(s.sum()) + (24 + el) * len(blocks)
+    lib, nbuckets = block_inv_library(C, blocks)
+    check(f"block_inv {label} ({len(blocks)} sets, sizes {int(s.min())}-{int(s.max())}, "
+          f"{int((blocks.sizes > kernels.block_inv_smem_max(dtype)).sum())} on the global path)", dtype,
+          got, ref, "block_inv", results if results is not None else {}, cuda_ms(lambda: kernels.block_inv(C, blocks), 10),
+          cuda_ms(lambda: kernels.block_inv_plain(C, blocks), 2, 1), cost=(flops, nbytes), library_ms=cuda_ms(lib, 3, 1),
+          shape=label, extra=f" (library: torch.linalg.inv per size bucket, {nbuckets} buckets)")
+
+
+def check_rect_spmv(dev):
+    """K4 on a 500 x 14,058 selection matrix (the observation matrix of linear_condition) and its
+    transpose, B ∈ {1, 8}, against its plain version and CSR torch.sparse.mm."""
+    from tpu_gmrf_torch import kernels
+    from tpu_gmrf_torch.sparse import SparseMatrix, SparsePattern
+    from tpu_gmrf_torch.sparse.matrix import _csr
+
+    rng = np.random.default_rng(17)
+    n, m = 14058, 500
+    cols = rng.choice(n, m, replace=False)
+    for dtype in (torch.float64, torch.float32):
+        el = torch.finfo(dtype).bits // 8
+        A = SparseMatrix(torch.ones(m, dtype=dtype, device=dev), SparsePattern(np.arange(m), cols, (m, n)))
+        for label, M in (("A", A), ("A^T", A.T)):
+            rp, col = _csr(M.pattern, dev)
+            data, (nr, nc) = M.data.contiguous(), M.shape
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", UserWarning)
+                lib = torch.sparse_csr_tensor(rp.long(), col.long(), data, size=M.shape)
+            for B in (1, 8):
+                x = torch.tensor(rng.normal(size=(B, nc)), dtype=dtype, device=dev)
+                xt = x.T.contiguous()
+                path = kernels.spmv_path(nr, B, dtype, nc)
+                y = kernels.csr_spmv(rp, col, data, x)[0]
+                _, rel = rel_err((y,), (torch.sparse.mm(lib, xt).T,))
+                if not rel <= SN_TOL[dtype]["csr_spmv"]:
+                    raise AssertionError(f"rectangular csr_spmv disagrees with CSR torch.sparse.mm ({rel:.3e})")
+                check(f"csr_spmv rectangular {label} {nr}x{nc} B={B} ({path} path)", dtype, y,
+                      kernels.csr_spmv_plain(rp, col, data, x)[0], "csr_spmv", {},
+                      cuda_ms(lambda: kernels.csr_spmv(rp, col, data, x)),
+                      cuda_ms(lambda: kernels.csr_spmv_plain(rp, col, data, x)),
+                      cost=(2 * B * M.nnz, 4 * (nr + 1 + M.nnz) + el * (M.nnz + B * (nr + nc))),
+                      library_ms=cuda_ms(lambda: torch.sparse.mm(lib, xt)))
+
+
+def check_gp_kernels(kp: dict, gp: dict, dev) -> dict:
+    """Phase 3e: K16 on the n=10,000 buckets (ρ = 3 and 6) and one bucket beyond shared memory, K17
+    on the n=1000 glasso sets plus one set of 200 (global path), rectangular K4; f64 and f32."""
+    from tpu_gmrf_torch import kernels
+    from tpu_gmrf_torch.kl_cholesky import gram
+
+    results = {}
+    nnz = {rho: kp["pats"][rho][0].nnz for rho in (KL_RHO, KL_RHO_WIDE)}
+    rng = np.random.default_rng(18)
+    for dtype in (torch.float64, torch.float32):
+        for rho in (KL_RHO, KL_RHO_WIDE):
+            t0 = time.perf_counter()
+            inputs = kl_bucket_inputs(kp, rho, dtype, dev)
+            torch.cuda.synchronize()
+            log(f"  {dtype_name(dtype)} rho={rho:g}: cov_fn over the buckets {time.perf_counter() - t0:.3f} s (wall)")
+            label = f"n={len(kp['X'])} rho={rho:g}"
+            check_kl_buckets(label, inputs, nnz[rho], dtype,
+                             results if (dtype == torch.float64 and rho == KL_RHO) else None)
+            del inputs
+        # beyond shared memory: one bucket of cap 256 (columns of 256, 256, 200 and 129 rows)
+        cap, count = 256, np.array([256, 256, 200, 129])
+        pts = torch.tensor(rng.uniform(size=(len(count), cap, 2)), dtype=dtype, device=dev)
+        pos = np.full((len(count), cap), -1)
+        nxt = 0
+        for b, N in enumerate(count):
+            pos[b, cap - N:] = np.arange(nxt, nxt + N)
+            nxt += N
+        theta = gram(matern32)(pts, pts)
+        check_kl_buckets(f"synthetic cap={cap} ({'global' if cap > 168 else 'shared'} path)",
+                         [(cap, theta, torch.tensor(count, dtype=torch.int32, device=dev),
+                           torch.tensor(pos, dtype=torch.int32, device=dev))], nxt, dtype, reps=3)
+        # K17: the n=1000 graphical lasso's cliques (+1) and separators (-1); then with a set of 200
+        C = torch.tensor(gp["C"], dtype=dtype, device=dev)
+        check_block_inv(f"n={len(gp['mu'])} glasso", C, gp["blocks"], dtype,
+                        results if dtype == torch.float64 else None)
+        sets = list(gp["cliques"]) + list(gp["seps"]) + [np.sort(rng.choice(len(gp["mu"]), 200, replace=False))]
+        big = kernels.BlockSets(sets, [1.0] * len(gp["cliques"]) + [-1.0] * (len(gp["seps"]) + 1))
+        check_block_inv(f"n={len(gp['mu'])} glasso + one set of 200", C, big, dtype)
+    check_rect_spmv(dev)
+    return results
+
+
+def kl_path(kp: dict, dev, card):
+    """Phase 15: example 09 at g=30 (auto -> dense) with a sum-to-zero ConstrainedGMRF, then at
+    g=100 (auto -> supernodal) with 50 observations; against the plain path."""
+    import tpu_gmrf_torch as tg
+    from tpu_gmrf_torch import kernels
+    from tpu_gmrf_torch.kl_cholesky import gram, sparse_approximate_cholesky
+    from tpu_gmrf_torch.sparse import SparseMatrix, SparsePattern
+
+    cov = gram(matern32)
+    X30, X100 = grid_points(KL_GRID_SMALL), kp["X"]
+    n30, n100 = len(X30), len(X100)
+    rng = np.random.default_rng(123)  # example 09's draws: 12 probe columns, then 5 observations
+    probe30 = rng.integers(0, n30, size=12)
+    obs30 = rng.integers(0, n30, size=5)
+    y30 = np.sin(4 * X30[obs30, 0]) * np.cos(3 * X30[obs30, 1])
+    rng = np.random.default_rng(124)
+    probe100 = rng.integers(0, n100, size=12)
+    obs100 = np.sort(rng.choice(n100, KL_OBS, replace=False))
+    y100 = np.sin(4 * X100[obs100, 0]) * np.cos(3 * X100[obs100, 1])
+    x30 = np.random.default_rng(125).normal(size=n30)
+
+    def selection(obs, n, where):
+        return SparseMatrix(torch.ones(len(obs), dtype=torch.float64, device=where),
+                            SparsePattern(np.arange(len(obs)), obs, (len(obs), n)))
+
+    def probe_cols(g, probe):
+        E = torch.zeros(g.n, len(probe), dtype=torch.float64, device=g.Q.device)
+        E[torch.as_tensor(probe), torch.arange(len(probe))] = 1.0
+        return g.factor.solve(E)
+
+    def small(where):
+        """Example 09 at g=30, a sum-to-zero constraint, both conditioned on the 5 observations."""
+        g = tg.approximate_gmrf_kl(torch.tensor(X30, device=where), cov, rho=KL_RHO, jitter=KL_JITTER)
+        post = tg.linear_condition(g, y30, Q_eps=1e4, A=selection(obs30, n30, where))
+        c = tg.ConstrainedGMRF.create(g, np.ones((1, n30)), np.zeros(1))
+        cpost = tg.linear_condition(c, y30, Q_eps=1e4, A=selection(obs30, n30, where))
+        xt = torch.tensor(x30, device=where)
+        return dict(g=g, sig=probe_cols(g, probe30), mean=post.mean, var=post.var(), logdet=g.logdet_precision(),
+                    cmean=cpost.mean, cvar=cpost.var(), clp=cpost.logpdf(xt), gvar=g.var())
+
+    kernels.reset_launches()
+    # ---- the KL main path ----
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r30 = small(dev)
+    torch.cuda.synchronize()
+    s30 = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    g100 = tg.approximate_gmrf_kl(X100, cov, rho=KL_RHO, jitter=KL_JITTER)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    sig100 = probe_cols(g100, probe100)
+    var100, logdet100 = g100.var(), g100.logdet_precision()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    post100 = tg.linear_condition(g100, y100, Q_eps=1e4, A=selection(obs100, n100, dev))
+    mean100, pvar100 = post100.mean, post100.var()
+    torch.cuda.synchronize()
+    cond_s = time.perf_counter() - t0
+    counts = kernels.launches()
+    # ---- end of the KL main path ----
+    launched(counts, KL_KERNELS, "KL")
+    kinds = (tg.SolverSpec().resolve(r30["g"].Q.pattern).kind, tg.SolverSpec().resolve(g100.Q.pattern).kind)
+    log(f"  g={KL_GRID_SMALL}: n={n30}, nnz(Q)={r30['g'].Q.nnz}, auto -> {kinds[0]}; build, 12 probe solves, two "
+        f"linear_conditions, a ConstrainedGMRF and their statistics {s30:.2f} s (wall)")
+    log(f"  g={KL_GRID}: n={n100}, nnz(Q)={g100.Q.nnz}, auto -> {kinds[1]}; approximate_gmrf_kl {build_s:.2f} s "
+        f"(wall; host ordering {kp['host']['ordering']:.2f} s, pattern {kp['host']['pattern rho=3']:.2f} s, "
+        f"buckets {kp['host']['buckets rho=3']:.2f} s of it), linear_condition on {KL_OBS} observations + var "
+        f"{cond_s:.2f} s")
+    if kinds != ("dense", "supernodal"):
+        raise AssertionError(f"auto resolved to {kinds}, expected dense at n={n30} and supernodal at n={n100}")
+    # example 09's acceptance checks, at both sizes
+    for label, X, r, probe, obs, y, mean, var in (
+            (f"g={KL_GRID_SMALL}", X30, r30["sig"], probe30, obs30, y30, r30["mean"], r30["var"]),
+            (f"g={KL_GRID}", X100, sig100, probe100, obs100, y100, mean100, pvar100)):
+        err = float(np.abs(r.cpu().numpy() - matern32_cols(X, probe)).max())
+        fit = float(np.abs(mean.cpu().numpy()[obs] - y).max())
+        v = var.cpu().numpy()
+        log(f"  {label}: max |Σ - K| on 12 probe columns {err:.4f} (limit 0.08); conditional mean at the {len(obs)} "
+            f"observations within {fit:.2e} (limit 0.02); var at the observations max {v[obs].max():.3e} < median "
+            f"{np.median(v):.3e}")
+        if not (err < 0.08 and fit < 0.02 and v[obs].max() < np.median(v)):
+            raise AssertionError(f"example 09's checks fail at {label}")
+    if abs(float(r30["cmean"].sum())) > 1e-8:
+        raise AssertionError("the conditioned ConstrainedGMRF's mean does not sum to zero")
+    # against the plain path: g=30 whole on CPU tensors; g=100: Q's data on CPU tensors, logdet and var on
+    # the plain versions on the card
+    p30 = small(torch.device("cpu"))
+    rows = []
+    for key, tol_key in (("logdet", "logdet"), ("gvar", "stat"), ("mean", "stat"), ("var", "stat"),
+                         ("cmean", "stat"), ("cvar", "stat"), ("clp", "stat")):
+        _, rel = rel_err((r30[key].cpu(),), (p30[key],))
+        rows.append(f"{key} {rel:.2e}")
+        if not rel <= PATH_TOL[tol_key]:
+            raise AssertionError(f"KL g=30 {key}: the kernel path is {rel:.3e} from the plain path")
+    _, rel = rel_err((r30["g"].Q.data.cpu(),), (p30["g"].Q.data,))
+    if not rel <= PATH_TOL["data"]:
+        raise AssertionError(f"KL g=30 Q: the kernel path is {rel:.3e} from the plain path")
+    log(f"  g={KL_GRID_SMALL} kernels vs the plain path on CPU tensors: Q {rel:.2e}, {', '.join(rows)} "
+        f"(limits {PATH_TOL}); constrained logpdf {float(r30['clp']):.6f}")
+    pat, order = kp["pats"][KL_RHO][0], kp["order"]
+    t0 = time.perf_counter()
+    Lp = sparse_approximate_cholesky(torch.tensor(X100), cov, pat, order, KL_JITTER)
+    Qp = Lp @ Lp.T
+    cpu_s = time.perf_counter() - t0
+    pat_q = SparsePattern(order[Qp.pattern.rows], order[Qp.pattern.cols], (n100, n100))
+    if pat_q != g100.Q.pattern:
+        raise AssertionError("KL g=100: Q's pattern differs from the plain path's")
+    _, rel_q = rel_err((g100.Q.data.cpu(),), (Qp.data[torch.as_tensor(pat_q.sort_order)],))
+    fp = plain_factorize(g100.Q)
+    _, rel_ld = rel_err((logdet100,), (fp.logdet(),))
+    _, rel_v = rel_err((var100,), (fp.selinv_diag(),))
+    log(f"  g={KL_GRID} kernels vs plain: Q's data {rel_q:.2e} (CPU tensors, {cpu_s:.2f} s), logdet {rel_ld:.2e} "
+        f"({float(logdet100):.6f}), var {rel_v:.2e} (plain supernodal on the card)")
+    if not (rel_q <= PATH_TOL["data"] and rel_ld <= PATH_TOL["logdet"] and rel_v <= PATH_TOL["stat"]):
+        raise AssertionError("KL g=100: the kernel path disagrees with the plain path")
+    # host time the path paid for the auto resolution (the banded plan and the supernodal symbolic
+    # summary, with its AMD ordering) and the supernodal plan: recomputed under another max_width,
+    # since the path's own are cached
+    from tpu_gmrf_torch.solvers.base import _large_sparse_kind
+    from tpu_gmrf_torch.solvers.supernodal import supernodal_plan
+
+    t0 = time.perf_counter()
+    _large_sparse_kind(g100.Q.pattern, tg.SolverSpec(max_width=2047))
+    resolve_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    supernodal_plan(g100.Q.pattern, 2047, "auto")
+    plan_s = time.perf_counter() - t0
+    log(f"  g={KL_GRID} host steps: ordering {kp['host']['ordering']:.2f} s, pattern {kp['host']['pattern rho=3']:.2f} s, "
+        f"buckets {kp['host']['buckets rho=3']:.2f} s (phase 3e), auto resolution (banded plan, supernodal "
+        f"symbolic summary) {resolve_s:.2f} s, supernodal plan {plan_s:.2f} s")
+    # device time of the steps at g=100 (CUDA events; K16's own per bucket is phase 3e's)
+    Xd = torch.tensor(X100[order], device=dev)
+    buckets = kp["pats"][KL_RHO][1]
+    pts = [Xd[torch.as_tensor(S, device=dev)] for _, _, S, _, _ in buckets]
+    cov_ms = cuda_ms(lambda: [cov(p_, p_) for p_ in pts], 3, 1)
+    L = sparse_approximate_cholesky(X100, cov, pat, order, KL_JITTER)
+    spgemm_ms = cuda_ms(lambda: L @ L.T, 5, 1)
+    fact_ms = cuda_ms(lambda: tg.factorize(g100.Q), 3, 1)
+    var_ms = cuda_ms(g100.var, 3, 1)
+    log(f"  g={KL_GRID} device steps: cov_fn over the {len(buckets)} buckets {cov_ms:.3f} ms, L Lᵀ (K5) "
+        f"{spgemm_ms:.3f} ms, supernodal factorization {fact_ms:.3f} ms, var (Takahashi) {var_ms:.3f} ms "
+        f"on {card}")
+    return counts
+
+
+def glasso_path(gp: dict, held_out: np.ndarray, dev, card):
+    """Phase 16: example 10 at n=200 (λ and the restricted Λ) with its checks, then n=1000; against
+    the plain versions on the card."""
+    import scipy.sparse as sp
+
+    import tpu_gmrf_torch as tg
+    from tpu_gmrf_torch import kernels
+    from tpu_gmrf_torch.solvers import dense as td
+    from tpu_gmrf_torch.sparse import SparseMatrix
+    from tpu_gmrf_torch.sparse.matrix import _csr
+
+    A200, Qt200, X200 = glasso_problem(GL_SMALL["n"], GL_SMALL["m"], GL_SMALL["density"])
+    n200 = GL_SMALL["n"]
+    Lam = sp.csr_matrix((np.full(A200.nnz, GL_SMALL["lam"]), A200.nonzero()), shape=(n200, n200))
+    X1k = gp["X"]
+    kernels.reset_launches()
+    # ---- the graphical-lasso main path ----
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    g200 = tg.graphical_lasso(X200, threshold=GL_SMALL["lam"])
+    g200r = tg.graphical_lasso(X200, threshold=Lam)
+    torch.cuda.synchronize()
+    s200 = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    g1k = tg.graphical_lasso(X1k, threshold=GL["lam"])
+    torch.cuda.synchronize()
+    s1k = time.perf_counter() - t0
+    lp = g1k.logpdf(torch.tensor(held_out, device=dev))
+    torch.cuda.synchronize()
+    counts = kernels.launches()
+    # ---- end of the graphical-lasso main path ----
+    launched(counts, GLASSO_KERNELS, "graphical lasso")
+    # example 10's acceptance checks
+    Qe, Qr = g200.Q.todense().cpu().numpy(), g200r.Q.todense().cpu().numpy()
+    eig, eig_r = np.linalg.eigvalsh(Qe).min(), np.linalg.eigvalsh(Qr).min()
+    rel = np.linalg.norm(Qe - Qt200) / np.linalg.norm(Qt200)
+    rel_r = np.linalg.norm(Qr - Qt200) / np.linalg.norm(Qt200)
+    dens = (Qe != 0).mean()
+    log(f"  n={n200}, m={GL_SMALL['m']} (two graphical_lasso calls {s200:.2f} s): λ: min eig {eig:.4f} (> 0), rel "
+        f"Frobenius {rel:.4f} (< 0.35), density {dens:.4f} (< 0.25); restricted Λ: min eig {eig_r:.4f}, rel "
+        f"Frobenius {rel_r:.4f} (≤ {rel:.4f})")
+    if not (eig > 0 and rel < 0.35 and dens < 0.25 and eig_r > 0 and rel_r <= rel + 1e-9):
+        raise AssertionError("example 10's checks fail")
+    n = len(gp["mu"])
+    Q1 = g1k.Q.todense().cpu().numpy()
+    eig1 = np.linalg.eigvalsh(Q1).min()
+    rel1 = np.linalg.norm(Q1 - gp["Qt"]) / np.linalg.norm(gp["Qt"])
+    sizes = np.array([len(c) for c in gp["cliques"]])
+    log(f"  n={n}, m={GL['m']}: graphical_lasso {s1k:.2f} s (wall; host covariance {gp['host']['covariance']:.2f} s, "
+        f"chordal_cover {gp['host']['chordal_cover']:.2f} s, plans {gp['host']['plans']:.2f} s of it); "
+        f"{len(gp['cliques'])} cliques (mean {sizes.mean():.1f}, max {sizes.max()}), {len(gp['seps'])} separators, "
+        f"{len(set(sizes.tolist()) | set(len(s) for s in gp['seps']))} distinct sizes, cover nnz {gp['cover'].nnz}; "
+        f"min eig {eig1:.4f}, rel Frobenius to the truth {rel1:.4f}, held-out logpdf mean {float(lp.mean()):.4f}")
+    if not (eig1 > 0 and bool(torch.isfinite(lp).all())):
+        raise AssertionError("the n=1000 graphical lasso is not positive definite or its logpdf is not finite")
+    # the plain path on the card: K17, K5, K9 and K4's plain versions on the same inputs
+    C = torch.tensor(gp["C"], device=dev)
+    buf = kernels.block_inv_plain(C, gp["blocks"])
+    Qp = SparseMatrix(kernels.gather_segsum_plain(gp["plan"], buf[None])[0], gp["cover"]).symmetrize()
+    _, _, _, logdet_p = kernels.dense_chol_plain(Qp.data[None].contiguous(), td._tables(Qp.pattern))
+    rp, col = _csr(Qp.pattern, dev)
+    xc = torch.tensor(held_out, device=dev) - torch.tensor(gp["mu"], device=dev)
+    quad_p = kernels.csr_spmv_plain(rp, col, Qp.data, xc, quad=True)[1]
+    lp_p = -0.5 * (n * 1.8378770664093453 - logdet_p[0] + quad_p)
+    _, rel_q = rel_err((g1k.Q.data,), (Qp.data,))
+    _, rel_ld = rel_err((g1k.logdet_precision(),), (logdet_p[0],))
+    _, rel_lp = rel_err((lp,), (lp_p,))
+    log(f"  n={n} kernels vs plain (on the card): Q {rel_q:.2e}, logdet {rel_ld:.2e}, held-out logpdf {rel_lp:.2e} "
+        f"(limits {PATH_TOL['data']:.0e}, {PATH_TOL['logdet']:.0e}, {PATH_TOL['stat']:.0e})")
+    if not (rel_q <= PATH_TOL["data"] and rel_ld <= PATH_TOL["logdet"] and rel_lp <= PATH_TOL["stat"]):
+        raise AssertionError("the n=1000 graphical lasso disagrees with its plain path")
+    sb = kernels.block_inv(C, gp["blocks"])
+    inv_ms = cuda_ms(lambda: kernels.block_inv(C, gp["blocks"]), 10)
+    embed_ms = cuda_ms(lambda: kernels.gather_segsum(gp["plan"], sb[None]), 10)
+    fact_ms = cuda_ms(lambda: tg.factorize(g1k.Q), 5, 1)
+    log(f"  n={n} device steps: block_inv (K17) {inv_ms:.3f} ms, signed sums into the cover (K5) {embed_ms:.3f} ms, "
+        f"dense factorization (K9) {fact_ms:.3f} ms on {card}")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1446,6 +2005,14 @@ def main() -> int:
     grid_q = {dt: grid_precision(dt, dev) for dt in (torch.float64, torch.float32)}
     check_multiply_kernels(stats_model, sp_model, grid_q, torch.float64, dev)
     results.update(check_multiply_kernels(stats_model, sp_model, grid_q, torch.float32, dev))
+
+    log(f"phase 3e kernels K16 kl_columns, K17 block_inv and rectangular K4 vs plain and library, on {card}")
+    kp = kl_problem(KL_GRID)
+    _, Qt1k, Xall = glasso_problem(GL["n"], GL["m"], GL["density"], GL["held_out"])
+    gp = glasso_host(Xall[:GL["m"]], GL["lam"])
+    gp.update(X=Xall[:GL["m"]], Qt=Qt1k)
+    log(f"  glasso n={GL['n']} host: " + ", ".join(f"{k} {v:.2f} s" for k, v in gp["host"].items()))
+    results.update(check_gp_kernels(kp, gp, dev))
 
     log(f"phase 4 flagship slice: laplace_marginal value+grad, B={CHAINS}, n={N}, max_iter={GA_MAX_ITER}")
     y = flagship_y()
@@ -1606,8 +2173,13 @@ def main() -> int:
     counts13b = cg_matern_path(stats_model, dev, card)
     log(f"phase 14 RBMC variances and N(0, Q) draws, on {card}")
     counts14 = rbmc_path(stats_model, sp_model, dev, card)
+    log(f"phase 15 the KL path: example 09 at g={KL_GRID_SMALL} and g={KL_GRID} (rho={KL_RHO:g}), f64, on {card}")
+    counts15 = kl_path(kp, dev, card)
+    log(f"phase 16 the graphical lasso: example 10 at n={GL_SMALL['n']} and n={GL['n']}, f64, on {card}")
+    counts16 = glasso_path(gp, Xall[GL["m"]:], dev, card)
 
-    paths = (counts, sp_counts, counts9, counts10, counts11, counts12, counts13, counts13b, counts14)
+    paths = (counts, sp_counts, counts9, counts10, counts11, counts12, counts13, counts13b, counts14, counts15,
+             counts16)
     report = {
         "kernels": [
             {"name": name, "route": "cuda", "source": SOURCES[name][0], "replaces": SOURCES[name][1],

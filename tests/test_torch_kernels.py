@@ -267,7 +267,8 @@ def test_port_never_imports_jax():
     for mod in ("samplers/nuts.py", "samplers/run.py", "samplers/adaptation.py", "solvers/dense.py",
                 "solvers/banded.py", "kernels/dense.py", "kernels/banded.py", "_device.py",
                 "kernels/bsr_spmv.py", "kernels/hot.py", "solvers/cg.py", "solvers/rbmc.py", "linear_maps.py",
-                "models/grid.py"):
+                "models/grid.py", "kl_cholesky.py", "graphical_lasso.py", "constrained.py",
+                "inference/linear_condition.py", "kernels/kl.py", "kernels/block_inv.py"):
         assert root / "tpu_gmrf_torch" / mod in files
     offenders = []
     for path in files:

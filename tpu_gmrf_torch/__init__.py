@@ -11,9 +11,12 @@ numbers and NumPy arrays go to the default device, ``"cuda"`` unless
 """
 
 from ._device import default_device, set_default_device
+from .constrained import ConstrainedGMRF
 from .fem import MaternModel
 from .gmrf import GMRF, logpdf, sample
-from .inference import GAOptions, gaussian_approximation, laplace_marginal, marginal_loglikelihood
+from .graphical_lasso import graphical_lasso
+from .inference import GAOptions, gaussian_approximation, laplace_marginal, linear_condition, marginal_loglikelihood
+from .kl_cholesky import approximate_gmrf_kl, reverse_maximin_ordering
 from .linear_maps import (
     CholeskySqrtMap,
     OuterProductMap,
@@ -28,7 +31,7 @@ from .samplers import IdentityTransform, LogitTransform, LogTransform, ParamSpec
 from .solvers import SolverSpec, factorize
 from .solvers.cg import cg_solve
 from .solvers.rbmc import rbmc_var
-from .sparse import SparseMatrix, SparsePattern
+from .sparse import SparseMatrix, SparsePattern, from_dense, from_scipy, speye
 
 __all__ = [
     "set_default_device",
@@ -46,6 +49,9 @@ __all__ = [
     "cg_solve",
     "SparseMatrix",
     "SparsePattern",
+    "from_dense",
+    "from_scipy",
+    "speye",
     "SolverSpec",
     "factorize",
     "LatentModel",
@@ -64,4 +70,9 @@ __all__ = [
     "make_logdensity",
     "run_hmc",
     "run_nuts",
+    "ConstrainedGMRF",
+    "linear_condition",
+    "approximate_gmrf_kl",
+    "reverse_maximin_ordering",
+    "graphical_lasso",
 ]

@@ -5,7 +5,8 @@ K1 ``tridiag_factor``, K2 ``tridiag_solve``, K3 ``tridiag_selinv``, K4
 ``sn_takahashi``, K9 ``dense_chol``, K10 ``dense_trsv`` (and its second
 entry ``dense_selinv``), K11 ``bt_factor``,
 K12 ``bt_trsv``, K13 ``bt_matvec`` (and its second entry ``bt_sqrt``), K14
-``bsr_spmm`` and K15 ``bsr_outer``; K7 has a second mode, ``sn_multiply``.
+``bsr_spmm``, K15 ``bsr_outer``, K16 ``kl_columns`` and K17 ``block_inv``;
+K7 has a second mode, ``sn_multiply``.
 Sources are in ``tpu_gmrf_torch/csrc/``; ``build`` compiles them with nvcc
 at first use on a CUDA tensor. ``hot_matvec`` picks the repeated-multiply
 formulation (K4, K13 or K14) for a fixed sparse matrix.
@@ -22,6 +23,7 @@ from .banded import (
     bt_trsv,
     bt_trsv_plain,
 )
+from .block_inv import BlockSets, block_inv, block_inv_plain, block_inv_smem_max
 from .bsr_spmv import (
     BSRMatrix,
     best_block_size,
@@ -43,6 +45,7 @@ from .dense import (
 )
 from .segsum import InitPlan, SegPlan, fct_init, fct_init_plain, gather_segsum, gather_segsum_plain
 from .hot import hot_matvec
+from .kl import kl_columns, kl_columns_plain, kl_path
 from .spmv import csr_spmv, csr_spmv_plain, spmv_path
 from .supernodal import (
     BACKWARD,
@@ -87,6 +90,7 @@ __all__ = [
     "BSRMatrix", "best_block_size", "bsr_from_sparse", "bsr_spmv", "bsr_spmm", "bsr_spmm_plain",
     "bsr_outer", "bsr_outer_plain", "hot_matvec",
     "MULTIPLY", "sn_multiply", "sn_multiply_plain", "spmv_path", "tridiag_path",
+    "kl_columns", "kl_columns_plain", "kl_path", "BlockSets", "block_inv", "block_inv_plain", "block_inv_smem_max",
 ]
 
 KERNELS = {
@@ -109,6 +113,8 @@ KERNELS = {
     "bt_sqrt": bt_sqrt,
     "bsr_spmm": bsr_spmm,
     "bsr_outer": bsr_outer,
+    "kl_columns": kl_columns,
+    "block_inv": block_inv,
 }
 
 

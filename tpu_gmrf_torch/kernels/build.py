@@ -35,8 +35,8 @@ _SIGNATURES = {
     "tg_tridiag_factor": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "tg_tridiag_solve": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "tg_tridiag_selinv": [_P, _P, _P, _P, _I, _I, _I, _P],
-    # row_ptr, col, data, dstride, x, y, quad, B, n, tiled, partial, stream
-    "tg_csr_spmv": [_P, _P, _P, _L, _P, _P, _P, _I, _I, _I, _P, _P],
+    # row_ptr, col, data, dstride, x, y, quad, B, n_r, n_c, tiled, partial, stream
+    "tg_csr_spmv": [_P, _P, _P, _L, _P, _P, _P, _I, _I, _I, _I, _P, _P],
     # out, ostride, t, ptr, width, xi, x, xstride, yi, y, ystride, zi, z, zstride,
     # alpha, accumulate, R, B, stream
     "tg_gather_segsum": [_P, _L, _P, _P, _I, _P, _P, _L, _P, _P, _L, _P, _P, _L, _D, _I, _I, _I, _P],
@@ -66,6 +66,10 @@ _SIGNATURES = {
     "tg_bsr_spmm": [_P, _L, _P, _P, _P, _I, _I, _I, _P, _P, _I, _P],
     # brows, bcols, nblocks, bs, n, g, x, R, per_chain, dblocks, stream
     "tg_bsr_outer": [_P, _P, _I, _I, _I, _P, _P, _I, _I, _P, _P],
+    # theta, entry_pos, count, cap, jitter, out, work (null: shared memory), B, stream
+    "tg_kl_columns": [_P, _P, _P, _I, _D, _P, _P, _I, _P],
+    # C, n, idx, ptr, out_off, sign, out, goff, gf, gperm, nsets, smax, stream
+    "tg_block_inv": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
 }
 
 _lib = None

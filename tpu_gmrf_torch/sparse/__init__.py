@@ -1,4 +1,4 @@
-from .matrix import SparseMatrix, sp_add, sp_tridiag, spdiag
+from .matrix import SparseMatrix, from_dense, from_scipy, sp_add, sp_matmul, sp_tridiag, spdiag, speye
 from .pattern import SparsePattern, diag_pattern, spgemm_pattern, union_patterns
 
 __all__ = [
@@ -10,4 +10,8 @@ __all__ = [
     "spdiag",
     "sp_tridiag",
     "sp_add",
+    "sp_matmul",
+    "speye",
+    "from_dense",
+    "from_scipy",
 ]

@@ -4,9 +4,11 @@ Counterpart of ``tpu_gmrf.sparse.matrix``. A `SparseMatrix` carries a
 ``data`` tensor over a static host `SparsePattern`. Where the reference
 leaves a batch of matrices to ``vmap``, here ``data`` is ``(nnz,)`` or
 ``(B, nnz)`` over one pattern (one row per chain) and vectors are ``(n,)``
-or ``(B, n)``. ``matvec`` and ``quad`` run on the CSR kernel K4
+or ``(B, n)``. ``matvec``, ``rmatvec`` and ``quad`` run on the CSR kernel K4
 (``tpu_gmrf_torch.kernels.csr_spmv``) through autograd Functions whose
 backward is K4 on the transposed pattern plus a gather-product for the data.
+A pattern may be rectangular (m × n), as the reference's segment-sum allows;
+``quad`` needs a square one.
 """
 
 from __future__ import annotations
@@ -17,10 +19,11 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from .._device import as_tensor, default_device
 from ..kernels import SegPlan, csr_spmv, gather_segsum
 from .pattern import SparsePattern, spgemm_pattern, union_patterns
 
-__all__ = ["SparseMatrix", "spdiag", "sp_tridiag", "sp_add", "sp_matmul"]
+__all__ = ["SparseMatrix", "spdiag", "speye", "sp_tridiag", "sp_add", "sp_matmul", "from_dense", "from_scipy"]
 
 
 def _index(pattern: SparsePattern, key: str, array, device, dtype=torch.long) -> torch.Tensor:
@@ -183,14 +186,23 @@ class SparseMatrix:
         out = self.data.new_zeros(self.data.shape[:-1] + (n * m,))
         return out.index_add_(-1, flat, self.data).reshape(self.data.shape[:-1] + (n, m))
 
+    def to_scipy(self):
+        """A scipy CSR matrix of (nnz,) data, on the host."""
+        import scipy.sparse as sp
+
+        if self.data.ndim != 1:
+            raise ValueError("to_scipy needs data of shape (nnz,)")
+        return sp.coo_matrix(
+            (self.data.detach().cpu().numpy(), (self.pattern.rows, self.pattern.cols)), shape=self.shape
+        ).tocsr()
+
     # ---- linear ops --------------------------------------------------------
 
     def _batched(self, x: torch.Tensor):
         """(data, x as (B, n), squeeze) with the chain axes lined up."""
-        if self.shape[0] != self.shape[1]:
-            raise NotImplementedError("matvec/quad of a non-square pattern (ROADMAP 2.4)")
-        if self.data.ndim > 2 or x.ndim > 2:
-            raise ValueError("data must be (nnz,) or (B, nnz) and x (n,) or (B, n)")
+        if self.data.ndim > 2 or x.ndim > 2 or x.ndim == 0 or x.shape[-1] != self.shape[1]:
+            raise ValueError(f"data must be (nnz,) or (B, nnz) and x (n,) or (B, n) with n = {self.shape[1]}, "
+                             f"got {tuple(self.data.shape)} and {tuple(x.shape)}")
         squeeze = self.data.ndim == 1 and x.ndim == 1
         xb = x if x.ndim == 2 else x.unsqueeze(0)
         if self.data.ndim == 2 and xb.shape[0] == 1:
@@ -198,10 +210,14 @@ class SparseMatrix:
         return self.data.contiguous(), xb.contiguous(), squeeze
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
-        """A x for x of shape (n,) or (B, n); K4."""
+        """A x for x of shape (n,) or (B, n), A of shape (m, n); K4."""
         data, xb, squeeze = self._batched(x)
         y = _SpMV.apply(data, xb, self.pattern)
         return y[0] if squeeze else y
+
+    def rmatvec(self, x: torch.Tensor) -> torch.Tensor:
+        """Aᵀ x for x of shape (m,) or (B, m); K4 on the transposed pattern."""
+        return self.T.matvec(x)
 
     @property
     def T(self) -> "SparseMatrix":
@@ -209,7 +225,9 @@ class SparseMatrix:
         return SparseMatrix(self.data[..., self._idx("tperm", p.transpose_perm)], p.transposed)
 
     def quad(self, x: torch.Tensor) -> torch.Tensor:
-        """xᵀ A x, (B,) or scalar; K4 with the fused reduction."""
+        """xᵀ A x, (B,) or scalar, for a square A; K4 with the fused reduction."""
+        if self.shape[0] != self.shape[1]:
+            raise ValueError(f"quad needs a square matrix, got {self.shape}")
         data, xb, squeeze = self._batched(x)
         q = _Quad.apply(data, xb, self.pattern)
         return q[0] if squeeze else q
@@ -281,6 +299,29 @@ def _tridiag_pattern(n: int) -> SparsePattern:
 
 def spdiag(d: torch.Tensor) -> SparseMatrix:
     return SparseMatrix(d, _diag_pattern(d.shape[-1]))
+
+
+def speye(n: int, dtype=torch.float32) -> SparseMatrix:
+    return SparseMatrix(torch.ones(n, dtype=dtype, device=default_device()), _diag_pattern(n))
+
+
+def from_dense(mat, pattern: SparsePattern | None = None, tol: float = 0.0) -> SparseMatrix:
+    """The entries of a dense (m, n) matrix on `pattern`, by default its
+    entries of absolute value above `tol` (a host mask)."""
+    mat = as_tensor(mat)
+    if pattern is None:
+        pattern = SparsePattern.from_dense_mask((mat.abs() > tol).cpu().numpy())
+    rows = _index(pattern, "rows", pattern.rows, mat.device)
+    cols = _index(pattern, "cols", pattern.cols, mat.device)
+    return SparseMatrix(mat[rows, cols], pattern)
+
+
+def from_scipy(mat) -> SparseMatrix:
+    """A scipy sparse matrix (duplicates summed), float64 on the default device."""
+    coo = mat.tocoo()
+    coo.sum_duplicates()
+    pat = SparsePattern(coo.row, coo.col, coo.shape)
+    return SparseMatrix(as_tensor(np.asarray(coo.data, np.float64)[pat.sort_order]), pat)
 
 
 _ADD_CACHE: dict = {}
