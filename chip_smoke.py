@@ -6,9 +6,10 @@
 Phases, each printing its own lines; any failure raises and exits non-zero:
 
 1. the device: needs CUDA; prints the card's name and power limit;
-2. the build: compiles the kernels K1-K17 (K5 with its second entry,
+2. the build: compiles the kernels K1-K18 (K5 with its second entry,
    fct_init; K7 with its multiply mode; K10 with its second entry,
-   dense_selinv; K13 with its second entry, bt_sqrt) from
+   dense_selinv; K11 and K12 with their block entries, bt_factor_blocks and
+   bt_trsv_blocks; K13 with its second entry, bt_sqrt) from
    tpu_gmrf_torch/csrc with nvcc (one nvcc per source, in parallel) and
    the host symbolic core with g++;
 3. K1-K4 against their plain PyTorch versions on the card, at the flagship
@@ -38,6 +39,12 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    set of 200, beyond shared memory), rectangular K4 on a 500 x 14058
    selection matrix and its transpose, against their plain versions and the
    library yardsticks, in float64 and float32;
+3f. K11's and K12's block entries and K18 spike_reduced on the arguments the
+   SPIKE solve gives them, at phase 17's shape (4 chunks of 31 interior
+   blocks of 450, 901 right-hand sides; the 4-block interface system) and at
+   example 12's, against their plain versions and the library yardstick
+   (cholesky_ex + solve_triangular on the same blocks), in float32 and
+   float64;
 4. the flagship slice: batched value and θ-gradient of the Laplace marginal
    of an AR1 + Poisson model (256 chains, n=500) through the kernels, in
    float32, checked against the plain path in float64 (the same code on CPU
@@ -82,11 +89,22 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
 16. the graphical lasso (examples/10_graphical_lasso.py): n=200 with the
    example's checks for lambda and the restricted Lambda, then n=1000,
    m=20,000 and the logpdf of 100 held-out samples; against the plain
-   versions, float64.
+   versions, float64;
+17. the SPIKE path (tpu_gmrf/parallel/pbtridiag.py): the space-time
+   precision Q_t ⊗ Q_s (AR1 over Nt=128, ρ=0.9; Matérn α=2 at g=16, ns=450)
+   in P=4 chunks on one card, f64: x, logdet and the gradient of bᵀQ⁻¹b with
+   respect to diag, sub and b, against the supernodal solve and logdet of
+   the assembled sparse Q (residual by SymmetricBlockTridiagonalMap) and the
+   plain path on CPU tensors; example 12 part 3 with its own limits; the
+   public pbtridiag_solve / pbtridiag_logdet on a one-rank NCCL DeviceMesh
+   and supernodal_factorize(mesh=) on it at n=5741;
+18. fault 3.1: d/dτ through the direct solves on the card (a sum-to-zero
+   ConstrainedGMRF's logpdf on every direct backend; linear_condition's mean
+   at the KL n=900 setup), against the plain path and a difference, f64.
 
 Every kernel's launch counter is zeroed just before each main path (phases
 4-5, the flagship; 7-8, the spatial slice; 9, 10 and 11) and read after
-it, and so before and after each of the paths 12, 13, 13b, 14, 15 and 16;
+it, and so before and after each of the paths 12, 13, 13b, 14, 15, 16, 17 and 18;
 a kernel of the path that was never launched fails the run. Each phase's
 seconds are printed when the next begins. The line before the last is one
 JSON object with the kernels' launches, errors, times and bounds; the last
@@ -228,6 +246,9 @@ SOURCES = {
     "bsr_outer": ("tpu_gmrf_torch/csrc/bsr.cu", "tpu_gmrf/kernels/bsr_spmv.py:215"),
     "kl_columns": ("tpu_gmrf_torch/csrc/kl.cu", "tpu_gmrf/kl_cholesky.py:116"),
     "block_inv": ("tpu_gmrf_torch/csrc/block_inv.cu", "tpu_gmrf/graphical_lasso.py:150"),
+    "bt_factor_blocks": ("tpu_gmrf_torch/csrc/banded.cu", "tpu_gmrf/parallel/pbtridiag.py:53"),
+    "bt_trsv_blocks": ("tpu_gmrf_torch/csrc/banded.cu", "tpu_gmrf/parallel/pbtridiag.py:76"),
+    "spike_reduced": ("tpu_gmrf_torch/csrc/spike.cu", "tpu_gmrf/parallel/pbtridiag.py:100"),
 }
 FLAGSHIP_KERNELS = ("tridiag_factor", "tridiag_solve", "tridiag_selinv", "csr_spmv", "gather_segsum")
 SPATIAL_KERNELS = ("csr_spmv", "gather_segsum", "fct_init", "sn_panel", "sn_trsv", "sn_takahashi")
@@ -289,6 +310,40 @@ GL = dict(n=1000, m=20000, density=0.004, lam=0.03, held_out=100)
 SN_TOL[torch.float64].update(kl_columns=1e-12, block_inv=1e-10)
 SN_TOL[torch.float32].update(kl_columns=1e-4, block_inv=1e-3)
 PATH_TOL = {"data": 1e-9, "logdet": 1e-10, "stat": 1e-8}
+
+
+# Phases 3f and 17: the SPIKE solve (tpu_gmrf/parallel/pbtridiag.py) at full width, Q = Q_t ⊗ Q_s: Q_t the
+# AR1Model precision over Nt = 128 steps (τ = 1, ρ = 0.9), Q_s the Matérn α=2 precision on the g=16 mesh
+# (ns = 450 at τ = 1, range 0.25: the dense backend's shape of phase 10), in P = 4 chunks of 32 slices, f64:
+# diag[t] = Q_t[t, t]·Q_s, sub[t] = Q_t[t+1, t]·Q_s. Example 12 part 3 (examples/12_multichip_sharding.py:
+# 104-134) as written: P = 8, Nt = 4P, ns = 8, f32, seed 3, with its own limits.
+SPIKE_NT, SPIKE_P, SPIKE_RHO = 128, 4, 0.9
+EX12_P, EX12_NS, EX12_SEED = 8, 8, 3
+EX12_LIMITS = {"x": 1e-3, "logdet": 0.05}
+SPIKE_KERNELS = ("bt_factor_blocks", "bt_trsv_blocks", "spike_reduced")
+# K11's and K12's block entries and K18 against their plain versions, normwise: float64 exact up to rounding
+# order, 1e-12. float32 (at the main shape the same Matérn blocks): set from the first readings on the H100
+# (factor 4.0e-7, block solve 2.5e-6, K18 6.2e-6), about ten times above them.
+SN_TOL[torch.float64].update(bt_factor_blocks=1e-12, bt_trsv_blocks=1e-12, spike_reduced=1e-12)
+SN_TOL[torch.float32].update(bt_factor_blocks=4e-6, bt_trsv_blocks=3e-5, spike_reduced=6e-5)
+# Phase 17 against its oracles, f64, normwise: x against the supernodal solve of the assembled Q and the
+# residual ‖Qx − b‖/‖b‖ 1e-9 (two factorizations of a matrix of condition ~1e5 in different orders); the
+# logdet 1e-10 relative; the gradients of bᵀQ⁻¹b against the plain path on CPU tensors 1e-9; the public
+# entry on a one-rank NCCL mesh (one chunk, not four) against the in-process solve 1e-9; the supernodal
+# factor on a one-rank mesh equal to the unsharded one (the same launches).
+SPIKE_TOL = {"x": 1e-9, "residual": 1e-9, "logdet": 1e-10, "grad": 1e-9, "public": 1e-9}
+# Phase 18, fault 3.1 on the card, f64: d/dτ through the solves held to 1e-8 relative against the plain path
+# on CPU tensors and against a central difference (h = 1e-6) on the n = 6 probe (the first readings on the
+# H100: 2.5e-15 and 1.6e-9 at most). At the KL n = 900 setup d/dτ is held to 1e-8 against the plain path
+# (read 8.3e-10 on the H100), against the forward derivative 1ᵀ Q_post⁻¹ Q (μ₀ − μ) from two more solves
+# (read 6.5e-9 on the H100) and against a central difference at h = 1e-5. The conditioned mean sum is ~80 with
+# d/dτ ~ −0.013 and Q has condition up to 1/jitter = 1e8, so subtracting two sums cannot resolve 1e-8 at any
+# h; the difference is therefore computed as (f(1+h) − f(1−h))/2h = 1ᵀ Q_post(1+h)⁻¹ Q (μ₀ − μ(1−h)), an
+# identity, with no subtraction of the sums (on a CPU: 3.2e-10 from autograd, 6.4e-9 from jax.grad of the
+# JAX package, which tests/test_torch_solve_grad.py holds to 1e-8).
+FAULT_TOL = {"grad": 1e-8, "kl_fwd": 1e-8, "kl_cd": 1e-8}
+FAULT_KERNELS = ("tridiag_factor", "tridiag_solve", "dense_chol", "dense_trsv", "bt_factor", "bt_trsv", "fct_init",
+                 "sn_panel", "sn_trsv", "gather_segsum")
 
 
 def rbmc_tol(S: int) -> dict:
@@ -1959,6 +2014,313 @@ def glasso_path(gp: dict, held_out: np.ndarray, dev, card):
     return counts
 
 
+# ---- phases 3f, 17, 18: the SPIKE solve and fault 3.1 ----------------------------------------
+
+
+def spike_system(dn_model, dtype, dev):
+    """Phase 17's blocks: diag (Nt, ns, ns), sub (Nt-1, ns, ns) of Q_t ⊗ Q_s and b (Nt, ns)."""
+    from tpu_gmrf_torch import AR1Model
+
+    one = torch.ones((), dtype=torch.float64, device=dev)
+    Qt = AR1Model(SPIKE_NT).precision(one, SPIKE_RHO * one).todense()
+    Qs = matern_precision(dn_model, torch.float64, dev).todense()
+    a, c = torch.diagonal(Qt), torch.diagonal(Qt, -1)
+    diag, sub = a[:, None, None] * Qs, c[:, None, None] * Qs
+    b = torch.tensor(np.random.default_rng(17).normal(size=(SPIKE_NT, Qs.shape[0])), device=dev)
+    return diag.to(dtype), sub.to(dtype), b.to(dtype)
+
+
+def ex12_system(dev):
+    """Example 12 part 3's inputs, as the example draws them: float32 numpy."""
+    Nt, ns = 4 * EX12_P, EX12_NS
+    rng = np.random.default_rng(EX12_SEED)
+    diag = rng.normal(size=(Nt, ns, ns)).astype(np.float32)
+    diag = diag @ np.swapaxes(diag, -1, -2) + (ns + 1.0) * np.eye(ns, dtype=np.float32)
+    sub = (0.05 * rng.normal(size=(Nt - 1, ns, ns))).astype(np.float32)
+    b = rng.normal(size=(Nt, ns)).astype(np.float32)
+    return diag, sub, b
+
+
+def dense_block_tridiag(diag, sub) -> np.ndarray:
+    Nt, ns = diag.shape[0], diag.shape[1]
+    Q = np.zeros((Nt * ns, Nt * ns))
+    for t in range(Nt):
+        Q[t * ns:(t + 1) * ns, t * ns:(t + 1) * ns] = diag[t]
+    for t in range(Nt - 1):
+        Q[(t + 1) * ns:(t + 2) * ns, t * ns:(t + 1) * ns] = sub[t]
+        Q[t * ns:(t + 1) * ns, (t + 1) * ns:(t + 2) * ns] = sub[t].T
+    return Q
+
+
+def spike_kernel_calls(diag, sub, b, P: int) -> dict:
+    """The arguments one in-process SPIKE solve gives K11-blocks, K12-blocks and K18 (the first call of each),
+    recorded by wrapping them; the solve runs on the kernels."""
+    from unittest import mock
+
+    from tpu_gmrf_torch.parallel import pbtridiag as pb
+
+    seen = {}
+
+    def recording(name):
+        fn = getattr(pb, name)
+
+        def wrapper(*args, **kw):
+            seen.setdefault(name, (args, kw))
+            return fn(*args, **kw)
+
+        return mock.patch.object(pb, name, wrapper)
+
+    with torch.no_grad(), recording("bt_factor_blocks"), recording("bt_trsv_blocks"), recording("spike_reduced"):
+        pb._pbtridiag_chunks(diag, sub, b, P)
+    return seen
+
+
+def check_spike_kernels(label, diag, sub, b, P: int, dtype, results, reps: int = REPS):
+    """Phase 3f: K11's and K12's block entries and K18 on the arguments the SPIKE solve gives them, against
+    their plain versions and the library yardstick (`cholesky_ex` + `solve_triangular` on the same blocks)."""
+    from tpu_gmrf_torch import kernels
+
+    calls = spike_kernel_calls(diag, sub, b, P)
+    el = diag.element_size()
+    (D, E), _ = calls["bt_factor_blocks"]
+    B, K, s = D.shape[0], D.shape[1], D.shape[-1]
+    got, ref = kernels.bt_factor_blocks(D, E), kernels.bt_factor_blocks_plain(D, E)
+    L = got[0][:, :, :s]
+    A = (L @ L.mT).reshape(B * K, s, s)  # D_k − M_{k−1}M_{k−1}ᵀ, the blocks K11 factors
+    Lm, Em = L[:, : K - 1].reshape(-1, s, s), E.reshape(-1, s, s)
+    check(f"bt_factor_blocks {label}", dtype, got, ref, "bt_factor_blocks", results,
+          cuda_ms(lambda: kernels.bt_factor_blocks(D, E), reps, 1),
+          cuda_ms(lambda: kernels.bt_factor_blocks_plain(D, E), reps, 1),
+          cost=(B * sum(s**3 / 3 + (2 * s**3 if k < K - 1 else 0) for k in range(K)),
+                el * B * ((2 * K - 1) * s * s + K * 2 * s * s + 1)),
+          library_ms=cuda_ms(lambda: (torch.linalg.cholesky_ex(A), torch.linalg.solve_triangular(Lm, Em.mT, upper=False)),
+                             reps, 1),
+          shape=f"B={B} K={K} s={s}", extra=" (library: cholesky_ex of the K blocks + solve_triangular for M)")
+    (Pf, R), _ = calls["bt_trsv_blocks"]
+    k = R.shape[-1]
+    Lb, Rb = Pf[:, :, :s].reshape(B * K, s, s), R.reshape(B * K, s, k)
+    check(f"bt_trsv_blocks {label}", dtype, kernels.bt_trsv_blocks(Pf, R), kernels.bt_trsv_blocks_plain(Pf, R),
+          "bt_trsv_blocks", results, cuda_ms(lambda: kernels.bt_trsv_blocks(Pf, R), reps, 1),
+          cuda_ms(lambda: kernels.bt_trsv_blocks_plain(Pf, R), reps, 1),
+          cost=(B * k * (2 * K * s * s + 4 * (K - 1) * s * s),
+                el * (B * (K * s * (s + 1) // 2 + (K - 1) * s * s) + 2 * B * K * s * k)),
+          library_ms=cuda_ms(lambda: torch.linalg.solve_triangular(
+              Lb.mT, torch.linalg.solve_triangular(Lb, Rb, upper=False), upper=True), reps, 1),
+          shape=f"B={B} K={K} s={s} k={k}", extra=" (library: solve_triangular both ways on each block)")
+    R1 = R[..., :1].contiguous()  # one column per chunk, as the gradient's re-solve gives it: a block per column
+    check(f"bt_trsv_blocks {label} k=1", dtype, kernels.bt_trsv_blocks(Pf, R1), kernels.bt_trsv_blocks_plain(Pf, R1),
+          "bt_trsv_blocks", {}, extra=f" kernel_ms={cuda_ms(lambda: kernels.bt_trsv_blocks(Pf, R1), reps, 1):.3f}")
+    (Al, Be, Ga, r), _ = calls["spike_reduced"]
+    Pn, ns, kr = r.shape
+    gs, gl, gL = kernels.spike_reduced(Al, Be, Ga, r)
+    ps, pl, _ = kernels.spike_reduced_plain(Al, Be, Ga, r)
+    Lc = torch.linalg.cholesky_ex(Be)[0]
+    check(f"spike_reduced {label}", dtype, (gs, gl), (ps, pl), "spike_reduced", results,
+          cuda_ms(lambda: kernels.spike_reduced(Al, Be, Ga, r), reps, 1),
+          cuda_ms(lambda: kernels.spike_reduced_plain(Al, Be, Ga, r), reps, 1),
+          cost=(Pn * (13 * ns**3 / 3 + 8 * ns * ns * kr), el * (4 * Pn * ns * ns + 2 * Pn * ns * kr + 1)),
+          library_ms=cuda_ms(lambda: (torch.linalg.cholesky_ex(Be), torch.linalg.solve_triangular(
+              Lc, torch.cat([Al.mT, Ga, r], -1), upper=False)), reps, 1),
+          shape=f"P={Pn} ns={ns} k={kr}", extra=" (library: cholesky_ex of the P blocks + one solve_triangular)")
+    r2 = torch.ones_like(r)
+    check(f"spike_reduced {label}, factored", dtype, kernels.spike_reduced(Al, None, Ga, r2, factors=gL)[0],
+          kernels.spike_reduced_plain(Al, None, Ga, r2, factors=gL)[0], "spike_reduced", {})
+
+
+def spike_path(dn_model, sp_model, dev, card):
+    """Phase 17: the SPIKE solve at full width (f64, P = 4 chunks on one card), its gradient, the oracles;
+    example 12 part 3; the public entry and the supernodal mesh variant on a one-rank NCCL mesh."""
+    import socket
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    import tpu_gmrf_torch as tg
+    from tpu_gmrf_torch import kernels
+    from tpu_gmrf_torch.linear_maps import SymmetricBlockTridiagonalMap, block_tridiag_to_sparse
+    from tpu_gmrf_torch.parallel.pbtridiag import _pbtridiag_chunks
+    from tpu_gmrf_torch.solvers.supernodal import supernodal_factorize
+
+    diag, sub, b = spike_system(dn_model, torch.float64, dev)
+    Nt, ns = b.shape
+    leaves = [t.clone().requires_grad_() for t in (diag, sub, b)]
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    # ---- the SPIKE main path: solve, logdet and the gradient of bᵀQ⁻¹b ----
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x, logdet = _pbtridiag_chunks(*leaves, SPIKE_P)
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    (x * leaves[2]).sum().backward()
+    torch.cuda.synchronize()
+    grad_s = time.perf_counter() - t0 - solve_s
+    counts = kernels.launches()
+    # ---- end of the SPIKE main path ----
+    launched(counts, SPIKE_KERNELS, "SPIKE")
+    with torch.no_grad():
+        spike_ms = cuda_ms(lambda: _pbtridiag_chunks(diag, sub, b, SPIKE_P), 3, 1)
+    log(f"  Nt={Nt} ns={ns} P={SPIKE_P} f64 ({3 * Nt * ns * ns * 8 / 1e9:.2f} GB of blocks): solve + logdet "
+        f"{solve_s * 1e3:.1f} ms first call, {spike_ms:.1f} ms per call (events); gradient of bᵀQ⁻¹b "
+        f"{grad_s * 1e3:.1f} ms; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; on {card}")
+
+    t0 = time.perf_counter()
+    Qmap = SymmetricBlockTridiagonalMap(diag, sub)
+    Qsp = block_tridiag_to_sparse(Qmap)
+    asm_s = time.perf_counter() - t0
+    f = tg.factorize(Qsp, tg.SolverSpec(kind="supernodal"))
+    xs, lds = f.solve(b.reshape(-1)).reshape(Nt, ns), f.logdet()
+    torch.cuda.synchronize()
+    oracle_s = time.perf_counter() - t0 - asm_s
+    xd = x.detach()
+    x_err = float((xd - xs).norm() / xs.norm())
+    res = float((Qmap.matvec(xd.reshape(-1)) - b.reshape(-1)).norm() / b.norm())
+    ld_err = abs(float(logdet) - float(lds)) / abs(float(lds))
+    log(f"  against the supernodal solve of the assembled Q (n={Nt * ns}, nnz={Qsp.nnz}; assembly {asm_s:.1f} s, "
+        f"plan + factor + solve {oracle_s:.1f} s): x rel {x_err:.3e} (tol {SPIKE_TOL['x']:.0e}), residual "
+        f"{res:.3e} (tol {SPIKE_TOL['residual']:.0e}), logdet {float(logdet):.6f} vs {float(lds):.6f} rel "
+        f"{ld_err:.3e} (tol {SPIKE_TOL['logdet']:.0e})")
+    if not (x_err <= SPIKE_TOL["x"] and res <= SPIKE_TOL["residual"] and ld_err <= SPIKE_TOL["logdet"]):
+        raise AssertionError("the SPIKE solve disagrees with the supernodal solve of the assembled Q")
+    del Qsp, f
+
+    t0 = time.perf_counter()
+    cpu = [t.detach().cpu().requires_grad_() for t in (diag, sub, b)]
+    xp, ldp = _pbtridiag_chunks(*cpu, SPIKE_P)
+    (xp * cpu[2]).sum().backward()
+    plain_s = time.perf_counter() - t0
+    errs = {name: float((g.grad.cpu() - p.grad).norm() / p.grad.norm())
+            for name, g, p in zip(("diag", "sub", "b"), leaves, cpu)}
+    xp = xp.detach()
+    errs["x"] = float((xd.cpu() - xp).norm() / xp.norm())
+    errs["logdet"] = abs(float(logdet) - float(ldp)) / abs(float(ldp))
+    log(f"  against the plain path on CPU tensors ({plain_s:.1f} s on the host): "
+        + ", ".join(f"{k} rel {v:.3e}" for k, v in errs.items()) + f" (tol {SPIKE_TOL['grad']:.0e})")
+    if not all(v <= SPIKE_TOL["grad"] for v in errs.values()):
+        raise AssertionError("the SPIKE path on the kernels disagrees with its plain path")
+    del cpu, xp, leaves
+
+    d12, s12, b12 = ex12_system(dev)
+    with torch.no_grad():
+        x12, ld12 = _pbtridiag_chunks(*(torch.tensor(a, device=dev) for a in (d12, s12, b12)), EX12_P)
+    Q12 = dense_block_tridiag(d12.astype(np.float64), s12.astype(np.float64))
+    err12 = float(np.abs(x12.cpu().numpy().ravel() - np.linalg.solve(Q12, b12.ravel().astype(np.float64))).max())
+    dld12 = abs(float(ld12) - np.linalg.slogdet(Q12)[1])
+    log(f"  example 12 part 3 (P={EX12_P}, Nt={4 * EX12_P}, ns={EX12_NS}, f32, seed {EX12_SEED}): max err {err12:.2e} "
+        f"(limit {EX12_LIMITS['x']:g}), |Δlogdet| {dld12:.2e} (limit {EX12_LIMITS['logdet']:g})")
+    if not (err12 < EX12_LIMITS["x"] and dld12 < EX12_LIMITS["logdet"]):
+        raise AssertionError("example 12 part 3 fails its own limits")
+
+    with socket.socket() as sock:  # a free port on this host for the one-rank process group
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1, rank=0)
+    try:
+        mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("time",))
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            xm = tg.pbtridiag_solve(diag, sub, b, mesh)
+            ldm = tg.pbtridiag_logdet(diag, sub, mesh)
+            torch.cuda.synchronize()
+            pub_s = time.perf_counter() - t0
+        pub = float((xm - xd).norm() / xd.norm())
+        pub_ld = abs(float(ldm) - float(logdet)) / abs(float(logdet))
+        Qsn = random_posterior(sp_model, SP_CHAINS, torch.float64, dev, 8)
+        f1, fm = supernodal_factorize(Qsn), supernodal_factorize(Qsn, mesh=mesh)
+        sn_diff = float((f1.vals - fm.vals).abs().max())
+        sn_ld = float((f1.logdet() - fm.logdet()).abs().max())
+    finally:
+        dist.destroy_process_group()
+    log(f"  public pbtridiag_solve + pbtridiag_logdet on a one-rank NCCL DeviceMesh (one chunk of {Nt}): "
+        f"{pub_s * 1e3:.1f} ms, x rel {pub:.3e} and logdet rel {pub_ld:.3e} from the 4-chunk solve (tol "
+        f"{SPIKE_TOL['public']:.0e}); supernodal_factorize(mesh=) at n={sp_model.n}, B={SP_CHAINS}: values max "
+        f"|Δ| {sn_diff:.1e}, logdets {sn_ld:.1e} from the unsharded factor (must be 0)")
+    if not (pub <= SPIKE_TOL["public"] and pub_ld <= SPIKE_TOL["public"] and sn_diff == 0.0 and sn_ld == 0.0):
+        raise AssertionError("the public SPIKE entry or the supernodal mesh variant disagrees")
+    return counts
+
+
+def fault_path(dev, card):
+    """Phase 18: fault 3.1 on the card. d/dτ of a sum-to-zero ConstrainedGMRF's logpdf over
+    Q(τ) = τ·tridiag(−1, 2.5, −1), n = 6, on every direct backend, and of linear_condition's mean sum at the KL
+    n=900 setup of phase 15 (Q(τ) = τ·Q_KL); against the plain path on CPU tensors and a difference."""
+    import tpu_gmrf_torch as tg
+    from tpu_gmrf_torch import kernels
+    from tpu_gmrf_torch.kl_cholesky import gram
+    from tpu_gmrf_torch.sparse import SparseMatrix, SparsePattern, from_dense
+
+    n = 6
+    T = torch.tensor(np.diag(np.full(n, 2.5)) - np.diag(np.ones(n - 1), 1) - np.diag(np.ones(n - 1), -1))
+    x = np.linspace(-1.0, 1.0, n)
+    x -= x.mean()
+
+    def constrained(kind, tau):
+        Q = from_dense(T.to(tau.device))
+        g = tg.GMRF.from_precision(torch.zeros(n, dtype=torch.float64, device=tau.device),
+                                   SparseMatrix(Q.data * tau, Q.pattern), tg.SolverSpec(kind=kind, block=2))
+        return tg.ConstrainedGMRF.create(g, np.ones((1, n)), np.zeros(1)).logpdf(torch.tensor(x, device=tau.device))
+
+    X30 = grid_points(KL_GRID_SMALL)
+    n30 = len(X30)
+    rng = np.random.default_rng(123)
+    rng.integers(0, n30, size=12)  # example 09's probe columns, drawn before its observations
+    obs = rng.integers(0, n30, size=5)
+    y = np.sin(4 * X30[obs, 0]) * np.cos(3 * X30[obs, 1])
+
+    def conditioned(g, tau):
+        where = tau.device
+        A = SparseMatrix(torch.ones(len(obs), dtype=torch.float64, device=where),
+                         SparsePattern(np.arange(len(obs)), obs, (len(obs), n30)))
+        prior = tg.GMRF.from_precision(g.mean.to(where), SparseMatrix(g.Q.data.to(where) * tau, g.Q.pattern))
+        return tg.linear_condition(prior, y, Q_eps=1e4, A=A)
+
+    def grad(fn, tau, where):
+        t = torch.tensor(tau, dtype=torch.float64, device=where, requires_grad=True)
+        v = fn(t)
+        v.backward()
+        return float(v.detach()), float(t.grad)
+
+    g30 = tg.approximate_gmrf_kl(torch.tensor(X30, device=dev), gram(matern32), rho=KL_RHO, jitter=KL_JITTER)
+    g30 = dataclasses.replace(g30, mean=g30.mean.detach(), Q=SparseMatrix(g30.Q.data.detach(), g30.Q.pattern))
+    kernels.reset_launches()
+    # ---- the fault-3.1 path: gradients through the direct solves on the card ----
+    probe = {kind: grad(lambda t, k=kind: constrained(k, t), 1.3, dev) for kind in ("tridiag", "dense", "banded", "supernodal")}
+    kl = grad(lambda t: conditioned(g30, t).mean.sum(), 1.0, dev)
+    counts = kernels.launches()
+    # ---- end of the fault-3.1 path ----
+    launched(counts, FAULT_KERNELS, "fault 3.1")
+    tol = FAULT_TOL["grad"]
+    h = 1e-6
+    for kind, (v, gk) in probe.items():
+        _, gp = grad(lambda t, k=kind: constrained(k, t), 1.3, "cpu")
+        with torch.no_grad():
+            one = torch.ones((), dtype=torch.float64, device=dev)
+            cd = (float(constrained(kind, (1.3 + h) * one)) - float(constrained(kind, (1.3 - h) * one))) / (2 * h)
+        e_p, e_cd = abs(gk - gp) / abs(gp), abs(gk - cd) / abs(cd)
+        log(f"  {kind}: constrained logpdf {v:.12f}, d/dτ {gk:.12f} (the JAX package: -0.17692); plain {gp:.12f} "
+            f"rel {e_p:.1e}, central difference {cd:.12f} rel {e_cd:.1e} (tol {tol:.0e})")
+        if not (e_p <= tol and e_cd <= tol):
+            raise AssertionError(f"fault 3.1: the {kind} solve's gradient disagrees")
+    v, gk = kl
+    _, gp = grad(lambda t: conditioned(g30, t).mean.sum(), 1.0, "cpu")
+    with torch.no_grad():
+        one = torch.ones((), dtype=torch.float64, device=dev)
+        post = conditioned(g30, one)
+        ones = torch.ones(n30, dtype=torch.float64, device=dev)
+        fwd = float(post.factor.solve(ones) @ g30.Q.matvec(g30.mean - post.mean))  # 1ᵀ Q_post⁻¹ Q (μ₀ − μ)
+        h = 1e-5
+        hi, lo = conditioned(g30, (1 + h) * one), conditioned(g30, (1 - h) * one)
+        cdiff = float(hi.factor.solve(ones) @ g30.Q.matvec(g30.mean - lo.mean))  # (f(1+h) − f(1−h)) / 2h
+    e_p, e_f, e_cd = abs(gk - gp) / abs(gp), abs(gk - fwd) / abs(fwd), abs(gk - cdiff) / abs(cdiff)
+    log(f"  KL n={n30} (auto -> {tg.SolverSpec().resolve(g30.Q.pattern).kind}): linear_condition mean sum {v:.10f}, "
+        f"d/dτ {gk:.12e}; plain {gp:.12e} rel {e_p:.1e} (tol {tol:.0e}), forward derivative {fwd:.12e} rel {e_f:.1e} "
+        f"(tol {FAULT_TOL['kl_fwd']:.0e}), central difference (h=1e-5) {cdiff:.12e} rel {e_cd:.1e} "
+        f"(tol {FAULT_TOL['kl_cd']:.0e}); on {card}")
+    if not (e_p <= tol and e_f <= FAULT_TOL["kl_fwd"] and e_cd <= FAULT_TOL["kl_cd"]):
+        raise AssertionError("fault 3.1: linear_condition's mean gradient disagrees at the KL setup")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2014,6 +2376,16 @@ def main() -> int:
     log(f"  glasso n={GL['n']} host: " + ", ".join(f"{k} {v:.2f} s" for k, v in gp["host"].items()))
     results.update(check_gp_kernels(kp, gp, dev))
 
+    log(f"phase 3f K11/K12 block entries and K18 spike_reduced vs plain and library: the SPIKE solve at "
+        f"Nt={SPIKE_NT}, ns={dn_model.n}, P={SPIKE_P} and example 12's shape, on {card}")
+    sys17 = spike_system(dn_model, torch.float64, dev)
+    check_spike_kernels(f"Nt={SPIKE_NT} P={SPIKE_P}", *(t.float() for t in sys17), SPIKE_P, torch.float32, {}, 3)
+    check_spike_kernels(f"Nt={SPIKE_NT} P={SPIKE_P}", *sys17, SPIKE_P, torch.float64, results, 3)
+    del sys17
+    ex12 = [torch.tensor(a, device=dev) for a in ex12_system(dev)]
+    for dt in (torch.float32, torch.float64):
+        check_spike_kernels(f"example 12 P={EX12_P}", *(t.to(dt) for t in ex12), EX12_P, dt, {})
+
     log(f"phase 4 flagship slice: laplace_marginal value+grad, B={CHAINS}, n={N}, max_iter={GA_MAX_ITER}")
     y = flagship_y()
     z = torch.tensor(np.random.default_rng(2).normal(scale=0.5, size=(CHAINS, 2)), dtype=torch.float32)
@@ -2042,7 +2414,8 @@ def main() -> int:
     check_slice("f64", v64k, g64k, v64p, g64p, CHAINS, "f64")
     check_slice("f32", v32, g32, v64p, g64p, CHAINS, "f32")
     log(f"  flagship f32 value+grad: first call {first_s:.3f} s, then {vg_ms:.2f} ms per batched "
-        f"value+grad of {CHAINS} chains on {card}")
+        f"value+grad of {CHAINS} chains on {card} (PERF.md records 28-40 ms on an H100 at 700 W; "
+        f"tools/time_flagship_vg.py times this value+grad on two trees in turns)")
     if not bool(torch.isfinite(state.position).all()):
         raise AssertionError("HMC positions are not finite")
     log(f"phase 5 HMC: {HMC_STEPS} steps x {LEAPFROG} leapfrog, step size {STEP_SIZE}: "
@@ -2177,9 +2550,14 @@ def main() -> int:
     counts15 = kl_path(kp, dev, card)
     log(f"phase 16 the graphical lasso: example 10 at n={GL_SMALL['n']} and n={GL['n']}, f64, on {card}")
     counts16 = glasso_path(gp, Xall[GL["m"]:], dev, card)
+    log(f"phase 17 the SPIKE path: Q_t ⊗ Q_s, Nt={SPIKE_NT}, ns={dn_model.n}, P={SPIKE_P} chunks, f64; example 12 "
+        f"part 3; the public entry and supernodal_factorize(mesh=) on a one-rank NCCL mesh, on {card}")
+    counts17 = spike_path(dn_model, sp_model, dev, card)
+    log(f"phase 18 fault 3.1: gradients through the direct solves, f64, on {card}")
+    counts18 = fault_path(dev, card)
 
     paths = (counts, sp_counts, counts9, counts10, counts11, counts12, counts13, counts13b, counts14, counts15,
-             counts16)
+             counts16, counts17, counts18)
     report = {
         "kernels": [
             {"name": name, "route": "cuda", "source": SOURCES[name][0], "replaces": SOURCES[name][1],

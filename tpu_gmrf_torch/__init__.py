@@ -27,6 +27,7 @@ from .linear_maps import (
 )
 from .models import AR1Model, ARModel, LatentModel
 from .observations import ExponentialFamily
+from .parallel import pbtridiag_logdet, pbtridiag_solve, sharded_block_tridiag_solver
 from .samplers import IdentityTransform, LogitTransform, LogTransform, ParamSpec, make_logdensity, run_hmc, run_nuts
 from .solvers import SolverSpec, factorize
 from .solvers.cg import cg_solve
@@ -75,4 +76,7 @@ __all__ = [
     "approximate_gmrf_kl",
     "reverse_maximin_ordering",
     "graphical_lasso",
+    "pbtridiag_solve",
+    "pbtridiag_logdet",
+    "sharded_block_tridiag_solver",
 ]

@@ -21,13 +21,30 @@
 //       permutation of x and y; and, as `bt_sqrt`, :272-280
 //       `BandedFactor.sqrt_matvec`: y_k = L_k z_k + M_{k-1} z_{k-1} on K11's
 //       panels (L_k lower triangular: its upper triangle is not read).
+//   K11 and K12 have a block entry each, for the SPIKE solve
+//   (tpu_gmrf/parallel/pbtridiag.py): `bt_factor_blocks` is :53 `_bt_chol`,
+//   L_k = chol(D_k - M_{k-1} M_{k-1}^T), M_k = E_k L_k^-T, on blocks D, E
+//   given as they are (D_k symmetrized, as jnp.linalg.cholesky does; no
+//   pivot boost: a block that is not positive definite gives a NaN logdet),
+//   and `bt_trsv_blocks` is :76 `_bt_solve_factored` on (B, K, s, k)
+//   right-hand sides with no permutation. The first is K11's fast pass with
+//   the scatter swapped for the block layout; the second is K12's
+//   substitution with the permutation swapped for the block layout while its
+//   B k right-hand sides fit a few waves of blocks on the card, and beyond
+//   that (the SPIKE solve has 1 + 2 s of them) solves column tiles of up to
+//   kNB right-hand sides at a time on block_gemm and blk_trsm of
+//   dense_blocks.cuh.
 //
 // What bounds them on the card. K11 does about K s^3 (7/3) flops per chain
 // (n = 5741, s = 512, K = 12, B = 4: ~1.5e10) on K 2 s^2 values: bound by
 // the FMA rate of the trailing updates and, at B = 4, by the latency of the
 // dependent diagonal tiles (K s / 64 of them per factorization, one block
 // per chain each). K12 reads L and M once per direction: bound by that read
-// from one block per right-hand side.
+// from one block per right-hand side. Its block entry's tiles read them once
+// per direction and 64 right-hand sides; each tile is a chain of K dependent
+// block steps whose products run at one block's latency, ~4.5x one
+// right-hand side's block (f64, s = 450, K = 31: ~100 and ~22 ms), so the
+// tiles pay off only past four waves of right-hand sides.
 // Design: chain b's factor is one array P[b] of K panels (2s x s each, rows
 // 0..s the diagonal block, rows s..2s the sub-diagonal block below it); a
 // panel is factored by the blocked panel Cholesky of dense_blocks.cuh, so
@@ -134,8 +151,35 @@ __global__ void __launch_bounds__(kThreads)
   if (threadIdx.x == 0) dom[b] = red[0];
 }
 
+// Chain b's factor from its blocks (the block entry of K11): rows 0..s of
+// panel k the lower triangle of (D_k + D_k^T) / 2, rows s..2s E_k (zero in the
+// last panel); the whole panel is written.
 template <typename T>
-__global__ void __launch_bounds__(kThreads) bt_logdet_kernel(const T* P, long long pstride, int K, int s, T* logdet) {
+__global__ void bt_blocks_load_kernel(const T* D, const T* E, T* P, int K, int s) {
+  const long long b = blockIdx.y;
+  const long long panel = 2LL * s * s, per = panel * K, ss = (long long)s * s;
+  for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x; e < per;
+       e += (long long)gridDim.x * blockDim.x) {
+    const long long k = e / panel, rem = e % panel;
+    const int r = (int)(rem / s), c = (int)(rem % s);
+    T v = T(0);
+    if (r < s) {
+      if (c <= r) {
+        const T* Dk = D + (b * K + k) * ss;
+        v = T(0.5) * (Dk[(long long)r * s + c] + Dk[(long long)c * s + r]);
+      }
+    } else if (k < K - 1) {
+      v = E[(b * (K - 1) + k) * ss + (long long)(r - s) * s + c];
+    }
+    P[b * per + e] = v;
+  }
+}
+
+// logdet[b] = 2 sum log diag L_k; NaN for a chain whose fail flag is set
+// (fail may be null).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    bt_logdet_kernel(const T* P, long long pstride, int K, int s, T* logdet, const int* fail) {
   __shared__ T red[kThreads];
   const long long b = blockIdx.x;
   const long long panel = 2LL * s * s;
@@ -150,7 +194,7 @@ __global__ void __launch_bounds__(kThreads) bt_logdet_kernel(const T* P, long lo
     if ((int)threadIdx.x < off) red[threadIdx.x] += red[threadIdx.x + off];
     __syncthreads();
   }
-  if (threadIdx.x == 0) logdet[b] = T(2) * red[0];
+  if (threadIdx.x == 0) logdet[b] = (fail && fail[b]) ? T(NAN) : T(2) * red[0];
 }
 
 // Panel k of the chains in `active`: factor it; then, if a next block
@@ -165,6 +209,14 @@ int factor_block(T* P, long long pstride, int k, int K, int s, T tiny, const int
   syrk_lower_kernel<T><<<dim3(cdiv(s, kGB), cdiv(s, kGB), B), kThreads, 0, st>>>(
       Pk + panel, pstride, s, Pk + (long long)s * s, pstride, s, s, s, s, active);
   return (int)cudaGetLastError();
+}
+
+// Every block of every chain (in `active`, all when null), in order, no boost.
+template <typename T>
+int factor_pass(T* P, long long pstride, int K, int s, T tiny, int* fail, int B, cudaStream_t st) {
+  int rc = 0;
+  for (int k = 0; k < K && !rc; ++k) rc = factor_block<T>(P, pstride, k, K, s, tiny, nullptr, fail, B, st);
+  return rc;
 }
 
 template <typename T>
@@ -186,7 +238,7 @@ int launch_factor(const T* data, long long ds, const int* src, const int* dst, i
   // fast pass: every chain, every block, no boost
   bt_scatter_kernel<T><<<sgrid, kThreads, 0, st>>>(data, ds, src, dst, ntab, tperm, P, pstride, nullptr);
   if ((rc = (int)cudaGetLastError())) return rc;
-  for (int k = 0; k < K && !rc; ++k) rc = factor_block<T>(P, pstride, k, K, s, tiny, nullptr, fail, B, st);
+  if ((rc = factor_pass<T>(P, pstride, K, s, tiny, fail, B, st))) return rc;
   bool any;
   if (rc || (rc = any_failed(fail, B, st, &any))) return rc;
   if (any) {
@@ -223,15 +275,37 @@ int launch_factor(const T* data, long long ds, const int* src, const int* dst, i
       }
     }
   }
-  bt_logdet_kernel<T><<<B, kThreads, 0, st>>>(P, pstride, K, s, logdet);
+  bt_logdet_kernel<T><<<B, kThreads, 0, st>>>(P, pstride, K, s, logdet, nullptr);
+  return (int)cudaGetLastError();
+}
+
+// The block entry of K11: the factor of the blocks D (B, K, s, s), E (B, K-1,
+// s, s), the fast pass of `launch_factor` with no boost. A pivot that is not
+// finite and positive is left as it comes (NaN for a negative one) and sets
+// the chain's flag, whose logdet is then NaN, as an unboosted Cholesky gives.
+template <typename T>
+int launch_factor_blocks(const T* D, const T* E, T* P, int K, int s, T* logdet, int* flags, int B, void* stream) {
+  if (B == 0) return 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  const long long pstride = 2LL * s * s * K;
+  const long long want = (pstride + kThreads - 1) / kThreads;
+  int rc = (int)cudaMemsetAsync(flags, 0, sizeof(int) * B, st);
+  if (rc) return rc;
+  bt_blocks_load_kernel<T><<<dim3(want < 1024 ? (int)want : 1024, B), kThreads, 0, st>>>(D, E, P, K, s);
+  if ((rc = (int)cudaGetLastError())) return rc;
+  if ((rc = factor_pass<T>(P, pstride, K, s, T(0), flags, B, st))) return rc;
+  bt_logdet_kernel<T><<<B, kThreads, 0, st>>>(P, pstride, K, s, logdet, flags);
   return (int)cudaGetLastError();
 }
 
 // One block per (chain, right-hand side) row of b / out (R, n), chain-major:
 // v = b permuted and padded (in shared memory, or in row `row` of the
 // (R, K s) workspace when one is given), forward (mode 0), backward (mode 1)
-// or both (mode 2) block substitution, out = v unpermuted.
-template <typename T>
+// or both (mode 2) block substitution, out = v unpermuted. kBlocks (the
+// block entry of K12): b and out are blocks (B, K, s, k), column row % k of
+// chain row / k, with no permutation (n = K s, perm unused): the path of
+// the block entry while its right-hand sides fit a few waves of blocks.
+template <typename T, bool kBlocks>
 __global__ void __launch_bounds__(kVecThreads)
     bt_trsv_kernel(const T* P, long long pstride, int K, int s, int n, const int* perm, const T* b, T* out, int k,
                    int mode, T* work) {
@@ -240,10 +314,12 @@ __global__ void __launch_bounds__(kVecThreads)
   __shared__ T red[kVecThreads];
   const long long row = blockIdx.x;
   const T* Pb = P + (row / k) * pstride;
-  const T* br = b + row * n;
-  T* orow = out + row * n;
   const long long panel = 2LL * s * s;
-  for (int j = threadIdx.x; j < K * s; j += blockDim.x) v[j] = j < n ? br[perm[j]] : T(0);
+  // element j of the row: at base + j * step (blocks) or base + perm[j] (rows)
+  const long long base = kBlocks ? (row / k) * (long long)K * s * k + row % k : row * n;
+  const long long step = kBlocks ? k : 1;
+  for (int j = threadIdx.x; j < K * s; j += blockDim.x)
+    v[j] = kBlocks ? b[base + j * step] : (j < n ? b[base + perm[j]] : T(0));
   __syncthreads();
   if (mode != 1) {
     for (int blk = 0; blk < K; ++blk) {
@@ -261,18 +337,66 @@ __global__ void __launch_bounds__(kVecThreads)
       tri_lower_t_solve(Pb + blk * panel, s, vb, s, red);
     }
   }
-  for (int j = threadIdx.x; j < n; j += blockDim.x) orow[perm[j]] = v[j];
+  for (int j = threadIdx.x; j < n; j += blockDim.x) out[kBlocks ? base + j * step : base + perm[j]] = v[j];
 }
 
-template <typename T>
+template <typename T, bool kBlocks>
 int launch_trsv(const T* P, int K, int s, int n, const int* perm, const T* b, T* out, int k, int mode, int R,
                 T* work, void* stream) {
   if (R == 0) return 0;
   const size_t smem = work ? 0 : sizeof(T) * (size_t)K * s;
-  int rc = set_smem(bt_trsv_kernel<T>, smem);
+  int rc = set_smem(bt_trsv_kernel<T, kBlocks>, smem);
   if (rc) return rc;
-  bt_trsv_kernel<T><<<R, kVecThreads, smem, (cudaStream_t)stream>>>(P, 2LL * s * s * K, K, s, n, perm, b, out, k,
-                                                                 mode, work);
+  bt_trsv_kernel<T, kBlocks><<<R, kVecThreads, smem, (cudaStream_t)stream>>>(P, 2LL * s * s * K, K, s, n, perm, b,
+                                                                             out, k, mode, work);
+  return (int)cudaGetLastError();
+}
+
+// The block entry of K12, by column tiles: block (tile, chain) solves columns
+// kNB tile .. kNB tile + q of its chain's right-hand sides X (B, K, s, k) in
+// place, forward then backward; per block row, the coupling (M_{k-1} y_{k-1},
+// or M_k^T x_{k+1}) by block_gemm, then the diagonal block by blk_trsm. A
+// tile reads its chain's factor once per direction for up to kNB columns.
+template <typename T>
+__global__ void __launch_bounds__(kThreads) bt_trsv_tiles_kernel(const T* P, int K, int s, T* X, int k) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* S = reinterpret_cast<T*>(smem_raw);  // kNB x (kNB + 1)
+  __shared__ T As[kGK * kLd], Bs[kGK * kLd];
+  const int c0 = blockIdx.x * kNB, q = min(kNB, k - c0);
+  const long long panel = 2LL * s * s, ss = (long long)s * s, rows = (long long)s * k;  // rows: one block row of X
+  const T* Pb = P + blockIdx.y * panel * K;
+  T* Xb = X + blockIdx.y * rows * K + c0;
+  for (int blk = 0; blk < K; ++blk) {
+    T* V = Xb + blk * rows;
+    if (blk) {
+      block_gemm(V, k, Pb + (blk - 1) * panel + ss, s, 1, V - rows, k, 1, s, q, s, T(-1), T(1), false, As, Bs);
+      __syncthreads();
+    }
+    blk_trsm(Pb + blk * panel, s, s, V, k, q, false, S, As, Bs);
+  }
+  for (int blk = K - 1; blk >= 0; --blk) {
+    T* V = Xb + blk * rows;
+    if (blk < K - 1) {
+      block_gemm(V, k, Pb + blk * panel + ss, 1, s, V + rows, k, 1, s, q, s, T(-1), T(1), false, As, Bs);
+      __syncthreads();
+    }
+    blk_trsm(Pb + blk * panel, s, s, V, k, q, true, S, As, Bs);
+  }
+}
+
+// The block entry of K12 by column tiles (`tiles`), or one block per right-hand
+// side (work: a (B k, K s) workspace when K s values do not fit shared memory).
+template <typename T>
+int launch_trsv_blocks(const T* P, int K, int s, const T* b, T* out, int k, int B, T* work, int tiles,
+                       void* stream) {
+  if (!tiles) return launch_trsv<T, true>(P, K, s, K * s, nullptr, b, out, k, 2, B * k, work, stream);
+  if (B == 0 || k == 0) return 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  int rc = (int)cudaMemcpyAsync(out, b, sizeof(T) * (size_t)B * K * s * k, cudaMemcpyDeviceToDevice, st);
+  if (rc) return rc;
+  const size_t smem = sizeof(T) * (size_t)kNB * (kNB + 1);
+  if ((rc = set_smem(bt_trsv_tiles_kernel<T>, smem))) return rc;
+  bt_trsv_tiles_kernel<T><<<dim3(cdiv(k, kNB), B), kThreads, smem, st>>>(P, K, s, out, k);
   return (int)cudaGetLastError();
 }
 
@@ -421,7 +545,15 @@ extern "C" {
   }                                                                                                           \
   int tg_bt_trsv_##SUF(const T* P, int K, int s, int n, const int* perm, const T* b, T* out, int k, int mode, \
                        int R, T* work, void* stream) {                                                        \
-    return launch_trsv<T>(P, K, s, n, perm, b, out, k, mode, R, work, stream);                                \
+    return launch_trsv<T, false>(P, K, s, n, perm, b, out, k, mode, R, work, stream);                         \
+  }                                                                                                           \
+  int tg_bt_factor_blocks_##SUF(const T* D, const T* E, T* P, int K, int s, T* logdet, int* flags, int B,      \
+                                void* stream) {                                                               \
+    return launch_factor_blocks<T>(D, E, P, K, s, logdet, flags, B, stream);                                  \
+  }                                                                                                           \
+  int tg_bt_trsv_blocks_##SUF(const T* P, int K, int s, const T* b, T* out, int k, int B, T* work, int tiles, \
+                              void* stream) {                                                                 \
+    return launch_trsv_blocks<T>(P, K, s, b, out, k, B, work, tiles, stream);                                 \
   }                                                                                                           \
   int tg_bt_matvec_##SUF(const T* diag, long long diag_k, long long diag_b, const T* sub, long long sub_k,    \
                          long long sub_b, int K, int s, int n, const int* perm, const T* x, T* y, int kk,     \

@@ -40,11 +40,11 @@ class GMRF:
     @staticmethod
     def from_information(info, Q: SparseMatrix, solver: SolverSpec = SolverSpec()) -> "GMRF":
         """Construct from the information vector b = Qμ — solves Qμ = b once
-        (reference `InformationVector` constructor, src/gmrf.jl:144-156)."""
+        (reference `InformationVector` constructor, src/gmrf.jl:144-156); the
+        mean carries the gradient to Q and the information vector."""
         factor = factorize(Q, solver)
         info = torch.as_tensor(info, dtype=Q.dtype, device=Q.device)
-        with torch.no_grad():
-            mean = factor.solve(info)
+        mean = factor.solve(info)
         return GMRF(mean=mean, Q=Q, factor=factor, solver=solver)
 
     # ---- distribution interface -------------------------------------------
@@ -82,18 +82,19 @@ class GMRF:
         return -self.Q.matvec(x - self.mean)
 
     def sample(self, generator: torch.Generator, shape: tuple = ()) -> torch.Tensor:
-        """x = μ + L⁻ᵀ z, z ~ N(0, I): shape (*shape, *batch, n)."""
+        """x = μ + L⁻ᵀ z, z ~ N(0, I): shape (*shape, *batch, n). L⁻ᵀz has no
+        backward: this raises while a gradient is asked of Q."""
         batch = tuple(self.factor.batch_shape)
         z = torch.randn(
             (*shape, *batch, self.n), generator=generator, dtype=self.dtype, device=self.Q.device
         )
         k = math.prod(shape)
         zk = z.reshape((k, *batch, self.n)).movedim(0, -1)  # (*batch, n, k)
-        with torch.no_grad():
-            x = self.factor.backward_solve(zk.contiguous())
+        x = self.factor.backward_solve(zk.contiguous())
         return self.mean + x.movedim(-1, 0).reshape(z.shape)
 
     def var(self) -> torch.Tensor:
+        """diag Q⁻¹; no backward: raises while a gradient is asked of Q."""
         return self.factor.selinv_diag()
 
     def std(self) -> torch.Tensor:

@@ -33,7 +33,7 @@ import torch
 from ..gmrf import GMRF
 from ..observations.base import ObservationLikelihood
 from ..observations.exponential_family import EFLikelihood
-from ..solvers.base import SolverSpec, factorize
+from ..solvers.base import SolverSpec, factorize, no_double_backward
 from ..sparse.matrix import SparseMatrix, spdiag
 
 __all__ = ["gaussian_approximation", "GAOptions", "NewtonMode"]
@@ -157,6 +157,7 @@ class NewtonMode(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gx):
+        no_double_backward("the Laplace Newton mode")
         x_star, q_data, mu_p, *lik_tensors = ctx.saved_tensors
         lik = ctx.lik.with_tensors(lik_tensors)
         Q_p = SparseMatrix(q_data, ctx.pattern)

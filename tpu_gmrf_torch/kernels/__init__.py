@@ -5,8 +5,10 @@ K1 ``tridiag_factor``, K2 ``tridiag_solve``, K3 ``tridiag_selinv``, K4
 ``sn_takahashi``, K9 ``dense_chol``, K10 ``dense_trsv`` (and its second
 entry ``dense_selinv``), K11 ``bt_factor``,
 K12 ``bt_trsv``, K13 ``bt_matvec`` (and its second entry ``bt_sqrt``), K14
-``bsr_spmm``, K15 ``bsr_outer``, K16 ``kl_columns`` and K17 ``block_inv``;
-K7 has a second mode, ``sn_multiply``.
+``bsr_spmm``, K15 ``bsr_outer``, K16 ``kl_columns``, K17 ``block_inv`` and
+K18 ``spike_reduced``; K7 has a second mode, ``sn_multiply``, and K11 and K12
+a block entry each, ``bt_factor_blocks`` and ``bt_trsv_blocks`` (the SPIKE
+solve's chunk elimination).
 Sources are in ``tpu_gmrf_torch/csrc/``; ``build`` compiles them with nvcc
 at first use on a CUDA tensor. ``hot_matvec`` picks the repeated-multiply
 formulation (K4, K13 or K14) for a fixed sparse matrix.
@@ -15,12 +17,16 @@ formulation (K4, K13 or K14) for a fixed sparse matrix.
 from .banded import (
     BandedTables,
     bt_factor,
+    bt_factor_blocks,
+    bt_factor_blocks_plain,
     bt_factor_plain,
     bt_matvec,
     bt_matvec_plain,
     bt_sqrt,
     bt_sqrt_plain,
     bt_trsv,
+    bt_trsv_blocks,
+    bt_trsv_blocks_plain,
     bt_trsv_plain,
 )
 from .block_inv import BlockSets, block_inv, block_inv_plain, block_inv_smem_max
@@ -46,6 +52,7 @@ from .dense import (
 from .segsum import InitPlan, SegPlan, fct_init, fct_init_plain, gather_segsum, gather_segsum_plain
 from .hot import hot_matvec
 from .kl import kl_columns, kl_columns_plain, kl_path
+from .spike import spike_reduced, spike_reduced_plain
 from .spmv import csr_spmv, csr_spmv_plain, spmv_path
 from .supernodal import (
     BACKWARD,
@@ -91,6 +98,8 @@ __all__ = [
     "bsr_outer", "bsr_outer_plain", "hot_matvec",
     "MULTIPLY", "sn_multiply", "sn_multiply_plain", "spmv_path", "tridiag_path",
     "kl_columns", "kl_columns_plain", "kl_path", "BlockSets", "block_inv", "block_inv_plain", "block_inv_smem_max",
+    "bt_factor_blocks", "bt_factor_blocks_plain", "bt_trsv_blocks", "bt_trsv_blocks_plain",
+    "spike_reduced", "spike_reduced_plain",
 ]
 
 KERNELS = {
@@ -115,6 +124,9 @@ KERNELS = {
     "bsr_outer": bsr_outer,
     "kl_columns": kl_columns,
     "block_inv": block_inv,
+    "bt_factor_blocks": bt_factor_blocks,
+    "bt_trsv_blocks": bt_trsv_blocks,
+    "spike_reduced": spike_reduced,
 }
 
 

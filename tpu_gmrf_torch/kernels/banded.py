@@ -23,11 +23,22 @@ y_k = L_k z_k + M_{k-1} z_{k-1} on rows (B·k, n), chain-major. A block of
 threads keeps 3·rc·s values of x in shared memory, rc ≤ 8 vectors at a
 time (`matvec_chunk` picks rc so that they fit ``SMEM_MAX``).
 
+K11 and K12 have a block entry each, for the SPIKE solve
+(``parallel/pbtridiag.py``): `bt_factor_blocks` factors blocks D (B, K, s, s),
+E (B, K-1, s, s) given as they are (D_k symmetrized, no pivot boost: a block
+that is not positive definite gives a NaN logdet) into the same P, and
+`bt_trsv_blocks` solves with it on blocks (B, K, s, k), with no permutation:
+one block of threads per right-hand side while the B·k of them fit
+`TILE_WAVES` waves of blocks on the card, else one per chain and tile of 64
+right-hand sides.
+
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises. ``<wrapper>.launches`` counts launches.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -37,9 +48,15 @@ from .supernodal import SMEM_MAX, _chol_boosted
 from .tridiag import SOLVE_BOTH, SOLVE_L, SOLVE_LT, _fn, _on_cuda, _stream
 
 __all__ = ["BandedTables", "bt_factor", "bt_factor_plain", "bt_trsv", "bt_trsv_plain",
-           "bt_matvec", "bt_matvec_plain", "bt_sqrt", "bt_sqrt_plain", "matvec_chunk"]
+           "bt_matvec", "bt_matvec_plain", "bt_sqrt", "bt_sqrt_plain", "matvec_chunk",
+           "bt_factor_blocks", "bt_factor_blocks_plain", "bt_trsv_blocks", "bt_trsv_blocks_plain"]
 
 MV_ROWS, MV_VECS, MV_WARPS = 64, 8, 8  # kMvRows, kMvVecs, kMvWarps of the source
+# `bt_trsv_blocks` solves by tiles of 64 right-hand sides once the B·k of them
+# would take more than this many waves of one block each: on the H100 at the
+# SPIKE solve's shape (B=4, K=31, s=450, f64) a wave of single right-hand
+# sides takes ~22 ms and a wave of tiles ~100 ms (chip_smoke.py phase 3f).
+TILE_WAVES = 4
 
 
 class BandedTables:
@@ -147,6 +164,43 @@ def bt_trsv_plain(P: torch.Tensor, tables: BandedTables, b: torch.Tensor, k: int
     return out
 
 
+def bt_factor_blocks_plain(D: torch.Tensor, E: torch.Tensor):
+    """`bt_factor_blocks`' function (``pbtridiag.py:53`` `_bt_chol`): (P (B, K, 2s, s),
+    logdet (B,)); a block whose Cholesky breaks down is NaN, as
+    ``jnp.linalg.cholesky`` gives it."""
+    B, K, s = D.shape[0], D.shape[1], D.shape[-1]
+    P = D.new_zeros(B, K, 2 * s, s)
+    U = None
+    for k in range(K):
+        Dk = 0.5 * (D[:, k] + D[:, k].mT)
+        if U is not None:
+            Dk = Dk - U
+        L, info = torch.linalg.cholesky_ex(Dk)
+        L = torch.where((info == 0)[:, None, None], L, torch.nan)
+        P[:, k, :s] = L
+        if k < K - 1:
+            M = torch.linalg.solve_triangular(L, E[:, k].mT, upper=False).mT
+            P[:, k, s:] = M
+            U = M @ M.mT
+    logdet = 2.0 * torch.log(torch.diagonal(P[:, :, :s], dim1=-2, dim2=-1)).sum((-2, -1))
+    return P, logdet
+
+
+def bt_trsv_blocks_plain(P: torch.Tensor, b: torch.Tensor):
+    """`bt_trsv_blocks`' function (``pbtridiag.py:76`` `_bt_solve_factored`) on
+    blocks b (B, K, s, k)."""
+    K, s = b.shape[1], b.shape[2]
+    L, M = P[:, :, :s], P[:, :, s:]
+    v = list(b.unbind(1))
+    for blk in range(K):
+        rhs = v[blk] if blk == 0 else v[blk] - M[:, blk - 1] @ v[blk - 1]
+        v[blk] = torch.linalg.solve_triangular(L[:, blk], rhs, upper=False)
+    for blk in reversed(range(K)):
+        rhs = v[blk] if blk == K - 1 else v[blk] - M[:, blk].mT @ v[blk + 1]
+        v[blk] = torch.linalg.solve_triangular(L[:, blk].mT, rhs, upper=True)
+    return torch.stack(v, 1)
+
+
 def _permuted_blocks(x: torch.Tensor, perm: torch.Tensor, K: int, s: int) -> torch.Tensor:
     """Rows x (R, n) in the block order, zero-padded: (R, K, s)."""
     xp = x.new_zeros(x.shape[0], K * s)
@@ -240,6 +294,58 @@ def bt_trsv(P: torch.Tensor, tables: BandedTables, b: torch.Tensor, k: int = 1, 
     return out
 
 
+def bt_factor_blocks(D: torch.Tensor, E: torch.Tensor):
+    """K11's block entry: (P (B, K, 2s, s), logdet (B,)) of the block-tridiagonal
+    matrices with diagonal blocks D (B, K, s, s) and sub-diagonal blocks
+    E (B, K-1, s, s) (E_k = A[k+1, k]). No pivot boost; not differentiable."""
+    if D.ndim != 4 or E.ndim != 4 or D.shape[-1] != D.shape[-2] or E.shape != (D.shape[0], D.shape[1] - 1) + D.shape[2:]:
+        raise ValueError(f"bt_factor_blocks: shapes D {tuple(D.shape)}, E {tuple(E.shape)}")
+    if torch.is_grad_enabled() and (D.requires_grad or E.requires_grad):
+        raise NotImplementedError("bt_factor_blocks has no backward; call it under torch.no_grad()")
+    if not _on_cuda("bt_factor_blocks", D, E):
+        return bt_factor_blocks_plain(D, E)
+    B, K, s = D.shape[0], D.shape[1], D.shape[-1]
+    P = D.new_empty(B, K, 2 * s, s)
+    logdet = D.new_empty(B)
+    flags = torch.empty(B, dtype=torch.int32, device=D.device)
+    code = _fn("tg_bt_factor_blocks", D.dtype)(
+        D.data_ptr(), E.data_ptr() if K > 1 else None, P.data_ptr(), K, s, logdet.data_ptr(), flags.data_ptr(), B,
+        _stream(D),
+    )
+    build.check(code, "bt_factor_blocks", f" at B={B} K={K} s={s} {D.dtype}")
+    bt_factor_blocks.launches += 1
+    return P, logdet
+
+
+def bt_trsv_blocks(P: torch.Tensor, b: torch.Tensor):
+    """K12's block entry: x = A⁻¹ b by forward and backward block substitution
+    with the factor P (B, K, 2s, s) of `bt_factor_blocks`, on b (B, K, s, k),
+    with no permutation. Not differentiable."""
+    if P.ndim != 4 or b.ndim != 4 or P.shape[2] != 2 * P.shape[3] or b.shape[:3] != (P.shape[0], P.shape[1], P.shape[3]):
+        raise ValueError(f"bt_trsv_blocks: shapes P {tuple(P.shape)}, b {tuple(b.shape)}")
+    if torch.is_grad_enabled() and (P.requires_grad or b.requires_grad):
+        raise NotImplementedError("bt_trsv_blocks has no backward; call it under torch.no_grad()")
+    if not _on_cuda("bt_trsv_blocks", P, b):
+        return bt_trsv_blocks_plain(P, b)
+    B, K, s, k = b.shape
+    b = b.contiguous()
+    out = torch.empty_like(b)
+    tiles = B * k > TILE_WAVES * _sm_count(b.device)
+    work = P.new_empty(B * k, K * s) if not tiles and K * s * P.element_size() > SMEM_MAX else None
+    code = _fn("tg_bt_trsv_blocks", P.dtype)(
+        P.data_ptr(), K, s, b.data_ptr(), out.data_ptr(), k, B, None if work is None else work.data_ptr(), int(tiles),
+        _stream(P),
+    )
+    build.check(code, "bt_trsv_blocks", f" at B={B} K={K} s={s} k={k} {P.dtype}")
+    bt_trsv_blocks.launches += 1
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def matvec_chunk(s: int, rows: int, element_size: int) -> int:
     """Vectors per block of K13: at most 8 and `rows`, fewer while the
     block's 3·rc·s values of x and (warps+1)·rc·64 partial sums exceed
@@ -310,5 +416,7 @@ def bt_sqrt(P: torch.Tensor, tables: BandedTables, z: torch.Tensor, k: int = 1) 
 
 bt_factor.launches = 0
 bt_trsv.launches = 0
+bt_factor_blocks.launches = 0
+bt_trsv_blocks.launches = 0
 bt_matvec.launches = 0
 bt_sqrt.launches = 0

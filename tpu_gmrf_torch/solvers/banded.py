@@ -16,7 +16,9 @@ launch per block from the last one up: block k is a supernode of width s
 whose rows are block k+1 (Ld = L_k, Lb = M_k, Σ_RR = Σ_{k+1,k+1}); the
 selected-inverse gathers and sums are K5 `gather_segsum` launches. The
 logdet is differentiable through `BandedLogdet`, whose backward is Σ on
-Q's pattern. `sqrt_matvec` (L z) and the block-tridiagonal SpMV
+Q's pattern, and `solve` through `FactorSolve` (K12 forward and backward);
+the other solves, `sqrt_matvec` and Σ have no backward and raise while a
+gradient is asked. `sqrt_matvec` (L z) and the block-tridiagonal SpMV
 (`BlockTridiagMV`, `block_tridiag_matvec`: x ↦ Qx over dense blocks, for
 CG and RBMC through `kernels.hot_matvec`) run on K13 (`bt_sqrt`,
 `bt_matvec`). Vectors of the SpMV are rows: x is (n,) or (k, n).
@@ -43,6 +45,7 @@ from ..kernels import (
 )
 from ..sparse.matrix import SparseMatrix
 from ..sparse.pattern import SparsePattern
+from .base import DirectFactor, no_double_backward
 from .supernodal import _one_term, _sum_plans
 
 __all__ = [
@@ -235,12 +238,13 @@ class BandedLogdet(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, glogdet, _gP, _gb):
+        no_double_backward("the banded logdet")
         (P,) = ctx.saved_tensors
         return glogdet[:, None] * _selinv_data(P, ctx.meta, ctx.meta[0]), None
 
 
 @dataclasses.dataclass(frozen=True)
-class BandedFactor:
+class BandedFactor(DirectFactor):
     """Block-tridiagonal Cholesky of B chains in the RCM order: P (B, K, 2s, s),
     panel k holding Lₖ (rows 0..s, lower) over Mₖ (rows s..2s). ``boost``
     (B,) counts the blocks whose Cholesky broke down and was retried with a
@@ -251,6 +255,7 @@ class BandedFactor:
     logdet_: torch.Tensor
     meta: tuple  # (pattern, block): the plan's key
     batch_shape: tuple
+    data: torch.Tensor = dataclasses.field(repr=False, compare=False)  # (B, nnz) factored
 
     @property
     def plan(self):
@@ -259,6 +264,10 @@ class BandedFactor:
     @property
     def n(self):
         return self.plan["n"]
+
+    @property
+    def pattern(self) -> SparsePattern:
+        return self.meta[0]
 
     @property
     def Lk(self) -> torch.Tensor:
@@ -286,7 +295,7 @@ class BandedFactor:
     def _solve(self, b: torch.Tensor, mode: int) -> torch.Tensor:
         return self._on_rows(b, lambda rows, k: bt_trsv(self.P, _TABLES[self.meta], rows, k, mode))
 
-    def solve(self, b: torch.Tensor) -> torch.Tensor:
+    def _solve_both(self, b: torch.Tensor) -> torch.Tensor:
         """Q x = b (K12, forward and backward in one launch)."""
         return self._solve(b, SOLVE_BOTH)
 
@@ -414,9 +423,10 @@ def banded_factorize(Q: SparseMatrix, block: int | None = None) -> BandedFactor:
     if Q.data.ndim > 2:
         raise ValueError("data must be (nnz,) or (B, nnz)")
     if torch.is_grad_enabled() and Q.data.requires_grad and not Q.pattern.is_symmetric:
-        raise ValueError("the banded logdet's gradient needs a symmetric pattern")
+        raise ValueError("the banded backend's gradients need a symmetric pattern")
     _tables(Q.pattern, block)  # the plan and its device tables, cached
     meta = (Q.pattern, block)
     batch = tuple(Q.data.shape[:-1])
-    logdet, P, boost = BandedLogdet.apply(Q.data.reshape(-1, Q.nnz), meta)
-    return BandedFactor(P, boost, logdet.reshape(batch), meta, batch)
+    data = Q.data.reshape(-1, Q.nnz)
+    logdet, P, boost = BandedLogdet.apply(data, meta)
+    return BandedFactor(P, boost, logdet.reshape(batch), meta, batch, data)

@@ -10,7 +10,8 @@ on K10 (`dense_trsv`), Σ = Q⁻¹ at the entries wanted (diagonal, a
 pattern) on K10's second entry (`dense_selinv`), whose sums for
 `selinv_dot` are K5's; `sqrt_matvec`'s L·z is a plain matrix product. The
 logdet is differentiable through `DenseLogdet`, whose backward is Σ on Q's
-pattern. The solves have no backward.
+pattern; `solve` through `FactorSolve` (K10 forward and backward). The
+other solves and Σ have no backward and raise while a gradient is asked.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from ..kernels import SOLVE_BOTH, SOLVE_L, SOLVE_LT, DenseTables, dense_chol, de
 from ..kernels.dense import DENSE_MAX_N
 from ..sparse.matrix import SparseMatrix
 from ..sparse.pattern import SparsePattern
+from .base import DirectFactor, no_double_backward
 from .supernodal import _sum_plans
 
 __all__ = ["DenseFactor", "DenseLogdet", "dense_factorize"]
@@ -77,13 +79,14 @@ class DenseLogdet(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, glogdet, _gL, _gs, _glevel):
+        no_double_backward("the dense logdet")
         L, s = ctx.saved_tensors
         t = ctx.tables.on(L.device)
         return glogdet[:, None] * dense_selinv(L, s, t["rows"], t["cols"]), None
 
 
 @dataclasses.dataclass(frozen=True)
-class DenseFactor:
+class DenseFactor(DirectFactor):
     """Equilibrated Cholesky of B chains: Q = (S⁻¹L')(S⁻¹L')ᵀ with L' (B, n, n)
     = chol(S·Q·S), s (B, n); ``level`` (B,) is the ridge rescue each chain
     needed (0 none, 1 δ, 2 500δ)."""
@@ -93,6 +96,8 @@ class DenseFactor:
     level: torch.Tensor
     logdet_: torch.Tensor
     batch_shape: tuple
+    data: torch.Tensor = dataclasses.field(repr=False, compare=False)  # (B, nnz) factored
+    pattern: SparsePattern = dataclasses.field(repr=False, compare=False)
 
     @property
     def n(self):
@@ -109,7 +114,7 @@ class DenseFactor:
     def _solve(self, b: torch.Tensor, mode: int) -> torch.Tensor:
         return dense_trsv(self.L, self.s, self._rhs(b), mode).reshape(b.shape)
 
-    def solve(self, b: torch.Tensor) -> torch.Tensor:
+    def _solve_both(self, b: torch.Tensor) -> torch.Tensor:
         """Q x = b (K10, both triangles in one launch)."""
         return self._solve(b, SOLVE_BOTH)
 
@@ -156,5 +161,6 @@ def dense_factorize(Q: SparseMatrix) -> DenseFactor:
     if not Q.pattern.is_symmetric:
         Q = (Q + Q.T) * 0.5
     batch = tuple(Q.data.shape[:-1])
-    logdet, L, s, level = DenseLogdet.apply(Q.data.reshape(-1, Q.nnz), _tables(Q.pattern))
-    return DenseFactor(L, s, level, logdet.reshape(batch), batch)
+    data = Q.data.reshape(-1, Q.nnz)
+    logdet, L, s, level = DenseLogdet.apply(data, _tables(Q.pattern))
+    return DenseFactor(L, s, level, logdet.reshape(batch), batch, data, Q.pattern)

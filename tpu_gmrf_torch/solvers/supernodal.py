@@ -24,11 +24,20 @@ reference library.
   (B, nnzL+1) with one DUMMY slot that stays 0, and the Jacobi scaling s
   (B, n). The logdet is differentiable through `SupernodalLogdet`, whose
   backward is the selected inverse on Q's pattern (K8 + K5) from the saved
-  factor; the solves have no backward and raise if asked for one.
+  factor; `solve` is differentiable through `FactorSolve` (K7 forward and
+  backward); the other solves and Σ have no backward and raise while a
+  gradient is asked.
+
+* **A mesh (``mesh=``, a ``DeviceMesh``).** Each class batch of the scan
+  levels is split over the ranks of the mesh's first dimension, padded with
+  DUMMY panels; each rank launches K6 on its shard, and the new panels, log
+  pivots and U are all-gathered for the replicated scatter and K5
+  reduction. The top separators stay unsplit. Values equal the one-rank
+  path's: each panel is factored by the same code, and no sum is reordered
+  (reference ``supernodal.py:1105-1165``).
 
 Not ported from the reference: the staged multi-dispatch path (a TPU
-compile-helper workaround), the ``mesh`` variant of ``_factorize`` and
-``solve_refined``.
+compile-helper workaround) and ``solve_refined``.
 """
 
 from __future__ import annotations
@@ -38,6 +47,7 @@ import functools
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..kernels import (
     BACKWARD,
@@ -59,6 +69,7 @@ from ..kernels import (
 )
 from ..sparse.matrix import SparseMatrix
 from ..sparse.pattern import SparsePattern
+from .base import DirectFactor, no_double_backward
 
 __all__ = [
     "SupernodalFactor",
@@ -740,6 +751,7 @@ class _Level:
     zf: int
     schur: list
     fwd: list
+    top: bool = False  # a top-separator level: never split over a mesh
 
 
 def _ell_plans(ell, lev, dummy_tgt):
@@ -814,7 +826,7 @@ def _device_plan(meta, device):
             ub += P * M * M
             fb += P * M
         levels.append(_Level(classes, ub, fb, _ell_plans(plan["top_schur_ells"][li], None, DUMMY),
-                             _ell_plans(plan["top_fwd_ells"][li], None, NDUMMY)))
+                             _ell_plans(plan["top_fwd_ells"][li], None, NDUMMY), top=True))
     perm, pattern = plan["perm"], meta[0]
     dp = dict(
         levels=levels,
@@ -846,13 +858,64 @@ def _buffer(ref: torch.Tensor, rows: int, size: int):
 # ---- numeric factorization --------------------------------------------------------
 
 
-def _factor_values(data, meta, ops):
+def _shard(c: dict, rank: int, world: int):
+    """Rank `rank`'s shard of class batch `c`: ceil(P / world) panels, padded
+    with DUMMY panels, its U at offset 0 of a buffer of its own; plus the
+    device indices that read its results and write the gathered ones back
+    (cached on `c`)."""
+    key = ("_shard", rank, world)
+    got = c.get(key)
+    if got is None:
+        P = c["panel"].shape[0]
+        Pp = -(-P // world)
+
+        def part(name, fill):
+            t = c[name][rank * Pp: (rank + 1) * Pp]
+            pad = t.new_full((Pp - t.shape[0],) + tuple(c[name].shape[1:]), fill)
+            return torch.cat([t, pad]).contiguous()
+
+        sc = {k: v for k, v in c.items() if not isinstance(k, tuple)}
+        sc.update(panel=part("panel", c["dummy"]), cols=part("cols", c["ndummy"]), rows=part("rows", c["ndummy"]),
+                  schur=part("schur", c["dummy"]), ubase=0, fbase=0)
+        panel, cols = c["panel"].long().flatten(), c["cols"].long().flatten()
+        live, lcol = panel != c["dummy"], cols != c["ndummy"]
+        got = c[key] = dict(c=sc, Pp=Pp, read_p=sc["panel"].long().flatten(), read_c=sc["cols"].long().flatten(),
+                            live=live, pos=panel[live], lcol=lcol, col=cols[lcol])
+    return got
+
+
+def _panel_sharded(ops, vals, c, u, logs, boost, group):
+    """K6 on this rank's shard of class batch `c`, then one all-gather of the
+    shards' panels, log pivots and U, written back as one launch on the whole
+    batch would have written them."""
+    world, rank = dist.get_world_size(group), dist.get_rank(group)
+    sh = _shard(c, rank, world)
+    W, M, P, Pp, B = c["W"], c["M"], c["panel"].shape[0], sh["Pp"], vals.shape[0]
+    ul = _buffer(vals, B, Pp * M * M)
+    bl = torch.zeros_like(boost)
+    ops["panel"](vals, sh["c"], ul, logs, bl)
+    mine = [vals[:, sh["read_p"]], logs[:, sh["read_c"]]] + ([ul[:, : Pp * M * M]] if M else [])
+    sizes = [t.shape[1] for t in mine]
+    mine = torch.cat(mine, 1).contiguous()
+    parts = [torch.empty_like(mine) for _ in range(world)]
+    dist.all_gather(parts, mine, group=group)
+    dist.all_reduce(bl, group=group)
+    got = [torch.cat(p, 1) for p in zip(*(t.split(sizes, 1) for t in parts))]  # rank-major = the padded batch
+    vals[:, sh["pos"]] = got[0][:, : P * (W + M) * W][:, sh["live"]]
+    logs[:, sh["col"]] = got[1][:, : P * W][:, sh["lcol"]]
+    if M:
+        u[:, c["ubase"]: c["ubase"] + P * M * M] = got[2][:, : P * M * M]
+    boost += bl
+
+
+def _factor_values(data, meta, ops, mesh=None):
     """(vals, s, logdet (B,), boost (B,) int32) of B precisions over one pattern.
 
     K5's `fct_init` symmetrizes, equilibrates and scatters A onto the fill
-    pattern; K6 factors each class batch, K5 applies each level's Schur
-    updates; logdet = 2(Σ log pivots − Σ log s) is a K5 sum over the log
-    pivots (K6) and the -log s (`fct_init`) side by side in one buffer."""
+    pattern; K6 factors each class batch (with a mesh, each rank a shard of
+    the scan levels' batches), K5 applies each level's Schur updates;
+    logdet = 2(Σ log pivots − Σ log s) is a K5 sum over the log pivots (K6)
+    and the -log s (`fct_init`) side by side in one buffer."""
     plan = _PLAN_CACHE[meta]
     dp = _device_plan(meta, data.device)
     B, n = data.shape[0], plan["n"]
@@ -861,10 +924,14 @@ def _factor_values(data, meta, ops):
     logs = data.new_empty(B, 2 * n)  # [log pivots | -log s]
     ops["init"](dp["init"], data.contiguous(), vals, s, logs[:, n:])
     boost = torch.zeros(B, dtype=torch.int32, device=data.device)
+    group = None if mesh is None else mesh.get_group(0)
     for lv in dp["levels"]:
         u = _buffer(vals, B, lv.zu)
         for c in lv.classes:
-            ops["panel"](vals, c, u, logs, boost)
+            if group is None or lv.top:
+                ops["panel"](vals, c, u, logs, boost)
+            else:
+                _panel_sharded(ops, vals, c, u, logs, boost, group)
         for ell in lv.schur:
             ops["segsum"](ell, u, out=vals, alpha=-1.0, accumulate=True)
     chunks, total = dp["logdet"]
@@ -922,8 +989,8 @@ class SupernodalLogdet(torch.autograd.Function):
     boosted). Σ comes from the saved factor by K8 and K5; no refactorization."""
 
     @staticmethod
-    def forward(ctx, data, meta):
-        vals, s, logdet, boost = _factor_values(data, meta, _KERNEL_OPS)
+    def forward(ctx, data, meta, mesh=None):
+        vals, s, logdet, boost = _factor_values(data, meta, _KERNEL_OPS, mesh)
         ctx.mark_non_differentiable(vals, s, boost)
         ctx.save_for_backward(vals, s)
         ctx.meta = meta
@@ -931,13 +998,14 @@ class SupernodalLogdet(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, glogdet, _gv, _gs, _gb):
+        no_double_backward("the supernodal logdet")
         vals, s = ctx.saved_tensors
         z = _selinv_data(vals, s, ctx.meta[0], ctx.meta, _KERNEL_OPS)
-        return glogdet[:, None] * z, None
+        return glogdet[:, None] * z, None, None
 
 
 @dataclasses.dataclass(frozen=True)
-class SupernodalFactor:
+class SupernodalFactor(DirectFactor):
     """Q = (S⁻¹L)(S⁻¹L)ᵀ per chain: L's values on the fill pattern, vals
     (B, nnzL+1) with a DUMMY slot, and the Jacobi scaling s (B, n).
 
@@ -954,6 +1022,7 @@ class SupernodalFactor:
     # the steps' implementations: the kernels (plain versions on CPU tensors);
     # _PLAIN_OPS only to compare the kernels with the plain versions on the card
     _ops: dict = dataclasses.field(default_factory=lambda: _KERNEL_OPS, repr=False, compare=False)
+    data: torch.Tensor = dataclasses.field(default=None, repr=False, compare=False)  # (B, nnz) factored
 
     @property
     def plan(self):
@@ -962,6 +1031,10 @@ class SupernodalFactor:
     @property
     def n(self):
         return self.plan["n"]
+
+    @property
+    def pattern(self) -> SparsePattern:
+        return self.meta[0]
 
     def _levels(self):
         return _device_plan(self.meta, self.vals.device)["levels"]
@@ -1011,8 +1084,8 @@ class SupernodalFactor:
         out = xp.new_empty(xp.shape[0], self.n)
         return self._ops["segsum"](dp["unperm"], xp, y=self._scale_rows(k), out=out)
 
-    def solve(self, b: torch.Tensor) -> torch.Tensor:
-        """Q x = b for b (*batch, n) or (*batch, n, k)."""
+    def _solve_both(self, b: torch.Tensor) -> torch.Tensor:
+        """Q x = b: K7 forward and backward over the level schedule."""
         rows, k = self._rows(b)
         dp = _device_plan(self.meta, b.device)
         xp = self._ops["segsum"](dp["perm"], rows, y=self._scale_rows(k))
@@ -1072,12 +1145,16 @@ class SupernodalFactor:
         return seg(total, seg(chunks, z, y=y))[:, 0].reshape(tuple(self.batch_shape))
 
 
-def supernodal_factorize(Q: SparseMatrix, max_width: int = 2048, ordering: str = "auto") -> SupernodalFactor:
-    """Factorize Q (SPD, symmetric pattern; data (nnz,) or (B, nnz))."""
-    return _factorize(Q, max_width, ordering, _KERNEL_OPS)
+def supernodal_factorize(Q: SparseMatrix, max_width: int = 2048, ordering: str = "auto", mesh=None
+                         ) -> SupernodalFactor:
+    """Factorize Q (SPD, symmetric pattern; data (nnz,) or (B, nnz)). With
+    `mesh` (a ``torch.distributed.device_mesh.DeviceMesh``), the scan levels'
+    panel work is split over the ranks of its first dimension; every rank
+    passes the same Q and gets the same factor, equal to the one-rank path's."""
+    return _factorize(Q, max_width, ordering, _KERNEL_OPS, mesh)
 
 
-def _factorize(Q: SparseMatrix, max_width: int, ordering: str, ops: dict) -> SupernodalFactor:
+def _factorize(Q: SparseMatrix, max_width: int, ordering: str, ops: dict, mesh=None) -> SupernodalFactor:
     """`supernodal_factorize` on the kernels, or, with ops=_PLAIN_OPS, on the
     plain versions whatever the device and with no gradient (to compare the
     kernels with them on the card)."""
@@ -1090,8 +1167,8 @@ def _factorize(Q: SparseMatrix, max_width: int, ordering: str, ops: dict) -> Sup
     batch = tuple(Q.data.shape[:-1])
     data = Q.data.reshape(-1, Q.nnz)
     if ops is _KERNEL_OPS:
-        logdet, vals, s, boost = SupernodalLogdet.apply(data, meta)
+        logdet, vals, s, boost = SupernodalLogdet.apply(data, meta, mesh)
     else:
         with torch.no_grad():
-            vals, s, logdet, boost = _factor_values(data, meta, ops)
-    return SupernodalFactor(vals, s, logdet.reshape(batch), boost, meta, batch, ops)
+            vals, s, logdet, boost = _factor_values(data, meta, ops, mesh)
+    return SupernodalFactor(vals, s, logdet.reshape(batch), boost, meta, batch, ops, data)

@@ -5,8 +5,9 @@ bidiagonal Cholesky factor Q = L Lᵀ of B tridiagonal matrices at once:
 diagonal ``d`` (..., n) and subdiagonal ``e`` (..., n-1). Factorization,
 solves and the Takahashi recursion run on the kernels K1-K3
 (``tpu_gmrf_torch.kernels``); the logdet is differentiable through
-`TridiagLogdet`, whose backward is the selected inverse (K3). The solves
-have no backward in this port (nothing on the Laplace path needs one).
+`TridiagLogdet`, whose backward is the selected inverse (K3), and `solve`
+through `FactorSolve` (K2 forward and backward). The other solves and the
+selected inverse have no backward and raise while a gradient is asked.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 
 from ..kernels import SOLVE_BOTH, SOLVE_L, SOLVE_LT, tridiag_factor, tridiag_selinv, tridiag_solve
+from .base import DirectFactor, no_double_backward
 from ..sparse.matrix import SparseMatrix, _index
 from ..sparse.pattern import SparsePattern
 
@@ -42,6 +44,7 @@ class TridiagLogdet(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, glogdet, _gd, _ge):
+        no_double_backward("the tridiag logdet")
         d, e = ctx.saved_tensors
         zdiag, zoff = tridiag_selinv(d, e)
         g = glogdet[:, None]
@@ -49,13 +52,16 @@ class TridiagLogdet(torch.autograd.Function):
 
 
 @dataclasses.dataclass(frozen=True)
-class TridiagFactor:
+class TridiagFactor(DirectFactor):
     """Q = L Lᵀ with L lower bidiagonal: diag d (..., n), subdiag e (..., n-1),
-    and the differentiable log-determinant computed with them (K1)."""
+    the differentiable log-determinant computed with them (K1), and the rows
+    a (B, n), c (B, n-1) of tridiag(a, c) = Q they were factored from."""
 
     d: torch.Tensor
     e: torch.Tensor
     logdet_: torch.Tensor
+    a: torch.Tensor = dataclasses.field(repr=False, compare=False)
+    c: torch.Tensor = dataclasses.field(repr=False, compare=False)
 
     @property
     def n(self):
@@ -82,9 +88,22 @@ class TridiagFactor:
         """Lᵀ x = z (K2)."""
         return self._solve(z, SOLVE_LT)
 
-    def solve(self, b: torch.Tensor) -> torch.Tensor:
+    def _solve_both(self, b: torch.Tensor) -> torch.Tensor:
         """Q x = b, both triangular solves fused in one launch (K2)."""
         return self._solve(b, SOLVE_BOTH)
+
+    @property
+    def grad_inputs(self):
+        return (self.a, self.c)
+
+    def _input_grads(self, gb: torch.Tensor, x: torch.Tensor):
+        """ā_k = −Σ b̄_k x_k and c̄_k = −Σ (b̄_{k+1} x_k + b̄_k x_{k+1}): c sits at
+        (k+1, k) and (k, k+1), as in `TridiagLogdet`'s backward."""
+        B, n = self.a.shape
+        gb, x = gb.reshape(B, n, -1), x.reshape(B, n, -1)
+        ga = -(gb * x).sum(-1)
+        gc = -(gb[:, 1:] * x[:, :-1] + gb[:, :-1] * x[:, 1:]).sum(-1)
+        return ga, gc
 
     def sqrt_matvec(self, z: torch.Tensor) -> torch.Tensor:
         """L z for z (*batch, n) or (*batch, n, k); plain torch."""
@@ -153,5 +172,6 @@ def tridiag_factorize(Q: SparseMatrix) -> TridiagFactor:
         where = torch.as_tensor(np.nonzero(present)[0], device=dev)
         c = c.index_copy(-1, where, Q.data[..., torch.as_tensor(sub_pos[present], device=dev)])
     batch = a.shape[:-1]
-    logdet, d, e = TridiagLogdet.apply(_rows(a, n), _rows(c, n - 1))
-    return TridiagFactor(d.reshape(a.shape), e.reshape(c.shape), logdet.reshape(batch))
+    a_rows, c_rows = _rows(a, n), _rows(c, n - 1)
+    logdet, d, e = TridiagLogdet.apply(a_rows, c_rows)
+    return TridiagFactor(d.reshape(a.shape), e.reshape(c.shape), logdet.reshape(batch), a_rows, c_rows)
