@@ -44,7 +44,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    blocks of 450, 901 right-hand sides; the 4-block interface system) and at
    example 12's, against their plain versions and the library yardstick
    (cholesky_ex + solve_triangular on the same blocks), in float32 and
-   float64;
+   float64; K12's block entry at k = 1 (the gradient's re-solve), 8, 9, 64
+   and 901 at phase 17's shape, and both kernels at the tile edges (blocks
+   of 64 and 65, P = 1 and 2, k = 1, 3, 64, 65);
 4. the flagship slice: batched value and θ-gradient of the Laplace marginal
    of an AR1 + Poisson model (256 chains, n=500) through the kernels, in
    float32, checked against the plain path in float64 (the same code on CPU
@@ -93,8 +95,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
 17. the SPIKE path (tpu_gmrf/parallel/pbtridiag.py): the space-time
    precision Q_t ⊗ Q_s (AR1 over Nt=128, ρ=0.9; Matérn α=2 at g=16, ns=450)
    in P=4 chunks on one card, f64: x, logdet and the gradient of bᵀQ⁻¹b with
-   respect to diag, sub and b, against the supernodal solve and logdet of
-   the assembled sparse Q (residual by SymmetricBlockTridiagonalMap) and the
+   respect to diag, sub and b, the solve's and the gradient's time split by
+   kernel, against the supernodal solve and logdet of the assembled sparse Q (residual by SymmetricBlockTridiagonalMap) and the
    plain path on CPU tensors; example 12 part 3 with its own limits; the
    public pbtridiag_solve / pbtridiag_logdet on a one-rank NCCL DeviceMesh
    and supernodal_factorize(mesh=) on it at n=5741;
@@ -2075,9 +2077,10 @@ def spike_kernel_calls(diag, sub, b, P: int) -> dict:
     return seen
 
 
-def check_spike_kernels(label, diag, sub, b, P: int, dtype, results, reps: int = REPS):
+def check_spike_kernels(label, diag, sub, b, P: int, dtype, results, reps: int = REPS, sweep: bool = False):
     """Phase 3f: K11's and K12's block entries and K18 on the arguments the SPIKE solve gives them, against
-    their plain versions and the library yardstick (`cholesky_ex` + `solve_triangular` on the same blocks)."""
+    their plain versions and the library yardstick (`cholesky_ex` + `solve_triangular` on the same blocks);
+    K12's at k = 1 (the gradient's re-solve) and the solve's own k, and with `sweep` also at 8, 9 and 64."""
     from tpu_gmrf_torch import kernels
 
     calls = spike_kernel_calls(diag, sub, b, P)
@@ -2098,18 +2101,21 @@ def check_spike_kernels(label, diag, sub, b, P: int, dtype, results, reps: int =
           shape=f"B={B} K={K} s={s}", extra=" (library: cholesky_ex of the K blocks + solve_triangular for M)")
     (Pf, R), _ = calls["bt_trsv_blocks"]
     k = R.shape[-1]
-    Lb, Rb = Pf[:, :, :s].reshape(B * K, s, s), R.reshape(B * K, s, k)
-    check(f"bt_trsv_blocks {label}", dtype, kernels.bt_trsv_blocks(Pf, R), kernels.bt_trsv_blocks_plain(Pf, R),
-          "bt_trsv_blocks", results, cuda_ms(lambda: kernels.bt_trsv_blocks(Pf, R), reps, 1),
-          cuda_ms(lambda: kernels.bt_trsv_blocks_plain(Pf, R), reps, 1),
-          cost=(B * k * (2 * K * s * s + 4 * (K - 1) * s * s),
-                el * (B * (K * s * (s + 1) // 2 + (K - 1) * s * s) + 2 * B * K * s * k)),
-          library_ms=cuda_ms(lambda: torch.linalg.solve_triangular(
-              Lb.mT, torch.linalg.solve_triangular(Lb, Rb, upper=False), upper=True), reps, 1),
-          shape=f"B={B} K={K} s={s} k={k}", extra=" (library: solve_triangular both ways on each block)")
-    R1 = R[..., :1].contiguous()  # one column per chunk, as the gradient's re-solve gives it: a block per column
-    check(f"bt_trsv_blocks {label} k=1", dtype, kernels.bt_trsv_blocks(Pf, R1), kernels.bt_trsv_blocks_plain(Pf, R1),
-          "bt_trsv_blocks", {}, extra=f" kernel_ms={cuda_ms(lambda: kernels.bt_trsv_blocks(Pf, R1), reps, 1):.3f}")
+    Lb = Pf[:, :, :s].reshape(B * K, s, s)
+    # 8 and 9 straddle the kernel's two column tiles (8 and 64 right-hand sides); the row of `results` is k's
+    ks = (1, 8, 9, 64, k) if sweep else (1, k)
+    for kk in ks:
+        Rk = R[..., :kk].contiguous() if kk < k else R
+        Rb = Rk.reshape(B * K, s, kk)
+        check(f"bt_trsv_blocks {label} k={kk}", dtype, kernels.bt_trsv_blocks(Pf, Rk),
+              kernels.bt_trsv_blocks_plain(Pf, Rk), "bt_trsv_blocks", results if kk == k else {},
+              cuda_ms(lambda: kernels.bt_trsv_blocks(Pf, Rk), reps, 1),
+              cuda_ms(lambda: kernels.bt_trsv_blocks_plain(Pf, Rk), reps, 1),
+              cost=(B * kk * (2 * K * s * s + 4 * (K - 1) * s * s),
+                    el * (B * (K * s * (s + 1) // 2 + (K - 1) * s * s) + 2 * B * K * s * kk)),
+              library_ms=cuda_ms(lambda: torch.linalg.solve_triangular(
+                  Lb.mT, torch.linalg.solve_triangular(Lb, Rb, upper=False), upper=True), reps, 1),
+              shape=f"B={B} K={K} s={s} k={kk}", extra=" (library: solve_triangular both ways on each block)")
     (Al, Be, Ga, r), _ = calls["spike_reduced"]
     Pn, ns, kr = r.shape
     gs, gl, gL = kernels.spike_reduced(Al, Be, Ga, r)
@@ -2123,8 +2129,96 @@ def check_spike_kernels(label, diag, sub, b, P: int, dtype, results, reps: int =
               Lc, torch.cat([Al.mT, Ga, r], -1), upper=False)), reps, 1),
           shape=f"P={Pn} ns={ns} k={kr}", extra=" (library: cholesky_ex of the P blocks + one solve_triangular)")
     r2 = torch.ones_like(r)
-    check(f"spike_reduced {label}, factored", dtype, kernels.spike_reduced(Al, None, Ga, r2, factors=gL)[0],
-          kernels.spike_reduced_plain(Al, None, Ga, r2, factors=gL)[0], "spike_reduced", {})
+    check(f"spike_reduced {label}, factored (the gradient's re-solve)", dtype,
+          kernels.spike_reduced(Al, None, Ga, r2, factors=gL)[0],
+          kernels.spike_reduced_plain(Al, None, Ga, r2, factors=gL)[0], "spike_reduced", {},
+          cuda_ms(lambda: kernels.spike_reduced(Al, None, Ga, r2, factors=gL), reps, 1),
+          cuda_ms(lambda: kernels.spike_reduced_plain(Al, None, Ga, r2, factors=gL), reps, 1))
+
+
+def check_spike_edges(dtype, dev):
+    """Phase 3f: K12's block entry and K18 on random SPD systems at the edges of their 64-row tiles and of
+    their column tiles (blocks of 64 and 65; k = 1, 3, 64, 65; P = 1 and 2, with and without the factors),
+    against their plain versions, held to SN_TOL."""
+    from tpu_gmrf_torch import kernels
+
+    rng = np.random.default_rng(23)
+    worst = {"bt_trsv_blocks": 0.0, "spike_reduced": 0.0}
+    for s in (64, 65):
+        B, K = 2, 3
+        G = rng.normal(size=(B, K, s, s))
+        D = torch.tensor(G @ np.swapaxes(G, -1, -2) + 2 * s * np.eye(s), dtype=dtype, device=dev)
+        E = torch.tensor(0.3 * rng.normal(size=(B, K - 1, s, s)), dtype=dtype, device=dev)
+        P = kernels.bt_factor_blocks(D, E)[0]
+        for k in (1, 3, 64, 65):
+            b = torch.tensor(rng.normal(size=(B, K, s, k)), dtype=dtype, device=dev)
+            worst["bt_trsv_blocks"] = max(worst["bt_trsv_blocks"], rel_err(
+                (kernels.bt_trsv_blocks(P, b),), (kernels.bt_trsv_blocks_plain(P, b),))[1])
+        for Pn in (1, 2):
+            for k in (1, 3):
+                gamma = 0.3 * rng.normal(size=(Pn, s, s))
+                G = rng.normal(size=(Pn, s, s))
+                beta = G @ np.swapaxes(G, -1, -2) + 2 * s * np.eye(s)
+                alpha = np.concatenate([np.zeros((1, s, s)), np.swapaxes(gamma[:-1], -1, -2)])
+                gamma[-1] = 0.0
+                a, be, g, r = (torch.tensor(x, dtype=dtype, device=dev)
+                               for x in (alpha, beta, gamma, rng.normal(size=(Pn, s, k))))
+                gs, gl, gL = kernels.spike_reduced(a, be, g, r)
+                ps, pl, _ = kernels.spike_reduced_plain(a, be, g, r)
+                fs = kernels.spike_reduced(a, None, g, r, factors=gL)[0]
+                fp = kernels.spike_reduced_plain(a, None, g, r, factors=gL)[0]
+                worst["spike_reduced"] = max(worst["spike_reduced"], rel_err((gs, gl), (ps, pl))[1],
+                                             rel_err((fs,), (fp,))[1])
+    torch.cuda.synchronize()
+    tol = SN_TOL[dtype]
+    log(f"  tile edges, {dtype_name(dtype)}: bt_trsv_blocks (s = 64, 65; k = 1, 3, 64, 65) worst rel "
+        f"{worst['bt_trsv_blocks']:.3e} (tol {tol['bt_trsv_blocks']:.0e}); spike_reduced (ns = 64, 65; P = 1, 2; "
+        f"k = 1, 3; also with factors) worst rel {worst['spike_reduced']:.3e} (tol {tol['spike_reduced']:.0e})")
+    if not all(worst[k] <= tol[k] for k in worst):
+        raise AssertionError("a SPIKE kernel disagrees with its plain version at a tile edge")
+
+
+def spike_split(diag, sub, b, P: int) -> dict:
+    """Device ms of one SPIKE solve + logdet and of its gradient's re-solve, split by kernel: CUDA events around
+    every call of the three kernels' wrappers (recorded by wrapping their names in parallel/pbtridiag.py); the
+    rest is the torch code between them."""
+    from unittest import mock
+
+    from tpu_gmrf_torch.parallel import pbtridiag as pb
+
+    names = ("bt_factor_blocks", "bt_trsv_blocks", "spike_reduced")
+    spans: list = []
+
+    def timing(name):
+        fn = getattr(pb, name)
+
+        def wrapper(*args, **kw):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = fn(*args, **kw)
+            e1.record()
+            spans.append((name, e0, e1))
+            return out
+
+        return mock.patch.object(pb, name, wrapper)
+
+    leaves = [t.detach().clone().requires_grad_() for t in (diag, sub, b)]
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    with timing(names[0]), timing(names[1]), timing(names[2]):
+        torch.cuda.synchronize()
+        marks[0].record()
+        x, _ = pb._pbtridiag_chunks(*leaves, P)
+        marks[1].record()
+        n_solve = len(spans)
+        (x * leaves[2]).sum().backward()
+        marks[2].record()
+        torch.cuda.synchronize()
+    out = {}
+    for part, sel, (m0, m1) in (("solve + logdet", spans[:n_solve], marks[:2]), ("gradient", spans[n_solve:], marks[1:])):
+        total = m0.elapsed_time(m1)
+        per = {name: sum(e0.elapsed_time(e1) for nm, e0, e1 in sel if nm == name) for name in names}
+        out[part] = dict(total=total, **per, rest=total - sum(per.values()))
+    return out
 
 
 def spike_path(dn_model, sp_model, dev, card):
@@ -2163,6 +2257,10 @@ def spike_path(dn_model, sp_model, dev, card):
     log(f"  Nt={Nt} ns={ns} P={SPIKE_P} f64 ({3 * Nt * ns * ns * 8 / 1e9:.2f} GB of blocks): solve + logdet "
         f"{solve_s * 1e3:.1f} ms first call, {spike_ms:.1f} ms per call (events); gradient of bᵀQ⁻¹b "
         f"{grad_s * 1e3:.1f} ms; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; on {card}")
+    for part, row in spike_split(diag, sub, b, SPIKE_P).items():
+        log(f"  {part} by kernel (device ms, events): total {row['total']:.2f} = K11-blocks "
+            f"{row['bt_factor_blocks']:.2f} + K12-blocks {row['bt_trsv_blocks']:.2f} + K18 {row['spike_reduced']:.2f} "
+            f"+ torch code between them {row['rest']:.2f}")
 
     t0 = time.perf_counter()
     Qmap = SymmetricBlockTridiagonalMap(diag, sub)
@@ -2380,11 +2478,12 @@ def main() -> int:
         f"Nt={SPIKE_NT}, ns={dn_model.n}, P={SPIKE_P} and example 12's shape, on {card}")
     sys17 = spike_system(dn_model, torch.float64, dev)
     check_spike_kernels(f"Nt={SPIKE_NT} P={SPIKE_P}", *(t.float() for t in sys17), SPIKE_P, torch.float32, {}, 3)
-    check_spike_kernels(f"Nt={SPIKE_NT} P={SPIKE_P}", *sys17, SPIKE_P, torch.float64, results, 3)
+    check_spike_kernels(f"Nt={SPIKE_NT} P={SPIKE_P}", *sys17, SPIKE_P, torch.float64, results, 3, sweep=True)
     del sys17
     ex12 = [torch.tensor(a, device=dev) for a in ex12_system(dev)]
     for dt in (torch.float32, torch.float64):
         check_spike_kernels(f"example 12 P={EX12_P}", *(t.to(dt) for t in ex12), EX12_P, dt, {})
+        check_spike_edges(dt, dev)
 
     log(f"phase 4 flagship slice: laplace_marginal value+grad, B={CHAINS}, n={N}, max_iter={GA_MAX_ITER}")
     y = flagship_y()

@@ -28,23 +28,33 @@
 //   pivot boost: a block that is not positive definite gives a NaN logdet),
 //   and `bt_trsv_blocks` is :76 `_bt_solve_factored` on (B, K, s, k)
 //   right-hand sides with no permutation. The first is K11's fast pass with
-//   the scatter swapped for the block layout; the second is K12's
-//   substitution with the permutation swapped for the block layout while its
-//   B k right-hand sides fit a few waves of blocks on the card, and beyond
-//   that (the SPIKE solve has 1 + 2 s of them) solves column tiles of up to
-//   kNB right-hand sides at a time on block_gemm and blk_trsm of
-//   dense_blocks.cuh.
+//   the scatter swapped for the block layout; the second is a kernel of its
+//   own on the cluster routines of tiles.cuh (shared with K18, csrc/spike.cu).
 //
 // What bounds them on the card. K11 does about K s^3 (7/3) flops per chain
 // (n = 5741, s = 512, K = 12, B = 4: ~1.5e10) on K 2 s^2 values: bound by
 // the FMA rate of the trailing updates and, at B = 4, by the latency of the
 // dependent diagonal tiles (K s / 64 of them per factorization, one block
 // per chain each). K12 reads L and M once per direction: bound by that read
-// from one block per right-hand side. Its block entry's tiles read them once
-// per direction and 64 right-hand sides; each tile is a chain of K dependent
-// block steps whose products run at one block's latency, ~4.5x one
-// right-hand side's block (f64, s = 450, K = 31: ~100 and ~22 ms), so the
-// tiles pay off only past four waves of right-hand sides.
+// from one block per right-hand side. Its block entry does 2 s^2 k flops
+// per block step and direction for each of B chains (f64, B = 4, K = 31,
+// s = 450, k = 901: 1.3e11 flops, bound 2 ms at the f64 tensor-core rate),
+// in a chain of 2 K dependent block steps: bound by the latency of that
+// chain where k is small, by the products where it is large.
+// Its design: every L_k is inverted first (invert_blocks_kernel: a block per
+// chain, block and column tile, left-looking over the row tiles with the
+// inverted diagonal tiles of tiles.cuh; 1/3 s^3 flops per block, all of them
+// independent), so a block step is two products and no substitution: the
+// coupling W = b_k - M_{k-1} y_{k-1} and y_k = L_k^-1 W (backward, M_k^T and
+// L_k^-T). A work unit is one chain and one column tile of 64 right-hand
+// sides (8 when k <= 8), a cluster of up to 8 blocks, each owning row tiles
+// of both products (tiles i and ntiles - 1 - i together when a block owns
+// two, which evens the depths of the triangular products), f64 on the
+// tensor cores; a cluster barrier follows each product. The clusters of one
+// chain walk the blocks in step, so a step's L_k^-1 and M_k (3.2 MB at s =
+// 450) are read from L2 by all the chain's column tiles. The explicit
+// inverses hold the f64 limit of chip_smoke.py's phase 3f at the SPIKE
+// shapes, whose diagonal blocks are well conditioned.
 // Design: chain b's factor is one array P[b] of K panels (2s x s each, rows
 // 0..s the diagonal block, rows s..2s the sub-diagonal block below it); a
 // panel is factored by the blocked panel Cholesky of dense_blocks.cuh, so
@@ -72,6 +82,7 @@
 // bound counts it once. The result is scattered through the permutation.
 
 #include "dense_blocks.cuh"
+#include "tiles.cuh"
 
 namespace {
 
@@ -301,11 +312,8 @@ int launch_factor_blocks(const T* D, const T* E, T* P, int K, int s, T* logdet, 
 // One block per (chain, right-hand side) row of b / out (R, n), chain-major:
 // v = b permuted and padded (in shared memory, or in row `row` of the
 // (R, K s) workspace when one is given), forward (mode 0), backward (mode 1)
-// or both (mode 2) block substitution, out = v unpermuted. kBlocks (the
-// block entry of K12): b and out are blocks (B, K, s, k), column row % k of
-// chain row / k, with no permutation (n = K s, perm unused): the path of
-// the block entry while its right-hand sides fit a few waves of blocks.
-template <typename T, bool kBlocks>
+// or both (mode 2) block substitution, out = v unpermuted.
+template <typename T>
 __global__ void __launch_bounds__(kVecThreads)
     bt_trsv_kernel(const T* P, long long pstride, int K, int s, int n, const int* perm, const T* b, T* out, int k,
                    int mode, T* work) {
@@ -315,11 +323,7 @@ __global__ void __launch_bounds__(kVecThreads)
   const long long row = blockIdx.x;
   const T* Pb = P + (row / k) * pstride;
   const long long panel = 2LL * s * s;
-  // element j of the row: at base + j * step (blocks) or base + perm[j] (rows)
-  const long long base = kBlocks ? (row / k) * (long long)K * s * k + row % k : row * n;
-  const long long step = kBlocks ? k : 1;
-  for (int j = threadIdx.x; j < K * s; j += blockDim.x)
-    v[j] = kBlocks ? b[base + j * step] : (j < n ? b[base + perm[j]] : T(0));
+  for (int j = threadIdx.x; j < K * s; j += blockDim.x) v[j] = j < n ? b[row * n + perm[j]] : T(0);
   __syncthreads();
   if (mode != 1) {
     for (int blk = 0; blk < K; ++blk) {
@@ -337,67 +341,152 @@ __global__ void __launch_bounds__(kVecThreads)
       tri_lower_t_solve(Pb + blk * panel, s, vb, s, red);
     }
   }
-  for (int j = threadIdx.x; j < n; j += blockDim.x) out[kBlocks ? base + j * step : base + perm[j]] = v[j];
+  for (int j = threadIdx.x; j < n; j += blockDim.x) out[row * n + perm[j]] = v[j];
 }
 
-template <typename T, bool kBlocks>
+template <typename T>
 int launch_trsv(const T* P, int K, int s, int n, const int* perm, const T* b, T* out, int k, int mode, int R,
                 T* work, void* stream) {
   if (R == 0) return 0;
   const size_t smem = work ? 0 : sizeof(T) * (size_t)K * s;
-  int rc = set_smem(bt_trsv_kernel<T, kBlocks>, smem);
+  int rc = set_smem(bt_trsv_kernel<T>, smem);
   if (rc) return rc;
-  bt_trsv_kernel<T, kBlocks><<<R, kVecThreads, smem, (cudaStream_t)stream>>>(P, 2LL * s * s * K, K, s, n, perm, b,
-                                                                             out, k, mode, work);
+  bt_trsv_kernel<T><<<R, kVecThreads, smem, (cudaStream_t)stream>>>(P, 2LL * s * s * K, K, s, n, perm, b, out, k,
+                                                                   mode, work);
   return (int)cudaGetLastError();
 }
 
-// The block entry of K12, by column tiles: block (tile, chain) solves columns
-// kNB tile .. kNB tile + q of its chain's right-hand sides X (B, K, s, k) in
-// place, forward then backward; per block row, the coupling (M_{k-1} y_{k-1},
-// or M_k^T x_{k+1}) by block_gemm, then the diagonal block by blk_trsm. A
-// tile reads its chain's factor once per direction for up to kNB columns.
+// L_k^-1 of every block of every chain into Linv (B, K, s, s), lower with
+// zeros above the diagonal: block (ct, k, b) solves L_k X = I for the
+// columns of tile ct, left-looking from row tile ct down, with the inverted
+// diagonal tiles Dinv (B, K, ntiles(s), 64, 64).
 template <typename T>
-__global__ void __launch_bounds__(kThreads) bt_trsv_tiles_kernel(const T* P, int K, int s, T* X, int k) {
+__global__ void __launch_bounds__(tgtile::kThr, 2)
+    invert_blocks_kernel(const T* P, int K, int s, const T* Dinv, T* Linv) {
+  using namespace tgtile;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* S = reinterpret_cast<T*>(smem_raw);  // kNB x (kNB + 1)
-  __shared__ T As[kGK * kLd], Bs[kGK * kLd];
-  const int c0 = blockIdx.x * kNB, q = min(kNB, k - c0);
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  const int ct = blockIdx.x, nt = ntiles(s), c0 = ct * kT, q = min(kT, s - c0);
+  const long long m = (long long)blockIdx.z * K + blockIdx.y;  // chain b, block k
+  const T* L = P + m * 2LL * s * s;
+  const T* D = Dinv + m * nt * kTT;
+  T* X = Linv + m * s * s + c0;
+  for (long long e = threadIdx.x; e < (long long)s * q; e += blockDim.x) {  // the columns of I
+    const int r = (int)(e / q), c = (int)(e % q);
+    X[(long long)r * s + c] = r == c0 + c ? T(1) : T(0);
+  }
+  __syncthreads();
+  for (int j = ct; j < nt; ++j) {
+    const int j0 = j * kT, tj = min(kT, s - j0);
+    T* Xj = X + (long long)j0 * s;
+    if (j > ct)
+      gemm_rows<T, 64>(Xj, s, L + (long long)j0 * s + c0, s, 1, X + (long long)c0 * s, s, 1, tj, q, j0 - c0, true,
+                       sm);
+    gemm_rows<T, 64>(Xj, s, D + (long long)j * kTT, kT, 1, Xj, s, 1, tj, q, tj, false, sm);
+  }
+}
+
+// Whether block `rank` of a cluster of cs owns row tile i of nt: i % cs, or,
+// with at least two tiles per block, i and nt - 1 - i together (the forward
+// and backward products of tile i are i + 1 and nt - i tiles deep).
+__device__ __forceinline__ bool owns(int i, int nt, int rank, int cs) {
+  return (2 * cs <= nt ? (i < nt - 1 - i ? i : nt - 1 - i) : i) % cs == rank;
+}
+
+// The block entry of K12: cluster (col, chain) solves columns NT col .. NT
+// col + q of its chain's right-hand sides Bin (B, K, s, k) into X, forward
+// then backward, with the inverses Linv of the diagonal blocks. Block `rank`
+// of the cluster owns the row tiles of `owns`. A block step is
+// two products with a cluster barrier after each: the coupling, W_i = X_i -
+// M_{k-1}[i, :] y_{k-1} (or X_i - M_k[:, i]^T x_{k+1}; Bin_i in place of X_i
+// going forward) into the scratch W (B,
+// s, k), then X_i = Linv_k[i, :] W (or Linv_k[:, i]^T W).
+template <typename T, int NT>
+__global__ void __launch_bounds__(tgtile::kThr, 2)
+    bt_trsv_blocks_kernel(const T* P, int K, int s, const T* Linv, const T* Bin, T* X, T* W, int k) {
+  using namespace tgtile;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  const int rank = blockIdx.x, cs = gridDim.x, nt = ntiles(s);
+  const int c0 = blockIdx.y * NT, q = min(NT, k - c0);
   const long long panel = 2LL * s * s, ss = (long long)s * s, rows = (long long)s * k;  // rows: one block row of X
-  const T* Pb = P + blockIdx.y * panel * K;
-  T* Xb = X + blockIdx.y * rows * K + c0;
+  const T* Pb = P + blockIdx.z * panel * K;
+  const T* Gb = Linv + blockIdx.z * ss * K;
+  const T* Bb = Bin + blockIdx.z * rows * K + c0;
+  T* Xb = X + blockIdx.z * rows * K + c0;
+  T* Wb = W + blockIdx.z * rows + c0;
   for (int blk = 0; blk < K; ++blk) {
     T* V = Xb + blk * rows;
-    if (blk) {
-      block_gemm(V, k, Pb + (blk - 1) * panel + ss, s, 1, V - rows, k, 1, s, q, s, T(-1), T(1), false, As, Bs);
-      __syncthreads();
+    for (int i = 0; i < nt; ++i) {
+      if (!owns(i, nt, rank, cs)) continue;
+      const long long i0 = (long long)i * kT;
+      const T* Mi = blk ? Pb + (blk - 1) * panel + ss + i0 * s : Pb;  // no coupling into block 0
+      gemm_rows<T, NT>(Wb + i0 * k, k, Mi, s, 1, blk ? V - rows : V, k, 1, min(kT, s - i * kT), q, blk ? s : 0, true,
+                       sm, Bb + blk * rows + i0 * k);
     }
-    blk_trsm(Pb + blk * panel, s, s, V, k, q, false, S, As, Bs);
+    csync();
+    for (int i = 0; i < nt; ++i) {
+      if (!owns(i, nt, rank, cs)) continue;
+      const long long i0 = (long long)i * kT;
+      const int ti = min(kT, s - i * kT);
+      gemm_rows<T, NT>(V + i0 * k, k, Gb + blk * ss + i0 * s, s, 1, Wb, k, 1, ti, q, (int)i0 + ti, false, sm);
+    }
+    csync();
   }
   for (int blk = K - 1; blk >= 0; --blk) {
     T* V = Xb + blk * rows;
-    if (blk < K - 1) {
-      block_gemm(V, k, Pb + blk * panel + ss, 1, s, V + rows, k, 1, s, q, s, T(-1), T(1), false, As, Bs);
-      __syncthreads();
+    for (int i = 0; i < nt; ++i) {
+      if (!owns(i, nt, rank, cs)) continue;
+      const long long i0 = (long long)i * kT;
+      const bool last = blk == K - 1;  // no coupling out of the last block
+      gemm_rows<T, NT>(Wb + i0 * k, k, Pb + blk * panel + ss + i0, 1, s, last ? V : V + rows, k, 1,
+                       min(kT, s - i * kT), q, last ? 0 : s, true, sm, V + i0 * k);
     }
-    blk_trsm(Pb + blk * panel, s, s, V, k, q, true, S, As, Bs);
+    csync();
+    for (int i = 0; i < nt; ++i) {
+      if (!owns(i, nt, rank, cs)) continue;
+      const long long i0 = (long long)i * kT;
+      gemm_rows<T, NT>(V + i0 * k, k, Gb + blk * ss + i0 * s + i0, 1, s, Wb + i0 * k, k, 1, min(kT, s - i * kT), q,
+                       s - (int)i0, false, sm);
+    }
+    csync();
   }
 }
 
-// The block entry of K12 by column tiles (`tiles`), or one block per right-hand
-// side (work: a (B k, K s) workspace when K s values do not fit shared memory).
+// The block entry of K12: the inverted diagonal tiles of every L_k into
+// Dinv, then every L_k^-1 into Linv; then one cluster of up to 8 blocks (one
+// per row tile) per chain and column tile of 64 right-hand sides (8 when
+// k <= 8). work: Dinv (B K ntiles(s) 64 64), Linv (B K s s), W (B s k).
 template <typename T>
-int launch_trsv_blocks(const T* P, int K, int s, const T* b, T* out, int k, int B, T* work, int tiles,
-                       void* stream) {
-  if (!tiles) return launch_trsv<T, true>(P, K, s, K * s, nullptr, b, out, k, 2, B * k, work, stream);
-  if (B == 0 || k == 0) return 0;
+int launch_trsv_blocks(const T* P, int K, int s, const T* b, T* out, int k, int B, T* work, void* stream) {
+  using namespace tgtile;
+  if (B == 0 || k == 0 || K == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
-  int rc = (int)cudaMemcpyAsync(out, b, sizeof(T) * (size_t)B * K * s * k, cudaMemcpyDeviceToDevice, st);
+  const int nt = ntiles(s);
+  T* Dinv = work;
+  T* Linv = Dinv + (long long)B * K * nt * kTT;
+  T* W = Linv + (long long)B * K * s * s;
+  int rc = invert_diag<T>(P, 2LL * s * s, s, s, B * K, Dinv, st);
+  const size_t smem64 = sizeof(T) * 2 * kKS * (Cfg<64>::LDA + Cfg<64>::LDB);
+  if (!rc) rc = set_smem(invert_blocks_kernel<T>, smem64);
   if (rc) return rc;
-  const size_t smem = sizeof(T) * (size_t)kNB * (kNB + 1);
-  if ((rc = set_smem(bt_trsv_tiles_kernel<T>, smem))) return rc;
-  bt_trsv_tiles_kernel<T><<<dim3(cdiv(k, kNB), B), kThreads, smem, st>>>(P, K, s, out, k);
-  return (int)cudaGetLastError();
+  invert_blocks_kernel<T><<<dim3(nt, K, B), kThr, smem64, st>>>(P, K, s, Dinv, Linv);
+  if ((rc = (int)cudaGetLastError())) return rc;
+  // a block per row tile (up to 8), or a block per two when that fits all the clusters on the card at once
+  const int nt2 = cdiv(nt, 2);
+  int cs = nt < 8 ? nt : 8, fit = 0;
+  if (k <= 8)
+    return launch_cluster(bt_trsv_blocks_kernel<T, 8>, dim3(cs, cdiv(k, 8), B), cs,
+                          sizeof(T) * 2 * kKS * (Cfg<8>::LDA + Cfg<8>::LDB), st, P, K, s, (const T*)Linv, b, out, W,
+                          k);
+  const int clusters = cdiv(k, 64) * B;
+  if (nt2 > 1 && nt2 < cs && !max_clusters(bt_trsv_blocks_kernel<T, 64>, dim3(nt2, cdiv(k, 64), B), nt2, smem64, &fit) &&
+      fit >= clusters && !max_clusters(bt_trsv_blocks_kernel<T, 64>, dim3(cs, cdiv(k, 64), B), cs, smem64, &fit) &&
+      fit < clusters)
+    cs = nt2;
+  cudaGetLastError();
+  return launch_cluster(bt_trsv_blocks_kernel<T, 64>, dim3(cs, cdiv(k, 64), B), cs, smem64, st, P, K, s,
+                        (const T*)Linv, b, out, W, k);
 }
 
 // ---- K13 ------------------------------------------------------------------
@@ -545,15 +634,15 @@ extern "C" {
   }                                                                                                           \
   int tg_bt_trsv_##SUF(const T* P, int K, int s, int n, const int* perm, const T* b, T* out, int k, int mode, \
                        int R, T* work, void* stream) {                                                        \
-    return launch_trsv<T, false>(P, K, s, n, perm, b, out, k, mode, R, work, stream);                         \
+    return launch_trsv<T>(P, K, s, n, perm, b, out, k, mode, R, work, stream);                         \
   }                                                                                                           \
   int tg_bt_factor_blocks_##SUF(const T* D, const T* E, T* P, int K, int s, T* logdet, int* flags, int B,      \
                                 void* stream) {                                                               \
     return launch_factor_blocks<T>(D, E, P, K, s, logdet, flags, B, stream);                                  \
   }                                                                                                           \
-  int tg_bt_trsv_blocks_##SUF(const T* P, int K, int s, const T* b, T* out, int k, int B, T* work, int tiles, \
+  int tg_bt_trsv_blocks_##SUF(const T* P, int K, int s, const T* b, T* out, int k, int B, T* work,           \
                               void* stream) {                                                                 \
-    return launch_trsv_blocks<T>(P, K, s, b, out, k, B, work, tiles, stream);                                 \
+    return launch_trsv_blocks<T>(P, K, s, b, out, k, B, work, stream);                                        \
   }                                                                                                           \
   int tg_bt_matvec_##SUF(const T* diag, long long diag_k, long long diag_b, const T* sub, long long sub_k,    \
                          long long sub_b, int K, int s, int n, const int* perm, const T* x, T* y, int kk,     \

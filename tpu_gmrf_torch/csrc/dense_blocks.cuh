@@ -1,9 +1,8 @@
 // Building blocks of the dense kernels K9-K12 (csrc/dense.cu, csrc/banded.cu):
 // a batched blocked right-looking Cholesky of tall panels, spread over
-// (chain, tile) thread blocks, block-level triangular solves of one vector,
-// and one of many (`blk_trsm`, also K18's, csrc/spike.cu). The tiled block
-// product (`gemm_tile`, `block_gemm`), `Eps` and `set_smem` are shared with
-// K6/K8 (csrc/supernodal.cu).
+// (chain, tile) thread blocks, and block-level triangular solves of one
+// vector. The tiled block product (`gemm_tile`, `block_gemm`), `Eps` and
+// `set_smem` are shared with K6/K8 (csrc/supernodal.cu).
 //
 // Layout. Chain b's matrix starts at A + b * stride, row-major with leading
 // dimension ld. A panel is H x W (H >= W): its top W x W part is factored
@@ -196,48 +195,6 @@ __device__ void block_gemm(T* Cm, long long ldc, const T* A, long long sai, long
     for (int j0 = 0; j0 < Nc; j0 += kGB)
       if (!lower || j0 <= i0 + kGB - 1)
         gemm_tile(Cm, ldc, A, sai, sak, B, sbk, sbj, Mr, Nc, Kd, alpha, beta, lower, As, Bs, i0, j0);
-}
-
-// X (m x q, ldx) <- L^-1 X, or L^-T X with `trans`; L lower m x m (ld), S
-// shared memory of kNB x (kNB + 1). Tile by tile (from the top, or from the
-// bottom with `trans`): the solved rows' contribution by block_gemm, then the
-// diagonal tile, staged in S, by substitution, one thread per column of X.
-// Shared by K12's block entry (csrc/banded.cu) and K18 (csrc/spike.cu).
-template <typename T>
-__device__ void blk_trsm(const T* L, int ld, int m, T* X, int ldx, int q, bool trans, T* S, T* As, T* Bs) {
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const int tiles = (m + kNB - 1) / kNB;
-  for (int it = 0; it < tiles; ++it) {
-    const int i0 = (trans ? tiles - 1 - it : it) * kNB, t = min(kNB, m - i0), ls = t + 1;
-    if (!trans && i0 > 0)  // X[i0:i0+t] -= L[i0:i0+t, 0:i0] X[0:i0]
-      block_gemm(X + (long long)i0 * ldx, ldx, L + (long long)i0 * ld, ld, 1, X, ldx, 1, t, q, i0, T(-1), T(1),
-                 false, As, Bs);
-    if (trans && i0 + t < m)  // X[i0:i0+t] -= L[i0+t:m, i0:i0+t]^T X[i0+t:m]
-      block_gemm(X + (long long)i0 * ldx, ldx, L + (long long)(i0 + t) * ld + i0, 1, ld, X + (long long)(i0 + t) * ldx,
-                 ldx, 1, t, q, m - i0 - t, T(-1), T(1), false, As, Bs);
-    for (int e = tid; e < t * t; e += nt) {
-      const int r = e / t, c = e % t;
-      S[r * ls + c] = c <= r ? L[(long long)(i0 + r) * ld + i0 + c] : T(0);
-    }
-    __syncthreads();
-    for (int c = tid; c < q; c += nt) {
-      T* x = X + (long long)i0 * ldx + c;
-      if (!trans) {
-        for (int j = 0; j < t; ++j) {
-          T v = x[(long long)j * ldx];
-          for (int p = 0; p < j; ++p) v -= S[j * ls + p] * x[(long long)p * ldx];
-          x[(long long)j * ldx] = v / S[j * ls + j];
-        }
-      } else {
-        for (int j = t - 1; j >= 0; --j) {
-          T v = x[(long long)j * ldx];
-          for (int p = j + 1; p < t; ++p) v -= S[p * ls + j] * x[(long long)p * ldx];
-          x[(long long)j * ldx] = v / S[j * ls + j];
-        }
-      }
-    }
-    __syncthreads();
-  }
 }
 
 // C(i, j) -= sum_k X(i, k) X(j, k) for j <= i, i < R, j < N, k < depth: one

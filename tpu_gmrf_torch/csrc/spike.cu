@@ -1,5 +1,5 @@
 // K18 spike_reduced: the P-block tridiagonal interface system of the SPIKE
-// solve, eliminated and solved by one block of threads.
+// solve, eliminated and solved by one thread-block cluster.
 //
 // Replaces (JAX reference, tpu_gmrf/parallel/pbtridiag.py):
 //   :100-145 `_reduced_solve`: rows d = 0..P-1 of
@@ -11,173 +11,171 @@
 //   s_d = C_d^-1 (y_d - gamma_d s_{d+1}), and logdet = 2 sum log diag chol(C_d).
 //   The reference runs it redundantly on every device after an all_gather.
 //
-// Design. One block of kThreads threads per system: the recursion is
-// sequential over d, and one system is what a SPIKE solve has. Every matrix
-// lives in global memory (at the main shape, ns = 450 in float64, one block
-// is 1.6 MB; smaller systems sit in L2): the factors L_d = chol(C_d) in the
-// (P, ns, ns) array Lr, kept for the backward solve of a gradient, and a
-// workspace of V = L_{d-1}^-1 alpha_d^T, Z = L_{d-1}^-1 gamma_{d-1} and
-// W = C_{d-1}^-1 y_{d-1}. C_d = beta_d - V^T Z. The Cholesky (blk_potrf) and
-// the triangular solves (blk_trsm of dense_blocks.cuh, shared with K12's
-// block entry) are blocked by 64: a 64 x 64 diagonal tile in shared memory,
-// solved by substitution, and the rest of the work in the tiled product
-// block_gemm of dense_blocks.cuh (shared with K6/K8/K9/K11). C_d is
-// symmetrized before its Cholesky, as jnp.linalg.cholesky does; a pivot that
-// is not finite and positive makes the logdet NaN.
-// `factored`: Lr holds the factors of an earlier call on the same system
-// (beta is not read, the logdet is not written), and only the right-hand
-// sides are eliminated: the second solve of a gradient.
+// What bounds it on the card. Per row, one triangular solve of 2 ns + k
+// right-hand sides, one product of 2 ns^2 (ns + k) flops and a Cholesky of
+// ns^3 / 3: at ns = 450, P = 4, k = 1 about 1.6e9 flops (bound 0.024 ms at
+// the f64 tensor-core rate). The rows are sequential, and so are the row
+// tiles of each solve and Cholesky: the kernel is bound by the latency of
+// that chain of dependent tile steps, each of which is small.
 //
-// What bounds it on the card: one SM. Per row, two triangular solves with ns
-// right-hand sides, one product of 2 ns^3 flops and a Cholesky of ns^3/3,
-// about 4.3 ns^3 flops: at ns = 450, P = 4, 1.6e9 flops on the FMA units of
-// one SM. Spreading a row's products over the card (and `wgmma`) is later work.
+// Design. One cluster of up to 16 blocks (8 where the card refuses 16)
+// holds the whole system; every matrix lives in global memory (at the main
+// shape one block is 1.6 MB, in L2) and the blocks meet at cluster barriers
+// (csrc/tiles.cuh). Per row d:
+//   [C_d | y_d] -= V^T [Z | W_y] (d > 0), 64 x 64 tiles dealt out over the
+//       blocks, f64 on the tensor cores, where W = [V | Z | W_y] =
+//       L_{d-1}^-1 [alpha_d^T | gamma_{d-1} | y_{d-1}] (one solve over
+//       2 ns + k columns);
+//   C_d symmetrized, as jnp.linalg.cholesky does, and factored by chol_rows:
+//       each 64-wide diagonal tile by block 0 (a warp per 16 pivots, then
+//       inverted), the panel below it and the trailing update as tiles over
+//       the cluster. A pivot that is not finite and positive makes the
+//       logdet NaN;
+//   the next row's W is solved with L_d during that Cholesky: while block 0
+//       factors diagonal tile j + 1, the other blocks take W's row tile j
+//       down their column tiles (left-looking, a product with L's finished
+//       tile row and one with the inverted diagonal tile), so the solve
+//       hides behind the factorization's dependent tile steps.
+// Back substitution: y_d -= gamma_d s_{d+1} by row tiles, then L_d^-1 and
+// L_d^-T with the rows spread over the cluster (trsm_rows).
+// `factored`: Lr holds the factors of an earlier call on the same system
+// (beta is not read, the logdet is not written; their diagonal tiles are
+// inverted first), and only the right-hand sides are eliminated: y_d -=
+// alpha_d C_{d-1}^-1 y_{d-1} by two row-spread solves and a product. The
+// second solve of a gradient.
 
-#include "dense_blocks.cuh"
+#include "tiles.cuh"
 
 namespace {
 
-using namespace tgdense;
+using namespace tgtile;
 
-constexpr int kTile = kNB;  // 64: diagonal tiles of the Cholesky and the solves
-
-// Lower Cholesky in place of the m x m matrix A (ld): the diagonal tile in
-// shared memory S (kTile x (kTile + 1)), the rows below it by substitution
-// (one thread per row), the trailing update by block_gemm. The upper
-// triangle is zeroed. *bad is set for a pivot that is not finite and positive.
+// W[i][c] = a[c][i] for i, c < n (W's row stride ldw, a's n), by 64 x 64
+// tiles dealt out over the cluster, staged in shared memory so that both
+// the reads and the writes are coalesced.
 template <typename T>
-__device__ void blk_potrf(T* A, int ld, int m, T* S, T* As, T* Bs, int* bad) {
-  const int tid = threadIdx.x, nt = blockDim.x;
-  for (int c0 = 0; c0 < m; c0 += kTile) {
-    const int t = min(kTile, m - c0), ls = t + 1;
-    T* D = A + (long long)c0 * ld + c0;
-    for (int e = tid; e < t * t; e += nt) {
-      const int r = e / t, c = e % t;
-      S[r * ls + c] = c <= r ? D[(long long)r * ld + c] : T(0);
+__device__ void transpose_into(T* W, int ldw, const T* a, int n, int rank, int cs, T* sm) {
+  const int nt = ntiles(n);
+  for (int e = rank; e < nt * nt; e += cs) {
+    const int r0 = (e / nt) * kT, c0 = (e % nt) * kT;  // the tile of a at (r0, c0)
+#pragma unroll
+    for (int u = 0; u < kTT / kThr; ++u) {
+      const int f = threadIdx.x + u * kThr, r = f / kT, c = f % kT;
+      if (r0 + r < n && c0 + c < n) sm[c * kLdS + r] = a[(long long)(r0 + r) * n + c0 + c];
     }
     __syncthreads();
-    for (int j = 0; j < t; ++j) {
-      if (tid == 0) {
-        const T l = sqrt(S[j * ls + j]);
-        if (!(isfinite(l) && l > T(0))) *bad = 1;
-        S[j * ls + j] = l;
-      }
-      __syncthreads();
-      const T inv = T(1) / S[j * ls + j];
-      for (int i = j + 1 + tid; i < t; i += nt) S[i * ls + j] *= inv;
-      __syncthreads();
-      const int mm = t - j - 1;
-      for (int e = tid; e < mm * mm; e += nt) {
-        const int i = j + 1 + e / mm, q = j + 1 + e % mm;
-        if (q <= i) S[i * ls + q] -= S[i * ls + j] * S[q * ls + j];
-      }
-      __syncthreads();
-    }
-    for (int e = tid; e < t * t; e += nt) {
-      const int r = e / t, c = e % t;
-      D[(long long)r * ld + c] = c <= r ? S[r * ls + c] : T(0);
-    }
-    // the rows below the tile: X = A[c0+t:m, c0:c0+t] L_tile^-T
-    for (int r = c0 + t + tid; r < m; r += nt) {
-      T* x = A + (long long)r * ld + c0;
-      for (int j = 0; j < t; ++j) {
-        T v = x[j];
-        for (int q = 0; q < j; ++q) v -= x[q] * S[j * ls + q];
-        x[j] = v / S[j * ls + j];
-      }
-    }
-    __syncthreads();
-    if (c0 + t < m) {
-      const T* X = A + (long long)(c0 + t) * ld + c0;
-      block_gemm(A + (long long)(c0 + t) * ld + c0 + t, ld, X, ld, 1, X, 1, ld, m - c0 - t, m - c0 - t, t, T(-1),
-                 T(1), true, As, Bs);
+#pragma unroll
+    for (int u = 0; u < kTT / kThr; ++u) {
+      const int f = threadIdx.x + u * kThr, c = f / kT, r = f % kT;
+      if (r0 + r < n && c0 + c < n) W[(long long)(c0 + c) * ldw + r0 + r] = sm[c * kLdS + r];
     }
     __syncthreads();
   }
-  for (long long e = tid; e < (long long)m * m; e += nt) {
-    const int r = (int)(e / m), c = (int)(e % m);
-    if (c > r) A[(long long)r * ld + c] = T(0);
-  }
-  __syncthreads();
-}
-
-template <typename T>
-__device__ void copy_block(T* dst, const T* src, long long count) {
-  for (long long e = threadIdx.x; e < count; e += blockDim.x) dst[e] = src[e];
 }
 
 // The system: alpha, beta, gamma (P, ns, ns), r (P, ns, k) in; s (P, ns, k)
 // out (it holds y_d until the back substitution overwrites it), Lr (P, ns,
-// ns) the factors (out, or in with `factored`), logdet (1,) out; work holds
-// 2 ns^2 + ns k values.
+// ns) the factors (out, or in with `factored`), logdet (1,) out; W holds
+// ns (2 ns + k) values (ns k with `factored`), Dinv P ntiles(ns) 64 x 64;
+// *bad is zero on entry.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThr, 1)
     spike_reduced_kernel(const T* __restrict__ alpha, const T* __restrict__ beta, const T* __restrict__ gamma,
-                         const T* __restrict__ r, int P, int ns, int k, T* Lr, int factored, T* s, T* work,
-                         T* logdet) {
+                         const T* __restrict__ r, int P, int ns, int k, T* Lr, int factored, T* s, T* W, T* Dinv,
+                         int* bad, T* logdet) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* S = reinterpret_cast<T*>(smem_raw);  // kTile x (kTile + 1)
-  __shared__ T As[kGK * kLd], Bs[kGK * kLd];
-  __shared__ T red[kThreads];
-  __shared__ int bad;
-  const int tid = threadIdx.x;
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  __shared__ T red[kThr];
+  const int tid = threadIdx.x, rank = blockIdx.x, cs = gridDim.x;  // the grid is one cluster
+  const int nt = ntiles(ns);
   const long long nn = (long long)ns * ns, nk = (long long)ns * k;
-  T* V = work;
-  T* Z = work + nn;
-  T* W = work + 2 * nn;
-  if (tid == 0) bad = 0;
+  const int ldw = factored ? k : 2 * ns + k;
+  if (factored) {
+    for (int e = rank; e < P * nt; e += cs) {
+      const int d = e / nt, j0 = (e % nt) * kT, t = min(kT, ns - j0);
+      invert_tile(Lr + d * nn + (long long)j0 * ns + j0, ns, t, Dinv + (long long)e * kTT, sm);
+    }
+  }
   for (int d = 0; d < P; ++d) {
     T* C = Lr + d * nn;
     T* Y = s + d * nk;
-    copy_block(Y, r + d * nk, nk);
-    if (!factored) copy_block(C, beta + d * nn, nn);
-    __syncthreads();
+    const T* rd = r + d * nk;
+    cluster_copy<T>(nk, rank, cs, [&](long long e) { return rd[e]; }, [&](long long e, T v) { Y[e] = v; });
+    if (!factored) {
+      const T* bd = beta + d * nn;
+      cluster_copy<T>(nn, rank, cs, [&](long long e) { return bd[e]; }, [&](long long e, T v) { C[e] = v; });
+    }
+    if (factored && d > 0) {  // W = y_{d-1}
+      const T* yp = s + (d - 1) * nk;
+      cluster_copy<T>(nk, rank, cs, [&](long long e) { return ldcg(yp + e); }, [&](long long e, T v) { W[e] = v; });
+    }
+    csync();
     if (d > 0) {
-      const T* Lp = Lr + (d - 1) * nn;
-      const T* a = alpha + d * nn;
-      if (!factored) {
-        const T* g = gamma + (d - 1) * nn;
-        for (long long e = tid; e < nn; e += blockDim.x) {
-          const long long i = e / ns, j = e % ns;
-          V[e] = a[j * ns + i];  // alpha_d^T
-          Z[e] = g[e];
+      if (!factored) {  // [C_d | y_d] -= V^T [Z | W_y], W solved during the Cholesky of C_{d-1}: V^T(i, p) = W[p][i]
+        const int ctiles = nt + 1;  // nt column tiles of C_d, then y_d
+        for (int e = rank; e < nt * ctiles; e += cs) {
+          const int i0 = (e / ctiles) * kT, ct = e % ctiles, ti = min(kT, ns - i0);
+          if (ct < nt)
+            gemm_rows<T, 64>(C + (long long)i0 * ns + ct * kT, ns, W + i0, 1, ldw, W + ns + ct * kT, ldw, 1, ti,
+                             min(kT, ns - ct * kT), ns, true, sm);
+          else
+            gemm_k<T>(Y + (long long)i0 * k, k, W + i0, 1, ldw, W + 2 * ns, ldw, 1, ti, k, ns, true, sm);
         }
-        __syncthreads();
-        blk_trsm(Lp, ns, ns, V, ns, ns, false, S, As, Bs);
-        blk_trsm(Lp, ns, ns, Z, ns, ns, false, S, As, Bs);
-        block_gemm(C, ns, V, 1, ns, Z, ns, 1, ns, ns, ns, T(-1), T(1), false, As, Bs);  // C -= V^T Z
+      } else {  // W_y <- C_{d-1}^-1 y_{d-1}; y_d -= alpha_d W_y
+        const T* Lp = Lr + (d - 1) * nn;
+        const T* Dp = Dinv + (long long)(d - 1) * nt * kTT;
+        trsm_k<T>(Lp, ns, Dp, ns, W, k, k, false, rank, cs, sm);
+        trsm_k<T>(Lp, ns, Dp, ns, W, k, k, true, rank, cs, sm);
+        for (int i = rank; i < nt; i += cs)
+          gemm_k<T>(Y + (long long)i * kT * k, k, alpha + d * nn + (long long)i * kT * ns, ns, 1, W, k, 1,
+                    min(kT, ns - i * kT), k, ns, true, sm);
       }
-      copy_block(W, s + (d - 1) * nk, nk);
-      __syncthreads();
-      blk_trsm(Lp, ns, ns, W, k, k, false, S, As, Bs);
-      blk_trsm(Lp, ns, ns, W, k, k, true, S, As, Bs);
-      block_gemm(Y, k, a, ns, 1, W, k, 1, ns, k, ns, T(-1), T(1), false, As, Bs);  // Y -= alpha_d W
-      __syncthreads();
+      csync();
     }
     if (!factored) {
-      for (long long e = tid; e < nn; e += blockDim.x) {
-        const long long i = e / ns, j = e % ns;
-        if (j < i) C[e] = T(0.5) * (C[e] + C[j * ns + i]);
+      const bool next = d + 1 < P;
+      if (next) {  // W = [alpha_{d+1}^T | gamma_d | y_d], solved with L_d during its Cholesky; reads coalesced
+        const T* ad = alpha + (d + 1) * nn;
+        const T* gd = gamma + d * nn;
+        transpose_into(W, ldw, ad, ns, rank, cs, sm);
+        cluster_copy<T>(nn, rank, cs, [&](long long e) { return gd[e]; },
+                        [&](long long e, T v) { W[(e / ns) * ldw + ns + e % ns] = v; });
+        cluster_copy<T>(nk, rank, cs, [&](long long e) { return ldcg(Y + e); },
+                        [&](long long e, T v) { W[(e / k) * ldw + 2 * ns + e % k] = v; });
       }
-      __syncthreads();
-      blk_potrf(C, ns, ns, S, As, Bs, &bad);
+      symmetrize(C, ns, rank, cs, sm);  // as jnp.linalg.cholesky reads C
+      const T* Dd = Dinv + (long long)d * nt * kTT;
+      // row tile j of W <- L_jj^-1 (W_j - L[j, :j] W[:j]) on the worker's column tiles, once L's tile row j is done
+      auto solve_step = [&](int j, int worker, int workers) {
+        const int j0 = j * kT, tj = min(kT, ns - j0);
+        for (int ct = worker; ct * kT < ldw; ct += workers) {
+          T* X = W + ct * kT;
+          const int q = min(kT, ldw - ct * kT);
+          if (j0) gemm_rows<T, 64>(X + (long long)j0 * ldw, ldw, C + (long long)j0 * ns, ns, 1, X, ldw, 1, tj, q, j0, true, sm);
+          gemm_rows<T, 64>(X + (long long)j0 * ldw, ldw, Dd + (long long)j * kTT, kT, 1, X + (long long)j0 * ldw, ldw, 1,
+                           tj, q, tj, false, sm);
+        }
+      };
+      chol_rows(C, ns, Dinv + (long long)d * nt * kTT, bad, rank, cs, sm, next, solve_step);
     }
   }
   for (int d = P - 1; d >= 0; --d) {
     T* Y = s + d * nk;
-    const T* Ld = Lr + d * nn;
     if (d < P - 1) {  // Y -= gamma_d s_{d+1}
-      block_gemm(Y, k, gamma + d * nn, ns, 1, s + (d + 1) * nk, k, 1, ns, k, ns, T(-1), T(1), false, As, Bs);
-      __syncthreads();
+      for (int i = rank; i < nt; i += cs)
+        gemm_k<T>(Y + (long long)i * kT * k, k, gamma + d * nn + (long long)i * kT * ns, ns, 1, s + (d + 1) * nk, k,
+                  1, min(kT, ns - i * kT), k, ns, true, sm);
+      csync();
     }
-    blk_trsm(Ld, ns, ns, Y, k, k, false, S, As, Bs);
-    blk_trsm(Ld, ns, ns, Y, k, k, true, S, As, Bs);
+    const T* Dd = Dinv + (long long)d * nt * kTT;
+    trsm_k<T>(Lr + d * nn, ns, Dd, ns, Y, k, k, false, rank, cs, sm);
+    trsm_k<T>(Lr + d * nn, ns, Dd, ns, Y, k, k, true, rank, cs, sm);
   }
-  if (factored) return;
+  if (factored || rank != 0) return;
   T acc = T(0);
   for (long long e = tid; e < (long long)P * ns; e += blockDim.x) {
     const long long d = e / ns, i = e % ns;
-    acc += log(Lr[d * nn + i * ns + i]);
+    acc += log(ldcg(Lr + d * nn + i * ns + i));
   }
   red[tid] = acc;
   __syncthreads();
@@ -185,19 +183,30 @@ __global__ void __launch_bounds__(kThreads)
     if (tid < off) red[tid] += red[tid + off];
     __syncthreads();
   }
-  if (tid == 0) logdet[0] = bad ? T(NAN) : T(2) * red[0];
+  if (tid == 0) logdet[0] = ldcg(bad) ? T(NAN) : T(2) * red[0];
 }
 
 template <typename T>
 int launch_reduced(const T* alpha, const T* beta, const T* gamma, const T* r, int P, int ns, int k, T* Lr,
-                   int factored, T* s, T* work, T* logdet, void* stream) {
+                   int factored, T* s, T* work, int* bad, T* logdet, void* stream) {
   if (P == 0 || ns == 0 || k == 0) return 0;
-  const size_t smem = sizeof(T) * (size_t)kTile * (kTile + 1);
-  int rc = set_smem(spike_reduced_kernel<T>, smem);
+  cudaStream_t st = (cudaStream_t)stream;
+  int rc = (int)cudaMemsetAsync(bad, 0, sizeof(int), st);
   if (rc) return rc;
-  spike_reduced_kernel<T><<<1, kThreads, smem, (cudaStream_t)stream>>>(alpha, beta, gamma, r, P, ns, k, Lr, factored,
-                                                                      s, work, logdet);
-  return (int)cudaGetLastError();
+  T* W = work;
+  T* Dinv = work + (long long)ns * (2 * ns + k);
+  const size_t smem = sizeof(T) * kSmemValues;
+  // 16 blocks where a cluster of 16 fits the card, else the portable 8; fewer for a small ns
+  int cs = ntiles(ns) == 1 ? 1 : (2 * ntiles(ns) < 16 ? 2 * ntiles(ns) : 16);
+  if (cs > 8) {
+    int count = 0;
+    if (max_clusters(spike_reduced_kernel<T>, dim3(cs), cs, smem, &count) || count < 1) {
+      cudaGetLastError();
+      cs = 8;
+    }
+  }
+  return launch_cluster(spike_reduced_kernel<T>, dim3(cs), cs, smem, st, alpha, beta, gamma, r, P, ns, k, Lr,
+                        factored, s, W, Dinv, bad, logdet);
 }
 
 }  // namespace
@@ -206,8 +215,8 @@ extern "C" {
 
 #define TG_SPIKE_ENTRY(SUF, T)                                                                                  \
   int tg_spike_reduced_##SUF(const T* alpha, const T* beta, const T* gamma, const T* r, int P, int ns, int k,  \
-                             T* Lr, int factored, T* s, T* work, T* logdet, void* stream) {                    \
-    return launch_reduced<T>(alpha, beta, gamma, r, P, ns, k, Lr, factored, s, work, logdet, stream);         \
+                             T* Lr, int factored, T* s, T* work, int* bad, T* logdet, void* stream) {          \
+    return launch_reduced<T>(alpha, beta, gamma, r, P, ns, k, Lr, factored, s, work, bad, logdet, stream);    \
   }
 
 TG_SPIKE_ENTRY(f32, float)

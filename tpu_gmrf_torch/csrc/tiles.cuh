@@ -1,0 +1,638 @@
+// The device routines of the SPIKE kernels: products, triangular solves and
+// tile Cholesky factors spread over the blocks of a thread-block cluster
+// (K12's block entry `bt_trsv_blocks` in csrc/banded.cu, K18
+// `spike_reduced` in csrc/spike.cu), and the cluster launch.
+//
+// Every operand lives in global memory (at the SPIKE shapes a step's blocks
+// sit in L2); a block stages operand tiles in shared memory and keeps its
+// output tile in registers. The pieces:
+//   tile_mma / gemm_rows  C (up to 64 rows) op= A B with A, B given by
+//       strides (transposes are strides), 32 deep per stage, the next stage
+//       loaded into registers while the current one is multiplied. float64
+//       multiplies on the tensor cores (mma.sync m16n8k4; the older m8n8k4
+//       runs at half its rate on this card and serves only warp tiles of 8
+//       rows); float32 on the FMA units (TF32 stays off). Output tiles are
+//       64 x NT, NT = 64 for many right-hand sides and 8 for a few.
+//   invert_tile  the inverse of a lower-triangular tile of up to 64 rows,
+//       by blocks of 16 (a warp per diagonal block): the solves multiply by
+//       inverted 64 x 64 diagonal tiles (formed once per factor), so a
+//       diagonal step is a product, not a substitution.
+//   factor_tile  the Cholesky of a diagonal tile of up to 64 rows and its
+//       inverse, by blocks of 16 columns, each block's 16 pivots passed
+//       between the lanes of one warp.
+//   trsm_rows  X <- L^-1 X or L^-T X with L's row tiles spread over the
+//       blocks of a cluster (tile j belongs to block j % cluster size): the
+//       owner of tile j multiplies it by its inverted diagonal tile, a
+//       cluster barrier publishes it, and every block subtracts its
+//       contribution from its own tiles (right-looking).
+//   chol_rows  the Cholesky of an n x n matrix over a cluster: diagonal tile
+//       by block 0, the panel below it and the trailing update as tiles
+//       spread over the cluster, three cluster barriers per tile column;
+//       while block 0 factors a diagonal tile, the other blocks may run a
+//       side task that needs the factor's finished rows (K18 solves with it).
+// A cluster barrier is preceded by __threadfence(), and operands are loaded
+// with ld.global.cg (L2, not L1), so what one block wrote is what another
+// reads after the barrier.
+
+#pragma once
+
+#include <cooperative_groups.h>
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace {
+namespace tgtile {
+
+namespace cg = cooperative_groups;
+
+constexpr int kT = 64;         // row tile of the products and the triangular factors
+constexpr int kKS = 32;        // depth of a staged operand slice
+constexpr int kThr = 256;      // threads of every block (8 warps)
+constexpr int kTT = kT * kT;   // values of one stored inverted diagonal tile
+constexpr int kLdS = kT + 1;   // row stride of a tile kept whole in shared memory
+
+__host__ __device__ inline int ntiles(int n) { return (n + kT - 1) / kT; }
+
+// Warp layout of a 64 x NT output tile (NT = 8 or 64): WM x WN warps, each MT x NTT tiles of 8 x 8.
+template <int NT>
+struct Cfg {
+  static_assert(NT == 8 || NT == 64, "column tiles of 8 or 64");
+  static constexpr int WN = NT == 64 ? 4 : 1;
+  static constexpr int WM = 8 / WN;
+  static constexpr int MT = kT / WM / 8;
+  static constexpr int NTT = NT / WN / 8;
+  static constexpr int LDA = kT + 4;                 // padded rows of the staged slices:
+  static constexpr int LDB = NT == 8 ? 20 : NT + 4;  // conflict-free fragment loads in float64
+  static constexpr int AV = kT * kKS / kThr;         // A values per thread and slice
+  static constexpr int BV = NT * kKS / kThr;         // B values per thread and slice
+};
+
+// Shared memory (values of T) that the products and the tile routines need.
+constexpr int kSmemValues = 2 * kKS * (Cfg<64>::LDA + Cfg<64>::LDB) > 2 * kT * kLdS + kT
+                                ? 2 * kKS * (Cfg<64>::LDA + Cfg<64>::LDB)
+                                : 2 * kT * kLdS + kT;
+
+template <typename T>
+__device__ __forceinline__ T ldcg(const T* p) {
+  return __ldcg(p);
+}
+
+// 1 / sqrt(p): float64 from the float estimate and two Newton steps (the
+// float64 rsqrt is a long dependent sequence, and a tile Cholesky chains 64 of them).
+__device__ __forceinline__ double rsqrt_fast(double p) {
+  if (!(p > 1e-30 && p < 1e30)) return rsqrt(p);
+  double r = (double)rsqrtf((float)p);
+  r = r * (1.5 - 0.5 * p * r * r);
+  return r * (1.5 - 0.5 * p * r * r);
+}
+__device__ __forceinline__ float rsqrt_fast(float p) { return rsqrtf(p); }
+
+__device__ __forceinline__ void csync() {
+  __threadfence();
+  cg::this_cluster().sync();
+}
+
+// acc[mi][ni][e]: row wm * (64 / WM) + 8 mi + lane / 4, column wn * (NT / WN) + 8 ni + 2 (lane % 4) + e.
+template <typename T, int NT>
+struct Acc {
+  T v[Cfg<NT>::MT][Cfg<NT>::NTT][2];
+  __device__ void zero() {
+#pragma unroll
+    for (int i = 0; i < Cfg<NT>::MT; ++i)
+#pragma unroll
+      for (int j = 0; j < Cfg<NT>::NTT; ++j) v[i][j][0] = v[i][j][1] = T(0);
+  }
+};
+
+// One staged slice (kKS deep) into the accumulators.
+template <typename T, int NT>
+__device__ __forceinline__ void mma_slice(Acc<T, NT>& acc, const T* As, const T* Bs) {
+  using C = Cfg<NT>;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = warp % C::WM, wn = warp / C::WM;
+  const int g = lane >> 2, q = lane & 3;
+  const int r0 = wm * (kT / C::WM), c0 = wn * (NT / C::WN);
+#pragma unroll 2  // fragments of two steps in flight, not the whole slice's (registers)
+  for (int kk = 0; kk < kKS; kk += 4) {
+    if constexpr (sizeof(T) == 8 && C::MT % 2 == 0) {  // m16n8k4: the full f64 tensor-core rate
+      double a[C::MT / 2][2], b[C::NTT];
+#pragma unroll
+      for (int i = 0; i < C::MT / 2; ++i) {
+        a[i][0] = As[(kk + q) * C::LDA + r0 + 16 * i + g];
+        a[i][1] = As[(kk + q) * C::LDA + r0 + 16 * i + 8 + g];
+      }
+#pragma unroll
+      for (int j = 0; j < C::NTT; ++j) b[j] = Bs[(kk + q) * C::LDB + c0 + 8 * j + g];
+#pragma unroll
+      for (int i = 0; i < C::MT / 2; ++i)
+#pragma unroll
+        for (int j = 0; j < C::NTT; ++j)
+          asm volatile("mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 {%0,%1,%2,%3}, {%4,%5}, {%6}, {%0,%1,%2,%3};\n"
+                       : "+d"(acc.v[2 * i][j][0]), "+d"(acc.v[2 * i][j][1]), "+d"(acc.v[2 * i + 1][j][0]),
+                         "+d"(acc.v[2 * i + 1][j][1])
+                       : "d"(a[i][0]), "d"(a[i][1]), "d"(b[j]));
+    } else if constexpr (sizeof(T) == 8) {  // m8n8k4 (half the rate) for warp tiles of 8 rows
+      double a[C::MT], b[C::NTT];
+#pragma unroll
+      for (int i = 0; i < C::MT; ++i) a[i] = As[(kk + q) * C::LDA + r0 + 8 * i + g];
+#pragma unroll
+      for (int j = 0; j < C::NTT; ++j) b[j] = Bs[(kk + q) * C::LDB + c0 + 8 * j + g];
+#pragma unroll
+      for (int i = 0; i < C::MT; ++i)
+#pragma unroll
+        for (int j = 0; j < C::NTT; ++j)
+          asm volatile("mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0,%1}, {%2}, {%3}, {%0,%1};\n"
+                       : "+d"(acc.v[i][j][0]), "+d"(acc.v[i][j][1])
+                       : "d"(a[i]), "d"(b[j]));
+    } else {
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        T a[C::MT], b[C::NTT][2];
+#pragma unroll
+        for (int i = 0; i < C::MT; ++i) a[i] = As[(kk + p) * C::LDA + r0 + 8 * i + g];
+#pragma unroll
+        for (int j = 0; j < C::NTT; ++j) {
+          b[j][0] = Bs[(kk + p) * C::LDB + c0 + 8 * j + 2 * q];
+          b[j][1] = Bs[(kk + p) * C::LDB + c0 + 8 * j + 2 * q + 1];
+        }
+#pragma unroll
+        for (int i = 0; i < C::MT; ++i)
+#pragma unroll
+          for (int j = 0; j < C::NTT; ++j) {
+            acc.v[i][j][0] += a[i] * b[j][0];
+            acc.v[i][j][1] += a[i] * b[j][1];
+          }
+      }
+    }
+  }
+}
+
+// acc += A B (acc -= A B with `neg`: A is negated as it is staged) over one
+// 64 x NT tile: A(i, p) = A[i sai + p sak] for i < Mr, B(p, j) = B[p sbk +
+// j sbj] for j < Nc, p < Kd; zeros outside. Every thread of the block calls
+// it; it ends with a block barrier.
+template <typename T, int NT>
+__device__ void tile_mma(Acc<T, NT>& acc, const T* A, long long sai, long long sak, const T* B, long long sbk,
+                         long long sbj, int Mr, int Nc, int Kd, bool neg, T* sm) {
+  using C = Cfg<NT>;
+  T* As = sm;                     // [2][kKS][LDA]
+  T* Bs = sm + 2 * kKS * C::LDA;  // [2][kKS][LDB]
+  // the u-th value a thread stages per slice sits at (m0 + u dm, p0 + u dp) of A and (p0 + u dp, j0 + u dj)
+  // of B, neighbouring threads along the operand's unit stride (coalesced)
+  const int tid = threadIdx.x;
+  const bool a_m = sai == 1, b_j = sbj == 1;
+  const int am0 = a_m ? tid % kT : tid / kKS, ap0 = a_m ? tid / kT : tid % kKS;
+  const int adm = a_m ? 0 : kThr / kKS, adp = a_m ? kThr / kT : 0;
+  const int bj0 = b_j ? tid % NT : tid / kKS, bp0 = b_j ? tid / NT : tid % kKS;
+  const int bdj = b_j ? 0 : kThr / kKS, bdp = b_j ? kThr / NT : 0;
+  const T* pa = A + am0 * sai + ap0 * sak;
+  const T* pb = B + bp0 * sbk + bj0 * sbj;
+  const long long ua = adm * sai + adp * sak, ub = bdp * sbk + bdj * sbj;
+  T ra[C::AV], rb[C::BV];
+  auto load = [&](int k0) {
+#pragma unroll
+    for (int u = 0; u < C::AV; ++u)
+      ra[u] = (am0 + u * adm < Mr && k0 + ap0 + u * adp < Kd) ? ldcg(pa + u * ua + k0 * sak) : T(0);
+#pragma unroll
+    for (int u = 0; u < C::BV; ++u)
+      rb[u] = (bj0 + u * bdj < Nc && k0 + bp0 + u * bdp < Kd) ? ldcg(pb + u * ub + k0 * sbk) : T(0);
+  };
+  auto store = [&](int buf) {
+#pragma unroll
+    for (int u = 0; u < C::AV; ++u) As[(buf * kKS + ap0 + u * adp) * C::LDA + am0 + u * adm] = neg ? -ra[u] : ra[u];
+#pragma unroll
+    for (int u = 0; u < C::BV; ++u) Bs[(buf * kKS + bp0 + u * bdp) * C::LDB + bj0 + u * bdj] = rb[u];
+  };
+  const int slices = (Kd + kKS - 1) / kKS;
+  if (slices == 0) return;
+  load(0);
+  store(0);
+  __syncthreads();
+  for (int s = 0; s < slices; ++s) {
+    if (s + 1 < slices) load((s + 1) * kKS);
+    mma_slice<T, NT>(acc, As + (s & 1) * kKS * C::LDA, Bs + (s & 1) * kKS * C::LDB);
+    if (s + 1 < slices) store((s + 1) & 1);
+    __syncthreads();
+  }
+}
+
+// The accumulators' C[i][j] for i < Mr, j < Nc: load (zero outside) or store.
+template <typename T, int NT, bool kLoad>
+__device__ void tile_io(Acc<T, NT>& acc, T* Cm, long long ldc, int Mr, int Nc) {
+  using C = Cfg<NT>;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = warp % C::WM, wn = warp / C::WM;
+  const int r0 = wm * (kT / C::WM) + (lane >> 2), c0 = wn * (NT / C::WN) + 2 * (lane & 3);
+#pragma unroll
+  for (int i = 0; i < C::MT; ++i)
+#pragma unroll
+    for (int j = 0; j < C::NTT; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int r = r0 + 8 * i, c = c0 + 8 * j + e;
+        const bool in = r < Mr && c < Nc;
+        if (kLoad)
+          acc.v[i][j][e] = in ? ldcg(Cm + r * ldc + c) : T(0);
+        else if (in)
+          Cm[r * ldc + c] = acc.v[i][j][e];
+      }
+}
+
+// C (Mr <= 64 rows, Nc columns) -= A B (`sub`; the accumulators start from C,
+// or from Cin (same strides) when given, loaded while the first operands
+// are) or = A B, column tiles of NT; ends with a block barrier.
+template <typename T, int NT>
+__device__ void gemm_rows(T* Cm, long long ldc, const T* A, long long sai, long long sak, const T* B, long long sbk,
+                          long long sbj, int Mr, int Nc, int Kd, bool sub, T* sm, const T* Cin = nullptr) {
+  for (int j0 = 0; j0 < Nc; j0 += NT) {
+    Acc<T, NT> acc;
+    if (sub)
+      tile_io<T, NT, true>(acc, const_cast<T*>(Cin ? Cin : Cm) + j0, ldc, Mr, min(NT, Nc - j0));
+    else
+      acc.zero();
+    tile_mma<T, NT>(acc, A, sai, sak, B + j0 * sbj, sbk, sbj, Mr, min(NT, Nc - j0), Kd, sub, sm);
+    tile_io<T, NT, false>(acc, Cm + j0, ldc, Mr, min(NT, Nc - j0));
+    __syncthreads();
+  }
+}
+
+// The tile routines below keep a 64 x 64 tile in shared memory (row stride
+// kLdS, odd, so a warp reading down a column touches 32 banks) and work on
+// it in blocks of 16: a 16 x 16 diagonal block by one warp with shuffles, a
+// thread per row or per entry for the rest, a barrier per block step.
+
+// X (64 x 64, lower, row stride kLdS) = L^-1 for the lower tile L (row
+// stride kLdS, the identity beyond row t) given the reciprocals rinv of its
+// diagonal: the four 16 x 16 diagonal blocks inverted at once by four warps
+// (a lane per column, substitution down the rows), then block row i of X
+// from X_ij = -X_ii sum_{k=j}^{i-1} L_ik X_kj, one block row per step.
+template <typename T>
+__device__ void invert_blocked(const T* L, const T* rinv, T* X) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if (warp < 4) {
+    const int b = 16 * warp, c = lane & 15;
+    T x[16];
+#pragma unroll
+    for (int r = 0; r < 16; ++r) {
+      T v = r == c ? T(1) : T(0);
+#pragma unroll
+      for (int q = 0; q < r; ++q) v -= L[(b + r) * kLdS + b + q] * x[q];
+      x[r] = v * rinv[b + r];  // zero above the diagonal: x[q] = 0 for q < c
+    }
+    if (lane < 16)
+#pragma unroll
+      for (int r = 0; r < 16; ++r) X[(b + r) * kLdS + b + c] = x[r];
+  }
+  __syncthreads();
+  const int r = tid >> 4, c = tid & 15;
+  for (int bi = 1; bi < 4; ++bi) {
+    T v[3];
+#pragma unroll
+    for (int bj = 0; bj < 3; ++bj) {  // T_ij = sum_k L_ik X_kj, entry (r, c)
+      v[bj] = T(0);
+      if (bj < bi)
+        for (int q = 16 * bj; q < 16 * bi; ++q) v[bj] += L[(16 * bi + r) * kLdS + q] * X[q * kLdS + 16 * bj + c];
+    }
+#pragma unroll
+    for (int bj = 0; bj < 3; ++bj)
+      if (bj < bi) X[(16 * bi + r) * kLdS + 16 * bj + c] = v[bj];
+    __syncthreads();
+#pragma unroll
+    for (int bj = 0; bj < 3; ++bj) {  // X_ij = -X_ii T_ij
+      if (bj < bi) {
+        T acc = T(0);
+#pragma unroll
+        for (int q = 0; q < 16; ++q)
+          acc -= X[(16 * bi + r) * kLdS + 16 * bi + q] * X[(16 * bi + q) * kLdS + 16 * bj + c];
+        v[bj] = acc;
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int bj = 0; bj < 3; ++bj)
+      if (bj < bi) X[(16 * bi + r) * kLdS + 16 * bj + c] = v[bj];
+    __syncthreads();
+  }
+}
+
+// out (64 x 64, row-major) = the t x t lower part of X, zero elsewhere.
+template <typename T>
+__device__ void store_lower(const T* X, int t, T* out) {
+#pragma unroll
+  for (int u = 0; u < kTT / kThr; ++u) {
+    const int e = threadIdx.x + u * kThr, r = e / kT, c = e % kT;
+    out[e] = (r < t && c <= r) ? X[r * kLdS + c] : T(0);
+  }
+}
+
+// Load the lower t x t tile at D (row stride ld) into S, the identity beyond row t.
+template <typename T>
+__device__ void load_tile(const T* D, long long ld, int t, T* S) {
+#pragma unroll
+  for (int u = 0; u < kTT / kThr; ++u) {
+    const int e = threadIdx.x + u * kThr, r = e / kT, c = e % kT;
+    S[r * kLdS + c] = (r < t && c <= r) ? ldcg(D + r * ld + c) : (r == c ? T(1) : T(0));
+  }
+  __syncthreads();
+}
+
+// out = the inverse of the lower t x t tile at D (row stride ld).
+template <typename T>
+__device__ void invert_tile(const T* D, long long ld, int t, T* out, T* sm) {
+  T* S = sm;
+  T* X = sm + kT * kLdS;
+  T* rinv = X + kT * kLdS;
+  load_tile(D, ld, t, S);
+  if (threadIdx.x < kT) rinv[threadIdx.x] = T(1) / S[threadIdx.x * (kLdS + 1)];
+  __syncthreads();
+  invert_blocked(S, rinv, X);
+  store_lower(X, t, out);
+  __syncthreads();
+}
+
+// Cholesky of the t x t diagonal tile at D (lower triangle read; the factor
+// written back with zeros above the diagonal) and its inverse into Dinv;
+// *bad set for a pivot that is not finite and positive. By blocks of 16
+// columns: the diagonal block by warp 0, a lane per row, its pivots passed
+// by shuffles (1 / sqrt from rsqrt_fast); the rows below it by a thread
+// each; the trailing part by a thread per entry.
+template <typename T>
+__device__ void factor_tile(T* D, long long ld, int t, T* Dinv, int* bad, T* sm) {
+  T* S = sm;
+  T* X = sm + kT * kLdS;
+  T* rinv = X + kT * kLdS;
+  const int tid = threadIdx.x, lane = tid & 31;
+  if (tid < kT) rinv[tid] = T(1);  // the identity beyond t
+  load_tile(D, ld, t, S);
+  for (int b0 = 0; b0 < t; b0 += 16) {
+    if (tid < 32) {  // the diagonal block: lane l (and l + 16) holds its row l
+      const int l = lane & 15;
+      T row[16];
+#pragma unroll
+      for (int q = 0; q < 16; ++q) row[q] = S[(b0 + l) * kLdS + b0 + q];
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const T p = __shfl_sync(0xffffffffu, row[j], j);
+        const T r = rsqrt_fast(p);
+        row[j] = l == j ? p * r : (l > j ? row[j] * r : T(0));
+#pragma unroll
+        for (int q = j + 1; q < 16; ++q) {
+          const T lq = __shfl_sync(0xffffffffu, row[j], q);  // L[q][j]
+          if (l >= q) row[q] -= row[j] * lq;
+        }
+        if (lane == j) {
+          rinv[b0 + j] = r;
+          if (b0 + j < t && !(p > T(0) && isfinite(p))) *bad = 1;
+        }
+      }
+      if (lane < 16)
+#pragma unroll
+        for (int q = 0; q < 16; ++q) S[(b0 + l) * kLdS + b0 + q] = q <= l ? row[q] : T(0);
+    }
+    __syncthreads();
+    if (tid < kT - 16 - b0) {  // row i below: S[i][b0:b0+16] <- S[i][b0:b0+16] L^-T
+      const int i = b0 + 16 + tid;
+      T x[16];
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        T v = S[i * kLdS + b0 + j];
+#pragma unroll
+        for (int q = 0; q < j; ++q) v -= x[q] * S[(b0 + j) * kLdS + b0 + q];
+        x[j] = v * rinv[b0 + j];
+      }
+#pragma unroll
+      for (int j = 0; j < 16; ++j) S[i * kLdS + b0 + j] = x[j];
+    }
+    __syncthreads();
+    const int m = kT - 16 - b0;  // the trailing part, rows and columns b0 + 16 ..
+    for (int e = tid; e < m * m; e += kThr) {
+      const int i = b0 + 16 + e / m, c = b0 + 16 + e % m;
+      if (c <= i) {
+        T acc = S[i * kLdS + c];
+#pragma unroll
+        for (int q = 0; q < 16; ++q) acc -= S[i * kLdS + b0 + q] * S[c * kLdS + b0 + q];
+        S[i * kLdS + c] = acc;
+      }
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int u = 0; u < kTT / kThr; ++u) {
+    const int e = tid + u * kThr, r = e / kT, c = e % kT;
+    if (r < t && c < t) D[r * ld + c] = c <= r ? S[r * kLdS + c] : T(0);
+  }
+  invert_blocked(S, rinv, X);
+  store_lower(X, t, Dinv);
+  __syncthreads();
+}
+
+// X (n x ncols, row stride ldx) <- L^-1 X (trans: L^-T X), L lower n x n
+// (row stride ld) with its inverted diagonal tiles Dinv (ntiles(n) x 64 x
+// 64). Row tile j of X belongs to block j % cs of the cluster (`rank`).
+// Every block of the cluster calls it; it ends with a cluster barrier.
+template <typename T, int NT>
+__device__ void trsm_rows(const T* L, long long ld, const T* Dinv, int n, T* X, long long ldx, int ncols, bool trans,
+                          int rank, int cs, T* sm) {
+  const int nt = ntiles(n);
+  for (int it = 0; it < nt; ++it) {
+    const int j = trans ? nt - 1 - it : it, j0 = j * kT, tj = min(kT, n - j0);
+    T* Xj = X + (long long)j0 * ldx;
+    if (j % cs == rank)  // X_j <- D_j^-1 X_j (D_j^-T X_j)
+      gemm_rows<T, NT>(Xj, ldx, Dinv + (long long)j * kTT, trans ? 1 : kT, trans ? kT : 1, Xj, ldx, 1, tj, ncols, tj,
+                       false, sm);
+    csync();
+    for (int i = trans ? j - 1 : j + 1; trans ? i >= 0 : i < nt; i += trans ? -1 : 1) {
+      if (i % cs != rank) continue;
+      const int i0 = i * kT, ti = min(kT, n - i0);
+      if (!trans)  // X_i -= L[i, j] X_j
+        gemm_rows<T, NT>(X + (long long)i0 * ldx, ldx, L + (long long)i0 * ld + j0, ld, 1, Xj, ldx, 1, ti, ncols, tj,
+                         true, sm);
+      else  // X_i -= L[j, i]^T X_j
+        gemm_rows<T, NT>(X + (long long)i0 * ldx, ldx, L + (long long)j0 * ld + i0, 1, ld, Xj, ldx, 1, ti, ncols, tj,
+                         true, sm);
+    }
+  }
+}
+
+// dst(e) = src(e) for e < count, spread over the cluster (`rank` of cs
+// blocks), eight loads in flight per thread.
+template <typename T, typename Src, typename Dst>
+__device__ void cluster_copy(long long count, int rank, int cs, Src src, Dst dst) {
+  const long long g0 = (long long)rank * kThr + threadIdx.x, gs = (long long)cs * kThr;
+  for (long long e0 = g0; e0 < count; e0 += 8 * gs) {
+    T v[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) v[u] = e0 + u * gs < count ? src(e0 + u * gs) : T(0);
+#pragma unroll
+    for (int u = 0; u < 8; ++u)
+      if (e0 + u * gs < count) dst(e0 + u * gs, v[u]);
+  }
+}
+
+// The lower triangle of the n x n matrix A (row stride n) <- that of (A + A^T) / 2, by 64 x 64 tiles dealt out
+// over the cluster, the transposed tile staged in shared memory (both reads coalesced). Ends with a cluster
+// barrier.
+template <typename T>
+__device__ void symmetrize(T* A, int n, int rank, int cs, T* sm) {
+  const int nt = ntiles(n);
+  int idx = 0;
+  for (int I = 0; I < nt; ++I)
+    for (int J = 0; J <= I; ++J, ++idx) {
+      if (idx % cs != rank) continue;
+      const int i0 = I * kT, j0 = J * kT, ti = min(kT, n - i0), tj = min(kT, n - j0);
+#pragma unroll
+      for (int u = 0; u < kTT / kThr; ++u) {  // sm[c][r] = A[j0 + c][i0 + r]
+        const int e = threadIdx.x + u * kThr, c = e / kT, r = e % kT;
+        if (c < tj && r < ti) sm[c * kLdS + r] = ldcg(A + (long long)(j0 + c) * n + i0 + r);
+      }
+      __syncthreads();
+#pragma unroll
+      for (int u = 0; u < kTT / kThr; ++u) {
+        const int e = threadIdx.x + u * kThr, r = e / kT, c = e % kT;
+        if (r < ti && c < tj && (I > J || c < r)) {
+          T* o = A + (long long)(i0 + r) * n + j0 + c;
+          *o = T(0.5) * (ldcg(o) + sm[c * kLdS + r]);
+        }
+      }
+      __syncthreads();
+    }
+  csync();
+}
+
+// Lower Cholesky in place of the n x n matrix A (row stride n; lower
+// triangle read, upper set to zero) over the cluster, with its inverted
+// diagonal tiles into Dinv; *bad set for a pivot that is not finite and
+// positive. Block 0 factors the diagonal tiles; with `with_side`, while it
+// factors tile j + 1 the other blocks (all of it in a cluster of one) run
+// side(j, worker, workers), which may read the factor's tile rows 0..j and
+// their inverted diagonal tiles; side(nt - 1, ...) runs after the last
+// tile. Ends with a cluster barrier.
+template <typename T, typename Side>
+__device__ void chol_rows(T* A, int n, T* Dinv, int* bad, int rank, int cs, T* sm, bool with_side, Side side) {
+  const int nt = ntiles(n);
+  const bool worker = with_side && (cs == 1 || rank != 0);
+  const int wid = cs == 1 ? 0 : rank - 1, workers = cs == 1 ? 1 : cs - 1;
+  for (int j = 0; j < nt; ++j) {
+    const int j0 = j * kT, tj = min(kT, n - j0);
+    if (rank == 0) factor_tile(A + (long long)j0 * n + j0, n, tj, Dinv + (long long)j * kTT, bad, sm);
+    if (worker && j > 0) side(j - 1, wid, workers);
+    csync();
+    for (int i = j + 1 + rank; i < nt; i += cs) {  // the panel: A_ij <- A_ij L_jj^-T
+      const int i0 = i * kT;
+      T* Aij = A + (long long)i0 * n + j0;
+      gemm_rows<T, 64>(Aij, n, Aij, n, 1, Dinv + (long long)j * kTT, 1, kT, min(kT, n - i0), tj, tj, false, sm);
+    }
+    csync();
+    // the trailing update: A_il -= L_ij L_lj^T for j < l <= i, tiles dealt out over the cluster
+    int idx = 0;
+    for (int i = j + 1; i < nt; ++i)
+      for (int l = j + 1; l <= i; ++l, ++idx) {
+        if (idx % cs != rank) continue;
+        const int i0 = i * kT, l0 = l * kT;
+        gemm_rows<T, 64>(A + (long long)i0 * n + l0, n, A + (long long)i0 * n + j0, n, 1, A + (long long)l0 * n + j0,
+                         1, n, min(kT, n - i0), min(kT, n - l0), tj, true, sm);
+      }
+    csync();
+  }
+  if (worker) side(nt - 1, wid, workers);
+  // zero the tiles above the diagonal (the diagonal tiles' upper parts are zero already)
+  int idx = 0;
+  for (int I = 0; I < nt; ++I)
+    for (int J = I + 1; J < nt; ++J, ++idx) {
+      if (idx % cs != rank) continue;
+#pragma unroll
+      for (int u = 0; u < kTT / kThr; ++u) {
+        const int e = threadIdx.x + u * kThr, r = I * kT + e / kT, c = J * kT + e % kT;
+        if (r < n && c < n) A[(long long)r * n + c] = T(0);
+      }
+    }
+  csync();
+}
+
+// gemm_rows / trsm_rows with the column tile that suits Nc columns: 8 for a
+// few right-hand sides, else 64.
+template <typename T>
+__device__ void gemm_k(T* Cm, long long ldc, const T* A, long long sai, long long sak, const T* B, long long sbk,
+                       long long sbj, int Mr, int Nc, int Kd, bool sub, T* sm) {
+  if (Nc <= 8)
+    gemm_rows<T, 8>(Cm, ldc, A, sai, sak, B, sbk, sbj, Mr, Nc, Kd, sub, sm);
+  else
+    gemm_rows<T, 64>(Cm, ldc, A, sai, sak, B, sbk, sbj, Mr, Nc, Kd, sub, sm);
+}
+
+template <typename T>
+__device__ void trsm_k(const T* L, long long ld, const T* Dinv, int n, T* X, long long ldx, int ncols, bool trans,
+                       int rank, int cs, T* sm) {
+  if (ncols <= 8)
+    trsm_rows<T, 8>(L, ld, Dinv, n, X, ldx, ncols, trans, rank, cs, sm);
+  else
+    trsm_rows<T, 64>(L, ld, Dinv, n, X, ldx, ncols, trans, rank, cs, sm);
+}
+
+// Inverted diagonal tiles of `count` lower n x n matrices at L + m lstride
+// (row stride ld): block (j, m) writes tile j of matrix m to Dinv[m][j].
+template <typename T>
+__global__ void __launch_bounds__(kThr) invert_diag_kernel(const T* L, long long lstride, long long ld, int n, T* Dinv) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* S = reinterpret_cast<T*>(smem_raw);
+  const long long m = blockIdx.y;
+  const int j = blockIdx.x, j0 = j * kT;
+  invert_tile(L + m * lstride + j0 * ld + j0, ld, min(kT, n - j0), Dinv + (m * gridDim.x + j) * kTT, S);
+}
+
+template <typename T>
+int invert_diag(const T* L, long long lstride, long long ld, int n, int count, T* Dinv, cudaStream_t st) {
+  const size_t smem = sizeof(T) * (2 * kT * kLdS + kT);
+  int rc = (int)cudaFuncSetAttribute(invert_diag_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (rc) return rc;
+  invert_diag_kernel<T><<<dim3(ntiles(n), count), kThr, smem, st>>>(L, lstride, ld, n, Dinv);
+  return (int)cudaGetLastError();
+}
+
+// The launch configuration of `kernel` on `grid` in clusters of cs blocks
+// along x with `smem` bytes of dynamic shared memory, and how many such
+// clusters the card can hold at once (*count).
+template <typename... KArgs>
+int cluster_config(void (*kernel)(KArgs...), dim3 grid, int cs, size_t smem, cudaStream_t st,
+                   cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, int* count) {
+  int rc = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (!rc && cs > 8) rc = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (rc) return rc;
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = grid;
+  cfg->blockDim = dim3(kThr);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = st;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cs;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  *count = 0;
+  return (int)cudaOccupancyMaxActiveClusters(count, kernel, cfg);
+}
+
+template <typename... KArgs>
+int max_clusters(void (*kernel)(KArgs...), dim3 grid, int cs, size_t smem, int* count) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  return cluster_config(kernel, grid, cs, smem, nullptr, &cfg, &attr, count);
+}
+
+// Launch `kernel` in clusters of cs blocks; cudaErrorInvalidConfiguration
+// when not even one such cluster fits the card.
+template <typename... KArgs, typename... Args>
+int launch_cluster(void (*kernel)(KArgs...), dim3 grid, int cs, size_t smem, cudaStream_t st, Args... args) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  int count = 0;
+  int rc = cluster_config(kernel, grid, cs, smem, st, &cfg, &attr, &count);
+  if (rc) return rc;
+  if (count < 1) return (int)cudaErrorInvalidConfiguration;
+  rc = (int)cudaLaunchKernelEx(&cfg, kernel, args...);
+  return rc ? rc : (int)cudaGetLastError();
+}
+
+}  // namespace tgtile
+}  // namespace

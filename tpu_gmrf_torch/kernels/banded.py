@@ -27,18 +27,21 @@ K11 and K12 have a block entry each, for the SPIKE solve
 (``parallel/pbtridiag.py``): `bt_factor_blocks` factors blocks D (B, K, s, s),
 E (B, K-1, s, s) given as they are (D_k symmetrized, no pivot boost: a block
 that is not positive definite gives a NaN logdet) into the same P, and
-`bt_trsv_blocks` solves with it on blocks (B, K, s, k), with no permutation:
-one block of threads per right-hand side while the B·k of them fit
-`TILE_WAVES` waves of blocks on the card, else one per chain and tile of 64
-right-hand sides.
+`bt_trsv_blocks` solves with it on blocks (B, K, s, k), with no permutation.
+It first inverts every diagonal block L_k (by tiles of 64 on their inverted
+diagonal tiles), then runs one thread-block cluster per chain and column
+tile of 64 right-hand sides (8 when k ≤ 8), the s rows of each block step
+spread over its blocks by tiles of 64: a block step is two products, the
+coupling and the product with L_k⁻¹, each followed by a cluster barrier.
+Its workspace holds B·K·⌈s/64⌉ inverted tiles of 64 × 64, the B·K·s²
+values of the inverses and B·s·k of scratch. A card that cannot hold one
+such cluster raises with the shape.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises. ``<wrapper>.launches`` counts launches.
 """
 
 from __future__ import annotations
-
-import functools
 
 import numpy as np
 import torch
@@ -52,11 +55,7 @@ __all__ = ["BandedTables", "bt_factor", "bt_factor_plain", "bt_trsv", "bt_trsv_p
            "bt_factor_blocks", "bt_factor_blocks_plain", "bt_trsv_blocks", "bt_trsv_blocks_plain"]
 
 MV_ROWS, MV_VECS, MV_WARPS = 64, 8, 8  # kMvRows, kMvVecs, kMvWarps of the source
-# `bt_trsv_blocks` solves by tiles of 64 right-hand sides once the B·k of them
-# would take more than this many waves of one block each: on the H100 at the
-# SPIKE solve's shape (B=4, K=31, s=450, f64) a wave of single right-hand
-# sides takes ~22 ms and a wave of tiles ~100 ms (chip_smoke.py phase 3f).
-TILE_WAVES = 4
+TILE = 64  # kT of csrc/tiles.cuh: the row tile of the block entry's solves
 
 
 class BandedTables:
@@ -328,22 +327,16 @@ def bt_trsv_blocks(P: torch.Tensor, b: torch.Tensor):
     if not _on_cuda("bt_trsv_blocks", P, b):
         return bt_trsv_blocks_plain(P, b)
     B, K, s, k = b.shape
-    b = b.contiguous()
+    P, b = P.contiguous(), b.contiguous()
     out = torch.empty_like(b)
-    tiles = B * k > TILE_WAVES * _sm_count(b.device)
-    work = P.new_empty(B * k, K * s) if not tiles and K * s * P.element_size() > SMEM_MAX else None
+    # the inverted diagonal tiles, the inverses of the diagonal blocks and one block row of scratch
+    work = P.new_empty(B * K * -(-s // TILE) * TILE * TILE + B * K * s * s + B * s * k)
     code = _fn("tg_bt_trsv_blocks", P.dtype)(
-        P.data_ptr(), K, s, b.data_ptr(), out.data_ptr(), k, B, None if work is None else work.data_ptr(), int(tiles),
-        _stream(P),
+        P.data_ptr(), K, s, b.data_ptr(), out.data_ptr(), k, B, work.data_ptr(), _stream(P),
     )
     build.check(code, "bt_trsv_blocks", f" at B={B} K={K} s={s} k={k} {P.dtype}")
     bt_trsv_blocks.launches += 1
     return out
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def matvec_chunk(s: int, rows: int, element_size: int) -> int:

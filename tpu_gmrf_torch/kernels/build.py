@@ -62,10 +62,10 @@ _SIGNATURES = {
     "tg_bt_trsv": [_P, _I, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P],
     # D, E, P, K, s, logdet, flags, B, stream
     "tg_bt_factor_blocks": [_P, _P, _P, _I, _I, _P, _P, _I, _P],
-    # P, K, s, b, out, k, mode, B, work (null: shared memory), stream
-    "tg_bt_trsv_blocks": [_P, _I, _I, _P, _P, _I, _I, _P, _I, _P],
-    # alpha, beta, gamma, r, P, ns, k, Lr, factored, s, work, logdet, stream
-    "tg_spike_reduced": [_P, _P, _P, _P, _I, _I, _I, _P, _I, _P, _P, _P, _P],
+    # P, K, s, b, out, k, B, work (inverted diagonal tiles, block inverses, scratch), stream
+    "tg_bt_trsv_blocks": [_P, _I, _I, _P, _P, _I, _I, _P, _P],
+    # alpha, beta, gamma, r, P, ns, k, Lr, factored, s, work, bad (int flag), logdet, stream
+    "tg_spike_reduced": [_P, _P, _P, _P, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P],
     # diag, diag_k, diag_b, sub, sub_k, sub_b, K, s, n, perm, x, y, kk, B, rc, lower, upper, stream
     "tg_bt_matvec": [_P, _L, _L, _P, _L, _L, _I, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # blocks, block_stride, rowptr, bcols, tperm (null: forward), bs, nb, n, x, y, R, stream

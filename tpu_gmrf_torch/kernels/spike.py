@@ -10,6 +10,14 @@ chol(C_d) (P, ns, ns); given those factors (`factors=`), it solves another
 right-hand side without refactoring (β is then not read and the logdet is
 None): the second solve of a gradient.
 
+The kernel is one thread-block cluster (16 blocks where the card takes
+them, else 8) over global memory: per row, the product C_d = β_d − VᵀZ by
+64 × 64 tiles and the Cholesky of C_d by tiles, during which the next
+row's solve with L_d of [α_{d+1}ᵀ | γ_d | y_d] advances by column tiles,
+every tile step spread over the cluster's blocks (``csrc/spike.cu``,
+``csrc/tiles.cuh``). Its workspace holds that solve and the inverted
+64 × 64 diagonal tiles of the P factors.
+
 A CPU tensor takes the plain version (``torch.linalg``); a CUDA tensor
 launches the kernel or raises. ``spike_reduced.launches`` counts launches.
 """
@@ -22,6 +30,8 @@ from . import build
 from .tridiag import _fn, _on_cuda, _stream
 
 __all__ = ["spike_reduced", "spike_reduced_plain"]
+
+TILE = 64  # kT of csrc/tiles.cuh
 
 
 def _chol(C: torch.Tensor) -> torch.Tensor:
@@ -60,7 +70,7 @@ def spike_reduced_plain(alpha, beta, gamma, r, factors=None):
 
 def spike_reduced(alpha, beta, gamma, r, factors=None):
     """K18: the interface system of the SPIKE solve (module docstring); one
-    launch, one block of threads. Not differentiable."""
+    launch, one thread-block cluster. Not differentiable."""
     if alpha.ndim != 3 or r.ndim != 3 or alpha.shape[1] != alpha.shape[2] or gamma.shape != alpha.shape \
             or r.shape[:2] != alpha.shape[:2] or (factors is None and beta.shape != alpha.shape) \
             or (factors is not None and factors.shape != alpha.shape):
@@ -71,14 +81,18 @@ def spike_reduced(alpha, beta, gamma, r, factors=None):
     if not _on_cuda("spike_reduced", *given):
         return spike_reduced_plain(alpha, beta, gamma, r, factors)
     P, ns, k = r.shape
+    alpha, gamma, r = alpha.contiguous(), gamma.contiguous(), r.contiguous()
+    beta = None if factors is not None else beta.contiguous()
     s = torch.empty_like(r)
-    L = torch.empty_like(alpha) if factors is None else factors
+    L = torch.empty_like(alpha) if factors is None else factors.contiguous()
     logdet = alpha.new_empty(1)
-    work = alpha.new_empty(2 * ns * ns + ns * k)
+    bad = torch.empty(1, dtype=torch.int32, device=alpha.device)
+    # W (ns × (2ns + k)), then the inverted 64 × 64 diagonal tiles of the P factors
+    work = alpha.new_empty(ns * (2 * ns + k) + P * -(-ns // TILE) * TILE * TILE)
     code = _fn("tg_spike_reduced", alpha.dtype)(
-        alpha.data_ptr(), None if factors is not None else beta.data_ptr(), gamma.data_ptr(), r.data_ptr(),
-        P, ns, k, L.data_ptr(), int(factors is not None), s.data_ptr(), work.data_ptr(), logdet.data_ptr(),
-        _stream(alpha),
+        alpha.data_ptr(), None if beta is None else beta.data_ptr(), gamma.data_ptr(),
+        r.data_ptr(), P, ns, k, L.data_ptr(), int(factors is not None), s.data_ptr(), work.data_ptr(),
+        bad.data_ptr(), logdet.data_ptr(), _stream(alpha),
     )
     build.check(code, "spike_reduced", f" at P={P} ns={ns} k={k} {alpha.dtype}")
     spike_reduced.launches += 1
