@@ -22,10 +22,14 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    range=0.25 and the posterior with a random positive diagonal H), in
    float64 and float32, over the whole supernodal schedule;
 3c. K9-K10 and dense_selinv (the dense backend, g=16 posterior, n=450,
-   B=8) and K11-K12 (the banded backend, n=5741, B=4, s=512, K=12; K12
-   also with its vector in global memory, the path for npad beyond shared
-   memory) against their plain versions and against the library call,
-   where one exists, in float64 and float32;
+   B=8) and K11-K12 (the banded backend, n=5741, B=4, s=512, K=12; K11 also
+   at s=496 through the plan's block=8, and through its rescue: one chain
+   with an indefinite block, equal boosts required; K12 also with its
+   vector in global memory, the path for npad beyond shared memory) against
+   their plain versions and against the library call, where one computes
+   the same function or its blocks (K11: cholesky_ex of the K blocks and
+   solve_triangular for the M_k; K12: solve_triangular both ways on each
+   block), in float64 and float32;
 3d. the multiply kernels against their plain versions, in float64 and
    float32: K13 bt_matvec and K14 bsr_spmm at the bench_spmv operator
    (Matérn α=2 on 100x100 points, n=14058, 8 vectors) and at the 316x316
@@ -45,8 +49,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    example 12's, against their plain versions and the library yardstick
    (cholesky_ex + solve_triangular on the same blocks), in float32 and
    float64; K12's block entry at k = 1 (the gradient's re-solve), 8, 9, 64
-   and 901 at phase 17's shape, and both kernels at the tile edges (blocks
-   of 64 and 65, P = 1 and 2, k = 1, 3, 64, 65);
+   and 901 at phase 17's shape, and the three kernels at the tile edges
+   (K11's block entry at blocks of 5, 64 and 65, K = 1 and 2, and with an
+   indefinite block in one of three chains, whose logdet alone is NaN; K12's
+   and K18 at blocks of 64 and 65, P = 1 and 2, k = 1, 3, 64, 65);
 4. the flagship slice: batched value and θ-gradient of the Laplace marginal
    of an AR1 + Poisson model (256 chains, n=500) through the kernels, in
    float32, checked against the plain path in float64 (the same code on CPU
@@ -899,16 +905,28 @@ def check_dense_kernels(dn_model, sp_model, dtype, dev):
     if boost.tolist() != boostp.tolist() or (dtype == torch.float64 and boost.any()):
         raise AssertionError(f"bt_factor: boosts kernel {boost.tolist()} plain {boostp.tolist()}")
     flops = B * sum(sblk**3 / 3 + (2 * sblk**3 if k < K - 1 else 0) for k in range(K))
+    L = P[:, :, :sblk]
+    A = (L @ L.mT).reshape(B * K, sblk, sblk)  # the blocks D_k − M_{k−1}M_{k−1}ᵀ that K11 factors
+    Lm = L[:, : K - 1].reshape(-1, sblk, sblk)
+    Em = (P[:, : K - 1, sblk:] @ L[:, : K - 1].mT).reshape(-1, sblk, sblk)  # E_k = M_k L_kᵀ
     check("bt_factor", dtype, (P, logdet), (Pp, logdetp), "bt_factor", results,
           cuda_ms(lambda: kernels.bt_factor(data, t), 5), cuda_ms(lambda: kernels.bt_factor_plain(data, t), 5),
           cost=(flops, table_bytes(t) + el * B * (Q.nnz + K * 2 * sblk * sblk + 1) + 4 * B), shape=shape,
-          extra=f" boost {boost.tolist()}")
+          library_ms=cuda_ms(lambda: (torch.linalg.cholesky_ex(A), torch.linalg.solve_triangular(Lm, Em.mT, upper=False)),
+                             5),
+          extra=f" boost {boost.tolist()} (library: cholesky_ex of the K blocks + solve_triangular for M)")
+    check_bt_factor_cases(Q, data, dtype)
     rows = torch.tensor(np.random.default_rng(9).normal(size=(B, n)), dtype=dtype, device=dev)
+    Lb, rb = L.reshape(B * K, sblk, sblk), rows.new_zeros(B * K, sblk, 1)
+    rb.view(B, K * sblk)[:, :n] = rows[:, t.on(dev)["perm_l"]]  # the permuted, padded right-hand sides
     check("bt_trsv solve", dtype, kernels.bt_trsv(P, t, rows, 1, 2), kernels.bt_trsv_plain(P, t, rows, 1, 2),
           "bt_trsv", results, cuda_ms(lambda: kernels.bt_trsv(P, t, rows, 1, 2)),
           cuda_ms(lambda: kernels.bt_trsv_plain(P, t, rows, 1, 2)),
           cost=(B * (2 * K * sblk**2 + 4 * (K - 1) * sblk**2),
-                4 * n + el * B * (K * sblk * (sblk + 1) // 2 + (K - 1) * sblk**2 + 2 * n)), shape=f"{shape} k=1")
+                4 * n + el * B * (K * sblk * (sblk + 1) // 2 + (K - 1) * sblk**2 + 2 * n)), shape=f"{shape} k=1",
+          library_ms=cuda_ms(lambda: torch.linalg.solve_triangular(
+              Lb.mT, torch.linalg.solve_triangular(Lb, rb, upper=False), upper=True)),
+          extra=" (library: solve_triangular both ways on each block)")
     for mode in (0, 1):
         check(f"bt_trsv mode {mode}", dtype, kernels.bt_trsv(P, t, rows, 1, mode),
               kernels.bt_trsv_plain(P, t, rows, 1, mode), "bt_trsv", {},
@@ -934,6 +952,28 @@ def check_dense_kernels(dn_model, sp_model, dtype, dev):
                 f"bound_ms={sweep['bound_ms']:.4f} ({sweep['bound_by']}; {sweep_flops:.3e} flops, "
                 f"{sweep_bytes / 1e6:.1f} MB)")
     return results
+
+
+def check_bt_factor_cases(Q, data, dtype):
+    """Phase 3c: K11 at a block size that is not a multiple of its 64-row tiles (the plan's `block=8`), and
+    through its rescue: chain 1 given an indefinite block (three diagonal entries lowered by 1e3), which
+    breaks down in the cluster pass and is redone with the pivot boost; against the plain version, with equal
+    boosts, held to SN_TOL."""
+    from tpu_gmrf_torch import kernels
+    from tpu_gmrf_torch.solvers import banded as tb
+
+    t8 = tb._tables(Q.pattern, 8)
+    diag_pos = np.nonzero(np.asarray(Q.pattern.rows) == np.asarray(Q.pattern.cols))[0]
+    forced = data.clone()
+    forced[1, torch.as_tensor(diag_pos[2000:2003], device=data.device)] -= 1e3
+    for label, d, tables, want in ((f"block=8 (s={t8.s})", data, t8, None),
+                                   ("forced rescue (chain 1 indefinite)", forced, tb._tables(Q.pattern, None), 1)):
+        P, boost, logdet = kernels.bt_factor(d, tables)
+        Pp, boostp, logdetp = kernels.bt_factor_plain(d, tables)
+        if boost.tolist() != boostp.tolist() or (want is not None and not boost[want]):
+            raise AssertionError(f"bt_factor {label}: boosts kernel {boost.tolist()} plain {boostp.tolist()}")
+        check(f"bt_factor {label}", dtype, (P, logdet), (Pp, logdetp), "bt_factor", {},
+              extra=f" boost {boost.tolist()} kernel_ms={cuda_ms(lambda: kernels.bt_factor(d, tables), 3):.3f}")
 
 
 # ---- phases 9-11: run_nuts ----------------------------------------------------------
@@ -2137,13 +2177,34 @@ def check_spike_kernels(label, diag, sub, b, P: int, dtype, results, reps: int =
 
 
 def check_spike_edges(dtype, dev):
-    """Phase 3f: K12's block entry and K18 on random SPD systems at the edges of their 64-row tiles and of
-    their column tiles (blocks of 64 and 65; k = 1, 3, 64, 65; P = 1 and 2, with and without the factors),
-    against their plain versions, held to SN_TOL."""
+    """Phase 3f: K11's and K12's block entries and K18 on random SPD systems at the edges of their 64-row
+    tiles and of their column tiles (K11: blocks of 5, 64 and 65, K = 1 and 2, one chain; K12 and K18: blocks
+    of 64 and 65; k = 1, 3, 64, 65; P = 1 and 2, with and without the factors), against their plain versions,
+    held to SN_TOL; and K11 on three chains of which one has an indefinite block: a NaN logdet for that chain,
+    the other two as the plain version gives them."""
     from tpu_gmrf_torch import kernels
 
     rng = np.random.default_rng(23)
-    worst = {"bt_trsv_blocks": 0.0, "spike_reduced": 0.0}
+
+    def spd_blocks(B, K, s):
+        G = rng.normal(size=(B, K, s, s))
+        D = torch.tensor(G @ np.swapaxes(G, -1, -2) + 2 * s * np.eye(s), dtype=dtype, device=dev)
+        return D, torch.tensor(0.3 * rng.normal(size=(B, K - 1, s, s)), dtype=dtype, device=dev)
+
+    worst = {"bt_factor_blocks": 0.0, "bt_trsv_blocks": 0.0, "spike_reduced": 0.0}
+    for s in (5, 64, 65):
+        for K in (1, 2):
+            D, E = spd_blocks(1, K, s)
+            worst["bt_factor_blocks"] = max(worst["bt_factor_blocks"], rel_err(
+                kernels.bt_factor_blocks(D, E), kernels.bt_factor_blocks_plain(D, E))[1])
+    D, E = spd_blocks(3, 3, 70)
+    D[1, 1] -= 1000 * torch.eye(70, dtype=dtype, device=dev)  # chain 1's second block is indefinite
+    (P, ld), (Pp, ldp) = kernels.bt_factor_blocks(D, E), kernels.bt_factor_blocks_plain(D, E)
+    keep = torch.tensor([0, 2], device=dev)
+    indefinite = rel_err((P[keep], ld[keep]), (Pp[keep], ldp[keep]))[1]
+    if not (bool(torch.isnan(ld[1])) and bool(torch.isfinite(ld[keep]).all()) and bool(torch.isfinite(P[keep]).all())):
+        raise AssertionError(f"bt_factor_blocks with an indefinite block in chain 1: logdets {ld.tolist()}")
+    worst["bt_factor_blocks"] = max(worst["bt_factor_blocks"], indefinite)
     for s in (64, 65):
         B, K = 2, 3
         G = rng.normal(size=(B, K, s, s))
@@ -2171,7 +2232,9 @@ def check_spike_edges(dtype, dev):
                                              rel_err((fs,), (fp,))[1])
     torch.cuda.synchronize()
     tol = SN_TOL[dtype]
-    log(f"  tile edges, {dtype_name(dtype)}: bt_trsv_blocks (s = 64, 65; k = 1, 3, 64, 65) worst rel "
+    log(f"  tile edges, {dtype_name(dtype)}: bt_factor_blocks (s = 5, 64, 65; K = 1, 2; and an indefinite block: "
+        f"logdet NaN for its chain only, {indefinite:.3e} on the others) worst rel {worst['bt_factor_blocks']:.3e} "
+        f"(tol {tol['bt_factor_blocks']:.0e}); bt_trsv_blocks (s = 64, 65; k = 1, 3, 64, 65) worst rel "
         f"{worst['bt_trsv_blocks']:.3e} (tol {tol['bt_trsv_blocks']:.0e}); spike_reduced (ns = 64, 65; P = 1, 2; "
         f"k = 1, 3; also with factors) worst rel {worst['spike_reduced']:.3e} (tol {tol['spike_reduced']:.0e})")
     if not all(worst[k] <= tol[k] for k in worst):

@@ -292,6 +292,27 @@ def test_block_factor_and_solves_plain_match_torch_linalg():
                                rtol=1e-10, atol=1e-12)
 
 
+_HELD = {16: 8, 8: 16, 4: 33, 2: 66, 1: 132}  # clusters held at once by a card of 132 SMs, one block per SM
+
+
+@pytest.mark.parametrize("s, B, refused, want", [
+    (450, 4, (), 16),  # phase 17's shape: four clusters of 16 fit at once
+    (450, 9, (), 8),  # nine chains: one wave of clusters of 8, not two of 16
+    (512, 4, (16,), 8),  # a card that refuses clusters of 16
+    (100, 4, (), 4),  # two row tiles: at most four blocks
+    (64, 4, (), 1),  # one row tile: one block, nothing to share
+    (5, 300, (), 1),
+])
+def test_factor_cluster_picks_fewest_waves_then_the_largest(s, B, refused, want):
+    fit = lambda cs: 0 if cs in refused else _HELD.get(cs, 0)  # noqa: E731
+    assert kernels.banded.factor_cluster(s, B, fit) == want
+
+
+def test_factor_cluster_raises_when_no_cluster_fits():
+    with pytest.raises(RuntimeError, match="no cluster"):
+        kernels.banded.factor_cluster(450, 4, lambda cs: 0)
+
+
 def test_block_factor_gives_nan_for_an_indefinite_block():
     rng = np.random.default_rng(31)
     D, E, _ = _bt_blocks(rng, 2, 3, 4)

@@ -1,6 +1,10 @@
-"""The two kernel functions of the port's SPIKE solve against the JAX
+"""The three kernel functions of the port's SPIKE solve against the JAX
 package's own, in float64 on the CPU, on the same NumPy inputs.
 
+* `bt_factor_blocks` (K11's block entry) on one chain against
+  ``tpu_gmrf.parallel.pbtridiag._bt_chol``: the factors L_k and M_k and the
+  logdet 2 Σ log diag L_k, at K = 1 and 3 blocks (the reference computed
+  once per shape, under ``jax.jit``).
 * `bt_trsv_blocks` (K12's block entry) on one chain against
   ``tpu_gmrf.parallel.pbtridiag._bt_solve_factored``, both given the factors
   that the reference's ``_bt_chol`` computes for one random block-tridiagonal
@@ -8,7 +12,7 @@ package's own, in float64 on the CPU, on the same NumPy inputs.
 * `spike_reduced` (K18) at k = 1 against ``_reduced_solve``: the interface
   solution s and the logdet.
 
-The sizes cross the kernels' tiles of 64 rows: blocks of 5 and 65 rows,
+The sizes cross the kernels' tiles of 64 rows: blocks of 5, 64 and 65 rows,
 k = 1, 3 and 65 right-hand sides, P = 1, 2 and 5 interface rows. Both sides
 compute in float64 and differ only in rounding order: held to 1e-10 of the
 largest entry (normwise) and the logdet to rtol 1e-12. On CPU tensors the
@@ -16,6 +20,9 @@ port runs each kernel's plain version; ``chip_smoke.py`` phase 3f holds the
 kernels to those plain versions on the card.
 """
 
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -43,6 +50,28 @@ def _bt_spd(rng, K, s):
     G = rng.normal(size=(K, s, s))
     D = G @ np.swapaxes(G, -1, -2) + 2.0 * s * np.eye(s)
     return D, 0.3 * rng.normal(size=(K - 1, s, s))
+
+
+@functools.lru_cache(maxsize=None)
+def _factor_case(s, K):
+    """One SPD block-tridiagonal matrix of K blocks of s and the reference's factors of it (jitted)."""
+    D, E = _bt_spd(np.random.default_rng(1000 + 10 * s + K), K, s)
+    Lk, Mk = jax.jit(_bt_chol)(jnp.asarray(D), jnp.asarray(E))
+    return D, E, np.asarray(Lk), np.asarray(Mk)
+
+
+@pytest.mark.parametrize("s", [5, 64, 65])
+@pytest.mark.parametrize("K", [1, 3])
+def test_bt_factor_blocks_matches_reference(s, K):
+    D, E, Lk, Mk = _factor_case(s, K)
+    P, logdet = kernels.bt_factor_blocks(torch.tensor(D[None], dtype=F64), torch.tensor(E[None], dtype=F64))
+    assert P.shape == (1, K, 2 * s, s)
+    _normwise(P[0, :, :s].numpy(), Lk)
+    if K > 1:
+        _normwise(P[0, : K - 1, s:].numpy(), Mk)
+    assert not P[0, K - 1, s:].any()  # no M after the last block
+    ref_logdet = 2.0 * np.log(np.diagonal(Lk, axis1=-2, axis2=-1)).sum()
+    np.testing.assert_allclose(logdet.item(), ref_logdet, rtol=LOGDET_RTOL)
 
 
 @pytest.mark.parametrize("s", [5, 65])

@@ -27,46 +27,54 @@
 //   given as they are (D_k symmetrized, as jnp.linalg.cholesky does; no
 //   pivot boost: a block that is not positive definite gives a NaN logdet),
 //   and `bt_trsv_blocks` is :76 `_bt_solve_factored` on (B, K, s, k)
-//   right-hand sides with no permutation. The first is K11's fast pass with
-//   the scatter swapped for the block layout; the second is a kernel of its
-//   own on the cluster routines of tiles.cuh (shared with K18, csrc/spike.cu).
+//   right-hand sides with no permutation. The first is K11's factorization
+//   with the scatter swapped for the block layout; the second is a kernel of
+//   its own. Both run on the cluster routines of tiles.cuh (shared with K18,
+//   csrc/spike.cu).
 //
 // What bounds them on the card. K11 does about K s^3 (7/3) flops per chain
-// (n = 5741, s = 512, K = 12, B = 4: ~1.5e10) on K 2 s^2 values: bound by
-// the FMA rate of the trailing updates and, at B = 4, by the latency of the
-// dependent diagonal tiles (K s / 64 of them per factorization, one block
-// per chain each). K12 reads L and M once per direction: bound by that read
-// from one block per right-hand side. Its block entry does 2 s^2 k flops
-// per block step and direction for each of B chains (f64, B = 4, K = 31,
-// s = 450, k = 901: 1.3e11 flops, bound 2 ms at the f64 tensor-core rate),
-// in a chain of 2 K dependent block steps: bound by the latency of that
-// chain where k is small, by the products where it is large.
-// Its design: every L_k is inverted first (invert_blocks_kernel: a block per
-// chain, block and column tile, left-looking over the row tiles with the
-// inverted diagonal tiles of tiles.cuh; 1/3 s^3 flops per block, all of them
-// independent), so a block step is two products and no substitution: the
-// coupling W = b_k - M_{k-1} y_{k-1} and y_k = L_k^-1 W (backward, M_k^T and
-// L_k^-T). A work unit is one chain and one column tile of 64 right-hand
-// sides (8 when k <= 8), a cluster of up to 8 blocks, each owning row tiles
-// of both products (tiles i and ntiles - 1 - i together when a block owns
-// two, which evens the depths of the triangular products), f64 on the
-// tensor cores; a cluster barrier follows each product. The clusters of one
-// chain walk the blocks in step, so a step's L_k^-1 and M_k (3.2 MB at s =
-// 450) are read from L2 by all the chain's column tiles. The explicit
-// inverses hold the f64 limit of chip_smoke.py's phase 3f at the SPIKE
-// shapes, whose diagonal blocks are well conditioned.
-// Design: chain b's factor is one array P[b] of K panels (2s x s each, rows
-// 0..s the diagonal block, rows s..2s the sub-diagonal block below it); a
-// panel is factored by the blocked panel Cholesky of dense_blocks.cuh, so
-// L_k and M_k come out of one pass, and U_k is applied to the next panel's
-// diagonal block as it stands (one trailing update). The pivot boost is
-// decided as the reference decides it, per chain and block: a fast pass
-// factors every chain without boost and flags breakdowns; one flag readback
-// follows; the chains that broke down (rare: f32 at extreme conditioning)
-// are redone from the scatter on, block by block, each block retried as
-// `_chol_boosted` does. K12 runs one block per (chain, right-hand side)
-// with the whole permuted vector in shared memory, or, when it does not
-// fit (npad above ~25k in float64), in a global workspace row.
+// (f64 at phase 17's shape, B = 4, K = 31, s = 450: 2.6e10, 0.38 ms at the
+// f64 tensor-core rate; n = 5741, s = 512, K = 12, B = 4: 1.5e10) on K 2 s^2
+// values, in a chain of K ceil(s / 64) dependent 64 x 64 diagonal tiles
+// (248 at phase 17's shape), each a Cholesky of 64 pivots in sequence: bound
+// by the latency of that chain. Its design: one launch, a thread-block
+// cluster of up to 16 blocks per chain (kernels/banded.py factor_cluster
+// picks the size: the fewest waves of clusters, then the largest), chain
+// b's factor one array P[b] of K panels (2s x s each, rows 0..s the
+// diagonal block, rows s..2s the sub-diagonal block below it) that the
+// cluster factors in place, column tile by column tile (bt_chol_kernel):
+// block 0 factors each diagonal tile (its update fused in, pivots by warp
+// shuffles, the inverse by blocks of 16) while the other 15 blocks do the
+// products, on the f64 tensor cores (float32 on the FMA units; its diagonal
+// tiles in float64), two cluster barriers per column tile. The pivot boost
+// is decided as the reference decides it, per chain and block: the cluster
+// pass factors every chain without boost and flags breakdowns; one flag
+// readback follows; the chains that broke down (rare: f32 at extreme
+// conditioning) are redone from the scatter on, block by block, each block
+// retried as `_chol_boosted` does, on the blocked panel Cholesky of
+// dense_blocks.cuh (one block per chain and tile).
+// K12 reads L and M once per direction: bound by that read from one block
+// per right-hand side. It runs one block per (chain, right-hand side) with
+// the whole permuted vector in shared memory, or, when it does not fit
+// (npad above ~25k in float64), in a global workspace row. Its block entry
+// does 2 s^2 k flops per block step and direction for each of B chains
+// (f64, B = 4, K = 31, s = 450, k = 901: 1.3e11 flops, bound 2 ms at the f64
+// tensor-core rate), in a chain of 2 K dependent block steps: bound by the
+// latency of that chain where k is small, by the products where it is
+// large. Its design: every L_k is inverted first (invert_blocks_kernel: a
+// block per chain, block and column tile, left-looking over the row tiles
+// with the inverted diagonal tiles of tiles.cuh; 1/3 s^3 flops per block,
+// all of them independent), so a block step is two products and no
+// substitution: the coupling W = b_k - M_{k-1} y_{k-1} and y_k = L_k^-1 W
+// (backward, M_k^T and L_k^-T). A work unit is one chain and one column tile
+// of 64 right-hand sides (8 when k <= 8), a cluster of up to 8 blocks, each
+// owning row tiles of both products (tiles i and ntiles - 1 - i together
+// when a block owns two, which evens the depths of the triangular
+// products), f64 on the tensor cores; a cluster barrier follows each
+// product. The clusters of one chain walk the blocks in step, so a step's
+// L_k^-1 and M_k (3.2 MB at s = 450) are read from L2 by all the chain's
+// column tiles. The explicit inverses hold the f64 limit of chip_smoke.py's
+// phase 3f at the SPIKE shapes, whose diagonal blocks are well conditioned.
 // K13 streams (2K-1) s^2 values against 2 (3K-2) s^2 flops per vector: with
 // a handful of vectors it is bound by that stream (the blocks are 30-100x
 // the sparse values, most of them zeros). One block of threads owns 64 rows
@@ -208,31 +216,279 @@ __global__ void __launch_bounds__(kThreads)
   if (threadIdx.x == 0) logdet[b] = (fail && fail[b]) ? T(NAN) : T(2) * red[0];
 }
 
-// Panel k of the chains in `active`: factor it; then, if a next block
-// exists, D_{k+1} -= M_k M_k^T.
-template <typename T>
-int factor_block(T* P, long long pstride, int k, int K, int s, T tiny, const int* active, int* fail, int B,
-                 cudaStream_t st) {
-  const long long panel = 2LL * s * s;
-  T* Pk = P + k * panel;
-  int rc = factor_panels<T>(Pk, pstride, s, k < K - 1 ? 2 * s : s, s, tiny, active, fail, B, st);
-  if (rc || k == K - 1) return rc;
-  syrk_lower_kernel<T><<<dim3(cdiv(s, kGB), cdiv(s, kGB), B), kThreads, 0, st>>>(
-      Pk + panel, pstride, s, Pk + (long long)s * s, pstride, s, s, s, s, active);
-  return (int)cudaGetLastError();
+// ---- K11: the factorization on a thread-block cluster per chain ---------------
+
+// A cluster barrier in two halves: what a block wrote before its arrival
+// (release, at cluster scope) is seen by every block of the cluster after
+// its wait (acquire); the operands are read from L2 (ld.global.cg).
+__device__ __forceinline__ void cluster_arrive() { asm volatile("barrier.cluster.arrive.aligned;" ::: "memory"); }
+__device__ __forceinline__ void cluster_wait() { asm volatile("barrier.cluster.wait.aligned;" ::: "memory"); }
+__device__ __forceinline__ void cluster_barrier() {
+  cluster_arrive();
+  cluster_wait();
 }
 
-// Every block of every chain (in `active`, all when null), in order, no boost.
+// C (Mr x Nc, both <= 64) -= A B^T (`sub`) or = A B^T, A Mr x Kd and B Nc x
+// Kd row-major (row strides lda, ldb): every product of the factorization
+// has both operands contiguous along the summed index. Each 32-deep slice
+// of A and B is staged as it lies (rows of kLdK values: the stores and the
+// mma fragment loads are free of bank conflicts), the next slice loaded
+// into registers while the current one is multiplied; the accumulators and
+// the fragments are tiles.cuh's (Acc, Cfg<64>, tile_io). Every thread of
+// the block calls it; it ends with a block barrier.
+constexpr int kLdK = tgtile::kKS + 4;
 template <typename T>
-int factor_pass(T* P, long long pstride, int K, int s, T tiny, int* fail, int B, cudaStream_t st) {
-  int rc = 0;
-  for (int k = 0; k < K && !rc; ++k) rc = factor_block<T>(P, pstride, k, K, s, tiny, nullptr, fail, B, st);
-  return rc;
+__device__ __noinline__ void chol_gemm(T* C, long long ldc, const T* A, long long lda, const T* B, long long ldb,
+                                       int Mr, int Nc, int Kd, bool sub, T* sm) {
+  using namespace tgtile;
+  using Cf = Cfg<64>;
+  constexpr int V = kT * kKS / kThr;  // values of A (and of B) a thread stages per slice
+  // steps of a slice unrolled: float64 two (fragments of two steps in flight; more spill), float32 all
+  constexpr int kUnroll = sizeof(T) == 8 ? 2 : kKS / 4;
+  T* As = sm;                         // [2][kT][kLdK]
+  T* Bs = sm + 2 * kT * kLdK;         // [2][kT][kLdK]
+  const int tid = threadIdx.x, p = tid % kKS, r0 = tid / kKS;  // row r0 + 8 u, column p of a slice
+  Acc<T, 64> acc;
+  if (sub)
+    tile_io<T, 64, true>(acc, C, ldc, Mr, Nc);
+  else
+    acc.zero();
+  T ra[V], rb[V];
+  auto load = [&](int k0) {
+#pragma unroll
+    for (int u = 0; u < V; ++u) {
+      const int r = r0 + u * (kThr / kKS);
+      const bool in = k0 + p < Kd;
+      ra[u] = in && r < Mr ? ldcg(A + r * lda + k0 + p) : T(0);
+      rb[u] = in && r < Nc ? ldcg(B + r * ldb + k0 + p) : T(0);
+    }
+  };
+  auto store = [&](int buf) {
+#pragma unroll
+    for (int u = 0; u < V; ++u) {
+      const int at = (buf * kT + r0 + u * (kThr / kKS)) * kLdK + p;
+      As[at] = sub ? -ra[u] : ra[u];
+      Bs[at] = rb[u];
+    }
+  };
+  const int lane = tid & 31, warp = tid >> 5, wm = warp % Cf::WM, wn = warp / Cf::WM;
+  const int g = lane >> 2, q = lane & 3, m0 = wm * (kT / Cf::WM), n0 = wn * (64 / Cf::WN);
+  const int slices = (Kd + kKS - 1) / kKS;
+  if (slices > 0) {
+    load(0);
+    store(0);
+    __syncthreads();
+  }
+  for (int sl = 0; sl < slices; ++sl) {
+    if (sl + 1 < slices) load((sl + 1) * kKS);
+    const T* a_s = As + (sl & 1) * kT * kLdK;
+    const T* b_s = Bs + (sl & 1) * kT * kLdK;
+#pragma unroll kUnroll
+    for (int kk = 0; kk < kKS; kk += 4) {
+      if constexpr (sizeof(T) == 8) {  // mma.sync m16n8k4, A(m, k) at a_s[m][k], B(k, n) at b_s[n][k]
+        double a[Cf::MT / 2][2], b[Cf::NTT];
+#pragma unroll
+        for (int i = 0; i < Cf::MT / 2; ++i) {
+          a[i][0] = a_s[(m0 + 16 * i + g) * kLdK + kk + q];
+          a[i][1] = a_s[(m0 + 16 * i + 8 + g) * kLdK + kk + q];
+        }
+#pragma unroll
+        for (int j = 0; j < Cf::NTT; ++j) b[j] = b_s[(n0 + 8 * j + g) * kLdK + kk + q];
+#pragma unroll
+        for (int i = 0; i < Cf::MT / 2; ++i)
+#pragma unroll
+          for (int j = 0; j < Cf::NTT; ++j)
+            asm volatile(
+                "mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 {%0,%1,%2,%3}, {%4,%5}, {%6}, {%0,%1,%2,%3};\n"
+                : "+d"(acc.v[2 * i][j][0]), "+d"(acc.v[2 * i][j][1]), "+d"(acc.v[2 * i + 1][j][0]),
+                  "+d"(acc.v[2 * i + 1][j][1])
+                : "d"(a[i][0]), "d"(a[i][1]), "d"(b[j]));
+      } else {  // the FMA units
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          T a[Cf::MT], b[Cf::NTT][2];
+#pragma unroll
+          for (int i = 0; i < Cf::MT; ++i) a[i] = a_s[(m0 + 8 * i + g) * kLdK + kk + e];
+#pragma unroll
+          for (int j = 0; j < Cf::NTT; ++j) {
+            b[j][0] = b_s[(n0 + 8 * j + 2 * q) * kLdK + kk + e];
+            b[j][1] = b_s[(n0 + 8 * j + 2 * q + 1) * kLdK + kk + e];
+          }
+#pragma unroll
+          for (int i = 0; i < Cf::MT; ++i)
+#pragma unroll
+            for (int j = 0; j < Cf::NTT; ++j) {
+              acc.v[i][j][0] += a[i] * b[j][0];
+              acc.v[i][j][1] += a[i] * b[j][1];
+            }
+        }
+      }
+    }
+    if (sl + 1 < slices) store((sl + 1) & 1);
+    __syncthreads();
+  }
+  tile_io<T, 64, false>(acc, C, ldc, Mr, Nc);
+  __syncthreads();
+}
+template <typename T>
+struct TileWork {
+  using type = T;
+};
+template <>
+struct TileWork<float> {
+  using type = double;
+};
+template <typename T>
+__device__ __noinline__ void chol_tile(T* D, long long ld, int t, T* Dinv, int* bad, T* sm, T tiny,
+                                       const T* U = nullptr, long long ldu = 0, int du = 0) {
+  tgtile::factor_tile(D, ld, t, Dinv, bad, reinterpret_cast<typename TileWork<T>::type*>(sm), tiny, U, ldu, du);
 }
 
+// The blocked Cholesky of chain blockIdx.y's block-tridiagonal matrix, held
+// in P as its K panels (A_k's lower triangle in rows 0..s of panel k, E_k in
+// rows s..2s; zeros above the diagonal), in place: L_k and M_k. Block step k
+// walks L_k's column tiles of 64, j = 0 .. nt - 1 (nt = ceil(s / 64)), each
+// in two phases:
+//   the panel: L_k's row tiles below the diagonal tile j and M_k's row tiles
+//     times the inverted diagonal tile (L(a, j) = A(a, j) L_jj^-T), dealt
+//     out over the cluster; block 0's first tile is the row tile of the next
+//     diagonal tile. Its barrier is split: block 0 arrives, then factors the
+//     next diagonal tile (L(j + 1, j + 1), or A_{k+1}(0, 0) after the last
+//     column tile; its update by column tile j fused in), then waits. The
+//     tile factors are the chain's critical path, and this takes each one
+//     off the path of the panel and its barrier.
+//   the update, ended by a cluster barrier: the other blocks share M_k's
+//     tiles of column j + 1 (left-looking: all of M_k's finished columns at
+//     once, so an M tile is summed in registers and rounded once), the lower
+//     tiles of A_{k+1} = D_{k+1} - M_k M_k^T (two column tiles of M_k at a
+//     time, spread over the updates, so that U_k's products fill the time
+//     of the tile factors) and L_k's trailing tiles (right-looking).
+// Block 0 factors and inverts the diagonal tiles (tiles.cuh factor_tile; a
+// float32 tile in float64, so that the inverse that multiplies every panel
+// tile carries no float32 bias into the pivots that follow) into the chain's
+// two slots of Dinv in turn (the panel reads one while the next is
+// written). *bad is set for a pivot that is not finite and above tiny; the
+// chain goes on.
+template <typename T>
+__global__ void __launch_bounds__(tgtile::kThr, 1)
+    bt_chol_kernel(T* P, int K, int s, T tiny, T* Dinv, int* bad) {
+  using namespace tgtile;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  const int rank = blockIdx.x, cs = gridDim.x;  // the grid is (cluster size, B)
+  const long long panel = 2LL * s * s, ss = (long long)s * s;
+  T* Pb = P + blockIdx.y * panel * K;
+  T* Dv = Dinv + blockIdx.y * 2LL * kTT;  // two slots: column tile c's inverted diagonal tile in slot c % 2
+  int* flag = bad + blockIdx.y;
+  const int nt = ntiles(s);
+  // U_k's chunks of two column tiles of M_k spread over the updates before the last; the rest at the last
+  const int spread = nt >= 4 ? (nt - 2) / 2 : 0, u_last = 2 * spread * kT;
+  // an update's products go to blocks 1 .. cs - 1 (all to block 0 in a cluster of one) in snake order, the
+  // deepest first, so that each block's share takes about as long
+  const int W = cs - 1;
+  int pos = 0, fwd = 1;
+  auto mine = [&]() {  // the owner of the next product
+    if (W == 0) return true;
+    const bool own = 1 + (fwd ? pos : W - 1 - pos) == rank;
+    if (++pos == W) pos = 0, fwd ^= 1;
+    return own;
+  };
+  auto rows = [&](int i) { return min(kT, s - i * kT); };  // height of row tile i
+  if (rank == 0) chol_tile(Pb, s, rows(0), Dv, flag, sm, tiny);
+  cluster_barrier();
+  for (int k = 0, c = 0; k < K; ++k) {
+    T* L = Pb + k * panel;  // L_k, then M_k (E_k until it is solved) s rows below
+    T* M = L + ss;
+    T* A = L + panel;  // D_{k+1}, then A_{k+1}
+    const bool more = k < K - 1;
+    for (int j = 0; j < nt; ++j, ++c) {
+      const int j0 = j * kT, tj = rows(j), below = nt - 1 - j;
+      if (!more && below == 0) break;  // the last column tile of the last block
+      const bool last = below == 0;
+      const int n1 = j0 + kT, t1 = rows(last ? 0 : j + 1);
+      const T* Dj = Dv + (c % 2) * kTT;
+      T* Dn = Dv + ((c + 1) % 2) * kTT;
+      // the panel; block 0's first row tile is the one the next diagonal tile's update needs
+      for (int a = rank; a < below + (more ? nt : 0); a += cs) {
+        T* C = a < below ? L + (long long)(j + 1 + a) * kT * s + j0 : M + (long long)(a - below) * kT * s + j0;
+        chol_gemm<T>(C, s, C, s, Dj, kT, rows(a < below ? j + 1 + a : a - below), tj, tj, false, sm);
+      }
+      // the panel barrier, split: block 0 factors the next diagonal tile (L(j + 1, j + 1), or A_{k+1}(0, 0)
+      // after the last column tile) between its arrival and its wait, its update by column tile j fused in,
+      // while the other blocks go on with the update
+      cluster_arrive();
+      if (rank == 0) {
+        if (last)
+          chol_tile(A, s, t1, Dn, flag, sm, tiny, (const T*)M + u_last, s, s - u_last);
+        else
+          chol_tile(L + (long long)n1 * s + n1, s, t1, Dn, flag, sm, tiny, (const T*)L + (long long)n1 * s + j0, s, tj);
+      }
+      cluster_wait();
+      // the update (none of it block 0's, unless the cluster is one block): M_k's tiles of column j + 1
+      // (left-looking, the deepest products), U_k's products into A_{k+1}'s lower tiles and L_k's trailing tiles
+      pos = 0, fwd = 1;
+      for (int a = 0; (rank > 0 || W == 0) && more && !last && a < nt; ++a)  // M(a, j+1) -= M(a, :n1) L(j+1, :n1)^T
+        if (mine())
+          chol_gemm<T>(M + (long long)a * kT * s + n1, s, M + (long long)a * kT * s, s, L + (long long)n1 * s, s,
+                       rows(a), t1, n1, true, sm);
+      // A_{k+1}(a, b) -= M(a, q) M(b, q)^T over M's columns q in chunks: the chunk of column tiles 2h, 2h + 1
+      // (h < spread) in the updates of column tiles 2h + 1 and 2h + 2, half of the tiles in each; the rest,
+      // from column u_last on, after the last column tile
+      const int h = (j - 1) / 2, q0 = last ? u_last : 2 * h * kT;
+      const bool chunk = more && (last || (j >= 1 && h < spread));
+      int u = 0;
+      for (int a = 0; (rank > 0 || W == 0) && chunk && a < nt; ++a)
+        for (int b = 0; b <= a; ++b, ++u)
+          if (last ? a > 0 : u % 2 == (j - 1) % 2)
+            if (mine())
+              chol_gemm<T>(A + (long long)a * kT * s + b * kT, s, M + (long long)a * kT * s + q0, s,
+                           M + (long long)b * kT * s + q0, s, rows(a), rows(b), last ? s - q0 : 2 * kT, true, sm);
+      for (int a = j + 2; (rank > 0 || W == 0) && a < nt; ++a)  // L(a, b) -= L(a, j) L(b, j)^T, j < b <= a
+        for (int b = j + 1; b <= a; ++b)
+          if (mine())
+            chol_gemm<T>(L + (long long)a * kT * s + b * kT, s, L + (long long)a * kT * s + j0, s,
+                         L + (long long)b * kT * s + j0, s, rows(a), rows(b), tj, true, sm);
+      cluster_barrier();
+    }
+  }
+}
+
+// Shared memory of the cluster factorization: what the products and the
+// tile factor need, raised above half an SM's so that no two blocks share an SM.
+template <typename T>
+size_t chol_smem() {
+  using namespace tgtile;
+  const size_t prod = sizeof(T) * 4 * kT * kLdK;
+  const size_t tile = sizeof(double) * (2 * kT * kLdS + kT + 2 * kT * (kKS + 4));  // + sub_gram's staging
+  const size_t need = prod > tile ? prod : tile, one = 116 * 1024;
+  return need > one ? need : one;
+}
+
+// How many clusters of cs blocks of the factorization the card holds at once
+// (0 for a cluster size it refuses).
+template <typename T>
+int chol_fit(int cs, int* count) {
+  if (tgtile::max_clusters(bt_chol_kernel<T>, dim3(cs), cs, chol_smem<T>(), count)) {
+    cudaGetLastError();
+    *count = 0;
+  }
+  return 0;
+}
+
+template <typename T>
+int launch_chol(T* P, int K, int s, T tiny, T* Dinv, int* bad, int cs, int B, cudaStream_t st) {
+  return tgtile::launch_cluster(bt_chol_kernel<T>, dim3(cs, B), cs, chol_smem<T>(), st, P, K, s, tiny, Dinv, bad);
+}
+
+// K11: scatter, the cluster factorization of every chain with no boost
+// (breakdown at l <= 30 eps), one flag readback; the chains that broke down
+// are redone from the scatter on, block by block, each block retried as
+// `_chol_boosted` does (the blocked panel Cholesky of dense_blocks.cuh on
+// the chains in `redo`). Dinv: B x 2 inverted tiles of 64 x 64 (scratch).
 template <typename T>
 int launch_factor(const T* data, long long ds, const int* src, const int* dst, int ntab, const int* tperm, T* P,
-                  int K, int s, T* ws, T* dom, int* boost, T* logdet, int* flags, int B, void* stream) {
+                  int K, int s, T* ws, T* dom, int* boost, T* logdet, int* flags, T* Dinv, int cs, int B,
+                  void* stream) {
   if (B == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
   int* fail = flags;
@@ -249,25 +505,25 @@ int launch_factor(const T* data, long long ds, const int* src, const int* dst, i
   // fast pass: every chain, every block, no boost
   bt_scatter_kernel<T><<<sgrid, kThreads, 0, st>>>(data, ds, src, dst, ntab, tperm, P, pstride, nullptr);
   if ((rc = (int)cudaGetLastError())) return rc;
-  if ((rc = factor_pass<T>(P, pstride, K, s, tiny, fail, B, st))) return rc;
+  if ((rc = launch_chol<T>(P, K, s, tiny, Dinv, fail, cs, B, st))) return rc;
   bool any;
-  if (rc || (rc = any_failed(fail, B, st, &any))) return rc;
+  if ((rc = any_failed(fail, B, st, &any))) return rc;
   if (any) {
-    // the chains that broke down are redone block by block with the boost
     if ((rc = take_failed(nullptr, fail, redo, nullptr, B, st))) return rc;
     if ((rc = fill<T>(P, pstride, pstride, T(0), redo, B, st))) return rc;
     bt_scatter_kernel<T><<<sgrid, kThreads, 0, st>>>(data, ds, src, dst, ntab, tperm, P, pstride, redo);
     if ((rc = (int)cudaGetLastError())) return rc;
     for (int k = 0; k < K; ++k) {
       T* Pk = P + k * panel;
-      const long long count = (long long)(k < K - 1 ? 2 * s : s) * s;
+      const int H = k < K - 1 ? 2 * s : s;
+      const long long count = (long long)H * s;
       if ((rc = copy_shift<T>(ws, panel, Pk, pstride, count, s, T(0), nullptr, redo, B, st))) return rc;
-      if ((rc = factor_panels<T>(Pk, pstride, s, k < K - 1 ? 2 * s : s, s, tiny, redo, fail, B, st))) return rc;
+      if ((rc = factor_panels<T>(Pk, pstride, s, H, s, tiny, redo, fail, B, st))) return rc;
       if ((rc = any_failed(fail, B, st, &any))) return rc;
       if (any) {
         if ((rc = take_failed(redo, fail, r1, boost, B, st))) return rc;
         if ((rc = copy_shift<T>(Pk, pstride, ws, panel, count, s, delta, nullptr, r1, B, st))) return rc;
-        if ((rc = factor_panels<T>(Pk, pstride, s, k < K - 1 ? 2 * s : s, s, tiny, r1, fail, B, st))) return rc;
+        if ((rc = factor_panels<T>(Pk, pstride, s, H, s, tiny, r1, fail, B, st))) return rc;
         if ((rc = any_failed(fail, B, st, &any))) return rc;
         if (any) {
           // the last attempt is PD by Gershgorin; it is not checked
@@ -275,11 +531,11 @@ int launch_factor(const T* data, long long ds, const int* src, const int* dst, i
           bt_dom_kernel<T><<<B, kThreads, 0, st>>>(ws, panel, s, dom, r2);
           if ((rc = (int)cudaGetLastError())) return rc;
           if ((rc = copy_shift<T>(Pk, pstride, ws, panel, count, s, delta, dom, r2, B, st))) return rc;
-          if ((rc = factor_panels<T>(Pk, pstride, s, k < K - 1 ? 2 * s : s, s, tiny, r2, fail, B, st))) return rc;
+          if ((rc = factor_panels<T>(Pk, pstride, s, H, s, tiny, r2, fail, B, st))) return rc;
           if ((rc = (int)cudaMemsetAsync(fail, 0, sizeof(int) * B, st))) return rc;
         }
       }
-      if (k < K - 1) {
+      if (k < K - 1) {  // D_{k+1} -= M_k M_k^T
         syrk_lower_kernel<T><<<dim3(cdiv(s, kGB), cdiv(s, kGB), B), kThreads, 0, st>>>(
             Pk + panel, pstride, s, Pk + (long long)s * s, pstride, s, s, s, s, redo);
         if ((rc = (int)cudaGetLastError())) return rc;
@@ -291,11 +547,13 @@ int launch_factor(const T* data, long long ds, const int* src, const int* dst, i
 }
 
 // The block entry of K11: the factor of the blocks D (B, K, s, s), E (B, K-1,
-// s, s), the fast pass of `launch_factor` with no boost. A pivot that is not
-// finite and positive is left as it comes (NaN for a negative one) and sets
-// the chain's flag, whose logdet is then NaN, as an unboosted Cholesky gives.
+// s, s): the panels loaded (D_k symmetrized), then the cluster factorization
+// with no boost. A pivot that is not finite and positive is left as it
+// comes (NaN for a negative one) and sets the chain's flag, whose logdet is
+// then NaN, as an unboosted Cholesky gives.
 template <typename T>
-int launch_factor_blocks(const T* D, const T* E, T* P, int K, int s, T* logdet, int* flags, int B, void* stream) {
+int launch_factor_blocks(const T* D, const T* E, T* P, int K, int s, T* logdet, int* flags, T* Dinv, int cs, int B,
+                         void* stream) {
   if (B == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
   const long long pstride = 2LL * s * s * K;
@@ -304,7 +562,7 @@ int launch_factor_blocks(const T* D, const T* E, T* P, int K, int s, T* logdet, 
   if (rc) return rc;
   bt_blocks_load_kernel<T><<<dim3(want < 1024 ? (int)want : 1024, B), kThreads, 0, st>>>(D, E, P, K, s);
   if ((rc = (int)cudaGetLastError())) return rc;
-  if ((rc = factor_pass<T>(P, pstride, K, s, T(0), flags, B, st))) return rc;
+  if ((rc = launch_chol<T>(P, K, s, T(0), Dinv, flags, cs, B, st))) return rc;
   bt_logdet_kernel<T><<<B, kThreads, 0, st>>>(P, pstride, K, s, logdet, flags);
   return (int)cudaGetLastError();
 }
@@ -628,17 +886,18 @@ extern "C" {
 #define TG_BT_ENTRY(SUF, T)                                                                                     \
   int tg_bt_factor_##SUF(const T* data, long long ds, const int* src, const int* dst, int ntab,               \
                          const int* tperm, T* P, int K, int s, T* ws, T* dom, int* boost, T* logdet,          \
-                         int* flags, int B, void* stream) {                                                   \
-    return launch_factor<T>(data, ds, src, dst, ntab, tperm, P, K, s, ws, dom, boost, logdet, flags, B,       \
-                            stream);                                                                          \
+                         int* flags, T* work, int cs, int B, void* stream) {                                  \
+    return launch_factor<T>(data, ds, src, dst, ntab, tperm, P, K, s, ws, dom, boost, logdet, flags, work, cs, \
+                            B, stream);                                                                       \
   }                                                                                                           \
+  int tg_bt_factor_fit_##SUF(int cs, int* count) { return chol_fit<T>(cs, count); }                           \
   int tg_bt_trsv_##SUF(const T* P, int K, int s, int n, const int* perm, const T* b, T* out, int k, int mode, \
                        int R, T* work, void* stream) {                                                        \
     return launch_trsv<T>(P, K, s, n, perm, b, out, k, mode, R, work, stream);                         \
   }                                                                                                           \
-  int tg_bt_factor_blocks_##SUF(const T* D, const T* E, T* P, int K, int s, T* logdet, int* flags, int B,      \
-                                void* stream) {                                                               \
-    return launch_factor_blocks<T>(D, E, P, K, s, logdet, flags, B, stream);                                  \
+  int tg_bt_factor_blocks_##SUF(const T* D, const T* E, T* P, int K, int s, T* logdet, int* flags, T* work,    \
+                                int cs, int B, void* stream) {                                                \
+    return launch_factor_blocks<T>(D, E, P, K, s, logdet, flags, work, cs, B, stream);                        \
   }                                                                                                           \
   int tg_bt_trsv_blocks_##SUF(const T* P, int K, int s, const T* b, T* out, int k, int B, T* work,           \
                               void* stream) {                                                                 \

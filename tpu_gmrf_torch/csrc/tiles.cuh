@@ -1,7 +1,8 @@
-// The device routines of the SPIKE kernels: products, triangular solves and
-// tile Cholesky factors spread over the blocks of a thread-block cluster
-// (K12's block entry `bt_trsv_blocks` in csrc/banded.cu, K18
-// `spike_reduced` in csrc/spike.cu), and the cluster launch.
+// The device routines of the cluster kernels: products, triangular solves
+// and tile Cholesky factors spread over the blocks of a thread-block cluster
+// (K11's factorization and K12's block entry `bt_trsv_blocks` in
+// csrc/banded.cu, K18 `spike_reduced` in csrc/spike.cu), and the cluster
+// launch.
 //
 // Every operand lives in global memory (at the SPIKE shapes a step's blocks
 // sit in L2); a block stages operand tiles in shared memory and keeps its
@@ -19,7 +20,9 @@
 //       diagonal step is a product, not a substitution.
 //   factor_tile  the Cholesky of a diagonal tile of up to 64 rows and its
 //       inverse, by blocks of 16 columns, each block's 16 pivots passed
-//       between the lanes of one warp.
+//       between the lanes of one warp; optionally after subtracting U U^T
+//       (sub_gram), and in a wider type than the tile's (K11 factors its
+//       float32 tiles in float64).
 //   trsm_rows  X <- L^-1 X or L^-T X with L's row tiles spread over the
 //       blocks of a cluster (tile j belongs to block j % cluster size): the
 //       owner of tile j multiplies it by its inverted diagonal tile, a
@@ -77,13 +80,17 @@ __device__ __forceinline__ T ldcg(const T* p) {
   return __ldcg(p);
 }
 
-// 1 / sqrt(p): float64 from the float estimate and two Newton steps (the
-// float64 rsqrt is a long dependent sequence, and a tile Cholesky chains 64 of them).
+// 1 / sqrt(p): float64 from the hardware estimate r (rsqrt.approx.f64,
+// good to about 20 bits) and one third-order step, r (1 + e / 2 + 3 e^2 / 8)
+// with e = 1 - p r^2 (the next term, 5 e^3 / 16, is below 2^-60): four
+// dependent float64 operations (the float64 rsqrt is a long dependent
+// sequence, and a tile Cholesky chains 64 of them).
 __device__ __forceinline__ double rsqrt_fast(double p) {
   if (!(p > 1e-30 && p < 1e30)) return rsqrt(p);
-  double r = (double)rsqrtf((float)p);
-  r = r * (1.5 - 0.5 * p * r * r);
-  return r * (1.5 - 0.5 * p * r * r);
+  double r;
+  asm("rsqrt.approx.ftz.f64 %0, %1;" : "=d"(r) : "d"(p));
+  const double e = fma(-p * r, r, 1.0);
+  return fma(r * e, fma(0.375, e, 0.5), r);
 }
 __device__ __forceinline__ float rsqrt_fast(float p) { return rsqrtf(p); }
 
@@ -316,22 +323,22 @@ __device__ void invert_blocked(const T* L, const T* rinv, T* X) {
 }
 
 // out (64 x 64, row-major) = the t x t lower part of X, zero elsewhere.
-template <typename T>
-__device__ void store_lower(const T* X, int t, T* out) {
+template <typename W, typename T>
+__device__ void store_lower(const W* X, int t, T* out) {
 #pragma unroll
   for (int u = 0; u < kTT / kThr; ++u) {
     const int e = threadIdx.x + u * kThr, r = e / kT, c = e % kT;
-    out[e] = (r < t && c <= r) ? X[r * kLdS + c] : T(0);
+    out[e] = (r < t && c <= r) ? T(X[r * kLdS + c]) : T(0);
   }
 }
 
 // Load the lower t x t tile at D (row stride ld) into S, the identity beyond row t.
-template <typename T>
-__device__ void load_tile(const T* D, long long ld, int t, T* S) {
+template <typename T, typename W>
+__device__ void load_tile(const T* D, long long ld, int t, W* S) {
 #pragma unroll
   for (int u = 0; u < kTT / kThr; ++u) {
     const int e = threadIdx.x + u * kThr, r = e / kT, c = e % kT;
-    S[r * kLdS + c] = (r < t && c <= r) ? ldcg(D + r * ld + c) : (r == c ? T(1) : T(0));
+    S[r * kLdS + c] = (r < t && c <= r) ? W(ldcg(D + r * ld + c)) : (r == c ? W(1) : W(0));
   }
   __syncthreads();
 }
@@ -350,52 +357,206 @@ __device__ void invert_tile(const T* D, long long ld, int t, T* out, T* sm) {
   __syncthreads();
 }
 
-// Cholesky of the t x t diagonal tile at D (lower triangle read; the factor
-// written back with zeros above the diagonal) and its inverse into Dinv;
-// *bad set for a pivot that is not finite and positive. By blocks of 16
-// columns: the diagonal block by warp 0, a lane per row, its pivots passed
-// by shuffles (1 / sqrt from rsqrt_fast); the rows below it by a thread
-// each; the trailing part by a thread per entry.
+// The inverse X of the lower tile L (row stride kLdS, in shared memory), a
+// block row of 16 at a time, for factor_tile: diagonal block b0 (16 x 16)
+// by one warp, a lane per column, substitution down the rows ...
+template <typename W>
+__device__ void invert_diag16(const W* L, const W* rinv, W* X, int b0, int lane) {
+  const int c = lane & 15;
+  W x[16];
+#pragma unroll
+  for (int r = 0; r < 16; ++r) {
+    W v = r == c ? W(1) : W(0);
+#pragma unroll
+    for (int q = 0; q < r; ++q) v -= L[(b0 + r) * kLdS + b0 + q] * x[q];
+    x[r] = v * rinv[b0 + r];  // zero above the diagonal: x[q] = 0 for q < c
+  }
+  if (lane < 16)
+#pragma unroll
+    for (int r = 0; r < 16; ++r) X[(b0 + r) * kLdS + b0 + c] = x[r];
+}
+
+// ... and the rest of block row bi once its diagonal block is in X:
+// X_ij = -X_ii sum_{k=j}^{i-1} L_ik X_kj for j < i, by threads id = 0 .. n - 1
+// meeting at sync() (T_ij = sum L_ik X_kj is staged in X_ij's place).
+template <typename W, typename Sync>
+__device__ void invert_row16(const W* L, W* X, int bi, int id, int n, Sync sync) {
+  const int i0 = 16 * bi;
+  for (int e = id; e < bi * 256; e += n) {
+    const int j0 = 16 * (e >> 8), r = (e >> 4) & 15, c = e & 15;
+    W v = W(0);
+    for (int q = j0; q < i0; ++q) v += L[(i0 + r) * kLdS + q] * X[q * kLdS + j0 + c];
+    X[(i0 + r) * kLdS + j0 + c] = v;
+  }
+  sync();
+  W out[4];  // bi * 256 <= 768 entries over at least 224 threads
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const int e = id + u * n, j0 = 16 * (e >> 8), r = (e >> 4) & 15, c = e & 15;
+    out[u] = W(0);
+    if (e < bi * 256)
+#pragma unroll
+      for (int q = 0; q < 16; ++q) out[u] -= X[(i0 + r) * kLdS + i0 + q] * X[(i0 + q) * kLdS + j0 + c];
+  }
+  sync();
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const int e = id + u * n;
+    if (e < bi * 256) X[(i0 + ((e >> 4) & 15)) * kLdS + 16 * (e >> 8) + (e & 15)] = out[u];
+  }
+}
+
+// S (the t x t lower tile, row stride kLdS, float64 in shared memory) -=
+// U U^T, U t x du at U (row stride ldu), on the float64 tensor cores: U's
+// 32-deep slices staged in float64 in st (two buffers of 64 x (kKS + 4),
+// the next slice loaded into registers while the current one is
+// multiplied), one 64 x 64 accumulator tile (Acc, Cfg<64>), its lower part
+// then subtracted from S. Every thread of the block calls it; it ends with
+// a block barrier.
 template <typename T>
-__device__ void factor_tile(T* D, long long ld, int t, T* Dinv, int* bad, T* sm) {
-  T* S = sm;
-  T* X = sm + kT * kLdS;
-  T* rinv = X + kT * kLdS;
+__device__ void sub_gram(double* S, int t, const T* U, long long ldu, int du, double* st) {
+  using C = Cfg<64>;
+  constexpr int LD = kKS + 4, V = kT * kKS / kThr;
+  const int tid = threadIdx.x, p = tid % kKS, r0 = tid / kKS;  // row r0 + 8 u, column p of a slice
+  const int lane = tid & 31, warp = tid >> 5, wm = warp % C::WM, wn = warp / C::WM;
+  const int g = lane >> 2, q = lane & 3, m0 = wm * (kT / C::WM), n0 = wn * (64 / C::WN);
+  Acc<double, 64> acc;
+  acc.zero();
+  double ru[V];
+  auto load = [&](int k0) {
+#pragma unroll
+    for (int u = 0; u < V; ++u) {
+      const int r = r0 + u * (kThr / kKS);
+      ru[u] = r < t && k0 + p < du ? double(ldcg(U + r * ldu + k0 + p)) : 0.0;
+    }
+  };
+  auto store = [&](int buf) {
+#pragma unroll
+    for (int u = 0; u < V; ++u) st[(buf * kT + r0 + u * (kThr / kKS)) * LD + p] = ru[u];
+  };
+  const int slices = (du + kKS - 1) / kKS;
+  load(0);
+  store(0);
+  __syncthreads();
+  for (int sl = 0; sl < slices; ++sl) {
+    if (sl + 1 < slices) load((sl + 1) * kKS);
+    const double* s_ = st + (sl & 1) * kT * LD;
+#pragma unroll 2
+    for (int kk = 0; kk < kKS; kk += 4) {  // A(m, k) = U[m][k], B(k, n) = U[n][k]
+      double a[C::MT / 2][2], b[C::NTT];
+#pragma unroll
+      for (int i = 0; i < C::MT / 2; ++i) {
+        a[i][0] = s_[(m0 + 16 * i + g) * LD + kk + q];
+        a[i][1] = s_[(m0 + 16 * i + 8 + g) * LD + kk + q];
+      }
+#pragma unroll
+      for (int j = 0; j < C::NTT; ++j) b[j] = s_[(n0 + 8 * j + g) * LD + kk + q];
+#pragma unroll
+      for (int i = 0; i < C::MT / 2; ++i)
+#pragma unroll
+        for (int j = 0; j < C::NTT; ++j)
+          asm volatile("mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 {%0,%1,%2,%3}, {%4,%5}, {%6}, {%0,%1,%2,%3};\n"
+                       : "+d"(acc.v[2 * i][j][0]), "+d"(acc.v[2 * i][j][1]), "+d"(acc.v[2 * i + 1][j][0]),
+                         "+d"(acc.v[2 * i + 1][j][1])
+                       : "d"(a[i][0]), "d"(a[i][1]), "d"(b[j]));
+    }
+    if (sl + 1 < slices) store((sl + 1) & 1);
+    __syncthreads();
+  }
+  const int rr = m0 + g, cc = n0 + 2 * q;  // acc.v[i][j][e] is (rr + 8 i, cc + 8 j + e)
+#pragma unroll
+  for (int i = 0; i < C::MT; ++i)
+#pragma unroll
+    for (int j = 0; j < C::NTT; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int r = rr + 8 * i, c = cc + 8 * j + e;
+        if (c <= r && r < t) S[r * kLdS + c] -= acc.v[i][j][e];
+      }
+  __syncthreads();
+}
+
+// Cholesky of the t x t diagonal tile at D (lower triangle read; the factor
+// written back with zeros above the diagonal) and its inverse into Dinv,
+// both computed in W (the type of the shared memory sm: T, or float64 for a
+// float32 tile whose inverse must not bias what it multiplies);
+// *bad set for a pivot l = sqrt(p) that is not finite and above tiny. With
+// du > 0 the tile is first updated, D - U U^T, U t x du at U (sub_gram, so
+// W must be float64; its staging follows the tile's shared memory). By
+// blocks of 16 columns: the diagonal block by warp 0, a lane per row, its
+// pivots passed by shuffles (1 / sqrt from rsqrt_fast; the lane of the next
+// pivot forms it from its own row, so one shuffle per pivot is on the
+// dependent chain); the rows below it by a thread each; then the next
+// diagonal block's update, by a thread per entry. The rest of that block
+// column's update and the inverse's block row run on warps 1-7 while warp 0
+// factors the next diagonal block (the pivots are the tile's critical path).
+template <typename T, typename W>
+__device__ void factor_tile(T* D, long long ld, int t, T* Dinv, int* bad, W* sm, T tiny = T(0),
+                            const T* U = nullptr, long long ldu = 0, int du = 0) {
+  W* S = sm;
+  W* X = sm + kT * kLdS;
+  W* rinv = X + kT * kLdS;
   const int tid = threadIdx.x, lane = tid & 31;
-  if (tid < kT) rinv[tid] = T(1);  // the identity beyond t
+  if (tid < kT) rinv[tid] = W(1);  // the identity beyond t
   load_tile(D, ld, t, S);
-  for (int b0 = 0; b0 < t; b0 += 16) {
-    if (tid < 32) {  // the diagonal block: lane l (and l + 16) holds its row l
+  if constexpr (sizeof(W) == 8) {
+    if (du > 0) sub_gram(S, t, U, ldu, du, rinv + kT);
+  }
+  const int nb = (t + 15) / 16, warp = tid >> 5;
+  for (int b = 0; b < nb; ++b) {
+    const int b0 = 16 * b;
+    if (warp == 0) {  // the diagonal block: lane l (and l + 16) holds its row l
       const int l = lane & 15;
-      T row[16];
+      W row[16];
 #pragma unroll
       for (int q = 0; q < 16; ++q) row[q] = S[(b0 + l) * kLdS + b0 + q];
+      W p = __shfl_sync(0xffffffffu, row[0], 0), myr = W(1), mypiv = W(1);
 #pragma unroll
       for (int j = 0; j < 16; ++j) {
-        const T p = __shfl_sync(0xffffffffu, row[j], j);
-        const T r = rsqrt_fast(p);
-        row[j] = l == j ? p * r : (l > j ? row[j] * r : T(0));
+        const W r = rsqrt_fast(p), piv = p * r;
+        if (l == j) myr = r, mypiv = piv;
+        row[j] = l == j ? piv : (l > j ? row[j] * r : W(0));
+        if (j < 15) {
+          const W next = row[j + 1] - row[j] * row[j];  // lane j + 1's next pivot
 #pragma unroll
-        for (int q = j + 1; q < 16; ++q) {
-          const T lq = __shfl_sync(0xffffffffu, row[j], q);  // L[q][j]
-          if (l >= q) row[q] -= row[j] * lq;
-        }
-        if (lane == j) {
-          rinv[b0 + j] = r;
-          if (b0 + j < t && !(p > T(0) && isfinite(p))) *bad = 1;
+          for (int q = j + 1; q < 16; ++q) {
+            const W lq = __shfl_sync(0xffffffffu, row[j], q);  // L[q][j]
+            if (l >= q) row[q] -= row[j] * lq;
+          }
+          p = __shfl_sync(0xffffffffu, next, j + 1);
         }
       }
-      if (lane < 16)
+      if (lane < 16) {
+        rinv[b0 + l] = myr;
+        if (b0 + l < t && !(mypiv > tiny && isfinite(mypiv))) *bad = 1;
 #pragma unroll
-        for (int q = 0; q < 16; ++q) S[(b0 + l) * kLdS + b0 + q] = q <= l ? row[q] : T(0);
+        for (int q = 0; q < 16; ++q) S[(b0 + l) * kLdS + b0 + q] = q <= l ? row[q] : W(0);
+      }
+    } else if (b > 0) {  // meanwhile warps 1-7: what the previous block column left
+      const int id = tid - 32, n = kThr - 32, m_c = kT - b0;
+      auto helpers_sync = [] { asm volatile("bar.sync 1, 224;" ::: "memory"); };
+      // its update of the rows below block b (block b's own was done before these pivots)
+      for (int e = id; e < (kT - 16 - b0) * m_c; e += n) {
+        const int i = b0 + 16 + e / m_c, c = b0 + e % m_c;
+        if (c <= i) {
+          W acc = S[i * kLdS + c];
+#pragma unroll
+          for (int q = 0; q < 16; ++q) acc -= S[i * kLdS + b0 - 16 + q] * S[c * kLdS + b0 - 16 + q];
+          S[i * kLdS + c] = acc;
+        }
+      }
+      // block row b - 1 of the inverse
+      if (warp == 1) invert_diag16(S, rinv, X, b0 - 16, lane);
+      helpers_sync();
+      invert_row16(S, X, b - 1, id, n, helpers_sync);
     }
     __syncthreads();
     if (tid < kT - 16 - b0) {  // row i below: S[i][b0:b0+16] <- S[i][b0:b0+16] L^-T
       const int i = b0 + 16 + tid;
-      T x[16];
+      W x[16];
 #pragma unroll
       for (int j = 0; j < 16; ++j) {
-        T v = S[i * kLdS + b0 + j];
+        W v = S[i * kLdS + b0 + j];
 #pragma unroll
         for (int q = 0; q < j; ++q) v -= x[q] * S[(b0 + j) * kLdS + b0 + q];
         x[j] = v * rinv[b0 + j];
@@ -404,24 +565,27 @@ __device__ void factor_tile(T* D, long long ld, int t, T* Dinv, int* bad, T* sm)
       for (int j = 0; j < 16; ++j) S[i * kLdS + b0 + j] = x[j];
     }
     __syncthreads();
-    const int m = kT - 16 - b0;  // the trailing part, rows and columns b0 + 16 ..
-    for (int e = tid; e < m * m; e += kThr) {
-      const int i = b0 + 16 + e / m, c = b0 + 16 + e % m;
-      if (c <= i) {
-        T acc = S[i * kLdS + c];
+    if (b + 1 < nb) {  // the next diagonal block's update by this block column, before its pivots
+      const int r = tid >> 4, c = tid & 15, i = b0 + 16 + r;
+      if (c <= r) {
+        W acc = S[i * kLdS + b0 + 16 + c];
 #pragma unroll
-        for (int q = 0; q < 16; ++q) acc -= S[i * kLdS + b0 + q] * S[c * kLdS + b0 + q];
-        S[i * kLdS + c] = acc;
+        for (int q = 0; q < 16; ++q) acc -= S[i * kLdS + b0 + q] * S[(b0 + 16 + c) * kLdS + b0 + q];
+        S[i * kLdS + b0 + 16 + c] = acc;
       }
+      __syncthreads();
     }
-    __syncthreads();
   }
+  // the factor back, while warp 1 inverts the last diagonal block; then the last block row of the inverse
+  if (warp == 1) invert_diag16(S, rinv, X, 16 * (nb - 1), lane);
 #pragma unroll
   for (int u = 0; u < kTT / kThr; ++u) {
     const int e = tid + u * kThr, r = e / kT, c = e % kT;
-    if (r < t && c < t) D[r * ld + c] = c <= r ? S[r * kLdS + c] : T(0);
+    if (r < t && c < t) D[r * ld + c] = c <= r ? T(S[r * kLdS + c]) : T(0);
   }
-  invert_blocked(S, rinv, X);
+  __syncthreads();
+  invert_row16(S, X, nb - 1, tid, kThr, [] { __syncthreads(); });
+  __syncthreads();
   store_lower(X, t, Dinv);
   __syncthreads();
 }

@@ -8,7 +8,11 @@ M_k = E_k L_k⁻ᵀ in rows s..2s (zero in the last panel). K11 scatters Q's
 data (B, nnz) into the panels through a `BandedTables` (the reference
 plan's d_idx / e_idx), factors them with the reference's ``_chol_boosted``
 per block and chain, and returns P, the boost count (B,) int32 and the
-logdet (B,). K12 solves with P on rows (B·k, n), chain-major: mode 0
+logdet (B,). Its factorization is one launch: a thread-block cluster per
+chain walks the band by column tiles of 64 (`factor_cluster` picks the
+cluster's size), with two slots of an inverted 64 × 64 diagonal tile of
+scratch per chain; the chains whose pivots broke down are redone with the
+boost. K12 solves with P on rows (B·k, n), chain-major: mode 0
 L y = b, mode 1 Lᵀ x = b, mode 2 both, in the original numbering (the RCM
 permutation and padding are applied inside); the permuted vector is kept in
 shared memory while npad entries fit in ``SMEM_MAX`` bytes, else in a
@@ -28,6 +32,7 @@ K11 and K12 have a block entry each, for the SPIKE solve
 E (B, K-1, s, s) given as they are (D_k symmetrized, no pivot boost: a block
 that is not positive definite gives a NaN logdet) into the same P, and
 `bt_trsv_blocks` solves with it on blocks (B, K, s, k), with no permutation.
+The first runs K11's cluster factorization with no boost.
 It first inverts every diagonal block L_k (by tiles of 64 on their inverted
 diagonal tiles), then runs one thread-block cluster per chain and column
 tile of 64 right-hand sides (8 when k ≤ 8), the s rows of each block step
@@ -43,6 +48,8 @@ raises. ``<wrapper>.launches`` counts launches.
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
@@ -52,10 +59,45 @@ from .tridiag import SOLVE_BOTH, SOLVE_L, SOLVE_LT, _fn, _on_cuda, _stream
 
 __all__ = ["BandedTables", "bt_factor", "bt_factor_plain", "bt_trsv", "bt_trsv_plain",
            "bt_matvec", "bt_matvec_plain", "bt_sqrt", "bt_sqrt_plain", "matvec_chunk",
-           "bt_factor_blocks", "bt_factor_blocks_plain", "bt_trsv_blocks", "bt_trsv_blocks_plain"]
+           "bt_factor_blocks", "bt_factor_blocks_plain", "bt_trsv_blocks", "bt_trsv_blocks_plain",
+           "factor_cluster"]
 
 MV_ROWS, MV_VECS, MV_WARPS = 64, 8, 8  # kMvRows, kMvVecs, kMvWarps of the source
-TILE = 64  # kT of csrc/tiles.cuh: the row tile of the block entry's solves
+TILE = 64  # kT of csrc/tiles.cuh: the row tile of the factorization and of the block entry's solves
+MAX_CLUSTER = 16  # the largest (non-portable) cluster of the card
+
+
+def factor_cluster(s: int, B: int, fit) -> int:
+    """Blocks per cluster of K11's factorization of B chains with blocks of
+    s rows: at most 2⌈s/64⌉ (the row tiles below a column tile, 1 for a
+    single tile) and 16; of those, the size that runs the chains in the
+    fewest waves of clusters, the largest among equals. ``fit(cs)`` is how
+    many clusters of cs blocks the card holds at once (0: refused)."""
+    nt = -(-s // TILE)
+    best = None
+    for cs in range(1 if nt == 1 else min(MAX_CLUSTER, 2 * nt), 0, -1):
+        held = fit(cs)
+        if held > 0 and (best is None or -(-B // held) < best[0]):
+            best = (-(-B // held), cs)
+    if best is None:
+        raise RuntimeError(f"bt_factor: the card holds no cluster of the factorization at s={s}")
+    return best[1]
+
+
+_FIT: dict = {}
+
+
+def _cluster(s: int, B: int, dtype) -> int:
+    """`factor_cluster` on this card, its cluster counts queried once per size and type."""
+    def fit(cs):
+        key = (dtype, cs)
+        if key not in _FIT:
+            held = ctypes.c_int(0)
+            build.check(_fn("tg_bt_factor_fit", dtype)(cs, ctypes.byref(held)), "bt_factor")
+            _FIT[key] = held.value
+        return _FIT[key]
+
+    return factor_cluster(s, B, fit)
 
 
 class BandedTables:
@@ -257,13 +299,15 @@ def bt_factor(data: torch.Tensor, tables: BandedTables):
     logdet = data.new_empty(B)
     boost = torch.empty(B, dtype=torch.int32, device=data.device)
     flags = torch.empty(4 * B, dtype=torch.int32, device=data.device)
+    work = data.new_empty(B, 2 * TILE * TILE)  # each chain's two slots of an inverted diagonal tile
     tperm = t["tperm"].data_ptr() if t["tperm"] is not None else None
+    cs = _cluster(s, B, data.dtype)
     code = _fn("tg_bt_factor", data.dtype)(
         data.data_ptr(), data.shape[1], t["src"].data_ptr(), t["dst"].data_ptr(), tables.ntab, tperm,
         P.data_ptr(), K, s, ws.data_ptr(), dom.data_ptr(), boost.data_ptr(), logdet.data_ptr(),
-        flags.data_ptr(), B, _stream(data),
+        flags.data_ptr(), work.data_ptr(), cs, B, _stream(data),
     )
-    build.check(code, "bt_factor", f" at K={K} s={s} B={B} {data.dtype}")
+    build.check(code, "bt_factor", f" at K={K} s={s} B={B} cluster={cs} {data.dtype}")
     bt_factor.launches += 1
     return P, boost, logdet
 
@@ -304,14 +348,17 @@ def bt_factor_blocks(D: torch.Tensor, E: torch.Tensor):
     if not _on_cuda("bt_factor_blocks", D, E):
         return bt_factor_blocks_plain(D, E)
     B, K, s = D.shape[0], D.shape[1], D.shape[-1]
+    D, E = D.contiguous(), E.contiguous()
     P = D.new_empty(B, K, 2 * s, s)
     logdet = D.new_empty(B)
     flags = torch.empty(B, dtype=torch.int32, device=D.device)
+    work = D.new_empty(B, 2 * TILE * TILE)  # each chain's two slots of an inverted diagonal tile
+    cs = _cluster(s, B, D.dtype)
     code = _fn("tg_bt_factor_blocks", D.dtype)(
-        D.data_ptr(), E.data_ptr() if K > 1 else None, P.data_ptr(), K, s, logdet.data_ptr(), flags.data_ptr(), B,
-        _stream(D),
+        D.data_ptr(), E.data_ptr() if K > 1 else None, P.data_ptr(), K, s, logdet.data_ptr(), flags.data_ptr(),
+        work.data_ptr(), cs, B, _stream(D),
     )
-    build.check(code, "bt_factor_blocks", f" at B={B} K={K} s={s} {D.dtype}")
+    build.check(code, "bt_factor_blocks", f" at B={B} K={K} s={s} cluster={cs} {D.dtype}")
     bt_factor_blocks.launches += 1
     return P, logdet
 

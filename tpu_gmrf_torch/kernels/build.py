@@ -56,12 +56,15 @@ _SIGNATURES = {
     "tg_dense_trsv": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # L, s, X (workspace), rows, cols, m, n, out, B, stream
     "tg_dense_selinv": [_P, _P, _P, _P, _P, _I, _I, _P, _I, _P],
-    # data, dstride, src, dst, ntab, tperm, P, K, s, ws, dom, boost, logdet, flags, B, stream
-    "tg_bt_factor": [_P, _L, _P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _P],
+    # data, dstride, src, dst, ntab, tperm, P, K, s, ws, dom, boost, logdet, flags,
+    # work (inverted diagonal tiles), cluster size, B, stream
+    "tg_bt_factor": [_P, _L, _P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    # cluster size, out: how many such clusters of K11's factorization the card holds
+    "tg_bt_factor_fit": [_I, ctypes.POINTER(_I)],
     # P, K, s, n, perm, b, out, k, mode, rows, work (null: shared memory), stream
     "tg_bt_trsv": [_P, _I, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P],
-    # D, E, P, K, s, logdet, flags, B, stream
-    "tg_bt_factor_blocks": [_P, _P, _P, _I, _I, _P, _P, _I, _P],
+    # D, E, P, K, s, logdet, flags, work (inverted diagonal tiles), cluster size, B, stream
+    "tg_bt_factor_blocks": [_P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _P],
     # P, K, s, b, out, k, B, work (inverted diagonal tiles, block inverses, scratch), stream
     "tg_bt_trsv_blocks": [_P, _I, _I, _P, _P, _I, _I, _P, _P],
     # alpha, beta, gamma, r, P, ns, k, Lr, factored, s, work, bad (int flag), logdet, stream
