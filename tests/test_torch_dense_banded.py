@@ -13,6 +13,7 @@ import functools
 
 import jax
 import jax.numpy as jnp
+import jax.scipy.linalg as jsl
 import numpy as np
 import pytest
 import scipy.sparse as sp
@@ -135,6 +136,96 @@ def test_factor_solves_logdet_match_reference(matern10, case, kind):
     np.testing.assert_allclose(f.solve(bk)[..., 1].numpy(), f.solve(bk[..., 1].contiguous()).numpy(), rtol=1e-12)
     f0 = tg.factorize(SparseMatrix(_t(data[0]), Q.pattern), tg.SolverSpec(kind=kind))
     assert _rel(f0.solve(_t(b[0])).numpy(), x[0]) <= 1e-10
+
+
+# K12 at the edges of its tiles: (case, block) giving one block (K = 1: 256 rows for the n=198 Matérn,
+# 65 for the n=60 random matrix) and several (K > 1: s the bandwidth itself, and s rounded up to 16)
+EDGES = [("matern", 256), ("matern", 1), ("random", 65), ("random", 16)]
+
+
+@pytest.fixture(scope="module")
+def edge_reference(matern10):
+    """The reference's banded solve, forward and backward solves at EDGES
+    with k = 1 and k = 3 right-hand sides per chain, jitted once per shape."""
+    out = {}
+    for case, block in EDGES:
+        rows, cols, shape, data = _cases(matern10)[case]
+        jp = JP(rows, cols, shape)
+        for k in (1, 3):
+            b = np.random.default_rng(5).normal(size=(B, shape[0], k))
+
+            def one(d, rhs):
+                f = jb.banded_factorize(JSM(d, jp), block)
+                if f.Lk.shape[0] > 1:
+                    return f.solve(rhs), f.forward_solve(rhs), f.backward_solve(rhs)
+                # one block: the reference's scans take no plan of one block (ROADMAP §3), so its own
+                # factor, blocks and permutation with one triangular solve each way
+                bb, L = f._to_blocks(rhs)[0], f.Lk[0]
+                fw = jsl.solve_triangular(L, bb, lower=True)
+                return tuple(f._from_blocks(x[None], 2) for x in (
+                    jsl.solve_triangular(L, fw, lower=True, trans=1), fw,
+                    jsl.solve_triangular(L, bb, lower=True, trans=1)))
+
+            out[case, block, k] = b, [np.asarray(x) for x in jax.jit(jax.vmap(one))(jnp.asarray(data), jnp.asarray(b))]
+    return out
+
+
+@pytest.mark.parametrize("k", [1, 3])
+@pytest.mark.parametrize("case,block", EDGES)
+def test_banded_solves_match_reference_at_tile_edges(matern10, edge_reference, case, block, k):
+    rows, cols, shape, data = _cases(matern10)[case]
+    b, (x, fw, bw) = edge_reference[case, block, k]
+    Q = SparseMatrix(_t(data), SparsePattern(rows, cols, shape))
+    f = tg.factorize(Q, tg.SolverSpec(kind="banded", block=block))
+    assert (f.plan["K"] == 1) == (block in (256, 65))
+    assert _rel(f.solve(_t(b)).numpy(), x) <= 1e-10
+    assert _rel(f.forward_solve(_t(b)).numpy(), fw) <= 1e-10
+    assert _rel(f.backward_solve(_t(b)).numpy(), bw) <= 1e-10
+
+
+@pytest.mark.parametrize("k", [1, 3])
+def test_rows_to_blocks_match_reference_layout(matern10, k):
+    """K12's gather into blocks (B, K, s, k) is the reference's `_to_blocks`
+    per chain, and its scatter the reference's `_from_blocks`."""
+    rows, cols, shape, _ = _cases(matern10)["matern"]
+    n = shape[0]
+    jp = JP(rows, cols, shape)
+    plan = jb.banded_plan(jp, 8)  # the reference's factor finds its plan under (pattern, block)
+    b = np.random.default_rng(6).normal(size=(B, n, k))
+    perm = torch.as_tensor(np.asarray(plan["perm"], np.int64))
+    got = kernels.banded._rows_to_blocks(_t(b).transpose(1, 2).reshape(B * k, n), perm, B, plan["K"], plan["s"], k)
+    jf = jb.BandedFactor(None, None, (jp, 8))
+    ref = np.stack([np.asarray(jf._to_blocks(jnp.asarray(b[i]))) for i in range(B)])
+    np.testing.assert_array_equal(got.numpy(), ref)
+    back = kernels.banded._blocks_to_rows(got, perm, n).reshape(B, k, n).transpose(1, 2)
+    np.testing.assert_array_equal(back.numpy(), np.stack([np.asarray(jf._from_blocks(jnp.asarray(ref[i]), 2))
+                                                          for i in range(B)]))
+
+
+@pytest.mark.parametrize("B_,K,s,k,want", [
+    (4, 12, 512, 1, 4 * 12 * 512 + 4 * 12 * 8 * 4096 + 4 * 12 * 512 * 512 + 4 * 512),
+    (1, 1, 65, 3, 195 + 2 * 4096 + 65 * 65 + 195),
+    (2, 3, 64, 9, 2 * 3 * 64 * 9 + 6 * 4096 + 6 * 4096 + 2 * 64 * 9)])
+def test_trsv_workspace_counts_the_blocks(B_, K, s, k, want):
+    """K12's workspace: the permuted right-hand sides, ⌈s/64⌉ inverted tiles
+    of 64 × 64 and the inverse per block, one block row of scratch; the
+    block entry takes no permuted copy."""
+    assert kernels.banded.trsv_workspace(B_, K, s, k) == want
+    assert kernels.banded.trsv_workspace(B_, K, s, k, permuted=False) == want - B_ * K * s * k
+
+
+def test_banded_solves_take_no_right_hand_sides(matern10):
+    """B·k = 0: the solves and the square-root product return empty results of the right shape."""
+    rows, cols, shape, data = _cases(matern10)["matern"]
+    f = tg.factorize(SparseMatrix(_t(data), SparsePattern(rows, cols, shape)), tg.SolverSpec(kind="banded"))
+    z = _t(np.zeros((B, shape[0], 0)))
+    for op in (f.solve, f.forward_solve, f.backward_solve, f.sqrt_matvec):
+        assert op(z).shape == (B, shape[0], 0)
+
+
+def test_block_inverses_run_on_the_card_only():
+    with pytest.raises(ValueError, match="card"):
+        kernels.banded._bt_inverses(torch.zeros(1, 2, 16, 8, dtype=F64))
 
 
 @pytest.mark.parametrize("kind", ["dense", "banded"])

@@ -30,7 +30,7 @@ from tpu_gmrf_torch import set_default_device
 import tpu_gmrf_torch as tg
 from tpu_gmrf_torch import interop, kernels
 from tpu_gmrf_torch.kernels import hot as thot
-from tpu_gmrf_torch.kernels.banded import matvec_chunk
+from tpu_gmrf_torch.kernels.banded import matvec_split
 from tpu_gmrf_torch.solvers import banded as tb
 from tpu_gmrf_torch.sparse.matrix import SparseMatrix
 from tpu_gmrf_torch.sparse.pattern import SparsePattern
@@ -131,15 +131,36 @@ def test_block_tridiag_matvec_raises_on_nonsymmetric_pattern():
         tb.block_tridiag_matvec(SparseMatrix(torch.ones(4, dtype=F64), pat))
 
 
-@pytest.mark.parametrize("s,rows,size,want", [(640, 8, 8, 8), (384, 3, 4, 3), (4096, 8, 8, 1), (2048, 8, 4, 7)])
-def test_matvec_chunk_fits_shared_memory(s, rows, size, want):
-    assert matvec_chunk(s, rows, size) == want
-    assert size * want * (3 * s + 9 * 64) <= kernels.banded.SMEM_MAX
+# (s, K, kk, B, element size, upper): the two phase-12 shapes in both dtypes, one vector per chain, bt_sqrt's
+# (no Eᵀ term), a block of 65 rows, and blocks of 20,000 rows, beyond the old kernel's shared-memory limit
+SPLITS = [(768, 19, 8, 1, 4, True), (384, 261, 8, 1, 8, True), (768, 19, 1, 4, 8, True), (512, 12, 1, 4, 4, False),
+          (65, 3, 9, 1, 8, True), (20000, 2, 8, 1, 8, True)]
 
 
-def test_matvec_chunk_raises_beyond_one_vector():
-    with pytest.raises(ValueError, match="shared memory"):
-        matvec_chunk(20000, 8, 8)
+@pytest.mark.parametrize("s,K,kk,B,size,upper", SPLITS)
+def test_matvec_split_covers_the_product(s, K, kk, B, size, upper):
+    sp = matvec_split(s, K, kk, B, size, upper)
+    assert sp["nv"] in (1, 4, 8) and sp["chunks"] * sp["nv"] >= kk > (sp["chunks"] - 1) * sp["nv"]
+    assert sp["strips"] * kernels.banded.MV_ROWS >= s  # every row of a block row has a unit
+    passes = -(-s // (sp["threads"] * sp["cpl"]))
+    assert sp["threads"] % 32 == 0 and 32 <= sp["threads"] <= 512
+    assert sp["threads"] * sp["cpl"] * passes < s + 32 * sp["cpl"] * passes  # no pass has a warp with nothing to read
+    if upper and K > 1:  # clusters of at most 8 consecutive strips, one partial of y per cluster and block row
+        assert 1 <= sp["cluster"] <= 8 and sp["parts"] * sp["cluster"] == sp["strips"]
+        assert sp["strips"] - sp["cluster"] < -(-s // kernels.banded.MV_ROWS)  # padding less than one cluster
+    else:
+        assert (sp["cluster"], sp["parts"]) == (1, 0)
+    rows = B * sp["chunks"] * sp["nv"]
+    assert sp["work"] == rows * (2 * K * s + (K - 1) * sp["parts"] * s)
+
+
+def test_matvec_split_at_the_phase12_shapes():
+    """n=14058 (s=768, f32): 12 strips of 64 rows in clusters of 6, two passes of 384 columns; n=99,856
+    (s=384, f64): one cluster of 6 per block row, two passes of 192 columns."""
+    assert {k: matvec_split(768, 19, 8, 1, 4)[k] for k in ("nv", "strips", "cluster", "parts", "cpl", "threads")} == \
+        {"nv": 8, "strips": 12, "cluster": 6, "parts": 2, "cpl": 2, "threads": 192}
+    assert {k: matvec_split(384, 261, 8, 1, 8)[k] for k in ("strips", "cluster", "parts", "cpl", "threads")} == \
+        {"strips": 6, "cluster": 6, "parts": 1, "cpl": 1, "threads": 192}
 
 
 # ---- sqrt_matvec of every backend --------------------------------------------------------

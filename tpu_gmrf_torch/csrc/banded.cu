@@ -53,41 +53,48 @@
 // conditioning) are redone from the scatter on, block by block, each block
 // retried as `_chol_boosted` does, on the blocked panel Cholesky of
 // dense_blocks.cuh (one block per chain and tile).
-// K12 reads L and M once per direction: bound by that read from one block
-// per right-hand side. It runs one block per (chain, right-hand side) with
-// the whole permuted vector in shared memory, or, when it does not fit
-// (npad above ~25k in float64), in a global workspace row. Its block entry
-// does 2 s^2 k flops per block step and direction for each of B chains
-// (f64, B = 4, K = 31, s = 450, k = 901: 1.3e11 flops, bound 2 ms at the f64
-// tensor-core rate), in a chain of 2 K dependent block steps: bound by the
-// latency of that chain where k is small, by the products where it is
-// large. Its design: every L_k is inverted first (invert_blocks_kernel: a
-// block per chain, block and column tile, left-looking over the row tiles
-// with the inverted diagonal tiles of tiles.cuh; 1/3 s^3 flops per block,
-// all of them independent), so a block step is two products and no
-// substitution: the coupling W = b_k - M_{k-1} y_{k-1} and y_k = L_k^-1 W
-// (backward, M_k^T and L_k^-T). A work unit is one chain and one column tile
-// of 64 right-hand sides (8 when k <= 8), a cluster of up to 8 blocks, each
-// owning row tiles of both products (tiles i and ntiles - 1 - i together
-// when a block owns two, which evens the depths of the triangular
-// products), f64 on the tensor cores; a cluster barrier follows each
-// product. The clusters of one chain walk the blocks in step, so a step's
-// L_k^-1 and M_k (3.2 MB at s = 450) are read from L2 by all the chain's
-// column tiles. The explicit inverses hold the f64 limit of chip_smoke.py's
-// phase 3f at the SPIKE shapes, whose diagonal blocks are well conditioned.
+// K12 and its block entry do 2 s^2 k flops per block step and direction for
+// each of B chains (f64, B = 4, K = 31, s = 450, k = 901: 1.3e11 flops, bound
+// 2 ms at the f64 tensor-core rate), in a chain of 2 K dependent block
+// steps: bound by the latency of that chain where k is small (K12 on the
+// Newton solves: k = 1, B = 4, K = 12, s = 512; its bound, L and M read
+// once, 0.043 ms in f64), by the products where it is large. One design
+// serves both: every L_k is inverted first (invert_blocks: the inverted
+// 64 x 64 diagonal tiles of tiles.cuh, then invert_blocks_kernel, a block
+// per chain, block and column tile, left-looking over the row tiles; 1/3 s^3
+// flops per block, all of them independent), so a block step is two
+// products and no substitution: the coupling W = b_k - M_{k-1} y_{k-1} and
+// y_k = L_k^-1 W (backward, M_k^T and L_k^-T). A work unit is one chain and
+// one column tile of 64 right-hand sides (8 when k <= 8), a cluster of up to
+// 8 blocks, each owning row tiles of both products (tiles i and ntiles - 1 -
+// i together when a block owns two, which evens the depths of the
+// triangular products), f64 on the tensor cores; a cluster barrier follows
+// each product. The clusters of one chain walk the blocks in step, so a
+// step's L_k^-1 and M_k (3.2 MB at s = 450) are read from L2 by all the
+// chain's column tiles. K12 adds its rows' permutation and padding around
+// it (rows_in gathers b into the block layout (B, K, s, k), rows_out
+// scatters the solution back) and its modes: the forward sweep alone, the
+// backward alone, or both. The explicit inverses hold the f64 limit of
+// chip_smoke.py's phases 3c and 3f (1e-12 against substitution): the
+// diagonal blocks of the SPIKE shapes and of the n = 5741 Laplace posterior
+// (condition of L_k about 320) are well conditioned.
 // K13 streams (2K-1) s^2 values against 2 (3K-2) s^2 flops per vector: with
 // a handful of vectors it is bound by that stream (the blocks are 30-100x
-// the sparse values, most of them zeros). One block of threads owns 64 rows
-// of one block row and up to 8 vectors, so a row of y has one owner and
-// nothing is atomic. It gathers the three x blocks it needs through the
-// permutation into shared memory; the terms that read rows of a matrix
-// block (D_k, E_{k-1}; L_k, M_{k-1}) run one warp per row, lanes along the
-// row (coalesced), with a shuffle reduction; the E_k^T term reads E_k by
-// columns: there the lanes run along the 64 output rows, so a warp reads 32
-// neighbouring values of one row of E_k (coalesced too), and the 8 warps
-// split the rows of E_k and add up through shared memory in a fixed order.
-// E is thus read twice per product (once as E_{k-1}, once as E_k^T); the
-// bound counts it once. The result is scattered through the permutation.
+// the sparse values, most of them zeros), 87 MB in float32 at n = 14058
+// (0.026 ms at 3.35 TB/s). Its design keeps that stream in flight and reads
+// every block once: a unit (bt_matvec_kernel) is 64 rows of one block row
+// of one chain and up to 8 vectors; it streams its rows of D_k and E_{k-1}
+// (contiguous) through registers, coalesced, several rows of loads in flight
+// per thread, with little shared memory (several units per SM), and from
+// the same values forms both the row terms (D_k x_k + E_{k-1} x_{k-1}, rows
+// of y_k) and the column term E_{k-1}^T x_k (a partial of y_{k-1} over the
+// unit's rows). The units of one block row are grouped in clusters of up to
+// 8, which add their column partials through distributed shared memory, so
+// a partial or two per block row reach global memory; x is gathered
+// through the permutation once (rows_in) into rows the units read from L2,
+// and rows_out adds the partials and scatters y. Every sum is taken in a
+// fixed order: nothing is atomic, and a product is the same bit for bit
+// from run to run.
 
 #include "dense_blocks.cuh"
 #include "tiles.cuh"
@@ -567,50 +574,61 @@ int launch_factor_blocks(const T* D, const T* E, T* P, int K, int s, T* logdet, 
   return (int)cudaGetLastError();
 }
 
-// One block per (chain, right-hand side) row of b / out (R, n), chain-major:
-// v = b permuted and padded (in shared memory, or in row `row` of the
-// (R, K s) workspace when one is given), forward (mode 0), backward (mode 1)
-// or both (mode 2) block substitution, out = v unpermuted.
+// Rows of right-hand sides (B k, n), chain-major, into a block layout and
+// back: rows_in writes dst(b, c, g) = x[(b k + c) n + perm[g]] for g < n and
+// c < k, zero for n <= g < Ks and for k <= c < kp, at dst + b sb + c sc + g
+// sg (the permutation and the padding of K12 and K13); rows_out writes
+// out[(b k + c) n + perm[g]] = src(b, c, g) (same strides) for g < n and
+// c < k, plus, where part is given, the P partial column sums of K13 at
+// part[(((b kp + c) (K - 1) + g / s) P + p) s + g % s] for g < (K - 1) s,
+// added in the order p = 0, 1, ...
 template <typename T>
-__global__ void __launch_bounds__(kVecThreads)
-    bt_trsv_kernel(const T* P, long long pstride, int K, int s, int n, const int* perm, const T* b, T* out, int k,
-                   int mode, T* work) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* v = work ? work + (long long)blockIdx.x * K * s : reinterpret_cast<T*>(smem_raw);  // K s
-  __shared__ T red[kVecThreads];
-  const long long row = blockIdx.x;
-  const T* Pb = P + (row / k) * pstride;
-  const long long panel = 2LL * s * s;
-  for (int j = threadIdx.x; j < K * s; j += blockDim.x) v[j] = j < n ? b[row * n + perm[j]] : T(0);
-  __syncthreads();
-  if (mode != 1) {
-    for (int blk = 0; blk < K; ++blk) {
-      T* vb = v + (long long)blk * s;
-      if (blk) sub_matvec(vb, Pb + (blk - 1) * panel + (long long)s * s, s, vb - s, s, s);
-      __syncthreads();
-      tri_lower_solve(Pb + blk * panel, s, vb, s);
-    }
+__global__ void bt_rows_in_kernel(const T* __restrict__ x, const int* __restrict__ perm, int n, int k, int kp,
+                                  long long Ks, long long total, T* __restrict__ dst, long long sb, long long sc,
+                                  long long sg) {
+  for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x; e < total; e += (long long)gridDim.x * blockDim.x) {
+    const long long g = e % Ks, bc = e / Ks, b = bc / kp;
+    const int c = (int)(bc % kp);
+    dst[b * sb + c * sc + g * sg] = g < n && c < k ? x[(b * k + c) * n + perm[g]] : T(0);
   }
-  if (mode != 0) {
-    for (int blk = K - 1; blk >= 0; --blk) {
-      T* vb = v + (long long)blk * s;
-      if (blk < K - 1) sub_matvec_t(vb, Pb + blk * panel + (long long)s * s, s, vb + s, s, s, red);
-      __syncthreads();
-      tri_lower_t_solve(Pb + blk * panel, s, vb, s, red);
-    }
-  }
-  for (int j = threadIdx.x; j < n; j += blockDim.x) out[row * n + perm[j]] = v[j];
 }
 
 template <typename T>
-int launch_trsv(const T* P, int K, int s, int n, const int* perm, const T* b, T* out, int k, int mode, int R,
-                T* work, void* stream) {
-  if (R == 0) return 0;
-  const size_t smem = work ? 0 : sizeof(T) * (size_t)K * s;
-  int rc = set_smem(bt_trsv_kernel<T>, smem);
-  if (rc) return rc;
-  bt_trsv_kernel<T><<<R, kVecThreads, smem, (cudaStream_t)stream>>>(P, 2LL * s * s * K, K, s, n, perm, b, out, k,
-                                                                   mode, work);
+__global__ void bt_rows_out_kernel(const T* __restrict__ src, long long sb, long long sc, long long sg,
+                                   const int* __restrict__ perm, int n, int k, int kp, long long total,
+                                   T* __restrict__ out, const T* __restrict__ part, int P, int K, int s) {
+  for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x; e < total; e += (long long)gridDim.x * blockDim.x) {
+    const long long g = e % n, bc = e / n, b = bc / k;
+    const int c = (int)(bc % k);
+    T v = src[b * sb + c * sc + g * sg];
+    const int kb = (int)(g / s);
+    if (part && kb < K - 1) {
+      const T* pt = part + (((b * kp + c) * (K - 1) + kb) * P) * (long long)s + g % s;
+      for (int p = 0; p < P; ++p) v += pt[(long long)p * s];
+    }
+    out[(b * k + c) * n + perm[g]] = v;
+  }
+}
+
+inline int stream_grid(long long total) {
+  const long long want = (total + kThreads - 1) / kThreads;
+  return want < 4096 ? (int)(want > 0 ? want : 1) : 4096;
+}
+
+template <typename T>
+int rows_in(const T* x, const int* perm, int n, int k, int kp, int B, long long Ks, T* dst, long long sb,
+            long long sc, long long sg, cudaStream_t st) {
+  const long long total = (long long)B * kp * Ks;
+  bt_rows_in_kernel<T><<<stream_grid(total), kThreads, 0, st>>>(x, perm, n, k, kp, Ks, total, dst, sb, sc, sg);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int rows_out(const T* src, long long sb, long long sc, long long sg, const int* perm, int n, int k, int kp, int B,
+             T* out, const T* part, int P, int K, int s, cudaStream_t st) {
+  const long long total = (long long)B * k * n;
+  bt_rows_out_kernel<T><<<stream_grid(total), kThreads, 0, st>>>(src, sb, sc, sg, perm, n, k, kp, total, out, part,
+                                                                 P, K, s);
   return (int)cudaGetLastError();
 }
 
@@ -651,17 +669,18 @@ __device__ __forceinline__ bool owns(int i, int nt, int rank, int cs) {
   return (2 * cs <= nt ? (i < nt - 1 - i ? i : nt - 1 - i) : i) % cs == rank;
 }
 
-// The block entry of K12: cluster (col, chain) solves columns NT col .. NT
-// col + q of its chain's right-hand sides Bin (B, K, s, k) into X, forward
-// then backward, with the inverses Linv of the diagonal blocks. Block `rank`
-// of the cluster owns the row tiles of `owns`. A block step is
-// two products with a cluster barrier after each: the coupling, W_i = X_i -
-// M_{k-1}[i, :] y_{k-1} (or X_i - M_k[:, i]^T x_{k+1}; Bin_i in place of X_i
-// going forward) into the scratch W (B,
-// s, k), then X_i = Linv_k[i, :] W (or Linv_k[:, i]^T W).
+// K12 and its block entry: cluster (col, chain) solves columns NT col .. NT
+// col + q of its chain's right-hand sides Bin (B, K, s, k) into X (Bin may
+// be X), forward (mode 0), backward (mode 1) or both (mode 2), with the
+// inverses Linv of the diagonal blocks. Block `rank` of the cluster owns
+// the row tiles of `owns`. A block step is two products with a cluster
+// barrier after each: the coupling, W_i = X_i - M_{k-1}[i, :] y_{k-1} (or
+// X_i - M_k[:, i]^T x_{k+1}; Bin_i in place of X_i going forward) into the
+// scratch W (B, s, k), then X_i = Linv_k[i, :] W (or Linv_k[:, i]^T W).
+// The backward sweep alone starts from Bin.
 template <typename T, int NT>
 __global__ void __launch_bounds__(tgtile::kThr, 2)
-    bt_trsv_blocks_kernel(const T* P, int K, int s, const T* Linv, const T* Bin, T* X, T* W, int k) {
+    bt_trsv_blocks_kernel(const T* P, int K, int s, const T* Linv, const T* Bin, T* X, T* W, int k, int mode) {
   using namespace tgtile;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);
@@ -673,7 +692,7 @@ __global__ void __launch_bounds__(tgtile::kThr, 2)
   const T* Bb = Bin + blockIdx.z * rows * K + c0;
   T* Xb = X + blockIdx.z * rows * K + c0;
   T* Wb = W + blockIdx.z * rows + c0;
-  for (int blk = 0; blk < K; ++blk) {
+  for (int blk = 0; mode != 1 && blk < K; ++blk) {
     T* V = Xb + blk * rows;
     for (int i = 0; i < nt; ++i) {
       if (!owns(i, nt, rank, cs)) continue;
@@ -691,14 +710,15 @@ __global__ void __launch_bounds__(tgtile::kThr, 2)
     }
     csync();
   }
-  for (int blk = K - 1; blk >= 0; --blk) {
+  for (int blk = K - 1; mode != 0 && blk >= 0; --blk) {
     T* V = Xb + blk * rows;
+    const T* U = mode == 1 ? Bb + blk * rows : V;  // the right-hand side of this block step
     for (int i = 0; i < nt; ++i) {
       if (!owns(i, nt, rank, cs)) continue;
       const long long i0 = (long long)i * kT;
       const bool last = blk == K - 1;  // no coupling out of the last block
       gemm_rows<T, NT>(Wb + i0 * k, k, Pb + blk * panel + ss + i0, 1, s, last ? V : V + rows, k, 1,
-                       min(kT, s - i * kT), q, last ? 0 : s, true, sm, V + i0 * k);
+                       min(kT, s - i * kT), q, last ? 0 : s, true, sm, U + i0 * k);
     }
     csync();
     for (int i = 0; i < nt; ++i) {
@@ -711,32 +731,43 @@ __global__ void __launch_bounds__(tgtile::kThr, 2)
   }
 }
 
-// The block entry of K12: the inverted diagonal tiles of every L_k into
-// Dinv, then every L_k^-1 into Linv; then one cluster of up to 8 blocks (one
-// per row tile) per chain and column tile of 64 right-hand sides (8 when
-// k <= 8). work: Dinv (B K ntiles(s) 64 64), Linv (B K s s), W (B s k).
+// The inverted diagonal tiles of every L_k into Dinv (B K ntiles(s) 64 64),
+// then every L_k^-1 into Linv (B K s s).
 template <typename T>
-int launch_trsv_blocks(const T* P, int K, int s, const T* b, T* out, int k, int B, T* work, void* stream) {
+int invert_blocks(const T* P, int K, int s, int B, T* Dinv, T* Linv, cudaStream_t st) {
   using namespace tgtile;
-  if (B == 0 || k == 0 || K == 0) return 0;
-  cudaStream_t st = (cudaStream_t)stream;
   const int nt = ntiles(s);
-  T* Dinv = work;
-  T* Linv = Dinv + (long long)B * K * nt * kTT;
-  T* W = Linv + (long long)B * K * s * s;
   int rc = invert_diag<T>(P, 2LL * s * s, s, s, B * K, Dinv, st);
   const size_t smem64 = sizeof(T) * 2 * kKS * (Cfg<64>::LDA + Cfg<64>::LDB);
   if (!rc) rc = set_smem(invert_blocks_kernel<T>, smem64);
   if (rc) return rc;
   invert_blocks_kernel<T><<<dim3(nt, K, B), kThr, smem64, st>>>(P, K, s, Dinv, Linv);
-  if ((rc = (int)cudaGetLastError())) return rc;
+  return (int)cudaGetLastError();
+}
+
+// K12's solve on blocks (both entries): every L_k inverted (invert_blocks),
+// then one cluster of up to 8 blocks (one per row tile) per chain and column
+// tile of 64 right-hand sides (8 when k <= 8). b and out may be one array.
+// work: Dinv (B K ntiles(s) 64 64), Linv (B K s s), W (B s k).
+template <typename T>
+int launch_trsv_blocks(const T* P, int K, int s, const T* b, T* out, int k, int B, T* work, int mode,
+                       cudaStream_t st) {
+  using namespace tgtile;
+  if (B == 0 || k == 0 || K == 0) return 0;
+  const int nt = ntiles(s);
+  T* Dinv = work;
+  T* Linv = Dinv + (long long)B * K * nt * kTT;
+  T* W = Linv + (long long)B * K * s * s;
+  int rc = invert_blocks<T>(P, K, s, B, Dinv, Linv, st);
+  if (rc) return rc;
+  const size_t smem64 = sizeof(T) * 2 * kKS * (Cfg<64>::LDA + Cfg<64>::LDB);
   // a block per row tile (up to 8), or a block per two when that fits all the clusters on the card at once
   const int nt2 = cdiv(nt, 2);
   int cs = nt < 8 ? nt : 8, fit = 0;
   if (k <= 8)
     return launch_cluster(bt_trsv_blocks_kernel<T, 8>, dim3(cs, cdiv(k, 8), B), cs,
                           sizeof(T) * 2 * kKS * (Cfg<8>::LDA + Cfg<8>::LDB), st, P, K, s, (const T*)Linv, b, out, W,
-                          k);
+                          k, mode);
   const int clusters = cdiv(k, 64) * B;
   if (nt2 > 1 && nt2 < cs && !max_clusters(bt_trsv_blocks_kernel<T, 64>, dim3(nt2, cdiv(k, 64), B), nt2, smem64, &fit) &&
       fit >= clusters && !max_clusters(bt_trsv_blocks_kernel<T, 64>, dim3(cs, cdiv(k, 64), B), cs, smem64, &fit) &&
@@ -744,139 +775,321 @@ int launch_trsv_blocks(const T* P, int K, int s, const T* b, T* out, int k, int 
     cs = nt2;
   cudaGetLastError();
   return launch_cluster(bt_trsv_blocks_kernel<T, 64>, dim3(cs, cdiv(k, 64), B), cs, smem64, st, P, K, s,
-                        (const T*)Linv, b, out, W, k);
+                        (const T*)Linv, b, out, W, k, mode);
+}
+
+// K12: rows b (B k, n), chain-major, gathered through perm and padded into
+// X (B, K, s, k), solved there in place (mode 0 L, 1 L^T, 2 both;
+// launch_trsv_blocks), scattered back into out. work: X, then the block
+// entry's workspace.
+template <typename T>
+int launch_trsv(const T* P, int K, int s, int n, const int* perm, const T* b, T* out, int k, int mode, int B,
+                T* work, void* stream) {
+  if (B == 0 || k == 0) return 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  const long long Ks = (long long)K * s;
+  T* X = work;
+  int rc = rows_in<T>(b, perm, n, k, k, B, Ks, X, Ks * k, 1, k, st);
+  if (!rc) rc = launch_trsv_blocks<T>(P, K, s, X, X, k, B, X + B * Ks * k, mode, st);
+  if (!rc) rc = rows_out<T>(X, Ks * k, 1, k, perm, n, k, k, B, out, nullptr, 0, K, s, st);
+  return rc;
 }
 
 // ---- K13 ------------------------------------------------------------------
 
-constexpr int kMvRows = 64;  // rows of y per block
-constexpr int kMvVecs = 8;   // vectors per block (accumulators in registers)
-constexpr int kMvWarps = kThreads / 32;
+constexpr int kMvR = 64;        // rows of a matrix block per unit (a strip)
+constexpr int kMvMaxThr = 512;  // threads of a unit, at most
+constexpr int kMvG = 4;         // rows of loads per stage (two stages in flight)
 
-// Block (k, tile) x (chain, vector chunk). Matrix block k of chain b is at
-// diag + b diag_b + k diag_k (s x s, row-major); sub-diagonal block k (rows of
-// block row k+1, columns of block row k) at sub + b sub_b + k sub_k. x and y
-// are (B kk, n) rows, chain-major; a chunk is rc <= kMvVecs rows of one chain.
-// lower: only j <= i of the diagonal block is read; upper: the sub^T term.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    bt_matvec_kernel(const T* __restrict__ diag, long long diag_k, long long diag_b, const T* __restrict__ sub,
-                     long long sub_k, long long sub_b, int K, int s, int n, const int* __restrict__ perm,
-                     const T* __restrict__ x, T* __restrict__ y, int kk, int rc, int lower, int upper) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* xs = reinterpret_cast<T*>(smem_raw);              // [3][rc][s]: x of block rows k-1, k, k+1
-  T* red = xs + 3LL * rc * s;                          // [warps][rc][kMvRows]: partial sums of the E_k^T term
-  T* yacc = red + (long long)kMvWarps * rc * kMvRows;  // [rc][kMvRows]: the row terms
-  const int tiles = cdiv_dev(s, kMvRows);
-  const int k = blockIdx.x / tiles, i0 = (blockIdx.x % tiles) * kMvRows;
-  const int chunks = cdiv_dev(kk, rc);
-  const long long b = blockIdx.y / chunks;
-  const int c0 = (blockIdx.y % chunks) * rc;
-  const int nc = min(rc, kk - c0);
-  const long long row0 = b * kk + c0;
-  const int rows = min(kMvRows, s - i0);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-
-  for (long long e = threadIdx.x; e < 3LL * rc * s; e += blockDim.x) {
-    const int which = (int)(e / ((long long)rc * s)), c = (int)((e / s) % rc), j = (int)(e % s);
-    const int kb = k - 1 + which;
-    const long long g = (long long)kb * s + j;
-    T v = T(0);
-    if (kb >= 0 && kb < K && c < nc && g < n && (which < 2 || upper)) v = x[(row0 + c) * n + perm[g]];
-    xs[e] = v;
+// The sums over a warp's 32 lanes of NV values (a power of two) held in a
+// lane-dependent order: slot i of lane l holds vector i ^ vec_of(l), where
+// vec_of(l) reverses the low log2 NV bits of l (a bijection on the lanes
+// below NV). Halving: each step (H = NV / 2, ..., 1, lane bit NV / 2H)
+// adds the partner's slot i + H, which holds the vector of the lane's own
+// slot i, to slot i (NV - 1 shuffles, no selects), then the butterfly over
+// the lanes left (5 - log2 NV). Lane l returns the sum of vector vec_of(l).
+template <int NV>
+__device__ __forceinline__ int vec_of(int lane) {
+  int v = 0;
+#pragma unroll
+  for (int bit = 1, h = NV / 2; bit < NV; bit *= 2, h /= 2)
+    if (lane & bit) v += h;
+  return v;
+}
+template <typename T, int NV, int H>
+__device__ __forceinline__ void halve(T (&a)[NV]) {
+  if constexpr (H >= 1) {
+#pragma unroll
+    for (int i = 0; i < H; ++i) a[i] += __shfl_xor_sync(0xffffffffu, a[i + H], NV / (2 * H));
+    halve<T, NV, H / 2>(a);
   }
-  __syncthreads();
-  const T* xprev = xs;
-  const T* xcur = xs + (long long)rc * s;
-  const T* xnext = xs + 2LL * rc * s;
+}
+template <typename T, int NV>
+__device__ __forceinline__ T warp_sums(T (&a)[NV]) {
+  halve<T, NV, NV / 2>(a);
+  T r = a[0];
+#pragma unroll
+  for (int bit = NV; bit < 32; bit *= 2) r += __shfl_xor_sync(0xffffffffu, r, bit);
+  return r;
+}
 
-  // the terms that read matrix rows: one warp per row, lanes along the row
-  for (int ii = warp; ii < rows; ii += kMvWarps) {
-    const int i = i0 + ii;
-    T acc[kMvVecs];
+// NV values at p (16-byte aligned when NV fills 16 bytes), by 16-byte loads.
+template <typename T, int NV>
+__device__ __forceinline__ void load_vec(const T* p, T (&out)[NV]) {
+  constexpr int per = 16 / sizeof(T);
+  if constexpr (NV % per == 0) {
+    struct alignas(16) V { T v[per]; };
 #pragma unroll
-    for (int c = 0; c < kMvVecs; ++c) acc[c] = T(0);
-    const T* drow = diag + b * diag_b + k * diag_k + (long long)i * s;
-    const int jend = lower ? i + 1 : s;
-    for (int j = lane; j < jend; j += 32) {
-      const T v = drow[j];
+    for (int q = 0; q < NV / per; ++q) {
+      const V t = reinterpret_cast<const V*>(p)[q];
 #pragma unroll
-      for (int c = 0; c < kMvVecs; ++c)
-        if (c < rc) acc[c] += v * xcur[(long long)c * s + j];
+      for (int u = 0; u < per; ++u) out[q * per + u] = t.v[u];
     }
-    if (k > 0) {
-      const T* srow = sub + b * sub_b + (k - 1) * sub_k + (long long)i * s;
-      for (int j = lane; j < s; j += 32) {
-        const T v = srow[j];
+  } else {
 #pragma unroll
-        for (int c = 0; c < kMvVecs; ++c)
-          if (c < rc) acc[c] += v * xprev[(long long)c * s + j];
-      }
-    }
-#pragma unroll
-    for (int c = 0; c < kMvVecs; ++c) {
-      if (c < rc) {
-        T a = acc[c];
-        for (int off = 16; off > 0; off >>= 1) a += __shfl_down_sync(0xffffffffu, a, off);
-        if (lane == 0) yacc[c * kMvRows + ii] = a;
-      }
-    }
-  }
-
-  // the E_k^T term: lanes along the output rows, the warps split E_k's rows
-  const bool up = upper && k < K - 1;
-  if (up) {
-    const T* eblk = sub + b * sub_b + k * sub_k;
-    T a0[kMvVecs], a1[kMvVecs];
-#pragma unroll
-    for (int c = 0; c < kMvVecs; ++c) a0[c] = a1[c] = T(0);
-    const bool in0 = lane < rows, in1 = lane + 32 < rows;
-    for (int j = warp; j < s; j += kMvWarps) {
-      const T* erow = eblk + (long long)j * s + i0;
-      const T v0 = in0 ? erow[lane] : T(0);
-      const T v1 = in1 ? erow[lane + 32] : T(0);
-#pragma unroll
-      for (int c = 0; c < kMvVecs; ++c) {
-        if (c < rc) {
-          const T xv = xnext[(long long)c * s + j];
-          a0[c] += v0 * xv;
-          a1[c] += v1 * xv;
-        }
-      }
-    }
-#pragma unroll
-    for (int c = 0; c < kMvVecs; ++c) {
-      if (c < rc) {
-        red[((long long)warp * rc + c) * kMvRows + lane] = a0[c];
-        red[((long long)warp * rc + c) * kMvRows + lane + 32] = a1[c];
-      }
-    }
-  }
-  __syncthreads();
-  for (int e = threadIdx.x; e < nc * kMvRows; e += blockDim.x) {
-    const int c = e / kMvRows, ii = e % kMvRows;
-    const long long g = (long long)k * s + i0 + ii;
-    if (ii >= rows || g >= n) continue;
-    T v = yacc[c * kMvRows + ii];
-    if (up)
-      for (int w = 0; w < kMvWarps; ++w) v += red[((long long)w * rc + c) * kMvRows + ii];
-    y[(row0 + c) * n + perm[g]] = v;
+    for (int v = 0; v < NV; ++v) out[v] = p[v];
   }
 }
 
+// One unit of K13: rows i0 .. i0 + kMvR of block row k of chain cb / chunks
+// (grid (strips, K, B chunks)), NV vectors at once, blockDim.x threads (a
+// multiple of 32, at most 512). It streams its rows of D_k and E_{k-1}
+// (row-major, contiguous: kMvR s values of each) once, through registers:
+// a pass covers W = blockDim.x CPL columns (thread t the columns
+// c0 + t + blockDim.x m, coalesced), kMvG rows of loads at a time with the
+// next kMvG rows' loads in flight, and for each row
+//   the row terms D_k[r, :] x_k + E_{k-1}[r, :] x_{k-1}: each thread's
+//     products summed over its columns, then over the warp (warp_sums) into
+//     the warp's row sum in shared memory, then over the warps in order:
+//     rows of y_k, written whole to yb;
+//   with UPPER, the column term E_{k-1}^T x_k: each thread adds
+//     E_{k-1}[r, j] x_k[i0 + r] into its columns' sums (registers), which
+//     cover the unit's rows; at the end of the pass the cluster (the cs units
+//     of consecutive strips of block row k) adds its units' sums in rank
+//     order through distributed shared memory, each block a share of the
+//     columns, into one partial of y_{k-1} (part, P per block row), which
+//     rows_out adds.
+// x comes permuted and padded, (B chunks NV, K s) rows of xp (rows_in);
+// lower: only j <= i of the diagonal block is read (bt_sqrt's L_k). Every
+// sum is taken in a fixed order: nothing is atomic, and a product is the
+// same bit for bit from run to run.
+template <typename T, int NV, int CPL, bool UPPER>
+__global__ void __launch_bounds__(kMvMaxThr)
+    bt_matvec_kernel(const T* __restrict__ diag, long long diag_k, long long diag_b, const T* __restrict__ sub,
+                     long long sub_k, long long sub_b, int K, int s, int lower, int chunks, int P,
+                     const T* __restrict__ xp, T* __restrict__ yb, T* __restrict__ part) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int nthr = blockDim.x, W = nthr * CPL, warps = nthr >> 5;
+  constexpr int R = kMvR;
+  T* xr = reinterpret_cast<T*>(smem_raw);  // [R][NV]: x_k at the unit's rows
+  T* rs = xr + NV * R;                     // [warp][R][NV]: each warp's row sums
+  T* ts = rs + warps * R * NV;             // [NV][W]: the unit's column sums of a pass (UPPER)
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int k = blockIdx.y;
+  const long long cb = blockIdx.z, b = cb / chunks, Ks = (long long)K * s;
+  const int i0 = blockIdx.x * R, rows = min(R, s - i0);  // rows <= 0: a cluster's padding unit
+  const bool has_e = k > 0;
+  const T* xv = xp + cb * NV * Ks;
+  const T* Dk = diag + b * diag_b + k * diag_k + (long long)i0 * s;
+  const T* Em = has_e ? sub + b * sub_b + (long long)(k - 1) * sub_k + (long long)i0 * s : sub;
+  for (int e = tid; e < NV * R; e += nthr) {
+    const int r = e / NV, v = e % NV;
+    xr[e] = r < rows ? xv[v * Ks + (long long)k * s + i0 + r] : T(0);
+  }
+  for (int e = tid; e < warps * R * NV; e += nthr) rs[e] = T(0);
+  __syncthreads();
+  // every unit of a cluster makes the same passes (UPPER has no `lower`); with `lower`, the columns beyond the
+  // unit's last row are still E's
+  const int cend = UPPER ? s : (rows > 0 ? (lower && !has_e ? min(s, i0 + rows) : s) : 0);
+  const int myv = vec_of<NV>(lane);
+  for (int c0 = 0; c0 < cend; c0 += W) {
+    T xk[CPL][NV], xm[CPL][NV], tc[CPL][NV];
+#pragma unroll
+    for (int m = 0; m < CPL; ++m) {  // xk, xm in warp_sums' order: slot i holds vector i ^ myv
+      const int j = c0 + tid + m * nthr;
+#pragma unroll
+      for (int i = 0; i < NV; ++i) {
+        const long long at = (i ^ myv) * Ks + j;
+        xk[m][i] = j < s ? xv[at + (long long)k * s] : T(0);
+        xm[m][i] = has_e && j < s ? xv[at + (long long)(k - 1) * s] : T(0);
+        tc[m][i] = T(0);
+      }
+    }
+    auto load = [&](T (&d)[kMvG][CPL], T (&e)[kMvG][CPL], int r0) {
+#pragma unroll
+      for (int g = 0; g < kMvG; ++g)
+#pragma unroll
+        for (int m = 0; m < CPL; ++m) {
+          const int r = r0 + g, j = c0 + tid + m * nthr;
+          const bool in = r < rows && j < s;
+          d[g][m] = in && (!lower || j <= i0 + r) ? __ldcs(Dk + (long long)r * s + j) : T(0);
+          e[g][m] = in && has_e ? __ldcs(Em + (long long)r * s + j) : T(0);
+        }
+    };
+    auto use = [&](const T (&d)[kMvG][CPL], const T (&e)[kMvG][CPL], int r0) {
+      T sum[kMvG];
+#pragma unroll
+      for (int g = 0; g < kMvG; ++g) {
+        T acc[NV];
+#pragma unroll
+        for (int i = 0; i < NV; ++i) {
+          T a = T(0);
+#pragma unroll
+          for (int m = 0; m < CPL; ++m) {
+            a += d[g][m] * xk[m][i];
+            a += e[g][m] * xm[m][i];
+          }
+          acc[i] = a;
+        }
+        if constexpr (UPPER) {
+          T xrv[NV];
+          load_vec<T, NV>(xr + (r0 + g) * NV, xrv);
+#pragma unroll
+          for (int v = 0; v < NV; ++v)
+#pragma unroll
+            for (int m = 0; m < CPL; ++m) tc[m][v] += e[g][m] * xrv[v];
+        }
+        sum[g] = warp_sums<T, NV>(acc);
+      }
+      if (lane < NV)  // the group's row sums after its reductions, which thus overlap
+#pragma unroll
+        for (int g = 0; g < kMvG; ++g)
+          if (r0 + g < rows) rs[(warp * R + r0 + g) * NV + myv] += sum[g];
+    };
+    T d0[kMvG][CPL], e0[kMvG][CPL], d1[kMvG][CPL], e1[kMvG][CPL];
+    if (rows > 0) load(d0, e0, 0);
+    for (int r0 = 0; r0 < rows; r0 += 2 * kMvG) {  // two stages: the next rows' loads go out before this use
+      if (r0 + kMvG < rows) load(d1, e1, r0 + kMvG);
+      use(d0, e0, r0);
+      if (r0 + kMvG < rows) {
+        if (r0 + 2 * kMvG < rows) load(d0, e0, r0 + 2 * kMvG);
+        use(d1, e1, r0 + kMvG);
+      }
+    }
+    if constexpr (UPPER) {
+      if (has_e) {  // the cluster adds its units' column sums into partial blockIdx.x / cs of y_{k-1}
+#pragma unroll
+        for (int m = 0; m < CPL; ++m)
+#pragma unroll
+          for (int v = 0; v < NV; ++v) ts[v * W + tid + m * nthr] = tc[m][v];
+        namespace cg = cooperative_groups;
+        cg::cluster_group cl = cg::this_cluster();
+        cl.sync();
+        const int cs = (int)cl.num_blocks(), rank = (int)cl.block_rank();
+        const int share = (W + cs - 1) / cs, span = min(W, s - c0);
+        for (int e = tid; e < NV * share; e += nthr) {
+          const int v = e / share, jj = rank * share + e % share;
+          if (jj >= span) continue;
+          T sum = T(0);
+          for (int q = 0; q < cs; ++q) sum += cl.map_shared_rank(ts, q)[v * W + jj];
+          part[(((cb * NV + v) * (K - 1) + k - 1) * P + blockIdx.x / cs) * s + c0 + jj] = sum;
+        }
+        cl.sync();
+      }
+    }
+  }
+  __syncthreads();
+  for (int e = tid; e < NV * rows; e += nthr) {
+    const int v = e / rows, r = e % rows;
+    T sum = T(0);
+    for (int w = 0; w < warps; ++w) sum += rs[(w * R + r) * NV + v];
+    yb[(cb * NV + v) * Ks + (long long)k * s + i0 + r] = sum;
+  }
+}
+
+// Launch the units in clusters of cs with nthr threads each; the card's
+// cluster occupancy is asked once per kernel and cluster size (a product
+// is short, and the query costs host time on every call).
+template <typename T, int NV, int CPL, bool UPPER>
+int launch_matvec_units(const T* diag, long long diag_k, long long diag_b, const T* sub, long long sub_k,
+                        long long sub_b, int K, int s, int lower, int chunks, int P, const T* xp, T* yb, T* part,
+                        dim3 grid, int cs, int nthr, cudaStream_t st) {
+  static int fits[9][kMvMaxThr / 32 + 1];  // per cluster size and warps: 0 unknown, 1 fits, -1 refused
+  auto kernel = bt_matvec_kernel<T, NV, CPL, UPPER>;
+  if (cs < 1 || cs > 8 || nthr < 32 || nthr > kMvMaxThr || nthr % 32) return (int)cudaErrorInvalidValue;
+  const int warps = nthr / 32;
+  const size_t smem = sizeof(T) * ((size_t)NV * kMvR * (1 + warps) + (UPPER ? (size_t)NV * nthr * CPL : 0));
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr;
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(nthr);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cs;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  int& fit = fits[cs][warps];
+  if (fit == 0) {
+    int rc = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)(sizeof(T) * ((size_t)NV * kMvR * (1 + kMvMaxThr / 32) +
+                                                          (UPPER ? (size_t)NV * kMvMaxThr * CPL : 0))));
+    int count = 0;
+    if (!rc) rc = (int)cudaOccupancyMaxActiveClusters(&count, kernel, &cfg);
+    if (rc) return rc;
+    fit = count > 0 ? 1 : -1;
+  }
+  if (fit < 0) return (int)cudaErrorInvalidConfiguration;
+  const int rc = (int)cudaLaunchKernelEx(&cfg, kernel, diag, diag_k, diag_b, sub, sub_k, sub_b, K, s, lower, chunks, P,
+                                         xp, yb, part);
+  return rc ? rc : (int)cudaGetLastError();
+}
+
+template <typename T, int NV>
+int launch_matvec_nv(const T* diag, long long diag_k, long long diag_b, const T* sub, long long sub_k, long long sub_b,
+                     int K, int s, int lower, int chunks, int P, const T* xp, T* yb, T* part, dim3 grid, int cs,
+                     int cpl, int nthr, int upper, cudaStream_t st) {
+  if constexpr (sizeof(T) == 4) {
+    if (cpl == 2)
+      return upper ? launch_matvec_units<T, NV, 2, true>(diag, diag_k, diag_b, sub, sub_k, sub_b, K, s, lower, chunks,
+                                                         P, xp, yb, part, grid, cs, nthr, st)
+                   : launch_matvec_units<T, NV, 2, false>(diag, diag_k, diag_b, sub, sub_k, sub_b, K, s, lower,
+                                                          chunks, P, xp, yb, part, grid, cs, nthr, st);
+  }
+  if (cpl != 1) return (int)cudaErrorInvalidValue;
+  return upper ? launch_matvec_units<T, NV, 1, true>(diag, diag_k, diag_b, sub, sub_k, sub_b, K, s, lower, chunks, P,
+                                                     xp, yb, part, grid, cs, nthr, st)
+               : launch_matvec_units<T, NV, 1, false>(diag, diag_k, diag_b, sub, sub_k, sub_b, K, s, lower, chunks, P,
+                                                      xp, yb, part, grid, cs, nthr, st);
+}
+
+// K13 and bt_sqrt: y (B kk, n) rows = the product with the block-tridiagonal
+// matrix of chain b (diag block k at diag + b diag_b + k diag_k; sub-diagonal
+// block k, rows of block row k + 1, at sub + b sub_b + k sub_k) of the rows x
+// (B kk, n), chain-major, in the original numbering. Three launches:
+// rows_in gathers x through perm into xp (B kp, K s), kp = chunks NV; the
+// units (bt_matvec_kernel) on a grid of (strips, K, B chunks) in clusters of
+// cs; rows_out adds the P column partials per block row (upper) and
+// scatters through perm. work: xp, yb (B kp K s each), part (B kp (K-1) P s).
 template <typename T>
 int launch_matvec(const T* diag, long long diag_k, long long diag_b, const T* sub, long long sub_k, long long sub_b,
-                  int K, int s, int n, const int* perm, const T* x, T* y, int kk, int B, int rc, int lower,
-                  int upper, void* stream) {
+                  int K, int s, int n, const int* perm, const T* x, T* y, int kk, int B, int nv, int chunks,
+                  int strips, int cs, int P, int cpl, int nthr, int lower, int upper, T* work, void* stream) {
   if (B == 0 || kk == 0 || n == 0) return 0;
-  if (rc < 1 || rc > kMvVecs) return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(T) * ((size_t)3 * rc * s + (size_t)(kMvWarps + 1) * rc * kMvRows);
-  const int err = set_smem(bt_matvec_kernel<T>, smem);
-  if (err) return err;
-  const dim3 grid(K * cdiv(s, kMvRows), B * cdiv(kk, rc));
-  bt_matvec_kernel<T><<<grid, kThreads, smem, (cudaStream_t)stream>>>(diag, diag_k, diag_b, sub, sub_k, sub_b, K, s,
-                                                                      n, perm, x, y, kk, rc, lower, upper);
-  return (int)cudaGetLastError();
+  if ((upper && (lower || K < 2 || P * cs != strips)) || (!upper && cs != 1) || strips * kMvR < s)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int kp = chunks * nv;
+  const long long Ks = (long long)K * s;
+  T* xp = work;
+  T* yb = xp + (long long)B * kp * Ks;
+  T* part = yb + (long long)B * kp * Ks;
+  int rc = rows_in<T>(x, perm, n, kk, kp, B, Ks, xp, kp * Ks, Ks, 1, st);
+  if (rc) return rc;
+  const dim3 grid(strips, K, B * chunks);
+  switch (nv) {
+    case 1: rc = launch_matvec_nv<T, 1>(diag, diag_k, diag_b, sub, sub_k, sub_b, K, s, lower, chunks, P, xp, yb, part,
+                                        grid, cs, cpl, nthr, upper, st); break;
+    case 4: rc = launch_matvec_nv<T, 4>(diag, diag_k, diag_b, sub, sub_k, sub_b, K, s, lower, chunks, P, xp, yb, part,
+                                        grid, cs, cpl, nthr, upper, st); break;
+    case 8: rc = launch_matvec_nv<T, 8>(diag, diag_k, diag_b, sub, sub_k, sub_b, K, s, lower, chunks, P, xp, yb, part,
+                                        grid, cs, cpl, nthr, upper, st); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  if (rc) return rc;
+  return rows_out<T>(yb, kp * Ks, Ks, 1, perm, n, kk, kp, B, y, upper ? part : nullptr, P, K, s, st);
 }
 
 }  // namespace
@@ -892,8 +1105,11 @@ extern "C" {
   }                                                                                                           \
   int tg_bt_factor_fit_##SUF(int cs, int* count) { return chol_fit<T>(cs, count); }                           \
   int tg_bt_trsv_##SUF(const T* P, int K, int s, int n, const int* perm, const T* b, T* out, int k, int mode, \
-                       int R, T* work, void* stream) {                                                        \
-    return launch_trsv<T>(P, K, s, n, perm, b, out, k, mode, R, work, stream);                         \
+                       int B, T* work, void* stream) {                                                        \
+    return launch_trsv<T>(P, K, s, n, perm, b, out, k, mode, B, work, stream);                               \
+  }                                                                                                           \
+  int tg_bt_invert_##SUF(const T* P, int K, int s, int B, T* Dinv, T* Linv, void* stream) {                   \
+    return B == 0 ? 0 : invert_blocks<T>(P, K, s, B, Dinv, Linv, (cudaStream_t)stream);                       \
   }                                                                                                           \
   int tg_bt_factor_blocks_##SUF(const T* D, const T* E, T* P, int K, int s, T* logdet, int* flags, T* work,    \
                                 int cs, int B, void* stream) {                                                \
@@ -901,13 +1117,14 @@ extern "C" {
   }                                                                                                           \
   int tg_bt_trsv_blocks_##SUF(const T* P, int K, int s, const T* b, T* out, int k, int B, T* work,           \
                               void* stream) {                                                                 \
-    return launch_trsv_blocks<T>(P, K, s, b, out, k, B, work, stream);                                        \
+    return launch_trsv_blocks<T>(P, K, s, b, out, k, B, work, 2, (cudaStream_t)stream);                       \
   }                                                                                                           \
   int tg_bt_matvec_##SUF(const T* diag, long long diag_k, long long diag_b, const T* sub, long long sub_k,    \
                          long long sub_b, int K, int s, int n, const int* perm, const T* x, T* y, int kk,     \
-                         int B, int rc, int lower, int upper, void* stream) {                                 \
-    return launch_matvec<T>(diag, diag_k, diag_b, sub, sub_k, sub_b, K, s, n, perm, x, y, kk, B, rc, lower,   \
-                            upper, stream);                                                                   \
+                         int B, int nv, int chunks, int strips, int cs, int P, int cpl, int nthr, int lower,  \
+                         int upper, T* work, void* stream) {                                                  \
+    return launch_matvec<T>(diag, diag_k, diag_b, sub, sub_k, sub_b, K, s, n, perm, x, y, kk, B, nv, chunks,  \
+                            strips, cs, P, cpl, nthr, lower, upper, work, stream);                            \
   }
 
 TG_BT_ENTRY(f32, float)

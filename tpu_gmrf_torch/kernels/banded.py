@@ -13,19 +13,21 @@ chain walks the band by column tiles of 64 (`factor_cluster` picks the
 cluster's size), with two slots of an inverted 64 × 64 diagonal tile of
 scratch per chain; the chains whose pivots broke down are redone with the
 boost. K12 solves with P on rows (B·k, n), chain-major: mode 0
-L y = b, mode 1 Lᵀ x = b, mode 2 both, in the original numbering (the RCM
-permutation and padding are applied inside); the permuted vector is kept in
-shared memory while npad entries fit in ``SMEM_MAX`` bytes, else in a
-global workspace.
+L y = b, mode 1 Lᵀ x = b, mode 2 both, in the original numbering: the rows
+are gathered through the RCM permutation and padded into blocks
+(B, K, s, k), solved there by the block entry's design (below) with the
+sweeps the mode asks for, and scattered back; `trsv_workspace` sizes its
+workspace.
 
-K13 multiplies by block-tridiagonal storage, one launch per product with
-the RCM permutation of x and y fused in. `bt_matvec` takes the symmetric
-matrix as D (K, s, s) (both triangles) and E (K-1, s, s), shared by all
-rows of x (R, n), or one set per row ((B, K, s, s), (B, K-1, s, s) with
-x (B, n)); `bt_sqrt` takes K11's factor P and computes
-y_k = L_k z_k + M_{k-1} z_{k-1} on rows (B·k, n), chain-major. A block of
-threads keeps 3·rc·s values of x in shared memory, rc ≤ 8 vectors at a
-time (`matvec_chunk` picks rc so that they fit ``SMEM_MAX``).
+K13 multiplies by block-tridiagonal storage, with the RCM permutation of x
+and y. `bt_matvec` takes the symmetric matrix as D (K, s, s) (both
+triangles) and E (K-1, s, s), shared by all rows of x (R, n), or one set
+per row ((B, K, s, s), (B, K-1, s, s) with x (B, n)); `bt_sqrt` takes K11's
+factor P and computes y_k = L_k z_k + M_{k-1} z_{k-1} on rows (B·k, n),
+chain-major. Three launches: x gathered into permuted rows, the units (64
+rows of one block row, up to 8 vectors, in clusters that add their
+Eᵀ-term partials in distributed shared memory), then y scattered with the
+partials added. `matvec_split` sizes the work; any s is taken.
 
 K11 and K12 have a block entry each, for the SPIKE solve
 (``parallel/pbtridiag.py``): `bt_factor_blocks` factors blocks D (B, K, s, s),
@@ -54,15 +56,17 @@ import numpy as np
 import torch
 
 from . import build
-from .supernodal import SMEM_MAX, _chol_boosted
+from .supernodal import _chol_boosted
 from .tridiag import SOLVE_BOTH, SOLVE_L, SOLVE_LT, _fn, _on_cuda, _stream
 
 __all__ = ["BandedTables", "bt_factor", "bt_factor_plain", "bt_trsv", "bt_trsv_plain",
-           "bt_matvec", "bt_matvec_plain", "bt_sqrt", "bt_sqrt_plain", "matvec_chunk",
+           "bt_matvec", "bt_matvec_plain", "bt_sqrt", "bt_sqrt_plain", "matvec_split", "trsv_workspace",
            "bt_factor_blocks", "bt_factor_blocks_plain", "bt_trsv_blocks", "bt_trsv_blocks_plain",
            "factor_cluster"]
 
-MV_ROWS, MV_VECS, MV_WARPS = 64, 8, 8  # kMvRows, kMvVecs, kMvWarps of the source
+MV_ROWS = 64  # kMvR of the source: rows of a matrix block per unit of K13
+MV_CLUSTER = 8  # the largest cluster of K13's units (portable)
+MV_THREADS = (256, 192)  # threads of a unit, by preference (the source takes up to 512)
 TILE = 64  # kT of csrc/tiles.cuh: the row tile of the factorization and of the block entry's solves
 MAX_CLUSTER = 16  # the largest (non-portable) cluster of the card
 
@@ -177,32 +181,45 @@ def bt_factor_plain(data: torch.Tensor, tables: BandedTables):
     return P, boost, logdet
 
 
+def _rows_to_blocks(b: torch.Tensor, perm: torch.Tensor, B: int, K: int, s: int, k: int) -> torch.Tensor:
+    """Rows b (B·k, n), chain-major, gathered through perm (block position →
+    original index) and zero-padded into blocks (B, K, s, k): K12's first step."""
+    n = b.shape[1]
+    x = b.new_zeros(B, K * s, k)
+    x[:, :n] = b.reshape(B, k, n)[:, :, perm].transpose(1, 2)
+    return x.view(B, K, s, k)
+
+
+def _blocks_to_rows(x: torch.Tensor, perm: torch.Tensor, n: int) -> torch.Tensor:
+    """Blocks (B, K, s, k) back to rows (B·k, n) in the original numbering: K12's last step."""
+    B, k = x.shape[0], x.shape[-1]
+    out = x.new_empty(B, k, n)
+    out[:, :, perm] = x.flatten(1, 2)[:, :n].transpose(1, 2)
+    return out.view(B * k, n)
+
+
+def _block_sweeps(P: torch.Tensor, b: torch.Tensor, mode: int) -> torch.Tensor:
+    """Forward (L), backward (Lᵀ) or both block substitutions with the factor
+    P (B, K, 2s, s) on blocks b (B, K, s, k)."""
+    K, s = b.shape[1], b.shape[2]
+    L, M = P[:, :, :s], P[:, :, s:]
+    v = list(b.unbind(1))
+    if mode != SOLVE_LT:
+        for blk in range(K):
+            rhs = v[blk] if blk == 0 else v[blk] - M[:, blk - 1] @ v[blk - 1]
+            v[blk] = torch.linalg.solve_triangular(L[:, blk], rhs, upper=False)
+    if mode != SOLVE_L:
+        for blk in reversed(range(K)):
+            rhs = v[blk] if blk == K - 1 else v[blk] - M[:, blk].mT @ v[blk + 1]
+            v[blk] = torch.linalg.solve_triangular(L[:, blk].mT, rhs, upper=True)
+    return torch.stack(v, 1)
+
+
 def bt_trsv_plain(P: torch.Tensor, tables: BandedTables, b: torch.Tensor, k: int = 1, mode: int = SOLVE_BOTH):
     """K12's function on rows b (B·k, n)."""
-    t = tables.on(b.device)
-    R, K, s, n = b.shape[0], tables.K, tables.s, tables.n
-    Pr = P if k == 1 else P.repeat_interleave(k, 0)
-    L, M = Pr[:, :, :s], Pr[:, :, s:]
-    v = b.new_zeros(R, tables.npad)
-    v[:, :n] = b[:, t["perm_l"]]
-    v = v.view(R, K, s)
-    if mode != SOLVE_LT:
-        ys, prev = [], None
-        for blk in range(K):
-            rhs = v[:, blk] if prev is None else v[:, blk] - (M[:, blk - 1] @ prev[..., None])[..., 0]
-            prev = torch.linalg.solve_triangular(L[:, blk], rhs[..., None], upper=False)[..., 0]
-            ys.append(prev)
-        v = torch.stack(ys, 1)
-    if mode != SOLVE_L:
-        xs, nxt = [None] * K, None
-        for blk in reversed(range(K)):
-            rhs = v[:, blk] if nxt is None else v[:, blk] - (M[:, blk].mT @ nxt[..., None])[..., 0]
-            nxt = torch.linalg.solve_triangular(L[:, blk].mT, rhs[..., None], upper=True)[..., 0]
-            xs[blk] = nxt
-        v = torch.stack(xs, 1)
-    out = b.new_empty(R, n)
-    out[:, t["perm_l"]] = v.reshape(R, -1)[:, :n]
-    return out
+    perm = tables.on(b.device)["perm_l"]
+    x = _rows_to_blocks(b, perm, P.shape[0], tables.K, tables.s, k)
+    return _blocks_to_rows(_block_sweeps(P, x, mode), perm, tables.n)
 
 
 def bt_factor_blocks_plain(D: torch.Tensor, E: torch.Tensor):
@@ -230,16 +247,7 @@ def bt_factor_blocks_plain(D: torch.Tensor, E: torch.Tensor):
 def bt_trsv_blocks_plain(P: torch.Tensor, b: torch.Tensor):
     """`bt_trsv_blocks`' function (``pbtridiag.py:76`` `_bt_solve_factored`) on
     blocks b (B, K, s, k)."""
-    K, s = b.shape[1], b.shape[2]
-    L, M = P[:, :, :s], P[:, :, s:]
-    v = list(b.unbind(1))
-    for blk in range(K):
-        rhs = v[blk] if blk == 0 else v[blk] - M[:, blk - 1] @ v[blk - 1]
-        v[blk] = torch.linalg.solve_triangular(L[:, blk], rhs, upper=False)
-    for blk in reversed(range(K)):
-        rhs = v[blk] if blk == K - 1 else v[blk] - M[:, blk].mT @ v[blk + 1]
-        v[blk] = torch.linalg.solve_triangular(L[:, blk].mT, rhs, upper=True)
-    return torch.stack(v, 1)
+    return _block_sweeps(P, b, SOLVE_BOTH)
 
 
 def _permuted_blocks(x: torch.Tensor, perm: torch.Tensor, K: int, s: int) -> torch.Tensor:
@@ -251,7 +259,7 @@ def _permuted_blocks(x: torch.Tensor, perm: torch.Tensor, K: int, s: int) -> tor
 
 def _unpermuted(y: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
     out = y.new_empty(y.shape[0], perm.shape[0])
-    out[:, perm] = y.reshape(y.shape[0], -1)[:, : perm.shape[0]]
+    out[:, perm] = y.flatten(1)[:, : perm.shape[0]]
     return out
 
 
@@ -325,16 +333,41 @@ def bt_trsv(P: torch.Tensor, tables: BandedTables, b: torch.Tensor, k: int = 1, 
     if not _on_cuda("bt_trsv", P, b):
         return bt_trsv_plain(P, tables, b, k, mode)
     t = tables.on(b.device)
+    B = P.shape[0]
+    P, b = P.contiguous(), b.contiguous()
     out = torch.empty_like(b)
-    # the permuted vector lives in shared memory, or in a workspace row when it does not fit
-    work = P.new_empty(b.shape[0], tables.npad) if tables.npad * P.element_size() > SMEM_MAX else None
+    work = P.new_empty(trsv_workspace(B, K, s, k))
     code = _fn("tg_bt_trsv", P.dtype)(
-        P.data_ptr(), K, s, n, t["perm"].data_ptr(), b.data_ptr(), out.data_ptr(), k, mode, b.shape[0],
-        None if work is None else work.data_ptr(), _stream(P),
+        P.data_ptr(), K, s, n, t["perm"].data_ptr(), b.data_ptr(), out.data_ptr(), k, mode, B,
+        work.data_ptr(), _stream(P),
     )
-    build.check(code, "bt_trsv", f" at K={K} s={s} rows={b.shape[0]} {P.dtype}")
+    build.check(code, "bt_trsv", f" at B={B} K={K} s={s} k={k} mode={mode} {P.dtype}")
     bt_trsv.launches += 1
     return out
+
+
+def trsv_workspace(B: int, K: int, s: int, k: int, permuted: bool = True) -> int:
+    """Values of K12's workspace for B chains of K blocks of s and k
+    right-hand sides: the right-hand sides in blocks (B, K, s, k) (with
+    `permuted`, K12's own entry), the inverted 64 × 64 diagonal tiles
+    (B·K·⌈s/64⌉ of them), the inverses of the diagonal blocks (B·K·s²) and
+    one block row of scratch (B·s·k)."""
+    return (B * K * s * k if permuted else 0) + B * K * -(-s // TILE) * TILE * TILE + B * K * s * s + B * s * k
+
+
+def _bt_inverses(P: torch.Tensor):
+    """K12's first step alone, for timing: (the inverted diagonal tiles
+    (B, K, ⌈s/64⌉, 64, 64), the inverses L_k⁻¹ (B, K, s, s)) of the factor
+    P (B, K, 2s, s) on the card."""
+    if P.device.type != "cuda":
+        raise ValueError("_bt_inverses runs on the card only")
+    B, K, s = P.shape[0], P.shape[1], P.shape[3]
+    P = P.contiguous()
+    dinv = P.new_empty(B, K, -(-s // TILE), TILE, TILE)
+    linv = P.new_empty(B, K, s, s)
+    code = _fn("tg_bt_invert", P.dtype)(P.data_ptr(), K, s, B, dinv.data_ptr(), linv.data_ptr(), _stream(P))
+    build.check(code, "bt_trsv (inversion)", f" at B={B} K={K} s={s} {P.dtype}")
+    return dinv, linv
 
 
 def bt_factor_blocks(D: torch.Tensor, E: torch.Tensor):
@@ -377,7 +410,7 @@ def bt_trsv_blocks(P: torch.Tensor, b: torch.Tensor):
     P, b = P.contiguous(), b.contiguous()
     out = torch.empty_like(b)
     # the inverted diagonal tiles, the inverses of the diagonal blocks and one block row of scratch
-    work = P.new_empty(B * K * -(-s // TILE) * TILE * TILE + B * K * s * s + B * s * k)
+    work = P.new_empty(trsv_workspace(B, K, s, k, permuted=False))
     code = _fn("tg_bt_trsv_blocks", P.dtype)(
         P.data_ptr(), K, s, b.data_ptr(), out.data_ptr(), k, B, work.data_ptr(), _stream(P),
     )
@@ -386,29 +419,48 @@ def bt_trsv_blocks(P: torch.Tensor, b: torch.Tensor):
     return out
 
 
-def matvec_chunk(s: int, rows: int, element_size: int) -> int:
-    """Vectors per block of K13: at most 8 and `rows`, fewer while the
-    block's 3·rc·s values of x and (warps+1)·rc·64 partial sums exceed
-    ``SMEM_MAX`` bytes; raises if not even one vector fits."""
-    rc = max(1, min(MV_VECS, rows))
-    while rc > 1 and element_size * rc * (3 * s + (MV_WARPS + 1) * MV_ROWS) > SMEM_MAX:
-        rc -= 1
-    if element_size * rc * (3 * s + (MV_WARPS + 1) * MV_ROWS) > SMEM_MAX:
-        raise ValueError(f"bt_matvec: blocks of {s} rows do not fit a block's shared memory")
-    return rc
+def matvec_split(s: int, K: int, kk: int, B: int, element_size: int, upper: bool = True) -> dict:
+    """How K13 splits a product of B chains' matrices of K blocks of s with
+    kk vectors each: ``nv`` vectors per unit (1, 4 or 8) in ``chunks`` per
+    chain; ``strips`` units of 64 rows per block row (padded to whole
+    clusters); with the Eᵀ term (`upper` and K > 1), clusters of ``cluster``
+    ≤ 8 units, whose column sums leave as ``parts`` partials per block row;
+    ``cpl`` columns per thread and pass (2 in float32); ``threads`` per unit
+    (256 or 192, whichever covers s in passes of ``threads``·``cpl``
+    columns with fewer to spare; fewer for a narrow block); ``work`` values
+    of workspace (x and y permuted, the partials)."""
+    nv = 1 if kk <= 1 else 4 if kk <= 4 else 8
+    chunks = -(-kk // nv)
+    strips = -(-s // MV_ROWS)
+    if upper and K > 1:
+        parts = -(-strips // MV_CLUSTER)
+        cluster = -(-strips // parts)
+        strips = parts * cluster
+    else:
+        parts, cluster = 0, 1
+    cpl = 2 if element_size == 4 else 1
+    # the thread count whose passes waste the fewest columns; blocks narrower than one pass take 32 per warp
+    threads = min(MV_THREADS, key=lambda t: -(-s // (t * cpl)) * t * cpl - s)
+    threads = min(threads, 32 * -(-s // (32 * cpl)))
+    rows = B * chunks * nv
+    return {"nv": nv, "chunks": chunks, "strips": strips, "cluster": cluster, "parts": parts, "cpl": cpl,
+            "threads": threads, "work": rows * (2 * K * s + max(K - 1, 0) * parts * s)}
 
 
 def _launch_matvec(name, diag, diag_k, diag_b, sub, sub_k, sub_b, K, s, n, perm, x, kk, B, lower, upper):
-    """One K13 launch; `diag` is a tensor, `sub` the address of sub-diagonal block 0 (or None)."""
+    """One K13 product; `diag` is a tensor, `sub` the address of sub-diagonal block 0 (or None)."""
     if perm.device != x.device or perm.dtype != torch.int32 or not perm.is_contiguous() or perm.shape != (n,):
         raise ValueError(f"{name}: perm must be contiguous int32 (n,) on the vectors' device")
+    x = x.contiguous()
     y = torch.empty_like(x)
-    rc = matvec_chunk(s, kk, x.element_size())
+    sp = matvec_split(s, K, kk, B, x.element_size(), bool(upper))
+    work = x.new_empty(sp["work"])
     code = _fn("tg_bt_matvec", x.dtype)(
-        diag.data_ptr(), diag_k, diag_b, sub, sub_k, sub_b,
-        K, s, n, perm.data_ptr(), x.data_ptr(), y.data_ptr(), kk, B, rc, lower, upper, _stream(x),
+        diag.data_ptr(), diag_k, diag_b, sub, sub_k, sub_b, K, s, n, perm.data_ptr(), x.data_ptr(), y.data_ptr(),
+        kk, B, sp["nv"], sp["chunks"], sp["strips"], sp["cluster"], sp["parts"], sp["cpl"], sp["threads"], lower, upper,
+        work.data_ptr(), _stream(x),
     )
-    build.check(code, name, f" at K={K} s={s} rows={x.shape[0]} rc={rc} {x.dtype}")
+    build.check(code, name, f" at B={B} K={K} s={s} rows={x.shape[0]} split={sp} {x.dtype}")
     return y
 
 
@@ -416,7 +468,7 @@ def bt_matvec(D: torch.Tensor, E: torch.Tensor, perm: torch.Tensor, x: torch.Ten
     """K13: y (R, n) = Q x for the symmetric block-tridiagonal Q given by
     D (K, s, s), E (K-1, s, s) (shared by the R rows of x) or D (B, K, s, s),
     E (B, K-1, s, s) with x (B, n); perm (n,) int32 maps block position j
-    to the original index. One launch; not differentiable."""
+    to the original index. Not differentiable."""
     if D.ndim not in (3, 4) or E.ndim != D.ndim or x.ndim != 2:
         raise ValueError(f"bt_matvec: shapes D {tuple(D.shape)}, E {tuple(E.shape)}, x {tuple(x.shape)}")
     K, s = D.shape[-3], D.shape[-1]
@@ -430,6 +482,7 @@ def bt_matvec(D: torch.Tensor, E: torch.Tensor, perm: torch.Tensor, x: torch.Ten
     if not _on_cuda("bt_matvec", D, E, x):
         return bt_matvec_plain(D, E, perm, x)
     B, kk = (x.shape[0], 1) if batched else (1, x.shape[0])
+    D, E = D.contiguous(), E.contiguous()
     y = _launch_matvec("bt_matvec", D, s * s, K * s * s if batched else 0, E.data_ptr() if K > 1 else None, s * s,
                        (K - 1) * s * s if batched else 0, K, s, n, perm, x, kk, B, 0, int(K > 1))
     bt_matvec.launches += 1
@@ -446,6 +499,7 @@ def bt_sqrt(P: torch.Tensor, tables: BandedTables, z: torch.Tensor, k: int = 1) 
         raise NotImplementedError("bt_sqrt has no backward; call it under torch.no_grad()")
     if not _on_cuda("bt_sqrt", P, z):
         return bt_sqrt_plain(P, tables, z, k)
+    P = P.contiguous()
     panel = 2 * s * s
     sub = P.data_ptr() + s * s * P.element_size()  # M_k: rows s..2s of panel k
     y = _launch_matvec("bt_sqrt", P, panel, K * panel, sub, panel, K * panel, K, s, n,

@@ -61,16 +61,20 @@ _SIGNATURES = {
     "tg_bt_factor": [_P, _L, _P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P],
     # cluster size, out: how many such clusters of K11's factorization the card holds
     "tg_bt_factor_fit": [_I, ctypes.POINTER(_I)],
-    # P, K, s, n, perm, b, out, k, mode, rows, work (null: shared memory), stream
+    # P, K, s, n, perm, b, out, k, mode, B, work (block layout, inverses, scratch), stream
     "tg_bt_trsv": [_P, _I, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P],
+    # P, K, s, B, Dinv, Linv, stream: K12's inversion alone (timed apart by chip_smoke.py)
+    "tg_bt_invert": [_P, _I, _I, _I, _P, _P, _P],
     # D, E, P, K, s, logdet, flags, work (inverted diagonal tiles), cluster size, B, stream
     "tg_bt_factor_blocks": [_P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _P],
     # P, K, s, b, out, k, B, work (inverted diagonal tiles, block inverses, scratch), stream
     "tg_bt_trsv_blocks": [_P, _I, _I, _P, _P, _I, _I, _P, _P],
     # alpha, beta, gamma, r, P, ns, k, Lr, factored, s, work, bad (int flag), logdet, stream
     "tg_spike_reduced": [_P, _P, _P, _P, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P],
-    # diag, diag_k, diag_b, sub, sub_k, sub_b, K, s, n, perm, x, y, kk, B, rc, lower, upper, stream
-    "tg_bt_matvec": [_P, _L, _L, _P, _L, _L, _I, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # diag, diag_k, diag_b, sub, sub_k, sub_b, K, s, n, perm, x, y, kk, B, then the split (nv, chunks,
+    # strips, cluster, parts, cpl, threads), lower, upper, work, stream
+    "tg_bt_matvec": [_P, _L, _L, _P, _L, _L, _I, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                     _P, _P],
     # blocks, block_stride, rowptr, bcols, tperm (null: forward), bs, nb, n, x, y, R, stream
     "tg_bsr_spmm": [_P, _L, _P, _P, _P, _I, _I, _I, _P, _P, _I, _P],
     # brows, bcols, nblocks, bs, n, g, x, R, per_chain, dblocks, stream

@@ -19,16 +19,18 @@ from .bsr_spmv import best_block_size, bsr_from_sparse
 
 __all__ = ["hot_matvec"]
 
-# Achieved bytes/s of K13 (dense blocks streamed) and of K14 (BSR blocks
-# streamed) on the 100x100-point Matérn α=2 operator (n=14058, k=8 vectors,
-# float32), read off `chip_smoke.py` phase 12 on an NVIDIA H100 80GB HBM3 at a
-# 700.00 W power limit, as the blocks over the kernel's device time in a
-# torch.profiler trace of 64 chained multiplies: K13 streams its 87.3 MB of
-# blocks (s=768, K=19) in 0.188 ms, K14 its 10.6 MB (bs=8, 41514 blocks) in
-# 0.029 ms. With these the rule picks BSR there and at the 316x316 grid
+# The rule's two rates, in its own terms: the bytes its cost model counts
+# for a formulation (K13: the dense blocks, once; K14: the BSR blocks, three
+# times, as the reference's rule counts them) over the formulation's device
+# time per multiply, on the 100x100-point Matérn α=2 operator (n=14058, k=8
+# vectors, float32): `chip_smoke.py` phase 12 on an NVIDIA H100 80GB HBM3 at
+# a 700.00 W power limit, the device time of 64 chained multiplies from a
+# torch.profiler trace (K13: its three launches), K13 87.3 MB of blocks
+# (s=768, K=19) in 0.0572 ms, K14 3 x 10.6 MB (bs=8, 41514 blocks) in
+# 0.0287 ms. With these the rule picks BSR there and at the 316x316 grid
 # (n=99856); of the two it chooses between, that is the faster measured.
-_DENSE_BYTES_PER_S = 464e9
-_GATHER_BYTES_PER_S = 370e9
+_DENSE_BYTES_PER_S = 1.527e12
+_GATHER_BYTES_PER_S = 1.107e12
 
 
 def hot_matvec(Q, min_nnz: int = 50_000):
