@@ -22,7 +22,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    range=0.25 and the posterior with a random positive diagonal H), in
    float64 and float32, over the whole supernodal schedule;
 3c. K9-K10 and dense_selinv (the dense backend, g=16 posterior, n=450,
-   B=8) and K11-K12 (the banded backend, n=5741, B=4, s=512, K=12; K11 also
+   B=8; K9 also through its rescue on the card, three chains that need δ,
+   500δ and break down, equal levels required; at B=1, n=900 and n=1000,
+   the shapes of phases 15 and 16; and one call in a torch.profiler trace:
+   one launch, no device-to-host copy, no stream synchronize) and K11-K12 (the banded backend, n=5741, B=4, s=512, K=12; K11 also
    at s=496 through the plan's block=8, and through its rescue: one chain
    with an indefinite block, equal boosts required; K12 with its time split
    into the inversion of the blocks and the sweeps, at k = 1, 8, 9 and 65
@@ -41,7 +44,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    moves and its rate, and at its edges (one block; blocks of 91 and 96 rows
    with 9 vectors; per-chain blocks), bt_sqrt at phase 14's shape;
 3e. K16 kl_columns on the column buckets of example 09's KL factor at
-   n=10,000 (rho = 3 and 6) and on one bucket beyond shared memory, K17
+   n=10,000 (rho = 3 and 6) and on one bucket of cap 256 (its cluster
+   path); the warp path to the bit, the tile and cluster paths by backward
+   error and by distance from the plain version against the library's; K17
    block_inv on the n=1000 graphical lasso's cliques and separators (and one
    set of 200, beyond shared memory), rectangular K4 on a 500 x 14058
    selection matrix and its transpose, against their plain versions and the
@@ -214,6 +219,7 @@ SN_TOL[torch.float64].update(csr_spmv=1e-12, bt_matvec=1e-12, bt_sqrt=1e-12, bsr
 SN_TOL[torch.float32].update(csr_spmv=1e-5, bt_matvec=1e-5, bt_sqrt=1e-5, bsr_spmm=1e-5, bsr_outer=1e-5,
                              sn_multiply=1e-4, tridiag=1e-4, identity=1e-3)
 DN_GRID, DN_CHAINS = 16, 8  # the dense backend's shape: the g=16 posterior, as phase 10
+DENSE_SHAPES = ((30, 30), (40, 25))  # K9 at B=1, n=900 and n=1000: the dense backend's shapes of phases 15 and 16
 
 # Bounds (the least time the card could take): the larger of the bytes a
 # function must move over HBM's rate and its operations over the card's
@@ -313,14 +319,23 @@ RBMC_SAMPLES, BLOCK_RBMC_SAMPLES = 1000, 100
 KL_GRID_SMALL, KL_GRID, KL_RHO, KL_RHO_WIDE, KL_JITTER, KL_ELL, KL_OBS = 30, 100, 3.0, 6.0, 1e-8, 0.3, 50
 GL_SMALL = dict(n=200, m=4000, density=0.02, lam=0.03)
 GL = dict(n=1000, m=20000, density=0.004, lam=0.03, held_out=100)
-# K16 and K17 against their plain versions: both round every operation once in the same order, so they
-# agree to the bit (the first readings on the H100: 0 in f64 and f32); the limits below hold them, with
-# the NaN masks of kernel and plain required equal. The KL and glasso paths against their plain paths, f64:
+# K17 and K16's warp path (cap ≤ 32) against their plain versions: both round every operation once in the
+# same order, so they agree to the bit (the first readings on the H100: 0 in f64 and f32); the limits below
+# hold them, with the NaN masks of kernel and plain required equal. K16's tile and cluster paths factor by
+# tiles of 64 with fused multiply-adds and inverted tiles, another order of rounding; the blocks' condition
+# reaches ~1/jitter, and another correct order (cholesky_ex + solve_triangular on the CPU) lands up to 8.9e-12
+# (f64) and 5.9e-3 (f32) from the plain version on example 09's n = 10,000 buckets. So those paths are held,
+# bucket by bucket, to what does not depend on the order: (a) the largest backward error of a column,
+# ‖A x − e_N / x_N‖_∞ / (‖A‖_∞ ‖x‖_∞) (A x = L_NN e_N and x_N = 1 / L_NN), at most 4x the plain version's
+# plus N ε; (b) the distance from the plain version (max |kernel − plain| / max |plain|) at most 4x that of
+# the library's order (kl_library) from it; (c) equal NaN masks. A wrong column has a backward error of
+# order 1. The KL and glasso paths against their plain paths, f64:
 # Q's data 1e-9 (the KL path's plain run is on CPU tensors, whose exp and sqrt in the cov_fn differ from
 # the card's in the last bit, and each column's solve amplifies that by its block's condition, up to
 # ~1/jitter: the first readings on the H100 were 3.6e-13 at n=900 and 1.1e-11 at n=10,000; on the card
 # the glasso's Q is K5's sums in another order); logdet 1e-10; var, conditional means and logpdf 1e-8 (the
 # dense and supernodal Choleskys of a precision of condition up to ~1e8 round in another order).
+KL_FACTOR = 4  # (a) and (b) above
 SN_TOL[torch.float64].update(kl_columns=1e-12, block_inv=1e-10)
 SN_TOL[torch.float32].update(kl_columns=1e-4, block_inv=1e-3)
 PATH_TOL = {"data": 1e-9, "logdet": 1e-10, "stat": 1e-8}
@@ -877,6 +892,11 @@ def check_dense_kernels(dn_model, sp_model, dtype, dev):
           cost=(B * n**3 / 3, table_bytes(t) + el * B * (Q.nnz + n * n + n + 1)),
           library_ms=cuda_ms(lambda: torch.linalg.cholesky_ex(A)), shape=shape,
           extra=f" (library: torch.linalg.cholesky_ex of the equilibrated (B, n, n))")
+    check_dense_rescue(dn_model, dtype, dev)
+    for nx, ny in DENSE_SHAPES:
+        check_dense_shape(nx, ny, dtype, dev)
+    if dtype == torch.float64:
+        dense_chol_trace(data, t)
     b = torch.tensor(np.random.default_rng(7).normal(size=(B, n, 1)), dtype=dtype, device=dev)
     sb = s[..., None] * b
     # the Newton solve: both triangles (mode 2), one right-hand side
@@ -952,6 +972,111 @@ def check_dense_kernels(dn_model, sp_model, dtype, dev):
                 f"bound_ms={sweep['bound_ms']:.4f} ({sweep['bound_by']}; {sweep_flops:.3e} flops, "
                 f"{sweep_bytes / 1e6:.1f} MB)")
     return results
+
+
+def dense_rel(got, ref) -> float:
+    """Normwise distance of K9's outputs (L, s, logdet) from the plain version's, over the entries finite in the
+    plain version, whose NaN masks the kernel's must equal."""
+    err = scale = 0.0
+    for g, r in zip(got, ref):
+        if not torch.equal(g.isnan(), r.isnan()):
+            raise AssertionError("dense_chol: NaN masks of kernel and plain differ")
+        fin = ~r.isnan()
+        if bool(fin.any()):
+            err = max(err, float((g[fin].double() - r[fin].double()).abs().max()))
+            scale = max(scale, float(r[fin].double().abs().max()))
+    return err / max(scale, 1e-300)
+
+
+def check_dense_rescue(dn_model, dtype, dev):
+    """Phase 3c: K9's ridge rescue on the card. Three g=16 posteriors whose diagonals are lowered so that the
+    equilibrated matrix's smallest eigenvalue (host, float64) is -δ/2 (rescued by δ), -250δ (by 500δ) and -1000δ
+    (indefinite after 500δ: a NaN factor and logdet), δ = 2e-6 n: with Q' = Q - c diag(Q) the equilibrated
+    matrix is (A - c I) / (1 - c). Levels equal to the plain version's, values within its limit."""
+    from tpu_gmrf_torch import kernels
+    from tpu_gmrf_torch.solvers import dense as td
+
+    n = dn_model.n
+    delta = 2e-6 * n
+    Q = random_posterior(dn_model, 3, torch.float64, dev, 12)
+    t = td._tables(Q.pattern)
+    data = Q.data.clone()
+    L, _, _, _ = kernels.dense_chol_plain(data.cpu(), t)
+    diag = torch.as_tensor(t._np["diag"], device=dev)
+    for b, mu in enumerate((-0.5 * delta, -250.0 * delta, -1000.0 * delta)):
+        lam = float(np.linalg.eigvalsh((L[b] @ L[b].mT).numpy())[0])
+        c = (lam - mu) / (1.0 - mu)
+        data[b, diag] *= 1.0 - c
+    data = data.to(dtype).contiguous()
+    got, ref = kernels.dense_chol(data, t), kernels.dense_chol_plain(data, t)
+    torch.cuda.synchronize()
+    levels = got[2].tolist()
+    rel, tol = dense_rel((got[0], got[1], got[3]), (ref[0], ref[1], ref[3])), SN_TOL[dtype]["dense_chol"]
+    log(f"  dense_chol forced rescue {dtype_name(dtype)} (B=3 n={n}: smallest eigenvalue -δ/2, -250δ, -1000δ): "
+        f"levels kernel {levels} plain {ref[2].tolist()}, logdet {got[3].tolist()}, rel={rel:.3e} (tol {tol:.0e}) "
+        f"over the finite entries, NaN masks equal; kernel_ms={cuda_ms(lambda: kernels.dense_chol(data, t)):.3f}")
+    if levels != ref[2].tolist() or levels != [1, 2, 2] or not rel <= tol:
+        raise AssertionError(f"dense_chol forced rescue: levels {levels} / {ref[2].tolist()}, rel {rel:.3e}")
+
+
+def lattice_precision(nx: int, ny: int, dtype, dev):
+    """One precision on an nx x ny lattice (n = nx ny, the dense backend's shapes of phases 15 and 16):
+    (4 + e^z) I minus the lattice's adjacency, z ~ N(0, 1) per node (seed 13)."""
+    import scipy.sparse as sp
+
+    from tpu_gmrf_torch.sparse import SparseMatrix, SparsePattern
+
+    def path(m):
+        return sp.diags([np.ones(m - 1), np.ones(m - 1)], [-1, 1])
+
+    adj = sp.kron(sp.identity(ny), path(nx)) + sp.kron(path(ny), sp.identity(nx))
+    n = nx * ny
+    Q = (sp.diags(4.0 + np.exp(np.random.default_rng(13).normal(size=n))) - adj).tocoo()
+    pat = SparsePattern(Q.row, Q.col, Q.shape)
+    return SparseMatrix(torch.tensor(Q.data[pat.sort_order][None], dtype=dtype, device=dev), pat)
+
+
+def check_dense_shape(nx: int, ny: int, dtype, dev):
+    """Phase 3c: K9 at B=1 on a lattice of n = nx ny (the shapes phases 15 and 16 give it) against its plain
+    version and cholesky_ex, with times."""
+    from tpu_gmrf_torch import kernels
+    from tpu_gmrf_torch.solvers import dense as td
+
+    Q = lattice_precision(nx, ny, dtype, dev)
+    n, el = Q.shape[0], Q.data.element_size()
+    data, t = Q.data.contiguous(), td._tables(Q.pattern)
+    got, ref = kernels.dense_chol(data, t), kernels.dense_chol_plain(data, t)
+    if got[2].tolist() != ref[2].tolist() or got[2].any():
+        raise AssertionError(f"dense_chol n={n}: rescue levels kernel {got[2].tolist()} plain {ref[2].tolist()}")
+    A = got[0] @ got[0].mT
+    check(f"dense_chol B=1 n={n}", dtype, (got[0], got[1], got[3]), (ref[0], ref[1], ref[3]), "dense_chol", {},
+          cuda_ms(lambda: kernels.dense_chol(data, t)), cuda_ms(lambda: kernels.dense_chol_plain(data, t)),
+          cost=(n**3 / 3, table_bytes(t) + el * (Q.nnz + n * n + n + 1)),
+          library_ms=cuda_ms(lambda: torch.linalg.cholesky_ex(A)), shape=f"B=1 n={n}",
+          extra=" (library: torch.linalg.cholesky_ex of the equilibrated (1, n, n))")
+
+
+def dense_chol_trace(data, t):
+    """Phase 3c: one K9 call under torch.profiler: one kernel launch, no device-to-host copy, no stream
+    synchronize (the rescue is decided on the card)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_gmrf_torch import kernels
+
+    kernels.dense_chol(data, t)  # warm: the cluster size is queried once
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        kernels.dense_chol(data, t)
+        torch.cuda.synchronize()
+    ev = prof.events()
+    dev_kernels = [e.name for e in ev if e.device_type == torch.autograd.DeviceType.CUDA]
+    host_calls = sorted({e.name for e in ev if e.name.startswith("cuda") and e.name != "cudaDeviceSynchronize"})
+    blocking = [nm for nm in host_calls + dev_kernels if "Memcpy" in nm or "StreamSynchronize" in nm]
+    log(f"  dense_chol in a torch.profiler trace (B={data.shape[0]} n={t.n}): device activities {dev_kernels}, "
+        f"host CUDA calls {host_calls}")
+    if len(dev_kernels) != 1 or "dense_chol_kernel" not in dev_kernels[0] or blocking:
+        raise AssertionError(f"dense_chol: expected one launch and no copy or synchronize, got {dev_kernels}, "
+                             f"{blocking}")
 
 
 def check_bt_factor_cases(Q, data, dtype):
@@ -1722,13 +1847,42 @@ def kl_library(theta, count):
     return run
 
 
+def kl_backward_error(theta, count, x, jitter: float):
+    """Per column of a bucket, ‖A x − e_N / x_N‖_∞ / (‖A‖_∞ ‖x‖_∞) in float64: A = (Θ + Θᵀ) / 2 + jitter I on
+    the column's N valid (trailing) rows, x (B, cap) its values (the padding ignored); NaN for a NaN column."""
+    B, cap = theta.shape[:2]
+    valid = torch.arange(cap, device=theta.device) >= (cap - count.long())[:, None]
+    th = theta.double()
+    A = torch.where(valid[:, :, None] & valid[:, None, :], 0.5 * (th + th.mT), 0.0) \
+        + jitter * torch.diag_embed(valid.double())
+    x = torch.where(valid, x.double(), 0.0)
+    r = (A @ x[..., None])[..., 0]
+    r[:, -1] -= 1.0 / x[:, -1]
+    return r.abs().amax(-1) / (A.abs().sum(-1).amax(-1) * x.abs().amax(-1))
+
+
+def padded(vals, pos):
+    """A bucket's values (B, cap) from L's data at entry_pos, zero on the padding."""
+    return torch.where(pos >= 0, vals[pos.clamp_min(0).long()], 0.0)
+
+
+def distance(got, ref) -> float:
+    """max |got − ref| / max |ref| over the entries where both are finite."""
+    fin = got.isfinite() & ref.isfinite()
+    if not bool(fin.any()):
+        return 0.0
+    return float((got[fin] - ref[fin]).abs().max()) / max(float(ref[fin].abs().max()), 1e-300)
+
+
 def check_kl_buckets(label, inputs, nnz: int, dtype, results=None, reps: int = 10):
-    """K16 against its plain version (and the library yardstick) on every bucket of `inputs`."""
+    """K16 against its plain version (and the library yardstick) on every bucket of `inputs`: the warp path
+    to the bit (SN_TOL), the tile and cluster paths by backward error and by distance (KL_FACTOR)."""
     from tpu_gmrf_torch import kernels
 
     el, tot = torch.finfo(dtype).bits // 8, dict(ms=0.0, plain_ms=0.0, library_ms=0.0, flops=0.0, bytes=0.0)
-    err = scale = 0.0
+    err = warp_err = scale = 0.0
     nans = [0, 0]
+    worst = {"backward": 0.0, "distance": 0.0}  # each reading over its limit, the largest
     for cap, theta, count, pos in inputs:
         out_k, out_p = theta.new_zeros(nnz), theta.new_zeros(nnz)
         kernels.kl_columns(theta, count, pos, KL_JITTER, out_k)
@@ -1741,8 +1895,27 @@ def check_kl_buckets(label, inputs, nnz: int, dtype, results=None, reps: int = 1
         fin = ~p.isnan()
         nans[0] += int(k.isnan().sum())
         b_err = float((k[fin] - p[fin]).abs().max()) if bool(fin.any()) else 0.0
-        err, scale = max(err, b_err), max(scale, float(p[fin].abs().max()) if bool(fin.any()) else 0.0)
+        err = max(err, b_err)
         nans[1] += broken_columns(k, count)
+        path = kernels.kl_path(cap)
+        if path == "warp":
+            warp_err = max(warp_err, b_err)
+            scale = max(scale, float(p[fin].abs().max()) if bool(fin.any()) else 0.0)
+            reading = ""
+        else:
+            be = [float(kl_backward_error(theta, count, padded(o, pos), KL_JITTER).nan_to_num(0.0).max())
+                  for o in (out_k, out_p)]
+            lim_a = KL_FACTOR * be[1] + int(count.max()) * torch.finfo(dtype).eps
+            x_l = kl_library(theta, count)()[..., 0]
+            xp = padded(out_p, pos)
+            d_k, d_l = distance(padded(out_k, pos), xp), distance(torch.where(pos >= 0, x_l, 0.0), xp)
+            lim_b = KL_FACTOR * d_l
+            reading = (f" backward error {be[0]:.3e} (plain {be[1]:.3e}, limit {lim_a:.3e}), distance from plain "
+                       f"{d_k:.3e} (library's {d_l:.3e}, limit {lim_b:.3e})")
+            if not (be[0] <= lim_a and d_k <= lim_b):
+                raise AssertionError(f"kl_columns {label} cap={cap} ({path} path): {reading.strip()}")
+            worst["backward"] = max(worst["backward"], be[0] / lim_a)
+            worst["distance"] = max(worst["distance"], d_k / lim_b if lim_b > 0 else 0.0)
         N = count.double()
         flops = float((N**3 / 3 + N**2).sum())
         nbytes = el * float((N**2 + N).sum()) + 4 * (count.numel() * (cap + 1))
@@ -1750,19 +1923,21 @@ def check_kl_buckets(label, inputs, nnz: int, dtype, results=None, reps: int = 1
         pms = cuda_ms(lambda: kernels.kl_columns_plain(theta, count, pos, KL_JITTER, out_p), 2, 1)
         lms = cuda_ms(kl_library(theta, count), 3, 1)
         bnd = bound(flops, nbytes, dtype)
-        log(f"    cap={cap} B={count.numel()} ({kernels.kl_path(cap, dtype)} path): max_abs_err={b_err:.3e} "
+        log(f"    cap={cap} B={count.numel()} ({path} path): max_abs_err={b_err:.3e}{reading} "
             f"kernel_ms={ms:.4f} plain_ms={pms:.3f} library_ms={lms:.3f} bound_ms={bnd['bound_ms']:.5f} "
             f"({bnd['bound_by']}), NaN entries {int(k.isnan().sum())}")
         for key, v in (("ms", ms), ("plain_ms", pms), ("library_ms", lms), ("flops", flops), ("bytes", nbytes)):
             tot[key] += v
-    rel, tol = err / max(scale, 1e-300), SN_TOL[dtype]["kl_columns"]
+    rel, tol = warp_err / max(scale, 1e-300), SN_TOL[dtype]["kl_columns"]
     bnd = bound(tot["flops"], tot["bytes"], dtype)
-    log(f"  kl_columns {label} {dtype_name(dtype)}: max_abs_err={err:.3e} rel={rel:.3e} (tol {tol:.0e}), NaN "
-        f"entries {nans[0]} (kernel and plain masks equal), columns broken down {nans[1]}; all buckets: "
-        f"kernel_ms={tot['ms']:.4f} plain_ms={tot['plain_ms']:.3f} library_ms={tot['library_ms']:.3f} (two library "
-        f"calls per bucket) bound_ms={bnd['bound_ms']:.5f} ({bnd['bound_by']})")
+    log(f"  kl_columns {label} {dtype_name(dtype)}: warp path rel={rel:.3e} (tol {tol:.0e}); tile and cluster "
+        f"paths: largest backward error / limit {worst['backward']:.3f}, distance / limit {worst['distance']:.3f}; "
+        f"max_abs_err={err:.3e}, NaN entries {nans[0]} (kernel and plain masks equal), columns broken down "
+        f"{nans[1]}; all buckets: kernel_ms={tot['ms']:.4f} plain_ms={tot['plain_ms']:.3f} "
+        f"library_ms={tot['library_ms']:.3f} (two library calls per bucket) bound_ms={bnd['bound_ms']:.5f} "
+        f"({bnd['bound_by']})")
     if not rel <= tol:
-        raise AssertionError(f"kl_columns {label}: kernel disagrees with its plain version ({rel:.3e})")
+        raise AssertionError(f"kl_columns {label}: the warp path disagrees with its plain version ({rel:.3e})")
     if results is not None:
         results["kl_columns"] = {"max_abs_err": err, "ms": tot["ms"], "plain_ms": tot["plain_ms"],
                                  "library_ms": tot["library_ms"], **bnd, "dtype": dtype_name(dtype), "shape": label}
@@ -1879,11 +2054,26 @@ def check_rect_spmv(dev):
                       library_ms=cuda_ms(lambda: torch.sparse.mm(lib, xt)))
 
 
+def synthetic_kl_bucket(rng, dtype, dev):
+    """One K16 bucket beyond phase 3e's caps, (cap, Θ, count, entry_pos) and its nnz: cap 256, columns of 256,
+    256, 200 and 129 rows, Θ the Matérn-3/2 kernel of uniform points."""
+    from tpu_gmrf_torch.kl_cholesky import gram
+
+    cap, count = 256, np.array([256, 256, 200, 129])
+    pts = torch.tensor(rng.uniform(size=(len(count), cap, 2)), dtype=dtype, device=dev)
+    pos = np.full((len(count), cap), -1)
+    nxt = 0
+    for b, N in enumerate(count):
+        pos[b, cap - N:] = np.arange(nxt, nxt + N)
+        nxt += N
+    return (cap, gram(matern32)(pts, pts), torch.tensor(count, dtype=torch.int32, device=dev),
+            torch.tensor(pos, dtype=torch.int32, device=dev)), nxt
+
+
 def check_gp_kernels(kp: dict, gp: dict, dev) -> dict:
-    """Phase 3e: K16 on the n=10,000 buckets (ρ = 3 and 6) and one bucket beyond shared memory, K17
+    """Phase 3e: K16 on the n=10,000 buckets (ρ = 3 and 6) and one bucket on its cluster path, K17
     on the n=1000 glasso sets plus one set of 200 (global path), rectangular K4; f64 and f32."""
     from tpu_gmrf_torch import kernels
-    from tpu_gmrf_torch.kl_cholesky import gram
 
     results = {}
     nnz = {rho: kp["pats"][rho][0].nnz for rho in (KL_RHO, KL_RHO_WIDE)}
@@ -1898,18 +2088,9 @@ def check_gp_kernels(kp: dict, gp: dict, dev) -> dict:
             check_kl_buckets(label, inputs, nnz[rho], dtype,
                              results if (dtype == torch.float64 and rho == KL_RHO) else None)
             del inputs
-        # beyond shared memory: one bucket of cap 256 (columns of 256, 256, 200 and 129 rows)
-        cap, count = 256, np.array([256, 256, 200, 129])
-        pts = torch.tensor(rng.uniform(size=(len(count), cap, 2)), dtype=dtype, device=dev)
-        pos = np.full((len(count), cap), -1)
-        nxt = 0
-        for b, N in enumerate(count):
-            pos[b, cap - N:] = np.arange(nxt, nxt + N)
-            nxt += N
-        theta = gram(matern32)(pts, pts)
-        check_kl_buckets(f"synthetic cap={cap} ({'global' if cap > 168 else 'shared'} path)",
-                         [(cap, theta, torch.tensor(count, dtype=torch.int32, device=dev),
-                           torch.tensor(pos, dtype=torch.int32, device=dev))], nxt, dtype, reps=3)
+        bucket, nnz_s = synthetic_kl_bucket(rng, dtype, dev)
+        check_kl_buckets(f"synthetic cap={bucket[0]} ({kernels.kl_path(bucket[0])} path)", [bucket], nnz_s, dtype,
+                         reps=3)
         # K17: the n=1000 graphical lasso's cliques (+1) and separators (-1); then with a set of 200
         C = torch.tensor(gp["C"], dtype=dtype, device=dev)
         check_block_inv(f"n={len(gp['mu'])} glasso", C, gp["blocks"], dtype,

@@ -326,6 +326,33 @@ def test_dense_ridge_rescue_decides_as_reference(dtype):
     assert _rel(logdet.double().numpy()[:3], ref[:3]) <= tol
 
 
+@pytest.fixture(scope="module")
+def dense130():
+    """Two SPD precisions at n = 130 (K9's tiles of 64: three, the last ragged), a random pattern with a random
+    diagonal per chain, and the reference's dense factor (L, s, logdet) of each, computed once per module."""
+    n = 130
+    rows, cols, vals = _canonical(_random_spd(n, 41))
+    diag = rows == cols
+    data = vals[None] + np.where(diag, 1.0, 0.0)[None] * np.exp(np.random.default_rng(41).normal(size=(2, 1)))
+    jp = JP(rows, cols, (n, n))
+
+    def ref(d):
+        f = jd.dense_factorize(JSM(d, jp))
+        return f.L, f.s, f.logdet()
+
+    L, s, logdet = jax.jit(jax.vmap(ref))(jnp.asarray(data))
+    return dict(pattern=SparsePattern(rows, cols, (n, n)), data=data, L=np.asarray(L), s=np.asarray(s),
+                logdet=np.asarray(logdet))
+
+
+def test_dense_chol_plain_matches_reference_at_three_tiles(dense130):
+    L, s, level, logdet = kernels.dense_chol_plain(_t(dense130["data"]), td._tables(dense130["pattern"]))
+    assert level.tolist() == [0, 0]
+    assert _rel(L.numpy(), dense130["L"]) <= 1e-12
+    assert _rel(s.numpy(), dense130["s"]) <= 1e-15
+    assert _rel(logdet.numpy(), dense130["logdet"]) <= 1e-12
+
+
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
 def test_banded_boost_decides_as_reference(dtype):
     n = 48

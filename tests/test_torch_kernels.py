@@ -313,6 +313,30 @@ def test_factor_cluster_raises_when_no_cluster_fits():
         kernels.banded.factor_cluster(450, 4, lambda cs: 0)
 
 
+def _held(per_sm):
+    """Clusters of cs blocks a card of 132 SMs holds at once with per_sm blocks on an SM (0 above 16)."""
+    return lambda cs: per_sm * 132 // cs if cs <= 16 else 0
+
+
+# K9 (one block per SM) and K16's cluster path (three blocks of ~70 KB per SM) size their clusters by the same rule
+@pytest.mark.parametrize("name, s, B, per_sm, want", [
+    ("dense_chol", 450, 8, 1, 16),  # phases 3c and 10: eight chains, eight clusters of 16 in one wave
+    ("dense_chol", 450, 9, 1, 14),  # nine chains: one wave of clusters of 14 (nine fit), not two of 16
+    ("dense_chol", 900, 1, 1, 16),  # phase 15's shape: one chain, the largest cluster
+    ("dense_chol", 64, 8, 1, 1),  # one tile: one block per chain
+    ("kl_columns", 256, 4, 3, 8),  # the cap-256 bucket: four tiles, clusters of 8
+    ("kl_columns", 256, 5000, 3, 1),  # thousands of columns: a block each
+])
+def test_dense_and_kl_clusters_pick_fewest_waves_then_the_largest(name, s, B, per_sm, want):
+    assert kernels.banded.factor_cluster(s, B, _held(per_sm), name) == want
+
+
+@pytest.mark.parametrize("name, s", [("dense_chol", 450), ("kl_columns", 256)])
+def test_dense_and_kl_clusters_raise_when_no_cluster_fits(name, s):
+    with pytest.raises(RuntimeError, match=f"{name}: the card holds no cluster"):
+        kernels.banded.factor_cluster(s, 8, lambda cs: 0, name)
+
+
 def test_block_factor_gives_nan_for_an_indefinite_block():
     rng = np.random.default_rng(31)
     D, E, _ = _bt_blocks(rng, 2, 3, 4)

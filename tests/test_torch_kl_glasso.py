@@ -10,6 +10,8 @@ versions are also held against NumPy oracles column by column and block by
 block.
 """
 
+import importlib.util
+import pathlib
 import sys
 
 import jax.numpy as jnp
@@ -205,11 +207,71 @@ def test_kl_columns_forward_only_and_paths():
     with pytest.raises(NotImplementedError):
         kernels.kl_columns(theta, torch.tensor([4, 4], dtype=torch.int32), torch.zeros(2, 4, dtype=torch.int32),
                            0.0, torch.zeros(8, dtype=F64))
-    assert kernels.kl_path(32, torch.float64) == "warp"
-    assert kernels.kl_path(128, torch.float64) == "shared"
-    assert kernels.kl_path(168, torch.float64) == "shared"
-    assert kernels.kl_path(256, torch.float64) == "global"
-    assert kernels.kl_path(256, torch.float32) == "global"
+    assert [kernels.kl_path(cap) for cap in (1, 32, 33, 64, 128, 129, 256)] == \
+        ["warp", "warp", "tile", "tile", "tile", "cluster", "cluster"]
+
+
+_BAND: dict = {}
+
+
+def _band_reference():
+    """The reference's factor on a banded pattern whose columns fill K16's buckets of caps 64, 128 and 256:
+    n = 200, column k holds rows k .. min(n - 1, k + 129) (130 rows at most: three tiles of 64, the last
+    ragged), random points, ℓ = 0.3, jitter 1e-3 (computed once per module: the JAX package compiles every
+    bucket anew)."""
+    if not _BAND:
+        n, w = 200, 129
+        rows = np.concatenate([np.arange(k, min(n, k + w + 1)) for k in range(n)])
+        cols = np.concatenate([np.full(min(n, k + w + 1) - k, k) for k in range(n)])
+        X, order = _points(n, seed=3), np.arange(n)
+        L = jkl.sparse_approximate_cholesky(X, jkl.gram(_matern32_jax), JP(rows, cols, (n, n)), order, 1e-3)
+        _BAND.update(X=X, rows=rows, cols=cols, order=order, L=np.asarray(L.data))
+    return _BAND
+
+
+@pytest.mark.parametrize("cap", [64, 128, 256])
+def test_kl_columns_plain_matches_reference_at_tile_caps(cap):
+    ref = _band_reference()
+    n = len(ref["X"])
+    p = SparsePattern(ref["rows"], ref["cols"], (n, n))
+    L = tkl.sparse_approximate_cholesky(ref["X"], tkl.gram(_matern32_torch), p, ref["order"], 1e-3)
+    entry_pos = {c: np.asarray(e) for c, _, _, e, _ in tkl.kl_buckets(p)}[cap]
+    pos = entry_pos[entry_pos >= 0]
+    assert _rel(L.data.numpy()[pos], ref["L"][pos]) <= 1e-11
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", pathlib.Path(__file__).parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_kl_backward_error_helper_matches_numpy_oracle():
+    """chip_smoke.py's check of K16's tile and cluster paths: per column ‖A x − e_N / x_N‖_∞ / (‖A‖_∞ ‖x‖_∞)."""
+    rng = np.random.default_rng(9)
+    B, cap, jitter = 4, 8, 1e-6
+    count = np.array([8, 5, 1, 6])
+    theta = np.full((B, cap, cap), np.nan)  # the padding is never read
+    for b in range(B):
+        N = count[b]
+        G = rng.normal(size=(N, N + 2))
+        theta[b, cap - N:, cap - N:] = G @ G.T / (N + 2) + 0.1 * np.eye(N) + 1e-9 * rng.normal(size=(N, N))
+    # the columns perturbed by 1e-6 (a backward error well above rounding, so both sides read it to many digits)
+    x = np.nan_to_num(_kl_oracle(theta, count, jitter)) * (1.0 + 1e-6 * rng.normal(size=(B, cap)))
+    x[1, -3] *= 1.5  # a wrong entry: a backward error of order one for that column
+    want = np.zeros(B)
+    for b in range(B):
+        N = count[b]
+        T = theta[b, cap - N:, cap - N:]
+        A = 0.5 * (T + T.T) + jitter * np.eye(N)
+        xb = x[b, cap - N:]
+        r = A @ xb
+        r[-1] -= 1.0 / xb[-1]
+        want[b] = np.abs(r).max() / (np.abs(A).sum(1).max() * np.abs(xb).max())
+    got = _chip_smoke().kl_backward_error(torch.tensor(theta), torch.tensor(count), torch.tensor(x), jitter)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6)
+    assert want[1] > 1e-2 and np.delete(want, 1).max() < 1e-5
 
 
 # ---- graphical lasso: host tables ---------------------------------------------------------

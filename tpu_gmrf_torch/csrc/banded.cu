@@ -475,11 +475,7 @@ size_t chol_smem() {
 // (0 for a cluster size it refuses).
 template <typename T>
 int chol_fit(int cs, int* count) {
-  if (tgtile::max_clusters(bt_chol_kernel<T>, dim3(cs), cs, chol_smem<T>(), count)) {
-    cudaGetLastError();
-    *count = 0;
-  }
-  return 0;
+  return tgtile::cluster_fit(bt_chol_kernel<T>, cs, chol_smem<T>(), count);
 }
 
 template <typename T>

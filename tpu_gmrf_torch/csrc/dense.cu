@@ -17,106 +17,132 @@
 //       (the reference forms all of Q^-1 and gathers).
 //
 // What bounds them on the card. K9 does n^3/3 flops per chain on n^2
-// values (n <= 4096, B chains): at the path's shape (n = 450, B = 8) it is
-// bound by the latency of its ~24 dependent launches and of the diagonal
-// tiles; at n = 4096 by the FMA rate of the trailing updates. K10 reads
-// L (n^2/2 values) once per right-hand side: bound by that read.
-// Design: the factor lives in global memory (B, n, n), lower triangle. K9
-// scatters the symmetrized, equilibrated Q into it and runs the blocked
-// panel Cholesky of dense_blocks.cuh over (chain, tile) blocks; the rescue
-// is decided on the host after one flag readback, and only the chains that
-// broke down are refactored. K10 runs one block per (chain, right-hand
-// side) with the vector in shared memory; `dense_selinv` solves for X the
-// same way, one block per (chain, column), into a global workspace, then
-// dots pairs of X's rows, one warp per wanted entry.
+// values (n <= 4096, B chains): at the NUTS path's shape (n = 450, B = 8)
+// it is bound by the latency of its chain of ceil(n / 64) dependent 64 x 64
+// diagonal tiles, each a Cholesky of 64 pivots in sequence; at n = 4096 by
+// the rate of the trailing updates. K10 reads L (n^2/2 values) once per
+// right-hand side: bound by that read.
+// Design. K9 is one launch (dense_chol_kernel): a thread-block cluster per
+// chain (kernels/banded.py factor_cluster picks its size: the fewest waves
+// of clusters, then the largest; at n = 450, B = 8, eight clusters of 16),
+// one block per SM. The cluster writes the chain's factor in place in L
+// (B, n, n): its blocks zero their share of the lower 64 x 64 tiles (the
+// shift on the diagonal), then scatter the symmetrized, equilibrated
+// entries; tiles.cuh chol_rows factors it (block 0 factors and inverts each
+// diagonal tile, in float64 also for float32, while the panel and the
+// trailing update run as tiles over the cluster, f64 on the tensor cores,
+// f32 on the FMA units) and zeroes the upper tiles. The ridge rescue is
+// decided in the cluster: after chol_rows' last cluster barrier every block
+// reads the attempt's breakdown flag, and a chain that broke down is
+// rescattered from its data with the next shift and refactored, twice at
+// most; then block 0 writes the level and the logdet, and every block of a
+// chain whose last attempt broke down writes NaN over its factor. No flag
+// goes to the host and nothing waits on the stream. K10 runs one block per
+// (chain, right-hand side) with the vector in shared memory; `dense_selinv`
+// solves for X the same way, one block per (chain, column), into a global
+// workspace, then dots pairs of X's rows, one warp per wanted entry.
 
 #include "dense_blocks.cuh"
+#include "tiles.cuh"
 
 namespace {
 
 using namespace tgdense;
 
-// L[b][r][c] = s_r (d_p + d_tperm(p)) / 2 s_c (+ shift on the diagonal),
-// lower triangle only; s[b][i] = rsqrt(Q_ii) where Q_ii > 0, else 1 (written
-// when s is given).
+// K9 for chain blockIdx.y on a cluster of gridDim.x blocks: s[b][i] = rsqrt(Q_ii) where Q_ii > 0, else 1; the
+// lower triangle of L[b] = S ((d_p + d_tperm(p)) / 2) S (+ shift I), factored by chol_rows, with the shift 0,
+// then delta, then 500 delta while it breaks down (flags[3 b + attempt]); Dinv: the chain's inverted diagonal
+// tiles (scratch).
 template <typename T>
-__global__ void dense_scatter_kernel(const T* data, long long ds, const int* rows, const int* cols, const int* tperm,
-                                     const int* diag_pos, int nnz, int n, T* L, T* s, T shift, const int* active) {
+__global__ void __launch_bounds__(tgtile::kThr, 1)
+    dense_chol_kernel(const T* __restrict__ data, long long ds, const int* __restrict__ rows,
+                      const int* __restrict__ cols, const int* __restrict__ tperm, const int* __restrict__ diag_pos,
+                      int nnz, int n, T* L, T* s, int* level, T* logdet, T* Dinv, int* flags) {
+  using namespace tgtile;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  double* wsm = reinterpret_cast<double*>(smem_raw);
+  const int rank = blockIdx.x, cs = gridDim.x, tid = threadIdx.x, nt = ntiles(n);
   const long long b = blockIdx.y;
-  if (active && !active[b]) return;
   const T* d = data + b * ds;
+  T* Lb = L + b * (long long)n * n;
+  T* Dv = Dinv + b * nt * (long long)kTT;
+  int* fail = flags + 3 * b;
   auto scale = [&](int i) -> T {
     const int p = diag_pos[i];
     const T v = p >= 0 ? d[p] : T(0);
     return v > T(0) ? T(1) / sqrt(v) : T(1);
   };
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (s && e < n) s[b * n + e] = scale(e);
-  if (e >= nnz) return;
-  const int r = rows[e], c = cols[e];
-  if (c > r) return;
-  T v = T(0.5) * (d[e] + d[tperm[e]]) * scale(r) * scale(c);
-  if (r == c) v += shift;
-  L[b * (long long)n * n + (long long)r * n + c] = v;
-}
-
-// A chain whose last attempt broke down gets a NaN factor and logdet; the
-// others logdet = 2 sum log L_ii - 2 sum log s_i.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    dense_finish_kernel(T* L, const T* s, const int* fail, T* logdet, int n) {
-  __shared__ T red[kThreads];
-  const long long b = blockIdx.x;
-  T* Lb = L + b * (long long)n * n;
-  if (fail[b]) {
-    for (long long i = threadIdx.x; i < (long long)n * n; i += blockDim.x) Lb[i] = T(NAN);
-    if (threadIdx.x == 0) logdet[b] = T(NAN);
-    return;
+  const int g0 = rank * kThr + tid, gs = cs * kThr;
+  if (g0 < 3) fail[g0] = 0;
+  for (int i = g0; i < n; i += gs) s[b * n + i] = scale(i);
+  const T delta = T(2e-6 * n);
+  int attempt = 0;
+  for (;; ++attempt) {
+    const T shift = attempt == 0 ? T(0) : attempt == 1 ? delta : T(500) * delta;
+    int idx = 0;  // the lower tiles: zero, the shift on the diagonal
+    for (int I = 0; I < nt; ++I)
+      for (int J = 0; J <= I; ++J, ++idx) {
+        if (idx % cs != rank) continue;
+#pragma unroll 4
+        for (int u = 0; u < kTT / kThr; ++u) {
+          const int e = tid + u * kThr, r = I * kT + e / kT, c = J * kT + e % kT;
+          if (r < n && c < n) Lb[(long long)r * n + c] = r == c ? shift : T(0);
+        }
+      }
+    csync();
+    for (int e = g0; e < nnz; e += gs) {  // the pattern's entries in the lower triangle
+      const int r = rows[e], c = cols[e];
+      if (c > r) continue;
+      T v = T(0.5) * (d[e] + d[tperm[e]]) * scale(r) * scale(c);
+      if (r == c) v += shift;
+      Lb[(long long)r * n + c] = v;
+    }
+    csync();
+    chol_rows(Lb, n, Dv, fail + attempt, rank, cs, sm, wsm, false, [](int, int, int) {});
+    if (attempt == 2 || ldcg(fail + attempt) == 0) break;  // every block reads the flag after the same barrier
   }
+  const bool broken = ldcg(fail + attempt) != 0;
+  if (broken)
+    for (long long e = g0; e < (long long)n * n; e += gs) Lb[e] = T(NAN);
+  if (rank != 0) return;
+  // logdet = 2 sum log L_ii - 2 sum log s_i, by block 0 (its reads of L's diagonal precede any NaN fill of
+  // its own tiles; a broken chain's logdet is NaN whatever they read)
   T acc = T(0);
-  for (int i = threadIdx.x; i < n; i += blockDim.x) acc += log(Lb[(long long)i * n + i]) - log(s[b * n + i]);
-  red[threadIdx.x] = acc;
+  for (int i = tid; i < n; i += kThr) acc += log(ldcg(Lb + (long long)i * n + i)) - log(scale(i));
+  T* red = sm;
+  red[tid] = acc;
   __syncthreads();
-  for (int off = blockDim.x / 2; off > 0; off >>= 1) {
-    if ((int)threadIdx.x < off) red[threadIdx.x] += red[threadIdx.x + off];
+  for (int off = kThr / 2; off > 0; off >>= 1) {
+    if (tid < off) red[tid] += red[tid + off];
     __syncthreads();
   }
-  if (threadIdx.x == 0) logdet[b] = T(2) * red[0];
+  if (tid == 0) {
+    logdet[b] = broken ? T(NAN) : T(2) * red[0];
+    level[b] = attempt;
+  }
 }
 
+// Shared memory of K9's cluster: chol_rows' need, raised above half an SM's so that no two blocks share an SM.
+template <typename T>
+size_t chol_smem() {
+  const size_t need = tgtile::chol_rows_smem<T>(), one = 116 * 1024;
+  return need > one ? need : one;
+}
+
+// How many clusters of cs blocks of K9 the card holds at once (0 for a cluster size it refuses).
+template <typename T>
+int chol_fit(int cs, int* count) {
+  return tgtile::cluster_fit(dense_chol_kernel<T>, cs, chol_smem<T>(), count);
+}
+
+// K9: one cluster launch of cs blocks per chain; flags: 3 B ints, Dinv: B ceil(n / 64) inverted tiles (scratch).
 template <typename T>
 int launch_chol(const T* data, long long ds, const int* rows, const int* cols, const int* tperm, const int* diag_pos,
-                int nnz, int n, T* L, T* s, int* level, T* logdet, int* flags, int B, void* stream) {
+                int nnz, int n, T* L, T* s, int* level, T* logdet, int* flags, T* Dinv, int cs, int B, void* stream) {
   if (B == 0) return 0;
-  cudaStream_t st = (cudaStream_t)stream;
-  int* fail = flags;
-  int* retry = flags + B;
-  const long long nn = (long long)n * n;
-  int rc = (int)cudaMemsetAsync(fail, 0, sizeof(int) * B, st);
-  if (!rc) rc = (int)cudaMemsetAsync(level, 0, sizeof(int) * B, st);
-  if (!rc) rc = (int)cudaMemsetAsync(L, 0, sizeof(T) * nn * B, st);
-  if (rc) return rc;
-  const dim3 grid(cdiv(nnz > n ? nnz : n, kThreads), B);
-  dense_scatter_kernel<T><<<grid, kThreads, 0, st>>>(data, ds, rows, cols, tperm, diag_pos, nnz, n, L, s, T(0),
-                                                     nullptr);
-  if ((rc = (int)cudaGetLastError())) return rc;
-  if ((rc = factor_panels<T>(L, nn, n, n, n, T(0), nullptr, fail, B, st))) return rc;
-  const T delta = T(2e-6 * n);
-  for (int attempt = 1; attempt <= 2; ++attempt) {
-    bool any;
-    if ((rc = any_failed(fail, B, st, &any))) return rc;
-    if (!any) break;
-    // the chains that broke down (and only they) retry with a larger ridge
-    if ((rc = take_failed(nullptr, fail, retry, level, B, st))) return rc;
-    if ((rc = fill<T>(L, nn, nn, T(0), retry, B, st))) return rc;
-    const T shift = attempt == 1 ? delta : T(500) * delta;
-    dense_scatter_kernel<T><<<grid, kThreads, 0, st>>>(data, ds, rows, cols, tperm, diag_pos, nnz, n, L, nullptr,
-                                                       shift, retry);
-    if ((rc = (int)cudaGetLastError())) return rc;
-    if ((rc = factor_panels<T>(L, nn, n, n, n, T(0), retry, fail, B, st))) return rc;
-  }
-  dense_finish_kernel<T><<<B, kThreads, 0, st>>>(L, s, fail, logdet, n);
-  return (int)cudaGetLastError();
+  return tgtile::launch_cluster(dense_chol_kernel<T>, dim3(cs, B), cs, chol_smem<T>(), (cudaStream_t)stream, data,
+                                ds, rows, cols, tperm, diag_pos, nnz, n, L, s, level, logdet, Dinv, flags);
 }
 
 // One block per (chain, right-hand side): mode 0 y = L^-1 (s.b), mode 1
@@ -207,9 +233,11 @@ extern "C" {
 #define TG_DENSE_ENTRY(SUF, T)                                                                                   \
   int tg_dense_chol_##SUF(const T* data, long long ds, const int* rows, const int* cols, const int* tperm,       \
                           const int* diag_pos, int nnz, int n, T* L, T* s, int* level, T* logdet, int* flags,    \
-                          int B, void* stream) {                                                                 \
-    return launch_chol<T>(data, ds, rows, cols, tperm, diag_pos, nnz, n, L, s, level, logdet, flags, B, stream); \
+                          T* work, int cs, int B, void* stream) {                                                \
+    return launch_chol<T>(data, ds, rows, cols, tperm, diag_pos, nnz, n, L, s, level, logdet, flags, work, cs,   \
+                          B, stream);                                                                            \
   }                                                                                                              \
+  int tg_dense_chol_fit_##SUF(int cs, int* count) { return chol_fit<T>(cs, count); }                           \
   int tg_dense_trsv_##SUF(const T* L, const T* s, const T* b, T* out, int n, int k, int mode, int B,            \
                           void* stream) {                                                                        \
     return launch_trsv<T>(L, s, b, out, n, k, mode, B, stream);                                                  \

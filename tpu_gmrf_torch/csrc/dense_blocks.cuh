@@ -1,8 +1,9 @@
-// Building blocks of the dense kernels K9-K12 (csrc/dense.cu, csrc/banded.cu):
+// Building blocks of the dense kernels K10-K12 (csrc/dense.cu, csrc/banded.cu):
 // a batched blocked right-looking Cholesky of tall panels, spread over
-// (chain, tile) thread blocks, and block-level triangular solves of one
-// vector. The tiled block product (`gemm_tile`, `block_gemm`), `Eps` and
-// `set_smem` are shared with K6/K8 (csrc/supernodal.cu).
+// (chain, tile) thread blocks (K11's rescue of the chains that broke down),
+// and block-level triangular solves of one vector (K10). The tiled block
+// product (`gemm_tile`, `block_gemm`), `Eps` and `set_smem` are shared with
+// K6/K8 (csrc/supernodal.cu).
 //
 // Layout. Chain b's matrix starts at A + b * stride, row-major with leading
 // dimension ld. A panel is H x W (H >= W): its top W x W part is factored
@@ -273,7 +274,7 @@ inline int take_failed(const int* within, int* fail, int* out, int* count, int B
 }
 
 // Whether any chain has fail[b] set: copies the flags to the host and waits
-// for the stream (the rescue paths are rare and decided on the host).
+// for the stream (K11's rescue path is rare and decided on the host).
 inline int any_failed(const int* fail, int B, cudaStream_t st, bool* any) {
   int* host = new int[B];
   int rc = (int)cudaMemcpyAsync(host, fail, sizeof(int) * B, cudaMemcpyDeviceToHost, st);

@@ -156,7 +156,7 @@ __global__ void __launch_bounds__(kThr, 1)
                            tj, q, tj, false, sm);
         }
       };
-      chol_rows(C, ns, Dinv + (long long)d * nt * kTT, bad, rank, cs, sm, next, solve_step);
+      chol_rows(C, ns, Dinv + (long long)d * nt * kTT, bad, rank, cs, sm, sm, next, solve_step);
     }
   }
   for (int d = P - 1; d >= 0; --d) {

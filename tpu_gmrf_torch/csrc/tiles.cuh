@@ -1,8 +1,9 @@
 // The device routines of the cluster kernels: products, triangular solves
 // and tile Cholesky factors spread over the blocks of a thread-block cluster
 // (K11's factorization and K12's block entry `bt_trsv_blocks` in
-// csrc/banded.cu, K18 `spike_reduced` in csrc/spike.cu), and the cluster
-// launch.
+// csrc/banded.cu, K18 `spike_reduced` in csrc/spike.cu, K9 `dense_chol` in
+// csrc/dense.cu, K16 `kl_columns`' tile and cluster paths in csrc/kl.cu),
+// and the cluster launch.
 //
 // Every operand lives in global memory (at the SPIKE shapes a step's blocks
 // sit in L2); a block stages operand tiles in shared memory and keeps its
@@ -21,16 +22,18 @@
 //   factor_tile  the Cholesky of a diagonal tile of up to 64 rows and its
 //       inverse, by blocks of 16 columns, each block's 16 pivots passed
 //       between the lanes of one warp; optionally after subtracting U U^T
-//       (sub_gram), and in a wider type than the tile's (K11 factors its
-//       float32 tiles in float64).
+//       (sub_gram), and in a wider type than the tile's (K9, K11 and K16
+//       factor their float32 tiles in float64). Its core, factor_tile_smem,
+//       works on a tile already in shared memory (K16's tile path).
 //   trsm_rows  X <- L^-1 X or L^-T X with L's row tiles spread over the
 //       blocks of a cluster (tile j belongs to block j % cluster size): the
 //       owner of tile j multiplies it by its inverted diagonal tile, a
 //       cluster barrier publishes it, and every block subtracts its
 //       contribution from its own tiles (right-looking).
 //   chol_rows  the Cholesky of an n x n matrix over a cluster: diagonal tile
-//       by block 0, the panel below it and the trailing update as tiles
-//       spread over the cluster, three cluster barriers per tile column;
+//       by block 0 (in a wider type where asked), the panel below it and the
+//       trailing update as tiles spread over the cluster, three cluster
+//       barriers per tile column;
 //       while block 0 factors a diagonal tile, the other blocks may run a
 //       side task that needs the factor's finished rows (K18 solves with it).
 // A cluster barrier is preceded by __threadfence(), and operands are loaded
@@ -476,32 +479,24 @@ __device__ void sub_gram(double* S, int t, const T* U, long long ldu, int du, do
   __syncthreads();
 }
 
-// Cholesky of the t x t diagonal tile at D (lower triangle read; the factor
-// written back with zeros above the diagonal) and its inverse into Dinv,
-// both computed in W (the type of the shared memory sm: T, or float64 for a
-// float32 tile whose inverse must not bias what it multiplies);
-// *bad set for a pivot l = sqrt(p) that is not finite and above tiny. With
-// du > 0 the tile is first updated, D - U U^T, U t x du at U (sub_gram, so
-// W must be float64; its staging follows the tile's shared memory). By
-// blocks of 16 columns: the diagonal block by warp 0, a lane per row, its
-// pivots passed by shuffles (1 / sqrt from rsqrt_fast; the lane of the next
-// pivot forms it from its own row, so one shuffle per pivot is on the
-// dependent chain); the rows below it by a thread each; then the next
-// diagonal block's update, by a thread per entry. The rest of that block
-// column's update and the inverse's block row run on warps 1-7 while warp 0
-// factors the next diagonal block (the pivots are the tile's critical path).
-template <typename T, typename W>
-__device__ void factor_tile(T* D, long long ld, int t, T* Dinv, int* bad, W* sm, T tiny = T(0),
-                            const T* U = nullptr, long long ldu = 0, int du = 0) {
-  W* S = sm;
-  W* X = sm + kT * kLdS;
-  W* rinv = X + kT * kLdS;
+// The Cholesky of the lower tile S (t x t, row stride kLdS, W in shared
+// memory; the identity beyond row t, zeros above the diagonal) in place, and
+// its inverse into X (the blocks on and below the diagonal; what is above
+// them is left as it was); rinv gets the reciprocals of the pivots; *bad set
+// for a pivot l = sqrt(p) that is not finite and above tiny. By blocks of
+// 16 columns: the diagonal block by warp 0, a lane per row, its pivots
+// passed by shuffles (1 / sqrt from rsqrt_fast; the lane of the next pivot
+// forms it from its own row, so one shuffle per pivot is on the dependent
+// chain); the rows below it by a thread each; then the next diagonal
+// block's update, by a thread per entry. The rest of that block column's
+// update and the inverse's block row run on warps 1-7 while warp 0 factors
+// the next diagonal block (the pivots are the tile's critical path).
+// during() runs on every thread while warp 1 inverts the last diagonal
+// block (the factor is final then). Every thread of the block calls it; it
+// ends with a block barrier.
+template <typename W, typename During>
+__device__ void factor_tile_smem(W* S, W* X, W* rinv, int t, int* bad, W tiny, During during) {
   const int tid = threadIdx.x, lane = tid & 31;
-  if (tid < kT) rinv[tid] = W(1);  // the identity beyond t
-  load_tile(D, ld, t, S);
-  if constexpr (sizeof(W) == 8) {
-    if (du > 0) sub_gram(S, t, U, ldu, du, rinv + kT);
-  }
   const int nb = (t + 15) / 16, warp = tid >> 5;
   for (int b = 0; b < nb; ++b) {
     const int b0 = 16 * b;
@@ -576,16 +571,41 @@ __device__ void factor_tile(T* D, long long ld, int t, T* Dinv, int* bad, W* sm,
       __syncthreads();
     }
   }
-  // the factor back, while warp 1 inverts the last diagonal block; then the last block row of the inverse
+  // during(), while warp 1 inverts the last diagonal block; then the last block row of the inverse
   if (warp == 1) invert_diag16(S, rinv, X, 16 * (nb - 1), lane);
-#pragma unroll
-  for (int u = 0; u < kTT / kThr; ++u) {
-    const int e = tid + u * kThr, r = e / kT, c = e % kT;
-    if (r < t && c < t) D[r * ld + c] = c <= r ? T(S[r * kLdS + c]) : T(0);
-  }
+  during();
   __syncthreads();
   invert_row16(S, X, nb - 1, tid, kThr, [] { __syncthreads(); });
   __syncthreads();
+}
+
+// Cholesky of the t x t diagonal tile at D (lower triangle read; the factor
+// written back with zeros above the diagonal) and its inverse into Dinv,
+// both computed in W (the type of the shared memory sm: T, or float64 for a
+// float32 tile whose inverse must not bias what it multiplies), by
+// factor_tile_smem; *bad set for a pivot l = sqrt(p) that is not finite and
+// above tiny. With du > 0 the tile is first updated, D - U U^T, U t x du at
+// U (sub_gram, so W must be float64; its staging follows the tile's shared
+// memory).
+template <typename T, typename W>
+__device__ void factor_tile(T* D, long long ld, int t, T* Dinv, int* bad, W* sm, T tiny = T(0),
+                            const T* U = nullptr, long long ldu = 0, int du = 0) {
+  W* S = sm;
+  W* X = sm + kT * kLdS;
+  W* rinv = X + kT * kLdS;
+  const int tid = threadIdx.x;
+  if (tid < kT) rinv[tid] = W(1);  // the identity beyond t
+  load_tile(D, ld, t, S);
+  if constexpr (sizeof(W) == 8) {
+    if (du > 0) sub_gram(S, t, U, ldu, du, rinv + kT);
+  }
+  factor_tile_smem(S, X, rinv, t, bad, W(tiny), [&] {  // the factor back
+#pragma unroll
+    for (int u = 0; u < kTT / kThr; ++u) {
+      const int e = tid + u * kThr, r = e / kT, c = e % kT;
+      if (r < t && c < t) D[r * ld + c] = c <= r ? T(S[r * kLdS + c]) : T(0);
+    }
+  });
   store_lower(X, t, Dinv);
   __syncthreads();
 }
@@ -666,19 +686,21 @@ __device__ void symmetrize(T* A, int n, int rank, int cs, T* sm) {
 // Lower Cholesky in place of the n x n matrix A (row stride n; lower
 // triangle read, upper set to zero) over the cluster, with its inverted
 // diagonal tiles into Dinv; *bad set for a pivot that is not finite and
-// positive. Block 0 factors the diagonal tiles; with `with_side`, while it
+// positive. Block 0 factors the diagonal tiles, in W (wsm: the same shared
+// memory as sm, seen as W; float64 for a float32 matrix whose inverted tiles
+// must not bias the pivots that follow); with `with_side`, while it
 // factors tile j + 1 the other blocks (all of it in a cluster of one) run
 // side(j, worker, workers), which may read the factor's tile rows 0..j and
 // their inverted diagonal tiles; side(nt - 1, ...) runs after the last
 // tile. Ends with a cluster barrier.
-template <typename T, typename Side>
-__device__ void chol_rows(T* A, int n, T* Dinv, int* bad, int rank, int cs, T* sm, bool with_side, Side side) {
+template <typename T, typename W, typename Side>
+__device__ void chol_rows(T* A, int n, T* Dinv, int* bad, int rank, int cs, T* sm, W* wsm, bool with_side, Side side) {
   const int nt = ntiles(n);
   const bool worker = with_side && (cs == 1 || rank != 0);
   const int wid = cs == 1 ? 0 : rank - 1, workers = cs == 1 ? 1 : cs - 1;
   for (int j = 0; j < nt; ++j) {
     const int j0 = j * kT, tj = min(kT, n - j0);
-    if (rank == 0) factor_tile(A + (long long)j0 * n + j0, n, tj, Dinv + (long long)j * kTT, bad, sm);
+    if (rank == 0) factor_tile(A + (long long)j0 * n + j0, n, tj, Dinv + (long long)j * kTT, bad, wsm);
     if (worker && j > 0) side(j - 1, wid, workers);
     csync();
     for (int i = j + 1 + rank; i < nt; i += cs) {  // the panel: A_ij <- A_ij L_jj^-T
@@ -782,6 +804,26 @@ int max_clusters(void (*kernel)(KArgs...), dim3 grid, int cs, size_t smem, int* 
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   return cluster_config(kernel, grid, cs, smem, nullptr, &cfg, &attr, count);
+}
+
+// How many clusters of cs blocks of `kernel` with `smem` bytes the card
+// holds at once (0 for a cluster size it refuses), for the host's choice of
+// cluster size (kernels/banded.py factor_cluster).
+template <typename... KArgs>
+int cluster_fit(void (*kernel)(KArgs...), int cs, size_t smem, int* count) {
+  if (max_clusters(kernel, dim3(cs), cs, smem, count)) {
+    cudaGetLastError();
+    *count = 0;
+  }
+  return 0;
+}
+
+// Shared memory of a kernel on chol_rows and trsm_rows: the products'
+// staging (T) or a tile factor in float64, whichever is larger.
+template <typename T>
+size_t chol_rows_smem() {
+  const size_t prod = sizeof(T) * kSmemValues, tile = sizeof(double) * (2 * kT * kLdS + kT);
+  return prod > tile ? prod : tile;
 }
 
 // Launch `kernel` in clusters of cs blocks; cudaErrorInvalidConfiguration

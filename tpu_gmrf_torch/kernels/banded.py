@@ -71,10 +71,11 @@ TILE = 64  # kT of csrc/tiles.cuh: the row tile of the factorization and of the 
 MAX_CLUSTER = 16  # the largest (non-portable) cluster of the card
 
 
-def factor_cluster(s: int, B: int, fit) -> int:
-    """Blocks per cluster of K11's factorization of B chains with blocks of
-    s rows: at most 2⌈s/64⌉ (the row tiles below a column tile, 1 for a
-    single tile) and 16; of those, the size that runs the chains in the
+def factor_cluster(s: int, B: int, fit, name: str = "bt_factor") -> int:
+    """Blocks per cluster of a factorization of B matrices (chains, or K16's
+    columns) of s rows, each on a cluster of its own, K9's, K11's and K16's
+    rule: at most 2⌈s/64⌉ (the row tiles below a column tile, 1 for a
+    single tile) and 16; of those, the size that runs the matrices in the
     fewest waves of clusters, the largest among equals. ``fit(cs)`` is how
     many clusters of cs blocks the card holds at once (0: refused)."""
     nt = -(-s // TILE)
@@ -84,24 +85,25 @@ def factor_cluster(s: int, B: int, fit) -> int:
         if held > 0 and (best is None or -(-B // held) < best[0]):
             best = (-(-B // held), cs)
     if best is None:
-        raise RuntimeError(f"bt_factor: the card holds no cluster of the factorization at s={s}")
+        raise RuntimeError(f"{name}: the card holds no cluster of the factorization at {s} rows")
     return best[1]
 
 
 _FIT: dict = {}
 
 
-def _cluster(s: int, B: int, dtype) -> int:
-    """`factor_cluster` on this card, its cluster counts queried once per size and type."""
+def _cluster(s: int, B: int, dtype, entry: str = "tg_bt_factor_fit", name: str = "bt_factor") -> int:
+    """`factor_cluster` on this card for the kernel whose cluster counts the C
+    entry `entry` gives, queried once per entry, size and type."""
     def fit(cs):
-        key = (dtype, cs)
+        key = (entry, dtype, cs)
         if key not in _FIT:
             held = ctypes.c_int(0)
-            build.check(_fn("tg_bt_factor_fit", dtype)(cs, ctypes.byref(held)), "bt_factor")
+            build.check(_fn(entry, dtype)(cs, ctypes.byref(held)), name)
             _FIT[key] = held.value
         return _FIT[key]
 
-    return factor_cluster(s, B, fit)
+    return factor_cluster(s, B, fit, name)
 
 
 class BandedTables:

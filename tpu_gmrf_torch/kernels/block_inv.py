@@ -21,11 +21,11 @@ import numpy as np
 import torch
 
 from . import build
-from .kl import SMEM_OPTIN
 from .tridiag import _fn, _on_cuda, _stream
 
 __all__ = ["BlockSets", "block_inv", "block_inv_plain", "block_inv_smem_max"]
 
+SMEM_OPTIN = 232448  # bytes of shared memory one block may use on an H100 (227 KB, opt-in)
 _STATIC_SMEM = 8 * 32 + 4 * 32 + 64  # the kernel's static shared memory (pivot search)
 
 

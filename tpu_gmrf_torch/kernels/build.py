@@ -50,8 +50,11 @@ _SIGNATURES = {
     "tg_sn_trsv": [_P, _L, _P, _P, _P, _I, _I, _I, _I, _P, _L, _I, _P, _L, _L, _I, _I, _P, _P],
     # vals, vstride, sig, sstride, panel_idx, schur_idx, P, W, M, dummy, work, B, stream
     "tg_sn_takahashi": [_P, _L, _P, _L, _P, _P, _I, _I, _I, _I, _P, _I, _P],
-    # data, dstride, rows, cols, tperm, diag_pos, nnz, n, L, s, level, logdet, flags, B, stream
-    "tg_dense_chol": [_P, _L, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _P],
+    # data, dstride, rows, cols, tperm, diag_pos, nnz, n, L, s, level, logdet, flags (3 per chain),
+    # work (inverted diagonal tiles), cluster size, B, stream
+    "tg_dense_chol": [_P, _L, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    # cluster size, out: how many such clusters of K9's factorization the card holds
+    "tg_dense_chol_fit": [_I, ctypes.POINTER(_I)],
     # L, s, b, out, n, k, mode, B, stream
     "tg_dense_trsv": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # L, s, X (workspace), rows, cols, m, n, out, B, stream
@@ -79,8 +82,11 @@ _SIGNATURES = {
     "tg_bsr_spmm": [_P, _L, _P, _P, _P, _I, _I, _I, _P, _P, _I, _P],
     # brows, bcols, nblocks, bs, n, g, x, R, per_chain, dblocks, stream
     "tg_bsr_outer": [_P, _P, _I, _I, _I, _P, _P, _I, _I, _P, _P],
-    # theta, entry_pos, count, cap, jitter, out, work (null: shared memory), B, stream
-    "tg_kl_columns": [_P, _P, _P, _I, _D, _P, _P, _I, _P],
+    # theta, entry_pos, count, cap, jitter, out, work and flags (the cluster path; else null), cluster size, B,
+    # stream
+    "tg_kl_columns": [_P, _P, _P, _I, _D, _P, _P, _P, _I, _I, _P],
+    # cluster size, out: how many such clusters of K16's cluster path the card holds
+    "tg_kl_fit": [_I, ctypes.POINTER(_I)],
     # C, n, idx, ptr, out_off, sign, out, goff, gf, gperm, nsets, smax, stream
     "tg_block_inv": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
 }

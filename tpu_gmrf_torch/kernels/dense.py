@@ -5,9 +5,11 @@ K9 densifies B precisions over one symmetric pattern (data (B, nnz)),
 Jacobi-equilibrates them and factors them with the reference's per-chain
 ridge rescue (``tpu_gmrf/solvers/dense.py:102-132``): L (B, n, n) lower,
 s (B, n), the rescue level (B,) int32 (0 none, 1 δ, 2 500δ) and the
-logdet (B,). K10 solves with the factor: mode 0 y = L⁻¹(s∘b), mode 1
-x = s∘(L⁻ᵀb), mode 2 both, for b (B, n, k). K10's second entry,
-`dense_selinv`, gives Σ = Q⁻¹ at chosen entries (``dense.py:74-98``).
+logdet (B,). It is one launch, a thread-block cluster per chain
+(`banded.factor_cluster` sizes it), the rescue decided on the card. K10
+solves with the factor: mode 0 y = L⁻¹(s∘b), mode 1 x = s∘(L⁻ᵀb), mode 2
+both, for b (B, n, k). K10's second entry, `dense_selinv`, gives Σ = Q⁻¹ at
+chosen entries (``dense.py:74-98``).
 
 A CPU tensor takes the plain version (``torch.linalg``); a CUDA tensor
 launches the kernel or raises. ``<wrapper>.launches`` counts launches.
@@ -19,6 +21,7 @@ import numpy as np
 import torch
 
 from . import build
+from .banded import TILE, _cluster
 from .tridiag import SOLVE_BOTH, SOLVE_L, SOLVE_LT, _fn, _on_cuda, _stream
 
 __all__ = ["DenseTables", "dense_chol", "dense_chol_plain", "dense_trsv", "dense_trsv_plain", "dense_selinv",
@@ -124,17 +127,21 @@ def dense_chol(data: torch.Tensor, tables: DenseTables):
         return dense_chol_plain(data, tables)
     t = tables.on(data.device)
     B, n = data.shape[0], tables.n
+    if B > 65535:
+        raise ValueError(f"dense_chol: {B} chains exceed one launch (65535)")
     L = data.new_empty(B, n, n)
     s = data.new_empty(B, n)
     logdet = data.new_empty(B)
     level = torch.empty(B, dtype=torch.int32, device=data.device)
-    flags = torch.empty(2 * B, dtype=torch.int32, device=data.device)
+    flags = torch.empty(3 * B, dtype=torch.int32, device=data.device)  # a breakdown flag per chain and attempt
+    work = data.new_empty(B, -(-n // TILE) * TILE * TILE)  # each chain's inverted diagonal tiles
+    cs = _cluster(n, B, data.dtype, "tg_dense_chol_fit", "dense_chol")
     code = _fn("tg_dense_chol", data.dtype)(
         data.data_ptr(), data.shape[1], t["rows"].data_ptr(), t["cols"].data_ptr(), t["tperm"].data_ptr(),
         t["diag"].data_ptr(), tables.nnz, n, L.data_ptr(), s.data_ptr(), level.data_ptr(), logdet.data_ptr(),
-        flags.data_ptr(), B, _stream(data),
+        flags.data_ptr(), work.data_ptr(), cs, B, _stream(data),
     )
-    build.check(code, "dense_chol", f" at n={n} B={B} {data.dtype}")
+    build.check(code, "dense_chol", f" at n={n} B={B} cluster={cs} {data.dtype}")
     dense_chol.launches += 1
     return L, s, level, logdet
 

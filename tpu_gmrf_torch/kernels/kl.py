@@ -9,9 +9,11 @@ the front). A column whose Cholesky breaks down is NaN throughout.
 
 A CPU tensor takes the plain version (a right-looking batched Cholesky and a
 column-oriented back-solve over the padded bucket); a CUDA tensor launches
-the kernel or raises. Both round every operation once, in the same order, so
-they agree to the bit. ``kl_columns.launches`` counts launches. Forward
-only: Θ that requires a gradient is refused.
+the kernel or raises. The kernel's warp path (cap ≤ 32) rounds every
+operation once, in the plain version's order, so the two agree to the bit;
+its tile and cluster paths (`kl_path`) factor by tiles of 64 and round in
+another order. ``kl_columns.launches`` counts launches. Forward only: Θ
+that requires a gradient is refused.
 """
 
 from __future__ import annotations
@@ -19,20 +21,17 @@ from __future__ import annotations
 import torch
 
 from . import build
+from .banded import TILE, _cluster
 from .tridiag import _fn, _on_cuda, _stream
 
-__all__ = ["kl_columns", "kl_columns_plain", "kl_path", "SMEM_OPTIN"]
-
-SMEM_OPTIN = 232448  # bytes of shared memory one block may use on an H100 (227 KB, opt-in)
+__all__ = ["kl_columns", "kl_columns_plain", "kl_path"]
 
 
-def kl_path(cap: int, dtype: torch.dtype) -> str:
-    """"warp" (cap ≤ 32: one warp per column), "shared" (one block per column,
-    its matrix in shared memory) or "global" (the same in a workspace)."""
-    if cap <= 32:
-        return "warp"
-    el = torch.finfo(dtype).bits // 8
-    return "shared" if el * (cap * (cap + 1) + 2 * cap) <= SMEM_OPTIN else "global"
+def kl_path(cap: int) -> str:
+    """"warp" (cap ≤ 32: one warp per column), "tile" (cap ≤ 128: one block
+    per column, its tiles of 64 in shared memory) or "cluster" (a cluster of
+    blocks per column on a workspace; `banded.factor_cluster` sizes it)."""
+    return "warp" if cap <= 32 else "tile" if cap <= 2 * TILE else "cluster"
 
 
 def _check(theta, count, entry_pos, out):
@@ -90,13 +89,22 @@ def kl_columns(theta: torch.Tensor, count: torch.Tensor, entry_pos: torch.Tensor
         if t.device != theta.device or t.dtype != torch.int32 or not t.is_contiguous():
             raise ValueError("kl_columns: count/entry_pos must be contiguous int32 on theta's device")
     B, cap = theta.shape[:2]
-    path = kl_path(cap, theta.dtype)
-    work = theta.new_empty(B, cap * (cap + 1) + 2 * cap) if path == "global" else None
+    path = kl_path(cap)
+    work = flags = None
+    cs = 1
+    if path == "cluster":
+        if B > 65535:
+            raise ValueError(f"kl_columns: {B} columns of cap {cap} exceed one launch of the cluster path (65535)")
+        nt = -(-cap // TILE)
+        work = theta.new_empty(B, cap * cap + nt * TILE * TILE + cap)  # each column's matrix, inverted tiles, x
+        flags = torch.empty(B, dtype=torch.int32, device=theta.device)
+        cs = _cluster(cap, B, theta.dtype, "tg_kl_fit", "kl_columns")
     code = _fn("tg_kl_columns", theta.dtype)(
         theta.data_ptr(), entry_pos.data_ptr(), count.data_ptr(), cap, float(jitter), out.data_ptr(),
-        None if work is None else work.data_ptr(), B, _stream(theta),
+        None if work is None else work.data_ptr(), None if flags is None else flags.data_ptr(), cs, B,
+        _stream(theta),
     )
-    build.check(code, "kl_columns", f" at B={B} cap={cap} {theta.dtype}, {path} path")
+    build.check(code, "kl_columns", f" at B={B} cap={cap} {theta.dtype}, {path} path, cluster={cs}")
     kl_columns.launches += 1
     return out
 
