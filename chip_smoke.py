@@ -20,7 +20,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
 3b. K5-K8 against their plain versions on the card at the spatial shapes
    (Matérn α=2 on the 63×63 grid, n=5741, B=4 chains: the prior at τ=1,
    range=0.25 and the posterior with a random positive diagonal H), in
-   float64 and float32, over the whole supernodal schedule;
+   float64 and float32, over the whole supernodal schedule; K8's two
+   entries each on its own (sn_takahashi_prep's C and A; sn_takahashi's
+   sweep on the kernel's C and A), then the whole Σ, with the library
+   yardstick torch.cholesky_inverse of the densified factor;
 3c. K9-K10 and dense_selinv (the dense backend, g=16 posterior, n=450,
    B=8; K9 also through its rescue on the card, three chains that need δ,
    500δ and break down, equal levels required; at B=1, n=900 and n=1000,
@@ -30,7 +33,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    with an indefinite block, equal boosts required; K12 with its time split
    into the inversion of the blocks and the sweeps, at k = 1, 8, 9 and 65
    right-hand sides, and in modes 0, 1 and 2 on the s=512, the s=496 and
-   the forced-rescue factors) against their plain versions and against the
+   the forced-rescue factors; K8's two entries and the whole banded
+   Takahashi sweep) against their plain versions and against the
    library call, where one computes the same function or its blocks (K11:
    cholesky_ex of the K blocks and solve_triangular for the M_k; K12:
    solve_triangular both ways on each block), in float64 and float32;
@@ -194,12 +198,15 @@ SN_REPS = 5  # timed repetitions of a whole supernodal schedule
 # scaled condition far above 1/eps(f32), which amplifies that rounding:
 # on the H100, factor values 1.2e-4 (n=5741) and 6.2e-4 (n=14058) normwise,
 # Σ 1.8e-4 and 1.2e-3, solves below 1e-5. K5 sums at most a few dozen
-# terms, and fct_init is a few products per entry: 1e-5.
+# terms, and fct_init is a few products per entry: 1e-5. K8's first entry
+# (C and A, formed in float64 on the card and in the working type by the
+# plain version) is held to K8's limits, and K8 itself runs on the kernel's
+# C and A.
 SN_TOL = {
     torch.float64: {"gather_segsum": 1e-10, "fct_init": 1e-10, "sn_panel": 1e-10, "logdet": 1e-10,
-                    "sn_trsv": 1e-10, "sn_takahashi": 1e-10},
+                    "sn_trsv": 1e-10, "sn_takahashi_prep": 1e-10, "sn_takahashi": 1e-10},
     torch.float32: {"gather_segsum": 1e-5, "fct_init": 1e-5, "sn_panel": 1e-3, "logdet": 1e-4,
-                    "sn_trsv": 1e-4, "sn_takahashi": 5e-3},
+                    "sn_trsv": 1e-4, "sn_takahashi_prep": 5e-3, "sn_takahashi": 5e-3},
 }
 # K9-K12 against their plain versions on the same inputs (phase 3c).
 # float64: exact up to rounding order, held to 1e-12. float32: the limits
@@ -251,6 +258,7 @@ SOURCES = {
     "fct_init": ("tpu_gmrf_torch/csrc/segsum.cu", "tpu_gmrf/solvers/supernodal.py:931"),
     "sn_panel": ("tpu_gmrf_torch/csrc/supernodal.cu", "tpu_gmrf/solvers/supernodal.py:907"),
     "sn_trsv": ("tpu_gmrf_torch/csrc/supernodal.cu", "tpu_gmrf/solvers/supernodal.py:1171"),
+    "sn_takahashi_prep": ("tpu_gmrf_torch/csrc/supernodal.cu", "tpu_gmrf/solvers/supernodal.py:1004"),
     "sn_takahashi": ("tpu_gmrf_torch/csrc/supernodal.cu", "tpu_gmrf/solvers/supernodal.py:1000"),
     "dense_chol": ("tpu_gmrf_torch/csrc/dense.cu", "tpu_gmrf/solvers/dense.py:102"),
     "dense_trsv": ("tpu_gmrf_torch/csrc/dense.cu", "tpu_gmrf/solvers/dense.py:47"),
@@ -269,11 +277,11 @@ SOURCES = {
     "spike_reduced": ("tpu_gmrf_torch/csrc/spike.cu", "tpu_gmrf/parallel/pbtridiag.py:100"),
 }
 FLAGSHIP_KERNELS = ("tridiag_factor", "tridiag_solve", "tridiag_selinv", "csr_spmv", "gather_segsum")
-SPATIAL_KERNELS = ("csr_spmv", "gather_segsum", "fct_init", "sn_panel", "sn_trsv", "sn_takahashi")
+SPATIAL_KERNELS = ("csr_spmv", "gather_segsum", "fct_init", "sn_panel", "sn_trsv", "sn_takahashi_prep", "sn_takahashi")
 # The NUTS paths factor and differentiate the supernodal prior (K5, K6, K8)
 # but never solve with it, so K7 is not on them; the inner solver is K9/K10
 # at g=16 and K11/K12 at n=5741.
-SPATIAL_NUTS_KERNELS = ("csr_spmv", "gather_segsum", "fct_init", "sn_panel", "sn_takahashi")
+SPATIAL_NUTS_KERNELS = ("csr_spmv", "gather_segsum", "fct_init", "sn_panel", "sn_takahashi_prep", "sn_takahashi")
 NUTS_G16_KERNELS = SPATIAL_NUTS_KERNELS + ("dense_chol", "dense_trsv")
 NUTS_5741_KERNELS = SPATIAL_NUTS_KERNELS + ("bt_factor", "bt_trsv")
 # The matrix-free paths (phases 12-14).
@@ -289,7 +297,7 @@ RBMC_KERNELS = ("csr_spmv", "sn_trsv", "gather_segsum", "sn_multiply", "bt_facto
 # at n=900 and the supernodal one at n=10,000 (auto). Phase 16: K17 and K5's signed sums, the dense backend
 # (n ≤ 1000, auto) and K4's quadratic form in logpdf.
 KL_KERNELS = ("kl_columns", "gather_segsum", "csr_spmv", "dense_chol", "dense_trsv", "fct_init", "sn_panel",
-              "sn_trsv", "sn_takahashi")
+              "sn_trsv", "sn_takahashi_prep", "sn_takahashi")
 GLASSO_KERNELS = ("block_inv", "gather_segsum", "dense_chol", "csr_spmv")
 
 # Phases 12-14. bench_spmv: 64 chained multiplies, 5 timed repetitions, 8
@@ -585,11 +593,13 @@ def with_plain_steps(f):
 
 def sn_costs(levels, B: int, el: int, nnz: int, nnzL: int, n: int) -> dict:
     """(operations, bytes) of a whole factorization (K6), solve (K7) and
-    Takahashi sweep (K8) over the schedule's class batches, from each
-    supernode's live width ns and live row count m (Cholesky ns³/3, panel
-    solve m·ns², update m²·ns; the K5 reductions between levels, a few
-    percent of the work, are not counted) and the bytes of the values and
-    the class tables the steps read."""
+    Takahashi sweep (K8's first entry and K8) over the schedule's class
+    batches, from each supernode's live width ns and live row count m
+    (Cholesky ns³/3, panel solve m·ns², update m²·ns; K8's first entry: the
+    triangular inverse ns³/3, C = Lb·Ld⁻¹ m·ns², A = Ld⁻ᵀLd⁻¹ (lower) ns³/3;
+    K8: Σ_RJ 2m²·ns, Σ_JJ (lower) m·ns²; the K5 reductions between levels, a
+    few percent of the work, are not counted) and the bytes of the values
+    and the class tables the steps read."""
     ns_all, m_all, tabs = [], [], {k: 0 for k in ("panel", "cols", "rows", "schur")}
     for lv in levels:
         for c in lv.classes:
@@ -604,11 +614,48 @@ def sn_costs(levels, B: int, el: int, nnz: int, nnzL: int, n: int) -> dict:
                      el * B * (nnz + nnzL + 1) + tabs["panel"] + tabs["cols"]),
         "sn_trsv": (B * float(np.sum(2 * ns**2 + 4 * m * ns)),
                     el * B * (nnzL + 2 * n) + tabs["panel"] + tabs["cols"] + tabs["rows"]),
-        "sn_takahashi": (B * float(np.sum(2 * ns**3 / 3 + 2 * m * ns**2 + 2 * m**2 * ns)),
+        "sn_takahashi_prep": (B * float(np.sum(2 * ns**3 / 3 + m * ns**2)), el * B * 2 * (nnzL + 1) + tabs["panel"]),
+        "sn_takahashi": (B * float(np.sum(2 * m**2 * ns + m * ns**2)),
                          el * B * 2 * (nnzL + 1) + tabs["panel"] + tabs["schur"]),
         "sn_multiply": (B * float(np.sum(ns**2 + 2 * m * ns)),
                         el * B * (nnzL + 2 * n) + tabs["panel"] + tabs["cols"]),
     }
+
+
+def k8_prep(vals, width: int, preps, fn):
+    """C and A, in rows of `width` laid out like Σ, by K8's first entry `fn` (kernel or plain) over `preps`."""
+    pre = vals.new_zeros(vals.shape[0], width)
+    for c in preps:
+        fn(vals, pre, c)
+    return pre
+
+
+def k8_sweep(pre, classes, fn):
+    """Σ by K8 `fn` (kernel or plain) from C and A in `pre`, over the class batches `classes`, the last first."""
+    sig = torch.zeros_like(pre)
+    for c in reversed(classes):
+        fn(pre, sig, c)
+    return sig
+
+
+def launch_count(kern, run) -> int:
+    """Kernels that the wrapper `kern` launched on the card in one call of `run`."""
+    before = kern.launches
+    run()
+    return kern.launches - before
+
+
+def k8_library(vals, meta):
+    """K8's library yardstick on the supernodal factor: torch.cholesky_inverse of the densified factor, then
+    the gather of Σ onto L's pattern (the function K8's two entries compute), as a callable."""
+    from tpu_gmrf_torch.solvers import supernodal as sn
+
+    plan = sn._PLAN_CACHE[meta]
+    n, key = plan["n"], torch.as_tensor(np.asarray(plan["entry_key"], np.int64), device=vals.device)
+    hi, lo = key % n, key // n  # position p of vals holds L[hi, lo]
+    L = vals.new_zeros(vals.shape[0], n, n)
+    L[:, hi, lo] = vals[:, :-1]
+    return lambda: torch.cholesky_inverse(L)[:, hi, lo]
 
 
 def check_spatial_kernels(model, dtype, dev):
@@ -683,9 +730,45 @@ def check_spatial_kernels(model, dtype, dev):
             else (None, None)
         check(f"sn_trsv solve [{label}]", dtype, fk.solve(b), fkp.solve(b), "sn_trsv", results, *ms,
               cost=costs["sn_trsv"], shape=shape)
-        ms = (cuda_ms(fk._sigma_vals, SN_REPS, 1), cuda_ms(fkp._sigma_vals, SN_REPS, 1)) if timing else (None, None)
-        check(f"sn_takahashi sigma [{label}]", dtype, fk._sigma_vals(), fkp._sigma_vals(), "sn_takahashi",
-              results, *ms, cost=costs["sn_takahashi"], shape=shape)
+        # K8's first entry and K8, each against its plain version on the same inputs (K8 on the kernel's C
+        # and A), then the whole Σ (prep + sweep) against the plain path and the library yardstick
+        dp = sn._device_plan(fk.meta, dev)
+        classes, width = [c for lv in dp["levels"] for c in lv.classes], fk.vals.shape[1]
+
+        def prep(fn):
+            return k8_prep(fk.vals, width, dp["prep"], fn)
+
+        pre = prep(kernels.sn_takahashi_prep)
+        ms = (cuda_ms(lambda: prep(kernels.sn_takahashi_prep), SN_REPS, 1),
+              cuda_ms(lambda: prep(kernels.sn_takahashi_prep_plain), SN_REPS, 1)) if timing else (None, None)
+        check(f"sn_takahashi_prep C, A [{label}]", dtype, pre, prep(kernels.sn_takahashi_prep_plain),
+              "sn_takahashi_prep", results, *ms, cost=costs["sn_takahashi_prep"], shape=shape,
+              extra=f" ({len(dp['prep'])} calls, one per class shape;"
+                    f" {launch_count(kernels.sn_takahashi_prep, lambda: prep(kernels.sn_takahashi_prep))} launches)")
+
+        def sweep(fn):
+            return k8_sweep(pre, classes, fn)
+
+        ms = (cuda_ms(lambda: sweep(kernels.sn_takahashi), SN_REPS, 1),
+              cuda_ms(lambda: sweep(kernels.sn_takahashi_sweep_plain), SN_REPS, 1)) if timing else (None, None)
+        check(f"sn_takahashi sweep [{label}]", dtype, sweep(kernels.sn_takahashi),
+              sweep(kernels.sn_takahashi_sweep_plain), "sn_takahashi", results, *ms, cost=costs["sn_takahashi"],
+              shape=shape, extra=f" ({len(classes)} calls;"
+                                f" {launch_count(kernels.sn_takahashi, lambda: sweep(kernels.sn_takahashi))} launches)")
+        extra = ""
+        if timing:
+            whole = bound(costs["sn_takahashi_prep"][0] + costs["sn_takahashi"][0],
+                          el * B * 2 * (nnzL + 1) + table_bytes() + sum(c[k].numel() * 4 for c in classes
+                                                                        for k in ("panel", "schur")), dtype)
+            lib = k8_library(fk.vals, fk.meta)
+            lib_err = rel_err((lib(),), (fk._sigma_vals()[:, :-1],))[1]
+            extra = (f" kernel_ms={cuda_ms(fk._sigma_vals, SN_REPS, 1):.3f} plain_ms="
+                     f"{cuda_ms(fkp._sigma_vals, SN_REPS, 1):.3f} library_ms={cuda_ms(lib, 3, 1):.3f} bound_ms="
+                     f"{whole['bound_ms']:.4f} ({whole['bound_by']}) (the whole schedule; library: "
+                     f"torch.cholesky_inverse of the densified factor + the gather onto L's pattern, "
+                     f"{lib_err:.1e} from the kernels' Σ)")
+        check(f"sn_takahashi sigma, prep + sweep [{label}]", dtype, fk._sigma_vals(), fkp._sigma_vals(),
+              "sn_takahashi", {}, extra=extra)
     return results
 
 
@@ -958,19 +1041,34 @@ def check_dense_kernels(dn_model, sp_model, dtype, dev):
         f"{inv_ms:.3f} ms ({B * K * sblk**3 / 3:.3e} flops), gather + sweeps + scatter {trsv_ms - inv_ms:.3f} ms of "
         f"{trsv_ms:.3f}")
     check_bt_trsv_cases(P, t, factors, rows, dtype)
-    # the banded Takahashi sweep: K8 once per block (W = M = s), off the NUTS path; its bound from K8's
-    # own step count per block (ns = s, m = s rows below it, none below the last) and the factor's blocks
-    # read once plus Σ's blocks written once
+    # the banded Takahashi sweep, off the NUTS path: K8's first entry on all K blocks at once (two calls: the
+    # K - 1 blocks with rows below, and the last), then K8 once per block (W = M = s), each against its plain
+    # version, then the whole sweep; bounds from each entry's own step counts per block (ns = s, m = s rows
+    # below it, none below the last) and the factor's blocks read once plus Σ's (and C and A's) written once
     meta = (Q.pattern, None)
-    sweep_flops = B * sum(2 * sblk**3 / 3 + (2 * sblk**3 + 2 * sblk**3 if k < K - 1 else 0) for k in range(K))
-    sweep_bytes = el * B * 2 * (K * sblk * (sblk + 1) // 2 + (K - 1) * sblk * sblk)
-    sweep = bound(sweep_flops, sweep_bytes, dtype)
-    check("sn_takahashi banded sigma", dtype, tb._sigma_vals(P, meta),
-          tb._sigma_vals(P, meta, kernels.sn_takahashi_plain), "sn_takahashi", {},
+    classes, preps = tb._takahashi_classes(meta, dev)
+    vals, width = P.reshape(B, -1), P[0].numel() + 1
+    ms_ = [sblk] * (K - 1) + [0]
+    prep_cost = (B * sum(2 * sblk**3 / 3 + m * sblk**2 for m in ms_),
+                 el * B * 2 * (K * sblk * (sblk + 1) // 2 + (K - 1) * sblk * sblk))
+    sweep_cost = (B * sum(2 * m * m * sblk + m * sblk**2 for m in ms_), prep_cost[1])
+    pre = k8_prep(vals, width, preps, kernels.sn_takahashi_prep)
+    halves = (("sn_takahashi_prep banded C, A", lambda f: k8_prep(vals, width, preps, f), kernels.sn_takahashi_prep,
+               kernels.sn_takahashi_prep_plain, prep_cost),
+              ("sn_takahashi banded sweep", lambda f: k8_sweep(pre, classes, f), kernels.sn_takahashi,
+               kernels.sn_takahashi_sweep_plain, sweep_cost))
+    for label, fn, kern, plain, cost in halves:
+        check(label, dtype, fn(kern), fn(plain), kern.__name__, {},
+              extra=f" kernel_ms={cuda_ms(lambda: fn(kern), 3, 1):.3f} plain_ms={cuda_ms(lambda: fn(plain), 3, 1):.3f}"
+                    f" bound_ms={bound(*cost, dtype)['bound_ms']:.4f} ({launch_count(kern, lambda: fn(kern))} launches)")
+    plain = (kernels.sn_takahashi_prep_plain, kernels.sn_takahashi_sweep_plain)
+    whole = bound(prep_cost[0] + sweep_cost[0], prep_cost[1], dtype)
+    check("sn_takahashi banded sigma, prep + sweep", dtype, tb._sigma_vals(P, meta), tb._sigma_vals(P, meta, plain),
+          "sn_takahashi", {},
           extra=f" kernel_ms={cuda_ms(lambda: tb._sigma_vals(P, meta), 3, 1):.3f} plain_ms="
-                f"{cuda_ms(lambda: tb._sigma_vals(P, meta, kernels.sn_takahashi_plain), 3, 1):.3f} (whole sweep) "
-                f"bound_ms={sweep['bound_ms']:.4f} ({sweep['bound_by']}; {sweep_flops:.3e} flops, "
-                f"{sweep_bytes / 1e6:.1f} MB)")
+                f"{cuda_ms(lambda: tb._sigma_vals(P, meta, plain), 3, 1):.3f} (whole sweep) "
+                f"bound_ms={whole['bound_ms']:.4f} ({whole['bound_by']}; {prep_cost[0] + sweep_cost[0]:.3e} flops, "
+                f"{prep_cost[1] / 1e6:.1f} MB)")
     return results
 
 

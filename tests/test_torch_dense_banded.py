@@ -443,3 +443,25 @@ def test_laplace_marginal_on_dense_and_banded_inner_solvers(g, inner):
     np.testing.assert_allclose(v.detach().numpy(), np.asarray(value), rtol=1e-8)
     np.testing.assert_allclose(torch.stack([tau.grad, rng_.grad], -1).numpy(), np.asarray(grad), rtol=1e-6)
     assert tg.SolverSpec().resolve(tmod.precision(tau=_t(1.0), range=_t(0.3)).pattern).kind == "dense"
+
+
+def test_split_banded_takahashi_matches_reference_blocks(matern10):
+    # K8's plain halves on the banded factor (the prep over all K blocks at once, then K - 1 dependent steps)
+    # against the reference's _sigma_blocks (its batched inverses, then its scan), block by block, and against
+    # the whole step of the kept entry; K = 3 (blocks of 8), rel 1e-10
+    rows, cols, shape, data = matern10
+    jp = JP(rows, cols, shape)
+    sig_d, sig_s = jax.jit(jax.vmap(lambda d: jb.banded_factorize(JSM(d, jp), block=8)._sigma_blocks()))(
+        jnp.asarray(data))
+    f = tg.factorize(SparseMatrix(_t(data), SparsePattern(rows, cols, shape)), tg.SolverSpec(kind="banded", block=8))
+    K, s = f.plan["K"], f.plan["s"]
+    assert K >= 3
+    sig = tb._sigma_vals(f.P, f.meta)
+    blocks = sig[:, :-1].reshape(B, K, 2 * s, s)
+    assert _rel(torch.tril(blocks[:, :, :s]).numpy(), np.tril(np.asarray(sig_d))) <= 1e-10
+    assert _rel(blocks[:, : K - 1, s:].numpy(), np.asarray(sig_s)) <= 1e-10
+    whole = torch.zeros_like(sig)
+    vals = f.P.reshape(B, -1)
+    for c in reversed(tb._takahashi_classes(f.meta, f.P.device)[0]):
+        kernels.sn_takahashi_plain(vals, whole, c)
+    assert _rel(whole.numpy(), sig.numpy()) <= 1e-12

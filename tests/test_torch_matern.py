@@ -119,7 +119,7 @@ def test_matern_precision_matches_reference(mesh10, alpha, bc):
 def test_constrained_matern_raises(mesh10):
     nodes, tris = mesh10
     disc = tdisc.FEMDiscretization(tmesh.TriangleMesh(nodes, tris))
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="queue 1, item 2"):
         tspde.MaternModel(disc, constraint="sumtozero")(tau=_t(1.0), range=_t(0.3))
 
 

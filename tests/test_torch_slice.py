@@ -242,6 +242,49 @@ def test_laplace_marginal_value_and_grad_match_reference():
     np.testing.assert_allclose(rho.grad.numpy(), np.asarray(jgrad)[:, 1], rtol=1e-5)
 
 
+def test_fused_newton_multiply_marginal_matches_reference():
+    # the Newton loop takes Q_p x and xᵀQ_p x at its iterate from one multiply; value rel 1e-7 and
+    # θ-gradient rel 1e-5 against jax.value_and_grad of the reference, as above, at n=20
+    n = 20
+    y = _poisson_y(n, seed=2)
+    tau, rho = _t(_TAUS, requires_grad=True), _t(_RHOS, requires_grad=True)
+    v = tg.laplace_marginal(tg.AR1Model(n), tg.ExponentialFamily("poisson"), y, {"tau": tau, "rho": rho},
+                            options=tg.GAOptions(max_iter=25))
+    v.sum().backward()
+    jv, jgrad = _jax_marginal_fn(n, y, jg.GAOptions(max_iter=25))(jnp.stack([_TAUS, _RHOS], -1))
+    np.testing.assert_allclose(v.detach().numpy(), np.asarray(jv), rtol=1e-7)
+    np.testing.assert_allclose(tau.grad.numpy(), np.asarray(jgrad)[:, 0], rtol=1e-5)
+    np.testing.assert_allclose(rho.grad.numpy(), np.asarray(jgrad)[:, 1], rtol=1e-5)
+
+
+def test_newton_iteration_multiplies_once_at_its_iterate(monkeypatch):
+    # K4 calls of one Newton iteration, by a counting wrapper: h = Q_p μ, one call at the iterate (with the
+    # fused quadratic form: the score's Q_p x and the merit's xᵀQ_p x), then one per line-search candidate.
+    # Taking the two at the iterate apart would be one call more.
+    import importlib
+
+    from tpu_gmrf_torch.sparse import matrix as tsm
+
+    tga = importlib.import_module("tpu_gmrf_torch.inference.gaussian_approximation")  # the module, not the function
+
+    n = 20
+    real, calls = tsm.csr_spmv, []
+
+    def counting(row_ptr, col, data, x, quad=False):
+        calls.append((x.clone(), quad))
+        return real(row_ptr, col, data, x, quad)
+
+    monkeypatch.setattr(tsm, "csr_spmv", counting)
+    monkeypatch.setattr(tga, "csr_spmv", counting)
+    Q = tg.AR1Model(n).precision(_t(_TAUS), _t(_RHOS))
+    x0 = torch.full((len(_TAUS), n), 0.1, dtype=F64)
+    _newton_mode_impl(tg.GAOptions(max_iter=1), Q, torch.zeros(n, dtype=F64),
+                      tg.ExponentialFamily("poisson")(_poisson_y(n)), x0)
+    assert [q for x, q in calls if torch.equal(x, x0)] == [True]
+    candidates = [x for x, q in calls[2:] if q]
+    assert not calls[0][1] and len(candidates) >= 1 and len(calls) == 2 + len(candidates)
+
+
 def test_laplace_marginal_gradient_through_likelihood_parameter():
     # a θ entry that reaches only the likelihood: the IFT cotangent path into
     # the likelihood's own tensors

@@ -314,3 +314,74 @@ def test_fct_init_matches_reference():
         np.testing.assert_allclose(s[b].numpy(), np.asarray(rs), rtol=1e-14)
         np.testing.assert_allclose(nls[b].numpy(), -np.log(np.asarray(rs)), rtol=1e-14, atol=1e-15)
     assert float(s[1, 3]) == 1.0
+
+
+# ---- K8's two halves (the Σ-free prep, the Σ-dependent sweep) ---------------------------
+
+
+def _live(idx, dummy, W):
+    """(ns, m) of one supernode's panel table (W+M, W): its live columns and rows below."""
+    ns = int((idx[np.arange(W), np.arange(W)] != dummy).sum())
+    return ns, int((idx[W:, 0] != dummy).sum())
+
+
+@pytest.mark.parametrize("chains", [[0], [0, 1, 2]], ids=["B1", "B3"])
+def test_split_takahashi_matches_reference(matern24, chains):
+    # the plain prep over every class shape, then the plain sweep level by level, against the reference's Σ
+    # (selinv_diag, selinv on Q's pattern) and logdet gradient: rel 1e-10, both sides exact up to the rounding
+    # order of LAPACK-class triangular solves and products
+    jp, ref = matern24["pattern"], matern24["ref"]
+    tp = _port_pattern(jp)
+    td = _t(matern24["data"][chains], requires_grad=True)
+    f = tsn.supernodal_factorize(SparseMatrix(td.detach(), tp))
+    assert _rel(f.selinv_diag().numpy(), ref[5][chains]) <= RTOL
+    assert _rel(f.selinv(tp).data.numpy(), ref[6][chains]) <= RTOL
+    tsn.supernodal_factorize(SparseMatrix(td, tp)).logdet().sum().backward()
+    assert _rel(td.grad.numpy(), ref[8][chains]) <= RTOL
+    # the whole step of the kept entry, class batch by class batch, gives the same Σ
+    sig = torch.zeros_like(f.vals)
+    for lv in reversed(tsn._device_plan(f.meta, f.vals.device)["levels"]):
+        for c in lv.classes:
+            kernels.sn_takahashi_plain(f.vals, sig, c)
+    assert _rel(sig.numpy(), f._sigma_vals().numpy()) <= 1e-12
+
+
+def test_takahashi_prep_plain_against_triangular_solves(matern24):
+    # C = Lb Ld⁻¹ and A = Ld⁻ᵀ Ld⁻¹ of every supernode, against torch.linalg.solve_triangular on the gathered
+    # blocks (the other side of the products: rel 1e-10 normwise per supernode)
+    f = tsn.supernodal_factorize(SparseMatrix(_t(matern24["data"][:2]), _port_pattern(matern24["pattern"])))
+    dp = tsn._device_plan(f.meta, f.vals.device)
+    pre = torch.zeros_like(f.vals)
+    for c in dp["prep"]:
+        kernels.sn_takahashi_prep_plain(f.vals, pre, c)
+    seen = 0
+    for c in dp["prep"]:
+        W = c["W"]
+        for idx in c["panel"].long().numpy():
+            ns, m = _live(idx, c["dummy"], W)
+            if ns == 0:
+                continue
+            Ld = torch.tril(f.vals[:, torch.from_numpy(idx[:ns, :ns])])
+            Linv = torch.linalg.solve_triangular(Ld, torch.eye(ns, dtype=F64).expand_as(Ld), upper=False)
+            A = pre[:, torch.from_numpy(idx[:ns, :ns])]
+            assert _rel(torch.tril(A).numpy(), torch.tril(Linv.mT @ Linv).numpy()) <= RTOL
+            if m:
+                Lb = f.vals[:, torch.from_numpy(idx[W:W + m, :ns])]
+                C = torch.linalg.solve_triangular(Ld, Lb, upper=False, left=False)
+                assert _rel(pre[:, torch.from_numpy(idx[W:W + m, :ns])].numpy(), C.numpy()) <= RTOL
+            seen += 1
+    assert seen == tsn._PLAN_CACHE[f.meta]["nsuper"]
+
+
+@pytest.mark.parametrize("W, M, units, want", [
+    (16, 128, 296, (1, 0, 0)),  # a scan level: many supernodes, one block each fills the card
+    (32, 128, 16, (2, 0, 0)),  # few supernodes, tiles that fit a cluster
+    (64, 512, 4, (8, 0, 0)),  # eight Σ_RJ tiles: a cluster of eight
+    (128, 512, 4, (0, 16, 3)),  # a top separator: a block per tile, two launches
+    (512, 512, 4, (0, 64, 36)),  # a banded step
+    (512, 0, 4, (0, 0, 36)),  # no rows below: Σ_JJ = A alone
+    (4, 32, 4, (1, 0, 0)),  # column tiles of 8
+])
+def test_sweep_launch_picks_its_form(W, M, units, want):
+    # K8's launch form from the batch's shape, on a card of 132 SMs
+    assert kernels.supernodal.sweep_launch(W, M, units, 132) == want

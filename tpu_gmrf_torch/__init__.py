@@ -12,7 +12,7 @@ numbers and NumPy arrays go to the default device, ``"cuda"`` unless
 
 from ._device import default_device, set_default_device
 from .constrained import ConstrainedGMRF
-from .fem import MaternModel
+from .fem import FEMDiscretization, MaternModel, MaternSPDE, TriangleMesh, generate_mesh
 from .gmrf import GMRF, logpdf, sample
 from .graphical_lasso import graphical_lasso
 from .inference import GAOptions, gaussian_approximation, laplace_marginal, linear_condition, marginal_loglikelihood
@@ -26,13 +26,20 @@ from .linear_maps import (
     block_tridiag_to_sparse,
 )
 from .models import AR1Model, ARModel, LatentModel
-from .observations import ExponentialFamily
+from .observations import (
+    BinomialObservations,
+    ExponentialFamily,
+    NegativeBinomialObservations,
+    ObservationLikelihood,
+    ObservationModel,
+    PoissonObservations,
+)
 from .parallel import pbtridiag_logdet, pbtridiag_solve, sharded_block_tridiag_solver
 from .samplers import IdentityTransform, LogitTransform, LogTransform, ParamSpec, make_logdensity, run_hmc, run_nuts
 from .solvers import SolverSpec, factorize
 from .solvers.cg import cg_solve
 from .solvers.rbmc import rbmc_var
-from .sparse import SparseMatrix, SparsePattern, from_dense, from_scipy, speye
+from .sparse import SparseMatrix, SparsePattern, from_dense, from_scipy, spdiag, speye
 
 __all__ = [
     "set_default_device",
@@ -53,13 +60,23 @@ __all__ = [
     "from_dense",
     "from_scipy",
     "speye",
+    "spdiag",
     "SolverSpec",
     "factorize",
     "LatentModel",
     "ARModel",
     "AR1Model",
     "MaternModel",
+    "MaternSPDE",
+    "FEMDiscretization",
+    "TriangleMesh",
+    "generate_mesh",
     "ExponentialFamily",
+    "ObservationLikelihood",
+    "ObservationModel",
+    "PoissonObservations",
+    "BinomialObservations",
+    "NegativeBinomialObservations",
     "GAOptions",
     "gaussian_approximation",
     "marginal_loglikelihood",

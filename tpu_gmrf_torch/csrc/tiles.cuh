@@ -46,6 +46,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <mutex>
+
 namespace {
 namespace tgtile {
 
@@ -775,15 +777,56 @@ int invert_diag(const T* L, long long lstride, long long ld, int n, int count, T
   return (int)cudaGetLastError();
 }
 
+// The host's answers per kernel, cached so that a launch asks the runtime
+// nothing it has asked before (cudaFuncSetAttribute and
+// cudaOccupancyMaxActiveClusters cost tens of microseconds of host time each):
+// per (kernel, device) the largest dynamic shared memory opted in so far, and
+// per (kernel, device, cluster size, shared memory) the number of such
+// clusters the card holds. A fixed table under a mutex (the wrapper's ctypes
+// call releases the GIL); a full table stops caching, it does not fail.
+struct FitEntry {
+  const void* fn;
+  int dev, cs;
+  size_t smem;
+  int count;  // -1: only the shared-memory opt-in is recorded
+};
+constexpr int kFitSlots = 256;
+inline FitEntry g_fit[kFitSlots];
+inline int g_fit_used = 0;
+inline std::mutex g_fit_mutex;
+
+// The opt-in of `kernel` to `smem` bytes of dynamic shared memory (never
+// lowered below an earlier launch's), once per kernel, device and size.
+template <typename K>
+int smem_attr_locked(K kernel, int dev, size_t smem) {
+  const void* fn = reinterpret_cast<const void*>(kernel);
+  size_t most = 0;
+  for (int i = 0; i < g_fit_used; ++i)
+    if (g_fit[i].fn == fn && g_fit[i].dev == dev) {
+      if (g_fit[i].smem == smem) return 0;
+      most = g_fit[i].smem > most ? g_fit[i].smem : most;
+    }
+  int rc = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)(smem > most ? smem : most));
+  if (!rc && g_fit_used < kFitSlots) g_fit[g_fit_used++] = FitEntry{fn, dev, 0, smem, -1};
+  return rc;
+}
+
+template <typename K>
+int smem_attr(K kernel, size_t smem) {
+  int dev = 0;
+  int rc = (int)cudaGetDevice(&dev);
+  if (rc) return rc;
+  std::lock_guard<std::mutex> lock(g_fit_mutex);
+  return smem_attr_locked(kernel, dev, smem);
+}
+
 // The launch configuration of `kernel` on `grid` in clusters of cs blocks
 // along x with `smem` bytes of dynamic shared memory, and how many such
-// clusters the card can hold at once (*count).
+// clusters the card can hold at once (*count), asked of the runtime once per
+// kernel, device, cluster size and shared memory.
 template <typename... KArgs>
 int cluster_config(void (*kernel)(KArgs...), dim3 grid, int cs, size_t smem, cudaStream_t st,
                    cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, int* count) {
-  int rc = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (!rc && cs > 8) rc = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  if (rc) return rc;
   *cfg = cudaLaunchConfig_t{};
   cfg->gridDim = grid;
   cfg->blockDim = dim3(kThr);
@@ -796,7 +839,22 @@ int cluster_config(void (*kernel)(KArgs...), dim3 grid, int cs, size_t smem, cud
   cfg->attrs = attr;
   cfg->numAttrs = 1;
   *count = 0;
-  return (int)cudaOccupancyMaxActiveClusters(count, kernel, cfg);
+  int dev = 0;
+  int rc = (int)cudaGetDevice(&dev);
+  if (rc) return rc;
+  const void* fn = reinterpret_cast<const void*>(kernel);
+  std::lock_guard<std::mutex> lock(g_fit_mutex);
+  for (int i = 0; i < g_fit_used; ++i)
+    if (g_fit[i].fn == fn && g_fit[i].dev == dev && g_fit[i].cs == cs && g_fit[i].smem == smem && g_fit[i].count >= 0) {
+      *count = g_fit[i].count;
+      return 0;
+    }
+  rc = smem_attr_locked(kernel, dev, smem);
+  if (!rc && cs > 8) rc = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (rc) return rc;
+  rc = (int)cudaOccupancyMaxActiveClusters(count, kernel, cfg);
+  if (!rc && g_fit_used < kFitSlots) g_fit[g_fit_used++] = FitEntry{fn, dev, cs, smem, *count};
+  return rc;
 }
 
 template <typename... KArgs>

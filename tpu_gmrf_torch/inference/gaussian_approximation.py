@@ -31,10 +31,11 @@ import dataclasses
 import torch
 
 from ..gmrf import GMRF
+from ..kernels import csr_spmv
 from ..observations.base import ObservationLikelihood
 from ..observations.exponential_family import EFLikelihood
 from ..solvers.base import SolverSpec, factorize, no_double_backward
-from ..sparse.matrix import SparseMatrix, spdiag
+from ..sparse.matrix import SparseMatrix, _csr, spdiag
 
 __all__ = ["gaussian_approximation", "GAOptions", "NewtonMode"]
 
@@ -71,13 +72,13 @@ def _where(mask, a, b):
 def _newton_mode_impl(opts: GAOptions, Q_p: SparseMatrix, mu_p, obs_lik, x0):
     h = Q_p.matvec(mu_p)
 
-    def merit(x):
-        return 0.5 * Q_p.quad(x) - (h * x).sum(-1) - obs_lik.loglik(x)
+    def merit(x, xQx=None):
+        xQx = Q_p.quad(x) if xQx is None else xQx
+        return 0.5 * xQx - (h * x).sum(-1) - obs_lik.loglik(x)
 
     tiny_tol = opts.newton_dec_tol / 1000.0
 
-    def line_search(x_k, step, alpha):
-        obj_current = merit(x_k)
+    def line_search(x_k, step, alpha, obj_current):
         inf_step = step.abs().amax(-1)
         alpha_cur, x_new, alpha_next = alpha, x_k, alpha
         # NaN merit at x_k: skip the search (the non-finite exit follows)
@@ -111,10 +112,14 @@ def _newton_mode_impl(opts: GAOptions, Q_p: SparseMatrix, mu_p, obs_lik, x0):
         H_k = _loghessian(obs_lik, x)
         g_l = obs_lik.loggrad(x)
         factor = factorize(_posterior_pair(Q_p, H_k), opts.inner_solver)
-        neg_score = (Q_p.matvec(x) - h) - g_l
+        # Q_p x for the score and xᵀQ_p x for the merit at x, from one K4 call (the loop runs without autograd)
+        xb = x.reshape(-1, x.shape[-1]).contiguous()
+        Qx, xQx = csr_spmv(*_csr(Q_p.pattern, x.device), Q_p.data.contiguous(), xb, quad=True)
+        Qx, xQx = Qx.reshape(x.shape), xQx.reshape(x.shape[:-1])
+        neg_score = (Qx - h) - g_l
         step = factor.solve(neg_score)
         if opts.adaptive_stepsize:
-            x_new, alpha_new = line_search(x, step, alpha)
+            x_new, alpha_new = line_search(x, step, alpha, merit(x, xQx))
         else:
             x_new, alpha_new = x - step, alpha
         newton_dec = (neg_score * step).sum(-1)

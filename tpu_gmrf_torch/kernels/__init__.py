@@ -2,7 +2,7 @@
 
 K1 ``tridiag_factor``, K2 ``tridiag_solve``, K3 ``tridiag_selinv``, K4
 ``csr_spmv``, K5 ``gather_segsum`` (and its second entry ``fct_init``), K6 ``sn_panel``, K7 ``sn_trsv``, K8
-``sn_takahashi``, K9 ``dense_chol``, K10 ``dense_trsv`` (and its second
+``sn_takahashi`` (and its first entry ``sn_takahashi_prep``), K9 ``dense_chol``, K10 ``dense_trsv`` (and its second
 entry ``dense_selinv``), K11 ``bt_factor``,
 K12 ``bt_trsv``, K13 ``bt_matvec`` (and its second entry ``bt_sqrt``), K14
 ``bsr_spmm``, K15 ``bsr_outer``, K16 ``kl_columns``, K17 ``block_inv`` and
@@ -64,6 +64,9 @@ from .supernodal import (
     sn_panel_plain,
     sn_takahashi,
     sn_takahashi_plain,
+    sn_takahashi_prep,
+    sn_takahashi_prep_plain,
+    sn_takahashi_sweep_plain,
     sn_trsv,
     sn_trsv_plain,
 )
@@ -89,6 +92,7 @@ __all__ = [
     "SOLVE_L", "SOLVE_LT", "SOLVE_BOTH",
     "SegPlan", "gather_segsum", "gather_segsum_plain", "InitPlan", "fct_init", "fct_init_plain",
     "sn_panel", "sn_panel_plain", "sn_trsv", "sn_trsv_plain", "sn_takahashi", "sn_takahashi_plain",
+    "sn_takahashi_prep", "sn_takahashi_prep_plain", "sn_takahashi_sweep_plain",
     "FORWARD", "BACKWARD",
     "DenseTables", "dense_chol", "dense_chol_plain", "dense_trsv", "dense_trsv_plain", "dense_selinv",
     "dense_selinv_plain",
@@ -112,6 +116,7 @@ KERNELS = {
     "sn_panel": sn_panel,
     "sn_trsv": sn_trsv,
     "sn_multiply": sn_multiply,
+    "sn_takahashi_prep": sn_takahashi_prep,
     "sn_takahashi": sn_takahashi,
     "dense_chol": dense_chol,
     "dense_trsv": dense_trsv,

@@ -48,8 +48,11 @@ _SIGNATURES = {
     # vals, vstride, panel_idx, cols_idx, rows_idx, P, W, M, ndummy, x, xstride, k,
     # u, ustride, ubase, mode, B, z (mode 2), stream
     "tg_sn_trsv": [_P, _L, _P, _P, _P, _I, _I, _I, _I, _P, _L, _I, _P, _L, _L, _I, _I, _P, _P],
-    # vals, vstride, sig, sstride, panel_idx, schur_idx, P, W, M, dummy, work, B, stream
-    "tg_sn_takahashi": [_P, _L, _P, _L, _P, _P, _I, _I, _I, _I, _P, _I, _P],
+    # vals, vstride, pre, pstride, panel_idx, P, W, M, dummy, work (float64; W > 64 only), B, stream
+    "tg_sn_takahashi_prep": [_P, _L, _P, _L, _P, _I, _I, _I, _I, _P, _I, _P],
+    # pre, pstride, sig, sstride, panel_idx, schur_idx, P, W, M, dummy, cluster size (0: the two product launches),
+    # their blocks per supernode t1, t2, B, stream
+    "tg_sn_takahashi": [_P, _L, _P, _L, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # data, dstride, rows, cols, tperm, diag_pos, nnz, n, L, s, level, logdet, flags (3 per chain),
     # work (inverted diagonal tiles), cluster size, B, stream
     "tg_dense_chol": [_P, _L, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P],

@@ -4,22 +4,29 @@ their plain versions.
 Each call runs one size-class batch of one level of the schedule, for all
 chains: K6 `sn_panel` factors the panels, K7 `sn_trsv` does the forward or
 backward block triangular solve (and, as `sn_multiply`, its mode MULTIPLY:
-the product with the class batch's panels), K8 `sn_takahashi` the block
-Takahashi step.
+the product with the class batch's panels), K8 `sn_takahashi` the
+Σ-dependent half of the block Takahashi step. K8's first entry
+`sn_takahashi_prep` forms the Σ-free half, C = Lb·Ld⁻¹ and A = Ld⁻ᵀLd⁻¹,
+into a buffer laid out like ``vals``; it runs once per sweep over every
+supernode of a size class, whatever its level.
 A class batch `c` is a dict of device tables for the P supernodes of this
 level: ``panel`` (P, W+M, W), ``cols`` (P, W), ``rows`` (P, M) and
 ``schur`` (P, M, M), int32, padded with ``dummy`` (= nnzL) / ``ndummy``
 (= n), plus ``W``, ``M`` and the offsets ``ubase`` / ``fbase`` of its slots
-in the level's update buffers.
+in the level's update buffers. A prep batch needs only ``panel`` and
+``cols``.
 
 A CPU tensor takes the plain version, which follows the reference's
 batch-then-write-back semantics (``supernodal.py:775-1018``) with
 ``torch.linalg``; a CUDA tensor launches the kernel or raises. Both write
 only live positions, so the DUMMY slot of ``vals``/``sig`` and the NDUMMY
-slot of right-hand sides stay 0. ``<wrapper>.launches`` counts launches.
+slot of right-hand sides stay 0. ``<wrapper>.launches`` counts the kernels
+a wrapper launched on the card (K8's entries launch one to three per call).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -27,9 +34,9 @@ from . import build
 from .tridiag import _fn, _on_cuda, _stream
 
 __all__ = [
-    "sn_panel", "sn_trsv", "sn_multiply", "sn_takahashi",
-    "sn_panel_plain", "sn_trsv_plain", "sn_multiply_plain", "sn_takahashi_plain",
-    "FORWARD", "BACKWARD", "MULTIPLY",
+    "sn_panel", "sn_trsv", "sn_multiply", "sn_takahashi_prep", "sn_takahashi",
+    "sn_panel_plain", "sn_trsv_plain", "sn_multiply_plain", "sn_takahashi_prep_plain", "sn_takahashi_sweep_plain",
+    "sn_takahashi_plain", "FORWARD", "BACKWARD", "MULTIPLY",
 ]
 
 FORWARD, BACKWARD, MULTIPLY = 0, 1, 2
@@ -38,6 +45,8 @@ FORWARD, BACKWARD, MULTIPLY = 0, 1, 2
 # left for the kernels' static shared arrays).
 SMEM_MAX = 200 * 1024
 TILE_MAX = 32  # widest column tile of K6's large-panel path (kTile in the source)
+K8_TILE = 64  # K8's product tile (kT in csrc/tiles.cuh): K8's first entry takes a workspace beyond it
+K8_CLUSTER_MAX = 8  # blocks per cluster of K8's one-launch form (the portable limit)
 
 
 def _boost_delta(W: int) -> float:
@@ -58,9 +67,9 @@ def _plain_tables(c: dict, device):
         cmask = c["cols"] != c["ndummy"]
         t = dict(
             panel=panel, live_at=torch.nonzero(live)[:, 0], live_pos=panel.flatten()[live],
-            cols=c["cols"].long(), rows=c["rows"].long(), cmask=cmask,
+            cols=c["cols"].long(), cmask=cmask,
             cmask_at=torch.nonzero(cmask.flatten())[:, 0], live_cols=c["cols"].long()[cmask],
-            schur=c["schur"].long(),
+            **{k: c[k].long() for k in ("rows", "schur") if k in c},  # a prep batch has neither
         )
         c[key] = t
     return t
@@ -162,28 +171,45 @@ def sn_multiply_plain(vals, c, out, z, u, k: int = 1):
         u[:, c["fbase"]: c["fbase"] + P * c["M"]] = (Lb @ zc)[..., 0].reshape(out.shape[0], -1)
 
 
-def sn_takahashi_plain(vals, sig, c):
-    """K8's function: Σ on the panels of class batch `c` (``_sig_step``)."""
+def sn_takahashi_prep_plain(vals, pre, c):
+    """K8's first entry's function: C = Lb·Ld⁻¹ in Lb's positions and
+    A = Ld⁻ᵀLd⁻¹ (lower) in Ld's positions of pre, for class batch `c`."""
     W = c["W"]
     t = _plain_tables(c, vals.device)
     Ld, Lb = _panels(vals, t, W)
-    Ct = torch.linalg.solve_triangular(Ld.mT, Lb.mT, upper=True)
-    G = _gather(sig, t["schur"])
-    Srr = G + G.mT - torch.diag_embed(torch.diagonal(G, dim1=-2, dim2=-1))
-    Srj = -Srr @ Ct.mT
     eye = torch.eye(W, dtype=vals.dtype, device=vals.device).expand_as(Ld)
     Ldinv = torch.linalg.solve_triangular(Ld, eye, upper=False)
-    Sjj = Ldinv.mT @ Ldinv + Ct @ Srr @ Ct.mT
-    _write_live(sig, t, torch.cat([torch.tril(Sjj), Srj], -2))
+    _write_live(pre, t, torch.cat([torch.tril(Ldinv.mT @ Ldinv), Lb @ Ldinv], -2))
+
+
+def sn_takahashi_sweep_plain(pre, sig, c):
+    """K8's function: Σ_RJ = −Σ_RR·C, Σ_JJ = A − Cᵀ·Σ_RJ on the panels of
+    class batch `c`, C and A from pre (`sn_takahashi_prep_plain`)."""
+    W = c["W"]
+    t = _plain_tables(c, pre.device)
+    panel = _gather(pre, t["panel"])
+    A, C = torch.tril(panel[..., :W, :]), panel[..., W:, :]
+    G = _gather(sig, t["schur"])
+    Srr = G + G.mT - torch.diag_embed(torch.diagonal(G, dim1=-2, dim2=-1))
+    Srj = -Srr @ C
+    _write_live(sig, t, torch.cat([torch.tril(A - C.mT @ Srj), Srj], -2))
+
+
+def sn_takahashi_plain(vals, sig, c):
+    """The whole Takahashi step on class batch `c` (``_sig_step``): the two
+    halves above, through a buffer of its own."""
+    pre = torch.zeros_like(sig)
+    sn_takahashi_prep_plain(vals, pre, c)
+    sn_takahashi_sweep_plain(pre, sig, c)
 
 
 # ---- wrappers -------------------------------------------------------------------
 
 
-def _check_class(name, c, vals):
+def _check_class(name, c, vals, keys=("panel", "cols", "rows")):
     if vals.ndim != 2:
         raise ValueError(f"{name}: vals must be (B, nnzL+1), got {tuple(vals.shape)}")
-    for key in ("panel", "cols", "rows"):
+    for key in keys:
         tab = c[key]
         if tab.device != vals.device or tab.dtype != torch.int32 or not tab.is_contiguous():
             raise ValueError(f"{name}: table {key} must be contiguous int32 on the values' device")
@@ -259,28 +285,74 @@ def sn_multiply(vals, c, out, z, u, k: int = 1):
     sn_multiply.launches += 1
 
 
-def sn_takahashi(vals, sig, c):
-    """K8: Σ_JJ (lower) and Σ_RJ of class batch `c` into sig (B, nnzL+1),
-    reading Σ_RR of its ancestors from sig."""
-    if not _on_cuda("sn_takahashi", vals, sig):
-        return sn_takahashi_plain(vals, sig, c)
-    _check_class("sn_takahashi", c, vals)
+@functools.cache
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _tiles(n: int, t: int = K8_TILE) -> int:
+    return -(-n // t)
+
+
+def sweep_launch(W: int, M: int, units: int, sms: int) -> tuple:
+    """(cluster size, t1, t2) of K8 on `units` (supernode, chain) pairs of
+    panels W wide with M rows below, on a card of `sms` SMs. The products'
+    tiles: t1 of Σ_RJ, t2 of Σ_JJ (64 rows by NT = 8 or 64 columns). A batch
+    whose tiles fit a cluster of K8_CLUSTER_MAX, or that gives every SM two
+    clusters' worth of blocks anyway, runs in one launch, a cluster per
+    unit (cs, 0, 0); a batch of few units with more tiles (the top
+    separators, the banded steps) runs its two products as two launches, a
+    block per tile (0, t1, t2)."""
+    nt = 8 if W <= 8 else K8_TILE
+    t1 = _tiles(M) * _tiles(W, nt)
+    t2 = sum(min(_tiles(W, nt), _tiles((i + 1) * K8_TILE, nt)) for i in range(_tiles(W)))
+    tiles = max(t1, t2)
+    if tiles <= K8_CLUSTER_MAX or units * K8_CLUSTER_MAX >= 2 * sms:
+        return max(1, min(K8_CLUSTER_MAX, tiles, -(-2 * sms // max(units, 1)))), 0, 0
+    return 0, t1, t2
+
+
+def sn_takahashi_prep(vals, pre, c):
+    """K8's first entry: C = Lb·Ld⁻¹ (Lb's positions) and A = Ld⁻ᵀLd⁻¹ (Ld's
+    lower positions) of every supernode of batch `c` into pre (B, nnzL+1),
+    which keeps vals' layout; positions outside the batch are not touched."""
+    if not _on_cuda("sn_takahashi_prep", vals, pre):
+        return sn_takahashi_prep_plain(vals, pre, c)
+    _check_class("sn_takahashi_prep", c, vals, ("panel",))
     W, M = c["W"], c["M"]
     P, B = c["panel"].shape[0], vals.shape[0]
-    per_block = 2 * W * W + 2 * M * W + M * M
     work = None
-    if vals.element_size() * per_block > SMEM_MAX:
-        work = vals.new_empty(B * P * per_block)
-    code = _fn("tg_sn_takahashi", vals.dtype)(
-        vals.data_ptr(), vals.shape[1], sig.data_ptr(), sig.shape[1], c["panel"].data_ptr(),
-        c["schur"].data_ptr(), P, W, M, c["dummy"], work.data_ptr() if work is not None else None,
-        B, _stream(vals),
+    if W > K8_TILE:  # Ld⁻¹ and its inverted diagonal tiles, float64
+        work = torch.empty(B * P * (W * W + _tiles(W) * K8_TILE**2), dtype=torch.float64, device=vals.device)
+    code = _fn("tg_sn_takahashi_prep", vals.dtype)(
+        vals.data_ptr(), vals.shape[1], pre.data_ptr(), pre.shape[1], c["panel"].data_ptr(), P, W, M, c["dummy"],
+        None if work is None else work.data_ptr(), B, _stream(vals),
     )
-    build.check(code, "sn_takahashi", f" at W={W} M={M} P={P} B={B} {vals.dtype}, workspace={work is not None}")
-    sn_takahashi.launches += 1
+    build.check(code, "sn_takahashi_prep", f" at W={W} M={M} P={P} B={B} {vals.dtype}")
+    if P and B:  # the wide path is three launches: the diagonal tiles' inverses, Ld⁻¹, the products
+        sn_takahashi_prep.launches += 1 if work is None else 3
+
+
+def sn_takahashi(pre, sig, c):
+    """K8: Σ_JJ (lower) and Σ_RJ of class batch `c` into sig (B, nnzL+1),
+    from C and A in pre (`sn_takahashi_prep`) and Σ_RR of its ancestors in sig."""
+    if not _on_cuda("sn_takahashi", pre, sig):
+        return sn_takahashi_sweep_plain(pre, sig, c)
+    _check_class("sn_takahashi", c, pre, ("panel", "schur"))
+    W, M = c["W"], c["M"]
+    P, B = c["panel"].shape[0], pre.shape[0]
+    cs, t1, t2 = sweep_launch(W, M, P * B, _sm_count(pre.device))
+    code = _fn("tg_sn_takahashi", pre.dtype)(
+        pre.data_ptr(), pre.shape[1], sig.data_ptr(), sig.shape[1], c["panel"].data_ptr(), c["schur"].data_ptr(), P,
+        W, M, c["dummy"], cs, t1, t2, B, _stream(pre),
+    )
+    build.check(code, "sn_takahashi", f" at W={W} M={M} P={P} B={B} {pre.dtype}, cluster={cs} tiles={t1},{t2}")
+    if P and B:  # the two-launch form launches Σ_RJ's product only where rows lie below
+        sn_takahashi.launches += 1 if cs else 1 + (t1 > 0)
 
 
 sn_panel.launches = 0
 sn_trsv.launches = 0
 sn_multiply.launches = 0
+sn_takahashi_prep.launches = 0
 sn_takahashi.launches = 0

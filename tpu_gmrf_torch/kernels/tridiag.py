@@ -14,6 +14,8 @@ no n is refused.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ..solvers.prefix import linear_recurrence, mobius_recurrence
@@ -104,7 +106,9 @@ def tridiag_path(n: int, k: int, dtype: torch.dtype) -> str:
     return "shared" if need <= SMEM_LIMIT else "global"
 
 
+@functools.cache
 def _fn(name: str, dtype: torch.dtype):
+    """The library's entry `name` for `dtype`, looked up once."""
     return getattr(build.library(), f"{name}_{'f32' if dtype == torch.float32 else 'f64'}")
 
 

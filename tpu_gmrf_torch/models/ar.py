@@ -26,8 +26,7 @@ class ARModel(LatentModel):
             raise ValueError("AR order must be >= 1")
         if order >= 2:
             raise NotImplementedError(
-                "AR(P>=2) needs sp_matmul and the dense backend, not ported yet "
-                "(ROADMAP queue 1, item 3; queue 2, item 2.5)"
+                "AR(P>=2) is not ported yet (ROADMAP queue 1, item 2)"
             )
         self._n = n
         self.order = order

@@ -53,7 +53,8 @@ class LatentModel:
     def __call__(self, **theta):
         if self.constraints() is not None:
             raise NotImplementedError(
-                "constrained latent models need constrained.py, not ported yet (ROADMAP queue 1, item 12)"
+                "a constrained latent model's GMRF (a ConstrainedGMRF from LatentModel.__call__) is not wired "
+                "yet (ROADMAP queue 1, item 2)"
             )
         return GMRF.from_precision(self.mean(**theta), self.precision(**theta), self.solver)
 

@@ -11,10 +11,14 @@ s×s dense blocks, factored block by block:
 The host plan (`_rcm_and_bandwidth`, `banded_plan`, `_PLAN_CACHE`) is the
 reference's. The scatter and the factorization run on K11 (`bt_factor`),
 the block forward/backward substitutions on K12 (`bt_trsv`). The block
-Takahashi recursion of ``_sigma_blocks`` is K8 `sn_takahashi`'s step, one
-launch per block from the last one up: block k is a supernode of width s
-whose rows are block k+1 (Ld = L_k, Lb = M_k, Σ_RR = Σ_{k+1,k+1}); the
-selected-inverse gathers and sums are K5 `gather_segsum` launches. The
+Takahashi recursion of ``_sigma_blocks`` runs on K8: block k is a supernode
+of width s whose rows are block k+1 (Ld = L_k, Lb = M_k, Σ_RR =
+Σ_{k+1,k+1}). K8's first entry `sn_takahashi_prep` forms every block's
+C = M_k L_k⁻¹ and A = L_k⁻ᵀL_k⁻¹ at once (two launches: the K−1 blocks with
+rows below, and the last), as the reference's batched inverses before its
+scan; then K8 `sn_takahashi` does the K−1 dependent steps' products, one
+launch per block from the last one up. The selected-inverse gathers and sums
+are K5 `gather_segsum` launches. The
 logdet is differentiable through `BandedLogdet`, whose backward is Σ on
 Q's pattern, and `solve` through `FactorSolve` (K12 forward and backward);
 the other solves, `sqrt_matvec` and Σ have no backward and raise while a
@@ -42,11 +46,12 @@ from ..kernels import (
     bt_trsv,
     gather_segsum,
     sn_takahashi,
+    sn_takahashi_prep,
 )
 from ..sparse.matrix import SparseMatrix
 from ..sparse.pattern import SparsePattern
 from .base import DirectFactor, no_double_backward
-from .supernodal import _one_term, _sum_plans
+from .supernodal import _one_term, _prep_batches, _sum_plans
 
 __all__ = [
     "BandedFactor",
@@ -143,11 +148,12 @@ def _tables(pattern: SparsePattern, block) -> BandedTables:
     return t
 
 
-def _takahashi_classes(meta, device) -> list:
-    """K8 class batches of the Takahashi sweep, one per block, cached per
-    (plan, device). Positions are those of P (B, K, 2s, s) flattened; Σ has
-    the same layout plus one zero slot at K·2s·s (DUMMY), which the upper
-    triangle of each Σ_{k+1,k+1} gather points at (K8 mirrors the lower)."""
+def _takahashi_classes(meta, device) -> tuple:
+    """K8 class batches of the Takahashi sweep, one per block, and the batches
+    of K8's first entry, cached per (plan, device). Positions are those of P
+    (B, K, 2s, s) flattened; Σ has the same layout plus one zero slot at
+    K·2s·s (DUMMY), which the upper triangle of each Σ_{k+1,k+1} gather
+    points at (K8 mirrors the lower)."""
     key = (meta, str(device))
     classes = _SIGMA_CACHE.get(key)
     if classes is None:
@@ -167,19 +173,24 @@ def _takahashi_classes(meta, device) -> list:
             classes.append(dict(W=s, M=M, panel=i32(k * panel + np.arange((s + M) * s).reshape(s + M, s)),
                                 cols=i32(k * s + np.arange(s)), rows=i32((k + 1) * s + np.arange(M)),
                                 schur=i32(schur), dummy=dummy, ndummy=plan["npad"]))
-        _SIGMA_CACHE[key] = classes
+        classes = _SIGMA_CACHE[key] = classes, _prep_batches(classes)
     return classes
 
 
-def _sigma_vals(P: torch.Tensor, meta, takahashi=sn_takahashi) -> torch.Tensor:
+def _sigma_vals(P: torch.Tensor, meta, ops=(sn_takahashi_prep, sn_takahashi)) -> torch.Tensor:
     """Block Takahashi (``banded.py:209-230``): Σ in P's layout, (B, K·2s·s+1):
-    Σ_kk (lower) in rows 0..s of panel k, Σ_{k+1,k} in rows s..2s. K8 per
-    block, the last block first; `takahashi` is K8's wrapper (its plain
-    version only to compare the two on the card)."""
+    Σ_kk (lower) in rows 0..s of panel k, Σ_{k+1,k} in rows s..2s. K8's first
+    entry on every block, then K8 per block, the last block first; `ops` are
+    K8's two wrappers (their plain versions only to compare them on the card)."""
+    prep, takahashi = ops
+    classes, preps = _takahashi_classes(meta, P.device)
     vals = P.reshape(P.shape[0], -1)
-    sig = vals.new_zeros(vals.shape[0], vals.shape[1] + 1)
-    for c in reversed(_takahashi_classes(meta, P.device)):
-        takahashi(vals, sig, c)
+    pre = vals.new_zeros(vals.shape[0], vals.shape[1] + 1)
+    sig = torch.zeros_like(pre)
+    for c in preps:
+        prep(vals, pre, c)
+    for c in reversed(classes):
+        takahashi(pre, sig, c)
     return sig
 
 

@@ -13,7 +13,9 @@ reference library.
 * **Device numeric, per value vector.** The level schedule is a host loop
   over levels and size classes. Each class batch of a level is one launch
   of a hand-written kernel over all chains: K6 `sn_panel` (factor), K7
-  `sn_trsv` (solves), K8 `sn_takahashi` (selected inverse); the Schur and
+  `sn_trsv` (solves), K8 `sn_takahashi_prep` and `sn_takahashi` (selected
+  inverse: the Σ-free half once per class shape, then the Σ-dependent
+  products per class batch); the Schur and
   forward-solve reductions, the permutation, logdet and selected-inverse
   gathers (with the Jacobi scaling undone) are K5 `gather_segsum`
   launches, and the preamble (symmetrize, equilibrate, scatter onto the
@@ -63,7 +65,9 @@ from ..kernels import (
     sn_panel,
     sn_panel_plain,
     sn_takahashi,
-    sn_takahashi_plain,
+    sn_takahashi_prep,
+    sn_takahashi_prep_plain,
+    sn_takahashi_sweep_plain,
     sn_trsv,
     sn_trsv_plain,
 )
@@ -732,11 +736,11 @@ def supernodal_plan(
 
 _DEVICE_CACHE: dict = {}
 
-_KERNEL_OPS = dict(init=fct_init, panel=sn_panel, trsv=sn_trsv, multiply=sn_multiply, takahashi=sn_takahashi,
-                   segsum=gather_segsum)
+_KERNEL_OPS = dict(init=fct_init, panel=sn_panel, trsv=sn_trsv, multiply=sn_multiply, prep=sn_takahashi_prep,
+                   takahashi=sn_takahashi, segsum=gather_segsum)
 # the plain versions, for comparisons of the kernels with them on the card
 _PLAIN_OPS = dict(init=fct_init_plain, panel=sn_panel_plain, trsv=sn_trsv_plain, multiply=sn_multiply_plain,
-                  takahashi=sn_takahashi_plain, segsum=gather_segsum_plain)
+                  prep=sn_takahashi_prep_plain, takahashi=sn_takahashi_sweep_plain, segsum=gather_segsum_plain)
 _LOGDET_CHUNK = 64  # terms per row of the logdet's first K5 reduction
 
 
@@ -830,6 +834,7 @@ def _device_plan(meta, device):
     perm, pattern = plan["perm"], meta[0]
     dp = dict(
         levels=levels,
+        prep=_prep_batches([c for lv in levels for c in lv.classes]),
         init=InitPlan(pattern.transpose_perm, pattern.diag_positions, pattern.rows, pattern.cols,
                       plan["a_src"], plan["a_dst"]),
         perm=_one_term(perm, yi=perm, rows=n + 1),  # (s·b)[perm], then the NDUMMY zero
@@ -844,6 +849,16 @@ def _device_plan(meta, device):
         p.tensors(device)
     _DEVICE_CACHE[key] = dp
     return dp
+
+
+def _prep_batches(classes) -> list:
+    """Class batches merged by shape (W, M) whatever their level: the batches
+    of K8's first entry, whose work does not depend on Σ."""
+    groups: dict = {}
+    for c in classes:
+        groups.setdefault((c["W"], c["M"]), []).append(c)
+    return [dict(W=W, M=M, panel=torch.cat([c["panel"] for c in cs]), cols=torch.cat([c["cols"] for c in cs]),
+                 dummy=cs[0]["dummy"], ndummy=cs[0]["ndummy"]) for (W, M), cs in groups.items()]
 
 
 def _buffer(ref: torch.Tensor, rows: int, size: int):
@@ -940,12 +955,17 @@ def _factor_values(data, meta, ops, mesh=None):
 
 
 def _sigma_vals(vals, meta, ops):
-    """Block Takahashi recursion (K8 per class batch, levels descending):
-    Σ on L's pattern in the scaled basis, (B, nnzL+1)."""
-    sig = torch.zeros_like(vals)
-    for lv in reversed(_device_plan(meta, vals.device)["levels"]):
+    """Block Takahashi recursion: Σ on L's pattern in the scaled basis, (B,
+    nnzL+1). K8's first entry forms C = Lb·Ld⁻¹ and A = Ld⁻ᵀLd⁻¹ of every
+    supernode (one launch per class shape, in a second buffer laid out like
+    vals); then K8 per class batch, levels descending."""
+    dp = _device_plan(meta, vals.device)
+    pre, sig = torch.zeros_like(vals), torch.zeros_like(vals)
+    for c in dp["prep"]:
+        ops["prep"](vals, pre, c)
+    for lv in reversed(dp["levels"]):
         for c in lv.classes:
-            ops["takahashi"](vals, sig, c)
+            ops["takahashi"](pre, sig, c)
     return sig
 
 
