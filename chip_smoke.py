@@ -622,6 +622,13 @@ def sn_costs(levels, B: int, el: int, nnz: int, nnzL: int, n: int) -> dict:
     }
 
 
+def sn_costs_k(cost: tuple, k: int, el: int, B: int, n: int) -> tuple:
+    """K7's (operations, bytes) at k right-hand sides per chain from its cost at one: the arithmetic k times, the
+    right-hand sides' reads and writes k times, the panel read once."""
+    flops, nbytes = cost
+    return flops * k, nbytes + el * B * 2 * n * (k - 1)
+
+
 def k8_prep(vals, width: int, preps, fn):
     """C and A, in rows of `width` laid out like Σ, by K8's first entry `fn` (kernel or plain) over `preps`."""
     pre = vals.new_zeros(vals.shape[0], width)
@@ -645,17 +652,132 @@ def launch_count(kern, run) -> int:
     return kern.launches - before
 
 
-def k8_library(vals, meta):
-    """K8's library yardstick on the supernodal factor: torch.cholesky_inverse of the densified factor, then
-    the gather of Σ onto L's pattern (the function K8's two entries compute), as a callable."""
+def dense_factor(vals, meta):
+    """The factor L (B, n, n) densified from its values on the fill pattern, and the pattern's (row, column) index
+    tensors: position p of vals holds L[hi[p], lo[p]]."""
     from tpu_gmrf_torch.solvers import supernodal as sn
 
     plan = sn._PLAN_CACHE[meta]
     n, key = plan["n"], torch.as_tensor(np.asarray(plan["entry_key"], np.int64), device=vals.device)
-    hi, lo = key % n, key // n  # position p of vals holds L[hi, lo]
+    hi, lo = key % n, key // n
     L = vals.new_zeros(vals.shape[0], n, n)
     L[:, hi, lo] = vals[:, :-1]
+    return L, hi, lo
+
+
+def k8_library(vals, meta):
+    """K8's library yardstick on the supernodal factor: torch.cholesky_inverse of the densified factor, then
+    the gather of Σ onto L's pattern (the function K8's two entries compute), as a callable."""
+    L, hi, lo = dense_factor(vals, meta)
     return lambda: torch.cholesky_inverse(L)[:, hi, lo]
+
+
+def k6_library(Q, meta):
+    """K6's library yardstick: torch.linalg.cholesky_ex of the matrix the schedule factors, densified (Q
+    symmetrized, Jacobi-equilibrated as fct_init does it, in the plan's permuted order; formed here, outside the
+    callable), then the gather onto L's pattern: the function K6's launches compute over the whole schedule."""
+    from tpu_gmrf_torch.solvers import supernodal as sn
+
+    plan = sn._PLAN_CACHE[meta]
+    pat, data, n = Q.pattern, Q.data.reshape(-1, Q.nnz), plan["n"]
+
+    def idx(a):
+        return torch.as_tensor(np.asarray(a, np.int64), device=data.device)
+
+    sym = 0.5 * (data + data[:, idx(pat.transpose_perm)])
+    dg = sym[:, idx(pat.diag_positions)]
+    one = torch.ones_like(dg)
+    s = torch.where(dg > 0, torch.rsqrt(torch.where(dg > 0, dg, one)), one)
+    rows, cols, ip = idx(pat.rows), idx(pat.cols), idx(plan["inv_perm"])
+    A = data.new_zeros(data.shape[0], n, n)
+    A[:, ip[rows], ip[cols]] = sym * s[:, rows] * s[:, cols]
+    key = idx(plan["entry_key"])
+    hi, lo = key % n, key // n
+    return lambda: torch.linalg.cholesky_ex(A).L[:, hi, lo]
+
+
+def k7_library(f, b):
+    """K7's library yardstick for the solve Q x = b of the supernodal factor f (b (B, n) or (B, n, k)):
+    torch.cholesky_solve on the densified factor (formed here, outside the callable), with the permutation and the
+    scaling applied as the factor's solve applies them (x[perm] = s[perm]·y, L Lᵀ y = (s·b)[perm])."""
+    from tpu_gmrf_torch.solvers import supernodal as sn
+
+    L, _, _ = dense_factor(f.vals, f.meta)
+    perm = torch.as_tensor(np.asarray(sn._PLAN_CACHE[f.meta]["perm"], np.int64), device=b.device)
+    s = f.s.reshape(L.shape[0], -1)[:, perm, None]
+    rhs = b.reshape(L.shape[0], L.shape[1], -1)
+
+    def run():
+        x = torch.empty_like(rhs)
+        x[:, perm] = torch.cholesky_solve(rhs[:, perm] * s, L) * s
+        return x.reshape(b.shape)
+
+    return run
+
+
+def rescue_panels(c, nnzL: int, B: int, fails: dict, rng) -> np.ndarray:
+    """Values (B, nnzL+1) on class batch c's panels for K6's rescue check: a unit diagonal, off-diagonals of
+    0.1/ns, rows below of 0.5, column 0 coupled to nothing, and the first pivot of (supernode p, chain b) set to
+    fails[(p, b)] (other positions zero)."""
+    W, M = c["W"], c["M"]
+    panel = c["panel"].long().cpu().numpy()
+    vals = np.zeros((B, nnzL + 1))
+    for p in range(panel.shape[0]):
+        ns = int((panel[p, np.arange(W), np.arange(W)] != c["dummy"]).sum())
+        m = int((panel[p, W:, 0] != c["dummy"]).sum()) if M else 0
+        low = np.tril_indices(ns)
+        for b in range(B):
+            D = np.tril(rng.normal(scale=0.1 / ns, size=(ns, ns)), -1) + np.eye(ns)
+            D[:, 0] = 0.0
+            D[0, 0] = fails.get((p, b), 1.0)
+            Bm = rng.normal(scale=0.5, size=(m, ns))
+            Bm[:, 0] = 0.0
+            vals[b, panel[p][low]] = D[low]
+            vals[b, panel[p, W:W + m, :ns].ravel()] = Bm.ravel()
+    return vals
+
+
+def check_panel_rescue(fk, dtype, dev):
+    """Phase 3b: K6's pivot boost on the card, on both of its paths: the one-block class batch with the most
+    supernodes and the widest cluster-path batch with rows below, on rescue_panels whose first pivot is -δ/2
+    (rescued by δ) or -2δ (rescued by the Gershgorin shift), δ = 2e-6 W: chain 1 fails once, chain 2 twice,
+    chain 3 twice and, on a batch of several supernodes, once more on its last. Factor values, U (lower), log
+    pivots and boost counts against sn_panel_plain on the same inputs."""
+    from tpu_gmrf_torch import kernels
+    from tpu_gmrf_torch.kernels import supernodal as ks
+    from tpu_gmrf_torch.solvers import supernodal as sn
+
+    B, n, nnzL = fk.vals.shape[0], fk.n, fk.vals.shape[1] - 1
+    classes = [c for lv in sn._device_plan(fk.meta, dev)["levels"] for c in lv.classes]
+    fit, sms = ks._panel_fit(dtype), ks._sm_count(dev)
+    path = {id(c): ks.panel_launch(c["W"], c["M"], c["panel"].shape[0] * B, fit, sms) for c in classes}
+    one = max((c for c in classes if path[id(c)] == 0), key=lambda c: c["panel"].shape[0])
+    wide = max((c for c in classes if path[id(c)] > 0 and c["M"]), key=lambda c: (c["W"], c["M"]))
+    rng = np.random.default_rng(11)
+    for label, c in (("one block", one), ("cluster", wide)):
+        W, M, P = c["W"], c["M"], c["panel"].shape[0]
+        delta = 2e-6 * W
+        fails = {(0, 1): -0.5 * delta, (0, 2): -2 * delta, (0, 3): -2 * delta}
+        if P > 1:
+            fails[(P - 1, 3)] = -0.5 * delta
+        vals = torch.tensor(rescue_panels(c, nnzL, B, fails, rng), dtype=dtype, device=dev)
+        outs = []
+        for fn in (kernels.sn_panel, kernels.sn_panel_plain):
+            v, u = vals.clone(), vals.new_zeros(B, c["ubase"] + P * M * M + 1)
+            logs, boost = vals.new_zeros(B, n), torch.zeros(B, dtype=torch.int32, device=dev)
+            fn(v, dict(classes=[c]), u, logs, boost)
+            U = torch.tril(u[:, c["ubase"]: c["ubase"] + P * M * M].reshape(B, P, M, M))
+            outs.append(((v, U, logs), boost.tolist()))
+        (got, bk), (ref, bp) = outs
+        torch.cuda.synchronize()
+        abs_err, rel = rel_err(got, ref)
+        tol = SN_TOL[dtype]["sn_panel"]
+        want = [0, 1, 1, 1 + (P > 1)]
+        log(f"  sn_panel forced rescue {dtype_name(dtype)}, {label} path (W={W} M={M} P={P} B={B}, cluster "
+            f"{path[id(c)]}; first pivots -δ/2 and -2δ): boost kernel {bk} plain {bp} (want {want}), "
+            f"max_abs_err={abs_err:.3e} rel={rel:.3e} (tol {tol:.0e})")
+        if bk != bp or bk != want or not rel <= tol:
+            raise AssertionError(f"sn_panel forced rescue, {label} path: boost {bk} / {bp}, rel {rel:.3e}")
 
 
 def check_spatial_kernels(model, dtype, dev):
@@ -720,16 +842,32 @@ def check_spatial_kernels(model, dtype, dev):
         if dtype == torch.float64 and (fk.boost.any() or fp.boost.any()):
             raise AssertionError(f"{label}: float64 factor boosted a pivot")
         timing = label == "posterior"
-        ms = (cuda_ms(lambda: sn.supernodal_factorize(Q), SN_REPS, 1),
-              cuda_ms(lambda: plain_factorize(Q), SN_REPS, 1)) if timing else (None, None)
+        ms, lib_ms = (cuda_ms(lambda: sn.supernodal_factorize(Q), SN_REPS, 1),
+                      cuda_ms(lambda: plain_factorize(Q), SN_REPS, 1)) if timing else (None, None), None
+        if timing:  # the library yardstick, and K6's launches per factorization
+            lib = k6_library(Q, fk.meta)
+            lib_ms = cuda_ms(lib, 3, 1)
+            boosts += (f"; library: cholesky_ex of the densified matrix + the gather onto L's pattern, "
+                       f"{rel_err((lib(),), (fk.vals[:, :-1],))[1]:.1e} from the kernel's factor; "
+                       f"{launch_count(kernels.sn_panel, lambda: sn.supernodal_factorize(Q))} launches")
+            del lib
         check(f"sn_panel factor vals [{label}]", dtype, fk.vals, fp.vals, "sn_panel", results, *ms, extra=boosts,
-              cost=costs["sn_panel"], shape=shape)
+              cost=costs["sn_panel"], library_ms=lib_ms, shape=shape)
         check(f"sn_panel logdet [{label}]", dtype, fk.logdet(), fp.logdet(), "logdet", {},
               extra=f" logdet={fk.logdet().tolist()}")
-        ms = (cuda_ms(lambda: fk.solve(b), SN_REPS, 1), cuda_ms(lambda: fkp.solve(b), SN_REPS, 1)) if timing \
-            else (None, None)
-        check(f"sn_trsv solve [{label}]", dtype, fk.solve(b), fkp.solve(b), "sn_trsv", results, *ms,
-              cost=costs["sn_trsv"], shape=shape)
+        for k in (1, 8, 65) if timing else (1,):  # K7 against its plain version, at k=1, 8 and 65 right-hand sides
+            bk = b if k == 1 else torch.tensor(rng.normal(size=(B, n, k)), dtype=dtype, device=dev)
+            ms, lib_ms, extra = (cuda_ms(lambda: fk.solve(bk), SN_REPS, 1),
+                                 cuda_ms(lambda: fkp.solve(bk), SN_REPS, 1)) if timing else (None, None), None, ""
+            if timing:
+                lib = k7_library(fk, bk)
+                lib_ms = cuda_ms(lib, 3, 1)
+                extra = (f" (library: cholesky_solve on the densified factor, {rel_err((lib(),), (fk.solve(bk),))[1]:.1e}"
+                         f" from the kernels' solve; {launch_count(kernels.sn_trsv, lambda: fk.solve(bk))} launches)")
+                del lib
+            check(f"sn_trsv solve k={k} [{label}]", dtype, fk.solve(bk), fkp.solve(bk), "sn_trsv",
+                  results if k == 1 else {}, *ms, cost=sn_costs_k(costs["sn_trsv"], k, el, B, n), extra=extra,
+                  library_ms=lib_ms, shape=shape + ("" if k == 1 else f" k={k}"))
         # K8's first entry and K8, each against its plain version on the same inputs (K8 on the kernel's C
         # and A), then the whole Σ (prep + sweep) against the plain path and the library yardstick
         dp = sn._device_plan(fk.meta, dev)
@@ -769,6 +907,7 @@ def check_spatial_kernels(model, dtype, dev):
                      f"{lib_err:.1e} from the kernels' Σ)")
         check(f"sn_takahashi sigma, prep + sweep [{label}]", dtype, fk._sigma_vals(), fkp._sigma_vals(),
               "sn_takahashi", {}, extra=extra)
+    check_panel_rescue(fk, dtype, dev)
     return results
 
 
@@ -1811,6 +1950,32 @@ def cg_matern_path(model, dev, card):
     return counts
 
 
+def check_trsv_columns(f, k: int, dev):
+    """Phase 14: K7 at the shape of the RBMC draws, k right-hand sides of one chain: the backward solve that makes
+    the draws (mode 1), the whole solve (modes 0 and 1) and the product with L (mode 2), each against its plain
+    version on the same factor, with their times; and K7's column tile and blocks per chain by level, so how many
+    times a chain's panel is read."""
+    from tpu_gmrf_torch.kernels import supernodal as ks
+    from tpu_gmrf_torch.solvers import supernodal as sn
+
+    fp, n, B = with_plain_steps(f), f.n, f.vals.shape[0]
+    levels = sn._device_plan(f.meta, dev)["levels"]
+    z = torch.tensor(np.random.default_rng(k).normal(size=(n, k)), dtype=torch.float64, device=dev)
+    el, nnzL = f.vals.element_size(), f.vals.shape[1] - 1
+    costs = sn_costs(levels, B, el, 0, nnzL, n)
+    tiles = [ks.trsv_launch(max(c["W"] for c in lv.classes), k, B * sum(c["panel"].shape[0] for c in lv.classes),
+                            ks._sm_count(dev)) for lv in levels]
+    with torch.no_grad():
+        for name, key, kern, plain in (("backward_solve", "sn_trsv", f.backward_solve, fp.backward_solve),
+                                       ("solve", "sn_trsv", f.solve, fp.solve),
+                                       ("sqrt_matvec", "sn_multiply", f.sqrt_matvec, fp.sqrt_matvec)):
+            check(f"sn_trsv {name} n={n} k={k}", torch.float64, kern(z), plain(z), key, {},
+                  cuda_ms(lambda: kern(z), 3, 1), cuda_ms(lambda: plain(z), 2, 1),
+                  cost=sn_costs_k(costs[key], k, el, B, n), shape=f"B={B} n={n} k={k}",
+                  extra="" if name != "solve" else
+                  f" (K7's column tile x blocks per chain by level: {' '.join('%dx%d' % t for t in tiles)})")
+
+
 def rbmc_path(stats_model, sp_model, dev, card):
     """Phase 14: RBMC variances against selinv_diag; N(0, Q) draws by sqrt_matvec."""
     import tpu_gmrf_torch as tg
@@ -1856,6 +2021,8 @@ def rbmc_path(stats_model, sp_model, dev, card):
     counts = kernels.launches()
     # ---- end of the RBMC main path ----
     launched(counts, RBMC_KERNELS, "RBMC")
+    check_trsv_columns(g.factor, RBMC_SAMPLES, dev)
+    check_trsv_columns(gs.factor, BLOCK_RBMC_SAMPLES, dev)
     for name, est, ref, ms, S in (("rbmc_var n=%d" % Q.shape[0], v, exact, rbmc_ms, RBMC_SAMPLES),
                                   ("block_rbmc_var n=%d" % Qs.shape[0], vb, exact_s, block_ms, BLOCK_RBMC_SAMPLES)):
         err, tol = (est / ref - 1).abs(), rbmc_tol(S)

@@ -10,6 +10,9 @@ Tolerances and why:
 - sparse ops: exact arithmetic up to summation order: rtol 1e-12.
 """
 
+import importlib.util
+import pathlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -385,3 +388,96 @@ def test_takahashi_prep_plain_against_triangular_solves(matern24):
 def test_sweep_launch_picks_its_form(W, M, units, want):
     # K8's launch form from the batch's shape, on a card of 132 SMs
     assert kernels.supernodal.sweep_launch(W, M, units, 132) == want
+
+
+def _held(per_sm):
+    """Clusters of cs blocks a card of 132 SMs holds at once with per_sm blocks on an SM (0 above 16)."""
+    return lambda cs: per_sm * 132 // cs if cs <= 16 else 0
+
+
+# K6's path and cluster size at the n=5741 plan's class shapes (W, M, P·B at B=4), on a card of 132 SMs that holds
+# three of its cluster-path blocks per SM
+@pytest.mark.parametrize("W, M, units, want", [
+    (512, 0, 4, 16),  # the level-13 separator (475 wide): four clusters of 16
+    (128, 512, 4, 16),  # levels 8-12: ten row tiles, clusters of 16
+    (64, 256, 12, 10),  # a narrow panel with many rows below on a few units: five row tiles, clusters of 10
+    (16, 128, 296, 0),  # a scan level that fills the card: one block per (supernode, chain)
+    (8, 64, 156, 0),  # one row tile below: one block
+])
+def test_panel_launch_picks_path_and_cluster(W, M, units, want):
+    assert kernels.supernodal.panel_launch(W, M, units, _held(3), 132) == want
+
+
+# K7's column tile and blocks per (supernode, chain) at the same shapes, for 1, 8 and 65 right-hand sides, on a card
+# of 132 SMs: 64 columns only where 64 of them fit shared memory (W <= 128) and 8-column blocks would put 8 or more
+# on every SM (units x 9 >= 1056 at k=65)
+@pytest.mark.parametrize("W, M, units, want", [
+    (512, 0, 4, ((8, 1), (8, 1), (8, 9))),
+    (128, 512, 4, ((8, 1), (8, 1), (8, 9))),
+    (64, 256, 12, ((8, 1), (8, 1), (8, 9))),
+    (16, 128, 296, ((8, 1), (8, 1), (64, 2))),
+    (8, 64, 156, ((8, 1), (8, 1), (64, 2))),
+])
+def test_trsv_launch_picks_its_tile(W, M, units, want):
+    assert tuple(kernels.supernodal.trsv_launch(W, k, units, 132) for k in (1, 8, 65)) == want
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", pathlib.Path(__file__).parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("k", [1, 3])
+def test_panel_and_trsv_yardsticks_match_the_plain_factor(matern24, k):
+    # chip_smoke.py's library yardsticks of K6 (cholesky_ex of the densified, permuted, equilibrated matrix, then
+    # the gather onto L's pattern) and K7 (cholesky_solve on the densified factor, permuted and scaled) against
+    # the plain factorization and its solve, all four chains (the fourth one's Q is not symmetric)
+    cs = _chip_smoke()
+    Q = SparseMatrix(_t(matern24["data"]), _port_pattern(matern24["pattern"]))
+    f = tsn.supernodal_factorize(Q)
+    assert _rel(cs.k6_library(Q, f.meta)().numpy(), f.vals[:, :-1].numpy()) <= RTOL
+    b = _t(np.random.default_rng(7).normal(size=(4, Q.shape[0], k) if k > 1 else (4, Q.shape[0])))
+    assert _rel(cs.k7_library(f, b)().numpy(), f.solve(b).numpy()) <= RTOL
+
+
+def test_launch_descriptors_lay_out_a_level():
+    # K6 and K7 take a level's class batches in one launch: their table gives each batch its first block (the
+    # supernodes before it) and, on K6's cluster path, the offset of its workspace (its values per supernode over
+    # all chains times the supernodes before it); ubase / fbase are the batches' own
+    level = [dict(panel=torch.zeros(P, W + M, W, dtype=torch.int32), cols=torch.zeros(P, W, dtype=torch.int32),
+                  rows=torch.zeros(P, M, dtype=torch.int32), W=W, M=M, ubase=ub, fbase=fb)
+             for W, M, P, ub, fb in ((16, 128, 3, 0, 0), (32, 256, 2, 3 * 128**2, 3 * 128), (128, 512, 1, 7, 9))]
+    slices = [4 * kernels.supernodal._panel_slice(c["W"], c["M"]) for c in level]
+    got = kernels.supernodal._descriptors(level, "cpu", slices).numpy()
+    assert got.shape == (3, 10)
+    assert [list(r[3:9]) for r in got] == [[16, 128, 3, 0, 0, 0], [32, 256, 2, 3, 3 * 128**2, 3 * 128],
+                                          [128, 512, 1, 5, 7, 9]]
+    assert list(got[:, 9]) == [0, 3 * slices[0], 3 * slices[0] + 2 * slices[1]]
+    assert list(got[:, 0]) == [c["panel"].data_ptr() for c in level]
+    # (W + M) x W float64 panel in 64-column tiles, then one inverted 64 x 64 tile per column tile
+    assert kernels.supernodal._panel_slice(128, 512) == (128 + 512) * 128 + 2 * 64 * 64
+    assert kernels.supernodal._panel_slice(16, 128) == (64 + 128) * 64 + 64 * 64
+
+
+@pytest.mark.parametrize("g,max_width", [(24, 2048), (12, 16)])
+def test_panel_columns_are_consecutive_in_vals(g, max_width):
+    # K6 and K7 read L(r, c) at base[c] + r - c: a live column of a panel runs down consecutive positions of vals
+    # from its diagonal through the rows below (CSC), whatever the class batch and level
+    model = JaxMatern(_grid(g), smoothness=1)
+    Q = SparseMatrix(_t(np.asarray(model.precision(tau=1.0, range=0.25).data)),
+                     _port_pattern(model.precision(tau=1.0, range=0.25).pattern))
+    f = tsn.supernodal_factorize(Q, max_width=max_width)
+    seen = 0
+    for lv in tsn._device_plan(f.meta, torch.device("cpu"))["levels"]:
+        for c in lv.classes:
+            W, pan = c["W"], c["panel"].numpy()
+            for p in range(pan.shape[0]):
+                ns = int((pan[p, np.arange(W), np.arange(W)] != c["dummy"]).sum())
+                m = int((pan[p, W:, 0] != c["dummy"]).sum()) if c["M"] else 0
+                for col in range(ns):
+                    run = np.concatenate([pan[p, col:ns, col], pan[p, W:W + m, col]])
+                    assert np.array_equal(run, pan[p, col, col] + np.arange(len(run)))
+                seen += ns > 0
+    assert seen == tsn._PLAN_CACHE[f.meta]["nsuper"]

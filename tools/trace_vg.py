@@ -1,7 +1,7 @@
 """Time and trace one batched Laplace value+grad of tpu_gmrf_torch, from the
 source tree given as the first argument; needs a CUDA device.
 
-    python3 tools/trace_vg.py <root> [spatial] [flagship] [k9] [nuts]
+    python3 tools/trace_vg.py <root> [spatial] [supernodal] [flagship] [k9] [nuts] [rbmc] [k7tiles]
 
 ``spatial`` is chip_smoke.py's phase 11 value+grad: the Matérn + Poisson
 model on the 63x63 grid (n=5741), 4 chains at θ = (1, 0.3), 10 Newton
@@ -12,7 +12,25 @@ phase 3c's shape (the g=16 posterior, B=8, n=450, f64): its host time per
 call (200 calls enqueued, before the synchronize) and the host CUDA calls
 of one call in a trace, with their host time. ``nuts`` runs phases 10 and
 11's run_nuts (g=16, 8 chains, auto -> dense; n=5741, 4 chains, auto ->
-banded; both uncut, f64) and prints their samples/s. Each value+grad case
+banded; both uncut, f64) and prints their samples/s. ``supernodal`` is
+phase 7's value+grad (the same model with the supernodal inner solver, 10
+Newton iterations, float32 at phase 7's θ), then, on phase 3b's posterior
+(B=4, n=5741, float64 and float32), one factorization and one solve at k=1
+and at k=8: for K6 `sn_panel` and K7 `sn_trsv` each call's device time by
+the class batches (W, M, P) it took (one, or a whole level's; the kernels'
+launches matched in order to the wrapper calls that made them), and each
+call's host time (the wrapper's enqueue). ``rbmc`` times chip_smoke.py's
+phase 14 estimators, f64: rbmc_var at n=14058 (1000 draws, one backward
+solve of 1000 right-hand sides) and block_rbmc_var at n=5741 (100 draws),
+one warm-up and 3 timed calls each (host clock, ending in a synchronize;
+block RBMC's host plan made before). ``k7tiles`` (this tree's K7 only)
+times K7's two column tiles against each other around phase 14's shapes
+(n=14058 B=1 k=1000, n=5741 B=1 k=100) and phase 3b's (n=5741 B=4 k=65,
+the posterior), f64: the whole solve and backward solve with the tile
+`trsv_launch` picks and with 8 forced, in turns (picked, 8, 8, picked),
+by CUDA events; then each level's K7 launch alone, forward and backward,
+with 8 and with 64 columns (8, 64, 64, 8).
+Each value+grad case
 is warmed up with 2 calls, then
 timed over 3 calls (host clock around work that ends in
 ``torch.cuda.synchronize()``), then traced once with torch.profiler
@@ -74,6 +92,125 @@ def trace(label: str, ld, z) -> None:
         print(f"    {name[:90]:90s} calls={c:6d} device_ms={t:9.3f} per_call_ms={t / c:.4f}", flush=True)
 
 
+class _Recorder:
+    """Wraps the supernodal solver's K6 and K7 entries to record, per call, the
+    class batch (W, M, P), the wrapper's launches and its host time."""
+
+    KEYS = {"panel": ("sn_panel", kernels.sn_panel), "trsv": ("sn_trsv", kernels.sn_trsv)}
+
+    def __init__(self):
+        from tpu_gmrf_torch.solvers import supernodal as sn
+
+        self.ops, self.calls = sn._KERNEL_OPS, []
+        self.saved = {k: self.ops[k] for k in self.KEYS}
+        for key, (name, fn) in self.KEYS.items():
+            self.ops[key] = self._wrap(name, fn)
+
+    def _wrap(self, name, fn):
+        def run(vals, c, *args, **kw):
+            before, t0 = fn.launches, time.perf_counter()
+            out = fn(vals, c, *args, **kw)
+            batches = c["classes"] if "classes" in c else [c]  # a level's group; one class batch in older trees
+            self.calls.append((name, tuple((cc["W"], cc["M"], cc["panel"].shape[0]) for cc in batches),
+                               fn.launches - before, (time.perf_counter() - t0) * 1e3))
+            return out
+
+        return run
+
+    def restore(self):
+        self.ops.update(self.saved)
+
+    def by_batch(self, prof, name: str):
+        """{((W, M, P), ...): [calls, device ms, host ms]} of kernel `name` over the calls recorded in `prof`, by the
+        class batches a call took (one, or a level's)."""
+        dev = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                      and name in e.name), key=lambda e: e.time_range.start)
+        out, i = {}, 0
+        for nm, key, launches, host in self.calls:
+            if nm != name:
+                continue
+            ms = sum(e.device_time_total for e in dev[i:i + launches]) / 1e3
+            i += launches
+            row = out.setdefault(key, [0, 0.0, 0.0])
+            row[0] += 1
+            row[1] += ms
+            row[2] += host
+        if i != len(dev):
+            print(f"    (warning: {len(dev)} {name} kernels traced, {i} matched to calls)", flush=True)
+        return out
+
+
+def print_batches(label: str, rows: dict, top: int = 12) -> None:
+    total = sum(r[1] for r in rows.values())
+    calls = sum(r[0] for r in rows.values())
+    host = sum(r[2] for r in rows.values())
+    print(f"  {label}: {calls} calls, device {total:.3f} ms, host (enqueue) {host:.3f} ms "
+          f"({host / max(calls, 1):.4f} per call); by the class batches (W, M, P) of a call, the costliest {top}:",
+          flush=True)
+    for key, (c, ms, h) in sorted(rows.items(), key=lambda kv: -kv[1][1])[:top]:
+        print(f"    calls={c:4d} device_ms={ms:8.4f} per_call_ms={ms / c:.4f} host_per_call_ms={h / c:.4f} "
+              f"{' '.join('(%d,%d,%d)' % w for w in key)}", flush=True)
+
+
+def traced(fn):
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    return prof, wall
+
+
+def trace_supernodal(dev) -> None:
+    from tpu_gmrf_torch.solvers import supernodal as sn
+    from tpu_gmrf_torch.sparse.matrix import spdiag
+
+    model = cs.spatial_model(cs.SP_GRID)
+    y = cs.spatial_y(model, cs.SP_GRID)
+    z = torch.tensor(np.tile([0.0, np.log(0.3)], (4, 1)) + np.random.default_rng(5).normal(scale=0.3, size=(4, 2)),
+                     dtype=torch.float32, device=dev)
+    rec = _Recorder()
+    try:
+        trace("phase 7 value+grad (n=5741, B=4, supernodal inner solver, f32)", cs.spatial_logdensity(model, y), z)
+        rec.calls.clear()
+        prof, wall = traced(lambda: value_and_grad(cs.spatial_logdensity(model, y), z))
+        rec.calls = rec.calls[len(rec.calls) // 2:]  # the traced call's, after the warm-up's
+        for name in ("sn_panel", "sn_trsv"):
+            print_batches(f"phase 7 value+grad {name}", rec.by_batch(prof, name))
+        B, n = 4, model.n
+        rng = np.random.default_rng(3)
+        for dtype in (torch.float64, torch.float32):
+            prior = model.precision(tau=torch.ones(B, dtype=dtype, device=dev),
+                                    range=torch.full((B,), 0.25, dtype=dtype, device=dev))
+            post = prior + spdiag(torch.tensor(np.exp(rng.normal(scale=0.5, size=(B, n))), dtype=dtype, device=dev))
+            tn = "f64" if dtype == torch.float64 else "f32"
+            rec.calls.clear()
+            prof, wall = traced(lambda: sn.supernodal_factorize(post))
+            rec.calls = rec.calls[len(rec.calls) // 2:]
+            print(f"{os.path.relpath(root)} phase 3b posterior factorization B={B} n={n} {tn}: one call {wall:.3f} "
+                  f"ms (host clock, traced)", flush=True)
+            print_batches(f"factorization {tn} sn_panel", rec.by_batch(prof, "sn_panel"), 46)
+            f = sn.supernodal_factorize(post)
+            for k in (1, 8):
+                b = torch.tensor(rng.normal(size=(B, n, k) if k > 1 else (B, n)), dtype=dtype, device=dev)
+                rec.calls.clear()
+                prof, wall = traced(lambda: f.solve(b))
+                rec.calls = rec.calls[len(rec.calls) // 2:]
+                busy = sum(e.device_time_total for e in prof.events()
+                           if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+                rows = rec.by_batch(prof, "sn_trsv")
+                print(f"{os.path.relpath(root)} solve {tn} k={k}: one call {wall:.3f} ms (host clock, traced), device "
+                      f"busy {busy:.3f} ms, idle {100.0 * (1.0 - busy / wall):.1f}%; solves by events "
+                      f"{cs.cuda_ms(lambda: f.solve(b), 10, 2):.3f} ms", flush=True)
+                print_batches(f"solve {tn} k={k} sn_trsv", rows, 8)
+    finally:
+        rec.restore()
+
+
 def trace_k9(dev) -> None:
     from torch.profiler import ProfilerActivity, profile
 
@@ -105,6 +242,93 @@ def trace_k9(dev) -> None:
           f"calls {', '.join(f'{k} x{n} {us:.1f} us' for k, (n, us) in sorted(calls.items()))}", flush=True)
 
 
+def time_rbmc(dev) -> None:
+    import tpu_gmrf_torch as tg
+    from tpu_gmrf_torch.solvers.rbmc import _block_rbmc_plan, block_rbmc_var, rbmc_var
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    for grid, fn, S in ((cs.STATS_GRID, rbmc_var, cs.RBMC_SAMPLES), (cs.SP_GRID, block_rbmc_var,
+                                                                     cs.BLOCK_RBMC_SAMPLES)):
+        Q = cs.matern_precision(cs.spatial_model(grid), torch.float64, dev)
+        if fn is block_rbmc_var:
+            _block_rbmc_plan(Q.pattern, 1)
+        with torch.no_grad():
+            g = tg.GMRF.from_precision(torch.zeros(Q.shape[0], dtype=torch.float64, device=dev), Q,
+                                       tg.SolverSpec(kind="supernodal"))
+        fn(g, gen, n_samples=S)
+        ts = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(g, gen, n_samples=S)
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        print(f"{os.path.relpath(root)} {fn.__name__} n={Q.shape[0]} S={S} f64: median {np.median(ts):.2f} ms "
+              f"(min {min(ts):.2f}, max {max(ts):.2f})", flush=True)
+
+
+def time_k7_tiles(dev) -> None:
+    from tpu_gmrf_torch.kernels import supernodal as ks
+    from tpu_gmrf_torch.solvers import supernodal as sn
+    from tpu_gmrf_torch.sparse.matrix import spdiag
+
+    picked = ks.trsv_launch
+    rng = np.random.default_rng(9)
+
+    def forced(nt):
+        return lambda W, k, units, sms: (nt, -(-k // nt))
+
+    for grid, B, ks_ in ((cs.STATS_GRID, 1, (65, 100, 256, cs.RBMC_SAMPLES)),
+                         (cs.SP_GRID, 1, (16, 65, cs.BLOCK_RBMC_SAMPLES, 256, 1000)), (cs.SP_GRID, 4, (16, 65))):
+        model = cs.spatial_model(grid)
+        Q = model.precision(tau=torch.ones(B, dtype=torch.float64, device=dev),
+                            range=torch.full((B,), 0.25, dtype=torch.float64, device=dev))
+        if B > 1:  # phase 3b's posterior
+            Q = Q + spdiag(torch.tensor(np.exp(rng.normal(scale=0.5, size=(B, model.n))), device=dev))
+        f = sn.supernodal_factorize(Q)
+        levels = sn._device_plan(f.meta, dev)["levels"]
+        for k in ks_:
+            b = torch.tensor(rng.normal(size=(B, model.n, k)), dtype=torch.float64, device=dev)
+            tiles = [picked(max(c["W"] for c in lv.classes), k, B * sum(c["panel"].shape[0] for c in lv.classes),
+                            ks._sm_count(dev))[0] for lv in levels]
+            row = {}
+            for form in ("picked", "8", "8", "picked"):
+                ks.trsv_launch = picked if form == "picked" else forced(8)
+                try:
+                    with torch.no_grad():
+                        for name, fn in (("solve", f.solve), ("backward_solve", f.backward_solve)):
+                            row.setdefault((name, form), []).append(cs.cuda_ms(lambda: fn(b), 5, 2))
+                finally:
+                    ks.trsv_launch = picked
+            print(f"{os.path.relpath(root)} K7 column tiles, n={model.n} B={B} k={k} f64 (picked by level: "
+                  f"{' '.join(map(str, tiles))}):", flush=True)
+            for name in ("solve", "backward_solve"):
+                print(f"    {name}: picked {' '.join('%.3f' % t for t in row[(name, 'picked')])} ms, all 8 "
+                      f"{' '.join('%.3f' % t for t in row[(name, '8')])} ms", flush=True)
+            # each level's K7 launch alone, forward and backward, with 8 and with 64 columns where 64 fit
+            xp = torch.zeros(B * k, model.n + 1, dtype=torch.float64, device=dev)
+            xp[:, :-1] = torch.tensor(rng.normal(size=(B * k, model.n)), device=dev)
+            for li, lv in enumerate(levels):
+                Wmax = max(c["W"] for c in lv.classes)
+                if Wmax > 2 * ks.K8_TILE:
+                    continue
+                u = xp.new_zeros(B * k, lv.zf + 1)
+                ms = {}
+                for nt in (8, 64, 64, 8):
+                    ks.trsv_launch = forced(nt)
+                    try:
+                        for mode in (ks.FORWARD, ks.BACKWARD):
+                            x0 = xp.clone()
+                            ms.setdefault((mode, nt), []).append(cs.cuda_ms(
+                                lambda: ks.sn_trsv(f.vals, lv.group, x0, u, mode, k), 10, 2))
+                    finally:
+                        ks.trsv_launch = picked
+                units = B * sum(c["panel"].shape[0] for c in lv.classes)
+                print(f"    level {li:2d} Wmax={Wmax:3d} units={units:4d} k={k:4d}: forward 8 "
+                      f"{np.mean(ms[(0, 8)]):.4f} 64 {np.mean(ms[(0, 64)]):.4f}, backward 8 "
+                      f"{np.mean(ms[(1, 8)]):.4f} 64 {np.mean(ms[(1, 64)]):.4f} ms", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("trace_vg: no CUDA device", file=sys.stderr)
@@ -125,8 +349,14 @@ def main() -> int:
         for dtype in (torch.float32, torch.float64):
             trace(f"flagship value+grad (B=256, n=500, {'f32' if dtype == torch.float32 else 'f64'})", ld,
                   torch.tensor(zz, dtype=dtype, device=dev))
+    if "supernodal" in which:
+        trace_supernodal(dev)
     if "k9" in which:
         trace_k9(dev)
+    if "rbmc" in which:
+        time_rbmc(dev)
+    if "k7tiles" in which:
+        time_k7_tiles(dev)
     if "nuts" in which:
         for cfg, grid in ((cs.NUTS_G16, cs.NUTS_G16["grid"]), (cs.NUTS_5741, cs.SP_GRID)):
             model = cs.spatial_model(grid)

@@ -1,9 +1,8 @@
 // Building blocks of the dense kernels K10-K12 (csrc/dense.cu, csrc/banded.cu):
 // a batched blocked right-looking Cholesky of tall panels, spread over
 // (chain, tile) thread blocks (K11's rescue of the chains that broke down),
-// and block-level triangular solves of one vector (K10). The tiled block
-// product (`gemm_tile`, `block_gemm`), `Eps` and `set_smem` are shared with
-// K6/K8 (csrc/supernodal.cu).
+// and block-level triangular solves of one vector (K10). `Eps` is shared
+// with K6 (csrc/supernodal.cu).
 //
 // Layout. Chain b's matrix starts at A + b * stride, row-major with leading
 // dimension ld. A panel is H x W (H >= W): its top W x W part is factored
@@ -132,7 +131,7 @@ __global__ void __launch_bounds__(kRT)
   }
 }
 
-// ---- the tiled block product (also K6/K8's, csrc/supernodal.cu) ---------------
+// ---- the tiled block product -------------------------------------------------
 
 constexpr int kLd = kGB + 1;  // padded row of the staged operand tiles (no bank conflicts)
 
@@ -185,17 +184,6 @@ __device__ void gemm_tile(T* Cm, long long ldc, const T* A, long long sai, long 
         *o = beta == T(0) ? alpha * acc[r][c] : beta * *o + alpha * acc[r][c];
       }
     }
-}
-
-// The whole product over one thread block, tile after tile.
-template <typename T>
-__device__ void block_gemm(T* Cm, long long ldc, const T* A, long long sai, long long sak, const T* B,
-                           long long sbk, long long sbj, int Mr, int Nc, int Kd, T alpha, T beta, bool lower, T* As,
-                           T* Bs) {
-  for (int i0 = 0; i0 < Mr; i0 += kGB)
-    for (int j0 = 0; j0 < Nc; j0 += kGB)
-      if (!lower || j0 <= i0 + kGB - 1)
-        gemm_tile(Cm, ldc, A, sai, sak, B, sbk, sbj, Mr, Nc, Kd, alpha, beta, lower, As, Bs, i0, j0);
 }
 
 // C(i, j) -= sum_k X(i, k) X(j, k) for j <= i, i < R, j < N, k < depth: one

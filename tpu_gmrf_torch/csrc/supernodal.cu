@@ -1,4 +1,4 @@
-// K6 sn_panel, K7 sn_trsv and K8 sn_takahashi: one size-class batch of one
+// K6 sn_panel, K7 sn_trsv and K8 sn_takahashi: the size-class batches of one
 // level of the supernodal Cholesky schedule, per chain.
 //
 // Replaces (JAX reference, tpu_gmrf/solvers/supernodal.py):
@@ -26,31 +26,55 @@
 // the live prefix (ns, m) only. Padded columns of the reference factor as
 // identity and padded rows as zeros, so skipping them changes nothing.
 //
-// What bounds them on the card. Per block (one chain, one supernode) the
-// work is O((ns+m) ns^2) for K6, O((ns+m) ns) for K7 and O(m^2 ns + ns^3)
-// for K8, over a gathered panel. Scan-level classes (ns <= 128, m <= 512)
-// are many small blocks: bound by the random gathers and by the per-column
-// __syncthreads of the column loop. The top separators (up to W = 1024,
-// M = 1024) are one block each: bound by that block's FMA rate against L2.
-// Design: one block per (supernode, chain). K6 is a right-looking column
-// Cholesky over the whole (ns+m) x ns panel, so Lb comes out of the same
-// loop; a panel that fits lives in dynamic shared memory, a larger one (the
-// top separators) in a global workspace slice of the block, factored by
-// column tiles held in shared memory with the rank-tile update of the
-// trailing columns and of U fused (`factor_tiled`). K8 keeps its operands
-// in shared memory or in a workspace slice the same way and does its
-// products with the shared-memory tiled block GEMM `block_gemm` of
-// dense_blocks.cuh (the tile K9-K12's trailing updates use). The pivot
-// boost of the reference is decided per block, exactly as the reference
-// decides it per batch element. No tensor cores: wgmma tiling and a
-// multi-block path for the few top separators are later work.
+// What bounds them on the card. Per (supernode, chain) the work is
+// O((ns+m) ns^2 + m^2 ns) for K6, O((ns+m) ns k) for K7 and O(m^2 ns + ns^3)
+// for K8, over a gathered panel. The scan levels are many small panels
+// (W <= 64): bound by the gathers and by the latency of the dependent
+// pivots. The top separators (up to W = 1024, M = 1024) are a few panels
+// each: bound by the chain of 64-wide diagonal tiles. At n = 5741 a level's
+// device work is tens of microseconds, so the host's launches matter too.
+// Design. The products run on tgtile's mma_slice from operands staged in
+// shared memory: float64 on the tensor cores (m16n8k4), float32 on the FMA
+// units. K6 computes a factor in its own type, as the reference does, with
+// correctly rounded float32 pivots (tgtile::pivot<true>): its float32 factor
+// of an ill-conditioned prior (n = 14058) is 1e-2 from the float64 one, and
+// only such a float32 computation keeps the kernel within 1e-3 of the
+// reference's float32 path (chip_smoke.py phases 3b and 6). K7 and K8
+// compute in float64 and round once on the way out. The columns of a
+// supernode are consecutive in vals (CSC: column c's live rows run down
+// from its diagonal, then the rows below), so L(r, c) is one load at
+// base[c] + r - c. The class batches of a level do not depend on each
+// other: K7 takes them all in one launch and K6 in one launch per path, a
+// table of `Batch` descriptors telling each block its batch. K6 has two
+// paths (kernels/supernodal.py panel_launch):
+//   - one block per (supernode, chain) for panels W <= 64 where the batch
+//     fills the card or has at most 64 rows below: the diagonal block in
+//     shared memory, factored with tgtile::factor_tile_smem (16-column warp
+//     blocks, no barrier per column) beside its inverse, Lb = Bm Ld^-T by a
+//     product with that inverse, U = Lb Lb^T by 64 x 64 tiles;
+//   - a cluster per (supernode, chain) for the rest (the top separators): the
+//     panel in a workspace, tgtile's Cholesky steps over the cluster
+//     (diagonal tile by block 0 with factor_tile, the rows below and the
+//     trailing update as tiles dealt out over the blocks), then U's tiles.
+// The pivot boost is the reference's, decided per (supernode, chain); on the
+// cluster path every block reads the attempt's flag after the same cluster
+// barrier, so the cluster retries together. K7 runs one block per
+// (supernode, chain, up to 8 or 64 right-hand sides): the columns' values in
+// shared memory, the diagonal block by 64-row tiles (the off-diagonal
+// products, then each tile's substitution by warps, one right-hand side per
+// warp, no block barrier per column), Lb y or Lb^T x as products over the
+// panel, which a block reads once: a chain's panel is read once per block
+// of its right-hand sides, so once for k <= 8, else ceil(k / 8) times, or
+// ceil(k / 64) on a level (W <= 128) whose 8-column blocks would crowd the
+// card (kernels/supernodal.py trsv_launch). K8 keeps its operands in shared memory
+// or in a workspace and gathers them through the panel and Schur tables.
 
 #include "dense_blocks.cuh"
 #include "tiles.cuh"
 
 namespace {
 
-using namespace tgdense;  // kThreads, Eps, set_smem, the tiled block product block_gemm
+using tgdense::Eps;
 
 // Live width ns (diagonal of the D block present) and live row count m
 // (column 0 of the Bm block present) of one panel. Live columns and rows are
@@ -69,277 +93,575 @@ __device__ void live_dims(const int* pidx, int W, int M, int dummy, int* s_ns, i
   __syncthreads();
 }
 
-// ---- K6 -------------------------------------------------------------------
+// One class batch of a K6 or K7 launch, which may cover all the batches of a
+// level (kernels/supernodal.py `_descriptors`): its tables, its shape, its
+// first block, the offsets of its slots in the level's update buffers and
+// (K6's cluster path) of its slice of the workspace.
+struct Batch {
+  const int* panel;
+  const int* cols;
+  const int* rows;
+  long long W, M, P, first, ubase, fbase, work;
+};
 
-constexpr int kTile = 32;  // widest column tile of the large-panel path
+// The batch of block `x` of a launch over ng batches (their blocks in order).
+__device__ __forceinline__ const Batch& batch_of(const Batch* bt, int ng, int x) {
+  int g = 0;
+  while (g + 1 < ng && x >= bt[g + 1].first) ++g;
+  return bt[g];
+}
 
-// Large-panel path of K6: right-looking Cholesky of the H x ns panel F (global
-// workspace) by column tiles of width `tile` held in shared memory (S, H x
-// tile): factor the tile's columns inside shared memory, write them back,
-// then apply the rank-`tile` update to the trailing columns of F and, fused,
-// to U = Lb Lb^T (lower, row stride M), each read-modify-written once per
-// tile. Lanes run along columns, so the global updates are coalesced and the
-// tile rows are shared-memory broadcasts. Returns with *s_fail set on a
-// pivot breakdown (at once when `stop`).
-template <typename T>
-__device__ void factor_tiled(T* F, int ns, int H, T* ub, int M, T* S, int tile, T tiny, bool stop,
-                             int* s_fail, T* s_piv) {
-  const int m = H - ns;
-  for (long long e = threadIdx.x; e < (long long)m * m; e += blockDim.x) {
-    const int i = (int)(e / m), j = (int)(e % m);
-    if (j <= i) ub[(long long)i * M + j] = T(0);
-  }
-  for (int k0 = 0; k0 < ns; k0 += tile) {
-    const int t = min(tile, ns - k0), R = H - k0, ld = t + 1;  // odd stride: no bank conflicts
-    for (long long e = threadIdx.x; e < (long long)R * t; e += blockDim.x)
-      S[(e / t) * ld + e % t] = F[(long long)(k0 + e / t) * ns + k0 + e % t];
-    __syncthreads();
-    for (int j = 0; j < t; ++j) {
-      if (threadIdx.x == 0) {
-        const T l = sqrt(S[j * ld + j]);
-        if (!(isfinite(l) && l > tiny)) *s_fail = 1;
-        S[j * ld + j] = l;
-        *s_piv = l;
-      }
-      __syncthreads();
-      if (*s_fail && stop) return;
-      const T inv = T(1) / *s_piv;
-      for (int i = j + 1 + threadIdx.x; i < R; i += blockDim.x) S[(long long)i * ld + j] *= inv;
-      __syncthreads();
-      for (int i = j + 1 + threadIdx.x; i < R; i += blockDim.x) {
-        T* Si = S + (long long)i * ld;
-        const T lij = Si[j];
-        const int qend = i < t ? i : t - 1;
-        for (int q = j + 1; q <= qend; ++q) Si[q] -= lij * S[(long long)q * ld + j];
-      }
-      __syncthreads();
-    }
-    for (long long e = threadIdx.x; e < (long long)R * t; e += blockDim.x)
-      F[(long long)(k0 + e / t) * ns + k0 + e % t] = S[(e / t) * ld + e % t];
-    const int nrem = ns - k0 - t, ncols = nrem + m;
-    for (int c0 = 0; c0 < ncols; c0 += blockDim.x) {
-      const int cc = c0 + threadIdx.x;
-      const bool active = cc < ncols;
-      const int ic = !active ? R : (cc < nrem ? t + cc : ns - k0 + (cc - nrem));  // tile row of the column
-      T sc[kTile];
+// ---- the products, shared by K6-K8 -------------------------------------------
+
+namespace sn {
+
+using tgtile::Acc;
+using tgtile::Cfg;
+using tgtile::kKS;
+using tgtile::kLdS;
+using tgtile::kT;
+using tgtile::kThr;
+using tgtile::kTT;
+
+// values of the two staged operand slices of a 64 x NT product
+template <int NT>
+__host__ __device__ constexpr int stage_values() {
+  return 2 * kKS * (Cfg<NT>::LDA + Cfg<NT>::LDB);
+}
+
+// acc (64 x NT) += sum_{p < Kd} a(i, p) b(p, j) over i < Mr, j < Nc (zeros
+// outside), in the accumulators' type V: float64 on the tensor cores,
+// float32 on the FMA units (tgtile::mma_slice). The operands are functors
+// (a gather through an index table, a transposed read, a tile in shared
+// memory) whose values are staged as V 32 deep into shared memory, the next slice
+// loaded into registers while the current one is multiplied. a_by_rows(k0)
+// says for the slice at depth k0 whether neighbouring threads load
+// neighbouring rows i of A (true) or neighbouring depths p (false): whichever
+// keeps the reads of that slice contiguous. Every thread of the block calls
+// it; it ends with a block barrier.
+template <int NT, typename V, typename FA, typename FB, typename AR>
+__device__ void gather_mma(Acc<V, NT>& acc, FA a, FB b, int Mr, int Nc, int Kd, AR a_by_rows, V* sm) {
+  using C = Cfg<NT>;
+  V* As = sm;                     // [2][kKS][LDA]
+  V* Bs = sm + 2 * kKS * C::LDA;  // [2][kKS][LDB]
+  const int tid = threadIdx.x;
+  V ra[C::AV], rb[C::BV];
+  bool rows = true;
+  // the u-th A value of a thread: (tid % 64, tid / 64 + 4u) by rows, (tid / 32 + 8u, tid % 32) by depths
+  auto ai = [&](int u) { return rows ? tid % kT : tid / kKS + u * (kThr / kKS); };
+  auto ap = [&](int u) { return rows ? tid / kT + u * (kThr / kT) : tid % kKS; };
+  auto load = [&](int k0) {
+    rows = a_by_rows(k0);
 #pragma unroll
-      for (int q = 0; q < kTile; ++q) sc[q] = (active && q < t) ? S[(long long)ic * ld + q] : T(0);
-      for (int i = t; i < R; ++i) {
-        if (i < ic) continue;  // lower triangle only
-        const T* Si = S + (long long)i * ld;
-        T acc = T(0);
-#pragma unroll
-        for (int q = 0; q < kTile; ++q)
-          if (q < t) acc += Si[q] * sc[q];
-        if (cc < nrem)
-          F[(long long)(k0 + i) * ns + k0 + t + cc] -= acc;
-        else
-          ub[(long long)(i - (ns - k0)) * M + (cc - nrem)] += acc;
-      }
+    for (int u = 0; u < C::AV; ++u) {
+      const int i = ai(u), p = k0 + ap(u);
+      ra[u] = (i < Mr && p < Kd) ? V(a(i, p)) : V(0);
     }
+#pragma unroll
+    for (int u = 0; u < C::BV; ++u) {
+      const int j = tid % NT, p = k0 + tid / NT + u * (kThr / NT);
+      rb[u] = (j < Nc && p < Kd) ? V(b(p, j)) : V(0);
+    }
+  };
+  auto store = [&](int buf) {
+#pragma unroll
+    for (int u = 0; u < C::AV; ++u) As[(buf * kKS + ap(u)) * C::LDA + ai(u)] = ra[u];
+#pragma unroll
+    for (int u = 0; u < C::BV; ++u) Bs[(buf * kKS + tid / NT + u * (kThr / NT)) * C::LDB + tid % NT] = rb[u];
+  };
+  const int slices = (Kd + kKS - 1) / kKS;
+  if (slices == 0) return;
+  load(0);
+  store(0);
+  __syncthreads();
+  for (int s = 0; s < slices; ++s) {
+    if (s + 1 < slices) load((s + 1) * kKS);
+    tgtile::mma_slice<V, NT>(acc, As + (s & 1) * kKS * C::LDA, Bs + (s & 1) * kKS * C::LDB);
+    if (s + 1 < slices) store((s + 1) & 1);
     __syncthreads();
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    sn_panel_kernel(T* __restrict__ vals, long long vs, const int* __restrict__ panel_idx,
-                    const int* __restrict__ cols_idx, int W, int M, int dummy, T* __restrict__ u,
-                    long long us, long long ubase, T* __restrict__ logpiv, int n,
-                    int* __restrict__ boost, T* __restrict__ work, int tile, T delta) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ int s_ns, s_m, s_fail;
-  __shared__ T s_piv;
-  __shared__ T s_red[kThreads];
-  __shared__ T As[kGK * kLd], Bs[kGK * kLd];
-  const int p = blockIdx.x;
-  const long long b = blockIdx.y;
-  const int* pidx = panel_idx + (long long)p * (W + M) * W;
-  const int* cidx = cols_idx + (long long)p * W;
-  T* vb = vals + b * vs;
-  live_dims(pidx, W, M, dummy, &s_ns, &s_m);
-  const int ns = s_ns, m = s_m, H = ns + m;
-  if (ns == 0) return;
-  // H x ns, row-major, row stride ld: in shared memory (odd stride, free of
-  // bank conflicts), or (large panels, tile > 0) in the block's workspace
-  // slice with a column tile in shared memory
-  T* F = tile ? work + ((long long)b * gridDim.x + p) * (long long)(W + M) * W
-              : reinterpret_cast<T*>(smem_raw);
-  const int ld = tile ? ns : ns + 1;
-  T* ub = m ? u + b * us + ubase + (long long)p * M * M : nullptr;
-  const T tiny = T(30) * Eps<T>::v;
-  auto prow = [&](int r) { return r < ns ? r : W + (r - ns); };
+// f(r, c, v) for every accumulator v (a reference) of the 64 x NT tile, at
+// its row r and column c (the layout of tgtile::tile_io).
+template <int NT, typename V, typename F>
+__device__ __forceinline__ void acc_each(Acc<V, NT>& acc, F f) {
+  using C = Cfg<NT>;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = warp % C::WM, wn = warp / C::WM;
+  const int r0 = wm * (kT / C::WM) + (lane >> 2), c0 = wn * (NT / C::WN) + 2 * (lane & 3);
+#pragma unroll
+  for (int i = 0; i < C::MT; ++i)
+#pragma unroll
+    for (int j = 0; j < C::NTT; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) f(r0 + 8 * i, c0 + 8 * j + e, acc.v[i][j][e]);
+}
 
-  for (int attempt = 0; attempt < 3; ++attempt) {
-    for (long long e = threadIdx.x; e < (long long)H * ns; e += blockDim.x) {
-      const int r = (int)(e / ns), c = (int)(e % ns);
-      const int idx = (r < ns && c > r) ? dummy : pidx[(long long)prow(r) * W + c];
-      F[(long long)r * ld + c] = idx != dummy ? vb[idx] : T(0);
+// Whether a panel's column runs down consecutive positions (CSC, the
+// supernodal factor) rather than along a row (the banded factor's row-major
+// blocks): it decides how K8's gathers of L, C and Sigma_RJ are spread over
+// the threads.
+__device__ __forceinline__ bool rows_contiguous(const int* pidx, int W, int ns) {
+  return ns > 1 && pidx[W] == pidx[0] + 1;
+}
+
+}  // namespace sn
+
+// ---- K6 -------------------------------------------------------------------
+
+using sn::Acc;
+using sn::kLdS;
+using sn::kT;
+using sn::kThr;
+using sn::kTT;
+
+constexpr double kTiny = 30.0;  // a pivot must exceed kTiny eps of the factor's type (the reference's test)
+
+// The largest row sum of |D| over the mirrored live block (lower(i, j) =
+// D(i, j) for j <= i), at least 1 when padded columns add their unit
+// diagonal: the reference's Gershgorin shift before the last attempt. Every
+// thread of the block calls it and gets the bound; red: kThr doubles.
+template <typename F>
+__device__ double gershgorin(F lower, int ns, int W, double* red) {
+  double dom = ns < W ? 1.0 : 0.0;
+  for (int i = threadIdx.x; i < ns; i += kThr) {
+    double s = 0.0;
+    for (int j = 0; j <= i; ++j) s += fabs(lower(i, j));
+    for (int j = i + 1; j < ns; ++j) s += fabs(lower(j, i));
+    dom = s > dom ? s : dom;
+  }
+  red[threadIdx.x] = dom;
+  __syncthreads();
+  for (int off = kThr / 2; off > 0; off >>= 1) {
+    if (threadIdx.x < off && red[threadIdx.x + off] > red[threadIdx.x]) red[threadIdx.x] = red[threadIdx.x + off];
+    __syncthreads();
+  }
+  dom = red[0];
+  __syncthreads();
+  return dom;
+}
+
+// Shared memory of the one-block path, in float64 values (a float32 factor uses half): Ld^-1 (64 x kLdS), the
+// pivots' reciprocals (64), then the diagonal block (64 x kLdS) while it is factored and the products' staging after.
+constexpr int kPanelTileValues = kT * kLdS + kT + sn::stage_values<64>();
+
+constexpr double kBoost = 2e-6;  // the reference's first boost, delta = 2e-6 W (`_boost_delta`)
+
+// K6 for panels W <= 64, block (x, b): supernode x - first of its batch, chain b.
+template <typename T>
+__global__ void __launch_bounds__(kThr)
+    sn_panel_tile_kernel(T* __restrict__ vals, long long vs, const Batch* __restrict__ bt, int ng, int dummy,
+                         T* __restrict__ u, long long us, T* __restrict__ logpiv, int n, int* __restrict__ boost) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ int s_ns, s_m, s_bad, base[kT];
+  __shared__ double red[kThr];
+  T* X = reinterpret_cast<T*>(smem_raw);  // Ld^-1
+  T* rinv = X + kT * kLdS;
+  T* stage = rinv + kT;  // the products' staging (16-byte aligned)
+  T* S = stage;          // the diagonal block until then
+  const Batch& bat = batch_of(bt, ng, blockIdx.x);
+  const int W = (int)bat.W, M = (int)bat.M, p = blockIdx.x - (int)bat.first, tid = threadIdx.x;
+  const long long b = blockIdx.y, ubase = bat.ubase;
+  const double delta = kBoost * W;
+  const int* pidx = bat.panel + (long long)p * (W + M) * W;
+  const int* cols_idx = bat.cols;
+  live_dims(pidx, W, M, dummy, &s_ns, &s_m);
+  const int ns = s_ns, m = s_m;
+  if (ns == 0) return;
+  T* vb = vals + b * vs;
+  if (tid < ns) base[tid] = pidx[tid * W + tid];
+  __syncthreads();
+  auto at = [&](int r, int c) { return vb + base[c] + r - c; };  // live row r (the rows below from ns on), c <= r
+  int attempt = 0;
+  for (;; ++attempt) {
+    for (int e = tid; e < kTT; e += kThr) {  // by columns: a column's rows are consecutive in vals
+      const int c = e / kT, r = e % kT;
+      S[r * kLdS + c] = (r < ns && c <= r) ? *at(r, c) : T(r == c ? 1 : 0);
     }
-    if (threadIdx.x == 0) s_fail = 0;
+    if (tid == 0) s_bad = 0;
     __syncthreads();
     if (attempt > 0) {
-      T shift = delta;
-      if (attempt == 2) {
-        // Gershgorin bound of the mirrored block, padded diagonal ones included
-        T dom = ns < W ? T(1) : T(0);
-        for (int i = threadIdx.x; i < ns; i += blockDim.x) {
-          T s = T(0);
-          for (int j = 0; j <= i; ++j) s += fabs(F[(long long)i * ld + j]);
-          for (int j = i + 1; j < ns; ++j) s += fabs(F[(long long)j * ld + i]);
-          dom = s > dom ? s : dom;
-        }
-        s_red[threadIdx.x] = dom;
-        __syncthreads();
-        for (int off = blockDim.x / 2; off > 0; off >>= 1) {
-          if (threadIdx.x < off && s_red[threadIdx.x + off] > s_red[threadIdx.x])
-            s_red[threadIdx.x] = s_red[threadIdx.x + off];
-          __syncthreads();
-        }
-        shift = s_red[0] + delta;
-        __syncthreads();
-      }
-      for (int i = threadIdx.x; i < ns; i += blockDim.x) F[(long long)i * ld + i] += shift;
+      double shift = delta;
+      if (attempt == 2) shift += gershgorin([&](int i, int j) { return double(S[i * kLdS + j]); }, ns, W, red);
+      if (tid < ns) S[tid * (kLdS + 1)] += T(shift);
       __syncthreads();
     }
-    if (tile) {
-      factor_tiled(F, ns, H, ub, M, reinterpret_cast<T*>(smem_raw), tile, tiny, attempt < 2, &s_fail,
-                   &s_piv);
-      __syncthreads();
-    }
-    for (int j = 0; j < ns && !tile; ++j) {
-      if (threadIdx.x == 0) {
-        const T l = sqrt(F[(long long)j * ld + j]);
-        if (!(isfinite(l) && l > tiny)) s_fail = 1;
-        F[(long long)j * ld + j] = l;
-        s_piv = l;
-      }
-      __syncthreads();
-      if (s_fail && attempt < 2) break;
-      const T inv = T(1) / s_piv;
-      for (int r = j + 1 + threadIdx.x; r < H; r += blockDim.x) F[(long long)r * ld + j] *= inv;
-      __syncthreads();
-      for (int r = j + 1 + threadIdx.x; r < H; r += blockDim.x) {
-        T* Fr = F + (long long)r * ld;
-        const T lrj = Fr[j];
-        const int cend = r < ns ? r : ns - 1;
-        for (int c = j + 1; c <= cend; ++c) Fr[c] -= lrj * F[(long long)c * ld + j];
-      }
-      __syncthreads();
-    }
-    const int failed = s_fail;
-    __syncthreads();
-    if (attempt == 0 && failed && threadIdx.x == 0) atomicAdd(boost + b, 1);
-    if (!failed) break;
+    tgtile::factor_tile_smem<true>(S, X, rinv, ns, &s_bad, T(kTiny * Eps<T>::v), [] {});
+    const int bad = s_bad;
+    __syncthreads();  // every thread has read the flag before the next attempt resets it
+    if (!bad || attempt == 2) break;
   }
+  if (attempt > 0 && tid == 0) atomicAdd(boost + b, 1);
+  for (int e = tid; e < kTT; e += kThr) {
+    const int c = e / kT, r = e % kT;
+    if (r < ns && c <= r) *at(r, c) = S[r * kLdS + c];
+  }
+  if (tid < ns) logpiv[b * n + cols_idx[(long long)p * W + tid]] = T(log(double(S[tid * (kLdS + 1)])));
+  if (m == 0) return;
+  __syncthreads();  // S becomes the staging
+  for (int r0 = 0; r0 < m; r0 += kT) {  // Lb = Bm Ld^-T, 64 rows at a time
+    Acc<T, 64> acc;
+    acc.zero();
+    sn::gather_mma<64>(
+        acc, [&](int i, int q) { return *at(ns + r0 + i, q); }, [&](int q, int j) { return q <= j ? X[j * kLdS + q] : T(0); },
+        min(kT, m - r0), ns, ns, [](int) { return true; }, stage);
+    sn::acc_each<64>(acc, [&](int r, int c, T& v) {
+      if (r0 + r < m && c < ns) *at(ns + r0 + r, c) = v;
+    });
+  }
+  __syncthreads();  // Lb is in vals
+  T* ub = u + b * us + ubase + (long long)p * M * M;
+  for (int I = 0; I * kT < m; ++I)  // U = Lb Lb^T, lower, by 64 x 64 tiles
+    for (int J = 0; J <= I; ++J) {
+      const int r0 = I * kT, c0 = J * kT;
+      Acc<T, 64> acc;
+      acc.zero();
+      sn::gather_mma<64>(
+          acc, [&](int i, int q) { return __ldcg(at(ns + r0 + i, q)); }, [&](int q, int j) { return __ldcg(at(ns + c0 + j, q)); },
+          min(kT, m - r0), min(kT, m - c0), ns, [](int) { return true; }, stage);
+      sn::acc_each<64>(acc, [&](int r, int c, T& v) {
+        if (r0 + r < m && c0 + c <= r0 + r) ub[(long long)(r0 + r) * M + c0 + c] = v;
+      });
+    }
+}
 
-  // write-back of the live positions, log pivots
-  for (long long e = threadIdx.x; e < (long long)H * ns; e += blockDim.x) {
-    const int r = (int)(e / ns), c = (int)(e % ns);
-    if (r < ns && c > r) continue;
-    vb[pidx[(long long)prow(r) * W + c]] = F[(long long)r * ld + c];
+// The first ntiles(ns) column tiles of the Cholesky of the H x H matrix whose
+// lower part is F (row stride ld), on the cluster: tgtile::chol_rows' steps
+// (the diagonal tile by block 0 in factor_tile, its last one ns - j0 wide;
+// the tiles below it times its inverse; the trailing update dealt out over
+// the cluster), the trailing update kept to those columns: what it would add
+// below and right of them is -U, formed after from the finished rows. *bad
+// set for a pivot that is not finite and above tiny. Ends with a cluster
+// barrier.
+template <typename T>
+__device__ void chol_panel(T* F, long long ld, int H, int ns, T* Dinv, int* bad, int rank, int cs, T* sm, T tiny) {
+  using namespace tgtile;
+  const int nt = ntiles(H), ntf = ntiles(ns);
+  for (int j = 0; j < ntf; ++j) {
+    const int j0 = j * kT;
+    if (rank == 0) factor_tile<true>(F + j0 * ld + j0, ld, min(kT, ns - j0), Dinv + (long long)j * kTT, bad, sm, tiny);
+    csync();
+    for (int i = j + 1 + rank; i < nt; i += cs) {  // F_ij <- F_ij L_jj^-T
+      T* Fij = F + (long long)i * kT * ld + j0;
+      gemm_rows<T, 64>(Fij, ld, Fij, ld, 1, Dinv + (long long)j * kTT, 1, kT, min(kT, H - i * kT), kT, kT, false, sm);
+    }
+    csync();
+    int idx = 0;  // F_il -= L_ij L_lj^T for j < l <= i, l < ntf
+    for (int i = j + 1; i < nt; ++i)
+      for (int l = j + 1; l <= i && l < ntf; ++l, ++idx) {
+        if (idx % cs != rank) continue;
+        const long long i0 = (long long)i * kT, l0 = (long long)l * kT;
+        gemm_rows<T, 64>(F + i0 * ld + l0, ld, F + i0 * ld + j0, ld, 1, F + l0 * ld + j0, 1, ld, min(kT, H - (int)i0),
+                         kT, kT, true, sm);
+      }
+    csync();
   }
-  for (int c = threadIdx.x; c < ns; c += blockDim.x)
-    logpiv[b * n + cidx[c]] = log(F[(long long)c * ld + c]);
-  // U = Lb Lb^T, lower triangle, into this supernode's slot of the level's
-  // buffer (the large-panel path has accumulated it already)
-  if (m == 0 || tile) return;
-  const T* Lb = F + (long long)ns * ld;
-  block_gemm(ub, M, Lb, ld, 1, Lb, 1, ld, m, m, ns, T(1), T(0), true, As, Bs);
+}
+
+// The workspace (values of the factor's type) of one (supernode, chain) of
+// K6's cluster path: the panel (Wq + M) x Wq, Wq = 64 ntiles(W), then its
+// inverted diagonal tiles.
+__host__ __device__ inline long long panel_slice(long long W, long long M) {
+  const long long Wq = tgtile::ntiles((int)W) * (long long)kT;
+  return (Wq + M) * Wq + tgtile::ntiles((int)W) * (long long)kTT;
+}
+
+// K6 on a cluster of cs = gridDim.x blocks per (supernode y - first of its
+// batch, chain b). The panel lives in the unit's workspace F (row stride
+// Wq): rows 0..Wp-1 the diagonal block (the identity beyond ns), rows
+// Wp..Wp+m-1 the rows below (zero beyond column ns), Wp = 64 ntiles(ns); its
+// inverted diagonal tiles follow. flags: three breakdown flags per unit, one
+// per attempt.
+template <typename T>
+__global__ void __launch_bounds__(kThr)
+    sn_panel_cluster_kernel(T* __restrict__ vals, long long vs, const Batch* __restrict__ bt, int ng, int dummy,
+                            T* __restrict__ u, long long us, T* __restrict__ logpiv, int n, int* __restrict__ boost,
+                            T* work, int* flags) {
+  using tgtile::csync;
+  using tgtile::ldcg;
+  using tgtile::ntiles;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ int s_ns, s_m;
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  const Batch& bat = batch_of(bt, ng, blockIdx.y);
+  const int W = (int)bat.W, M = (int)bat.M, rank = blockIdx.x, cs = gridDim.x, p = blockIdx.y - (int)bat.first;
+  const int tid = threadIdx.x;
+  const long long b = blockIdx.z, ubase = bat.ubase;
+  const double delta = kBoost * W;
+  const int* pidx = bat.panel + (long long)p * (W + M) * W;
+  const int* cols_idx = bat.cols;
+  live_dims(pidx, W, M, dummy, &s_ns, &s_m);
+  const int ns = s_ns, m = s_m;
+  if (ns == 0) return;  // the whole cluster
+  const int Wq = ntiles(W) * kT, ntf = ntiles(ns), Wp = ntf * kT, H = Wp + m;
+  T* F = work + bat.work + (b * bat.P + p) * panel_slice(W, M);
+  T* Dv = F + (long long)(Wq + M) * Wq;
+  int* fail = flags + 3 * (b * gridDim.y + blockIdx.y);
+  T* vb = vals + b * vs;
+  auto at = [&](int r, int c) { return vb + __ldg(pidx + (long long)c * W + c) + r - c; };
+  // f(i0, j0) for the 64 x 64 tiles of F's lower part in the first Wp columns, dealt out over the cluster
+  auto each_tile = [&](auto f) {
+    int idx = 0;
+    for (int I = 0; I < ntiles(H); ++I)
+      for (int J = 0; J < ntf && (I >= ntf || J <= I); ++J, ++idx)
+        if (idx % cs == rank) f(I * kT, J * kT);
+  };
+  if (rank == 0 && tid < 3) fail[tid] = 0;  // read after the cluster barriers below
+  int attempt = 0;
+  for (;; ++attempt) {
+    double shift = attempt == 0 ? 0.0 : delta;
+    if (attempt == 2)
+      shift += gershgorin([&](int i, int j) { return double(*at(i, j)); }, ns, W, reinterpret_cast<double*>(sm));
+    each_tile([&](int i0, int j0) {  // the tile through shared memory: vals read down columns, F written along rows
+#pragma unroll 4
+      for (int v = 0; v < kTT / kThr; ++v) {
+        const int e = tid + v * kThr, c = e / kT, r = e % kT, gr = i0 + r, gc = j0 + c;
+        T x = T(0);
+        if (gr < Wp)
+          x = (gr < ns && gc <= gr) ? *at(gr, gc) + (gr == gc ? T(shift) : T(0)) : T(gr == gc ? 1 : 0);
+        else if (gr < H && gc < ns)
+          x = *at(ns + gr - Wp, gc);
+        sm[c * kLdS + r] = x;
+      }
+      __syncthreads();
+#pragma unroll 4
+      for (int v = 0; v < kTT / kThr; ++v) {
+        const int e = tid + v * kThr, r = e / kT, c = e % kT;
+        if (i0 + r < H) F[(long long)(i0 + r) * Wq + j0 + c] = sm[c * kLdS + r];
+      }
+      __syncthreads();
+    });
+    csync();
+    chol_panel(F, Wq, H, ns, Dv, fail + attempt, rank, cs, sm, T(kTiny * Eps<T>::v));
+    if (attempt == 2 || ldcg(fail + attempt) == 0) break;  // every block reads the flag after the same barrier
+  }
+  if (attempt > 0 && rank == 0 && tid == 0) atomicAdd(boost + b, 1);
+  each_tile([&](int i0, int j0) {  // the factor back: F read along rows, vals written down columns
+#pragma unroll 4
+    for (int v = 0; v < kTT / kThr; ++v) {
+      const int e = tid + v * kThr, r = e / kT, c = e % kT;
+      sm[c * kLdS + r] = i0 + r < H ? ldcg(F + (long long)(i0 + r) * Wq + j0 + c) : T(0);
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int v = 0; v < kTT / kThr; ++v) {
+      const int e = tid + v * kThr, c = e / kT, r = e % kT, gr = i0 + r, gc = j0 + c;
+      if (gc < ns && gr < ns && gc <= gr)
+        *at(gr, gc) = sm[c * kLdS + r];
+      else if (gc < ns && gr >= Wp && gr < H)
+        *at(ns + gr - Wp, gc) = sm[c * kLdS + r];
+    }
+    __syncthreads();
+  });
+  for (int c = rank * kThr + tid; c < ns; c += cs * kThr)
+    logpiv[b * n + cols_idx[(long long)p * W + c]] = T(log(double(ldcg(F + (long long)c * Wq + c))));
+  T* ub = u + b * us + ubase + (long long)p * M * M;
+  int idx = 0;  // U = Lb Lb^T, lower, by 64 x 64 tiles dealt out over the cluster
+  for (int I = 0; I * kT < m; ++I)
+    for (int J = 0; J <= I; ++J, ++idx) {
+      if (idx % cs != rank) continue;
+      const int r0 = I * kT, c0 = J * kT;
+      Acc<T, 64> acc;
+      acc.zero();
+      tgtile::tile_mma<T, 64>(acc, F + (long long)(Wp + r0) * Wq, Wq, 1, F + (long long)(Wp + c0) * Wq, 1, Wq,
+                              min(kT, m - r0), min(kT, m - c0), ns, false, sm);
+      sn::acc_each<64>(acc, [&](int r, int c, T& v) {
+        if (r0 + r < m && c0 + c <= r0 + r) ub[(long long)(r0 + r) * M + c0 + c] = v;
+      });
+    }
 }
 
 // ---- K7 -------------------------------------------------------------------
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    sn_trsv_kernel(const T* __restrict__ vals, long long vs, const int* __restrict__ panel_idx,
-                   const int* __restrict__ cols_idx, const int* __restrict__ rows_idx, int W, int M,
-                   int ndummy, T* __restrict__ x, long long xs, int k, T* __restrict__ u, long long us,
-                   long long ubase, int mode, const T* __restrict__ z) {
+// Shared memory (float64 values) of K7 at column tile NT: the products'
+// staging, or the diagonal tile (64 x kLdS) and its pivots' reciprocals;
+// then the columns' values Y (64 ntiles(W) x (NT + 1)); then W int bases.
+template <int NT>
+__host__ __device__ constexpr int trsv_stage() {
+  return sn::stage_values<NT>() > kT * kLdS + kT ? sn::stage_values<NT>() : kT * kLdS + kT;
+}
+
+template <int NT>
+size_t trsv_smem(int Wmax) {
+  return sizeof(double) * (trsv_stage<NT>() + (size_t)tgtile::ntiles(Wmax) * kT * (NT + 1)) + sizeof(int) * Wmax;
+}
+
+// K7, block (x, b, chunk): supernode x - first of its batch (Wmax: the
+// widest batch of the launch), chain b, its right-hand sides chunk NT ..
+// chunk NT + kc - 1 (rows b k + ... of x, z and u). Mode 0: L y = x
+// (forward, u = Lb y); 1: L^T y = x with x's rows below known (backward);
+// 2: x[cols] += Ld z[cols], u = Lb z[cols] (the product, not a solve).
+template <typename T, int NT>
+__global__ void __launch_bounds__(kThr)
+    sn_trsv_kernel(const T* __restrict__ vals, long long vs, const Batch* __restrict__ bt, int ng, int Wmax,
+                   int dummy, T* __restrict__ x, long long xs, int k, T* __restrict__ u, long long us, int mode,
+                   const T* __restrict__ z) {
+  constexpr int LY = NT + 1, CPW = NT / 8;  // Y's row stride (odd); right-hand sides per warp
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ int s_ns, s_m;
-  __shared__ T s_y;
-  T* yc = reinterpret_cast<T*>(smem_raw);  // W
-  T* xr = yc + W;                          // M
-  const int p = blockIdx.x;
-  const long long bx = blockIdx.y;  // right-hand side row
-  const long long bv = bx / k;      // chain of the factor
-  const int* pidx = panel_idx + (long long)p * (W + M) * W;
-  const int* cidx = cols_idx + (long long)p * W;
-  const int* ridx = rows_idx + (long long)p * M;
-  const T* vb = vals + bv * vs;
-  T* xb = x + bx * xs;
-  if (threadIdx.x == 0) {
-    int ns = 0, m = 0;
-    while (ns < W && cidx[ns] != ndummy) ++ns;
-    while (m < M && ridx[m] != ndummy) ++m;
-    s_ns = ns;
-    s_m = m;
-  }
-  __syncthreads();
+  double* st = reinterpret_cast<double*>(smem_raw);  // the staging, or the diagonal tile Ls and rd
+  double* Ls = st;
+  double* rd = st + kT * kLdS;
+  double* Y = st + trsv_stage<NT>();
+  int* base = reinterpret_cast<int*>(Y + tgtile::ntiles(Wmax) * kT * LY);
+  const Batch& bat = batch_of(bt, ng, blockIdx.x);
+  const int W = (int)bat.W, M = (int)bat.M, p = blockIdx.x - (int)bat.first;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const long long b = blockIdx.y, ubase = bat.fbase;
+  const int k0 = blockIdx.z * NT, kc = min(NT, k - k0);
+  const long long row0 = b * k + k0;  // the first right-hand side's row
+  const int* pidx = bat.panel + (long long)p * (W + M) * W;
+  const int* cidx = bat.cols + (long long)p * W;
+  const int* ridx = bat.rows + (long long)p * M;
+  live_dims(pidx, W, M, dummy, &s_ns, &s_m);
   const int ns = s_ns, m = s_m;
   if (ns == 0) return;
-  auto L = [&](int r, int c) { return vb[pidx[(long long)r * W + c]]; };
-  if (mode == 2) {
-    // the product, not a solve: x[cols] += Ld z[cols] (lower triangle, live
-    // columns only: a padded column of the reference multiplies a zero),
-    // u = Lb z[cols]; a column of x has one owner, so the sum needs no atomics
-    const T* zb = z + bx * xs;
-    for (int c = threadIdx.x; c < ns; c += blockDim.x) yc[c] = zb[cidx[c]];
-    __syncthreads();
-    for (int i = threadIdx.x; i < ns; i += blockDim.x) {
-      T s = T(0);
-      for (int j = 0; j <= i; ++j) s += L(i, j) * yc[j];
-      xb[cidx[i]] += s;
-    }
-    T* ub = u + bx * us + ubase + (long long)p * M;
-    for (int r = threadIdx.x; r < m; r += blockDim.x) {
-      T s = T(0);
-      for (int c = 0; c < ns; ++c) s += L(W + r, c) * yc[c];
-      ub[r] = s;
-    }
-    return;
+  const T* vb = vals + b * vs;
+  for (int c = tid; c < ns; c += kThr) base[c] = pidx[(long long)c * W + c];
+  const T* src = mode == 2 ? z : x;
+  for (int e = tid; e < ns * NT; e += kThr) {  // Y = x[cols] (z[cols]); the columns are consecutive in x
+    const int j = e / ns, r = e % ns;
+    Y[r * LY + j] = j < kc ? double(src[(row0 + j) * xs + cidx[r]]) : 0.0;
   }
-  for (int c = threadIdx.x; c < ns; c += blockDim.x) yc[c] = xb[cidx[c]];
-  if (mode == 0) {
+  __syncthreads();
+  auto L = [&](int r, int c) { return double(vb[base[c] + r - c]); };  // live row r (below rows from ns on), c <= r
+  auto y_at = [&](int q, int c) { return Y[q * LY + c]; };
+  auto load_acc = [&](Acc<double, NT>& acc, int r0) {
+    sn::acc_each<NT>(acc, [&](int r, int c, double& v) { v = r0 + r < ns ? Y[(r0 + r) * LY + c] : 0.0; });
+  };
+  auto store_acc = [&](Acc<double, NT>& acc, int r0) {
+    sn::acc_each<NT>(acc, [&](int r, int c, double& v) {
+      if (r0 + r < ns) Y[(r0 + r) * LY + c] = v;
+    });
+  };
+  // the diagonal tile at j0 (tj rows) into Ls, zero above its diagonal, and its pivots' reciprocals into rd
+  auto load_diag = [&](int j0, int tj) {
+    for (int e = tid; e < kTT; e += kThr) {
+      const int c = e / kT, r = e % kT;
+      Ls[r * kLdS + c] = (r < tj && c <= r) ? L(j0 + r, j0 + c) : 0.0;
+    }
+    if (tid < tj) rd[tid] = 1.0 / L(j0 + tid, j0 + tid);
     __syncthreads();
-    for (int j = 0; j < ns; ++j) {
-      if (threadIdx.x == 0) {
-        s_y = yc[j] / L(j, j);
-        yc[j] = s_y;
+  };
+  const int nt = tgtile::ntiles(ns);
+  if (mode == 0) {
+    for (int J = 0; J < nt; ++J) {  // Y_J <- L_JJ^-1 (Y_J - sum_{K < J} L_JK Y_K)
+      const int j0 = J * kT, tj = min(kT, ns - j0);
+      if (J > 0) {
+        Acc<double, NT> acc;
+        load_acc(acc, j0);
+        sn::gather_mma<NT>(acc, [&](int i, int q) { return -L(j0 + i, q); }, y_at, tj, kc, j0, [](int) { return true; },
+                           st);
+        store_acc(acc, j0);
+      }
+      load_diag(j0, tj);
+      // warp w: right-hand sides w + 8 q; lane l holds rows l and l + 32 of the tile
+      double v0[CPW], v1[CPW];
+#pragma unroll
+      for (int q = 0; q < CPW; ++q) {
+        v0[q] = Y[(j0 + lane) * LY + warp + 8 * q];
+        v1[q] = lane + 32 < tj ? Y[(j0 + lane + 32) * LY + warp + 8 * q] : 0.0;
+      }
+#pragma unroll 4
+      for (int jj = 0; jj < tj; ++jj) {
+        const double l0 = Ls[lane * kLdS + jj], l1 = Ls[(lane + 32) * kLdS + jj], r = rd[jj];
+#pragma unroll
+        for (int q = 0; q < CPW; ++q) {
+          const double yj = __shfl_sync(0xffffffffu, jj < 32 ? v0[q] : v1[q], jj & 31) * r;
+          if (jj < 32) {
+            v0[q] = lane == jj ? yj : v0[q] - l0 * yj;  // L[lane][jj] = 0 above the diagonal
+            v1[q] -= l1 * yj;
+          } else {
+            v1[q] = lane + 32 == jj ? yj : v1[q] - l1 * yj;
+          }
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < CPW; ++q) {
+        if (lane < tj) Y[(j0 + lane) * LY + warp + 8 * q] = v0[q];
+        if (lane + 32 < tj) Y[(j0 + lane + 32) * LY + warp + 8 * q] = v1[q];
       }
       __syncthreads();
-      const T yj = s_y;
-      for (int i = j + 1 + threadIdx.x; i < ns; i += blockDim.x) yc[i] -= L(i, j) * yj;
-      __syncthreads();
     }
-    for (int c = threadIdx.x; c < ns; c += blockDim.x) xb[cidx[c]] = yc[c];
-    T* ub = u + bx * us + ubase + (long long)p * M;
-    for (int r = threadIdx.x; r < m; r += blockDim.x) {
-      T s = T(0);
-      for (int c = 0; c < ns; ++c) s += L(W + r, c) * yc[c];
-      ub[r] = s;
+  } else if (mode == 1) {
+    for (int I = 0; I < nt && m > 0; ++I) {  // Y <- Y - Lb^T x[rows]
+      const int i0 = I * kT;
+      Acc<double, NT> acc;
+      load_acc(acc, i0);
+      sn::gather_mma<NT>(
+          acc, [&](int i, int q) { return -L(ns + q, i0 + i); },
+          [&](int q, int c) { return double(x[(row0 + c) * xs + ridx[q]]); }, min(kT, ns - i0), kc, m,
+          [](int) { return false; }, st);
+      store_acc(acc, i0);
+    }
+    __syncthreads();
+    for (int J = nt - 1; J >= 0; --J) {  // Y_J <- L_JJ^-T (Y_J - sum_{K > J} L_KJ^T Y_K)
+      const int j0 = J * kT, tj = min(kT, ns - j0);
+      if (J < nt - 1) {
+        Acc<double, NT> acc;
+        load_acc(acc, j0);
+        sn::gather_mma<NT>(
+            acc, [&](int i, int q) { return -L(j0 + kT + q, j0 + i); },
+            [&](int q, int c) { return Y[(j0 + kT + q) * LY + c]; }, tj, kc, ns - j0 - kT, [](int) { return false; },
+            st);
+        store_acc(acc, j0);
+      }
+      load_diag(j0, tj);
+      double v0[CPW], v1[CPW];
+#pragma unroll
+      for (int q = 0; q < CPW; ++q) {
+        v0[q] = Y[(j0 + lane) * LY + warp + 8 * q];
+        v1[q] = lane + 32 < tj ? Y[(j0 + lane + 32) * LY + warp + 8 * q] : 0.0;
+      }
+#pragma unroll 4
+      for (int jj = tj - 1; jj >= 0; --jj) {
+        const double l0 = Ls[jj * kLdS + lane], l1 = Ls[jj * kLdS + lane + 32], r = rd[jj];
+#pragma unroll
+        for (int q = 0; q < CPW; ++q) {
+          const double yj = __shfl_sync(0xffffffffu, jj < 32 ? v0[q] : v1[q], jj & 31) * r;
+          if (jj < 32) {
+            v0[q] = lane == jj ? yj : v0[q] - l0 * yj;  // L[jj][lane] = 0 right of the diagonal
+          } else {
+            v1[q] = lane + 32 == jj ? yj : v1[q] - l1 * yj;
+            v0[q] -= l0 * yj;
+          }
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < CPW; ++q) {
+        if (lane < tj) Y[(j0 + lane) * LY + warp + 8 * q] = v0[q];
+        if (lane + 32 < tj) Y[(j0 + lane + 32) * LY + warp + 8 * q] = v1[q];
+      }
+      __syncthreads();
     }
   } else {
-    for (int r = threadIdx.x; r < m; r += blockDim.x) xr[r] = xb[ridx[r]];
-    __syncthreads();
-    for (int c = threadIdx.x; c < ns; c += blockDim.x) {
-      T s = yc[c];
-      for (int r = 0; r < m; ++r) s -= L(W + r, c) * xr[r];
-      yc[c] = s;
+    for (int J = 0; J < nt; ++J) {  // x[cols]_J += sum_{q <= j0 + i} L(j0 + i, q) z_q
+      const int j0 = J * kT, tj = min(kT, ns - j0);
+      Acc<double, NT> acc;
+      acc.zero();
+      sn::gather_mma<NT>(
+          acc, [&](int i, int q) { return q <= j0 + i ? L(j0 + i, q) : 0.0; }, y_at, tj, kc, j0 + tj,
+          [](int) { return true; }, st);
+      sn::acc_each<NT>(acc, [&](int r, int c, double& v) {
+        if (r < tj && c < kc) x[(row0 + c) * xs + cidx[j0 + r]] += T(v);
+      });
     }
-    __syncthreads();
-    for (int j = ns - 1; j >= 0; --j) {
-      if (threadIdx.x == 0) {
-        s_y = yc[j] / L(j, j);
-        yc[j] = s_y;
-      }
-      __syncthreads();
-      const T yj = s_y;
-      for (int i = threadIdx.x; i < j; i += blockDim.x) yc[i] -= L(j, i) * yj;
-      __syncthreads();
+  }
+  if (mode != 2)
+    for (int e = tid; e < ns * NT; e += kThr) {
+      const int j = e / ns, r = e % ns;
+      if (j < kc) x[(row0 + j) * xs + cidx[r]] = T(Y[r * LY + j]);
     }
-    for (int c = threadIdx.x; c < ns; c += blockDim.x) xb[cidx[c]] = yc[c];
+  if (mode == 1 || m == 0) return;
+  for (int r0 = 0; r0 < m; r0 += kT) {  // u = Lb y (Lb z)
+    Acc<double, NT> acc;
+    acc.zero();
+    sn::gather_mma<NT>(acc, [&](int i, int q) { return L(ns + r0 + i, q); }, y_at, min(kT, m - r0), kc, ns,
+                       [](int) { return true; }, st);
+    sn::acc_each<NT>(acc, [&](int r, int c, double& v) {
+      if (r0 + r < m && c < kc) u[(row0 + c) * us + ubase + (long long)p * M + r0 + r] = T(v);
+    });
   }
 }
 
@@ -358,6 +680,10 @@ __global__ void __launch_bounds__(kThreads)
 
 namespace k8 {
 
+using sn::acc_each;
+using sn::gather_mma;
+using sn::rows_contiguous;
+using sn::stage_values;
 using tgtile::Acc;
 using tgtile::Cfg;
 using tgtile::kKS;
@@ -365,88 +691,6 @@ using tgtile::kLdS;
 using tgtile::kT;
 using tgtile::kThr;
 using tgtile::kTT;
-
-// float64 values of the two staged operand slices of a 64 x NT product
-template <int NT>
-constexpr int stage_values() {
-  return 2 * kKS * (Cfg<NT>::LDA + Cfg<NT>::LDB);
-}
-
-// acc (64 x NT, float64) += sum_{p < Kd} a(i, p) b(p, j) over i < Mr, j < Nc
-// (zeros outside), on the float64 tensor cores. The operands are functors
-// returning float64 (a gather through an index table, a transposed read, a
-// tile in shared memory), staged 32 deep into shared memory, the next slice
-// loaded into registers while the current one is multiplied. a_by_rows(k0)
-// says for the slice at depth k0 whether neighbouring threads load
-// neighbouring rows i of A (true) or neighbouring depths p (false): whichever
-// keeps the reads of that slice contiguous. Every thread of the block calls
-// it; it ends with a block barrier.
-template <int NT, typename FA, typename FB, typename AR>
-__device__ void gather_mma(Acc<double, NT>& acc, FA a, FB b, int Mr, int Nc, int Kd, AR a_by_rows, double* sm) {
-  using C = Cfg<NT>;
-  double* As = sm;                     // [2][kKS][LDA]
-  double* Bs = sm + 2 * kKS * C::LDA;  // [2][kKS][LDB]
-  const int tid = threadIdx.x;
-  double ra[C::AV], rb[C::BV];
-  bool rows = true;
-  // the u-th A value of a thread: (tid % 64, tid / 64 + 4u) by rows, (tid / 32 + 8u, tid % 32) by depths
-  auto ai = [&](int u) { return rows ? tid % kT : tid / kKS + u * (kThr / kKS); };
-  auto ap = [&](int u) { return rows ? tid / kT + u * (kThr / kT) : tid % kKS; };
-  auto load = [&](int k0) {
-    rows = a_by_rows(k0);
-#pragma unroll
-    for (int u = 0; u < C::AV; ++u) {
-      const int i = ai(u), p = k0 + ap(u);
-      ra[u] = (i < Mr && p < Kd) ? a(i, p) : 0.0;
-    }
-#pragma unroll
-    for (int u = 0; u < C::BV; ++u) {
-      const int j = tid % NT, p = k0 + tid / NT + u * (kThr / NT);
-      rb[u] = (j < Nc && p < Kd) ? b(p, j) : 0.0;
-    }
-  };
-  auto store = [&](int buf) {
-#pragma unroll
-    for (int u = 0; u < C::AV; ++u) As[(buf * kKS + ap(u)) * C::LDA + ai(u)] = ra[u];
-#pragma unroll
-    for (int u = 0; u < C::BV; ++u) Bs[(buf * kKS + tid / NT + u * (kThr / NT)) * C::LDB + tid % NT] = rb[u];
-  };
-  const int slices = (Kd + kKS - 1) / kKS;
-  if (slices == 0) return;
-  load(0);
-  store(0);
-  __syncthreads();
-  for (int s = 0; s < slices; ++s) {
-    if (s + 1 < slices) load((s + 1) * kKS);
-    tgtile::mma_slice<double, NT>(acc, As + (s & 1) * kKS * C::LDA, Bs + (s & 1) * kKS * C::LDB);
-    if (s + 1 < slices) store((s + 1) & 1);
-    __syncthreads();
-  }
-}
-
-// f(r, c, v) for every accumulator v (a reference) of the 64 x NT tile, at
-// its row r and column c (the layout of tgtile::tile_io).
-template <int NT, typename F>
-__device__ __forceinline__ void acc_each(Acc<double, NT>& acc, F f) {
-  using C = Cfg<NT>;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int wm = warp % C::WM, wn = warp / C::WM;
-  const int r0 = wm * (kT / C::WM) + (lane >> 2), c0 = wn * (NT / C::WN) + 2 * (lane & 3);
-#pragma unroll
-  for (int i = 0; i < C::MT; ++i)
-#pragma unroll
-    for (int j = 0; j < C::NTT; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) f(r0 + 8 * i, c0 + 8 * j + e, acc.v[i][j][e]);
-}
-
-// Whether a panel's column runs down consecutive positions (CSC, the
-// supernodal factor) rather than along a row (the banded factor's row-major
-// blocks): it decides how the gathers of L, C and Sigma_RJ are spread over
-// the threads.
-__device__ __forceinline__ bool rows_contiguous(const int* pidx, int W, int ns) {
-  return ns > 1 && pidx[W] == pidx[0] + 1;
-}
 
 // K8's first entry, a panel of width W <= 64: block (t, p, b) inverts Ld in
 // shared memory (tgtile::invert_blocked, blocks of 16) and forms A (t = 0) or
@@ -705,33 +949,56 @@ __global__ void __launch_bounds__(kThr)
 
 }  // namespace k8
 
+// K6 on ng class batches (descriptors bt on the card) of `units` supernodes
+// in all, widest Wmax: cs == 0 runs the one-block path (Wmax <= 64), cs > 0
+// the cluster path in clusters of cs, on the workspace (each batch's slices
+// at its offset) and 3 B units int flags.
 template <typename T>
-int launch_panel(T* vals, long long vs, const int* panel_idx, const int* cols_idx, int P, int W,
-                 int M, int dummy, int /*ndummy*/, T* u, long long us, long long ubase, T* logpiv,
-                 int n, int* boost, T* work, int tile, double delta, int B, void* stream) {
-  if (P == 0 || B == 0) return 0;
-  if (tile < 0 || tile > kTile || (tile > 0) != (work != nullptr)) return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(T) * (size_t)(W + M) * ((tile ? tile : W) + 1);
-  int rc = set_smem(sn_panel_kernel<T>, smem);
+int launch_panel(T* vals, long long vs, const Batch* bt, int ng, int units, int Wmax, int dummy, T* u, long long us,
+                 T* logpiv, int n, int* boost, T* work, int* flags, int cs, int B, void* stream) {
+  if (units == 0 || B == 0) return 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (cs == 0) {
+    if (Wmax > kT) return (int)cudaErrorInvalidValue;
+    const size_t smem = sizeof(double) * kPanelTileValues;
+    int rc = tgtile::smem_attr(sn_panel_tile_kernel<T>, smem);
+    if (rc) return rc;
+    sn_panel_tile_kernel<T><<<dim3(units, B), kThr, smem, st>>>(vals, vs, bt, ng, dummy, u, us, logpiv, n, boost);
+    return (int)cudaGetLastError();
+  }
+  if (work == nullptr || flags == nullptr) return (int)cudaErrorInvalidValue;
+  return tgtile::launch_cluster(sn_panel_cluster_kernel<T>, dim3(cs, units, B), cs, tgtile::chol_rows_smem<T>(), st,
+                                vals, vs, bt, ng, dummy, u, us, logpiv, n, boost, work, flags);
+}
+
+// How many clusters of cs blocks of K6's cluster path the card holds at once (0 for a cluster size it refuses).
+template <typename T>
+int panel_fit(int cs, int* count) {
+  return tgtile::cluster_fit(sn_panel_cluster_kernel<T>, cs, tgtile::chol_rows_smem<T>(), count);
+}
+
+template <typename T, int NT>
+int launch_trsv_nt(const T* vals, long long vs, const Batch* bt, int ng, int units, int Wmax, int dummy, T* x,
+                   long long xs, int k, T* u, long long us, int mode, int B, const T* z, cudaStream_t st) {
+  const size_t smem = trsv_smem<NT>(Wmax);
+  int rc = tgtile::smem_attr(sn_trsv_kernel<T, NT>, smem);
   if (rc) return rc;
-  sn_panel_kernel<T><<<dim3(P, B), kThreads, smem, (cudaStream_t)stream>>>(
-      vals, vs, panel_idx, cols_idx, W, M, dummy, u, us, ubase, logpiv, n, boost, work, tile,
-      (T)delta);
+  sn_trsv_kernel<T, NT><<<dim3(units, B, (k + NT - 1) / NT), kThr, smem, st>>>(vals, vs, bt, ng, Wmax, dummy, x, xs,
+                                                                              k, u, us, mode, z);
   return (int)cudaGetLastError();
 }
 
+// K7 on ng class batches (descriptors bt on the card) of `units` supernodes in
+// all, widest Wmax, for B chains of k right-hand sides each, nt (8 or 64) of
+// them per block.
 template <typename T>
-int launch_trsv(const T* vals, long long vs, const int* panel_idx, const int* cols_idx,
-                const int* rows_idx, int P, int W, int M, int ndummy, T* x, long long xs, int k, T* u,
-                long long us, long long ubase, int mode, int B, const T* z, void* stream) {
-  if (P == 0 || B == 0) return 0;
-  if (mode == 2 && z == nullptr) return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(T) * (size_t)(W + M);
-  int rc = set_smem(sn_trsv_kernel<T>, smem);
-  if (rc) return rc;
-  sn_trsv_kernel<T><<<dim3(P, B), kThreads, smem, (cudaStream_t)stream>>>(
-      vals, vs, panel_idx, cols_idx, rows_idx, W, M, ndummy, x, xs, k, u, us, ubase, mode, z);
-  return (int)cudaGetLastError();
+int launch_trsv(const T* vals, long long vs, const Batch* bt, int ng, int units, int Wmax, int dummy, T* x,
+                long long xs, int k, T* u, long long us, int mode, int B, const T* z, int nt, void* stream) {
+  if (units == 0 || B == 0 || k == 0) return 0;
+  if ((mode == 2 && z == nullptr) || (nt != 8 && nt != 64)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (nt == 8) return launch_trsv_nt<T, 8>(vals, vs, bt, ng, units, Wmax, dummy, x, xs, k, u, us, mode, B, z, st);
+  return launch_trsv_nt<T, 64>(vals, vs, bt, ng, units, Wmax, dummy, x, xs, k, u, us, mode, B, z, st);
 }
 
 // Dynamic shared memory of K8's first entry's tile path: X = Ld^-1 beside
@@ -812,21 +1079,20 @@ int launch_takahashi(const T* pre, long long ps, T* sig, long long ss, const int
 
 extern "C" {
 
-#define TG_SN_ENTRY(SUF, T)                                                                        \
-  int tg_sn_panel_##SUF(T* vals, long long vs, const int* panel_idx, const int* cols_idx, int P,   \
-                        int W, int M, int dummy, int ndummy, T* u, long long us, long long ubase,  \
-                        T* logpiv, int n, int* boost, T* work, int tile, double delta, int B,     \
-                        void* stream) {                                                            \
-    return launch_panel<T>(vals, vs, panel_idx, cols_idx, P, W, M, dummy, ndummy, u, us, ubase,    \
-                           logpiv, n, boost, work, tile, delta, B, stream);                        \
-  }                                                                                                \
-  int tg_sn_trsv_##SUF(const T* vals, long long vs, const int* panel_idx, const int* cols_idx,     \
-                       const int* rows_idx, int P, int W, int M, int ndummy, T* x, long long xs,   \
-                       int k, T* u, long long us, long long ubase, int mode, int B, const T* z,    \
-                       void* stream) {                                                             \
-    return launch_trsv<T>(vals, vs, panel_idx, cols_idx, rows_idx, P, W, M, ndummy, x, xs, k, u,   \
-                          us, ubase, mode, B, z, stream);                                          \
-  }                                                                                                \
+#define TG_SN_ENTRY(SUF, T)                                                                                      \
+  int tg_sn_panel_##SUF(T* vals, long long vs, const void* batches, int ng, int units, int Wmax, int dummy, T* u, \
+                        long long us, T* logpiv, int n, int* boost, T* work, int* flags, int cs, int B,           \
+                        void* stream) {                                                                          \
+    return launch_panel<T>(vals, vs, static_cast<const Batch*>(batches), ng, units, Wmax, dummy, u, us, logpiv,   \
+                           n, boost, work, flags, cs, B, stream);                                                \
+  }                                                                                                              \
+  int tg_sn_panel_fit_##SUF(int cs, int* count) { return panel_fit<T>(cs, count); }                             \
+  int tg_sn_trsv_##SUF(const T* vals, long long vs, const void* batches, int ng, int units, int Wmax, int dummy,   \
+                       T* x, long long xs, int k, T* u, long long us, int mode, int B, const T* z, int nt,       \
+                       void* stream) {                                                                           \
+    return launch_trsv<T>(vals, vs, static_cast<const Batch*>(batches), ng, units, Wmax, dummy, x, xs, k, u, us,   \
+                          mode, B, z, nt, stream);                                                               \
+  }                                                                                                              \
   int tg_sn_takahashi_prep_##SUF(const T* vals, long long vs, T* pre, long long ps,                 \
                                  const int* panel_idx, int P, int W, int M, int dummy, double* work, \
                                  int B, void* stream) {                                            \

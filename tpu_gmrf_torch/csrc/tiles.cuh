@@ -99,6 +99,23 @@ __device__ __forceinline__ double rsqrt_fast(double p) {
 }
 __device__ __forceinline__ float rsqrt_fast(float p) { return rsqrtf(p); }
 
+// A pivot l = sqrt(p) and r = 1 / l: l = p r from rsqrt_fast, or, with
+// Exact, a float32 pivot correctly rounded (sqrtf, then a division), as a
+// float32 Cholesky of the reference computes it: the approximate rsqrtf
+// moves K6's float32 factor of an ill-conditioned matrix away from the
+// reference's by more than its own rounding does (n = 14058, chip_smoke.py
+// phase 6). Float64 pivots are the same either way.
+template <bool Exact, typename W>
+__device__ __forceinline__ void pivot(W p, W& r, W& l) {
+  if constexpr (Exact && sizeof(W) == 4) {
+    l = sqrtf(p);
+    r = 1.0f / l;
+  } else {
+    r = rsqrt_fast(p);
+    l = p * r;
+  }
+}
+
 __device__ __forceinline__ void csync() {
   __threadfence();
   cg::this_cluster().sync();
@@ -487,7 +504,7 @@ __device__ void sub_gram(double* S, int t, const T* U, long long ldu, int du, do
 // them is left as it was); rinv gets the reciprocals of the pivots; *bad set
 // for a pivot l = sqrt(p) that is not finite and above tiny. By blocks of
 // 16 columns: the diagonal block by warp 0, a lane per row, its pivots
-// passed by shuffles (1 / sqrt from rsqrt_fast; the lane of the next pivot
+// passed by shuffles (`pivot<Exact>`; the lane of the next pivot
 // forms it from its own row, so one shuffle per pivot is on the dependent
 // chain); the rows below it by a thread each; then the next diagonal
 // block's update, by a thread per entry. The rest of that block column's
@@ -496,7 +513,7 @@ __device__ void sub_gram(double* S, int t, const T* U, long long ldu, int du, do
 // during() runs on every thread while warp 1 inverts the last diagonal
 // block (the factor is final then). Every thread of the block calls it; it
 // ends with a block barrier.
-template <typename W, typename During>
+template <bool Exact = false, typename W, typename During>
 __device__ void factor_tile_smem(W* S, W* X, W* rinv, int t, int* bad, W tiny, During during) {
   const int tid = threadIdx.x, lane = tid & 31;
   const int nb = (t + 15) / 16, warp = tid >> 5;
@@ -510,7 +527,8 @@ __device__ void factor_tile_smem(W* S, W* X, W* rinv, int t, int* bad, W tiny, D
       W p = __shfl_sync(0xffffffffu, row[0], 0), myr = W(1), mypiv = W(1);
 #pragma unroll
       for (int j = 0; j < 16; ++j) {
-        const W r = rsqrt_fast(p), piv = p * r;
+        W r, piv;
+        pivot<Exact>(p, r, piv);
         if (l == j) myr = r, mypiv = piv;
         row[j] = l == j ? piv : (l > j ? row[j] * r : W(0));
         if (j < 15) {
@@ -589,7 +607,7 @@ __device__ void factor_tile_smem(W* S, W* X, W* rinv, int t, int* bad, W tiny, D
 // above tiny. With du > 0 the tile is first updated, D - U U^T, U t x du at
 // U (sub_gram, so W must be float64; its staging follows the tile's shared
 // memory).
-template <typename T, typename W>
+template <bool Exact = false, typename T, typename W>
 __device__ void factor_tile(T* D, long long ld, int t, T* Dinv, int* bad, W* sm, T tiny = T(0),
                             const T* U = nullptr, long long ldu = 0, int du = 0) {
   W* S = sm;
@@ -601,7 +619,7 @@ __device__ void factor_tile(T* D, long long ld, int t, T* Dinv, int* bad, W* sm,
   if constexpr (sizeof(W) == 8) {
     if (du > 0) sub_gram(S, t, U, ldu, du, rinv + kT);
   }
-  factor_tile_smem(S, X, rinv, t, bad, W(tiny), [&] {  // the factor back
+  factor_tile_smem<Exact>(S, X, rinv, t, bad, W(tiny), [&] {  // the factor back
 #pragma unroll
     for (int u = 0; u < kTT / kThr; ++u) {
       const int e = tid + u * kThr, r = e / kT, c = e % kT;

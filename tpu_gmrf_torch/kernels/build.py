@@ -42,12 +42,14 @@ _SIGNATURES = {
     "tg_gather_segsum": [_P, _L, _P, _P, _I, _P, _P, _L, _P, _P, _L, _P, _P, _L, _D, _I, _I, _I, _P],
     # vals, vstride, s, nls, nlsstride, a, astride, tperm, diag, rows, cols, src, dst, n, m, B, stream
     "tg_fct_init": [_P, _L, _P, _P, _L, _P, _L, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    # vals, vstride, panel_idx, cols_idx, P, W, M, dummy, ndummy, u, ustride, ubase,
-    # logpiv, n, boost, work, tile, delta, B, stream
-    "tg_sn_panel": [_P, _L, _P, _P, _I, _I, _I, _I, _I, _P, _L, _L, _P, _I, _P, _P, _I, _D, _I, _P],
-    # vals, vstride, panel_idx, cols_idx, rows_idx, P, W, M, ndummy, x, xstride, k,
-    # u, ustride, ubase, mode, B, z (mode 2), stream
-    "tg_sn_trsv": [_P, _L, _P, _P, _P, _I, _I, _I, _I, _P, _L, _I, _P, _L, _L, _I, _I, _P, _P],
+    # vals, vstride, batch table (int64, 10 per class batch), batches, supernodes, widest W, dummy, u, ustride,
+    # logpiv, n, boost, work (float64; the cluster path only), flags (int; the same), cluster size (0: one block),
+    # B, stream
+    "tg_sn_panel": [_P, _L, _P, _I, _I, _I, _I, _P, _L, _P, _I, _P, _P, _P, _I, _I, _P],
+    "tg_sn_panel_fit": [_I, ctypes.POINTER(_I)],
+    # vals, vstride, batch table, batches, supernodes, widest W, dummy, x, xstride, k, u, ustride, mode,
+    # B (chains), z (mode 2), column tile (8 or 64), stream
+    "tg_sn_trsv": [_P, _L, _P, _I, _I, _I, _I, _P, _L, _I, _P, _L, _I, _I, _P, _I, _P],
     # vals, vstride, pre, pstride, panel_idx, P, W, M, dummy, work (float64; W > 64 only), B, stream
     "tg_sn_takahashi_prep": [_P, _L, _P, _L, _P, _I, _I, _I, _I, _P, _I, _P],
     # pre, pstride, sig, sstride, panel_idx, schur_idx, P, W, M, dummy, cluster size (0: the two product launches),

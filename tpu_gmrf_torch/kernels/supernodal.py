@@ -1,11 +1,11 @@
 """Wrappers of the supernodal kernels K6-K8 (``csrc/supernodal.cu``) and
 their plain versions.
 
-Each call runs one size-class batch of one level of the schedule, for all
+Each call runs the size-class batches of one level of the schedule, for all
 chains: K6 `sn_panel` factors the panels, K7 `sn_trsv` does the forward or
 backward block triangular solve (and, as `sn_multiply`, its mode MULTIPLY:
-the product with the class batch's panels), K8 `sn_takahashi` the
-Σ-dependent half of the block Takahashi step. K8's first entry
+the product with the panels), K8 `sn_takahashi` the Σ-dependent half of the
+block Takahashi step (one class batch a call). K8's first entry
 `sn_takahashi_prep` forms the Σ-free half, C = Lb·Ld⁻¹ and A = Ld⁻ᵀLd⁻¹,
 into a buffer laid out like ``vals``; it runs once per sweep over every
 supernode of a size class, whatever its level.
@@ -14,7 +14,9 @@ level: ``panel`` (P, W+M, W), ``cols`` (P, W), ``rows`` (P, M) and
 ``schur`` (P, M, M), int32, padded with ``dummy`` (= nnzL) / ``ndummy``
 (= n), plus ``W``, ``M`` and the offsets ``ubase`` / ``fbase`` of its slots
 in the level's update buffers. A prep batch needs only ``panel`` and
-``cols``.
+``cols``. K6 and K7 take a level's group, ``{"classes": [c, ...]}``, one
+batch or several: the batches of one level do not depend on each other, so
+K7 runs them in one launch and K6 in one launch per path.
 
 A CPU tensor takes the plain version, which follows the reference's
 batch-then-write-back semantics (``supernodal.py:775-1018``) with
@@ -26,6 +28,7 @@ a wrapper launched on the card (K8's entries launch one to three per call).
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import torch
@@ -40,12 +43,7 @@ __all__ = [
 ]
 
 FORWARD, BACKWARD, MULTIPLY = 0, 1, 2
-# Dynamic shared memory a block may take before the kernel falls back to a
-# global-memory workspace (the H100 allows 227 KB per block; some room is
-# left for the kernels' static shared arrays).
-SMEM_MAX = 200 * 1024
-TILE_MAX = 32  # widest column tile of K6's large-panel path (kTile in the source)
-K8_TILE = 64  # K8's product tile (kT in csrc/tiles.cuh): K8's first entry takes a workspace beyond it
+K8_TILE = 64  # the products' row tile (kT in csrc/tiles.cuh): K6's one-block path and K8's first entry stop at it
 K8_CLUSTER_MAX = 8  # blocks per cluster of K8's one-launch form (the portable limit)
 
 
@@ -115,8 +113,13 @@ def _chol_boosted(D: torch.Tensor):
     return L, ~ok0
 
 
-def sn_panel_plain(vals, c, u, logpiv, boost):
-    """K6's function: factor the class batch `c` of every chain in place."""
+def sn_panel_plain(vals, group, u, logpiv, boost):
+    """K6's function: factor the class batches of `group` of every chain in place."""
+    for c in group["classes"]:
+        _panel_plain(vals, c, u, logpiv, boost)
+
+
+def _panel_plain(vals, c, u, logpiv, boost):
     W, M = c["W"], c["M"]
     t = _plain_tables(c, vals.device)
     panel = _gather(vals, t["panel"])
@@ -134,8 +137,13 @@ def sn_panel_plain(vals, c, u, logpiv, boost):
     boost += boosted.sum(-1).to(boost.dtype)
 
 
-def sn_trsv_plain(vals, c, x, u, mode: int, k: int = 1):
-    """K7's function: x (B·k, n+1) rows, chain-major; forward also fills u."""
+def sn_trsv_plain(vals, group, x, u, mode: int, k: int = 1):
+    """K7's function on the class batches of `group`: x (B·k, n+1) rows, chain-major; forward also fills u."""
+    for c in group["classes"]:
+        _trsv_plain(vals, c, x, u, mode, k)
+
+
+def _trsv_plain(vals, c, x, u, mode, k):
     W = c["W"]
     t = _plain_tables(c, vals.device)
     Ld, Lb = _panels(vals, t, W)
@@ -153,10 +161,15 @@ def sn_trsv_plain(vals, c, x, u, mode: int, k: int = 1):
     x[:, t["live_cols"]] = yc.reshape(x.shape[0], -1).index_select(1, t["cmask_at"])
 
 
-def sn_multiply_plain(vals, c, out, z, u, k: int = 1):
-    """K7's mode MULTIPLY (``supernodal.py:1296`` `sqrt_step`): out[cols] +=
-    Ld·z[cols] without the padded columns' unit diagonal, u = Lb·z[cols];
-    out, z (B·k, n+1) rows, chain-major."""
+def sn_multiply_plain(vals, group, out, z, u, k: int = 1):
+    """K7's mode MULTIPLY (``supernodal.py:1296`` `sqrt_step`) on the class
+    batches of `group`: out[cols] += Ld·z[cols] without the padded columns'
+    unit diagonal, u = Lb·z[cols]; out, z (B·k, n+1) rows, chain-major."""
+    for c in group["classes"]:
+        _multiply_plain(vals, c, out, z, u, k)
+
+
+def _multiply_plain(vals, c, out, z, u, k):
     W = c["W"]
     t = _plain_tables(c, vals.device)
     Ld, Lb = _panels(vals, t, W)
@@ -215,74 +228,20 @@ def _check_class(name, c, vals, keys=("panel", "cols", "rows")):
             raise ValueError(f"{name}: table {key} must be contiguous int32 on the values' device")
 
 
-def sn_panel(vals, c, u, logpiv, boost):
-    """K6: factor class batch `c` in place in vals (B, nnzL+1); U (lower) into
-    u (B, ZU+1) at c["ubase"], log pivots into logpiv (B, >= n; column =
-    the pivot's permuted index), boosted-block
-    counts added to boost (B,) int32."""
-    if not _on_cuda("sn_panel", vals, logpiv, *([u] if u is not None else [])):
-        return sn_panel_plain(vals, c, u, logpiv, boost)
-    _check_class("sn_panel", c, vals)
-    if boost.dtype != torch.int32 or boost.device != vals.device:
-        raise ValueError("sn_panel: boost must be int32 on the values' device")
-    W, M = c["W"], c["M"]
-    P, B = c["panel"].shape[0], vals.shape[0]
-    # a panel that does not fit shared memory is factored in a global
-    # workspace, column tile by column tile (the tile in shared memory)
-    # (rows padded by one element in shared memory)
-    work, tile = None, 0
-    if vals.element_size() * (W + M) * (W + 1) > SMEM_MAX:
-        work = vals.new_empty(B * P * (W + M) * W)
-        tile = max(1, min(TILE_MAX, SMEM_MAX // (vals.element_size() * (W + M)) - 1))
-    code = _fn("tg_sn_panel", vals.dtype)(
-        vals.data_ptr(), vals.shape[1], c["panel"].data_ptr(), c["cols"].data_ptr(), P, W, M,
-        c["dummy"], c["ndummy"], u.data_ptr() if u is not None else None,
-        u.shape[1] if u is not None else 0, c["ubase"], logpiv.data_ptr(), logpiv.shape[1],
-        boost.data_ptr(), work.data_ptr() if work is not None else None, tile, _boost_delta(W), B,
-        _stream(vals),
-    )
-    build.check(code, "sn_panel", f" at W={W} M={M} P={P} B={B} {vals.dtype}, tile={tile}")
-    sn_panel.launches += 1
-
-
-def sn_trsv(vals, c, x, u, mode: int, k: int = 1):
-    """K7: block triangular solve of class batch `c`, forward (L) or backward
-    (Lᵀ), in place in x (B·k, n+1); forward writes Lb·y into u at c["fbase"]."""
-    if mode not in (FORWARD, BACKWARD):
-        raise ValueError(f"sn_trsv: unknown mode {mode}")
-    if x.shape[0] != vals.shape[0] * k:
-        raise ValueError("sn_trsv: x must hold k right-hand sides per chain")
-    if not _on_cuda("sn_trsv", vals, x, *([u] if u is not None else [])):
-        return sn_trsv_plain(vals, c, x, u, mode, k)
-    _check_class("sn_trsv", c, vals)
-    _launch_trsv("sn_trsv", vals, c, x, u, mode, k, None)
-    sn_trsv.launches += 1
-
-
-def _launch_trsv(name, vals, c, x, u, mode, k, z):
-    W, M = c["W"], c["M"]
-    P = c["panel"].shape[0]
-    code = _fn("tg_sn_trsv", vals.dtype)(
-        vals.data_ptr(), vals.shape[1], c["panel"].data_ptr(), c["cols"].data_ptr(),
-        c["rows"].data_ptr(), P, W, M, c["ndummy"], x.data_ptr(), x.shape[1], k,
-        u.data_ptr() if u is not None else None, u.shape[1] if u is not None else 0,
-        c["fbase"], mode, x.shape[0], z.data_ptr() if z is not None else None, _stream(vals),
-    )
-    build.check(code, name, f" at W={W} M={M} P={P} rows={x.shape[0]} {vals.dtype}")
-
-
-def sn_multiply(vals, c, out, z, u, k: int = 1):
-    """K7, mode MULTIPLY: out[cols] += Ld·z[cols] and Lb·z[cols] into u at
-    c["fbase"], for class batch `c`; out and z are (B·k, n+1) rows. The
-    supernodes of a product do not depend on each other; the caller adds u
-    into out through the level's forward ELL plans (K5)."""
-    if out.shape != z.shape or out.shape[0] != vals.shape[0] * k:
-        raise ValueError("sn_multiply: out and z must hold k rows of n+1 per chain")
-    if not _on_cuda("sn_multiply", vals, out, z, *([u] if u is not None else [])):
-        return sn_multiply_plain(vals, c, out, z, u, k)
-    _check_class("sn_multiply", c, vals)
-    _launch_trsv("sn_multiply", vals, c, out, u, MULTIPLY, k, z)
-    sn_multiply.launches += 1
+def _descriptors(batches, device, slices=None) -> torch.Tensor:
+    """The launch's batch table on the card, int64 (len(batches), 10), the
+    fields of ``Batch`` in csrc/supernodal.cu: the panel, cols and rows
+    tables' addresses, W, M, P, the batch's first block (its supernodes'
+    running count), ubase, fbase, and the offset of its slice of K6's
+    workspace (`slices`: its workspace values per supernode, all chains)."""
+    rows, first, work = [], 0, 0
+    for i, c in enumerate(batches):
+        P = c["panel"].shape[0]
+        rows.append([c["panel"].data_ptr(), c["cols"].data_ptr(), c["rows"].data_ptr(), c["W"], c["M"], P, first,
+                     c["ubase"], c["fbase"], work])
+        first += P
+        work += P * slices[i] if slices else 0
+    return torch.tensor(rows, dtype=torch.int64, device=device)
 
 
 @functools.cache
@@ -292,6 +251,166 @@ def _sm_count(device) -> int:
 
 def _tiles(n: int, t: int = K8_TILE) -> int:
     return -(-n // t)
+
+
+def panel_launch(W: int, M: int, units: int, fit, sms: int) -> int:
+    """K6's cluster size on `units` (supernode, chain) pairs of panels W wide
+    with M rows below, on a card of `sms` SMs; 0 for the one-block path. A
+    panel W <= 64 takes one block when the batch fills the card or has at
+    most 64 rows below; the rest (the top separators, and the few narrow
+    panels with many rows below) take a cluster each, sized by K9's and
+    K11's rule (`banded.factor_cluster`) for the panel's W + M rows.
+    ``fit(cs)`` is how many clusters of cs blocks the card holds at once."""
+    from .banded import factor_cluster  # banded.py imports this module
+
+    if W <= K8_TILE and (units >= sms or M <= K8_TILE):
+        return 0
+    return factor_cluster(_tiles(W) * K8_TILE + M, units, fit, "sn_panel")
+
+
+def trsv_launch(W: int, k: int, units: int, sms: int) -> tuple:
+    """(column tile, blocks per supernode and chain) of K7 on k right-hand
+    sides per chain of `units` (supernode, chain) pairs of panels at most W
+    wide, on a card of `sms` SMs. A block solves up to 8 of a chain's
+    right-hand sides, or up to 64 where at least 64 share a panel whose
+    values then fit shared memory (W <= 128) and 8-column blocks would put
+    8 or more on every SM: there the 64-column tile reads the panel an
+    eighth as often and wins; with fewer blocks the launch is bound by its
+    longest block, and 8 columns finish it sooner (each level timed both
+    ways, tools/trace_vg.py k7tiles). A chain's panel is read once per
+    block: once for k <= 8, else ceil(k / 8) or ceil(k / 64) times."""
+    nt = 64 if k >= K8_TILE and W <= 2 * K8_TILE and units * -(-k // 8) >= 8 * sms else 8
+    return nt, -(-k // nt)
+
+
+def _panel_fit(dtype):
+    from .banded import _FIT
+
+    def fit(cs):
+        key = ("tg_sn_panel_fit", dtype, cs)
+        if key not in _FIT:
+            held = ctypes.c_int(0)
+            build.check(_fn("tg_sn_panel_fit", dtype)(cs, ctypes.byref(held)), "sn_panel")
+            _FIT[key] = held.value
+        return _FIT[key]
+
+    return fit
+
+
+def _panel_slice(W: int, M: int) -> int:
+    """Values of K6's cluster-path workspace per (supernode, chain), in the factor's type (`panel_slice` in the
+    source)."""
+    Wq = _tiles(W) * K8_TILE
+    return (Wq + M) * Wq + _tiles(W) * K8_TILE**2
+
+
+def _panel_launches(group, vals) -> list:
+    """K6's launches on `group` at vals' device, type and chain count,
+    worked out once and kept on `group`: the one-block path's
+    batches in one launch, the cluster path's in another, each a dict of its
+    batch table, supernodes, widest W, cluster size (0: one block) and
+    workspace (values of the factor's type, then the flags)."""
+    B = vals.shape[0]
+    key = ("_panel", str(vals.device), vals.dtype, B)
+    got = group.get(key)
+    if got is None:
+        batches = group["classes"]
+        for cc in batches:
+            _check_class("sn_panel", cc, vals)
+        fit, sms = _panel_fit(vals.dtype), _sm_count(vals.device)
+        path = [panel_launch(cc["W"], cc["M"], cc["panel"].shape[0] * B, fit, sms) for cc in batches]
+        got = []
+        for cluster in (False, True):
+            part = [cc for cc, cs in zip(batches, path) if (cs > 0) == cluster]
+            if not part:
+                continue
+            units = sum(cc["panel"].shape[0] for cc in part)
+            slices = [B * _panel_slice(cc["W"], cc["M"]) for cc in part] if cluster else None
+            work = sum(cc["panel"].shape[0] * sl for cc, sl in zip(part, slices)) if cluster else 0
+            got.append(dict(desc=_descriptors(part, vals.device, slices), ng=len(part), units=units,
+                            cs=max(path) if cluster else 0,  # a launch has one cluster size: its batches' largest
+                            Wmax=max(cc["W"] for cc in part), work=work, flags=3 * B * units if cluster else 0))
+        group[key] = got
+    return got
+
+
+def sn_panel(vals, group, u, logpiv, boost):
+    """K6: factor the class batches of `group` in place in vals (B, nnzL+1); U
+    (lower) into u (B, ZU+1) at each batch's ubase, log pivots into logpiv
+    (B, >= n; column = the pivot's permuted index), boosted-block counts
+    added to boost (B,) int32."""
+    if not _on_cuda("sn_panel", vals, logpiv, *([u] if u is not None else [])):
+        return sn_panel_plain(vals, group, u, logpiv, boost)
+    if vals.ndim != 2:
+        raise ValueError(f"sn_panel: vals must be (B, nnzL+1), got {tuple(vals.shape)}")
+    if boost.dtype != torch.int32 or boost.device != vals.device:
+        raise ValueError("sn_panel: boost must be int32 on the values' device")
+    B = vals.shape[0]
+    for ln in _panel_launches(group, vals):
+        work, el = None, vals.element_size()
+        if ln["cs"]:  # the cluster path's panels and inverted diagonal tiles, then its int32 flags
+            work = vals.new_empty(ln["work"] + -(-4 * ln["flags"] // el))
+        code = _fn("tg_sn_panel", vals.dtype)(
+            vals.data_ptr(), vals.shape[1], ln["desc"].data_ptr(), ln["ng"], ln["units"], ln["Wmax"],
+            group["classes"][0]["dummy"], u.data_ptr() if u is not None else None, u.shape[1] if u is not None else 0,
+            logpiv.data_ptr(), logpiv.shape[1], boost.data_ptr(), None if work is None else work.data_ptr(),
+            None if work is None else work.data_ptr() + el * ln["work"], ln["cs"], B, _stream(vals),
+        )
+        build.check(code, "sn_panel", f" at {_shapes(group)} B={B} {vals.dtype}, cluster={ln['cs']}")
+        sn_panel.launches += 1
+
+
+def _shapes(group) -> str:
+    return ", ".join(f"W={c['W']} M={c['M']} P={c['panel'].shape[0]}" for c in group["classes"])
+
+
+def sn_trsv(vals, group, x, u, mode: int, k: int = 1):
+    """K7: block triangular solve of the class batches of `group`, forward (L)
+    or backward (Lᵀ), in place in x (B·k, n+1); forward writes Lb·y into u at
+    each batch's fbase."""
+    if mode not in (FORWARD, BACKWARD):
+        raise ValueError(f"sn_trsv: unknown mode {mode}")
+    if x.shape[0] != vals.shape[0] * k:
+        raise ValueError("sn_trsv: x must hold k right-hand sides per chain")
+    if not _on_cuda("sn_trsv", vals, x, *([u] if u is not None else [])):
+        return sn_trsv_plain(vals, group, x, u, mode, k)
+    _launch_trsv("sn_trsv", vals, group, x, u, mode, k, None)
+    sn_trsv.launches += 1
+
+
+def _launch_trsv(name, vals, group, x, u, mode, k, z):
+    """K7's one launch on `group` (its batch table built once and kept on `group`)."""
+    if vals.ndim != 2:
+        raise ValueError(f"{name}: vals must be (B, nnzL+1), got {tuple(vals.shape)}")
+    key = ("_trsv", str(vals.device))
+    ln = group.get(key)
+    if ln is None:
+        batches = group["classes"]
+        for cc in batches:
+            _check_class(name, cc, vals)
+        ln = group[key] = dict(desc=_descriptors(batches, vals.device), ng=len(batches),
+                           units=sum(cc["panel"].shape[0] for cc in batches), Wmax=max(cc["W"] for cc in batches),
+                           dummy=batches[0]["dummy"])
+    nt, _ = trsv_launch(ln["Wmax"], k, ln["units"] * vals.shape[0], _sm_count(vals.device))
+    code = _fn("tg_sn_trsv", vals.dtype)(
+        vals.data_ptr(), vals.shape[1], ln["desc"].data_ptr(), ln["ng"], ln["units"], ln["Wmax"], ln["dummy"],
+        x.data_ptr(), x.shape[1], k, u.data_ptr() if u is not None else None, u.shape[1] if u is not None else 0,
+        mode, vals.shape[0], z.data_ptr() if z is not None else None, nt, _stream(vals),
+    )
+    build.check(code, name, f" at {_shapes(group)} rows={x.shape[0]} {vals.dtype}")
+
+
+def sn_multiply(vals, group, out, z, u, k: int = 1):
+    """K7, mode MULTIPLY: out[cols] += Ld·z[cols] and Lb·z[cols] into u at
+    each batch's fbase, for the class batches of `group`; out and z are (B·k,
+    n+1) rows. The supernodes of a product do not depend on each other; the
+    caller adds u into out through the level's forward ELL plans (K5)."""
+    if out.shape != z.shape or out.shape[0] != vals.shape[0] * k:
+        raise ValueError("sn_multiply: out and z must hold k rows of n+1 per chain")
+    if not _on_cuda("sn_multiply", vals, out, z, *([u] if u is not None else [])):
+        return sn_multiply_plain(vals, group, out, z, u, k)
+    _launch_trsv("sn_multiply", vals, group, out, u, MULTIPLY, k, z)
+    sn_multiply.launches += 1
 
 
 def sweep_launch(W: int, M: int, units: int, sms: int) -> tuple:

@@ -11,11 +11,12 @@ reference library.
   so a plan equals the reference's table by table. The reference's pickle
   disk cache for n >= 50,000 is not ported.
 * **Device numeric, per value vector.** The level schedule is a host loop
-  over levels and size classes. Each class batch of a level is one launch
-  of a hand-written kernel over all chains: K6 `sn_panel` (factor), K7
-  `sn_trsv` (solves), K8 `sn_takahashi_prep` and `sn_takahashi` (selected
-  inverse: the Σ-free half once per class shape, then the Σ-dependent
-  products per class batch); the Schur and
+  over levels. Each level's class batches are launches of hand-written
+  kernels over all chains: K6 `sn_panel` (factor; one launch per level and
+  path), K7 `sn_trsv` (solves; one launch per level), K8
+  `sn_takahashi_prep` and `sn_takahashi` (selected inverse: the Σ-free half
+  once per class shape, then the Σ-dependent products per class batch); the
+  Schur and
   forward-solve reductions, the permutation, logdet and selected-inverse
   gathers (with the Jacobi scaling undone) are K5 `gather_segsum`
   launches, and the preamble (symmetrize, equilibrate, scatter onto the
@@ -757,6 +758,10 @@ class _Level:
     fwd: list
     top: bool = False  # a top-separator level: never split over a mesh
 
+    def __post_init__(self):
+        # K6 and K7 take the level's batches as one group: one launch for K7, one per path for K6
+        self.group = dict(classes=self.classes)
+
 
 def _ell_plans(ell, lev, dummy_tgt):
     """The live rows of one level's ELL tiers as fixed-width K5 plans."""
@@ -874,10 +879,10 @@ def _buffer(ref: torch.Tensor, rows: int, size: int):
 
 
 def _shard(c: dict, rank: int, world: int):
-    """Rank `rank`'s shard of class batch `c`: ceil(P / world) panels, padded
-    with DUMMY panels, its U at offset 0 of a buffer of its own; plus the
-    device indices that read its results and write the gathered ones back
-    (cached on `c`)."""
+    """Rank `rank`'s shard of class batch `c` as a group of one batch (K6's
+    input form): ceil(P / world) panels, padded with DUMMY panels, its U at
+    offset 0 of a buffer of its own; plus the device indices that read its
+    results and write the gathered ones back (cached on `c`)."""
     key = ("_shard", rank, world)
     got = c.get(key)
     if got is None:
@@ -894,7 +899,7 @@ def _shard(c: dict, rank: int, world: int):
                   schur=part("schur", c["dummy"]), ubase=0, fbase=0)
         panel, cols = c["panel"].long().flatten(), c["cols"].long().flatten()
         live, lcol = panel != c["dummy"], cols != c["ndummy"]
-        got = c[key] = dict(c=sc, Pp=Pp, read_p=sc["panel"].long().flatten(), read_c=sc["cols"].long().flatten(),
+        got = c[key] = dict(group=dict(classes=[sc]), Pp=Pp, read_p=sc["panel"].long().flatten(), read_c=sc["cols"].long().flatten(),
                             live=live, pos=panel[live], lcol=lcol, col=cols[lcol])
     return got
 
@@ -908,7 +913,7 @@ def _panel_sharded(ops, vals, c, u, logs, boost, group):
     W, M, P, Pp, B = c["W"], c["M"], c["panel"].shape[0], sh["Pp"], vals.shape[0]
     ul = _buffer(vals, B, Pp * M * M)
     bl = torch.zeros_like(boost)
-    ops["panel"](vals, sh["c"], ul, logs, bl)
+    ops["panel"](vals, sh["group"], ul, logs, bl)
     mine = [vals[:, sh["read_p"]], logs[:, sh["read_c"]]] + ([ul[:, : Pp * M * M]] if M else [])
     sizes = [t.shape[1] for t in mine]
     mine = torch.cat(mine, 1).contiguous()
@@ -942,10 +947,10 @@ def _factor_values(data, meta, ops, mesh=None):
     group = None if mesh is None else mesh.get_group(0)
     for lv in dp["levels"]:
         u = _buffer(vals, B, lv.zu)
-        for c in lv.classes:
-            if group is None or lv.top:
-                ops["panel"](vals, c, u, logs, boost)
-            else:
+        if group is None or lv.top:
+            ops["panel"](vals, lv.group, u, logs, boost)
+        else:
+            for c in lv.classes:
                 _panel_sharded(ops, vals, c, u, logs, boost, group)
         for ell in lv.schur:
             ops["segsum"](ell, u, out=vals, alpha=-1.0, accumulate=True)
@@ -1081,22 +1086,20 @@ class SupernodalFactor(DirectFactor):
     # -- solves -----------------------------------------------------------------------
 
     def _forward(self, xp: torch.Tensor, k: int):
-        """L y = b over the level schedule (ascending): K7 per class, K5 ELL."""
+        """L y = b over the level schedule (ascending): K7 per level, K5 ELL."""
         ops = self._ops
         for lv in self._levels():
             u = _buffer(xp, xp.shape[0], lv.zf)
-            for c in lv.classes:
-                ops["trsv"](self.vals, c, xp, u, FORWARD, k)
+            ops["trsv"](self.vals, lv.group, xp, u, FORWARD, k)
             for ell in lv.fwd:
                 ops["segsum"](ell, u, out=xp, alpha=-1.0, accumulate=True)
         return xp
 
     def _backward(self, xp: torch.Tensor, k: int):
-        """Lᵀ x = z over the level schedule (descending): K7 per class."""
+        """Lᵀ x = z over the level schedule (descending): K7 per level."""
         ops = self._ops
         for lv in reversed(self._levels()):
-            for c in lv.classes:
-                ops["trsv"](self.vals, c, xp, None, BACKWARD, k)
+            ops["trsv"](self.vals, lv.group, xp, None, BACKWARD, k)
         return xp
 
     def _unperm(self, xp: torch.Tensor, k: int):
@@ -1122,7 +1125,7 @@ class SupernodalFactor(DirectFactor):
         """(S⁻¹L) z — maps N(0, I) to N(0, Q); z (*batch, n) or (*batch, n, k),
         taken in the permuted basis as `backward_solve` takes it. The
         supernodes of a product are independent; the level order only keeps
-        the sums in the reference's order: K7 `sn_multiply` per class, then
+        the sums in the reference's order: K7 `sn_multiply` per level, then
         the level's forward ELL plans (K5) add Lb·z into the rows."""
         rows, k = self._rows(z)
         ops = self._ops
@@ -1130,8 +1133,7 @@ class SupernodalFactor(DirectFactor):
         out = torch.zeros_like(zp)
         for lv in self._levels():
             u = _buffer(zp, zp.shape[0], lv.zf)
-            for c in lv.classes:
-                ops["multiply"](self.vals, c, out, zp, u, k)
+            ops["multiply"](self.vals, lv.group, out, zp, u, k)
             for ell in lv.fwd:
                 ops["segsum"](ell, u, out=out, alpha=1.0, accumulate=True)
         dp = _device_plan(self.meta, out.device)
