@@ -20,15 +20,22 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
 3b. K5-K8 against their plain versions on the card at the spatial shapes
    (Matérn α=2 on the 63×63 grid, n=5741, B=4 chains: the prior at τ=1,
    range=0.25 and the posterior with a random positive diagonal H), in
-   float64 and float32, over the whole supernodal schedule; K8's two
+   float64 and float32, over the whole supernodal schedule; K5 on every
+   level's Schur and forward plan, on a plan of mixed rows in two parts, on
+   the one-launch logdet and selinv_dot sums, with its launches per
+   factorization and solve, and on sp_add's plan at the flagship shape
+   beside CSR torch.sparse.mm of the plan's 0/1 matrix; K8's two
    entries each on its own (sn_takahashi_prep's C and A; sn_takahashi's
    sweep on the kernel's C and A), then the whole Σ, with the library
    yardstick torch.cholesky_inverse of the densified factor;
 3c. K9-K10 and dense_selinv (the dense backend, g=16 posterior, n=450,
    B=8; K9 also through its rescue on the card, three chains that need δ,
    500δ and break down, equal levels required; at B=1, n=900 and n=1000,
-   the shapes of phases 15 and 16; and one call in a torch.profiler trace:
-   one launch, no device-to-host copy, no stream synchronize) and K11-K12 (the banded backend, n=5741, B=4, s=512, K=12; K11 also
+   the shapes of phases 15 and 16, and n=4096; and one call in a
+   torch.profiler trace: one launch, no device-to-host copy, no stream
+   synchronize; K10 on K9's tiles in modes 0, 1 and 2 at k = 1, 8 and 65
+   at each of those shapes, and raising without the tiles) and K11-K12
+   (the banded backend, n=5741, B=4, s=512, K=12; K11 also
    at s=496 through the plan's block=8, and through its rescue: one chain
    with an indefinite block, equal boosts required; K12 with its time split
    into the inversion of the blocks and the sweeps, at k = 1, 8, 9 and 65
@@ -226,7 +233,8 @@ SN_TOL[torch.float64].update(csr_spmv=1e-12, bt_matvec=1e-12, bt_sqrt=1e-12, bsr
 SN_TOL[torch.float32].update(csr_spmv=1e-5, bt_matvec=1e-5, bt_sqrt=1e-5, bsr_spmm=1e-5, bsr_outer=1e-5,
                              sn_multiply=1e-4, tridiag=1e-4, identity=1e-3)
 DN_GRID, DN_CHAINS = 16, 8  # the dense backend's shape: the g=16 posterior, as phase 10
-DENSE_SHAPES = ((30, 30), (40, 25))  # K9 at B=1, n=900 and n=1000: the dense backend's shapes of phases 15 and 16
+# K9 and K10 at B=1, n=900 and n=1000 (the dense backend's shapes of phases 15 and 16) and n=4096 (DENSE_MAX_N)
+DENSE_SHAPES = ((30, 30), (40, 25), (64, 64))
 
 # Bounds (the least time the card could take): the larger of the bytes a
 # function must move over HBM's rate and its operations over the card's
@@ -744,12 +752,13 @@ def check_panel_rescue(fk, dtype, dev):
     chain 3 twice and, on a batch of several supernodes, once more on its last. Factor values, U (lower), log
     pivots and boost counts against sn_panel_plain on the same inputs."""
     from tpu_gmrf_torch import kernels
+    from tpu_gmrf_torch.kernels import banded as kb
     from tpu_gmrf_torch.kernels import supernodal as ks
     from tpu_gmrf_torch.solvers import supernodal as sn
 
     B, n, nnzL = fk.vals.shape[0], fk.n, fk.vals.shape[1] - 1
     classes = [c for lv in sn._device_plan(fk.meta, dev)["levels"] for c in lv.classes]
-    fit, sms = ks._panel_fit(dtype), ks._sm_count(dev)
+    fit, sms = kb._fit("tg_sn_panel_fit", dtype, "sn_panel"), ks._sm_count(dev)
     path = {id(c): ks.panel_launch(c["W"], c["M"], c["panel"].shape[0] * B, fit, sms) for c in classes}
     one = max((c for c in classes if path[id(c)] == 0), key=lambda c: c["panel"].shape[0])
     wide = max((c for c in classes if path[id(c)] > 0 and c["M"]), key=lambda c: (c["W"], c["M"]))
@@ -780,6 +789,121 @@ def check_panel_rescue(fk, dtype, dev):
             raise AssertionError(f"sn_panel forced rescue, {label} path: boost {bk} / {bp}, rel {rel:.3e}")
 
 
+def check_sp_add(dtype, dev, results: dict):
+    """Phase 3b: K5 on `sp_add`'s plan at the flagship shape (Q_p − H, B=256, n=500: the Newton iterate's
+    `_Linear`), against its plain version and the library call that computes the same function, CSR
+    `torch.sparse.mm` of the plan's 0/1 matrix; its row is the kernel's row in the JSON line."""
+    from tpu_gmrf_torch import kernels
+    from tpu_gmrf_torch.sparse.matrix import _ADD_CACHE, sp_add, sp_tridiag, spdiag
+
+    a, c, x, _ = kernel_inputs(dtype, dev)
+    Q, H = sp_tridiag(a, c), spdiag(-x.exp())
+    sp_add(Q, H)
+    _, (plan, _) = _ADD_CACHE[(Q.pattern, H.pattern)]
+    both = torch.cat([Q.data, H.data], -1).contiguous()
+    d = plan.tensors(dev)
+    with warnings.catch_warnings():  # "beta" notices of sparse CSR
+        warnings.simplefilter("ignore", UserWarning)
+        S = torch.sparse_coo_tensor(torch.stack([d["term_row"], d["xi_l"]]), both.new_ones(len(plan.xi)),
+                                    (plan.rows, both.shape[1])).to_sparse_csr()
+    bt = both.T.contiguous()
+    lib = lambda: torch.sparse.mm(S, bt)  # noqa: E731
+    el = both.element_size()
+    check("gather_segsum sp_add (Q_p - H, _Linear)", dtype, kernels.gather_segsum(plan, both),
+          kernels.gather_segsum_plain(plan, both), "gather_segsum", results,
+          cuda_ms(lambda: kernels.gather_segsum(plan, both)), cuda_ms(lambda: kernels.gather_segsum_plain(plan, both)),
+          cost=(CHAINS * len(plan.xi), table_bytes(plan) + el * CHAINS * (both.shape[1] + plan.rows)),
+          library_ms=cuda_ms(lib), shape=f"B={CHAINS} n={N} sp_add",
+          extra=f" (library: CSR torch.sparse.mm of the plan's 0/1 matrix, {rel_err((lib().T,), (kernels.gather_segsum_plain(plan, both),))[1]:.1e} from plain; "
+                f"{plan.rows} rows, {len(plan.xi)} terms)")
+
+
+def check_segsum_schedule(post, fk, dp, b, dtype, dev):
+    """Phase 3b: K5 on every level's Schur and forward plan (one ragged plan each, a row per target) against its
+    plain version, each level on its own; the schedule's launches per factorization and per solve; its time over
+    all levels of a factorization and of a solve, with its bound; the one-launch sums of the logdet and of
+    `selinv_dot`."""
+    from tpu_gmrf_torch import kernels
+    from tpu_gmrf_torch.solvers import supernodal as sn
+
+    rng = np.random.default_rng(9)
+    B, n, el = fk.vals.shape[0], fk.n, fk.vals.element_size()
+    tol = SN_TOL[dtype]["gather_segsum"]
+    cases = {"schur": [], "fwd": []}
+    for li, lv in enumerate(dp["levels"]):
+        for nm, size, width in (("schur", lv.zu, fk.vals.shape[1]), ("fwd", lv.zf, n + 1)):
+            for p in getattr(lv, nm):
+                u = torch.tensor(rng.normal(size=(B, size + 1)), dtype=dtype, device=dev)
+                out0 = torch.tensor(rng.normal(size=(B, width)), dtype=dtype, device=dev)
+                cases[nm].append((li, p, u, out0))
+    worst = {}
+    for nm, cs_ in cases.items():
+        for li, p, u, out0 in cs_:
+            got = kernels.gather_segsum(p, u, out=out0.clone(), alpha=-1.0, accumulate=True)
+            ref = kernels.gather_segsum_plain(p, u, out=out0.clone(), alpha=-1.0, accumulate=True)
+            torch.cuda.synchronize()
+            if not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"gather_segsum {nm} level {li}: non-finite kernel output")
+            abs_err, rel = rel_err((got,), (ref,))
+            if not rel <= tol:
+                raise AssertionError(f"gather_segsum {nm} level {li} {dtype_name(dtype)}: kernel disagrees with its "
+                                     f"plain version ({rel:.3e})")
+            if rel >= worst.get(nm, (-1.0,))[0]:
+                worst[nm] = (rel, abs_err, li)
+
+        def sweep(fn, cs_=cs_):
+            return [fn(p, u, out=out0, alpha=-1.0, accumulate=True) for _, p, u, out0 in cs_]
+
+        terms, rows = sum(len(p.xi) for _, p, _, _ in cs_), sum(p.rows for _, p, _, _ in cs_)
+        bnd = bound(B * terms, table_bytes(*(p for _, p, _, _ in cs_)) + el * B * (terms + 2 * rows), dtype)
+        log(f"  gather_segsum every {nm} level {dtype_name(dtype)} ({len(cs_)} plans, one per level, {rows} rows, "
+            f"{terms} terms): worst rel={worst[nm][0]:.3e} (level {worst[nm][2]}, max_abs_err={worst[nm][1]:.3e}; "
+            f"tol {tol:.0e}); the schedule kernel_ms={cuda_ms(lambda: sweep(kernels.gather_segsum), SN_REPS, 1):.3f} "
+            f"plain_ms={cuda_ms(lambda: sweep(kernels.gather_segsum_plain), SN_REPS, 1):.3f} "
+            f"bound_ms={bnd['bound_ms']:.4f} ({bnd['bound_by']})")
+    Q = post
+    per_factor = launch_count(kernels.gather_segsum, lambda: sn.supernodal_factorize(Q))
+    per_solve = launch_count(kernels.gather_segsum, lambda: fk.solve(b))
+    log(f"  gather_segsum launches per factorization {per_factor} (Schur plans {len(cases['schur'])} + the logdet), "
+        f"per solve {per_solve} (forward plans {len(cases['fwd'])} + the permutation and its inverse); at most 15 each")
+    if per_factor != len(cases["schur"]) + 1 or per_solve != len(cases["fwd"]) + 2 or max(per_factor, per_solve) > 15:
+        raise AssertionError(f"gather_segsum: {per_factor} launches per factorization, {per_solve} per solve")
+    # both row runs, rows in two parts, a partial group of chains and a shared y, on a plan of random rows
+    lengths = np.concatenate([rng.integers(0, 40, 300), rng.integers(200, 5000, 20)])
+    ptr, m = np.concatenate([[0], np.cumsum(lengths)]), int(lengths.sum())
+    mixed = kernels.SegPlan(rng.integers(0, 900, m), ptr=ptr, yi=rng.integers(0, 900, m), zi=rng.integers(0, 900, m),
+                            t=rng.permutation(400)[:len(lengths)], split=(lengths * rng.random(len(lengths))).astype(int))
+    y_ = torch.tensor(rng.normal(size=900), dtype=dtype, device=dev)  # shared by the chains
+    runs = []
+    for B_ in (9, 20):  # one chain group partial, then three groups (the chunks' scratch grows)
+        x_, z_, o_ = (torch.tensor(rng.normal(size=(B_, w)), dtype=dtype, device=dev) for w in (900, 900, 400))
+
+        def run(x_=x_, z_=z_, o_=o_):
+            return kernels.gather_segsum(mixed, x_, y_, o_.clone(), -0.5, True, z_)
+
+        got = run()
+        check(f"gather_segsum mixed rows (B={B_}; {mixed.r_block} rows by thread, {mixed.rows - mixed.r_block} in "
+              f"{mixed.chunks} chunks, in two parts; plain in f64)", dtype, got,
+              kernels.gather_segsum_plain(mixed, x_.double(), y_.double(), o_.double().clone(), -0.5, True,
+                                          z_.double()), "gather_segsum", {})
+        runs.append((got, run))
+    if not torch.equal(runs[0][0], runs[0][1]()):  # the tickets were reset: a second launch gives the same bits
+        raise AssertionError("gather_segsum mixed rows: a second launch differs from the first")
+    # the one-launch sums: the logdet's 2n terms, selinv_dot's nnz products; held to the plain version in float64
+    # on the same values (one sum of 10^4-10^5 terms: the plain version's float32 atomics add in no fixed order)
+    logs = torch.tensor(rng.normal(size=(B, 2 * n)), dtype=dtype, device=dev)
+    z = torch.tensor(rng.normal(size=(B, Q.nnz)), dtype=dtype, device=dev)
+    dot = sn._sum_plan(Q.nnz, dot=True)
+    for label, plan, args in (("logdet sum", dp["logdet"], (logs,)), ("selinv_dot sum", dot, (z, Q.data))):
+        one = launch_count(kernels.gather_segsum, lambda: kernels.gather_segsum(plan, *args))
+        check(f"gather_segsum {label} ({len(plan.xi)} terms, {one} launch; plain in f64)", dtype,
+              kernels.gather_segsum(plan, *args), kernels.gather_segsum_plain(plan, *(a.double() for a in args)),
+              "gather_segsum", {}, cuda_ms(lambda: kernels.gather_segsum(plan, *args)),
+              cuda_ms(lambda: kernels.gather_segsum_plain(plan, *args)))
+        if one != 1:
+            raise AssertionError(f"gather_segsum {label}: {one} launches, want 1")
+
+
 def check_spatial_kernels(model, dtype, dev):
     """Phase 3b: K5-K8 against their plain versions at n=5741, B=4."""
     from tpu_gmrf_torch import kernels
@@ -802,8 +926,9 @@ def check_spatial_kernels(model, dtype, dev):
     fwd, back_a, _ = _MUL_CACHE[(A.pattern, Bm.pattern)][1]
     a, bd = A.data.contiguous(), Bm.data.contiguous()
     el, shape = a.element_size(), f"B={B} n={n}"
+    check_sp_add(dtype, dev, results)
     check("gather_segsum sp_matmul fwd", dtype, kernels.gather_segsum(fwd, a, y=bd),
-          kernels.gather_segsum_plain(fwd, a, y=bd), "gather_segsum", results,
+          kernels.gather_segsum_plain(fwd, a, y=bd), "gather_segsum", {},
           cuda_ms(lambda: kernels.gather_segsum(fwd, a, y=bd)),
           cuda_ms(lambda: kernels.gather_segsum_plain(fwd, a, y=bd)),
           cost=(2 * B * len(fwd.xi), table_bytes(fwd) + el * B * (a.shape[1] + bd.shape[1] + fwd.rows)),
@@ -825,13 +950,7 @@ def check_spatial_kernels(model, dtype, dev):
           cuda_ms(lambda: init(kernels.fct_init)), cuda_ms(lambda: init(kernels.fct_init_plain)),
           cost=(4 * B * post.nnz, table_bytes(dp["init"]) + el * B * (post.nnz + nnzL + 1 + 2 * n)), shape=shape)
     costs = sn_costs(dp["levels"], B, el, post.nnz, nnzL, n)
-    levels = dp["levels"]
-    lv = max(levels, key=lambda lv: sum(e.rows for e in lv.schur))
-    u = torch.tensor(rng.normal(size=(B, lv.zu + 1)), dtype=dtype, device=dev)
-    out0 = fk.vals.clone()
-    ell = lambda f: [f(e, u, out=out0.clone(), alpha=-1.0, accumulate=True) for e in lv.schur]
-    check("gather_segsum ELL level", dtype, ell(kernels.gather_segsum), ell(kernels.gather_segsum_plain),
-          "gather_segsum", {}, extra=f" ({sum(e.rows for e in lv.schur)} rows)")
+    check_segsum_schedule(post, fk, dp, b, dtype, dev)
     for label, Q in (("prior", prior), ("posterior", post)):
         # K6 against the plain factorization; K7 and K8 against their plain
         # versions on the same (kernel) factor, so each check sees one kernel
@@ -1119,26 +1238,33 @@ def check_dense_kernels(dn_model, sp_model, dtype, dev):
         check_dense_shape(nx, ny, dtype, dev)
     if dtype == torch.float64:
         dense_chol_trace(data, t)
+    Dinv = got[4]
     b = torch.tensor(np.random.default_rng(7).normal(size=(B, n, 1)), dtype=dtype, device=dev)
     sb = s[..., None] * b
     # the Newton solve: both triangles (mode 2), one right-hand side
-    check("dense_trsv solve", dtype, kernels.dense_trsv(L, s, b, 2), kernels.dense_trsv_plain(L, s, b, 2),
-          "dense_trsv", results, cuda_ms(lambda: kernels.dense_trsv(L, s, b, 2)),
+    check("dense_trsv solve", dtype, kernels.dense_trsv(L, s, b, 2, Dinv), kernels.dense_trsv_plain(L, s, b, 2),
+          "dense_trsv", results, cuda_ms(lambda: kernels.dense_trsv(L, s, b, 2, Dinv)),
           cuda_ms(lambda: kernels.dense_trsv_plain(L, s, b, 2)),
           cost=(B * 2 * n * n, el * B * (n * (n + 1) // 2 + 3 * n)),
           library_ms=cuda_ms(lambda: torch.cholesky_solve(sb, L)), shape=f"{shape} k=1",
-          extra=" (library: torch.cholesky_solve, both triangles)")
-    for mode, label in ((0, "L^-1"), (1, "L^-T")):
-        check(f"dense_trsv {label}", dtype, kernels.dense_trsv(L, s, b, mode), kernels.dense_trsv_plain(L, s, b, mode),
-              "dense_trsv", {}, extra=f" solve_triangular {cuda_ms(lambda: torch.linalg.solve_triangular(L, sb, upper=False)):.3f} ms"
-              if mode == 0 else "")
+          extra=f" (library: torch.cholesky_solve, both triangles; solve_triangular L^-1 "
+                f"{cuda_ms(lambda: torch.linalg.solve_triangular(L, sb, upper=False)):.3f} ms; "
+                f"{launch_count(kernels.dense_trsv, lambda: kernels.dense_trsv(L, s, b, 2, Dinv))} launch)")
+    check_trsv_modes(L, s, Dinv, shape, dtype, dev)
+    try:  # on the card K10 solves by K9's tiles, and raises without them
+        kernels.dense_trsv(L, s, b, 2)
+    except ValueError as e:
+        log(f"  dense_trsv without K9's tiles raises: {e}")
+    else:
+        raise AssertionError("dense_trsv: no error without K9's tiles")
     # K10's second entry: Σ on Q's pattern (DenseLogdet's backward, selinv)
     r, c = t.on(dev)["rows"], t.on(dev)["cols"]
     rl, cl = r.long(), c.long()
     terms = float((n - torch.maximum(rl, cl)).sum())  # products of the row dots: X is upper triangular
-    check("dense_selinv Σ on Q's pattern", dtype, kernels.dense_selinv(L, s, r, c),
+    check("dense_selinv Σ on Q's pattern", dtype, kernels.dense_selinv(L, s, r, c, Dinv),
           kernels.dense_selinv_plain(L, s, r, c), "dense_selinv", results,
-          cuda_ms(lambda: kernels.dense_selinv(L, s, r, c), 5), cuda_ms(lambda: kernels.dense_selinv_plain(L, s, r, c), 5),
+          cuda_ms(lambda: kernels.dense_selinv(L, s, r, c, Dinv), 5),
+          cuda_ms(lambda: kernels.dense_selinv_plain(L, s, r, c), 5),
           cost=(B * (n**3 / 3 + 2 * terms), 8 * Q.nnz + el * B * (n * (n + 1) // 2 + n + Q.nnz)),
           shape=f"{shape} m={Q.nnz}",
           extra=f" (library: none; torch.cholesky_inverse, all of Q⁻¹ without the gather, "
@@ -1291,6 +1417,26 @@ def check_dense_shape(nx: int, ny: int, dtype, dev):
           cost=(n**3 / 3, table_bytes(t) + el * (Q.nnz + n * n + n + 1)),
           library_ms=cuda_ms(lambda: torch.linalg.cholesky_ex(A)), shape=f"B=1 n={n}",
           extra=" (library: torch.linalg.cholesky_ex of the equilibrated (1, n, n))")
+    check_trsv_modes(got[0], got[1], got[4], f"B=1 n={n}", dtype, dev)
+
+
+def check_trsv_modes(L, s, Dinv, shape: str, dtype, dev):
+    """Phase 3c: K10 on K9's factor and tiles in modes 0 (L⁻¹), 1 (L⁻ᵀ) and 2 (both) at k = 1, 8 and 65
+    right-hand sides (one group of 8; a group of 64 and a partial one) against its plain version, with times;
+    mode 2 also beside the library call, s∘cholesky_solve(s∘b, L)."""
+    from tpu_gmrf_torch import kernels
+
+    B, n = s.shape
+    rng = np.random.default_rng(17)
+    for k in (1, 8, 65):
+        b = torch.tensor(rng.normal(size=(B, n, k)), dtype=dtype, device=dev)
+        sb = s[..., None] * b
+        for mode in (0, 1, 2):
+            check(f"dense_trsv mode {mode} {shape} k={k}", dtype, kernels.dense_trsv(L, s, b, mode, Dinv),
+                  kernels.dense_trsv_plain(L, s, b, mode), "dense_trsv", {},
+                  cuda_ms(lambda: kernels.dense_trsv(L, s, b, mode, Dinv)),
+                  cuda_ms(lambda: kernels.dense_trsv_plain(L, s, b, mode)),
+                  library_ms=cuda_ms(lambda: s[..., None] * torch.cholesky_solve(sb, L)) if mode == 2 else None)
 
 
 def dense_chol_trace(data, t):
@@ -1555,6 +1701,19 @@ def bsr_library(Bm, dev):
                                        size=(Bm.plan.nb * Bm.plan.bs,) * 2)
 
 
+def bsr_library_t(Bm, dev):
+    """The BSR tensor of Aᵀ (the yardstick beside the transposed K14): A's blocks transposed, regrouped by block
+    column."""
+    t, nb, bs = Bm.plan.on(dev), Bm.plan.nb, Bm.plan.bs
+    rp, bc = t["rowptr_l"], t["block_cols_l"]
+    br = torch.repeat_interleave(torch.arange(nb, device=dev), rp.diff())
+    order = torch.argsort(bc * nb + br)
+    crow = torch.cat([rp.new_zeros(1), torch.bincount(bc, minlength=nb).cumsum(0)])
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        return torch.sparse_bsr_tensor(crow, br[order], Bm.blocks[order].mT.contiguous(), size=(nb * bs,) * 2)
+
+
 def check_operator_kernels(label, Q, dtype, dev, results, block_sizes, timed):
     """K13, K14 (forward and transposed), K15 and K4 on one operator Q
     (data (nnz,)) with SPMV_VECS vectors, against plain and library."""
@@ -1600,6 +1759,9 @@ def check_operator_kernels(label, Q, dtype, dev, results, block_sizes, timed):
             bl = bsr_library(Bm, dev)
             xpad = torch.nn.functional.pad(xt, (0, 0, 0, plan.nb * bs - n))
             bsr_ms = cuda_ms(lambda: bl @ xpad)
+            blt = bsr_library_t(Bm, dev)  # the transposed product's yardstick (built outside the timing)
+            bsrt_ms = cuda_ms(lambda: blt @ xpad)
+            _, rel_t = rel_err(((blt @ xpad)[:n].T,), (kernels.bsr_spmm_plain(blocks, plan, x, True),))
         cost = (2 * nbl * bs * bs * k, el * (nbl * bs * bs + 2 * n * k) + 4 * (nbl + plan.nb + 1))
         tag = f"{shape} bs={bs} nblocks={nbl}" + (" (best_block_size)" if bs == best else "")
         check(f"bsr_spmm {tag}", dtype, kernels.bsr_spmm(blocks, plan, x), kernels.bsr_spmm_plain(blocks, plan, x),
@@ -1609,7 +1771,9 @@ def check_operator_kernels(label, Q, dtype, dev, results, block_sizes, timed):
         check(f"bsr_spmm transposed {tag}", dtype, kernels.bsr_spmm(blocks, plan, x, True),
               kernels.bsr_spmm_plain(blocks, plan, x, True), "bsr_spmm", {},
               cuda_ms(lambda: kernels.bsr_spmm(blocks, plan, x, True)),
-              cuda_ms(lambda: kernels.bsr_spmm_plain(blocks, plan, x, True)))
+              cuda_ms(lambda: kernels.bsr_spmm_plain(blocks, plan, x, True)), library_ms=bsrt_ms,
+              extra=f" (library: torch.sparse_bsr_tensor of Aᵀ @ x, {rel_t:.1e} from plain)")
+        del blt
         check(f"bsr_outer {tag}", dtype, kernels.bsr_outer(plan, g, x), kernels.bsr_outer_plain(plan, g, x),
               "bsr_outer", keep, cuda_ms(lambda: kernels.bsr_outer(plan, g, x)),
               cuda_ms(lambda: kernels.bsr_outer_plain(plan, g, x)),

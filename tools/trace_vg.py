@@ -1,7 +1,8 @@
 """Time and trace one batched Laplace value+grad of tpu_gmrf_torch, from the
 source tree given as the first argument; needs a CUDA device.
 
-    python3 tools/trace_vg.py <root> [spatial] [supernodal] [flagship] [k9] [nuts] [rbmc] [k7tiles]
+    python3 tools/trace_vg.py <root> [spatial] [supernodal] [flagship] [k9] [k5] [k10] [vgtimes] [hostcost] [kl18]
+        [nuts] [rbmc] [k7tiles]
 
 ``spatial`` is chip_smoke.py's phase 11 value+grad: the Matérn + Poisson
 model on the 63x63 grid (n=5741), 4 chains at θ = (1, 0.3), 10 Newton
@@ -10,7 +11,26 @@ solver, float64. ``flagship`` is phase 4's: AR1(500) + Poisson over 256
 chains, in float32 and float64. ``k9`` is one K9 `dense_chol` launch at
 phase 3c's shape (the g=16 posterior, B=8, n=450, f64): its host time per
 call (200 calls enqueued, before the synchronize) and the host CUDA calls
-of one call in a trace, with their host time. ``nuts`` runs phases 10 and
+of one call in a trace, with their host time. ``k5`` and ``k10`` give K5's
+and K10's host µs per call (200 calls enqueued before one synchronize) and
+device µs per launch (a torch.profiler trace of 20 calls): K5 on phase 3b's
+posterior (B=4, n=5741, f64) for the largest level's Schur reduction, the
+logdet's sum and its launches per factorization and per solve, and on the
+flagship's Q_p − H (`sp_add`, B=256, n=500, f32), and `selinv_dot`'s sum
+on the posterior's pattern; K10 as the dense factor's solve (both
+triangles, k=1) and `selinv_diag` at phase 3c's shape (the g=16 posterior,
+B=8, n=450, f64), and at B=1 on the lattices of n=900, 1000 and 4096 in
+f32 and f64 beside its plain version and `cholesky_solve` (CUDA events per
+call). ``vgtimes`` times 15 calls each
+of phase 7's, phase 11's and the f32 flagship value+grad (host clock, each
+call ending in a synchronize; after 2 warm-up calls) and prints every
+time. ``hostcost`` (this tree's wrappers only) splits the host µs of one K5
+call (the flagship's `sp_add` plan) into its pieces: the whole wrapper, the
+ctypes call with its launch, the ctypes call without a launch (B = 0),
+`_on_cuda`, the stream handle and `torch.cuda.current_stream` (2000 calls
+each). ``kl18`` computes phase 18's KL n=900 d/dτ on the card with K10 and
+with `dense_trsv_plain` (cuBLAS's trsm) in K10's place, against the plain
+path on CPU tensors. ``nuts`` runs phases 10 and
 11's run_nuts (g=16, 8 chains, auto -> dense; n=5741, 4 chains, auto ->
 banded; both uncut, f64) and prints their samples/s. ``supernodal`` is
 phase 7's value+grad (the same model with the supernodal inner solver, 10
@@ -242,6 +262,201 @@ def trace_k9(dev) -> None:
           f"calls {', '.join(f'{k} x{n} {us:.1f} us' for k, (n, us) in sorted(calls.items()))}", flush=True)
 
 
+def host_device(label: str, fn, reps: int = 200) -> None:
+    """fn's host µs per call (`reps` calls enqueued before one synchronize) and
+    device µs per launch (a torch.profiler trace of 20 calls)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = (time.perf_counter() - t0) * 1e6 / reps
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.device_time_total for e in dev)
+    names = sorted({e.name[:40] for e in dev})
+    print(f"{os.path.relpath(root)} {label}: host {host:.2f} us per call ({reps} enqueued); device "
+          f"{busy / max(len(dev), 1):.2f} us per launch, {len(dev) / 20:g} launches per call ({', '.join(names)})",
+          flush=True)
+
+
+def time_k5(dev) -> None:
+    from tpu_gmrf_torch.solvers import supernodal as sn
+    from tpu_gmrf_torch.sparse.matrix import _ADD_CACHE, sp_add, sp_tridiag, spdiag
+
+    model = cs.spatial_model(cs.SP_GRID)
+    B, dtype = cs.SP_CHAINS, torch.float64
+    Q = cs.random_posterior(model, B, dtype, dev, 3)
+    f = sn.supernodal_factorize(Q)
+    dp = sn._device_plan(f.meta, dev)
+    lv = max(dp["levels"], key=lambda lv: sum(p.rows for p in lv.schur))
+    u = torch.randn(B, lv.zu + 1, dtype=dtype, device=dev)
+    vals = f.vals.clone()
+    host_device(f"K5 the largest Schur level ({len(lv.schur)} plans, {sum(p.rows for p in lv.schur)} rows), "
+                f"B={B} n={model.n} f64", lambda: [kernels.gather_segsum(p, u, out=vals, alpha=-1.0, accumulate=True)
+                                                   for p in lv.schur])
+    plans = dp["logdet"] if isinstance(dp["logdet"], tuple) else (dp["logdet"],)  # two plans in older trees
+    logs = torch.randn(B, 2 * model.n, dtype=dtype, device=dev)
+
+    def logdet():
+        x = logs
+        for p in plans:
+            x = kernels.gather_segsum(p, x)
+        return x
+
+    host_device(f"K5 the logdet sum ({len(plans)} plans)", logdet)
+    # selinv_dot's sum on Q's pattern: one plan here, two (chunks, then their sum) in older trees
+    dot = sn._sum_plan(Q.nnz, dot=True) if hasattr(sn, "_sum_plan") else sn._sum_plans(Q.nnz, dot=True)
+    dot = dot if isinstance(dot, tuple) else (dot,)
+    z = torch.randn(B, Q.nnz, dtype=dtype, device=dev)
+
+    def selinv_sum():
+        x = kernels.gather_segsum(dot[0], z, y=Q.data)
+        for p in dot[1:]:
+            x = kernels.gather_segsum(p, x)
+        return x
+
+    host_device(f"K5 the selinv_dot sum ({len(dot)} plans, {Q.nnz} terms, B={B})", selinv_sum)
+    b = torch.randn(B, model.n, dtype=dtype, device=dev)
+    per = {}
+    for label, fn in (("factorization", lambda: sn.supernodal_factorize(Q)), ("solve", lambda: f.solve(b))):
+        before = kernels.gather_segsum.launches
+        fn()
+        per[label] = kernels.gather_segsum.launches - before
+    print(f"{os.path.relpath(root)} K5 launches per factorization {per['factorization']}, per solve {per['solve']}",
+          flush=True)
+    a, c, x, _ = cs.kernel_inputs(torch.float32, dev)
+    Qf, H = sp_tridiag(a, c), spdiag(-x.exp())
+    sp_add(Qf, H)
+    plan = _ADD_CACHE[(Qf.pattern, H.pattern)][1][0]
+    both = torch.cat([Qf.data, H.data], -1).contiguous()
+    host_device(f"K5 sp_add (Q_p - H), B={cs.CHAINS} n={cs.N} f32", lambda: kernels.gather_segsum(plan, both))
+
+
+def time_k10(dev) -> None:
+    from tpu_gmrf_torch.solvers import dense as td
+
+    Q = cs.random_posterior(cs.spatial_model(cs.DN_GRID), cs.DN_CHAINS, torch.float64, dev, 6)
+    f = td.dense_factorize(Q)
+    b = torch.randn(cs.DN_CHAINS, Q.shape[0], dtype=torch.float64, device=dev)
+    with torch.no_grad():
+        host_device(f"K10 solve (both triangles) B={cs.DN_CHAINS} n={Q.shape[0]} k=1 f64", lambda: f._solve_both(b))
+        host_device(f"K10 selinv_diag B={cs.DN_CHAINS} n={Q.shape[0]} f64", f.selinv_diag, 20)
+        # B=1 on the lattices of phases 15 and 16 (n=900, 1000) and at DENSE_MAX_N: K10 in mode 2, its plain
+        # version and the library call s∘cholesky_solve(s∘b, L), CUDA events per call
+        for dtype in (torch.float32, torch.float64):
+            for nx, ny in ((30, 30), (40, 25), (64, 64)):
+                Ql = cs.lattice_precision(nx, ny, dtype, dev)
+                got = kernels.dense_chol(Ql.data.contiguous(), td._tables(Ql.pattern))
+                L, s, tiles = got[0], got[1], got[4:]  # K9's tiles: none in older trees
+                b1 = torch.randn(1, nx * ny, 1, dtype=dtype, device=dev)
+                sb = s[..., None] * b1
+                ms = [cs.cuda_ms(fn) for fn in (lambda: kernels.dense_trsv(L, s, b1, 2, *tiles),
+                                                lambda: kernels.dense_trsv_plain(L, s, b1, 2),
+                                                lambda: s[..., None] * torch.cholesky_solve(sb, L))]
+                print(f"{os.path.relpath(root)} K10 mode 2 B=1 n={nx * ny} k=1 {cs.dtype_name(dtype)}: kernel "
+                      f"{ms[0]:.4f} ms, plain {ms[1]:.4f}, library (cholesky_solve) {ms[2]:.4f} (CUDA events per call)",
+                      flush=True)
+
+
+def time_vg(dev) -> None:
+    model = cs.spatial_model(cs.SP_GRID)
+    y = cs.spatial_y(model, cs.SP_GRID)
+    z7 = torch.tensor(np.tile([0.0, np.log(0.3)], (cs.SP_CHAINS, 1))
+                      + np.random.default_rng(5).normal(scale=0.3, size=(cs.SP_CHAINS, 2)), dtype=torch.float32, device=dev)
+    z11 = torch.tensor(np.tile([0.0, np.log(0.3)], (4, 1)), dtype=torch.float64, device=dev)
+    zf = torch.tensor(np.random.default_rng(2).normal(scale=0.5, size=(cs.CHAINS, 2)), dtype=torch.float32, device=dev)
+    for label, ld, z in (("phase 7 value+grad (f32, supernodal inner solver)", cs.spatial_logdensity(model, y), z7),
+                         ("phase 11 value+grad (f64, auto inner solver)", cs.spatial_logdensity(model, y, 10, inner=None), z11),
+                         ("flagship value+grad (f32)", cs.logdensity(cs.flagship_y()), zf)):
+        for _ in range(2):
+            value_and_grad(ld, z)
+        ts = []
+        for _ in range(15):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            value_and_grad(ld, z)
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        q = np.percentile(ts, [25, 50, 75])
+        print(f"{os.path.relpath(root)} {label}: median {q[1]:.2f} ms, quartiles {q[0]:.2f} {q[2]:.2f}; "
+              f"{' '.join(f'{t:.2f}' for t in ts)}", flush=True)
+
+
+def host_cost(dev) -> None:
+    from tpu_gmrf_torch.kernels import tridiag as kt
+    from tpu_gmrf_torch.sparse.matrix import _ADD_CACHE, sp_add, sp_tridiag, spdiag
+
+    a, c, x, _ = cs.kernel_inputs(torch.float32, dev)
+    Q, H = sp_tridiag(a, c), spdiag(-x.exp())
+    sp_add(Q, H)
+    plan = _ADD_CACHE[(Q.pattern, H.pattern)][1][0]
+    both = torch.cat([Q.data, H.data], -1).contiguous()
+    out = both.new_empty(both.shape[0], plan.rows)
+    fn, addr, st = kt._fn("tg_gather_segsum", torch.float32), plan.pack(out.get_device(), -(-both.shape[0] // 8)), kt._stream(out)
+    args = (addr, out.data_ptr(), out.size(1), both.data_ptr(), both.size(1), None, 0, None, 0, 1.0, 0)
+    for label, f in (("gather_segsum, the whole wrapper", lambda: kernels.gather_segsum(plan, both, out=out)),
+                     ("the ctypes call with its launch", lambda: fn(*args, both.shape[0], st)),
+                     ("the ctypes call, no launch (B = 0)", lambda: fn(*args, 0, st)),
+                     ("_on_cuda of two tensors", lambda: kt._on_cuda("gather_segsum", out, both)),
+                     ("the raw stream handle", lambda: kt._stream(out)),
+                     ("torch.cuda.current_stream(...).cuda_stream",
+                      lambda: torch.cuda.current_stream(out.device).cuda_stream)):
+        for _ in range(50):
+            f()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2000):
+            f()
+        us = (time.perf_counter() - t0) / 2000 * 1e6
+        torch.cuda.synchronize()
+        print(f"{os.path.relpath(root)} host cost, {label}: {us:.2f} us", flush=True)
+
+
+def kl18(dev) -> None:
+    import dataclasses
+
+    import tpu_gmrf_torch as tg
+    from tpu_gmrf_torch.kl_cholesky import gram
+    from tpu_gmrf_torch.solvers import dense as td
+    from tpu_gmrf_torch.sparse import SparseMatrix, SparsePattern
+
+    X = cs.grid_points(cs.KL_GRID_SMALL)
+    n = len(X)
+    rng = np.random.default_rng(123)
+    rng.integers(0, n, size=12)  # as phase 18: example 09's probe columns, then its observations
+    obs = rng.integers(0, n, size=5)
+    y = np.sin(4 * X[obs, 0]) * np.cos(3 * X[obs, 1])
+    g = tg.approximate_gmrf_kl(torch.tensor(X, device=dev), gram(cs.matern32), rho=cs.KL_RHO, jitter=cs.KL_JITTER)
+    g = dataclasses.replace(g, mean=g.mean.detach(), Q=SparseMatrix(g.Q.data.detach(), g.Q.pattern))
+
+    def dtau(where):
+        t = torch.tensor(1.0, dtype=torch.float64, device=where, requires_grad=True)
+        A = SparseMatrix(torch.ones(len(obs), dtype=torch.float64, device=where),
+                         SparsePattern(np.arange(len(obs)), obs, (len(obs), n)))
+        prior = tg.GMRF.from_precision(g.mean.to(where), SparseMatrix(g.Q.data.to(where) * t, g.Q.pattern))
+        tg.linear_condition(prior, y, Q_eps=1e4, A=A).mean.sum().backward()
+        return float(t.grad)
+
+    plain, kernel = dtau("cpu"), td.dense_trsv
+    for label, trsv in (("K10", kernel), ("cuBLAS trsm (dense_trsv_plain)",
+                                          lambda L, s, b, mode=2, Dinv=None: kernels.dense_trsv_plain(L, s, b, mode))):
+        td.dense_trsv = trsv
+        try:
+            got = dtau(dev)
+        finally:
+            td.dense_trsv = kernel
+        print(f"{os.path.relpath(root)} phase 18 KL n={n} d/dτ with {label}: {got!r}, plain path {plain!r}, "
+              f"rel {abs(got - plain) / abs(plain):.3e}", flush=True)
+
+
 def time_rbmc(dev) -> None:
     import tpu_gmrf_torch as tg
     from tpu_gmrf_torch.solvers.rbmc import _block_rbmc_plan, block_rbmc_var, rbmc_var
@@ -353,6 +568,16 @@ def main() -> int:
         trace_supernodal(dev)
     if "k9" in which:
         trace_k9(dev)
+    if "k5" in which:
+        time_k5(dev)
+    if "k10" in which:
+        time_k10(dev)
+    if "vgtimes" in which:
+        time_vg(dev)
+    if "hostcost" in which:
+        host_cost(dev)
+    if "kl18" in which:
+        kl18(dev)
     if "rbmc" in which:
         time_rbmc(dev)
     if "k7tiles" in which:

@@ -21,7 +21,8 @@
 // it is bound by the latency of its chain of ceil(n / 64) dependent 64 x 64
 // diagonal tiles, each a Cholesky of 64 pivots in sequence; at n = 4096 by
 // the rate of the trailing updates. K10 reads L (n^2/2 values) once per
-// right-hand side: bound by that read.
+// right-hand side group: at B = 8, n = 450 by the latency of its chain of
+// 2 ceil(n / 64) dependent tile steps.
 // Design. K9 is one launch (dense_chol_kernel): a thread-block cluster per
 // chain (kernels/banded.py factor_cluster picks its size: the fewest waves
 // of clusters, then the largest; at n = 450, B = 8, eight clusters of 16),
@@ -37,10 +38,14 @@
 // rescattered from its data with the next shift and refactored, twice at
 // most; then block 0 writes the level and the logdet, and every block of a
 // chain whose last attempt broke down writes NaN over its factor. No flag
-// goes to the host and nothing waits on the stream. K10 runs one block per
-// (chain, right-hand side) with the vector in shared memory; `dense_selinv`
-// solves for X the same way, one block per (chain, column), into a global
-// workspace, then dots pairs of X's rows, one warp per wanted entry.
+// goes to the host and nothing waits on the stream. K9 keeps the inverted
+// diagonal tiles (Dinv) for K10, which solves by them: a cluster per chain
+// and group of 8 or 64 right-hand sides (kernels/dense.py sizes it, at most a
+// block per 64-row tile), tiles.cuh trsm_rows forward and then backward, so
+// each diagonal step is a product (f64 on the tensor cores, f32 on the FMA
+// units) followed by one cluster barrier. `dense_selinv` solves for X with
+// the same kernel on the identity into a global workspace, then dots pairs
+// of X's rows, one warp per wanted entry.
 
 #include "dense_blocks.cuh"
 #include "tiles.cuh"
@@ -136,7 +141,7 @@ int chol_fit(int cs, int* count) {
   return tgtile::cluster_fit(dense_chol_kernel<T>, cs, chol_smem<T>(), count);
 }
 
-// K9: one cluster launch of cs blocks per chain; flags: 3 B ints, Dinv: B ceil(n / 64) inverted tiles (scratch).
+// K9: one cluster launch of cs blocks per chain; flags: 3 B ints, Dinv: B ceil(n / 64) inverted tiles.
 template <typename T>
 int launch_chol(const T* data, long long ds, const int* rows, const int* cols, const int* tperm, const int* diag_pos,
                 int nnz, int n, T* L, T* s, int* level, T* logdet, int* flags, T* Dinv, int cs, int B, void* stream) {
@@ -145,52 +150,69 @@ int launch_chol(const T* data, long long ds, const int* rows, const int* cols, c
                                 ds, rows, cols, tperm, diag_pos, nnz, n, L, s, level, logdet, Dinv, flags);
 }
 
-// One block per (chain, right-hand side): mode 0 y = L^-1 (s.b), mode 1
-// x = s.(L^-T b), mode 2 both. b and out are (B, n, k).
-template <typename T>
-__global__ void __launch_bounds__(kVecThreads)
-    dense_trsv_kernel(const T* L, const T* s, const T* b, T* out, int n, int k, int mode) {
+// K10: cluster (rank, group, chain) solves columns NT group .. NT group + q of
+// its chain's right-hand sides b (B, n, k) into out by K9's inverted 64 x 64
+// diagonal tiles Dinv (B, ntiles(n) 64 64): mode 0 out = L^-1 (s.b), mode 1
+// out = s.(L^-T b), mode 2 both; b == nullptr stands for the identity (k = n:
+// K10's second entry solves X = S L^-T so). Row tile i belongs to block
+// i % cs throughout (tiles.cuh trsm_rows), so only its owner writes it; a
+// cluster barrier publishes the scaled right-hand sides, and after
+// trsm_rows' last one every tile is final.
+template <typename T, int NT>
+__global__ void __launch_bounds__(tgtile::kThr)
+    dense_trsv_kernel(const T* L, const T* s, const T* Dinv, const T* b, T* out, int n, int k, int mode) {
+  using namespace tgtile;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* v = reinterpret_cast<T*>(smem_raw);  // n
-  __shared__ T red[kVecThreads];
-  const long long chain = blockIdx.x / k;
-  const int col = blockIdx.x % k;
-  const T* Lb = L + chain * (long long)n * n;
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  const int rank = blockIdx.x, cs = gridDim.x, nt = ntiles(n);
+  const int c0 = blockIdx.y * NT, q = min(NT, k - c0);
+  const long long chain = blockIdx.z;
+  const T* Lb = L + chain * n * n;
   const T* sb = s + chain * n;
-  const T* bb = b + chain * (long long)n * k + col;
-  T* ob = out + chain * (long long)n * k + col;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) v[i] = (mode != 1 ? sb[i] : T(1)) * bb[(long long)i * k];
-  __syncthreads();
-  if (mode != 1) tri_lower_solve(Lb, n, v, n);
-  if (mode != 0) tri_lower_t_solve(Lb, n, v, n, red);
-  for (int i = threadIdx.x; i < n; i += blockDim.x) ob[(long long)i * k] = (mode != 0 ? sb[i] : T(1)) * v[i];
+  const T* Db = Dinv + chain * nt * kTT;
+  const T* bb = b ? b + chain * n * k + c0 : nullptr;
+  T* X = out + chain * n * k + c0;
+  // each block's row tiles of X: e = (row, column) within the tile, for every thread
+  auto own = [&](auto f) {
+    for (int i = rank; i < nt; i += cs)
+      for (int e = threadIdx.x; e < min(kT, n - i * kT) * q; e += kThr) f((long long)i * kT + e / q, e % q);
+  };
+  own([&](long long r, int c) {
+    const T v = bb ? bb[r * k + c] : T(r == c0 + c);
+    X[r * k + c] = mode != 1 ? sb[r] * v : v;
+  });
+  csync();
+  if (mode != 1) trsm_rows<T, NT>(Lb, n, Db, n, X, k, q, false, rank, cs, sm);
+  if (mode == 0) return;
+  trsm_rows<T, NT>(Lb, n, Db, n, X, k, q, true, rank, cs, sm);
+  own([&](long long r, int c) { X[r * k + c] *= sb[r]; });
 }
 
+// Shared memory of K10: the staging of tiles.cuh's products with NT columns.
+template <typename T, int NT>
+size_t trsv_smem() {
+  using C = tgtile::Cfg<NT>;
+  return sizeof(T) * 2 * tgtile::kKS * (C::LDA + C::LDB);
+}
+
+// How many clusters of cs blocks of K10 (64 columns with `wide`, else 8) the card holds at once.
 template <typename T>
-int launch_trsv(const T* L, const T* s, const T* b, T* out, int n, int k, int mode, int B, void* stream) {
+int trsv_fit(int cs, int wide, int* count) {
+  return wide ? tgtile::cluster_fit(dense_trsv_kernel<T, 64>, cs, trsv_smem<T, 64>(), count)
+              : tgtile::cluster_fit(dense_trsv_kernel<T, 8>, cs, trsv_smem<T, 8>(), count);
+}
+
+// K10: one cluster of cs blocks per chain and group of 8 right-hand sides (k <= 8) or 64.
+template <typename T>
+int launch_trsv(const T* L, const T* s, const T* Dinv, const T* b, T* out, int n, int k, int mode, int cs, int B,
+                void* stream) {
   if (B == 0 || k == 0) return 0;
-  const size_t smem = sizeof(T) * (size_t)n;
-  int rc = set_smem(dense_trsv_kernel<T>, smem);
-  if (rc) return rc;
-  dense_trsv_kernel<T><<<B * k, kVecThreads, smem, (cudaStream_t)stream>>>(L, s, b, out, n, k, mode);
-  return (int)cudaGetLastError();
-}
-
-// K10's second entry, the selected inverse: X = S L^-T (upper triangular),
-// one block per (chain, column col). L^T z = e_col has z_i = 0 for i > col,
-// so only the leading col + 1 rows are solved: n^3 / 3 flops per chain.
-template <typename T>
-__global__ void __launch_bounds__(kVecThreads) dense_linv_t_kernel(const T* L, const T* s, T* X, int n) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* v = reinterpret_cast<T*>(smem_raw);  // n
-  __shared__ T red[kVecThreads];
-  const long long chain = blockIdx.x / n;
-  const int col = blockIdx.x % n;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) v[i] = i == col ? T(1) : T(0);
-  __syncthreads();
-  tri_lower_t_solve(L + chain * (long long)n * n, n, v, col + 1, red);
-  T* xb = X + chain * (long long)n * n + col;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) xb[(long long)i * n] = s[chain * n + i] * v[i];
+  cudaStream_t st = (cudaStream_t)stream;
+  if (k <= 8)
+    return tgtile::launch_cluster(dense_trsv_kernel<T, 8>, dim3(cs, 1, B), cs, trsv_smem<T, 8>(), st, L, s, Dinv, b,
+                                  out, n, k, mode);
+  return tgtile::launch_cluster(dense_trsv_kernel<T, 64>, dim3(cs, cdiv(k, 64), B), cs, trsv_smem<T, 64>(), st, L, s,
+                                Dinv, b, out, n, k, mode);
 }
 
 // out[b][p] = Sigma at (rows[p], cols[p]) = X_i . X_j over the rows of X,
@@ -212,17 +234,17 @@ __global__ void __launch_bounds__(kThreads)
   if (lane == 0) out[b * m + p] = acc;
 }
 
+// K10's second entry, the selected inverse: X = S L^-T (upper triangular) by
+// K10 in mode 1 on the identity, into the workspace X (B, n, n), then the
+// dots of pairs of its rows.
 template <typename T>
-int launch_selinv(const T* L, const T* s, T* X, const int* rows, const int* cols, int m, int n, T* out, int B,
-                  void* stream) {
+int launch_selinv(const T* L, const T* s, const T* Dinv, T* X, const int* rows, const int* cols, int m, int n,
+                  T* out, int cs, int B, void* stream) {
   if (B == 0 || n == 0) return 0;
-  cudaStream_t st = (cudaStream_t)stream;
-  const size_t smem = sizeof(T) * (size_t)n;
-  int rc = set_smem(dense_linv_t_kernel<T>, smem);
-  if (rc) return rc;
-  dense_linv_t_kernel<T><<<B * n, kVecThreads, smem, st>>>(L, s, X, n);
-  if ((rc = (int)cudaGetLastError()) || m == 0) return rc;
-  dense_gram_kernel<T><<<dim3(cdiv(m, kThreads / 32), B), kThreads, 0, st>>>(X, n, rows, cols, m, out);
+  int rc = launch_trsv<T>(L, s, Dinv, nullptr, X, n, n, 1, cs, B, stream);
+  if (rc || m == 0) return rc;
+  dense_gram_kernel<T><<<dim3(cdiv(m, kThreads / 32), B), kThreads, 0, (cudaStream_t)stream>>>(X, n, rows, cols, m,
+                                                                                               out);
   return (int)cudaGetLastError();
 }
 
@@ -238,13 +260,14 @@ extern "C" {
                           B, stream);                                                                            \
   }                                                                                                              \
   int tg_dense_chol_fit_##SUF(int cs, int* count) { return chol_fit<T>(cs, count); }                           \
-  int tg_dense_trsv_##SUF(const T* L, const T* s, const T* b, T* out, int n, int k, int mode, int B,            \
-                          void* stream) {                                                                        \
-    return launch_trsv<T>(L, s, b, out, n, k, mode, B, stream);                                                  \
+  int tg_dense_trsv_##SUF(const T* L, const T* s, const T* Dinv, const T* b, T* out, int n, int k, int mode,   \
+                          int cs, int B, void* stream) {                                                         \
+    return launch_trsv<T>(L, s, Dinv, b, out, n, k, mode, cs, B, stream);                                        \
   }                                                                                                              \
-  int tg_dense_selinv_##SUF(const T* L, const T* s, T* X, const int* rows, const int* cols, int m, int n, T* out, \
-                            int B, void* stream) {                                                               \
-    return launch_selinv<T>(L, s, X, rows, cols, m, n, out, B, stream);                                          \
+  int tg_dense_trsv_fit_##SUF(int cs, int wide, int* count) { return trsv_fit<T>(cs, wide, count); }            \
+  int tg_dense_selinv_##SUF(const T* L, const T* s, const T* Dinv, T* X, const int* rows, const int* cols, int m, \
+                            int n, T* out, int cs, int B, void* stream) {                                        \
+    return launch_selinv<T>(L, s, Dinv, X, rows, cols, m, n, out, cs, B, stream);                                \
   }
 
 TG_DENSE_ENTRY(f32, float)

@@ -1,8 +1,7 @@
-// Building blocks of the dense kernels K10-K12 (csrc/dense.cu, csrc/banded.cu):
-// a batched blocked right-looking Cholesky of tall panels, spread over
-// (chain, tile) thread blocks (K11's rescue of the chains that broke down),
-// and block-level triangular solves of one vector (K10). `Eps` is shared
-// with K6 (csrc/supernodal.cu).
+// Building blocks of the dense kernels (csrc/dense.cu, csrc/banded.cu): a
+// batched blocked right-looking Cholesky of tall panels, spread over
+// (chain, tile) thread blocks (K11's rescue of the chains that broke down).
+// `Eps` is shared with K6 (csrc/supernodal.cu).
 //
 // Layout. Chain b's matrix starts at A + b * stride, row-major with leading
 // dimension ld. A panel is H x W (H >= W): its top W x W part is factored
@@ -26,10 +25,9 @@ namespace {
 namespace tgdense {
 
 constexpr int kNB = 64;        // column tile of the blocked Cholesky
-constexpr int kThreads = 256;  // threads of the tile Cholesky, the updates and the vector solves
+constexpr int kThreads = 256;  // threads of the tile Cholesky and the updates
 constexpr int kRT = 128;       // rows per block of the panel solve (one thread each)
 constexpr int kGB = 64, kGK = 16;  // output tile and depth step of the trailing update
-constexpr int kVecThreads = 1024;  // threads of a vector solve: 32 warps keep loads in flight
 
 template <typename T>
 struct Eps;
@@ -271,92 +269,6 @@ inline int any_failed(const int* fail, int B, cudaStream_t st, bool* any) {
   for (int b = 0; b < B && !rc; ++b) *any = *any || host[b] != 0;
   delete[] host;
   return rc;
-}
-
-// ---- vector solves of one block ------------------------------------------------------
-
-// v[0:R] -= M[0:R, 0:C] u[0:C], M row-major (ld); one warp per row. v and u
-// must not overlap.
-template <typename T>
-__device__ void sub_matvec(T* v, const T* M, long long ld, const T* u, int R, int C) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
-  for (int i = warp; i < R; i += nw) {
-    const T* row = M + (long long)i * ld;
-    T acc = T(0);
-#pragma unroll 8  // several loads in flight per lane: these loops are latency-bound
-    for (int j = lane; j < C; j += 32) acc += row[j] * u[j];
-    for (int o = 16; o; o >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, o);
-    if (lane == 0) v[i] -= acc;
-  }
-}
-
-// v[0:C] -= M[0:R, 0:C]^T u[0:R]: lanes over columns (coalesced rows of M),
-// warps over rows, the warps' partial sums reduced in red (blockDim.x entries).
-// Every thread of the block must call it.
-template <typename T>
-__device__ void sub_matvec_t(T* v, const T* M, long long ld, const T* u, int R, int C, T* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
-  for (int c0 = 0; c0 < C; c0 += 32) {
-    const int c = c0 + lane;
-    T acc = T(0);
-    if (c < C)
-#pragma unroll 8
-      for (int j = warp; j < R; j += nw) acc += M[(long long)j * ld + c] * u[j];
-    red[threadIdx.x] = acc;
-    __syncthreads();
-    if (warp == 0 && c < C) {
-      T s = T(0);
-      for (int w = 0; w < nw; ++w) s += red[w * 32 + lane];
-      v[c] -= s;
-    }
-    __syncthreads();
-  }
-}
-
-// v[0:m] <- L^-1 v with L lower (row-major, ld): 32-row tiles; the rows of
-// a tile first subtract the solved part (warp per row), then warp 0 solves
-// the tile's diagonal block. Every thread of the block must call it.
-template <typename T>
-__device__ void tri_lower_solve(const T* L, long long ld, T* v, int m) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int i0 = 0; i0 < m; i0 += 32) {
-    const int t = min(32, m - i0);
-    if (i0) sub_matvec(v + i0, L + (long long)i0 * ld, ld, v, t, i0);
-    __syncthreads();
-    if (warp == 0) {
-      const T* Lt = L + (long long)i0 * ld + i0;
-      T vi = lane < t ? v[i0 + lane] : T(0);
-      for (int j = 0; j < t; ++j) {
-        if (lane == j) vi = vi / Lt[(long long)j * ld + j];
-        const T vj = __shfl_sync(0xffffffffu, vi, j);
-        if (lane > j && lane < t) vi -= Lt[(long long)lane * ld + j] * vj;
-      }
-      if (lane < t) v[i0 + lane] = vi;
-    }
-    __syncthreads();
-  }
-}
-
-// v[0:m] <- L^-T v, the same tiles from the bottom up.
-template <typename T>
-__device__ void tri_lower_t_solve(const T* L, long long ld, T* v, int m, T* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int i0 = ((m - 1) / 32) * 32; i0 >= 0; i0 -= 32) {
-    const int t = min(32, m - i0), i1 = i0 + t;
-    if (i1 < m) sub_matvec_t(v + i0, L + (long long)i1 * ld + i0, ld, v + i1, m - i1, t, red);
-    __syncthreads();
-    if (warp == 0) {
-      const T* Lt = L + (long long)i0 * ld + i0;
-      T vi = lane < t ? v[i0 + lane] : T(0);
-      for (int j = t - 1; j >= 0; --j) {
-        if (lane == j) vi = vi / Lt[(long long)j * ld + j];
-        const T vj = __shfl_sync(0xffffffffu, vi, j);
-        if (lane < j) vi -= Lt[(long long)j * ld + lane] * vj;
-      }
-      if (lane < t) v[i0 + lane] = vi;
-    }
-    __syncthreads();
-  }
 }
 
 }  // namespace tgdense

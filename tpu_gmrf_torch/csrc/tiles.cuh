@@ -1,8 +1,9 @@
 // The device routines of the cluster kernels: products, triangular solves
 // and tile Cholesky factors spread over the blocks of a thread-block cluster
 // (K11's factorization and K12's block entry `bt_trsv_blocks` in
-// csrc/banded.cu, K18 `spike_reduced` in csrc/spike.cu, K9 `dense_chol` in
-// csrc/dense.cu, K16 `kl_columns`' tile and cluster paths in csrc/kl.cu),
+// csrc/banded.cu, K18 `spike_reduced` in csrc/spike.cu, K9 `dense_chol` and
+// K10 `dense_trsv` in csrc/dense.cu, K16 `kl_columns`' tile and cluster paths
+// in csrc/kl.cu),
 // and the cluster launch.
 //
 // Every operand lives in global memory (at the SPIKE shapes a step's blocks

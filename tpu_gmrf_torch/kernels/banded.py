@@ -51,6 +51,7 @@ raises. ``<wrapper>.launches`` counts launches.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -71,16 +72,19 @@ TILE = 64  # kT of csrc/tiles.cuh: the row tile of the factorization and of the 
 MAX_CLUSTER = 16  # the largest (non-portable) cluster of the card
 
 
-def factor_cluster(s: int, B: int, fit, name: str = "bt_factor") -> int:
+def factor_cluster(s: int, B: int, fit, name: str = "bt_factor", most: int | None = None) -> int:
     """Blocks per cluster of a factorization of B matrices (chains, or K16's
     columns) of s rows, each on a cluster of its own, K9's, K11's and K16's
     rule: at most 2⌈s/64⌉ (the row tiles below a column tile, 1 for a
-    single tile) and 16; of those, the size that runs the matrices in the
-    fewest waves of clusters, the largest among equals. ``fit(cs)`` is how
-    many clusters of cs blocks the card holds at once (0: refused)."""
+    single tile; or `most`) and 16; of those, the size that runs the
+    matrices in the fewest waves of clusters, the largest among equals.
+    ``fit(cs)`` is how many clusters of cs blocks the card holds at once
+    (0: refused)."""
     nt = -(-s // TILE)
+    if most is None:
+        most = 1 if nt == 1 else 2 * nt
     best = None
-    for cs in range(1 if nt == 1 else min(MAX_CLUSTER, 2 * nt), 0, -1):
+    for cs in range(min(MAX_CLUSTER, most), 0, -1):
         held = fit(cs)
         if held > 0 and (best is None or -(-B // held) < best[0]):
             best = (-(-B // held), cs)
@@ -89,21 +93,29 @@ def factor_cluster(s: int, B: int, fit, name: str = "bt_factor") -> int:
     return best[1]
 
 
-_FIT: dict = {}
+_FIT: dict = {}  # the card's cluster counts, per (entry, type, cluster size, arguments)
 
 
-def _cluster(s: int, B: int, dtype, entry: str = "tg_bt_factor_fit", name: str = "bt_factor") -> int:
-    """`factor_cluster` on this card for the kernel whose cluster counts the C
-    entry `entry` gives, queried once per entry, size and type."""
+def _fit(entry: str, dtype, name: str, args: tuple = ()):
+    """``fit(cs)`` of `factor_cluster` on this card for the kernel whose
+    cluster counts the C entry `entry` gives (called as
+    ``entry(cs, *args, &count)``), each asked once."""
     def fit(cs):
-        key = (entry, dtype, cs)
+        key = (entry, dtype, cs, args)
         if key not in _FIT:
             held = ctypes.c_int(0)
-            build.check(_fn(entry, dtype)(cs, ctypes.byref(held)), name)
+            build.check(_fn(entry, dtype)(cs, *args, ctypes.byref(held)), name)
             _FIT[key] = held.value
         return _FIT[key]
 
-    return factor_cluster(s, B, fit, name)
+    return fit
+
+
+@functools.cache
+def _cluster(s: int, B: int, dtype, entry: str = "tg_bt_factor_fit", name: str = "bt_factor") -> int:
+    """`factor_cluster` on this card for the kernel whose cluster counts the C
+    entry `entry` gives, worked out once per shape and type."""
+    return factor_cluster(s, B, _fit(entry, dtype, name), name)
 
 
 class BandedTables:

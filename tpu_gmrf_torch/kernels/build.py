@@ -37,9 +37,9 @@ _SIGNATURES = {
     "tg_tridiag_selinv": [_P, _P, _P, _P, _I, _I, _I, _P],
     # row_ptr, col, data, dstride, x, y, quad, B, n_r, n_c, tiled, partial, stream
     "tg_csr_spmv": [_P, _P, _P, _L, _P, _P, _P, _I, _I, _I, _I, _P, _P],
-    # out, ostride, t, ptr, width, xi, x, xstride, yi, y, ystride, zi, z, zstride,
-    # alpha, accumulate, R, B, stream
-    "tg_gather_segsum": [_P, _L, _P, _P, _I, _P, _P, _L, _P, _P, _L, _P, _P, _L, _D, _I, _I, _I, _P],
+    # plan (the address of its argument block, kernels/segsum.py), out, ostride, x, xstride, y, ystride, z,
+    # zstride, alpha, accumulate, B, stream
+    "tg_gather_segsum": [_P, _P, _L, _P, _L, _P, _L, _P, _L, _D, _I, _I, _P],
     # vals, vstride, s, nls, nlsstride, a, astride, tperm, diag, rows, cols, src, dst, n, m, B, stream
     "tg_fct_init": [_P, _L, _P, _P, _L, _P, _L, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # vals, vstride, batch table (int64, 10 per class batch), batches, supernodes, widest W, dummy, u, ustride,
@@ -60,10 +60,12 @@ _SIGNATURES = {
     "tg_dense_chol": [_P, _L, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P],
     # cluster size, out: how many such clusters of K9's factorization the card holds
     "tg_dense_chol_fit": [_I, ctypes.POINTER(_I)],
-    # L, s, b, out, n, k, mode, B, stream
-    "tg_dense_trsv": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # L, s, X (workspace), rows, cols, m, n, out, B, stream
-    "tg_dense_selinv": [_P, _P, _P, _P, _P, _I, _I, _P, _I, _P],
+    # L, s, Dinv (K9's inverted diagonal tiles), b, out, n, k, mode, cluster size, B, stream
+    "tg_dense_trsv": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # cluster size, wide (64-column groups), out: how many such clusters of K10 the card holds
+    "tg_dense_trsv_fit": [_I, _I, ctypes.POINTER(_I)],
+    # L, s, Dinv, X (workspace), rows, cols, m, n, out, cluster size, B, stream
+    "tg_dense_selinv": [_P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _P],
     # data, dstride, src, dst, ntab, tperm, P, K, s, ws, dom, boost, logdet, flags,
     # work (inverted diagonal tiles), cluster size, B, stream
     "tg_bt_factor": [_P, _L, _P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P],

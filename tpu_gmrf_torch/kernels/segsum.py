@@ -2,11 +2,23 @@
 plain version.
 
 A `SegPlan` is static host data: for each output row r a target ``t[r]``
-(default r) and a segment of terms (CSR ``ptr`` or a fixed ``width``), each
-term gathering ``x[xi[k]]`` and, optionally, ``y[yi[k]]`` and ``z[zi[k]]``.
-`gather_segsum` computes, per chain b,
+(default r) and a segment of terms (CSR ``ptr``, or a fixed ``width`` for
+every row), each term gathering ``x[xi[k]]`` and, optionally, ``y[yi[k]]``
+and ``z[zi[k]]``. `gather_segsum` computes, per chain b,
 
     out[b, t[r]] (= or +=) alpha * Σ_k x[b, xi[k]] · y[b, yi[k]] · z[b, zi[k]]
+
+With ``split``, row r's first split[r] terms and the rest are two sums added
+in turn, (out + alpha Σ₁) + alpha Σ₂: a supernodal level's two ELL tiers in
+one row, rounded as the reference's two scatter-adds round them.
+
+The plan puts its rows of at least `BLOCK_TERMS` terms last, cut into
+chunks of at most `CHUNK_TERMS` terms within one part, a block each in the
+kernel; their sums accumulate in float64 and are rounded once per part, in
+the kernel and the plain version alike. A shorter row takes a thread, which
+sums it in the output's type in the plain version's order. The plan packs
+its device tables into one argument block per device, so that a call
+passes only its operands.
 
 K5's second entry, `fct_init`, is the supernodal factorization's preamble
 over an `InitPlan`: symmetrize, Jacobi-equilibrate and scatter onto the fill
@@ -20,43 +32,104 @@ within one plan.
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
 from . import build
 from .tridiag import _fn, _on_cuda, _stream
 
-__all__ = ["SegPlan", "InitPlan", "gather_segsum", "gather_segsum_plain", "fct_init", "fct_init_plain"]
+__all__ = ["SegPlan", "InitPlan", "gather_segsum", "gather_segsum_plain", "fct_init", "fct_init_plain",
+           "BLOCK_TERMS", "CHUNK_TERMS"]
+
+# A row of at least BLOCK_TERMS terms takes blocks of K5 (csrc/segsum.cu), one per chunk of at most CHUNK_TERMS
+# terms of one part, summing in float64; a shorter row takes a thread, which sums it in the plain version's order.
+BLOCK_TERMS = 256
+CHUNK_TERMS = 2048
+GROUP = 8  # kGroup of the source: chains per thread
+
+_TABLES = ("t", "ptr", "xi", "yi", "zi", "mid", "ck", "crow", "cptr", "cmid")
+
+
+class _Pack(ctypes.Structure):
+    """`Plan` of csrc/segsum.cu: the device tables, the chunks' scratch and the row runs."""
+
+    _fields_ = [(k, ctypes.c_void_p) for k in _TABLES + ("part", "count")] + [
+        (k, ctypes.c_int) for k in ("r_block", "rows", "chunks")]
 
 
 class SegPlan:
     """Static gather-segment-sum plan over int32 host arrays."""
 
-    def __init__(self, xi, *, ptr=None, width=None, t=None, yi=None, zi=None, n_rows=None):
+    def __init__(self, xi, *, ptr=None, width=None, t=None, yi=None, zi=None, n_rows=None, split=None):
         if (ptr is None) == (width is None):
             raise ValueError("SegPlan: give exactly one of ptr and width")
         # own copies: the tables may be read-only arrays of a pattern
-        self.xi = np.array(xi, dtype=np.int32).ravel()
-        self.yi = None if yi is None else np.array(yi, dtype=np.int32).ravel()
-        self.zi = None if zi is None else np.array(zi, dtype=np.int32).ravel()
-        self.t = None if t is None else np.array(t, dtype=np.int32).ravel()
-        if ptr is not None:
-            self.ptr = np.array(ptr, dtype=np.int32).ravel()
-            self.width = 0
-            self.rows = len(self.ptr) - 1
-        else:
-            self.ptr = None
-            self.width = int(width)
-            self.rows = int(n_rows) if n_rows is not None else len(self.xi) // max(self.width, 1)
-            if self.rows * self.width != len(self.xi):
+        xi = np.array(xi, dtype=np.int32).ravel()
+        yi = None if yi is None else np.array(yi, dtype=np.int32).ravel()
+        zi = None if zi is None else np.array(zi, dtype=np.int32).ravel()
+        t = None if t is None else np.array(t, dtype=np.int32).ravel()
+        if ptr is None:
+            width = int(width)
+            rows = int(n_rows) if n_rows is not None else len(xi) // max(width, 1)
+            if rows * width != len(xi):
                 raise ValueError("SegPlan: fixed-width rows do not tile the terms")
-        if self.t is not None and len(self.t) != self.rows:
+            ptr = np.arange(rows + 1) * width
+        ptr = np.array(ptr, dtype=np.int64).ravel()
+        rows = len(ptr) - 1
+        if ptr[0] != 0 or ptr[-1] != len(xi) or np.any(np.diff(ptr) < 0):
+            raise ValueError("SegPlan: ptr must rise from 0 to the number of terms")
+        if t is not None and len(t) != rows:
             raise ValueError("SegPlan: one target per row")
-        if self.yi is not None and len(self.yi) != len(self.xi):
+        if yi is not None and len(yi) != len(xi):
             raise ValueError("SegPlan: xi and yi differ in length")
-        if self.zi is not None and (self.yi is None or len(self.zi) != len(self.xi)):
+        if zi is not None and (yi is None or len(zi) != len(xi)):
             raise ValueError("SegPlan: zi needs yi, of the same length as xi")
-        self._dev = {}
+        if any(a is not None and len(a) and a.min() < 0 for a in (xi, yi, zi, t)):
+            raise ValueError("SegPlan: negative index")
+        counts = np.diff(ptr)
+        if split is not None:
+            split = np.array(split, dtype=np.int64).ravel()
+            if len(split) != rows or np.any(split < 0) or np.any(split > counts):
+                raise ValueError("SegPlan: split must count at most each row's terms")
+        self.full = t is None  # writes rows 0 .. rows - 1: an output can be made for it
+        long = counts >= BLOCK_TERMS
+        if np.any(long[:-1] > long[1:]):  # the long rows last, each run in its given order
+            order = np.argsort(long, kind="stable")
+            t = (np.arange(rows, dtype=np.int32) if t is None else t)[order]
+            counts, long = counts[order], long[order]
+            start = np.concatenate([[0], np.cumsum(counts)])
+            terms = np.repeat(ptr[:-1][order] - start[:-1], counts) + np.arange(len(xi))
+            xi, yi, zi = (None if a is None else a[terms] for a in (xi, yi, zi))
+            split = None if split is None else split[order]
+            ptr = start
+        self.xi, self.yi, self.zi, self.t, self.ptr = xi, yi, zi, t, ptr.astype(np.int32)
+        self.mid = None if split is None else (ptr[:-1] + split).astype(np.int32)  # where a row's second part starts
+        self.rows = rows
+        self.r_block = int(np.sum(~long))  # the first row of the long run
+        self._chunk()
+        # the least row counts of x, y, z and the output (O(1) checks of a call)
+        self.needs = tuple(0 if a is None or not len(a) else int(a.max()) + 1 for a in (xi, yi, zi)) + (
+            rows if t is None else (int(t.max()) + 1 if rows else 0),)
+        self._dev, self._packs = {}, {}
+
+    def _chunk(self):
+        """The long rows' chunks, at most CHUNK_TERMS terms each within one part
+        (the kernel's `ck`, `crow`, `cptr`, `cmid`)."""
+        ck, crow, cptr, cmid = [], [], [0], []
+        for j, r in enumerate(range(self.r_block, self.rows)):
+            a, e = int(self.ptr[r]), int(self.ptr[r + 1])
+            m = e if self.mid is None else int(self.mid[r])
+            ck.extend(range(a, m, CHUNK_TERMS))
+            cmid.append(len(ck))
+            ck.extend(range(m, e, CHUNK_TERMS))
+            crow.extend([j] * (len(ck) - cptr[-1]))
+            cptr.append(len(ck))
+        self.chunks = len(ck)
+        self.ck = np.array(ck + [int(self.ptr[-1])], dtype=np.int32)
+        self.crow, self.cptr = np.array(crow, dtype=np.int32), np.array(cptr, dtype=np.int32)
+        self.cmid = None if self.mid is None else np.array(cmid, dtype=np.int32)
 
     @classmethod
     def grouped(cls, rows, xi, n_rows, yi=None, t=None):
@@ -76,31 +149,60 @@ class SegPlan:
         if d is None:
             i32 = lambda a: None if a is None else torch.as_tensor(a, dtype=torch.int32, device=device)
             i64 = lambda a: None if a is None else torch.as_tensor(a, dtype=torch.long, device=device)
-            counts = np.diff(self.ptr) if self.ptr is not None else np.full(self.rows, self.width)
-            d = dict(
-                t=i32(self.t), ptr=i32(self.ptr), xi=i32(self.xi), yi=i32(self.yi), zi=i32(self.zi),
-                t_l=i64(self.t if self.t is not None else np.arange(self.rows)),
-                xi_l=i64(self.xi), yi_l=i64(self.yi), zi_l=i64(self.zi),
-                term_row=i64(np.repeat(np.arange(self.rows), counts)),
-            )
+            term_row = np.repeat(np.arange(self.rows), np.diff(self.ptr))
+            long = self.chunks > 0
+            d = {k: i32(getattr(self, k)) for k in _TABLES[:6]}
+            d.update({k: i32(getattr(self, k)) if long else None for k in _TABLES[6:]})
+            d.update(t_l=i64(self.t if self.t is not None else np.arange(self.rows)), xi_l=i64(self.xi),
+                     yi_l=i64(self.yi), zi_l=i64(self.zi), term_row=i64(term_row))
+            # the plain version's parts, the terms before and after each row's mid: the short rows' terms and
+            # rows, then the long rows' terms and rows counted from r_block (None for all terms, or none)
+            long_term = term_row >= self.r_block
+            if self.mid is None and not long_term.any():
+                d["parts"] = [(None, d["term_row"], None, None)]
+            else:
+                if self.mid is None:
+                    part = [np.ones(len(self.xi), bool)]
+                else:
+                    first = np.arange(len(self.xi)) < self.mid[term_row]
+                    part = [first, ~first]
+                d["parts"] = [(i64(np.nonzero(f & ~long_term)[0]), i64(term_row[f & ~long_term]),
+                               i64(np.nonzero(f & long_term)[0]), i64(term_row[f & long_term] - self.r_block))
+                              for f in part]
             self._dev[key] = d
         return d
 
+    def pack(self, index: int, groups: int) -> int:
+        """Address of the kernel's argument block on CUDA device `index` (built
+        once per device), its chunks' scratch sized for `groups` groups of
+        GROUP chains."""
+        got = self._packs.get(index)
+        if got is None:
+            d = self.tensors(torch.device("cuda", index))
+            p = _Pack(*(None if d[k] is None else d[k].data_ptr() for k in _TABLES), None, None,
+                      self.r_block, self.rows, self.chunks)
+            got = self._packs[index] = [p, 0, None]  # the block, its scratch's groups, the scratch
+        if self.chunks and got[1] < groups:
+            dev = torch.device("cuda", index)
+            part = torch.empty(groups, self.chunks * GROUP, dtype=torch.float64, device=dev)
+            count = torch.zeros(groups, self.rows - self.r_block, dtype=torch.int32, device=dev)
+            got[0].part, got[0].count = part.data_ptr(), count.data_ptr()
+            got[1:] = groups, (part, count)
+        return ctypes.addressof(got[0])
 
-def _rows2(a: torch.Tensor | None, B: int):
-    """(tensor as (B or 1, m), chain stride) for a (m,) or (B, m) tensor."""
-    if a is None:
-        return None, 0
-    if a.ndim == 1:
-        return a, 0
-    if a.ndim != 2 or a.shape[0] != B:
-        raise ValueError(f"gather_segsum: expected (m,) or ({B}, m), got {tuple(a.shape)}")
-    return a, a.shape[1]
+
+def _stride(a: torch.Tensor, B: int, need: int) -> int:
+    """Chain stride of a (m,) or (B, m) operand with m >= need (0: shared by the chains)."""
+    if a.ndim == 1 and a.size(0) >= need:
+        return 0
+    if a.ndim == 2 and a.size(0) == B and a.size(1) >= need:
+        return a.size(1)
+    raise ValueError(f"gather_segsum: expected (m,) or ({B}, m) with m >= {need}, got {tuple(a.shape)}")
 
 
 def _new_out(plan: SegPlan, x, y, accumulate: bool):
     """A fresh (B, rows) output, B from x or y; only for plans that write every row."""
-    if accumulate or plan.t is not None:
+    if accumulate or not plan.full:
         raise ValueError("gather_segsum: accumulating or targeted plans need an output")
     B = x.shape[0] if x.ndim == 2 else (y.shape[0] if y is not None and y.ndim == 2 else 1)
     return x.new_empty(B, plan.rows)
@@ -113,7 +215,7 @@ def _check_factors(plan: SegPlan, y, z):
 
 def gather_segsum_plain(plan: SegPlan, x, y=None, out=None, alpha: float = 1.0, accumulate: bool = False,
                         z=None):
-    """Same as `gather_segsum`, in plain torch (gather, ``index_add``)."""
+    """Same as `gather_segsum`, in plain torch (gather, ``index_add``; the long rows in float64)."""
     _check_factors(plan, y, z)
     d = plan.tensors(x.device)
     if out is None:
@@ -123,12 +225,16 @@ def gather_segsum_plain(plan: SegPlan, x, y=None, out=None, alpha: float = 1.0, 
         terms = terms * y[..., d["yi_l"]]
     if z is not None:
         terms = terms * z[..., d["zi_l"]]
-    terms = terms.expand(out.shape[0], -1)
-    s = out.new_zeros(out.shape[0], plan.rows).index_add_(1, d["term_row"], terms)
-    if accumulate:
-        out[:, d["t_l"]] += alpha * s
-    else:
-        out[:, d["t_l"]] = alpha * s
+    B = out.shape[0]
+    terms = terms.expand(B, -1)
+    v = out[:, d["t_l"]] if accumulate else out.new_zeros(B, plan.rows)
+    for ks, rs, kl, rl in d["parts"]:  # (out + alpha Σ₁) + alpha Σ₂
+        s = out.new_zeros(B, plan.rows).index_add_(1, rs, terms if ks is None else terms[:, ks])
+        if kl is not None and len(kl):  # the long rows' sums in float64, rounded once
+            s[:, plan.r_block:] = terms.new_zeros(B, plan.rows - plan.r_block, dtype=torch.float64).index_add_(
+                1, rl, terms[:, kl].to(torch.float64))
+        v = v + alpha * s
+    out[:, d["t_l"]] = v
     return out
 
 
@@ -138,26 +244,25 @@ def gather_segsum(plan: SegPlan, x, y=None, out=None, alpha: float = 1.0, accumu
 
     x, y, z are (m,) (shared by all chains) or (B, m); y and z are given
     exactly when the plan has yi and zi. out is (B, O), updated in place and
-    returned, or, when None, a new (B, rows) tensor. Indices are not
-    bounds-checked on the card: a plan is built against its arrays."""
+    returned, or, when None, a new (B, rows) tensor. The operands' and the
+    output's lengths are checked against the plan's largest indices (O(1)
+    per call), so the kernel reads and writes within them."""
     _check_factors(plan, y, z)
     if out is None:
         out = _new_out(plan, x, y, accumulate)
-    if out.ndim != 2:
-        raise ValueError(f"gather_segsum: out must be (B, O), got {tuple(out.shape)}")
-    tensors = [out, x] + [a for a in (y, z) if a is not None]
-    if not _on_cuda("gather_segsum", *tensors):
+    needs = plan.needs
+    if out.ndim != 2 or out.size(1) < needs[3]:
+        raise ValueError(f"gather_segsum: out must be (B, O >= {needs[3]}), got {tuple(out.shape)}")
+    B = out.size(0)
+    xs = _stride(x, B, needs[0])
+    ys = 0 if y is None else _stride(y, B, needs[1])
+    zs = 0 if z is None else _stride(z, B, needs[2])
+    if not _on_cuda("gather_segsum", *((out, x) if y is None else (out, x, y) if z is None else (out, x, y, z))):
         return gather_segsum_plain(plan, x, y, out, alpha, accumulate, z)
-    B = out.shape[0]
-    x, xs = _rows2(x, B)
-    y, ys = _rows2(y, B)
-    z, zs = _rows2(z, B)
-    d = plan.tensors(out.device)
-    ptr = lambda a: None if a is None else a.data_ptr()
     code = _fn("tg_gather_segsum", out.dtype)(
-        out.data_ptr(), out.shape[1], ptr(d["t"]), ptr(d["ptr"]), plan.width, d["xi"].data_ptr(),
-        x.data_ptr(), xs, ptr(d["yi"]), ptr(y), ys, ptr(d["zi"]), ptr(z), zs, float(alpha),
-        int(accumulate), plan.rows, B, _stream(out),
+        plan.pack(out.get_device(), -(-B // GROUP)), out.data_ptr(), out.size(1), x.data_ptr(), xs,
+        None if y is None else y.data_ptr(), ys, None if z is None else z.data_ptr(), zs,
+        float(alpha), int(accumulate), B, _stream(out),
     )
     build.check(code, "gather_segsum")
     gather_segsum.launches += 1

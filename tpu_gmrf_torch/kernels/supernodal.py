@@ -28,7 +28,6 @@ a wrapper launched on the card (K8's entries launch one to three per call).
 
 from __future__ import annotations
 
-import ctypes
 import functools
 
 import torch
@@ -283,20 +282,6 @@ def trsv_launch(W: int, k: int, units: int, sms: int) -> tuple:
     return nt, -(-k // nt)
 
 
-def _panel_fit(dtype):
-    from .banded import _FIT
-
-    def fit(cs):
-        key = ("tg_sn_panel_fit", dtype, cs)
-        if key not in _FIT:
-            held = ctypes.c_int(0)
-            build.check(_fn("tg_sn_panel_fit", dtype)(cs, ctypes.byref(held)), "sn_panel")
-            _FIT[key] = held.value
-        return _FIT[key]
-
-    return fit
-
-
 def _panel_slice(W: int, M: int) -> int:
     """Values of K6's cluster-path workspace per (supernode, chain), in the factor's type (`panel_slice` in the
     source)."""
@@ -317,7 +302,9 @@ def _panel_launches(group, vals) -> list:
         batches = group["classes"]
         for cc in batches:
             _check_class("sn_panel", cc, vals)
-        fit, sms = _panel_fit(vals.dtype), _sm_count(vals.device)
+        from .banded import _fit  # banded.py imports this module
+
+        fit, sms = _fit("tg_sn_panel_fit", vals.dtype, "sn_panel"), _sm_count(vals.device)
         path = [panel_launch(cc["W"], cc["M"], cc["panel"].shape[0] * B, fit, sms) for cc in batches]
         got = []
         for cluster in (False, True):

@@ -113,7 +113,8 @@ def _fn(name: str, dtype: torch.dtype):
 
 
 def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The current stream's handle on t's device, without a Stream object."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 # ---- wrappers ---------------------------------------------------------------

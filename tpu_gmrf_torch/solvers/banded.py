@@ -51,7 +51,7 @@ from ..kernels import (
 from ..sparse.matrix import SparseMatrix
 from ..sparse.pattern import SparsePattern
 from .base import DirectFactor, no_double_backward
-from .supernodal import _one_term, _prep_batches, _sum_plans
+from .supernodal import _one_term, _prep_batches, _sum_plan
 
 __all__ = [
     "BandedFactor",
@@ -337,11 +337,10 @@ class BandedFactor(DirectFactor):
         return SparseMatrix(z.reshape(tuple(self.batch_shape) + (pattern.nnz,)), pattern)
 
     def selinv_dot(self, other: SparseMatrix) -> torch.Tensor:
-        """tr(Q⁻¹·other) per chain: two K5 sums of Σ's values times other's."""
+        """tr(Q⁻¹·other) per chain: one K5 sum of Σ's values times other's."""
         z = _selinv_data(self.P, self.meta, other.pattern)
         y = other.data if other.data.ndim == 1 else other.data.reshape(-1, other.nnz)
-        chunks, total = _sum_plans(other.nnz, dot=True)
-        return gather_segsum(total, gather_segsum(chunks, z, y=y))[:, 0].reshape(tuple(self.batch_shape))
+        return gather_segsum(_sum_plan(other.nnz, dot=True), z, y=y)[:, 0].reshape(tuple(self.batch_shape))
 
     def sqrt_matvec(self, z: torch.Tensor) -> torch.Tensor:
         """L z in the permuted block basis, mapped back (K13 `bt_sqrt`):

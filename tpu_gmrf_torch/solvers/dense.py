@@ -5,10 +5,11 @@ prescaled by its diagonal (Q' = S Q S, S = diag(q_ii)^-1/2) and factored,
 with the reference's per-chain ridge rescue: a chain whose factor breaks
 down is refactored as Q' + δI (δ = 2e-6·n), then Q' + 500δI; a genuinely
 indefinite input still gives NaN. The effective factor is Q = L Lᵀ with
-L = S⁻¹L'. Factorization and logdet run on K9 (`dense_chol`), the solves
-on K10 (`dense_trsv`), Σ = Q⁻¹ at the entries wanted (diagonal, a
-pattern) on K10's second entry (`dense_selinv`), whose sums for
-`selinv_dot` are K5's; `sqrt_matvec`'s L·z is a plain matrix product. The
+L = S⁻¹L'. Factorization and logdet run on K9 (`dense_chol`), which also
+gives the inverted diagonal tiles of L' (kept on the factor as ``Dinv``),
+the solves on K10 (`dense_trsv`, by those tiles), Σ = Q⁻¹ at the entries
+wanted (diagonal, a pattern) on K10's second entry (`dense_selinv`), whose
+sum for `selinv_dot` is K5's; `sqrt_matvec`'s L·z is a plain matrix product. The
 logdet is differentiable through `DenseLogdet`, whose backward is Σ on Q's
 pattern; `solve` through `FactorSolve` (K10 forward and backward). The
 other solves and Σ have no backward and raise while a gradient is asked.
@@ -26,7 +27,7 @@ from ..kernels.dense import DENSE_MAX_N
 from ..sparse.matrix import SparseMatrix
 from ..sparse.pattern import SparsePattern
 from .base import DirectFactor, no_double_backward
-from .supernodal import _sum_plans
+from .supernodal import _sum_plan
 
 __all__ = ["DenseFactor", "DenseLogdet", "dense_factorize"]
 
@@ -52,17 +53,17 @@ def _entries(pattern: SparsePattern | int, device):
     return got
 
 
-def _sigma(L: torch.Tensor, s: torch.Tensor, pattern: SparsePattern | int) -> torch.Tensor:
+def _sigma(L: torch.Tensor, s: torch.Tensor, Dinv, pattern: SparsePattern | int) -> torch.Tensor:
     """Σ = Q⁻¹ at `pattern`'s entries (or the diagonal, for an int n), (B, m)."""
     n = L.shape[-1]
     if not isinstance(pattern, int) and tuple(pattern.shape) != (n, n):
         raise ValueError(f"pattern of shape {pattern.shape} does not match a factor of {n} x {n}")
-    return dense_selinv(L, s, *_entries(pattern, L.device))
+    return dense_selinv(L, s, *_entries(pattern, L.device), Dinv=Dinv)
 
 
 class DenseLogdet(torch.autograd.Function):
     """logdet of B precisions (data (B, nnz)) by K9, with the factor
-    (L, s, level) as non-differentiable outputs.
+    (L, s, level, Dinv) as non-differentiable outputs.
 
     Backward: ∂logdet/∂data_p = Σ_{row p, col p}, as JAX's Cholesky rule
     gives it (the reference symmetrizes its input, so each stored entry of
@@ -71,25 +72,26 @@ class DenseLogdet(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, data, tables):
-        L, s, level, logdet = dense_chol(data.contiguous(), tables)
-        ctx.mark_non_differentiable(L, s, level)
-        ctx.save_for_backward(L, s)
+        L, s, level, logdet, Dinv = dense_chol(data.contiguous(), tables)
+        ctx.mark_non_differentiable(*(x for x in (L, s, level, Dinv) if x is not None))
+        ctx.save_for_backward(L, s, Dinv)
         ctx.tables = tables
-        return logdet, L, s, level
+        return logdet, L, s, level, Dinv
 
     @staticmethod
-    def backward(ctx, glogdet, _gL, _gs, _glevel):
+    def backward(ctx, glogdet, _gL, _gs, _glevel, _gDinv):
         no_double_backward("the dense logdet")
-        L, s = ctx.saved_tensors
+        L, s, Dinv = ctx.saved_tensors
         t = ctx.tables.on(L.device)
-        return glogdet[:, None] * dense_selinv(L, s, t["rows"], t["cols"]), None
+        return glogdet[:, None] * dense_selinv(L, s, t["rows"], t["cols"], Dinv=Dinv), None
 
 
 @dataclasses.dataclass(frozen=True)
 class DenseFactor(DirectFactor):
     """Equilibrated Cholesky of B chains: Q = (S⁻¹L')(S⁻¹L')ᵀ with L' (B, n, n)
     = chol(S·Q·S), s (B, n); ``level`` (B,) is the ridge rescue each chain
-    needed (0 none, 1 δ, 2 500δ)."""
+    needed (0 none, 1 δ, 2 500δ); ``Dinv`` (B, ⌈n/64⌉·64·64) holds the
+    inverted 64 × 64 diagonal tiles of L' for K10 (None on CPU tensors)."""
 
     L: torch.Tensor
     s: torch.Tensor
@@ -98,6 +100,7 @@ class DenseFactor(DirectFactor):
     batch_shape: tuple
     data: torch.Tensor = dataclasses.field(repr=False, compare=False)  # (B, nnz) factored
     pattern: SparsePattern = dataclasses.field(repr=False, compare=False)
+    Dinv: torch.Tensor | None = dataclasses.field(default=None, repr=False, compare=False)
 
     @property
     def n(self):
@@ -112,7 +115,7 @@ class DenseFactor(DirectFactor):
         return b.reshape(self.L.shape[0], n, k).contiguous()
 
     def _solve(self, b: torch.Tensor, mode: int) -> torch.Tensor:
-        return dense_trsv(self.L, self.s, self._rhs(b), mode).reshape(b.shape)
+        return dense_trsv(self.L, self.s, self._rhs(b), mode, Dinv=self.Dinv).reshape(b.shape)
 
     def _solve_both(self, b: torch.Tensor) -> torch.Tensor:
         """Q x = b (K10, both triangles in one launch)."""
@@ -134,20 +137,19 @@ class DenseFactor(DirectFactor):
         return self.logdet_
 
     def selinv_diag(self) -> torch.Tensor:
-        return _sigma(self.L, self.s, self.n).reshape(tuple(self.batch_shape) + (self.n,))
+        return _sigma(self.L, self.s, self.Dinv, self.n).reshape(tuple(self.batch_shape) + (self.n,))
 
     def selinv(self, pattern: SparsePattern) -> SparseMatrix:
         """Entries of Q⁻¹ on `pattern` (used for ∂logdet(Q)/∂Q)."""
-        z = _sigma(self.L, self.s, pattern)
+        z = _sigma(self.L, self.s, self.Dinv, pattern)
         return SparseMatrix(z.reshape(tuple(self.batch_shape) + (pattern.nnz,)), pattern)
 
     def selinv_dot(self, other: SparseMatrix) -> torch.Tensor:
-        """tr(Q⁻¹ · other) per chain, for other on any pattern: two K5 sums
+        """tr(Q⁻¹ · other) per chain, for other on any pattern: one K5 sum
         of Σ's values times other's."""
-        z = _sigma(self.L, self.s, other.pattern)
+        z = _sigma(self.L, self.s, self.Dinv, other.pattern)
         y = other.data if other.data.ndim == 1 else other.data.reshape(-1, other.nnz)
-        chunks, total = _sum_plans(other.nnz, dot=True)
-        return gather_segsum(total, gather_segsum(chunks, z, y=y))[:, 0].reshape(tuple(self.batch_shape))
+        return gather_segsum(_sum_plan(other.nnz, dot=True), z, y=y)[:, 0].reshape(tuple(self.batch_shape))
 
 
 def dense_factorize(Q: SparseMatrix) -> DenseFactor:
@@ -162,5 +164,5 @@ def dense_factorize(Q: SparseMatrix) -> DenseFactor:
         Q = (Q + Q.T) * 0.5
     batch = tuple(Q.data.shape[:-1])
     data = Q.data.reshape(-1, Q.nnz)
-    logdet, L, s, level = DenseLogdet.apply(data, _tables(Q.pattern))
-    return DenseFactor(L, s, level, logdet.reshape(batch), batch, data, Q.pattern)
+    logdet, L, s, level, Dinv = DenseLogdet.apply(data, _tables(Q.pattern))
+    return DenseFactor(L, s, level, logdet.reshape(batch), batch, data, Q.pattern, Dinv)

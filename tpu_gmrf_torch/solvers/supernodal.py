@@ -16,8 +16,8 @@ reference library.
   path), K7 `sn_trsv` (solves; one launch per level), K8
   `sn_takahashi_prep` and `sn_takahashi` (selected inverse: the Σ-free half
   once per class shape, then the Σ-dependent products per class batch); the
-  Schur and
-  forward-solve reductions, the permutation, logdet and selected-inverse
+  Schur and forward-solve reductions (one ragged launch per level each: a
+  row per target), the permutation, logdet and selected-inverse
   gathers (with the Jacobi scaling undone) are K5 `gather_segsum`
   launches, and the preamble (symmetrize, equilibrate, scatter onto the
   fill pattern) is K5's `fct_init` entry (``tpu_gmrf_torch.kernels``). A class with no supernode on a level
@@ -742,14 +742,13 @@ _KERNEL_OPS = dict(init=fct_init, panel=sn_panel, trsv=sn_trsv, multiply=sn_mult
 # the plain versions, for comparisons of the kernels with them on the card
 _PLAIN_OPS = dict(init=fct_init_plain, panel=sn_panel_plain, trsv=sn_trsv_plain, multiply=sn_multiply_plain,
                   prep=sn_takahashi_prep_plain, takahashi=sn_takahashi_sweep_plain, segsum=gather_segsum_plain)
-_LOGDET_CHUNK = 64  # terms per row of the logdet's first K5 reduction
 
 
 @dataclasses.dataclass
 class _Level:
     """One level of the schedule: its class batches, the sizes of its update
     buffers (Schur ``zu``, forward-solve ``zf``; one zero slot each is
-    appended) and its ELL reductions as K5 plans."""
+    appended) and its ELL reductions as K5 plans (one each, or none)."""
 
     classes: list
     zu: int
@@ -763,18 +762,32 @@ class _Level:
         self.group = dict(classes=self.classes)
 
 
-def _ell_plans(ell, lev, dummy_tgt):
-    """The live rows of one level's ELL tiers as fixed-width K5 plans."""
-    plans = []
+def _ell_plans(ell, lev, dummy_tgt, zero_src):
+    """One level's two ELL tiers as one ragged K5 plan (in a list; empty when
+    the level has no update): a row per target holding all of its
+    contributions (the tiers write the same heavy targets, so one launch
+    needs them in one row), tier 1's and then tier 2's as the row's two parts,
+    which K5 adds in turn as the reference's two scatter-adds do; the padding
+    that reads the zero slot dropped."""
     if ell is None:
-        return plans
-    for t, s in ((ell["t1"], ell["s1"]), (ell["t2"], ell["s2"])):
+        return []
+    tgt, src, tier = [], [], []
+    for i, (t, s) in enumerate(((ell["t1"], ell["s1"]), (ell["t2"], ell["s2"]))):
         if lev is not None:
             t, s = t[lev], s[lev]
         live = t != dummy_tgt
-        if live.any():
-            plans.append(SegPlan(s[live].ravel(), width=s.shape[1], t=t[live]))
-    return plans
+        tt, ss = np.repeat(t[live], s.shape[1]), s[live].ravel()
+        keep = ss != zero_src
+        tgt.append(tt[keep])
+        src.append(ss[keep])
+        tier.append(np.full(int(keep.sum()), i))
+    tgt, src, tier = np.concatenate(tgt), np.concatenate(src), np.concatenate(tier)
+    if not len(tgt):
+        return []
+    targets, row = np.unique(tgt, return_inverse=True)
+    ptr = np.concatenate([[0], np.cumsum(np.bincount(row, minlength=len(targets)))])
+    return [SegPlan(src[np.argsort(row, kind="stable")], ptr=ptr, t=targets,
+                    split=np.bincount(row[tier == 0], minlength=len(targets)))]
 
 
 def _one_term(xi, t=None, yi=None, zi=None, rows=None):
@@ -787,12 +800,11 @@ def _one_term(xi, t=None, yi=None, zi=None, rows=None):
 
 
 @functools.lru_cache(maxsize=None)
-def _sum_plans(m, dot=False):
-    """Two K5 plans that sum m terms per chain (x·y with `dot`): chunks of
-    _LOGDET_CHUNK, then the chunks. Cached, with their device tables."""
-    ptr = np.append(np.arange(0, m, _LOGDET_CHUNK), m)
-    chunks = SegPlan(np.arange(m), ptr=ptr, yi=np.arange(m) if dot else None)
-    return chunks, SegPlan(np.arange(len(ptr) - 1), ptr=[0, len(ptr) - 1])
+def _sum_plan(m, dot=False):
+    """The K5 plan that sums m terms per chain (x·y with `dot`) in one row: one
+    launch (from BLOCK_TERMS terms, a block per chunk of CHUNK_TERMS). Cached,
+    with its device tables."""
+    return SegPlan(np.arange(m), ptr=[0, m], yi=np.arange(m) if dot else None)
 
 
 def _device_plan(meta, device):
@@ -824,8 +836,8 @@ def _device_plan(meta, device):
                 cnt, off = int(c["cnt"][lev]), int(c["off"][lev])
                 if cnt:
                     classes.append(batch(c["W"], c["M"], *(a[off:off + cnt] for a in t), ubase, fbase))
-            levels.append(_Level(classes, ub, fb, _ell_plans(seg["schur"], lev, DUMMY),
-                                 _ell_plans(seg["fwd"], lev, NDUMMY)))
+            levels.append(_Level(classes, ub, fb, _ell_plans(seg["schur"], lev, DUMMY, ub),
+                                 _ell_plans(seg["fwd"], lev, NDUMMY, fb)))
     for li in range(plan["nlevels"] - plan["lstar"]):
         classes, ub, fb = [], 0, 0
         for bk in plan["top_buckets"][li]:
@@ -834,8 +846,8 @@ def _device_plan(meta, device):
                                  ub, fb))
             ub += P * M * M
             fb += P * M
-        levels.append(_Level(classes, ub, fb, _ell_plans(plan["top_schur_ells"][li], None, DUMMY),
-                             _ell_plans(plan["top_fwd_ells"][li], None, NDUMMY), top=True))
+        levels.append(_Level(classes, ub, fb, _ell_plans(plan["top_schur_ells"][li], None, DUMMY, ub),
+                             _ell_plans(plan["top_fwd_ells"][li], None, NDUMMY, fb), top=True))
     perm, pattern = plan["perm"], meta[0]
     dp = dict(
         levels=levels,
@@ -845,9 +857,9 @@ def _device_plan(meta, device):
         perm=_one_term(perm, yi=perm, rows=n + 1),  # (s·b)[perm], then the NDUMMY zero
         unperm=_one_term(np.arange(n), t=perm, yi=perm),  # x[perm] = s·xp
         diag=_one_term(plan["diag_pos"], t=perm, yi=perm, zi=perm),  # s·s·Σ_diag, unpermuted
-        logdet=_sum_plans(2 * n),  # Σ log pivots + Σ -log s
+        logdet=_sum_plan(2 * n),  # Σ log pivots + Σ -log s
     )
-    plans = [dp["init"], dp["perm"], dp["unperm"], dp["diag"], *dp["logdet"]]
+    plans = [dp["init"], dp["perm"], dp["unperm"], dp["diag"], dp["logdet"]]
     for lv in levels:
         plans += lv.schur + lv.fwd
     for p in plans:
@@ -934,7 +946,7 @@ def _factor_values(data, meta, ops, mesh=None):
     K5's `fct_init` symmetrizes, equilibrates and scatters A onto the fill
     pattern; K6 factors each class batch (with a mesh, each rank a shard of
     the scan levels' batches), K5 applies each level's Schur updates;
-    logdet = 2(Σ log pivots − Σ log s) is a K5 sum over the log pivots (K6)
+    logdet = 2(Σ log pivots − Σ log s) is one K5 sum over the log pivots (K6)
     and the -log s (`fct_init`) side by side in one buffer."""
     plan = _PLAN_CACHE[meta]
     dp = _device_plan(meta, data.device)
@@ -954,8 +966,7 @@ def _factor_values(data, meta, ops, mesh=None):
                 _panel_sharded(ops, vals, c, u, logs, boost, group)
         for ell in lv.schur:
             ops["segsum"](ell, u, out=vals, alpha=-1.0, accumulate=True)
-    chunks, total = dp["logdet"]
-    logdet = ops["segsum"](total, ops["segsum"](chunks, logs), alpha=2.0)
+    logdet = ops["segsum"](dp["logdet"], logs, alpha=2.0)
     return vals, s, logdet[:, 0], boost
 
 
@@ -1126,7 +1137,7 @@ class SupernodalFactor(DirectFactor):
         taken in the permuted basis as `backward_solve` takes it. The
         supernodes of a product are independent; the level order only keeps
         the sums in the reference's order: K7 `sn_multiply` per level, then
-        the level's forward ELL plans (K5) add Lb·z into the rows."""
+        the level's forward ELL plan (K5) adds Lb·z into the rows."""
         rows, k = self._rows(z)
         ops = self._ops
         zp = torch.cat([rows, rows.new_zeros(rows.shape[0], 1)], -1)
@@ -1159,12 +1170,10 @@ class SupernodalFactor(DirectFactor):
         return SparseMatrix(z.reshape(tuple(self.batch_shape) + (pattern.nnz,)), pattern)
 
     def selinv_dot(self, other: SparseMatrix) -> torch.Tensor:
-        """tr(Q⁻¹·other) per chain: two K5 sums of Σ's values (scaling undone) times other's."""
+        """tr(Q⁻¹·other) per chain: one K5 sum of Σ's values (scaling undone) times other's."""
         z = _selinv_data(self.vals, self.s, other.pattern, self.meta, self._ops)
         y = other.data if other.data.ndim == 1 else other.data.reshape(-1, other.nnz)
-        chunks, total = _sum_plans(other.nnz, dot=True)
-        seg = self._ops["segsum"]
-        return seg(total, seg(chunks, z, y=y))[:, 0].reshape(tuple(self.batch_shape))
+        return self._ops["segsum"](_sum_plan(other.nnz, dot=True), z, y=y)[:, 0].reshape(tuple(self.batch_shape))
 
 
 def supernodal_factorize(Q: SparseMatrix, max_width: int = 2048, ordering: str = "auto", mesh=None
