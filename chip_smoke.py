@@ -13,10 +13,14 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    tpu_gmrf_torch/csrc with nvcc (one nvcc per source, in parallel) and
    the host symbolic core with g++;
 3. K1-K4 against their plain PyTorch versions on the card, at the flagship
-   shapes (B=256 chains, n=500), in float64 and float32; then beyond shared
-   memory: K4 at n=14058 (B=1 and 8, values shared and per chain, with the
-   quadratic form) also against CSR ``torch.sparse.mm``, and K1-K3 at
-   n=20000, B=4;
+   shapes (B=256 chains, n=500), in float64 and float32; K1 and K2 at the
+   edges of their segmented scans (n = 1, 2, 31, 32, 33, 129, 500, 1025,
+   2049, 8193, 20000; B = 1, 3, 256; K2 in modes 0-2 at k = 1, 3, 64), on a batch with
+   one clearly negative pivot (a NaN logdet on that chain only, d NaN where
+   the plain version's is) and on the near-singular RW1 + ridge chain; then
+   beyond shared memory: K4 at n=14058 (B=1 and 8, values shared and per
+   chain, with the quadratic form) also against CSR ``torch.sparse.mm``,
+   and K1-K3 at n=20000, B=4;
 3b. K5-K8 against their plain versions on the card at the spatial shapes
    (Matérn α=2 on the 63×63 grid, n=5741, B=4 chains: the prior at τ=1,
    range=0.25 and the posterior with a random positive diagonal H), in
@@ -160,10 +164,12 @@ STEP_SIZE = 0.05
 REPS = 20  # timed launches per kernel
 
 # Normwise tolerances (max |kernel - plain| / max |plain|) of the kernel checks.
-# float64: both sides are exact up to rounding order. float32: the kernels
-# run the sequential recurrences while the plain versions run doubling scans
-# (normalized Möbius products for the pivots); over n=500 steps the rounding
-# of the two differs by up to ~n·eps.
+# float64: both sides are exact up to rounding order. float32: K1 and K2 run
+# segmented scans that replay the sequential recurrences inside segments of
+# at most 16 rows, from carry-ins composed over at most ~21 scaled products,
+# and K3 the sequential recurrence, while the plain versions run doubling
+# scans over every row (normalized Möbius products for the pivots); over
+# n=500 steps the rounding of the two differs by up to ~n·eps.
 KERNEL_TOL = {torch.float64: 1e-10, torch.float32: 1e-4}
 # The slice: the float64 kernel path against the float64 plain path differs
 # only by rounding order (rel 1e-8 value, 1e-6 gradient, the Newton stop can
@@ -520,6 +526,105 @@ def check_kernels(dtype, dev):
         results[name] = {"max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, **bnd,
                          "dtype": name_t, "shape": f"B={CHAINS} n={N}"}
     return results
+
+
+def spd_rows(rng, B: int, n: int):
+    """B random SPD tridiagonal rows (a (B, n), c (B, n-1)), diagonally dominant."""
+    c = rng.normal(size=(B, n - 1))
+    a = np.abs(rng.normal(size=(B, n))) + 0.5
+    a[:, 1:] += np.abs(c)
+    a[:, :-1] += np.abs(c)
+    return a, c
+
+
+def nan_rel_err(got, ref) -> float:
+    """Normwise relative error over the finite entries of matching tensors,
+    after requiring their NaN masks to be equal (inf is compared as a value)."""
+    err, scale = 0.0, 0.0
+    for g, r in zip(got, ref):
+        if r.numel() == 0:
+            continue
+        if not torch.equal(torch.isnan(g), torch.isnan(r)):
+            raise AssertionError("the kernel's NaN positions differ from the plain version's")
+        ok = ~torch.isnan(r)
+        g, r = g[ok].double(), r[ok].double()
+        if r.numel():
+            same = g == r  # equal infinities
+            err = max(err, float(torch.where(same, 0.0, (g - r).abs()).max()))
+            scale = max(scale, float(r.abs().max()))
+    return err / max(scale, 1e-300)
+
+
+SCAN_NS = (1, 2, 31, 32, 33, 129, 500, 1025, 2049, 8193, 20000)  # K1/K2's segment, warp, row and tile edges
+
+
+def check_scan_edges(dtype, dev) -> None:
+    """K1 and K2 against their plain versions at the edges of the segmented scan
+    (kernels.scan_launch: one warp to 16 warps a chain, 1 to 16 rows a
+    thread, tiles past 8192 rows), KERNEL_TOL; a batch with one clearly negative
+    pivot in a middle segment; the near-singular RW1 + ridge chain."""
+    from tpu_gmrf_torch import kernels
+
+    rng = np.random.default_rng(14)
+    tol, name_t = KERNEL_TOL[dtype], dtype_name(dtype)
+    for n in SCAN_NS:
+        worst, checks = {}, 0
+        for B in (1, 3, CHAINS):
+            a, c = (torch.tensor(v, dtype=dtype, device=dev) for v in spd_rows(rng, B, n))
+            got, ref = kernels.tridiag_factor(a, c), kernels.tridiag_factor_plain(a, c)
+            worst["K1"] = max(worst.get("K1", 0.0), nan_rel_err(got, ref))
+            d, e, _ = ref
+            for k in (1, 3, 64):
+                if B == CHAINS and k == 64 and n > N:
+                    continue  # 256 chains x 64 columns x 20,000 rows is 2.6 GB in float64; k=64 at B=1, 3
+                b = torch.tensor(rng.normal(size=(B, n) if k == 1 else (B, n, k)), dtype=dtype, device=dev)
+                for mode in (kernels.SOLVE_L, kernels.SOLVE_LT, kernels.SOLVE_BOTH):
+                    err = nan_rel_err((kernels.tridiag_solve(d, e, b, mode),),
+                                      (kernels.tridiag_solve_plain(d, e, b, mode),))
+                    worst[f"K2 mode {mode}"] = max(worst.get(f"K2 mode {mode}", 0.0), err)
+                    checks += 1
+        torch.cuda.synchronize()
+        warps, rows = kernels.scan_launch(n)
+        log(f"  scan edges {name_t} n={n} ({warps} warp(s) a chain, {rows} rows a thread, "
+            f"{-(-n // (32 * warps * rows))} tile(s)), B=1, 3, {CHAINS}, K2 at k=1, 3, 64: max rel "
+            + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()) + f" (tol {tol:.0e}; {checks} K2 checks)")
+        if not all(v <= tol for v in worst.values()):
+            raise AssertionError(f"K1/K2 disagree with their plain versions at n={n} {name_t}: {worst}")
+    # a clearly negative pivot in a middle segment of chain 1: NaN logdet there only
+    for n in (N, SCAN_NS[-1]):
+        for B in (3, CHAINS):
+            a_np, c_np = spd_rows(rng, B, n)
+            mid = n // 2
+            c_np[1, mid - 1] = 3.0 * np.sqrt(a_np[1, mid - 1] * a_np[1, mid])
+            a, c = (torch.tensor(v, dtype=dtype, device=dev) for v in (a_np, c_np))
+            got, ref = kernels.tridiag_factor(a, c), kernels.tridiag_factor_plain(a, c)
+            nan_chains = torch.isnan(got[2]).nonzero().flatten().tolist()
+            err = nan_rel_err(got, ref)
+            log(f"  negative pivot at row {mid} of chain 1, {name_t} n={n} B={B}: NaN logdet on chains {nan_chains} "
+                f"(plain {torch.isnan(ref[2]).nonzero().flatten().tolist()}), d NaN at {int(torch.isnan(got[0]).sum())} "
+                f"rows (plain {int(torch.isnan(ref[0]).sum())}), finite entries max rel {err:.3e} (tol {tol:.0e})")
+            if nan_chains != [1] or not bool(torch.isnan(ref[2][1])) or not err <= tol:
+                raise AssertionError(f"K1 on a negative pivot, n={n} B={B} {name_t}")
+    # RW1 + a ridge: the pivots decay towards the ridge. float32 takes 1e-5: 2 + 1e-8 rounds to 2 in
+    # float32, which makes the chain exactly singular whatever factors it.
+    ridge = 1e-8 if dtype == torch.float64 else 1e-5
+    for n in (64, N):
+        a_np = np.full((1, n), 2.0) + ridge
+        a_np[:, 0] = a_np[:, -1] = 1.0 + ridge
+        a = torch.tensor(a_np, dtype=dtype, device=dev)
+        c = torch.full((1, n - 1), -1.0, dtype=dtype, device=dev)
+        got, ref = kernels.tridiag_factor(a, c), kernels.tridiag_factor_plain(a, c)
+        d64 = kernels.tridiag_factor_plain(a.double(), c.double())[0]  # the same chain factored in float64
+        finite = all(bool(torch.isfinite(t).all()) for t in got)
+        far = [float((d.double() / d64 - 1).abs().max()) for d in (got[0], ref[0])]
+        log(f"  RW1 + ridge {ridge:g}, {name_t} n={n}: kernel finite {finite}, last pivot d {got[0][0, -1].item():.6e} "
+            f"(plain {ref[0][0, -1].item():.6e}, float64 {d64[0, -1].item():.6e}), logdet {got[2].item():.9e} (plain "
+            f"{ref[2].item():.9e}); d's max rel distance from the float64 factor: kernel {far[0]:.3e}, plain {far[1]:.3e}")
+        if not finite:
+            raise AssertionError(f"K1 on the near-singular RW1 chain, n={n} {name_t}: not finite")
+        if dtype == torch.float32 and not far[0] <= far[1]:
+            raise AssertionError(f"K1 on the near-singular RW1 chain, n={n} f32: further from the float64 factor "
+                                 f"than the plain version")
 
 
 # ---- the spatial model (phases 3b, 6, 7, 8) -------------------------------------
@@ -927,12 +1032,21 @@ def check_spatial_kernels(model, dtype, dev):
     a, bd = A.data.contiguous(), Bm.data.contiguous()
     el, shape = a.element_size(), f"B={B} n={n}"
     check_sp_add(dtype, dev, results)
-    check("gather_segsum sp_matmul fwd", dtype, kernels.gather_segsum(fwd, a, y=bd),
+    # the library call: torch.sparse.mm of two CSR tensors, the chains as diagonal blocks
+    Ab, Bb = csr_block_diag(A.data.expand(B, -1), A, dev), csr_block_diag(Bm.data.expand(B, -1), Bm, dev)
+    got = kernels.gather_segsum(fwd, a, y=bd)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        lib_sum = float(torch.sparse.mm(Ab, Bb).values().double().sum())
+        lib_ms = cuda_ms(lambda: torch.sparse.mm(Ab, Bb))
+    check("gather_segsum sp_matmul fwd", dtype, got,
           kernels.gather_segsum_plain(fwd, a, y=bd), "gather_segsum", {},
           cuda_ms(lambda: kernels.gather_segsum(fwd, a, y=bd)),
           cuda_ms(lambda: kernels.gather_segsum_plain(fwd, a, y=bd)),
           cost=(2 * B * len(fwd.xi), table_bytes(fwd) + el * B * (a.shape[1] + bd.shape[1] + fwd.rows)),
-          shape=shape)
+          library_ms=lib_ms, shape=shape,
+          extra=f" (library: torch.sparse.mm of two block-diagonal CSR tensors; the sum of its values "
+                f"{abs(lib_sum / float(got.double().sum()) - 1):.1e} from the kernel's)")
     g = torch.tensor(rng.normal(size=(B, fwd.rows)), dtype=dtype, device=dev)
     check("gather_segsum sp_matmul bwd", dtype, kernels.gather_segsum(back_a, g, y=bd),
           kernels.gather_segsum_plain(back_a, g, y=bd), "gather_segsum", {})
@@ -1427,15 +1541,17 @@ def check_trsv_modes(L, s, Dinv, shape: str, dtype, dev):
     from tpu_gmrf_torch import kernels
 
     B, n = s.shape
+    el = L.element_size()
     rng = np.random.default_rng(17)
     for k in (1, 8, 65):
         b = torch.tensor(rng.normal(size=(B, n, k)), dtype=dtype, device=dev)
         sb = s[..., None] * b
-        for mode in (0, 1, 2):
+        for mode in (0, 1, 2):  # cost: L's lower triangle, s and b read once, x written once
             check(f"dense_trsv mode {mode} {shape} k={k}", dtype, kernels.dense_trsv(L, s, b, mode, Dinv),
                   kernels.dense_trsv_plain(L, s, b, mode), "dense_trsv", {},
                   cuda_ms(lambda: kernels.dense_trsv(L, s, b, mode, Dinv)),
                   cuda_ms(lambda: kernels.dense_trsv_plain(L, s, b, mode)),
+                  cost=(B * k * n * n * (2 if mode == 2 else 1), el * B * (n * (n + 1) // 2 + n + 2 * n * k)),
                   library_ms=cuda_ms(lambda: s[..., None] * torch.cholesky_solve(sb, L)) if mode == 2 else None)
 
 
@@ -1612,6 +1728,19 @@ def formulation(mv, Q) -> tuple[str, str]:
     return "bsr (K14)", "bsr_spmm"
 
 
+def csr_block_diag(data, M, dev):
+    """B chains' values `data` (B, nnz) on M's pattern as one block-diagonal CSR tensor."""
+    from tpu_gmrf_torch.sparse.matrix import _csr
+
+    rp, col = _csr(M.pattern, dev)
+    (B, nnz), (r, c) = data.shape, M.shape
+    crow = torch.cat([rp[:-1].long() + b * nnz for b in range(B)] + [torch.tensor([B * nnz], device=dev)])
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        return torch.sparse_csr_tensor(crow, torch.cat([col.long() + b * c for b in range(B)]),
+                                       data.contiguous().reshape(-1), size=(B * r, B * c))
+
+
 def csr_library(Q):
     """Q as a torch CSR tensor, for the library product beside K4, K13 and K14."""
     from tpu_gmrf_torch.sparse.matrix import _csr
@@ -1630,7 +1759,7 @@ def spmv_cost(Q, rows: int, el: int):
 
 def check_beyond_shared_memory(model, dev):
     """Phase 3 (extended): K4 at n=14058 on its tiled path, and K1-K3 at
-    n=20000 with their rows in global memory."""
+    n=20000 (K1 and K2 in scan tiles, K3 with its rows in global memory)."""
     from tpu_gmrf_torch import kernels
     from tpu_gmrf_torch.sparse.matrix import _csr
 
@@ -1663,18 +1792,20 @@ def check_beyond_shared_memory(model, dev):
         a = torch.tensor(2.5 + rng.random((B, n)), dtype=dtype, device=dev)
         c = torch.tensor(-rng.random((B, n - 1)), dtype=dtype, device=dev)
         b = torch.tensor(rng.normal(size=(B, n)), dtype=dtype, device=dev)
-        if kernels.tridiag_path(n, 1, dtype) != "global" or kernels.tridiag_path(n, 0, dtype) != "global":
-            raise AssertionError("n=20000 was expected on the global-memory path of K1-K3")
+        if kernels.tridiag_path(n, dtype) != "global":
+            raise AssertionError("n=20000 was expected on K3's global-memory path")
+        warps, rows = kernels.scan_launch(n)
+        scan = f"a block of {32 * warps} threads a chain, {-(-n // (32 * warps * rows))} tiles of {rows} rows a thread"
         d, e, _ = kernels.tridiag_factor_plain(a, c)
-        for name, kern, plain, cost in (  # (operations, bytes) of each: inputs read once, outputs written once
+        for name, kern, plain, cost, how in (  # (operations, bytes): inputs read once, outputs written once
             ("tridiag_factor", lambda: kernels.tridiag_factor(a, c), lambda: kernels.tridiag_factor_plain(a, c),
-             (5 * B * n, el * B * (4 * n - 1))),
+             (5 * B * n, el * B * (4 * n - 1)), scan),
             ("tridiag_solve", lambda: kernels.tridiag_solve(d, e, b), lambda: kernels.tridiag_solve_plain(d, e, b),
-             (6 * B * n, el * B * (4 * n - 1))),
+             (6 * B * n, el * B * (4 * n - 1)), scan),
             ("tridiag_selinv", lambda: kernels.tridiag_selinv(d, e), lambda: kernels.tridiag_selinv_plain(d, e),
-             (5 * B * n, el * B * (4 * n - 2))),
+             (5 * B * n, el * B * (4 * n - 2)), "rows in global memory"),
         ):
-            check(f"{name} n={n} B={B} (rows in global memory)", dtype, kern(), plain(), "tridiag", {},
+            check(f"{name} n={n} B={B} ({how})", dtype, kern(), plain(), "tridiag", {},
                   cuda_ms(kern, 5), cuda_ms(plain, 5), cost=cost)
     # the user's entry points at the sizes that used to raise
     import tpu_gmrf_torch as tg
@@ -1772,6 +1903,7 @@ def check_operator_kernels(label, Q, dtype, dev, results, block_sizes, timed):
               kernels.bsr_spmm_plain(blocks, plan, x, True), "bsr_spmm", {},
               cuda_ms(lambda: kernels.bsr_spmm(blocks, plan, x, True)),
               cuda_ms(lambda: kernels.bsr_spmm_plain(blocks, plan, x, True)), library_ms=bsrt_ms,
+              cost=(cost[0], cost[1] + 4 * nbl),  # the forward product's, and the transposition's block order
               extra=f" (library: torch.sparse_bsr_tensor of Aᵀ @ x, {rel_t:.1e} from plain)")
         del blt
         check(f"bsr_outer {tag}", dtype, kernels.bsr_outer(plan, g, x), kernels.bsr_outer_plain(plan, g, x),
@@ -3213,6 +3345,10 @@ def main() -> int:
     check_kernels(torch.float64, dev)
     results = check_kernels(torch.float32, dev)
 
+    log(f"  K1 and K2 at the edges of their segmented scans, on {card}")
+    for dt in (torch.float64, torch.float32):
+        check_scan_edges(dt, dev)
+
     log(f"phase 3 (extended) K4 and K1-K3 beyond shared memory, on {card}")
     stats_model = spatial_model(STATS_GRID)
     check_beyond_shared_memory(stats_model, dev)
@@ -3270,10 +3406,14 @@ def main() -> int:
         value_and_grad(ld, z.to(dev))
     torch.cuda.synchronize()
     vg_ms = (time.perf_counter() - t0) / reps * 1e3
+    vg_counts = kernels.launches()
     state, accepts, hmc_ms = run_hmc(ld, z.to(dev), HMC_STEPS, STEP_SIZE, dev)
     counts = kernels.launches()
     # ---- end of the flagship main path ----
     launched(counts, FLAGSHIP_KERNELS, "flagship")
+    k12 = ("tridiag_factor", "tridiag_solve")
+    log(f"  K1 / K2 launches: phase 4's {1 + reps} value+grads {' / '.join(str(vg_counts[k]) for k in k12)}; "
+        f"phase 5's HMC {' / '.join(str(counts[k] - vg_counts[k]) for k in k12)}")
 
     v64p, g64p = value_and_grad(ld, z.double())  # plain path: the same code on CPU tensors
     v64k, g64k = value_and_grad(ld, z.double().to(dev))  # kernel path, float64
@@ -3352,6 +3492,7 @@ def main() -> int:
     res, secs, counts9 = timed_nuts(ld, torch.zeros(CHAINS, 2, dtype=torch.float32, device=dev), w, ns_, dp_, 1)
     # ---- end of the flagship NUTS main path ----
     launched(counts9, FLAGSHIP_KERNELS, "flagship NUTS")
+    log(f"  K1 / K2 launches: phase 9's run_nuts {counts9['tridiag_factor']} / {counts9['tridiag_solve']}")
     log(f"  flagship NUTS: {nuts_line(res, secs)} on {card}")
 
     cfg = NUTS_G16

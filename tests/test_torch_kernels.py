@@ -70,7 +70,7 @@ def _check(got, ref, atol=0.0):
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=RTOL, atol=atol)
 
 
-@pytest.mark.parametrize("n", [1, 2, 7, 64])
+@pytest.mark.parametrize("n", [1, 2, 7, 64, 31, 32, 33, 500, 1025])  # also K1's segment and warp edges
 def test_tridiag_factor_plain_matches_jax(n):
     rng = np.random.default_rng(n)
     a, c = _spd_rows(rng, 3, n)
@@ -105,10 +105,12 @@ def test_tridiag_factor_indefinite_gives_nan():
     assert np.isnan(float(_jax_factor(a, c).logdet()))
 
 
-@pytest.mark.parametrize("k", [None, 3])
-def test_tridiag_solve_plain_matches_jax(k):
+@pytest.mark.parametrize(  # n=33 as before; then K2's segment and warp edges
+    "k,n", [(None, 33), (3, 33), (None, 31), (3, 32), (None, 500), (3, 1025)],
+    ids=["None", "3", "None-n31", "3-n32", "None-n500", "3-n1025"])
+def test_tridiag_solve_plain_matches_jax(k, n):
     rng = np.random.default_rng(1)
-    B, n = 2, 33
+    B = 2
     a, c = _spd_rows(rng, B, n)
     rhs = rng.normal(size=(B, n) if k is None else (B, n, k))
     d, e, _ = kernels.tridiag_factor(_t(a), _t(c))

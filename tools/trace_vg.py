@@ -1,8 +1,8 @@
 """Time and trace one batched Laplace value+grad of tpu_gmrf_torch, from the
 source tree given as the first argument; needs a CUDA device.
 
-    python3 tools/trace_vg.py <root> [spatial] [supernodal] [flagship] [k9] [k5] [k10] [vgtimes] [hostcost] [kl18]
-        [nuts] [rbmc] [k7tiles]
+    python3 tools/trace_vg.py <root> [spatial] [supernodal] [flagship] [k9] [k5] [k10] [tridiag] [vgtimes] [hostcost]
+        [kl18] [nuts] [flagnuts] [rbmc] [k7tiles]
 
 ``spatial`` is chip_smoke.py's phase 11 value+grad: the Matérn + Poisson
 model on the 63x63 grid (n=5741), 4 chains at θ = (1, 0.3), 10 Newton
@@ -21,7 +21,17 @@ on the posterior's pattern; K10 as the dense factor's solve (both
 triangles, k=1) and `selinv_diag` at phase 3c's shape (the g=16 posterior,
 B=8, n=450, f64), and at B=1 on the lattices of n=900, 1000 and 4096 in
 f32 and f64 beside its plain version and `cholesky_solve` (CUDA events per
-call). ``vgtimes`` times 15 calls each
+call). ``tridiag`` gives K1 `tridiag_factor`'s and K2 `tridiag_solve`'s
+(mode 2, k=1) host µs per call (200 enqueued) and device µs per launch (a
+torch.profiler trace of 20 calls), and their CUDA events ms per call, at the
+flagship shape (B=256, n=500, chip_smoke.py's kernel inputs) and at B=4,
+n=20000, in float32 and float64; at the flagship shape, each wrapper's host
+time split into its pieces (the median of 15 rounds of 200 calls: the whole wrapper, the checks,
+`_on_cuda`, the outputs as three allocations and as one allocation cut into
+three views, the launch shape, the stream handle, the ctypes call with its
+launch and without one, B = 0); and, on a tree with `scan_launch`, K1's and
+K2's device µs per launch at the flagship shape on 1, 2, 4, 8 and 16 warps a
+chain (16, 8, 4, 2 and 1 rows a thread). ``vgtimes`` times 15 calls each
 of phase 7's, phase 11's and the f32 flagship value+grad (host clock, each
 call ending in a synchronize; after 2 warm-up calls) and prints every
 time. ``hostcost`` (this tree's wrappers only) splits the host µs of one K5
@@ -30,7 +40,8 @@ ctypes call with its launch, the ctypes call without a launch (B = 0),
 `_on_cuda`, the stream handle and `torch.cuda.current_stream` (2000 calls
 each). ``kl18`` computes phase 18's KL n=900 d/dτ on the card with K10 and
 with `dense_trsv_plain` (cuBLAS's trsm) in K10's place, against the plain
-path on CPU tensors. ``nuts`` runs phases 10 and
+path on CPU tensors. ``flagnuts`` runs phase 9's run_nuts (the flagship, 256 chains, f32, depth 8,
+10 + 10 draws) and prints its samples/s and K1/K2 launches. ``nuts`` runs phases 10 and
 11's run_nuts (g=16, 8 chains, auto -> dense; n=5741, 4 chains, auto ->
 banded; both uncut, f64) and prints their samples/s. ``supernodal`` is
 phase 7's value+grad (the same model with the supernodal inner solver, 10
@@ -420,6 +431,95 @@ def host_cost(dev) -> None:
         print(f"{os.path.relpath(root)} host cost, {label}: {us:.2f} us", flush=True)
 
 
+def host_us(fn, reps: int = 200, rounds: int = 15) -> tuple[float, float, float]:
+    """fn's host µs per call: quartiles over `rounds` rounds of `reps` calls enqueued before a
+    synchronize (few enough that the launch queue never makes the host wait for the device)."""
+    for _ in range(20):
+        fn()
+    per = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        per.append((time.perf_counter() - t0) / reps * 1e6)
+    torch.cuda.synchronize()
+    return tuple(np.percentile(per, [25, 50, 75]))
+
+
+def time_tridiag(dev) -> None:
+    from tpu_gmrf_torch.kernels import tridiag as kt
+
+    scan = hasattr(kt, "scan_launch")  # this PR's wrappers; the parent's pass `in_global` instead
+    rng = np.random.default_rng(4)
+    for dtype in (torch.float32, torch.float64):
+        for B, n in ((cs.CHAINS, cs.N), (4, 20000)):
+            if n == cs.N:
+                a, c, _, b = cs.kernel_inputs(dtype, dev)
+            else:  # chip_smoke.py's n=20000 rows
+                a = torch.tensor(2.5 + rng.random((B, n)), dtype=dtype, device=dev)
+                c = torch.tensor(-rng.random((B, n - 1)), dtype=dtype, device=dev)
+                b = torch.tensor(rng.normal(size=(B, n)), dtype=dtype, device=dev)
+            d, e, _ = kernels.tridiag_factor_plain(a, c)
+            label = f"B={B} n={n} {cs.dtype_name(dtype)}"
+            k1, k2 = (lambda: kernels.tridiag_factor(a, c)), (lambda: kernels.tridiag_solve(d, e, b))
+            host_device(f"K1 tridiag_factor {label}", k1)
+            host_device(f"K2 tridiag_solve mode 2 k=1 {label}", k2)
+            print(f"{os.path.relpath(root)} K1 / K2 {label}: CUDA events {cs.cuda_ms(k1, 50, 5):.5f} / "
+                  f"{cs.cuda_ms(k2, 50, 5):.5f} ms per call; host µs per call, quartiles of 15 rounds of 200 "
+                  f"enqueued: K1 {' '.join('%.2f' % q for q in host_us(k1))}, K2 "
+                  f"{' '.join('%.2f' % q for q in host_us(k2))}", flush=True)
+            if n != cs.N:
+                continue
+            el = a.element_size()
+            fn1, fn2, st = kt._fn("tg_tridiag_factor", dtype), kt._fn("tg_tridiag_solve", dtype), kt._stream(a)
+            out1, out2 = a.new_empty(2 * B * n), torch.empty_like(b)
+            p1 = (a.data_ptr(), c.data_ptr(), out1.data_ptr(), out1.data_ptr() + el * B * n,
+                  out1.data_ptr() + el * B * (2 * n - 1))
+            p2 = (d.data_ptr(), e.data_ptr(), b.data_ptr(), out2.data_ptr())
+            if scan:
+                shape = kt.scan_launch(n)
+                call1 = lambda rows: fn1(*p1, rows, n, *shape, st)  # noqa: E731
+                call2 = lambda rows: fn2(*p2, rows, n, 1, 2, *shape, st)  # noqa: E731
+                launch_shape = ("scan_launch", lambda: kt.scan_launch(n))
+            else:
+                call1 = lambda rows: fn1(*p1, rows, n, 0, st)  # noqa: E731
+                call2 = lambda rows: fn2(*p2, rows, n, 1, 2, 0, st)  # noqa: E731
+                launch_shape = ("tridiag_path", lambda: kt.tridiag_path(n, 0, dtype))
+            pieces = (
+                ("K1 tridiag_factor, the whole wrapper", k1),
+                ("K2 tridiag_solve, the whole wrapper", k2),
+                ("_check_rows", lambda: kt._check_rows("tridiag_factor", a, c)),
+                ("_on_cuda of two tensors", lambda: kt._on_cuda("tridiag_factor", a, c)),
+                ("_on_cuda of three tensors", lambda: kt._on_cuda("tridiag_solve", d, e, b)),
+                ("outputs: three allocations (empty_like x2, new_empty)",
+                 lambda: (torch.empty_like(a), torch.empty_like(c), a.new_empty(B))),
+                ("outputs: one allocation cut into three views",
+                 lambda: (lambda o: (o.as_strided((B, n), (n, 1)), o.as_strided((B, n - 1), (n - 1, 1), B * n),
+                                     o.as_strided((B,), (1,), B * (2 * n - 1))))(a.new_empty(2 * B * n))),
+                ("K2's output (empty_like)", lambda: torch.empty_like(b)),
+                (f"the launch shape ({launch_shape[0]})", launch_shape[1]),
+                ("the raw stream handle", lambda: kt._stream(a)),
+                ("five data_ptr()", lambda: (a.data_ptr(), c.data_ptr(), d.data_ptr(), e.data_ptr(), b.data_ptr())),
+                ("K1's ctypes call with its launch", lambda: call1(B)),
+                ("K1's ctypes call, no launch (B = 0)", lambda: call1(0)),
+                ("K2's ctypes call with its launch", lambda: call2(B)),
+                ("K2's ctypes call, no launch (B = 0)", lambda: call2(0)),
+            )
+            print(f"{os.path.relpath(root)} host cost {label} (median of 15 rounds of 200 calls): "
+                  + "; ".join(f"{name} {host_us(f)[1]:.2f} us" for name, f in pieces), flush=True)
+            if scan:  # the warps a chain and rows a thread that hold n rows, picked and forced
+                saved = kt.scan_launch
+                shapes = [(w, -(-n // (32 * w))) for w in (1, 2, 4, 8, 16)]
+                try:
+                    for shape in shapes + shapes[::-1]:
+                        kt.scan_launch = lambda n_, shape=shape: shape
+                        host_device(f"K1 at (warps a chain, rows a thread) {shape} {label}", k1)
+                        host_device(f"K2 at (warps a chain, rows a thread) {shape} {label}", k2)
+                finally:
+                    kt.scan_launch = saved
+
+
 def kl18(dev) -> None:
     import dataclasses
 
@@ -572,6 +672,8 @@ def main() -> int:
         time_k5(dev)
     if "k10" in which:
         time_k10(dev)
+    if "tridiag" in which:
+        time_tridiag(dev)
     if "vgtimes" in which:
         time_vg(dev)
     if "hostcost" in which:
@@ -582,6 +684,13 @@ def main() -> int:
         time_rbmc(dev)
     if "k7tiles" in which:
         time_k7_tiles(dev)
+    if "flagnuts" in which:
+        cfg = cs.NUTS_FLAGSHIP
+        res, secs, counts = cs.timed_nuts(cs.logdensity(cs.flagship_y()),
+                                          torch.zeros(cs.CHAINS, 2, dtype=torch.float32, device=dev),
+                                          cfg["warmup"], cfg["samples"], cfg["depth"], 1)
+        print(f"{os.path.relpath(root)} phase 9 flagship run_nuts: {cs.nuts_line(res, secs)}; K1 / K2 launches "
+              f"{counts['tridiag_factor']} / {counts['tridiag_solve']}", flush=True)
     if "nuts" in which:
         for cfg, grid in ((cs.NUTS_G16, cs.NUTS_G16["grid"]), (cs.NUTS_5741, cs.SP_GRID)):
             model = cs.spatial_model(grid)

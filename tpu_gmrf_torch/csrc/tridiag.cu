@@ -11,30 +11,52 @@
 //                      reverse `linear_recurrence`.
 //
 // What bounds them on the card: each chain is a length-n first-order
-// recurrence, so the work per chain is O(n) flops on a strictly sequential
-// dependency chain. At the flagship shape (B=256 chains, n=500) the whole
-// batch moves ~1-3 MB, i.e. well under a microsecond of HBM time; the bound
-// is the latency of n dependent divide/sqrt steps in one thread plus the
-// launch itself. The TPU reference traded that latency for O(n log n) work
-// through associative scans because its vector unit is wide and in order.
+// recurrence. At the flagship shape (B=256 chains, n=500) the whole batch
+// moves ~1-3 MB, well under a microsecond of HBM time, and the arithmetic is
+// a few flops a row; the bound is the latency of the dependent steps. The TPU
+// reference traded that latency for O(n log n) work in associative scans.
+// The tensor cores have no part here: a 2x2 Möbius product is four FMAs, and
+// the work is latency, not throughput.
 //
-// Design: one block per chain. The block stages the chain's rows into shared
-// memory with coalesced loads, one thread runs the recurrence out of shared
-// memory (no global-memory latency inside the dependent chain), and the
-// block writes the results back coalesced. 256 chains give 256 blocks, about
-// two per SM. Nothing is allocated here; the wrapper allocates every output.
-// A chain whose rows do not fit the 48 KB of shared memory a launch gets
-// without an opt-in (`in_global` != 0, the kernels' InGlobal) keeps them in
-// global memory instead (a template parameter, so the shared-memory version
-// compiles to shared-memory loads as it did before there was a choice):
-// the outputs are the workspace. The block copies the inputs into the output
-// rows, one thread runs the recurrence there in place (K2 reads d and e where
-// they are), and nothing is copied back.
+// K1 and K2: a segmented scan per chain (csrc/scan.cuh). Each thread owns a
+// segment of m consecutive rows; it composes the segment's step maps (K1 the
+// Möbius matrices [[a_k, -c_{k-1}^2], [1, 0]] of the pivots, K2 the affine
+// maps of y_k = (b_k - e_{k-1} y_{k-1}) / d_k), the maps are scanned across
+// each warp (5 shuffle steps) and across the warps' totals, and each thread
+// replays the sequential recurrence over its rows from its carry-in. A block
+// takes a chain (K2: a chain and one right-hand side) with up to 4 rows a
+// thread while 16 warps hold it (n <= 2048; at n=500, 4 warps: 4 + 5 + 5 + 4
+// dependent steps where one thread walked 500); a longer chain takes up to 16
+// rows a thread and, past 8192 rows, tiles in sequence, the last row's value
+// carried from tile to tile (kernels/tridiag.py::scan_launch). Measured at
+// n=500 on the H100, a warp per chain with 16 rows a lane took K1 13.4 µs and
+// K2 19.7-25.6 µs per launch against 9.0 and 10.9 for 4 warps of 4 rows. A
+// tile's rows are staged in shared memory by coalesced loads and written back
+// coalesced; a thread's segment sits at an odd stride (scan::seg_pos) so the
+// threads' reads do not conflict. K1 sums log d in a fixed order (shuffles,
+// then the warps' sums, then the tiles in order: no atomics). K2's mode 2
+// runs the backward pass on the forward result where it lies in shared
+// memory; only a chain of several tiles sends its forward result through
+// `out`. K2's right-hand sides each take a block, which computes the
+// columns' shared affine products again.
+// Numerics: the replay rounds as the sequential loop does; only the
+// segments' carry-ins come from the scan, whose maps are composed in float64
+// (W below) and whose Möbius products are scaled by powers of two. A
+// non-positive pivot gives a NaN (or -inf) logdet with no clamping, and d is
+// NaN exactly where the pivot is negative, as in the reference's scan.
+//
+// K3: one block per chain, one thread running the recurrence out of shared
+// memory, or (`in_global` != 0, the InGlobal template, for rows beyond the 48
+// KB of shared memory a launch gets without an opt-in) in the output rows in
+// global memory.
 // Each entry point launches on the given stream and returns
-// cudaGetLastError() so the Python wrapper can raise.
+// cudaGetLastError() so the Python wrapper can raise. Nothing is allocated
+// here; the wrapper allocates every output.
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "scan.cuh"
 
 namespace {
 
@@ -62,82 +84,216 @@ __device__ __forceinline__ void store_row(T* dst, const T* src, int len) {
   for (int i = threadIdx.x; i < len; i += blockDim.x) dst[i] = src[i];
 }
 
+// The largest rows per thread of a scan tile (the loops over a segment are
+// unrolled to it); scan_launch never asks for more.
+constexpr int kSegMax = 16;
+// Shared entries (of double) a block keeps beside its tile: the warps' maps
+// (32 Mobius), their entry states (32 Proj), the logdet partials (32) and
+// the carry.
+constexpr int kScratch = 32 * 4 + 32 * 2 + 32 + 2;
+// The maps are composed and scanned in float64 for float32 chains too: on a
+// near-singular chain (RW1 + ridge) the products of the pivots' Möbius
+// matrices approach a Jordan block, whose ratio loses ~log2(n) bits to
+// cancellation, and float32 carry-ins then moved the last pivot by a
+// quarter (n=500); the replay runs in the chain's type.
+using W = double;
+
+// Launch shape, both kernels: a block of nw = blockDim.x / 32 warps per
+// chain (K2: per chain and right-hand side), m rows a thread, tiles of
+// 32·nw·m rows. Shared memory: the tile's arrays of T (32·nw segments at
+// stride m | 1 each), then the scratch.
+constexpr int kMaxThreads = 512;
+
 // K1. Pivots delta_k = a_k - c_{k-1}^2 / delta_{k-1}, d = sqrt(delta),
-// e_k = c_k / d_k, logdet = 2 sum log d. A non-positive pivot gives a NaN
-// (or -inf) logdet exactly as the reference does: no clamping, because a
-// NaN is how a chain rejects downstream.
-template <typename T, bool InGlobal>
-__global__ void tridiag_factor_kernel(const T* __restrict__ a, const T* __restrict__ c,
-                                      T* __restrict__ d, T* __restrict__ e,
-                                      T* __restrict__ logdet, int n) {
+// e_k = c_k / d_k, logdet = 2 sum log d.
+template <typename T>
+__global__ void __launch_bounds__(kMaxThreads)
+    tridiag_factor_kernel(const T* __restrict__ a, const T* __restrict__ c, T* __restrict__ d,
+                          T* __restrict__ e, T* __restrict__ logdet, int n, int m) {
+  using namespace scan;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const long b = blockIdx.x;
-  T* sa = InGlobal ? d + b * n : reinterpret_cast<T*>(smem_raw);  // a, overwritten by d
-  T* sc = InGlobal ? e + b * (n - 1) : sa + n;                    // c, overwritten by e
-  load_row(sa, a + b * n, n);
-  load_row(sc, c + b * (n - 1), n - 1);
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    T delta = sa[0];
-    T dk = dev_sqrt(delta);
-    T acc = dev_log(dk);
-    sa[0] = dk;
-    for (int k = 1; k < n; ++k) {
-      const T ck = sc[k - 1];
-      delta = sa[k] - ck * ck / delta;
-      sc[k - 1] = ck / dk;
-      dk = dev_sqrt(delta);
-      sa[k] = dk;
-      acc += dev_log(dk);
+  const int gsize = blockDim.x, nw = gsize / 32, t = threadIdx.x;
+  const long chain = blockIdx.x;
+  const int s = m | 1, tile = gsize * m;
+  T* sa = reinterpret_cast<T*>(smem_raw);  // a, then d
+  T* sc = sa + gsize * s;                  // c, then e
+  Mobius<W>* wmaps = reinterpret_cast<Mobius<W>*>(sc + gsize * s);
+  Proj<W>* wstates = reinterpret_cast<Proj<W>*>(wmaps + 32);
+  T* red = reinterpret_cast<T*>(wstates + 32);
+  T* slot = red + 32;
+  const T* ar = a + chain * n;
+  const T* cr = c + chain * (n - 1);
+  T* dr = d + chain * n;
+  T* er = e + chain * (n - 1);
+  T* ma = sa + t * s;
+  T* mc = sc + t * s;
+  Proj<W> carry = {1.0, 1.0};  // delta_{-1} = 1 with c_{-1} = 0: delta_0 = a_0
+  T total = 0;
+  for (int t0 = 0; t0 < n; t0 += tile) {
+    const int R = min(tile, n - t0);
+#pragma unroll
+    for (int q = 0; q < kSegMax; ++q) {  // each thread loads its m rows in one unrolled loop
+      const int j = t + q * gsize;
+      if (q < m && j < R) {
+        const int p = seg_pos(j, m, s);
+        sa[p] = ar[t0 + j];
+        sc[p] = t0 + j < n - 1 ? cr[t0 + j] : T(0);
+      }
     }
-    logdet[b] = T(2) * acc;
+    const int r0 = t * m, rows = max(0, min(m, R - r0));
+    const T cin = rows > 0 && t0 + r0 > 0 ? cr[t0 + r0 - 1] : T(0);  // c_{k-1} of the segment's first row
+    group_sync(nw);
+    Mobius<W> mine = identity<Mobius<W>>();
+    T cp = cin;
+#pragma unroll
+    for (int i = 0; i < kSegMax; ++i)
+      if (i < rows) {
+        const W ak = ma[i], q = W(cp) * cp;
+        mine = normalized(ak * mine.a - q * mine.c, ak * mine.b - q * mine.d, mine.a, mine.b);
+        cp = mc[i];
+      }
+    const Proj<W> in = entry_state<true>(mine, carry, nw, wmaps, wstates);
+    T delta = T(in.p / in.q), acc = 0;
+    cp = cin;
+#pragma unroll
+    for (int i = 0; i < kSegMax; ++i)
+      if (i < rows) {
+        const T ck = mc[i];
+        delta = ma[i] - cp * cp / delta;
+        const T dk = dev_sqrt(delta);
+        ma[i] = dk;
+        mc[i] = ck / dk;
+        acc += dev_log(dk);
+        cp = ck;
+      }
+    if (rows > 0 && r0 + rows == R) *slot = delta;
+    acc = group_sum(acc, nw, red);
+    if (t == 0) total += acc;
+    group_sync(nw);
+    carry = {W(*slot), 1.0};
+#pragma unroll
+    for (int q = 0; q < kSegMax; ++q) {
+      const int j = t + q * gsize;
+      if (q < m && j < R) {
+        const int p = seg_pos(j, m, s);
+        dr[t0 + j] = sa[p];
+        if (t0 + j < n - 1) er[t0 + j] = sc[p];
+      }
+    }
+    group_sync(nw);
   }
-  if (InGlobal) return;
-  __syncthreads();
-  store_row(d + b * n, sa, n);
-  store_row(e + b * (n - 1), sc, n - 1);
+  if (t == 0) logdet[chain] = T(2) * total;
 }
 
-// K2. mode 0: L y = b; mode 1: L^T x = b; mode 2: both (Q x = b) fused.
-// b is (n, k) per chain, row-major; thread j < k runs column j.
-template <typename T, bool InGlobal>
-__global__ void tridiag_solve_kernel(const T* __restrict__ d, const T* __restrict__ e,
-                                     const T* __restrict__ rhs, T* __restrict__ out,
-                                     int n, int k, int mode) {
+// K2. mode 0: L y = b; mode 1: L^T x = b; mode 2: both (Q x = b). b is
+// (n, k) per chain, row-major; a block solves one column.
+// forward  y_i = (b_i - e_{i-1} y_{i-1}) / d_i, y_{-1} = 0
+// backward x_i = (z_i - e_i x_{i+1}) / d_i,     x_n = 0
+template <typename T>
+__global__ void __launch_bounds__(kMaxThreads)
+    tridiag_solve_kernel(const T* __restrict__ d, const T* __restrict__ e, const T* __restrict__ rhs,
+                         T* out, int n, int k, int mode, int m) {
+  using namespace scan;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const long b = blockIdx.x;
-  T* sd_w = reinterpret_cast<T*>(smem_raw);
-  T* se_w = sd_w + n;
-  const T* sd = InGlobal ? d + b * n : sd_w;
-  const T* se = InGlobal ? e + b * (n - 1) : se_w;
-  T* sb = InGlobal ? out + b * (long)n * k : se_w + (n - 1);  // n*k
-  if (!InGlobal) {
-    load_row(sd_w, d + b * n, n);
-    load_row(se_w, e + b * (n - 1), n - 1);
-  }
-  load_row(sb, rhs + b * (long)n * k, n * k);
-  __syncthreads();
-  for (int j = threadIdx.x; j < k; j += blockDim.x) {
-    if (mode != 1) {  // forward: y_i = (b_i - e_{i-1} y_{i-1}) / d_i
-      T y = sb[j] / sd[0];
-      sb[j] = y;
-      for (int i = 1; i < n; ++i) {
-        y = (sb[i * k + j] - se[i - 1] * y) / sd[i];
-        sb[i * k + j] = y;
+  const int gsize = blockDim.x, nw = gsize / 32, t = threadIdx.x;
+  const long unit = blockIdx.x, chain = unit / k;
+  const int s = m | 1, tile = gsize * m, ntiles = (n + tile - 1) / tile;
+  T* sd = reinterpret_cast<T*>(smem_raw);
+  T* se = sd + gsize * s;
+  T* sb = se + gsize * s;
+  Affine<W>* wmaps = reinterpret_cast<Affine<W>*>(sb + gsize * s);
+  W* wstates = reinterpret_cast<W*>(wmaps + 32);
+  T* slot = reinterpret_cast<T*>(wstates + 32);
+  const T* dr = d + chain * n;
+  const T* er = e + chain * (n - 1);
+  const long col = chain * n * k + unit % k;  // (row, column) at col + row·k
+  const T* md = sd + t * s;
+  const T* me = se + t * s;
+  T* mb = sb + t * s;
+  const int r0 = t * m;
+  auto load = [&](int t0, int R, const T* src) {
+#pragma unroll
+    for (int q = 0; q < kSegMax; ++q) {  // each thread loads its m rows in one unrolled loop
+      const int j = t + q * gsize;
+      if (q < m && j < R) {
+        const int p = seg_pos(j, m, s);
+        sd[p] = dr[t0 + j];
+        se[p] = t0 + j < n - 1 ? er[t0 + j] : T(0);
+        sb[p] = src[col + (long)(t0 + j) * k];
       }
     }
-    if (mode != 0) {  // backward: x_i = (z_i - e_i x_{i+1}) / d_i
-      T x = sb[(n - 1) * k + j] / sd[n - 1];
-      sb[(n - 1) * k + j] = x;
-      for (int i = n - 2; i >= 0; --i) {
-        x = (sb[i * k + j] - se[i] * x) / sd[i];
-        sb[i * k + j] = x;
+  };
+  auto store = [&](int t0, int R) {
+#pragma unroll
+    for (int q = 0; q < kSegMax; ++q) {
+      const int j = t + q * gsize;
+      if (q < m && j < R) out[col + (long)(t0 + j) * k] = sb[seg_pos(j, m, s)];
+    }
+  };
+  int held = -1;  // the tile whose forward result stays in shared memory for mode 2
+  if (mode != 1) {
+    W carry = 0;
+    for (int ti = 0; ti < ntiles; ++ti) {
+      const int t0 = ti * tile, R = min(tile, n - t0), rows = max(0, min(m, R - r0));
+      load(t0, R, rhs);
+      const T ein = rows > 0 && t0 + r0 > 0 ? er[t0 + r0 - 1] : T(0);  // e_{i-1} of the segment's first row
+      group_sync(nw);
+      Affine<W> mine = identity<Affine<W>>();
+      T ep = ein;
+#pragma unroll
+      for (int i = 0; i < kSegMax; ++i)
+        if (i < rows) {
+          const W r = W(1) / md[i];
+          mine = {-ep * mine.A * r, (mb[i] - ep * mine.B) * r};
+          ep = me[i];
+        }
+      T y = T(entry_state<true>(mine, carry, nw, wmaps, wstates));
+      ep = ein;
+#pragma unroll
+      for (int i = 0; i < kSegMax; ++i)
+        if (i < rows) {
+          y = (mb[i] - ep * y) / md[i];
+          mb[i] = y;
+          ep = me[i];
+        }
+      if (rows > 0 && r0 + rows == R) *slot = y;
+      group_sync(nw);
+      carry = *slot;
+      if (mode == 2 && ti == ntiles - 1) {
+        held = ti;
+      } else {
+        store(t0, R);
       }
+      group_sync(nw);
     }
   }
-  if (InGlobal) return;
-  __syncthreads();
-  store_row(out + b * (long)n * k, sb, n * k);
+  if (mode != 0) {
+    W carry = 0;
+    for (int ti = ntiles - 1; ti >= 0; --ti) {
+      const int t0 = ti * tile, R = min(tile, n - t0), rows = max(0, min(m, R - r0));
+      if (ti != held) load(t0, R, mode == 1 ? rhs : out);
+      group_sync(nw);
+      Affine<W> mine = identity<Affine<W>>();
+#pragma unroll
+      for (int i = kSegMax - 1; i >= 0; --i)
+        if (i < rows) {
+          const W r = W(1) / md[i], ek = me[i];
+          mine = {-ek * mine.A * r, (mb[i] - ek * mine.B) * r};
+        }
+      T x = T(entry_state<false>(mine, carry, nw, wmaps, wstates));
+#pragma unroll
+      for (int i = kSegMax - 1; i >= 0; --i)
+        if (i < rows) {
+          x = (mb[i] - me[i] * x) / md[i];
+          mb[i] = x;
+        }
+      if (rows > 0 && r0 == 0) *slot = x;
+      group_sync(nw);
+      carry = *slot;
+      store(t0, R);
+      group_sync(nw);
+    }
+  }
 }
 
 // K3. Takahashi: z_{n-1} = 1/d_{n-1}^2; z_j = 1/d_j^2 + r_j^2 z_{j+1};
@@ -172,28 +328,48 @@ __global__ void tridiag_selinv_kernel(const T* __restrict__ d, const T* __restri
 
 constexpr int kThreads = 128;
 
+// Dynamic shared memory above the 48 KB default needs the kernel's opt-in,
+// asked once per device for the largest size seen (`granted`: the caller's,
+// one table per kernel).
+template <typename K>
+int allow_smem(K kernel, size_t smem, size_t* granted) {
+  if (smem <= 48 * 1024) return 0;
+  int dev = 0;
+  int rc = (int)cudaGetDevice(&dev);
+  if (rc || dev >= 64 || granted[dev] >= smem) return rc;
+  rc = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (!rc) granted[dev] = smem;
+  return rc;
+}
+
+// nw warps a block, m rows a thread (scan_launch); `arrays` tile arrays of T.
+inline size_t scan_smem(int nw, int m, int arrays, size_t el) {
+  return (size_t)arrays * 32 * nw * (m | 1) * el + kScratch * sizeof(W);
+}
+
 template <typename T>
-int launch_factor(const T* a, const T* c, T* d, T* e, T* logdet, int B, int n, int in_global,
-                  void* stream) {
-  size_t smem = in_global ? 0 : sizeof(T) * (2 * (size_t)n - 1);
-  if (in_global)
-    tridiag_factor_kernel<T, true><<<B, kThreads, smem, (cudaStream_t)stream>>>(a, c, d, e, logdet, n);
-  else
-    tridiag_factor_kernel<T, false><<<B, kThreads, smem, (cudaStream_t)stream>>>(a, c, d, e, logdet, n);
+int launch_factor(const T* a, const T* c, T* d, T* e, T* logdet, int B, int n, int nw, int m, void* stream) {
+  if (B == 0) return 0;
+  if (m < 1 || m > kSegMax || nw < 1 || 32 * nw > kMaxThreads) return (int)cudaErrorInvalidValue;
+  const size_t smem = scan_smem(nw, m, 2, sizeof(T));
+  static size_t granted[64];
+  int rc = allow_smem(tridiag_factor_kernel<T>, smem, granted);
+  if (rc) return rc;
+  tridiag_factor_kernel<T><<<B, 32 * nw, smem, (cudaStream_t)stream>>>(a, c, d, e, logdet, n, m);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_solve(const T* d, const T* e, const T* rhs, T* out, int B, int n, int k, int mode,
-                 int in_global, void* stream) {
-  size_t smem = in_global ? 0 : sizeof(T) * (2 * (size_t)n - 1 + (size_t)n * k);
-  int threads = ((k + 31) / 32) * 32;
-  if (threads < kThreads) threads = kThreads;
-  if (threads > 1024) threads = 1024;
-  if (in_global)
-    tridiag_solve_kernel<T, true><<<B, threads, smem, (cudaStream_t)stream>>>(d, e, rhs, out, n, k, mode);
-  else
-    tridiag_solve_kernel<T, false><<<B, threads, smem, (cudaStream_t)stream>>>(d, e, rhs, out, n, k, mode);
+int launch_solve(const T* d, const T* e, const T* rhs, T* out, int B, int n, int k, int mode, int nw, int m,
+                 void* stream) {
+  const long units = (long)B * k;
+  if (units == 0) return 0;
+  if (m < 1 || m > kSegMax || nw < 1 || 32 * nw > kMaxThreads) return (int)cudaErrorInvalidValue;
+  const size_t smem = scan_smem(nw, m, 3, sizeof(T));
+  static size_t granted[64];
+  int rc = allow_smem(tridiag_solve_kernel<T>, smem, granted);
+  if (rc) return rc;
+  tridiag_solve_kernel<T><<<(unsigned)units, 32 * nw, smem, (cudaStream_t)stream>>>(d, e, rhs, out, n, k, mode, m);
   return (int)cudaGetLastError();
 }
 
@@ -213,13 +389,13 @@ int launch_selinv(const T* d, const T* e, T* zdiag, T* zoff, int B, int n, int i
 extern "C" {
 
 #define TG_TRIDIAG_ENTRY(SUF, T)                                                                  \
-  int tg_tridiag_factor_##SUF(const T* a, const T* c, T* d, T* e, T* logdet, int B, int n,        \
-                              int in_global, void* stream) {                                      \
-    return launch_factor<T>(a, c, d, e, logdet, B, n, in_global, stream);                         \
+  int tg_tridiag_factor_##SUF(const T* a, const T* c, T* d, T* e, T* logdet, int B, int n, int nw, \
+                              int m, void* stream) {                                              \
+    return launch_factor<T>(a, c, d, e, logdet, B, n, nw, m, stream);                             \
   }                                                                                               \
   int tg_tridiag_solve_##SUF(const T* d, const T* e, const T* rhs, T* out, int B, int n, int k,   \
-                             int mode, int in_global, void* stream) {                             \
-    return launch_solve<T>(d, e, rhs, out, B, n, k, mode, in_global, stream);                     \
+                             int mode, int nw, int m, void* stream) {                             \
+    return launch_solve<T>(d, e, rhs, out, B, n, k, mode, nw, m, stream);                         \
   }                                                                                               \
   int tg_tridiag_selinv_##SUF(const T* d, const T* e, T* zdiag, T* zoff, int B, int n,            \
                               int in_global, void* stream) {                                      \

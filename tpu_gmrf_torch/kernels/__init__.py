@@ -74,6 +74,7 @@ from .tridiag import (
     SOLVE_BOTH,
     SOLVE_L,
     SOLVE_LT,
+    scan_launch,
     tridiag_factor,
     tridiag_factor_plain,
     tridiag_selinv,
@@ -100,7 +101,7 @@ __all__ = [
     "bt_matvec", "bt_matvec_plain", "bt_sqrt", "bt_sqrt_plain",
     "BSRMatrix", "best_block_size", "bsr_from_sparse", "bsr_spmv", "bsr_spmm", "bsr_spmm_plain",
     "bsr_outer", "bsr_outer_plain", "hot_matvec",
-    "MULTIPLY", "sn_multiply", "sn_multiply_plain", "spmv_path", "tridiag_path",
+    "MULTIPLY", "sn_multiply", "sn_multiply_plain", "spmv_path", "scan_launch", "tridiag_path",
     "kl_columns", "kl_columns_plain", "kl_path", "BlockSets", "block_inv", "block_inv_plain", "block_inv_smem_max",
     "bt_factor_blocks", "bt_factor_blocks_plain", "bt_trsv_blocks", "bt_trsv_blocks_plain",
     "spike_reduced", "spike_reduced_plain",

@@ -31,9 +31,11 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _D = ctypes.c_double
 _SIGNATURES = {
-    # the last int of each: 1 keeps the chain's rows in global memory
-    "tg_tridiag_factor": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "tg_tridiag_solve": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # a, c, d, e, logdet, B, n, then the scan's shape (warps per chain, rows per thread), stream
+    "tg_tridiag_factor": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # d, e, b, out, B, n, k, mode, the scan's shape, stream
+    "tg_tridiag_solve": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # d, e, zdiag, zoff, B, n, 1 to keep the chain's rows in global memory, stream
     "tg_tridiag_selinv": [_P, _P, _P, _P, _I, _I, _I, _P],
     # row_ptr, col, data, dstride, x, y, quad, B, n_r, n_c, tiled, partial, stream
     "tg_csr_spmv": [_P, _P, _P, _L, _P, _P, _P, _I, _I, _I, _I, _P, _P],

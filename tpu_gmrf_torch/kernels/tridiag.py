@@ -6,10 +6,11 @@ CUDA tensor launches the hand-written kernel of ``csrc/tridiag.cu`` and
 raises if it cannot. Any other device raises. ``<wrapper>.launches`` counts
 the kernel launches.
 
-A chain's rows (2n-1 values, plus n·k right-hand sides for K2) live in shared
-memory while they fit `SMEM_LIMIT`; beyond it (`tridiag_path` says "global")
-the kernels run the same recurrences in the output rows in global memory, so
-no n is refused.
+K1 and K2 run each chain as a segmented scan on a block (`scan_launch` picks
+the warps and the rows per thread; a chain longer than a block's tile runs in
+tiles in sequence), so no n is refused. K3 keeps a chain's 2n-1 values in
+shared memory while they fit `SMEM_LIMIT`; beyond it (`tridiag_path` says
+"global") it runs the recurrence in the output rows in global memory.
 """
 
 from __future__ import annotations
@@ -24,12 +25,18 @@ from . import build
 __all__ = [
     "tridiag_factor", "tridiag_solve", "tridiag_selinv",
     "tridiag_factor_plain", "tridiag_solve_plain", "tridiag_selinv_plain",
-    "SOLVE_L", "SOLVE_LT", "SOLVE_BOTH", "tridiag_path",
+    "SOLVE_L", "SOLVE_LT", "SOLVE_BOTH", "scan_launch", "tridiag_path",
 ]
 
 SOLVE_L, SOLVE_LT, SOLVE_BOTH = 0, 1, 2
 # Dynamic shared memory a block may use without an opt-in attribute.
 SMEM_LIMIT = 48 * 1024
+# K1/K2's scan shapes (csrc/tridiag.cu): a block per chain, SEG_ROWS rows a
+# thread while MAX_WARPS warps hold the chain, then up to MAX_ROWS rows a
+# thread (K2's three float64 arrays of 512 segments at stride 17 take 209 KB
+# of the 227 KB a block may have), then tiles of that size in sequence.
+SEG_ROWS, MAX_WARPS, MAX_ROWS = 4, 16, 16
+_FLOATS = (torch.float32, torch.float64)
 
 
 # ---- plain versions ---------------------------------------------------------
@@ -72,15 +79,19 @@ def tridiag_selinv_plain(d: torch.Tensor, e: torch.Tensor):
 
 
 def _on_cuda(name: str, *tensors: torch.Tensor) -> bool:
-    dev = tensors[0].device
-    if any(t.device != dev for t in tensors):
-        raise ValueError(f"{name}: tensors on different devices")
-    if dev.type == "cpu":
+    first = tensors[0]
+    dev = first.device
+    if not first.is_cuda:
+        if any(t.device != dev for t in tensors):
+            raise ValueError(f"{name}: tensors on different devices")
+        if dev.type != "cpu":
+            raise RuntimeError(f"{name}: no kernel for device {dev}")
         return False
-    if dev.type != "cuda":
-        raise RuntimeError(f"{name}: no kernel for device {dev}")
-    dtype = tensors[0].dtype
-    if dtype not in (torch.float32, torch.float64):
+    dtype = first.dtype
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"{name}: tensors on different devices")
+    if dtype not in _FLOATS:
         raise TypeError(f"{name}: dtype {dtype} not supported (float32/float64)")
     for t in tensors:
         if t.dtype != dtype:
@@ -99,11 +110,23 @@ def _check_rows(name: str, diag: torch.Tensor, off: torch.Tensor):
     return B, n
 
 
-def tridiag_path(n: int, k: int, dtype: torch.dtype) -> str:
-    """"shared" while a chain's 2n-1 values and n·k right-hand sides (k = 0
-    for K1 and K3) fit shared memory, else "global"."""
-    need = (2 * n - 1 + n * k) * (4 if dtype == torch.float32 else 8)
+def tridiag_path(n: int, dtype: torch.dtype) -> str:
+    """K3's rows: "shared" while a chain's 2n-1 values fit shared memory,
+    else "global"."""
+    need = (2 * n - 1) * (4 if dtype == torch.float32 else 8)
     return "shared" if need <= SMEM_LIMIT else "global"
+
+
+@functools.cache
+def scan_launch(n: int) -> tuple[int, int]:
+    """(warps per chain, rows per thread) of K1 and K2 on chains of n rows:
+    SEG_ROWS rows a thread on as many warps as that takes, up to MAX_WARPS;
+    beyond, up to MAX_ROWS rows a thread, in tiles of 32·warps·rows rows
+    (several in sequence past 32·MAX_WARPS·MAX_ROWS rows). K2 takes a block
+    per chain and right-hand side, so k multiplies the blocks; the dtype
+    changes nothing (a tile's arrays fit a block's shared memory in both)."""
+    warps = min(MAX_WARPS, -(-n // (32 * SEG_ROWS)))
+    return warps, min(MAX_ROWS, -(-n // (32 * warps)))
 
 
 @functools.cache
@@ -125,12 +148,15 @@ def tridiag_factor(a: torch.Tensor, c: torch.Tensor):
     B, n = _check_rows("tridiag_factor", a, c)
     if not _on_cuda("tridiag_factor", a, c):
         return tridiag_factor_plain(a, c)
-    d = torch.empty_like(a)
-    e = torch.empty_like(c)
-    logdet = a.new_empty(B)
+    # d, e and the logdet: one allocation, cut into contiguous views
+    out = a.new_empty(2 * B * n)
+    d = out.as_strided((B, n), (n, 1))
+    e = out.as_strided((B, n - 1), (n - 1, 1), B * n)
+    logdet = out.as_strided((B,), (1,), B * (2 * n - 1))
+    base, el = out.data_ptr(), out.element_size()
     code = _fn("tg_tridiag_factor", a.dtype)(
-        a.data_ptr(), c.data_ptr(), d.data_ptr(), e.data_ptr(), logdet.data_ptr(), B, n,
-        int(tridiag_path(n, 0, a.dtype) == "global"), _stream(a)
+        a.data_ptr(), c.data_ptr(), base, base + el * B * n, base + el * B * (2 * n - 1), B, n,
+        *scan_launch(n), _stream(a)
     )
     build.check(code, "tridiag_factor")
     tridiag_factor.launches += 1
@@ -146,15 +172,14 @@ def tridiag_solve(d: torch.Tensor, e: torch.Tensor, b: torch.Tensor, mode: int =
         raise ValueError(f"tridiag_solve: b must be (B, n) or (B, n, k), got {tuple(b.shape)}")
     if mode not in (SOLVE_L, SOLVE_LT, SOLVE_BOTH):
         raise ValueError(f"tridiag_solve: unknown mode {mode}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (d, e, b)):
+    if (d.requires_grad or e.requires_grad or b.requires_grad) and torch.is_grad_enabled():
         raise NotImplementedError("tridiag_solve has no backward; call it under torch.no_grad()")
     if not _on_cuda("tridiag_solve", d, e, b):
         return tridiag_solve_plain(d, e, b, mode)
     k = 1 if b.ndim == 2 else b.shape[2]
     out = torch.empty_like(b)
     code = _fn("tg_tridiag_solve", d.dtype)(
-        d.data_ptr(), e.data_ptr(), b.data_ptr(), out.data_ptr(), B, n, k, mode,
-        int(tridiag_path(n, k, d.dtype) == "global"), _stream(d)
+        d.data_ptr(), e.data_ptr(), b.data_ptr(), out.data_ptr(), B, n, k, mode, *scan_launch(n), _stream(d)
     )
     build.check(code, "tridiag_solve")
     tridiag_solve.launches += 1
@@ -170,7 +195,7 @@ def tridiag_selinv(d: torch.Tensor, e: torch.Tensor):
     zoff = torch.empty_like(e)
     code = _fn("tg_tridiag_selinv", d.dtype)(
         d.data_ptr(), e.data_ptr(), zdiag.data_ptr(), zoff.data_ptr(), B, n,
-        int(tridiag_path(n, 0, d.dtype) == "global"), _stream(d)
+        int(tridiag_path(n, d.dtype) == "global"), _stream(d)
     )
     build.check(code, "tridiag_selinv")
     tridiag_selinv.launches += 1
