@@ -13,11 +13,12 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    tpu_gmrf_torch/csrc with nvcc (one nvcc per source, in parallel) and
    the host symbolic core with g++;
 3. K1-K4 against their plain PyTorch versions on the card, at the flagship
-   shapes (B=256 chains, n=500), in float64 and float32; K1 and K2 at the
+   shapes (B=256 chains, n=500), in float64 and float32; K1-K3 at the
    edges of their segmented scans (n = 1, 2, 31, 32, 33, 129, 500, 1025,
    2049, 8193, 20000; B = 1, 3, 256; K2 in modes 0-2 at k = 1, 3, 64), on a batch with
    one clearly negative pivot (a NaN logdet on that chain only, d NaN where
-   the plain version's is) and on the near-singular RW1 + ridge chain; then
+   the plain version's is; K3's z NaN where the plain version's is, finite
+   above the pivot) and on the near-singular RW1 + ridge chain; then
    beyond shared memory: K4 at n=14058 (B=1 and 8, values shared and per
    chain, with the quadratic form) also against CSR ``torch.sparse.mm``,
    and K1-K3 at n=20000, B=4;
@@ -57,7 +58,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    autograd, K4 at those sizes, bt_sqrt on the n=5741 banded factor and K7's
    multiply mode on the n=14058 supernodal factor; K13 with the bytes it
    moves and its rate, and at its edges (one block; blocks of 91 and 96 rows
-   with 9 vectors; per-chain blocks), bt_sqrt at phase 14's shape;
+   with 9 vectors; per-chain blocks), bt_sqrt at phase 14's shape; K14 at
+   its edges, forward and transposed at each block size (blocks per row
+   with 3 vectors, one vector, 9 vectors, blocks off 16 bytes, n=5741 not a
+   multiple of bs), each launched twice and equal bit for bit;
 3e. K16 kl_columns on the column buckets of example 09's KL factor at
    n=10,000 (rho = 3 and 6) and on one bucket of cap 256 (its cluster
    path); the warp path to the bit, the tile and cluster paths by backward
@@ -555,14 +559,15 @@ def nan_rel_err(got, ref) -> float:
     return err / max(scale, 1e-300)
 
 
-SCAN_NS = (1, 2, 31, 32, 33, 129, 500, 1025, 2049, 8193, 20000)  # K1/K2's segment, warp, row and tile edges
+SCAN_NS = (1, 2, 31, 32, 33, 129, 500, 1025, 2049, 8193, 20000)  # K1-K3's segment, warp, row and tile edges
 
 
 def check_scan_edges(dtype, dev) -> None:
-    """K1 and K2 against their plain versions at the edges of the segmented scan
-    (kernels.scan_launch: one warp to 16 warps a chain, 1 to 16 rows a
+    """K1, K2 and K3 against their plain versions at the edges of the segmented
+    scan (kernels.scan_launch: one warp to 16 warps a chain, 1 to 16 rows a
     thread, tiles past 8192 rows), KERNEL_TOL; a batch with one clearly negative
-    pivot in a middle segment; the near-singular RW1 + ridge chain."""
+    pivot in a middle segment (K3 on its d: NaN at the same rows as the plain
+    version, finite above the pivot); the near-singular RW1 + ridge chain."""
     from tpu_gmrf_torch import kernels
 
     rng = np.random.default_rng(14)
@@ -574,6 +579,8 @@ def check_scan_edges(dtype, dev) -> None:
             got, ref = kernels.tridiag_factor(a, c), kernels.tridiag_factor_plain(a, c)
             worst["K1"] = max(worst.get("K1", 0.0), nan_rel_err(got, ref))
             d, e, _ = ref
+            worst["K3"] = max(worst.get("K3", 0.0), nan_rel_err(kernels.tridiag_selinv(d, e),
+                                                                kernels.tridiag_selinv_plain(d, e)))
             for k in (1, 3, 64):
                 if B == CHAINS and k == 64 and n > N:
                     continue  # 256 chains x 64 columns x 20,000 rows is 2.6 GB in float64; k=64 at B=1, 3
@@ -589,7 +596,7 @@ def check_scan_edges(dtype, dev) -> None:
             f"{-(-n // (32 * warps * rows))} tile(s)), B=1, 3, {CHAINS}, K2 at k=1, 3, 64: max rel "
             + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()) + f" (tol {tol:.0e}; {checks} K2 checks)")
         if not all(v <= tol for v in worst.values()):
-            raise AssertionError(f"K1/K2 disagree with their plain versions at n={n} {name_t}: {worst}")
+            raise AssertionError(f"K1-K3 disagree with their plain versions at n={n} {name_t}: {worst}")
     # a clearly negative pivot in a middle segment of chain 1: NaN logdet there only
     for n in (N, SCAN_NS[-1]):
         for B in (3, CHAINS):
@@ -605,6 +612,15 @@ def check_scan_edges(dtype, dev) -> None:
                 f"rows (plain {int(torch.isnan(ref[0]).sum())}), finite entries max rel {err:.3e} (tol {tol:.0e})")
             if nan_chains != [1] or not bool(torch.isnan(ref[2][1])) or not err <= tol:
                 raise AssertionError(f"K1 on a negative pivot, n={n} B={B} {name_t}")
+            # K3 on that factor: NaN from the highest NaN pivot down, as the plain version; finite above it
+            z, zp = kernels.tridiag_selinv(*ref[:2]), kernels.tridiag_selinv_plain(*ref[:2])
+            err3 = nan_rel_err(z, zp)
+            top = int(torch.isnan(ref[0][1]).nonzero().max())
+            above = all(bool(torch.isfinite(t[1, top + 1:]).all()) for t in z)
+            log(f"  K3 on that factor: zdiag NaN at {int(torch.isnan(z[0]).sum())} rows (plain "
+                f"{int(torch.isnan(zp[0]).sum())}), finite above row {top} {above}, finite entries max rel {err3:.3e}")
+            if not above or not err3 <= tol:
+                raise AssertionError(f"K3 on a negative pivot, n={n} B={B} {name_t}")
     # RW1 + a ridge: the pivots decay towards the ridge. float32 takes 1e-5: 2 + 1e-8 rounds to 2 in
     # float32, which makes the chain exactly singular whatever factors it.
     ridge = 1e-8 if dtype == torch.float64 else 1e-5
@@ -615,13 +631,18 @@ def check_scan_edges(dtype, dev) -> None:
         c = torch.full((1, n - 1), -1.0, dtype=dtype, device=dev)
         got, ref = kernels.tridiag_factor(a, c), kernels.tridiag_factor_plain(a, c)
         d64 = kernels.tridiag_factor_plain(a.double(), c.double())[0]  # the same chain factored in float64
-        finite = all(bool(torch.isfinite(t).all()) for t in got)
+        z = kernels.tridiag_selinv(*got[:2])  # K3 on the kernel's factor
+        finite = all(bool(torch.isfinite(t).all()) for t in got + z)
+        err3 = nan_rel_err(z, kernels.tridiag_selinv_plain(*got[:2]))
         far = [float((d.double() / d64 - 1).abs().max()) for d in (got[0], ref[0])]
         log(f"  RW1 + ridge {ridge:g}, {name_t} n={n}: kernel finite {finite}, last pivot d {got[0][0, -1].item():.6e} "
             f"(plain {ref[0][0, -1].item():.6e}, float64 {d64[0, -1].item():.6e}), logdet {got[2].item():.9e} (plain "
-            f"{ref[2].item():.9e}); d's max rel distance from the float64 factor: kernel {far[0]:.3e}, plain {far[1]:.3e}")
+            f"{ref[2].item():.9e}); d's max rel distance from the float64 factor: kernel {far[0]:.3e}, plain {far[1]:.3e}; "
+            f"K3 on the kernel's factor: zdiag[0] {z[0][0, 0].item():.6e}, max rel from plain {err3:.3e}")
         if not finite:
-            raise AssertionError(f"K1 on the near-singular RW1 chain, n={n} {name_t}: not finite")
+            raise AssertionError(f"K1 or K3 on the near-singular RW1 chain, n={n} {name_t}: not finite")
+        if not err3 <= tol:
+            raise AssertionError(f"K3 on the near-singular RW1 chain, n={n} {name_t}: {err3:.3e} from plain")
         if dtype == torch.float32 and not far[0] <= far[1]:
             raise AssertionError(f"K1 on the near-singular RW1 chain, n={n} f32: further from the float64 factor "
                                  f"than the plain version")
@@ -1759,7 +1780,7 @@ def spmv_cost(Q, rows: int, el: int):
 
 def check_beyond_shared_memory(model, dev):
     """Phase 3 (extended): K4 at n=14058 on its tiled path, and K1-K3 at
-    n=20000 (K1 and K2 in scan tiles, K3 with its rows in global memory)."""
+    n=20000 (in scan tiles)."""
     from tpu_gmrf_torch import kernels
     from tpu_gmrf_torch.sparse.matrix import _csr
 
@@ -1792,8 +1813,6 @@ def check_beyond_shared_memory(model, dev):
         a = torch.tensor(2.5 + rng.random((B, n)), dtype=dtype, device=dev)
         c = torch.tensor(-rng.random((B, n - 1)), dtype=dtype, device=dev)
         b = torch.tensor(rng.normal(size=(B, n)), dtype=dtype, device=dev)
-        if kernels.tridiag_path(n, dtype) != "global":
-            raise AssertionError("n=20000 was expected on K3's global-memory path")
         warps, rows = kernels.scan_launch(n)
         scan = f"a block of {32 * warps} threads a chain, {-(-n // (32 * warps * rows))} tiles of {rows} rows a thread"
         d, e, _ = kernels.tridiag_factor_plain(a, c)
@@ -1803,7 +1822,7 @@ def check_beyond_shared_memory(model, dev):
             ("tridiag_solve", lambda: kernels.tridiag_solve(d, e, b), lambda: kernels.tridiag_solve_plain(d, e, b),
              (6 * B * n, el * B * (4 * n - 1)), scan),
             ("tridiag_selinv", lambda: kernels.tridiag_selinv(d, e), lambda: kernels.tridiag_selinv_plain(d, e),
-             (5 * B * n, el * B * (4 * n - 2)), "rows in global memory"),
+             (5 * B * n, el * B * (4 * n - 2)), scan + ", the last first"),
         ):
             check(f"{name} n={n} B={B} ({how})", dtype, kern(), plain(), "tridiag", {},
                   cuda_ms(kern, 5), cuda_ms(plain, 5), cost=cost)
@@ -1920,6 +1939,38 @@ def check_operator_kernels(label, Q, dtype, dev, results, block_sizes, timed):
             check(f"bsr_spmv gradient (blocks, x) {tag}", dtype, grads[0], grads[1], "bsr_outer", {})
 
 
+def check_bsr_edges(Q, Qr, dtype, dev):
+    """Phase 3d: K14 at its edges against its plain version, held to SN_TOL, forward and transposed, at each block
+    size: one set of blocks per row (3 vectors, blocks (3, nblocks, bs, bs)), one vector, 9 vectors (two launch
+    rows of vectors) and blocks that do not start on 16 bytes (one element into a buffer: the element copies in
+    place of the 16-byte ones) on Q (n=14058), and 8 vectors on Qr (n=5741, not a multiple of any block size). Each
+    case is launched twice: the two results must be equal bit for bit."""
+    from tpu_gmrf_torch import kernels
+
+    rng = np.random.default_rng(15)
+    for bs in (8, 16, 32):
+        for label, Qc, R, kind in (("blocks per row", Q, 3, "per row"), ("one vector", Q, 1, ""),
+                                   ("9 vectors", Q, 9, ""), ("blocks off 16 bytes", Q, SPMV_VECS, "offset"),
+                                   ("ragged n", Qr, SPMV_VECS, "")):
+            Bm = kernels.bsr_from_sparse(Qc, bs)
+            plan, blocks, n = Bm.plan, Bm.blocks, Qc.shape[0]
+            if kind == "per row":
+                scale = torch.linspace(1.0, 2.0, R, dtype=dtype, device=dev)[:, None, None, None]
+                blocks = (blocks[None] * scale).contiguous()
+            elif kind == "offset":
+                blocks = blocks.new_empty(blocks.numel() + 1)[1:].view(blocks.shape).copy_(blocks)
+            x = torch.tensor(rng.normal(size=(R, n)), dtype=dtype, device=dev)
+            for transpose in (False, True):
+                got = kernels.bsr_spmm(blocks, plan, x, transpose)
+                again = kernels.bsr_spmm(blocks, plan, x, transpose)
+                same = bool(torch.equal(got, again))
+                check(f"bsr_spmm {'transposed ' if transpose else ''}{label} n={n} k={R} bs={bs} "
+                      f"(n mod bs = {n % bs})", dtype, got, kernels.bsr_spmm_plain(blocks, plan, x, transpose),
+                      "bsr_spmm", {}, extra=f"; second launch equal bit for bit: {same}")
+                if not same:
+                    raise AssertionError(f"bsr_spmm {label} bs={bs}: two launches differ")
+
+
 def bt_matvec_traffic(K: int, s: int, n: int, k: int, el: int, ms: float,
                       how: str = "CUDA events, host gaps included") -> str:
     """What K13 moves for one product of k vectors with shared blocks (its own split) and the rate at `ms`."""
@@ -1985,6 +2036,7 @@ def check_multiply_kernels(stats_model, sp_model, grid_q, dtype, dev):
     check_operator_kernels("grid", grid_q[dtype], dtype, dev, results, (kernels.best_block_size(grid_q[dtype].pattern),),
                            timed=False)
     check_matvec_edges(sp_model, dtype, dev)
+    check_bsr_edges(Q, matern_precision(sp_model, dtype, dev), dtype, dev)
     rng = np.random.default_rng(14)
     with torch.no_grad():
         # bt_sqrt on the banded factor of phase 3c's shape
@@ -3345,7 +3397,7 @@ def main() -> int:
     check_kernels(torch.float64, dev)
     results = check_kernels(torch.float32, dev)
 
-    log(f"  K1 and K2 at the edges of their segmented scans, on {card}")
+    log(f"  K1-K3 at the edges of their segmented scans, on {card}")
     for dt in (torch.float64, torch.float32):
         check_scan_edges(dt, dev)
 

@@ -350,19 +350,6 @@ def test_csr_spmv_picks_its_path(n, B, dtype, want):
     assert kernels.spmv_path(n, B, dtype) == want
 
 
-@pytest.mark.parametrize("n,dtype,want", [  # K3's rows (K1 and K2 scan any n: test_torch_tridiag_scan.py)
-    (500, torch.float32, "shared"),
-    (500, torch.float64, "shared"),
-    (3072, torch.float64, "shared"),  # 2n − 1 values: 49,144 bytes
-    (3073, torch.float64, "global"),
-    (6144, torch.float32, "shared"),
-    (6145, torch.float32, "global"),
-    (20000, torch.float64, "global"),
-])
-def test_tridiag_kernels_pick_their_path(n, dtype, want):
-    assert kernels.tridiag_path(n, dtype) == want
-
-
 def test_large_sizes_answer_on_the_plain_versions():
     """n beyond the old shared-memory limits: `SparseMatrix.matvec`/`quad` and
     an AR1 factor answer (on CPU tensors through the plain versions; the

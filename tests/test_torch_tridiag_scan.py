@@ -1,14 +1,16 @@
-"""K1 `tridiag_factor` and K2 `tridiag_solve` as the card runs them: a
-segmented scan per chain (csrc/scan.cuh, csrc/tridiag.cu).
+"""K1 `tridiag_factor`, K2 `tridiag_solve` and K3 `tridiag_selinv` as the
+card runs them: a segmented scan per chain (csrc/scan.cuh, csrc/tridiag.cu).
 
 A NumPy model of the kernels' algorithm (segments of m rows per thread,
 their maps composed, a Hillis-Steele scan across each warp of 32 and across
 the warps' totals, both in float64 whatever the chain's type, the sequential
 recurrence replayed in the chain's type from each segment's carry-in, tiles
-in sequence with the last row's value carried) is held
-against the JAX package's factor and solves, in float64 and float32, on
-inputs made with NumPy from a seed. This checks the design's numerics
-before the card does. Then the wrappers' launch-shape rule `scan_launch`.
+in sequence with the last row's value carried; K2's backward pass and K3
+take the tiles last first and carry the first row's value) is held
+against the JAX package's factor, solves and Takahashi selected inverse, in
+float64 and float32, on inputs made with NumPy from a seed. This checks the
+design's numerics before the card does. Then the wrappers' launch-shape
+rule `scan_launch`.
 
 Tolerances: float64, rtol 1e-9 against the reference's scan trees, as the
 plain versions are held (tests/test_torch_kernels.py); the near-singular
@@ -186,6 +188,38 @@ def model_solve(d, e, b, mode, lanes, m):
     return x
 
 
+def model_selinv(d, e, lanes, m):
+    """K3 on one chain: (zdiag, zoff) by the reverse scan of the maps
+    z_{j+1} -> r_j² z_{j+1} + 1/d_j² (r_j = e_j / d_j, r_{n-1} = 0), tiles last first."""
+    dt = d.dtype.type
+    n = len(d)
+    tile = lanes * m
+    z, zoff = np.empty(n, dt), np.empty(max(n - 1, 0), dt)
+    aff = lambda l, r: _aff_after(l, r, W)  # noqa: E731
+    apply = lambda mm, y: _aff_apply(mm, y, W)  # noqa: E731
+    carry = W(0)
+    for t0 in reversed(range(0, n, tile)):
+        R = min(tile, n - t0)
+        maps = np.tile(AFF_ID, (lanes, 1))
+        for t in range(lanes):
+            for k in reversed(range(t0 + t * m, t0 + min(t * m + m, R))):
+                dk = W(d[k])
+                r = W(0) if k == n - 1 else W(e[k]) / dk
+                A, B = maps[t]
+                maps[t] = [r * r * A, r * r * B + W(1) / (dk * dk)]
+        z0 = _entry_states(maps, carry, aff, apply, AFF_ID, False)
+        for t in range(lanes):
+            zz = dt(z0[t])
+            for k in reversed(range(t0 + t * m, t0 + min(t * m + m, R))):
+                r = dt(0) if k == n - 1 else e[k] / d[k]
+                if k < n - 1:
+                    zoff[k] = -r * zz
+                zz = dt(1) / (d[k] * d[k]) + r * r * zz
+                z[k] = zz
+        carry = W(z[t0])
+    return z, zoff
+
+
 def _shape(n):
     warps, m = kernels.scan_launch(n)
     return WARP * warps, m
@@ -289,6 +323,63 @@ def test_scan_model_negative_pivot_gives_nan_where_the_reference_does(dtype):
     ok = ~np.isnan(rd)
     tol = 1e-9 if dtype == np.float64 else 1e-4
     np.testing.assert_allclose(d[ok], rd[ok], rtol=tol)
+
+
+SCAN_NS = (1, 2, 31, 32, 33, 129, 500, 1025, 2049, 8193, 20000)  # chip_smoke.py's: the segment, warp, row and tile edges
+
+
+@pytest.mark.parametrize("n", SCAN_NS)
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_selinv_model_matches_jax(n, dtype):
+    """K3's algorithm at the launch shape of n (one warp to 16 warps a chain, one
+    to three tiles), on the reference's own factor, against the reference's
+    `selinv_tridiag` (float64)."""
+    rng = np.random.default_rng(200 + n)
+    a, c = _spd(rng, n) if n > 1 else (np.abs(rng.normal(size=1)) + 0.5, np.zeros(0))
+    rd, re, _, rz, rzo, *_ = (r[0] for r in _jax_tridiag(a[None], c[None], np.zeros((1, n))))
+    z, zoff = model_selinv(rd.astype(dtype), re.astype(dtype), *_shape(n))
+    if dtype == np.float64:
+        np.testing.assert_allclose(z, rz, rtol=1e-9)
+        np.testing.assert_allclose(zoff, rzo, rtol=1e-9, atol=1e-12 * np.abs(rz).max())
+    else:
+        for got, ref in ((z, rz), (zoff, rzo)):
+            if ref.size:
+                assert _relnorm(got, ref) <= max(n, 32) * np.finfo(np.float32).eps
+
+
+@pytest.mark.parametrize("dtype,ridge", [(np.float64, 1e-8), (np.float32, 1e-5)])
+def test_selinv_model_near_singular_chain(dtype, ridge):
+    """RW1 plus a ridge at n=500: z on the model's own factor of the chain is
+    finite, and on the reference's factor it matches the reference's."""
+    n = 500
+    a, c = _near_singular(n, ridge)
+    rd, re, _, rz, rzo, *_ = (r[0] for r in _jax_tridiag(a[None], c[None], np.zeros((1, n))))
+    lanes, m = _shape(n)
+    d, e, _ = model_factor(a.astype(dtype), c.astype(dtype), lanes, m)
+    assert all(np.isfinite(t).all() for t in model_selinv(d, e, lanes, m))
+    z, zoff = model_selinv(rd.astype(dtype), re.astype(dtype), lanes, m)
+    tol = 1e-9 if dtype == np.float64 else n * np.finfo(np.float32).eps
+    assert _relnorm(z, rz) <= tol and _relnorm(zoff, rzo) <= tol
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_selinv_model_negative_pivot_gives_nan_where_the_reference_does(dtype):
+    """d NaN at a clearly negative pivot (the reference's factor): z and zoff
+    are NaN at the same rows as the reference's, from that row down, and
+    match it above."""
+    n = 200
+    rng = np.random.default_rng(7)
+    a, c = _spd(rng, n)
+    c[99] = 3.0 * np.sqrt(a[99] * a[100])
+    rd, re, _, rz, rzo, *_ = (r[0] for r in _jax_tridiag(a[None], c[None], np.zeros((1, n))))
+    assert np.isnan(rd).any()
+    z, zoff = model_selinv(rd.astype(dtype), re.astype(dtype), *_shape(n))
+    top = int(np.flatnonzero(np.isnan(rd)).max())
+    for got, ref in ((z, rz), (zoff, rzo)):
+        np.testing.assert_array_equal(np.isnan(got), np.isnan(ref))
+        assert np.isnan(ref[: top + 1]).all() and np.isfinite(ref[top + 1:]).all()
+    tol = 1e-9 if dtype == np.float64 else 1e-4
+    np.testing.assert_allclose(z[top + 1:], rz[top + 1:], rtol=tol)
 
 
 # ---- the launch-shape rule ----------------------------------------------------

@@ -1,8 +1,8 @@
 """Time and trace one batched Laplace value+grad of tpu_gmrf_torch, from the
 source tree given as the first argument; needs a CUDA device.
 
-    python3 tools/trace_vg.py <root> [spatial] [supernodal] [flagship] [k9] [k5] [k10] [tridiag] [vgtimes] [hostcost]
-        [kl18] [nuts] [flagnuts] [rbmc] [k7tiles]
+    python3 tools/trace_vg.py <root> [spatial] [supernodal] [flagship] [k9] [k5] [k10] [tridiag] [bsr] [vgtimes]
+        [hostcost] [kl18] [nuts] [flagnuts] [rbmc] [k7tiles]
 
 ``spatial`` is chip_smoke.py's phase 11 value+grad: the Matérn + Poisson
 model on the 63x63 grid (n=5741), 4 chains at θ = (1, 0.3), 10 Newton
@@ -21,17 +21,25 @@ on the posterior's pattern; K10 as the dense factor's solve (both
 triangles, k=1) and `selinv_diag` at phase 3c's shape (the g=16 posterior,
 B=8, n=450, f64), and at B=1 on the lattices of n=900, 1000 and 4096 in
 f32 and f64 beside its plain version and `cholesky_solve` (CUDA events per
-call). ``tridiag`` gives K1 `tridiag_factor`'s and K2 `tridiag_solve`'s
-(mode 2, k=1) host µs per call (200 enqueued) and device µs per launch (a
-torch.profiler trace of 20 calls), and their CUDA events ms per call, at the
-flagship shape (B=256, n=500, chip_smoke.py's kernel inputs) and at B=4,
-n=20000, in float32 and float64; at the flagship shape, each wrapper's host
+call). ``tridiag`` gives K1 `tridiag_factor`'s, K2 `tridiag_solve`'s
+(mode 2, k=1) and K3 `tridiag_selinv`'s host µs per call (200 enqueued) and
+device µs per launch (a torch.profiler trace of 20 calls), and their CUDA
+events ms per call, at the flagship shape (B=256, n=500, chip_smoke.py's
+kernel inputs) and at B=4, n=20000, in float32 and float64; at the flagship
+shape, K1's and K2's host
 time split into its pieces (the median of 15 rounds of 200 calls: the whole wrapper, the checks,
 `_on_cuda`, the outputs as three allocations and as one allocation cut into
 three views, the launch shape, the stream handle, the ctypes call with its
 launch and without one, B = 0); and, on a tree with `scan_launch`, K1's and
 K2's device µs per launch at the flagship shape on 1, 2, 4, 8 and 16 warps a
-chain (16, 8, 4, 2 and 1 rows a thread). ``vgtimes`` times 15 calls each
+chain (16, 8, 4, 2 and 1 rows a thread). ``bsr`` gives K14 `bsr_spmm`'s host
+µs per call, device µs per launch and CUDA events ms per call, forward and
+transposed, beside the library product (`torch.sparse_bsr_tensor` of A, or
+of Aᵀ, @ x) and the bound, on chip_smoke.py's phase 3d operators with 8
+vectors: the n=14058 Matérn operator at bs = 8, 16 and 32 and the n=99856
+grid precision at bs=8, in float32 and float64; on a tree with
+`spmm_launch`, also the forward product at other splits (warps a group,
+ring depth, shared bytes a group and a CTA). ``vgtimes`` times 15 calls each
 of phase 7's, phase 11's and the f32 flagship value+grad (host clock, each
 call ending in a synchronize; after 2 warm-up calls) and prints every
 time. ``hostcost`` (this tree's wrappers only) splits the host µs of one K5
@@ -72,6 +80,7 @@ To compare two trees on one card, unpack the other tree (``git archive``)
 into a git-ignored directory and run both in turns in one command.
 """
 
+import importlib
 import os
 import sys
 import time
@@ -463,11 +472,14 @@ def time_tridiag(dev) -> None:
             d, e, _ = kernels.tridiag_factor_plain(a, c)
             label = f"B={B} n={n} {cs.dtype_name(dtype)}"
             k1, k2 = (lambda: kernels.tridiag_factor(a, c)), (lambda: kernels.tridiag_solve(d, e, b))
+            k3 = lambda: kernels.tridiag_selinv(d, e)  # noqa: E731
             host_device(f"K1 tridiag_factor {label}", k1)
             host_device(f"K2 tridiag_solve mode 2 k=1 {label}", k2)
-            print(f"{os.path.relpath(root)} K1 / K2 {label}: CUDA events {cs.cuda_ms(k1, 50, 5):.5f} / "
-                  f"{cs.cuda_ms(k2, 50, 5):.5f} ms per call; host µs per call, quartiles of 15 rounds of 200 "
-                  f"enqueued: K1 {' '.join('%.2f' % q for q in host_us(k1))}, K2 "
+            host_device(f"K3 tridiag_selinv {label}", k3)
+            print(f"{os.path.relpath(root)} K1 / K2 / K3 {label}: CUDA events {cs.cuda_ms(k1, 50, 5):.5f} / "
+                  f"{cs.cuda_ms(k2, 50, 5):.5f} / {cs.cuda_ms(k3, 50, 5):.5f} ms per call (K3's plain version "
+                  f"{cs.cuda_ms(lambda: kernels.tridiag_selinv_plain(d, e), 20, 3):.5f}); host µs per call, "
+                  f"quartiles of 15 rounds of 200 enqueued: K1 {' '.join('%.2f' % q for q in host_us(k1))}, K2 "
                   f"{' '.join('%.2f' % q for q in host_us(k2))}", flush=True)
             if n != cs.N:
                 continue
@@ -518,6 +530,64 @@ def time_tridiag(dev) -> None:
                         host_device(f"K2 at (warps a chain, rows a thread) {shape} {label}", k2)
                 finally:
                     kt.scan_launch = saved
+
+
+# K14's splits swept on a tree with `spmm_launch`, by block size: (warps a group, ring depth, shared bytes a
+# group, shared bytes a CTA)
+KIB = 1024
+BSR_SPLITS = {
+    8: ((1, 2, 16 * KIB, 72 * KIB), (1, 2, 8 * KIB, 72 * KIB), (1, 3, 24 * KIB, 72 * KIB),
+        (1, 2, 32 * KIB, 72 * KIB), (2, 2, 16 * KIB, 72 * KIB), (1, 2, 16 * KIB, 48 * KIB)),
+    16: ((2, 2, 16 * KIB, 72 * KIB), (2, 2, 32 * KIB, 72 * KIB), (2, 3, 24 * KIB, 72 * KIB),
+         (4, 2, 16 * KIB, 72 * KIB), (1, 2, 16 * KIB, 72 * KIB)),
+    32: ((4, 2, 16 * KIB, 72 * KIB), (8, 2, 16 * KIB, 72 * KIB), (4, 2, 16 * KIB, 96 * KIB),
+         (4, 3, 16 * KIB, 72 * KIB), (4, 2, 96 * KIB, 100 * KIB)),
+}
+
+
+def time_bsr(dev) -> None:
+    import warnings
+
+    kb = importlib.import_module("tpu_gmrf_torch.kernels.bsr_spmv")  # the module, not the function
+
+    rng = np.random.default_rng(13)
+    stats = cs.spatial_model(cs.STATS_GRID)
+    k = cs.SPMV_VECS
+    for dtype in (torch.float32, torch.float64):
+        for label, Q, sizes in (("Matérn", cs.matern_precision(stats, dtype, dev), (8, 16, 32)),
+                                ("grid", cs.grid_precision(dtype, dev), (8,))):
+            n, el = Q.shape[0], Q.data.element_size()
+            x = torch.tensor(rng.normal(size=(k, n)), dtype=dtype, device=dev)
+            xt = x.T.contiguous()
+            for bs in sizes:
+                Bm = kernels.bsr_from_sparse(Q, bs)
+                plan, blocks = Bm.plan, Bm.blocks
+                with warnings.catch_warnings():
+                    warnings.simplefilter("ignore", UserWarning)
+                    bl, blt = cs.bsr_library(Bm, dev), cs.bsr_library_t(Bm, dev)
+                    xpad = torch.nn.functional.pad(xt, (0, 0, 0, plan.nb * bs - n))
+                    nbytes = el * (plan.nblocks * bs * bs + 2 * n * k) + 4 * (plan.nblocks + plan.nb + 1)
+                    tag = (f"{label} n={n} k={k} bs={bs} nblocks={plan.nblocks} {cs.dtype_name(dtype)} (bound "
+                           f"{nbytes / cs.HBM_BYTES_PER_S * 1e6:.2f} us)")
+                    for name, kern, lib in (
+                        ("forward", lambda: kernels.bsr_spmm(blocks, plan, x), lambda: bl @ xpad),
+                        ("transposed", lambda: kernels.bsr_spmm(blocks, plan, x, True), lambda: blt @ xpad),
+                    ):
+                        host_device(f"K14 {name} {tag}", kern)
+                        host_device(f"library {name} {tag}", lib)
+                        print(f"{os.path.relpath(root)} K14 / library {name} {tag}: CUDA events "
+                              f"{cs.cuda_ms(kern, 50, 5):.5f} / {cs.cuda_ms(lib, 50, 5):.5f} ms per call", flush=True)
+                if hasattr(kb, "spmm_launch"):
+                    saved = kb.spmm_launch
+                    splits = BSR_SPLITS[bs]
+                    try:
+                        for sp in splits + splits[::-1]:
+                            kb.spmm_launch = lambda bs_, sp=sp: sp
+                            host_device(f"K14 forward at (warps a group, ring depth, group bytes, CTA bytes) {sp} "
+                                        f"{tag}", lambda: kernels.bsr_spmm(blocks, plan, x))
+                    finally:
+                        kb.spmm_launch = saved
+                del bl, blt
 
 
 def kl18(dev) -> None:
@@ -674,6 +744,8 @@ def main() -> int:
         time_k10(dev)
     if "tridiag" in which:
         time_tridiag(dev)
+    if "bsr" in which:
+        time_bsr(dev)
     if "vgtimes" in which:
         time_vg(dev)
     if "hostcost" in which:

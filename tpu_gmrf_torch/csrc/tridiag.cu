@@ -45,10 +45,14 @@
 // non-positive pivot gives a NaN (or -inf) logdet with no clamping, and d is
 // NaN exactly where the pivot is negative, as in the reference's scan.
 //
-// K3: one block per chain, one thread running the recurrence out of shared
-// memory, or (`in_global` != 0, the InGlobal template, for rows beyond the 48
-// KB of shared memory a launch gets without an opt-in) in the output rows in
-// global memory.
+// K3: the same scan as K2's backward pass (mode 1), on the affine maps
+// z_{j+1} -> r_j^2 z_{j+1} + 1/d_j^2 of the Takahashi recurrence: a block per
+// chain in K1's shape, tiles last first, z at a tile's first row
+// carried to the tile before it; the replay rounds as the sequential loop,
+// and writes zdiag and zoff into the staged d and e rows. Where a pivot of K1
+// was negative, d is NaN there and so is z at that row and every row above
+// it, as in the reference's scan.
+//
 // Each entry point launches on the given stream and returns
 // cudaGetLastError() so the Python wrapper can raise. Nothing is allocated
 // here; the wrapper allocates every output.
@@ -74,16 +78,6 @@ __device__ __forceinline__ float dev_log<float>(float x) { return logf(x); }
 template <>
 __device__ __forceinline__ double dev_log<double>(double x) { return log(x); }
 
-template <typename T>
-__device__ __forceinline__ void load_row(T* dst, const T* src, int len) {
-  for (int i = threadIdx.x; i < len; i += blockDim.x) dst[i] = src[i];
-}
-
-template <typename T>
-__device__ __forceinline__ void store_row(T* dst, const T* src, int len) {
-  for (int i = threadIdx.x; i < len; i += blockDim.x) dst[i] = src[i];
-}
-
 // The largest rows per thread of a scan tile (the loops over a segment are
 // unrolled to it); scan_launch never asks for more.
 constexpr int kSegMax = 16;
@@ -98,11 +92,34 @@ constexpr int kScratch = 32 * 4 + 32 * 2 + 32 + 2;
 // quarter (n=500); the replay runs in the chain's type.
 using W = double;
 
-// Launch shape, both kernels: a block of nw = blockDim.x / 32 warps per
+// Launch shape, all three kernels: a block of nw = blockDim.x / 32 warps per
 // chain (K2: per chain and right-hand side), m rows a thread, tiles of
 // 32·nw·m rows. Shared memory: the tile's arrays of T (32·nw segments at
 // stride m | 1 each), then the scratch.
 constexpr int kMaxThreads = 512;
+
+// One tile of a backward affine scan (K2's mode 1, K3): each thread composes
+// its rows' maps, last row first (compose(i, maps of the rows below i) gives
+// the maps of rows i and below), takes the state entering its segment from the
+// scan, and replays its rows (replay(i, state below row i) gives row i's
+// state). `carry`, the state below the tile, becomes the state of its first
+// row.
+template <typename T, typename Compose, typename Replay>
+__device__ __forceinline__ void reverse_tile(int rows, int r0, W& carry, int nw, scan::Affine<W>* wmaps,
+                                             W* wstates, T* slot, Compose compose, Replay replay) {
+  using namespace scan;
+  Affine<W> mine = identity<Affine<W>>();
+#pragma unroll
+  for (int i = kSegMax - 1; i >= 0; --i)
+    if (i < rows) mine = compose(i, mine);
+  T x = T(entry_state<false>(mine, carry, nw, wmaps, wstates));
+#pragma unroll
+  for (int i = kSegMax - 1; i >= 0; --i)
+    if (i < rows) x = replay(i, x);
+  if (rows > 0 && r0 == 0) *slot = x;
+  group_sync(nw);
+  carry = *slot;
+}
 
 // K1. Pivots delta_k = a_k - c_{k-1}^2 / delta_{k-1}, d = sqrt(delta),
 // e_k = c_k / d_k, logdet = 2 sum log d.
@@ -273,23 +290,17 @@ __global__ void __launch_bounds__(kMaxThreads)
       const int t0 = ti * tile, R = min(tile, n - t0), rows = max(0, min(m, R - r0));
       if (ti != held) load(t0, R, mode == 1 ? rhs : out);
       group_sync(nw);
-      Affine<W> mine = identity<Affine<W>>();
-#pragma unroll
-      for (int i = kSegMax - 1; i >= 0; --i)
-        if (i < rows) {
-          const W r = W(1) / md[i], ek = me[i];
-          mine = {-ek * mine.A * r, (mb[i] - ek * mine.B) * r};
-        }
-      T x = T(entry_state<false>(mine, carry, nw, wmaps, wstates));
-#pragma unroll
-      for (int i = kSegMax - 1; i >= 0; --i)
-        if (i < rows) {
-          x = (mb[i] - me[i] * x) / md[i];
-          mb[i] = x;
-        }
-      if (rows > 0 && r0 == 0) *slot = x;
-      group_sync(nw);
-      carry = *slot;
+      reverse_tile(
+          rows, r0, carry, nw, wmaps, wstates, slot,
+          [&](int i, const Affine<W>& below) -> Affine<W> {
+            const W r = W(1) / md[i], ek = me[i];
+            return {-ek * below.A * r, (mb[i] - ek * below.B) * r};
+          },
+          [&](int i, T x) {
+            x = (mb[i] - me[i] * x) / md[i];
+            mb[i] = x;
+            return x;
+          });
       store(t0, R);
       group_sync(nw);
     }
@@ -297,36 +308,67 @@ __global__ void __launch_bounds__(kMaxThreads)
 }
 
 // K3. Takahashi: z_{n-1} = 1/d_{n-1}^2; z_j = 1/d_j^2 + r_j^2 z_{j+1};
-// zoff_j = -r_j z_{j+1}, with r_j = e_j / d_j.
-template <typename T, bool InGlobal>
-__global__ void tridiag_selinv_kernel(const T* __restrict__ d, const T* __restrict__ e,
-                                      T* __restrict__ zdiag, T* __restrict__ zoff, int n) {
+// zoff_j = -r_j z_{j+1}, with r_j = e_j / d_j (r_{n-1} = 0).
+template <typename T>
+__global__ void __launch_bounds__(kMaxThreads)
+    tridiag_selinv_kernel(const T* __restrict__ d, const T* __restrict__ e, T* __restrict__ zdiag,
+                          T* __restrict__ zoff, int n, int m) {
+  using namespace scan;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const long b = blockIdx.x;
-  T* sd = InGlobal ? zdiag + b * n : reinterpret_cast<T*>(smem_raw);  // d, overwritten by zdiag
-  T* se = InGlobal ? zoff + b * (n - 1) : sd + n;                     // e, overwritten by zoff
-  load_row(sd, d + b * n, n);
-  load_row(se, e + b * (n - 1), n - 1);
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    T dn = sd[n - 1];
-    T z = T(1) / (dn * dn);
-    sd[n - 1] = z;
-    for (int j = n - 2; j >= 0; --j) {
-      const T dj = sd[j];
-      const T r = se[j] / dj;
-      se[j] = -r * z;
-      z = T(1) / (dj * dj) + r * r * z;
-      sd[j] = z;
+  const int gsize = blockDim.x, nw = gsize / 32, t = threadIdx.x;
+  const long chain = blockIdx.x;
+  const int s = m | 1, tile = gsize * m, ntiles = (n + tile - 1) / tile;
+  T* sd = reinterpret_cast<T*>(smem_raw);  // d, then zdiag
+  T* se = sd + gsize * s;                  // e, then zoff
+  Affine<W>* wmaps = reinterpret_cast<Affine<W>*>(se + gsize * s);
+  W* wstates = reinterpret_cast<W*>(wmaps + 32);
+  T* slot = reinterpret_cast<T*>(wstates + 32);
+  const T* dr = d + chain * n;
+  const T* er = e + chain * (n - 1);
+  T* zr = zdiag + chain * n;
+  T* zo = zoff + chain * (n - 1);
+  T* md = sd + t * s;
+  T* me = se + t * s;
+  const int r0 = t * m;
+  W carry = 0;  // z_n = 0; row n-1's map ignores it
+  for (int ti = ntiles - 1; ti >= 0; --ti) {
+    const int t0 = ti * tile, R = min(tile, n - t0), rows = max(0, min(m, R - r0));
+    const int last = n - 1 - t0 - r0;  // the chain's last row, as a row of this segment
+#pragma unroll
+    for (int q = 0; q < kSegMax; ++q) {  // each thread loads its m rows in one unrolled loop
+      const int j = t + q * gsize;
+      if (q < m && j < R) {
+        const int p = seg_pos(j, m, s);
+        sd[p] = dr[t0 + j];
+        se[p] = t0 + j < n - 1 ? er[t0 + j] : T(0);
+      }
     }
+    group_sync(nw);
+    reverse_tile(
+        rows, r0, carry, nw, wmaps, wstates, slot,
+        [&](int i, const Affine<W>& below) -> Affine<W> {
+          const W dj = md[i], r = i == last ? W(0) : W(me[i]) / dj, a = r * r;
+          return {a * below.A, a * below.B + W(1) / (dj * dj)};
+        },
+        [&](int i, T z) {
+          const T dj = md[i], r = i == last ? T(0) : me[i] / dj;
+          me[i] = -r * z;
+          z = T(1) / (dj * dj) + r * r * z;
+          md[i] = z;
+          return z;
+        });
+#pragma unroll
+    for (int q = 0; q < kSegMax; ++q) {
+      const int j = t + q * gsize;
+      if (q < m && j < R) {
+        const int p = seg_pos(j, m, s);
+        zr[t0 + j] = sd[p];
+        if (t0 + j < n - 1) zo[t0 + j] = se[p];
+      }
+    }
+    group_sync(nw);
   }
-  if (InGlobal) return;
-  __syncthreads();
-  store_row(zdiag + b * n, sd, n);
-  store_row(zoff + b * (n - 1), se, n - 1);
 }
-
-constexpr int kThreads = 128;
 
 // Dynamic shared memory above the 48 KB default needs the kernel's opt-in,
 // asked once per device for the largest size seen (`granted`: the caller's,
@@ -374,13 +416,14 @@ int launch_solve(const T* d, const T* e, const T* rhs, T* out, int B, int n, int
 }
 
 template <typename T>
-int launch_selinv(const T* d, const T* e, T* zdiag, T* zoff, int B, int n, int in_global,
-                  void* stream) {
-  size_t smem = in_global ? 0 : sizeof(T) * (2 * (size_t)n - 1);
-  if (in_global)
-    tridiag_selinv_kernel<T, true><<<B, kThreads, smem, (cudaStream_t)stream>>>(d, e, zdiag, zoff, n);
-  else
-    tridiag_selinv_kernel<T, false><<<B, kThreads, smem, (cudaStream_t)stream>>>(d, e, zdiag, zoff, n);
+int launch_selinv(const T* d, const T* e, T* zdiag, T* zoff, int B, int n, int nw, int m, void* stream) {
+  if (B == 0) return 0;
+  if (m < 1 || m > kSegMax || nw < 1 || 32 * nw > kMaxThreads) return (int)cudaErrorInvalidValue;
+  const size_t smem = scan_smem(nw, m, 2, sizeof(T));
+  static size_t granted[64];
+  int rc = allow_smem(tridiag_selinv_kernel<T>, smem, granted);
+  if (rc) return rc;
+  tridiag_selinv_kernel<T><<<B, 32 * nw, smem, (cudaStream_t)stream>>>(d, e, zdiag, zoff, n, m);
   return (int)cudaGetLastError();
 }
 
@@ -397,9 +440,9 @@ extern "C" {
                              int mode, int nw, int m, void* stream) {                             \
     return launch_solve<T>(d, e, rhs, out, B, n, k, mode, nw, m, stream);                         \
   }                                                                                               \
-  int tg_tridiag_selinv_##SUF(const T* d, const T* e, T* zdiag, T* zoff, int B, int n,            \
-                              int in_global, void* stream) {                                      \
-    return launch_selinv<T>(d, e, zdiag, zoff, B, n, in_global, stream);                          \
+  int tg_tridiag_selinv_##SUF(const T* d, const T* e, T* zdiag, T* zoff, int B, int n, int nw,     \
+                              int m, void* stream) {                                              \
+    return launch_selinv<T>(d, e, zdiag, zoff, B, n, nw, m, stream);                              \
   }
 
 TG_TRIDIAG_ENTRY(f32, float)

@@ -79,7 +79,6 @@ from .tridiag import (
     tridiag_factor_plain,
     tridiag_selinv,
     tridiag_selinv_plain,
-    tridiag_path,
     tridiag_solve,
     tridiag_solve_plain,
 )
@@ -101,7 +100,7 @@ __all__ = [
     "bt_matvec", "bt_matvec_plain", "bt_sqrt", "bt_sqrt_plain",
     "BSRMatrix", "best_block_size", "bsr_from_sparse", "bsr_spmv", "bsr_spmm", "bsr_spmm_plain",
     "bsr_outer", "bsr_outer_plain", "hot_matvec",
-    "MULTIPLY", "sn_multiply", "sn_multiply_plain", "spmv_path", "scan_launch", "tridiag_path",
+    "MULTIPLY", "sn_multiply", "sn_multiply_plain", "spmv_path", "scan_launch",
     "kl_columns", "kl_columns_plain", "kl_path", "BlockSets", "block_inv", "block_inv_plain", "block_inv_smem_max",
     "bt_factor_blocks", "bt_factor_blocks_plain", "bt_trsv_blocks", "bt_trsv_blocks_plain",
     "spike_reduced", "spike_reduced_plain",

@@ -15,7 +15,9 @@ one matrix per chain (what ``vmap`` over chains gives the reference).
 
 A CPU tensor takes the plain versions (gather, ``einsum``, ``index_add_``,
 as the reference); a CUDA tensor launches the kernels or raises.
-``bsr_spmm.launches`` and ``bsr_outer.launches`` count the launches.
+``bsr_spmm.launches`` and ``bsr_outer.launches`` count the launches. K14
+streams the stored blocks through rings in shared memory, a group of warps
+walking a run of block rows; `spmm_launch` gives its split.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ from . import build
 from .tridiag import _fn, _on_cuda, _stream
 
 __all__ = ["BSRMatrix", "bsr_from_sparse", "bsr_spmv", "best_block_size", "bsr_spmm", "bsr_spmm_plain",
-           "bsr_outer", "bsr_outer_plain"]
+           "bsr_outer", "bsr_outer_plain", "spmm_launch"]
 
 
 # --------------------------------------------------------------------------
@@ -190,6 +192,21 @@ def bsr_outer_plain(plan: _BSRPlan, g: torch.Tensor, x: torch.Tensor, per_chain:
 # Wrappers
 # --------------------------------------------------------------------------
 
+# K14's split (csrc/bsr.cu) by block size: (warps a group, ring depth,
+# shared bytes a group, shared bytes a CTA). A group walks a run of block
+# rows through its ring; its stages hold the most blocks (4 to 32) that keep
+# it within its bytes, and a CTA holds as many groups (1 to 8 warps) as its
+# bytes allow: three CTAs a SM at bs=8. The launcher sizes both from these.
+# Picked by the sweep of `tools/trace_vg.py <root> bsr` on an H100 (PERF.md
+# §6).
+SPMM_SPLIT = {8: (1, 2, 16 * 1024, 72 * 1024), 16: (2, 2, 32 * 1024, 72 * 1024), 32: (4, 2, 16 * 1024, 72 * 1024)}
+
+
+def spmm_launch(bs: int) -> tuple[int, int, int, int]:
+    """(warps a group, ring depth, shared bytes a group, shared bytes a CTA)
+    of K14 for blocks of bs."""
+    return SPMM_SPLIT[bs]
+
 
 def _check(name: str, plan: _BSRPlan, x: torch.Tensor, blocks: torch.Tensor | None = None):
     if x.ndim != 2 or x.shape[1] != plan.n:
@@ -211,10 +228,11 @@ def bsr_spmm(blocks: torch.Tensor, plan: _BSRPlan, x: torch.Tensor, transpose: b
         return bsr_spmm_plain(blocks, plan, x, transpose)
     t, tt = plan.on(x.device), (plan.transpose if transpose else plan).on(x.device)
     y = torch.empty_like(x)
+    R = x.shape[0]
     code = _fn("tg_bsr_spmm", x.dtype)(
         blocks.data_ptr(), blocks[0].numel() if blocks.ndim == 4 else 0, tt["rowptr"].data_ptr(),
         tt["block_cols"].data_ptr(), t["t_perm"].data_ptr() if transpose else None, plan.bs, plan.nb, plan.n,
-        x.data_ptr(), y.data_ptr(), x.shape[0], _stream(x),
+        x.data_ptr(), y.data_ptr(), R, *spmm_launch(plan.bs), _stream(x),
     )
     build.check(code, "bsr_spmm", f" at bs={plan.bs} nblocks={plan.nblocks} rows={x.shape[0]} {x.dtype}")
     bsr_spmm.launches += 1

@@ -35,8 +35,8 @@ _SIGNATURES = {
     "tg_tridiag_factor": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # d, e, b, out, B, n, k, mode, the scan's shape, stream
     "tg_tridiag_solve": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # d, e, zdiag, zoff, B, n, 1 to keep the chain's rows in global memory, stream
-    "tg_tridiag_selinv": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # d, e, zdiag, zoff, B, n, the scan's shape, stream
+    "tg_tridiag_selinv": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # row_ptr, col, data, dstride, x, y, quad, B, n_r, n_c, tiled, partial, stream
     "tg_csr_spmv": [_P, _P, _P, _L, _P, _P, _P, _I, _I, _I, _I, _P, _P],
     # plan (the address of its argument block, kernels/segsum.py), out, ostride, x, xstride, y, ystride, z,
@@ -87,8 +87,9 @@ _SIGNATURES = {
     # strips, cluster, parts, cpl, threads), lower, upper, work, stream
     "tg_bt_matvec": [_P, _L, _L, _P, _L, _L, _I, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                      _P, _P],
-    # blocks, block_stride, rowptr, bcols, tperm (null: forward), bs, nb, n, x, y, R, stream
-    "tg_bsr_spmm": [_P, _L, _P, _P, _P, _I, _I, _I, _P, _P, _I, _P],
+    # blocks, block_stride, rowptr, bcols, tperm (null: forward), bs, nb, n, x, y, R, then the split (warps a CTA,
+    # warps a block row, blocks a stage, ring depth), stream
+    "tg_bsr_spmm": [_P, _L, _P, _P, _P, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I, _P],
     # brows, bcols, nblocks, bs, n, g, x, R, per_chain, dblocks, stream
     "tg_bsr_outer": [_P, _P, _I, _I, _I, _P, _P, _I, _I, _P, _P],
     # theta, entry_pos, count, cap, jitter, out, work and flags (the cluster path; else null), cluster size, B,

@@ -27,10 +27,12 @@ __all__ = ["hot_matvec"]
 # a 700.00 W power limit, the device time of 64 chained multiplies from a
 # torch.profiler trace (K13: its three launches), K13 87.3 MB of blocks
 # (s=768, K=19) in 0.0572 ms, K14 3 x 10.6 MB (bs=8, 41514 blocks) in
-# 0.0287 ms. With these the rule picks BSR there and at the 316x316 grid
-# (n=99856); of the two it chooses between, that is the faster measured.
+# 0.0175 ms (K14 as redesigned to stream each block once through shared
+# memory; 0.0287 ms before, 1.107e12 B/s). With these the rule picks BSR
+# there and at the 316x316 grid (n=99856); of the two it chooses between,
+# that is the faster measured.
 _DENSE_BYTES_PER_S = 1.527e12
-_GATHER_BYTES_PER_S = 1.107e12
+_GATHER_BYTES_PER_S = 1.817e12
 
 
 def hot_matvec(Q, min_nnz: int = 50_000):

@@ -6,11 +6,10 @@ CUDA tensor launches the hand-written kernel of ``csrc/tridiag.cu`` and
 raises if it cannot. Any other device raises. ``<wrapper>.launches`` counts
 the kernel launches.
 
-K1 and K2 run each chain as a segmented scan on a block (`scan_launch` picks
+K1-K3 run each chain as a segmented scan on a block (`scan_launch` picks
 the warps and the rows per thread; a chain longer than a block's tile runs in
-tiles in sequence), so no n is refused. K3 keeps a chain's 2n-1 values in
-shared memory while they fit `SMEM_LIMIT`; beyond it (`tridiag_path` says
-"global") it runs the recurrence in the output rows in global memory.
+tiles in sequence, K2's backward pass and K3 the last tile first), so no n is
+refused.
 """
 
 from __future__ import annotations
@@ -25,13 +24,13 @@ from . import build
 __all__ = [
     "tridiag_factor", "tridiag_solve", "tridiag_selinv",
     "tridiag_factor_plain", "tridiag_solve_plain", "tridiag_selinv_plain",
-    "SOLVE_L", "SOLVE_LT", "SOLVE_BOTH", "scan_launch", "tridiag_path",
+    "SOLVE_L", "SOLVE_LT", "SOLVE_BOTH", "scan_launch",
 ]
 
 SOLVE_L, SOLVE_LT, SOLVE_BOTH = 0, 1, 2
 # Dynamic shared memory a block may use without an opt-in attribute.
 SMEM_LIMIT = 48 * 1024
-# K1/K2's scan shapes (csrc/tridiag.cu): a block per chain, SEG_ROWS rows a
+# K1-K3's scan shapes (csrc/tridiag.cu): a block per chain, SEG_ROWS rows a
 # thread while MAX_WARPS warps hold the chain, then up to MAX_ROWS rows a
 # thread (K2's three float64 arrays of 512 segments at stride 17 take 209 KB
 # of the 227 KB a block may have), then tiles of that size in sequence.
@@ -110,21 +109,15 @@ def _check_rows(name: str, diag: torch.Tensor, off: torch.Tensor):
     return B, n
 
 
-def tridiag_path(n: int, dtype: torch.dtype) -> str:
-    """K3's rows: "shared" while a chain's 2n-1 values fit shared memory,
-    else "global"."""
-    need = (2 * n - 1) * (4 if dtype == torch.float32 else 8)
-    return "shared" if need <= SMEM_LIMIT else "global"
-
-
 @functools.cache
 def scan_launch(n: int) -> tuple[int, int]:
-    """(warps per chain, rows per thread) of K1 and K2 on chains of n rows:
+    """(warps per chain, rows per thread) of K1-K3 on chains of n rows:
     SEG_ROWS rows a thread on as many warps as that takes, up to MAX_WARPS;
     beyond, up to MAX_ROWS rows a thread, in tiles of 32·warps·rows rows
     (several in sequence past 32·MAX_WARPS·MAX_ROWS rows). K2 takes a block
     per chain and right-hand side, so k multiplies the blocks; the dtype
-    changes nothing (a tile's arrays fit a block's shared memory in both)."""
+    changes nothing (a tile's arrays fit a block's shared memory in both:
+    K2 stages three, K1 and K3 two)."""
     warps = min(MAX_WARPS, -(-n // (32 * SEG_ROWS)))
     return warps, min(MAX_ROWS, -(-n // (32 * warps)))
 
@@ -194,8 +187,7 @@ def tridiag_selinv(d: torch.Tensor, e: torch.Tensor):
     zdiag = torch.empty_like(d)
     zoff = torch.empty_like(e)
     code = _fn("tg_tridiag_selinv", d.dtype)(
-        d.data_ptr(), e.data_ptr(), zdiag.data_ptr(), zoff.data_ptr(), B, n,
-        int(tridiag_path(n, d.dtype) == "global"), _stream(d)
+        d.data_ptr(), e.data_ptr(), zdiag.data_ptr(), zoff.data_ptr(), B, n, *scan_launch(n), _stream(d)
     )
     build.check(code, "tridiag_selinv")
     tridiag_selinv.launches += 1
