@@ -61,13 +61,19 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    with 9 vectors; per-chain blocks), bt_sqrt at phase 14's shape; K14 at
    its edges, forward and transposed at each block size (blocks per row
    with 3 vectors, one vector, 9 vectors, blocks off 16 bytes, n=5741 not a
-   multiple of bs), each launched twice and equal bit for bit;
+   multiple of bs), each launched twice and equal bit for bit; K15 beside
+   torch.sparse.sampled_addmm at the stored blocks' scalar pattern, and at its
+   edges (per chain with 3 chains, one vector, 9 vectors, n=5741, at each block
+   size), each launched twice and equal bit for bit;
 3e. K16 kl_columns on the column buckets of example 09's KL factor at
    n=10,000 (rho = 3 and 6) and on one bucket of cap 256 (its cluster
    path); the warp path to the bit, the tile and cluster paths by backward
    error and by distance from the plain version against the library's; K17
    block_inv on the n=1000 graphical lasso's cliques and separators (and one
-   set of 200, beyond shared memory), rectangular K4 on a 500 x 14058
+   set of 200, beyond shared memory; and at its class edges: one set on each
+   side of every edge of its size classes, an indefinite set that interchanges
+   rows, a singular set whose NaN values must be the plain version's, each
+   launched twice and equal bit for bit), rectangular K4 on a 500 x 14058
    selection matrix and its transpose, against their plain versions and the
    library yardsticks, in float64 and float32;
 3f. K11's and K12's block entries and K18 spike_reduced on the arguments the
@@ -1864,6 +1870,31 @@ def bsr_library_t(Bm, dev):
         return torch.sparse_bsr_tensor(crow, br[order], Bm.blocks[order].mT.contiguous(), size=(nb * bs,) * 2)
 
 
+def bsr_outer_library(plan, g, x, dev):
+    """The yardstick beside K15: torch.sparse.sampled_addmm of Gᵀ X at the stored blocks' scalar pattern (a CSR
+    tensor built outside the timing), and the permutation taking K15's flat output to its values; None where the
+    card's PyTorch refuses it."""
+    t, bs, N, n = plan.on(dev), plan.bs, plan.nb * plan.bs, plan.n
+    ij = torch.arange(bs, device=dev)
+    rows = (t["block_rows_l"][:, None, None] * bs + ij[None, :, None]).expand(-1, bs, bs).reshape(-1)
+    cols = (t["block_cols_l"][:, None, None] * bs + ij[None, None, :]).expand(-1, bs, bs).reshape(-1)
+    perm = torch.argsort(rows * N + cols)
+    crow = torch.cat([rows.new_zeros(1), torch.bincount(rows, minlength=N).cumsum(0)])
+    gt = torch.nn.functional.pad(g, (0, N - n)).T.contiguous()
+    xp = torch.nn.functional.pad(x, (0, N - n))
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            S = torch.sparse_csr_tensor(crow, cols[perm], torch.zeros(perm.numel(), dtype=x.dtype, device=dev),
+                                        size=(N, N))
+            run = lambda: torch.sparse.sampled_addmm(S, gt, xp, beta=0.0)  # noqa: E731
+            run()
+        return run, perm
+    except (RuntimeError, NotImplementedError) as e:
+        log(f"  sampled_addmm refused ({str(e).splitlines()[0][:100]}): K15 has no library yardstick")
+        return None, perm
+
+
 def check_operator_kernels(label, Q, dtype, dev, results, block_sizes, timed):
     """K13, K14 (forward and transposed), K15 and K4 on one operator Q
     (data (nnz,)) with SPMV_VECS vectors, against plain and library."""
@@ -1925,10 +1956,19 @@ def check_operator_kernels(label, Q, dtype, dev, results, block_sizes, timed):
               cost=(cost[0], cost[1] + 4 * nbl),  # the forward product's, and the transposition's block order
               extra=f" (library: torch.sparse_bsr_tensor of Aᵀ @ x, {rel_t:.1e} from plain)")
         del blt
-        check(f"bsr_outer {tag}", dtype, kernels.bsr_outer(plan, g, x), kernels.bsr_outer_plain(plan, g, x),
-              "bsr_outer", keep, cuda_ms(lambda: kernels.bsr_outer(plan, g, x)),
-              cuda_ms(lambda: kernels.bsr_outer_plain(plan, g, x)),
-              cost=(2 * nbl * bs * bs * k, el * (nbl * bs * bs + 2 * n * k) + 8 * nbl), shape=tag)
+        outer = kernels.bsr_outer(plan, g, x)
+        lib, perm = bsr_outer_library(plan, g, x, dev)
+        extra = ""
+        if lib is not None:  # its values, in CSR order, against K15's
+            _, rel_l = rel_err((lib().values(),), (outer.reshape(-1)[perm],))
+            extra = f" (library: torch.sparse.sampled_addmm at the blocks' pattern, {rel_l:.1e} from K15)"
+            if not rel_l <= SN_TOL[dtype]["bsr_outer"]:
+                raise AssertionError(f"bsr_outer disagrees with sampled_addmm ({rel_l:.3e})")
+        check(f"bsr_outer {tag}", dtype, outer, kernels.bsr_outer_plain(plan, g, x), "bsr_outer", keep,
+              cuda_ms(lambda: kernels.bsr_outer(plan, g, x)), cuda_ms(lambda: kernels.bsr_outer_plain(plan, g, x)),
+              cost=(2 * nbl * bs * bs * k, el * (nbl * bs * bs + 2 * n * k) + 8 * nbl), shape=tag,
+              library_ms=cuda_ms(lib) if lib is not None else None, extra=extra)
+        del lib
         if bs == best:  # the gradient of the BSR product against the plain version's autograd
             grads = []
             xs = x / kernels.bsr_spmm(blocks, plan, x).abs().max()  # sin's argument of order one
@@ -1940,11 +1980,12 @@ def check_operator_kernels(label, Q, dtype, dev, results, block_sizes, timed):
 
 
 def check_bsr_edges(Q, Qr, dtype, dev):
-    """Phase 3d: K14 at its edges against its plain version, held to SN_TOL, forward and transposed, at each block
-    size: one set of blocks per row (3 vectors, blocks (3, nblocks, bs, bs)), one vector, 9 vectors (two launch
-    rows of vectors) and blocks that do not start on 16 bytes (one element into a buffer: the element copies in
-    place of the 16-byte ones) on Q (n=14058), and 8 vectors on Qr (n=5741, not a multiple of any block size). Each
-    case is launched twice: the two results must be equal bit for bit."""
+    """Phase 3d: K14 and K15 at their edges against their plain versions, held to SN_TOL, K14 forward and
+    transposed, at each block size: one set of blocks per row (3 vectors, blocks (3, nblocks, bs, bs); K15 per
+    chain), one vector, 9 vectors (two launch rows of vectors; K15 two chunks of vectors) and blocks that do not
+    start on 16 bytes (one element into a buffer: the element copies in place of the 16-byte ones; K14 only) on Q
+    (n=14058), and 8 vectors on Qr (n=5741, not a multiple of any block size, whose rows of x do not lie on 16
+    bytes: K15's element loads). Each case is launched twice: the two results must be equal bit for bit."""
     from tpu_gmrf_torch import kernels
 
     rng = np.random.default_rng(15)
@@ -1969,6 +2010,17 @@ def check_bsr_edges(Q, Qr, dtype, dev):
                       "bsr_spmm", {}, extra=f"; second launch equal bit for bit: {same}")
                 if not same:
                     raise AssertionError(f"bsr_spmm {label} bs={bs}: two launches differ")
+            if kind == "offset":
+                continue
+            g = torch.tensor(rng.normal(size=(R, n)), dtype=dtype, device=dev)
+            per_chain = kind == "per row"
+            got, again = (kernels.bsr_outer(plan, g, x, per_chain) for _ in range(2))
+            same = bool(torch.equal(got, again))
+            check(f"bsr_outer {label}{' (per chain)' if per_chain else ''} n={n} k={R} bs={bs} (n mod bs = {n % bs})",
+                  dtype, got, kernels.bsr_outer_plain(plan, g, x, per_chain), "bsr_outer", {},
+                  extra=f"; second launch equal bit for bit: {same}")
+            if not same:
+                raise AssertionError(f"bsr_outer {label} bs={bs}: two launches differ")
 
 
 def bt_matvec_traffic(K: int, s: int, n: int, k: int, el: int, ms: float,
@@ -2614,13 +2666,15 @@ def block_inv_library(C, blocks):
 
 
 def check_block_inv(label, C, blocks, dtype, results=None):
-    """K17 against its plain version and the library yardstick."""
+    """K17 against its plain version (the NaN masks equal; whether every value is equal bit for bit) and the
+    library yardstick."""
     from tpu_gmrf_torch import kernels
 
     got, ref = kernels.block_inv(C, blocks), kernels.block_inv_plain(C, blocks)
     torch.cuda.synchronize()
     if not torch.equal(got.isnan(), ref.isnan()):
         raise AssertionError(f"block_inv {label}: NaN masks of kernel and plain differ")
+    counts = blocks.plan(dtype)["counts"]
     el, s = torch.finfo(dtype).bits // 8, blocks.sizes.astype(float)
     flops = float((2 * s**3).sum())
     nbytes = el * 2 * float((s**2).sum()) + 4 * float(s.sum()) + (24 + el) * len(blocks)
@@ -2629,7 +2683,47 @@ def check_block_inv(label, C, blocks, dtype, results=None):
           f"{int((blocks.sizes > kernels.block_inv_smem_max(dtype)).sum())} on the global path)", dtype,
           got, ref, "block_inv", results if results is not None else {}, cuda_ms(lambda: kernels.block_inv(C, blocks), 10),
           cuda_ms(lambda: kernels.block_inv_plain(C, blocks), 2, 1), cost=(flops, nbytes), library_ms=cuda_ms(lib, 3, 1),
-          shape=label, extra=f" (library: torch.linalg.inv per size bucket, {nbuckets} buckets)")
+          shape=label, extra=f" (library: torch.linalg.inv per size bucket, {nbuckets} buckets; classes global, "
+          f"shared, tile, warp {counts}; equal to plain bit for bit: {bool(torch.equal(got, ref))})")
+
+
+def bit_equal(a, b) -> bool:
+    """Equal NaN masks and equal values elsewhere, bit for bit."""
+    nan = a.isnan()
+    return bool(torch.equal(nan, b.isnan()) and torch.equal(a[~nan], b[~nan]))
+
+
+def block_inv_edges(dtype, dev):
+    """Phase 3e: K17 at its class edges against its plain version: one set of each size on either side of every
+    edge (warp ≤ 32 < tile ≤ 96 < shared ≤ 169 in f64, 239 in f32 < global) of a symmetric indefinite C (a
+    random symmetric matrix with a ±5 diagonal), the set of 33 with a zero leading diagonal entry (so partial
+    pivoting interchanges rows at its first step), held to SN_TOL with equal NaN masks; then a singular set (its
+    first row and column zero: a zero pivot at the first step) beside a set of 40, whose NaN mask must equal the
+    plain version's. Each case is launched twice: the two results equal bit for bit."""
+    from tpu_gmrf_torch import kernels
+
+    rng = np.random.default_rng(19)
+    n = 300
+    G = rng.normal(size=(n, n))
+    Cn = G + G.T + np.diag(np.where(np.arange(n) % 2, 5.0, -5.0))
+    sizes = (1, 8, 32, 33, 95, 96, 97, 169, 170, 239, 240)
+    sets = [np.sort(rng.choice(np.arange(1, n), s, replace=False)) for s in sizes]
+    Cn[0, :] = Cn[:, 0] = 0.0
+    Cn[sets[3][0], sets[3][0]] = 0.0
+    C = torch.tensor(Cn, dtype=dtype, device=dev)
+    for label, bs in (("class edges, sizes " + ", ".join(map(str, sizes)),
+                       kernels.BlockSets(sets, [1.0 if i % 2 else -1.0 for i in range(len(sets))])),
+                      ("a singular set beside a set of 40",
+                       kernels.BlockSets([np.array([0, 5, 9, 40, 77]), sets[4][:40]], [1.0, -1.0]))):
+        got, again, ref = kernels.block_inv(C, bs), kernels.block_inv(C, bs), kernels.block_inv_plain(C, bs)
+        torch.cuda.synchronize()
+        same, nan = bit_equal(got, again), got.isnan()
+        if not (same and torch.equal(nan, ref.isnan())):
+            raise AssertionError(f"block_inv {label} {dtype_name(dtype)}: two launches differ ({not same}) or the NaN "
+                                 "masks of kernel and plain differ")
+        check(f"block_inv {label} ({int(nan.sum())} NaN values, where the plain version has them; classes global, "
+              f"shared, tile, warp {bs.plan(dtype)['counts']})", dtype, got[~nan], ref[~nan], "block_inv", {},
+              extra=f"; second launch equal bit for bit: {same}; equal to plain bit for bit: {bit_equal(got, ref)}")
 
 
 def check_rect_spmv(dev):
@@ -2711,6 +2805,7 @@ def check_gp_kernels(kp: dict, gp: dict, dev) -> dict:
         sets = list(gp["cliques"]) + list(gp["seps"]) + [np.sort(rng.choice(len(gp["mu"]), 200, replace=False))]
         big = kernels.BlockSets(sets, [1.0] * len(gp["cliques"]) + [-1.0] * (len(gp["seps"]) + 1))
         check_block_inv(f"n={len(gp['mu'])} glasso + one set of 200", C, big, dtype)
+        block_inv_edges(dtype, dev)
     check_rect_spmv(dev)
     return results
 

@@ -410,10 +410,16 @@ def test_block_inv_plain_singular_block_is_non_finite():
 def test_block_sets_tables_and_shared_memory_limit():
     assert kernels.block_inv_smem_max(torch.float64) == 169
     assert kernels.block_inv_smem_max(torch.float32) == 239
-    bs = kernels.BlockSets([np.arange(200), np.arange(3), np.arange(170)], [1.0, -1.0, 1.0])
+    sizes = [200, 3, 170, 96, 33, 97, 32, 33]
+    bs = kernels.BlockSets([np.arange(s) for s in sizes], [1.0, -1.0, 1.0, 1.0, -1.0, 1.0, 1.0, -1.0])
+    # largest first (ties in set order), as the classes global, shared, tile and warp
     t = bs.on("cpu", torch.float64)
-    assert t["goff"].tolist() == [0, -1, 200] and t["gtotal"] == 370 and t["smax"] == 3
-    assert bs.out_off.tolist() == [0, 40000, 40009, 40009 + 170**2]
+    assert t["order"].tolist() == [0, 2, 5, 3, 4, 7, 6, 1] and t["counts"] == [2, 1, 3, 2] and t["smem_s"] == 97
+    assert t["goff"].tolist() == [0, -1, 200, -1, -1, -1, -1, -1] and t["gtotal"] == 370
+    t = bs.on("cpu", torch.float32)
+    assert t["order"].tolist() == [0, 2, 5, 3, 4, 7, 6, 1] and t["counts"] == [0, 3, 3, 2] and t["smem_s"] == 200
+    assert t["goff"].tolist() == [-1] * 8 and t["gtotal"] == 0
+    assert bs.out_off.tolist() == np.concatenate([[0], np.cumsum(np.square(sizes))]).tolist()
     with pytest.raises(ValueError):
         kernels.BlockSets([np.arange(2), np.zeros(0)], [1.0, 1.0])
 

@@ -2,7 +2,7 @@
 source tree given as the first argument; needs a CUDA device.
 
     python3 tools/trace_vg.py <root> [spatial] [supernodal] [flagship] [k9] [k5] [k10] [tridiag] [bsr] [vgtimes]
-        [hostcost] [kl18] [nuts] [flagnuts] [rbmc] [k7tiles]
+        [hostcost] [kl18] [nuts] [flagnuts] [rbmc] [k7tiles] [glasso] [outer]
 
 ``spatial`` is chip_smoke.py's phase 11 value+grad: the Matérn + Poisson
 model on the 63x63 grid (n=5741), 4 chains at θ = (1, 0.3), 10 Newton
@@ -39,7 +39,20 @@ of Aᵀ, @ x) and the bound, on chip_smoke.py's phase 3d operators with 8
 vectors: the n=14058 Matérn operator at bs = 8, 16 and 32 and the n=99856
 grid precision at bs=8, in float32 and float64; on a tree with
 `spmm_launch`, also the forward product at other splits (warps a group,
-ring depth, shared bytes a group and a CTA). ``vgtimes`` times 15 calls each
+ring depth, shared bytes a group and a CTA). ``glasso`` gives K17
+`block_inv`'s host µs per call (50 enqueued), device µs per launch and CUDA
+events ms per call beside the library yardstick (`linalg.inv` per size
+bucket, events) and the bound, on phase 3e's input: the n=1000 graphical
+lasso's 1,673 cliques and separators, and the same sets plus one set of 200,
+in float32 and float64. ``outer`` gives K15 `bsr_outer`'s host µs per call,
+device µs per launch and CUDA events ms per call beside the bound and the
+library yardstick, `torch.sparse.sampled_addmm` of Gᵀ X at the stored
+blocks' scalar pattern (a CSR tensor built outside the timing, its values
+held to K15's through a permutation; "none" where the card's PyTorch refuses
+it), with 8 vectors on phase 3d's operators: the n=14058 Matérn operator at
+bs = 8, 16 and 32, there at bs=8 also per chain (8 chains, each its own
+output blocks; the yardstick a batched CSR tensor), and the n=99856 grid
+precision at bs=8, in float32 and float64. ``vgtimes`` times 15 calls each
 of phase 7's, phase 11's and the f32 flagship value+grad (host clock, each
 call ending in a synchronize; after 2 warm-up calls) and prints every
 time. ``hostcost`` (this tree's wrappers only) splits the host µs of one K5
@@ -590,6 +603,97 @@ def time_bsr(dev) -> None:
                 del bl, blt
 
 
+def time_glasso(dev) -> None:
+    # phase 3e's input: the n=1000 graphical lasso's cliques (+1) and separators (-1), then with one set of 200
+    _, _, Xall = cs.glasso_problem(cs.GL["n"], cs.GL["m"], cs.GL["density"], cs.GL["held_out"])
+    gp = cs.glasso_host(Xall[:cs.GL["m"]], cs.GL["lam"])
+    n = len(gp["mu"])
+    sets = list(gp["cliques"]) + list(gp["seps"])
+    big = sets + [np.sort(np.random.default_rng(18).choice(n, 200, replace=False))]
+    cases = ((f"n={n} glasso", gp["blocks"]),
+             (f"n={n} glasso + one set of 200",
+              kernels.BlockSets(big, [1.0] * len(gp["cliques"]) + [-1.0] * (len(gp["seps"]) + 1))))
+    for dtype in (torch.float32, torch.float64):
+        C = torch.tensor(gp["C"], dtype=dtype, device=dev)
+        el = torch.finfo(dtype).bits // 8
+        for label, blocks in cases:
+            s = blocks.sizes.astype(float)
+            nbytes = el * 2 * float((s**2).sum()) + 4 * float(s.sum()) + (24 + el) * len(blocks)
+            bnd = cs.bound(float((2 * s**3).sum()), nbytes, dtype)
+            lib, nbuckets = cs.block_inv_library(C, blocks)
+            tag = (f"{label} ({len(blocks)} sets, sizes {int(s.min())}-{int(s.max())}) {cs.dtype_name(dtype)} (bound "
+                   f"{bnd['bound_ms'] * 1e3:.2f} us, {bnd['bound_by']})")
+            host_device(f"K17 {tag}", lambda: kernels.block_inv(C, blocks), 50)
+            print(f"{os.path.relpath(root)} K17 / library (linalg.inv per size bucket, {nbuckets} buckets) {tag}: "
+                  f"CUDA events {cs.cuda_ms(lambda: kernels.block_inv(C, blocks), 20, 3):.5f} / "
+                  f"{cs.cuda_ms(lib, 3, 1):.5f} ms per call", flush=True)
+
+
+def sampled_pattern(plan, dev, chains: int = 0):
+    """The scalar pattern of a BSR plan's stored blocks as the CSR tensor `torch.sparse.sampled_addmm` samples at
+    (one batch entry per chain with `chains`), and the permutation that takes K15's (…, nblocks, bs, bs) output,
+    flattened per chain, to that tensor's values. chip_smoke.py's `bsr_outer_library` does the same for its check;
+    this copy also serves trees whose chip_smoke.py has none, and the per-chain yardstick."""
+    t, bs, N = plan.on(dev), plan.bs, plan.nb * plan.bs
+    ij = torch.arange(bs, device=dev)
+    rows = (t["block_rows_l"][:, None, None] * bs + ij[None, :, None]).expand(-1, bs, bs).reshape(-1)
+    cols = (t["block_cols_l"][:, None, None] * bs + ij[None, None, :]).expand(-1, bs, bs).reshape(-1)
+    perm = torch.argsort(rows * N + cols)
+    crow = torch.cat([rows.new_zeros(1), torch.bincount(rows, minlength=N).cumsum(0)])
+    col, vals = cols[perm], torch.zeros(perm.numel(), device=dev)
+    if chains:
+        crow, col, vals = (a.expand(chains, -1).contiguous() for a in (crow, col, vals))
+    return crow, col, vals, perm, N
+
+
+def time_outer(dev) -> None:
+    import warnings
+
+    rng = np.random.default_rng(13)
+    stats = cs.spatial_model(cs.STATS_GRID)
+    k = cs.SPMV_VECS
+    for dtype in (torch.float32, torch.float64):
+        el = torch.finfo(dtype).bits // 8
+        for label, Q, sizes in (("Matérn", cs.matern_precision(stats, dtype, dev), (8, 16, 32)),
+                                ("grid", cs.grid_precision(dtype, dev), (8,))):
+            n = Q.shape[0]
+            g = torch.tensor(rng.normal(size=(k, n)), dtype=dtype, device=dev)
+            x = torch.tensor(rng.normal(size=(k, n)), dtype=dtype, device=dev)
+            for bs in sizes:
+                plan = kernels.bsr_from_sparse(Q, bs).plan
+                nbl = plan.nblocks
+                modes = ((False, 0), (True, k)) if (label, bs) == ("Matérn", 8) else ((False, 0),)
+                for per_chain, chains in modes:
+                    nout = nbl * bs * bs * (chains or 1)
+                    nbytes = el * (nout + 2 * n * k) + 8 * nbl
+                    tag = (f"{label} n={n} k={k} bs={bs} nblocks={nbl}{' per chain' if per_chain else ''} "
+                           f"{cs.dtype_name(dtype)} (bound {nbytes / cs.HBM_BYTES_PER_S * 1e6:.2f} us)")
+                    kern = lambda: kernels.bsr_outer(plan, g, x, per_chain)  # noqa: E731
+                    host_device(f"K15 {tag}", kern)
+                    ms = cs.cuda_ms(kern, 50, 5)
+                    # the yardstick: torch.sparse.sampled_addmm of Gᵀ X at the blocks' scalar pattern (its values in
+                    # CSR order; K15's taken to that order by a permutation, both built outside the timing)
+                    crow, col, vals, perm, N = sampled_pattern(plan, dev, chains)
+                    gp = torch.nn.functional.pad(g, (0, N - n))
+                    xp = torch.nn.functional.pad(x, (0, N - n))
+                    m1, m2 = (gp[:, :, None], xp[:, None, :]) if per_chain else (gp.T.contiguous(), xp)
+                    try:
+                        with warnings.catch_warnings():
+                            warnings.simplefilter("ignore", UserWarning)
+                            S = torch.sparse_csr_tensor(crow, col, vals.to(dtype), size=((chains,) if chains else ())
+                                                        + (N, N))
+                            lib = lambda: torch.sparse.sampled_addmm(S, m1, m2, beta=0.0)  # noqa: E731
+                            got = lib().values().reshape(chains or 1, -1)
+                        ref = kern().reshape(chains or 1, -1)[:, perm]
+                        err = float((got - ref).abs().max() / ref.abs().max())
+                        host_device(f"library sampled_addmm {tag}", lib)
+                        lms = f"{cs.cuda_ms(lib, 50, 5):.5f} ms per call ({err:.1e} from K15)"
+                    except (RuntimeError, NotImplementedError) as e:
+                        lms = f"none: sampled_addmm refused ({str(e).splitlines()[0][:120]})"
+                    print(f"{os.path.relpath(root)} K15 / library {tag}: CUDA events {ms:.5f} ms per call / {lms}",
+                          flush=True)
+
+
 def kl18(dev) -> None:
     import dataclasses
 
@@ -746,6 +850,10 @@ def main() -> int:
         time_tridiag(dev)
     if "bsr" in which:
         time_bsr(dev)
+    if "glasso" in which:
+        time_glasso(dev)
+    if "outer" in which:
+        time_outer(dev)
     if "vgtimes" in which:
         time_vg(dev)
     if "hostcost" in which:

@@ -55,16 +55,21 @@
 // the warps a group, the ring's depth and the shared bytes a group and a CTA
 // may take (kernels/bsr_spmv.py::spmm_launch); the launcher sizes the stages
 // and the CTA from them, and the rows a group walks from the card's
-// occupancy. K15: one block of threads per
-// stored block, one thread per entry, summing over the vectors (or, with one
-// matrix per chain, one product per chain).
+// occupancy. K15 writes each block once: a warp walks a run of consecutive
+// stored blocks (as many as one wave of warps on the card leaves to each; the
+// blocks of a block row are consecutive), holds its lanes' g values of the
+// block row in registers while the row lasts, loads each block's x pieces
+// (one load of V elements a lane and vector), forms its bs^2 / 32 entries a
+// lane over the vectors in their order (with one matrix per chain, one
+// product) and writes them with 16-byte (at bs=8 in f32, 8-byte) streaming
+// stores: no lane idles, and the launch moves the output once plus g and x.
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kThreads = 256;  // K15
+constexpr int kThreads = 256;  // K15: threads a CTA
 constexpr int kMaxWarps = 8;   // K14: warps a CTA
 constexpr int kVecs = 8;       // K14: vectors a launch row
 constexpr int kMaxStage = 32;  // K14: blocks a stage (a stage's tables lie in two chunks of 32)
@@ -305,31 +310,135 @@ __global__ void __launch_bounds__(32 * kMaxWarps)
   zeros(open + 1, r1);
 }
 
-// dblocks[b][i][j] = sum over the R rows c of g[c][rb bs + i] x[c][cb bs + j]
-// (per_chain == 0), or, per chain c = blockIdx.y, that one product
-// (dblocks (R, nblocks, bs, bs)).
-template <typename T>
+// 16-byte (or 8-byte) pieces of V elements: loads, and stores that stream past the caches.
+template <typename T, int V>
+struct __align__(V * sizeof(T)) Vec {
+  T v[V];
+};
+
+__device__ __forceinline__ void store_cs(float* p, const Vec<float, 2>& a) {
+  __stcs(reinterpret_cast<float2*>(p), make_float2(a.v[0], a.v[1]));
+}
+__device__ __forceinline__ void store_cs(float* p, const Vec<float, 4>& a) {
+  __stcs(reinterpret_cast<float4*>(p), make_float4(a.v[0], a.v[1], a.v[2], a.v[3]));
+}
+__device__ __forceinline__ void store_cs(double* p, const Vec<double, 2>& a) {
+  __stcs(reinterpret_cast<double2*>(p), make_double2(a.v[0], a.v[1]));
+}
+
+// K15: dblocks[b][i][j] = sum over the vectors c of g[c][rb bs + i] x[c][cb bs + j] (PC false), or, per chain
+// c = blockIdx.y, that one product (PC true; dblocks (R, nblocks, bs, bs)); zero past n. A warp walks a run of
+// `run` consecutive stored blocks (block-row order), the tables read 32 blocks at a time, UB blocks a batch. Lane l
+// owns NR runs of V consecutive entries of every block: entries (l + 32 t) V .. + V, t < NR, that is rows
+// row0 + RS t and the columns j0 .. j0 + V (the same for every t). Its g values of the block row stay in registers
+// while the block row lasts (CH vectors at a time; with more vectors they are reloaded a block); its x pieces are
+// one V-element load a vector and block, a batch's loads all sent before its products, so that a warp waits for
+// memory once a batch (unpredicated where the batch is whole). The sum over the vectors runs in their order. On an
+// H100 at bs=8 the kernel is bound by its instructions more than by latency: batches of 4 blocks (spills), a
+// register bound for more warps, and prefetches of the next batch into L1 or L2 were all slower.
+template <typename T, int BS, bool PC>
 __global__ void __launch_bounds__(kThreads)
-    bsr_outer_kernel(const int* __restrict__ brows, const int* __restrict__ bcols, int bs, int n,
-                     const T* __restrict__ g, const T* __restrict__ x, int R, int per_chain,
+    bsr_outer_kernel(const int* __restrict__ brows, const int* __restrict__ bcols, int nblocks, int n,
+                     const T* __restrict__ g, const T* __restrict__ x, int R, int run, int xvec,
                      T* __restrict__ dblocks) {
-  const long long b = blockIdx.x;
-  const int r0 = brows[b] * bs, c0 = bcols[b] * bs;
-  const int first = per_chain ? blockIdx.y : 0, last = per_chain ? blockIdx.y + 1 : R;
-  T* out = dblocks + ((per_chain ? (long long)blockIdx.y * gridDim.x : 0) + b) * bs * bs;
-  for (int e = threadIdx.x; e < bs * bs; e += blockDim.x) {
-    const int gi = r0 + e / bs, xj = c0 + e % bs;
-    T acc = T(0);
-    if (gi < n && xj < n)
-      for (int c = first; c < last; ++c) acc += g[(long long)c * n + gi] * x[(long long)c * n + xj];
-    out[e] = acc;
+  constexpr int V = 16 / (int)sizeof(T) < BS * BS / 32 ? 16 / (int)sizeof(T) : BS * BS / 32;
+  constexpr int NR = BS * BS / (32 * V), RS = 32 * V / BS;
+  constexpr int CH = PC ? 1 : NR <= 2 ? 8 : NR <= 4 ? 4 : 1;  // vectors whose g values a lane holds
+  constexpr int UB = PC ? (NR < 8 ? 8 / NR : 1) : NR == 1 && sizeof(T) == 4 ? 2 : 1;  // blocks a batch (divides 32)
+  const int lane = threadIdx.x & 31;
+  const long long q0 = ((long long)blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5)) * run;
+  if (q0 >= nblocks) return;  // the whole warp
+  const int q1 = (int)min((long long)nblocks, q0 + run);
+  const int c_lo = PC ? blockIdx.y : 0, c_hi = PC ? c_lo + 1 : R;
+  T* out = dblocks + (PC ? (long long)c_lo * nblocks : 0) * BS * BS;
+  const int row0 = lane * V / BS, j0 = lane * V % BS;
+  T gr[CH][NR];
+  int held = -1, rb_t = 0, cb_t = 0;  // the block row whose g values gr holds; this lane's table entries
+  for (int q = (int)q0; q < q1; q += UB) {
+    const int u0 = (q - (int)q0) & 31;
+    if (u0 == 0 && q + lane < q1) {
+      rb_t = brows[q + lane];
+      cb_t = bcols[q + lane];
+    }
+    int rb[UB], col[UB];
+#pragma unroll
+    for (int u = 0; u < UB; ++u) {
+      rb[u] = __shfl_sync(kFull, rb_t, u0 + u);
+      col[u] = __shfl_sync(kFull, cb_t, u0 + u) * BS + j0;
+    }
+    Vec<T, V> acc[UB][NR];
+#pragma unroll
+    for (int u = 0; u < UB; ++u)
+#pragma unroll
+      for (int t = 0; t < NR; ++t)
+#pragma unroll
+        for (int v = 0; v < V; ++v) acc[u][t].v[v] = T(0);
+    for (int c0 = c_lo; c0 < c_hi; c0 += CH) {
+      Vec<T, V> xv[UB][CH];  // all the batch's loads first, then the products
+      bool whole = c_hi - c0 >= CH && q + UB <= q1;  // every piece in range and on V elements: no predicates
+#pragma unroll
+      for (int u = 0; u < UB; ++u) whole = whole && xvec && col[u] + V <= n;
+      if (whole) {
+#pragma unroll
+        for (int u = 0; u < UB; ++u) {
+          const T* xr = x + (long long)c0 * n + col[u];
+#pragma unroll
+          for (int cc = 0; cc < CH; ++cc) xv[u][cc] = *reinterpret_cast<const Vec<T, V>*>(xr + (long long)cc * n);
+        }
+      } else {
+#pragma unroll
+        for (int u = 0; u < UB; ++u) {
+          const T* xr = x + (long long)c0 * n + col[u];
+          const bool vec = xvec && col[u] + V <= n;
+#pragma unroll
+          for (int cc = 0; cc < CH; ++cc, xr += n) {
+            const bool ok = q + u < q1 && c0 + cc < c_hi;
+            if (ok && vec) {
+              xv[u][cc] = *reinterpret_cast<const Vec<T, V>*>(xr);
+            } else {
+#pragma unroll
+              for (int v = 0; v < V; ++v) xv[u][cc].v[v] = ok && col[u] + v < n ? xr[v] : T(0);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < UB; ++u) {
+        if (q + u >= q1) break;
+        if (rb[u] != held || c_hi - c_lo > CH) {
+#pragma unroll
+          for (int cc = 0; cc < CH; ++cc)
+#pragma unroll
+            for (int t = 0; t < NR; ++t) {
+              const int r = rb[u] * BS + row0 + RS * t;
+              gr[cc][t] = c0 + cc < c_hi && r < n ? g[(long long)(c0 + cc) * n + r] : T(0);
+            }
+          held = rb[u];
+        }
+#pragma unroll
+        for (int cc = 0; cc < CH; ++cc) {
+          if (c0 + cc >= c_hi) break;
+#pragma unroll
+          for (int t = 0; t < NR; ++t)
+#pragma unroll
+            for (int v = 0; v < V; ++v) acc[u][t].v[v] = fma(gr[cc][t], xv[u][cc].v[v], acc[u][t].v[v]);
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < UB; ++u)
+      if (q + u < q1) {
+        T* ob = out + (long long)(q + u) * BS * BS + row0 * BS + j0;
+#pragma unroll
+        for (int t = 0; t < NR; ++t) store_cs(ob + RS * t * BS, acc[u][t]);
+      }
   }
 }
 
-// Block rows a group walks: enough groups for one wave on the card, no more (the occupancy, asked once per
-// kernel, device and shape).
+// Items (block rows of K14, stored blocks of K15) a group walks: enough groups for one wave on the card, no more
+// (the occupancy, asked once per kernel, device and shape).
 template <typename K>
-int spmm_rows(K kernel, int threads, size_t smem, int groups, int nb, int chunks, int* rows) {
+int wave_rows(K kernel, int threads, size_t smem, int groups, int nb, int chunks, int* rows) {
   struct Seen {
     const void* kernel;
     int dev, threads;
@@ -376,7 +485,7 @@ int launch_spmm_bs(const T* blocks, long long block_stride, const int* rowptr, c
   }
   const int groups = warps / P, chunks = (R + vecs - 1) / vecs;
   int rows = 1;
-  int rc = spmm_rows(kernel, 32 * warps, smem, groups, nb, chunks, &rows);
+  int rc = wave_rows(kernel, 32 * warps, smem, groups, nb, chunks, &rows);
   if (rc) return rc;
   const dim3 grid((unsigned)((nb + groups * rows - 1) / (groups * rows)), (unsigned)chunks);
   kernel<<<grid, 32 * warps, smem, stream>>>(blocks, block_stride, rowptr, bcols, tperm, nb, n, x, y, R, vecs, P, S, D,
@@ -432,14 +541,46 @@ int launch_spmm(const T* blocks, long long block_stride, const int* rowptr, cons
                                          P, S, D, aw, xw, smem, st);
 }
 
+template <typename T, int BS, bool PC>
+int launch_outer_bs(const int* brows, const int* bcols, int nblocks, int n, const T* g, const T* x, int R, T* dblocks,
+                    cudaStream_t stream) {
+  constexpr int V = 16 / (int)sizeof(T) < BS * BS / 32 ? 16 / (int)sizeof(T) : BS * BS / 32;
+  const auto kernel = bsr_outer_kernel<T, BS, PC>;
+  const int chains = PC ? R : 1;
+  int run = 1;
+  int rc = wave_rows(kernel, kThreads, 0, kThreads / 32, nblocks, chains, &run);
+  if (rc) return rc;
+  // V-element loads of x where its rows lie on V elements
+  const int xvec = ((unsigned long long)x | ((unsigned long long)n * sizeof(T))) % (V * sizeof(T)) == 0;
+  const long long warps = (nblocks + run - 1) / run;
+  const dim3 grid((unsigned)((warps + kThreads / 32 - 1) / (kThreads / 32)), (unsigned)chains);
+  kernel<<<grid, kThreads, 0, stream>>>(brows, bcols, nblocks, n, g, x, R, run, xvec, dblocks);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int BS>
+int launch_outer_mode(const int* brows, const int* bcols, int nblocks, int n, const T* g, const T* x, int R,
+                      int per_chain, T* dblocks, cudaStream_t stream) {
+  return per_chain ? launch_outer_bs<T, BS, true>(brows, bcols, nblocks, n, g, x, R, dblocks, stream)
+                   : launch_outer_bs<T, BS, false>(brows, bcols, nblocks, n, g, x, R, dblocks, stream);
+}
+
 template <typename T>
 int launch_outer(const int* brows, const int* bcols, int nblocks, int bs, int n, const T* g, const T* x, int R,
                  int per_chain, T* dblocks, void* stream) {
   if (nblocks == 0 || R == 0) return 0;
   if (per_chain && R > 65535) return (int)cudaErrorInvalidValue;
-  bsr_outer_kernel<T><<<dim3(nblocks, per_chain ? R : 1), kThreads, 0, (cudaStream_t)stream>>>(
-      brows, bcols, bs, n, g, x, R, per_chain, dblocks);
-  return (int)cudaGetLastError();
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (bs) {
+    case 8:
+      return launch_outer_mode<T, 8>(brows, bcols, nblocks, n, g, x, R, per_chain, dblocks, st);
+    case 16:
+      return launch_outer_mode<T, 16>(brows, bcols, nblocks, n, g, x, R, per_chain, dblocks, st);
+    case 32:
+      return launch_outer_mode<T, 32>(brows, bcols, nblocks, n, g, x, R, per_chain, dblocks, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace

@@ -3,16 +3,24 @@
 `BlockSets` is static host data: sets of row indices of a dense n × n
 matrix C (flat ``idx`` with offsets ``ptr``), a sign per set, and each
 set's offset into a flat output of Σ size² values. `block_inv` writes
-``sign_s · inv(C[s, s])`` row-major at each set's offset, all sets in one
-ragged launch (``tpu_gmrf/graphical_lasso.py:150-151``, the reference's
-batched ``jnp.linalg.inv`` per size bucket). The inverse is Gauss-Jordan
-with partial pivoting, not a Cholesky inverse: a block need not be
-positive definite.
+``sign_s · inv(C[s, s])`` row-major at each set's offset
+(``tpu_gmrf/graphical_lasso.py:150-151``, the reference's batched
+``jnp.linalg.inv`` per size bucket). The inverse is Gauss-Jordan with
+partial pivoting, not a Cholesky inverse: a block need not be positive
+definite.
+
+The kernel takes the sets largest first, in classes by size
+(`BlockSets.on` builds the plan once per device and dtype): warp (≤ 32
+rows, a warp per set), tile (≤ 96, a block of threads per set holding it in
+registers) and global (beyond shared memory) in one launch; shared (up to
+`block_inv_smem_max`, f64 169, f32 239) in a launch of its own, its shared
+memory sized by its own largest set.
 
 A CPU tensor takes the plain version (the same pivoted Gauss-Jordan in
 batched torch ops, over the sets padded with decoupled identity rows to the
 largest size); a CUDA tensor launches the kernel or raises. Both round every
-operation once, in the same order. ``block_inv.launches`` counts launches.
+operation once, in the same order. ``block_inv.launches`` counts launches
+(one or two a call).
 """
 
 from __future__ import annotations
@@ -26,7 +34,8 @@ from .tridiag import _fn, _on_cuda, _stream
 __all__ = ["BlockSets", "block_inv", "block_inv_plain", "block_inv_smem_max"]
 
 SMEM_OPTIN = 232448  # bytes of shared memory one block may use on an H100 (227 KB, opt-in)
-_STATIC_SMEM = 8 * 32 + 4 * 32 + 64  # the kernel's static shared memory (pivot search)
+_STATIC_SMEM = 8 * 32 + 4 * 32 + 64  # the shared class's static shared memory (pivot search)
+WARP_MAX, TILE_MAX = 32, 96  # the warp and tile classes' largest sets (csrc/block_inv.cu kWarpMax, 16 kRT)
 
 
 def block_inv_smem_max(dtype: torch.dtype) -> int:
@@ -57,18 +66,30 @@ class BlockSets:
     def __len__(self):
         return len(self.sizes)
 
+    def plan(self, dtype) -> dict:
+        """The launch plan: `order`, the sets largest first (ties in set order), cut into the classes
+        global, shared, tile and warp (`counts`, in that order); `smem_s`, the shared class's largest set;
+        `goff`, each global set's offset into the workspace (-1 for the others) and `gtotal` its size."""
+        smax = block_inv_smem_max(dtype)
+        order = np.argsort(-self.sizes, kind="stable")
+        s = self.sizes[order]
+        bounds = (np.inf, smax, TILE_MAX, WARP_MAX, 0)  # class c holds the sets of bounds[c+1] < s <= bounds[c]
+        counts = [int(((s > lo) & (s <= hi)).sum()) for hi, lo in zip(bounds, bounds[1:])]
+        glob = self.sizes > smax
+        goff = np.where(glob, np.cumsum(np.where(glob, self.sizes, 0)) - self.sizes, -1)
+        return dict(order=order, counts=counts, smem_s=int(s[counts[0]]) if counts[1] else 0, goff=goff,
+                    gtotal=int(self.sizes[glob].sum()))
+
     def on(self, device, dtype) -> dict:
         key = (str(device), dtype)
         t = self._dev.get(key)
         if t is None:
-            smax = block_inv_smem_max(dtype)
-            glob = self.sizes > smax
-            goff = np.where(glob, np.cumsum(np.where(glob, self.sizes, 0)) - self.sizes, -1)
+            p = self.plan(dtype)
             i32 = lambda a: torch.as_tensor(a, dtype=torch.int32, device=device)
             i64 = lambda a: torch.as_tensor(a, dtype=torch.long, device=device)
-            t = dict(idx=i32(self.idx), ptr=i64(self.ptr), out_off=i64(self.out_off), goff=i64(goff),
-                     sign=torch.as_tensor(self.signs, dtype=dtype, device=device),
-                     gtotal=int(self.sizes[glob].sum()), smax=int(self.sizes[~glob].max(initial=0)))
+            t = dict(idx=i32(self.idx), ptr=i64(self.ptr), out_off=i64(self.out_off), goff=i64(p["goff"]),
+                     order=i32(p["order"]), sign=torch.as_tensor(self.signs, dtype=dtype, device=device),
+                     counts=p["counts"], smem_s=p["smem_s"], gtotal=p["gtotal"])
             self._dev[key] = t
         return t
 
@@ -121,13 +142,15 @@ def block_inv(C: torch.Tensor, sets: BlockSets) -> torch.Tensor:
     out = C.new_empty(sets.total)
     gf = C.new_empty(max(t["gtotal"], 1))
     gperm = torch.empty(max(t["gtotal"], 1), dtype=torch.int32, device=C.device)
+    counts = t["counts"]
     code = _fn("tg_block_inv", C.dtype)(
         C.data_ptr(), C.shape[0], t["idx"].data_ptr(), t["ptr"].data_ptr(), t["out_off"].data_ptr(),
-        t["sign"].data_ptr(), out.data_ptr(), t["goff"].data_ptr(), gf.data_ptr(), gperm.data_ptr(), len(sets),
-        t["smax"], _stream(C),
+        t["sign"].data_ptr(), out.data_ptr(), t["goff"].data_ptr(), gf.data_ptr(), gperm.data_ptr(),
+        t["order"].data_ptr(), *counts, t["smem_s"], _stream(C),
     )
-    build.check(code, "block_inv", f" at {len(sets)} sets of size <= {int(sets.sizes.max(initial=0))} {C.dtype}")
-    block_inv.launches += 1
+    build.check(code, "block_inv", f" at {len(sets)} sets of size <= {int(sets.sizes.max(initial=0))} "
+                f"(classes global, shared, tile, warp: {counts}) {C.dtype}")
+    block_inv.launches += (counts[1] > 0) + (counts[0] + counts[2] + counts[3] > 0)
     return out
 
 

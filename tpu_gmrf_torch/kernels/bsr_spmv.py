@@ -17,7 +17,9 @@ A CPU tensor takes the plain versions (gather, ``einsum``, ``index_add_``,
 as the reference); a CUDA tensor launches the kernels or raises.
 ``bsr_spmm.launches`` and ``bsr_outer.launches`` count the launches. K14
 streams the stored blocks through rings in shared memory, a group of warps
-walking a run of block rows; `spmm_launch` gives its split.
+walking a run of block rows; `spmm_launch` gives its split. K15 gives a
+warp a run of consecutive stored blocks and writes each block once, its
+lanes holding the block row's g values while the row lasts.
 """
 
 from __future__ import annotations

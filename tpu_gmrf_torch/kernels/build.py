@@ -97,8 +97,9 @@ _SIGNATURES = {
     "tg_kl_columns": [_P, _P, _P, _I, _D, _P, _P, _P, _I, _I, _P],
     # cluster size, out: how many such clusters of K16's cluster path the card holds
     "tg_kl_fit": [_I, ctypes.POINTER(_I)],
-    # C, n, idx, ptr, out_off, sign, out, goff, gf, gperm, nsets, smax, stream
-    "tg_block_inv": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    # C, n, idx, ptr, out_off, sign, out, goff, gf, gperm, order, the classes' sizes (global, shared, tile, warp),
+    # the shared class's largest set, stream
+    "tg_block_inv": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 _lib = None
