@@ -142,11 +142,29 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    and supernodal_factorize(mesh=) on it at n=5741;
 18. fault 3.1: d/dτ through the direct solves on the card (a sum-to-zero
    ConstrainedGMRF's logpdf on every direct backend; linear_condition's mean
-   at the KL n=900 setup), against the plain path and a difference, f64.
+   at the KL n=900 setup), against the plain path and a difference, f64;
+19. constrained Laplace (bench_micro's GA row, bench.py:395-406): the
+   Laplace marginal and its τ-gradient of RW1(500) + Poisson over 256
+   chains in float32 (K1-K3 through the KKT-projected Newton mode and its
+   IFT backward), against the float64 plain and kernel paths, with the
+   float32 plain path's own distance beside it; RW2(500) (two constraints,
+   auto -> dense, K9/K10) over 8 chains in float64; every mode on A x = e;
+20. the areal models at example 08's size (the 100x100 grid, N=10,000):
+   BesagModel's construction (its normalization on the card), Besag +
+   Poisson value+grad over 4 chains and BYM2 (n=20,000) logpdf with its
+   (τ, φ) gradient, f64, auto -> banded (K11/K12, K8), against the plain
+   path on CPU tensors; example 08's τ-profile (50 τ through
+   make_workspace_pool(...).batch_evaluate, batch_size 10) in float32 and
+   float64 against its golden anchor;
+21. examples 01, 02 and 05 with their seeded inputs, in float32 and float64,
+   against their golden literals (tools/golden_values.py); example 05's
+   forecast RMSE, which depends on the JAX package's draw, is printed and
+   not held.
 
 Every kernel's launch counter is zeroed just before each main path (phases
 4-5, the flagship; 7-8, the spatial slice; 9, 10 and 11) and read after
-it, and so before and after each of the paths 12, 13, 13b, 14, 15, 16, 17 and 18;
+it, and so before and after each of the paths 12, 13, 13b, 14, 15, 16, 17, 18,
+19, 20 and 21;
 a kernel of the path that was never launched fails the run. Each phase's
 seconds are printed when the next begins. The line before the last is one
 JSON object with the kernels' launches, errors, times and bounds; the last
@@ -405,6 +423,53 @@ SPIKE_TOL = {"x": 1e-9, "residual": 1e-9, "logdet": 1e-10, "grad": 1e-9, "public
 FAULT_TOL = {"grad": 1e-8, "kl_fwd": 1e-8, "kl_cd": 1e-8}
 FAULT_KERNELS = ("tridiag_factor", "tridiag_solve", "dense_chol", "dense_trsv", "bt_factor", "bt_trsv", "fct_init",
                  "sn_panel", "sn_trsv", "gather_segsum")
+
+
+# Phase 19: constrained Laplace. bench_micro's GA row (bench.py:395-406): RW1Model(500), Poisson counts
+# rng(1).poisson(1.0, 500), GAOptions(max_iter=25), here with 256 chains whose τ is log-spaced over [0.5, 2];
+# RW2Model(500) (two constraints; auto -> dense, K9/K10) with 8 chains in float64. The float64 kernel path is
+# held to the float64 plain path (CPU tensors) with SLICE_TOL's f64 bounds. RW1 + its 1e-5 ridge has a prior
+# condition near 1e5-1e6, so the float32 logdet is rounding-limited whatever computes it: the float32 kernel
+# path is held to at most CON_F32_FACTOR times the float32 plain path's distance from the float64 plain path
+# (the same inputs, CPU tensors) plus CON_F32_FLOOR, a bound that describes the problem, not the port; both
+# readings are printed. Every chain's mode satisfies A x* = e to CON_CONSTRAINT_TOL (float64).
+CON_N, CON_CHAINS, CON_RW2_CHAINS = 500, 256, 8
+CON_F32_FACTOR, CON_F32_FLOOR, CON_CONSTRAINT_TOL = 2.0, 1e-6, 1e-6
+CON_KERNELS = ("tridiag_factor", "tridiag_solve", "tridiag_selinv", "csr_spmv", "gather_segsum", "dense_chol",
+               "dense_trsv", "dense_selinv")
+# Phase 20: example 08's areal workload (examples/08_factorization_reuse.py: BesagModel on the 100x100 grid
+# adjacency, N = 10,000; BASELINE.md:20). Besag + Poisson value+grad over 4 chains (τ 0.5-2, counts from a
+# smooth log-rate field, seed 8) and BYM2 (n = 20,000) logpdf with its (τ, φ) gradient over 4 chains, float64,
+# against the plain path on CPU tensors with SLICE_TOL's f64 bounds; then example 08's τ-profile: 50 τ in
+# [0.5, 2] through make_workspace_pool(...).batch_evaluate(..., batch_size=10), float32 as the example runs it
+# and float64, held to the example's anchor (examples/08_factorization_reuse.py:86-103, tools/golden_values.py:249:
+# q = zᵀQ(1)z = 41329.223752, c1 = (N-1)/2, |Δlp − pred| ≤ 2.0 + 2.5e-3·|pred|, argmax at the first τ) and its
+# first 4 τs against a fresh model(tau=t).logpdf(z) each, rtol 2e-4 (its line 80).
+AREAL_GRID, AREAL_CHAINS = 100, 4
+EX08_TAUS, EX08_BATCH, EX08_Q = 50, 10, 41329.223752
+EX08_LIMITS = {"abs": 2.0, "rel": 2.5e-3, "cold": 2e-4}
+# the backend's kernels are added to these once `auto` has resolved (banded: K11/K12; supernodal: K5-K7)
+AREAL_KERNELS = ("csr_spmv", "gather_segsum", "sn_takahashi_prep", "sn_takahashi")
+BACKEND_KERNELS = {"banded": ("bt_factor", "bt_trsv"), "supernodal": ("fct_init", "sn_panel", "sn_trsv"),
+                   "dense": ("dense_chol", "dense_trsv")}
+# Phase 21: examples 01, 02 and 05 with their seeded inputs copied exactly, float32 as the examples run and
+# float64, held to their golden literals (value, limit, where): the literals are scipy float64 oracles
+# (tools/golden_values.py), so the card needs no JAX. Example 05's forecast RMSE is not held: its x is the
+# JAX package's draw (examples/05_autoregressive_models.py:27, tools/golden_values.py:210), and the port's
+# draws differ; what does not depend on x is held (the two bands, the AR1 interior variance).
+GOLDEN = {
+    "ex01 AR1 rmse": (0.078080, 2e-3, "examples/01_getting_started.py:49, tools/golden_values.py:35"),
+    "ex01 AR1 mean std": (0.723701, 5e-3, "examples/01_getting_started.py:50, tools/golden_values.py:35"),
+    "ex01 Matern fit rmse": (0.004299, 2e-3, "examples/01_getting_started.py:70, tools/golden_values.py:58"),
+    "ex01 Matern mean std": (0.494114, 1e-2, "examples/01_getting_started.py:71, tools/golden_values.py:58"),
+    "ex02 fit rmse": (0.021820, 2e-3, "examples/02_spatial_modelling_spdes.py:56, tools/golden_values.py:169"),
+    "ex02 oos rmse": (0.102026, 8e-3, "examples/02_spatial_modelling_spdes.py:57, tools/golden_values.py:169"),
+    "ex02 mean std": (0.497823, 5e-3, "examples/02_spatial_modelling_spdes.py:58, tools/golden_values.py:169"),
+    "ex05 band[150]": (1.002574, 1e-2, "examples/05_autoregressive_models.py:55, tools/golden_values.py:199"),
+    "ex05 band[-1]": (2.649064, 3e-2, "examples/05_autoregressive_models.py:56, tools/golden_values.py:199"),
+}
+EXAMPLE_KERNELS = ("tridiag_factor", "tridiag_solve", "tridiag_selinv", "csr_spmv", "gather_segsum", "dense_chol",
+                   "dense_trsv", "dense_selinv")
 
 
 def rbmc_tol(S: int) -> dict:
@@ -3465,6 +3530,340 @@ def fault_path(dev, card):
     return counts
 
 
+# ---- phases 19-21: constrained Laplace, the areal models, the examples' golden values ----------------------
+
+
+def grid_adjacency(m: int, n: int):
+    """Example 08's four-neighbour grid adjacency (examples/08_factorization_reuse.py:32-43)."""
+    import scipy.sparse as sp
+
+    idx = np.arange(m * n).reshape(n, m)
+    pairs = np.concatenate([np.stack([idx[:, :-1].ravel(), idx[:, 1:].ravel()], 1),
+                            np.stack([idx[:-1, :].ravel(), idx[1:, :].ravel()], 1)])
+    W = sp.csr_matrix((np.ones(len(pairs)), (pairs[:, 0], pairs[:, 1])), shape=(m * n, m * n))
+    return W + W.T
+
+
+def marginal_vg(model, y, theta: dict, opts):
+    """Laplace marginal (B,) and its θ-gradient (B, k) in the model's hyperparameter order."""
+    import tpu_gmrf_torch as tg
+
+    th = {k: v.detach().clone().requires_grad_() for k, v in theta.items()}
+    v = tg.laplace_marginal(model, tg.ExponentialFamily("poisson"), y, th, options=opts)
+    v.sum().backward()
+    return v.detach(), torch.stack([th[k].grad for k in model.hyperparameters], -1)
+
+
+def on(theta: dict, dtype, device) -> dict:
+    return {k: torch.as_tensor(v, dtype=dtype, device=device) for k, v in theta.items()}
+
+
+def ga_iterations(model, y, theta: dict, opts) -> int:
+    """Newton iterations of the slowest chain, counted from the loop's verbose lines."""
+    import contextlib
+    import io
+
+    import tpu_gmrf_torch as tg
+
+    out = io.StringIO()
+    with torch.no_grad(), contextlib.redirect_stdout(out):
+        tg.laplace_marginal(model, tg.ExponentialFamily("poisson"), y, theta,
+                            options=dataclasses.replace(opts, verbose=True))
+    return sum(line.startswith("newton it=") for line in out.getvalue().splitlines())
+
+
+def mode_residual(model, y, theta: dict, opts) -> float:
+    """max |A x* − e| over the chains of the constrained Laplace mode."""
+    import tpu_gmrf_torch as tg
+
+    with torch.no_grad():
+        prior = model(**theta)
+        post = tg.gaussian_approximation(prior, tg.ExponentialFamily("poisson")(torch.as_tensor(
+            y, dtype=prior.A.dtype, device=prior.A.device)), options=opts)
+        return float((post.mean @ prior.A.T - prior.e).abs().max())
+
+
+def hold_f64(label, got, ref, chains, tol=SLICE_TOL):
+    """The float64 kernel path against the float64 plain path (value, per-chain gradient)."""
+    v_rel, g_rel, per_chain = slice_errors(*got, *ref)
+    log(f"  {label} f64 kernels vs f64 plain: value max rel {v_rel:.3e} (tol {tol['f64_value']:.0e}), grad max rel "
+        f"{g_rel:.3e} (tol {tol['f64_grad']:.0e}){per_chain}")
+    if not (got[0].shape == (chains,) and torch.isfinite(got[0]).all() and torch.isfinite(got[1]).all()
+            and v_rel <= tol["f64_value"] and g_rel <= tol["f64_grad"]):
+        raise AssertionError(f"{label}: the float64 kernel path disagrees with the plain path")
+
+
+def constrained_path(dev, card):
+    """Phase 19: the constrained Laplace marginal and its τ-gradient on RW1(500) (tridiagonal, K1-K3) over 256
+    chains in float32, and on RW2(500) (two constraints, auto -> dense, K9/K10) over 8 chains in float64."""
+    import tpu_gmrf_torch as tg
+    from tpu_gmrf_torch import kernels
+
+    y = np.random.default_rng(1).poisson(1.0, size=CON_N).astype(np.float32)  # bench.py:395-396
+    rw1, rw2 = tg.RW1Model(CON_N), tg.RW2Model(CON_N)
+    opts = tg.GAOptions(max_iter=GA_MAX_ITER)
+    th1 = {"tau": np.logspace(np.log10(0.5), np.log10(2.0), CON_CHAINS)}
+    th2 = {"tau": np.logspace(np.log10(0.5), np.log10(2.0), CON_RW2_CHAINS)}
+    kernels.reset_launches()
+    # ---- the constrained Laplace path: RW1 f32 value+grad (first call, then timed), RW2 f64 ----
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    v32, g32 = marginal_vg(rw1, y, on(th1, torch.float32, dev), opts)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    reps = 3
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        marginal_vg(rw1, y, on(th1, torch.float32, dev), opts)
+    torch.cuda.synchronize()
+    vg_ms = (time.perf_counter() - t0) / reps * 1e3
+    t0 = time.perf_counter()
+    rw2_k = marginal_vg(rw2, y, on(th2, torch.float64, dev), opts)
+    torch.cuda.synchronize()
+    rw2_ms = (time.perf_counter() - t0) * 1e3
+    counts = kernels.launches()
+    # ---- end of the constrained Laplace path ----
+    launched(counts, CON_KERNELS, "constrained Laplace")
+    iters = ga_iterations(rw1, y, on(th1, torch.float32, dev), opts)
+    log(f"  RW1({CON_N}) + Poisson, {CON_CHAINS} chains, f32: value+grad first call {first_s:.3f} s, then "
+        f"{vg_ms:.2f} ms per batched value+grad; Newton iterations (slowest chain) {iters}; RW2({CON_N}) f64, "
+        f"{CON_RW2_CHAINS} chains: {rw2_ms:.1f} ms (one call, auto -> {tg.SolverSpec().resolve(rw2.precision(tau=1.0).pattern).kind}); "
+        f"on {card}")
+    t0 = time.perf_counter()
+    ref = marginal_vg(rw1, y, on(th1, torch.float64, "cpu"), opts)
+    plain_s = time.perf_counter() - t0
+    ref32 = marginal_vg(rw1, y, on(th1, torch.float32, "cpu"), opts)
+    hold_f64(f"RW1({CON_N})", marginal_vg(rw1, y, on(th1, torch.float64, dev), opts), ref, CON_CHAINS)
+    k_v, k_g, _ = slice_errors(v32, g32, *ref)
+    p_v, p_g, _ = slice_errors(*ref32, *ref)
+    kp_v, kp_g, _ = slice_errors(v32, g32, *ref32)
+    bound_v, bound_g = CON_F32_FACTOR * p_v + CON_F32_FLOOR, CON_F32_FACTOR * p_g + CON_F32_FLOOR
+    log(f"  RW1({CON_N}) f32 kernels vs f64 plain: value max rel {k_v:.3e} (bound {bound_v:.3e}), grad max rel "
+        f"{k_g:.3e} (bound {bound_g:.3e}); f32 plain (CPU tensors, same inputs) vs f64 plain: value {p_v:.3e}, grad "
+        f"{p_g:.3e}; f32 kernels vs f32 plain: value {kp_v:.3e}, grad {kp_g:.3e}; the f64 plain path took "
+        f"{plain_s:.1f} s on the host CPU")
+    if not (torch.isfinite(v32).all() and torch.isfinite(g32).all() and k_v <= bound_v and k_g <= bound_g):
+        raise AssertionError("RW1 constrained slice: the float32 kernel path is farther from float64 than f32 allows")
+    hold_f64(f"RW2({CON_N})", rw2_k, marginal_vg(rw2, y, on(th2, torch.float64, "cpu"), opts), CON_RW2_CHAINS)
+    for label, model, th in (("RW1", rw1, th1), ("RW2", rw2, th2)):
+        res = mode_residual(model, y, on(th, torch.float64, dev), opts)
+        log(f"  {label}({CON_N}) f64 Laplace modes: max |A x* - e| {res:.3e} (tol {CON_CONSTRAINT_TOL:.0e})")
+        if not res <= CON_CONSTRAINT_TOL:
+            raise AssertionError(f"{label}: the constrained mode leaves the constraint")
+    return counts
+
+
+def areal_y(n_side: int) -> np.ndarray:
+    """Seeded counts from a smooth log-rate field on the grid's nodes (seed 8)."""
+    g = np.linspace(0.0, 1.0, n_side)
+    gx, gy = np.meshgrid(g, g)
+    rate = np.exp(0.8 * np.sin(2 * np.pi * gx) * np.cos(np.pi * gy)).ravel()
+    return np.random.default_rng(8).poisson(rate).astype(np.float64)
+
+
+def ex08_profile(pool, model, z, taus, dtype, dev) -> dict:
+    """Example 08's τ-profile through the pool (batch_size 10) and its anchor checks."""
+    zt = torch.as_tensor(z, dtype=dtype, device=dev)
+    t0 = time.perf_counter()
+    lps = pool.batch_evaluate(lambda g: g.logpdf(zt), batch_size=EX08_BATCH,
+                              tau=torch.as_tensor(taus, dtype=dtype, device=dev))
+    lps = lps.double().cpu().numpy()
+    warm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cold = np.array([float(model(tau=torch.as_tensor(t, dtype=dtype, device=dev)).logpdf(zt)) for t in taus[:4]])
+    cold_s = time.perf_counter() - t0
+    N = len(z)
+    pred = (N - 1) / 2.0 * np.log(taus / taus[0]) - 0.5 * (taus - taus[0]) * EX08_Q
+    resid = np.abs((lps - lps[0]) - pred)
+    excess = float(np.max(resid - (EX08_LIMITS["abs"] + EX08_LIMITS["rel"] * np.abs(pred))))
+    cold_rel = float(np.max(np.abs(lps[:4] - cold) / np.abs(cold)))
+    return dict(lps=lps, warm_s=warm_s, cold_s=cold_s, resid=float(resid.max()), excess=excess, cold_rel=cold_rel,
+                argmax=int(np.argmax(lps)))
+
+
+def areal_path(dev, card):
+    """Phase 20: Besag + Poisson and BYM2 at example 08's N = 10,000, and example 08's τ-profile."""
+    import tpu_gmrf_torch as tg
+    from tpu_gmrf_torch import kernels
+
+    W = grid_adjacency(AREAL_GRID, AREAL_GRID)
+    N = W.shape[0]
+    t0 = time.perf_counter()
+    besag = tg.BesagModel(W)
+    besag_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bym2 = tg.BYM2Model(W)
+    bym2_s = time.perf_counter() - t0
+    kind = tg.SolverSpec().resolve(besag.precision(tau=torch.tensor(1.0, dtype=torch.float64)).pattern).kind
+    kind2 = tg.SolverSpec().resolve(bym2.precision(tau=torch.tensor(1.0, dtype=torch.float64),
+                                                   phi=torch.tensor(0.5, dtype=torch.float64)).pattern).kind
+    log(f"  BesagModel on the {AREAL_GRID}x{AREAL_GRID} grid (N={N}): constructed in {besag_s:.2f} s (host clock, "
+        f"its normalization on the card by auto -> {besag.normalization_backend}, f64), norms "
+        f"[{besag._norms.min():.6f}, {besag._norms.max():.6f}]; BYM2Model (n={bym2.n}) in {bym2_s:.2f} s; on {card}")
+    y = areal_y(AREAL_GRID)
+    th_b = {"tau": np.linspace(0.5, 2.0, AREAL_CHAINS)}
+    th_m = {"tau": np.linspace(0.5, 2.0, AREAL_CHAINS), "phi": np.linspace(0.2, 0.8, AREAL_CHAINS)}
+    rng = np.random.default_rng(9)
+    xb = rng.normal(size=(AREAL_CHAINS, bym2.n))
+    xb[:, :N] -= xb[:, :N].mean(-1, keepdims=True)  # on the constraint: the spatial half sums to zero
+    opts = tg.GAOptions(max_iter=GA_MAX_ITER)
+    z = np.random.default_rng(42).normal(size=N)
+    z -= z.mean()  # example 08's z: on the sum-to-zero constraint
+    taus = np.linspace(0.5, 2.0, EX08_TAUS)
+
+    def bym2_vg(theta, x):
+        th = {k: v.detach().clone().requires_grad_() for k, v in theta.items()}
+        lp = bym2(**th).logpdf(torch.as_tensor(x, dtype=th["tau"].dtype, device=th["tau"].device))
+        lp.sum().backward()
+        return lp.detach(), torch.stack([th["tau"].grad, th["phi"].grad], -1)
+
+    pool = tg.make_workspace_pool(besag, tau=float(taus[0]))
+    kernels.reset_launches()
+    # ---- the areal path: Besag + Poisson value+grad, BYM2 logpdf+grad, example 08's profile (f32, f64) ----
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    besag_k = marginal_vg(besag, y, on(th_b, torch.float64, dev), opts)
+    torch.cuda.synchronize()
+    besag_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    besag_k2 = marginal_vg(besag, y, on(th_b, torch.float64, dev), opts)
+    torch.cuda.synchronize()
+    besag_ms2 = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    bym2_k = bym2_vg(on(th_m, torch.float64, dev), xb)
+    torch.cuda.synchronize()
+    bym2_ms = (time.perf_counter() - t0) * 1e3
+    prof = {dt: ex08_profile(pool, besag, z, taus, dt, dev) for dt in (torch.float32, torch.float64)}
+    counts = kernels.launches()
+    # ---- end of the areal path ----
+    launched(counts, AREAL_KERNELS + BACKEND_KERNELS[kind] + BACKEND_KERNELS[kind2], "areal")
+    iters = ga_iterations(besag, y, on(th_b, torch.float64, dev), opts)
+    log(f"  Besag + Poisson, N={N}, {AREAL_CHAINS} chains, f64, auto -> {kind}: value+grad {besag_ms:.1f} ms first "
+        f"call, {besag_ms2:.1f} ms second; Newton iterations {iters}; BYM2 (n={bym2.n}, auto -> {kind2}) logpdf + "
+        f"(τ, φ) gradient {bym2_ms:.1f} ms; on {card}")
+    if not bool((besag_k[0] == besag_k2[0]).all()):
+        raise AssertionError("Besag: two value+grads of the same θ differ")
+    t0 = time.perf_counter()
+    hold_f64(f"Besag N={N}", besag_k, marginal_vg(besag, y, on(th_b, torch.float64, "cpu"), opts), AREAL_CHAINS)
+    plain_s = time.perf_counter() - t0
+    hold_f64(f"BYM2 n={bym2.n} logpdf", bym2_k, bym2_vg(on(th_m, torch.float64, "cpu"), xb), AREAL_CHAINS)
+    log(f"  (the plain Besag value+grad on CPU tensors took {plain_s:.1f} s on the host CPU)")
+    for dt, r in prof.items():
+        log(f"  example 08 {dtype_name(dt)}: {EX08_TAUS} τ in batches of {EX08_BATCH} in {r['warm_s']:.3f} s, 4 fresh "
+            f"model(tau=t).logpdf(z) in {r['cold_s']:.3f} s; max |Δlp − pred| {r['resid']:.4f} (limit 2.0 + 2.5e-3·|pred|, "
+            f"max excess {r['excess']:.4f}), warm vs cold max rel {r['cold_rel']:.2e} (rtol {EX08_LIMITS['cold']:.0e}), "
+            f"argmax τ {taus[r['argmax']]:.3f}; on {card}")
+        if not (np.isfinite(r["lps"]).all() and r["excess"] <= 0 and r["cold_rel"] <= EX08_LIMITS["cold"]
+                and r["argmax"] == 0):
+            raise AssertionError(f"example 08 ({dtype_name(dt)}) misses its golden anchor")
+    return counts
+
+
+def as_dtype(A, dtype):
+    from tpu_gmrf_torch.sparse import SparseMatrix
+
+    return SparseMatrix(A.data.to(dtype), A.pattern)
+
+
+def run_examples(dtype, dev) -> dict:
+    """Examples 01, 02 and 05 as written, in `dtype` (their seeded inputs copied exactly)."""
+    import scipy.sparse as sp
+
+    import tpu_gmrf_torch as tg
+
+    def t(v):
+        return torch.tensor(v, dtype=dtype, device=dev)
+
+    def rmse(a, b):
+        return float(np.sqrt(np.mean((np.asarray(a, np.float64) - np.asarray(b, np.float64)) ** 2)))
+
+    cpu = lambda v: v.double().cpu().numpy()
+    out = {}
+    # example 01: AR1 temporal smoothing, then a Matérn field from scattered points (the same stream)
+    rng = np.random.default_rng(0)
+    n = 365
+    prior = tg.AR1Model(n)(tau=t(2.0), rho=t(0.95))
+    obs_idx = np.arange(0, n, 7)
+    truth = np.sin(np.linspace(0, 6 * np.pi, n))
+    y = truth[obs_idx] + 0.1 * rng.standard_normal(len(obs_idx))
+    A = as_dtype(tg.from_scipy(sp.eye(n).tocsr()[obs_idx]), dtype)
+    post = tg.linear_condition(prior, y, Q_eps=1.0 / 0.1**2, A=A)
+    out["ex01 AR1 rmse"] = rmse(cpu(post.mean), truth)
+    out["ex01 AR1 mean std"] = float(post.std().mean())
+    pts = rng.uniform(0, 1, size=(80, 2))
+    smodel = tg.MaternModel(pts, smoothness=1)
+    x = smodel(tau=t(1.0), range=t(0.3))
+    Aev = as_dtype(smodel.evaluation_matrix(), dtype)
+    ys = np.cos(4 * pts[:, 0]) + 0.05 * rng.standard_normal(80)
+    spost = tg.linear_condition(x, ys, Q_eps=1.0 / 0.05**2, A=Aev)
+    out["ex01 Matern fit rmse"] = rmse(cpu(Aev.matvec(spost.mean)), ys)
+    out["ex01 Matern mean std"] = float(spost.std().mean())
+    # example 02: Matérn regression on 120 sites, out-of-sample on an 8x8 grid
+    rng = np.random.default_rng(42)
+    sites = rng.uniform(0, 2, size=(120, 2))
+    truth2 = lambda p: np.sin(2.5 * p[:, 0]) * np.cos(1.5 * p[:, 1])
+    y2 = truth2(sites) + 0.1 * rng.standard_normal(len(sites))
+    model2 = tg.MaternModel(sites, smoothness=1)
+    A2 = as_dtype(model2.evaluation_matrix(), dtype)
+    post2 = tg.linear_condition(model2(tau=t(1.0), range=t(0.5)), y2, Q_eps=1.0 / 0.1**2, A=A2)
+    gx, gy = np.meshgrid(np.linspace(0.2, 1.8, 8), np.linspace(0.2, 1.8, 8))
+    newpts = np.stack([gx.ravel(), gy.ravel()], axis=1)
+    out["ex02 fit rmse"] = rmse(cpu(A2.matvec(post2.mean)), y2)
+    out["ex02 oos rmse"] = rmse(cpu(as_dtype(model2.evaluation_matrix(newpts), dtype).matvec(post2.mean)),
+                                truth2(newpts))
+    out["ex02 mean std"] = float(post2.std().mean())
+    # example 05: AR(2) by its PACFs, the first 150 values observed; the AR1(400) interior variance
+    rng = np.random.default_rng(3)
+    n5 = 200
+    model5 = tg.ARModel(n5, order=2)
+    prior5 = model5(tau=t(1.0), pacf1=t(0.9), pacf2=t(-0.5))
+    x5 = cpu(prior5.sample(torch.Generator(device=dev).manual_seed(0)))
+    obs = np.arange(150)
+    y5 = x5[obs] + 0.05 * rng.standard_normal(len(obs))
+    post5 = tg.linear_condition(prior5, y5, Q_eps=1.0 / 0.05**2, A=as_dtype(tg.from_scipy(sp.eye(n5).tocsr()[obs]),
+                                                                             dtype))
+    band = cpu(post5.std())
+    out["ex05 band[150]"], out["ex05 band[-1]"] = float(band[150]), float(band[-1])
+    out["ex05 forecast rmse (not held)"] = rmse(cpu(post5.mean)[150:160], x5[150:160])
+    out["ex05 AR1 var[200]"] = float(tg.AR1Model(400)(tau=t(2.0), rho=t(0.7)).var()[200])
+    return out
+
+
+def examples_path(dev, card):
+    """Phase 21: examples 01, 02 and 05 against their golden literals, float32 and float64."""
+    from tpu_gmrf_torch import kernels
+
+    kernels.reset_launches()
+    # ---- the examples' path ----
+    times, got = {}, {}
+    for dt in (torch.float32, torch.float64):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got[dt] = run_examples(dt, dev)
+        torch.cuda.synchronize()
+        times[dt] = time.perf_counter() - t0
+    counts = kernels.launches()
+    # ---- end of the examples' path ----
+    launched(counts, EXAMPLE_KERNELS, "examples")
+    closed = 1 / (2 * (1 - 0.49))
+    bad = []
+    for dt, vals in got.items():
+        log(f"  {dtype_name(dt)} examples 01, 02, 05 in {times[dt]:.2f} s on {card}:")
+        for key, (gold, lim, where) in GOLDEN.items():
+            ok = abs(vals[key] - gold) < lim
+            bad += [] if ok else [f"{dtype_name(dt)} {key}"]
+            log(f"    {key} {vals[key]:.6f}, golden {gold:.6f} ± {lim:g} ({where}): {'ok' if ok else 'MISSED'}")
+        v = vals["ex05 AR1 var[200]"]
+        ok = abs(v - closed) < 1e-2 * closed
+        bad += [] if ok else [f"{dtype_name(dt)} AR1 variance"]
+        log(f"    ex05 AR1(400) interior variance {v:.6f}, closed form 1/(τ(1-ρ²)) {closed:.6f} within 1%: "
+            f"{'ok' if ok else 'MISSED'}; forecast rmse on the port's own draw {vals['ex05 forecast rmse (not held)']:.4f} "
+            f"(not held: the golden 1.085257 is on the JAX package's draw)")
+    if bad:
+        raise AssertionError(f"golden values missed: {bad}")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3709,9 +4108,17 @@ def main() -> int:
     counts17 = spike_path(dn_model, sp_model, dev, card)
     log(f"phase 18 fault 3.1: gradients through the direct solves, f64, on {card}")
     counts18 = fault_path(dev, card)
+    log(f"phase 19 constrained Laplace: RW1({CON_N}) + Poisson, {CON_CHAINS} chains, f32; RW2({CON_N}), "
+        f"{CON_RW2_CHAINS} chains, f64; on {card}")
+    counts19 = constrained_path(dev, card)
+    log(f"phase 20 areal models at example 08's size: Besag and BYM2 on the {AREAL_GRID}x{AREAL_GRID} grid, "
+        f"example 08's τ-profile, on {card}")
+    counts20 = areal_path(dev, card)
+    log(f"phase 21 the examples' golden values: 01, 02 and 05, f32 and f64, on {card}")
+    counts21 = examples_path(dev, card)
 
     paths = (counts, sp_counts, counts9, counts10, counts11, counts12, counts13, counts13b, counts14, counts15,
-             counts16, counts17, counts18)
+             counts16, counts17, counts18, counts19, counts20, counts21)
     report = {
         "kernels": [
             {"name": name, "route": "cuda", "source": SOURCES[name][0], "replaces": SOURCES[name][1],

@@ -417,20 +417,17 @@ def test_port_never_imports_jax():
     assert offenders == []
 
 
-# The reference's public names that the port does not have yet; each waits for its slice of ROADMAP queue 1
-# (items 2-6). The list shrinks as those land.
+# The reference's public names that the port does not have yet; each waits for its slice of ROADMAP queue 1.
+# The list shrinks as those land.
 UNPORTED_NAMES = {
-    "ADJacobianMap", "AdvectionDiffusionSPDE", "AutoDiffLatentPrior", "AutoDiffObservationModel", "BYM2Model",
-    "BesagModel", "CARModel", "CombinedModel", "CompositeObservationModel", "FactorGroup", "FixedEffectsModel",
-    "GMRFMetadata", "GMRFWorkspace", "IIDModel", "IntervalMesh", "LatentPrior",
-    "LinearlyTransformedObservationModel", "MetaGMRF", "NonlinearLeastSquaresModel", "ParameterizedMatrix",
-    "ParameterizedOffset", "RW1Model", "RW2Model", "RWModel", "SeparableModel", "SpatiotemporalGMRF",
-    "StructuredLatentPrior", "WorkspacePool", "ZeroLikelihood", "adjacency_from_shapefile",
-    "conditional_distribution", "conditional_predictive_ordinates", "contiguity_adjacency",
-    "create_inflated_rectangle", "detect_hessian_pattern", "generate_car_model", "hoist_jit", "interval_mesh",
-    "joint_gmrf", "kronecker_product_spatiotemporal_model", "linear_predictor_marginals", "make_workspace",
-    "make_workspace_pool", "product_matern", "read_shapefile_polygons", "run_advi", "run_smc", "sp_block_diag",
-    "sp_kron", "sparse_hessian_map", "sparse_jacobian_map", "spatial_to_spatiotemporal", "waic",
+    "ADJacobianMap", "AdvectionDiffusionSPDE", "AutoDiffLatentPrior", "AutoDiffObservationModel",
+    "CompositeObservationModel", "FactorGroup", "IntervalMesh", "LatentPrior",
+    "LinearlyTransformedObservationModel", "NonlinearLeastSquaresModel", "ParameterizedMatrix",
+    "ParameterizedOffset", "SpatiotemporalGMRF", "StructuredLatentPrior", "ZeroLikelihood",
+    "adjacency_from_shapefile", "conditional_distribution", "contiguity_adjacency", "create_inflated_rectangle",
+    "detect_hessian_pattern", "hoist_jit", "interval_mesh", "kronecker_product_spatiotemporal_model",
+    "product_matern", "read_shapefile_polygons", "run_advi", "run_smc", "sparse_hessian_map", "sparse_jacobian_map",
+    "spatial_to_spatiotemporal",
 }
 
 

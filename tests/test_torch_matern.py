@@ -119,8 +119,9 @@ def test_matern_precision_matches_reference(mesh10, alpha, bc):
 def test_constrained_matern_raises(mesh10):
     nodes, tris = mesh10
     disc = tdisc.FEMDiscretization(tmesh.TriangleMesh(nodes, tris))
-    with pytest.raises(NotImplementedError, match="queue 1, item 2"):
-        tspde.MaternModel(disc, constraint="sumtozero")(tau=_t(1.0), range=_t(0.3))
+    # the constrained GMRF no longer raises: it is a ConstrainedGMRF whose mean sums to zero
+    g = tspde.MaternModel(disc, constraint="sumtozero")(tau=_t(1.0), range=_t(0.3))
+    assert isinstance(g, tg.ConstrainedGMRF) and abs(float(g.mean.sum())) <= 1e-12
 
 
 # ---- the slice: spatial-Poisson Laplace marginal on the supernodal backend ------

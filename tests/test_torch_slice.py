@@ -155,18 +155,19 @@ def test_noncanonical_links_and_unported_paths_raise():
     lik = tg.ExponentialFamily("poisson", link="identity")(np.ones(4))
     with pytest.raises(NotImplementedError):
         lik.loggrad(torch.ones(4, dtype=F64))
-    with pytest.raises(NotImplementedError):
-        tg.ARModel(8, order=2)
-    with pytest.raises(NotImplementedError):
-        tg.AR1Model(8, constraint="sumtozero")(tau=_t(1.0), rho=_t(0.5))
+    with pytest.raises(ValueError):
+        tg.ARModel(2, order=2)
+    assert isinstance(tg.AR1Model(8, constraint="sumtozero")(tau=_t(1.0), rho=_t(0.5)), tg.ConstrainedGMRF)
     Q = tg.AR1Model(8).precision(_t(1.0), _t(0.5))
     cg = tg.factorize(Q, tg.SolverSpec(kind="cg"))  # solves only, as in the reference
     torch.testing.assert_close(Q.matvec(cg.solve(torch.ones(8, dtype=F64))), torch.ones(8, dtype=F64), rtol=1e-6, atol=1e-6)
     with pytest.raises(NotImplementedError, match="CG backend does not support logdet"):
         cg.logdet()
     prior = tg.AR1Model(8)(tau=_t(1.0), rho=_t(0.5))
-    with pytest.raises(NotImplementedError):
-        tg.gaussian_approximation(prior, tg.ExponentialFamily("normal")(np.ones(8), sigma=_t(1.0)))
+    with pytest.raises(NotImplementedError, match="non-Gaussian latent priors"):
+        tg.gaussian_approximation(object(), tg.ExponentialFamily("normal")(np.ones(8), sigma=_t(1.0)))
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        tg.gaussian_approximation(prior, tg.ObservationLikelihood())
 
 
 # ---- Laplace approximation and marginal ---------------------------------------

@@ -15,7 +15,17 @@ from .constrained import ConstrainedGMRF
 from .fem import FEMDiscretization, MaternModel, MaternSPDE, TriangleMesh, generate_mesh
 from .gmrf import GMRF, logpdf, sample
 from .graphical_lasso import graphical_lasso
-from .inference import GAOptions, gaussian_approximation, laplace_marginal, linear_condition, marginal_loglikelihood
+from .inference import (
+    GAOptions,
+    conditional_predictive_ordinates,
+    gaussian_approximation,
+    joint_gmrf,
+    laplace_marginal,
+    linear_condition,
+    linear_predictor_marginals,
+    marginal_loglikelihood,
+    waic,
+)
 from .kl_cholesky import approximate_gmrf_kl, reverse_maximin_ordering
 from .linear_maps import (
     CholeskySqrtMap,
@@ -25,7 +35,23 @@ from .linear_maps import (
     ZeroMap,
     block_tridiag_to_sparse,
 )
-from .models import AR1Model, ARModel, LatentModel
+from .metagmrf import GMRFMetadata, MetaGMRF
+from .models import (
+    AR1Model,
+    ARModel,
+    BesagModel,
+    BYM2Model,
+    CARModel,
+    CombinedModel,
+    FixedEffectsModel,
+    IIDModel,
+    LatentModel,
+    RW1Model,
+    RW2Model,
+    RWModel,
+    SeparableModel,
+    generate_car_model,
+)
 from .observations import (
     BinomialObservations,
     ExponentialFamily,
@@ -39,7 +65,8 @@ from .samplers import IdentityTransform, LogitTransform, LogTransform, ParamSpec
 from .solvers import SolverSpec, factorize
 from .solvers.cg import cg_solve
 from .solvers.rbmc import rbmc_var
-from .sparse import SparseMatrix, SparsePattern, from_dense, from_scipy, spdiag, speye
+from .sparse import SparseMatrix, SparsePattern, from_dense, from_scipy, sp_block_diag, sp_kron, spdiag, speye
+from .workspace import GMRFWorkspace, WorkspacePool, make_workspace, make_workspace_pool
 
 __all__ = [
     "set_default_device",
@@ -61,11 +88,30 @@ __all__ = [
     "from_scipy",
     "speye",
     "spdiag",
+    "sp_block_diag",
+    "sp_kron",
+    "MetaGMRF",
+    "GMRFMetadata",
+    "GMRFWorkspace",
+    "WorkspacePool",
+    "make_workspace",
+    "make_workspace_pool",
     "SolverSpec",
     "factorize",
     "LatentModel",
     "ARModel",
     "AR1Model",
+    "RWModel",
+    "RW1Model",
+    "RW2Model",
+    "IIDModel",
+    "FixedEffectsModel",
+    "BesagModel",
+    "BYM2Model",
+    "CombinedModel",
+    "SeparableModel",
+    "CARModel",
+    "generate_car_model",
     "MaternModel",
     "MaternSPDE",
     "FEMDiscretization",
@@ -81,6 +127,10 @@ __all__ = [
     "gaussian_approximation",
     "marginal_loglikelihood",
     "laplace_marginal",
+    "joint_gmrf",
+    "linear_predictor_marginals",
+    "waic",
+    "conditional_predictive_ordinates",
     "IdentityTransform",
     "LogitTransform",
     "LogTransform",

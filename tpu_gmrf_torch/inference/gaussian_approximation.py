@@ -1,10 +1,14 @@
 """Laplace gaussian approximation, batched over chains.
 
-Counterpart of ``tpu_gmrf.inference.gaussian_approximation`` (unconstrained
-GMRF priors). Newton with a backtracking line search (α ← √α on accept,
-α ← 0.1α on shrink, force-accept when α‖step‖∞ < tol/1000), convergence on
-the Newton decrement or the mean change, and an immediate exit on a
-non-finite iterate.
+Counterpart of ``tpu_gmrf.inference.gaussian_approximation`` for GMRF and
+`ConstrainedGMRF` priors. Newton with a backtracking line search (α ← √α on
+accept, α ← 0.1α on shrink, force-accept when α‖step‖∞ < tol/1000),
+convergence on the Newton decrement or the mean change, and an immediate
+exit on a non-finite iterate. A constrained prior's Newton steps are
+projected onto Ax = 0 (the KKT step, ``_project_step``), from the prior's
+constrained mean, and the result is the constrained posterior. A Normal
+likelihood with the identity link and no offset on an unconstrained prior
+takes the conjugate shortcut through `linear_condition`.
 
 The reference gets per-chain convergence from ``vmap`` of ``while_loop``:
 a converged chain's carry is frozen. Here the loop is written out over a
@@ -16,12 +20,16 @@ Differentiation splits at the mode: `NewtonMode` runs the loop without
 autograd, and its backward is the implicit-function rule of the reference
 (``_newton_mode_jvp``): one refactorization of Q_post(x*), one opaque
 solve v = Q_post⁻¹ x̄, and the input cotangents from the score
-Q_p (x* − μ_p) − ∇loglik(x*) pulled back with −v. The loop and its backward
-use only ``factorize`` and the factor's ``solve``, so they run unchanged on
-the tridiagonal (K1, K2) and the supernodal (K5-K8) backends. Q_p − H is
-formed on the union pattern by ``sp_add`` (K5); for a pattern that holds
-its diagonal (every GMRF precision here) that union is Q_p's own pattern,
-so one supernodal plan serves the prior and every posterior.
+Q_p (x* − μ_p) − ∇loglik(x*) pulled back with −v. Under constraints the
+reference's KKT tangent rule projects the tangent; its map
+M = S − SAᵀ(ASAᵀ)⁻¹AS (S = Q_post⁻¹) is symmetric, so the backward is
+v = M x̄: the same solve, then the same projection as a Newton step. The
+loop and its backward use only ``factorize`` and the factor's ``solve``,
+so they run unchanged on the tridiagonal (K1, K2) and the supernodal
+(K5-K8) backends. Q_p − H is formed on the union pattern by ``sp_add``
+(K5); for a pattern that holds its diagonal (every GMRF precision here)
+that union is Q_p's own pattern, so one supernodal plan serves the prior
+and every posterior.
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ import dataclasses
 
 import torch
 
+from ..constrained import ConstrainedGMRF, _cho_solve, _times
 from ..gmrf import GMRF
 from ..kernels import csr_spmv
 from ..observations.base import ObservationLikelihood
@@ -62,6 +71,15 @@ def _posterior_pair(Q_p: SparseMatrix, H: SparseMatrix) -> SparseMatrix:
     return Q_p - H
 
 
+def _project_step(step, factor, A):
+    """Remove the constraint-normal component: step ← step − Ã(AÃᵀ)⁻¹A·step,
+    Ãᵀ = Q_post⁻¹Aᵀ by the iterate's factor, per chain."""
+    m, n = A.shape
+    At_T = factor.solve(A.T.expand(step.shape[:-1] + (n, m)).contiguous())
+    L_c = torch.linalg.cholesky(A @ At_T)
+    return step - _times(At_T, _cho_solve(L_c, step @ A.T))
+
+
 def _where(mask, a, b):
     """Per-chain select: mask (...,) against a, b (..., n) or (...,)."""
     if a.ndim > mask.ndim:
@@ -69,7 +87,7 @@ def _where(mask, a, b):
     return torch.where(mask, a, b)
 
 
-def _newton_mode_impl(opts: GAOptions, Q_p: SparseMatrix, mu_p, obs_lik, x0):
+def _newton_mode_impl(opts: GAOptions, Q_p: SparseMatrix, mu_p, obs_lik, x0, A=None):
     h = Q_p.matvec(mu_p)
 
     def merit(x, xQx=None):
@@ -118,6 +136,8 @@ def _newton_mode_impl(opts: GAOptions, Q_p: SparseMatrix, mu_p, obs_lik, x0):
         Qx, xQx = Qx.reshape(x.shape), xQx.reshape(x.shape[:-1])
         neg_score = (Qx - h) - g_l
         step = factor.solve(neg_score)
+        if A is not None:
+            step = _project_step(step, factor, A)
         if opts.adaptive_stepsize:
             x_new, alpha_new = line_search(x, step, alpha, merit(x, xQx))
         else:
@@ -144,18 +164,19 @@ def _newton_mode_impl(opts: GAOptions, Q_p: SparseMatrix, mu_p, obs_lik, x0):
 class NewtonMode(torch.autograd.Function):
     """x* = argmax of the Laplace objective, with the IFT backward.
 
-    apply(opts, pattern, lik, x0, q_data, mu_p, *lik.tensors()); x0 gets no
-    gradient."""
+    apply(opts, pattern, lik, A, x0, q_data, mu_p, *lik.tensors()); A (m, n)
+    holds the constraints Ax = e (None for none), which x0 satisfies; A and
+    x0 get no gradient (e is θ-independent in every model)."""
 
     @staticmethod
-    def forward(ctx, opts, pattern, lik, x0, q_data, mu_p, *lik_tensors):
+    def forward(ctx, opts, pattern, lik, A, x0, q_data, mu_p, *lik_tensors):
         Q_p = SparseMatrix(q_data, pattern)
         lik = lik.with_tensors(lik_tensors)
         batch = torch.broadcast_shapes(q_data.shape[:-1], mu_p.shape[:-1], x0.shape[:-1])
         x0 = x0.expand(batch + x0.shape[-1:]).contiguous()
-        x_star = _newton_mode_impl(opts, Q_p, mu_p, lik, x0)
+        x_star = _newton_mode_impl(opts, Q_p, mu_p, lik, x0, A)
         # the likelihood's tensors go through save_for_backward, not ctx
-        ctx.opts, ctx.pattern = opts, pattern
+        ctx.opts, ctx.pattern, ctx.A = opts, pattern, A
         ctx.lik = lik.with_tensors([None] * len(lik_tensors))
         ctx.save_for_backward(x_star, q_data, mu_p, *lik_tensors)
         return x_star
@@ -166,12 +187,15 @@ class NewtonMode(torch.autograd.Function):
         x_star, q_data, mu_p, *lik_tensors = ctx.saved_tensors
         lik = ctx.lik.with_tensors(lik_tensors)
         Q_p = SparseMatrix(q_data, ctx.pattern)
-        # 1-2: refactorize Q_post(x*) and solve v = Q_post⁻¹ x̄ (opaque solve)
+        # 1-2: refactorize Q_post(x*) and solve v = Q_post⁻¹ x̄ (opaque solve),
+        # KKT-projected under constraints
         factor = factorize(_posterior_pair(Q_p, _loghessian(lik, x_star)), ctx.opts.inner_solver)
         v = factor.solve(gx.expand(x_star.shape).contiguous())
+        if ctx.A is not None:
+            v = _project_step(v, factor, ctx.A)
         # 3: input cotangents = (∂score/∂inputs)ᵀ (−v)
         inputs = [q_data, mu_p, *lik_tensors]
-        needs = ctx.needs_input_grad[4:]
+        needs = ctx.needs_input_grad[5:]
         leaves = [t.detach().requires_grad_() if need else t for t, need in zip(inputs, needs)]
         wanted = [t for t, need in zip(leaves, needs) if need]
         grads = [None] * len(inputs)
@@ -181,7 +205,7 @@ class NewtonMode(torch.autograd.Function):
                 score = SparseMatrix(leaves[0], ctx.pattern).matvec(x_star - leaves[1]) - lik_.loggrad(x_star)
                 got = iter(torch.autograd.grad(score, wanted, grad_outputs=-v, allow_unused=True))
             grads = [next(got) if need else None for need in needs]
-        return (None, None, None, None, *grads)
+        return (None, None, None, None, None, *grads)
 
 
 def _is_conjugate_normal(obs_lik) -> bool:
@@ -193,30 +217,46 @@ def _is_conjugate_normal(obs_lik) -> bool:
     )
 
 
+def _conjugate(base: GMRF, obs_lik: EFLikelihood, solver):
+    """The conjugate shortcut: y = x[indices] + ε, ε ~ N(0, σ²I), by
+    `linear_condition`; σ scalar or (B,), one per chain."""
+    from .linear_condition import linear_condition
+
+    sigma = torch.as_tensor(obs_lik.params["sigma"], dtype=base.dtype, device=base.Q.device)
+    prec = (1.0 / sigma**2)[..., None].expand(sigma.shape + obs_lik.y.shape[-1:])
+    return linear_condition(base, y=obs_lik.y, Q_eps=spdiag(prec), indices=obs_lik.indices, solver=solver)
+
+
 def gaussian_approximation(
-    prior: GMRF,
+    prior,
     obs_lik: ObservationLikelihood,
     x0=None,
     options: GAOptions = GAOptions(),
     solver: SolverSpec | None = None,
-) -> GMRF:
-    """Gaussian (Laplace) approximation to p(x | y) for an unconstrained GMRF
-    prior (batched over chains); differentiable w.r.t. the prior's data and
-    mean and the likelihood's tensors through `NewtonMode`."""
-    if not isinstance(prior, GMRF):
+):
+    """Gaussian (Laplace) approximation to p(x | y) for a GMRF or
+    ConstrainedGMRF prior (batched over chains); differentiable w.r.t. the
+    prior's data and mean and the likelihood's tensors through `NewtonMode`
+    (the conjugate shortcut through `linear_condition`)."""
+    if not isinstance(prior, (GMRF, ConstrainedGMRF)):
         raise NotImplementedError(
-            "constrained and non-Gaussian (LatentPrior) priors are not ported yet (ROADMAP queue 1, item 12)"
+            f"non-Gaussian latent priors ({type(prior).__name__}: LatentPrior and the re-linearized Newton mode) "
+            "are not ported yet"
         )
     if not isinstance(obs_lik, EFLikelihood):
-        raise NotImplementedError(f"{type(obs_lik).__name__} is not ported yet (ROADMAP queue 1, item 15)")
-    if _is_conjugate_normal(obs_lik):
         raise NotImplementedError(
-            "the conjugate Normal short-circuit (linear_condition) is not ported yet (ROADMAP queue 1, item 12)"
+            f"{type(obs_lik).__name__} is not ported yet (linearly transformed, composite and autodiff likelihoods)"
         )
-    solver = solver if solver is not None else prior.solver
-    x0 = prior.mean if x0 is None else torch.as_tensor(x0, dtype=prior.dtype, device=prior.Q.device)
+    constrained = isinstance(prior, ConstrainedGMRF)
+    base = prior.base if constrained else prior
+    solver = solver if solver is not None else base.solver
+    if not constrained and _is_conjugate_normal(obs_lik):
+        return _conjugate(base, obs_lik, solver)
+    x0 = prior.mean if x0 is None else torch.as_tensor(x0, dtype=base.dtype, device=base.Q.device)
+    A = prior.A if constrained else None
     x_star = NewtonMode.apply(
-        options, prior.Q.pattern, obs_lik, x0.detach(), prior.Q.data, prior.mean, *obs_lik.tensors()
+        options, base.Q.pattern, obs_lik, A, x0.detach(), base.Q.data, base.mean, *obs_lik.tensors()
     )
-    Q_post = _posterior_pair(prior.Q, _loghessian(obs_lik, x_star))
-    return GMRF.from_precision(x_star, Q_post, solver)
+    Q_post = _posterior_pair(base.Q, _loghessian(obs_lik, x_star))
+    post = GMRF.from_precision(x_star, Q_post, solver)
+    return ConstrainedGMRF.create(post, prior.A, prior.e) if constrained else post

@@ -9,7 +9,10 @@ solved once via the information-vector constructor. ConstrainedGMRF priors
 are conditioned on their base and re-constrained. A sparse A (any m × n
 pattern) multiplies on K4 and forms AᵀQ_εA on K5's SpGEMM; the scatter of
 observations given by `indices` is a K5 sum over a host plan (no atomics).
-One GMRF (Q data of shape (nnz,)).
+The identity and `indices` paths take a batch of B GMRFs (Q data (B, nnz))
+and Q_ε per chain (a diagonal `SparseMatrix` with data (B, m)), as the
+Laplace approximation's conjugate shortcut gives them; the dense-A path
+takes one GMRF and one Q_ε.
 """
 
 from __future__ import annotations
@@ -59,7 +62,7 @@ def linear_condition(
 
     dtype, dev = gmrf.dtype, gmrf.Q.device
     y = torch.as_tensor(y, dtype=dtype, device=dev)
-    m = y.shape[0]
+    m = y.shape[-1]
     n = gmrf.n
     solver = solver if solver is not None else gmrf.solver
     resid = y if b is None else y - torch.as_tensor(b, dtype=dtype, device=dev)
@@ -72,7 +75,7 @@ def linear_condition(
             contrib = Qe  # already n×n diagonal/sparse
             info_obs = Qe.matvec(resid)
         else:
-            idx = np.asarray(indices)
+            idx = indices.cpu().numpy() if torch.is_tensor(indices) else np.asarray(indices)
             # Aᵀ Q_ε A for a selection matrix = scatter of Q_ε into (idx, idx)
             if Qe.pattern.rows.shape[0] != m or not np.array_equal(
                 Qe.pattern.rows, Qe.pattern.cols
@@ -81,13 +84,16 @@ def linear_condition(
             rows = idx[Qe.pattern.rows]
             pat = SparsePattern(rows, rows, (n, n))
             # Q_ε's values follow the new pattern's (sorted) order
-            contrib = SparseMatrix(Qe.data[torch.as_tensor(pat.sort_order, device=dev)], pat)
+            contrib = SparseMatrix(Qe.data[..., torch.as_tensor(pat.sort_order, device=dev)], pat)
             plan = SegPlan.grouped(idx, np.arange(m), n)
-            info_obs = gather_segsum(plan, Qe.matvec(resid)[None])[0]
+            v = Qe.matvec(resid)
+            info_obs = gather_segsum(plan, v.reshape(-1, m)).reshape(v.shape[:-1] + (n,))
     elif isinstance(A, SparseMatrix):
         contrib = A.T @ (Qe @ A)
         info_obs = A.rmatvec(Qe.matvec(resid))
     else:
+        if gmrf.Q.data.ndim != 1 or Qe.data.ndim != 1:
+            raise ValueError("linear_condition with a dense A takes one GMRF (Q data (nnz,)) and one Q_eps")
         A = torch.as_tensor(A, dtype=dtype, device=dev)
         AtQ = A.T @ Qe.todense()
         contrib = from_dense(AtQ @ A)

@@ -1,8 +1,10 @@
 """Laplace marginal likelihood and latent-model entry points.
 
 Counterpart of ``tpu_gmrf.inference.marginal``: log p(y|θ) ≈ log p(x*|θ) +
-log p(y|x*,θ) − log p_Laplace(x*|y,θ) at the converged mode x*. With θ
-entries of shape (B,) it returns B marginals, one per chain.
+log p(y|x*,θ) − log p_Laplace(x*|y,θ) at the converged mode x*; under hard
+constraints the correction terms enter through the constrained logpdfs on
+both sides. With θ entries of shape (B,) it returns B marginals, one per
+chain.
 """
 
 from __future__ import annotations

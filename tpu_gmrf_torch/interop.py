@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from ._device import default_device
+from .constrained import ConstrainedGMRF
 from .fem.discretization import FEMDiscretization
 from .fem.mesh import TriangleMesh
 from .fem.spde import MaternModel
@@ -26,7 +27,7 @@ from .sparse.matrix import SparseMatrix
 from .sparse.pattern import SparsePattern
 
 __all__ = [
-    "sparse_from_numpy", "gmrf_from_numpy", "ef_likelihood_from_numpy", "hmc_state_from_numpy",
+    "sparse_from_numpy", "gmrf_from_numpy", "constrained_gmrf_from_numpy", "ef_likelihood_from_numpy", "hmc_state_from_numpy",
     "plan_to_numpy", "matern_model_from_numpy", "nuts_result_from_numpy", "da_state_from_numpy",
     "welford_state_from_numpy", "bsr_from_numpy", "block_tridiag_mv_from_numpy",
 ]
@@ -49,6 +50,14 @@ def gmrf_from_numpy(mean, rows, cols, shape, data, *, solver: SolverSpec = Solve
                     dtype=torch.float64, device=None) -> GMRF:
     Q = sparse_from_numpy(rows, cols, shape, data, dtype=dtype, device=device)
     return GMRF.from_precision(_t(mean, dtype, device), Q, solver)
+
+
+def constrained_gmrf_from_numpy(mean, rows, cols, shape, data, A, e, *, solver: SolverSpec = SolverSpec(),
+                                dtype=torch.float64, device=None) -> ConstrainedGMRF:
+    """The port's ConstrainedGMRF of the base (mean, Q) under A x = e; data
+    (nnz,) or (B, nnz)."""
+    base = gmrf_from_numpy(mean, rows, cols, shape, data, solver=solver, dtype=dtype, device=device)
+    return ConstrainedGMRF.create(base, _t(A, dtype, device), _t(e, dtype, device))
 
 
 def ef_likelihood_from_numpy(family: str, link: str, y, params: dict | None = None, offset=None,

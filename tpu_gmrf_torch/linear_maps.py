@@ -5,7 +5,7 @@ SymmetricBlockTridiagonalMap, SSMBidiagonalMap, OuterProductMap, ZeroMap,
 CholeskySqrt/LinearMapWithSqrt). An operator is an object with a `matvec`;
 these never materialize the full matrix. The AD-based maps of the reference
 (`ADJacobianMap`, `sparse_jacobian_map`, `sparse_hessian_map`) are not
-ported yet (ROADMAP item 15).
+ported yet.
 
 Block convention: a block-tridiagonal map over Nt time slices of size ns
 stores diag blocks as (Nt, ns, ns) and off-diagonal (sub) blocks as

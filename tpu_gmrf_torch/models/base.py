@@ -3,8 +3,9 @@
 Counterpart of ``tpu_gmrf.models.base``. A `LatentModel` is a static
 host-side object; ``precision(**theta)`` / ``mean(**theta)`` map
 hyperparameter tensors (scalars, or (B,) for B chains) to fixed-pattern
-data. ``model(**theta)`` returns a `GMRF`. The reference wraps that call in
-a per-instance jit cache; PyTorch runs eagerly and needs none.
+data. ``model(**theta)`` returns a `GMRF`, or a `ConstrainedGMRF` when the
+model has constraints. The reference wraps that call in a per-instance jit
+cache; PyTorch runs eagerly and needs none.
 """
 
 from __future__ import annotations
@@ -13,10 +14,39 @@ import numpy as np
 import torch
 
 from .._device import as_tensor
+from ..constrained import ConstrainedGMRF
 from ..gmrf import GMRF
 from ..solvers.base import SolverSpec
 
-__all__ = ["LatentModel", "process_constraint"]
+__all__ = ["LatentModel", "process_constraint", "stack_constraints"]
+
+
+def host_sparse(mat, pattern=None):
+    """(pattern, float64 NumPy data) of a scipy matrix, duplicates summed, as
+    ``from_scipy`` orders them; on `pattern` (a super-pattern, zeros where
+    `mat` has no entry) when one is given."""
+    from ..sparse.pattern import SparsePattern
+
+    coo = mat.tocoo()
+    coo.sum_duplicates()
+    own = SparsePattern(coo.row, coo.col, coo.shape)
+    data = np.asarray(coo.data, np.float64)[own.sort_order]
+    if pattern is None or pattern == own:
+        return own, data
+    out = np.zeros(pattern.nnz)
+    out[pattern.scatter_map(own)] = data
+    return pattern, out
+
+
+def like(model, key: str, array, ref: torch.Tensor) -> torch.Tensor:
+    """The model's host array `array` as a tensor with `ref`'s dtype and
+    device, kept on the model per (key, dtype, device)."""
+    cache = model.__dict__.setdefault("_tensors", {})
+    k = (key, ref.dtype, str(ref.device))
+    t = cache.get(k)
+    if t is None:
+        t = cache[k] = torch.as_tensor(np.asarray(array), dtype=ref.dtype, device=ref.device)
+    return t
 
 
 class LatentModel:
@@ -51,12 +81,12 @@ class LatentModel:
         return None
 
     def __call__(self, **theta):
-        if self.constraints() is not None:
-            raise NotImplementedError(
-                "a constrained latent model's GMRF (a ConstrainedGMRF from LatentModel.__call__) is not wired "
-                "yet (ROADMAP queue 1, item 2)"
-            )
-        return GMRF.from_precision(self.mean(**theta), self.precision(**theta), self.solver)
+        base = GMRF.from_precision(self.mean(**theta), self.precision(**theta), self.solver)
+        cons = self.constraints()
+        if cons is None:
+            return base
+        A, e = cons
+        return ConstrainedGMRF.create(base, A, e)
 
     def __repr__(self):
         hp = ", ".join(self.hyperparameters)
@@ -76,3 +106,13 @@ def process_constraint(constraint, n: int):
         raise ValueError(f"constraint A{A.shape} / e{e.shape} incompatible with n={n}")
     return A, e
 
+
+
+def stack_constraints(*specs):
+    """Stack optional (A, e) pairs; returns None if all None."""
+    present = [s for s in specs if s is not None]
+    if not present:
+        return None
+    A = np.vstack([np.atleast_2d(s[0]) for s in present])
+    e = np.concatenate([np.atleast_1d(s[1]) for s in present])
+    return A, e

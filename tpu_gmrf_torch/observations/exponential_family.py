@@ -189,7 +189,7 @@ class EFLikelihood(ObservationLikelihood):
         if not self.canonical:
             raise NotImplementedError(
                 f"{self.family} with non-canonical link {self.link!r} needs per-element "
-                "autodiff, not ported yet (ROADMAP queue 3)"
+                "autodiff (non-canonical links), not ported yet"
             )
         y, f = self.y.to(eta), self.family
         mu = self._mu(eta)

@@ -8,7 +8,7 @@ diagonal mass matrix, as the vmapped chains do. The warmup schedule is the
 same for every chain and is read on the host. Not ported: the reference's
 ``dispatch_chunk`` and ``hoist_jit`` (workarounds for the TPU's dispatch
 limits; PyTorch runs eagerly, one transition at a time) and ``mesh=``
-(chains over several devices, ROADMAP queue 1, item 17).
+(chains over several devices).
 """
 
 from __future__ import annotations
@@ -53,7 +53,7 @@ def _run(logdensity_fn, kernel, key, init_positions, num_warmup, num_samples, in
     if num_samples < 1:
         raise ValueError("num_samples must be at least 1")
     if mesh is not None:
-        raise NotImplementedError("chains over several devices (mesh=) are not ported yet (ROADMAP queue 1, item 17)")
+        raise NotImplementedError("chains over several devices (mesh=) are not ported yet")
     z = as_tensor(init_positions)
     z = z[None] if z.ndim == 1 else z
     num_chains, dim = z.shape

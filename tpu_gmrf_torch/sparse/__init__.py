@@ -1,4 +1,15 @@
-from .matrix import SparseMatrix, from_dense, from_scipy, sp_add, sp_matmul, sp_tridiag, spdiag, speye
+from .matrix import (
+    SparseMatrix,
+    from_dense,
+    from_scipy,
+    sp_add,
+    sp_block_diag,
+    sp_kron,
+    sp_matmul,
+    sp_tridiag,
+    spdiag,
+    speye,
+)
 from .pattern import SparsePattern, diag_pattern, spgemm_pattern, union_patterns
 
 __all__ = [
@@ -11,6 +22,8 @@ __all__ = [
     "sp_tridiag",
     "sp_add",
     "sp_matmul",
+    "sp_block_diag",
+    "sp_kron",
     "speye",
     "from_dense",
     "from_scipy",

@@ -23,7 +23,8 @@ from .._device import as_tensor, default_device
 from ..kernels import SegPlan, csr_spmv, gather_segsum
 from .pattern import SparsePattern, spgemm_pattern, union_patterns
 
-__all__ = ["SparseMatrix", "spdiag", "speye", "sp_tridiag", "sp_add", "sp_matmul", "from_dense", "from_scipy"]
+__all__ = ["SparseMatrix", "spdiag", "speye", "sp_tridiag", "sp_add", "sp_matmul", "sp_block_diag", "sp_kron",
+           "from_dense", "from_scipy"]
 
 
 def _index(pattern: SparsePattern, key: str, array, device, dtype=torch.long) -> torch.Tensor:
@@ -375,3 +376,38 @@ def sp_tridiag(main: torch.Tensor, off: torch.Tensor) -> SparseMatrix:
     pat = _tridiag_pattern(main.shape[-1])
     data = torch.cat([main, off, off], -1)
     return SparseMatrix(data[..., _index(pat, "sort", pat.sort_order, main.device)], pat)
+
+
+def _broadcast_data(mats) -> list:
+    """The matrices' data with their chain axes broadcast together and one dtype."""
+    batch = torch.broadcast_shapes(*(m.data.shape[:-1] for m in mats))
+    dtype = mats[0].data.dtype
+    for m in mats[1:]:
+        dtype = torch.promote_types(dtype, m.data.dtype)
+    return [m.data.to(dtype).expand(batch + (m.nnz,)) for m in mats]
+
+
+def sp_block_diag(mats: list[SparseMatrix]) -> SparseMatrix:
+    """Block-diagonal composition; data (nnz,) or (B, nnz), chain axes broadcast."""
+    rows, cols = [], []
+    r0 = c0 = 0
+    for m in mats:
+        rows.append(m.pattern.rows.astype(np.int64) + r0)
+        cols.append(m.pattern.cols.astype(np.int64) + c0)
+        r0 += m.shape[0]
+        c0 += m.shape[1]
+    pat = SparsePattern(np.concatenate(rows), np.concatenate(cols), (r0, c0))
+    data = torch.cat(_broadcast_data(mats), -1)
+    return SparseMatrix(data[..., _index(pat, "sort", pat.sort_order, data.device)], pat)
+
+
+def sp_kron(a: SparseMatrix, b: SparseMatrix) -> SparseMatrix:
+    """Kronecker product A ⊗ B, the rightmost factor varying fastest (R-INLA's
+    order); data (nnz,) or (B, nnz) on either side."""
+    ar, ac, br, bc = a.pattern.rows, a.pattern.cols, b.pattern.rows, b.pattern.cols
+    rows = (ar.astype(np.int64)[:, None] * b.shape[0] + br[None, :]).ravel()
+    cols = (ac.astype(np.int64)[:, None] * b.shape[1] + bc[None, :]).ravel()
+    pat = SparsePattern(rows, cols, (a.shape[0] * b.shape[0], a.shape[1] * b.shape[1]))
+    ad, bd = _broadcast_data([a, b])
+    data = (ad[..., :, None] * bd[..., None, :]).reshape(ad.shape[:-1] + (a.nnz * b.nnz,))
+    return SparseMatrix(data[..., _index(pat, "sort", pat.sort_order, data.device)], pat)
