@@ -159,12 +159,28 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
 21. examples 01, 02 and 05 with their seeded inputs, in float32 and float64,
    against their golden literals (tools/golden_values.py); example 05's
    forecast RMSE, which depends on the JAX package's draw, is printed and
-   not held.
+   not held;
+22. observation breadth: (a) example 03's Bernoulli marks through the FEM
+   evaluation matrix (LinearlyTransformedObservationModel) at the spatial
+   slice's size (n=5741, supernodal, 4 chains), value+grad over (τ, range)
+   in float32 and float64, each against its own plain path, with K4's
+   rectangular launches per likelihood gradient and the posterior's
+   pattern; (b) normal observations under the log link on AR1(500) over
+   256 chains, float32 against the f64 plain path (Newton from the data's
+   log: from the prior mean no chain converges, in either package); (c)
+   example 03 at its own size against its literals, float32 and float64;
+23. a non-Gaussian prior: the Student-t random walk of
+   tests/test_nongaussian_priors.py as a StructuredLatentPrior at the
+   flagship's width (n=500, 256 chains, Poisson observations),
+   marginal_loglikelihood and its log_tau-gradient through NewtonModeNL,
+   float32 and float64 against the f64 plain path (auto -> tridiag, K1-K5);
+   the same log-density as an AutoDiffLatentPrior on the tridiagonal
+   pattern (coloured HVPs) equal to it in float64 over 8 chains.
 
 Every kernel's launch counter is zeroed just before each main path (phases
 4-5, the flagship; 7-8, the spatial slice; 9, 10 and 11) and read after
 it, and so before and after each of the paths 12, 13, 13b, 14, 15, 16, 17, 18,
-19, 20 and 21;
+19, 20, 21, 22 and 23;
 a kernel of the path that was never launched fails the run. Each phase's
 seconds are printed when the next begins. The line before the last is one
 JSON object with the kernels' launches, errors, times and bounds; the last
@@ -470,6 +486,45 @@ GOLDEN = {
 }
 EXAMPLE_KERNELS = ("tridiag_factor", "tridiag_solve", "tridiag_selinv", "csr_spmv", "gather_segsum", "dense_chol",
                    "dense_trsv", "dense_selinv")
+# Phase 22: observation breadth. (a) Example 03 (examples/03_bernoulli_spatial_classification.py: Bernoulli marks
+# through the FEM evaluation matrix, η = A x) at the spatial slice's size: phase 7's model (Matérn α=2 on the
+# 63x63 grid, n = 5741, supernodal inner solver, SP_GA_ITER Newton iterations), the marks at the 3969 grid nodes
+# drawn with seed 1 from sigmoid(sin 3x · cos 2y), 4 chains at phase 7's θ. Each dtype is held to its own plain
+# path (the same code on CPU tensors, the same inputs): float64 is exact up to rounding order, so SP_SLICE_TOL's
+# f64 bounds, as phase 7. In float32 the Matérn prior's scaled condition, far above 1/eps(f32), amplifies every
+# summation order (the f32 gradient is ~15% from float64 in both packages, ROADMAP §3, so float32 is not held to
+# float64), and with these observations more than with phase 7's: on the H100 the f32 kernel path read value
+# 2.0e-4 and gradient 4.8e-2 from the f32 plain path, past phase 7's f32p bounds (1.2e-4, 1.2e-2), while its f64
+# path agreed to 1.8e-11 and 1.7e-9. So float32 is held as phase 19 holds its float32 slice, by a bound that
+# describes the problem, not the port: its distance from the f32 plain path at most EX03_F32_FACTOR times the
+# f32 plain path's own distance from the f64 plain path, plus EX03_F32_FLOOR; every reading is printed.
+# (b) A non-canonical link at the
+# flagship's shape: AR1Model(500), 256 chains, float32, normal observations under the log link, σ = 0.3,
+# y = exp(x_true) + 0.3 ε with x_true one AR1 draw at τ = 4, ρ = 0.9 (seed 4), against the f64 plain path with
+# SLICE_TOL's bounds. From laplace_marginal's start, the prior mean 0, no chain converges in either package:
+# d²ℓ/dη² = μ(y − 2μ)/σ² reaches ~+2.8e2 where y ≈ 26 > 2μ = 2, against the prior's diagonal τ(1 + ρ²), so the
+# first Q_post is indefinite and every chain exits non-finite; the grid's other non-canonical pairs
+# (poisson/identity, gamma/identity) are undefined at η = 0 (log 0). So Newton starts where the data put it,
+# x0 = log(max(y, NC_X0_FLOOR)), by gaussian_approximation(x0=) and marginal_loglikelihood, as the grid's own
+# Laplace test starts from a feasible point; the phase prints the zero start's finite chains too. (c) Example 03
+# at its own size (150 sites, the default inner solver), float32 and float64, held to its literals.
+EX03_F32_FACTOR, EX03_F32_FLOOR = 2.0, 1e-6
+EX03_GOLDEN = {"mode norm": (31.958964, 0.3), "mean std": (1.026679, 0.02), "accuracy": (0.80, 2.0 / 150 + 1e-9)}
+NC_SIGMA, NC_TAU, NC_RHO, NC_SEED, NC_X0_FLOOR = 0.3, 4.0, 0.9, 4, 0.05
+OBS_KERNELS = SPATIAL_KERNELS + ("tridiag_factor", "tridiag_solve", "tridiag_selinv")
+# Phase 23: a non-Gaussian prior. (a) The robust random walk of tests/test_nongaussian_priors.py:55-73 at the
+# flagship's width: StructuredLatentPrior over n = 500, Student-t increments (ν = 4) on (i, i+1) and the weak anchor
+# group, log_tau per chain over 256 chains, Poisson observations (flagship_y()), marginal_loglikelihood and its
+# log_tau-gradient, float32 against the f64 plain path with SLICE_TOL's f32 bounds and float64 with its f64 bounds.
+# log_tau spans [-0.5, 1.0]: the Student-t log-density is concave in an increment d only while τ²d² < ν, and past
+# log τ ≈ 1.4 the local quadratic of the prior at the flagship's increments is indefinite, so Newton's factor
+# breaks down and those chains exit non-finite (on CPU tensors: 244 of 256 finite over [-1, 1.5], 142 over
+# [0, 2.5]). The posterior pattern is tridiagonal, so auto -> tridiag (K1-K3; K4 in h = ∇log p + Q x, K5 in the
+# factor scatters and Q − H). (b) The same log-density as one function for AutoDiffLatentPrior on the tridiagonal
+# SparsePattern (sparse_hessian_map, 3 colours) at ST_AD_CHAINS of (a)'s log_tau, float64: its mode, marginal and
+# gradient equal to the structured prior's to ST_AD_TOL (the same arithmetic by another autodiff route).
+ST_NU, ST_LOG_TAU, ST_AD_CHAINS, ST_AD_TOL = 4.0, (-0.5, 1.0), 8, 1e-10
+ST_KERNELS = ("tridiag_factor", "tridiag_solve", "tridiag_selinv", "csr_spmv", "gather_segsum")
 
 
 def rbmc_tol(S: int) -> dict:
@@ -1288,21 +1343,26 @@ def spatial_logdensity(model, y, ga_iter: int = SP_GA_ITER, inner: str | None = 
     return make_logdensity(lambda th: tg.laplace_marginal(model, obs, y, th, options=opts), spec)
 
 
-def newton_iterations(model, y, z) -> int:
-    """Iterations of the spatial slice's Laplace Newton loop (the slowest
-    chain's) at θ = exp(z), counted from the loop's verbose lines."""
+def verbose_iterations(fn) -> int:
+    """Newton iterations of the slowest chain of fn() (a call with verbose options), from the loop's lines."""
     import contextlib
     import io
 
+    out = io.StringIO()
+    with torch.no_grad(), contextlib.redirect_stdout(out):
+        fn()
+    return sum(line.startswith("newton it=") for line in out.getvalue().splitlines())
+
+
+def newton_iterations(model, y, z) -> int:
+    """Iterations of the spatial slice's Laplace Newton loop (the slowest
+    chain's) at θ = exp(z), counted from the loop's verbose lines."""
     import tpu_gmrf_torch as tg
 
     theta = torch.exp(z)
     opts = tg.GAOptions(max_iter=SP_GA_ITER, inner_solver=tg.SolverSpec(kind="supernodal"), verbose=True)
-    out = io.StringIO()
-    with torch.no_grad(), contextlib.redirect_stdout(out):
-        tg.laplace_marginal(model, tg.ExponentialFamily("poisson"), y, {"tau": theta[:, 0], "range": theta[:, 1]},
-                            options=opts)
-    return sum(line.startswith("newton it=") for line in out.getvalue().splitlines())
+    return verbose_iterations(lambda: tg.laplace_marginal(model, tg.ExponentialFamily("poisson"), y,
+                                                          {"tau": theta[:, 0], "range": theta[:, 1]}, options=opts))
 
 
 def profile_value_and_grad(ld, z):
@@ -1379,8 +1439,8 @@ def slice_errors(v, g, ref_v, ref_g):
     return float(((v - ref_v).abs() / ref_v.abs()).max()), float(g_rel.max()), per_chain
 
 
-def check_slice(name, v, g, ref_v, ref_g, chains, tol_key, tol=SLICE_TOL, ref_name="f64 plain"):
-    if not (torch.isfinite(v).all() and torch.isfinite(g).all()) or v.shape != (chains,) or g.shape != (chains, 2):
+def check_slice(name, v, g, ref_v, ref_g, chains, tol_key, tol=SLICE_TOL, ref_name="f64 plain", dims: int = 2):
+    if not (torch.isfinite(v).all() and torch.isfinite(g).all()) or v.shape != (chains,) or g.shape != (chains, dims):
         raise AssertionError(f"slice {name}: non-finite or misshapen value/grad")
     v_rel, g_rel, per_chain = slice_errors(v, g, ref_v, ref_g)
     log(f"  slice {name} kernels vs {ref_name}: value max rel {v_rel:.3e} (tol {tol[tol_key + '_value']:.2g}), "
@@ -3560,16 +3620,10 @@ def on(theta: dict, dtype, device) -> dict:
 
 def ga_iterations(model, y, theta: dict, opts) -> int:
     """Newton iterations of the slowest chain, counted from the loop's verbose lines."""
-    import contextlib
-    import io
-
     import tpu_gmrf_torch as tg
 
-    out = io.StringIO()
-    with torch.no_grad(), contextlib.redirect_stdout(out):
-        tg.laplace_marginal(model, tg.ExponentialFamily("poisson"), y, theta,
-                            options=dataclasses.replace(opts, verbose=True))
-    return sum(line.startswith("newton it=") for line in out.getvalue().splitlines())
+    return verbose_iterations(lambda: tg.laplace_marginal(model, tg.ExponentialFamily("poisson"), y, theta,
+                                                          options=dataclasses.replace(opts, verbose=True)))
 
 
 def mode_residual(model, y, theta: dict, opts) -> float:
@@ -3864,6 +3918,310 @@ def examples_path(dev, card):
     return counts
 
 
+# ---- phase 22: observation breadth ---------------------------------------------
+
+
+def bernoulli_marks(g: int) -> np.ndarray:
+    """Marks at the g x g grid nodes: Bernoulli(sigmoid(sin 3x · cos 2y)), seed 1 (as spatial_y draws its counts)."""
+    pts = grid_points(g)
+    field = np.sin(3.0 * pts[:, 0]) * np.cos(2.0 * pts[:, 1])
+    return np.random.default_rng(1).binomial(1, 1.0 / (1.0 + np.exp(-field))).astype(np.float32)
+
+
+def lt_obs(model, dtype, device):
+    """Example 03's observation model: Bernoulli/logit through the model's evaluation matrix."""
+    import tpu_gmrf_torch as tg
+    from tpu_gmrf_torch.sparse import SparseMatrix
+
+    A = model.evaluation_matrix()
+    A = SparseMatrix(A.data.to(dtype=dtype, device=device), A.pattern)
+    return tg.LinearlyTransformedObservationModel(tg.ExponentialFamily("bernoulli"), A)
+
+
+def lt_logdensity(model, y, dtype, device, verbose: bool = False):
+    """Phase 7's log-density over (τ, range) with example 03's observations."""
+    import tpu_gmrf_torch as tg
+    from tpu_gmrf_torch.samplers import LogTransform, ParamSpec, make_logdensity
+
+    spec = ParamSpec(
+        tau=(LogTransform(), lambda t: -0.5 * torch.log(t) ** 2),
+        range=(LogTransform(), lambda r: -0.5 * (torch.log(r) - np.log(0.3)) ** 2),
+    )
+    opts = tg.GAOptions(max_iter=SP_GA_ITER, inner_solver=tg.SolverSpec(kind="supernodal"), verbose=verbose)
+    obs = lt_obs(model, dtype, device)
+    return make_logdensity(lambda th: tg.laplace_marginal(model, obs, y, th, options=opts), spec)
+
+
+def nc_data() -> np.ndarray:
+    """y = exp(x_true) + σ ε, x_true one AR1(τ = 4, ρ = 0.9) draw of length N, seed 4."""
+    rng = np.random.default_rng(NC_SEED)
+    x = np.empty(N)
+    x[0] = rng.normal() / np.sqrt(NC_TAU * (1 - NC_RHO**2))
+    for t in range(1, N):
+        x[t] = NC_RHO * x[t - 1] + rng.normal() / np.sqrt(NC_TAU)
+    return (np.exp(x) + NC_SIGMA * rng.normal(size=N)).astype(np.float32)
+
+
+def nc_logdensity(y, start: bool = True, verbose: bool = False):
+    """The flagship's log-density over (τ, ρ) with normal observations under the log link (σ fixed); Newton
+    from x0 = log(max(y, NC_X0_FLOOR)), or from laplace_marginal's start (the prior mean) with start=False."""
+    import tpu_gmrf_torch as tg
+    from tpu_gmrf_torch.samplers import LogitTransform, LogTransform, ParamSpec, make_logdensity
+
+    model, obs = tg.AR1Model(N), tg.ExponentialFamily("normal", link="log")
+    spec = ParamSpec(
+        tau=(LogTransform(), lambda t: -0.5 * torch.log(t) ** 2),
+        rho=(LogitTransform(-1.0, 1.0), lambda r: 0.0),
+    )
+    opts = tg.GAOptions(max_iter=GA_MAX_ITER, verbose=verbose)
+
+    def marginal(th):
+        dt, dev = th["tau"].dtype, th["tau"].device
+        if not start:
+            return tg.laplace_marginal(model, obs, y, {**th, "sigma": torch.tensor(NC_SIGMA, dtype=dt, device=dev)},
+                                       options=opts)
+        prior = model(**th)
+        yt = torch.as_tensor(y, dtype=dt, device=dev)
+        lik = obs(yt, sigma=torch.tensor(NC_SIGMA, dtype=dt, device=dev))
+        post = tg.gaussian_approximation(prior, lik, x0=torch.log(yt.clamp_min(NC_X0_FLOOR)), options=opts)
+        return tg.marginal_loglikelihood(prior, lik, posterior=post)
+
+    return make_logdensity(marginal, spec)
+
+
+def timed_vg(ld, z):
+    """(value, grad) of the first call, its seconds, and the ms of the second call (synchronized)."""
+    from tpu_gmrf_torch.samplers import value_and_grad
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = value_and_grad(ld, z)
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    value_and_grad(ld, z)
+    torch.cuda.synchronize()
+    return out, first, (time.perf_counter() - t0) * 1e3
+
+
+def run_example03(dtype, dev) -> dict:
+    """Example 03 as written (150 sites, seed 7, τ = 0.5, range = 0.4), in `dtype`."""
+    import tpu_gmrf_torch as tg
+
+    rng = np.random.default_rng(7)
+    pts = rng.uniform(0, 1, size=(150, 2))
+    logit = 3.0 * np.sin(3 * pts[:, 0]) - 1.0 * pts[:, 1]
+    y = (rng.uniform(size=len(pts)) < 1 / (1 + np.exp(-logit))).astype(np.float32)
+    model = tg.MaternModel(pts, smoothness=1)
+    prior = model(tau=torch.tensor(0.5, dtype=dtype, device=dev), range=torch.tensor(0.4, dtype=dtype, device=dev))
+    obs = lt_obs(model, dtype, dev)
+    post = tg.gaussian_approximation(prior, obs(y))
+    p_hat = torch.sigmoid(obs.A.matvec(post.mean))
+    acc = float(((p_hat > 0.5) == (torch.as_tensor(y, device=dev) > 0.5)).double().mean())
+    return {"mode norm": float(torch.linalg.vector_norm(post.mean)), "mean std": float(post.std().mean()),
+            "accuracy": acc, "n": model.n, "kind": post.solver.resolve(post.Q.pattern).kind}
+
+
+def observation_path(sp_model, dev, card):
+    """Phase 22: example 03 at the spatial slice's size, a non-canonical link at the flagship's shape, and
+    example 03 at its own size."""
+    import tpu_gmrf_torch as tg
+    from tpu_gmrf_torch import kernels
+    from tpu_gmrf_torch.inference.gaussian_approximation import _posterior_pair
+    from tpu_gmrf_torch.samplers import value_and_grad
+
+    y03 = bernoulli_marks(SP_GRID)
+    sp_z = torch.tensor(np.tile([0.0, np.log(0.3)], (SP_CHAINS, 1))
+                        + np.random.default_rng(5).normal(scale=0.3, size=(SP_CHAINS, 2)), dtype=torch.float32)
+    ld03 = {dt: lt_logdensity(sp_model, y03, dt, dev) for dt in (torch.float32, torch.float64)}
+    y_nc = nc_data()
+    z_nc = torch.tensor(np.random.default_rng(2).normal(scale=0.5, size=(CHAINS, 2)), dtype=torch.float32)
+    ld_nc = nc_logdensity(y_nc)
+    kernels.reset_launches()
+    # ---- the observation-breadth path: example 03 at n=5741 (f32, f64), the log link (f32), example 03 (f32, f64) ----
+    vg03, t03 = {}, {}
+    for dt in (torch.float32, torch.float64):
+        vg03[dt], first, ms = timed_vg(ld03[dt], sp_z.to(dtype=dt, device=dev))
+        t03[dt] = (first, ms)
+    spatial_counts = kernels.launches()
+    vg_nc, nc_first, nc_ms = timed_vg(ld_nc, z_nc.to(dev))
+    ex03 = {dt: run_example03(dt, dev) for dt in (torch.float32, torch.float64)}
+    counts = kernels.launches()
+    # ---- end of the observation-breadth path ----
+    launched(counts, OBS_KERNELS + BACKEND_KERNELS.get(ex03[torch.float64]["kind"], ()), "observation-breadth")
+    # K4's rectangular path: the launches of one likelihood gradient (η = A x, then Aᵀ g), nothing else
+    obs64 = lt_obs(sp_model, torch.float64, dev)
+    lik = obs64(torch.as_tensor(y03, device=dev))
+    x = torch.zeros(SP_CHAINS, sp_model.n, dtype=torch.float64, device=dev)
+    kernels.reset_launches()
+    lik.loggrad(x)
+    torch.cuda.synchronize()
+    rect = kernels.launches()["csr_spmv"]
+    Q = sp_model.precision(tau=torch.tensor(1.0, dtype=torch.float64, device=dev),
+                           range=torch.tensor(0.3, dtype=torch.float64, device=dev))
+    H = lik.loghessian(x)
+    union = _posterior_pair(Q, H).pattern
+    offdiag = float(H.data[:, H.pattern.rows != H.pattern.cols].abs().max()) if (H.pattern.rows != H.pattern.cols).any() else 0.0
+    theta = torch.exp(sp_z.double().to(dev))
+    opts_v = tg.GAOptions(max_iter=SP_GA_ITER, inner_solver=tg.SolverSpec(kind="supernodal"), verbose=True)
+    iters03 = verbose_iterations(lambda: tg.laplace_marginal(sp_model, obs64, y03, {"tau": theta[:, 0], "range": theta[:, 1]},
+                                                             options=opts_v))
+    log(f"  (a) example 03 at n={sp_model.n}: {len(y03)} Bernoulli marks at the grid nodes through A "
+        f"{obs64.A.shape[0]} x {obs64.A.shape[1]} (nnz {obs64.A.nnz}); H = Aᵀ diag(h) A on {H.pattern.nnz} entries (largest off-diagonal "
+        f"|value| {offdiag:.1e}), Q_p − H on {'Q_p' if union == Q.pattern else 'a larger'}'s pattern "
+        f"({union.nnz} entries); K4 launches per likelihood gradient (rectangular A x and Aᵀ g): {rect}; "
+        f"launches of the f32 and f64 value+grads { {k: v for k, v in spatial_counts.items() if v} }; Newton iterations (f64, slowest chain) {iters03}")
+    for dt in (torch.float32, torch.float64):
+        log(f"  (a) {dtype_name(dt)} value+grad of {SP_CHAINS} chains: first call {t03[dt][0]:.3f} s, second "
+            f"{t03[dt][1]:.1f} ms, on {card}")
+    t0 = time.perf_counter()
+    ref03 = {dt: value_and_grad(lt_logdensity(sp_model, y03, dt, "cpu"), sp_z.to(dt)) for dt in (torch.float32, torch.float64)}
+    plain_s = time.perf_counter() - t0
+    check_slice("ex03 f64", *vg03[torch.float64], *ref03[torch.float64], SP_CHAINS, "f64", SP_SLICE_TOL)
+    k32, p32, p64 = vg03[torch.float32], ref03[torch.float32], ref03[torch.float64]
+    kp_v, kp_g, kp_chain = slice_errors(*k32, *p32)
+    p_v, p_g, p_chain = slice_errors(*p32, *p64)
+    k_v, k_g, _ = slice_errors(*k32, *p64)
+    bound_v, bound_g = EX03_F32_FACTOR * p_v + EX03_F32_FLOOR, EX03_F32_FACTOR * p_g + EX03_F32_FLOOR
+    log(f"  ex03 f32 kernels vs f32 plain: value max rel {kp_v:.3e} (bound {bound_v:.3e}), grad max rel {kp_g:.3e} "
+        f"(bound {bound_g:.3e}){kp_chain}; f32 plain vs f64 plain: value {p_v:.3e}, grad {p_g:.3e}{p_chain}; "
+        f"f32 kernels vs f64 plain (not held): value {k_v:.3e}, grad {k_g:.3e}; the two plain paths took "
+        f"{plain_s:.1f} s on the host CPU")
+    if not (k32[0].shape == (SP_CHAINS,) and torch.isfinite(k32[0]).all() and torch.isfinite(k32[1]).all()
+            and kp_v <= bound_v and kp_g <= bound_g):
+        raise AssertionError("ex03 f32: the kernel path is farther from the f32 plain path than f32 allows")
+    # (b) the log link
+    iters_nc = verbose_iterations(lambda: value_and_grad(nc_logdensity(y_nc, verbose=True), z_nc.to(dev)))
+    t0 = time.perf_counter()
+    ref_nc = value_and_grad(ld_nc, z_nc.double())
+    plain_s = time.perf_counter() - t0
+    zero_v, _ = value_and_grad(nc_logdensity(y_nc, start=False), z_nc.double())
+    log(f"  (b) AR1({N}) + normal/log (σ = {NC_SIGMA}), {CHAINS} chains, f32: value+grad first call {nc_first:.3f} s, "
+        f"second {nc_ms:.1f} ms, Newton iterations (slowest chain) {iters_nc}, on {card}; from the prior mean "
+        f"(laplace_marginal's start) the f64 plain path has {int(torch.isfinite(zero_v).sum())} of {CHAINS} chains "
+        f"finite; the f64 plain path from x0 = log(max(y, {NC_X0_FLOOR})) took {plain_s:.1f} s on the host CPU")
+    check_slice("log-link f64", *value_and_grad(ld_nc, z_nc.double().to(dev)), *ref_nc, CHAINS, "f64")
+    check_slice("log-link f32", *vg_nc, *ref_nc, CHAINS, "f32")
+    # (c) example 03 at its own size
+    bad = []
+    for dt, r in ex03.items():
+        line = []
+        for key, (gold, lim) in EX03_GOLDEN.items():
+            ok = abs(r[key] - gold) <= lim
+            bad += [] if ok else [f"{dtype_name(dt)} {key}"]
+            line.append(f"{key} {r[key]:.6f} (golden {gold:.6f} ± {lim:.4g}: {'ok' if ok else 'MISSED'})")
+        log(f"  (c) example 03, n={r['n']}, {dtype_name(dt)}, auto -> {r['kind']}: {'; '.join(line)}")
+    if bad:
+        raise AssertionError(f"example 03 misses its golden values: {bad}")
+    return counts
+
+
+# ---- phase 23: a non-Gaussian prior --------------------------------------------
+
+
+def st_factor(v, log_tau):
+    """A Student-t increment of the robust random walk (tests/test_nongaussian_priors.py:62-64)."""
+    d = (v[1] - v[0]) * torch.exp(log_tau)
+    return -0.5 * (ST_NU + 1) * torch.log1p(d**2 / ST_NU) + log_tau
+
+
+def st_anchor(v, log_tau):
+    return -0.5 * v[0] ** 2 / 100.0  # weak anchor for properness
+
+
+def st_density(x, log_tau):
+    """The whole log-density as one function of x (n,), for AutoDiffLatentPrior."""
+    d = (x[1:] - x[:-1]) * torch.exp(log_tau)
+    return torch.sum(-0.5 * (ST_NU + 1) * torch.log1p(d**2 / ST_NU) + log_tau) - 0.5 * torch.sum(x**2) / 100.0
+
+
+def st_prior(log_tau, autodiff: bool = False):
+    import tpu_gmrf_torch as tg
+    from tpu_gmrf_torch.sparse.matrix import _tridiag_pattern
+
+    if autodiff:
+        return tg.AutoDiffLatentPrior(theta={"log_tau": log_tau}, fn=st_density, n=N, hessian=_tridiag_pattern(N))
+    idx = np.stack([np.arange(N - 1), np.arange(1, N)], axis=1)
+    return tg.StructuredLatentPrior.create(N, [tg.FactorGroup(idx, st_factor), tg.FactorGroup(np.arange(N)[:, None],
+                                                                                                 st_anchor)],
+                                           theta={"log_tau": log_tau})
+
+
+def st_vg(log_tau, y, autodiff: bool = False, verbose: bool = False):
+    """(marginal (B,), d/dlog_tau (B, 1), mode (B, n)) of the robust random walk + Poisson."""
+    import tpu_gmrf_torch as tg
+
+    lt = log_tau.detach().clone().requires_grad_()
+    prior = st_prior(lt, autodiff)
+    lik = tg.ExponentialFamily("poisson")(torch.as_tensor(y, dtype=lt.dtype, device=lt.device))
+    opts = tg.GAOptions(max_iter=GA_MAX_ITER, verbose=verbose)
+    with torch.enable_grad():
+        post = tg.gaussian_approximation(prior, lik, options=opts)
+        v = tg.marginal_loglikelihood(prior, lik, posterior=post)
+        v.sum().backward()
+    return v.detach(), lt.grad[:, None], post.mean.detach()
+
+
+def nongaussian_path(dev, card):
+    """Phase 23: the Student-t random walk as a StructuredLatentPrior over 256 chains (f32, f64), and as an
+    AutoDiffLatentPrior on the tridiagonal pattern against it (f64)."""
+    import tpu_gmrf_torch as tg
+    from tpu_gmrf_torch import kernels
+    from tpu_gmrf_torch.linear_maps import pattern_column_coloring
+
+    y = flagship_y()
+    lts = np.linspace(ST_LOG_TAU[0], ST_LOG_TAU[1], CHAINS)
+    on_ = lambda dt, d=dev: torch.as_tensor(lts, dtype=dt, device=d)
+    sub = np.linspace(0, CHAINS - 1, ST_AD_CHAINS).astype(int)
+    t0 = time.perf_counter()
+    st_prior(on_(torch.float32))
+    create_ms = (time.perf_counter() - t0) * 1e3
+    kernels.reset_launches()
+    # ---- the non-Gaussian prior path: the structured prior f32 (twice) and f64, the autodiff prior f64 ----
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    k32 = st_vg(on_(torch.float32), y)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    st_vg(on_(torch.float32), y)
+    torch.cuda.synchronize()
+    second_ms = (time.perf_counter() - t0) * 1e3
+    k64 = st_vg(on_(torch.float64), y)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ad = st_vg(on_(torch.float64)[sub], y, autodiff=True)
+    torch.cuda.synchronize()
+    ad_ms = (time.perf_counter() - t0) * 1e3
+    counts = kernels.launches()
+    # ---- end of the non-Gaussian prior path ----
+    launched(counts, ST_KERNELS, "non-Gaussian prior")
+    from tpu_gmrf_torch.sparse.matrix import _tridiag_pattern
+
+    ncol = pattern_column_coloring(_tridiag_pattern(N), N)[1]
+    iters = verbose_iterations(lambda: st_vg(on_(torch.float32), y, verbose=True))
+    post_kind = tg.SolverSpec().resolve(st_prior(on_(torch.float64)).pattern).kind
+    log(f"  (a) StructuredLatentPrior (n={N}, ν={ST_NU:g}, {N - 1} + {N} factors; create {create_ms:.1f} ms on the "
+        f"host) + Poisson, {CHAINS} chains, log_tau in [{ST_LOG_TAU[0]}, {ST_LOG_TAU[1]}], f32: value+grad first call "
+        f"{first_s:.3f} s, second {second_ms:.1f} ms, Newton iterations (slowest chain) {iters}; auto -> {post_kind}; "
+        f"on {card}")
+    t0 = time.perf_counter()
+    ref = st_vg(on_(torch.float64, "cpu"), y)
+    plain_s = time.perf_counter() - t0
+    log(f"  (the f64 plain path took {plain_s:.1f} s on the host CPU)")
+    check_slice("robust RW f64", *k64[:2], *ref[:2], CHAINS, "f64", dims=1)
+    check_slice("robust RW f32", *k32[:2], *ref[:2], CHAINS, "f32", dims=1)
+    # (b) the autodiff prior against the structured one at the same log_tau, f64 on the card
+    errs = {name: float(((a.double() - b.double()).abs().max() / b.double().abs().max().clamp_min(1e-300)))
+            for name, a, b in (("mode", ad[2], k64[2][sub]), ("marginal", ad[0], k64[0][sub]),
+                               ("gradient", ad[1], k64[1][sub]))}
+    log(f"  (b) AutoDiffLatentPrior on the tridiagonal pattern ({ncol} colours of coloured HVPs), {ST_AD_CHAINS} chains, "
+        f"f64, {ad_ms:.1f} ms per value+grad, vs the StructuredLatentPrior: "
+        + ", ".join(f"{k} max rel {v:.3e}" for k, v in errs.items()) + f" (tol {ST_AD_TOL:.0e}); on {card}")
+    if not all(v <= ST_AD_TOL for v in errs.values()):
+        raise AssertionError("the autodiff prior disagrees with the structured prior")
+    return counts
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4116,9 +4474,15 @@ def main() -> int:
     counts20 = areal_path(dev, card)
     log(f"phase 21 the examples' golden values: 01, 02 and 05, f32 and f64, on {card}")
     counts21 = examples_path(dev, card)
+    log(f"phase 22 observation breadth: example 03 at n={sp_model.n} (LT Bernoulli, f32 and f64), normal/log "
+        f"link AR1({N}) over {CHAINS} chains (f32), example 03 at its own size (f32 and f64); on {card}")
+    counts22 = observation_path(sp_model, dev, card)
+    log(f"phase 23 a non-Gaussian prior: the Student-t random walk, n={N}, {CHAINS} chains (f32, f64), and as an "
+        f"AutoDiffLatentPrior ({ST_AD_CHAINS} chains, f64); on {card}")
+    counts23 = nongaussian_path(dev, card)
 
     paths = (counts, sp_counts, counts9, counts10, counts11, counts12, counts13, counts13b, counts14, counts15,
-             counts16, counts17, counts18, counts19, counts20, counts21)
+             counts16, counts17, counts18, counts19, counts20, counts21, counts22, counts23)
     report = {
         "kernels": [
             {"name": name, "route": "cuda", "source": SOURCES[name][0], "replaces": SOURCES[name][1],

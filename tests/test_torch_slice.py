@@ -151,10 +151,11 @@ def test_exponential_family_matches_reference(family, params):
                                    rtol=1e-12)
 
 
-def test_noncanonical_links_and_unported_paths_raise():
+def test_noncanonical_links_and_other_likelihoods_return():
     lik = tg.ExponentialFamily("poisson", link="identity")(np.ones(4))
-    with pytest.raises(NotImplementedError):
-        lik.loggrad(torch.ones(4, dtype=F64))
+    x = torch.full((4,), 2.0, dtype=F64)  # ℓ = y log η − η: dℓ/dη = y/η − 1, d²ℓ/dη² = −y/η²
+    torch.testing.assert_close(lik.loggrad(x), torch.full((4,), -0.5, dtype=F64), rtol=1e-14, atol=0)
+    torch.testing.assert_close(lik.loghessian_diag(x), torch.full((4,), -0.25, dtype=F64), rtol=1e-14, atol=0)
     with pytest.raises(ValueError):
         tg.ARModel(2, order=2)
     assert isinstance(tg.AR1Model(8, constraint="sumtozero")(tau=_t(1.0), rho=_t(0.5)), tg.ConstrainedGMRF)
@@ -164,10 +165,12 @@ def test_noncanonical_links_and_unported_paths_raise():
     with pytest.raises(NotImplementedError, match="CG backend does not support logdet"):
         cg.logdet()
     prior = tg.AR1Model(8)(tau=_t(1.0), rho=_t(0.5))
-    with pytest.raises(NotImplementedError, match="non-Gaussian latent priors"):
+    with pytest.raises(TypeError, match="unsupported prior type"):
         tg.gaussian_approximation(object(), tg.ExponentialFamily("normal")(np.ones(8), sigma=_t(1.0)))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tg.gaussian_approximation(prior, tg.ObservationLikelihood())
+    # a likelihood that is not an exponential family: ZeroLikelihood leaves the prior as it is
+    post = tg.gaussian_approximation(prior, tg.ZeroLikelihood())
+    torch.testing.assert_close(post.mean, torch.zeros(8, dtype=F64), rtol=0, atol=1e-12)
+    torch.testing.assert_close(post.Q.todense(), Q.todense(), rtol=1e-14, atol=0)
 
 
 # ---- Laplace approximation and marginal ---------------------------------------

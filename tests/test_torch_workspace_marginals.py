@@ -164,7 +164,9 @@ def test_linear_predictor_marginals_subset_and_constrained_match_reference():
     for b, tau in enumerate((1.0, 2.0)):
         jc = jg.gaussian_approximation(jg.RW1Model(10)(tau=tau), jg.ExponentialFamily("poisson")(jnp.asarray(ys)))
         assert _rel(v[b], jc.var()) <= 1e-8
-    with pytest.raises(NotImplementedError, match="linearly transformed"):
+    # a likelihood with no linear predictor raises, as in the reference (the LT and composite branches are
+    # held in test_torch_lt_laplace.py)
+    with pytest.raises(TypeError, match="unsupported likelihood type"):
         tg.linear_predictor_marginals(post, tg.ObservationLikelihood())
 
 

@@ -28,37 +28,53 @@ from .inference import (
 )
 from .kl_cholesky import approximate_gmrf_kl, reverse_maximin_ordering
 from .linear_maps import (
+    ADJacobianMap,
     CholeskySqrtMap,
     OuterProductMap,
     SSMBidiagonalMap,
     SymmetricBlockTridiagonalMap,
     ZeroMap,
     block_tridiag_to_sparse,
+    sparse_hessian_map,
+    sparse_jacobian_map,
 )
 from .metagmrf import GMRFMetadata, MetaGMRF
 from .models import (
     AR1Model,
     ARModel,
+    AutoDiffLatentPrior,
     BesagModel,
     BYM2Model,
     CARModel,
     CombinedModel,
+    FactorGroup,
     FixedEffectsModel,
     IIDModel,
     LatentModel,
+    LatentPrior,
     RW1Model,
     RW2Model,
     RWModel,
     SeparableModel,
+    StructuredLatentPrior,
+    detect_hessian_pattern,
     generate_car_model,
 )
 from .observations import (
+    AutoDiffObservationModel,
     BinomialObservations,
+    CompositeObservationModel,
     ExponentialFamily,
+    LinearlyTransformedObservationModel,
     NegativeBinomialObservations,
+    NonlinearLeastSquaresModel,
     ObservationLikelihood,
     ObservationModel,
+    ParameterizedMatrix,
+    ParameterizedOffset,
     PoissonObservations,
+    ZeroLikelihood,
+    conditional_distribution,
 )
 from .parallel import pbtridiag_logdet, pbtridiag_solve, sharded_block_tridiag_solver
 from .samplers import IdentityTransform, LogitTransform, LogTransform, ParamSpec, make_logdensity, run_hmc, run_nuts
@@ -80,6 +96,9 @@ __all__ = [
     "SymmetricBlockTridiagonalMap",
     "ZeroMap",
     "block_tridiag_to_sparse",
+    "ADJacobianMap",
+    "sparse_jacobian_map",
+    "sparse_hessian_map",
     "rbmc_var",
     "cg_solve",
     "SparseMatrix",
@@ -112,6 +131,11 @@ __all__ = [
     "SeparableModel",
     "CARModel",
     "generate_car_model",
+    "LatentPrior",
+    "AutoDiffLatentPrior",
+    "StructuredLatentPrior",
+    "FactorGroup",
+    "detect_hessian_pattern",
     "MaternModel",
     "MaternSPDE",
     "FEMDiscretization",
@@ -123,6 +147,14 @@ __all__ = [
     "PoissonObservations",
     "BinomialObservations",
     "NegativeBinomialObservations",
+    "LinearlyTransformedObservationModel",
+    "ParameterizedMatrix",
+    "ParameterizedOffset",
+    "CompositeObservationModel",
+    "AutoDiffObservationModel",
+    "NonlinearLeastSquaresModel",
+    "ZeroLikelihood",
+    "conditional_distribution",
     "GAOptions",
     "gaussian_approximation",
     "marginal_loglikelihood",

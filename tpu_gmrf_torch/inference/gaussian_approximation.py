@@ -1,20 +1,22 @@
 """Laplace gaussian approximation, batched over chains.
 
-Counterpart of ``tpu_gmrf.inference.gaussian_approximation`` for GMRF and
-`ConstrainedGMRF` priors. Newton with a backtracking line search (α ← √α on
-accept, α ← 0.1α on shrink, force-accept when α‖step‖∞ < tol/1000),
-convergence on the Newton decrement or the mean change, and an immediate
-exit on a non-finite iterate. A constrained prior's Newton steps are
-projected onto Ax = 0 (the KKT step, ``_project_step``), from the prior's
-constrained mean, and the result is the constrained posterior. A Normal
-likelihood with the identity link and no offset on an unconstrained prior
-takes the conjugate shortcut through `linear_condition`.
+Counterpart of ``tpu_gmrf.inference.gaussian_approximation`` for GMRF,
+`ConstrainedGMRF` and non-Gaussian `LatentPrior` priors and any observation
+likelihood. Newton with a backtracking line search (α ← √α on accept,
+α ← 0.1α on shrink, force-accept when α‖step‖∞ < tol/1000), convergence on
+the Newton decrement or the mean change, and an immediate exit on a
+non-finite iterate. A constrained prior's Newton steps are projected onto
+Ax = 0 (the KKT step, ``_project_step``), from the prior's constrained
+mean, and the result is the constrained posterior. A Normal likelihood
+with the identity link and no offset on an unconstrained prior takes the
+conjugate shortcut through `linear_condition`, seen directly or through a
+linearly transformed likelihood (η = A x + b).
 
 The reference gets per-chain convergence from ``vmap`` of ``while_loop``:
 a converged chain's carry is frozen. Here the loop is written out over a
-leading chain axis: it runs until every chain has converged or ``max_iter``
-is reached, and a chain that has converged (or gone non-finite) keeps its
-x and α. The line search is masked the same way.
+leading chain axis (``_newton_loop``): it runs until every chain has
+converged or ``max_iter`` is reached, and a chain that has converged (or
+gone non-finite) keeps its x and α. The line search is masked the same way.
 
 Differentiation splits at the mode: `NewtonMode` runs the loop without
 autograd, and its backward is the implicit-function rule of the reference
@@ -23,13 +25,19 @@ solve v = Q_post⁻¹ x̄, and the input cotangents from the score
 Q_p (x* − μ_p) − ∇loglik(x*) pulled back with −v. Under constraints the
 reference's KKT tangent rule projects the tangent; its map
 M = S − SAᵀ(ASAᵀ)⁻¹AS (S = Q_post⁻¹) is symmetric, so the backward is
-v = M x̄: the same solve, then the same projection as a Newton step. The
-loop and its backward use only ``factorize`` and the factor's ``solve``,
-so they run unchanged on the tridiagonal (K1, K2) and the supernodal
-(K5-K8) backends. Q_p − H is formed on the union pattern by ``sp_add``
-(K5); for a pattern that holds its diagonal (every GMRF precision here)
-that union is Q_p's own pattern, so one supernodal plan serves the prior
-and every posterior.
+v = M x̄: the same solve, then the same projection as a Newton step. A
+non-Gaussian prior takes `NewtonModeNL` (the reference's
+``_newton_mode_nl``): the prior is re-linearized at every iterate
+(``local_quadratic``), the line search's merit is the exact log-density,
+and the backward pulls the score −∇log p(x*) − ∇loglik(x*) back with −v to
+the prior's θ tensors and the likelihood's. The loop and its backwards use
+only ``factorize`` and the factor's ``solve``, so they run unchanged on the
+tridiagonal (K1, K2), dense (K9, K10) and supernodal (K5-K8) backends.
+Q_p − H is formed on the union pattern by ``sp_add`` (K5, its plan cached
+per pair of patterns, so per pattern and not per iterate); where H's
+pattern lies inside Q_p's (a diagonal H, or a linearly transformed H whose
+rows touch only Q_p's neighbourhoods) the union is Q_p's pattern, so one
+supernodal plan serves the prior and every posterior.
 """
 
 from __future__ import annotations
@@ -42,11 +50,14 @@ from ..constrained import ConstrainedGMRF, _cho_solve, _times
 from ..gmrf import GMRF
 from ..kernels import csr_spmv
 from ..observations.base import ObservationLikelihood
+from .._device import default_device
+from ..models.nongaussian import LatentPrior
 from ..observations.exponential_family import EFLikelihood
+from ..observations.linearly_transformed import LinearlyTransformedLikelihood
 from ..solvers.base import SolverSpec, factorize, no_double_backward
 from ..sparse.matrix import SparseMatrix, _csr, spdiag
 
-__all__ = ["gaussian_approximation", "GAOptions", "NewtonMode"]
+__all__ = ["gaussian_approximation", "GAOptions", "NewtonMode", "NewtonModeNL"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,8 +73,9 @@ class GAOptions:
 
 
 def _loghessian(obs_lik, x) -> SparseMatrix:
-    # exponential families only: the Hessian is diagonal
-    return spdiag(obs_lik.loghessian_diag(x))
+    if obs_lik.hessian_kind == "diag":
+        return spdiag(obs_lik.loghessian_diag(x))
+    return obs_lik.loghessian(x)
 
 
 def _posterior_pair(Q_p: SparseMatrix, H: SparseMatrix) -> SparseMatrix:
@@ -87,13 +99,10 @@ def _where(mask, a, b):
     return torch.where(mask, a, b)
 
 
-def _newton_mode_impl(opts: GAOptions, Q_p: SparseMatrix, mu_p, obs_lik, x0, A=None):
-    h = Q_p.matvec(mu_p)
-
-    def merit(x, xQx=None):
-        xQx = Q_p.quad(x) if xQx is None else xQx
-        return 0.5 * xQx - (h * x).sum(-1) - obs_lik.loglik(x)
-
+def _newton_loop(opts: GAOptions, x, linearize, merit, A=None):
+    """Newton's iterations from x (…, n), per chain: `linearize(x)` gives
+    (factor of Q_post(x), the negative score, merit(x)); `merit` is the
+    line search's objective."""
     tiny_tol = opts.newton_dec_tol / 1000.0
 
     def line_search(x_k, step, alpha, obj_current):
@@ -120,26 +129,18 @@ def _newton_mode_impl(opts: GAOptions, Q_p: SparseMatrix, mu_p, obs_lik, x0, A=N
         x_new = _where(accepted, x_new, x_k - alpha_cur[..., None] * step)
         return x_new, _where(accepted, alpha_next, alpha_cur)
 
-    x = x0
     alpha = torch.ones(x.shape[:-1], dtype=x.dtype, device=x.device)
     converged = torch.zeros(x.shape[:-1], dtype=torch.bool, device=x.device)
     for it in range(opts.max_iter):
         active = ~converged
         if not bool(active.any()):
             break
-        H_k = _loghessian(obs_lik, x)
-        g_l = obs_lik.loggrad(x)
-        factor = factorize(_posterior_pair(Q_p, H_k), opts.inner_solver)
-        # Q_p x for the score and xᵀQ_p x for the merit at x, from one K4 call (the loop runs without autograd)
-        xb = x.reshape(-1, x.shape[-1]).contiguous()
-        Qx, xQx = csr_spmv(*_csr(Q_p.pattern, x.device), Q_p.data.contiguous(), xb, quad=True)
-        Qx, xQx = Qx.reshape(x.shape), xQx.reshape(x.shape[:-1])
-        neg_score = (Qx - h) - g_l
+        factor, neg_score, obj = linearize(x)
         step = factor.solve(neg_score)
         if A is not None:
             step = _project_step(step, factor, A)
         if opts.adaptive_stepsize:
-            x_new, alpha_new = line_search(x, step, alpha, merit(x, xQx))
+            x_new, alpha_new = line_search(x, step, alpha, obj)
         else:
             x_new, alpha_new = x - step, alpha
         newton_dec = (neg_score * step).sum(-1)
@@ -159,6 +160,26 @@ def _newton_mode_impl(opts: GAOptions, Q_p: SparseMatrix, mu_p, obs_lik, x0, A=N
         alpha = _where(active, alpha_new, alpha)
         converged = converged | (active & conv)
     return x
+
+
+def _newton_mode_impl(opts: GAOptions, Q_p: SparseMatrix, mu_p, obs_lik, x0, A=None):
+    h = Q_p.matvec(mu_p)
+
+    def merit(x, xQx=None):
+        xQx = Q_p.quad(x) if xQx is None else xQx
+        return 0.5 * xQx - (h * x).sum(-1) - obs_lik.loglik(x)
+
+    def linearize(x):
+        H_k = _loghessian(obs_lik, x)
+        g_l = obs_lik.loggrad(x)
+        factor = factorize(_posterior_pair(Q_p, H_k), opts.inner_solver)
+        # Q_p x for the score and xᵀQ_p x for the merit at x, from one K4 call (the loop runs without autograd)
+        xb = x.reshape(-1, x.shape[-1]).contiguous()
+        Qx, xQx = csr_spmv(*_csr(Q_p.pattern, x.device), Q_p.data.contiguous(), xb, quad=True)
+        Qx, xQx = Qx.reshape(x.shape), xQx.reshape(x.shape[:-1])
+        return factor, (Qx - h) - g_l, merit(x, xQx)
+
+    return _newton_loop(opts, x0, linearize, merit, A)
 
 
 class NewtonMode(torch.autograd.Function):
@@ -208,6 +229,77 @@ class NewtonMode(torch.autograd.Function):
         return (None, None, None, None, None, *grads)
 
 
+# ---- non-Gaussian latent priors (iterated re-linearization, TMB-style) -----
+
+
+def _newton_mode_nl_impl(opts: GAOptions, prior, obs_lik, x0):
+    """Newton with the prior re-linearized at every iterate (reference
+    `_prior_local`, src/latent_models/local_quadratic.jl:100-140); the line
+    search's merit is the exact log-density."""
+
+    def merit(x):
+        return -prior.log_density(x) - obs_lik.loglik(x)
+
+    def linearize(x):
+        Q_p, h = prior.local_quadratic(x)
+        H_k = _loghessian(obs_lik, x)
+        g_l = obs_lik.loggrad(x)
+        factor = factorize(_posterior_pair(Q_p, H_k), opts.inner_solver)
+        return factor, (Q_p.matvec(x) - h) - g_l, merit(x)
+
+    batch = torch.broadcast_shapes(x0.shape[:-1], merit(x0).shape)
+    return _newton_loop(opts, x0.expand(batch + x0.shape[-1:]).contiguous(), linearize, merit)
+
+
+class NewtonModeNL(torch.autograd.Function):
+    """x* of a non-Gaussian `LatentPrior` with the IFT backward.
+
+    apply(opts, prior, lik, x0, k, *prior.tensors(), *lik.tensors()), k the
+    number of prior tensors; x0 gets no gradient (the mode does not depend
+    on the seed)."""
+
+    @staticmethod
+    def forward(ctx, opts, prior, lik, x0, k, *ts):
+        prior, lik = prior.with_tensors(ts[:k]), lik.with_tensors(ts[k:])
+        x_star = _newton_mode_nl_impl(opts, prior, lik, x0)
+        # the tensors go through save_for_backward, not ctx
+        ctx.opts, ctx.k = opts, k
+        ctx.prior, ctx.lik = prior.with_tensors([None] * k), lik.with_tensors([None] * (len(ts) - k))
+        ctx.save_for_backward(x_star, *ts)
+        return x_star
+
+    @staticmethod
+    def backward(ctx, gx):
+        no_double_backward("the non-Gaussian Laplace Newton mode")
+        x_star, *ts = ctx.saved_tensors
+        k = ctx.k
+        prior, lik = ctx.prior.with_tensors(ts[:k]), ctx.lik.with_tensors(ts[k:])
+        # 1-2: refactorize Q_post(x*) = −∇²log p(x*) − H(x*) and solve v = Q_post⁻¹ x̄ (opaque solve)
+        Q_p, _ = prior.local_quadratic(x_star)
+        factor = factorize(_posterior_pair(Q_p, _loghessian(lik, x_star)), ctx.opts.inner_solver)
+        v = factor.solve(gx.expand(x_star.shape).contiguous())
+        # 3: input cotangents = (∂score/∂inputs)ᵀ (−v), score = −∇log p(x*) − ∇loglik(x*)
+        needs = ctx.needs_input_grad[5:]
+        leaves = [t.detach().requires_grad_() if need else t for t, need in zip(ts, needs)]
+        wanted = [t for t, need in zip(leaves, needs) if need]
+        grads = [None] * len(ts)
+        if wanted:
+            with torch.enable_grad():
+                p_, l_ = ctx.prior.with_tensors(leaves[:k]), ctx.lik.with_tensors(leaves[k:])
+                score = -p_.grad_log_density(x_star) - l_.loggrad(x_star)
+                got = iter(torch.autograd.grad(score, wanted, grad_outputs=-v, allow_unused=True))
+            grads = [next(got) if need else None for need in needs]
+        return (None, None, None, None, None, *grads)
+
+
+def _like(tensors):
+    """(dtype, device) of the first floating tensor of `tensors`, else the defaults."""
+    for t in tensors:
+        if torch.is_tensor(t) and t.is_floating_point():
+            return t.dtype, t.device
+    return torch.get_default_dtype(), default_device()
+
+
 def _is_conjugate_normal(obs_lik) -> bool:
     return (
         isinstance(obs_lik, EFLikelihood)
@@ -217,14 +309,15 @@ def _is_conjugate_normal(obs_lik) -> bool:
     )
 
 
-def _conjugate(base: GMRF, obs_lik: EFLikelihood, solver):
-    """The conjugate shortcut: y = x[indices] + ε, ε ~ N(0, σ²I), by
-    `linear_condition`; σ scalar or (B,), one per chain."""
+def _conjugate(base: GMRF, obs_lik: EFLikelihood, solver, A=None, b=None):
+    """The conjugate shortcut: y = x[indices] + ε or y = A x + b + ε,
+    ε ~ N(0, σ²I), by `linear_condition`; σ scalar or (B,), one per chain
+    (a dense A takes one GMRF)."""
     from .linear_condition import linear_condition
 
     sigma = torch.as_tensor(obs_lik.params["sigma"], dtype=base.dtype, device=base.Q.device)
     prec = (1.0 / sigma**2)[..., None].expand(sigma.shape + obs_lik.y.shape[-1:])
-    return linear_condition(base, y=obs_lik.y, Q_eps=spdiag(prec), indices=obs_lik.indices, solver=solver)
+    return linear_condition(base, y=obs_lik.y, Q_eps=spdiag(prec), A=A, b=b, indices=obs_lik.indices, solver=solver)
 
 
 def gaussian_approximation(
@@ -234,24 +327,33 @@ def gaussian_approximation(
     options: GAOptions = GAOptions(),
     solver: SolverSpec | None = None,
 ):
-    """Gaussian (Laplace) approximation to p(x | y) for a GMRF or
-    ConstrainedGMRF prior (batched over chains); differentiable w.r.t. the
-    prior's data and mean and the likelihood's tensors through `NewtonMode`
-    (the conjugate shortcut through `linear_condition`)."""
+    """Gaussian (Laplace) approximation to p(x | y) for a GMRF,
+    ConstrainedGMRF or non-Gaussian `LatentPrior` prior (batched over
+    chains) and any observation likelihood; differentiable w.r.t. the
+    prior's data and mean (θ for a LatentPrior) and the likelihood's
+    tensors through `NewtonMode` / `NewtonModeNL` (the conjugate shortcut
+    through `linear_condition`)."""
+    if isinstance(prior, LatentPrior):
+        solver = solver if solver is not None else SolverSpec()
+        pt = prior.tensors()
+        if x0 is None:
+            dtype, dev = _like(pt + obs_lik.tensors())
+            x0 = torch.zeros(prior.n, dtype=dtype, device=dev)
+        else:
+            x0 = torch.as_tensor(x0, device=_like(pt)[1])
+        x_star = NewtonModeNL.apply(options, prior, obs_lik, x0.detach(), len(pt), *pt, *obs_lik.tensors())
+        Q_p, _ = prior.local_quadratic(x_star)
+        return GMRF.from_precision(x_star, _posterior_pair(Q_p, _loghessian(obs_lik, x_star)), solver)
     if not isinstance(prior, (GMRF, ConstrainedGMRF)):
-        raise NotImplementedError(
-            f"non-Gaussian latent priors ({type(prior).__name__}: LatentPrior and the re-linearized Newton mode) "
-            "are not ported yet"
-        )
-    if not isinstance(obs_lik, EFLikelihood):
-        raise NotImplementedError(
-            f"{type(obs_lik).__name__} is not ported yet (linearly transformed, composite and autodiff likelihoods)"
-        )
+        raise TypeError(f"unsupported prior type {type(prior).__name__}")
     constrained = isinstance(prior, ConstrainedGMRF)
     base = prior.base if constrained else prior
     solver = solver if solver is not None else base.solver
     if not constrained and _is_conjugate_normal(obs_lik):
         return _conjugate(base, obs_lik, solver)
+    if (not constrained and isinstance(obs_lik, LinearlyTransformedLikelihood)
+            and _is_conjugate_normal(obs_lik.base) and obs_lik.base.indices is None):
+        return _conjugate(base, obs_lik.base, solver, A=obs_lik.A, b=obs_lik.b)
     x0 = prior.mean if x0 is None else torch.as_tensor(x0, dtype=base.dtype, device=base.Q.device)
     A = prior.A if constrained else None
     x_star = NewtonMode.apply(

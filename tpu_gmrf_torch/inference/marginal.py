@@ -3,7 +3,8 @@
 Counterpart of ``tpu_gmrf.inference.marginal``: log p(y|θ) ≈ log p(x*|θ) +
 log p(y|x*,θ) − log p_Laplace(x*|y,θ) at the converged mode x*; under hard
 constraints the correction terms enter through the constrained logpdfs on
-both sides. With θ entries of shape (B,) it returns B marginals, one per
+both sides; a non-Gaussian `LatentPrior` contributes its exact
+log-density. With θ entries of shape (B,) it returns B marginals, one per
 chain.
 """
 
@@ -12,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from ..models.base import LatentModel
+from ..models.nongaussian import LatentPrior
 from ..observations.base import ObservationLikelihood, ObservationModel
 from .gaussian_approximation import GAOptions, gaussian_approximation
 
@@ -20,14 +22,16 @@ __all__ = ["marginal_loglikelihood", "laplace_marginal"]
 
 def marginal_loglikelihood(prior, obs_lik: ObservationLikelihood, posterior=None,
                            options: GAOptions = GAOptions()):
-    """Laplace log p(y | θ) given a materialized prior GMRF and likelihood.
+    """Laplace log p(y | θ) given a materialized prior (GMRF, ConstrainedGMRF
+    or LatentPrior) and likelihood.
 
     ``posterior.logpdf(x*)`` differentiates through logdet(Q_post(x*(θ))), so
     the θ-gradient reaches the mode's IFT backward through the Hessian."""
     if posterior is None:
         posterior = gaussian_approximation(prior, obs_lik, options=options)
     x_star = posterior.mean
-    return prior.logpdf(x_star) + obs_lik.loglik(x_star) - posterior.logpdf(x_star)
+    prior_lp = prior.log_density(x_star) if isinstance(prior, LatentPrior) else prior.logpdf(x_star)
+    return prior_lp + obs_lik.loglik(x_star) - posterior.logpdf(x_star)
 
 
 def laplace_marginal(

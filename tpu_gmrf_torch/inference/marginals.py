@@ -7,10 +7,9 @@ observation's linear-predictor mean and variance (with the hard-constraint
 correction), and WAIC and CPO from posterior draws. `waic` and
 `conditional_predictive_ordinates` take a ``torch.Generator`` where the
 reference takes a key. `linear_predictor_marginals` has the
-exponential-family branch; the linearly transformed and composite
-likelihoods are not ported yet. `_row_diag_ASigmaAt`, the variance of Aη
-that those branches need, is ported with its plan (`_pair_plan`) and its
-fallback (`_inverse_entries`); it takes one GMRF.
+exponential-family, linearly transformed and composite branches; the
+variance of Aη (`_row_diag_ASigmaAt`, with its plan `_pair_plan` and its
+fallback `_inverse_entries`) takes one GMRF.
 """
 
 from __future__ import annotations
@@ -23,7 +22,9 @@ import torch
 
 from ..constrained import ConstrainedGMRF
 from ..kernels import SegPlan, gather_segsum
+from ..observations.composite import CompositeLikelihood
 from ..observations.exponential_family import EFLikelihood
+from ..observations.linearly_transformed import LinearlyTransformedLikelihood
 from ..sparse.matrix import SparseMatrix
 from ..sparse.pattern import SparsePattern
 
@@ -116,10 +117,24 @@ def linear_predictor_marginals(ga, obs_lik):
             return mu, v, obs_lik
         idx = obs_lik.indices
         return mu[..., idx], v[..., idx], dataclasses.replace(obs_lik, indices=None)
-    raise NotImplementedError(
-        f"linear_predictor_marginals for {type(obs_lik).__name__} is not ported yet (the linearly transformed and "
-        "composite likelihoods)"
-    )
+    if isinstance(obs_lik, LinearlyTransformedLikelihood):
+        A = obs_lik.A
+        mu_eta = A.matvec(ga.mean) if isinstance(A, SparseMatrix) else ga.mean @ A.mT
+        if obs_lik.b is not None:
+            mu_eta = mu_eta + obs_lik.b
+        return mu_eta, _row_diag_ASigmaAt(A, ga), obs_lik.base
+    if isinstance(obs_lik, CompositeLikelihood):
+        parts = [linear_predictor_marginals(ga, c) for c in obs_lik.components]
+        comps, off = [], 0
+        for mu_c, _, lik in parts:
+            m = mu_c.shape[-1]
+            if isinstance(lik, EFLikelihood):
+                lik = dataclasses.replace(lik, indices=torch.arange(off, off + m, device=mu_c.device))
+            comps.append(lik)
+            off += m
+        mu = torch.cat([p[0] for p in parts], -1)
+        return mu, torch.cat([p[1] for p in parts], -1), CompositeLikelihood(components=tuple(comps))
+    raise TypeError(f"unsupported likelihood type {type(obs_lik)}")
 
 
 def _pointwise_draws(posterior, obs_lik, generator, num_samples: int):

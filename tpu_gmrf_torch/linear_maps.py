@@ -3,9 +3,10 @@
 Counterpart of ``tpu_gmrf.linear_maps`` (reference `src/linear_maps/`:
 SymmetricBlockTridiagonalMap, SSMBidiagonalMap, OuterProductMap, ZeroMap,
 CholeskySqrt/LinearMapWithSqrt). An operator is an object with a `matvec`;
-these never materialize the full matrix. The AD-based maps of the reference
-(`ADJacobianMap`, `sparse_jacobian_map`, `sparse_hessian_map`) are not
-ported yet.
+these never materialize the full matrix. The AD-based maps
+(`ADJacobianMap`, `sparse_jacobian_map`, `sparse_hessian_map`) use
+``torch.func``: the function is written for one chain, and a batch of
+points x (B, n) is mapped with ``vmap``.
 
 Block convention: a block-tridiagonal map over Nt time slices of size ns
 stores diag blocks as (Nt, ns, ns) and off-diagonal (sub) blocks as
@@ -19,6 +20,7 @@ import dataclasses
 
 import numpy as np
 import torch
+from torch.func import grad, jvp, vjp, vmap
 
 __all__ = [
     "SymmetricBlockTridiagonalMap",
@@ -26,6 +28,10 @@ __all__ = [
     "OuterProductMap",
     "ZeroMap",
     "CholeskySqrtMap",
+    "ADJacobianMap",
+    "sparse_jacobian_map",
+    "sparse_hessian_map",
+    "pattern_column_coloring",
     "block_tridiag_to_sparse",
 ]
 
@@ -138,6 +144,104 @@ class CholeskySqrtMap:
 
     def __matmul__(self, z):
         return self.matvec(z)
+
+
+@dataclasses.dataclass(frozen=True)
+class ADJacobianMap:
+    """Lazy Jacobian J = ∂f/∂x at x_ref as a linear operator (reference
+    src/linear_maps/ad_jacobian.jl): `matvec` is one `jvp`, `rmatvec` one
+    `vjp`; the Jacobian is never materialized. f maps (n,) to (m,); x_ref
+    is (n,) or (B, n), one Jacobian per chain."""
+
+    f: object
+    x_ref: torch.Tensor
+
+    @property
+    def shape(self):
+        x0 = self.x_ref if self.x_ref.ndim == 1 else self.x_ref[0]
+        return (int(self.f(x0).numel()), int(x0.shape[0]))
+
+    def _apply(self, one, v):
+        """one(x, v) per chain of x_ref and of v (each (…,) or (B, …))."""
+        if self.x_ref.ndim == 1 and v.ndim == 1:
+            return one(self.x_ref, v)
+        return vmap(one, in_dims=(0 if self.x_ref.ndim == 2 else None, 0 if v.ndim == 2 else None))(self.x_ref, v)
+
+    def matvec(self, v):
+        return self._apply(lambda x, t: jvp(self.f, (x,), (t,))[1], v)
+
+    def rmatvec(self, w):
+        return self._apply(lambda x, t: vjp(self.f, x)[1](t)[0], w)
+
+    def __matmul__(self, v):
+        return self.matvec(v)
+
+
+_COLOR_CACHE: dict = {}
+
+
+def pattern_column_coloring(pattern, n: int):
+    """Greedy distance-2 column coloring of `pattern` (columns conflict when
+    they touch a common row), in column order, each column taking the least
+    colour no column sharing a row with it has. Host NumPy, cached per
+    pattern. Returns (color (n,), ncolors)."""
+    key = (pattern, n)
+    cached = _COLOR_CACHE.get(key)
+    if cached is not None:
+        return cached
+    cols = np.asarray(pattern.cols, np.int64)
+    order = np.argsort(cols, kind="stable")
+    rows_by_col = np.split(np.asarray(pattern.rows, np.int64)[order], np.cumsum(np.bincount(cols, minlength=n))[:-1])
+    used = [set() for _ in range(pattern.shape[0])]  # colours already taken at each row
+    color = np.full(n, -1, dtype=np.int64)
+    for c in range(n):
+        rows = rows_by_col[c]
+        forbidden = set().union(*(used[r] for r in rows)) if len(rows) else set()
+        k = 0
+        while k in forbidden:
+            k += 1
+        color[c] = k
+        for r in rows:
+            used[r].add(k)
+    ncolors = int(color.max()) + 1 if n else 0
+    _COLOR_CACHE[key] = (color, ncolors)
+    return color, ncolors
+
+
+def _jacobian_data(f, x, pattern) -> torch.Tensor:
+    """The entries of ∂f/∂x at one point x (n,) on `pattern`, (nnz,): one
+    jvp per colour of the column coloring, the seeds' passes vmapped."""
+    n = x.shape[-1]
+    color, ncolors = pattern_column_coloring(pattern, n)
+    seeds = np.zeros((ncolors, n))
+    seeds[color, np.arange(n)] = 1.0
+    seeds = torch.as_tensor(seeds, dtype=x.dtype, device=x.device)
+    jv = vmap(lambda s: jvp(f, (x,), (s,))[1])(seeds)  # (ncolors, m)
+    if jv.ndim == 1:
+        jv = jv[:, None]
+    # entry (r, c) lives in the pass of color[c] at output row r
+    sel = torch.as_tensor(color[pattern.cols], device=x.device)
+    return jv[sel, torch.as_tensor(pattern.rows.astype(np.int64), device=x.device)]
+
+
+def sparse_jacobian_map(f, x_ref, pattern):
+    """Sparse Jacobian of `f` at `x_ref` restricted to a known `pattern`:
+    column-colored forward mode, structurally independent columns (no shared
+    output row) sharing one jvp, so the passes number the pattern's
+    chromatic number rather than n. f maps (n,) to (m,); x_ref is (n,) or
+    (B, n). Returns a `SparseMatrix` on `pattern`, data (nnz,) or (B, nnz)."""
+    from .sparse.matrix import SparseMatrix
+
+    one = lambda x: _jacobian_data(f, x, pattern)
+    return SparseMatrix(one(x_ref) if x_ref.ndim == 1 else vmap(one)(x_ref), pattern)
+
+
+def sparse_hessian_map(g, x_ref, pattern):
+    """Sparse Hessian of scalar `g` at `x_ref` restricted to symmetric
+    `pattern`, by colored forward-over-reverse HVPs: the columns of ∇²g
+    sharing a colour are probed by one jvp of the gradient, so the cost is
+    the chromatic number of HVPs instead of n, and no n×n array is made."""
+    return sparse_jacobian_map(grad(g), x_ref, pattern)
 
 
 def block_tridiag_to_sparse(m: SymmetricBlockTridiagonalMap):

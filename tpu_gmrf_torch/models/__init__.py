@@ -5,6 +5,7 @@ from .car import CARModel, generate_car_model
 from .combined import CombinedModel
 from .grid import grid_matern2_precision
 from .iid import FixedEffectsModel, IIDModel
+from .nongaussian import AutoDiffLatentPrior, FactorGroup, LatentPrior, StructuredLatentPrior, detect_hessian_pattern
 from .rw import RW1Model, RW2Model, RWModel
 from .separable import SeparableModel
 
@@ -26,4 +27,9 @@ __all__ = [
     "CARModel",
     "generate_car_model",
     "grid_matern2_precision",
+    "LatentPrior",
+    "AutoDiffLatentPrior",
+    "StructuredLatentPrior",
+    "FactorGroup",
+    "detect_hessian_pattern",
 ]

@@ -1,11 +1,14 @@
 """Exponential-family observation models.
 
 Counterpart of ``tpu_gmrf.observations.exponential_family``: families
-Normal/Poisson/Bernoulli/Binomial/NegativeBinomial/Gamma/StudentT with the
-canonical-link closed forms for the gradient and Hessian. Non-canonical
-links use per-element autodiff in the reference and raise here until that
-is ported. Supports observation-index subsets (`indices`) and log-exposure
-offsets for Poisson/NegBin.
+Normal/Poisson/Bernoulli/Binomial/NegativeBinomial/Gamma/StudentT × links
+Identity/Log/Logit. Canonical links use the closed forms for the gradient
+and Hessian; the others exact autodiff of the pointwise log-likelihood
+(``torch.func``: it is elementwise in η, so the gradient of the sum and the
+gradient of that gradient's sum are the exact per-element derivatives).
+Supports observation-index subsets (`indices`) and log-exposure offsets for
+Poisson/NegBin. `Predictive` is the predictive distribution p(y | x) that
+`conditional_distribution` returns; its draws take a ``torch.Generator``.
 
 Batching: x is (n,) or (B, n). Family hyperparameters (sigma, r, phi, nu)
 are scalars or (B,), one per chain; y, offset and binomial trials are per
@@ -19,21 +22,77 @@ import math
 from typing import Any
 
 import torch
+from torch.func import grad
 
 from .._device import as_tensor
 from .base import ObservationLikelihood, ObservationModel
 
 __all__ = [
     "ExponentialFamily",
+    "IdentityLink",
+    "LogLink",
+    "LogitLink",
     "PoissonObservations",
     "BinomialObservations",
     "NegativeBinomialObservations",
     "EFLikelihood",
+    "Predictive",
+    "apply_link",
+    "apply_invlink",
+    "conditional_distribution",
 ]
 
 _LOG2PI = 1.8378770664093453
 
-_INVLINKS = {"identity": lambda eta: eta, "log": torch.exp, "logit": torch.sigmoid}
+
+# ---- link functions --------------------------------------------------------
+
+
+class Link:
+    name: str
+
+    @staticmethod
+    def inv(eta):  # mu = g⁻¹(eta)
+        raise NotImplementedError
+
+
+class IdentityLink(Link):
+    name = "identity"
+    inv = staticmethod(lambda eta: eta)
+
+
+class LogLink(Link):
+    name = "log"
+    inv = staticmethod(torch.exp)
+
+
+class LogitLink(Link):
+    name = "logit"
+    inv = staticmethod(torch.sigmoid)
+
+
+_LINKS = {"identity": IdentityLink, "log": LogLink, "logit": LogitLink}
+
+
+def apply_invlink(link, eta):
+    """μ = g⁻¹(η) for a link name or Link class."""
+    if isinstance(link, str):
+        link = _LINKS[link]
+    return link.inv(as_tensor(eta))
+
+
+def apply_link(link, mu):
+    """η = g(μ) for a link name or Link class."""
+    name = link if isinstance(link, str) else link.name
+    mu = as_tensor(mu)
+    if name == "identity":
+        return mu
+    if name == "log":
+        return torch.log(mu)
+    if name == "logit":
+        return torch.log(mu) - torch.log1p(-mu)
+    raise ValueError(f"unknown link {name}")
+
 
 _CANONICAL = {
     "normal": "identity",
@@ -133,7 +192,7 @@ class EFLikelihood(ObservationLikelihood):
         return torch.zeros_like(x).index_add(-1, self.indices, g_obs.expand(x.shape[:-1] + g_obs.shape[-1:]))
 
     def _mu(self, eta):
-        return _INVLINKS[self.link](eta)
+        return _LINKS[self.link].inv(eta)
 
     # -- pointwise log-likelihood in eta (closed forms) --
 
@@ -185,12 +244,12 @@ class EFLikelihood(ObservationLikelihood):
         return self._pointwise_eta(self._eta(x)).sum(-1)
 
     def _grad_hess_eta(self, eta):
-        """(dℓ/dη, d²ℓ/dη²) per observation, canonical-link closed forms."""
+        """(dℓ/dη, d²ℓ/dη²) per observation: the canonical links' closed
+        forms, else exact autodiff of the elementwise ``_pointwise_eta``."""
         if not self.canonical:
-            raise NotImplementedError(
-                f"{self.family} with non-canonical link {self.link!r} needs per-element "
-                "autodiff (non-canonical links), not ported yet"
-            )
+            total = lambda e: self._pointwise_eta(e).sum()
+            d1 = grad(total)
+            return d1(eta), grad(lambda e: d1(e).sum())(eta)
         y, f = self.y.to(eta), self.family
         mu = self._mu(eta)
         if f == "normal":
@@ -224,6 +283,101 @@ class EFLikelihood(ObservationLikelihood):
     def loghessian_diag(self, x):
         _, h = self._grad_hess_eta(self._eta(x))
         return self._embed(h, x)
+
+
+# ---- predictive (conditional) distribution ---------------------------------
+
+
+def _hyper(t, like):
+    """A family parameter shaped to broadcast against η (…, m): (B,) → (B, 1)."""
+    t = torch.as_tensor(t, dtype=like.dtype, device=like.device)
+    return t[:, None] if t.ndim == 1 and like.ndim == 2 else t
+
+
+@dataclasses.dataclass(frozen=True)
+class Predictive:
+    """Predictive distribution p(y | x) at a fixed linear predictor η (…, m),
+    offset applied: vectorized ``mean`` / ``var`` / ``std`` / ``logpdf`` and
+    ``sample(generator)``. Family parameters are scalars or (B,), except
+    binomial trials, which are per observation."""
+
+    eta: torch.Tensor
+    params: dict
+    family: str
+    link: str
+
+    def _lik(self, y) -> EFLikelihood:
+        return EFLikelihood(y=as_tensor(y), params=self.params, offset=None, indices=None, family=self.family,
+                            link=self.link)
+
+    def _p(self, name):
+        if name == "trials":
+            return torch.as_tensor(self.params[name], dtype=self.eta.dtype, device=self.eta.device)
+        return _hyper(self.params[name], self.eta)
+
+    @property
+    def mu(self):
+        return _LINKS[self.link].inv(self.eta)
+
+    def mean(self):
+        mu = self.mu
+        return self._p("trials") * mu if self.family == "binomial" else mu
+
+    def var(self):
+        mu, f = self.mu, self.family
+        if f in ("normal", "studentt"):  # Student-t in its unit-variance parameterization
+            return torch.broadcast_to(self._p("sigma") ** 2, mu.shape)
+        if f == "poisson":
+            return mu
+        if f == "bernoulli":
+            return mu * (1.0 - mu)
+        if f == "binomial":
+            return self._p("trials") * mu * (1.0 - mu)
+        if f == "negativebinomial":
+            return mu + mu**2 / self._p("r")
+        if f == "gamma":
+            return mu**2 / self._p("phi")
+        raise ValueError(f"unknown family {f}")
+
+    def std(self):
+        return torch.sqrt(self.var())
+
+    def logpdf(self, y):
+        """Pointwise log p(yᵢ | ηᵢ), the likelihood's closed forms."""
+        return self._lik(y)._pointwise_eta(self.eta)
+
+    def sample(self, generator: torch.Generator):
+        mu, f, gen = self.mu, self.family, generator
+        if f == "normal":
+            return mu + self._p("sigma") * torch.randn(mu.shape, generator=gen, dtype=mu.dtype, device=mu.device)
+        if f == "poisson":
+            return torch.poisson(mu, generator=gen)
+        if f == "bernoulli":
+            return torch.bernoulli(mu, generator=gen)
+        if f == "binomial":
+            n = torch.broadcast_to(self._p("trials"), mu.shape).contiguous()
+            return torch.binomial(n, mu.contiguous(), generator=gen)
+        if f == "negativebinomial":  # Gamma-Poisson mixture: λ ~ Gamma(r, μ/r), y ~ Poisson(λ)
+            r = self._p("r")
+            lam = torch._standard_gamma(torch.broadcast_to(r, mu.shape).contiguous(), generator=gen) * mu / r
+            return torch.poisson(lam, generator=gen)
+        if f == "gamma":
+            phi = self._p("phi")
+            return torch._standard_gamma(torch.broadcast_to(phi, mu.shape).contiguous(), generator=gen) * mu / phi
+        if f == "studentt":  # t_ν = z / sqrt(χ²_ν / ν), χ²_ν = 2 Gamma(ν/2)
+            sigma, nu = self._p("sigma"), self._p("nu")
+            z = torch.randn(mu.shape, generator=gen, dtype=mu.dtype, device=mu.device)
+            g = torch._standard_gamma(torch.broadcast_to(nu / 2, mu.shape).contiguous(), generator=gen)
+            return mu + sigma * torch.sqrt((nu - 2.0) / nu) * z / torch.sqrt(2.0 * g / nu)
+        raise ValueError(f"unknown family {f}")
+
+
+def conditional_distribution(obs_model, x, **params):
+    """Predictive distribution of y given latent x under `obs_model`:
+    ExponentialFamily evaluates the inverse link at η = x[indices] (+ offset);
+    LinearlyTransformed forwards η = Ax + b to its base; NonlinearLeastSquares
+    returns Normal(f(x), σ)."""
+    return obs_model.conditional_distribution(x, **params)
 
 
 # ---- factory ---------------------------------------------------------------
@@ -266,7 +420,7 @@ class ExponentialFamily(ObservationModel):
         family = _FAMILY_ALIASES[family.lower()]
         self.family = family
         self.link = link if link is not None else _CANONICAL[family]
-        if self.link not in _INVLINKS:
+        if self.link not in _LINKS:
             raise ValueError(f"unknown link {self.link}")
         self.indices = None if indices is None else as_tensor(indices, dtype=torch.long)
         for k in aliases:
@@ -277,6 +431,28 @@ class ExponentialFamily(ObservationModel):
     @property
     def hyperparameters(self):
         return tuple(self.aliases.get(p, p) for p in _FAMILY_PARAMS[self.family])
+
+    def conditional_distribution(self, x, **theta) -> Predictive:
+        """Predictive p(y | x): η = x[indices] (+ offset), μ = g⁻¹(η)."""
+        params = {}
+        for p in _FAMILY_PARAMS[self.family]:
+            outer = self.aliases.get(p, p)
+            if outer not in theta:
+                raise ValueError(f"missing family parameter: {outer}")
+            params[p] = _tensor(theta[outer])
+        if self.family == "binomial":
+            if "trials" not in theta:
+                raise ValueError("binomial predictive requires trials=")
+            params["trials"] = _tensor(theta["trials"])
+        eta = as_tensor(x)
+        if self.indices is not None:
+            eta = eta[..., self.indices.to(eta.device)]
+        offset = theta.get("offset")
+        if offset is not None:
+            if self.link != "log":
+                raise ValueError("offset only supported with log link")
+            eta = eta + _tensor(offset)
+        return Predictive(eta=eta, params=params, family=self.family, link=self.link)
 
     def __call__(self, y, **theta) -> EFLikelihood:
         fam = self.family

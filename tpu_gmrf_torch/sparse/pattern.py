@@ -14,11 +14,11 @@ the numeric computation.
 from __future__ import annotations
 
 import hashlib
-from functools import cached_property
+from functools import cached_property, lru_cache
 
 import numpy as np
 
-__all__ = ["SparsePattern", "union_patterns", "spgemm_pattern", "diag_pattern"]
+__all__ = ["SparsePattern", "union_patterns", "spgemm_pattern", "diag_pattern", "dense_pattern"]
 
 
 class SparsePattern:
@@ -162,6 +162,13 @@ class SparsePattern:
 def diag_pattern(n: int) -> SparsePattern:
     idx = np.arange(n, dtype=np.int32)
     return SparsePattern(idx, idx, (n, n))
+
+
+@lru_cache(maxsize=16)
+def dense_pattern(n: int) -> SparsePattern:
+    """The full n×n pattern (row-major), for dense Hessians."""
+    rows, cols = np.meshgrid(np.arange(n), np.arange(n), indexing="ij")
+    return SparsePattern(rows.ravel(), cols.ravel(), (n, n))
 
 
 def union_patterns(*patterns: SparsePattern) -> SparsePattern:
