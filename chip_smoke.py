@@ -6,7 +6,7 @@
 Phases, each printing its own lines; any failure raises and exits non-zero:
 
 1. the device: needs CUDA; prints the card's name and power limit;
-2. the build: compiles the kernels K1-K18 (K5 with its second entry,
+2. the build: compiles the kernels K1-K22 (K5 with its second entry,
    fct_init; K7 with its multiply mode; K10 with its second entry,
    dense_selinv; K11 and K12 with their block entries, bt_factor_blocks and
    bt_trsv_blocks; K13 with its second entry, bt_sqrt) from
@@ -86,6 +86,15 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    (K11's block entry at blocks of 5, 64 and 65, K = 1 and 2, and with an
    indefinite block in one of three chains, whose logdet alone is NaN; K12's
    and K18 at blocks of 64 and 65, P = 1 and 2, k = 1, 3, 64, 65);
+3g. the selected inverse's tangents (Σ̇ = −Σ·Q̇·Σ): K19
+   tridiag_selinv_tangent at the flagship's shape beside the library's Σ̇
+   (torch.cholesky_inverse and two products) and at its scan's edges (n = 1
+   to 20,000), K20 sn_panel_tangent and K21
+   sn_takahashi_tangent launch by launch over phase 3b's supernodal
+   schedule, K22 bt_factor_tangent and K21 on the banded blocks at n=5741,
+   B=4, against their plain versions (float64 on the kernels' inputs), in
+   float32 and float64, and the whole Σ̇ at Q's pattern against a dense
+   inverse's;
 4. the flagship slice: batched value and θ-gradient of the Laplace marginal
    of an AR1 + Poisson model (256 chains, n=500) through the kernels, in
    float32, checked against the plain path in float64 (the same code on CPU
@@ -175,12 +184,25 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    marginal_loglikelihood and its log_tau-gradient through NewtonModeNL,
    float32 and float64 against the f64 plain path (auto -> tridiag, K1-K5);
    the same log-density as an AutoDiffLatentPrior on the tridiagonal
-   pattern (coloured HVPs) equal to it in float64 over 8 chains.
+   pattern (coloured HVPs) equal to it in float64 over 8 chains;
+24. second derivatives: the per-chain θ-Hessian of laplace_marginal (one
+   gradient with create_graph=True, a backward pass per component) of the
+   flagship in (log τ, atanh ρ) at phase 4's θ, f64 and f32 (K1-K5, K19),
+   of the spatial slice at n=5741 in (log τ, log range), f64, on the
+   supernodal backend (K20, K21) and, the model's solver and the inner one
+   auto, on the banded one (K22, K21), and of the g=16 slice (auto ->
+   dense, K10's entries), each against the f64 plain path on
+   CPU tensors, for symmetry and against central differences of its own
+   gradient; fault 3.4's check, the Hessian of GMRF.logpdf at AR1(500)
+   through K4 against −Q; example 13 on the card with its own checks
+   (reverse = forward gradient, differences, a symmetric Hessian, Adam
+   recovers (τ, μ), a positive definite Hessian at the optimum); and d/dθ
+   of Σ var_i at n=14058 (supernodal) against a central difference.
 
 Every kernel's launch counter is zeroed just before each main path (phases
 4-5, the flagship; 7-8, the spatial slice; 9, 10 and 11) and read after
 it, and so before and after each of the paths 12, 13, 13b, 14, 15, 16, 17, 18,
-19, 20, 21, 22 and 23;
+19, 20, 21, 22 and 23, and each of phase 24's five;
 a kernel of the path that was never launched fails the run. Each phase's
 seconds are printed when the next begins. The line before the last is one
 JSON object with the kernels' launches, errors, times and bounds; the last
@@ -333,6 +355,11 @@ SOURCES = {
     "bt_factor_blocks": ("tpu_gmrf_torch/csrc/banded.cu", "tpu_gmrf/parallel/pbtridiag.py:53"),
     "bt_trsv_blocks": ("tpu_gmrf_torch/csrc/banded.cu", "tpu_gmrf/parallel/pbtridiag.py:76"),
     "spike_reduced": ("tpu_gmrf_torch/csrc/spike.cu", "tpu_gmrf/parallel/pbtridiag.py:100"),
+    # the tangents: JAX's AD of the reference's selected inverse (no kernel of its own there)
+    "tridiag_selinv_tangent": ("tpu_gmrf_torch/csrc/tridiag.cu", "tpu_gmrf/solvers/tridiag.py:70"),
+    "sn_panel_tangent": ("tpu_gmrf_torch/csrc/supernodal.cu", "tpu_gmrf/solvers/supernodal.py:1345"),
+    "sn_takahashi_tangent": ("tpu_gmrf_torch/csrc/supernodal.cu", "tpu_gmrf/solvers/supernodal.py:1345"),
+    "bt_factor_tangent": ("tpu_gmrf_torch/csrc/banded.cu", "tpu_gmrf/solvers/banded.py:209"),
 }
 FLAGSHIP_KERNELS = ("tridiag_factor", "tridiag_solve", "tridiag_selinv", "csr_spmv", "gather_segsum")
 SPATIAL_KERNELS = ("csr_spmv", "gather_segsum", "fct_init", "sn_panel", "sn_trsv", "sn_takahashi_prep", "sn_takahashi")
@@ -525,6 +552,44 @@ OBS_KERNELS = SPATIAL_KERNELS + ("tridiag_factor", "tridiag_solve", "tridiag_sel
 # gradient equal to the structured prior's to ST_AD_TOL (the same arithmetic by another autodiff route).
 ST_NU, ST_LOG_TAU, ST_AD_CHAINS, ST_AD_TOL = 4.0, (-0.5, 1.0), 8, 1e-10
 ST_KERNELS = ("tridiag_factor", "tridiag_solve", "tridiag_selinv", "csr_spmv", "gather_segsum")
+# Phase 3g: the selected inverse's tangents K19-K22 against their plain versions, per launch on the same inputs:
+# K19 at the flagship's shape, B = 256, n = 500; K20 and K21 over the whole supernodal schedule of phase 3b's
+# posterior (n = 5741, B = 4); K22 and K21 on the banded blocks of the same size (phase 11's configuration).
+# K20-K22 compute in float64 for both types, and their plain versions are run in float64 on the kernels' inputs;
+# K19 replays in the chains' type, as its plain version does. float64: 1e-10 normwise, and Σ̇ at Q's pattern
+# within 1e-8 of −P(Σ·T·Σ) from a dense inverse. float32: TANGENT_F32, K19's as K1-K3's (KERNEL_TOL), K20-K22's
+# above the first readings on the H100 (3.3e-8, 2.5e-8, 3.9e-8, K21 banded 3.7e-8: their outputs' rounding).
+TANGENT_F32 = {"tridiag_selinv_tangent": 1e-4, "sn_panel_tangent": 1e-5, "sn_takahashi_tangent": 1e-5,
+               "sn_takahashi_tangent_banded": 1e-5, "bt_factor_tangent": 1e-5}
+SN_TOL[torch.float64].update({k: 1e-10 for k in TANGENT_F32}, sigma_tangent=1e-8)
+SN_TOL[torch.float32].update(TANGENT_F32)
+# Phase 24: the θ-Hessians (one gradient with create_graph=True, then a backward pass per component) of the
+# flagship (AR1(500) + Poisson, 256 chains at phase 4's θ read as (log τ, atanh ρ), max_iter=25, f64 and f32),
+# of example 13 on the card (its own checks and limits, f32), of the spatial slice (phase 7's model and counts, 4
+# chains, f64; supernodal, then with the model's solver and the inner one auto -> banded) and of the g=16 slice (8
+# chains, both auto -> dense, f64), each held against the f64 plain path on CPU tensors ("plain", per chain, normwise), for symmetry
+# ("sym") and against central differences of the kernel path's own gradient ("cd"); the Hessian of GMRF.logpdf
+# through K4 at AR1(500) against −Q (fault 3.4); d/dθ of Σ var_i at n=14058 against a central difference.
+# f64 against the f64 plain path and for symmetry: both sides run the same Newton loop with the same stop, so
+# what parts them is rounding; the limits sit two to three decades above the readings on the H100 (flagship
+# 1.7e-13 and 2.2e-14; spatial supernodal 3.1e-10 and 2.0e-11, banded 1.1e-9 and 1.7e-10; g=16 6.7e-12 and
+# 4.2e-13). Central differences are held about ten times above their first readings (f64 flagship at h=1e-3
+# 4.5e-6; spatial and g=16 2.3e-7 and 1.1e-6), as are the f32 flagship's (plain 8.1e-5, asymmetry 6.5e-6,
+# differences at h=1e-2 5.1e-3). Σ var_i's gradient at n=14058 read 5.7e-7 from its difference at h=1e-4, the
+# difference's own rounding (Q's condition near 1e8 on this grid).
+HESS_TOL = {"f64": {"plain": 1e-10, "sym": 1e-11, "cd": 1e-4}, "f32": {"plain": 1e-3, "sym": 1e-4, "cd": 5e-2},
+            "spatial": {"plain": 1e-7, "sym": 1e-8, "cd": 1e-5}, "g16": {"plain": 1e-9, "sym": 1e-10, "cd": 1e-5},
+            "logpdf": 1e-12, "var_cd": 1e-5}
+HESSIAN_FLAGSHIP_KERNELS = FLAGSHIP_KERNELS + ("tridiag_selinv_tangent",)
+HESSIAN_EX13_KERNELS = ("tridiag_factor", "tridiag_solve", "tridiag_selinv", "tridiag_selinv_tangent")
+HESSIAN_SPATIAL_KERNELS = SPATIAL_KERNELS + ("sn_panel_tangent", "sn_takahashi_tangent")
+# the banded and dense cells: the model's own solver auto as well, so that the logdets' Σ (and Σ̇) are the banded
+# (K8, K22, K21) and dense (K10's entries) ones; the prior of phases 10-11 stays supernodal
+HESSIAN_BANDED_KERNELS = ("csr_spmv", "gather_segsum", "sn_takahashi_prep", "sn_takahashi", "bt_factor", "bt_trsv",
+                          "bt_factor_tangent", "sn_takahashi_tangent")
+HESSIAN_DENSE_KERNELS = ("csr_spmv", "gather_segsum", "dense_chol", "dense_trsv", "dense_selinv")
+HESSIAN_VAR_KERNELS = ("fct_init", "sn_panel", "sn_takahashi_prep", "sn_takahashi", "gather_segsum",
+                       "sn_panel_tangent", "sn_takahashi_tangent")
 
 
 def rbmc_tol(S: int) -> dict:
@@ -811,7 +876,7 @@ def spatial_y(model, g: int) -> np.ndarray:
 
 
 def check(name: str, dtype, got, ref, tol_key: str, results: dict, ms=None, plain_ms=None, extra="",
-          cost=None, library_ms=None, shape=""):
+          cost=None, library_ms=None, shape="", op_dtype=None):
     torch.cuda.synchronize()
     got = got if isinstance(got, (tuple, list)) else (got,)
     ref = ref if isinstance(ref, (tuple, list)) else (ref,)
@@ -819,7 +884,7 @@ def check(name: str, dtype, got, ref, tol_key: str, results: dict, ms=None, plai
         raise AssertionError(f"{name}: non-finite kernel output")
     abs_err, rel = rel_err(got, ref)
     tol = SN_TOL[dtype][tol_key]
-    bnd = bound(*cost, dtype) if cost is not None else None
+    bnd = bound(*cost, op_dtype or dtype) if cost is not None else None
     times = f" kernel_ms={ms:.3f} plain_ms={plain_ms:.3f}" if ms is not None else ""
     if library_ms is not None:
         times += f" library_ms={library_ms:.3f}"
@@ -851,6 +916,15 @@ def with_plain_steps(f):
     return dataclasses.replace(f, _ops=sn._PLAIN_OPS)
 
 
+def live_shape(c) -> tuple:
+    """(ns, m), float arrays: each supernode's live width and live row count in class batch c, read off its
+    panel table (padding points at the DUMMY slot)."""
+    pan, W = c["panel"].cpu().numpy(), c["W"]
+    ns = (pan[:, np.arange(W), np.arange(W)] != c["dummy"]).sum(1)
+    m = (pan[:, W:, 0] != c["dummy"]).sum(1) if c["M"] else np.zeros(len(pan), np.int64)
+    return ns.astype(float), m.astype(float)
+
+
 def sn_costs(levels, B: int, el: int, nnz: int, nnzL: int, n: int) -> dict:
     """(operations, bytes) of a whole factorization (K6), solve (K7) and
     Takahashi sweep (K8's first entry and K8) over the schedule's class
@@ -860,15 +934,13 @@ def sn_costs(levels, B: int, el: int, nnz: int, nnzL: int, n: int) -> dict:
     K8: Σ_RJ 2m²·ns, Σ_JJ (lower) m·ns²; the K5 reductions between levels, a
     few percent of the work, are not counted) and the bytes of the values
     and the class tables the steps read."""
-    ns_all, m_all, tabs = [], [], {k: 0 for k in ("panel", "cols", "rows", "schur")}
+    shapes, tabs = [], {k: 0 for k in ("panel", "cols", "rows", "schur")}
     for lv in levels:
         for c in lv.classes:
-            pan, W = c["panel"].cpu().numpy(), c["W"]
-            ns_all.append((pan[:, np.arange(W), np.arange(W)] != c["dummy"]).sum(1))
-            m_all.append((pan[:, W:, 0] != c["dummy"]).sum(1) if c["M"] else np.zeros(len(pan), np.int64))
+            shapes.append(live_shape(c))
             for k in tabs:
                 tabs[k] += c[k].numel() * 4
-    ns, m = np.concatenate(ns_all).astype(float), np.concatenate(m_all).astype(float)
+    ns, m = (np.concatenate(a) for a in zip(*shapes))
     return {
         "sn_panel": (B * float(np.sum(ns**3 / 3 + m * ns**2 + m**2 * ns)),
                      el * B * (nnz + nnzL + 1) + tabs["panel"] + tabs["cols"]),
@@ -1175,7 +1247,7 @@ def check_spatial_kernels(model, dtype, dev):
     # K5: the SpGEMM Kᵀ(C⁻¹K) of the precision, forward and backward, and one ELL level
     K = model.spde.K(range_to_kappa(rng_, model.spde.nu))
     A, Bm = K.T, model.spde._on(rng_)["Cinv"] @ K
-    fwd, back_a, _ = _MUL_CACHE[(A.pattern, Bm.pattern)][1]
+    (fwd, _, _), (back_a, _, _), _ = _MUL_CACHE[(A.pattern, Bm.pattern)][1]
     a, bd = A.data.contiguous(), Bm.data.contiguous()
     el, shape = a.element_size(), f"B={B} n={n}"
     check_sp_add(dtype, dev, results)
@@ -4222,6 +4294,500 @@ def nongaussian_path(dev, card):
         raise AssertionError("the autodiff prior disagrees with the structured prior")
     return counts
 
+
+# ---- phase 3g: the selected inverse's tangents K19-K22 ------------------------------------------
+
+
+def f64(x):
+    """A float64 copy of x (None stays None): the tangents' plain versions run in float64 on the kernels'
+    inputs, as the kernels compute, so that a float32 kernel differs from them by its outputs' rounding."""
+    return None if x is None else x.detach().clone().double()
+
+
+def tangent_costs(ns, m, B: int, el: int, kind: str, table_bytes: int = 0) -> tuple:
+    """(operations, bytes) of the tangent steps of panels of live widths ns and live row counts m (arrays) over B
+    chains, triangles exploited, two operations per multiply-add. "panel" (K20) and "block" (K22's step):
+    G = Ld⁻¹·Q̇_JJ·Ld⁻ᵀ (2ns³/3 multiply-adds), L̇d = Ld·F (ns³/6), L̇b = Q̇_RJ·Ld⁻ᵀ − Lb·Fᵀ (m·ns²), U̇'s
+    lower triangle (m²·ns); reads L, A and Q̇, writes L̇ and (K20 only) U̇'s lower triangle. "sweep" (K21): Ȧ's
+    lower triangle (5ns³/6), Ċ (m·ns²), Σ̇_RJ (2m²·ns), Σ̇_JJ's lower triangle (m·ns²); reads Ld, C, A, L̇, Σ_RJ
+    and the lower triangles of Σ_RR and Σ̇_RR, writes Σ̇. Values of el bytes, plus the index tables' bytes."""
+    tri, rect, sq = ns * ns / 2, m * ns, m * m / 2
+    if kind == "sweep":
+        fma = 5 * ns**3 / 6 + 2 * m * ns**2 + 2 * m**2 * ns
+        vals = 4 * tri + 4 * rect + 2 * sq
+    else:
+        fma = 5 * ns**3 / 6 + m * ns**2 + m**2 * ns
+        vals = 4 * tri + 3 * rect + (sq if kind == "panel" else 0)
+    return 2 * B * float(np.sum(fma)), el * B * float(np.sum(vals)) + table_bytes
+
+
+def written(x, c):
+    """The values of x (B, width) at class batch c's live panel positions, as a new tensor."""
+    pos = c["panel"].reshape(-1)
+    return x[:, pos[pos != c["dummy"]].long()]
+
+
+def tangent_direction(Q, seed: int):
+    """A random direction on Q's pattern, (B, nnz), symmetric in its stored pairs."""
+    from tpu_gmrf_torch.solvers.base import symmetric_weights
+
+    rng = np.random.default_rng(seed)
+    t = torch.tensor(rng.normal(size=Q.data.shape), dtype=Q.dtype, device=Q.device)
+    t = 0.5 * (t + t[:, torch.as_tensor(Q.pattern.transpose_perm, device=Q.device)])
+    return t, t * symmetric_weights(Q.pattern, Q.device, Q.dtype)
+
+
+def dense_sigma_tangent(Q, t):
+    """−P(Σ·T·Σ) at Q's pattern from a dense inverse (the library's way): T from t on Q's pattern."""
+    B, n = Q.data.shape[0], Q.shape[0]
+    A, T = Q.todense().double(), Q.with_data(t).todense().double()
+    Sig = torch.cholesky_inverse(torch.linalg.cholesky(0.5 * (A + A.mT)))
+    M = Sig @ T @ Sig
+    r, c = (torch.as_tensor(np.asarray(a, np.int64), device=Q.device) for a in (Q.pattern.rows, Q.pattern.cols))
+    return -M[:, r, c]
+
+
+def check_tridiag_tangent(dtype, dev, results):
+    """K19 at the flagship's shape (B=256, n=500) against its plain version (in the chains' type: K19 replays
+    its recurrences in it, as K3 does), and the library's Σ̇: Σ by
+    torch.cholesky_inverse of the bidiagonal factor, densified, then Σ·S·Σ by two products."""
+    from tpu_gmrf_torch import kernels
+
+    rng = np.random.default_rng(19)
+    a, c = (torch.tensor(v, dtype=dtype, device=dev) for v in spd_rows(rng, CHAINS, N))
+    d, e, _ = kernels.tridiag_factor(a, c)
+    z, _ = kernels.tridiag_selinv(d, e)
+    da = torch.tensor(rng.normal(size=(CHAINS, N)), dtype=dtype, device=dev)
+    dc = torch.tensor(rng.normal(size=(CHAINS, N - 1)), dtype=dtype, device=dev)
+    args = (d, e, z, da, dc)
+    L = torch.diag_embed(d) + torch.diag_embed(e, -1)
+    S = torch.diag_embed(da) + torch.diag_embed(dc, -1) + torch.diag_embed(dc, 1)
+
+    def library():
+        Sig = torch.cholesky_inverse(L)
+        return Sig @ S @ Sig
+
+    full = library()
+    lib_err = rel_err((-torch.diagonal(full, dim1=-2, dim2=-1),), (kernels.tridiag_selinv_tangent(*args)[0],))[1]
+    el = d.element_size()
+    check("tridiag_selinv_tangent", dtype, kernels.tridiag_selinv_tangent(*args),
+          kernels.tridiag_selinv_tangent_plain(*args), "tridiag_selinv_tangent", results,
+          cuda_ms(lambda: kernels.tridiag_selinv_tangent(*args)),
+          cuda_ms(lambda: kernels.tridiag_selinv_tangent_plain(*args)),
+          cost=(40 * CHAINS * N, 7 * CHAINS * N * el), library_ms=cuda_ms(library, 3, 1),
+          shape=f"B={CHAINS} n={N}", extra=f" (the library's Σ̇ diagonal {lib_err:.1e} from the kernel's)")
+
+
+def check_tridiag_tangent_edges(dtype, dev):
+    """K19 at its scan's edges: n = 1 to 20,000 (one row; a warp; the block's segments; several tiles), B = 3."""
+    from tpu_gmrf_torch import kernels
+
+    worst = 0.0
+    for n in (1, 2, 33, 129, 2049, 8193, 20000):
+        rng = np.random.default_rng(n)
+        a, c = (torch.tensor(v, dtype=dtype, device=dev) for v in spd_rows(rng, 3, n))
+        d, e, _ = kernels.tridiag_factor(a, c)
+        z, _ = kernels.tridiag_selinv(d, e)
+        args = (d, e, z, torch.tensor(rng.normal(size=(3, n)), dtype=dtype, device=dev),
+                torch.tensor(rng.normal(size=(3, n - 1)), dtype=dtype, device=dev))
+        got, ref = kernels.tridiag_selinv_tangent(*args), kernels.tridiag_selinv_tangent_plain(*args)
+        pick = slice(0, 1) if n == 1 else slice(None)  # one row has no off-diagonal
+        worst = max(worst, rel_err(got[pick], ref[pick])[1])
+    tol = SN_TOL[dtype]["tridiag_selinv_tangent"]
+    log(f"  tridiag_selinv_tangent {dtype_name(dtype)} at n = 1, 2, 33, 129, 2049, 8193, 20000 (B=3): max rel "
+        f"{worst:.3e} (tol {tol:.0e})")
+    if not worst <= tol:
+        raise AssertionError("K19 disagrees with its plain version at its scan's edges")
+
+
+def check_sn_tangents(sp_model, dtype, dev, results):
+    """K20 and K21 over the whole supernodal schedule at n=5741, B=4: every class batch's launch against its
+    plain version on copies of the same inputs (each held on the positions it writes), the pass continuing on
+    the kernel's outputs, the times summed over the launches; then the whole Σ̇ at Q's pattern against a dense
+    inverse (float64)."""
+    import tpu_gmrf_torch as tg
+    from tpu_gmrf_torch import kernels
+    from tpu_gmrf_torch.solvers import supernodal as sn
+
+    B = SP_CHAINS
+    Q = random_posterior(sp_model, B, dtype, dev, seed=20)
+    f = tg.factorize(Q, tg.SolverSpec(kind="supernodal"))
+    meta, vals, el = f.meta, f.vals, Q.data.element_size()
+    dp = sn._device_plan(meta, dev)
+    pre, sig = sn._sigma_prep(vals, meta, sn._KERNEL_OPS)
+    t, tw = tangent_direction(Q, 21)
+    dvals = kernels.gather_segsum(sn._scatter_plan(meta, Q.pattern), tw.contiguous(), y=f.s, z=f.s)
+    vals64, pre64, sig64 = f64(vals), f64(pre), f64(sig)
+    classes = [c for lv in dp["levels"] for c in lv.classes]
+    shapes = [np.concatenate(a) for a in zip(*map(live_shape, classes))]
+    got20, ref20, got21, ref21, ms, pms = [], [], [], [], [0.0] * 2, [0.0] * 2
+    for lv in dp["levels"]:
+        du = sn._buffer(vals, B, lv.zu)
+        for c in lv.classes:
+            dv_p, du_p = f64(dvals), f64(du)
+            ms[0] += cuda_ms(lambda: kernels.sn_panel_tangent(vals, pre, dvals, c, du), 1, 0)
+            pms[0] += cuda_ms(lambda: kernels.sn_panel_tangent_plain(vals64, pre64, dv_p, c, du_p), 1, 0)
+            got20.append(written(dvals, c))
+            ref20.append(written(dv_p, c))
+            if du is not None:
+                u = slice(c["ubase"], c["ubase"] + c["panel"].shape[0] * c["M"] ** 2)  # this batch's U̇
+                got20.append(du[:, u].clone())
+                ref20.append(du_p[:, u])
+        for ell in lv.schur:
+            kernels.gather_segsum(ell, du, out=dvals, alpha=-1.0, accumulate=True)
+    dsig, dvals64 = torch.zeros_like(vals), f64(dvals)
+    for lv in reversed(dp["levels"]):
+        for c in lv.classes:
+            ds_p = f64(dsig)
+            ms[1] += cuda_ms(lambda: kernels.sn_takahashi_tangent(vals, pre, dvals, sig, dsig, c), 1, 0)
+            pms[1] += cuda_ms(lambda: kernels.sn_takahashi_tangent_plain(vals64, pre64, dvals64, sig64, ds_p, c),
+                              1, 0)
+            got21.append(written(dsig, c))
+            ref21.append(written(ds_p, c))
+    got = sn._selinv_data(vals, f.s, Q.pattern, meta, sn._KERNEL_OPS, sig=dsig)
+    ref = dense_sigma_tangent(Q, t)
+    dense_err = rel_err((got,), (ref,))[1]
+    L, hi, lo = dense_factor(vals, meta)
+    T = Q.with_data(t).todense()
+    ip = torch.as_tensor(np.asarray(sn._PLAN_CACHE[meta]["inv_perm"], np.int64), device=dev)
+    Tp = torch.zeros_like(T)
+    Tp[:, ip[:, None], ip[None, :]] = T * f.s[:, :, None] * f.s[:, None, :]
+
+    def library():
+        Sig = torch.cholesky_inverse(L)
+        return (Sig @ Tp @ Sig)[:, hi, lo]
+
+    lib_ms = cuda_ms(library, 2, 1)
+    tabs = {k: sum(c[k].numel() * 4 for c in classes) for k in ("panel", "schur")}
+    shape = f"B={B} n={sp_model.n}, {len(classes)} class batches"
+    check("sn_panel_tangent", dtype, got20, ref20, "sn_panel_tangent", results, ms[0], pms[0],
+          f" (whole pass; Σ̇ at Q's pattern {dense_err:.1e} from a dense inverse's)",
+          tangent_costs(*shapes, B, el, "panel", tabs["panel"]), shape=shape, op_dtype=torch.float64)
+    check("sn_takahashi_tangent", dtype, got21, ref21, "sn_takahashi_tangent", results, ms[1], pms[1],
+          " (library: torch.cholesky_inverse of the densified factor, then Σ·T·Σ by two products)",
+          tangent_costs(*shapes, B, el, "sweep", tabs["panel"] + tabs["schur"]), lib_ms, shape,
+          op_dtype=torch.float64)
+    if dtype == torch.float64 and not dense_err <= SN_TOL[dtype]["sigma_tangent"]:
+        raise AssertionError(f"the supernodal Σ̇ is {dense_err:.3e} from a dense inverse's")
+    return dense_err
+
+
+def check_bt_tangents(sp_model, dtype, dev, results):
+    """K22 and K21 on the banded backend at n=5741, B=4 (phase 11's configuration): K22's one launch against
+    its plain version on copies of its inputs, then K21 block by block as in `check_sn_tangents`. The bounds
+    count the live rows: K-1 blocks have a block below, and the last block holds n − (K−1)·s of its s rows."""
+    import tpu_gmrf_torch as tg
+    from tpu_gmrf_torch import kernels
+    from tpu_gmrf_torch.solvers import banded as bd
+
+    B = SP_CHAINS
+    Q = random_posterior(sp_model, B, dtype, dev, seed=22)
+    f = tg.factorize(Q, tg.SolverSpec(kind="banded"))
+    meta, P, el = f.meta, f.P, Q.data.element_size()
+    _, K, s2, s = P.shape
+    classes, _ = bd._takahashi_classes(meta, dev)
+    pre, sig = bd._sigma_prep(P, meta)
+    t, tw = tangent_direction(Q, 23)
+    dvals = kernels.gather_segsum(bd._scatter_plan(meta, Q.pattern), tw.contiguous())
+    dv_p = f64(dvals)
+    view = lambda x: x[:, :-1].view(B, K, s2, s)  # noqa: E731
+    ms22 = cuda_ms(lambda: kernels.bt_factor_tangent(P, view(pre), view(dvals)), 1, 0)
+    P64, pre64, sig64 = f64(P), f64(pre), f64(sig)
+    pms22 = cuda_ms(lambda: kernels.bt_factor_tangent_plain(P64, view(pre64), view(dv_p)), 1, 0)
+    vals, vals64, dvals64 = P.reshape(B, -1), P64.reshape(B, -1), f64(dvals)
+    dsig = torch.zeros_like(pre)
+    got21, ref21, ms21, pms21 = [], [], 0.0, 0.0
+    for c in reversed(classes):
+        ds_p = f64(dsig)
+        ms21 += cuda_ms(lambda: kernels.sn_takahashi_tangent(vals, pre, dvals, sig, dsig, c), 1, 0)
+        pms21 += cuda_ms(lambda: kernels.sn_takahashi_tangent_plain(vals64, pre64, dvals64, sig64, ds_p, c), 1, 0)
+        got21.append(written(dsig, c))
+        ref21.append(written(ds_p, c))
+    got = bd._selinv_data(P, meta, Q.pattern, sig=dsig)
+    dense_err = rel_err((got,), (dense_sigma_tangent(Q, t),))[1]
+    r = sp_model.n - (K - 1) * s  # the last block's live rows
+    ns = np.array([s] * (K - 1) + [r], float)
+    m = np.array([s] * (K - 2) + [r, 0], float)
+    tabs = sum((c["panel"].numel() + c["schur"].numel()) * 4 for c in classes)
+    shape = f"B={B} n={sp_model.n} K={K} s={s}"
+    check("bt_factor_tangent", dtype, (dvals,), (dv_p,), "bt_factor_tangent", results, ms22, pms22,
+          f" (Σ̇ at Q's pattern {dense_err:.1e} from a dense inverse's)", tangent_costs(ns, m, B, el, "block"),
+          shape=shape, op_dtype=torch.float64)
+    check("sn_takahashi_tangent banded", dtype, got21, ref21, "sn_takahashi_tangent_banded", {}, ms21, pms21,
+          "", tangent_costs(ns, m, B, el, "sweep", tabs), shape=shape, op_dtype=torch.float64)
+    if dtype == torch.float64 and not dense_err <= SN_TOL[dtype]["sigma_tangent"]:
+        raise AssertionError(f"the banded Σ̇ is {dense_err:.3e} from a dense inverse's")
+    return dense_err
+
+
+def check_tangent_kernels(sp_model, dev) -> dict:
+    """Phase 3g: K19-K22 against their plain versions, in float64 and float32."""
+    results = {}
+    for dtype in (torch.float32, torch.float64):
+        out = results if dtype == torch.float64 else {}
+        check_tridiag_tangent(dtype, dev, out)
+        check_tridiag_tangent_edges(dtype, dev)
+        check_sn_tangents(sp_model, dtype, dev, out)
+        check_bt_tangents(sp_model, dtype, dev, out)
+    return results
+
+
+# ---- phase 24: second derivatives and the selected inverse's derivative ---------------------------
+
+
+def theta_hessian(ml, p):
+    """(value (B,), gradient (B, 2), Hessian (B, 2, 2)) of the per-chain function ml at p (B, 2): one gradient
+    with create_graph=True, then a backward pass of each of its two components summed over the chains (the
+    chains do not depend on each other), H[b, i, j] = ∂g_i/∂p_j."""
+    p = p.detach().clone().requires_grad_()
+    v = ml(p)
+    (g,) = torch.autograd.grad(v.sum(), p, create_graph=True)
+    H = torch.stack([torch.autograd.grad(g[:, i].sum(), p, retain_graph=i == 0)[0] for i in range(2)], 1)
+    return v.detach(), g.detach(), H
+
+
+def theta_gradient(ml, p):
+    p = p.detach().clone().requires_grad_()
+    (g,) = torch.autograd.grad(ml(p).sum(), p)
+    return g
+
+
+def hessian_checks(label, ml, p, ref_H, tol: dict, eps: float):
+    """Holds the kernel path's Hessian at p against the plain f64 path's (ref_H), its symmetry, and the
+    central difference of the kernel path's own gradient (step eps); returns the value, gradient, Hessian
+    and seconds of one Hessian (the second call's)."""
+    times = []
+    for _ in range(2):  # the first call pays the new patterns' host plans; the second is the one reported
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        v, g, H = theta_hessian(ml, p)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    secs = times[1]
+    if not bool(torch.isfinite(H).all()):
+        raise AssertionError(f"{label}: non-finite Hessian")
+    Hd, Rd = H.double().cpu(), ref_H.double().cpu()
+    scale = Rd.abs().amax((-2, -1)).clamp_min(1e-300)
+    plain = float(((Hd - Rd).abs().amax((-2, -1)) / scale).max())
+    sym = float(((Hd - Hd.mT).abs().amax((-2, -1)) / scale).max())
+    cols = [(theta_gradient(ml, p + eps * e) - theta_gradient(ml, p - eps * e)).double().cpu() / (2 * eps)
+            for e in torch.eye(2, dtype=p.dtype, device=p.device)]
+    cd = float(((Hd - torch.stack(cols, -1)).abs().amax((-2, -1)) / scale).max())
+    log(f"  {label}: Hessian vs the f64 plain path max rel {plain:.3e} (tol {tol['plain']:.0e}), asymmetry "
+        f"{sym:.3e} (tol {tol['sym']:.0e}), vs central differences of its own gradient (h={eps:g}) {cd:.3e} "
+        f"(tol {tol['cd']:.0e}); one Hessian {secs * 1e3:.1f} ms (value+grad with create_graph=True and two "
+        f"backward passes; first call {times[0] * 1e3:.1f} ms); H[0] = {Hd[0].flatten().tolist()}")
+    if not (plain <= tol["plain"] and sym <= tol["sym"] and cd <= tol["cd"]):
+        raise AssertionError(f"{label}: the θ-Hessian fails its checks")
+    return v, g, H, secs
+
+
+def flagship_marginal(y, dtype, dev):
+    """laplace_marginal of AR1(N) + Poisson at θ = (log τ, atanh ρ) per chain, max_iter=GA_MAX_ITER."""
+    import tpu_gmrf_torch as tg
+
+    model, obs, opts = tg.AR1Model(N), tg.ExponentialFamily("poisson"), tg.GAOptions(max_iter=GA_MAX_ITER)
+    yt = torch.tensor(y, dtype=dtype, device=dev)
+    return lambda p: tg.laplace_marginal(model, obs, yt, {"tau": torch.exp(p[:, 0]), "rho": torch.tanh(p[:, 1])},
+                                         options=opts)
+
+
+def spatial_marginal(model, y, inner, dtype, dev):
+    """laplace_marginal of phase 7's Matérn prior + Poisson at θ = (log τ, log range) per chain."""
+    import tpu_gmrf_torch as tg
+
+    opts = tg.GAOptions(max_iter=SP_GA_ITER) if inner is None else \
+        tg.GAOptions(max_iter=SP_GA_ITER, inner_solver=tg.SolverSpec(kind=inner))
+    obs, yt = tg.ExponentialFamily("poisson"), torch.tensor(y, dtype=dtype, device=dev)
+    return lambda p: tg.laplace_marginal(model, obs, yt, {"tau": torch.exp(p[:, 0]), "range": torch.exp(p[:, 1])},
+                                         options=opts)
+
+
+def logpdf_hessian_check(dev):
+    """Fault 3.4 on the card: the Hessian of GMRF.logpdf in x at the flagship's AR1(500) through K4, float64,
+    against −Q (each column a backward pass of the gradient built with create_graph=True)."""
+    import tpu_gmrf_torch as tg
+
+    g = tg.AR1Model(N)(tau=torch.tensor(1.3, dtype=torch.float64, device=dev),
+                       rho=torch.tensor(0.7, dtype=torch.float64, device=dev))
+    x = torch.tensor(np.random.default_rng(24).normal(size=N), device=dev).requires_grad_()
+    before = kernels_launches("csr_spmv")
+    (gx,) = torch.autograd.grad(g.logpdf(x), x, create_graph=True)
+    H = torch.stack([torch.autograd.grad(gx[i], x, retain_graph=True)[0] for i in range(N)])
+    err = float((H + g.Q.todense()).abs().max() / g.Q.todense().abs().max())
+    log(f"  fault 3.4: Hessian of GMRF.logpdf at AR1({N}) through K4 ({kernels_launches('csr_spmv') - before} K4 "
+        f"launches), f64: max rel from −Q {err:.3e} (tol {HESS_TOL['logpdf']:.0e})")
+    if not err <= HESS_TOL["logpdf"]:
+        raise AssertionError("the Hessian of GMRF.logpdf is not −Q on the card")
+
+
+def kernels_launches(name: str) -> int:
+    from tpu_gmrf_torch import kernels
+
+    return kernels.KERNELS[name].launches
+
+
+def example13_path(dev):
+    """Example 13 (examples/13_automatic_differentiation.py) on the card as it runs, float32: IID(50) + Poisson
+    in (log τ, log μ) through the tridiagonal backend, with its own checks and limits."""
+    import tpu_gmrf_torch as tg
+    import torch.autograd.forward_ad as fwAD
+    from tpu_gmrf_torch.sparse.matrix import speye
+
+    n, tau_true, mu_true = 50, 4.0, 5.0
+    rng = np.random.default_rng(123)
+    x_latent = mu_true + rng.normal(size=n) / np.sqrt(tau_true)
+    y = torch.tensor(rng.poisson(np.exp(np.clip(x_latent, -10, 10))), dtype=torch.float32, device=dev)
+    obs = tg.ExponentialFamily("poisson")
+
+    def objective(theta):
+        prior = tg.GMRF.from_precision(torch.exp(theta[1]).expand(n), speye(n, torch.float32) * torch.exp(theta[0]))
+        return -tg.marginal_loglikelihood(prior, obs(y))
+
+    def grad(theta):
+        t = theta.detach().clone().requires_grad_()
+        return torch.autograd.grad(objective(t), t)[0]
+
+    def hess(theta):
+        return torch.autograd.functional.hessian(objective, theta)
+
+    theta0 = torch.tensor([np.log(tau_true) + 0.2, np.log(mu_true) - 0.3], dtype=torch.float32, device=dev)
+    g_rev = grad(theta0)
+    g_fwd = []
+    for i in range(2):
+        with fwAD.dual_level():
+            g_fwd.append(fwAD.unpack_dual(objective(fwAD.make_dual(theta0, torch.eye(2, device=dev)[i]))).tangent)
+    g_fwd = torch.stack(g_fwd).cpu().numpy()
+    g_rev = g_rev.cpu().numpy()
+    np.testing.assert_allclose(g_rev, g_fwd, rtol=2e-3)
+    eps = 1e-3
+    fd = np.array([float(objective(theta0 + eps * e) - objective(theta0 - eps * e)) / (2 * eps)
+                   for e in torch.eye(2, device=dev)])
+    np.testing.assert_allclose(g_rev, fd, rtol=2e-2, atol=2e-3)
+    H = hess(theta0).cpu().numpy()
+    np.testing.assert_allclose(H, H.T, rtol=1e-3, atol=1e-4)
+    H_fd = np.stack([(grad(theta0 + eps * e) - grad(theta0 - eps * e)).cpu().numpy() / (2 * eps)
+                     for e in torch.eye(2, device=dev)])
+    np.testing.assert_allclose(H, H_fd, rtol=5e-2, atol=0.5)
+    theta, m, v = theta0.clone(), np.zeros(2), np.zeros(2)
+    lr, b1, b2 = 0.05, 0.9, 0.999
+    t0 = time.perf_counter()
+    for it in range(1, 201):
+        t = theta.detach().clone().requires_grad_()
+        val = objective(t)
+        g = torch.autograd.grad(val, t)[0].cpu().numpy().astype(np.float64)
+        m = b1 * m + (1 - b1) * g
+        v = b2 * v + (1 - b2) * g * g
+        step = lr * (m / (1 - b1**it)) / (np.sqrt(v / (1 - b2**it)) + 1e-8)
+        theta = theta - torch.tensor(step, dtype=torch.float32, device=dev)
+    adam_s = time.perf_counter() - t0
+    tau_opt, mu_opt = np.exp(theta.cpu().numpy())
+    assert abs(np.log(mu_opt) - np.log(mu_true)) < 0.15
+    assert abs(np.log(tau_opt) - np.log(tau_true)) < 1.5
+    H_opt = hess(theta).cpu().numpy()
+    assert np.linalg.eigvalsh(H_opt.astype(np.float64)).min() > 0
+    log(f"  example 13 (f32): grad reverse {g_rev.tolist()}, forward {g_fwd.tolist()}, FD {fd.tolist()}; Hessian "
+        f"{H.flatten().tolist()}; Adam (200 value+grads, {adam_s:.1f} s) -> (tau, mu) = ({tau_opt:.2f}, "
+        f"{mu_opt:.2f}), -loglik {float(val.detach()):.3f}; eigenvalues of H at the optimum "
+        f"{np.linalg.eigvalsh(H_opt.astype(np.float64)).tolist()}: the example's checks pass")
+
+
+def sigma_gradient_path(stats_model, dev):
+    """d/dθ of Σ_i var_i at n=14058, B=1 (phase 6's statistics, supernodal), θ = (log τ, log range), float64,
+    against a central difference."""
+    def total_var(p):
+        g = stats_model(tau=torch.exp(p[0]), range=torch.exp(p[1]))
+        return g.var().sum()
+
+    p0 = torch.tensor([0.0, np.log(0.25)], dtype=torch.float64, device=dev)
+    p = p0.clone().requires_grad_()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (g,) = torch.autograd.grad(total_var(p), p)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    h = 1e-4
+    with torch.no_grad():
+        cd = torch.stack([(total_var(p0 + h * e) - total_var(p0 - h * e)) / (2 * h)
+                          for e in torch.eye(2, dtype=torch.float64, device=dev)])
+    err = float((g - cd).abs().max() / cd.abs().max())
+    log(f"  d/dθ Σ var_i at n={stats_model.n}, B=1, supernodal, f64: {g.tolist()} against the central difference "
+        f"(h={h:g}) {cd.tolist()}: max rel {err:.3e} (tol {HESS_TOL['var_cd']:.0e}); {secs * 1e3:.1f} ms for "
+        f"var and its gradient")
+    if not err <= HESS_TOL["var_cd"]:
+        raise AssertionError("the gradient of Σ var_i disagrees with its central difference")
+
+
+def auto_solver(model):
+    """A copy of `model` whose own solver is auto (phases 10-11 keep the supernodal prior)."""
+    import copy
+
+    import tpu_gmrf_torch as tg
+
+    out = copy.copy(model)
+    out.solver = tg.SolverSpec()
+    return out
+
+
+def hessian_path(sp_model, dn_model, stats_model, dev, card):
+    """Phase 24: the θ-Hessians of the flagship (f32 and f64), example 13, the spatial slice (supernodal and
+    auto -> banded, f64) and the g=16 slice (auto -> dense, f64), and the gradient of Σ var_i at n=14058; each
+    path's kernels counted from zero and required to have launched."""
+    from tpu_gmrf_torch import kernels
+
+    counts = {}
+
+    def run(label, kernel_path, fn):
+        kernels.reset_launches()
+        out = fn()
+        got = kernels.launches()
+        launched(got, kernel_path, label)
+        for k, v in got.items():
+            counts[k] = counts.get(k, 0) + v
+        return out
+
+    # (1) the flagship
+    y = flagship_y()
+    p = torch.tensor(np.random.default_rng(2).normal(scale=0.5, size=(CHAINS, 2)), dtype=torch.float64)
+    t0 = time.perf_counter()
+    ref_H = theta_hessian(flagship_marginal(y, torch.float64, "cpu"), p)[2]
+    plain_s = time.perf_counter() - t0
+    run("flagship θ-Hessian", HESSIAN_FLAGSHIP_KERNELS, lambda: (
+        logpdf_hessian_check(dev),
+        hessian_checks(f"flagship f64 (B={CHAINS}, n={N})", flagship_marginal(y, torch.float64, dev), p.to(dev),
+                       ref_H, HESS_TOL["f64"], 1e-3),
+        hessian_checks(f"flagship f32 (B={CHAINS}, n={N})", flagship_marginal(y, torch.float32, dev),
+                       p.float().to(dev), ref_H, HESS_TOL["f32"], 1e-2)))
+    log(f"  (the flagship's f64 plain Hessian took {plain_s:.1f} s on the host CPU) on {card}")
+    # (2) example 13
+    run("example 13", HESSIAN_EX13_KERNELS, lambda: example13_path(dev))
+    # (3) the spatial slice, f64, supernodal and auto -> banded
+    sp_y = spatial_y(sp_model, SP_GRID)
+    sp_p = torch.tensor(np.tile([0.0, np.log(0.3)], (SP_CHAINS, 1))
+                        + np.random.default_rng(5).normal(scale=0.3, size=(SP_CHAINS, 2)), dtype=torch.float64)
+    for model, inner, path in ((sp_model, "supernodal", HESSIAN_SPATIAL_KERNELS),
+                               (auto_solver(sp_model), None, HESSIAN_BANDED_KERNELS)):
+        t0 = time.perf_counter()
+        ref = theta_hessian(spatial_marginal(model, sp_y, inner, torch.float64, "cpu"), sp_p)[2]
+        plain_s = time.perf_counter() - t0
+        kind = inner or f"auto -> {tg_resolve(model)}, prior and inner"
+        run(f"spatial θ-Hessian ({kind})", path, lambda: hessian_checks(
+            f"spatial f64 (B={SP_CHAINS}, n={model.n}, {kind})",
+            spatial_marginal(model, sp_y, inner, torch.float64, dev), sp_p.to(dev), ref, HESS_TOL["spatial"], 1e-3))
+        log(f"  (its f64 plain Hessian took {plain_s:.1f} s on the host CPU) on {card}")
+    # (4) g=16 on the dense backend (auto), and the gradient of Σ var_i at n=14058
+    dn_model = auto_solver(dn_model)
+    dn_y = spatial_y(dn_model, DN_GRID)
+    dn_p = torch.tensor(np.tile([0.0, np.log(0.3)], (DN_CHAINS, 1))
+                        + np.random.default_rng(6).normal(scale=0.3, size=(DN_CHAINS, 2)), dtype=torch.float64)
+    ref = theta_hessian(spatial_marginal(dn_model, dn_y, None, torch.float64, "cpu"), dn_p)[2]
+    run(f"g={DN_GRID} θ-Hessian (auto -> {tg_resolve(dn_model)})", HESSIAN_DENSE_KERNELS, lambda: hessian_checks(
+        f"g={DN_GRID} f64 (B={DN_CHAINS}, n={dn_model.n}, auto -> {tg_resolve(dn_model)}, prior and inner)",
+        spatial_marginal(dn_model, dn_y, None, torch.float64, dev), dn_p.to(dev), ref, HESS_TOL["g16"], 1e-3))
+    run("Σ var gradient", HESSIAN_VAR_KERNELS, lambda: sigma_gradient_path(stats_model, dev))
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4291,6 +4857,11 @@ def main() -> int:
     for dt in (torch.float32, torch.float64):
         check_spike_kernels(f"example 12 P={EX12_P}", *(t.to(dt) for t in ex12), EX12_P, dt, {})
         check_spike_edges(dt, dev)
+
+    log(f"phase 3g the selected inverse's tangents K19-K22 vs plain and library: K19 at B={CHAINS} n={N}, K20 and "
+        f"K21 over phase 3b's supernodal schedule, K22 and K21 on the banded blocks (n={sp_model.n}, B={SP_CHAINS}), "
+        f"on {card}")
+    results.update(check_tangent_kernels(sp_model, dev))
 
     log(f"phase 4 flagship slice: laplace_marginal value+grad, B={CHAINS}, n={N}, max_iter={GA_MAX_ITER}")
     y = flagship_y()
@@ -4480,9 +5051,13 @@ def main() -> int:
     log(f"phase 23 a non-Gaussian prior: the Student-t random walk, n={N}, {CHAINS} chains (f32, f64), and as an "
         f"AutoDiffLatentPrior ({ST_AD_CHAINS} chains, f64); on {card}")
     counts23 = nongaussian_path(dev, card)
+    log(f"phase 24 second derivatives: θ-Hessians of the flagship (B={CHAINS}, f64 and f32), example 13, the "
+        f"spatial slice (n={sp_model.n}, supernodal and auto -> banded, f64) and g={DN_GRID} (auto -> dense, f64); "
+        f"d/dθ Σ var_i at n={stats_model.n}; on {card}")
+    counts24 = hessian_path(sp_model, dn_model, stats_model, dev, card)
 
     paths = (counts, sp_counts, counts9, counts10, counts11, counts12, counts13, counts13b, counts14, counts15,
-             counts16, counts17, counts18, counts19, counts20, counts21, counts22, counts23)
+             counts16, counts17, counts18, counts19, counts20, counts21, counts22, counts23, counts24)
     report = {
         "kernels": [
             {"name": name, "route": "cuda", "source": SOURCES[name][0], "replaces": SOURCES[name][1],

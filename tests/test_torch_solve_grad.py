@@ -17,10 +17,13 @@ condition reaches 1/jitter = 1e8), by autograd and by a central difference
 computed without cancellation, against ``jax.grad`` of the reference.
 
 All to 1e-8 relative. Every reference value is computed once per module,
-under ``jax.jit``. Also: the statistics without a backward (`sample`, `var`,
-the CG solve) raise while Q requires a gradient, and a second derivative
-(``create_graph=True``) through a solve or the Laplace marginal raises
-(ROADMAP fault 3.2) instead of returning a value cut from the graph.
+under ``jax.jit``. Also: sampling and the CG solve raise while Q (or b)
+requires a gradient, and `var` and `selinv` carry it (against the plain
+float64 reference, a dense inverse); second derivatives
+(``create_graph=True``) through a solve match ``jax.jvp`` of ``jax.grad``
+of the reference (1e-10), and the Laplace marginal's second τ-derivative a
+central difference of the reference's jitted gradient (1e-5: Newton's
+tolerance on both sides).
 """
 
 import functools
@@ -107,6 +110,7 @@ def _reference(kind):
 
     out = {"constrained": float(jax.jit(jax.grad(constrained))(TAU)),
            "conditioned": float(jax.jit(jax.grad(conditioned))(TAU))}
+
     cases = [("tridiag", _tridiag_case(), (N,))]
     if kind != "tridiag":
         cases.append(("sparse", _sparse_case(), (14, 3)))
@@ -117,6 +121,24 @@ def _reference(kind):
             jnp.asarray(d), jnp.asarray(b), jnp.asarray(w))
         out[name] = dict(pat=pat, d=d, b=b, w=w, gd=np.asarray(gd), gb=np.asarray(gb))
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def _hvp_reference():
+    """jax.jvp of jax.grad of ‖Q⁻¹b‖² in (Q's data, b) on the tridiagonal
+    case, computed once: the same function on every backend, so the
+    reference's tridiagonal solver serves them all."""
+    pat, d = _tridiag_case()
+    rng = np.random.default_rng(27)
+    b, v, u = rng.normal(size=N), rng.normal(size=d.shape), rng.normal(size=N)
+    spec = jg.SolverSpec(kind="tridiag")
+
+    def squared(dd, bb):
+        return jnp.sum(jg.factorize(JSM(dd, pat), spec).solve(bb) ** 2)
+
+    _, (hd, hb) = jax.jit(lambda dd, bb, vv, uu: jax.jvp(jax.grad(squared, argnums=(0, 1)), (dd, bb), (vv, uu)))(
+        *(jnp.asarray(a) for a in (d, b, v, u)))
+    return dict(pat=pat, d=d, b=b, v=v, u=u, hd=np.asarray(hd), hb=np.asarray(hb))
 
 
 def _port_pattern(jp):
@@ -181,14 +203,24 @@ def test_batched_solve_gradient_is_per_chain(kind):
 
 @pytest.mark.parametrize("kind", KINDS)
 def test_statistics_without_backward_raise_while_q_requires_grad(kind):
-    g = _port_q(kind, _t(TAU, requires_grad=True))
+    """Sampling still raises while Q requires a gradient; var and selinv now
+    carry it: d/dτ of Σ_i w_i var_i + Σ_p u_p Σ_p equals the plain float64
+    reference's (a dense inverse of Q(τ), by autograd)."""
+    tau = _t(TAU, requires_grad=True)
+    g = _port_q(kind, tau)
     gen = torch.Generator().manual_seed(0)
     with pytest.raises(NotImplementedError, match="no backward"):
         g.sample(gen)
-    with pytest.raises(NotImplementedError, match="no backward"):
-        g.var()
-    with pytest.raises(NotImplementedError, match="no backward"):
-        g.factor.selinv(g.Q.pattern)
+    rng = np.random.default_rng(26)
+    w, u = _t(rng.normal(size=N)), _t(rng.normal(size=g.Q.nnz))
+    (got,) = torch.autograd.grad((w * g.var()).sum() + (u * g.factor.selinv(g.Q.pattern).data).sum(), tau)
+    tau_ref = _t(TAU, requires_grad=True)
+    Qd = g.Q.with_data(_t(_probe()[1]) * tau_ref).todense()
+    Sig = torch.linalg.inv(0.5 * (Qd + Qd.T))
+    pat = g.Q.pattern
+    ref = (w * torch.diagonal(Sig)).sum() + (u * Sig[torch.tensor(pat.rows, dtype=torch.long), torch.tensor(pat.cols, dtype=torch.long)]).sum()
+    (want,) = torch.autograd.grad(ref, tau_ref)
+    assert abs(float(got) - float(want)) <= 1e-10 * abs(float(want))
     with torch.no_grad():  # without a graph they compute as before
         torch.testing.assert_close(g.var(), _port_q(kind, _t(TAU)).var(), rtol=0, atol=0)
         assert g.sample(gen).shape == (N,)
@@ -210,21 +242,43 @@ def test_cg_solve_raises_while_q_or_b_requires_grad():
 
 @pytest.mark.parametrize("kind", KINDS)
 def test_second_derivatives_through_a_solve_raise(kind):
-    ref = _reference(kind)["tridiag"]
-    d = _t(ref["d"], requires_grad=True)
-    f = tg.factorize(SparseMatrix(d, _port_pattern(ref["pat"])), tg.SolverSpec(kind=kind, block=BLOCK.get(kind)))
-    with pytest.raises(NotImplementedError, match="second derivative"):
-        torch.autograd.grad((f.solve(_t(ref["b"])) ** 2).sum(), d, create_graph=True)
+    """The second derivatives of ‖Q⁻¹b‖² in Q's data and b, a Hessian-vector
+    product by torch.autograd.grad(..., create_graph=True), against jax.jvp of
+    jax.grad of the reference (no longer a raise)."""
+    hv = _hvp_reference()
+    d, b = _t(hv["d"], requires_grad=True), _t(hv["b"], requires_grad=True)
+    f = tg.factorize(SparseMatrix(d, _port_pattern(hv["pat"])), tg.SolverSpec(kind=kind, block=BLOCK.get(kind)))
+    gd, gb = torch.autograd.grad((f.solve(b) ** 2).sum(), (d, b), create_graph=True)
+    hd, hb = torch.autograd.grad((gd * _t(hv["v"])).sum() + (gb * _t(hv["u"])).sum(), (d, b))
+    assert _rel(hd.numpy(), hv["hd"]) <= 1e-10
+    assert _rel(hb.numpy(), hv["hb"]) <= 1e-10
+
+
+@functools.lru_cache(maxsize=None)
+def _marginal_reference():
+    """The reference's d/dτ of laplace_marginal (AR1(20) + Poisson, ρ = 0.5)
+    at τ = 1 ± 1e-5, jitted once: its central difference."""
+    y = np.random.default_rng(25).poisson(1.0, 20).astype(np.float64)
+
+    def ml(tau):
+        return jg.laplace_marginal(jg.AR1Model(20), jg.ExponentialFamily("poisson"), y,
+                                   {"tau": tau, "rho": jnp.asarray(0.5)})
+
+    g = jax.jit(jax.grad(ml))
+    eps = 1e-5
+    return y, (float(g(1.0 + eps)) - float(g(1.0 - eps))) / (2 * eps)
 
 
 def test_second_derivatives_of_the_laplace_marginal_raise():
-    y = np.random.default_rng(25).poisson(1.0, 20).astype(np.float64)
+    """d²/dτ² of the Laplace marginal through NewtonMode's backward built
+    with create_graph=True, against a central difference of the reference's
+    jitted gradient (no longer a raise)."""
+    y, want = _marginal_reference()
     theta = {"tau": _t(1.0, requires_grad=True), "rho": _t(0.5)}
     v = tg.laplace_marginal(tg.AR1Model(20), tg.ExponentialFamily("poisson"), y, theta)
-    with pytest.raises(NotImplementedError, match="second derivative"):
-        torch.autograd.grad(v, theta["tau"], create_graph=True)
-    (g,) = torch.autograd.grad(v, theta["tau"])  # the first derivative is as before
-    assert torch.isfinite(g)
+    (g,) = torch.autograd.grad(v, theta["tau"], create_graph=True)
+    (h,) = torch.autograd.grad(g, theta["tau"])
+    assert abs(float(h) - want) <= 1e-5 * abs(want)
 
 
 def _matern32(a, b, ell=0.3):

@@ -21,6 +21,16 @@
 //       permutation of x and y; and, as `bt_sqrt`, :272-280
 //       `BandedFactor.sqrt_matvec`: y_k = L_k z_k + M_{k-1} z_{k-1} on K11's
 //       panels (L_k lower triangular: its upper triangle is not read).
+//   K22 bt_factor_tangent: JAX's AD of :209 `_sigma_blocks`'s input, the
+//       factorization `step` (:376), in a direction Q' (the reference has no
+//       kernel for it): L'_k = L_k F, F = Phi(L_k^-1 D'_k L_k^-T) with
+//       D'_k = Q'_kk - U'_{k-1}, M'_k = Q'_{k+1,k} L_k^-T - M_k F^T,
+//       U'_k = M'_k M_k^T + M_k M'_k^T; a cluster per chain walks the K
+//       blocks, each step csrc/tangent.cuh's `panel_tangent` (float64
+//       products on a workspace, their 64-row tiles dealt out over the
+//       cluster on the float64 tensor cores, L_k^-1 = L_k^T A_k with A_k
+//       from K8's first entry). Bound by the float64 tensor-core rate of
+//       the cluster's SMs.
 //   K11 and K12 have a block entry each, for the SPIKE solve
 //   (tpu_gmrf/parallel/pbtridiag.py): `bt_factor_blocks` is :53 `_bt_chol`,
 //   L_k = chol(D_k - M_{k-1} M_{k-1}^T), M_k = E_k L_k^-T, on blocks D, E
@@ -97,6 +107,7 @@
 // from run to run.
 
 #include "dense_blocks.cuh"
+#include "tangent.cuh"
 #include "tiles.cuh"
 
 namespace {
@@ -1088,6 +1099,63 @@ int launch_matvec(const T* diag, long long diag_k, long long diag_b, const T* su
   return rows_out<T>(yb, kp * Ks, Ks, 1, perm, n, kk, kp, B, y, upper ? part : nullptr, P, K, s, st);
 }
 
+
+// K22: a cluster walks chain blockIdx.x / cluster size's K blocks. dP holds the blocks' Q' (lower triangle of
+// each diagonal block, then the block below) and is overwritten with L'_k, M'_k; A_k = L_k^-T L_k^-1 (lower) in
+// rows 0..s of pre's panels.
+template <typename T>
+__global__ void __launch_bounds__(tgt::kThreads)
+    bt_factor_tangent_kernel(const T* __restrict__ P, const T* __restrict__ pre, T* dP, long long ps, int K, int s,
+                             double* work) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  double* smem = reinterpret_cast<double*>(smem_raw);
+  const tgt::Team t = tgt::cluster_team();
+  const int b = blockIdx.x / t.size, ss = s * s;
+  const long panel = 2L * ss;
+  tgt::Slots sl(work + b * tgt::tangent_slice(s, s), s, s);
+  double *Ld = sl.w[0], *A = sl.w[1], *dD = sl.w[2], *dL = sl.w[6], *Mk = sl.m[0], *dE = sl.m[1], *dM = sl.m[2];
+  double* dU = sl.q[0];  // U'_{k-1}, then U'_k
+  const T* Pb = P + b * K * panel;
+  const T* prb = pre + b * ps;
+  T* db = dP + b * ps;
+  for (int k = 0; k < K; ++k) {
+    const long o = k * panel;
+    const bool below = k < K - 1;
+    for (int e = tgt::first(t); e < ss; e += tgt::stride(t)) {
+      const int i = e / s, j = e % s;
+      Ld[e] = double(Pb[o + e]);
+      A[e] = i >= j ? double(prb[o + e]) : 0.0;
+      dD[e] = i >= j ? double(db[o + e]) - (k > 0 ? tgt::ld(dU + e) : 0.0) : 0.0;
+      Mk[e] = double(Pb[o + ss + e]);
+      dE[e] = double(db[o + ss + e]);
+    }
+    tgt::team_sync();
+    tgt::symmetrize(t, A, s);
+    tgt::symmetrize(t, dD, s);  // U'_{k-1} is symmetric: its lower triangle, taken off, leaves Q'_kk - U'_{k-1}
+    tgt::panel_tangent(t, s, below ? s : 0, Ld, Mk, A, dD, dE, sl.w[3], sl.w[4], sl.w[5], dL, dM, dU, true, smem);
+    for (int e = tgt::first(t); e < ss; e += tgt::stride(t)) {
+      db[o + e] = T(e / s >= e % s ? tgt::ld(dL + e) : 0.0);
+      db[o + ss + e] = T(below ? tgt::ld(dM + e) : 0.0);
+    }
+    tgt::team_sync();
+  }
+}
+
+template <typename T>
+int launch_factor_tangent(const T* P, const T* pre, T* dP, long long ps, int K, int s, double* work, int B, int cs,
+                          void* stream) {
+  if (B == 0 || K == 0) return 0;
+  if (cs < 1 || cs > tgt::kTeamMax) return (int)cudaErrorInvalidValue;
+  return tgtile::launch_cluster(bt_factor_tangent_kernel<T>, dim3(B * cs), cs, tgt::kSmemBytes, (cudaStream_t)stream,
+                                P, pre, dP, ps, K, s, work);
+}
+
+// How many clusters of cs blocks of K22 the card holds at once.
+template <typename T>
+int factor_tangent_fit(int cs, int* count) {
+  return tgtile::cluster_fit(bt_factor_tangent_kernel<T>, cs, tgt::kSmemBytes, count);
+}
+
 }  // namespace
 
 extern "C" {
@@ -1121,7 +1189,12 @@ extern "C" {
                          int upper, T* work, void* stream) {                                                  \
     return launch_matvec<T>(diag, diag_k, diag_b, sub, sub_k, sub_b, K, s, n, perm, x, y, kk, B, nv, chunks,  \
                             strips, cs, P, cpl, nthr, lower, upper, work, stream);                            \
-  }
+  }                                                                                                           \
+  int tg_bt_factor_tangent_##SUF(const T* P, const T* pre, T* dP, long long ps, int K, int s, double* work,   \
+                                 int B, int cs, void* stream) {                                               \
+    return launch_factor_tangent<T>(P, pre, dP, ps, K, s, work, B, cs, stream);                               \
+  }                                                                                                           \
+  int tg_bt_factor_tangent_fit_##SUF(int cs, int* count) { return factor_tangent_fit<T>(cs, count); }
 
 TG_BT_ENTRY(f32, float)
 TG_BT_ENTRY(f64, double)

@@ -11,6 +11,13 @@
 //       Lb z[cols] into the level's update buffer);
 //   K8: :1000 `_sig_step` (block Takahashi: Sigma_RJ = -Sigma_RR C,
 //       Sigma_JJ = Ld^-T Ld^-1 + C^T Sigma_RR C with C = Lb Ld^-1).
+//   K20 sn_panel_tangent and K21 sn_takahashi_tangent: JAX's AD of :1345
+//       `selinv` through the factorization and `_sig_step` (the reference
+//       has no kernel of its own for them): the tangent of K6's panel step
+//       and of K8's step, for the selected inverse's derivative
+//       Sigma' = -Sigma Q' Sigma (csrc/tangent.cuh: a cluster per
+//       (supernode, chain), the products in float64 on a workspace, on
+//       tgtile's float64 tensor-core tiles).
 //
 // Layout. `vals` / `sig` hold, per chain, the flat CSC values of L / Sigma on
 // the amalgamated fill pattern plus one DUMMY slot (index nnzL). A class
@@ -70,6 +77,7 @@
 // or in a workspace and gathers them through the panel and Schur tables.
 
 #include "dense_blocks.cuh"
+#include "tangent.cuh"
 #include "tiles.cuh"
 
 namespace {
@@ -1075,6 +1083,136 @@ int launch_takahashi(const T* pre, long long ps, T* sig, long long ss, const int
   return launch_sweep<T, 64>(pre, ps, sig, ss, panel_idx, schur_idx, P, W, M, dummy, cs, t1, t2, B, st);
 }
 
+
+// ---- K20 and K21: the tangents (csrc/tangent.cuh) -------------------------------------------------
+
+namespace tk {
+
+// Gathers panel p's (W + M) x W values of one chain: rows < W into the W x W
+// slot `top` (a padded column, whose diagonal position is DUMMY, gets
+// `pad` on its diagonal), rows >= W into the M x W slot `below`.
+template <typename T>
+__device__ void gather_panel(const tgt::Team& team, const T* src, const int* pidx, int W, int M, int dummy,
+                             double pad, double* top, double* below) {
+  for (int e = tgt::first(team); e < (W + M) * W; e += tgt::stride(team)) {
+    const int pos = pidx[e], i = e / W, j = e % W;
+    const double v = pos != dummy ? double(src[pos]) : (i == j ? pad : 0.0);
+    if (i < W)
+      top[e] = v;
+    else
+      below[e - W * W] = v;
+  }
+}
+
+template <typename T>
+__device__ void gather_square(const tgt::Team& team, const T* src, const int* idx, int M, int dummy, double* out) {
+  for (int e = tgt::first(team); e < M * M; e += tgt::stride(team)) {
+    const int pos = idx[e];
+    out[e] = pos != dummy ? double(src[pos]) : 0.0;
+  }
+}
+
+// Writes panel p's live positions: the lower triangle of `top` (zero above
+// it) and `below`.
+template <typename T>
+__device__ void scatter_panel(const tgt::Team& team, T* dst, const int* pidx, int W, int M, int dummy,
+                              const double* top, const double* below) {
+  for (int e = tgt::first(team); e < (W + M) * W; e += tgt::stride(team)) {
+    const int pos = pidx[e], i = e / W, j = e % W;
+    if (pos == dummy) continue;
+    dst[pos] = T(i < W ? (i >= j ? tgt::ld(top + e) : 0.0) : tgt::ld(below + e - W * W));
+  }
+}
+
+// K20: supernode blockIdx.x / cluster size of the batch on chain blockIdx.y, on one cluster.
+template <typename T>
+__global__ void __launch_bounds__(tgt::kThreads)
+    sn_panel_tangent_kernel(const T* __restrict__ vals, long long vs, const T* __restrict__ pre, T* dvals,
+                            long long ps, T* __restrict__ du, long long us, long long ubase,
+                            const int* __restrict__ panel_idx, int P, int W, int M, int dummy, double* work) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  double* smem = reinterpret_cast<double*>(smem_raw);
+  const tgt::Team t = tgt::cluster_team();
+  const int p = blockIdx.x / t.size, b = blockIdx.y;
+  const int* pidx = panel_idx + (long)p * (W + M) * W;
+  tgt::Slots sl(work + ((long)b * P + p) * tgt::tangent_slice(W, M), W, M);
+  gather_panel(t, vals + b * vs, pidx, W, M, dummy, 1.0, sl.w[0], sl.m[0]);  // Ld, Lb
+  gather_panel(t, pre + b * ps, pidx, W, M, dummy, 0.0, sl.w[1], sl.m[3]);   // A (C unused)
+  gather_panel(t, dvals + b * ps, pidx, W, M, dummy, 0.0, sl.w[2], sl.m[1]);  // dAjj, dArj
+  tgt::team_sync();
+  tgt::symmetrize(t, sl.w[1], W);
+  tgt::symmetrize(t, sl.w[2], W);
+  tgt::panel_tangent(t, W, M, sl.w[0], sl.m[0], sl.w[1], sl.w[2], sl.m[1], sl.w[3], sl.w[4], sl.w[5], sl.w[6],
+                     sl.m[2], sl.q[0], false, smem);
+  scatter_panel(t, dvals + b * ps, pidx, W, M, dummy, sl.w[6], sl.m[2]);
+  if (M) {
+    T* u = du + b * us + ubase + (long)p * M * M;
+    for (int e = tgt::first(t); e < M * M; e += tgt::stride(t)) u[e] = T(tgt::ld(sl.q[0] + e));
+  }
+}
+
+// K21: supernode blockIdx.x / cluster size of the batch on chain blockIdx.y, on one cluster.
+template <typename T>
+__global__ void __launch_bounds__(tgt::kThreads)
+    sn_takahashi_tangent_kernel(const T* __restrict__ vals, long long vs, const T* __restrict__ pre,
+                                const T* __restrict__ dvals, const T* __restrict__ sig, T* dsig, long long ps,
+                                const int* __restrict__ panel_idx, const int* __restrict__ schur_idx, int P, int W,
+                                int M, int dummy, double* work) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  double* smem = reinterpret_cast<double*>(smem_raw);
+  const tgt::Team t = tgt::cluster_team();
+  const int p = blockIdx.x / t.size, b = blockIdx.y;
+  const int* pidx = panel_idx + (long)p * (W + M) * W;
+  const int* sidx = schur_idx + (long)p * M * M;
+  tgt::Slots sl(work + ((long)b * P + p) * tgt::tangent_slice(W, M), W, M);
+  double *Ld = sl.w[0], *A = sl.w[1], *dLd = sl.w[2], *dSjj = sl.w[6];
+  double *C = sl.m[0], *dLb = sl.m[1], *Srj = sl.m[2], *dSrj = sl.m[5];
+  gather_panel(t, vals + b * vs, pidx, W, M, dummy, 1.0, Ld, sl.m[3]);  // Ld (Lb unused)
+  gather_panel(t, pre + b * ps, pidx, W, M, dummy, 0.0, A, C);
+  gather_panel(t, dvals + b * ps, pidx, W, M, dummy, 0.0, dLd, dLb);
+  gather_panel(t, sig + b * ps, pidx, W, M, dummy, 0.0, sl.w[3], Srj);  // (Sigma_JJ unused)
+  gather_square(t, sig + b * ps, sidx, M, dummy, sl.q[0]);
+  gather_square(t, dsig + b * ps, sidx, M, dummy, sl.q[1]);
+  tgt::team_sync();
+  tgt::symmetrize(t, A, W);
+  tgt::symmetrize(t, sl.q[0], M);
+  tgt::symmetrize(t, sl.q[1], M);
+  tgt::takahashi_tangent(t, W, M, Ld, A, C, dLd, dLb, sl.q[0], sl.q[1], Srj, sl.w[3], sl.w[4], sl.w[5], sl.m[3],
+                         sl.m[4], dSjj, dSrj, smem);
+  scatter_panel(t, dsig + b * ps, pidx, W, M, dummy, dSjj, dSrj);
+}
+
+template <typename T>
+int launch_panel_tangent(const T* vals, long long vs, const T* pre, T* dvals, long long ps, T* du, long long us,
+                         long long ubase, const int* panel_idx, int P, int W, int M, int dummy, double* work, int B,
+                         int cs, void* stream) {
+  if (P == 0 || B == 0) return 0;
+  if (B > 65535 || cs < 1 || cs > tgt::kTeamMax) return (int)cudaErrorInvalidValue;
+  return tgtile::launch_cluster(sn_panel_tangent_kernel<T>, dim3(P * cs, B), cs, tgt::kSmemBytes,
+                                (cudaStream_t)stream, vals, vs, pre, dvals, ps, du, us, ubase, panel_idx, P, W, M,
+                                dummy, work);
+}
+
+template <typename T>
+int launch_takahashi_tangent(const T* vals, long long vs, const T* pre, const T* dvals, const T* sig, T* dsig,
+                             long long ps, const int* panel_idx, const int* schur_idx, int P, int W, int M,
+                             int dummy, double* work, int B, int cs, void* stream) {
+  if (P == 0 || B == 0) return 0;
+  if (B > 65535 || cs < 1 || cs > tgt::kTeamMax) return (int)cudaErrorInvalidValue;
+  return tgtile::launch_cluster(sn_takahashi_tangent_kernel<T>, dim3(P * cs, B), cs, tgt::kSmemBytes,
+                                (cudaStream_t)stream, vals, vs, pre, dvals, sig, dsig, ps, panel_idx, schur_idx, P,
+                                W, M, dummy, work);
+}
+
+// How many clusters of cs blocks of K20 (which = 0) or K21 (1) the card holds at once.
+template <typename T>
+int tangent_fit(int cs, int which, int* count) {
+  return which ? tgtile::cluster_fit(sn_takahashi_tangent_kernel<T>, cs, tgt::kSmemBytes, count)
+               : tgtile::cluster_fit(sn_panel_tangent_kernel<T>, cs, tgt::kSmemBytes, count);
+}
+
+}  // namespace tk
+
 }  // namespace
 
 extern "C" {
@@ -1103,6 +1241,23 @@ extern "C" {
                             int dummy, int cs, int t1, int t2, int B, void* stream) {              \
     return launch_takahashi<T>(pre, ps, sig, ss, panel_idx, schur_idx, P, W, M, dummy, cs, t1, t2, \
                                B, stream);                                                         \
+  }                                                                                                \
+  int tg_sn_panel_tangent_##SUF(const T* vals, long long vs, const T* pre, T* dvals, long long ps, \
+                                T* du, long long us, long long ubase, const int* panel_idx, int P, \
+                                int W, int M, int dummy, double* work, int B, int cs,              \
+                                void* stream) {                                                    \
+    return tk::launch_panel_tangent<T>(vals, vs, pre, dvals, ps, du, us, ubase, panel_idx, P, W, M, \
+                                       dummy, work, B, cs, stream);                                \
+  }                                                                                                \
+  int tg_sn_takahashi_tangent_##SUF(const T* vals, long long vs, const T* pre, const T* dvals,     \
+                                    const T* sig, T* dsig, long long ps, const int* panel_idx,     \
+                                    const int* schur_idx, int P, int W, int M, int dummy,          \
+                                    double* work, int B, int cs, void* stream) {                   \
+    return tk::launch_takahashi_tangent<T>(vals, vs, pre, dvals, sig, dsig, ps, panel_idx,         \
+                                           schur_idx, P, W, M, dummy, work, B, cs, stream);        \
+  }                                                                                                \
+  int tg_sn_tangent_fit_##SUF(int cs, int which, int* count) {                                     \
+    return tk::tangent_fit<T>(cs, which, count);                                                   \
   }
 
 TG_SN_ENTRY(f32, float)

@@ -1,5 +1,6 @@
 // Batched tridiagonal kernels K1-K3: bidiagonal Cholesky with logdet,
-// triangular solves, and the Takahashi selected inverse.
+// triangular solves, and the Takahashi selected inverse; and K19, the
+// selected inverse's tangent.
 //
 // Replaces (JAX reference, tpu_gmrf/):
 //   K1 tridiag_factor  solvers/prefix.py:53 `mobius_recurrence` as used by
@@ -9,6 +10,10 @@
 //                      solvers/tridiag.py:44-59 (forward/backward/solve).
 //   K3 tridiag_selinv  solvers/tridiag.py:70-81 `selinv_tridiag`, the
 //                      reverse `linear_recurrence`.
+//   K19 tridiag_selinv_tangent  JAX's AD of solvers/tridiag.py:70
+//                      `selinv_tridiag` through the factorization (the
+//                      reference has no kernel of its own for it): the
+//                      tangent of K1's pivots and of K3's recurrence.
 //
 // What bounds them on the card: each chain is a length-n first-order
 // recurrence. At the flagship shape (B=256 chains, n=500) the whole batch
@@ -52,6 +57,16 @@
 // and writes zdiag and zoff into the staged d and e rows. Where a pivot of K1
 // was negative, d is NaN there and so is z at that row and every row above
 // it, as in the reference's scan.
+//
+// K19: the tangent of Sigma's tridiagonal in a direction (a', c') of (a, c).
+// Two scans on a block per chain (kernels/tridiag.py::tangent_launch, at most
+// 8 rows a thread: a tile stages five arrays): K2's forward affine scan on
+// the pivots' tangent delta'_k = r_{k-1}^2 delta'_{k-1} + a'_k -
+// 2 r_{k-1} c'_{k-1} (r = e/d), stored in dzdiag, then K3's backward one on
+// z'_j = r_j^2 z'_{j+1} + 2 r_j r'_j z_{j+1} - delta'_j/delta_j^2 with
+// r'_j = (c'_j - r_j delta'_j)/delta_j, which writes dzdiag and
+// dzoff_j = -(r'_j z_{j+1} + r_j z'_{j+1}). Bound, like K1-K3, by the
+// latency of the dependent steps.
 //
 // Each entry point launches on the given stream and returns
 // cudaGetLastError() so the Python wrapper can raise. Nothing is allocated
@@ -370,6 +385,137 @@ __global__ void __launch_bounds__(kMaxThreads)
   }
 }
 
+// K19. delta'_k = r_{k-1}^2 delta'_{k-1} + a'_k - 2 r_{k-1} c'_{k-1}, then
+// z'_j = r_j^2 z'_{j+1} + 2 r_j r'_j z_{j+1} - delta'_j / delta_j^2,
+// dzoff_j = -(r'_j z_{j+1} + r_j z'_{j+1}), r'_j = (c'_j - r_j delta'_j) / delta_j.
+template <typename T>
+__global__ void __launch_bounds__(kMaxThreads)
+    tridiag_selinv_tangent_kernel(const T* __restrict__ d, const T* __restrict__ e, const T* __restrict__ z,
+                                  const T* __restrict__ da, const T* __restrict__ dc, T* dz, T* __restrict__ dzoff,
+                                  int n, int m) {
+  using namespace scan;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int gsize = blockDim.x, nw = gsize / 32, t = threadIdx.x;
+  const long chain = blockIdx.x;
+  const int s = m | 1, tile = gsize * m, ntiles = (n + tile - 1) / tile;
+  T* sd = reinterpret_cast<T*>(smem_raw);  // d
+  T* se = sd + gsize * s;                  // e
+  T* s1 = se + gsize * s;                  // a', then z_{j+1}
+  T* s2 = s1 + gsize * s;                  // c', then dzoff
+  T* s3 = s2 + gsize * s;                  // delta', then z'
+  Affine<W>* wmaps = reinterpret_cast<Affine<W>*>(s3 + gsize * s);
+  W* wstates = reinterpret_cast<W*>(wmaps + 32);
+  T* slot = reinterpret_cast<T*>(wstates + 32);
+  const T* dr = d + chain * n;
+  const T* er = e + chain * (n - 1);
+  const T* zr = z + chain * n;
+  const T* ar = da + chain * n;
+  const T* cr = dc + chain * (n - 1);
+  T* out = dz + chain * n;
+  T* oo = dzoff + chain * (n - 1);
+  T* md = sd + t * s;
+  T* me = se + t * s;
+  T* m1 = s1 + t * s;
+  T* m2 = s2 + t * s;
+  T* m3 = s3 + t * s;
+  const int r0 = t * m;
+  W carry = 0;  // delta'_{-1}, multiplied by r_{-1} = 0
+  for (int ti = 0; ti < ntiles; ++ti) {
+    const int t0 = ti * tile, R = min(tile, n - t0), rows = max(0, min(m, R - r0));
+#pragma unroll
+    for (int q = 0; q < kSegMax; ++q) {
+      const int j = t + q * gsize;
+      if (q < m && j < R) {
+        const int p = seg_pos(j, m, s);
+        const bool inner = t0 + j < n - 1;
+        sd[p] = dr[t0 + j];
+        se[p] = inner ? er[t0 + j] : T(0);
+        s1[p] = ar[t0 + j];
+        s2[p] = inner ? cr[t0 + j] : T(0);
+      }
+    }
+    const int k0 = t0 + r0;
+    // r and c' of the row before the segment's first
+    const T rin = rows > 0 && k0 > 0 ? er[k0 - 1] / dr[k0 - 1] : T(0);
+    const T cin = rows > 0 && k0 > 0 ? cr[k0 - 1] : T(0);
+    group_sync(nw);
+    Affine<W> mine = identity<Affine<W>>();
+    T rp = rin, cp = cin;
+#pragma unroll
+    for (int i = 0; i < kSegMax; ++i)
+      if (i < rows) {
+        const W A = W(rp) * rp;
+        mine = {A * mine.A, A * mine.B + W(m1[i]) - W(2) * rp * cp};
+        rp = me[i] / md[i];
+        cp = m2[i];
+      }
+    T y = T(entry_state<true>(mine, carry, nw, wmaps, wstates));
+    rp = rin;
+    cp = cin;
+#pragma unroll
+    for (int i = 0; i < kSegMax; ++i)
+      if (i < rows) {
+        y = rp * rp * y + (m1[i] - T(2) * rp * cp);
+        m3[i] = y;
+        rp = me[i] / md[i];
+        cp = m2[i];
+      }
+    if (rows > 0 && r0 + rows == R) *slot = y;
+    group_sync(nw);
+    carry = *slot;
+#pragma unroll
+    for (int q = 0; q < kSegMax; ++q) {
+      const int j = t + q * gsize;
+      if (q < m && j < R) out[t0 + j] = s3[seg_pos(j, m, s)];
+    }
+    group_sync(nw);
+  }
+  carry = 0;  // z'_n = 0; row n-1's map ignores it
+  for (int ti = ntiles - 1; ti >= 0; --ti) {
+    const int t0 = ti * tile, R = min(tile, n - t0), rows = max(0, min(m, R - r0));
+    const int last = n - 1 - t0 - r0;  // the chain's last row, as a row of this segment
+#pragma unroll
+    for (int q = 0; q < kSegMax; ++q) {
+      const int j = t + q * gsize;
+      if (q < m && j < R) {
+        const int p = seg_pos(j, m, s);
+        const bool inner = t0 + j < n - 1;
+        sd[p] = dr[t0 + j];
+        se[p] = inner ? er[t0 + j] : T(0);
+        s1[p] = inner ? zr[t0 + j + 1] : T(0);
+        s2[p] = inner ? cr[t0 + j] : T(0);
+        s3[p] = out[t0 + j];
+      }
+    }
+    group_sync(nw);
+    reverse_tile(
+        rows, r0, carry, nw, wmaps, wstates, slot,
+        [&](int i, const Affine<W>& below) -> Affine<W> {
+          const W dj = md[i], delta = dj * dj, r = i == last ? W(0) : W(me[i]) / dj;
+          const W rdot = i == last ? W(0) : (W(m2[i]) - r * W(m3[i])) / delta, a = r * r;
+          return {a * below.A, a * below.B + W(2) * r * rdot * W(m1[i]) - W(m3[i]) / (delta * delta)};
+        },
+        [&](int i, T x) {
+          const T dj = md[i], delta = dj * dj, r = i == last ? T(0) : me[i] / dj;
+          const T rdot = i == last ? T(0) : (m2[i] - r * m3[i]) / delta, zn = m1[i];
+          m2[i] = -(rdot * zn + r * x);
+          x = r * r * x + T(2) * r * rdot * zn - m3[i] / (delta * delta);
+          m3[i] = x;
+          return x;
+        });
+#pragma unroll
+    for (int q = 0; q < kSegMax; ++q) {
+      const int j = t + q * gsize;
+      if (q < m && j < R) {
+        const int p = seg_pos(j, m, s);
+        out[t0 + j] = s3[p];
+        if (t0 + j < n - 1) oo[t0 + j] = s2[p];
+      }
+    }
+    group_sync(nw);
+  }
+}
+
 // Dynamic shared memory above the 48 KB default needs the kernel's opt-in,
 // asked once per device for the largest size seen (`granted`: the caller's,
 // one table per kernel).
@@ -427,6 +573,19 @@ int launch_selinv(const T* d, const T* e, T* zdiag, T* zoff, int B, int n, int n
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+int launch_selinv_tangent(const T* d, const T* e, const T* z, const T* da, const T* dc, T* dz, T* dzoff, int B, int n,
+                          int nw, int m, void* stream) {
+  if (B == 0) return 0;
+  if (m < 1 || m > kSegMax || nw < 1 || 32 * nw > kMaxThreads) return (int)cudaErrorInvalidValue;
+  const size_t smem = scan_smem(nw, m, 5, sizeof(T));
+  static size_t granted[64];
+  int rc = allow_smem(tridiag_selinv_tangent_kernel<T>, smem, granted);
+  if (rc) return rc;
+  tridiag_selinv_tangent_kernel<T><<<B, 32 * nw, smem, (cudaStream_t)stream>>>(d, e, z, da, dc, dz, dzoff, n, m);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -443,6 +602,10 @@ extern "C" {
   int tg_tridiag_selinv_##SUF(const T* d, const T* e, T* zdiag, T* zoff, int B, int n, int nw,     \
                               int m, void* stream) {                                              \
     return launch_selinv<T>(d, e, zdiag, zoff, B, n, nw, m, stream);                              \
+  }                                                                                               \
+  int tg_tridiag_selinv_tangent_##SUF(const T* d, const T* e, const T* z, const T* da, const T* dc, \
+                                      T* dz, T* dzoff, int B, int n, int nw, int m, void* stream) { \
+    return launch_selinv_tangent<T>(d, e, z, da, dc, dz, dzoff, B, n, nw, m, stream);             \
   }
 
 TG_TRIDIAG_ENTRY(f32, float)

@@ -94,7 +94,7 @@ class GMRF:
         return self.mean + x.movedim(-1, 0).reshape(z.shape)
 
     def var(self) -> torch.Tensor:
-        """diag Q⁻¹; no backward: raises while a gradient is asked of Q."""
+        """diag Q⁻¹, differentiable in Q's data through the factor's `SelectedInverse`."""
         return self.factor.selinv_diag()
 
     def std(self) -> torch.Tensor:

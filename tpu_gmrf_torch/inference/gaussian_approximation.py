@@ -20,17 +20,23 @@ gone non-finite) keeps its x and α. The line search is masked the same way.
 
 Differentiation splits at the mode: `NewtonMode` runs the loop without
 autograd, and its backward is the implicit-function rule of the reference
-(``_newton_mode_jvp``): one refactorization of Q_post(x*), one opaque
-solve v = Q_post⁻¹ x̄, and the input cotangents from the score
-Q_p (x* − μ_p) − ∇loglik(x*) pulled back with −v. Under constraints the
-reference's KKT tangent rule projects the tangent; its map
-M = S − SAᵀ(ASAᵀ)⁻¹AS (S = Q_post⁻¹) is symmetric, so the backward is
-v = M x̄: the same solve, then the same projection as a Newton step. A
-non-Gaussian prior takes `NewtonModeNL` (the reference's
+(``_newton_mode_jvp``): one refactorization of Q_post(x*), one solve
+v = Q_post⁻¹ x̄, and the input cotangents from the score
+Q_p (x* − μ_p) − ∇loglik(x*) pulled back with −v (`_ScorePullback`, at x*
+held fixed). Under constraints the reference's KKT tangent rule projects
+the tangent; its map M = S − SAᵀ(ASAᵀ)⁻¹AS (S = Q_post⁻¹) is symmetric, so
+the backward is v = M x̄: the same solve, then the same projection as a
+Newton step. A non-Gaussian prior takes `NewtonModeNL` (the reference's
 ``_newton_mode_nl``): the prior is re-linearized at every iterate
 (``local_quadratic``), the line search's merit is the exact log-density,
 and the backward pulls the score −∇log p(x*) − ∇loglik(x*) back with −v to
-the prior's θ tensors and the likelihood's. The loop and its backwards use
+the prior's θ tensors and the likelihood's. Both backwards build their
+graph when asked (``create_graph=True``): the factorization, the solve and
+the pullback are differentiable, and x* is the Function's own output, so a
+second derivative reaches the IFT rule again, as the reference's
+``custom_jvp`` composes to any order. Each has a ``jvp`` too (forward mode):
+ẋ = −M (∂score/∂inputs · input tangents).
+The loop and its backwards use
 only ``factorize`` and the factor's ``solve``, so they run unchanged on the
 tridiagonal (K1, K2), dense (K9, K10) and supernodal (K5-K8) backends.
 Q_p − H is formed on the union pattern by ``sp_add`` (K5, its plan cached
@@ -182,8 +188,85 @@ def _newton_mode_impl(opts: GAOptions, Q_p: SparseMatrix, mu_p, obs_lik, x0, A=N
     return _newton_loop(opts, x0, linearize, merit, A)
 
 
+class _ScorePullback(torch.autograd.Function):
+    """(∂score/∂inputs)ᵀ w at x held fixed: the IFT rule's input cotangents,
+    as a function of w, x and the inputs that is differentiable once more.
+
+    apply(score, needs, w, x, *inputs), `score(x, inputs)` the Newton score,
+    `needs` which inputs get a cotangent; returns one per needed input (zero
+    where the score does not depend on it). Both passes run autograd on
+    detached copies, so x is held fixed in the first derivative (its own
+    derivative reaches the mode's Function again, through x's graph) and the
+    mixed second derivatives of ⟨w, score⟩ make the backward."""
+
+    @staticmethod
+    def forward(ctx, score, needs, w, x, *inputs):
+        ctx.score, ctx.needs = score, needs
+        ctx.save_for_backward(w, x, *inputs)
+        with torch.enable_grad():
+            leaves = _leaves(inputs, needs)
+            wanted = [t for t, need in zip(leaves, needs) if need]
+            got = torch.autograd.grad(score(x.detach(), leaves), wanted, grad_outputs=w, allow_unused=True)
+        return tuple(torch.zeros_like(t) if g is None else g for g, t in zip(got, wanted))
+
+    @staticmethod
+    def backward(ctx, *gouts):
+        no_double_backward("the Laplace mode's second derivative")
+        w, x, *inputs = ctx.saved_tensors
+        with torch.enable_grad():
+            wl, xl = w.detach().requires_grad_(), x.detach().requires_grad_()
+            leaves = _leaves(inputs, ctx.needs)
+            wanted = [t for t, need in zip(leaves, ctx.needs) if need]
+            got = torch.autograd.grad(ctx.score(xl, leaves), wanted, grad_outputs=wl, create_graph=True,
+                                      allow_unused=True)
+            pairs = [(g, go) for g, go in zip(got, gouts) if g is not None and g.requires_grad and go is not None]
+            res = [None] * (2 + len(wanted))
+            if pairs:
+                res = torch.autograd.grad([g for g, _ in pairs], [wl, xl, *wanted], [go for _, go in pairs],
+                                          allow_unused=True)
+        gw, gx, *gin = res
+        it = iter(gin)
+        return (None, None, gw, gx, *(next(it) if need else None for need in ctx.needs))
+
+
+def _leaves(inputs, needs):
+    return [t if t is None else t.detach().requires_grad_() if need else t.detach() for t, need in zip(inputs, needs)]
+
+
+def _pull_back(score, needs, v, x_star, inputs) -> list:
+    """The input cotangents (∂score/∂inputs)ᵀ(−v), None where not needed."""
+    if not any(needs):
+        return [None] * len(needs)
+    got = _ScorePullback.apply(score, tuple(needs), -v, x_star, *inputs)
+    got = iter(got if isinstance(got, tuple) else (got,))
+    return [next(got) if need else None for need in needs]
+
+
+def _mode_tangent(score, factor, A, x_star, inputs, tangents) -> torch.Tensor:
+    """ẋ = −M (∂score/∂inputs · u) for the input tangents u (None: none):
+    J u as the derivative in w of ⟨(∂score/∂inputs)ᵀ w, u⟩."""
+    needs = [u is not None for u in tangents]
+    if not any(needs):
+        return torch.zeros_like(x_star)
+    with torch.enable_grad():
+        leaves = _leaves(inputs, needs)
+        s = score(x_star.detach(), leaves)
+        w = torch.zeros_like(s, requires_grad=True)
+        wanted = [t for t, need in zip(leaves, needs) if need]
+        got = torch.autograd.grad(s, wanted, grad_outputs=w, create_graph=True, allow_unused=True)
+        pairs = [(g, u) for g, u in zip(got, (u for u in tangents if u is not None)) if g is not None]
+        if not pairs:
+            return torch.zeros_like(x_star)
+        (ju,) = torch.autograd.grad([g for g, _ in pairs], w, [u.expand_as(g) for g, u in pairs])
+    with torch.no_grad():
+        step = factor.solve(ju.contiguous())
+        if A is not None:
+            step = _project_step(step, factor, A)
+    return -step
+
+
 class NewtonMode(torch.autograd.Function):
-    """x* = argmax of the Laplace objective, with the IFT backward.
+    """x* = argmax of the Laplace objective, with the IFT backward and jvp.
 
     apply(opts, pattern, lik, A, x0, q_data, mu_p, *lik.tensors()); A (m, n)
     holds the constraints Ax = e (None for none), which x0 satisfies; A and
@@ -200,33 +283,43 @@ class NewtonMode(torch.autograd.Function):
         ctx.opts, ctx.pattern, ctx.A = opts, pattern, A
         ctx.lik = lik.with_tensors([None] * len(lik_tensors))
         ctx.save_for_backward(x_star, q_data, mu_p, *lik_tensors)
+        ctx.save_for_forward(x_star, q_data, mu_p, *lik_tensors)
         return x_star
 
     @staticmethod
-    def backward(ctx, gx):
-        no_double_backward("the Laplace Newton mode")
-        x_star, q_data, mu_p, *lik_tensors = ctx.saved_tensors
+    def _score(ctx):
+        def score(x, ts):
+            return SparseMatrix(ts[0], ctx.pattern).matvec(x - ts[1]) - ctx.lik.with_tensors(ts[2:]).loggrad(x)
+
+        return score
+
+    @staticmethod
+    def _factor(ctx, x_star, q_data, lik_tensors):
+        """The factor of Q_post(x*), on the graph of its inputs when grad mode is on."""
         lik = ctx.lik.with_tensors(lik_tensors)
         Q_p = SparseMatrix(q_data, ctx.pattern)
-        # 1-2: refactorize Q_post(x*) and solve v = Q_post⁻¹ x̄ (opaque solve),
-        # KKT-projected under constraints
-        factor = factorize(_posterior_pair(Q_p, _loghessian(lik, x_star)), ctx.opts.inner_solver)
+        return factorize(_posterior_pair(Q_p, _loghessian(lik, x_star)), ctx.opts.inner_solver)
+
+    @staticmethod
+    def backward(ctx, gx):
+        x_star, q_data, mu_p, *lik_tensors = ctx.saved_tensors
+        # 1-2: refactorize Q_post(x*) and solve v = Q_post⁻¹ x̄, KKT-projected under constraints
+        factor = NewtonMode._factor(ctx, x_star, q_data, lik_tensors)
         v = factor.solve(gx.expand(x_star.shape).contiguous())
         if ctx.A is not None:
             v = _project_step(v, factor, ctx.A)
         # 3: input cotangents = (∂score/∂inputs)ᵀ (−v)
-        inputs = [q_data, mu_p, *lik_tensors]
-        needs = ctx.needs_input_grad[5:]
-        leaves = [t.detach().requires_grad_() if need else t for t, need in zip(inputs, needs)]
-        wanted = [t for t, need in zip(leaves, needs) if need]
-        grads = [None] * len(inputs)
-        if wanted:
-            with torch.enable_grad():
-                lik_ = ctx.lik.with_tensors(leaves[2:])
-                score = SparseMatrix(leaves[0], ctx.pattern).matvec(x_star - leaves[1]) - lik_.loggrad(x_star)
-                got = iter(torch.autograd.grad(score, wanted, grad_outputs=-v, allow_unused=True))
-            grads = [next(got) if need else None for need in needs]
+        grads = _pull_back(NewtonMode._score(ctx), ctx.needs_input_grad[5:], v, x_star,
+                           [q_data, mu_p, *lik_tensors])
         return (None, None, None, None, None, *grads)
+
+    @staticmethod
+    def jvp(ctx, _opts, _pattern, _lik, _A, _x0, *tangents):
+        x_star, q_data, mu_p, *lik_tensors = ctx.saved_tensors
+        with torch.no_grad():
+            factor = NewtonMode._factor(ctx, x_star, q_data, lik_tensors)
+        return _mode_tangent(NewtonMode._score(ctx), factor, ctx.A, x_star, [q_data, mu_p, *lik_tensors],
+                             tangents)
 
 
 # ---- non-Gaussian latent priors (iterated re-linearization, TMB-style) -----
@@ -252,7 +345,7 @@ def _newton_mode_nl_impl(opts: GAOptions, prior, obs_lik, x0):
 
 
 class NewtonModeNL(torch.autograd.Function):
-    """x* of a non-Gaussian `LatentPrior` with the IFT backward.
+    """x* of a non-Gaussian `LatentPrior` with the IFT backward and jvp.
 
     apply(opts, prior, lik, x0, k, *prior.tensors(), *lik.tensors()), k the
     number of prior tensors; x0 gets no gradient (the mode does not depend
@@ -266,30 +359,41 @@ class NewtonModeNL(torch.autograd.Function):
         ctx.opts, ctx.k = opts, k
         ctx.prior, ctx.lik = prior.with_tensors([None] * k), lik.with_tensors([None] * (len(ts) - k))
         ctx.save_for_backward(x_star, *ts)
+        ctx.save_for_forward(x_star, *ts)
         return x_star
 
     @staticmethod
-    def backward(ctx, gx):
-        no_double_backward("the non-Gaussian Laplace Newton mode")
-        x_star, *ts = ctx.saved_tensors
+    def _score(ctx):
+        def score(x, ts):
+            k = ctx.k
+            return -ctx.prior.with_tensors(ts[:k]).grad_log_density(x) - ctx.lik.with_tensors(ts[k:]).loggrad(x)
+
+        return score
+
+    @staticmethod
+    def _factor(ctx, x_star, ts):
+        """Q_post(x*) = −∇²log p(x*) − H(x*), factored; on the graph of its inputs when grad mode is on."""
         k = ctx.k
-        prior, lik = ctx.prior.with_tensors(ts[:k]), ctx.lik.with_tensors(ts[k:])
-        # 1-2: refactorize Q_post(x*) = −∇²log p(x*) − H(x*) and solve v = Q_post⁻¹ x̄ (opaque solve)
-        Q_p, _ = prior.local_quadratic(x_star)
-        factor = factorize(_posterior_pair(Q_p, _loghessian(lik, x_star)), ctx.opts.inner_solver)
+        Q_p, _ = ctx.prior.with_tensors(ts[:k]).local_quadratic(x_star)
+        return factorize(_posterior_pair(Q_p, _loghessian(ctx.lik.with_tensors(ts[k:]), x_star)),
+                         ctx.opts.inner_solver)
+
+    @staticmethod
+    def backward(ctx, gx):
+        x_star, *ts = ctx.saved_tensors
+        # 1-2: refactorize Q_post(x*) and solve v = Q_post⁻¹ x̄
+        factor = NewtonModeNL._factor(ctx, x_star, ts)
         v = factor.solve(gx.expand(x_star.shape).contiguous())
         # 3: input cotangents = (∂score/∂inputs)ᵀ (−v), score = −∇log p(x*) − ∇loglik(x*)
-        needs = ctx.needs_input_grad[5:]
-        leaves = [t.detach().requires_grad_() if need else t for t, need in zip(ts, needs)]
-        wanted = [t for t, need in zip(leaves, needs) if need]
-        grads = [None] * len(ts)
-        if wanted:
-            with torch.enable_grad():
-                p_, l_ = ctx.prior.with_tensors(leaves[:k]), ctx.lik.with_tensors(leaves[k:])
-                score = -p_.grad_log_density(x_star) - l_.loggrad(x_star)
-                got = iter(torch.autograd.grad(score, wanted, grad_outputs=-v, allow_unused=True))
-            grads = [next(got) if need else None for need in needs]
+        grads = _pull_back(NewtonModeNL._score(ctx), ctx.needs_input_grad[5:], v, x_star, ts)
         return (None, None, None, None, None, *grads)
+
+    @staticmethod
+    def jvp(ctx, _opts, _prior, _lik, _x0, _k, *tangents):
+        x_star, *ts = ctx.saved_tensors
+        with torch.no_grad():
+            factor = NewtonModeNL._factor(ctx, x_star, ts)
+        return _mode_tangent(NewtonModeNL._score(ctx), factor, None, x_star, ts, tangents)
 
 
 def _like(tensors):

@@ -6,7 +6,9 @@ K1 ``tridiag_factor``, K2 ``tridiag_solve``, K3 ``tridiag_selinv``, K4
 entry ``dense_selinv``), K11 ``bt_factor``,
 K12 ``bt_trsv``, K13 ``bt_matvec`` (and its second entry ``bt_sqrt``), K14
 ``bsr_spmm``, K15 ``bsr_outer``, K16 ``kl_columns``, K17 ``block_inv`` and
-K18 ``spike_reduced``; K7 has a second mode, ``sn_multiply``, and K11 and K12
+K18 ``spike_reduced``, and the tangents of the selected inverse K19
+``tridiag_selinv_tangent``, K20 ``sn_panel_tangent``, K21
+``sn_takahashi_tangent`` and K22 ``bt_factor_tangent``; K7 has a second mode, ``sn_multiply``, and K11 and K12
 a block entry each, ``bt_factor_blocks`` and ``bt_trsv_blocks`` (the SPIKE
 solve's chunk elimination).
 Sources are in ``tpu_gmrf_torch/csrc/``; ``build`` compiles them with nvcc
@@ -20,6 +22,8 @@ from .banded import (
     bt_factor_blocks,
     bt_factor_blocks_plain,
     bt_factor_plain,
+    bt_factor_tangent,
+    bt_factor_tangent_plain,
     bt_matvec,
     bt_matvec_plain,
     bt_sqrt,
@@ -65,8 +69,12 @@ from .supernodal import (
     sn_takahashi,
     sn_takahashi_plain,
     sn_takahashi_prep,
+    sn_panel_tangent,
+    sn_panel_tangent_plain,
     sn_takahashi_prep_plain,
     sn_takahashi_sweep_plain,
+    sn_takahashi_tangent,
+    sn_takahashi_tangent_plain,
     sn_trsv,
     sn_trsv_plain,
 )
@@ -79,6 +87,8 @@ from .tridiag import (
     tridiag_factor_plain,
     tridiag_selinv,
     tridiag_selinv_plain,
+    tridiag_selinv_tangent,
+    tridiag_selinv_tangent_plain,
     tridiag_solve,
     tridiag_solve_plain,
 )
@@ -88,7 +98,7 @@ __all__ = [
     "csr_spmv", "csr_spmv_plain",
     "tridiag_factor", "tridiag_factor_plain",
     "tridiag_solve", "tridiag_solve_plain",
-    "tridiag_selinv", "tridiag_selinv_plain",
+    "tridiag_selinv", "tridiag_selinv_plain", "tridiag_selinv_tangent", "tridiag_selinv_tangent_plain",
     "SOLVE_L", "SOLVE_LT", "SOLVE_BOTH",
     "SegPlan", "gather_segsum", "gather_segsum_plain", "InitPlan", "fct_init", "fct_init_plain",
     "sn_panel", "sn_panel_plain", "sn_trsv", "sn_trsv_plain", "sn_takahashi", "sn_takahashi_plain",
@@ -104,6 +114,8 @@ __all__ = [
     "kl_columns", "kl_columns_plain", "kl_path", "BlockSets", "block_inv", "block_inv_plain", "block_inv_smem_max",
     "bt_factor_blocks", "bt_factor_blocks_plain", "bt_trsv_blocks", "bt_trsv_blocks_plain",
     "spike_reduced", "spike_reduced_plain",
+    "sn_panel_tangent", "sn_panel_tangent_plain", "sn_takahashi_tangent", "sn_takahashi_tangent_plain",
+    "bt_factor_tangent", "bt_factor_tangent_plain",
 ]
 
 KERNELS = {
@@ -132,6 +144,10 @@ KERNELS = {
     "bt_factor_blocks": bt_factor_blocks,
     "bt_trsv_blocks": bt_trsv_blocks,
     "spike_reduced": spike_reduced,
+    "tridiag_selinv_tangent": tridiag_selinv_tangent,
+    "sn_panel_tangent": sn_panel_tangent,
+    "sn_takahashi_tangent": sn_takahashi_tangent,
+    "bt_factor_tangent": bt_factor_tangent,
 }
 
 

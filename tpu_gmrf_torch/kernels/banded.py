@@ -44,6 +44,13 @@ Its workspace holds B·K·⌈s/64⌉ inverted tiles of 64 × 64, the B·K·s²
 values of the inverses and B·s·k of scratch. A card that cannot hold one
 such cluster raises with the shape.
 
+K22 `bt_factor_tangent` is the tangent of K11's factorization (the selected
+inverse's derivative): from P, A_k = L_k⁻ᵀL_k⁻¹ (K8's first entry on the
+banded blocks) and the blocks' Q̇ in P's layout, it gives L̇_k and Ṁ_k in
+place, block after block, a thread-block cluster per chain
+(`tangent_cluster`) with its products in float64 on a workspace
+(`bt_tangent_work`) on the float64 tensor cores.
+
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises. ``<wrapper>.launches`` counts launches.
 """
@@ -57,7 +64,7 @@ import numpy as np
 import torch
 
 from . import build
-from .supernodal import _chol_boosted
+from .supernodal import _chol_boosted, _sm_count, _sym, panel_tangent_math
 from .tridiag import SOLVE_BOTH, SOLVE_L, SOLVE_LT, _fn, _on_cuda, _stream
 
 __all__ = ["BandedTables", "bt_factor", "bt_factor_plain", "bt_trsv", "bt_trsv_plain",
@@ -91,6 +98,16 @@ def factor_cluster(s: int, B: int, fit, name: str = "bt_factor", most: int | Non
     if best is None:
         raise RuntimeError(f"{name}: the card holds no cluster of the factorization at {s} rows")
     return best[1]
+
+
+def tangent_cluster(W: int, M: int, units: int, fit, sms: int, name: str) -> int:
+    """Blocks per cluster of K20-K22 on `units` (panel, chain) pairs of panels
+    W wide with M rows below, on a card of `sms` SMs: one where the units
+    fill the card; else `factor_cluster`'s choice, at most the widest
+    product's 64 × 64 output tiles and the SMs per unit."""
+    if units >= sms:
+        return 1
+    return factor_cluster(W, units, fit, name, max(1, min(-(-W // TILE) * -(-max(W, M) // TILE), sms // units)))
 
 
 _FIT: dict = {}  # the card's cluster counts, per (entry, type, cluster size, arguments)
@@ -193,6 +210,25 @@ def bt_factor_plain(data: torch.Tensor, tables: BandedTables):
             U = M @ M.mT
     logdet = 2.0 * torch.log(torch.diagonal(P[:, :, :s], dim1=-2, dim2=-1)).sum((-2, -1))
     return P, boost, logdet
+
+
+def bt_factor_tangent_plain(P: torch.Tensor, pre: torch.Tensor, dP: torch.Tensor):
+    """K22's function: dP (B, K, 2s, s) holds Q̇'s blocks in P's layout (the
+    lower triangle of Ḋ_k in rows 0..s, Ė_k in rows s..2s) and is
+    overwritten with L̇_k and Ṁ_k; A_k = L_k⁻ᵀL_k⁻¹ in rows 0..s of pre's
+    panels (lower). Block k takes Ḋ_k − U̇_{k-1} with
+    U̇_{k-1} = Ṁ_{k-1}M_{k-1}ᵀ + M_{k-1}Ṁ_{k-1}ᵀ."""
+    K, s = P.shape[1], P.shape[3]
+    dU = None
+    for k in range(K):
+        dD = _sym(torch.tril(dP[:, k, :s]))
+        if dU is not None:
+            dD = dD - dU
+        L, M = P[:, k, :s], P[:, k, s:]
+        dL, dM, dU = panel_tangent_math(L, M, _sym(torch.tril(pre[:, k, :s])), dD, dP[:, k, s:])
+        dP[:, k, :s] = dL
+        dP[:, k, s:] = dM if k < K - 1 else 0.0
+    return dP
 
 
 def _rows_to_blocks(b: torch.Tensor, perm: torch.Tensor, B: int, K: int, s: int, k: int) -> torch.Tensor:
@@ -522,6 +558,43 @@ def bt_sqrt(P: torch.Tensor, tables: BandedTables, z: torch.Tensor, k: int = 1) 
     return y
 
 
+def bt_tangent_work(s: int) -> int:
+    """float64 workspace values of K22 per chain: one panel's of K20 with W = M = s."""
+    from .supernodal import tangent_work
+
+    return tangent_work(s, s)
+
+
+def bt_factor_tangent(P: torch.Tensor, pre: torch.Tensor, dP: torch.Tensor):
+    """K22: L̇_k and Ṁ_k in place in dP (B, K, 2s, s), which holds Q̇'s blocks
+    in P's layout, from P and A_k in pre (B, K, 2s, s; K8's first entry on
+    the blocks). pre and dP may be views of (B, K·2s·s + 1) buffers."""
+    if P.ndim != 4 or pre.shape != P.shape or dP.shape != P.shape:
+        raise ValueError(f"bt_factor_tangent: P, pre and dP must be (B, K, 2s, s), got {tuple(P.shape)}, "
+                         f"{tuple(pre.shape)}, {tuple(dP.shape)}")
+    if any(t.device != P.device for t in (pre, dP)):
+        raise ValueError("bt_factor_tangent: tensors on different devices")
+    if not _on_cuda("bt_factor_tangent", P):
+        return bt_factor_tangent_plain(P, pre, dP)
+    B, K, s = P.shape[0], P.shape[1], P.shape[3]
+    for t in (P, pre, dP):
+        if t.device != P.device or t.dtype != P.dtype or t.stride()[1:] != (2 * s * s, s, 1):
+            raise ValueError("bt_factor_tangent: P, pre and dP must be row-major blocks of one dtype and device")
+    if pre.stride(0) != dP.stride(0) or not P.is_contiguous():
+        raise ValueError("bt_factor_tangent: pre and dP must share a chain stride, P be contiguous")
+    if B == 0:
+        return dP
+    work = torch.empty(B * bt_tangent_work(s), dtype=torch.float64, device=P.device)
+    cs = tangent_cluster(s, s, B, _fit("tg_bt_factor_tangent_fit", P.dtype, "bt_factor_tangent"), _sm_count(P.device),
+                         "bt_factor_tangent")
+    code = _fn("tg_bt_factor_tangent", P.dtype)(P.data_ptr(), pre.data_ptr(), dP.data_ptr(), pre.stride(0), K, s,
+                                               work.data_ptr(), B, cs, _stream(P))
+    build.check(code, "bt_factor_tangent", f" at K={K} s={s} B={B} {P.dtype}, cluster={cs}")
+    bt_factor_tangent.launches += 1
+    return dP
+
+
+bt_factor_tangent.launches = 0
 bt_factor.launches = 0
 bt_trsv.launches = 0
 bt_factor_blocks.launches = 0

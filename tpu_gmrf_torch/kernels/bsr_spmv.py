@@ -269,27 +269,35 @@ bsr_outer.launches = 0
 
 
 class _BsrSpmv(torch.autograd.Function):
-    """y = A x on K14; x̄ = Aᵀ ȳ (K14 over the transposed plan), blocks̄ = K15."""
+    """y = A x (or Aᵀ x with `transpose`) on K14; x̄ = Aᵀ ȳ (`_BsrSpmv` the
+    other way, so differentiable again), blocks̄ = K15's outer products, whose
+    own derivative is not written: a graph through them raises."""
 
     @staticmethod
-    def forward(ctx, blocks, x, plan):
-        ctx.plan = plan
+    def forward(ctx, blocks, x, plan, transpose):
+        ctx.plan, ctx.transpose = plan, transpose
         ctx.save_for_backward(blocks, x)
-        return bsr_spmm(blocks, plan, x)
+        return bsr_spmm(blocks, plan, x, transpose=transpose)
 
     @staticmethod
     def backward(ctx, gy):
+        from ..solvers.base import no_double_backward  # solvers import this module
+
         blocks, x = ctx.saved_tensors
         gy = gy.contiguous()
-        gx = bsr_spmm(blocks, ctx.plan, gy, transpose=True) if ctx.needs_input_grad[1] else None
-        gb = bsr_outer(ctx.plan, gy, x, per_chain=blocks.ndim == 4) if ctx.needs_input_grad[0] else None
-        return gb, gx, None
+        gx = _BsrSpmv.apply(blocks, gy, ctx.plan, not ctx.transpose) if ctx.needs_input_grad[1] else None
+        gb = None
+        if ctx.needs_input_grad[0]:
+            no_double_backward("the BSR product's gradient in its blocks")
+            u, v = (x, gy) if ctx.transpose else (gy, x)
+            gb = bsr_outer(ctx.plan, u, v, per_chain=blocks.ndim == 4)
+        return gb, gx, None, None
 
 
 def bsr_spmv(blocks: torch.Tensor, x: torch.Tensor, plan: _BSRPlan) -> torch.Tensor:
     """y = A x for BSR blocks; x (k, n) rows → y (k, n). Differentiable in
     blocks and x."""
-    return _BsrSpmv.apply(blocks.contiguous(), x.contiguous(), plan)
+    return _BsrSpmv.apply(blocks.contiguous(), x.contiguous(), plan, False)
 
 
 @dataclasses.dataclass(frozen=True)

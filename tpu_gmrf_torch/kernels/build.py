@@ -37,6 +37,8 @@ _SIGNATURES = {
     "tg_tridiag_solve": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # d, e, zdiag, zoff, B, n, the scan's shape, stream
     "tg_tridiag_selinv": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # d, e, zdiag, da, dc, dzdiag, dzoff, B, n, the scan's shape, stream
+    "tg_tridiag_selinv_tangent": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # row_ptr, col, data, dstride, x, y, quad, B, n_r, n_c, tiled, partial, stream
     "tg_csr_spmv": [_P, _P, _P, _L, _P, _P, _P, _I, _I, _I, _I, _P, _P],
     # plan (the address of its argument block, kernels/segsum.py), out, ostride, x, xstride, y, ystride, z,
@@ -57,6 +59,19 @@ _SIGNATURES = {
     # pre, pstride, sig, sstride, panel_idx, schur_idx, P, W, M, dummy, cluster size (0: the two product launches),
     # their blocks per supernode t1, t2, B, stream
     "tg_sn_takahashi": [_P, _L, _P, _L, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # vals, vstride, pre, dvals, pstride (pre's and dvals'), du, ustride, ubase, panel_idx, P, W, M, dummy,
+    # work (float64, `tangent_work` per supernode and chain), B, cluster size (blocks per supernode and chain),
+    # stream
+    "tg_sn_panel_tangent": [_P, _L, _P, _P, _L, _P, _L, _L, _P, _I, _I, _I, _I, _P, _I, _I, _P],
+    # vals, vstride, pre, dvals, sig, dsig, pstride (all but vals'), panel_idx, schur_idx, P, W, M, dummy, work, B,
+    # cluster size, stream
+    "tg_sn_takahashi_tangent": [_P, _L, _P, _P, _P, _P, _L, _P, _P, _I, _I, _I, _I, _P, _I, _I, _P],
+    # cluster size, which (0: K20, 1: K21), out: how many such clusters the card holds
+    "tg_sn_tangent_fit": [_I, _I, ctypes.POINTER(_I)],
+    # P, pre, dP, pstride (pre's and dP's, per chain), K, s, work (float64, `bt_tangent_work` per chain), B,
+    # cluster size, stream
+    "tg_bt_factor_tangent": [_P, _P, _P, _L, _I, _I, _P, _I, _I, _P],
+    "tg_bt_factor_tangent_fit": [_I, ctypes.POINTER(_I)],
     # data, dstride, rows, cols, tperm, diag_pos, nnz, n, L, s, level, logdet, flags (3 per chain),
     # work (inverted diagonal tiles), cluster size, B, stream
     "tg_dense_chol": [_P, _L, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P],

@@ -1,5 +1,5 @@
-"""Wrappers of the supernodal kernels K6-K8 (``csrc/supernodal.cu``) and
-their plain versions.
+"""Wrappers of the supernodal kernels K6-K8, K20 and K21
+(``csrc/supernodal.cu``) and their plain versions.
 
 Each call runs the size-class batches of one level of the schedule, for all
 chains: K6 `sn_panel` factors the panels, K7 `sn_trsv` does the forward or
@@ -9,6 +9,15 @@ block Takahashi step (one class batch a call). K8's first entry
 `sn_takahashi_prep` forms the Σ-free half, C = Lb·Ld⁻¹ and A = Ld⁻ᵀLd⁻¹,
 into a buffer laid out like ``vals``; it runs once per sweep over every
 supernode of a size class, whatever its level.
+K20 `sn_panel_tangent` and K21 `sn_takahashi_tangent` are the tangents of
+K6 and K8 (the selected inverse's derivative, Σ̇ = −Σ·Q̇·Σ): K20 gives a
+class batch's factor tangent L̇ from the panel's accumulated Q̇ and U̇ for
+the Schur ELL (K5), K21 the batch's Σ̇ from L̇ and its ancestors' Σ and Σ̇;
+one launch per class batch each, a thread-block cluster per (supernode,
+chain) (`banded.tangent_cluster`: one block where the batch fills the card,
+up to 16 for the few wide panels), every product in float64 on a workspace
+(`tangent_work`) on the float64 tensor cores. Both read Ld⁻¹ as
+Ldᵀ·A with A = Ld⁻ᵀLd⁻¹ from K8's first entry.
 A class batch `c` is a dict of device tables for the P supernodes of this
 level: ``panel`` (P, W+M, W), ``cols`` (P, W), ``rows`` (P, M) and
 ``schur`` (P, M, M), int32, padded with ``dummy`` (= nnzL) / ``ndummy``
@@ -39,6 +48,7 @@ __all__ = [
     "sn_panel", "sn_trsv", "sn_multiply", "sn_takahashi_prep", "sn_takahashi",
     "sn_panel_plain", "sn_trsv_plain", "sn_multiply_plain", "sn_takahashi_prep_plain", "sn_takahashi_sweep_plain",
     "sn_takahashi_plain", "FORWARD", "BACKWARD", "MULTIPLY",
+    "sn_panel_tangent", "sn_panel_tangent_plain", "sn_takahashi_tangent", "sn_takahashi_tangent_plain",
 ]
 
 FORWARD, BACKWARD, MULTIPLY = 0, 1, 2
@@ -213,6 +223,68 @@ def sn_takahashi_plain(vals, sig, c):
     pre = torch.zeros_like(sig)
     sn_takahashi_prep_plain(vals, pre, c)
     sn_takahashi_sweep_plain(pre, sig, c)
+
+
+def _sym(G):
+    """The symmetric matrix whose lower triangle G holds (its upper is zero)."""
+    return G + G.mT - torch.diag_embed(torch.diagonal(G, dim1=-2, dim2=-1))
+
+
+def panel_tangent_math(Ld, Lb, A, dAjj, dArj):
+    """The tangent of one panel's Cholesky (batched): from Ld, Lb, A =
+    Ld⁻ᵀLd⁻¹ and the panel's symmetric Q̇ (Ȧ_JJ, Ȧ_RJ), with Ld⁻¹ the lower
+    triangle of Ldᵀ·A and F = Φ(Ld⁻¹ Ȧ_JJ Ld⁻ᵀ) (lower, half diagonal):
+    L̇d = Ld·F, L̇b = Ȧ_RJ·Ld⁻ᵀ − Lb·Fᵀ, and the Schur tangent
+    U̇ = L̇b·Lbᵀ + Lb·L̇bᵀ."""
+    Linv = torch.tril(Ld.mT @ A)
+    G = Linv @ dAjj @ Linv.mT
+    F = torch.tril(G) - 0.5 * torch.diag_embed(torch.diagonal(G, dim1=-2, dim2=-1))
+    dLb = dArj @ Linv.mT - Lb @ F.mT
+    return Ld @ F, dLb, dLb @ Lb.mT + Lb @ dLb.mT
+
+
+def takahashi_tangent_math(Ld, A, C, dLd, dLb, Srr, dSrr, Srj):
+    """The tangent of one Takahashi step (batched): Ċ = (L̇b − C·L̇d)·Ld⁻¹,
+    Ȧ = −Ld⁻ᵀ(Y + Yᵀ)Ld⁻¹ with Y = Ld⁻¹L̇d, Σ̇_RJ = −Σ̇_RR·C − Σ_RR·Ċ,
+    Σ̇_JJ = Ȧ − Ċᵀ·Σ_RJ − Cᵀ·Σ̇_RJ; Ld⁻¹ the lower triangle of Ldᵀ·A."""
+    Linv = torch.tril(Ld.mT @ A)
+    Y = Linv @ dLd
+    dA = -(Linv.mT @ (Y + Y.mT) @ Linv)
+    dC = (dLb - C @ dLd) @ Linv
+    dSrj = -(dSrr @ C + Srr @ dC)
+    return dA - dC.mT @ Srj - C.mT @ dSrj, dSrj
+
+
+def sn_panel_tangent_plain(vals, pre, dvals, c, du):
+    """K20's function on class batch `c`: dvals holds the panels'
+    accumulated Q̇ (lower, vals' layout), overwritten with L̇; U̇ (M × M) into
+    du at the batch's ubase."""
+    W, M = c["W"], c["M"]
+    t = _plain_tables(c, vals.device)
+    Ld, Lb = _panels(vals, t, W)
+    A = _sym(_gather(pre, t["panel"])[..., :W, :])
+    dp = _gather(dvals, t["panel"])
+    dLd, dLb, dU = panel_tangent_math(Ld, Lb, A, _sym(dp[..., :W, :]), dp[..., W:, :])
+    _write_live(dvals, t, torch.cat([dLd, dLb], -2))
+    if M:
+        P = t["panel"].shape[0]
+        du[:, c["ubase"]: c["ubase"] + P * M * M] = dU.reshape(vals.shape[0], -1)
+
+
+def sn_takahashi_tangent_plain(vals, pre, dvals, sig, dsig, c):
+    """K21's function on class batch `c`: Σ̇_JJ (lower) and Σ̇_RJ into dsig,
+    from L (vals), C and A (pre), L̇ (dvals), Σ (sig) and its ancestors' Σ̇
+    (dsig)."""
+    W = c["W"]
+    t = _plain_tables(c, vals.device)
+    Ld, _ = _panels(vals, t, W)
+    pp = _gather(pre, t["panel"])
+    dp = _gather(dvals, t["panel"])
+    Srj = _gather(sig, t["panel"])[..., W:, :]
+    dSjj, dSrj = takahashi_tangent_math(Ld, _sym(pp[..., :W, :]), pp[..., W:, :], torch.tril(dp[..., :W, :]),
+                                        dp[..., W:, :], _sym(_gather(sig, t["schur"])),
+                                        _sym(_gather(dsig, t["schur"])), Srj)
+    _write_live(dsig, t, torch.cat([torch.tril(dSjj), dSrj], -2))
 
 
 # ---- wrappers -------------------------------------------------------------------
@@ -457,6 +529,69 @@ def sn_takahashi(pre, sig, c):
         sn_takahashi.launches += 1 if cs else 1 + (t1 > 0)
 
 
+def tangent_work(W: int, M: int) -> int:
+    """float64 workspace values of K20 and K21 per (supernode, chain): eight
+    W × W, six M × W and two M × M matrices (`tgt::tangent_slice` in the source)."""
+    return 8 * W * W + 6 * M * W + 2 * M * M
+
+
+def _tangent_work(c, vals):
+    P, B = c["panel"].shape[0], vals.shape[0]
+    return torch.empty(P * B * tangent_work(c["W"], c["M"]), dtype=torch.float64, device=vals.device)
+
+
+def sn_panel_tangent(vals, pre, dvals, c, du):
+    """K20: the factor tangent L̇ of class batch `c` in place in dvals (B,
+    nnzL+1), which holds the panels' accumulated Q̇ on vals' layout (lower),
+    and U̇ = L̇b·Lbᵀ + Lb·L̇bᵀ (M × M per supernode) into du (B, ZU+1) at the
+    batch's ubase; L from vals, A = Ld⁻ᵀLd⁻¹ from pre (K8's first entry).
+    pre and dvals may be one value wider than vals (the banded blocks)."""
+    if not _on_cuda("sn_panel_tangent", vals, pre, dvals, *([du] if du is not None else [])):
+        return sn_panel_tangent_plain(vals, pre, dvals, c, du)
+    _check_class("sn_panel_tangent", c, vals, ("panel",))
+    if dvals.shape != pre.shape or (c["M"] and du is None):
+        raise ValueError("sn_panel_tangent: pre and dvals must have one shape, and rows below need du")
+    W, M, P, B = c["W"], c["M"], c["panel"].shape[0], vals.shape[0]
+    if not (P and B):
+        return
+    from .banded import _fit, tangent_cluster  # banded.py imports this module
+
+    cs = tangent_cluster(W, M, P * B, _fit("tg_sn_tangent_fit", vals.dtype, "sn_panel_tangent", (0,)),
+                         _sm_count(vals.device), "sn_panel_tangent")
+    code = _fn("tg_sn_panel_tangent", vals.dtype)(
+        vals.data_ptr(), vals.shape[1], pre.data_ptr(), dvals.data_ptr(), pre.shape[1],
+        None if du is None else du.data_ptr(), 0 if du is None else du.shape[1], c["ubase"], c["panel"].data_ptr(),
+        P, W, M, c["dummy"], _tangent_work(c, vals).data_ptr(), B, cs, _stream(vals))
+    build.check(code, "sn_panel_tangent", f" at W={W} M={M} P={P} B={B} {vals.dtype}, cluster={cs}")
+    sn_panel_tangent.launches += 1
+
+
+def sn_takahashi_tangent(vals, pre, dvals, sig, dsig, c):
+    """K21: Σ̇_JJ (lower) and Σ̇_RJ of class batch `c` into dsig (B, nnzL+1),
+    from L (vals), C and A (pre), L̇ (dvals, `sn_panel_tangent`), Σ (sig,
+    K8) and the ancestors' Σ̇ in dsig."""
+    if not _on_cuda("sn_takahashi_tangent", vals, pre, dvals, sig, dsig):
+        return sn_takahashi_tangent_plain(vals, pre, dvals, sig, dsig, c)
+    _check_class("sn_takahashi_tangent", c, vals, ("panel", "schur"))
+    if not dvals.shape == sig.shape == dsig.shape == pre.shape:
+        raise ValueError("sn_takahashi_tangent: pre, dvals, sig and dsig must have one shape")
+    W, M, P, B = c["W"], c["M"], c["panel"].shape[0], vals.shape[0]
+    if not (P and B):
+        return
+    from .banded import _fit, tangent_cluster  # banded.py imports this module
+
+    cs = tangent_cluster(W, M, P * B, _fit("tg_sn_tangent_fit", vals.dtype, "sn_takahashi_tangent", (1,)),
+                         _sm_count(vals.device), "sn_takahashi_tangent")
+    code = _fn("tg_sn_takahashi_tangent", vals.dtype)(
+        vals.data_ptr(), vals.shape[1], pre.data_ptr(), dvals.data_ptr(), sig.data_ptr(), dsig.data_ptr(),
+        pre.shape[1], c["panel"].data_ptr(), c["schur"].data_ptr(), P, W, M, c["dummy"],
+        _tangent_work(c, vals).data_ptr(), B, cs, _stream(vals))
+    build.check(code, "sn_takahashi_tangent", f" at W={W} M={M} P={P} B={B} {vals.dtype}, cluster={cs}")
+    sn_takahashi_tangent.launches += 1
+
+
+sn_panel_tangent.launches = 0
+sn_takahashi_tangent.launches = 0
 sn_panel.launches = 0
 sn_trsv.launches = 0
 sn_multiply.launches = 0

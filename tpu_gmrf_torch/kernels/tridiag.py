@@ -1,4 +1,4 @@
-"""Wrappers of the tridiagonal kernels K1-K3 and their plain versions.
+"""Wrappers of the tridiagonal kernels K1-K3 and K19 and their plain versions.
 
 Each wrapper takes batched rows, one chain per row. A CPU tensor goes to the
 plain PyTorch version (the Hillis-Steele scans of ``solvers/prefix.py``); a
@@ -9,7 +9,9 @@ the kernel launches.
 K1-K3 run each chain as a segmented scan on a block (`scan_launch` picks
 the warps and the rows per thread; a chain longer than a block's tile runs in
 tiles in sequence, K2's backward pass and K3 the last tile first), so no n is
-refused.
+refused. K19, the tangent of K3 (Σ̇ = −Σ·Q̇·Σ on the tridiagonal), runs
+K2's forward scan and K3's backward one in turn on a block per chain
+(`tangent_launch`).
 """
 
 from __future__ import annotations
@@ -22,9 +24,9 @@ from ..solvers.prefix import linear_recurrence, mobius_recurrence
 from . import build
 
 __all__ = [
-    "tridiag_factor", "tridiag_solve", "tridiag_selinv",
-    "tridiag_factor_plain", "tridiag_solve_plain", "tridiag_selinv_plain",
-    "SOLVE_L", "SOLVE_LT", "SOLVE_BOTH", "scan_launch",
+    "tridiag_factor", "tridiag_solve", "tridiag_selinv", "tridiag_selinv_tangent",
+    "tridiag_factor_plain", "tridiag_solve_plain", "tridiag_selinv_plain", "tridiag_selinv_tangent_plain",
+    "SOLVE_L", "SOLVE_LT", "SOLVE_BOTH", "scan_launch", "tangent_launch",
 ]
 
 SOLVE_L, SOLVE_LT, SOLVE_BOTH = 0, 1, 2
@@ -35,6 +37,8 @@ SMEM_LIMIT = 48 * 1024
 # thread (K2's three float64 arrays of 512 segments at stride 17 take 209 KB
 # of the 227 KB a block may have), then tiles of that size in sequence.
 SEG_ROWS, MAX_WARPS, MAX_ROWS = 4, 16, 16
+# K19 stages five arrays a tile: at most 8 rows a thread (184 KB of float64 at 16 warps)
+TANGENT_ROWS = 8
 _FLOATS = (torch.float32, torch.float64)
 
 
@@ -72,6 +76,24 @@ def tridiag_selinv_plain(d: torch.Tensor, e: torch.Tensor):
     alpha = torch.cat([r * r, torch.zeros_like(d[..., :1])], -1)
     zdiag = linear_recurrence(alpha, 1.0 / (d * d), reverse=True)
     return zdiag, -r * zdiag[..., 1:]
+
+
+def tridiag_selinv_tangent_plain(d: torch.Tensor, e: torch.Tensor, zdiag: torch.Tensor, da: torch.Tensor,
+                                 dc: torch.Tensor):
+    """K19's function: the tangent (dzdiag (B, n), dzoff (B, n-1)) of K3's
+    Σ in the direction (ȧ, ċ) of tridiag(a, c), from the factor (d, e) and
+    K3's zdiag. The pivots' tangent δ̇_k = r_{k-1}² δ̇_{k-1} + ȧ_k −
+    2 r_{k-1} ċ_{k-1} (r = e/d), then ż_j = r_j² ż_{j+1} + 2 r_j ṙ_j z_{j+1} −
+    δ̇_j/δ_j², ṙ_j = (ċ_j − r_j δ̇_j)/δ_j, and żoff_j = −(ṙ_j z_{j+1} + r_j ż_{j+1})."""
+    zero = torch.zeros_like(d[..., :1])
+    delta = d * d
+    r = e / d[..., :-1]
+    ddelta = linear_recurrence(torch.cat([zero, r * r], -1), da - torch.cat([zero, 2.0 * r * dc], -1))
+    rdot = (dc - r * ddelta[..., :-1]) / delta[..., :-1]
+    znext = zdiag[..., 1:]
+    beta = torch.cat([2.0 * r * rdot * znext, zero], -1) - ddelta / (delta * delta)
+    dz = linear_recurrence(torch.cat([r * r, zero], -1), beta, reverse=True)
+    return dz, -(rdot * znext + r * dz[..., 1:])
 
 
 # ---- checks shared by the wrappers -----------------------------------------
@@ -123,6 +145,14 @@ def scan_launch(n: int) -> tuple[int, int]:
 
 
 @functools.cache
+def tangent_launch(n: int) -> tuple[int, int]:
+    """(warps per chain, rows per thread) of K19: `scan_launch`'s warps, at
+    most TANGENT_ROWS rows a thread (tiles in sequence beyond)."""
+    warps, rows = scan_launch(n)
+    return warps, min(rows, TANGENT_ROWS)
+
+
+@functools.cache
 def _fn(name: str, dtype: torch.dtype):
     """The library's entry `name` for `dtype`, looked up once."""
     return getattr(build.library(), f"{name}_{'f32' if dtype == torch.float32 else 'f64'}")
@@ -141,15 +171,15 @@ def tridiag_factor(a: torch.Tensor, c: torch.Tensor):
     B, n = _check_rows("tridiag_factor", a, c)
     if not _on_cuda("tridiag_factor", a, c):
         return tridiag_factor_plain(a, c)
-    # d, e and the logdet: one allocation, cut into contiguous views
-    out = a.new_empty(2 * B * n)
+    # d and e: one allocation, cut into contiguous views; the logdet, the differentiable output of
+    # `TridiagLogdet`, a tensor of its own (forward mode refuses a tangent for a view of a shared buffer)
+    out = a.new_empty(B * (2 * n - 1))
     d = out.as_strided((B, n), (n, 1))
     e = out.as_strided((B, n - 1), (n - 1, 1), B * n)
-    logdet = out.as_strided((B,), (1,), B * (2 * n - 1))
+    logdet = a.new_empty(B)
     base, el = out.data_ptr(), out.element_size()
     code = _fn("tg_tridiag_factor", a.dtype)(
-        a.data_ptr(), c.data_ptr(), base, base + el * B * n, base + el * B * (2 * n - 1), B, n,
-        *scan_launch(n), _stream(a)
+        a.data_ptr(), c.data_ptr(), base, base + el * B * n, logdet.data_ptr(), B, n, *scan_launch(n), _stream(a)
     )
     build.check(code, "tridiag_factor")
     tridiag_factor.launches += 1
@@ -194,6 +224,28 @@ def tridiag_selinv(d: torch.Tensor, e: torch.Tensor):
     return zdiag, zoff
 
 
+def tridiag_selinv_tangent(d: torch.Tensor, e: torch.Tensor, zdiag: torch.Tensor, da: torch.Tensor,
+                           dc: torch.Tensor):
+    """K19: the tangent (dzdiag (B, n), dzoff (B, n-1)) of K3's Σ in the
+    direction (ȧ (B, n), ċ (B, n-1)) of tridiag(a, c); d, e the factor and
+    zdiag K3's diagonal of Σ."""
+    B, n = _check_rows("tridiag_selinv_tangent", d, e)
+    if zdiag.shape != d.shape or da.shape != d.shape or dc.shape != e.shape:
+        raise ValueError("tridiag_selinv_tangent: zdiag and ȧ must be (B, n), ċ (B, n-1)")
+    if not _on_cuda("tridiag_selinv_tangent", d, e, zdiag, da, dc):
+        return tridiag_selinv_tangent_plain(d, e, zdiag, da, dc)
+    dz = torch.empty_like(d)
+    dzoff = torch.empty_like(e)
+    code = _fn("tg_tridiag_selinv_tangent", d.dtype)(
+        d.data_ptr(), e.data_ptr(), zdiag.data_ptr(), da.data_ptr(), dc.data_ptr(), dz.data_ptr(), dzoff.data_ptr(),
+        B, n, *tangent_launch(n), _stream(d)
+    )
+    build.check(code, "tridiag_selinv_tangent")
+    tridiag_selinv_tangent.launches += 1
+    return dz, dzoff
+
+
 tridiag_factor.launches = 0
+tridiag_selinv_tangent.launches = 0
 tridiag_solve.launches = 0
 tridiag_selinv.launches = 0

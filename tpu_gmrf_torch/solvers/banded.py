@@ -20,9 +20,12 @@ scan; then K8 `sn_takahashi` does the K−1 dependent steps' products, one
 launch per block from the last one up. The selected-inverse gathers and sums
 are K5 `gather_segsum` launches. The
 logdet is differentiable through `BandedLogdet`, whose backward is Σ on
-Q's pattern, and `solve` through `FactorSolve` (K12 forward and backward);
-the other solves, `sqrt_matvec` and Σ have no backward and raise while a
-gradient is asked. `sqrt_matvec` (L z) and the block-tridiagonal SpMV
+Q's pattern, `solve` through `FactorSolve` (K12 forward and backward), and
+Σ through `SelectedInverse`, whose tangent pass (`_tangent_sigma`) scatters
+Q̇ onto the blocks (K5, the transpose of `_selinv_plan`), runs the
+factorization's tangent block by block (K22) and the block Takahashi
+sweep's (K21, as it reaches K8); the other solves and `sqrt_matvec` have no
+backward and raise while a gradient is asked. `sqrt_matvec` (L z) and the block-tridiagonal SpMV
 (`BlockTridiagMV`, `block_tridiag_matvec`: x ↦ Qx over dense blocks, for
 CG and RBMC through `kernels.hot_matvec`) run on K13 (`bt_sqrt`,
 `bt_matvec`). Vectors of the SpMV are rows: x is (n,) or (k, n).
@@ -40,18 +43,21 @@ from ..kernels import (
     SOLVE_L,
     SOLVE_LT,
     BandedTables,
+    SegPlan,
     bt_factor,
+    bt_factor_tangent,
     bt_matvec,
     bt_sqrt,
     bt_trsv,
     gather_segsum,
     sn_takahashi,
     sn_takahashi_prep,
+    sn_takahashi_tangent,
 )
 from ..sparse.matrix import SparseMatrix
 from ..sparse.pattern import SparsePattern
-from .base import DirectFactor, no_double_backward
-from .supernodal import _one_term, _prep_batches, _sum_plan
+from .base import DirectFactor, SelectedInverse, symmetric_weights
+from .supernodal import _one_term, _prep_batches
 
 __all__ = [
     "BandedFactor",
@@ -177,11 +183,12 @@ def _takahashi_classes(meta, device) -> tuple:
     return classes
 
 
-def _sigma_vals(P: torch.Tensor, meta, ops=(sn_takahashi_prep, sn_takahashi)) -> torch.Tensor:
-    """Block Takahashi (``banded.py:209-230``): Σ in P's layout, (B, K·2s·s+1):
-    Σ_kk (lower) in rows 0..s of panel k, Σ_{k+1,k} in rows s..2s. K8's first
-    entry on every block, then K8 per block, the last block first; `ops` are
-    K8's two wrappers (their plain versions only to compare them on the card)."""
+def _sigma_prep(P: torch.Tensor, meta, ops=(sn_takahashi_prep, sn_takahashi)):
+    """Block Takahashi (``banded.py:209-230``): (pre, Σ) in P's layout, (B,
+    K·2s·s+1) each: C_k and A_k of every block in pre, Σ_kk (lower) in rows
+    0..s of panel k of Σ, Σ_{k+1,k} in rows s..2s. K8's first entry on every
+    block, then K8 per block, the last block first; `ops` are K8's two
+    wrappers (their plain versions only to compare them on the card)."""
     prep, takahashi = ops
     classes, preps = _takahashi_classes(meta, P.device)
     vals = P.reshape(P.shape[0], -1)
@@ -191,7 +198,60 @@ def _sigma_vals(P: torch.Tensor, meta, ops=(sn_takahashi_prep, sn_takahashi)) ->
         prep(vals, pre, c)
     for c in reversed(classes):
         takahashi(pre, sig, c)
-    return sig
+    return pre, sig
+
+
+def _sigma_vals(P: torch.Tensor, meta, ops=(sn_takahashi_prep, sn_takahashi)) -> torch.Tensor:
+    """Σ in P's layout, (B, K·2s·s+1) (`_sigma_prep`)."""
+    return _sigma_prep(P, meta, ops)[1]
+
+
+def _block_positions(meta, where) -> np.ndarray:
+    """Positions in P's layout of `where`'s entries (an int n: the diagonal),
+    each taken to the lower triangle of the permuted matrix."""
+    plan = _PLAN_CACHE[meta]
+    s, ip = plan["s"], plan["inv_perm"]
+    if isinstance(where, int):
+        j = ip[np.arange(where)].astype(np.int64)
+        return (j // s) * 2 * s * s + (j % s) * (s + 1)
+    pr, pc = ip[where.rows].astype(np.int64), ip[where.cols].astype(np.int64)
+    lo, hi = np.maximum(pr, pc), np.minimum(pr, pc)
+    bk_r, bk_c = lo // s, hi // s
+    if not np.all((bk_r == bk_c) | (bk_r == bk_c + 1)):
+        raise ValueError("pattern outside block-tridiagonal envelope")
+    # row lo − s·bk_c of panel bk_c: Σ_kk in rows 0..s, Σ_{k+1,k} in rows s..2s
+    return bk_c * 2 * s * s + (lo - bk_c * s) * s + (hi - bk_c * s)
+
+
+def _scatter_plan(meta, where):
+    """K5 plan putting T, given on `where`'s entries, onto P's layout (the
+    transpose of `_selinv_plan`): position pos gets Σ t_p over the entries at pos."""
+    key = (meta, where, "scatter")
+    got = _SELINV_CACHE.get(key)
+    if got is None:
+        plan = _PLAN_CACHE[meta]
+        pos = _block_positions(meta, where)
+        ptr = np.concatenate([[0], np.cumsum(np.bincount(pos, minlength=plan["K"] * 2 * plan["s"] ** 2 + 1))])
+        got = _SELINV_CACHE[key] = SegPlan(np.argsort(pos, kind="stable"), ptr=ptr)
+    return got
+
+
+def _tangent_sigma(P: torch.Tensor, t: torch.Tensor, where, meta) -> torch.Tensor:
+    """Σ̇ = −Σ·sym(T)·Σ in P's layout, (B, K·2s·s+1), for T given by t (B, m)
+    on `where`'s entries: T onto the blocks (K5), the factorization's tangent
+    (K22), then the block Takahashi sweep's, the last block first (K21)."""
+    B, K, s2, s = P.shape
+    classes, _ = _takahashi_classes(meta, P.device)
+    pre, sig = _sigma_prep(P, meta)
+    w = symmetric_weights(where, t.device, t.dtype)
+    dvals = gather_segsum(_scatter_plan(meta, where), (t if w is None else t * w).contiguous())
+    blocks = dvals[:, :-1].view(B, K, s2, s)
+    bt_factor_tangent(P, pre[:, :-1].view(B, K, s2, s), blocks)
+    vals = P.reshape(B, -1)
+    dsig = torch.zeros_like(pre)
+    for c in reversed(classes):
+        sn_takahashi_tangent(vals, pre, dvals, sig, dsig, c)
+    return dsig
 
 
 def _selinv_plan(meta, pattern: SparsePattern):
@@ -200,17 +260,7 @@ def _selinv_plan(meta, pattern: SparsePattern):
     key = (meta, pattern)
     got = _SELINV_CACHE.get(key)
     if got is None:
-        plan = _PLAN_CACHE[meta]
-        s = plan["s"]
-        pr = plan["inv_perm"][pattern.rows].astype(np.int64)
-        pc = plan["inv_perm"][pattern.cols].astype(np.int64)
-        # normalize to the lower triangle (Σ symmetric)
-        lo, hi = np.maximum(pr, pc), np.minimum(pr, pc)
-        bk_r, bk_c = lo // s, hi // s
-        if not np.all((bk_r == bk_c) | (bk_r == bk_c + 1)):
-            raise ValueError("pattern outside block-tridiagonal envelope")
-        # row lo − s·bk_c of panel bk_c: Σ_kk in rows 0..s, Σ_{k+1,k} in rows s..2s
-        got = _SELINV_CACHE[key] = _one_term(bk_c * 2 * s * s + (lo - bk_c * s) * s + (hi - bk_c * s))
+        got = _SELINV_CACHE[key] = _one_term(_block_positions(meta, pattern))
     return got
 
 
@@ -225,9 +275,13 @@ def _diag_plan(meta):
     return got
 
 
-def _selinv_data(P: torch.Tensor, meta, pattern: SparsePattern) -> torch.Tensor:
-    """Σ_ij on `pattern`'s entries, (B, nnz)."""
-    return gather_segsum(_selinv_plan(meta, pattern), _sigma_vals(P, meta))
+def _selinv_data(P: torch.Tensor, meta, pattern, sig=None) -> torch.Tensor:
+    """Σ_ij on `pattern`'s entries (an int n: the diagonal, unpermuted), (B,
+    m), from Σ in P's layout (`sig`, by default the Takahashi recursion's)."""
+    sig = _sigma_vals(P, meta) if sig is None else sig
+    if isinstance(pattern, int):
+        return gather_segsum(_diag_plan(meta), sig, out=sig.new_empty(sig.shape[0], pattern))
+    return gather_segsum(_selinv_plan(meta, pattern), sig)
 
 
 class BandedLogdet(torch.autograd.Function):
@@ -237,21 +291,33 @@ class BandedLogdet(torch.autograd.Function):
     Backward: ∂logdet/∂data_p = Σ_{row p, col p}: the reference averages a
     symmetric pattern's two stored triangles before factoring, so each
     stored entry gets Σ_ij (the gradient JAX's AD gives whenever no pivot
-    was boosted); Σ from the saved factor by K8 and K5."""
+    was boosted); Σ from the saved factor by K8 and K5 through
+    `SelectedInverse`, differentiable in data. jvp: Σ_p Σ_{row p, col p}
+    data̅'s tangent_p."""
 
     @staticmethod
     def forward(ctx, data, meta):
         P, boost, logdet = bt_factor(data.contiguous(), _TABLES[meta])
         ctx.mark_non_differentiable(P, boost)
-        ctx.save_for_backward(P)
+        ctx.save_for_backward(data, P)
+        ctx.save_for_forward(data, P)
         ctx.meta = meta
         return logdet, P, boost
 
     @staticmethod
+    def _factor(ctx):
+        data, P = ctx.saved_tensors
+        return BandedFactor(P, None, None, ctx.meta, (P.shape[0],), data)
+
+    @staticmethod
     def backward(ctx, glogdet, _gP, _gb):
-        no_double_backward("the banded logdet")
-        (P,) = ctx.saved_tensors
-        return glogdet[:, None] * _selinv_data(P, ctx.meta, ctx.meta[0]), None
+        f = BandedLogdet._factor(ctx)
+        return glogdet[:, None] * SelectedInverse.apply(f, f.pattern, f.data), None
+
+    @staticmethod
+    def jvp(ctx, ddata, _meta):
+        f = BandedLogdet._factor(ctx)
+        return (f._sigma(f.pattern) * ddata).sum(-1), None, None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -325,22 +391,14 @@ class BandedFactor(DirectFactor):
     def _sigma_vals(self) -> torch.Tensor:
         return _sigma_vals(self.P, self.meta)
 
-    def selinv_diag(self) -> torch.Tensor:
-        sig = self._sigma_vals()
-        d = gather_segsum(_diag_plan(self.meta), sig, out=sig.new_empty(sig.shape[0], self.n))
-        return d.reshape(tuple(self.batch_shape) + (self.n,))
+    def _sigma(self, where) -> torch.Tensor:
+        """Σ at `where`'s entries (an int n: the diagonal), (B, m): K8, then K5;
+        a pattern must lie within the permuted block-tridiagonal envelope."""
+        return _selinv_data(self.P, self.meta, where)
 
-    def selinv(self, pattern: SparsePattern) -> SparseMatrix:
-        """Entries of Q⁻¹ on `pattern` (within the block-tridiagonal envelope
-        of the permuted ordering)."""
-        z = _selinv_data(self.P, self.meta, pattern)
-        return SparseMatrix(z.reshape(tuple(self.batch_shape) + (pattern.nnz,)), pattern)
-
-    def selinv_dot(self, other: SparseMatrix) -> torch.Tensor:
-        """tr(Q⁻¹·other) per chain: one K5 sum of Σ's values times other's."""
-        z = _selinv_data(self.P, self.meta, other.pattern)
-        y = other.data if other.data.ndim == 1 else other.data.reshape(-1, other.nnz)
-        return gather_segsum(_sum_plan(other.nnz, dot=True), z, y=y)[:, 0].reshape(tuple(self.batch_shape))
+    def _sigma_tangent(self, t: torch.Tensor, p_in, p_out) -> torch.Tensor:
+        """−Σ·sym(T)·Σ at p_out's entries for T given by t (B, m) on p_in's (K5, K8, K22, K21)."""
+        return _selinv_data(self.P, self.meta, p_out, sig=_tangent_sigma(self.P, t, p_in, self.meta))
 
     def sqrt_matvec(self, z: torch.Tensor) -> torch.Tensor:
         """L z in the permuted block basis, mapped back (K13 `bt_sqrt`):
@@ -349,7 +407,8 @@ class BandedFactor(DirectFactor):
 
 
 class _BtMatvec(torch.autograd.Function):
-    """y = Q x on K13; Q is symmetric, so x̄ = Q ȳ is the same product."""
+    """y = Q x on K13; Q is symmetric, so x̄ = Q ȳ is the same product (and
+    through this Function, so differentiable again)."""
 
     @staticmethod
     def forward(ctx, x, mv):
@@ -358,8 +417,12 @@ class _BtMatvec(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gy):
+        return _BtMatvec.apply(gy.contiguous(), ctx.mv), None
+
+    @staticmethod
+    def jvp(ctx, dx, _):
         mv = ctx.mv
-        return bt_matvec(mv.D, mv.E, mv.perm, gy.contiguous()), None
+        return bt_matvec(mv.D, mv.E, mv.perm, dx.contiguous())
 
 
 @dataclasses.dataclass(frozen=True)

@@ -7,10 +7,16 @@ and raises on the rest, as in the reference.
 
 Every direct backend's factor is a `DirectFactor`: its ``solve`` goes
 through `FactorSolve`, which carries the gradient to b and to the data Q was
-factored from (x̄ ↦ b̄ = Q⁻¹x̄ by the same factor, Q̄ = −b̄xᵀ on Q's entries).
-The backends' other statistics (sampling, the triangular solves, selected
-inversion) have no backward yet: `DirectFactor.NO_BACKWARD` lists them, and
-they raise while grad mode is on and Q's data requires a gradient
+factored from (x̄ ↦ b̄ = Q⁻¹x̄ by the same factor, Q̄ = −b̄xᵀ on Q's entries),
+and its selected inverse (``selinv_diag``, ``selinv``, ``selinv_dot``)
+through `SelectedInverse`, whose backward is Q̄ = −P_Q(Σ S Σ) for the
+cotangent S placed on Σ's entries, from the backend's tangent pass. Both
+backwards are built from differentiable pieces (the Functions themselves and
+torch ops), so second derivatives (``create_graph=True``) go through the
+same kernels; each Function has a ``jvp`` for forward mode. The statistics
+that need the factor's own derivative (sampling, the triangular solves,
+``sqrt_matvec``) have no backward yet: `DirectFactor.NO_BACKWARD` lists
+them, and they raise while grad mode is on and Q's data requires a gradient
 (`no_backward`), instead of returning a tensor cut from the graph.
 
 ``kind="auto"`` resolves as the reference does: tridiagonal patterns to
@@ -33,8 +39,8 @@ import functools
 import numpy as np
 import torch
 
-__all__ = ["SolverSpec", "factorize", "CGFactor", "DirectFactor", "FactorSolve", "DENSE_AUTO_MAX", "no_backward",
-           "no_double_backward", "pattern_solve_grad"]
+__all__ = ["SolverSpec", "factorize", "CGFactor", "DirectFactor", "FactorSolve", "SelectedInverse", "DENSE_AUTO_MAX",
+           "no_backward", "no_double_backward", "pattern_solve_grad", "symmetric_weights"]
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -61,8 +67,9 @@ def no_backward(what: str, *inputs) -> None:
 
 
 def no_double_backward(what: str) -> None:
-    """Raise inside a backward asked to build its own graph (``create_graph=True``):
-    `what`'s backward is not differentiable in this port (ROADMAP fault 3.2)."""
+    """Raise inside a backward asked to build its own graph (``create_graph=True``)
+    whose result would not be differentiable: `what` has no derivative of
+    that order in this port."""
     if torch.is_grad_enabled():
         raise NotImplementedError(f"{what} has no second derivative in this port (create_graph=True)")
 
@@ -72,29 +79,81 @@ class FactorSolve(torch.autograd.Function):
     tensors Q was factored from.
 
     apply(factor, b, *factor.grad_inputs): the factor's ``_solve_both(b)``
-    runs its kernel with no graph. Backward: b̄ = Q⁻¹x̄ by the same factor
-    and kernel (Q is symmetric), and ``factor._input_grads(b̄, x)`` maps
-    Q̄ = −b̄xᵀ onto the inputs with the convention of the backend's logdet
-    backward."""
+    runs its kernel with no graph. Backward: b̄ = Q⁻¹x̄ through this Function
+    again (Q is symmetric), and ``factor._input_grads(b̄, x)`` maps
+    Q̄ = −b̄xᵀ onto the inputs with torch ops, with the convention of the
+    backend's logdet backward; so the backward is differentiable. jvp:
+    ẋ = Q⁻¹(ḃ − Q̇x)."""
 
     @staticmethod
     def forward(ctx, factor, b, *inputs):
         x = factor._solve_both(b)
         ctx.factor = factor
         ctx.save_for_backward(x)
+        ctx.save_for_forward(x)
         return x
 
     @staticmethod
     def backward(ctx, gx):
-        no_double_backward("the factor solve")
         (x,) = ctx.saved_tensors
         factor = ctx.factor
-        gb = factor._solve_both(gx.contiguous())
+        gb = FactorSolve.apply(factor, gx.contiguous(), *factor.grad_inputs)
         if any(ctx.needs_input_grad[2:]):
             grads = factor._input_grads(gb, x)
         else:
             grads = (None,) * (len(ctx.needs_input_grad) - 2)
         return (None, gb if ctx.needs_input_grad[1] else None, *grads)
+
+    @staticmethod
+    def jvp(ctx, _factor, db, *dinputs):
+        (x,) = ctx.saved_tensors
+        factor = ctx.factor
+        rhs = torch.zeros_like(x) if db is None else db
+        if any(t is not None for t in dinputs):
+            rhs = rhs - factor._tangent_matvec(dinputs, x)
+        return factor._solve_both(rhs.contiguous())
+
+
+class SelectedInverse(torch.autograd.Function):
+    """Σ = Q⁻¹ at the entries `where` (an int n: the diagonal; or a pattern)
+    of a direct backend's factor, as a function of the data Q was factored
+    from: (B, m).
+
+    apply(factor, where, *factor.grad_inputs). Backward: for the cotangent
+    S on `where`'s entries, data̅ = −(Σ·sym(S)·Σ) at Q's entries, sym(S) =
+    (S + Sᵀ)/2; jvp: Σ̇ = −Σ·Q̇·Σ at `where`, Q̇ = sym(data̅'s tangent). Both
+    are the backend's tangent pass (``factor._sigma_tangent``), the map
+    T ↦ −P(Σ sym(T) Σ) being its own adjoint. The backward is not
+    differentiable again: Σ's second derivative (the logdet's third) raises."""
+
+    @staticmethod
+    def forward(ctx, factor, where, *inputs):
+        ctx.factor, ctx.where = factor, where
+        return factor._sigma(where)
+
+    @staticmethod
+    def backward(ctx, gz):
+        no_double_backward("the selected inverse's derivative")
+        factor = ctx.factor
+        return None, None, factor._sigma_tangent(gz.contiguous(), ctx.where, factor.pattern)
+
+    @staticmethod
+    def jvp(ctx, _factor, _where, *dinputs):
+        factor = ctx.factor
+        return factor._sigma_tangent(factor._tangent_data(dinputs), factor.pattern, ctx.where)
+
+
+def symmetric_weights(where, device, dtype) -> torch.Tensor | None:
+    """The weights of sym(T) = (T + Tᵀ)/2 on the lower entries of a symmetric
+    matrix for T on `where`'s entries: ½ off the diagonal, 1 on it (None for
+    the diagonal, an int)."""
+    if isinstance(where, int):
+        return None
+    key = (where, "symw", str(device), dtype)
+    w = _INDEX.get(key)
+    if w is None:
+        w = _INDEX[key] = torch.as_tensor(np.where(where.rows == where.cols, 1.0, 0.5), dtype=dtype, device=device)
+    return w
 
 
 def pattern_solve_grad(gb: torch.Tensor, x: torch.Tensor, pattern, B: int) -> torch.Tensor:
@@ -127,9 +186,13 @@ class DirectFactor:
 
     A subclass computes x = Q⁻¹b in ``_solve_both(b)`` with its kernel, and
     keeps the tensor ``data`` (B, nnz) it factored on ``pattern``, its two
-    stored triangles averaged: Q̄ then maps onto data by `pattern_solve_grad`
-    (the tridiagonal backend, factored from its rows a and c, overrides
-    `grad_inputs` and `_input_grads`). Each method named in ``NO_BACKWARD``
+    stored triangles averaged: Q̄ then maps onto data by `pattern_solve_grad`.
+    It gives Σ at an int n (the diagonal) or a pattern's entries in
+    ``_sigma(where)``, and ``_sigma_tangent(t, p_in, p_out)``: −Σ·sym(T)·Σ at
+    p_out's entries for T given by t (B, m) on p_in's, from its kernels and
+    with no graph. The tridiagonal backend, factored from its rows a and c,
+    overrides the input side (`grad_inputs`, `_input_grads`,
+    `_tangent_matvec`, `_selected`). Each method named in ``NO_BACKWARD``
     that a subclass defines raises while grad mode is on and one of
     `grad_inputs` requires a gradient."""
 
@@ -137,10 +200,6 @@ class DirectFactor:
         "forward_solve": "forward_solve",
         "backward_solve": "backward_solve (sampling)",
         "sqrt_matvec": "sqrt_matvec",
-        "selinv_tridiag": "the selected inverse (var, selinv)",
-        "selinv_diag": "the selected inverse (var)",
-        "selinv": "the selected inverse (selinv)",
-        "selinv_dot": "the selected inverse (selinv_dot)",
     }
 
     def __init_subclass__(cls, **kwargs):
@@ -151,11 +210,54 @@ class DirectFactor:
 
     @property
     def grad_inputs(self) -> tuple:
-        """The tensors Q was factored from: `FactorSolve`'s differentiable inputs."""
+        """The tensors Q was factored from: the differentiable inputs of
+        `FactorSolve` and `SelectedInverse`."""
         return (self.data,)
 
     def _input_grads(self, gb: torch.Tensor, x: torch.Tensor) -> tuple:
         return (pattern_solve_grad(gb, x, self.pattern, self.data.shape[0]),)
+
+    def _tangent_data(self, dinputs) -> torch.Tensor:
+        """The tangent of `data` from the tangents of `grad_inputs` (zeros for none)."""
+        (dd,) = dinputs
+        return torch.zeros_like(self.data) if dd is None else dd
+
+    def _tangent_matvec(self, dinputs, x: torch.Tensor) -> torch.Tensor:
+        """Q̇ x for the tangents of `grad_inputs`, Q̇ = sym(data's tangent); x as `solve` takes it."""
+        from ..sparse.matrix import SparseMatrix
+
+        B, n = self.data.shape[0], self.pattern.shape[0]
+        xr = x.reshape(B, n, -1)
+        Qd = SparseMatrix(self._tangent_data(dinputs), self.pattern).symmetrize()
+        cols = [Qd.matvec(xr[..., j].contiguous()) for j in range(xr.shape[-1])]
+        return torch.stack(cols, -1).reshape(x.shape)
+
+    def _selected(self, where) -> torch.Tensor:
+        """Σ at `where`'s entries, (B, m), differentiable in `grad_inputs`."""
+        return SelectedInverse.apply(self, where, *self.grad_inputs)
+
+    def selinv_diag(self) -> torch.Tensor:
+        return self._selected(self.n).reshape(tuple(self.batch_shape) + (self.n,))
+
+    def selinv(self, pattern):
+        """Entries of Q⁻¹ on `pattern` (used for ∂logdet(Q)/∂Q)."""
+        from ..sparse.matrix import SparseMatrix
+
+        if tuple(pattern.shape) != (self.n, self.n):
+            raise ValueError(f"pattern of shape {pattern.shape} does not match a factor of {self.n} x {self.n}")
+        z = self._selected(pattern)
+        return SparseMatrix(z.reshape(tuple(self.batch_shape) + (pattern.nnz,)), pattern)
+
+    def selinv_dot(self, other) -> torch.Tensor:
+        """tr(Q⁻¹ · other) per chain, for other on any pattern: one K5 sum of
+        Σ's values times other's, differentiable in both."""
+        from ..sparse.matrix import sp_dot
+
+        if tuple(other.shape) != (self.n, self.n):
+            raise ValueError(f"pattern of shape {other.shape} does not match a factor of {self.n} x {self.n}")
+        z = self._selected(other.pattern)
+        y = other.data if other.data.ndim == 1 else other.data.reshape(-1, other.nnz)
+        return sp_dot(z, y).reshape(tuple(self.batch_shape))
 
     def solve(self, b: torch.Tensor) -> torch.Tensor:
         """Q x = b for b (*batch, n) or (*batch, n, k); differentiable in b and

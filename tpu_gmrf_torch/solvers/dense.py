@@ -11,8 +11,11 @@ the solves on K10 (`dense_trsv`, by those tiles), Σ = Q⁻¹ at the entries
 wanted (diagonal, a pattern) on K10's second entry (`dense_selinv`), whose
 sum for `selinv_dot` is K5's; `sqrt_matvec`'s L·z is a plain matrix product. The
 logdet is differentiable through `DenseLogdet`, whose backward is Σ on Q's
-pattern; `solve` through `FactorSolve` (K10 forward and backward). The
-other solves and Σ have no backward and raise while a gradient is asked.
+pattern, `solve` through `FactorSolve` (K10 forward and backward), and Σ
+through `SelectedInverse`: its tangent −Σ·sym(T)·Σ takes Σ in full from K10
+on the identity and two matrix products (which the reference also leaves
+to XLA). The triangular solves and ``sqrt_matvec`` have no backward and
+raise while a gradient is asked.
 """
 
 from __future__ import annotations
@@ -22,12 +25,11 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..kernels import SOLVE_BOTH, SOLVE_L, SOLVE_LT, DenseTables, dense_chol, dense_selinv, dense_trsv, gather_segsum
+from ..kernels import SOLVE_BOTH, SOLVE_L, SOLVE_LT, DenseTables, dense_chol, dense_selinv, dense_trsv
 from ..kernels.dense import DENSE_MAX_N
 from ..sparse.matrix import SparseMatrix
 from ..sparse.pattern import SparsePattern
-from .base import DirectFactor, no_double_backward
-from .supernodal import _sum_plan
+from .base import DirectFactor, SelectedInverse
 
 __all__ = ["DenseFactor", "DenseLogdet", "dense_factorize"]
 
@@ -68,22 +70,32 @@ class DenseLogdet(torch.autograd.Function):
     Backward: ∂logdet/∂data_p = Σ_{row p, col p}, as JAX's Cholesky rule
     gives it (the reference symmetrizes its input, so each stored entry of
     a symmetric pair gets Σ_ij); Σ on the pattern from the saved factor by
-    `dense_selinv`, no refactorization."""
+    `SelectedInverse` (`dense_selinv`, no refactorization), differentiable in
+    data. jvp: Σ_p Σ_{row p, col p} data̅'s tangent_p."""
 
     @staticmethod
-    def forward(ctx, data, tables):
+    def forward(ctx, data, tables, pattern):
         L, s, level, logdet, Dinv = dense_chol(data.contiguous(), tables)
         ctx.mark_non_differentiable(*(x for x in (L, s, level, Dinv) if x is not None))
-        ctx.save_for_backward(L, s, Dinv)
-        ctx.tables = tables
+        ctx.save_for_backward(data, L, s, Dinv)
+        ctx.save_for_forward(data, L, s, Dinv)
+        ctx.pattern = pattern
         return logdet, L, s, level, Dinv
 
     @staticmethod
+    def _factor(ctx):
+        data, L, s, Dinv = ctx.saved_tensors
+        return DenseFactor(L, s, None, None, (L.shape[0],), data, ctx.pattern, Dinv)
+
+    @staticmethod
     def backward(ctx, glogdet, _gL, _gs, _glevel, _gDinv):
-        no_double_backward("the dense logdet")
-        L, s, Dinv = ctx.saved_tensors
-        t = ctx.tables.on(L.device)
-        return glogdet[:, None] * dense_selinv(L, s, t["rows"], t["cols"], Dinv=Dinv), None
+        f = DenseLogdet._factor(ctx)
+        return glogdet[:, None] * SelectedInverse.apply(f, f.pattern, f.data), None, None
+
+    @staticmethod
+    def jvp(ctx, ddata, _tables, _pattern):
+        f = DenseLogdet._factor(ctx)
+        return (f._sigma(f.pattern) * ddata).sum(-1), None, None, None, None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -136,20 +148,33 @@ class DenseFactor(DirectFactor):
     def logdet(self) -> torch.Tensor:
         return self.logdet_
 
-    def selinv_diag(self) -> torch.Tensor:
-        return _sigma(self.L, self.s, self.Dinv, self.n).reshape(tuple(self.batch_shape) + (self.n,))
+    def _sigma(self, where) -> torch.Tensor:
+        """Σ at the entries `where` (an int n: the diagonal; a pattern), (B, m) (K10's `dense_selinv`)."""
+        return _sigma(self.L, self.s, self.Dinv, where)
 
-    def selinv(self, pattern: SparsePattern) -> SparseMatrix:
-        """Entries of Q⁻¹ on `pattern` (used for ∂logdet(Q)/∂Q)."""
-        z = _sigma(self.L, self.s, self.Dinv, pattern)
-        return SparseMatrix(z.reshape(tuple(self.batch_shape) + (pattern.nnz,)), pattern)
+    def _sigma_full(self) -> torch.Tensor:
+        """Σ = Q⁻¹ in full, (B, n, n): K10 on the identity."""
+        B, n = self.L.shape[0], self.n
+        eye = torch.eye(n, dtype=self.L.dtype, device=self.L.device).expand(B, n, n).contiguous()
+        return dense_trsv(self.L, self.s, eye, SOLVE_BOTH, Dinv=self.Dinv)
 
-    def selinv_dot(self, other: SparseMatrix) -> torch.Tensor:
-        """tr(Q⁻¹ · other) per chain, for other on any pattern: one K5 sum
-        of Σ's values times other's."""
-        z = _sigma(self.L, self.s, self.Dinv, other.pattern)
-        y = other.data if other.data.ndim == 1 else other.data.reshape(-1, other.nnz)
-        return gather_segsum(_sum_plan(other.nnz, dot=True), z, y=y)[:, 0].reshape(tuple(self.batch_shape))
+    def _sigma_tangent(self, t: torch.Tensor, p_in, p_out) -> torch.Tensor:
+        """−Σ·sym(T)·Σ at p_out's entries for T given by t (B, m) on p_in's:
+        Σ in full, then two matrix products."""
+        B, n = self.L.shape[0], self.n
+        Sig = self._sigma_full()
+        if isinstance(p_in, int):
+            T = torch.diag_embed(t)
+        else:
+            r, c = (torch.tensor(a, dtype=torch.long, device=t.device) for a in (p_in.rows, p_in.cols))
+            T = t.new_zeros(B, n, n).index_put_((torch.arange(B, device=t.device)[:, None], r, c), t.reshape(B, -1),
+                                                accumulate=True)
+            T = 0.5 * (T + T.mT)
+        M = Sig @ T @ Sig
+        if isinstance(p_out, int):
+            return -torch.diagonal(M, dim1=-2, dim2=-1)
+        r, c = (torch.tensor(a, dtype=torch.long, device=t.device) for a in (p_out.rows, p_out.cols))
+        return -M[:, r, c]
 
 
 def dense_factorize(Q: SparseMatrix) -> DenseFactor:
@@ -164,5 +189,5 @@ def dense_factorize(Q: SparseMatrix) -> DenseFactor:
         Q = (Q + Q.T) * 0.5
     batch = tuple(Q.data.shape[:-1])
     data = Q.data.reshape(-1, Q.nnz)
-    logdet, L, s, level, Dinv = DenseLogdet.apply(data, _tables(Q.pattern))
+    logdet, L, s, level, Dinv = DenseLogdet.apply(data, _tables(Q.pattern), Q.pattern)
     return DenseFactor(L, s, level, logdet.reshape(batch), batch, data, Q.pattern, Dinv)

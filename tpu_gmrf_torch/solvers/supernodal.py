@@ -28,8 +28,11 @@ reference library.
   (B, n). The logdet is differentiable through `SupernodalLogdet`, whose
   backward is the selected inverse on Q's pattern (K8 + K5) from the saved
   factor; `solve` is differentiable through `FactorSolve` (K7 forward and
-  backward); the other solves and Σ have no backward and raise while a
-  gradient is asked.
+  backward), and Σ through `SelectedInverse`, whose tangent pass
+  (`_tangent_sigma`) scatters Q̇ onto the fill (K5), runs the
+  factorization's tangent level by level (K20, and the Schur ELL by K5) and
+  the Takahashi sweep's (K21); the other solves have no backward and raise
+  while a gradient is asked.
 
 * **A mesh (``mesh=``, a ``DeviceMesh``).** Each class batch of the scan
   levels is split over the ranks of the mesh's first dimension, padded with
@@ -65,16 +68,20 @@ from ..kernels import (
     sn_multiply_plain,
     sn_panel,
     sn_panel_plain,
+    sn_panel_tangent,
+    sn_panel_tangent_plain,
     sn_takahashi,
     sn_takahashi_prep,
     sn_takahashi_prep_plain,
     sn_takahashi_sweep_plain,
+    sn_takahashi_tangent,
+    sn_takahashi_tangent_plain,
     sn_trsv,
     sn_trsv_plain,
 )
 from ..sparse.matrix import SparseMatrix
 from ..sparse.pattern import SparsePattern
-from .base import DirectFactor, no_double_backward
+from .base import DirectFactor, SelectedInverse, symmetric_weights
 
 __all__ = [
     "SupernodalFactor",
@@ -738,10 +745,12 @@ def supernodal_plan(
 _DEVICE_CACHE: dict = {}
 
 _KERNEL_OPS = dict(init=fct_init, panel=sn_panel, trsv=sn_trsv, multiply=sn_multiply, prep=sn_takahashi_prep,
-                   takahashi=sn_takahashi, segsum=gather_segsum)
+                   takahashi=sn_takahashi, segsum=gather_segsum, panel_tangent=sn_panel_tangent,
+                   takahashi_tangent=sn_takahashi_tangent)
 # the plain versions, for comparisons of the kernels with them on the card
 _PLAIN_OPS = dict(init=fct_init_plain, panel=sn_panel_plain, trsv=sn_trsv_plain, multiply=sn_multiply_plain,
-                  prep=sn_takahashi_prep_plain, takahashi=sn_takahashi_sweep_plain, segsum=gather_segsum_plain)
+                  prep=sn_takahashi_prep_plain, takahashi=sn_takahashi_sweep_plain, segsum=gather_segsum_plain,
+                  panel_tangent=sn_panel_tangent_plain, takahashi_tangent=sn_takahashi_tangent_plain)
 
 
 @dataclasses.dataclass
@@ -970,11 +979,11 @@ def _factor_values(data, meta, ops, mesh=None):
     return vals, s, logdet[:, 0], boost
 
 
-def _sigma_vals(vals, meta, ops):
-    """Block Takahashi recursion: Σ on L's pattern in the scaled basis, (B,
-    nnzL+1). K8's first entry forms C = Lb·Ld⁻¹ and A = Ld⁻ᵀLd⁻¹ of every
-    supernode (one launch per class shape, in a second buffer laid out like
-    vals); then K8 per class batch, levels descending."""
+def _sigma_prep(vals, meta, ops):
+    """Block Takahashi recursion: (pre, Σ) on L's pattern in the scaled basis,
+    (B, nnzL+1) each. K8's first entry forms C = Lb·Ld⁻¹ and A = Ld⁻ᵀLd⁻¹ of
+    every supernode (one launch per class shape) into pre, laid out like
+    vals; then K8 per class batch, levels descending."""
     dp = _device_plan(meta, vals.device)
     pre, sig = torch.zeros_like(vals), torch.zeros_like(vals)
     for c in dp["prep"]:
@@ -982,7 +991,54 @@ def _sigma_vals(vals, meta, ops):
     for lv in reversed(dp["levels"]):
         for c in lv.classes:
             ops["takahashi"](pre, sig, c)
-    return sig
+    return pre, sig
+
+
+def _sigma_vals(vals, meta, ops):
+    """Σ on L's pattern in the scaled basis, (B, nnzL+1)."""
+    return _sigma_prep(vals, meta, ops)[1]
+
+
+def _scatter_plan(meta, where):
+    """K5 plan putting T, given on `where`'s entries (an int n: the
+    diagonal), onto the fill's lower positions in the scaled basis:
+    row pos gets Σ t_p·s_{row p}·s_{col p} over the entries at pos."""
+    key = (meta, where, "scatter")
+    got = _SELINV_CACHE.get(key)
+    if got is None:
+        plan = _PLAN_CACHE[meta]
+        if isinstance(where, int):
+            rows = cols = np.arange(where)
+            pos = np.asarray(plan["diag_pos"], np.int64)[plan["inv_perm"]]
+        else:
+            rows, cols = where.rows, where.cols
+            pos = _selinv_positions(meta, where)[0].astype(np.int64)
+        order = np.argsort(pos, kind="stable")
+        ptr = np.concatenate([[0], np.cumsum(np.bincount(pos, minlength=plan["nnzL"] + 1))])
+        got = _SELINV_CACHE[key] = SegPlan(order, ptr=ptr, yi=np.asarray(rows)[order], zi=np.asarray(cols)[order])
+    return got
+
+
+def _tangent_sigma(vals, s, t, where, meta, ops):
+    """Σ̇' = −Σ'·Q̇'·Σ' on L's pattern in the scaled basis, (B, nnzL+1), for
+    Q̇' = S·sym(T)·S with T given by t (B, m) on `where`'s entries: T onto
+    the fill (K5), the factorization's tangent level by level (K20, the
+    Schur ELL by K5), then the Takahashi sweep's (K21), levels descending."""
+    dp = _device_plan(meta, vals.device)
+    pre, sig = _sigma_prep(vals, meta, ops)
+    w = symmetric_weights(where, t.device, t.dtype)
+    dvals = ops["segsum"](_scatter_plan(meta, where), (t if w is None else t * w).contiguous(), y=s, z=s)
+    for lv in dp["levels"]:
+        du = _buffer(vals, vals.shape[0], lv.zu)
+        for c in lv.classes:
+            ops["panel_tangent"](vals, pre, dvals, c, du)
+        for ell in lv.schur:
+            ops["segsum"](ell, du, out=dvals, alpha=-1.0, accumulate=True)
+    dsig = torch.zeros_like(vals)
+    for lv in reversed(dp["levels"]):
+        for c in lv.classes:
+            ops["takahashi_tangent"](vals, pre, dvals, sig, dsig, c)
+    return dsig
 
 
 def _selinv_positions(meta, pattern: SparsePattern):
@@ -1008,9 +1064,14 @@ def _selinv_positions(meta, pattern: SparsePattern):
     return got
 
 
-def _selinv_data(vals, s, pattern, meta, ops):
-    """Σ_ij on `pattern`'s entries with the scaling undone, s_i·Σ_ij·s_j (B, nnz)."""
-    sig = _sigma_vals(vals, meta, ops)
+def _selinv_data(vals, s, pattern, meta, ops, sig=None):
+    """Σ_ij on `pattern`'s entries (an int n: the diagonal) with the scaling
+    undone, s_i·Σ_ij·s_j (B, m), from Σ on L's pattern (`sig`, by default
+    the Takahashi recursion's)."""
+    sig = _sigma_vals(vals, meta, ops) if sig is None else sig
+    if isinstance(pattern, int):
+        dp = _device_plan(meta, vals.device)
+        return ops["segsum"](dp["diag"], sig, y=s, z=s, out=sig.new_empty(sig.shape[0], pattern))
     _, plan = _selinv_positions(meta, pattern)
     return ops["segsum"](plan, sig, y=s, z=s)
 
@@ -1022,22 +1083,33 @@ class SupernodalLogdet(torch.autograd.Function):
     Backward: ∂logdet/∂data_p = Σ_{row p, col p}: the reference averages both
     stored triangles before factoring, so each stored entry of a symmetric
     pair gets Σ_ij (the gradient JAX's AD gives whenever no pivot was
-    boosted). Σ comes from the saved factor by K8 and K5; no refactorization."""
+    boosted). Σ comes from the saved factor by K8 and K5 through
+    `SelectedInverse`, differentiable in data; no refactorization. jvp:
+    Σ_p Σ_{row p, col p} data̅'s tangent_p."""
 
     @staticmethod
     def forward(ctx, data, meta, mesh=None):
         vals, s, logdet, boost = _factor_values(data, meta, _KERNEL_OPS, mesh)
         ctx.mark_non_differentiable(vals, s, boost)
-        ctx.save_for_backward(vals, s)
+        ctx.save_for_backward(data, vals, s)
+        ctx.save_for_forward(data, vals, s)
         ctx.meta = meta
         return logdet, vals, s, boost
 
     @staticmethod
+    def _factor(ctx):
+        data, vals, s = ctx.saved_tensors
+        return SupernodalFactor(vals, s, None, None, ctx.meta, (vals.shape[0],), _KERNEL_OPS, data)
+
+    @staticmethod
     def backward(ctx, glogdet, _gv, _gs, _gb):
-        no_double_backward("the supernodal logdet")
-        vals, s = ctx.saved_tensors
-        z = _selinv_data(vals, s, ctx.meta[0], ctx.meta, _KERNEL_OPS)
-        return glogdet[:, None] * z, None, None
+        f = SupernodalLogdet._factor(ctx)
+        return glogdet[:, None] * SelectedInverse.apply(f, f.pattern, f.data), None, None
+
+    @staticmethod
+    def jvp(ctx, ddata, _meta, _mesh):
+        f = SupernodalLogdet._factor(ctx)
+        return (f._sigma(f.pattern) * ddata).sum(-1), None, None, None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -1159,21 +1231,14 @@ class SupernodalFactor(DirectFactor):
     def _sigma_vals(self) -> torch.Tensor:
         return _sigma_vals(self.vals, self.meta, self._ops)
 
-    def selinv_diag(self) -> torch.Tensor:
-        dp = _device_plan(self.meta, self.vals.device)
-        sig = self._sigma_vals()
-        d = self._ops["segsum"](dp["diag"], sig, y=self.s, z=self.s, out=sig.new_empty(sig.shape[0], self.n))
-        return d.reshape(tuple(self.batch_shape) + (self.n,))
+    def _sigma(self, where) -> torch.Tensor:
+        """Σ at `where`'s entries (an int n: the diagonal), (B, m): K8, then K5."""
+        return _selinv_data(self.vals, self.s, where, self.meta, self._ops)
 
-    def selinv(self, pattern: SparsePattern) -> SparseMatrix:
-        z = _selinv_data(self.vals, self.s, pattern, self.meta, self._ops)
-        return SparseMatrix(z.reshape(tuple(self.batch_shape) + (pattern.nnz,)), pattern)
-
-    def selinv_dot(self, other: SparseMatrix) -> torch.Tensor:
-        """tr(Q⁻¹·other) per chain: one K5 sum of Σ's values (scaling undone) times other's."""
-        z = _selinv_data(self.vals, self.s, other.pattern, self.meta, self._ops)
-        y = other.data if other.data.ndim == 1 else other.data.reshape(-1, other.nnz)
-        return self._ops["segsum"](_sum_plan(other.nnz, dot=True), z, y=y)[:, 0].reshape(tuple(self.batch_shape))
+    def _sigma_tangent(self, t: torch.Tensor, p_in, p_out) -> torch.Tensor:
+        """−Σ·sym(T)·Σ at p_out's entries for T given by t (B, m) on p_in's (K5, K8, K20, K21)."""
+        dsig = _tangent_sigma(self.vals, self.s, t, p_in, self.meta, self._ops)
+        return _selinv_data(self.vals, self.s, p_out, self.meta, self._ops, sig=dsig)
 
 
 def supernodal_factorize(Q: SparseMatrix, max_width: int = 2048, ordering: str = "auto", mesh=None

@@ -5,9 +5,12 @@ bidiagonal Cholesky factor Q = L Lᵀ of B tridiagonal matrices at once:
 diagonal ``d`` (..., n) and subdiagonal ``e`` (..., n-1). Factorization,
 solves and the Takahashi recursion run on the kernels K1-K3
 (``tpu_gmrf_torch.kernels``); the logdet is differentiable through
-`TridiagLogdet`, whose backward is the selected inverse (K3), and `solve`
-through `FactorSolve` (K2 forward and backward). The other solves and the
-selected inverse have no backward and raise while a gradient is asked.
+`TridiagLogdet`, whose backward is the selected inverse, `solve` through
+`FactorSolve` (K2 forward and backward), and the selected inverse through
+`TridiagSelinv` (K3), whose backward and jvp are K19's tangent pass. Each
+backward is differentiable once more, so a Hessian reaches K19. The
+triangular solves and ``sqrt_matvec`` have no backward and raise while a
+gradient is asked.
 """
 
 from __future__ import annotations
@@ -17,12 +20,12 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..kernels import SOLVE_BOTH, SOLVE_L, SOLVE_LT, tridiag_factor, tridiag_selinv, tridiag_solve
+from ..kernels import SOLVE_BOTH, SOLVE_L, SOLVE_LT, tridiag_factor, tridiag_selinv, tridiag_selinv_tangent, tridiag_solve
 from .base import DirectFactor, no_double_backward
 from ..sparse.matrix import SparseMatrix, _index
 from ..sparse.pattern import SparsePattern
 
-__all__ = ["TridiagFactor", "TridiagLogdet", "tridiag_factorize"]
+__all__ = ["TridiagFactor", "TridiagLogdet", "TridiagSelinv", "tridiag_factorize"]
 
 
 def _rows(t: torch.Tensor, n_last: int):
@@ -30,25 +33,65 @@ def _rows(t: torch.Tensor, n_last: int):
     return t.reshape(-1, n_last).contiguous()
 
 
+def _or_zeros(t, like):
+    return torch.zeros_like(like) if t is None else t.contiguous()
+
+
+class TridiagSelinv(torch.autograd.Function):
+    """Σ on the tridiagonal, (zdiag (B, n), zoff (B, n-1)), zoff_k = Σ_{k+1,k},
+    of tridiag(a, c) from its factor (d, e) by K3; differentiable in a and c.
+
+    apply(a, c, d, e). Backward: K19's tangent pass in the direction
+    (ȧ, ċ) = (z̄diag, z̄off/2), sym(S) for the cotangent S, gives
+    (ā, c̄) = (Σ̇diag, 2 Σ̇off): c sits at (k+1, k) and (k, k+1). jvp: K19 in
+    the direction (ȧ, ċ). The backward is not differentiable again."""
+
+    @staticmethod
+    def forward(ctx, a, c, d, e):
+        zdiag, zoff = tridiag_selinv(d, e)
+        ctx.save_for_backward(d, e, zdiag)
+        ctx.save_for_forward(d, e, zdiag)
+        return zdiag, zoff
+
+    @staticmethod
+    def backward(ctx, gzd, gzo):
+        no_double_backward("the selected inverse's derivative")
+        d, e, zdiag = ctx.saved_tensors
+        dzd, dzo = tridiag_selinv_tangent(d, e, zdiag, _or_zeros(gzd, d), 0.5 * _or_zeros(gzo, e))
+        return dzd, 2.0 * dzo, None, None
+
+    @staticmethod
+    def jvp(ctx, da, dc, _dd, _de):
+        d, e, zdiag = ctx.saved_tensors
+        return tridiag_selinv_tangent(d, e, zdiag, _or_zeros(da, d), _or_zeros(dc, e))
+
+
 class TridiagLogdet(torch.autograd.Function):
     """logdet of tridiag(a, c) by K1, with the factor as non-differentiable outputs.
 
-    Backward: ∂/∂a_k = Σ_kk and ∂/∂c_k = 2 Σ_{k+1,k}, both from K3."""
+    Backward: ∂/∂a_k = Σ_kk and ∂/∂c_k = 2 Σ_{k+1,k}, Σ by `TridiagSelinv`
+    (K3; differentiable in a and c through K19). jvp: Σ_k Σ_kk ȧ_k + 2 Σ_{k+1,k} ċ_k."""
 
     @staticmethod
     def forward(ctx, a, c):
         d, e, logdet = tridiag_factor(a, c)
         ctx.mark_non_differentiable(d, e)
-        ctx.save_for_backward(d, e)
+        ctx.save_for_backward(a, c, d, e)
+        ctx.save_for_forward(d, e)
         return logdet, d, e
 
     @staticmethod
     def backward(ctx, glogdet, _gd, _ge):
-        no_double_backward("the tridiag logdet")
-        d, e = ctx.saved_tensors
-        zdiag, zoff = tridiag_selinv(d, e)
+        a, c, d, e = ctx.saved_tensors
+        zdiag, zoff = TridiagSelinv.apply(a, c, d, e)
         g = glogdet[:, None]
         return g * zdiag, 2.0 * g * zoff
+
+    @staticmethod
+    def jvp(ctx, da, dc):
+        d, e = ctx.saved_tensors
+        zdiag, zoff = tridiag_selinv(d, e)
+        return (zdiag * _or_zeros(da, d)).sum(-1) + 2.0 * (zoff * _or_zeros(dc, e)).sum(-1), None, None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,6 +148,16 @@ class TridiagFactor(DirectFactor):
         gc = -(gb[:, 1:] * x[:, :-1] + gb[:, :-1] * x[:, 1:]).sum(-1)
         return ga, gc
 
+    def _tangent_matvec(self, dinputs, x: torch.Tensor) -> torch.Tensor:
+        """Q̇ x for the tangents (ȧ, ċ) of the rows: ȧ_k x_k + ċ_{k-1} x_{k-1} + ċ_k x_{k+1}."""
+        B, n = self.a.shape
+        da, dc = (_or_zeros(t, like) for t, like in zip(dinputs, (self.a, self.c)))
+        xr = x.reshape(B, n, -1)
+        y = da[..., None] * xr
+        y = y + torch.cat([torch.zeros_like(xr[:, :1]), dc[..., None] * xr[:, :-1]], 1)
+        y = y + torch.cat([dc[..., None] * xr[:, 1:], torch.zeros_like(xr[:, :1])], 1)
+        return y.reshape(x.shape)
+
     def sqrt_matvec(self, z: torch.Tensor) -> torch.Tensor:
         """L z for z (*batch, n) or (*batch, n, k); plain torch."""
         nb = len(self.batch_shape)
@@ -119,27 +172,28 @@ class TridiagFactor(DirectFactor):
         return self.logdet_
 
     def selinv_tridiag(self):
-        """Takahashi recursion (K3): (Zdiag (..., n), Zoff (..., n-1)) of Q⁻¹."""
+        """Takahashi recursion (K3): (Zdiag (..., n), Zoff (..., n-1)) of Q⁻¹,
+        differentiable in the rows a and c through `TridiagSelinv`."""
         n = self.n
-        zdiag, zoff = tridiag_selinv(_rows(self.d, n), _rows(self.e, n - 1))
+        zdiag, zoff = TridiagSelinv.apply(self.a, self.c, _rows(self.d, n), _rows(self.e, n - 1))
         return zdiag.reshape(self.d.shape), zoff.reshape(self.e.shape)
 
-    def selinv_diag(self) -> torch.Tensor:
-        return self.selinv_tridiag()[0]
-
-    def selinv(self, pattern: SparsePattern) -> SparseMatrix:
+    def _selected(self, where):
         zdiag, zoff = self.selinv_tridiag()
+        zdiag, zoff = zdiag.reshape(-1, self.n), zoff.reshape(-1, self.n - 1)
+        if isinstance(where, int):
+            return zdiag
+        pattern = where
         off = pattern.rows.astype(np.int64) - pattern.cols
         if np.any(np.abs(off) > 1):
             raise ValueError("tridiag selinv only supports tridiagonal patterns")
         dev = self.d.device
         lower = np.minimum(np.minimum(pattern.rows, pattern.cols), max(self.n - 2, 0))
-        vals = torch.where(
+        return torch.where(
             _index(pattern, "ondiag", off == 0, dev, torch.bool),
             zdiag[..., _index(pattern, "rows", pattern.rows, dev)],
             zoff[..., _index(pattern, "lower", lower, dev)],
         )
-        return SparseMatrix(vals, pattern)
 
 
 def _sub_positions(pat: SparsePattern) -> np.ndarray:

@@ -6,7 +6,10 @@ leaves a batch of matrices to ``vmap``, here ``data`` is ``(nnz,)`` or
 ``(B, nnz)`` over one pattern (one row per chain) and vectors are ``(n,)``
 or ``(B, n)``. ``matvec``, ``rmatvec`` and ``quad`` run on the CSR kernel K4
 (``tpu_gmrf_torch.kernels.csr_spmv``) through autograd Functions whose
-backward is K4 on the transposed pattern plus a gather-product for the data.
+backward is K4 on the transposed pattern plus a gather-product for the data;
+the sums (``sp_add``, ``pad_to``) and ``sp_matmul`` run on K5. Every
+backward is built from these Functions again, so second derivatives go
+through the kernels, and every Function has a ``jvp`` for forward mode.
 A pattern may be rectangular (m × n), as the reference's segment-sum allows;
 ``quad`` needs a square one.
 """
@@ -24,7 +27,7 @@ from ..kernels import SegPlan, csr_spmv, gather_segsum
 from .pattern import SparsePattern, spgemm_pattern, union_patterns
 
 __all__ = ["SparseMatrix", "spdiag", "speye", "sp_tridiag", "sp_add", "sp_matmul", "sp_block_diag", "sp_kron",
-           "from_dense", "from_scipy"]
+           "from_dense", "from_scipy", "sp_dot"]
 
 
 def _index(pattern: SparsePattern, key: str, array, device, dtype=torch.long) -> torch.Tensor:
@@ -45,26 +48,42 @@ def _csr(pattern: SparsePattern, device):
     )
 
 
-def _spmv_t(data, x, pattern):
-    """Aᵀ x by K4 on the transposed pattern."""
-    perm = _index(pattern, "tperm", pattern.transpose_perm, data.device)
-    rp, col = _csr(pattern.transposed, data.device)
-    return csr_spmv(rp, col, data[..., perm].contiguous(), x)[0]
+def _transposed(data, pattern):
+    """Aᵀ's data (contiguous) from A's."""
+    return data[..., _index(pattern, "tperm", pattern.transpose_perm, data.device)].contiguous()
+
+
+def _spmv(data, x, pattern):
+    """A x by K4, with no graph."""
+    return csr_spmv(*_csr(pattern, x.device), data, x)[0]
 
 
 def _data_grad(data, gd):
     return gd.sum(0) if data.ndim == 1 else gd
 
 
+def _entry_product(u, v, pattern):
+    """u[:, row p] · v[:, col p] for each entry p, (B, nnz)."""
+    rows = _index(pattern, "rows", pattern.rows, u.device)
+    cols = _index(pattern, "cols", pattern.cols, u.device)
+    return u[:, rows] * v[:, cols]
+
+
+# Each backward below computes its cotangents with the Functions of this
+# module and torch ops, so that it is differentiable in turn: a Hessian by
+# torch.autograd.grad(..., create_graph=True) goes through the kernels'
+# own derivatives. Each Function also has a `jvp` (torch.autograd.forward_ad).
+
+
 class _SpMV(torch.autograd.Function):
-    """y = A x; x̄ = Aᵀ ȳ (K4), data̅_p = ȳ_{row p} x_{col p}."""
+    """y = A x (K4); x̄ = Aᵀ ȳ (`_SpMV` on the transposed pattern), data̅_p = ȳ_{row p} x_{col p}."""
 
     @staticmethod
     def forward(ctx, data, x, pattern):
         ctx.pattern = pattern
         ctx.save_for_backward(data, x)
-        rp, col = _csr(pattern, x.device)
-        return csr_spmv(rp, col, data, x)[0]
+        ctx.save_for_forward(data, x)
+        return _spmv(data, x, pattern)
 
     @staticmethod
     def backward(ctx, gy):
@@ -73,16 +92,24 @@ class _SpMV(torch.autograd.Function):
         gy = gy.contiguous()
         gdata = gx = None
         if ctx.needs_input_grad[1]:
-            gx = _spmv_t(data, gy, p)
+            gx = _SpMV.apply(_transposed(data, p), gy, p.transposed)
         if ctx.needs_input_grad[0]:
-            rows = _index(p, "rows", p.rows, x.device)
-            cols = _index(p, "cols", p.cols, x.device)
-            gdata = _data_grad(data, gy[:, rows] * x[:, cols])
+            gdata = _data_grad(data, _entry_product(gy, x, p))
         return gdata, gx, None
+
+    @staticmethod
+    def jvp(ctx, ddata, dx, _):
+        data, x = ctx.saved_tensors
+        p = ctx.pattern
+        out = 0.0 if dx is None else _spmv(data, dx.contiguous(), p)
+        return out if ddata is None else out + _spmv(ddata.contiguous(), x, p)
 
 
 class _Quad(torch.autograd.Function):
-    """q = xᵀ A x per chain; x̄ = q̄ (A + Aᵀ) x (K4 twice), data̅_p = q̄ x_{row p} x_{col p}."""
+    """q = xᵀ A x per chain (K4's fused reduction); x̄ = q̄ (A x + Aᵀ x),
+    data̅_p = q̄ x_{row p} x_{col p}. A first-order backward takes A x from the
+    forward and Aᵀ x from K4; one that builds a graph computes both again
+    through `_SpMV`."""
 
     @staticmethod
     def forward(ctx, data, x, pattern):
@@ -90,6 +117,7 @@ class _Quad(torch.autograd.Function):
         y, q = csr_spmv(rp, col, data, x, quad=True)
         ctx.pattern = pattern
         ctx.save_for_backward(data, x, y)
+        ctx.save_for_forward(data, x, y)
         return q
 
     @staticmethod
@@ -99,12 +127,25 @@ class _Quad(torch.autograd.Function):
         gq = gq[:, None]
         gdata = gx = None
         if ctx.needs_input_grad[1]:
-            gx = gq * (y + _spmv_t(data, x, p))
+            dt = _transposed(data, p)
+            if torch.is_grad_enabled():
+                gx = gq * (_SpMV.apply(data, x, p) + _SpMV.apply(dt, x, p.transposed))
+            else:
+                gx = gq * (y + _spmv(dt, x, p.transposed))
         if ctx.needs_input_grad[0]:
-            rows = _index(p, "rows", p.rows, x.device)
-            cols = _index(p, "cols", p.cols, x.device)
-            gdata = _data_grad(data, gq * x[:, rows] * x[:, cols])
+            gdata = _data_grad(data, gq * _entry_product(x, x, p))
         return gdata, gx, None
+
+    @staticmethod
+    def jvp(ctx, ddata, dx, _):
+        data, x, y = ctx.saved_tensors
+        p = ctx.pattern
+        out = 0.0
+        if dx is not None:
+            out = (dx * (y + _spmv(_transposed(data, p), x, p.transposed))).sum(-1)
+        if ddata is not None:
+            out = out + csr_spmv(*_csr(p, x.device), ddata.contiguous(), x, quad=True)[1]
+        return out
 
 
 def _linear_plans(rows, srcs, n_rows: int, n_srcs: int):
@@ -113,45 +154,74 @@ def _linear_plans(rows, srcs, n_rows: int, n_srcs: int):
 
 
 class _Linear(torch.autograd.Function):
-    """out (B, R) = S x for a static 0/1 plan S (K5); x̄ = Sᵀ ḡ (K5)."""
+    """out (B, R) = S x for a static 0/1 plan S (K5); x̄ = Sᵀ ḡ (`_Linear` on the plans swapped)."""
 
     @staticmethod
     def forward(ctx, x, plans):
-        ctx.plan_t = plans[1]
+        ctx.plans = plans
         return gather_segsum(plans[0], x.contiguous())
 
     @staticmethod
     def backward(ctx, g):
-        return gather_segsum(ctx.plan_t, g.contiguous()), None
+        return _Linear.apply(g.contiguous(), ctx.plans[::-1]), None
+
+    @staticmethod
+    def jvp(ctx, dx, _):
+        return gather_segsum(ctx.plans[0], dx.contiguous())
 
 
 def _as_rows(data: torch.Tensor) -> torch.Tensor:
     return data.reshape(-1, data.shape[-1])
 
 
+def _triple_plans(idx, sizes):
+    """The K5 plans of a SpGEMM's index triple (out, a, b entries of each
+    term): plan r sums, into rows idx[r], the products of the operands at the
+    other two indices; (plan, the role of its x, the role of its y)."""
+    plans = []
+    for r in range(3):
+        u, v = (i for i in range(3) if i != r)
+        plans.append((SegPlan.grouped(idx[r], idx[u], sizes[r], yi=idx[v]), u, v))
+    return tuple(plans)
+
+
+def _triple(u, v, plans, roles):
+    plan, xr, _ = plans[roles[2]]
+    x, y = (u, v) if xr == roles[0] else (v, u)
+    return gather_segsum(plan, x.contiguous(), y=y.contiguous())
+
+
 class _SpGEMM(torch.autograd.Function):
-    """c = segment_sum(a[a_idx] · b[b_idx], out_idx) (K5); ā and b̄ by K5 over
-    the plans grouped by a_idx and by b_idx. a, b are (nnz,) or (B, nnz)."""
+    """One of the three products over a SpGEMM's index triple (K5): with roles
+    (ru, rv, ro), out[term's ro index] += u[its ru index] · v[its rv index];
+    c = segment_sum(a[a_idx] · b[b_idx], out_idx) is roles (1, 2, 0). The
+    cotangents are two more of them: ū with roles (ro, rv, ru), v̄ with (ro,
+    ru, rv). u, v are (nnz,) or (B, nnz)."""
 
     @staticmethod
-    def forward(ctx, a, b, plans):
-        ctx.plans = plans
-        ctx.save_for_backward(a, b)
-        return gather_segsum(plans[0], a.contiguous(), y=b.contiguous())
+    def forward(ctx, u, v, plans, roles):
+        ctx.plans, ctx.roles = plans, roles
+        ctx.save_for_backward(u, v)
+        ctx.save_for_forward(u, v)
+        return _triple(u, v, plans, roles)
 
     @staticmethod
     def backward(ctx, g):
-        a, b = ctx.saved_tensors
-        _, plan_a, plan_b = ctx.plans
+        u, v = ctx.saved_tensors
+        ru, rv, ro = ctx.roles
         g = g.contiguous()
-        ga = gb = None
+        gu = gv = None
         if ctx.needs_input_grad[0]:
-            ga = gather_segsum(plan_a, g, y=b.contiguous())
-            ga = ga.sum(0) if a.ndim == 1 else ga
+            gu = _data_grad(u, _SpGEMM.apply(g, v, ctx.plans, (ro, rv, ru)))
         if ctx.needs_input_grad[1]:
-            gb = gather_segsum(plan_b, g, y=a.contiguous())
-            gb = gb.sum(0) if b.ndim == 1 else gb
-        return ga, gb, None
+            gv = _data_grad(v, _SpGEMM.apply(g, u, ctx.plans, (ro, ru, rv)))
+        return gu, gv, None, None
+
+    @staticmethod
+    def jvp(ctx, du, dv, _plans, _roles):
+        u, v = ctx.saved_tensors
+        out = 0.0 if du is None else _triple(du, v, ctx.plans, ctx.roles)
+        return out if dv is None else out + _triple(u, dv, ctx.plans, ctx.roles)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -353,18 +423,13 @@ def sp_matmul(a: SparseMatrix, b: SparseMatrix) -> SparseMatrix:
     plan = _MUL_CACHE.get(key)
     if plan is None:
         pat, a_idx, b_idx, out_idx = spgemm_pattern(a.pattern, b.pattern)
-        plans = (
-            SegPlan.grouped(out_idx, a_idx, pat.nnz, yi=b_idx),
-            SegPlan.grouped(a_idx, out_idx, a.nnz, yi=b_idx),
-            SegPlan.grouped(b_idx, out_idx, b.nnz, yi=a_idx),
-        )
-        plan = (pat, plans)
+        plan = (pat, _triple_plans((out_idx, a_idx, b_idx), (pat.nnz, a.nnz, b.nnz)))
         _MUL_CACHE[key] = plan
     pat, plans = plan
     if a.data.ndim > 2 or b.data.ndim > 2:
         raise ValueError("sp_matmul: data must be (nnz,) or (B, nnz)")
     dtype = torch.promote_types(a.data.dtype, b.data.dtype)
-    data = _SpGEMM.apply(a.data.to(dtype), b.data.to(dtype), plans)
+    data = _SpGEMM.apply(a.data.to(dtype), b.data.to(dtype), plans, (1, 2, 0))
     if a.data.ndim == 1 and b.data.ndim == 1:
         data = data[0]
     return SparseMatrix(data, pat)
@@ -411,3 +476,14 @@ def sp_kron(a: SparseMatrix, b: SparseMatrix) -> SparseMatrix:
     ad, bd = _broadcast_data([a, b])
     data = (ad[..., :, None] * bd[..., None, :]).reshape(ad.shape[:-1] + (a.nnz * b.nnz,))
     return SparseMatrix(data[..., _index(pat, "sort", pat.sort_order, data.device)], pat)
+
+
+@lru_cache(maxsize=None)
+def _dot_plans(m: int):
+    return _triple_plans((np.zeros(m, np.int64), np.arange(m), np.arange(m)), (1, m, m))
+
+
+def sp_dot(z: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Σ_p z_p y_p per chain, (B,), for z (B, m) and y (m,) or (B, m): one K5
+    row of m terms, differentiable in both."""
+    return _SpGEMM.apply(z, y, _dot_plans(z.shape[-1]), (1, 2, 0))[:, 0]
