@@ -6,10 +6,11 @@
 Phases, each printing its own lines; any failure raises and exits non-zero:
 
 1. the device: needs CUDA; prints the card's name and power limit;
-2. the build: compiles the kernels K1-K22 (K5 with its second entry,
-   fct_init; K7 with its multiply mode; K10 with its second entry,
-   dense_selinv; K11 and K12 with their block entries, bt_factor_blocks and
-   bt_trsv_blocks; K13 with its second entry, bt_sqrt) from
+2. the build: compiles the kernels K1-K25 (K5 with its second entry,
+   fct_init; K7 with its multiply mode and that mode's transpose; K10 with its
+   second entry, dense_selinv; K11 and K12 with their block entries,
+   bt_factor_blocks and bt_trsv_blocks; K13 with its second entry, bt_sqrt,
+   and that entry's transpose mode) from
    tpu_gmrf_torch/csrc with nvcc (one nvcc per source, in parallel) and
    the host symbolic core with g++;
 3. K1-K4 against their plain PyTorch versions on the card, at the flagship
@@ -95,6 +96,16 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    B=4, against their plain versions (float64 on the kernels' inputs), in
    float32 and float64, and the whole Σ̇ at Q's pattern against a dense
    inverse's;
+3h. the factorizations' adjoints (the cotangent of Q from that of its
+   factor, for gradients through sampling, triangular solves and
+   sqrt_matvec): K23 tridiag_factor_adjoint at the flagship's shape, K24
+   bt_factor_adjoint on the banded blocks (n=5741, B=4, K=12, s=512), K25
+   sn_panel_adjoint launch by launch over phase 3b's supernodal schedule, and
+   the transpose modes of bt_sqrt and K7's multiply at k=16 on those factors,
+   against their plain versions (float64 on the kernels' inputs) and the
+   library's (autograd through torch.linalg.cholesky of the densified,
+   permuted, equilibrated matrix; the densified factor's transpose times the
+   rows), in float32 and float64;
 4. the flagship slice: batched value and θ-gradient of the Laplace marginal
    of an AR1 + Poisson model (256 chains, n=500) through the kernels, in
    float32, checked against the plain path in float64 (the same code on CPU
@@ -197,12 +208,24 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    through K4 against −Q; example 13 on the card with its own checks
    (reverse = forward gradient, differences, a symmetric Hessian, Adam
    recovers (τ, μ), a positive definite Hessian at the optimum); and d/dθ
-   of Σ var_i at n=14058 (supernodal) against a central difference.
+   of Σ var_i at n=14058 (supernodal) against a central difference;
+25. pathwise gradients through the factor: the per-chain θ-gradient of the
+   mean over 16 draws of GMRF.sample of the Poisson log-likelihood, (a) on
+   the flagship (f64 and f32), (b) on the spatial prior at n=5741
+   (supernodal f64 and f32; auto -> banded f64), with the gradient of
+   sqrt_matvec in θ and in its input (the transpose modes), (c) at g=16
+   (auto -> dense), each against the f64 plain path on CPU tensors and a
+   central difference at fixed noise; (d) the flagship's pathwise
+   ∂/∂θ E Σ x_i² against ∂/∂θ Σ var_i through the selected inverse, within 5
+   Monte Carlo standard errors; (e) at phase 17's SPIKE shape the logdet's
+   gradient against a central difference, on a one-rank NCCL mesh against
+   the in-process chunks, and the solve's Hessian-vector product against the
+   f64 plain path.
 
 Every kernel's launch counter is zeroed just before each main path (phases
 4-5, the flagship; 7-8, the spatial slice; 9, 10 and 11) and read after
 it, and so before and after each of the paths 12, 13, 13b, 14, 15, 16, 17, 18,
-19, 20, 21, 22 and 23, and each of phase 24's five;
+19, 20, 21, 22 and 23, and each of phase 24's five and phase 25's six;
 a kernel of the path that was never launched fails the run. Each phase's
 seconds are printed when the next begins. The line before the last is one
 JSON object with the kernels' launches, errors, times and bounds; the last
@@ -360,6 +383,10 @@ SOURCES = {
     "sn_panel_tangent": ("tpu_gmrf_torch/csrc/supernodal.cu", "tpu_gmrf/solvers/supernodal.py:1345"),
     "sn_takahashi_tangent": ("tpu_gmrf_torch/csrc/supernodal.cu", "tpu_gmrf/solvers/supernodal.py:1345"),
     "bt_factor_tangent": ("tpu_gmrf_torch/csrc/banded.cu", "tpu_gmrf/solvers/banded.py:209"),
+    # the adjoints: JAX's AD (reverse mode) of the reference's factorizations (no kernel of its own there)
+    "tridiag_factor_adjoint": ("tpu_gmrf_torch/csrc/tridiag.cu", "tpu_gmrf/solvers/tridiag.py:102"),
+    "bt_factor_adjoint": ("tpu_gmrf_torch/csrc/banded.cu", "tpu_gmrf/solvers/banded.py:376"),
+    "sn_panel_adjoint": ("tpu_gmrf_torch/csrc/supernodal.cu", "tpu_gmrf/solvers/supernodal.py:907"),
 }
 FLAGSHIP_KERNELS = ("tridiag_factor", "tridiag_solve", "tridiag_selinv", "csr_spmv", "gather_segsum")
 SPATIAL_KERNELS = ("csr_spmv", "gather_segsum", "fct_init", "sn_panel", "sn_trsv", "sn_takahashi_prep", "sn_takahashi")
@@ -590,6 +617,51 @@ HESSIAN_BANDED_KERNELS = ("csr_spmv", "gather_segsum", "sn_takahashi_prep", "sn_
 HESSIAN_DENSE_KERNELS = ("csr_spmv", "gather_segsum", "dense_chol", "dense_trsv", "dense_selinv")
 HESSIAN_VAR_KERNELS = ("fct_init", "sn_panel", "sn_takahashi_prep", "sn_takahashi", "gather_segsum",
                        "sn_panel_tangent", "sn_takahashi_tangent")
+
+# Phase 3h: the factorizations' adjoints K23-K25 (the cotangent of Q from that of its factor L) and the transpose modes
+# of K13's second entry and K7, against their plain versions on the same inputs: K23 at the flagship's shape
+# (B = 256, n = 500), K24 on phase 11's banded blocks (n = 5741, B = 4, K = 12, s = 512), K25 launch by launch over
+# phase 3b's supernodal schedule, the transpose modes at k = 16 on those factors; the plain versions in float64 on
+# the kernels' inputs. float64: 1e-12 normwise. float32: K24, K25 and K7's transpose mode compute in float64 and round
+# once on the way out, K23 replays its recurrence in float32 (as K19 does) and K13's transpose mode sums in float32;
+# the limits sit above the rounding that implies (K23 read 7.8e-8 against the float64 plain version on the H100).
+ADJOINT_F32 = {"tridiag_factor_adjoint": 1e-5, "bt_factor_adjoint": 1e-5, "sn_panel_adjoint": 1e-5, "bt_sqrt_t": 1e-5,
+               "sn_multiply_t": 1e-5}
+SN_TOL[torch.float64].update({k: 1e-12 for k in ADJOINT_F32})
+SN_TOL[torch.float32].update(ADJOINT_F32)
+# Phase 25: pathwise gradients through the factor: θ ↦ (1/k) Σ_k f(μ + L⁻ᵀz_k) per chain, f the Poisson log-likelihood
+# of the cell's counts, k = 16 draws through GMRF.sample with a generator on the card, (a) on the flagship (AR1(500),
+# 256 chains at phase 4's θ, (log τ, atanh ρ)), (b) on the spatial prior at n = 5741 (4 chains, (log τ, log range);
+# supernodal and auto -> banded), plus Σ w·(L zq) of sqrt_matvec in θ and zq, (c) at g = 16 (8 chains, auto ->
+# dense); each against the f64 plain path (the same noise, CPU tensors) and a central difference at h = 1e-4 at the
+# fixed noise. float64 against the plain path: the flagship 1e-10; the spatial cells 1e-8 (factorizations of a prior
+# of scaled condition near 1e8 in two orders; on the H100 the solves read 1e-13 and K24's whole adjoint 2e-12 from
+# the plain path). Central differences: the flagship 1e-6; the spatial cells 2e-6, above their readings on the H100
+# at h = 1e-4 (1.2e-7 supernodal, 5.0e-7 banded, 1.3e-8 g=16) and on CPU tensors (the n = 5741 gradient 6.9e-7 from
+# its difference at h = 1e-3 and 1e-4 alike, as is torch's own Cholesky backward on the densified matrix: the f64
+# function's conditioning, not the derivative). float32: at most twice the f32 plain path's own distance from the
+# f64 plain path, plus 1e-6, the bound that describes the problem as phases 19 and 22 hold theirs; on the flagship
+# the plain path on CPU tensors; on the spatial prior, per chain, the plain path on the card (the plain versions on
+# the same card inputs): there the card's f32 factorization, the kernels' and the plain versions' alike, breaks
+# down on the chain of the largest range (two boosted pivots, f64's smallest scaled pivot 7.2e-5) where the CPU's
+# does not, and its other chains sit further from f64 than the CPU's (ROADMAP §3); a boosted chain's gradient is
+# that of the boosted factor, so those chains are not held, the kernels are required to boost the chains the plain
+# versions boost, and the other chains are held. (d) The
+# flagship's mean over 64 chunks of 16 draws of ∂/∂θ Σ x_i² against ∂/∂θ Σ var_i (SelectedInverse): within 5 Monte
+# Carlo standard errors at every (chain, θ) pair. (e) SPIKE at phase 17's shape: the logdet's directional derivative
+# against a five-point central difference at h = 1e-5 along a random direction (1e-6), `_Ranks` on a one-rank NCCL
+# mesh against `_Chunks` (1e-9), the solve's Hessian-vector product against the f64 plain path (1e-9).
+PATH_DRAWS, PATHWISE_H, SPIKE_CD_H, MC_CHUNKS, MC_DRAWS = 16, 1e-4, 1e-5, 64, 16
+PATHWISE_TOL = {"f64": 1e-10, "spatial": 1e-8, "cd": 1e-6, "cd_spatial": 2e-6, "f32_factor": 2.0, "f32_floor": 1e-6,
+                "mc": 5.0, "spike_cd": 1e-6, "ranks": 1e-9, "hvp": 1e-9}
+PATHWISE_FLAGSHIP_KERNELS = ("tridiag_factor", "tridiag_solve", "tridiag_factor_adjoint")
+PATHWISE_SN_KERNELS = ("fct_init", "sn_panel", "sn_trsv", "sn_multiply", "sn_takahashi_prep", "sn_panel_adjoint",
+                       "gather_segsum")
+PATHWISE_BANDED_KERNELS = ("bt_factor", "bt_trsv", "bt_sqrt", "sn_takahashi_prep", "bt_factor_adjoint", "gather_segsum")
+PATHWISE_DENSE_KERNELS = ("dense_chol", "dense_trsv")
+PATHWISE_MC_KERNELS = ("tridiag_factor", "tridiag_solve", "tridiag_selinv", "tridiag_factor_adjoint",
+                       "tridiag_selinv_tangent")
+PATHWISE_SPIKE_KERNELS = ("bt_factor_blocks", "bt_trsv_blocks", "spike_reduced", "sn_takahashi_prep", "sn_takahashi")
 
 
 def rbmc_tol(S: int) -> dict:
@@ -1649,7 +1721,7 @@ def check_dense_kernels(dn_model, sp_model, dtype, dev):
     # version, then the whole sweep; bounds from each entry's own step counts per block (ns = s, m = s rows
     # below it, none below the last) and the factor's blocks read once plus Σ's (and C and A's) written once
     meta = (Q.pattern, None)
-    classes, preps = tb._takahashi_classes(meta, dev)
+    classes, preps = tb.block_classes(K, sblk, dev)
     vals, width = P.reshape(B, -1), P[0].numel() + 1
     ms_ = [sblk] * (K - 1) + [0]
     prep_cost = (B * sum(2 * sblk**3 / 3 + m * sblk**2 for m in ms_),
@@ -4485,8 +4557,8 @@ def check_bt_tangents(sp_model, dtype, dev, results):
     f = tg.factorize(Q, tg.SolverSpec(kind="banded"))
     meta, P, el = f.meta, f.P, Q.data.element_size()
     _, K, s2, s = P.shape
-    classes, _ = bd._takahashi_classes(meta, dev)
-    pre, sig = bd._sigma_prep(P, meta)
+    classes, _ = bd.block_classes(K, s, dev)
+    pre, sig = bd.block_sigma(P)
     t, tw = tangent_direction(Q, 23)
     dvals = kernels.gather_segsum(bd._scatter_plan(meta, Q.pattern), tw.contiguous())
     dv_p = f64(dvals)
@@ -4529,6 +4601,200 @@ def check_tangent_kernels(sp_model, dev) -> dict:
         check_tridiag_tangent_edges(dtype, dev)
         check_sn_tangents(sp_model, dtype, dev, out)
         check_bt_tangents(sp_model, dtype, dev, out)
+    return results
+
+
+# ---- phase 3h: the factorizations' adjoints K23-K25 and the transpose modes --------------------------------
+
+
+def chol_library(A, Lbar):
+    """The library's Q̄ from L̄: torch.autograd.grad through torch.linalg.cholesky of the densified matrix A,
+    fed the densified L̄; the factor's graph built once, the backward timed (one call)."""
+    Ar = A.detach().clone().requires_grad_()
+    L = torch.linalg.cholesky(Ar)
+
+    def run():
+        return torch.autograd.grad(L, Ar, Lbar, retain_graph=True)[0]
+
+    return run
+
+
+def check_tridiag_adjoint(dtype, dev, results):
+    """K23 at the flagship's shape (B=256, n=500) against its plain version run in float64 on the kernel's
+    inputs, and the library's (autograd through cholesky of the densified tridiagonal matrices)."""
+    from tpu_gmrf_torch import kernels
+
+    rng = np.random.default_rng(23)
+    a, c = (torch.tensor(v, dtype=dtype, device=dev) for v in spd_rows(rng, CHAINS, N))
+    d, e, _ = kernels.tridiag_factor(a, c)
+    gd = torch.tensor(rng.normal(size=(CHAINS, N)), dtype=dtype, device=dev)
+    ge = torch.tensor(rng.normal(size=(CHAINS, N - 1)), dtype=dtype, device=dev)
+    args = (d, e, gd, ge)
+    args64 = tuple(f64(x) for x in args)
+    A = torch.diag_embed(a) + torch.diag_embed(c, -1) + torch.diag_embed(c, 1)
+    library = chol_library(A.double(), (torch.diag_embed(gd) + torch.diag_embed(ge, -1)).double())
+    el = d.element_size()
+    check("tridiag_factor_adjoint", dtype, kernels.tridiag_factor_adjoint(*args),
+          kernels.tridiag_factor_adjoint_plain(*args64), "tridiag_factor_adjoint", results,
+          cuda_ms(lambda: kernels.tridiag_factor_adjoint(*args)),
+          cuda_ms(lambda: kernels.tridiag_factor_adjoint_plain(*args)),
+          cost=(16 * CHAINS * N, 6 * CHAINS * N * el), library_ms=cuda_ms(library, 3, 1), shape=f"B={CHAINS} n={N}",
+          extra=" (library: autograd through cholesky of the densified matrices, f64)")
+
+
+def adjoint_lbar(f, k: int, seed: int):
+    """Random U, V (B, n, k) of an L̄ = P_L(U Vᵀ), in the factor's dtype and device."""
+    rng = np.random.default_rng(seed)
+    B, n = f.data.shape[0], f.n
+    return [torch.tensor(rng.normal(size=(B, n, k)), dtype=f.data.dtype, device=f.data.device) for _ in range(2)]
+
+
+def check_bt_adjoint(sp_model, dtype, dev, results):
+    """K24 at n=5741, B=4, K=12, s=512 (phase 11's banded configuration): its one launch against its plain version
+    in float64 on copies of its inputs (the L̄ of k=16 draws, `BandedFactor._factor_adjoint`'s), the library's Q̄
+    (autograd through cholesky of the densified, permuted, padded matrix, fed the densified L̄); and bt_sqrt's
+    transpose mode at k=16 against its plain version and the library's product with the densified factor."""
+    import tpu_gmrf_torch as tg
+    from tpu_gmrf_torch import kernels
+    from tpu_gmrf_torch.solvers import banded as bd
+
+    B = SP_CHAINS
+    Q = random_posterior(sp_model, B, dtype, dev, seed=24)
+    f = tg.factorize(Q, tg.SolverSpec(kind="banded"))
+    P = f.P
+    _, K, s2, s = P.shape
+    U, V = adjoint_lbar(f, 16, 25)
+    view = lambda x: x[:, :-1].view(B, K, s2, s)  # noqa: E731  (the solver's buffers: one value wider)
+    G = view(f._lbar(U, V))
+    pre = view(bd.block_prep(P))
+    got = view(P.new_zeros(B, K * s2 * s + 1))
+    ms = cuda_ms(lambda: kernels.bt_factor_adjoint(P, pre, got.copy_(G)), 3, 1)
+    P64, pre64 = f64(P), f64(pre)
+    ref = kernels.bt_factor_adjoint_plain(P64, pre64, f64(G))
+    pms = cuda_ms(lambda: kernels.bt_factor_adjoint_plain(P64, pre64, f64(G)), 1, 0)
+    npad = K * s
+    Ad = torch.zeros(B, npad, npad, dtype=torch.float64, device=dev)
+    Lb = torch.zeros_like(Ad)
+    for k in range(K):
+        o = slice(k * s, (k + 1) * s)
+        Lk = P64[:, k, :s].tril()
+        Ad[:, o, o] = Lk @ Lk.mT + (P64[:, k - 1, s:] @ P64[:, k - 1, s:].mT if k else 0.0)
+        Lb[:, o, o] = f64(G)[:, k, :s].tril()
+        if k < K - 1:
+            o2 = slice((k + 1) * s, (k + 2) * s)
+            Ad[:, o2, o] = P64[:, k, s:] @ Lk.mT
+            Ad[:, o, o2] = Ad[:, o2, o].mT
+            Lb[:, o2, o] = f64(G)[:, k, s:]
+    library = chol_library(Ad, Lb)
+    r = sp_model.n - (K - 1) * s
+    ns = np.array([s] * (K - 1) + [r], float)
+    m = np.array([s] * (K - 2) + [r, 0], float)
+    shape = f"B={B} n={sp_model.n} K={K} s={s}"
+    check("bt_factor_adjoint", dtype, (got,), (ref,), "bt_factor_adjoint", results, ms, pms,
+          " (library: autograd through cholesky of the densified, permuted, padded matrix, f64)",
+          tangent_costs(ns, m, B, Q.data.element_size(), "panel"), cuda_ms(library, 2, 1), shape,
+          op_dtype=torch.float64)
+    del Ad, Lb, library
+    rows = U.transpose(1, 2).reshape(B * 16, -1).contiguous()
+    t = bd._TABLES[f.meta]
+    yt = kernels.bt_sqrt(P, t, rows, 16, transpose=True)
+    yp = kernels.bt_sqrt_t_plain(P64, t, f64(rows), 16)
+    Ld = torch.zeros(B, npad, npad, dtype=dtype, device=dev)
+    for k in range(K):
+        o = slice(k * s, (k + 1) * s)
+        Ld[:, o, o] = P[:, k, :s].tril()
+        if k < K - 1:
+            Ld[:, (k + 1) * s:(k + 2) * s, o] = P[:, k, s:]
+    perm = t.on(dev)["perm_l"]
+    zb = U.new_zeros(B, npad, 16)
+    zb[:, : sp_model.n] = U[:, perm]
+    el = Q.data.element_size()
+    tri = B * (K * s * (s + 1) / 2 + (K - 1) * s * s)
+    check("bt_sqrt transpose", dtype, (yt,), (yp,), "bt_sqrt_t", results, cuda_ms(lambda: kernels.bt_sqrt(P, t, rows, 16, True)),
+          cuda_ms(lambda: kernels.bt_sqrt_t_plain(P, t, rows, 16)),
+          " (library: the densified factor's transpose times the permuted rows, one matmul)",
+          (2 * tri * 16, el * (tri + 2 * B * 16 * sp_model.n)), cuda_ms(lambda: Ld.mT @ zb), shape + " k=16")
+    return f
+
+
+def check_sn_adjoint(sp_model, dtype, dev, results):
+    """K25 over the whole supernodal schedule at n=5741, B=4, levels descending: every class batch's launch against
+    its plain version in float64 on copies of the same inputs (each held on the positions it writes), the pass
+    continuing on the kernel's outputs, the times summed over the launches; the library's Q̄ (autograd through
+    cholesky of the densified, permuted, equilibrated matrix, fed the densified L̄); and K7's transpose mode at
+    k=16 over the schedule against its plain version and the library's product with the densified factor."""
+    import tpu_gmrf_torch as tg
+    from tpu_gmrf_torch import kernels
+    from tpu_gmrf_torch.solvers import supernodal as sn
+
+    B = SP_CHAINS
+    Q = random_posterior(sp_model, B, dtype, dev, seed=26)
+    f = tg.factorize(Q, tg.SolverSpec(kind="supernodal"))
+    meta, vals, el = f.meta, f.vals, Q.data.element_size()
+    dp = sn._device_plan(meta, dev)
+    pre = sn._prep_vals(vals, meta, sn._KERNEL_OPS)
+    U, V = adjoint_lbar(f, 16, 27)
+    perm = torch.as_tensor(np.asarray(sn._PLAN_CACHE[meta]["perm"], np.int64), device=dev)
+    Up = torch.cat([(U / f.s[..., None])[:, perm], U.new_zeros(B, 1, 16)], 1)
+    Vp = torch.cat([V, V.new_zeros(B, 1, 16)], 1)
+    r, c = f._fill_rows_cols(dev)
+    g = (Up[:, r] * Vp[:, c]).sum(-1)
+    g0 = g.clone()
+    vals64, pre64 = f64(vals), f64(pre)
+    classes = [cl for lv in dp["levels"] for cl in lv.classes]
+    shapes = [np.concatenate(a) for a in zip(*map(live_shape, classes))]
+    got, ref, ms, pms = [], [], 0.0, 0.0
+    for lv in reversed(dp["levels"]):
+        for cl in lv.classes:
+            gp = f64(g)
+            ms += cuda_ms(lambda: kernels.sn_panel_adjoint(vals, pre, g, cl), 1, 0)
+            pms += cuda_ms(lambda: kernels.sn_panel_adjoint_plain(vals64, pre64, gp, cl), 1, 0)
+            got.append(written(g, cl))
+            ref.append(written(gp, cl))
+    L, hi, lo = dense_factor(vals, meta)
+    L64 = L.double()
+    Lbar = torch.zeros_like(L64)
+    Lbar[:, hi, lo] = f64(g0)[:, :-1]
+    library = chol_library(L64 @ L64.mT, Lbar)
+    tabs = sum((cl["panel"].numel() + cl["schur"].numel()) * 4 for cl in classes)
+    shape = f"B={B} n={sp_model.n}, {len(classes)} class batches"
+    check("sn_panel_adjoint", dtype, got, ref, "sn_panel_adjoint", results, ms, pms,
+          " (library: autograd through cholesky of the densified, permuted, equilibrated matrix, f64)",
+          tangent_costs(*shapes, B, el, "panel", tabs), cuda_ms(library, 2, 1), shape, op_dtype=torch.float64)
+    del Lbar, library
+    rows, k = f._rows(U)
+    yp_in = kernels.gather_segsum(dp["perm"], rows, y=1.0 / f._scale_rows(k))
+
+    def transposed(ops_mul, v):
+        out = torch.zeros_like(yp_in)
+        for lv in dp["levels"]:
+            ops_mul(v, lv.group, out, yp_in, None, k, transpose=True)
+        return out
+
+    yt = transposed(kernels.sn_multiply, vals)
+    out64 = torch.zeros_like(f64(yp_in))
+    for lv in dp["levels"]:
+        kernels.sn_multiply_plain(vals64, lv.group, out64, f64(yp_in), None, k, transpose=True)
+    zr = yp_in[:, : sp_model.n].reshape(B, k, -1).transpose(1, 2)
+    nnzL = vals.shape[1] - 1
+    cost = (2 * B * k * nnzL, el * (B * nnzL + 2 * B * k * sp_model.n))
+    check("sn_multiply transpose", dtype, (yt,), (out64,), "sn_multiply_t", results,
+          cuda_ms(lambda: transposed(kernels.sn_multiply, vals)),
+          cuda_ms(lambda: transposed(kernels.sn_multiply_plain, vals), 2, 1),
+          " (library: the densified factor's transpose times the permuted rows, one matmul)", cost,
+          cuda_ms(lambda: L.mT @ zr), shape + f" k={k}")
+    return f
+
+
+def check_adjoint_kernels(sp_model, dev) -> dict:
+    """Phase 3h: K23-K25 and the transpose modes of K13's second entry and K7 against their plain versions, in
+    float32 and float64."""
+    results = {}
+    for dtype in (torch.float32, torch.float64):
+        out = results if dtype == torch.float64 else {}
+        check_tridiag_adjoint(dtype, dev, out)
+        check_bt_adjoint(sp_model, dtype, dev, out)
+        check_sn_adjoint(sp_model, dtype, dev, out)
     return results
 
 
@@ -4788,6 +5054,338 @@ def hessian_path(sp_model, dn_model, stats_model, dev, card):
     return counts
 
 
+# ---- phase 25: pathwise gradients through the factor ------------------------------------------------------
+
+
+def poisson_draws(y):
+    """f(x) = Σ_i y_i x_i − exp(x_i) of draws x (k, B, n), averaged over the k draws: (B,)."""
+    return lambda x: (y * x - torch.exp(x)).sum(-1).mean(0)
+
+
+def draw_objective(build, y, z, zq=None, w=None, sample=None):
+    """θ ↦ (1/k) Σ_k f(μ + L⁻ᵀ z_k) per chain, f the Poisson log-likelihood, for the GMRF `build(θ)` and fixed noise
+    z (k, B, n) (GMRF.sample's formula), or, with `sample` = (device, seed), through GMRF.sample itself, its
+    generator reseeded at each call; with zq and w (B, n, 4), plus Σ w·(L zq) per chain (sqrt_matvec)."""
+    f = poisson_draws(y)
+
+    def run(p):
+        g = build(p)
+        if sample is None:
+            x = g.mean + g.factor.backward_solve(z.movedim(0, -1).contiguous()).movedim(-1, 0)
+        else:
+            x = g.sample(torch.Generator(device=sample[0]).manual_seed(sample[1]), (z.shape[0],))
+        v = f(x)
+        return v if zq is None else v + (g.factor.sqrt_matvec(zq) * w).sum((-2, -1))
+
+    return run
+
+
+def sample_noise(g, dev, seed: int, k: int = PATH_DRAWS):
+    """The noise GMRF.sample draws for g with a generator on `dev` seeded `seed`: (k, *batch, n)."""
+    return torch.randn((k, *g.factor.batch_shape, g.n), generator=torch.Generator(device=dev).manual_seed(seed),
+                       dtype=g.dtype, device=dev)
+
+
+def path_grads(fn, p, zq=None):
+    """(values (B,), ∂/∂p (B, d), ∂/∂zq or None) of the per-chain function fn; the chains are independent."""
+    p = p.detach().clone().requires_grad_()
+    v = fn(p)
+    inputs = (p,) if zq is None else (p, zq)
+    got = torch.autograd.grad(v.sum(), inputs)
+    return v.detach(), got[0], (got[1] if zq is not None else None)
+
+
+def grad_rel_chains(got, ref) -> torch.Tensor:
+    """Per chain |got − ref| / max(|ref|, 1), normwise: (B,) on the host."""
+    got, ref = got.double().cpu(), ref.double().cpu()
+    return (got - ref).abs().amax(-1) / ref.abs().amax(-1).clamp_min(1.0)
+
+
+def grad_rel(got, ref) -> float:
+    """Max over chains of `grad_rel_chains`."""
+    return float(grad_rel_chains(got, ref).max())
+
+
+def plain_prior(m):
+    """θ ↦ the GMRF of m(tau=e^θ0, range=e^θ1) whose supernodal factor runs the plain versions whatever the
+    device (`_factorize` with _PLAIN_OPS), its solves and its gradient through them too."""
+    import tpu_gmrf_torch as tg
+    from tpu_gmrf_torch.solvers import supernodal as sn
+
+    def build(pp):
+        th = dict(tau=torch.exp(pp[:, 0]), range=torch.exp(pp[:, 1]))
+        Q = m.precision(**th)
+        spec = m.solver
+        return tg.GMRF(mean=m.mean(**th), Q=Q, factor=sn._factorize(Q, spec.max_width, spec.ordering, sn._PLAIN_OPS),
+                       solver=spec)
+
+    return build
+
+
+def central_difference(fn, p, h: float):
+    """Per chain ∂fn/∂p_j by (fn(p + h e_j) − fn(p − h e_j)) / 2h, the chains independent: (B, d)."""
+    cols = []
+    with torch.no_grad():
+        for j in range(p.shape[1]):
+            e = torch.zeros_like(p)
+            e[:, j] = h
+            cols.append((fn(p + e) - fn(p - e)) / (2 * h))
+    return torch.stack(cols, -1)
+
+
+def pathwise_cell(label, build, y, p, dev, seed, tol, cd_tol, f32=False, sqrt=False, plain_build=None):
+    """One cell of phase 25: the kernel path's per-chain gradient through GMRF.sample (k draws from a generator on
+    the card), and with `sqrt` also of Σ w·(L zq) in θ and in zq (zq̄ = Lᵀw: the transpose modes), against the f64
+    plain path (the same noise, CPU tensors) and, at the fixed noise, a central difference. With `f32`, the float32
+    kernel path against the f64 plain path, held to twice the float32 plain path's own distance from it plus
+    PATHWISE_TOL's floor: the plain path on CPU tensors, or with `plain_build` (the same GMRF on the plain versions)
+    on the card, per chain, for the chains whose factor the kernels did not boost, the boosted chains required to be
+    those the plain versions boost on the same inputs. Returns the launches of K13's second entry and K7's multiply
+    mode in the backward."""
+    from tpu_gmrf_torch import kernels
+
+    y64 = torch.as_tensor(y, dtype=torch.float64)
+    g0 = build(p.to(dev))
+    z = sample_noise(g0, dev, seed)
+    zq = w = None
+    if sqrt:
+        rng = np.random.default_rng(seed)
+        zq, w = (torch.tensor(rng.normal(size=(*g0.factor.batch_shape, g0.n, 4)), dtype=torch.float64) for _ in range(2))
+    on = (lambda t: None if t is None else t.to(dev))  # noqa: E731
+    zqd = None if zq is None else zq.to(dev).requires_grad_()
+    fn = draw_objective(build, y64.to(dev), z, zqd, on(w), sample=(dev, seed))
+    pp = p.to(dev).detach().clone().requires_grad_()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    v = fn(pp)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    before = [kernels.bt_sqrt.launches, kernels.sn_multiply.launches]
+    grads = torch.autograd.grad(v.sum(), (pp,) if zqd is None else (pp, zqd))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    back = [a - b for a, b in zip((kernels.bt_sqrt.launches, kernels.sn_multiply.launches), before)]
+    v, g, gz = v.detach(), grads[0], (grads[1] if sqrt else None)
+    zqp = None if zq is None else zq.clone().requires_grad_()
+    vp, gp, gzp = path_grads(draw_objective(build, y64, z.cpu(), zqp, w), p, zqp)
+    cd = central_difference(draw_objective(build, y64.to(dev), z, on(zq), on(w)), p.to(dev), PATHWISE_H)
+    errs = {"value": float(((v.cpu() - vp).abs() / vp.abs()).max()), "grad": grad_rel(g, gp), "cd": grad_rel(g, cd)}
+    if sqrt:
+        errs["zq"] = float((gz.cpu() - gzp).abs().max() / gzp.abs().max())
+    line = (f"  {label}: value {(t1 - t0) * 1e3:.1f} ms, its backward {(t2 - t1) * 1e3:.1f} ms on the host clock; "
+            + ", ".join(f"{k} rel {errs[k]:.3e}" for k in errs if k != "cd")
+            + f" from the f64 plain path (tol {tol:.0e}); gradient {errs['cd']:.3e} from a central difference at "
+              f"h={PATHWISE_H:g} (tol {cd_tol:.0e})")
+    ok = all(errs[k] <= tol for k in errs if k != "cd") and errs["cd"] <= cd_tol
+    if sqrt:
+        line += f"; the backward's launches of bt_sqrt / sn_multiply {back[0]} / {back[1]}"
+    if f32:
+        z32 = z.float()
+        zq32 = None if zq is None else zq.float().requires_grad_()
+        w32 = None if w is None else w.float()
+        v32, g32, _ = path_grads(draw_objective(build, y64.float().to(dev), z32, on(zq32), on(w32)), p.float().to(dev))
+        v32p, g32p, _ = path_grads(draw_objective(build, y64.float(), z32.cpu(), zq32, w32), p.float())
+        finite = bool(torch.isfinite(g32).all() and torch.isfinite(v32).all())
+        if plain_build is None:
+            e32, e32p = grad_rel(g32, gp), grad_rel(g32p, gp)
+            lim = PATHWISE_TOL["f32_factor"] * e32p + PATHWISE_TOL["f32_floor"]
+            line += (f"; f32 kernel path {e32:.3e} from the f64 plain path (limit {lim:.3e}: twice the f32 plain "
+                     f"path's {e32p:.3e}, plus {PATHWISE_TOL['f32_floor']:.0e})")
+            ok = ok and finite and e32 <= lim
+        else:
+            _, g32c, _ = path_grads(draw_objective(plain_build, y64.float().to(dev), z32, on(zq32), on(w32)),
+                                    p.float().to(dev))
+            with torch.no_grad():
+                boost = {"kernels": build(p.float().to(dev)).factor.boost.cpu(),
+                         "plain on the card": plain_build(p.float().to(dev)).factor.boost.cpu(),
+                         "plain on CPU tensors": build(p.float()).factor.boost}
+                f64_piv = g0.factor.vals[:, torch.as_tensor(g0.factor.plan["diag_pos"], device=dev)].square()
+            ek, ec, eh = (grad_rel_chains(g, gp) for g in (g32, g32c, g32p))
+            held = boost["kernels"] == 0
+            lim = PATHWISE_TOL["f32_factor"] * ec + PATHWISE_TOL["f32_floor"]
+            same = bool(torch.equal(boost["kernels"] > 0, boost["plain on the card"] > 0))
+            fmt = lambda t: "[" + ", ".join(f"{float(x):.3e}" for x in t) + "]"  # noqa: E731
+            line += (f"; f32 per chain from the f64 plain path: kernel path {fmt(ek)}, plain path on the card "
+                     f"{fmt(ec)}, on CPU tensors {fmt(eh)}; held where the kernels boosted no pivot, at twice the "
+                     f"plain path on the card plus {PATHWISE_TOL['f32_floor']:.0e}: limits {fmt(lim)}, chains "
+                     f"{held.nonzero().flatten().tolist()}; pivot boosts "
+                     + ", ".join(f"{k} {v.tolist()}" for k, v in boost.items())
+                     + f" (the same chains: {same}); f64 smallest scaled pivot per chain "
+                       f"{fmt(f64_piv.amin(-1).cpu())}")
+            ok = (ok and finite and bool(torch.isfinite(g32c).all()) and same and bool(held.any())
+                  and bool((ek[held] <= lim[held]).all()))
+    log(line)
+    if not ok:
+        raise AssertionError(f"phase 25 {label}: the pathwise gradient disagrees")
+    return back
+
+
+def mc_routes(p, dev):
+    """(d): the flagship's mean over draws of ∂/∂θ Σ_i x_i² (pathwise, through GMRF.sample) against ∂/∂θ Σ_i var_i
+    (SelectedInverse), per chain and component, within PATHWISE_TOL['mc'] Monte Carlo standard errors (from the
+    spread of MC_CHUNKS chunk means of MC_DRAWS draws each)."""
+    import tpu_gmrf_torch as tg
+
+    model = tg.AR1Model(N)
+
+    def build(pp):
+        return model(tau=torch.exp(pp[:, 0]), rho=torch.tanh(pp[:, 1]))
+
+    pd = p.to(dev)
+    _, exact, _ = path_grads(lambda pp: build(pp).var().sum(-1), pd)
+    gen = torch.Generator(device=dev).manual_seed(26)
+    t0 = time.perf_counter()
+    chunks = []
+    for _ in range(MC_CHUNKS):
+        pp = pd.detach().clone().requires_grad_()
+        x = build(pp).sample(gen, (MC_DRAWS,))
+        (gc,) = torch.autograd.grad((x * x).sum(-1).mean(0).sum(), pp)
+        chunks.append(gc)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    G = torch.stack(chunks)
+    mean, se = G.mean(0), G.std(0) / MC_CHUNKS**0.5
+    z = ((mean - exact).abs() / se).cpu()
+    log(f"  (d) flagship E ∂Σx²/∂θ pathwise ({MC_CHUNKS} x {MC_DRAWS} draws a chain, {secs:.1f} s) against ∂Σvar/∂θ "
+        f"(SelectedInverse): max |Δ| {float(z.max()):.2f} Monte Carlo standard errors over {z.numel()} (chain, θ) "
+        f"pairs, mean {float(z.mean()):.2f} (limit {PATHWISE_TOL['mc']:g})")
+    if not float(z.max()) <= PATHWISE_TOL["mc"]:
+        raise AssertionError("phase 25 (d): the pathwise and the selected-inverse derivatives disagree")
+
+
+def spike_grad_cell(dn_model, dev, card):
+    """(e): the SPIKE logdet's gradient at phase 17's shape (P=4 chunks, f64) against a five-point central difference
+    along a random direction; `_Ranks` on a one-rank NCCL mesh against `_Chunks`; the solve's Hessian-vector product against
+    the f64 plain path on CPU tensors."""
+    import socket
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    import tpu_gmrf_torch as tg
+    from tpu_gmrf_torch.parallel.pbtridiag import _pbtridiag_chunks
+
+    diag, sub, b = spike_system(dn_model, torch.float64, dev)
+    Nt, ns = b.shape
+    rng = np.random.default_rng(252)
+    vd = torch.tensor(rng.normal(size=(Nt, ns, ns)), dtype=torch.float64, device=dev)
+    vd = 0.5 * (vd + vd.mT)
+    vs = torch.tensor(rng.normal(size=tuple(sub.shape)), dtype=torch.float64, device=dev)
+    vb = torch.tensor(rng.normal(size=(Nt, ns)), dtype=torch.float64, device=dev)
+    scale = 1e-3 * float(diag.abs().max())
+    vd, vs = vd * scale, vs * scale
+    td, ts = diag.clone().requires_grad_(), sub.clone().requires_grad_()
+    t0 = time.perf_counter()
+    _, ld = _pbtridiag_chunks(td, ts, b, SPIKE_P)
+    gd, gs = torch.autograd.grad(ld, (td, ts))
+    torch.cuda.synchronize()
+    ld_s = time.perf_counter() - t0
+    deriv = float((gd * vd).sum() + (gs * vs).sum())
+    h = SPIKE_CD_H
+
+    def at(t):
+        with torch.no_grad():
+            return float(_pbtridiag_chunks(diag + t * vd, sub + t * vs, b, SPIKE_P)[1])
+
+    # the five-point difference: the two-point one is 2.3e-5 off here by its h² term (the direction nears the
+    # matrix's indefinite edge: at 100h it is indefinite), the five-point one 6e-9 (on CPU tensors)
+    cd = (at(-2 * h) - 8 * at(-h) + 8 * at(h) - at(2 * h)) / (12 * h)
+    cd_err = abs(deriv - cd) / abs(cd)
+    with socket.socket() as sock:  # a free port on this host for the one-rank process group
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1, rank=0)
+    try:
+        mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("time",))
+        rd, rs = diag.clone().requires_grad_(), sub.clone().requires_grad_()
+        gdr, gsr = torch.autograd.grad(tg.pbtridiag_logdet(rd, rs, mesh), (rd, rs))
+        ranks_err = max(float((gdr - gd).norm() / gd.norm()), float((gsr - gs).norm() / gs.norm()))
+    finally:
+        dist.destroy_process_group()
+
+    def hvp(d, s, bb, dirs, P):
+        leaves = [t.detach().clone().requires_grad_() for t in (d, s, bb)]
+        x, _ = _pbtridiag_chunks(*leaves, P)
+        grads = torch.autograd.grad((x * x).sum(), leaves, create_graph=True)
+        return torch.autograd.grad(sum((g * v).sum() for g, v in zip(grads, dirs)), leaves)
+
+    t0 = time.perf_counter()
+    hk = hvp(diag, sub, b, (vd, vs, vb), SPIKE_P)
+    torch.cuda.synchronize()
+    hvp_s = time.perf_counter() - t0
+    hp = hvp(*(t.cpu() for t in (diag, sub, b)), tuple(v.cpu() for v in (vd, vs, vb)), SPIKE_P)
+    hvp_err = max(float((a.cpu() - c).norm() / c.norm()) for a, c in zip(hk, hp))
+    log(f"  (e) SPIKE Nt={Nt} ns={ns} P={SPIKE_P} f64: logdet + its gradient {ld_s * 1e3:.1f} ms; directional "
+        f"derivative {deriv:.9e} vs five-point difference {cd:.9e}, rel {cd_err:.3e} (tol {PATHWISE_TOL['spike_cd']:.0e}); "
+        f"one-rank NCCL _Ranks vs _Chunks rel {ranks_err:.3e} (tol {PATHWISE_TOL['ranks']:.0e}); the solve's "
+        f"Hessian-vector product {hvp_s * 1e3:.1f} ms, rel {hvp_err:.3e} from the f64 plain path (tol "
+        f"{PATHWISE_TOL['hvp']:.0e}); on {card}")
+    if not (cd_err <= PATHWISE_TOL["spike_cd"] and ranks_err <= PATHWISE_TOL["ranks"]
+            and hvp_err <= PATHWISE_TOL["hvp"]):
+        raise AssertionError("phase 25 (e): the SPIKE derivatives disagree")
+
+
+def pathwise_path(sp_model, dn_model, dev, card):
+    """Phase 25: gradients through GMRF.sample and sqrt_matvec on every direct backend, the two derivative routes,
+    and the SPIKE logdet's gradient and solve's Hessian; the kernels counted from zero and required to have
+    launched on each cell."""
+    import tpu_gmrf_torch as tg
+    from tpu_gmrf_torch import kernels
+
+    counts = {}
+
+    def run(label, kernel_path, fn):
+        kernels.reset_launches()
+        out = fn()
+        got = kernels.launches()
+        launched(got, kernel_path, label)
+        for k, v in got.items():
+            counts[k] = counts.get(k, 0) + v
+        return out
+
+    # (a) the flagship: AR1(500), 256 chains, θ = (log τ, atanh ρ) at phase 4's draws
+    y = flagship_y()
+    model = tg.AR1Model(N)
+
+    def ar1(pp):
+        return model(tau=torch.exp(pp[:, 0]), rho=torch.tanh(pp[:, 1]))
+
+    p = torch.tensor(np.random.default_rng(2).normal(scale=0.5, size=(CHAINS, 2)), dtype=torch.float64)
+    run("pathwise flagship", PATHWISE_FLAGSHIP_KERNELS, lambda: pathwise_cell(
+        f"(a) flagship (B={CHAINS}, n={N}, k={PATH_DRAWS} draws, f64 and f32)", ar1, y, p, dev, 25,
+        PATHWISE_TOL["f64"], PATHWISE_TOL["cd"], f32=True))
+    # (b) the spatial prior at n=5741: supernodal (f64, f32), then auto -> banded (f64); with sqrt_matvec
+    sp_y = spatial_y(sp_model, SP_GRID)
+    sp_p = torch.tensor(np.tile([0.0, np.log(0.3)], (SP_CHAINS, 1))
+                        + np.random.default_rng(7).normal(scale=0.3, size=(SP_CHAINS, 2)), dtype=torch.float64)
+
+    def prior(m):
+        return lambda pp: m(tau=torch.exp(pp[:, 0]), range=torch.exp(pp[:, 1]))
+
+    banded = auto_solver(sp_model)
+    for m, kind, path, mode in ((sp_model, "supernodal", PATHWISE_SN_KERNELS, 1),
+                                (banded, f"auto -> {tg_resolve(banded)}", PATHWISE_BANDED_KERNELS, 0)):
+        sn_cell = m is sp_model
+        back = run(f"pathwise spatial {kind}", path, lambda: pathwise_cell(
+            f"(b) spatial (B={SP_CHAINS}, n={m.n}, {kind}, k={PATH_DRAWS}, f64{' and f32' if sn_cell else ''}, "
+            f"with sqrt_matvec)", prior(m), sp_y, sp_p, dev, 27, PATHWISE_TOL["spatial"], PATHWISE_TOL["cd_spatial"],
+            f32=sn_cell, sqrt=True, plain_build=plain_prior(m) if sn_cell else None))
+        if dev.type == "cuda" and back[mode] == 0:  # (CPU tensors launch nothing)
+            raise AssertionError(f"phase 25 {kind}: sqrt_matvec's backward launched no transpose mode")
+    # (c) g=16 on the dense backend (auto), f64
+    dn = auto_solver(dn_model)
+    dn_y = spatial_y(dn, DN_GRID)
+    dn_p = torch.tensor(np.tile([0.0, np.log(0.3)], (DN_CHAINS, 1))
+                        + np.random.default_rng(8).normal(scale=0.3, size=(DN_CHAINS, 2)), dtype=torch.float64)
+    run(f"pathwise g={DN_GRID}", PATHWISE_DENSE_KERNELS, lambda: pathwise_cell(
+        f"(c) g={DN_GRID} (B={DN_CHAINS}, n={dn.n}, auto -> {tg_resolve(dn)}, k={PATH_DRAWS}, f64, with sqrt_matvec)",
+        prior(dn), dn_y, dn_p, dev, 28, PATHWISE_TOL["spatial"], PATHWISE_TOL["cd_spatial"], sqrt=True))
+    # (d) two derivative routes on the flagship, (e) SPIKE
+    run("pathwise MC routes", PATHWISE_MC_KERNELS, lambda: mc_routes(p, dev))
+    run("SPIKE derivatives", PATHWISE_SPIKE_KERNELS, lambda: spike_grad_cell(dn_model, dev, card))
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4862,6 +5460,10 @@ def main() -> int:
         f"K21 over phase 3b's supernodal schedule, K22 and K21 on the banded blocks (n={sp_model.n}, B={SP_CHAINS}), "
         f"on {card}")
     results.update(check_tangent_kernels(sp_model, dev))
+    log(f"phase 3h the factorizations' adjoints K23-K25 and the transpose modes vs plain and library: K23 at "
+        f"B={CHAINS} n={N}, K24 and bt_sqrt's transpose on the banded blocks, K25 and K7's transpose over phase 3b's "
+        f"schedule (n={sp_model.n}, B={SP_CHAINS}, k=16), f32 and f64, on {card}")
+    results.update(check_adjoint_kernels(sp_model, dev))
 
     log(f"phase 4 flagship slice: laplace_marginal value+grad, B={CHAINS}, n={N}, max_iter={GA_MAX_ITER}")
     y = flagship_y()
@@ -5055,9 +5657,13 @@ def main() -> int:
         f"spatial slice (n={sp_model.n}, supernodal and auto -> banded, f64) and g={DN_GRID} (auto -> dense, f64); "
         f"d/dθ Σ var_i at n={stats_model.n}; on {card}")
     counts24 = hessian_path(sp_model, dn_model, stats_model, dev, card)
+    log(f"phase 25 pathwise gradients through the factor: GMRF.sample (k={PATH_DRAWS}) and sqrt_matvec on the flagship "
+        f"(B={CHAINS}), the spatial prior (n={sp_model.n}, supernodal and auto -> banded), g={DN_GRID} (auto -> dense); "
+        f"pathwise against selected-inverse derivatives; the SPIKE logdet's gradient and solve's Hessian; on {card}")
+    counts25 = pathwise_path(sp_model, dn_model, dev, card)
 
     paths = (counts, sp_counts, counts9, counts10, counts11, counts12, counts13, counts13b, counts14, counts15,
-             counts16, counts17, counts18, counts19, counts20, counts21, counts22, counts23, counts24)
+             counts16, counts17, counts18, counts19, counts20, counts21, counts22, counts23, counts24, counts25)
     report = {
         "kernels": [
             {"name": name, "route": "cuda", "source": SOURCES[name][0], "replaces": SOURCES[name][1],

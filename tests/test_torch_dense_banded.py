@@ -462,6 +462,6 @@ def test_split_banded_takahashi_matches_reference_blocks(matern10):
     assert _rel(blocks[:, : K - 1, s:].numpy(), np.asarray(sig_s)) <= 1e-10
     whole = torch.zeros_like(sig)
     vals = f.P.reshape(B, -1)
-    for c in reversed(tb._takahashi_classes(f.meta, f.P.device)[0]):
+    for c in reversed(tb.block_classes(f.P.shape[1], f.P.shape[3], f.P.device)[0]):
         kernels.sn_takahashi_plain(vals, whole, c)
     assert _rel(whole.numpy(), sig.numpy()) <= 1e-12

@@ -15,7 +15,12 @@ in float64 on the same NumPy inputs.
 * `_prep`'s ValueErrors.
 * Gradients of wᵀx: with respect to b, diag and sub against
   ``jax.jit(jax.grad)`` of the reference at (16, 2), and with respect to diag
-  and sub against the dense NumPy oracle, to 1e-8.
+  and sub against the dense NumPy oracle, to 1e-8; its Hessian-vector
+  product (``create_graph=True``) against ``jax.jvp`` of ``jax.grad`` at
+  P = 4, to 1e-10 relative.
+* The logdet's gradient in diag and sub (Σ_tt, 2Σ_{t+1,t}) against
+  ``jax.grad`` of the reference's `pbtridiag_logdet` at P = 2 and 4 and over
+  gloo, to 1e-10 relative; its own second derivative raises.
 * `supernodal_factorize(mesh=)` at world size 2 on the 28×28 grid of
   ``tests/test_parallel.py:108``, in float32 and float64: equal bit for bit
   to the one-rank factorization, and held against the reference's own
@@ -88,17 +93,41 @@ def _case(Nt, ns):
 
 @functools.lru_cache(maxsize=None)
 def _reference(Nt, ns, P):
-    """x, logdet and the gradients of Σ w·x from `tpu_gmrf.parallel` on P devices."""
+    """x, logdet and, at GRAD_SHAPE, the gradients of Σ w·x (and at P = 2, 4 the
+    logdet's, at P = 4 the Hessian-vector product) from `tpu_gmrf.parallel` on
+    P devices, in one jitted call."""
     diag, sub, b, w = (jnp.asarray(a) for a in _case(Nt, ns))
     mesh = Mesh(np.array(jax.devices()[:P]), ("time",))
-    x = jax.jit(lambda d, s, b_: j_solve(d, s, b_, mesh))(diag, sub, b)
-    ld = jax.jit(lambda d, s: j_logdet(d, s, mesh))(diag, sub)
-    out = dict(x=np.asarray(x), logdet=float(ld))
-    if (Nt, ns) == GRAD_SHAPE:
-        grads = jax.jit(jax.grad(lambda d, s, b_: jnp.sum(w * j_solve(d, s, b_, mesh)), argnums=(0, 1, 2)))(
-            diag, sub, b)
-        out.update(zip(("g_diag", "g_sub", "g_b"), (np.asarray(g) for g in grads)))
+    grad = jax.grad(lambda d, s, b_: jnp.sum(w * j_solve(d, s, b_, mesh)), argnums=(0, 1, 2))
+    dirs = tuple(jnp.asarray(a) for a in _directions(Nt, ns))
+
+    def run(d, s, b_):
+        out = dict(x=j_solve(d, s, b_, mesh), logdet=j_logdet(d, s, mesh))
+        if (Nt, ns) == GRAD_SHAPE:
+            out.update(zip(("g_diag", "g_sub", "g_b"), grad(d, s, b_)))
+            if P in (2, 4):
+                ld_grads = jax.grad(lambda d_, s_: j_logdet(d_, s_, mesh), argnums=(0, 1))(d, s)
+                out.update(zip(("ld_diag", "ld_sub"), ld_grads))
+            if P == 4:
+                out.update(zip(("h_diag", "h_sub", "h_b"), jax.jvp(grad, (d, s, b_), dirs)[1]))
+        return out
+
+    out = {k: np.asarray(v) for k, v in jax.jit(run)(diag, sub, b).items()}
+    out["logdet"] = float(out["logdet"])
     return out
+
+
+def _directions(Nt, ns):
+    """A direction (diag, sub, b) of the Hessian-vector product, diag's blocks symmetric."""
+    rng = np.random.default_rng(11)
+    vd = rng.normal(size=(Nt, ns, ns))
+    return 0.5 * (vd + vd.transpose(0, 2, 1)), rng.normal(size=(Nt - 1, ns, ns)), rng.normal(size=(Nt, ns))
+
+
+def _rel(got, ref):
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    assert got.shape == ref.shape
+    return float(np.abs(got - ref).max() / np.abs(ref).max())
 
 
 def _dense_grads(diag, sub, b, w):
@@ -144,7 +173,7 @@ def test_in_process_gradients_match_jax_grad(P):
     diag, sub, b, w = _case(*GRAD_SHAPE)
     td, ts, tb = _t(diag, requires_grad=True), _t(sub, requires_grad=True), _t(b, requires_grad=True)
     x, logdet = _pbtridiag_chunks(td, ts, tb, P)
-    assert not logdet.requires_grad
+    assert logdet.requires_grad  # differentiable in diag and sub, not in b
     (x * _t(w)).sum().backward()
     ref = _reference(*GRAD_SHAPE, P)
     oracle = _dense_grads(diag, sub, b, w)
@@ -178,9 +207,35 @@ def test_prep_raises_the_reference_errors():
 
 
 def test_logdet_has_no_backward():
-    diag, sub, _, _ = _case(16, 1)
-    with pytest.raises(NotImplementedError, match="no backward"):
-        tg.pbtridiag_logdet(_t(diag, requires_grad=True), _t(sub), None)
+    """The logdet now has a backward: ∂/∂diag_t = Σ_tt and ∂/∂sub_t = 2Σ_{t+1,t}
+    equal jax.grad of the reference's pbtridiag_logdet at P = 2 and 4; its
+    second derivative (Σ's derivative) raises."""
+    diag, sub, b, _ = _case(*GRAD_SHAPE)
+    for P in (2, 4):
+        td, ts = _t(diag, requires_grad=True), _t(sub, requires_grad=True)
+        _, logdet = _pbtridiag_chunks(td, ts, _t(b), P)
+        gd, gs = torch.autograd.grad(logdet, (td, ts))
+        ref = _reference(*GRAD_SHAPE, P)
+        assert _rel(gd.numpy(), ref["ld_diag"]) <= 1e-10
+        assert _rel(gs.numpy(), ref["ld_sub"]) <= 1e-10
+    td = _t(diag, requires_grad=True)
+    (gd,) = torch.autograd.grad(_pbtridiag_chunks(td, _t(sub), _t(b), 2)[1], td, create_graph=True)
+    with pytest.raises(NotImplementedError, match="second derivative"):
+        torch.autograd.grad(gd.sum(), td)
+
+
+def test_in_process_solve_hessian_vector_product_matches_jax():
+    """The solve's second derivative goes through `_SpikeResolve` (no second
+    factorization): H·(v_diag, v_sub, v_b) of wᵀx by create_graph=True."""
+    diag, sub, b, w = _case(*GRAD_SHAPE)
+    td, ts, tb = _t(diag, requires_grad=True), _t(sub, requires_grad=True), _t(b, requires_grad=True)
+    x, _ = _pbtridiag_chunks(td, ts, tb, 4)
+    grads = torch.autograd.grad((x * _t(w)).sum(), (td, ts, tb), create_graph=True)
+    dirs = _directions(*GRAD_SHAPE)
+    hvp = torch.autograd.grad(sum((g[: len(v)] * _t(v)).sum() for g, v in zip(grads, dirs)), (td, ts, tb))
+    ref = _reference(*GRAD_SHAPE, 4)
+    for got, name in zip(hvp, ("h_diag", "h_sub", "h_b")):
+        assert _rel(got.numpy(), ref[name]) <= 1e-10
 
 
 # ---- over torch.distributed (gloo) ---------------------------------------------------------
@@ -247,6 +302,9 @@ def _dist_worker(rank, world, store, out_dir, cases):
             (x * _t(w)).sum().backward()
             out[key] = dict(x=x.detach().numpy(), logdet=float(tg.pbtridiag_logdet(_t(diag), _t(sub), mesh)),
                             g_diag=td.grad.numpy(), g_sub=ts.grad.numpy(), g_b=tb.grad.numpy())
+            ld, ls = _t(diag, requires_grad=True), _t(sub, requires_grad=True)
+            out[key].update(zip(("ld_diag", "ld_sub"),
+                                (g.numpy() for g in torch.autograd.grad(tg.pbtridiag_logdet(ld, ls, mesh), (ld, ls)))))
         try:
             tg.pbtridiag_solve(torch.zeros(2 * world + 1, 2, 2, dtype=F64), torch.zeros(2 * world, 2, 2, dtype=F64),
                                torch.zeros(2 * world + 1, 2, dtype=F64), mesh)
@@ -301,6 +359,15 @@ def test_distributed_gradients_match_jax_grad(dist_results, world):
     for out in results:  # every rank gets the gradient of the whole arrays
         for name in ("g_diag", "g_sub", "g_b"):
             np.testing.assert_allclose(out[GRAD_SHAPE][name], ref[name], atol=1e-8)
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_distributed_logdet_gradient_matches_jax_grad(dist_results, world):
+    results = dist_results(world)
+    ref = _reference(*GRAD_SHAPE, world)
+    for out in results:  # every rank gets the gradient of the whole arrays
+        for name in ("ld_diag", "ld_sub"):
+            assert _rel(out[GRAD_SHAPE][name], ref[name]) <= 1e-10
 
 
 @pytest.mark.parametrize("dtype", list(SN_DTYPES))

@@ -17,9 +17,10 @@ condition reaches 1/jitter = 1e8), by autograd and by a central difference
 computed without cancellation, against ``jax.grad`` of the reference.
 
 All to 1e-8 relative. Every reference value is computed once per module,
-under ``jax.jit``. Also: sampling and the CG solve raise while Q (or b)
-requires a gradient, and `var` and `selinv` carry it (against the plain
-float64 reference, a dense inverse); second derivatives
+under ``jax.jit``. Also: the CG solve raises while Q (or b) requires a
+gradient, and sampling, `var` and `selinv` carry it (against a central
+difference of the port's draw, and the plain float64 reference, a dense
+inverse); second derivatives
 (``create_graph=True``) through a solve match ``jax.jvp`` of ``jax.grad``
 of the reference (1e-10), and the Laplace marginal's second τ-derivative a
 central difference of the reference's jitted gradient (1e-5: Newton's
@@ -203,14 +204,23 @@ def test_batched_solve_gradient_is_per_chain(kind):
 
 @pytest.mark.parametrize("kind", KINDS)
 def test_statistics_without_backward_raise_while_q_requires_grad(kind):
-    """Sampling still raises while Q requires a gradient; var and selinv now
-    carry it: d/dτ of Σ_i w_i var_i + Σ_p u_p Σ_p equals the plain float64
-    reference's (a dense inverse of Q(τ), by autograd)."""
+    """Sampling, var and selinv all carry the gradient while Q requires one:
+    d/dτ of Σ_i w_i x_i for a draw x at a fixed generator equals a central
+    difference of the port's own float64 draw (x = L⁻ᵀz scales as τ^-½ here,
+    so also −x/(2τ)), and d/dτ of Σ_i w_i var_i + Σ_p u_p Σ_p equals the
+    plain float64 reference's (a dense inverse of Q(τ), by autograd)."""
     tau = _t(TAU, requires_grad=True)
     g = _port_q(kind, tau)
     gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="no backward"):
-        g.sample(gen)
+    wx = _t(np.random.default_rng(28).normal(size=N))
+    x = g.sample(torch.Generator().manual_seed(5))
+    (gx,) = torch.autograd.grad((wx * x).sum(), tau, retain_graph=True)
+    with torch.no_grad():
+        h = 1e-5
+        draw = [(wx * _port_q(kind, _t(t)).sample(torch.Generator().manual_seed(5))).sum() for t in (TAU + h, TAU - h)]
+    cd = float((draw[0] - draw[1]) / (2 * h))
+    assert abs(float(gx) - cd) <= 1e-7 * abs(cd)
+    assert abs(float(gx) + float((wx * x).sum()) / (2 * TAU)) <= 1e-12 * abs(float(gx))
     rng = np.random.default_rng(26)
     w, u = _t(rng.normal(size=N)), _t(rng.normal(size=g.Q.nnz))
     (got,) = torch.autograd.grad((w * g.var()).sum() + (u * g.factor.selinv(g.Q.pattern).data).sum(), tau)

@@ -142,13 +142,15 @@ def test_solve_with_several_right_hand_sides(matern24):
     for j in range(2):
         np.testing.assert_allclose(x[..., j].numpy(), f.solve(rhs[..., j].contiguous()).numpy(), rtol=1e-12)
     np.testing.assert_allclose(Q.matvec(x[..., 0].contiguous()).numpy(), rhs[..., 0].numpy(), atol=1e-9)
-    # solve carries the gradient to b (b̄ = Q⁻¹x̄); the sampling solve has none and raises
+    # solve carries the gradient to b (b̄ = Q⁻¹x̄); so does the sampling solve, z̄ = L⁻¹x̄ (its adjoint)
     b = rhs[..., 0].clone().requires_grad_()
     w = _t(np.random.default_rng(2).normal(size=(3, jp.shape[0])))
     (f.solve(b) * w).sum().backward()
     np.testing.assert_allclose(b.grad.numpy(), f.solve(w).numpy(), rtol=1e-12)
-    with pytest.raises(NotImplementedError):
-        f.backward_solve(rhs[..., 0].clone().requires_grad_())
+    z = rhs[..., 0].clone().requires_grad_()
+    (f.backward_solve(z) * w).sum().backward()
+    np.testing.assert_allclose((z.grad * rhs[..., 1]).sum((-1,)).numpy(),
+                               (f.backward_solve(rhs[..., 1].contiguous()) * w).sum(-1).numpy(), rtol=1e-12)
 
 
 @pytest.mark.parametrize("chain", [0, 3])

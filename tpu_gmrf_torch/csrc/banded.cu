@@ -31,6 +31,19 @@
 //       cluster on the float64 tensor cores, L_k^-1 = L_k^T A_k with A_k
 //       from K8's first entry). Bound by the float64 tensor-core rate of
 //       the cluster's SMs.
+//   K24 bt_factor_adjoint: JAX's AD (reverse mode) of the same `step`, as
+//       `jax.grad` of a sample, a block triangular solve (:145-202) or
+//       :272 `sqrt_matvec` reaches it: from the factor's cotangent (L'_k, M'_k
+//       in P's layout) the cotangent of Q's blocks; a cluster per chain walks
+//       the K blocks backwards, each step tangent.cuh's `panel_adjoint`
+//       (E'_k = M'_k L_k^-1 with M'_k less (A'_{k+1} + A'_{k+1}^T) M_k, then
+//       the Cholesky adjoint of L_k), on K22's workspace and tiles. Bound,
+//       like K22, by the float64 tensor-core rate of the cluster's SMs.
+//   K13's second entry has a transpose mode (`bt_sqrt`, transpose): y_k =
+//       L_k^T z_k + M_k^T z_{k+1}, the z-cotangent of sqrt_matvec; a thread
+//       per column of a block reads its column of L_k and M_k down the rows
+//       (a warp's loads coalesced along a row), z_k's rows staged in shared
+//       memory, between K13's rows_in and rows_out.
 //   K11 and K12 have a block entry each, for the SPIKE solve
 //   (tpu_gmrf/parallel/pbtridiag.py): `bt_factor_blocks` is :53 `_bt_chol`,
 //   L_k = chol(D_k - M_{k-1} M_{k-1}^T), M_k = E_k L_k^-T, on blocks D, E
@@ -1156,6 +1169,130 @@ int factor_tangent_fit(int cs, int* count) {
   return tgtile::cluster_fit(bt_factor_tangent_kernel<T>, cs, tgt::kSmemBytes, count);
 }
 
+// K24: a cluster walks chain blockIdx.x / cluster size's K blocks backwards. G holds the cotangent of the factor
+// (L'_k's lower triangle in rows 0..s of panel k, M'_k in rows s..2s) and is overwritten with that of Q's blocks
+// (A'_k's lower entries, E'_k); A_k = L_k^-T L_k^-1 (lower) in rows 0..s of pre's panels. Block k reads A'_{k+1},
+// written by the cluster in the step before.
+template <typename T>
+__global__ void __launch_bounds__(tgt::kThreads)
+    bt_factor_adjoint_kernel(const T* __restrict__ P, const T* __restrict__ pre, T* G, long long ps, int K, int s,
+                             double* work) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  double* smem = reinterpret_cast<double*>(smem_raw);
+  const tgt::Team t = tgt::cluster_team();
+  const int b = blockIdx.x / t.size, ss = s * s;
+  const long panel = 2L * ss;
+  tgt::Slots sl(work + b * tgt::tangent_slice(s, s), s, s);
+  double *Ld = sl.w[0], *A = sl.w[1], *gLd = sl.w[2], *gAjj = sl.w[6], *Lb = sl.m[0], *gLb = sl.m[1];
+  double *gArj = sl.m[2], *Sr = sl.q[0];
+  const T* Pb = P + b * K * panel;
+  const T* prb = pre + b * ps;
+  T* gb = G + b * ps;
+  for (int k = K - 1; k >= 0; --k) {
+    const long o = k * panel;
+    const bool below = k < K - 1;
+    for (int e = tgt::first(t); e < ss; e += tgt::stride(t)) {
+      const int i = e / s, j = e % s;
+      Ld[e] = i >= j ? double(Pb[o + e]) : 0.0;
+      A[e] = i >= j ? double(prb[o + e]) : 0.0;
+      gLd[e] = i >= j ? double(__ldcg(gb + o + e)) : 0.0;
+      Lb[e] = below ? double(Pb[o + ss + e]) : 0.0;
+      gLb[e] = below ? double(__ldcg(gb + o + ss + e)) : 0.0;
+      Sr[e] = below && i >= j ? double(__ldcg(gb + o + panel + e)) : 0.0;  // A'_{k+1}
+    }
+    tgt::team_sync();
+    tgt::symmetrize(t, A, s);
+    tgt::panel_adjoint(t, s, below ? s : 0, Ld, Lb, A, gLd, gLb, Sr, sl.w[3], sl.w[4], sl.w[5], sl.q[1], gAjj, gArj,
+                       smem);
+    for (int e = tgt::first(t); e < ss; e += tgt::stride(t)) {
+      gb[o + e] = T(e / s >= e % s ? tgt::ld(gAjj + e) : 0.0);
+      gb[o + ss + e] = T(below ? tgt::ld(gArj + e) : 0.0);
+    }
+    tgt::team_sync();
+  }
+}
+
+template <typename T>
+int launch_factor_adjoint(const T* P, const T* pre, T* G, long long ps, int K, int s, double* work, int B, int cs,
+                          void* stream) {
+  if (B == 0 || K == 0) return 0;
+  if (cs < 1 || cs > tgt::kTeamMax) return (int)cudaErrorInvalidValue;
+  return tgtile::launch_cluster(bt_factor_adjoint_kernel<T>, dim3(B * cs), cs, tgt::kSmemBytes, (cudaStream_t)stream,
+                                P, pre, G, ps, K, s, work);
+}
+
+// How many clusters of cs blocks of K24 the card holds at once.
+template <typename T>
+int factor_adjoint_fit(int cs, int* count) {
+  return tgtile::cluster_fit(bt_factor_adjoint_kernel<T>, cs, tgt::kSmemBytes, count);
+}
+
+// ---- K13's second entry, transpose mode ----------------------------------------
+
+constexpr int kSqtThr = 128;  // threads (columns) of a block of the transpose mode
+
+// Block (column tile, k, chain chunk): y_k = L_k^T x_k + M_k^T x_{k+1} at its columns j, NV vectors of the
+// (B chunks NV, K s) rows of xp (rows_in) into yb. Thread j walks column j of L_k (rows j..s) and of M_k down the
+// rows, x's rows staged in shared memory 64 at a time; every sum in row order.
+template <typename T, int NV>
+__global__ void __launch_bounds__(kSqtThr)
+    bt_sqrt_t_kernel(const T* __restrict__ P, int K, int s, int chunks, const T* __restrict__ xp,
+                     T* __restrict__ yb) {
+  __shared__ T xs[kMvR][NV];
+  const int tid = threadIdx.x, j0 = blockIdx.x * kSqtThr, j = j0 + tid, k = blockIdx.y;
+  const long long cb = blockIdx.z, b = cb / chunks, Ks = (long long)K * s;
+  const T* Lk = P + (b * K + k) * 2LL * s * s;
+  const T* xv = xp + cb * NV * Ks;
+  T acc[NV];
+#pragma unroll
+  for (int v = 0; v < NV; ++v) acc[v] = T(0);
+  for (int part = 0; part < (k < K - 1 ? 2 : 1); ++part) {  // L_k with x_k, then M_k with x_{k+1}
+    const T* Mt = Lk + (long long)part * s * s;
+    const long long xo = (long long)(k + part) * s;
+    for (int r0 = part ? 0 : j0; r0 < s; r0 += kMvR) {  // L_k: rows r >= j only
+      const int rows = min(kMvR, s - r0);
+      __syncthreads();
+      for (int e = tid; e < rows * NV; e += kSqtThr) xs[e / NV][e % NV] = xv[(e % NV) * Ks + xo + r0 + e / NV];
+      __syncthreads();
+      if (j < s)
+        for (int r = 0; r < rows; ++r) {
+          const int gr = r0 + r;
+          const T l = (part || gr >= j) ? __ldcs(Mt + (long long)gr * s + j) : T(0);
+#pragma unroll
+          for (int v = 0; v < NV; ++v) acc[v] += l * xs[r][v];
+        }
+    }
+  }
+  if (j < s)
+#pragma unroll
+    for (int v = 0; v < NV; ++v) yb[(cb * NV + v) * Ks + (long long)k * s + j] = acc[v];
+}
+
+// bt_sqrt's transpose mode: y (B kk, n) rows = L^T x of K11's factor P (B, K, 2s, s) on rows x (B kk, n),
+// chain-major, in the original numbering: rows_in, the column blocks, rows_out. work: xp, yb (B kp K s each).
+template <typename T>
+int launch_sqrt_t(const T* P, int K, int s, int n, const int* perm, const T* x, T* y, int kk, int B, int nv,
+                  int chunks, T* work, void* stream) {
+  if (B == 0 || kk == 0 || n == 0) return 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int kp = chunks * nv;
+  const long long Ks = (long long)K * s;
+  T* xp = work;
+  T* yb = xp + (long long)B * kp * Ks;
+  int rc = rows_in<T>(x, perm, n, kk, kp, B, Ks, xp, kp * Ks, Ks, 1, st);
+  if (rc) return rc;
+  const dim3 grid((s + kSqtThr - 1) / kSqtThr, K, B * chunks);
+  switch (nv) {
+    case 1: bt_sqrt_t_kernel<T, 1><<<grid, kSqtThr, 0, st>>>(P, K, s, chunks, xp, yb); break;
+    case 4: bt_sqrt_t_kernel<T, 4><<<grid, kSqtThr, 0, st>>>(P, K, s, chunks, xp, yb); break;
+    case 8: bt_sqrt_t_kernel<T, 8><<<grid, kSqtThr, 0, st>>>(P, K, s, chunks, xp, yb); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  rc = (int)cudaGetLastError();
+  if (rc) return rc;
+  return rows_out<T>(yb, kp * Ks, Ks, 1, perm, n, kk, kp, B, y, nullptr, 0, K, s, st);
+}
+
 }  // namespace
 
 extern "C" {
@@ -1194,7 +1331,16 @@ extern "C" {
                                  int B, int cs, void* stream) {                                               \
     return launch_factor_tangent<T>(P, pre, dP, ps, K, s, work, B, cs, stream);                               \
   }                                                                                                           \
-  int tg_bt_factor_tangent_fit_##SUF(int cs, int* count) { return factor_tangent_fit<T>(cs, count); }
+  int tg_bt_factor_tangent_fit_##SUF(int cs, int* count) { return factor_tangent_fit<T>(cs, count); }         \
+  int tg_bt_factor_adjoint_##SUF(const T* P, const T* pre, T* G, long long ps, int K, int s, double* work,    \
+                                 int B, int cs, void* stream) {                                               \
+    return launch_factor_adjoint<T>(P, pre, G, ps, K, s, work, B, cs, stream);                                \
+  }                                                                                                           \
+  int tg_bt_factor_adjoint_fit_##SUF(int cs, int* count) { return factor_adjoint_fit<T>(cs, count); }         \
+  int tg_bt_sqrt_t_##SUF(const T* P, int K, int s, int n, const int* perm, const T* x, T* y, int kk, int B,   \
+                         int nv, int chunks, T* work, void* stream) {                                         \
+    return launch_sqrt_t<T>(P, K, s, n, perm, x, y, kk, B, nv, chunks, work, stream);                         \
+  }
 
 TG_BT_ENTRY(f32, float)
 TG_BT_ENTRY(f64, double)

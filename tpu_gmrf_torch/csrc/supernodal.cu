@@ -18,6 +18,17 @@
 //       Sigma' = -Sigma Q' Sigma (csrc/tangent.cuh: a cluster per
 //       (supernode, chain), the products in float64 on a workspace, on
 //       tgtile's float64 tensor-core tiles).
+//   K25 sn_panel_adjoint: JAX's AD (reverse mode) of :1345's factorization,
+//       as `jax.grad` of :1270-1290 (forward_solve, backward_solve,
+//       sqrt_matvec) reaches it: K6's panel step walked backwards over the
+//       level schedule, a class batch per launch, from the factor's
+//       cotangent on vals' layout to that of the equilibrated Q on the fill
+//       (csrc/tangent.cuh `panel_adjoint`, a cluster per (supernode, chain)
+//       as K20); the Schur update's adjoint is read through the Schur table
+//       (the ancestors' cotangents, final when the levels run descending).
+//   K7's mode 3, the transpose product (`sn_multiply`, transpose):
+//       x[cols] = Ld^T z[cols] + Lb^T z[rows] per supernode, the z-cotangent
+//       of :1287 `sqrt_matvec`; each supernode writes only its own columns.
 //
 // Layout. `vals` / `sig` hold, per chain, the flat CSC values of L / Sigma on
 // the amalgamated fill pattern plus one DUMMY slot (index nnzL). A class
@@ -499,7 +510,8 @@ size_t trsv_smem(int Wmax) {
 // widest batch of the launch), chain b, its right-hand sides chunk NT ..
 // chunk NT + kc - 1 (rows b k + ... of x, z and u). Mode 0: L y = x
 // (forward, u = Lb y); 1: L^T y = x with x's rows below known (backward);
-// 2: x[cols] += Ld z[cols], u = Lb z[cols] (the product, not a solve).
+// 2: x[cols] += Ld z[cols], u = Lb z[cols] (the product, not a solve);
+// 3: x[cols] = Ld^T z[cols] + Lb^T z[rows] (the transpose product).
 template <typename T, int NT>
 __global__ void __launch_bounds__(kThr)
     sn_trsv_kernel(const T* __restrict__ vals, long long vs, const Batch* __restrict__ bt, int ng, int Wmax,
@@ -527,7 +539,7 @@ __global__ void __launch_bounds__(kThr)
   if (ns == 0) return;
   const T* vb = vals + b * vs;
   for (int c = tid; c < ns; c += kThr) base[c] = pidx[(long long)c * W + c];
-  const T* src = mode == 2 ? z : x;
+  const T* src = mode >= 2 ? z : x;
   for (int e = tid; e < ns * NT; e += kThr) {  // Y = x[cols] (z[cols]); the columns are consecutive in x
     const int j = e / ns, r = e % ns;
     Y[r * LY + j] = j < kc ? double(src[(row0 + j) * xs + cidx[r]]) : 0.0;
@@ -643,6 +655,23 @@ __global__ void __launch_bounds__(kThr)
       }
       __syncthreads();
     }
+  } else if (mode == 3) {
+    for (int J = 0; J < nt; ++J) {  // x[cols]_J = sum_{q >= j0 + i} L(q, j0 + i) z_q + Lb^T z[rows]
+      const int j0 = J * kT, tj = min(kT, ns - j0);
+      Acc<double, NT> acc;
+      acc.zero();
+      sn::gather_mma<NT>(
+          acc, [&](int i, int q) { return q >= i ? L(j0 + q, j0 + i) : 0.0; },
+          [&](int q, int c) { return Y[(j0 + q) * LY + c]; }, tj, kc, ns - j0, [](int) { return false; }, st);
+      if (m > 0)
+        sn::gather_mma<NT>(
+            acc, [&](int i, int q) { return L(ns + q, j0 + i); },
+            [&](int q, int c) { return double(z[(row0 + c) * xs + ridx[q]]); }, tj, kc, m, [](int) { return false; },
+            st);
+      sn::acc_each<NT>(acc, [&](int r, int c, double& v) {
+        if (r < tj && c < kc) x[(row0 + c) * xs + cidx[j0 + r]] = T(v);
+      });
+    }
   } else {
     for (int J = 0; J < nt; ++J) {  // x[cols]_J += sum_{q <= j0 + i} L(j0 + i, q) z_q
       const int j0 = J * kT, tj = min(kT, ns - j0);
@@ -656,12 +685,12 @@ __global__ void __launch_bounds__(kThr)
       });
     }
   }
-  if (mode != 2)
+  if (mode < 2)
     for (int e = tid; e < ns * NT; e += kThr) {
       const int j = e / ns, r = e % ns;
       if (j < kc) x[(row0 + j) * xs + cidx[r]] = T(Y[r * LY + j]);
     }
-  if (mode == 1 || m == 0) return;
+  if (mode == 1 || mode == 3 || m == 0) return;
   for (int r0 = 0; r0 < m; r0 += kT) {  // u = Lb y (Lb z)
     Acc<double, NT> acc;
     acc.zero();
@@ -1003,7 +1032,7 @@ template <typename T>
 int launch_trsv(const T* vals, long long vs, const Batch* bt, int ng, int units, int Wmax, int dummy, T* x,
                 long long xs, int k, T* u, long long us, int mode, int B, const T* z, int nt, void* stream) {
   if (units == 0 || B == 0 || k == 0) return 0;
-  if ((mode == 2 && z == nullptr) || (nt != 8 && nt != 64)) return (int)cudaErrorInvalidValue;
+  if ((mode >= 2 && z == nullptr) || mode > 3 || (nt != 8 && nt != 64)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (nt == 8) return launch_trsv_nt<T, 8>(vals, vs, bt, ng, units, Wmax, dummy, x, xs, k, u, us, mode, B, z, st);
   return launch_trsv_nt<T, 64>(vals, vs, bt, ng, units, Wmax, dummy, x, xs, k, u, us, mode, B, z, st);
@@ -1204,9 +1233,47 @@ int launch_takahashi_tangent(const T* vals, long long vs, const T* pre, const T*
                                 W, M, dummy, work);
 }
 
-// How many clusters of cs blocks of K20 (which = 0) or K21 (1) the card holds at once.
+// K25: supernode blockIdx.x / cluster size of the batch on chain blockIdx.y, on one cluster. gvals holds the
+// factor's cotangent on vals' layout; the batch's panels are overwritten with the cotangent of their (updated)
+// inputs, after those of every ancestor (the levels descending), which the Schur table reads.
+template <typename T>
+__global__ void __launch_bounds__(tgt::kThreads)
+    sn_panel_adjoint_kernel(const T* __restrict__ vals, long long vs, const T* __restrict__ pre, T* gvals,
+                            long long ps, const int* __restrict__ panel_idx, const int* __restrict__ schur_idx, int P,
+                            int W, int M, int dummy, double* work) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  double* smem = reinterpret_cast<double*>(smem_raw);
+  const tgt::Team t = tgt::cluster_team();
+  const int p = blockIdx.x / t.size, b = blockIdx.y;
+  const int* pidx = panel_idx + (long)p * (W + M) * W;
+  tgt::Slots sl(work + ((long)b * P + p) * tgt::tangent_slice(W, M), W, M);
+  double *Ld = sl.w[0], *A = sl.w[1], *gLd = sl.w[2], *gAjj = sl.w[6];
+  double *Lb = sl.m[0], *gLb = sl.m[1], *gArj = sl.m[2];
+  gather_panel(t, vals + b * vs, pidx, W, M, dummy, 1.0, Ld, Lb);
+  gather_panel(t, pre + b * ps, pidx, W, M, dummy, 0.0, A, sl.m[3]);  // A (C unused)
+  gather_panel(t, gvals + b * ps, pidx, W, M, dummy, 0.0, gLd, gLb);
+  if (M) gather_square(t, gvals + b * ps, schur_idx + (long)p * M * M, M, dummy, sl.q[0]);
+  tgt::team_sync();
+  tgt::symmetrize(t, A, W);
+  tgt::panel_adjoint(t, W, M, Ld, Lb, A, gLd, gLb, sl.q[0], sl.w[3], sl.w[4], sl.w[5], sl.q[1], gAjj, gArj, smem);
+  scatter_panel(t, gvals + b * ps, pidx, W, M, dummy, gAjj, gArj);
+}
+
+template <typename T>
+int launch_panel_adjoint(const T* vals, long long vs, const T* pre, T* gvals, long long ps, const int* panel_idx,
+                         const int* schur_idx, int P, int W, int M, int dummy, double* work, int B, int cs,
+                         void* stream) {
+  if (P == 0 || B == 0) return 0;
+  if (B > 65535 || cs < 1 || cs > tgt::kTeamMax) return (int)cudaErrorInvalidValue;
+  return tgtile::launch_cluster(sn_panel_adjoint_kernel<T>, dim3(P * cs, B), cs, tgt::kSmemBytes,
+                                (cudaStream_t)stream, vals, vs, pre, gvals, ps, panel_idx, schur_idx, P, W, M, dummy,
+                                work);
+}
+
+// How many clusters of cs blocks of K20 (which = 0), K21 (1) or K25 (2) the card holds at once.
 template <typename T>
 int tangent_fit(int cs, int which, int* count) {
+  if (which == 2) return tgtile::cluster_fit(sn_panel_adjoint_kernel<T>, cs, tgt::kSmemBytes, count);
   return which ? tgtile::cluster_fit(sn_takahashi_tangent_kernel<T>, cs, tgt::kSmemBytes, count)
                : tgtile::cluster_fit(sn_panel_tangent_kernel<T>, cs, tgt::kSmemBytes, count);
 }
@@ -1258,6 +1325,12 @@ extern "C" {
   }                                                                                                \
   int tg_sn_tangent_fit_##SUF(int cs, int which, int* count) {                                     \
     return tk::tangent_fit<T>(cs, which, count);                                                   \
+  }                                                                                                \
+  int tg_sn_panel_adjoint_##SUF(const T* vals, long long vs, const T* pre, T* gvals, long long ps, \
+                                const int* panel_idx, const int* schur_idx, int P, int W, int M,   \
+                                int dummy, double* work, int B, int cs, void* stream) {            \
+    return tk::launch_panel_adjoint<T>(vals, vs, pre, gvals, ps, panel_idx, schur_idx, P, W, M,    \
+                                       dummy, work, B, cs, stream);                                \
   }
 
 TG_SN_ENTRY(f32, float)

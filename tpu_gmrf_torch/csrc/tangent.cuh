@@ -3,7 +3,9 @@
 // sn_panel_tangent, K21 sn_takahashi_tangent (csrc/supernodal.cu) and K22
 // bt_factor_tangent (csrc/banded.cu): the derivative of the selected inverse,
 // Sigma' = -Sigma Q' Sigma on the fill, in a direction Q' that lies on the
-// fill.
+// fill. And the adjoint of the panel's Cholesky, for K24 bt_factor_adjoint
+// and K25 sn_panel_adjoint: the cotangent of Q on the fill from that of the
+// factor L (the derivative of a sample, a triangular solve or L z).
 //
 // A panel's operands are gathered from the flat value buffers into a float64
 // workspace of its own (row-major, W x W, M x W, M x M), every product runs
@@ -204,6 +206,50 @@ __device__ inline void takahashi_tangent(const Team& team, int W, int M, const d
   gemm(team, M, W, M, SUB, FULL, Srr, M, false, dC, W, false, dSrj, W, smem);
   gemm(team, W, W, M, SUB, LOWER_OUT, dC, W, true, Srj, W, false, dSjj, W, smem);
   gemm(team, W, W, M, SUB, LOWER_OUT, C, W, true, dSrj, W, false, dSjj, W, smem);
+}
+
+// The adjoint of one panel's Cholesky, the reverse of K6's step Ld = chol(Ajj),
+// Lb = Arj Ld^-T, U = Lb Lb^T (U subtracted from the ancestors' lower entries).
+// In: Ld (W x W lower, padded columns with a unit pivot), Lb (M x W),
+// A = Ld^-T Ld^-1 (symmetric), gLd (the cotangent of Ld's lower triangle; its
+// upper triangle is ignored and overwritten), gLb (M x W, overwritten), Sr
+// (M x M, its lower triangle: the cotangent of the ancestors' lower entries
+// that U is subtracted from). Out: gArj = gLb' Ld^-1 with
+// gLb' = gLb - (Sr + Sr^T) Lb, and gAjj (lower, the cotangent of Ajj's lower
+// entries) = tril(Ld^-T (X + X^T) Ld^-1), its diagonal halved, with
+// X = Phi(Ld^T gLd'), gLd' = tril(gLd - gArj^T Lb): the reverse sweep of the
+// factorization (Murray 2016, Cholesky adjoint by blocks). Ld^-1 = Ld^T A, its
+// lower triangle (lower_inverse). Scratch: Linv, T1, T2 (W x W), Sf (M x M).
+__device__ inline void panel_adjoint(const Team& team, int W, int M, const double* Ld, const double* Lb,
+                                     const double* A, double* gLd, double* gLb, const double* Sr, double* Linv,
+                                     double* T1, double* T2, double* Sf, double* gAjj, double* gArj, double* smem) {
+  lower_inverse(team, W, Ld, A, Linv, smem);
+  if (M > 0) {
+    for (int e = first(team); e < M * M; e += stride(team)) {  // Sr + Sr^T from Sr's lower triangle
+      const int i = e / M, j = e % M;
+      Sf[e] = i > j ? ld(Sr + e) : i < j ? ld(Sr + j * M + i) : 2.0 * ld(Sr + e);
+    }
+    team_sync();
+    gemm(team, M, W, M, SUB, FULL, Sf, M, false, Lb, W, false, gLb, W, smem);
+    gemm(team, M, W, W, SET, B_LOWER, gLb, W, false, Linv, W, false, gArj, W, smem);
+    gemm(team, W, W, M, SUB, LOWER_OUT, gArj, W, true, Lb, W, false, gLd, W, smem);
+  }
+  for (int e = first(team); e < W * W; e += stride(team))
+    if (e / W < e % W) gLd[e] = 0.0;
+  team_sync();
+  gemm(team, W, W, W, SET, A_UPPER | B_LOWER | LOWER_OUT, Ld, W, true, gLd, W, false, T1, W, smem);
+  for (int e = first(team); e < W * W; e += stride(team)) {  // X + X^T, X = Phi(T1): the diagonal once
+    const int i = e / W, j = e % W;
+    T2[e] = i >= j ? ld(T1 + e) : ld(T1 + j * W + i);
+  }
+  team_sync();
+  gemm(team, W, W, W, SET, B_LOWER, T2, W, false, Linv, W, false, T1, W, smem);
+  gemm(team, W, W, W, SET, A_UPPER | LOWER_OUT, Linv, W, true, T1, W, false, gAjj, W, smem);
+  for (int e = first(team); e < W * W; e += stride(team)) {
+    const int i = e / W, j = e % W;
+    if (i <= j) gAjj[e] = i == j ? 0.5 * ld(gAjj + e) : 0.0;
+  }
+  team_sync();
 }
 
 }  // namespace tgt

@@ -1,6 +1,6 @@
 // Batched tridiagonal kernels K1-K3: bidiagonal Cholesky with logdet,
-// triangular solves, and the Takahashi selected inverse; and K19, the
-// selected inverse's tangent.
+// triangular solves, and the Takahashi selected inverse; K19, the
+// selected inverse's tangent; and K23, the factorization's adjoint.
 //
 // Replaces (JAX reference, tpu_gmrf/):
 //   K1 tridiag_factor  solvers/prefix.py:53 `mobius_recurrence` as used by
@@ -14,6 +14,10 @@
 //                      `selinv_tridiag` through the factorization (the
 //                      reference has no kernel of its own for it): the
 //                      tangent of K1's pivots and of K3's recurrence.
+//   K23 tridiag_factor_adjoint  JAX's AD (reverse mode) of
+//                      solvers/tridiag.py:102-129 `tridiag_factorize`, as
+//                      `jax.grad` of a sample (solvers/tridiag.py:51-65:
+//                      backward_solve, forward_solve, sqrt_matvec) reaches it.
 //
 // What bounds them on the card: each chain is a length-n first-order
 // recurrence. At the flagship shape (B=256 chains, n=500) the whole batch
@@ -67,6 +71,16 @@
 // r'_j = (c'_j - r_j delta'_j)/delta_j, which writes dzdiag and
 // dzoff_j = -(r'_j z_{j+1} + r_j z'_{j+1}). Bound, like K1-K3, by the
 // latency of the dependent steps.
+//
+// K23: the adjoint of K1 from the cotangents (d', e') of the factor to those
+// (a', c') of the rows. d = sqrt(delta), e = c / d give the pivots' cotangent
+// g_j = (d'_j - e'_j e_j / d_j) / (2 d_j), and the pivot recurrence
+// delta_{j+1} = a_{j+1} - c_j^2 / delta_j runs backwards as the linear
+// recurrence x_j = g_j + r_j^2 x_{j+1} (r = e / d, x_n = 0): K3's backward
+// scan with g in place of 1/d^2, on a block per chain in K19's shape (four
+// arrays a tile). The replay writes a'_j = x_j and
+// c'_j = (e'_j - 2 e_j x_{j+1}) / d_j. Bound, like K1-K3, by the latency of the
+// dependent steps.
 //
 // Each entry point launches on the given stream and returns
 // cudaGetLastError() so the Python wrapper can raise. Nothing is allocated
@@ -516,6 +530,78 @@ __global__ void __launch_bounds__(kMaxThreads)
   }
 }
 
+// K23. x_j = g_j + r_j^2 x_{j+1}, g_j = (d'_j - e'_j e_j / d_j) / (2 d_j), r_j = e_j / d_j
+// (r_{n-1} = e'_{n-1} = 0); a'_j = x_j, c'_j = (e'_j - 2 e_j x_{j+1}) / d_j.
+template <typename T>
+__global__ void __launch_bounds__(kMaxThreads)
+    tridiag_factor_adjoint_kernel(const T* __restrict__ d, const T* __restrict__ e, const T* __restrict__ gd,
+                                  const T* __restrict__ ge, T* __restrict__ ga, T* __restrict__ gc, int n, int m) {
+  using namespace scan;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int gsize = blockDim.x, nw = gsize / 32, t = threadIdx.x;
+  const long chain = blockIdx.x;
+  const int s = m | 1, tile = gsize * m, ntiles = (n + tile - 1) / tile;
+  T* sd = reinterpret_cast<T*>(smem_raw);  // d, then a'
+  T* se = sd + gsize * s;                  // e, then c'
+  T* s1 = se + gsize * s;                  // d'
+  T* s2 = s1 + gsize * s;                  // e'
+  Affine<W>* wmaps = reinterpret_cast<Affine<W>*>(s2 + gsize * s);
+  W* wstates = reinterpret_cast<W*>(wmaps + 32);
+  T* slot = reinterpret_cast<T*>(wstates + 32);
+  const T* dr = d + chain * n;
+  const T* er = e + chain * (n - 1);
+  const T* gdr = gd + chain * n;
+  const T* ger = ge + chain * (n - 1);
+  T* ar = ga + chain * n;
+  T* cr = gc + chain * (n - 1);
+  T* md = sd + t * s;
+  T* me = se + t * s;
+  T* m1 = s1 + t * s;
+  T* m2 = s2 + t * s;
+  const int r0 = t * m;
+  W carry = 0;  // x_n = 0; row n-1's map ignores it
+  for (int ti = ntiles - 1; ti >= 0; --ti) {
+    const int t0 = ti * tile, R = min(tile, n - t0), rows = max(0, min(m, R - r0));
+    const int last = n - 1 - t0 - r0;  // the chain's last row, as a row of this segment
+#pragma unroll
+    for (int q = 0; q < kSegMax; ++q) {
+      const int j = t + q * gsize;
+      if (q < m && j < R) {
+        const int p = seg_pos(j, m, s);
+        const bool inner = t0 + j < n - 1;
+        sd[p] = dr[t0 + j];
+        se[p] = inner ? er[t0 + j] : T(0);
+        s1[p] = gdr[t0 + j];
+        s2[p] = inner ? ger[t0 + j] : T(0);
+      }
+    }
+    group_sync(nw);
+    reverse_tile(
+        rows, r0, carry, nw, wmaps, wstates, slot,
+        [&](int i, const Affine<W>& below) -> Affine<W> {
+          const W dj = md[i], ej = me[i], r = i == last ? W(0) : ej / dj, a = r * r;
+          return {a * below.A, a * below.B + (W(m1[i]) - W(m2[i]) * ej / dj) / (W(2) * dj)};
+        },
+        [&](int i, T x) {
+          const T dj = md[i], ej = me[i], r = i == last ? T(0) : ej / dj;
+          if (i != last) me[i] = (m2[i] - T(2) * ej * x) / dj;
+          x = (m1[i] - m2[i] * ej / dj) / (T(2) * dj) + r * r * x;
+          md[i] = x;
+          return x;
+        });
+#pragma unroll
+    for (int q = 0; q < kSegMax; ++q) {
+      const int j = t + q * gsize;
+      if (q < m && j < R) {
+        const int p = seg_pos(j, m, s);
+        ar[t0 + j] = sd[p];
+        if (t0 + j < n - 1) cr[t0 + j] = se[p];
+      }
+    }
+    group_sync(nw);
+  }
+}
+
 // Dynamic shared memory above the 48 KB default needs the kernel's opt-in,
 // asked once per device for the largest size seen (`granted`: the caller's,
 // one table per kernel).
@@ -586,6 +672,19 @@ int launch_selinv_tangent(const T* d, const T* e, const T* z, const T* da, const
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+int launch_factor_adjoint(const T* d, const T* e, const T* gd, const T* ge, T* ga, T* gc, int B, int n, int nw, int m,
+                          void* stream) {
+  if (B == 0) return 0;
+  if (m < 1 || m > kSegMax || nw < 1 || 32 * nw > kMaxThreads) return (int)cudaErrorInvalidValue;
+  const size_t smem = scan_smem(nw, m, 4, sizeof(T));
+  static size_t granted[64];
+  int rc = allow_smem(tridiag_factor_adjoint_kernel<T>, smem, granted);
+  if (rc) return rc;
+  tridiag_factor_adjoint_kernel<T><<<B, 32 * nw, smem, (cudaStream_t)stream>>>(d, e, gd, ge, ga, gc, n, m);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -606,6 +705,10 @@ extern "C" {
   int tg_tridiag_selinv_tangent_##SUF(const T* d, const T* e, const T* z, const T* da, const T* dc, \
                                       T* dz, T* dzoff, int B, int n, int nw, int m, void* stream) { \
     return launch_selinv_tangent<T>(d, e, z, da, dc, dz, dzoff, B, n, nw, m, stream);             \
+  }                                                                                               \
+  int tg_tridiag_factor_adjoint_##SUF(const T* d, const T* e, const T* gd, const T* ge, T* ga,     \
+                                      T* gc, int B, int n, int nw, int m, void* stream) {         \
+    return launch_factor_adjoint<T>(d, e, gd, ge, ga, gc, B, n, nw, m, stream);                   \
   }
 
 TG_TRIDIAG_ENTRY(f32, float)

@@ -8,7 +8,11 @@ K12 ``bt_trsv``, K13 ``bt_matvec`` (and its second entry ``bt_sqrt``), K14
 ``bsr_spmm``, K15 ``bsr_outer``, K16 ``kl_columns``, K17 ``block_inv`` and
 K18 ``spike_reduced``, and the tangents of the selected inverse K19
 ``tridiag_selinv_tangent``, K20 ``sn_panel_tangent``, K21
-``sn_takahashi_tangent`` and K22 ``bt_factor_tangent``; K7 has a second mode, ``sn_multiply``, and K11 and K12
+``sn_takahashi_tangent`` and K22 ``bt_factor_tangent``, and the factorizations'
+adjoints (the derivative of a sample, a triangular solve or L·z) K23
+``tridiag_factor_adjoint``, K24 ``bt_factor_adjoint`` and K25
+``sn_panel_adjoint``; K7 has a second mode, ``sn_multiply`` (with its
+transpose), K13's second entry ``bt_sqrt`` a transpose mode, and K11 and K12
 a block entry each, ``bt_factor_blocks`` and ``bt_trsv_blocks`` (the SPIKE
 solve's chunk elimination).
 Sources are in ``tpu_gmrf_torch/csrc/``; ``build`` compiles them with nvcc
@@ -19,6 +23,8 @@ formulation (K4, K13 or K14) for a fixed sparse matrix.
 from .banded import (
     BandedTables,
     bt_factor,
+    bt_factor_adjoint,
+    bt_factor_adjoint_plain,
     bt_factor_blocks,
     bt_factor_blocks_plain,
     bt_factor_plain,
@@ -28,6 +34,7 @@ from .banded import (
     bt_matvec_plain,
     bt_sqrt,
     bt_sqrt_plain,
+    bt_sqrt_t_plain,
     bt_trsv,
     bt_trsv_blocks,
     bt_trsv_blocks_plain,
@@ -62,9 +69,12 @@ from .supernodal import (
     BACKWARD,
     FORWARD,
     MULTIPLY,
+    MULTIPLY_T,
     sn_multiply,
     sn_multiply_plain,
     sn_panel,
+    sn_panel_adjoint,
+    sn_panel_adjoint_plain,
     sn_panel_plain,
     sn_takahashi,
     sn_takahashi_plain,
@@ -84,6 +94,8 @@ from .tridiag import (
     SOLVE_LT,
     scan_launch,
     tridiag_factor,
+    tridiag_factor_adjoint,
+    tridiag_factor_adjoint_plain,
     tridiag_factor_plain,
     tridiag_selinv,
     tridiag_selinv_plain,
@@ -116,6 +128,8 @@ __all__ = [
     "spike_reduced", "spike_reduced_plain",
     "sn_panel_tangent", "sn_panel_tangent_plain", "sn_takahashi_tangent", "sn_takahashi_tangent_plain",
     "bt_factor_tangent", "bt_factor_tangent_plain",
+    "tridiag_factor_adjoint", "tridiag_factor_adjoint_plain", "bt_factor_adjoint", "bt_factor_adjoint_plain",
+    "bt_sqrt_t_plain", "sn_panel_adjoint", "sn_panel_adjoint_plain", "MULTIPLY_T",
 ]
 
 KERNELS = {
@@ -148,6 +162,9 @@ KERNELS = {
     "sn_panel_tangent": sn_panel_tangent,
     "sn_takahashi_tangent": sn_takahashi_tangent,
     "bt_factor_tangent": bt_factor_tangent,
+    "tridiag_factor_adjoint": tridiag_factor_adjoint,
+    "bt_factor_adjoint": bt_factor_adjoint,
+    "sn_panel_adjoint": sn_panel_adjoint,
 }
 
 

@@ -49,7 +49,13 @@ inverse's derivative): from P, A_k = L_k⁻ᵀL_k⁻¹ (K8's first entry on the
 banded blocks) and the blocks' Q̇ in P's layout, it gives L̇_k and Ṁ_k in
 place, block after block, a thread-block cluster per chain
 (`tangent_cluster`) with its products in float64 on a workspace
-(`bt_tangent_work`) on the float64 tensor cores.
+(`bt_tangent_work`) on the float64 tensor cores. K24 `bt_factor_adjoint`
+is its adjoint: from P, A_k and the factor's cotangent (L̄_k, M̄_k in P's
+layout) it gives the cotangent of Q's blocks (the lower entries of D_k and
+E_k) in place, the blocks walked backwards, in K22's design.
+`bt_sqrt(..., transpose=True)` is K13's second entry's transpose mode,
+y_k = L_kᵀz_k + M_kᵀz_{k+1}: a block of threads per column tile of a block,
+each thread walking its column down the rows.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises. ``<wrapper>.launches`` counts launches.
@@ -64,13 +70,13 @@ import numpy as np
 import torch
 
 from . import build
-from .supernodal import _chol_boosted, _sm_count, _sym, panel_tangent_math
+from .supernodal import _chol_boosted, _sm_count, _sym, panel_adjoint_math, panel_tangent_math
 from .tridiag import SOLVE_BOTH, SOLVE_L, SOLVE_LT, _fn, _on_cuda, _stream
 
 __all__ = ["BandedTables", "bt_factor", "bt_factor_plain", "bt_trsv", "bt_trsv_plain",
            "bt_matvec", "bt_matvec_plain", "bt_sqrt", "bt_sqrt_plain", "matvec_split", "trsv_workspace",
            "bt_factor_blocks", "bt_factor_blocks_plain", "bt_trsv_blocks", "bt_trsv_blocks_plain",
-           "factor_cluster"]
+           "factor_cluster", "bt_factor_adjoint", "bt_factor_adjoint_plain", "bt_sqrt_t_plain"]
 
 MV_ROWS = 64  # kMvR of the source: rows of a matrix block per unit of K13
 MV_CLUSTER = 8  # the largest cluster of K13's units (portable)
@@ -231,6 +237,24 @@ def bt_factor_tangent_plain(P: torch.Tensor, pre: torch.Tensor, dP: torch.Tensor
     return dP
 
 
+def bt_factor_adjoint_plain(P: torch.Tensor, pre: torch.Tensor, G: torch.Tensor):
+    """K24's function: G (B, K, 2s, s) holds the factor's cotangent in P's
+    layout (L̄_k's lower triangle in rows 0..s, M̄_k in rows s..2s) and is
+    overwritten with that of Q's blocks (Ā_k's lower entries, Ē_k), the last
+    block first: block k's M̄_k takes −(Ā_{k+1} + Ā_{k+1}ᵀ)M_k from the
+    block below (`panel_adjoint_math`). A_k = L_k⁻ᵀL_k⁻¹ in rows 0..s of pre's
+    panels (lower)."""
+    K, s = P.shape[1], P.shape[3]
+    for k in reversed(range(K)):
+        below = k < K - 1
+        Sr = torch.tril(G[:, k + 1, :s]) if below else None
+        gA, gE = panel_adjoint_math(torch.tril(P[:, k, :s]), P[:, k, s:], _sym(torch.tril(pre[:, k, :s])),
+                                    G[:, k, :s], G[:, k, s:] if below else torch.zeros_like(P[:, k, s:]), Sr)
+        G[:, k, :s] = gA
+        G[:, k, s:] = gE if below else 0.0
+    return G
+
+
 def _rows_to_blocks(b: torch.Tensor, perm: torch.Tensor, B: int, K: int, s: int, k: int) -> torch.Tensor:
     """Rows b (B·k, n), chain-major, gathered through perm (block position →
     original index) and zero-padded into blocks (B, K, s, k): K12's first step."""
@@ -340,6 +364,19 @@ def bt_sqrt_plain(P: torch.Tensor, tables: BandedTables, z: torch.Tensor, k: int
     return _unpermuted(y, perm)
 
 
+def bt_sqrt_t_plain(P: torch.Tensor, tables: BandedTables, z: torch.Tensor, k: int = 1) -> torch.Tensor:
+    """`bt_sqrt`'s transpose mode's function, y_k = L_kᵀz_k + M_kᵀz_{k+1}, on
+    rows z (B·k, n)."""
+    perm = tables.on(z.device)["perm_l"]
+    K, s = tables.K, tables.s
+    Pr = P if k == 1 else P.repeat_interleave(k, 0)
+    zb = _permuted_blocks(z, perm, K, s)
+    y = torch.einsum("rkji,rkj->rki", torch.tril(Pr[:, :, :s]), zb)
+    if K > 1:
+        y[:, :-1] += torch.einsum("rkji,rkj->rki", Pr[:, :-1, s:], zb[:, 1:])
+    return _unpermuted(y, perm)
+
+
 # ---- wrappers -------------------------------------------------------------------
 
 
@@ -378,7 +415,7 @@ def bt_trsv(P: torch.Tensor, tables: BandedTables, b: torch.Tensor, k: int = 1, 
         raise ValueError(f"bt_trsv: shapes P {tuple(P.shape)}, b {tuple(b.shape)}, k={k}")
     if mode not in (SOLVE_L, SOLVE_LT, SOLVE_BOTH):
         raise ValueError(f"bt_trsv: unknown mode {mode}")
-    if torch.is_grad_enabled() and (P.requires_grad or b.requires_grad):
+    if torch.is_grad_enabled() and P.requires_grad:
         raise NotImplementedError("bt_trsv has no backward; call it under torch.no_grad()")
     if not _on_cuda("bt_trsv", P, b):
         return bt_trsv_plain(P, tables, b, k, mode)
@@ -539,17 +576,31 @@ def bt_matvec(D: torch.Tensor, E: torch.Tensor, perm: torch.Tensor, x: torch.Ten
     return y
 
 
-def bt_sqrt(P: torch.Tensor, tables: BandedTables, z: torch.Tensor, k: int = 1) -> torch.Tensor:
-    """K13's second entry: y = L z with K11's factor P (B, K, 2s, s) on rows
-    z (B·k, n), chain-major, in the original numbering. Not differentiable."""
+def bt_sqrt(P: torch.Tensor, tables: BandedTables, z: torch.Tensor, k: int = 1, transpose: bool = False) -> torch.Tensor:
+    """K13's second entry: y = L z (or, with `transpose`, Lᵀ z) with K11's
+    factor P (B, K, 2s, s) on rows z (B·k, n), chain-major, in the original
+    numbering. Not differentiable."""
     K, s, n = tables.K, tables.s, tables.n
     if P.shape[1:] != (K, 2 * s, s) or z.ndim != 2 or z.shape != (P.shape[0] * k, n):
         raise ValueError(f"bt_sqrt: shapes P {tuple(P.shape)}, z {tuple(z.shape)}, k={k}")
-    if torch.is_grad_enabled() and (P.requires_grad or z.requires_grad):
+    if torch.is_grad_enabled() and P.requires_grad:
         raise NotImplementedError("bt_sqrt has no backward; call it under torch.no_grad()")
     if not _on_cuda("bt_sqrt", P, z):
-        return bt_sqrt_plain(P, tables, z, k)
+        return (bt_sqrt_t_plain if transpose else bt_sqrt_plain)(P, tables, z, k)
     P = P.contiguous()
+    if transpose:
+        perm = tables.on(z.device)["perm"]
+        z = z.contiguous()
+        y = torch.empty_like(z)
+        B = P.shape[0]
+        nv = 1 if k <= 1 else 4 if k <= 4 else 8
+        chunks = -(-k // nv)
+        work = z.new_empty(2 * B * chunks * nv * K * s)
+        code = _fn("tg_bt_sqrt_t", z.dtype)(P.data_ptr(), K, s, n, perm.data_ptr(), z.data_ptr(), y.data_ptr(), k, B,
+                                          nv, chunks, work.data_ptr(), _stream(z))
+        build.check(code, "bt_sqrt", f" (transpose) at B={B} K={K} s={s} k={k} {z.dtype}")
+        bt_sqrt.launches += 1
+        return y
     panel = 2 * s * s
     sub = P.data_ptr() + s * s * P.element_size()  # M_k: rows s..2s of panel k
     y = _launch_matvec("bt_sqrt", P, panel, K * panel, sub, panel, K * panel, K, s, n,
@@ -594,6 +645,37 @@ def bt_factor_tangent(P: torch.Tensor, pre: torch.Tensor, dP: torch.Tensor):
     return dP
 
 
+def bt_factor_adjoint(P: torch.Tensor, pre: torch.Tensor, G: torch.Tensor):
+    """K24: the cotangent of Q's blocks (Ā_k's lower entries, Ē_k) in place in
+    G (B, K, 2s, s), which holds the factor's (L̄_k's lower triangle, M̄_k),
+    from P and A_k in pre (B, K, 2s, s; K8's first entry on the blocks). pre
+    and G may be views of (B, K·2s·s + 1) buffers."""
+    if P.ndim != 4 or pre.shape != P.shape or G.shape != P.shape:
+        raise ValueError(f"bt_factor_adjoint: P, pre and G must be (B, K, 2s, s), got {tuple(P.shape)}, "
+                         f"{tuple(pre.shape)}, {tuple(G.shape)}")
+    if any(t.device != P.device for t in (pre, G)):
+        raise ValueError("bt_factor_adjoint: tensors on different devices")
+    if not _on_cuda("bt_factor_adjoint", P):
+        return bt_factor_adjoint_plain(P, pre, G)
+    B, K, s = P.shape[0], P.shape[1], P.shape[3]
+    for t in (P, pre, G):
+        if t.dtype != P.dtype or t.stride()[1:] != (2 * s * s, s, 1):
+            raise ValueError("bt_factor_adjoint: P, pre and G must be row-major blocks of one dtype")
+    if pre.stride(0) != G.stride(0) or not P.is_contiguous():
+        raise ValueError("bt_factor_adjoint: pre and G must share a chain stride, P be contiguous")
+    if B == 0:
+        return G
+    work = torch.empty(B * bt_tangent_work(s), dtype=torch.float64, device=P.device)
+    cs = tangent_cluster(s, s, B, _fit("tg_bt_factor_adjoint_fit", P.dtype, "bt_factor_adjoint"), _sm_count(P.device),
+                         "bt_factor_adjoint")
+    code = _fn("tg_bt_factor_adjoint", P.dtype)(P.data_ptr(), pre.data_ptr(), G.data_ptr(), pre.stride(0), K, s,
+                                               work.data_ptr(), B, cs, _stream(P))
+    build.check(code, "bt_factor_adjoint", f" at K={K} s={s} B={B} {P.dtype}, cluster={cs}")
+    bt_factor_adjoint.launches += 1
+    return G
+
+
+bt_factor_adjoint.launches = 0
 bt_factor_tangent.launches = 0
 bt_factor.launches = 0
 bt_trsv.launches = 0

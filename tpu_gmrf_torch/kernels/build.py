@@ -66,8 +66,19 @@ _SIGNATURES = {
     # vals, vstride, pre, dvals, sig, dsig, pstride (all but vals'), panel_idx, schur_idx, P, W, M, dummy, work, B,
     # cluster size, stream
     "tg_sn_takahashi_tangent": [_P, _L, _P, _P, _P, _P, _L, _P, _P, _I, _I, _I, _I, _P, _I, _I, _P],
-    # cluster size, which (0: K20, 1: K21), out: how many such clusters the card holds
+    # cluster size, which (0: K20, 1: K21, 2: K25), out: how many such clusters the card holds
     "tg_sn_tangent_fit": [_I, _I, ctypes.POINTER(_I)],
+    # vals, vstride, pre, gvals, pstride (pre's and gvals'), panel_idx, schur_idx, P, W, M, dummy, work (float64,
+    # `tangent_work` per supernode and chain), B, cluster size, stream
+    "tg_sn_panel_adjoint": [_P, _L, _P, _P, _L, _P, _P, _I, _I, _I, _I, _P, _I, _I, _P],
+    # d, e, d̄, ē, ā, c̄, B, n, the scan's shape, stream
+    "tg_tridiag_factor_adjoint": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # P, pre, G, pstride (pre's and G's, per chain), K, s, work (float64, `bt_tangent_work` per chain), B,
+    # cluster size, stream
+    "tg_bt_factor_adjoint": [_P, _P, _P, _L, _I, _I, _P, _I, _I, _P],
+    "tg_bt_factor_adjoint_fit": [_I, ctypes.POINTER(_I)],
+    # P, K, s, n, perm, x, y, kk, B, nv, chunks, work, stream: bt_sqrt's transpose mode
+    "tg_bt_sqrt_t": [_P, _I, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P],
     # P, pre, dP, pstride (pre's and dP's, per chain), K, s, work (float64, `bt_tangent_work` per chain), B,
     # cluster size, stream
     "tg_bt_factor_tangent": [_P, _P, _P, _L, _I, _I, _P, _I, _I, _P],

@@ -188,7 +188,7 @@ def dense_trsv(L: torch.Tensor, s: torch.Tensor, b: torch.Tensor, mode: int = SO
         raise ValueError(f"dense_trsv: shapes L {tuple(L.shape)}, s {tuple(s.shape)}, b {tuple(b.shape)}")
     if mode not in (SOLVE_L, SOLVE_LT, SOLVE_BOTH):
         raise ValueError(f"dense_trsv: unknown mode {mode}")
-    if torch.is_grad_enabled() and any(x.requires_grad for x in (L, s, b)):
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (L, s)):
         raise NotImplementedError("dense_trsv has no backward; call it under torch.no_grad()")
     if not _on_cuda("dense_trsv", L, s, b):
         return dense_trsv_plain(L, s, b, mode)

@@ -18,6 +18,12 @@ chain) (`banded.tangent_cluster`: one block where the batch fills the card,
 up to 16 for the few wide panels), every product in float64 on a workspace
 (`tangent_work`) on the float64 tensor cores. Both read Ld⁻¹ as
 Ldᵀ·A with A = Ld⁻ᵀLd⁻¹ from K8's first entry.
+K25 `sn_panel_adjoint` is the adjoint of K6 (the derivative of a sample, a
+triangular solve or L·z): from the factor's cotangent on vals' layout it
+gives the cotangent of a class batch's panel inputs in place, reading the
+ancestors' through the Schur table; the solver runs it level by level,
+descending, in K20's design. `sn_multiply(..., transpose=True)` is K7's mode
+3, the product with Lᵀ: x[cols] = Ldᵀ·z[cols] + Lbᵀ·z[rows].
 A class batch `c` is a dict of device tables for the P supernodes of this
 level: ``panel`` (P, W+M, W), ``cols`` (P, W), ``rows`` (P, M) and
 ``schur`` (P, M, M), int32, padded with ``dummy`` (= nnzL) / ``ndummy``
@@ -49,9 +55,10 @@ __all__ = [
     "sn_panel_plain", "sn_trsv_plain", "sn_multiply_plain", "sn_takahashi_prep_plain", "sn_takahashi_sweep_plain",
     "sn_takahashi_plain", "FORWARD", "BACKWARD", "MULTIPLY",
     "sn_panel_tangent", "sn_panel_tangent_plain", "sn_takahashi_tangent", "sn_takahashi_tangent_plain",
+    "sn_panel_adjoint", "sn_panel_adjoint_plain", "panel_adjoint_math", "MULTIPLY_T",
 ]
 
-FORWARD, BACKWARD, MULTIPLY = 0, 1, 2
+FORWARD, BACKWARD, MULTIPLY, MULTIPLY_T = 0, 1, 2, 3
 K8_TILE = 64  # the products' row tile (kT in csrc/tiles.cuh): K6's one-block path and K8's first entry stop at it
 K8_CLUSTER_MAX = 8  # blocks per cluster of K8's one-launch form (the portable limit)
 
@@ -170,12 +177,16 @@ def _trsv_plain(vals, c, x, u, mode, k):
     x[:, t["live_cols"]] = yc.reshape(x.shape[0], -1).index_select(1, t["cmask_at"])
 
 
-def sn_multiply_plain(vals, group, out, z, u, k: int = 1):
+def sn_multiply_plain(vals, group, out, z, u, k: int = 1, transpose: bool = False):
     """K7's mode MULTIPLY (``supernodal.py:1296`` `sqrt_step`) on the class
     batches of `group`: out[cols] += Ld·z[cols] without the padded columns'
-    unit diagonal, u = Lb·z[cols]; out, z (B·k, n+1) rows, chain-major."""
+    unit diagonal, u = Lb·z[cols]; out, z (B·k, n+1) rows, chain-major. With
+    `transpose` (mode MULTIPLY_T): out[cols] = Ldᵀ·z[cols] + Lbᵀ·z[rows]."""
     for c in group["classes"]:
-        _multiply_plain(vals, c, out, z, u, k)
+        if transpose:
+            _multiply_t_plain(vals, c, out, z, k)
+        else:
+            _multiply_plain(vals, c, out, z, u, k)
 
 
 def _multiply_plain(vals, c, out, z, u, k):
@@ -191,6 +202,19 @@ def _multiply_plain(vals, c, out, z, u, k):
     if c["M"]:
         P = t["cols"].shape[0]
         u[:, c["fbase"]: c["fbase"] + P * c["M"]] = (Lb @ zc)[..., 0].reshape(out.shape[0], -1)
+
+
+def _multiply_t_plain(vals, c, out, z, k):
+    W = c["W"]
+    t = _plain_tables(c, vals.device)
+    Ld, Lb = _panels(vals, t, W)
+    Ld = Ld - torch.diag_embed((~t["cmask"]).to(vals.dtype))
+    if k > 1:
+        Ld, Lb = Ld.repeat_interleave(k, 0), Lb.repeat_interleave(k, 0)
+    y = (Ld.mT @ _gather(z, t["cols"])[..., None])[..., 0]
+    if c["M"]:
+        y = y + (Lb.mT @ _gather(z, t["rows"])[..., None])[..., 0]
+    out[:, t["live_cols"]] = y.reshape(out.shape[0], -1).index_select(1, t["cmask_at"])
 
 
 def sn_takahashi_prep_plain(vals, pre, c):
@@ -243,6 +267,24 @@ def panel_tangent_math(Ld, Lb, A, dAjj, dArj):
     return Ld @ F, dLb, dLb @ Lb.mT + Lb @ dLb.mT
 
 
+def panel_adjoint_math(Ld, Lb, A, gLd, gLb, Sr=None):
+    """The adjoint of one panel's Cholesky (batched), the reverse of
+    Ld = chol(A_JJ), Lb = A_RJ·Ld⁻ᵀ, U = Lb·Lbᵀ: from the cotangents of Ld
+    (its lower triangle), Lb and, in Sr, of the lower entries U is
+    subtracted from (lower; None without rows below), those of A_JJ's lower
+    entries and of A_RJ: L̄b' = L̄b − (Sr + Srᵀ)·Lb, Ā_RJ = L̄b'·Ld⁻¹,
+    L̄d' = tril(L̄d − Ā_RJᵀ·Lb), X = Φ(Ldᵀ·L̄d'), Ā_JJ = tril(Ld⁻ᵀ(X + Xᵀ)Ld⁻¹)
+    with its diagonal halved; Ld⁻¹ the lower triangle of Ldᵀ·A."""
+    Linv = torch.tril(Ld.mT @ A)
+    if Sr is not None:
+        gLb = gLb - (Sr + Sr.mT) @ Lb
+    gArj = gLb @ Linv
+    gLd = torch.tril(gLd - gArj.mT @ Lb)
+    X = torch.tril(Ld.mT @ gLd)
+    G = Linv.mT @ (X + X.mT - torch.diag_embed(torch.diagonal(X, dim1=-2, dim2=-1))) @ Linv
+    return torch.tril(G) - 0.5 * torch.diag_embed(torch.diagonal(G, dim1=-2, dim2=-1)), gArj
+
+
 def takahashi_tangent_math(Ld, A, C, dLd, dLb, Srr, dSrr, Srj):
     """The tangent of one Takahashi step (batched): Ċ = (L̇b − C·L̇d)·Ld⁻¹,
     Ȧ = −Ld⁻ᵀ(Y + Yᵀ)Ld⁻¹ with Y = Ld⁻¹L̇d, Σ̇_RJ = −Σ̇_RR·C − Σ_RR·Ċ,
@@ -269,6 +311,19 @@ def sn_panel_tangent_plain(vals, pre, dvals, c, du):
     if M:
         P = t["panel"].shape[0]
         du[:, c["ubase"]: c["ubase"] + P * M * M] = dU.reshape(vals.shape[0], -1)
+
+
+def sn_panel_adjoint_plain(vals, pre, gvals, c):
+    """K25's function on class batch `c`: gvals holds the factor's cotangent
+    on vals' layout, its batch panels overwritten with the cotangent of their
+    inputs (`panel_adjoint_math`), the ancestors' read through the Schur table."""
+    W, M = c["W"], c["M"]
+    t = _plain_tables(c, vals.device)
+    Ld, Lb = _panels(vals, t, W)
+    A = _sym(_gather(pre, t["panel"])[..., :W, :])
+    gp = _gather(gvals, t["panel"])
+    gAjj, gArj = panel_adjoint_math(Ld, Lb, A, gp[..., :W, :], gp[..., W:, :], _gather(gvals, t["schur"]) if M else None)
+    _write_live(gvals, t, torch.cat([gAjj, gArj], -2))
 
 
 def sn_takahashi_tangent_plain(vals, pre, dvals, sig, dsig, c):
@@ -459,16 +514,19 @@ def _launch_trsv(name, vals, group, x, u, mode, k, z):
     build.check(code, name, f" at {_shapes(group)} rows={x.shape[0]} {vals.dtype}")
 
 
-def sn_multiply(vals, group, out, z, u, k: int = 1):
+def sn_multiply(vals, group, out, z, u, k: int = 1, transpose: bool = False):
     """K7, mode MULTIPLY: out[cols] += Ld·z[cols] and Lb·z[cols] into u at
     each batch's fbase, for the class batches of `group`; out and z are (B·k,
     n+1) rows. The supernodes of a product do not depend on each other; the
-    caller adds u into out through the level's forward ELL plans (K5)."""
+    caller adds u into out through the level's forward ELL plans (K5). With
+    `transpose`, mode MULTIPLY_T: out[cols] = Ldᵀ·z[cols] + Lbᵀ·z[rows] (u
+    unused), each supernode writing only its own columns."""
     if out.shape != z.shape or out.shape[0] != vals.shape[0] * k:
         raise ValueError("sn_multiply: out and z must hold k rows of n+1 per chain")
     if not _on_cuda("sn_multiply", vals, out, z, *([u] if u is not None else [])):
-        return sn_multiply_plain(vals, group, out, z, u, k)
-    _launch_trsv("sn_multiply", vals, group, out, u, MULTIPLY, k, z)
+        return sn_multiply_plain(vals, group, out, z, u, k, transpose)
+    _launch_trsv("sn_multiply", vals, group, out, None if transpose else u, MULTIPLY_T if transpose else MULTIPLY,
+                 k, z)
     sn_multiply.launches += 1
 
 
@@ -590,6 +648,32 @@ def sn_takahashi_tangent(vals, pre, dvals, sig, dsig, c):
     sn_takahashi_tangent.launches += 1
 
 
+def sn_panel_adjoint(vals, pre, gvals, c):
+    """K25: the cotangent of class batch `c`'s panel inputs (the lower
+    entries of A_JJ, and A_RJ) in place in gvals (B, nnzL+1), which holds the
+    factor's cotangent on vals' layout and, at the batch's ancestors, their
+    inputs' (written by the launches of the levels above); L from vals,
+    A = Ld⁻ᵀLd⁻¹ from pre (K8's first entry)."""
+    if not _on_cuda("sn_panel_adjoint", vals, pre, gvals):
+        return sn_panel_adjoint_plain(vals, pre, gvals, c)
+    _check_class("sn_panel_adjoint", c, vals, ("panel", "schur"))
+    if gvals.shape != pre.shape:
+        raise ValueError("sn_panel_adjoint: pre and gvals must have one shape")
+    W, M, P, B = c["W"], c["M"], c["panel"].shape[0], vals.shape[0]
+    if not (P and B):
+        return
+    from .banded import _fit, tangent_cluster  # banded.py imports this module
+
+    cs = tangent_cluster(W, M, P * B, _fit("tg_sn_tangent_fit", vals.dtype, "sn_panel_adjoint", (2,)),
+                         _sm_count(vals.device), "sn_panel_adjoint")
+    code = _fn("tg_sn_panel_adjoint", vals.dtype)(
+        vals.data_ptr(), vals.shape[1], pre.data_ptr(), gvals.data_ptr(), pre.shape[1], c["panel"].data_ptr(),
+        c["schur"].data_ptr(), P, W, M, c["dummy"], _tangent_work(c, vals).data_ptr(), B, cs, _stream(vals))
+    build.check(code, "sn_panel_adjoint", f" at W={W} M={M} P={P} B={B} {vals.dtype}, cluster={cs}")
+    sn_panel_adjoint.launches += 1
+
+
+sn_panel_adjoint.launches = 0
 sn_panel_tangent.launches = 0
 sn_takahashi_tangent.launches = 0
 sn_panel.launches = 0

@@ -1,4 +1,4 @@
-"""Wrappers of the tridiagonal kernels K1-K3 and K19 and their plain versions.
+"""Wrappers of the tridiagonal kernels K1-K3, K19 and K23 and their plain versions.
 
 Each wrapper takes batched rows, one chain per row. A CPU tensor goes to the
 plain PyTorch version (the Hillis-Steele scans of ``solvers/prefix.py``); a
@@ -11,7 +11,9 @@ the warps and the rows per thread; a chain longer than a block's tile runs in
 tiles in sequence, K2's backward pass and K3 the last tile first), so no n is
 refused. K19, the tangent of K3 (Σ̇ = −Σ·Q̇·Σ on the tridiagonal), runs
 K2's forward scan and K3's backward one in turn on a block per chain
-(`tangent_launch`).
+(`tangent_launch`). K23, the adjoint of K1 (the cotangent of the rows a, c
+from that of the factor d, e), is K3's backward scan on the pivots'
+adjoint recurrence, in K19's shape.
 """
 
 from __future__ import annotations
@@ -24,8 +26,9 @@ from ..solvers.prefix import linear_recurrence, mobius_recurrence
 from . import build
 
 __all__ = [
-    "tridiag_factor", "tridiag_solve", "tridiag_selinv", "tridiag_selinv_tangent",
+    "tridiag_factor", "tridiag_solve", "tridiag_selinv", "tridiag_selinv_tangent", "tridiag_factor_adjoint",
     "tridiag_factor_plain", "tridiag_solve_plain", "tridiag_selinv_plain", "tridiag_selinv_tangent_plain",
+    "tridiag_factor_adjoint_plain",
     "SOLVE_L", "SOLVE_LT", "SOLVE_BOTH", "scan_launch", "tangent_launch",
 ]
 
@@ -94,6 +97,18 @@ def tridiag_selinv_tangent_plain(d: torch.Tensor, e: torch.Tensor, zdiag: torch.
     beta = torch.cat([2.0 * r * rdot * znext, zero], -1) - ddelta / (delta * delta)
     dz = linear_recurrence(torch.cat([r * r, zero], -1), beta, reverse=True)
     return dz, -(rdot * znext + r * dz[..., 1:])
+
+
+def tridiag_factor_adjoint_plain(d: torch.Tensor, e: torch.Tensor, gd: torch.Tensor, ge: torch.Tensor):
+    """K23's function: the cotangents (ā (B, n), c̄ (B, n-1)) of K1's rows
+    from those (d̄, ē) of its factor. With r = e/d and the pivots' cotangent
+    g_j = (d̄_j − ē_j e_j/d_j)/(2d_j), the recurrence x_j = g_j + r_j² x_{j+1}
+    runs backwards; ā = x and c̄_j = (ē_j − 2 e_j x_{j+1})/d_j."""
+    zero = torch.zeros_like(d[..., :1])
+    ge0 = torch.cat([ge, zero], -1)
+    r = torch.cat([e / d[..., :-1], zero], -1)
+    x = linear_recurrence(r * r, (gd - ge0 * r) / (2.0 * d), reverse=True)
+    return x, (ge - 2.0 * e * x[..., 1:]) / d[..., :-1]
 
 
 # ---- checks shared by the wrappers -----------------------------------------
@@ -189,14 +204,15 @@ def tridiag_factor(a: torch.Tensor, c: torch.Tensor):
 def tridiag_solve(d: torch.Tensor, e: torch.Tensor, b: torch.Tensor, mode: int = SOLVE_BOTH):
     """K2: solve with L (mode 0), Lᵀ (mode 1) or Q = L Lᵀ (mode 2) per chain.
 
-    d (B, n), e (B, n-1), b (B, n) or (B, n, k). Not differentiable."""
+    d (B, n), e (B, n-1), b (B, n) or (B, n, k). Not differentiable: the
+    factors' Functions (`solvers.base`) carry the gradients."""
     B, n = _check_rows("tridiag_solve", d, e)
     if b.shape[:2] != (B, n) or b.ndim not in (2, 3):
         raise ValueError(f"tridiag_solve: b must be (B, n) or (B, n, k), got {tuple(b.shape)}")
     if mode not in (SOLVE_L, SOLVE_LT, SOLVE_BOTH):
         raise ValueError(f"tridiag_solve: unknown mode {mode}")
-    if (d.requires_grad or e.requires_grad or b.requires_grad) and torch.is_grad_enabled():
-        raise NotImplementedError("tridiag_solve has no backward; call it under torch.no_grad()")
+    if (d.requires_grad or e.requires_grad) and torch.is_grad_enabled():
+        raise NotImplementedError("tridiag_solve has no backward in the factor; call it under torch.no_grad()")
     if not _on_cuda("tridiag_solve", d, e, b):
         return tridiag_solve_plain(d, e, b, mode)
     k = 1 if b.ndim == 2 else b.shape[2]
@@ -245,6 +261,26 @@ def tridiag_selinv_tangent(d: torch.Tensor, e: torch.Tensor, zdiag: torch.Tensor
     return dz, dzoff
 
 
+def tridiag_factor_adjoint(d: torch.Tensor, e: torch.Tensor, gd: torch.Tensor, ge: torch.Tensor):
+    """K23: the cotangents (ā (B, n), c̄ (B, n-1)) of K1's rows a, c from
+    those (d̄ (B, n), ē (B, n-1)) of its factor d, e. Not differentiable."""
+    B, n = _check_rows("tridiag_factor_adjoint", d, e)
+    if gd.shape != d.shape or ge.shape != e.shape:
+        raise ValueError("tridiag_factor_adjoint: d̄ must be (B, n), ē (B, n-1)")
+    if not _on_cuda("tridiag_factor_adjoint", d, e, gd, ge):
+        return tridiag_factor_adjoint_plain(d, e, gd, ge)
+    ga = torch.empty_like(d)
+    gc = torch.empty_like(e)
+    code = _fn("tg_tridiag_factor_adjoint", d.dtype)(
+        d.data_ptr(), e.data_ptr(), gd.data_ptr(), ge.data_ptr(), ga.data_ptr(), gc.data_ptr(), B, n,
+        *tangent_launch(n), _stream(d)
+    )
+    build.check(code, "tridiag_factor_adjoint")
+    tridiag_factor_adjoint.launches += 1
+    return ga, gc
+
+
+tridiag_factor_adjoint.launches = 0
 tridiag_factor.launches = 0
 tridiag_selinv_tangent.launches = 0
 tridiag_solve.launches = 0

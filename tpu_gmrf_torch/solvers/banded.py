@@ -24,8 +24,11 @@ Q's pattern, `solve` through `FactorSolve` (K12 forward and backward), and
 Σ through `SelectedInverse`, whose tangent pass (`_tangent_sigma`) scatters
 Q̇ onto the blocks (K5, the transpose of `_selinv_plan`), runs the
 factorization's tangent block by block (K22) and the block Takahashi
-sweep's (K21, as it reaches K8); the other solves and `sqrt_matvec` have no
-backward and raise while a gradient is asked. `sqrt_matvec` (L z) and the block-tridiagonal SpMV
+sweep's (K21, as it reaches K8). The triangular solves and `sqrt_matvec` go
+through `FactorTriangular`: L̄ onto the blocks by batched products, the
+factorization's reverse sweep (K24, A_k from K8's first entry), then Q̄ at
+the pattern's entries (K5); Lᵀ z is K13's second entry's transpose mode.
+`sqrt_matvec` (L z) and the block-tridiagonal SpMV
 (`BlockTridiagMV`, `block_tridiag_matvec`: x ↦ Qx over dense blocks, for
 CG and RBMC through `kernels.hot_matvec`) run on K13 (`bt_sqrt`,
 `bt_matvec`). Vectors of the SpMV are rows: x is (n,) or (k, n).
@@ -45,6 +48,7 @@ from ..kernels import (
     BandedTables,
     SegPlan,
     bt_factor,
+    bt_factor_adjoint,
     bt_factor_tangent,
     bt_matvec,
     bt_sqrt,
@@ -56,7 +60,7 @@ from ..kernels import (
 )
 from ..sparse.matrix import SparseMatrix
 from ..sparse.pattern import SparsePattern
-from .base import DirectFactor, SelectedInverse, symmetric_weights
+from .base import TRI_L, TRI_LINV, TRI_LINVT, DirectFactor, SelectedInverse, symmetric_weights
 from .supernodal import _one_term, _prep_batches
 
 __all__ = [
@@ -154,17 +158,15 @@ def _tables(pattern: SparsePattern, block) -> BandedTables:
     return t
 
 
-def _takahashi_classes(meta, device) -> tuple:
-    """K8 class batches of the Takahashi sweep, one per block, and the batches
-    of K8's first entry, cached per (plan, device). Positions are those of P
-    (B, K, 2s, s) flattened; Σ has the same layout plus one zero slot at
-    K·2s·s (DUMMY), which the upper triangle of each Σ_{k+1,k+1} gather
-    points at (K8 mirrors the lower)."""
-    key = (meta, str(device))
+def block_classes(K: int, s: int, device) -> tuple:
+    """K8 class batches of the Takahashi sweep on K blocks of s, one per
+    block, and the batches of K8's first entry, cached per (K, s, device).
+    Positions are those of P (B, K, 2s, s) flattened; Σ has the same layout
+    plus one zero slot at K·2s·s (DUMMY), which the upper triangle of each
+    Σ_{k+1,k+1} gather points at (K8 mirrors the lower)."""
+    key = (K, s, str(device))
     classes = _SIGMA_CACHE.get(key)
     if classes is None:
-        plan = _PLAN_CACHE[meta]
-        s, K = plan["s"], plan["K"]
         panel = 2 * s * s
         dummy = K * panel
         r, c = np.arange(s)[:, None], np.arange(s)[None, :]
@@ -178,32 +180,42 @@ def _takahashi_classes(meta, device) -> tuple:
             schur = np.where(c <= r, (k + 1) * panel + r * s + c, dummy) if M else np.zeros((0, 0), np.int64)
             classes.append(dict(W=s, M=M, panel=i32(k * panel + np.arange((s + M) * s).reshape(s + M, s)),
                                 cols=i32(k * s + np.arange(s)), rows=i32((k + 1) * s + np.arange(M)),
-                                schur=i32(schur), dummy=dummy, ndummy=plan["npad"]))
+                                schur=i32(schur), dummy=dummy, ndummy=K * s))
         classes = _SIGMA_CACHE[key] = classes, _prep_batches(classes)
     return classes
 
 
-def _sigma_prep(P: torch.Tensor, meta, ops=(sn_takahashi_prep, sn_takahashi)):
-    """Block Takahashi (``banded.py:209-230``): (pre, Σ) in P's layout, (B,
-    K·2s·s+1) each: C_k and A_k of every block in pre, Σ_kk (lower) in rows
-    0..s of panel k of Σ, Σ_{k+1,k} in rows s..2s. K8's first entry on every
-    block, then K8 per block, the last block first; `ops` are K8's two
-    wrappers (their plain versions only to compare them on the card)."""
-    prep, takahashi = ops
-    classes, preps = _takahashi_classes(meta, P.device)
+def block_prep(P: torch.Tensor, prep=sn_takahashi_prep) -> torch.Tensor:
+    """C_k = M_k L_k⁻¹ and A_k = L_k⁻ᵀL_k⁻¹ (lower) of every block of the factor
+    P (B, K, 2s, s) in P's layout, (B, K·2s·s+1): K8's first entry (two
+    launches: the K−1 blocks with rows below, and the last)."""
+    _, preps = block_classes(P.shape[1], P.shape[3], P.device)
     vals = P.reshape(P.shape[0], -1)
     pre = vals.new_zeros(vals.shape[0], vals.shape[1] + 1)
-    sig = torch.zeros_like(pre)
     for c in preps:
         prep(vals, pre, c)
+    return pre
+
+
+def block_sigma(P: torch.Tensor, ops=(sn_takahashi_prep, sn_takahashi)):
+    """Block Takahashi (``banded.py:209-230``) of the factor P (B, K, 2s, s):
+    (pre, Σ) in P's layout, (B, K·2s·s+1) each: C_k and A_k of every block in
+    pre (`block_prep`), Σ_kk (lower) in rows 0..s of panel k of Σ,
+    Σ_{k+1,k} in rows s..2s, by K8 per block, the last block first; `ops`
+    are K8's two wrappers (their plain versions only to compare them on the
+    card)."""
+    prep, takahashi = ops
+    classes, _ = block_classes(P.shape[1], P.shape[3], P.device)
+    pre = block_prep(P, prep)
+    sig = torch.zeros_like(pre)
     for c in reversed(classes):
         takahashi(pre, sig, c)
     return pre, sig
 
 
 def _sigma_vals(P: torch.Tensor, meta, ops=(sn_takahashi_prep, sn_takahashi)) -> torch.Tensor:
-    """Σ in P's layout, (B, K·2s·s+1) (`_sigma_prep`)."""
-    return _sigma_prep(P, meta, ops)[1]
+    """Σ in P's layout, (B, K·2s·s+1) (`block_sigma`)."""
+    return block_sigma(P, ops)[1]
 
 
 def _block_positions(meta, where) -> np.ndarray:
@@ -236,17 +248,25 @@ def _scatter_plan(meta, where):
     return got
 
 
-def _tangent_sigma(P: torch.Tensor, t: torch.Tensor, where, meta) -> torch.Tensor:
-    """Σ̇ = −Σ·sym(T)·Σ in P's layout, (B, K·2s·s+1), for T given by t (B, m)
-    on `where`'s entries: T onto the blocks (K5), the factorization's tangent
-    (K22), then the block Takahashi sweep's, the last block first (K21)."""
+def _factor_tangent(P: torch.Tensor, pre: torch.Tensor, t: torch.Tensor, where, meta) -> torch.Tensor:
+    """(L̇_k, Ṁ_k) in P's layout, (B, K·2s·s+1), for Q̇ = sym(T), T given by t
+    (B, m) on `where`'s entries: T onto the blocks (K5), then the
+    factorization's tangent (K22); pre from `block_prep`."""
     B, K, s2, s = P.shape
-    classes, _ = _takahashi_classes(meta, P.device)
-    pre, sig = _sigma_prep(P, meta)
     w = symmetric_weights(where, t.device, t.dtype)
     dvals = gather_segsum(_scatter_plan(meta, where), (t if w is None else t * w).contiguous())
-    blocks = dvals[:, :-1].view(B, K, s2, s)
-    bt_factor_tangent(P, pre[:, :-1].view(B, K, s2, s), blocks)
+    bt_factor_tangent(P, pre[:, :-1].view(B, K, s2, s), dvals[:, :-1].view(B, K, s2, s))
+    return dvals
+
+
+def _tangent_sigma(P: torch.Tensor, t: torch.Tensor, where, meta) -> torch.Tensor:
+    """Σ̇ = −Σ·sym(T)·Σ in P's layout, (B, K·2s·s+1), for T given by t (B, m)
+    on `where`'s entries: the factorization's tangent (`_factor_tangent`),
+    then the block Takahashi sweep's, the last block first (K21)."""
+    B = P.shape[0]
+    classes, _ = block_classes(P.shape[1], P.shape[3], P.device)
+    pre, sig = block_sigma(P)
+    dvals = _factor_tangent(P, pre, t, where, meta)
     vals = P.reshape(B, -1)
     dsig = torch.zeros_like(pre)
     for c in reversed(classes):
@@ -376,15 +396,6 @@ class BandedFactor(DirectFactor):
         """Q x = b (K12, forward and backward in one launch)."""
         return self._solve(b, SOLVE_BOTH)
 
-    def forward_solve(self, b: torch.Tensor) -> torch.Tensor:
-        """L y = b through the permuted block pipeline."""
-        return self._solve(b, SOLVE_L)
-
-    def backward_solve(self, z: torch.Tensor) -> torch.Tensor:
-        """Lᵀ x = z through the permuted block pipeline (for sampling, the
-        permutation of isotropic z is immaterial)."""
-        return self._solve(z, SOLVE_LT)
-
     def logdet(self) -> torch.Tensor:
         return self.logdet_
 
@@ -400,10 +411,54 @@ class BandedFactor(DirectFactor):
         """−Σ·sym(T)·Σ at p_out's entries for T given by t (B, m) on p_in's (K5, K8, K22, K21)."""
         return _selinv_data(self.P, self.meta, p_out, sig=_tangent_sigma(self.P, t, p_in, self.meta))
 
-    def sqrt_matvec(self, z: torch.Tensor) -> torch.Tensor:
-        """L z in the permuted block basis, mapped back (K13 `bt_sqrt`):
-        maps N(0, I) to N(0, Q). z (*batch, n) or (*batch, n, k)."""
-        return self._on_rows(z, lambda rows, k: bt_sqrt(self.P, _TABLES[self.meta], rows, k))
+    def _tri(self, op: int, z: torch.Tensor) -> torch.Tensor:
+        """op(L) z for L = PᵀL_bP, L_b the block factor in the RCM order
+        (`FactorTriangular`; the permutation of isotropic noise is immaterial
+        to sampling): the solves on K12, L z and Lᵀ z on K13's second entry
+        (`bt_sqrt`, its transpose mode). z (*batch, n) or (*batch, n, k)."""
+        if op == TRI_LINV:
+            return self._solve(z, SOLVE_L)
+        if op == TRI_LINVT:
+            return self._solve(z, SOLVE_LT)
+        return self._on_rows(z, lambda rows, k: bt_sqrt(self.P, _TABLES[self.meta], rows, k, transpose=op != TRI_L))
+
+    def _blocks(self, x: torch.Tensor) -> torch.Tensor:
+        """x (*batch, n[, k]) as permuted, zero-padded blocks (B, K, s, k)."""
+        plan = self.plan
+        B, n, K, s = self.P.shape[0], plan["n"], plan["K"], plan["s"]
+        xr = x.reshape(B, n, -1)
+        out = xr.new_zeros(B, K * s, xr.shape[-1])
+        out[:, :n] = xr[:, _TABLES[self.meta].on(x.device)["perm_l"]]
+        return out.view(B, K, s, -1)
+
+    def _lbar(self, U: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
+        """L̄ = P_L(U Vᵀ) in P's layout plus a zero slot, (B, K·2s·s+1):
+        L̄_k = tril(U_k V_kᵀ) and M̄_k = U_{k+1} V_kᵀ on the permuted blocks
+        (batched products)."""
+        B, K, s2, s = self.P.shape
+        Ub, Vb = self._blocks(U), self._blocks(V)
+        G = self.P.new_zeros(B, K * s2 * s + 1)
+        Gb = G[:, :-1].view(B, K, s2, s)
+        Gb[:, :, :s] = torch.tril(Ub @ Vb.mT)
+        Gb[:, :-1, s:] = Ub[:, 1:] @ Vb[:, :-1].mT
+        return G
+
+    def _factor_adjoint(self, U: torch.Tensor, V: torch.Tensor) -> tuple:
+        """data̅ for L̄ = P_L(U Vᵀ) (`_lbar`): the reverse sweep (K24, A_k from
+        K8's first entry), then Q̄ at the pattern's entries (K5), each entry of
+        a symmetric pair given half of its lower position's."""
+        B, K, s2, s = self.P.shape
+        G = self._lbar(U, V)
+        pre = block_prep(self.P)
+        bt_factor_adjoint(self.P, pre[:, :-1].view(B, K, s2, s), G[:, :-1].view(B, K, s2, s))
+        w = symmetric_weights(self.pattern, G.device, G.dtype)
+        return (_selinv_data(self.P, self.meta, self.pattern, sig=G) * w,)
+
+    def _factor_tangent(self, dinputs) -> "BandedFactor":
+        """The factor whose blocks are (L̇_k, Ṁ_k) (`_factor_tangent`: K5, K22)."""
+        B, K, s2, s = self.P.shape
+        dvals = _factor_tangent(self.P, block_prep(self.P), self._tangent_data(dinputs), self.pattern, self.meta)
+        return dataclasses.replace(self, P=dvals[:, :-1].view(B, K, s2, s))
 
 
 class _BtMatvec(torch.autograd.Function):

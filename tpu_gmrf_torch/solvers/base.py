@@ -13,11 +13,12 @@ through `SelectedInverse`, whose backward is Q̄ = −P_Q(Σ S Σ) for the
 cotangent S placed on Σ's entries, from the backend's tangent pass. Both
 backwards are built from differentiable pieces (the Functions themselves and
 torch ops), so second derivatives (``create_graph=True``) go through the
-same kernels; each Function has a ``jvp`` for forward mode. The statistics
-that need the factor's own derivative (sampling, the triangular solves,
-``sqrt_matvec``) have no backward yet: `DirectFactor.NO_BACKWARD` lists
-them, and they raise while grad mode is on and Q's data requires a gradient
-(`no_backward`), instead of returning a tensor cut from the graph.
+same kernels; each Function of a forward pass has a ``jvp`` for forward
+mode (forward mode over a gradient through the factor raises). The statistics
+that need the factor's own derivative (``sample``'s L⁻ᵀz, the triangular
+solves, ``sqrt_matvec``) go through `FactorTriangular`, whose data cotangent
+is the factorization's reverse sweep (`FactorAdjoint`: the backend's
+adjoint kernel, K23-K25, or K10 and two products on the dense backend).
 
 ``kind="auto"`` resolves as the reference does: tridiagonal patterns to
 ``tridiag``, n ≤ dense_max to ``dense``, larger patterns to ``banded`` or
@@ -34,13 +35,13 @@ matmul precision, is switched off here, once, for the whole package.
 from __future__ import annotations
 
 import dataclasses
-import functools
 
 import numpy as np
 import torch
 
 __all__ = ["SolverSpec", "factorize", "CGFactor", "DirectFactor", "FactorSolve", "SelectedInverse", "DENSE_AUTO_MAX",
-           "no_backward", "no_double_backward", "pattern_solve_grad", "symmetric_weights"]
+           "FactorTriangular", "FactorAdjoint", "TRI_L", "TRI_LT", "TRI_LINV", "TRI_LINVT",
+           "no_backward", "no_double_backward", "second_derivative_guard", "pattern_solve_grad", "symmetric_weights"]
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -69,9 +70,142 @@ def no_backward(what: str, *inputs) -> None:
 def no_double_backward(what: str) -> None:
     """Raise inside a backward asked to build its own graph (``create_graph=True``)
     whose result would not be differentiable: `what` has no derivative of
-    that order in this port."""
+    that order in this port.
+
+    The eager guard, for a backward none of whose result is differentiable
+    again (`SelectedInverse`: Σ's derivative; `FactorAdjoint`: the factor's
+    third order). A backward of which one part is differentiable and another
+    is not takes the lazy `second_derivative_guard` instead."""
     if torch.is_grad_enabled():
         raise NotImplementedError(f"{what} has no second derivative in this port (create_graph=True)")
+
+
+class _NoSecondDerivative(torch.autograd.Function):
+    """A zero that depends on `inputs` and whose derivative raises: added to a
+    backward's result built with a graph, it makes the part of the second
+    derivative that the port does not have loud, and only that part (autograd
+    reaches it only when a gradient is asked of `inputs` through it)."""
+
+    @staticmethod
+    def forward(ctx, what, *inputs):
+        ctx.what = what
+        return inputs[0].new_zeros(())
+
+    @staticmethod
+    def backward(ctx, _g):
+        raise NotImplementedError(f"{ctx.what} has no second derivative in this port")
+
+
+def second_derivative_guard(what: str, grads: tuple, inputs: tuple) -> tuple:
+    """`grads` unchanged without grad mode; with it (a backward asked for
+    ``create_graph=True``), each plus a zero whose derivative in `inputs`
+    raises: `what` has no derivative of that order in this port.
+
+    The lazy guard, for a backward whose result is differentiable in some
+    inputs and not in others (`FactorTriangular`: the z/data part of the
+    second derivative exists, the data/data part does not; the SPIKE
+    logdet's gradient): the backward runs, and only a derivative that
+    reaches `inputs` through it raises."""
+    if not torch.is_grad_enabled() or not _tracked(*inputs):
+        return grads
+    zero = _NoSecondDerivative.apply(what, *inputs)
+    return tuple(None if g is None else g + zero for g in grads)
+
+
+# The operators of `FactorTriangular` on a factor's L (Q = L Lᵀ in the backend's
+# bases): L, Lᵀ, L⁻¹, L⁻ᵀ; and each one's transpose.
+TRI_L, TRI_LT, TRI_LINV, TRI_LINVT = 0, 1, 2, 3
+_TRANSPOSE = {TRI_L: TRI_LT, TRI_LT: TRI_L, TRI_LINV: TRI_LINVT, TRI_LINVT: TRI_LINV}
+
+
+class FactorTriangular(torch.autograd.Function):
+    """y = op(L) z for a direct backend's factor Q = L Lᵀ, op one of L, Lᵀ,
+    L⁻¹, L⁻ᵀ (`TRI_*`), differentiable in z and in the tensors Q was factored
+    from.
+
+    apply(factor, op, z, *factor.grad_inputs): the factor's ``_tri(op, z)``
+    runs its kernels with no graph. Backward: z̄ = op(L)ᵀȳ through this
+    Function again, and the data cotangent from L̄ on L's pattern,
+    L̄ = P_L(U Vᵀ) summed over the right-hand sides, by `FactorAdjoint`:
+    (U, V) = (ȳ, z) for L, (z, ȳ) for Lᵀ, (−L⁻ᵀȳ, y) for L⁻¹ and (−y, L⁻¹ȳ)
+    for L⁻ᵀ. The backward is differentiable in ȳ and z; the data/data part of
+    its derivative (the factor's second derivative) raises. jvp: from the
+    factor's tangent L̇ (``factor._factor_tangent``), ẏ = L ż + L̇ z,
+    Lᵀż + L̇ᵀz, L⁻¹(ḃ − L̇y) or L⁻ᵀ(ż − L̇ᵀx)."""
+
+    @staticmethod
+    def forward(ctx, factor, op, z, *inputs):
+        y = factor._tri(op, z)
+        if y._is_view():  # forward mode needs the output to be a tensor of its own
+            y = y.clone()
+        ctx.factor, ctx.op = factor, op
+        ctx.save_for_backward(z, y)
+        ctx.save_for_forward(z, y)
+        return y
+
+    @staticmethod
+    def backward(ctx, gy):
+        z, y = ctx.saved_tensors
+        f, op = ctx.factor, ctx.op
+        gy = gy.contiguous()
+        need_z, need_data = ctx.needs_input_grad[2], any(ctx.needs_input_grad[3:])
+        gz = None
+        if need_z or (need_data and op in (TRI_LINV, TRI_LINVT)):
+            gz = FactorTriangular.apply(f, _TRANSPOSE[op], gy, *f.grad_inputs)
+        grads = (None,) * (len(ctx.needs_input_grad) - 3)
+        if need_data:
+            U, V = (gy, z) if op == TRI_L else (z, gy) if op == TRI_LT else (-gz, y) if op == TRI_LINV else (-y, gz)
+            if z.ndim == len(f.batch_shape) + 1:  # one right-hand side: the (*batch, n, 1) form
+                U, V = U[..., None], V[..., None]
+            grads = FactorAdjoint.apply(f, U, V, *f.grad_inputs)
+            grads = second_derivative_guard("the factor", grads if isinstance(grads, tuple) else (grads,),
+                                            f.grad_inputs)
+        return (None, None, gz if need_z else None, *grads)
+
+    @staticmethod
+    def jvp(ctx, _factor, _op, dz, *dinputs):
+        z, y = ctx.saved_tensors
+        f, op = ctx.factor, ctx.op
+        out = torch.zeros_like(y) if dz is None else f._tri(op, dz.contiguous())
+        if any(t is not None for t in dinputs):
+            ft = f._factor_tangent(dinputs)
+            if op == TRI_L:
+                out = out + ft._tri(TRI_L, z)
+            elif op == TRI_LT:
+                out = out + ft._tri(TRI_LT, z)
+            elif op == TRI_LINV:
+                out = out - f._tri(TRI_LINV, ft._tri(TRI_L, y).contiguous())
+            else:
+                out = out - f._tri(TRI_LINVT, ft._tri(TRI_LT, y).contiguous())
+        return out.contiguous()
+
+
+class FactorAdjoint(torch.autograd.Function):
+    """The data cotangent of a factor's statistic whose L̄ is P_L(U Vᵀ)
+    (summed over the k right-hand sides of U and V, (*batch, n, k)): the
+    factorization's reverse sweep (``factor._factor_adjoint``), one tensor
+    per entry of ``factor.grad_inputs``; differentiable in U and V.
+
+    apply(factor, U, V, *factor.grad_inputs). Backward: for a cotangent Ḋ
+    of the result, Ū = L̇V and V̄ = L̇ᵀU with L̇ the factor's tangent in the
+    direction Ḋ; none to the factor's inputs (`FactorTriangular` guards
+    that part). No jvp: forward mode over a reverse gradient raises, as the
+    factor's inputs are inputs here. Not differentiable a third time."""
+
+    @staticmethod
+    def forward(ctx, factor, U, V, *inputs):
+        ctx.factor = factor
+        ctx.save_for_backward(U, V)
+        out = factor._factor_adjoint(U.contiguous(), V.contiguous())
+        return out if len(out) > 1 else out[0]
+
+    @staticmethod
+    def backward(ctx, *gd):
+        no_double_backward("the factor's second derivative")
+        U, V = ctx.saved_tensors
+        ft = ctx.factor._factor_tangent(gd)
+        return (None, ft._tri(TRI_L, V.contiguous()), ft._tri(TRI_LT, U.contiguous()),
+                *(None,) * (len(ctx.needs_input_grad) - 3))
 
 
 class FactorSolve(torch.autograd.Function):
@@ -172,15 +306,6 @@ def pattern_solve_grad(gb: torch.Tensor, x: torch.Tensor, pattern, B: int) -> to
     return -0.5 * ((gb[:, rows] * x[:, cols]).sum(-1) + (gb[:, cols] * x[:, rows]).sum(-1))
 
 
-def _guarded(what: str, method):
-    @functools.wraps(method)
-    def guarded(self, *args, **kwargs):
-        no_backward(what, *self.grad_inputs)
-        return method(self, *args, **kwargs)
-
-    return guarded
-
-
 class DirectFactor:
     """What the direct backends' factors share.
 
@@ -192,21 +317,19 @@ class DirectFactor:
     p_out's entries for T given by t (B, m) on p_in's, from its kernels and
     with no graph. The tridiagonal backend, factored from its rows a and c,
     overrides the input side (`grad_inputs`, `_input_grads`,
-    `_tangent_matvec`, `_selected`). Each method named in ``NO_BACKWARD``
-    that a subclass defines raises while grad mode is on and one of
-    `grad_inputs` requires a gradient."""
+    `_tangent_matvec`, `_selected`).
 
-    NO_BACKWARD = {
-        "forward_solve": "forward_solve",
-        "backward_solve": "backward_solve (sampling)",
-        "sqrt_matvec": "sqrt_matvec",
-    }
-
-    def __init_subclass__(cls, **kwargs):
-        super().__init_subclass__(**kwargs)
-        for name, what in cls.NO_BACKWARD.items():
-            if name in cls.__dict__:
-                setattr(cls, name, _guarded(what, cls.__dict__[name]))
+    The statistics of L (``forward_solve``, ``backward_solve``,
+    ``sqrt_matvec``) go through `FactorTriangular`, on three more methods
+    of a subclass, all with no graph: ``_tri(op, z)``, op(L) z for its L
+    (rows in the basis of Q's, columns in the basis `backward_solve` takes z
+    in); ``_factor_adjoint(U, V)``, the cotangents of `grad_inputs` for
+    L̄ = P_L(U Vᵀ) (the factorization's reverse sweep); and
+    ``_factor_tangent(dinputs)``, a factor of the same kind whose L is the
+    tangent L̇ = L·Φ(L⁻¹Q̇L⁻ᵀ) (only its ``_tri`` with TRI_L and TRI_LT is
+    used). A chain whose pivots were boosted (or, dense, rescued by a ridge)
+    gets the derivative of the factor actually computed, the boost held
+    fixed."""
 
     @property
     def grad_inputs(self) -> tuple:
@@ -263,6 +386,22 @@ class DirectFactor:
         """Q x = b for b (*batch, n) or (*batch, n, k); differentiable in b and
         in Q's data through `FactorSolve`."""
         return FactorSolve.apply(self, b, *self.grad_inputs)
+
+    def _triangular(self, op: int, z: torch.Tensor) -> torch.Tensor:
+        """op(L) z through `FactorTriangular`, differentiable in z and in Q's data."""
+        return FactorTriangular.apply(self, op, z, *self.grad_inputs)
+
+    def forward_solve(self, b: torch.Tensor) -> torch.Tensor:
+        """L y = b (whitening of residuals); b (*batch, n) or (*batch, n, k)."""
+        return self._triangular(TRI_LINV, b)
+
+    def backward_solve(self, z: torch.Tensor) -> torch.Tensor:
+        """Lᵀ x = z: maps N(0, I) noise to N(0, Q⁻¹) samples."""
+        return self._triangular(TRI_LINVT, z)
+
+    def sqrt_matvec(self, z: torch.Tensor) -> torch.Tensor:
+        """L z: maps N(0, I) to N(0, Q)."""
+        return self._triangular(TRI_L, z)
 
 
 @dataclasses.dataclass(frozen=True)

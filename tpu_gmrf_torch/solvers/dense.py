@@ -14,8 +14,10 @@ logdet is differentiable through `DenseLogdet`, whose backward is Σ on Q's
 pattern, `solve` through `FactorSolve` (K10 forward and backward), and Σ
 through `SelectedInverse`: its tangent −Σ·sym(T)·Σ takes Σ in full from K10
 on the identity and two matrix products (which the reference also leaves
-to XLA). The triangular solves and ``sqrt_matvec`` have no backward and
-raise while a gradient is asked.
+to XLA). The triangular solves and ``sqrt_matvec`` go through
+`FactorTriangular`: the Cholesky's adjoint Q̄ = sym(L⁻ᵀΦ(LᵀL̄)L⁻¹) is two
+K10 solves on n right-hand sides and torch products (no kernel of its own),
+its tangent L̇ = L·Φ(L⁻¹Q̇L⁻ᵀ) the same.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ from ..kernels import SOLVE_BOTH, SOLVE_L, SOLVE_LT, DenseTables, dense_chol, de
 from ..kernels.dense import DENSE_MAX_N
 from ..sparse.matrix import SparseMatrix
 from ..sparse.pattern import SparsePattern
-from .base import DirectFactor, SelectedInverse
+from .base import TRI_L, TRI_LINV, TRI_LINVT, DirectFactor, SelectedInverse
 
 __all__ = ["DenseFactor", "DenseLogdet", "dense_factorize"]
 
@@ -133,17 +135,44 @@ class DenseFactor(DirectFactor):
         """Q x = b (K10, both triangles in one launch)."""
         return self._solve(b, SOLVE_BOTH)
 
-    def forward_solve(self, b: torch.Tensor) -> torch.Tensor:
-        """L x = b with L = S⁻¹L' (whitening of residuals)."""
-        return self._solve(b, SOLVE_L)
+    def _tri(self, op: int, z: torch.Tensor) -> torch.Tensor:
+        """op(L) z with L = S⁻¹L' (`FactorTriangular`): the solves on K10, L z
+        and Lᵀ z plain matrix products."""
+        if op == TRI_LINV:
+            return self._solve(z, SOLVE_L)
+        if op == TRI_LINVT:
+            return self._solve(z, SOLVE_LT)
+        if op == TRI_L:
+            return ((self.L @ self._rhs(z)) / self.s[..., None]).reshape(z.shape)
+        return (self.L.mT @ (self._rhs(z) / self.s[..., None])).reshape(z.shape)
 
-    def backward_solve(self, z: torch.Tensor) -> torch.Tensor:
-        """Lᵀ x = z: maps N(0, I) noise to N(0, Q⁻¹) samples."""
-        return self._solve(z, SOLVE_LT)
+    def _dense_data(self, t: torch.Tensor) -> torch.Tensor:
+        """sym(T) (B, n, n) for T given by t (B, nnz) on the pattern."""
+        B, n = self.L.shape[0], self.n
+        r, c = (torch.tensor(a, dtype=torch.long, device=t.device) for a in (self.pattern.rows, self.pattern.cols))
+        T = t.new_zeros(B, n, n).index_put_((torch.arange(B, device=t.device)[:, None], r, c), t.reshape(B, -1),
+                                            accumulate=True)
+        return 0.5 * (T + T.mT)
 
-    def sqrt_matvec(self, z: torch.Tensor) -> torch.Tensor:
-        """L z with L = S⁻¹L': maps N(0, I) to N(0, Q)."""
-        return ((self.L @ self._rhs(z)) / self.s[..., None]).reshape(z.shape)
+    def _factor_adjoint(self, U: torch.Tensor, V: torch.Tensor) -> tuple:
+        """data̅ for L̄ = P_L(U Vᵀ): with M = LᵀL̄, Q̄ = sym(L⁻ᵀΦ(M)L⁻¹) =
+        ½L⁻ᵀ(Φ(M) + Φ(M)ᵀ)L⁻¹ by two K10 solves on n right-hand sides, at the
+        pattern's entries."""
+        Lbar = torch.tril(self._rhs(U) @ self._rhs(V).mT)
+        M = torch.tril((self.L / self.s[..., None]).mT @ Lbar)
+        Y = M + M.mT - torch.diag_embed(torch.diagonal(M, dim1=-2, dim2=-1))  # Φ(M) + Φ(M)ᵀ
+        W = dense_trsv(self.L, self.s, Y, SOLVE_LT, Dinv=self.Dinv)
+        Z = dense_trsv(self.L, self.s, W.mT.contiguous(), SOLVE_LT, Dinv=self.Dinv)
+        r, c = (torch.tensor(a, dtype=torch.long, device=Z.device) for a in (self.pattern.rows, self.pattern.cols))
+        return (0.25 * (Z[:, r, c] + Z[:, c, r]),)
+
+    def _factor_tangent(self, dinputs) -> "DenseFactor":
+        """The factor whose L' is L̇' = L'·Φ(L⁻¹Q̇L⁻ᵀ) (L = S⁻¹L'), by two K10 solves."""
+        Qd = self._dense_data(self._tangent_data(dinputs))
+        X = dense_trsv(self.L, self.s, Qd, SOLVE_L, Dinv=self.Dinv)
+        Y = dense_trsv(self.L, self.s, X.mT.contiguous(), SOLVE_L, Dinv=self.Dinv)
+        F = torch.tril(Y) - 0.5 * torch.diag_embed(torch.diagonal(Y, dim1=-2, dim2=-1))
+        return dataclasses.replace(self, L=self.L @ F)
 
     def logdet(self) -> torch.Tensor:
         return self.logdet_

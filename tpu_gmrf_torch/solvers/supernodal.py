@@ -31,8 +31,11 @@ reference library.
   backward), and Σ through `SelectedInverse`, whose tangent pass
   (`_tangent_sigma`) scatters Q̇ onto the fill (K5), runs the
   factorization's tangent level by level (K20, and the Schur ELL by K5) and
-  the Takahashi sweep's (K21); the other solves have no backward and raise
-  while a gradient is asked.
+  the Takahashi sweep's (K21). The triangular solves and `sqrt_matvec` go
+  through `FactorTriangular`: L̄ gathered onto the fill by torch products,
+  the factorization's reverse sweep level by level, descending (K25, A from
+  K8's first entry), then Q̄ at the pattern's entries with the scaling
+  undone (K5); Lᵀ z is K7's mode MULTIPLY_T.
 
 * **A mesh (``mesh=``, a ``DeviceMesh``).** Each class batch of the scan
   levels is split over the ranks of the mesh's first dimension, padded with
@@ -67,6 +70,8 @@ from ..kernels import (
     sn_multiply,
     sn_multiply_plain,
     sn_panel,
+    sn_panel_adjoint,
+    sn_panel_adjoint_plain,
     sn_panel_plain,
     sn_panel_tangent,
     sn_panel_tangent_plain,
@@ -81,7 +86,7 @@ from ..kernels import (
 )
 from ..sparse.matrix import SparseMatrix
 from ..sparse.pattern import SparsePattern
-from .base import DirectFactor, SelectedInverse, symmetric_weights
+from .base import TRI_L, TRI_LINV, TRI_LINVT, DirectFactor, SelectedInverse, symmetric_weights
 
 __all__ = [
     "SupernodalFactor",
@@ -746,11 +751,12 @@ _DEVICE_CACHE: dict = {}
 
 _KERNEL_OPS = dict(init=fct_init, panel=sn_panel, trsv=sn_trsv, multiply=sn_multiply, prep=sn_takahashi_prep,
                    takahashi=sn_takahashi, segsum=gather_segsum, panel_tangent=sn_panel_tangent,
-                   takahashi_tangent=sn_takahashi_tangent)
+                   takahashi_tangent=sn_takahashi_tangent, panel_adjoint=sn_panel_adjoint)
 # the plain versions, for comparisons of the kernels with them on the card
 _PLAIN_OPS = dict(init=fct_init_plain, panel=sn_panel_plain, trsv=sn_trsv_plain, multiply=sn_multiply_plain,
                   prep=sn_takahashi_prep_plain, takahashi=sn_takahashi_sweep_plain, segsum=gather_segsum_plain,
-                  panel_tangent=sn_panel_tangent_plain, takahashi_tangent=sn_takahashi_tangent_plain)
+                  panel_tangent=sn_panel_tangent_plain, takahashi_tangent=sn_takahashi_tangent_plain,
+                  panel_adjoint=sn_panel_adjoint_plain)
 
 
 @dataclasses.dataclass
@@ -867,6 +873,8 @@ def _device_plan(meta, device):
         unperm=_one_term(np.arange(n), t=perm, yi=perm),  # x[perm] = s·xp
         diag=_one_term(plan["diag_pos"], t=perm, yi=perm, zi=perm),  # s·s·Σ_diag, unpermuted
         logdet=_sum_plan(2 * n),  # Σ log pivots + Σ -log s
+        perm_l=torch.as_tensor(np.asarray(perm, np.int64), device=device),  # the torch gathers of the adjoint
+        inv_perm_l=torch.as_tensor(np.asarray(plan["inv_perm"], np.int64), device=device),
     )
     plans = [dp["init"], dp["perm"], dp["unperm"], dp["diag"], dp["logdet"]]
     for lv in levels:
@@ -979,15 +987,21 @@ def _factor_values(data, meta, ops, mesh=None):
     return vals, s, logdet[:, 0], boost
 
 
+def _prep_vals(vals, meta, ops):
+    """C = Lb·Ld⁻¹ and A = Ld⁻ᵀLd⁻¹ of every supernode, laid out like vals (B,
+    nnzL+1): K8's first entry, one launch per class shape."""
+    pre = torch.zeros_like(vals)
+    for c in _device_plan(meta, vals.device)["prep"]:
+        ops["prep"](vals, pre, c)
+    return pre
+
+
 def _sigma_prep(vals, meta, ops):
     """Block Takahashi recursion: (pre, Σ) on L's pattern in the scaled basis,
-    (B, nnzL+1) each. K8's first entry forms C = Lb·Ld⁻¹ and A = Ld⁻ᵀLd⁻¹ of
-    every supernode (one launch per class shape) into pre, laid out like
-    vals; then K8 per class batch, levels descending."""
+    (B, nnzL+1) each: pre from `_prep_vals`, then K8 per class batch, levels
+    descending."""
     dp = _device_plan(meta, vals.device)
-    pre, sig = torch.zeros_like(vals), torch.zeros_like(vals)
-    for c in dp["prep"]:
-        ops["prep"](vals, pre, c)
+    pre, sig = _prep_vals(vals, meta, ops), torch.zeros_like(vals)
     for lv in reversed(dp["levels"]):
         for c in lv.classes:
             ops["takahashi"](pre, sig, c)
@@ -1019,13 +1033,12 @@ def _scatter_plan(meta, where):
     return got
 
 
-def _tangent_sigma(vals, s, t, where, meta, ops):
-    """Σ̇' = −Σ'·Q̇'·Σ' on L's pattern in the scaled basis, (B, nnzL+1), for
-    Q̇' = S·sym(T)·S with T given by t (B, m) on `where`'s entries: T onto
-    the fill (K5), the factorization's tangent level by level (K20, the
-    Schur ELL by K5), then the Takahashi sweep's (K21), levels descending."""
+def _factor_tangent(vals, s, pre, t, where, meta, ops):
+    """L̇' on L's pattern in the scaled basis, (B, nnzL+1), for Q̇' = S·sym(T)·S
+    with T given by t (B, m) on `where`'s entries: T onto the fill (K5), then
+    the factorization's tangent level by level (K20, the Schur ELL by K5);
+    pre from `_prep_vals`."""
     dp = _device_plan(meta, vals.device)
-    pre, sig = _sigma_prep(vals, meta, ops)
     w = symmetric_weights(where, t.device, t.dtype)
     dvals = ops["segsum"](_scatter_plan(meta, where), (t if w is None else t * w).contiguous(), y=s, z=s)
     for lv in dp["levels"]:
@@ -1034,6 +1047,17 @@ def _tangent_sigma(vals, s, t, where, meta, ops):
             ops["panel_tangent"](vals, pre, dvals, c, du)
         for ell in lv.schur:
             ops["segsum"](ell, du, out=dvals, alpha=-1.0, accumulate=True)
+    return dvals
+
+
+def _tangent_sigma(vals, s, t, where, meta, ops):
+    """Σ̇' = −Σ'·Q̇'·Σ' on L's pattern in the scaled basis, (B, nnzL+1), for
+    Q̇' = S·sym(T)·S with T given by t (B, m) on `where`'s entries: the
+    factorization's tangent (`_factor_tangent`), then the Takahashi sweep's
+    (K21), levels descending."""
+    dp = _device_plan(meta, vals.device)
+    pre, sig = _sigma_prep(vals, meta, ops)
+    dvals = _factor_tangent(vals, s, pre, t, where, meta, ops)
     dsig = torch.zeros_like(vals)
     for lv in reversed(dp["levels"]):
         for c in lv.classes:
@@ -1153,8 +1177,6 @@ class SupernodalFactor(DirectFactor):
         n, bs = self.n, tuple(self.batch_shape)
         if b.shape[: len(bs) + 1] != bs + (n,) or b.ndim not in (len(bs) + 1, len(bs) + 2):
             raise ValueError(f"rhs of shape {tuple(b.shape)} does not match a factor of {bs} x {n}")
-        if torch.is_grad_enabled() and b.requires_grad:
-            raise NotImplementedError("supernodal solves have no backward; call them under torch.no_grad()")
         k = 1 if b.ndim == len(bs) + 1 else b.shape[-1]
         B = self.vals.shape[0]
         return b.reshape(B, n, k).transpose(1, 2).reshape(B * k, n).contiguous(), k
@@ -1198,30 +1220,88 @@ class SupernodalFactor(DirectFactor):
         xp = self._backward(self._forward(xp, k), k)
         return self._unrows(self._unperm(xp, k), b, k)
 
-    def backward_solve(self, z: torch.Tensor) -> torch.Tensor:
-        """Lᵀ x = z (isotropic z → a sample with covariance Q⁻¹)."""
-        rows, k = self._rows(z)
-        zp = torch.cat([rows, rows.new_zeros(rows.shape[0], 1)], -1)
-        return self._unrows(self._unperm(self._backward(zp, k), k), z, k)
+    def forward_solve(self, b: torch.Tensor) -> torch.Tensor:
+        """L x = S·b in the permuted basis (whitening), returned unpermuted to
+        the original ids as the reference does (``supernodal.py:1270``)."""
+        y = super().forward_solve(b)
+        nb = len(self.batch_shape)
+        return y.index_select(nb, _device_plan(self.meta, y.device)["inv_perm_l"])
 
-    def sqrt_matvec(self, z: torch.Tensor) -> torch.Tensor:
-        """(S⁻¹L) z — maps N(0, I) to N(0, Q); z (*batch, n) or (*batch, n, k),
-        taken in the permuted basis as `backward_solve` takes it. The
-        supernodes of a product are independent; the level order only keeps
-        the sums in the reference's order: K7 `sn_multiply` per level, then
-        the level's forward ELL plan (K5) adds Lb·z into the rows."""
+    def _tri(self, op: int, z: torch.Tensor) -> torch.Tensor:
+        """op(L) z for L = S⁻¹PᵀL' (`FactorTriangular`), rows in the original
+        numbering, columns in the permuted one (z of `backward_solve`, the
+        result of L⁻¹): L⁻¹ and L⁻ᵀ on K7's forward and backward modes over the
+        level schedule, L z on its mode MULTIPLY with the forward ELL plans
+        (K5) adding Lb·z into the rows, Lᵀ z on its mode MULTIPLY_T; the
+        permutations and the scaling are K5 launches."""
         rows, k = self._rows(z)
         ops = self._ops
-        zp = torch.cat([rows, rows.new_zeros(rows.shape[0], 1)], -1)
-        out = torch.zeros_like(zp)
+        dp = _device_plan(self.meta, z.device)
+        if op == TRI_LINV:
+            xp = ops["segsum"](dp["perm"], rows, y=self._scale_rows(k))
+            return self._unrows(self._forward(xp, k)[:, : self.n], z, k)
+        if op == TRI_LINVT:
+            zp = torch.cat([rows, rows.new_zeros(rows.shape[0], 1)], -1)
+            return self._unrows(self._unperm(self._backward(zp, k), k), z, k)
+        if op == TRI_L:
+            zp = torch.cat([rows, rows.new_zeros(rows.shape[0], 1)], -1)
+            out = torch.zeros_like(zp)
+            for lv in self._levels():
+                u = _buffer(zp, zp.shape[0], lv.zf)
+                ops["multiply"](self.vals, lv.group, out, zp, u, k)
+                for ell in lv.fwd:
+                    ops["segsum"](ell, u, out=out, alpha=1.0, accumulate=True)
+            x = ops["segsum"](dp["unperm"], out, y=1.0 / self._scale_rows(k), out=out.new_empty(out.shape[0], self.n))
+            return self._unrows(x, z, k)
+        yp = ops["segsum"](dp["perm"], rows, y=1.0 / self._scale_rows(k))
+        out = torch.zeros_like(yp)
         for lv in self._levels():
-            u = _buffer(zp, zp.shape[0], lv.zf)
-            ops["multiply"](self.vals, lv.group, out, zp, u, k)
-            for ell in lv.fwd:
-                ops["segsum"](ell, u, out=out, alpha=1.0, accumulate=True)
-        dp = _device_plan(self.meta, out.device)
-        x = ops["segsum"](dp["unperm"], out, y=1.0 / self._scale_rows(k), out=out.new_empty(out.shape[0], self.n))
-        return self._unrows(x, z, k)
+            ops["multiply"](self.vals, lv.group, out, yp, None, k, transpose=True)
+        return self._unrows(out[:, : self.n], z, k)
+
+    def _fill_rows_cols(self, device):
+        """(row, col) of every position of L's pattern in the permuted basis
+        (the DUMMY slot reads row and column n, a zero), int64 on `device`."""
+        key = (self.meta, "fill", str(device))
+        got = _SELINV_CACHE.get(key)
+        if got is None:
+            plan = self.plan
+            n, keyv = plan["n"], np.asarray(plan["entry_key"], np.int64)
+            got = _SELINV_CACHE[key] = tuple(torch.as_tensor(np.concatenate([a, [n]]), device=device)
+                                             for a in (keyv % n, keyv // n))
+        return got
+
+    def _factor_adjoint(self, U: torch.Tensor, V: torch.Tensor) -> tuple:
+        """data̅ for L̄ = P_L(U Vᵀ): L̄' = P_L((P S⁻¹U) Vᵀ) gathered onto the fill
+        (torch products, a few right-hand sides at a time), the reverse sweep
+        level by level, descending (K25, A from K8's first entry), then
+        s_r s_c Q̄' at the pattern's entries (K5), each entry of a symmetric pair
+        given half of its lower position's."""
+        ops = self._ops
+        B, n = self.vals.shape[0], self.n
+        Ur, Vr = U.reshape(B, n, -1), V.reshape(B, n, -1)
+        k = Ur.shape[-1]
+        perm = _device_plan(self.meta, U.device)["perm_l"]
+        Up = torch.cat([(Ur / self.s[..., None]).index_select(1, perm), Ur.new_zeros(B, 1, k)], 1)
+        Vp = torch.cat([Vr, Vr.new_zeros(B, 1, k)], 1)
+        r, c = self._fill_rows_cols(U.device)
+        g = torch.zeros_like(self.vals)
+        step = max(1, (1 << 25) // max(1, B * r.shape[0]))
+        for j in range(0, k, step):
+            g += (Up[:, r, j: j + step] * Vp[:, c, j: j + step]).sum(-1)
+        pre = _prep_vals(self.vals, self.meta, ops)
+        for lv in reversed(self._levels()):
+            for cl in lv.classes:
+                ops["panel_adjoint"](self.vals, pre, g, cl)
+        w = symmetric_weights(self.pattern, g.device, g.dtype)
+        return (_selinv_data(self.vals, self.s, self.pattern, self.meta, ops, sig=g) * w,)
+
+    def _factor_tangent(self, dinputs) -> "SupernodalFactor":
+        """The factor whose values are L̇' (`_factor_tangent`: K5, K20)."""
+        pre = _prep_vals(self.vals, self.meta, self._ops)
+        dvals = _factor_tangent(self.vals, self.s, pre, self._tangent_data(dinputs), self.pattern, self.meta,
+                                self._ops)
+        return dataclasses.replace(self, vals=dvals)
 
     # -- statistics -----------------------------------------------------------------
 

@@ -9,8 +9,9 @@ solves and the Takahashi recursion run on the kernels K1-K3
 `FactorSolve` (K2 forward and backward), and the selected inverse through
 `TridiagSelinv` (K3), whose backward and jvp are K19's tangent pass. Each
 backward is differentiable once more, so a Hessian reaches K19. The
-triangular solves and ``sqrt_matvec`` have no backward and raise while a
-gradient is asked.
+triangular solves and ``sqrt_matvec`` go through `FactorTriangular`: their
+data cotangent is K23's reverse sweep of K1 (`tridiag_factor_adjoint`), the
+factor's tangent K2's forward scan on the pivots' tangent.
 """
 
 from __future__ import annotations
@@ -20,8 +21,9 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..kernels import SOLVE_BOTH, SOLVE_L, SOLVE_LT, tridiag_factor, tridiag_selinv, tridiag_selinv_tangent, tridiag_solve
-from .base import DirectFactor, no_double_backward
+from ..kernels import (SOLVE_BOTH, SOLVE_L, SOLVE_LT, tridiag_factor, tridiag_factor_adjoint, tridiag_selinv,
+                       tridiag_selinv_tangent, tridiag_solve)
+from .base import TRI_L, TRI_LINV, TRI_LINVT, DirectFactor, no_double_backward
 from ..sparse.matrix import SparseMatrix, _index
 from ..sparse.pattern import SparsePattern
 
@@ -123,14 +125,6 @@ class TridiagFactor(DirectFactor):
         out = tridiag_solve(_rows(self.d, n), _rows(self.e, n - 1), rhs, mode)
         return out.reshape(b.shape)
 
-    def forward_solve(self, b: torch.Tensor) -> torch.Tensor:
-        """L y = b (K2)."""
-        return self._solve(b, SOLVE_L)
-
-    def backward_solve(self, z: torch.Tensor) -> torch.Tensor:
-        """Lᵀ x = z (K2)."""
-        return self._solve(z, SOLVE_LT)
-
     def _solve_both(self, b: torch.Tensor) -> torch.Tensor:
         """Q x = b, both triangular solves fused in one launch (K2)."""
         return self._solve(b, SOLVE_BOTH)
@@ -158,15 +152,47 @@ class TridiagFactor(DirectFactor):
         y = y + torch.cat([dc[..., None] * xr[:, 1:], torch.zeros_like(xr[:, :1])], 1)
         return y.reshape(x.shape)
 
-    def sqrt_matvec(self, z: torch.Tensor) -> torch.Tensor:
-        """L z for z (*batch, n) or (*batch, n, k); plain torch."""
+    def _tri(self, op: int, z: torch.Tensor) -> torch.Tensor:
+        """op(L) z (`FactorTriangular`): the solves on K2, L z and Lᵀ z by torch
+        products with the two diagonals; z (*batch, n) or (*batch, n, k)."""
+        if op == TRI_LINV:
+            return self._solve(z, SOLVE_L)
+        if op == TRI_LINVT:
+            return self._solve(z, SOLVE_LT)
         nb = len(self.batch_shape)
         extra = (1,) * (z.ndim - nb - 1)
         d = self.d.reshape(self.d.shape + extra)
         e = self.e.reshape(self.e.shape + extra)
         main = d * z
-        lower = e * z.narrow(nb, 0, self.n - 1)
-        return main + torch.cat([torch.zeros_like(main.narrow(nb, 0, 1)), lower], nb)
+        if op == TRI_L:
+            lower = e * z.narrow(nb, 0, self.n - 1)
+            return main + torch.cat([torch.zeros_like(main.narrow(nb, 0, 1)), lower], nb)
+        upper = e * z.narrow(nb, 1, self.n - 1)
+        return main + torch.cat([upper, torch.zeros_like(main.narrow(nb, 0, 1))], nb)
+
+    def _factor_adjoint(self, U: torch.Tensor, V: torch.Tensor) -> tuple:
+        """(ā, c̄) for L̄ = P_L(U Vᵀ): d̄_j = Σ U_j V_j, ē_j = Σ U_{j+1} V_j over the
+        right-hand sides, then K23."""
+        B, n = self.a.shape
+        U, V = U.reshape(B, n, -1), V.reshape(B, n, -1)
+        gd = (U * V).sum(-1)
+        ge = (U[:, 1:] * V[:, :-1]).sum(-1)
+        return tridiag_factor_adjoint(_rows(self.d, n), _rows(self.e, n - 1), gd.contiguous(), ge.contiguous())
+
+    def _factor_tangent(self, dinputs) -> "TridiagFactor":
+        """The factor (ḋ, ė) in the direction (ȧ, ċ): the pivots' tangent
+        δ̇_k = r²_{k-1} δ̇_{k-1} + ȧ_k − 2 r_{k-1} ċ_{k-1} (r = e/d) by K2's
+        forward scan on the unit bidiagonal with subdiagonal −r², then
+        ḋ = δ̇/(2d) and ė = (ċ − e ḋ)/d."""
+        B, n = self.a.shape
+        da, dc = (_or_zeros(t, like) for t, like in zip(dinputs, (self.a, self.c)))
+        d, e = _rows(self.d, n), _rows(self.e, n - 1)
+        r = e / d[:, :-1]
+        rhs = da - torch.cat([torch.zeros_like(da[:, :1]), 2.0 * r * dc], 1)
+        ddelta = tridiag_solve(torch.ones_like(d), (-r * r).contiguous(), rhs.contiguous(), SOLVE_L)
+        dd = ddelta / (2.0 * d)
+        de = (dc - e * dd[:, :-1]) / d[:, :-1]
+        return dataclasses.replace(self, d=dd.reshape(self.d.shape), e=de.reshape(self.e.shape))
 
     def logdet(self) -> torch.Tensor:
         return self.logdet_
