@@ -43,8 +43,7 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    at each of those shapes, and raising without the tiles) and K11-K12
    (the banded backend, n=5741, B=4, s=512, K=12; K11 also
    at s=496 through the plan's block=8, and through its rescue: one chain
-   with an indefinite block, equal boosts required; K12 with its time split
-   into the inversion of the blocks and the sweeps, at k = 1, 8, 9 and 65
+   with an indefinite block, equal boosts required; K12 at k = 1, 8, 9 and 65
    right-hand sides, and in modes 0, 1 and 2 on the s=512, the s=496 and
    the forced-rescue factors; K8's two entries and the whole banded
    Takahashi sweep) against their plain versions and against the
@@ -220,12 +219,28 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    Monte Carlo standard errors; (e) at phase 17's SPIKE shape the logdet's
    gradient against a central difference, on a one-rank NCCL mesh against
    the in-process chunks, and the solve's Hessian-vector product against the
-   f64 plain path.
+   f64 plain path;
+26. space-time and FEM breadth (tpu_gmrf/fem/spatiotemporal.py, mesh.py,
+   discretization.py, obs_models.py; supernodal.py:1258 solve_refined):
+   (a) example 04 as written (advection-diffusion joint, Nx=201, Nt=71,
+   n=14,271, linear_condition on 101 observations), f64, its assertions and
+   golden literals, the backend SolverSpec() picks, and the posterior mean
+   against the same backend's plain versions on the card; (b) the full-width
+   2-D path: AdvectionDiffusionSPDE on phase 10's g=16 mesh (ns=450) over
+   ST_NT time steps, discretize, the Laplace approximation with Poisson
+   counts drawn from one prior draw at every 4th step, the posterior's
+   time_means, time_stds and 16 time_rands, each step's host time and the
+   launches; the joint Q against CPU tensors, the Newton mode and stds
+   against the plain versions on the card, the draws by their moments;
+   (c) example 11 as written (dense, f64) against its four literals; (d)
+   example 14 on icosphere(3) (supernodal, f64) against its literals, and
+   solve_refined against the plain solve; (e) example 15 as written (580
+   points, Bernoulli through PointEvaluationObsModel, f32), its assertions.
 
 Every kernel's launch counter is zeroed just before each main path (phases
 4-5, the flagship; 7-8, the spatial slice; 9, 10 and 11) and read after
 it, and so before and after each of the paths 12, 13, 13b, 14, 15, 16, 17, 18,
-19, 20, 21, 22 and 23, and each of phase 24's five and phase 25's six;
+19, 20, 21, 22 and 23, and each of phase 24's five, phase 25's six and phase 26's five;
 a kernel of the path that was never launched fails the run. Each phase's
 seconds are printed when the next begins. The line before the last is one
 JSON object with the kernels' launches, errors, times and bounds; the last
@@ -1076,10 +1091,9 @@ def k8_library(vals, meta):
     return lambda: torch.cholesky_inverse(L)[:, hi, lo]
 
 
-def k6_library(Q, meta):
-    """K6's library yardstick: torch.linalg.cholesky_ex of the matrix the schedule factors, densified (Q
-    symmetrized, Jacobi-equilibrated as fct_init does it, in the plan's permuted order; formed here, outside the
-    callable), then the gather onto L's pattern: the function K6's launches compute over the whole schedule."""
+def equilibrated_dense(Q, meta):
+    """(A, hi, lo): the matrix the supernodal schedule factors, densified (Q symmetrized, Jacobi-equilibrated as
+    fct_init does it, in the plan's permuted order), and the (row, column) index tensors of L's pattern."""
     from tpu_gmrf_torch.solvers import supernodal as sn
 
     plan = sn._PLAN_CACHE[meta]
@@ -1096,7 +1110,14 @@ def k6_library(Q, meta):
     A = data.new_zeros(data.shape[0], n, n)
     A[:, ip[rows], ip[cols]] = sym * s[:, rows] * s[:, cols]
     key = idx(plan["entry_key"])
-    hi, lo = key % n, key // n
+    return A, key % n, key // n
+
+
+def k6_library(Q, meta):
+    """K6's library yardstick: torch.linalg.cholesky_ex of the matrix the schedule factors, densified
+    (`equilibrated_dense`, formed here, outside the callable), then the gather onto L's pattern: the function K6's
+    launches compute over the whole schedule."""
+    A, hi, lo = equilibrated_dense(Q, meta)
     return lambda: torch.linalg.cholesky_ex(A).L[:, hi, lo]
 
 
@@ -1711,10 +1732,6 @@ def check_dense_kernels(dn_model, sp_model, dtype, dev):
           library_ms=cuda_ms(lambda: torch.linalg.solve_triangular(
               Lb.mT, torch.linalg.solve_triangular(Lb, rb, upper=False), upper=True)),
           extra=" (library: solve_triangular both ways on each block)")
-    inv_ms = cuda_ms(lambda: kernels.banded._bt_inverses(P))
-    log(f"  bt_trsv split {dtype_name(dtype)}: inversion of the {B * K} blocks (invert_diag + invert_blocks) "
-        f"{inv_ms:.3f} ms ({B * K * sblk**3 / 3:.3e} flops), gather + sweeps + scatter {trsv_ms - inv_ms:.3f} ms of "
-        f"{trsv_ms:.3f}")
     check_bt_trsv_cases(P, t, factors, rows, dtype)
     # the banded Takahashi sweep, off the NUTS path: K8's first entry on all K blocks at once (two calls: the
     # K - 1 blocks with rows below, and the last), then K8 once per block (W = M = s), each against its plain
@@ -2366,10 +2383,22 @@ def check_multiply_kernels(stats_model, sp_model, grid_q, dtype, dev):
         t = tb._TABLES[f.meta]
         z = torch.tensor(rng.normal(size=(B, n)), dtype=dtype, device=dev)
         elems = t.K * t.s * (t.s + 1) // 2 + (t.K - 1) * t.s * t.s
+        # the library: the densified factor times the permuted, padded rows, one matmul
+        npad = t.K * t.s
+        Ld = torch.zeros(B, npad, npad, dtype=dtype, device=dev)
+        for k in range(t.K):
+            o = slice(k * t.s, (k + 1) * t.s)
+            Ld[:, o, o] = f.P[:, k, : t.s].tril()
+            if k < t.K - 1:
+                Ld[:, (k + 1) * t.s:(k + 2) * t.s, o] = f.P[:, k, t.s:]
+        zb = z.new_zeros(B, npad, 1)
+        zb[:, :n, 0] = z[:, t.on(dev)["perm_l"]]
         check(f"bt_sqrt B={B} n={n} s={t.s} K={t.K}", dtype, kernels.bt_sqrt(f.P, t, z), kernels.bt_sqrt_plain(f.P, t, z),
               "bt_sqrt", results, cuda_ms(lambda: kernels.bt_sqrt(f.P, t, z)),
               cuda_ms(lambda: kernels.bt_sqrt_plain(f.P, t, z)),
-              cost=(2 * B * elems, el * B * (elems + 2 * n) + 4 * n), shape=f"B={B} n={n} s={t.s} K={t.K} k=1")
+              cost=(2 * B * elems, el * B * (elems + 2 * n) + 4 * n), library_ms=cuda_ms(lambda: Ld @ zb),
+              shape=f"B={B} n={n} s={t.s} K={t.K} k=1")
+        del Ld
         check("bt_sqrt: sqrt_matvec(forward_solve(z)) = z", dtype, f.sqrt_matvec(f.forward_solve(z)), z,
               "identity", {})
         del f
@@ -2383,9 +2412,13 @@ def check_multiply_kernels(stats_model, sp_model, grid_q, dtype, dev):
         nnzL = fk.vals.shape[1] - 1
         cost = sn_costs(sn._device_plan(fk.meta, dev)["levels"], 1, el, Q1.nnz, nnzL, n)["sn_multiply"]
         w = fk.sqrt_matvec(z)
+        # the library: the densified factor times the permuted rows, one matmul
+        Lden, _, _ = dense_factor(fk.vals, fk.meta)
+        zc = z[:, torch.as_tensor(np.asarray(fk.plan["perm"], np.int64), device=dev)][..., None]
         check(f"sn_multiply sqrt_matvec n={n}", dtype, w, fkp.sqrt_matvec(z), "sn_multiply", results,
               cuda_ms(lambda: fk.sqrt_matvec(z), SN_REPS, 1), cuda_ms(lambda: fkp.sqrt_matvec(z), SN_REPS, 1),
-              cost=cost, shape=f"B=1 n={n}")
+              cost=cost, library_ms=cuda_ms(lambda: Lden @ zc), shape=f"B=1 n={n}")
+        del Lden
         quad, zz = (w * fk.solve(w)).sum().item(), (z * z).sum().item()
         log(f"  sqrt_matvec identity wᵀ solve(w) = zᵀz, {dtype_name(dtype)}: {quad:.8e} vs {zz:.8e} "
             f"(rel {abs(quad / zz - 1):.3e})")
@@ -4530,11 +4563,17 @@ def check_sn_tangents(sp_model, dtype, dev, results):
         return (Sig @ Tp @ Sig)[:, hi, lo]
 
     lib_ms = cuda_ms(library, 2, 1)
+    del L
+    A, _, _ = equilibrated_dense(Q, meta)
+    # K20's: L̇ of the densified, permuted, equilibrated matrix along the same (scaled, permuted) tangent
+    lib20_ms = cuda_ms(lambda: torch.func.jvp(torch.linalg.cholesky, (A,), (Tp,))[1][:, hi, lo], 2, 1)
+    del A
     tabs = {k: sum(c[k].numel() * 4 for c in classes) for k in ("panel", "schur")}
     shape = f"B={B} n={sp_model.n}, {len(classes)} class batches"
     check("sn_panel_tangent", dtype, got20, ref20, "sn_panel_tangent", results, ms[0], pms[0],
-          f" (whole pass; Σ̇ at Q's pattern {dense_err:.1e} from a dense inverse's)",
-          tangent_costs(*shapes, B, el, "panel", tabs["panel"]), shape=shape, op_dtype=torch.float64)
+          f" (whole pass; Σ̇ at Q's pattern {dense_err:.1e} from a dense inverse's; library: torch.func.jvp through "
+          f"torch.linalg.cholesky of the densified, permuted, equilibrated matrix)",
+          tangent_costs(*shapes, B, el, "panel", tabs["panel"]), lib20_ms, shape=shape, op_dtype=torch.float64)
     check("sn_takahashi_tangent", dtype, got21, ref21, "sn_takahashi_tangent", results, ms[1], pms[1],
           " (library: torch.cholesky_inverse of the densified factor, then Σ·T·Σ by two products)",
           tangent_costs(*shapes, B, el, "sweep", tabs["panel"] + tabs["schur"]), lib_ms, shape,
@@ -4567,6 +4606,25 @@ def check_bt_tangents(sp_model, dtype, dev, results):
     P64, pre64, sig64 = f64(P), f64(pre), f64(sig)
     pms22 = cuda_ms(lambda: kernels.bt_factor_tangent_plain(P64, view(pre64), view(dv_p)), 1, 0)
     vals, vals64, dvals64 = P.reshape(B, -1), P64.reshape(B, -1), f64(dvals)
+    # the library's Σ̇ = −Σ·T·Σ of the pass K22 opens: cholesky_inverse of the densified factor, two products with
+    # the densified tangent, both in the factor's permuted, padded basis
+    npad, dv = K * s, view(dvals)
+    Ld = torch.zeros(B, npad, npad, dtype=dtype, device=dev)
+    Td = torch.zeros_like(Ld)
+    for k in range(K):
+        o = slice(k * s, (k + 1) * s)
+        Ld[:, o, o] = P[:, k, :s].tril()
+        Td[:, o, o] = dv[:, k, :s].tril() + dv[:, k, :s].tril(-1).mT
+        if k < K - 1:
+            o2 = slice((k + 1) * s, (k + 2) * s)
+            Ld[:, o2, o], Td[:, o2, o], Td[:, o, o2] = P[:, k, s:], dv[:, k, s:], dv[:, k, s:].mT
+
+    def library():
+        Sig = torch.cholesky_inverse(Ld)
+        return Sig @ Td @ Sig
+
+    lib22_ms = cuda_ms(library, 2, 1)
+    del Ld, Td
     dsig = torch.zeros_like(pre)
     got21, ref21, ms21, pms21 = [], [], 0.0, 0.0
     for c in reversed(classes):
@@ -4583,7 +4641,8 @@ def check_bt_tangents(sp_model, dtype, dev, results):
     tabs = sum((c["panel"].numel() + c["schur"].numel()) * 4 for c in classes)
     shape = f"B={B} n={sp_model.n} K={K} s={s}"
     check("bt_factor_tangent", dtype, (dvals,), (dv_p,), "bt_factor_tangent", results, ms22, pms22,
-          f" (Σ̇ at Q's pattern {dense_err:.1e} from a dense inverse's)", tangent_costs(ns, m, B, el, "block"),
+          f" (Σ̇ at Q's pattern {dense_err:.1e} from a dense inverse's; library: the pass's Σ̇ by cholesky_inverse of "
+          f"the densified factor and two products)", tangent_costs(ns, m, B, el, "block"), lib22_ms,
           shape=shape, op_dtype=torch.float64)
     check("sn_takahashi_tangent banded", dtype, got21, ref21, "sn_takahashi_tangent_banded", {}, ms21, pms21,
           "", tangent_costs(ns, m, B, el, "sweep", tabs), shape=shape, op_dtype=torch.float64)
@@ -5386,6 +5445,452 @@ def pathwise_path(sp_model, dn_model, dev, card):
     return counts
 
 
+# ---- phase 26: space-time and FEM breadth ----------------------------------------
+# Phase 26: the FEM slice (fem/mesh.py, discretization.py, spatiotemporal.py, obs_models.py; supernodal
+# solve_refined) on the card, f64 unless the example runs f32. (a) Example 04 as written: the advection-diffusion
+# joint (Nx=201, Nt=71, n=14,271), linear_condition on 101 observations, its assertions and golden literals
+# (tools/golden_values.py:120), the posterior mean against the plain path on the card (Q_post x = Aᵀ Q_ε y by the
+# plain versions of the backend on CUDA tensors). (b) The full-width 2-D path: AdvectionDiffusionSPDE on phase 10's g=16
+# mesh (ns=450), γ=(0.6, 0.3), α=1, Neumann (ST_SPDE), ST_NT time steps; discretize, the Laplace approximation with Poisson
+# counts drawn (seeded generator) from one prior draw at every node of every ST_OBS_EVERY-th step, the posterior's
+# time_means, time_stds (selected inverse) and ST_DRAWS time_rands; the joint Q against its assembly on CPU tensors,
+# the Newton mode against the Laplace approximation whose factorizations and solves are the plain versions
+# of the backend on the card, the stds against the plain selected inverse on the card, the draws' means and variances against the
+# posterior mean and variance by per-node tests at a Bonferroni family-wise level FEM_DRAW_LEVEL. (c) Example 11 as
+# written, dense: its assertions and four golden literals (tools/golden_values.py:288). (d) Example 14 as written on
+# icosphere(3), supernodal: its assertions and literals (tools/golden_values.py:328), and solve_refined against the
+# plain solve on the card. (e) Example 15 as written (580 points, Bernoulli through PointEvaluationObsModel, f32):
+# its assertions. "The plain path on the card" runs the same backend on the plain versions (`plain_direct`). The
+# tolerances: Q rel 1e-12 (the same products in another summation order); each f64 solution's relative residual
+# (backward error) 1e-13, ~450 ε: the plain versions read 5.4e-16 on example 04 (card), a backward-stable solve
+# stays within a few hundred ε of that, while K11/K12 read 6.0e-11 there when they multiplied by inverted
+# diagonal tiles and blocks; a solution's distance from the plain path's at FEM_TOL["forward"] (10) times κ·ε, κ
+# the equilibrated condition estimated with the plain path's factor (`equilibrated_condition`, so that the
+# factor under test does not set its own limit): example 04's posterior has κ ≈ 7.7e13 (scipy's eigsh on CPU
+# tensors), so its mean is only known to ~1e-2 whatever the solver (two backward-stable solves land 1.3e-3
+# apart), as its golden literals' 5e-3 limits say; (b)'s Newton mode and stds at the larger of 1e-8 and that
+# bound; solve_refined rel 1e-10.
+ST_NT, ST_OBS_EVERY, ST_DRAWS, ST_SEED = 128, 4, 16, 26
+# (b)'s SPDE: the spatial noise and initial state at range 0.3 (κ_s = √(8ν)/0.3, ν = 2), propagation κ = 3 and
+# τ = 10, so that the field's variance stays O(1) over [0, 1] (0.7-2.5 at the last step; the initial state's
+# 1-3.9). The class defaults (κ_s = κ = 1: range 4 on the unit square) give a joint that is numerically singular
+# in float64 (an equilibrated eigenvalue below zero at Nt = 8); this one's equilibrated condition is ~1.5e9 at
+# Nt = 8 and 32 (numpy's eigvalsh on CPU tensors).
+ST_SPDE = dict(gamma=(0.6, 0.3), alpha=1, kappa=3.0, tau=10.0, spatial_kappa=4.0 / 0.3)
+FEM_TOL = {"Q": 1e-12, "residual": 1e-13, "forward": 10.0, "mode": 1e-8, "std": 1e-8, "refined": 1e-10}
+FEM_DRAW_LEVEL = 1e-3
+FEM_BASE_KERNELS = ("csr_spmv", "gather_segsum")
+SELINV_KERNELS = ("sn_takahashi_prep", "sn_takahashi")
+EX04_GOLD = {"t=0 fit rmse": (0.00209, 0.005), "t=2T/3 fit": (0.54997, 0.005), "t=2T/3 peak": (-0.44, 0.05)}
+EX11_GOLD = {"Neumann var[0]": (0.605518, 2e-3), "Neumann var[mid]": (0.302768, 2e-3),
+             "Dirichlet std[mid]": (0.550227, 2e-3), "AD-SPDE std[4, mid]": (0.072161, 1e-3)}
+EX14_GOLD = {"median var": (1.124293, 1e-2), "near-pole corr": (0.756208, 1e-2)}
+
+
+def held(label: str, got: float, gold: float, lim: float, bad: list) -> None:
+    ok = abs(got - gold) < lim
+    bad += [] if ok else [label]
+    log(f"    {label} {got:.6f}, golden {gold:.6f} ± {lim:g}: {'ok' if ok else 'MISSED'}")
+
+
+def asserted(label: str, ok: bool, bad: list) -> None:
+    bad += [] if ok else [label]
+    log(f"    {label}: {'ok' if ok else 'FAILED'}")
+
+
+def plain_direct():
+    """A context in which every supernodal and banded factorization, its solves and its selected inverse run the
+    plain versions, whatever the device (the public API has no such option)."""
+    import contextlib
+    from unittest import mock
+
+    from tpu_gmrf_torch import kernels
+    from tpu_gmrf_torch.solvers import banded as bd
+    from tpu_gmrf_torch.solvers import supernodal as sn
+
+    sigma = bd._sigma_vals
+    stack = contextlib.ExitStack()
+    stack.enter_context(mock.patch.object(sn, "supernodal_factorize", lambda Q, max_width=2048, ordering="auto",
+                                          mesh=None: sn._factorize(Q, max_width, ordering, sn._PLAIN_OPS)))
+    stack.enter_context(mock.patch.object(bd, "_sigma_vals", lambda P, meta, ops=None: sigma(
+        P, meta, (kernels.sn_takahashi_prep_plain, kernels.sn_takahashi_sweep_plain))))
+    for name in ("bt_factor", "bt_trsv", "gather_segsum"):
+        stack.enter_context(mock.patch.object(bd, name, getattr(kernels, f"{name}_plain")))
+    return stack
+
+
+def equilibrated_condition(Q, factor, iters: int = 60) -> float:
+    """κ of D Q D (D = diag(Q)^-1/2) estimated by `iters` power and inverse-power steps (the latter by `factor`)."""
+    d = Q.diagonal().rsqrt()
+    gen = torch.Generator(device=Q.device).manual_seed(1)
+    hi, lo = (torch.randn(Q.shape[0], generator=gen, dtype=Q.dtype, device=Q.device) for _ in range(2))
+    for _ in range(iters):
+        hi = d * Q.matvec(d * hi)
+        hi = hi / hi.norm()
+        lo = d.reciprocal() * factor.solve(d.reciprocal() * lo)
+        lo = lo / lo.norm()
+    lam_max = float(hi @ (d * Q.matvec(d * hi)))
+    lam_min = 1.0 / float(lo @ (d.reciprocal() * factor.solve(d.reciprocal() * lo)))
+    return lam_max / lam_min
+
+
+def relative_residual(Q, x, b) -> float:
+    """‖Qx − b‖∞ / (‖Q‖∞‖x‖∞ + ‖b‖∞), Qx by CSR torch.sparse.mm (not the port's K4)."""
+    rows = torch.tensor(Q.pattern.rows, dtype=torch.long, device=Q.device)
+    cols = torch.tensor(Q.pattern.cols, dtype=torch.long, device=Q.device)
+    Qc = torch.sparse_coo_tensor(torch.stack([rows, cols]), Q.data, Q.shape, check_invariants=False).to_sparse_csr()
+    r = (Qc @ x[:, None])[:, 0] - b
+    qn = float(torch.zeros(Q.shape[0], dtype=Q.dtype, device=Q.device).index_add_(0, rows, Q.data.abs()).max())
+    return float(r.abs().max()) / (qn * float(x.abs().max()) + float(b.abs().max()))
+
+
+def run_ex04(dev):
+    """Example 04 as written, float64: the values its checks read, the prior, the posterior and (A, y, Q_ε)."""
+    import tpu_gmrf_torch as tg
+    from tpu_gmrf_torch.fem import AdvectionDiffusionSPDE, FEMDiscretization, interval_mesh, spatial_to_spatiotemporal
+    from tpu_gmrf_torch.inference.joint import sp_bmat
+
+    Nx, Nt = 201, 71
+    d = FEMDiscretization(interval_mesh(-1, 1, Nx))
+    spde = AdvectionDiffusionSPDE(d, gamma=[0.6], H=0.1, kappa=1.0, alpha=1, c=1.0, tau=3.0,
+                                  spatial_kappa=float(np.sqrt(8.0) / 0.4))
+    ts = np.linspace(0.0, 1.0, Nt)
+    X = spde.discretize(ts)
+    xs_initial = np.linspace(-1, 1, 100)
+    f_initial = np.exp(-((xs_initial + 0.6) ** 2) / 0.2**2)
+    A_init = spatial_to_spatiotemporal(d.evaluation_matrix(xs_initial[:, None]), 0, Nt)
+    t_later = 2 * Nt // 3
+    A_later = spatial_to_spatiotemporal(d.evaluation_matrix(np.array([[-0.25]])), t_later, Nt)
+    A_all = sp_bmat([[A_init], [A_later]])
+    y_all = np.concatenate([f_initial, [0.55]])
+    prec = np.concatenate([np.full(len(f_initial), 0.1**-2), [0.01**-2]])
+    post = tg.linear_condition(X.gmrf, y_all, Q_eps=post_qeps(prec, dev), A=A_all)
+    means = post.mean.cpu().numpy().reshape(Nt, Nx)
+    nodes = d.mesh.nodes
+    fit0 = A_init.matvec(post.mean).cpu().numpy()
+    vals = {"t=0 fit rmse": float(np.sqrt(np.mean((fit0 - f_initial) ** 2))), "t=0 peak": float(nodes[np.argmax(means[0])]),
+            "t=2T/3 fit": float(A_later.matvec(post.mean).cpu()[0]),
+            "t=2T/3 peak": float(nodes[np.argmax(means[t_later])])}
+    return vals, X, post, (A_all, y_all, prec)
+
+
+def ex04_cell(dev, card, counts: dict) -> list:
+    import tpu_gmrf_torch as tg
+    from tpu_gmrf_torch import kernels
+
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    # ---- example 04's path ----
+    vals, X, post, (A, y, prec) = run_ex04(dev)
+    torch.cuda.synchronize()
+    got = kernels.launches()
+    # ---- end of example 04's path ----
+    secs = time.perf_counter() - t0
+    kind = tg.SolverSpec().resolve(X.Q.pattern).kind
+    launched(got, FEM_BASE_KERNELS + BACKEND_KERNELS[kind] + ("dense_chol",), "example 04")
+    counts.update({k: counts.get(k, 0) + v for k, v in got.items()})
+    log(f"  (a) example 04: n={X.n}, nnz(Q)={X.Q.nnz}, SolverSpec() -> {kind} for the joint and the posterior, "
+        f"{secs:.2f} s on {card}")
+    bad = []
+    asserted(f"t=0 fit rmse {vals['t=0 fit rmse']:.4f} < 0.05", vals["t=0 fit rmse"] < 0.05, bad)
+    asserted(f"t=0 peak at {vals['t=0 peak']:.3f} within 0.05 of -0.6", abs(vals["t=0 peak"] + 0.6) < 0.05, bad)
+    asserted(f"t=2T/3 fit {vals['t=2T/3 fit']:.4f} within 0.01 of 0.55", abs(vals["t=2T/3 fit"] - 0.55) < 0.01, bad)
+    asserted(f"t=2T/3 peak {vals['t=2T/3 peak']:.3f} in (-0.6, -0.1)", -0.6 < vals["t=2T/3 peak"] < -0.1, bad)
+    for key, (gold, lim) in EX04_GOLD.items():
+        held(key, vals[key], gold, lim, bad)
+    # the plain path on the card: the same posterior on the plain versions
+    t0 = time.perf_counter()
+    with plain_direct():
+        plain_post = tg.linear_condition(X.gmrf, y, Q_eps=post_qeps(prec, dev), A=A)
+        xp = plain_post.mean
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        kappa = equilibrated_condition(post.Q, plain_post.factor)
+    b = A.todense().T @ torch.tensor(prec * y, dtype=torch.float64, device=dev)  # Aᵀ Q_ε y; the prior mean is 0
+    if float(X.mean.abs().max()) != 0.0:
+        raise AssertionError("example 04's prior mean is not zero")
+    tol = FEM_TOL["forward"] * kappa * float(torch.finfo(torch.float64).eps)
+    dist = float((post.mean - xp).abs().max() / xp.abs().max())
+    rk, rp = relative_residual(post.Q, post.mean, b), relative_residual(post.Q, xp, b)
+    ok = dist <= tol and rk <= FEM_TOL["residual"] and rp <= FEM_TOL["residual"]
+    bad += [] if ok else ["posterior mean vs plain"]
+    log(f"    posterior mean, kernel path vs the plain versions of the {kind} backend on the card ({plain_s:.2f} s): "
+        f"max rel {dist:.3e} (tol {tol:.2e}: {FEM_TOL['forward']:g} κ·ε at the equilibrated condition κ "
+        f"{kappa:.3e}, by the plain factor); relative residuals kernel / plain {rk:.2e} / {rp:.2e} (tol {FEM_TOL['residual']:.0e}): "
+        f"{'ok' if ok else 'MISSED'}")
+    return bad
+
+
+def post_qeps(prec, dev):
+    """Example 04's observation precision, a diagonal SparseMatrix on `dev`."""
+    from tpu_gmrf_torch.sparse import SparseMatrix, diag_pattern
+
+    return SparseMatrix(torch.tensor(prec, dtype=torch.float64, device=dev), diag_pattern(len(prec)))
+
+
+def draw_moments(draws, mean, std) -> tuple:
+    """Per-node z of the draws' mean and χ² of their variance against the posterior's; the largest |z| and the
+    χ² range against their Bonferroni limits at FEM_DRAW_LEVEL over all nodes."""
+    from scipy.stats import chi2, norm
+
+    k = draws.shape[0]
+    z = (draws.mean(0) - mean) / (std / np.sqrt(k))
+    c = (k - 1) * draws.var(0) / std.square()
+    m = z.numel()
+    zlim = float(norm.isf(FEM_DRAW_LEVEL / (4 * m)))
+    lo, hi = float(chi2.ppf(FEM_DRAW_LEVEL / (4 * m), k - 1)), float(chi2.isf(FEM_DRAW_LEVEL / (4 * m), k - 1))
+    zmax, cmin, cmax = float(z.abs().max()), float(c.min()), float(c.max())
+    return zmax <= zlim and lo <= cmin and cmax <= hi, (
+        f"draws: max |z| of the means {zmax:.2f} (limit {zlim:.2f}), (k-1)s²/σ² in [{cmin:.2f}, {cmax:.2f}] "
+        f"(limits [{lo:.2f}, {hi:.2f}]; {m} nodes, Bonferroni at {FEM_DRAW_LEVEL:g})")
+
+
+def st2d_cell(dn_model, nt: int, dev, card, counts: dict) -> list:
+    """(b): the advection-diffusion space-time path at g=16 (ns=450) over nt steps, f64."""
+    from unittest import mock
+
+    import tpu_gmrf_torch as tg
+    from tpu_gmrf_torch import kernels
+    from tpu_gmrf_torch.fem import AdvectionDiffusionSPDE, SpatiotemporalGMRF
+    from tpu_gmrf_torch.solvers import base as solver_base
+
+    disc, ns = dn_model.disc, dn_model.n
+    spde = AdvectionDiffusionSPDE(disc, **ST_SPDE)
+    ts = np.linspace(0.0, 1.0, nt)
+    steps = {}
+
+    def timed(name, fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            steps[name] = steps.get(name, 0.0) + time.perf_counter() - t
+            return out
+        return run
+
+    def step(name, fn):
+        return timed(name, fn)()
+
+    kernels.reset_launches()
+    # ---- the 2-D space-time path ----
+    with mock.patch.object(AdvectionDiffusionSPDE, "_assemble", timed("assembly (host and K5)",
+                                                                        AdvectionDiffusionSPDE._assemble)), \
+            mock.patch.object(solver_base, "_large_sparse_kind", timed("SolverSpec() choice",
+                                                                      solver_base._large_sparse_kind)):
+        X = step("discretize", lambda: spde.discretize(ts))
+    gen = torch.Generator(device=dev).manual_seed(ST_SEED)
+    x_true = step("one prior draw", lambda: X.time_rands(gen))
+    idx = (np.arange(0, nt, ST_OBS_EVERY)[:, None] * ns + np.arange(ns)[None]).ravel()
+    y = torch.poisson(torch.exp(x_true.reshape(-1)[torch.as_tensor(idx, device=dev)]), generator=gen)
+    lik = tg.ExponentialFamily("poisson", indices=idx)(y)
+    post = step("gaussian_approximation", lambda: tg.gaussian_approximation(X.gmrf, lik))
+    P = SpatiotemporalGMRF(post, nt, disc, ts)
+    means = step("time_means", P.time_means)
+    stds = step("time_stds", P.time_stds)
+    draws = step(f"{ST_DRAWS} time_rands", lambda: P.time_rands(gen, (ST_DRAWS,)))
+    got = kernels.launches()
+    # ---- end of the 2-D space-time path ----
+    kind = tg.SolverSpec().resolve(X.Q.pattern).kind
+    launched(got, FEM_BASE_KERNELS + BACKEND_KERNELS[kind] + SELINV_KERNELS + ("dense_chol",), "2-D space-time")
+    counts.update({k: counts.get(k, 0) + v for k, v in got.items()})
+    log(f"  (b) 2-D advection-diffusion: ns={ns}, Nt={nt}, n={X.n}, nnz(Q)={X.Q.nnz}, {len(idx)} Poisson counts "
+        f"(every {ST_OBS_EVERY}th step, total {int(y.sum())}); SolverSpec() -> {kind} for the joint and the posterior; "
+        f"steps on the host clock: " + ", ".join(f"{k} {v:.2f} s" for k, v in steps.items()) + f"; on {card}")
+    log(f"    launches: { {k: v for k, v in got.items() if v} }")
+    bad = []
+    # the joint Q against its assembly on CPU tensors (the plain versions)
+    tg.set_default_device("cpu")
+    try:
+        t0 = time.perf_counter()
+        _, Qh = spde._assemble(ts)
+        cpu_s = time.perf_counter() - t0
+    finally:
+        tg.set_default_device(dev)
+    same = np.array_equal(Qh.pattern.rows, X.Q.pattern.rows) and np.array_equal(Qh.pattern.cols, X.Q.pattern.cols)
+    qd = float((X.Q.data.cpu() - Qh.data).abs().max() / Qh.data.abs().max())
+    ok = same and qd <= FEM_TOL["Q"]
+    bad += [] if ok else ["joint Q"]
+    log(f"    joint Q, kernel path vs CPU tensors ({cpu_s:.2f} s of host): same pattern {same}, max rel {qd:.3e} (tol "
+        f"{FEM_TOL['Q']:.0e}): {'ok' if ok else 'MISSED'}")
+    # the Newton mode against the Laplace approximation on the plain versions (card); κ by the plain factor
+    t0 = time.perf_counter()
+    with plain_direct():
+        plain_post = tg.gaussian_approximation(X.gmrf, lik)
+        sp_ = plain_post.std().reshape(nt, ns)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        kappa = equilibrated_condition(plain_post.Q, plain_post.factor)
+    fwd = FEM_TOL["forward"] * kappa * float(torch.finfo(torch.float64).eps)
+    for label, got_, ref_, floor in (("Newton mode", post.mean, plain_post.mean, FEM_TOL["mode"]),
+                                     ("time_stds", stds, sp_, FEM_TOL["std"])):
+        dist, tol = float((got_ - ref_).abs().max() / ref_.abs().max()), max(floor, fwd)
+        bad += [] if dist <= tol else [label]
+        log(f"    {label}, kernel path vs the plain versions of the {kind} backend on the card: max rel {dist:.3e} "
+            f"(tol {tol:.2e}: the larger of {floor:.0e} and {FEM_TOL['forward']:g} κ·ε, κ {kappa:.3e}): "
+            f"{'ok' if dist <= tol else 'MISSED'}")
+    log(f"    (the plain path: the Laplace approximation and its stds in {plain_s:.2f} s)")
+    ok, line = draw_moments(draws.double(), means, stds)
+    bad += [] if ok else ["draws' moments"]
+    log(f"    {line}: {'ok' if ok else 'MISSED'}")
+    finite = bool(torch.isfinite(means).all() and torch.isfinite(stds).all() and torch.isfinite(draws).all())
+    asserted(f"finite means, stds and draws of shapes {tuple(means.shape)}, {tuple(stds.shape)}, "
+             f"{tuple(draws.shape)}", finite and tuple(draws.shape) == (ST_DRAWS, nt, ns), bad)
+    return bad
+
+
+def run_ex11(dev) -> dict:
+    """Example 11 as written, float64, dense: the values its assertions and literals read."""
+    import tpu_gmrf_torch as tg
+    from tpu_gmrf_torch.fem import AdvectionDiffusionSPDE, FEMDiscretization, MaternSPDE, interval_mesh
+
+    n = 51
+    disc = FEMDiscretization(interval_mesh(-1.0, 1.0, n))
+    dense = tg.SolverSpec(kind="dense")
+    kappa = torch.tensor(np.sqrt(8 * 1.5) / 0.5, dtype=torch.float64, device=dev)
+    neumann = MaternSPDE(disc, smoothness=1, variance=0.3).discretize(kappa=kappa, solver=dense)
+    v = neumann.var().cpu().numpy()
+    dirichlet = MaternSPDE(disc, smoothness=1, variance=0.3, bc="dirichlet", boundary_noise=1e-4).discretize(
+        kappa=kappa, solver=dense)
+    s = dirichlet.std().cpu().numpy()
+    A = torch.zeros((1, n), dtype=torch.float64, device=dev)
+    A[0, 0], A[0, n - 1] = 1.0, -1.0
+    periodic = tg.ConstrainedGMRF.create(neumann, A, torch.zeros(1, dtype=torch.float64, device=dev))
+    xs = periodic.sample(torch.Generator(device=dev).manual_seed(0), (32,)).cpu().numpy()
+    vp = periodic.var().cpu().numpy()
+    spde = AdvectionDiffusionSPDE(disc, gamma=[-0.6], H=np.array([[0.1]]), tau=0.1, alpha=1, kappa=1.0, c=1.0,
+                                  bc="dirichlet", constraint_noise=1e-4)
+    stds = spde.discretize(np.linspace(0, 1, 8), solver=dense).time_stds().cpu().numpy()
+    return {"Neumann var[0]": float(v[0]), "Neumann var[mid]": float(v[n // 2]), "Dirichlet std[0, -1]": s[[0, -1]],
+            "Dirichlet std[mid]": float(s[n // 2]), "periodic gap": float(np.abs(xs[:, 0] - xs[:, -1]).max()),
+            "periodic var ends": (float(vp[0]), float(vp[-1])), "AD-SPDE std[4, 0]": float(stds[4, 0]),
+            "AD-SPDE std[4, mid]": float(stds[4, n // 2])}
+
+
+def run_ex14(dev) -> dict:
+    """Example 14 as written on icosphere(3), float64, supernodal, and solve_refined against the plain solve."""
+    import tpu_gmrf_torch as tg
+    from tpu_gmrf_torch.fem import FEMDiscretization, MaternSPDE, icosphere
+
+    mesh = icosphere(3)
+    disc = FEMDiscretization(mesh)
+    kappa = torch.tensor(np.sqrt(8 * 1.0) / 1.0, dtype=torch.float64, device=dev)
+    prior = MaternSPDE(disc, smoothness=0, variance=1.0).discretize(kappa=kappa,
+                                                                   solver=tg.SolverSpec(kind="supernodal"))
+    v = prior.var().cpu().numpy()
+    north = int(np.argmax(mesh.vertices[:, 2]))
+    e = torch.zeros(len(v), dtype=prior.dtype, device=dev)
+    e[north] = 1.0
+    col = prior.factor.solve(e).cpu().numpy()
+    corr = col / np.sqrt(v * v[north])
+    geo = np.arccos(np.clip(mesh.vertices @ mesh.vertices[north], -1, 1))
+    bins = np.digitize(geo, np.linspace(0, np.pi, 8))
+    decay = [float(corr[bins == b].mean()) for b in range(1, 5)]
+    rng = np.random.default_rng(0)
+    pts = rng.normal(size=(40, 3))
+    pts /= np.linalg.norm(pts, axis=1, keepdims=True)
+    A = disc.evaluation_matrix(pts)
+    yv = np.sin(2 * pts[:, 2]) + 0.5 * pts[:, 0]
+    post = tg.linear_condition(prior, yv, Q_eps=400.0, A=A)
+    fit = A.matvec(post.mean).cpu().numpy()
+    vpost = post.var().cpu().numpy()
+    b = torch.tensor(np.random.default_rng(14).normal(size=len(v)), dtype=torch.float64, device=dev)
+    refined = prior.factor.solve_refined(prior.Q, b)
+    plain = plain_factorize(prior.Q).solve(b)
+    return {"n": mesh.n_vertices, "triangles": mesh.n_elements, "median var": float(np.median(v)),
+            "near-pole corr": float(corr[geo < 0.3].mean()), "antipodal corr": float(corr[geo > np.pi - 0.5].mean()),
+            "decay": decay, "fit error": float(np.abs(fit - yv).max()), "median var post": float(np.median(vpost)),
+            "refined vs plain": float((refined - plain).abs().max() / plain.abs().max())}
+
+
+def run_ex15(dev) -> dict:
+    """Example 15 as written (float32 as the example runs): test accuracy and the probability surface."""
+    import tpu_gmrf_torch as tg
+    from tpu_gmrf_torch.fem.obs_models import PointEvaluationObsModel
+
+    rng = np.random.default_rng(42)
+    n_pts = 580
+    X = rng.uniform(0, 1, size=(n_pts, 2))
+    logit = 5.0 * np.sin(4.0 * X[:, 0]) * np.cos(3.0 * X[:, 1]) + 3.0 * (X[:, 1] - 0.5)
+    y_all = (rng.uniform(size=n_pts) < 1 / (1 + np.exp(-logit))).astype(np.float32)
+    perm = rng.permutation(n_pts)
+    split = int(round(0.8 * n_pts))
+    tr, te = perm[:split], perm[split:]
+    latent = tg.MaternModel(X, smoothness=1)
+    u = latent(tau=1.0, range=0.2)
+    lik = PointEvaluationObsModel(latent.disc, X[tr], tg.ExponentialFamily("bernoulli"))(y_all[tr])
+    post = tg.gaussian_approximation(u, lik)
+    obs_test = PointEvaluationObsModel(latent.disc, X[te], tg.ExponentialFamily("bernoulli"))
+    p_test = tg.conditional_distribution(obs_test, post.mean).mean().cpu().numpy()
+    acc = float(np.mean((p_test >= 0.5) == (y_all[te] > 0.5)))
+    gx, gy = np.meshgrid(np.linspace(0, 1, 100), np.linspace(0, 1, 100))
+    grid = np.stack([gx.ravel(), gy.ravel()], axis=1)
+    obs_grid = PointEvaluationObsModel(latent.disc, grid, tg.ExponentialFamily("bernoulli"))
+    probs = tg.conditional_distribution(obs_grid, post.mean).mean().cpu().numpy()
+    return {"n": latent.n, "dtype": str(post.dtype), "accuracy": acc, "probs": probs}
+
+
+def example_cell(label, run, kernels_path, dev, counts: dict):
+    from tpu_gmrf_torch import kernels
+
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run(dev)
+    torch.cuda.synchronize()
+    got = kernels.launches()
+    secs = time.perf_counter() - t0
+    launched(got, kernels_path, label)
+    counts.update({k: counts.get(k, 0) + v for k, v in got.items()})
+    return out, secs
+
+
+def fem_path(dn_model, dev, card):
+    """Phase 26: examples 04, 11, 14 and 15 and the 2-D space-time path; the kernels counted from zero for each
+    cell and required to have launched there."""
+    counts, bad = {}, []
+    bad += ex04_cell(dev, card, counts)
+    bad += st2d_cell(dn_model, ST_NT, dev, card, counts)
+    v, secs = example_cell("example 11", run_ex11, ("dense_chol", "dense_trsv", "dense_selinv", "gather_segsum"),
+                           dev, counts)
+    log(f"  (c) example 11 (dense, f64) in {secs:.2f} s on {card}:")
+    asserted(f"Neumann var[0] {v['Neumann var[0]']:.3f} > 1.5 var[mid]",
+             v["Neumann var[0]"] > 1.5 * v["Neumann var[mid]"], bad)
+    asserted(f"Dirichlet boundary std {v['Dirichlet std[0, -1]'].tolist()} within 1e-3 of 1e-4",
+             bool(np.allclose(v["Dirichlet std[0, -1]"], 1e-4, rtol=1e-3)), bad)
+    asserted(f"periodic gap over 32 samples {v['periodic gap']:.2e} < 1e-5; end variances "
+             f"{v['periodic var ends'][0]:.6f} / {v['periodic var ends'][1]:.6f} within 1e-6",
+             v["periodic gap"] < 1e-5 and abs(v["periodic var ends"][0] - v["periodic var ends"][1])
+             <= 1e-6 * abs(v["periodic var ends"][1]), bad)
+    asserted(f"AD-SPDE std[4, 0] {v['AD-SPDE std[4, 0]']:.2e} < 1e-3 < std[4, mid]",
+             v["AD-SPDE std[4, 0]"] < 1e-3 < v["AD-SPDE std[4, mid]"], bad)
+    for key, (gold, lim) in EX11_GOLD.items():
+        held(key, v[key], gold, lim, bad)
+    v, secs = example_cell("example 14", run_ex14, ("csr_spmv", "gather_segsum") + BACKEND_KERNELS["supernodal"]
+                           + SELINV_KERNELS, dev, counts)
+    log(f"  (d) example 14 (icosphere(3): {v['n']} vertices, {v['triangles']} triangles; supernodal, f64) in "
+        f"{secs:.2f} s on {card}:")
+    asserted(f"antipodal corr {v['antipodal corr']:.6f} within 0.02 of 0", abs(v["antipodal corr"]) < 0.02, bad)
+    asserted(f"binned correlation decreasing {[round(x, 4) for x in v['decay']]}",
+             all(a > b for a, b in zip(v["decay"], v["decay"][1:])), bad)
+    asserted(f"posterior interpolation error {v['fit error']:.3f} < 0.25", v["fit error"] < 0.25, bad)
+    asserted(f"posterior median var {v['median var post']:.4f} below the prior's", v["median var post"]
+             < v["median var"], bad)
+    for key, (gold, lim) in EX14_GOLD.items():
+        held(key, v[key], gold, lim, bad)
+    asserted(f"solve_refined vs the plain solve on the card: max rel {v['refined vs plain']:.3e} (tol "
+             f"{FEM_TOL['refined']:.0e})", v["refined vs plain"] <= FEM_TOL["refined"], bad)
+    v, secs = example_cell("example 15", run_ex15, ("csr_spmv", "dense_chol", "dense_trsv"), dev, counts)
+    log(f"  (e) example 15 (n={v['n']}, {v['dtype']}) in {secs:.2f} s on {card}:")
+    asserted(f"test accuracy {v['accuracy']:.2%} > 60%", v["accuracy"] > 0.6, bad)
+    asserted("probability surface in [0, 1] on the 100x100 grid",
+             bool(np.all((v["probs"] >= 0) & (v["probs"] <= 1))), bad)
+    if bad:
+        raise AssertionError(f"phase 26 failed: {bad}")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5661,9 +6166,13 @@ def main() -> int:
         f"(B={CHAINS}), the spatial prior (n={sp_model.n}, supernodal and auto -> banded), g={DN_GRID} (auto -> dense); "
         f"pathwise against selected-inverse derivatives; the SPIKE logdet's gradient and solve's Hessian; on {card}")
     counts25 = pathwise_path(sp_model, dn_model, dev, card)
+    log(f"phase 26 space-time and FEM breadth: example 04 (Nt=71, n=14,271); advection-diffusion at g={DN_GRID} "
+        f"(ns={dn_model.n}, Nt={ST_NT}, n={dn_model.n * ST_NT}) with Poisson counts; examples 11, 14 and 15; on {card}")
+    counts26 = fem_path(dn_model, dev, card)
 
     paths = (counts, sp_counts, counts9, counts10, counts11, counts12, counts13, counts13b, counts14, counts15,
-             counts16, counts17, counts18, counts19, counts20, counts21, counts22, counts23, counts24, counts25)
+             counts16, counts17, counts18, counts19, counts20, counts21, counts22, counts23, counts24, counts25,
+             counts26)
     report = {
         "kernels": [
             {"name": name, "route": "cuda", "source": SOURCES[name][0], "replaces": SOURCES[name][1],

@@ -203,13 +203,13 @@ def test_rows_to_blocks_match_reference_layout(matern10, k):
 
 
 @pytest.mark.parametrize("B_,K,s,k,want", [
-    (4, 12, 512, 1, 4 * 12 * 512 + 4 * 12 * 8 * 4096 + 4 * 12 * 512 * 512 + 4 * 512),
-    (1, 1, 65, 3, 195 + 2 * 4096 + 65 * 65 + 195),
-    (2, 3, 64, 9, 2 * 3 * 64 * 9 + 6 * 4096 + 6 * 4096 + 2 * 64 * 9)])
+    (4, 12, 512, 1, 4 * 12 * 512 + 4 * 512),
+    (1, 1, 65, 3, 195 + 195),
+    (2, 3, 64, 9, 2 * 3 * 64 * 9 + 2 * 64 * 9)])
 def test_trsv_workspace_counts_the_blocks(B_, K, s, k, want):
-    """K12's workspace: the permuted right-hand sides, ⌈s/64⌉ inverted tiles
-    of 64 × 64 and the inverse per block, one block row of scratch; the
-    block entry takes no permuted copy."""
+    """K12's workspace: the permuted right-hand sides and one block row of
+    scratch (it solves by substitution and keeps no inverses); the block
+    entry takes no permuted copy."""
     assert kernels.banded.trsv_workspace(B_, K, s, k) == want
     assert kernels.banded.trsv_workspace(B_, K, s, k, permuted=False) == want - B_ * K * s * k
 
@@ -221,11 +221,6 @@ def test_banded_solves_take_no_right_hand_sides(matern10):
     z = _t(np.zeros((B, shape[0], 0)))
     for op in (f.solve, f.forward_solve, f.backward_solve, f.sqrt_matvec):
         assert op(z).shape == (B, shape[0], 0)
-
-
-def test_block_inverses_run_on_the_card_only():
-    with pytest.raises(ValueError, match="card"):
-        kernels.banded._bt_inverses(torch.zeros(1, 2, 16, 8, dtype=F64))
 
 
 @pytest.mark.parametrize("kind", ["dense", "banded"])

@@ -420,9 +420,7 @@ def test_port_never_imports_jax():
 # The reference's public names that the port does not have yet; each waits for its slice of ROADMAP queue 1.
 # The list shrinks as those land.
 UNPORTED_NAMES = {
-    "AdvectionDiffusionSPDE", "IntervalMesh", "SpatiotemporalGMRF", "adjacency_from_shapefile", "contiguity_adjacency",
-    "create_inflated_rectangle", "hoist_jit", "interval_mesh", "kronecker_product_spatiotemporal_model",
-    "product_matern", "read_shapefile_polygons", "run_advi", "run_smc", "spatial_to_spatiotemporal",
+    "adjacency_from_shapefile", "contiguity_adjacency", "hoist_jit", "read_shapefile_polygons", "run_advi", "run_smc",
 }
 
 

@@ -67,9 +67,10 @@
 // diagonal block, rows s..2s the sub-diagonal block below it) that the
 // cluster factors in place, column tile by column tile (bt_chol_kernel):
 // block 0 factors each diagonal tile (its update fused in, pivots by warp
-// shuffles, the inverse by blocks of 16) while the other 15 blocks do the
-// products, on the f64 tensor cores (float32 on the FMA units; its diagonal
-// tiles in float64), two cluster barriers per column tile. The pivot boost
+// shuffles) while the other 15 blocks solve the panel below it by
+// substitution (float64, a warp per 8 rows) and do the products, on the f64
+// tensor cores (float32 on the FMA units; its diagonal tiles and panel
+// solves in float64), two cluster barriers per column tile. The pivot boost
 // is decided as the reference decides it, per chain and block: the cluster
 // pass factors every chain without boost and flags breakdowns; one flag
 // readback follows; the chains that broke down (rare: f32 at extreme
@@ -82,25 +83,24 @@
 // steps: bound by the latency of that chain where k is small (K12 on the
 // Newton solves: k = 1, B = 4, K = 12, s = 512; its bound, L and M read
 // once, 0.043 ms in f64), by the products where it is large. One design
-// serves both: every L_k is inverted first (invert_blocks: the inverted
-// 64 x 64 diagonal tiles of tiles.cuh, then invert_blocks_kernel, a block
-// per chain, block and column tile, left-looking over the row tiles; 1/3 s^3
-// flops per block, all of them independent), so a block step is two
-// products and no substitution: the coupling W = b_k - M_{k-1} y_{k-1} and
-// y_k = L_k^-1 W (backward, M_k^T and L_k^-T). A work unit is one chain and
-// one column tile of 64 right-hand sides (8 when k <= 8), a cluster of up to
-// 8 blocks, each owning row tiles of both products (tiles i and ntiles - 1 -
-// i together when a block owns two, which evens the depths of the
-// triangular products), f64 on the tensor cores; a cluster barrier follows
-// each product. The clusters of one chain walk the blocks in step, so a
-// step's L_k^-1 and M_k (3.2 MB at s = 450) are read from L2 by all the
-// chain's column tiles. K12 adds its rows' permutation and padding around
-// it (rows_in gathers b into the block layout (B, K, s, k), rows_out
-// scatters the solution back) and its modes: the forward sweep alone, the
-// backward alone, or both. The explicit inverses hold the f64 limit of
-// chip_smoke.py's phases 3c and 3f (1e-12 against substitution): the
-// diagonal blocks of the SPIKE shapes and of the n = 5741 Laplace posterior
-// (condition of L_k about 320) are well conditioned.
+// serves both: a block step is the coupling W = b_k - M_{k-1} y_{k-1}, one
+// product, then y_k = L_k^-1 W by row tiles of 64, right-looking: the
+// diagonal tile by substitution (tile_subst, float64, a warp per 8
+// right-hand sides), the tiles below it less its product (backward, M_k^T
+// and L_k^-T). It solves by substitution and never multiplies by an
+// inverse: the residual of a product with L_k^-1 grows with L_k's condition
+// (example 04's space-time joint, L_k's condition up to 1.5e6: relative
+// residual 7.5e-11 against 5.4e-16 by substitution, chip_smoke.py phase 26).
+// A work unit is one chain and one column tile of 64 right-hand sides (8
+// when k <= 8), a cluster of up to 8 blocks, each owning row tiles (tiles i
+// and ntiles - 1 - i together when a block owns two, which evens the depths
+// of the triangular updates), f64 on the tensor cores; a cluster barrier
+// follows each row tile's substitution. The clusters of one chain walk the
+// blocks in step, so a step's L_k and M_k (3.2 MB at s = 450) are read from
+// L2 by all the chain's column tiles. K12 adds its rows' permutation and
+// padding around it (rows_in gathers b into the block layout (B, K, s, k),
+// rows_out scatters the solution back) and its modes: the forward sweep
+// alone, the backward alone, or both.
 // K13 streams (2K-1) s^2 values against 2 (3K-2) s^2 flops per vector: with
 // a handful of vectors it is bound by that stream (the blocks are 30-100x
 // the sparse values, most of them zeros), 87 MB in float32 at n = 14058
@@ -361,6 +361,78 @@ __device__ __noinline__ void chol_gemm(T* C, long long ldc, const T* A, long lon
   tile_io<T, 64, false>(acc, C, ldc, Mr, Nc);
   __syncthreads();
 }
+
+// Substitution with the lower t x t tile L (t <= 64, row stride ld, read
+// from L2): out = L^-1 in, or L^-T in with `trans`, for nr <= NR right-hand
+// sides, element j of right-hand side c at in[j se + c sr] (and out's), in
+// float64 and rounded once. L and its pivots' reciprocals are staged in
+// shared memory (sm: 64 kLdS + 64 doubles); warp w takes right-hand sides
+// w + 8 u, lane l their elements l and l + 32, and each pivot's solution
+// value passes to the other lanes by a shuffle (K7's diagonal step). Unlike a
+// product with an inverted tile, its residual does not grow with L's
+// condition. in and out may be one array. Every thread of the block calls
+// it; it ends with a block barrier.
+template <typename T, int NR>
+__device__ __noinline__ void tile_subst(const T* L, long long ld, int t, bool trans, const T* in, T* out,
+                                        long long se, long long sr, int nr, double* sm) {
+  using namespace tgtile;
+  constexpr int CPW = NR / 8;
+  double* Ls = sm;
+  double* rd = sm + kT * kLdS;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  for (int e = tid; e < kTT; e += kThr) {
+    const int r = e / kT, c = e % kT;
+    Ls[r * kLdS + c] = (r < t && c <= r) ? double(ldcg(L + r * ld + c)) : 0.0;
+  }
+  if (tid < kT) rd[tid] = tid < t ? 1.0 / double(ldcg(L + tid * (ld + 1))) : 0.0;
+  double v0[CPW], v1[CPW];
+#pragma unroll
+  for (int u = 0; u < CPW; ++u) {
+    const int c = warp + 8 * u;
+    v0[u] = c < nr && lane < t ? double(ldcg(in + lane * se + c * sr)) : 0.0;
+    v1[u] = c < nr && lane + 32 < t ? double(ldcg(in + (lane + 32) * se + c * sr)) : 0.0;
+  }
+  __syncthreads();
+  if (!trans) {
+#pragma unroll 4
+    for (int jj = 0; jj < t; ++jj) {
+      const double l0 = Ls[lane * kLdS + jj], l1 = Ls[(lane + 32) * kLdS + jj], r = rd[jj];
+#pragma unroll
+      for (int u = 0; u < CPW; ++u) {
+        const double yj = __shfl_sync(0xffffffffu, jj < 32 ? v0[u] : v1[u], jj & 31) * r;
+        if (jj < 32) {
+          v0[u] = lane == jj ? yj : v0[u] - l0 * yj;  // L[lane][jj] = 0 above the diagonal
+          v1[u] -= l1 * yj;
+        } else {
+          v1[u] = lane + 32 == jj ? yj : v1[u] - l1 * yj;
+        }
+      }
+    }
+  } else {
+#pragma unroll 4
+    for (int jj = t - 1; jj >= 0; --jj) {
+      const double l0 = Ls[jj * kLdS + lane], l1 = Ls[jj * kLdS + lane + 32], r = rd[jj];
+#pragma unroll
+      for (int u = 0; u < CPW; ++u) {
+        const double yj = __shfl_sync(0xffffffffu, jj < 32 ? v0[u] : v1[u], jj & 31) * r;
+        if (jj < 32) {
+          v0[u] = lane == jj ? yj : v0[u] - l0 * yj;  // L[jj][lane] = 0 right of the diagonal
+        } else {
+          v1[u] = lane + 32 == jj ? yj : v1[u] - l1 * yj;
+          v0[u] -= l0 * yj;
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < CPW; ++u) {
+    const int c = warp + 8 * u;
+    if (c < nr && lane < t) out[lane * se + c * sr] = T(v0[u]);
+    if (c < nr && lane + 32 < t) out[(lane + 32) * se + c * sr] = T(v1[u]);
+  }
+  __syncthreads();
+}
+
 template <typename T>
 struct TileWork {
   using type = T;
@@ -370,9 +442,10 @@ struct TileWork<float> {
   using type = double;
 };
 template <typename T>
-__device__ __noinline__ void chol_tile(T* D, long long ld, int t, T* Dinv, int* bad, T* sm, T tiny,
-                                       const T* U = nullptr, long long ldu = 0, int du = 0) {
-  tgtile::factor_tile(D, ld, t, Dinv, bad, reinterpret_cast<typename TileWork<T>::type*>(sm), tiny, U, ldu, du);
+__device__ __noinline__ void chol_tile(T* D, long long ld, int t, int* bad, T* sm, T tiny, const T* U = nullptr,
+                                       long long ldu = 0, int du = 0) {
+  tgtile::factor_tile(D, ld, t, (T*)nullptr, bad, reinterpret_cast<typename TileWork<T>::type*>(sm), tiny, U, ldu,
+                      du);
 }
 
 // The blocked Cholesky of chain blockIdx.y's block-tridiagonal matrix, held
@@ -381,8 +454,10 @@ __device__ __noinline__ void chol_tile(T* D, long long ld, int t, T* Dinv, int* 
 // walks L_k's column tiles of 64, j = 0 .. nt - 1 (nt = ceil(s / 64)), each
 // in two phases:
 //   the panel: L_k's row tiles below the diagonal tile j and M_k's row tiles
-//     times the inverted diagonal tile (L(a, j) = A(a, j) L_jj^-T), dealt
-//     out over the cluster; block 0's first tile is the row tile of the next
+//     solved by substitution with the diagonal tile (L(a, j) = A(a, j)
+//     L_jj^-T, tile_subst: a product with L_jj's inverse would leave a
+//     backward error that grows with L_jj's condition), dealt out over the
+//     cluster; block 0's first tile is the row tile of the next
 //     diagonal tile. Its barrier is split: block 0 arrives, then factors the
 //     next diagonal tile (L(j + 1, j + 1), or A_{k+1}(0, 0) after the last
 //     column tile; its update by column tile j fused in), then waits. The
@@ -394,22 +469,18 @@ __device__ __noinline__ void chol_tile(T* D, long long ld, int t, T* Dinv, int* 
 //     tiles of A_{k+1} = D_{k+1} - M_k M_k^T (two column tiles of M_k at a
 //     time, spread over the updates, so that U_k's products fill the time
 //     of the tile factors) and L_k's trailing tiles (right-looking).
-// Block 0 factors and inverts the diagonal tiles (tiles.cuh factor_tile; a
-// float32 tile in float64, so that the inverse that multiplies every panel
-// tile carries no float32 bias into the pivots that follow) into the chain's
-// two slots of Dinv in turn (the panel reads one while the next is
-// written). *bad is set for a pivot that is not finite and above tiny; the
-// chain goes on.
+// Block 0 factors the diagonal tiles (tiles.cuh factor_tile; a float32 tile
+// in float64) in place. *bad is set for a pivot that is not finite and above
+// tiny; the chain goes on.
 template <typename T>
 __global__ void __launch_bounds__(tgtile::kThr, 1)
-    bt_chol_kernel(T* P, int K, int s, T tiny, T* Dinv, int* bad) {
+    bt_chol_kernel(T* P, int K, int s, T tiny, int* bad) {
   using namespace tgtile;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);
   const int rank = blockIdx.x, cs = gridDim.x;  // the grid is (cluster size, B)
   const long long panel = 2LL * s * s, ss = (long long)s * s;
   T* Pb = P + blockIdx.y * panel * K;
-  T* Dv = Dinv + blockIdx.y * 2LL * kTT;  // two slots: column tile c's inverted diagonal tile in slot c % 2
   int* flag = bad + blockIdx.y;
   const int nt = ntiles(s);
   // U_k's chunks of two column tiles of M_k spread over the updates before the last; the rest at the last
@@ -425,24 +496,23 @@ __global__ void __launch_bounds__(tgtile::kThr, 1)
     return own;
   };
   auto rows = [&](int i) { return min(kT, s - i * kT); };  // height of row tile i
-  if (rank == 0) chol_tile(Pb, s, rows(0), Dv, flag, sm, tiny);
+  if (rank == 0) chol_tile(Pb, s, rows(0), flag, sm, tiny);
   cluster_barrier();
-  for (int k = 0, c = 0; k < K; ++k) {
+  for (int k = 0; k < K; ++k) {
     T* L = Pb + k * panel;  // L_k, then M_k (E_k until it is solved) s rows below
     T* M = L + ss;
     T* A = L + panel;  // D_{k+1}, then A_{k+1}
     const bool more = k < K - 1;
-    for (int j = 0; j < nt; ++j, ++c) {
+    for (int j = 0; j < nt; ++j) {
       const int j0 = j * kT, tj = rows(j), below = nt - 1 - j;
       if (!more && below == 0) break;  // the last column tile of the last block
       const bool last = below == 0;
       const int n1 = j0 + kT, t1 = rows(last ? 0 : j + 1);
-      const T* Dj = Dv + (c % 2) * kTT;
-      T* Dn = Dv + ((c + 1) % 2) * kTT;
       // the panel; block 0's first row tile is the one the next diagonal tile's update needs
       for (int a = rank; a < below + (more ? nt : 0); a += cs) {
         T* C = a < below ? L + (long long)(j + 1 + a) * kT * s + j0 : M + (long long)(a - below) * kT * s + j0;
-        chol_gemm<T>(C, s, C, s, Dj, kT, rows(a < below ? j + 1 + a : a - below), tj, tj, false, sm);
+        tile_subst<T, 64>(L + (long long)j0 * s + j0, s, tj, false, C, C, 1, s, rows(a < below ? j + 1 + a : a - below),
+                          reinterpret_cast<double*>(sm));
       }
       // the panel barrier, split: block 0 factors the next diagonal tile (L(j + 1, j + 1), or A_{k+1}(0, 0)
       // after the last column tile) between its arrival and its wait, its update by column tile j fused in,
@@ -450,9 +520,9 @@ __global__ void __launch_bounds__(tgtile::kThr, 1)
       cluster_arrive();
       if (rank == 0) {
         if (last)
-          chol_tile(A, s, t1, Dn, flag, sm, tiny, (const T*)M + u_last, s, s - u_last);
+          chol_tile(A, s, t1, flag, sm, tiny, (const T*)M + u_last, s, s - u_last);
         else
-          chol_tile(L + (long long)n1 * s + n1, s, t1, Dn, flag, sm, tiny, (const T*)L + (long long)n1 * s + j0, s, tj);
+          chol_tile(L + (long long)n1 * s + n1, s, t1, flag, sm, tiny, (const T*)L + (long long)n1 * s + j0, s, tj);
       }
       cluster_wait();
       // the update (none of it block 0's, unless the cluster is one block): M_k's tiles of column j + 1
@@ -503,19 +573,18 @@ int chol_fit(int cs, int* count) {
 }
 
 template <typename T>
-int launch_chol(T* P, int K, int s, T tiny, T* Dinv, int* bad, int cs, int B, cudaStream_t st) {
-  return tgtile::launch_cluster(bt_chol_kernel<T>, dim3(cs, B), cs, chol_smem<T>(), st, P, K, s, tiny, Dinv, bad);
+int launch_chol(T* P, int K, int s, T tiny, int* bad, int cs, int B, cudaStream_t st) {
+  return tgtile::launch_cluster(bt_chol_kernel<T>, dim3(cs, B), cs, chol_smem<T>(), st, P, K, s, tiny, bad);
 }
 
 // K11: scatter, the cluster factorization of every chain with no boost
 // (breakdown at l <= 30 eps), one flag readback; the chains that broke down
 // are redone from the scatter on, block by block, each block retried as
 // `_chol_boosted` does (the blocked panel Cholesky of dense_blocks.cuh on
-// the chains in `redo`). Dinv: B x 2 inverted tiles of 64 x 64 (scratch).
+// the chains in `redo`).
 template <typename T>
 int launch_factor(const T* data, long long ds, const int* src, const int* dst, int ntab, const int* tperm, T* P,
-                  int K, int s, T* ws, T* dom, int* boost, T* logdet, int* flags, T* Dinv, int cs, int B,
-                  void* stream) {
+                  int K, int s, T* ws, T* dom, int* boost, T* logdet, int* flags, int cs, int B, void* stream) {
   if (B == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
   int* fail = flags;
@@ -532,7 +601,7 @@ int launch_factor(const T* data, long long ds, const int* src, const int* dst, i
   // fast pass: every chain, every block, no boost
   bt_scatter_kernel<T><<<sgrid, kThreads, 0, st>>>(data, ds, src, dst, ntab, tperm, P, pstride, nullptr);
   if ((rc = (int)cudaGetLastError())) return rc;
-  if ((rc = launch_chol<T>(P, K, s, tiny, Dinv, fail, cs, B, st))) return rc;
+  if ((rc = launch_chol<T>(P, K, s, tiny, fail, cs, B, st))) return rc;
   bool any;
   if ((rc = any_failed(fail, B, st, &any))) return rc;
   if (any) {
@@ -579,7 +648,7 @@ int launch_factor(const T* data, long long ds, const int* src, const int* dst, i
 // comes (NaN for a negative one) and sets the chain's flag, whose logdet is
 // then NaN, as an unboosted Cholesky gives.
 template <typename T>
-int launch_factor_blocks(const T* D, const T* E, T* P, int K, int s, T* logdet, int* flags, T* Dinv, int cs, int B,
+int launch_factor_blocks(const T* D, const T* E, T* P, int K, int s, T* logdet, int* flags, int cs, int B,
                          void* stream) {
   if (B == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
@@ -589,7 +658,7 @@ int launch_factor_blocks(const T* D, const T* E, T* P, int K, int s, T* logdet, 
   if (rc) return rc;
   bt_blocks_load_kernel<T><<<dim3(want < 1024 ? (int)want : 1024, B), kThreads, 0, st>>>(D, E, P, K, s);
   if ((rc = (int)cudaGetLastError())) return rc;
-  if ((rc = launch_chol<T>(P, K, s, T(0), Dinv, flags, cs, B, st))) return rc;
+  if ((rc = launch_chol<T>(P, K, s, T(0), flags, cs, B, st))) return rc;
   bt_logdet_kernel<T><<<B, kThreads, 0, st>>>(P, pstride, K, s, logdet, flags);
   return (int)cudaGetLastError();
 }
@@ -652,150 +721,116 @@ int rows_out(const T* src, long long sb, long long sc, long long sg, const int* 
   return (int)cudaGetLastError();
 }
 
-// L_k^-1 of every block of every chain into Linv (B, K, s, s), lower with
-// zeros above the diagonal: block (ct, k, b) solves L_k X = I for the
-// columns of tile ct, left-looking from row tile ct down, with the inverted
-// diagonal tiles Dinv (B, K, ntiles(s), 64, 64).
-template <typename T>
-__global__ void __launch_bounds__(tgtile::kThr, 2)
-    invert_blocks_kernel(const T* P, int K, int s, const T* Dinv, T* Linv) {
-  using namespace tgtile;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sm = reinterpret_cast<T*>(smem_raw);
-  const int ct = blockIdx.x, nt = ntiles(s), c0 = ct * kT, q = min(kT, s - c0);
-  const long long m = (long long)blockIdx.z * K + blockIdx.y;  // chain b, block k
-  const T* L = P + m * 2LL * s * s;
-  const T* D = Dinv + m * nt * kTT;
-  T* X = Linv + m * s * s + c0;
-  for (long long e = threadIdx.x; e < (long long)s * q; e += blockDim.x) {  // the columns of I
-    const int r = (int)(e / q), c = (int)(e % q);
-    X[(long long)r * s + c] = r == c0 + c ? T(1) : T(0);
-  }
-  __syncthreads();
-  for (int j = ct; j < nt; ++j) {
-    const int j0 = j * kT, tj = min(kT, s - j0);
-    T* Xj = X + (long long)j0 * s;
-    if (j > ct)
-      gemm_rows<T, 64>(Xj, s, L + (long long)j0 * s + c0, s, 1, X + (long long)c0 * s, s, 1, tj, q, j0 - c0, true,
-                       sm);
-    gemm_rows<T, 64>(Xj, s, D + (long long)j * kTT, kT, 1, Xj, s, 1, tj, q, tj, false, sm);
-  }
-}
-
 // Whether block `rank` of a cluster of cs owns row tile i of nt: i % cs, or,
-// with at least two tiles per block, i and nt - 1 - i together (the forward
-// and backward products of tile i are i + 1 and nt - i tiles deep).
+// with at least two tiles per block, i and nt - 1 - i together (the
+// forward and backward updates of tile i are i and nt - 1 - i tiles deep).
 __device__ __forceinline__ bool owns(int i, int nt, int rank, int cs) {
   return (2 * cs <= nt ? (i < nt - 1 - i ? i : nt - 1 - i) : i) % cs == rank;
 }
 
+// Shared memory of K12's cluster at column tile NT: the products' staging,
+// or a diagonal tile and its pivots' reciprocals in float64 (tile_subst).
+template <typename T, int NT>
+constexpr size_t trsv_smem() {
+  using namespace tgtile;
+  return sizeof(T) * 2 * kKS * (Cfg<NT>::LDA + Cfg<NT>::LDB) > sizeof(double) * (kT * kLdS + kT)
+             ? sizeof(T) * 2 * kKS * (Cfg<NT>::LDA + Cfg<NT>::LDB)
+             : sizeof(double) * (kT * kLdS + kT);
+}
+
 // K12 and its block entry: cluster (col, chain) solves columns NT col .. NT
 // col + q of its chain's right-hand sides Bin (B, K, s, k) into X (Bin may
-// be X), forward (mode 0), backward (mode 1) or both (mode 2), with the
-// inverses Linv of the diagonal blocks. Block `rank` of the cluster owns
-// the row tiles of `owns`. A block step is two products with a cluster
-// barrier after each: the coupling, W_i = X_i - M_{k-1}[i, :] y_{k-1} (or
-// X_i - M_k[:, i]^T x_{k+1}; Bin_i in place of X_i going forward) into the
-// scratch W (B, s, k), then X_i = Linv_k[i, :] W (or Linv_k[:, i]^T W).
+// be X), forward (mode 0), backward (mode 1) or both (mode 2). Block `rank`
+// of the cluster owns the row tiles of `owns`. A block step is the
+// coupling, W_i = X_i - M_{k-1}[i, :] y_{k-1} (or X_i - M_k[:, i]^T x_{k+1};
+// Bin_i in place of X_i going forward) into the scratch W (B, s, k) for
+// every owned tile at once, then the block substitution with L_k by row
+// tiles, right-looking: the owner of tile i solves it with the diagonal
+// tile (tile_subst), a cluster barrier publishes it, and every block
+// subtracts its contribution from the tiles it owns further on (L_k[i', i]
+// X_i forward, L_k[i, i']^T X_i backward), the next tile's owner first.
 // The backward sweep alone starts from Bin.
 template <typename T, int NT>
 __global__ void __launch_bounds__(tgtile::kThr, 2)
-    bt_trsv_blocks_kernel(const T* P, int K, int s, const T* Linv, const T* Bin, T* X, T* W, int k, int mode) {
+    bt_trsv_blocks_kernel(const T* P, int K, int s, const T* Bin, T* X, T* W, int k, int mode) {
   using namespace tgtile;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);
+  double* dsm = reinterpret_cast<double*>(smem_raw);
   const int rank = blockIdx.x, cs = gridDim.x, nt = ntiles(s);
   const int c0 = blockIdx.y * NT, q = min(NT, k - c0);
   const long long panel = 2LL * s * s, ss = (long long)s * s, rows = (long long)s * k;  // rows: one block row of X
   const T* Pb = P + blockIdx.z * panel * K;
-  const T* Gb = Linv + blockIdx.z * ss * K;
   const T* Bb = Bin + blockIdx.z * rows * K + c0;
   T* Xb = X + blockIdx.z * rows * K + c0;
   T* Wb = W + blockIdx.z * rows + c0;
+  auto height = [&](int i) { return min(kT, s - i * kT); };
   for (int blk = 0; mode != 1 && blk < K; ++blk) {
     T* V = Xb + blk * rows;
+    const T* Lk = Pb + blk * panel;
     for (int i = 0; i < nt; ++i) {
       if (!owns(i, nt, rank, cs)) continue;
       const long long i0 = (long long)i * kT;
       const T* Mi = blk ? Pb + (blk - 1) * panel + ss + i0 * s : Pb;  // no coupling into block 0
-      gemm_rows<T, NT>(Wb + i0 * k, k, Mi, s, 1, blk ? V - rows : V, k, 1, min(kT, s - i * kT), q, blk ? s : 0, true,
-                       sm, Bb + blk * rows + i0 * k);
+      gemm_rows<T, NT>(Wb + i0 * k, k, Mi, s, 1, blk ? V - rows : V, k, 1, height(i), q, blk ? s : 0, true, sm,
+                       Bb + blk * rows + i0 * k);
     }
-    csync();
     for (int i = 0; i < nt; ++i) {
-      if (!owns(i, nt, rank, cs)) continue;
       const long long i0 = (long long)i * kT;
-      const int ti = min(kT, s - i * kT);
-      gemm_rows<T, NT>(V + i0 * k, k, Gb + blk * ss + i0 * s, s, 1, Wb, k, 1, ti, q, (int)i0 + ti, false, sm);
+      if (owns(i, nt, rank, cs)) tile_subst<T, NT>(Lk + i0 * s + i0, s, height(i), false, Wb + i0 * k, V + i0 * k, k, 1, q, dsm);
+      csync();
+      for (int a = i + 1; a < nt; ++a)  // W_a -= L_k[a, i] X_i
+        if (owns(a, nt, rank, cs))
+          gemm_rows<T, NT>(Wb + (long long)a * kT * k, k, Lk + (long long)a * kT * s + i0, s, 1, V + i0 * k, k, 1,
+                           height(a), q, height(i), true, sm);
     }
-    csync();
   }
   for (int blk = K - 1; mode != 0 && blk >= 0; --blk) {
     T* V = Xb + blk * rows;
+    const T* Lk = Pb + blk * panel;
     const T* U = mode == 1 ? Bb + blk * rows : V;  // the right-hand side of this block step
     for (int i = 0; i < nt; ++i) {
       if (!owns(i, nt, rank, cs)) continue;
       const long long i0 = (long long)i * kT;
       const bool last = blk == K - 1;  // no coupling out of the last block
-      gemm_rows<T, NT>(Wb + i0 * k, k, Pb + blk * panel + ss + i0, 1, s, last ? V : V + rows, k, 1,
-                       min(kT, s - i * kT), q, last ? 0 : s, true, sm, U + i0 * k);
+      gemm_rows<T, NT>(Wb + i0 * k, k, Lk + ss + i0, 1, s, last ? V : V + rows, k, 1, height(i), q, last ? 0 : s, true,
+                       sm, U + i0 * k);
     }
-    csync();
-    for (int i = 0; i < nt; ++i) {
-      if (!owns(i, nt, rank, cs)) continue;
+    for (int i = nt - 1; i >= 0; --i) {
       const long long i0 = (long long)i * kT;
-      gemm_rows<T, NT>(V + i0 * k, k, Gb + blk * ss + i0 * s + i0, 1, s, Wb + i0 * k, k, 1, min(kT, s - i * kT), q,
-                       s - (int)i0, false, sm);
+      if (owns(i, nt, rank, cs)) tile_subst<T, NT>(Lk + i0 * s + i0, s, height(i), true, Wb + i0 * k, V + i0 * k, k, 1, q, dsm);
+      csync();
+      for (int a = i - 1; a >= 0; --a)  // W_a -= L_k[i, a]^T X_i
+        if (owns(a, nt, rank, cs))
+          gemm_rows<T, NT>(Wb + (long long)a * kT * k, k, Lk + i0 * s + (long long)a * kT, 1, s, V + i0 * k, k, 1,
+                           height(a), q, height(i), true, sm);
     }
-    csync();
   }
 }
 
-// The inverted diagonal tiles of every L_k into Dinv (B K ntiles(s) 64 64),
-// then every L_k^-1 into Linv (B K s s).
+// K12's solve on blocks (both entries): one cluster of up to 8 blocks (one
+// per row tile) per chain and column tile of 64 right-hand sides (8 when
+// k <= 8). b and out may be one array. work: W (B s k).
 template <typename T>
-int invert_blocks(const T* P, int K, int s, int B, T* Dinv, T* Linv, cudaStream_t st) {
-  using namespace tgtile;
-  const int nt = ntiles(s);
-  int rc = invert_diag<T>(P, 2LL * s * s, s, s, B * K, Dinv, st);
-  const size_t smem64 = sizeof(T) * 2 * kKS * (Cfg<64>::LDA + Cfg<64>::LDB);
-  if (!rc) rc = set_smem(invert_blocks_kernel<T>, smem64);
-  if (rc) return rc;
-  invert_blocks_kernel<T><<<dim3(nt, K, B), kThr, smem64, st>>>(P, K, s, Dinv, Linv);
-  return (int)cudaGetLastError();
-}
-
-// K12's solve on blocks (both entries): every L_k inverted (invert_blocks),
-// then one cluster of up to 8 blocks (one per row tile) per chain and column
-// tile of 64 right-hand sides (8 when k <= 8). b and out may be one array.
-// work: Dinv (B K ntiles(s) 64 64), Linv (B K s s), W (B s k).
-template <typename T>
-int launch_trsv_blocks(const T* P, int K, int s, const T* b, T* out, int k, int B, T* work, int mode,
-                       cudaStream_t st) {
+int launch_trsv_blocks(const T* P, int K, int s, const T* b, T* out, int k, int B, T* W, int mode, cudaStream_t st) {
   using namespace tgtile;
   if (B == 0 || k == 0 || K == 0) return 0;
   const int nt = ntiles(s);
-  T* Dinv = work;
-  T* Linv = Dinv + (long long)B * K * nt * kTT;
-  T* W = Linv + (long long)B * K * s * s;
-  int rc = invert_blocks<T>(P, K, s, B, Dinv, Linv, st);
-  if (rc) return rc;
-  const size_t smem64 = sizeof(T) * 2 * kKS * (Cfg<64>::LDA + Cfg<64>::LDB);
+  const size_t smem64 = trsv_smem<T, 64>();
   // a block per row tile (up to 8), or a block per two when that fits all the clusters on the card at once
   const int nt2 = cdiv(nt, 2);
   int cs = nt < 8 ? nt : 8, fit = 0;
   if (k <= 8)
-    return launch_cluster(bt_trsv_blocks_kernel<T, 8>, dim3(cs, cdiv(k, 8), B), cs,
-                          sizeof(T) * 2 * kKS * (Cfg<8>::LDA + Cfg<8>::LDB), st, P, K, s, (const T*)Linv, b, out, W,
-                          k, mode);
+    return launch_cluster(bt_trsv_blocks_kernel<T, 8>, dim3(cs, cdiv(k, 8), B), cs, trsv_smem<T, 8>(), st, P, K, s, b,
+                          out, W, k, mode);
   const int clusters = cdiv(k, 64) * B;
   if (nt2 > 1 && nt2 < cs && !max_clusters(bt_trsv_blocks_kernel<T, 64>, dim3(nt2, cdiv(k, 64), B), nt2, smem64, &fit) &&
       fit >= clusters && !max_clusters(bt_trsv_blocks_kernel<T, 64>, dim3(cs, cdiv(k, 64), B), cs, smem64, &fit) &&
       fit < clusters)
     cs = nt2;
   cudaGetLastError();
-  return launch_cluster(bt_trsv_blocks_kernel<T, 64>, dim3(cs, cdiv(k, 64), B), cs, smem64, st, P, K, s,
-                        (const T*)Linv, b, out, W, k, mode);
+  return launch_cluster(bt_trsv_blocks_kernel<T, 64>, dim3(cs, cdiv(k, 64), B), cs, smem64, st, P, K, s, b, out, W, k,
+                        mode);
 }
 
 // K12: rows b (B k, n), chain-major, gathered through perm and padded into
@@ -1300,21 +1335,18 @@ extern "C" {
 #define TG_BT_ENTRY(SUF, T)                                                                                     \
   int tg_bt_factor_##SUF(const T* data, long long ds, const int* src, const int* dst, int ntab,               \
                          const int* tperm, T* P, int K, int s, T* ws, T* dom, int* boost, T* logdet,          \
-                         int* flags, T* work, int cs, int B, void* stream) {                                  \
-    return launch_factor<T>(data, ds, src, dst, ntab, tperm, P, K, s, ws, dom, boost, logdet, flags, work, cs, \
-                            B, stream);                                                                       \
+                         int* flags, int cs, int B, void* stream) {                                           \
+    return launch_factor<T>(data, ds, src, dst, ntab, tperm, P, K, s, ws, dom, boost, logdet, flags, cs, B,   \
+                            stream);                                                                          \
   }                                                                                                           \
   int tg_bt_factor_fit_##SUF(int cs, int* count) { return chol_fit<T>(cs, count); }                           \
   int tg_bt_trsv_##SUF(const T* P, int K, int s, int n, const int* perm, const T* b, T* out, int k, int mode, \
                        int B, T* work, void* stream) {                                                        \
     return launch_trsv<T>(P, K, s, n, perm, b, out, k, mode, B, work, stream);                               \
   }                                                                                                           \
-  int tg_bt_invert_##SUF(const T* P, int K, int s, int B, T* Dinv, T* Linv, void* stream) {                   \
-    return B == 0 ? 0 : invert_blocks<T>(P, K, s, B, Dinv, Linv, (cudaStream_t)stream);                       \
-  }                                                                                                           \
-  int tg_bt_factor_blocks_##SUF(const T* D, const T* E, T* P, int K, int s, T* logdet, int* flags, T* work,    \
-                                int cs, int B, void* stream) {                                                \
-    return launch_factor_blocks<T>(D, E, P, K, s, logdet, flags, work, cs, B, stream);                        \
+  int tg_bt_factor_blocks_##SUF(const T* D, const T* E, T* P, int K, int s, T* logdet, int* flags, int cs,    \
+                                int B, void* stream) {                                                        \
+    return launch_factor_blocks<T>(D, E, P, K, s, logdet, flags, cs, B, stream);                              \
   }                                                                                                           \
   int tg_bt_trsv_blocks_##SUF(const T* P, int K, int s, const T* b, T* out, int k, int B, T* work,           \
                               void* stream) {                                                                 \

@@ -601,7 +601,8 @@ __device__ void factor_tile_smem(W* S, W* X, W* rinv, int t, int* bad, W tiny, D
 }
 
 // Cholesky of the t x t diagonal tile at D (lower triangle read; the factor
-// written back with zeros above the diagonal) and its inverse into Dinv,
+// written back with zeros above the diagonal) and its inverse into Dinv (not
+// stored where Dinv is null),
 // both computed in W (the type of the shared memory sm: T, or float64 for a
 // float32 tile whose inverse must not bias what it multiplies), by
 // factor_tile_smem; *bad set for a pivot l = sqrt(p) that is not finite and
@@ -627,7 +628,7 @@ __device__ void factor_tile(T* D, long long ld, int t, T* Dinv, int* bad, W* sm,
       if (r < t && c < t) D[r * ld + c] = c <= r ? T(S[r * kLdS + c]) : T(0);
     }
   });
-  store_lower(X, t, Dinv);
+  if (Dinv) store_lower(X, t, Dinv);
   __syncthreads();
 }
 
@@ -774,26 +775,6 @@ __device__ void trsm_k(const T* L, long long ld, const T* Dinv, int n, T* X, lon
     trsm_rows<T, 8>(L, ld, Dinv, n, X, ldx, ncols, trans, rank, cs, sm);
   else
     trsm_rows<T, 64>(L, ld, Dinv, n, X, ldx, ncols, trans, rank, cs, sm);
-}
-
-// Inverted diagonal tiles of `count` lower n x n matrices at L + m lstride
-// (row stride ld): block (j, m) writes tile j of matrix m to Dinv[m][j].
-template <typename T>
-__global__ void __launch_bounds__(kThr) invert_diag_kernel(const T* L, long long lstride, long long ld, int n, T* Dinv) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* S = reinterpret_cast<T*>(smem_raw);
-  const long long m = blockIdx.y;
-  const int j = blockIdx.x, j0 = j * kT;
-  invert_tile(L + m * lstride + j0 * ld + j0, ld, min(kT, n - j0), Dinv + (m * gridDim.x + j) * kTT, S);
-}
-
-template <typename T>
-int invert_diag(const T* L, long long lstride, long long ld, int n, int count, T* Dinv, cudaStream_t st) {
-  const size_t smem = sizeof(T) * (2 * kT * kLdS + kT);
-  int rc = (int)cudaFuncSetAttribute(invert_diag_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (rc) return rc;
-  invert_diag_kernel<T><<<dim3(ntiles(n), count), kThr, smem, st>>>(L, lstride, ld, n, Dinv);
-  return (int)cudaGetLastError();
 }
 
 // The host's answers per kernel, cached so that a launch asks the runtime

@@ -6,8 +6,9 @@ fill + smoothing + Ruppert-style refinement), copied from the reference.
 The one change: the final triangle filter tests centroids against the
 rounded boundary chain with an even-odd ray-casting test written here,
 where the reference calls ``matplotlib.path.Path.contains_points``
-(matplotlib is not a dependency of the port). Interval meshes and
-``icosphere`` come with a later slice.
+(matplotlib is not a dependency of the port). ``IntervalMesh``,
+``create_inflated_rectangle`` and ``icosphere`` are the reference's, their
+vertex and triangle order index for index.
 """
 
 from __future__ import annotations
@@ -15,7 +16,16 @@ from __future__ import annotations
 import numpy as np
 from scipy.spatial import ConvexHull, Delaunay, cKDTree
 
-__all__ = ["TriangleMesh", "generate_mesh", "auto_mesh_size", "triangle_min_angles"]
+__all__ = [
+    "TriangleMesh",
+    "IntervalMesh",
+    "generate_mesh",
+    "create_inflated_rectangle",
+    "interval_mesh",
+    "icosphere",
+    "auto_mesh_size",
+    "triangle_min_angles",
+]
 
 
 class TriangleMesh:
@@ -43,6 +53,28 @@ class TriangleMesh:
 
     def element_coords(self):
         return self.vertices[self.triangles]  # (m, 3, dim)
+
+
+class IntervalMesh:
+    """1D P1 mesh on sorted nodes."""
+
+    def __init__(self, nodes):
+        self.nodes = np.sort(np.asarray(nodes, dtype=np.float64))
+
+    @property
+    def n_vertices(self):
+        return self.nodes.shape[0]
+
+    @property
+    def n_elements(self):
+        return self.nodes.shape[0] - 1
+
+    intrinsic_dim = 1
+    embedding_dim = 1
+
+
+def interval_mesh(a: float, b: float, n: int) -> IntervalMesh:
+    return IntervalMesh(np.linspace(a, b, n))
 
 
 def auto_mesh_size(points: np.ndarray) -> float:
@@ -412,3 +444,79 @@ def _inside_polygon(points: np.ndarray, poly: np.ndarray) -> np.ndarray:
     with np.errstate(divide="ignore", invalid="ignore"):
         xint = x0 + (y - y0) * (x1 - x0) / (y1 - y0)
     return (np.count_nonzero(crosses & (x < xint), axis=1) % 2) == 1
+
+
+def create_inflated_rectangle(
+    x0: float, y0: float, x1: float, y1: float, h: float, buffer: float = 0.0
+) -> TriangleMesh:
+    """Structured triangulated rectangle [x0−b, x1+b] × [y0−b, y1+b], two
+    triangles per grid cell."""
+    lo_x, hi_x = x0 - buffer, x1 + buffer
+    lo_y, hi_y = y0 - buffer, y1 + buffer
+    nx = max(2, int(round((hi_x - lo_x) / h)) + 1)
+    ny = max(2, int(round((hi_y - lo_y) / h)) + 1)
+    xs = np.linspace(lo_x, hi_x, nx)
+    ys = np.linspace(lo_y, hi_y, ny)
+    X, Y = np.meshgrid(xs, ys, indexing="ij")
+    verts = np.stack([X.ravel(), Y.ravel()], axis=-1)
+    # cell (i, j) with corners a=(i, j), b=(i+1, j), c=(i+1, j+1), d=(i, j+1):
+    # triangles [a, b, c] and [a, c, d], cells in row-major (i, j) order
+    i, j = np.meshgrid(np.arange(nx - 1), np.arange(ny - 1), indexing="ij")
+    a, b = (i * ny + j).ravel(), ((i + 1) * ny + j).ravel()
+    c, d = b + 1, a + 1
+    tris = np.stack([np.stack([a, b, c], 1), np.stack([a, c, d], 1)], 1).reshape(-1, 3)
+    return TriangleMesh(verts, tris)
+
+
+def icosphere(subdivisions: int = 3, radius: float = 1.0) -> TriangleMesh:
+    """Triangulated sphere by icosahedron subdivision: each step puts a vertex
+    at every edge's normalized midpoint (edges numbered in sorted order) and
+    splits each face in four. `subdivisions=3` gives 642 vertices and 1280
+    triangles."""
+    t = (1.0 + np.sqrt(5.0)) / 2.0
+    verts = np.array(
+        [
+            [-1, t, 0], [1, t, 0], [-1, -t, 0], [1, -t, 0],
+            [0, -1, t], [0, 1, t], [0, -1, -t], [0, 1, -t],
+            [t, 0, -1], [t, 0, 1], [-t, 0, -1], [-t, 0, 1],
+        ],
+        dtype=np.float64,
+    )
+    faces = np.array(
+        [
+            [0, 11, 5], [0, 5, 1], [0, 1, 7], [0, 7, 10], [0, 10, 11],
+            [1, 5, 9], [5, 11, 4], [11, 10, 2], [10, 7, 6], [7, 1, 8],
+            [3, 9, 4], [3, 4, 2], [3, 2, 6], [3, 6, 8], [3, 8, 9],
+            [4, 9, 5], [2, 4, 11], [6, 2, 10], [8, 6, 7], [9, 8, 1],
+        ],
+        dtype=np.int64,
+    )
+    verts /= np.linalg.norm(verts, axis=1, keepdims=True)
+    for _ in range(subdivisions):
+        edges = np.concatenate(
+            [faces[:, [0, 1]], faces[:, [1, 2]], faces[:, [2, 0]]], axis=0
+        )
+        edges = np.sort(edges, axis=1)
+        uniq, inv = np.unique(edges, axis=0, return_inverse=True)
+        inv = inv.ravel()
+        mids = verts[uniq[:, 0]] + verts[uniq[:, 1]]
+        mids /= np.linalg.norm(mids, axis=1, keepdims=True)
+        mid_idx = len(verts) + np.arange(len(uniq))
+        verts = np.concatenate([verts, mids], axis=0)
+        m = len(faces)
+        ab, bc, ca = (
+            mid_idx[inv[:m]],
+            mid_idx[inv[m : 2 * m]],
+            mid_idx[inv[2 * m :]],
+        )
+        a, b, c = faces[:, 0], faces[:, 1], faces[:, 2]
+        faces = np.concatenate(
+            [
+                np.stack([a, ab, ca], axis=1),
+                np.stack([b, bc, ab], axis=1),
+                np.stack([c, ca, bc], axis=1),
+                np.stack([ab, bc, ca], axis=1),
+            ],
+            axis=0,
+        )
+    return TriangleMesh(verts * radius, faces)

@@ -19,7 +19,9 @@ import numpy as np
 import torch
 
 from .._device import as_tensor
+from ..gmrf import GMRF
 from ..models.base import LatentModel, process_constraint
+from ..solvers.base import SolverSpec
 from ..sparse.matrix import SparseMatrix, spdiag
 from ..sparse.pattern import diag_pattern, union_patterns
 from .discretization import FEMDiscretization
@@ -152,6 +154,11 @@ class MaternSPDE:
             return K.T @ (Cinv @ K)
         inner = self._recursion(K, alpha - 2, Cinv)
         return K.T @ ((Cinv @ inner @ Cinv) @ K)
+
+    def discretize(self, kappa, solver: SolverSpec = SolverSpec()) -> GMRF:
+        """The zero-mean GMRF of Q(κ), factored by `solver`."""
+        Q = self.precision(kappa)
+        return GMRF.from_precision(torch.zeros(self.n, dtype=Q.dtype, device=Q.device), Q, solver)
 
 
 class MaternModel(LatentModel):

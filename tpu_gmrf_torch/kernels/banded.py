@@ -10,9 +10,8 @@ plan's d_idx / e_idx), factors them with the reference's ``_chol_boosted``
 per block and chain, and returns P, the boost count (B,) int32 and the
 logdet (B,). Its factorization is one launch: a thread-block cluster per
 chain walks the band by column tiles of 64 (`factor_cluster` picks the
-cluster's size), with two slots of an inverted 64 × 64 diagonal tile of
-scratch per chain; the chains whose pivots broke down are redone with the
-boost. K12 solves with P on rows (B·k, n), chain-major: mode 0
+cluster's size), the panel below each diagonal tile solved by substitution;
+the chains whose pivots broke down are redone with the boost. K12 solves with P on rows (B·k, n), chain-major: mode 0
 L y = b, mode 1 Lᵀ x = b, mode 2 both, in the original numbering: the rows
 are gathered through the RCM permutation and padded into blocks
 (B, K, s, k), solved there by the block entry's design (below) with the
@@ -35,14 +34,14 @@ E (B, K-1, s, s) given as they are (D_k symmetrized, no pivot boost: a block
 that is not positive definite gives a NaN logdet) into the same P, and
 `bt_trsv_blocks` solves with it on blocks (B, K, s, k), with no permutation.
 The first runs K11's cluster factorization with no boost.
-It first inverts every diagonal block L_k (by tiles of 64 on their inverted
-diagonal tiles), then runs one thread-block cluster per chain and column
-tile of 64 right-hand sides (8 when k ≤ 8), the s rows of each block step
-spread over its blocks by tiles of 64: a block step is two products, the
-coupling and the product with L_k⁻¹, each followed by a cluster barrier.
-Its workspace holds B·K·⌈s/64⌉ inverted tiles of 64 × 64, the B·K·s²
-values of the inverses and B·s·k of scratch. A card that cannot hold one
-such cluster raises with the shape.
+The second runs one thread-block cluster per chain and column tile of 64
+right-hand sides (8 when k ≤ 8), the s rows of each block step spread over
+its blocks by tiles of 64: a block step is the coupling, one product, then
+the substitution with L_k by row tiles (the diagonal tile solved by
+substitution, a cluster barrier, the tiles further on less its product),
+never a product with an inverse, whose residual would grow with L_k's
+condition. Its workspace holds B·s·k of scratch. A card that cannot hold
+one such cluster raises with the shape.
 
 K22 `bt_factor_tangent` is the tangent of K11's factorization (the selected
 inverse's derivative): from P, A_k = L_k⁻ᵀL_k⁻¹ (K8's first entry on the
@@ -394,13 +393,12 @@ def bt_factor(data: torch.Tensor, tables: BandedTables):
     logdet = data.new_empty(B)
     boost = torch.empty(B, dtype=torch.int32, device=data.device)
     flags = torch.empty(4 * B, dtype=torch.int32, device=data.device)
-    work = data.new_empty(B, 2 * TILE * TILE)  # each chain's two slots of an inverted diagonal tile
     tperm = t["tperm"].data_ptr() if t["tperm"] is not None else None
     cs = _cluster(s, B, data.dtype)
     code = _fn("tg_bt_factor", data.dtype)(
         data.data_ptr(), data.shape[1], t["src"].data_ptr(), t["dst"].data_ptr(), tables.ntab, tperm,
         P.data_ptr(), K, s, ws.data_ptr(), dom.data_ptr(), boost.data_ptr(), logdet.data_ptr(),
-        flags.data_ptr(), work.data_ptr(), cs, B, _stream(data),
+        flags.data_ptr(), cs, B, _stream(data),
     )
     build.check(code, "bt_factor", f" at K={K} s={s} B={B} cluster={cs} {data.dtype}")
     bt_factor.launches += 1
@@ -436,25 +434,8 @@ def bt_trsv(P: torch.Tensor, tables: BandedTables, b: torch.Tensor, k: int = 1, 
 def trsv_workspace(B: int, K: int, s: int, k: int, permuted: bool = True) -> int:
     """Values of K12's workspace for B chains of K blocks of s and k
     right-hand sides: the right-hand sides in blocks (B, K, s, k) (with
-    `permuted`, K12's own entry), the inverted 64 × 64 diagonal tiles
-    (B·K·⌈s/64⌉ of them), the inverses of the diagonal blocks (B·K·s²) and
-    one block row of scratch (B·s·k)."""
-    return (B * K * s * k if permuted else 0) + B * K * -(-s // TILE) * TILE * TILE + B * K * s * s + B * s * k
-
-
-def _bt_inverses(P: torch.Tensor):
-    """K12's first step alone, for timing: (the inverted diagonal tiles
-    (B, K, ⌈s/64⌉, 64, 64), the inverses L_k⁻¹ (B, K, s, s)) of the factor
-    P (B, K, 2s, s) on the card."""
-    if P.device.type != "cuda":
-        raise ValueError("_bt_inverses runs on the card only")
-    B, K, s = P.shape[0], P.shape[1], P.shape[3]
-    P = P.contiguous()
-    dinv = P.new_empty(B, K, -(-s // TILE), TILE, TILE)
-    linv = P.new_empty(B, K, s, s)
-    code = _fn("tg_bt_invert", P.dtype)(P.data_ptr(), K, s, B, dinv.data_ptr(), linv.data_ptr(), _stream(P))
-    build.check(code, "bt_trsv (inversion)", f" at B={B} K={K} s={s} {P.dtype}")
-    return dinv, linv
+    `permuted`, K12's own entry) and one block row of scratch (B·s·k)."""
+    return (B * K * s * k if permuted else 0) + B * s * k
 
 
 def bt_factor_blocks(D: torch.Tensor, E: torch.Tensor):
@@ -472,11 +453,10 @@ def bt_factor_blocks(D: torch.Tensor, E: torch.Tensor):
     P = D.new_empty(B, K, 2 * s, s)
     logdet = D.new_empty(B)
     flags = torch.empty(B, dtype=torch.int32, device=D.device)
-    work = D.new_empty(B, 2 * TILE * TILE)  # each chain's two slots of an inverted diagonal tile
     cs = _cluster(s, B, D.dtype)
     code = _fn("tg_bt_factor_blocks", D.dtype)(
         D.data_ptr(), E.data_ptr() if K > 1 else None, P.data_ptr(), K, s, logdet.data_ptr(), flags.data_ptr(),
-        work.data_ptr(), cs, B, _stream(D),
+        cs, B, _stream(D),
     )
     build.check(code, "bt_factor_blocks", f" at B={B} K={K} s={s} cluster={cs} {D.dtype}")
     bt_factor_blocks.launches += 1
@@ -496,7 +476,7 @@ def bt_trsv_blocks(P: torch.Tensor, b: torch.Tensor):
     B, K, s, k = b.shape
     P, b = P.contiguous(), b.contiguous()
     out = torch.empty_like(b)
-    # the inverted diagonal tiles, the inverses of the diagonal blocks and one block row of scratch
+    # one block row of scratch
     work = P.new_empty(trsv_workspace(B, K, s, k, permuted=False))
     code = _fn("tg_bt_trsv_blocks", P.dtype)(
         P.data_ptr(), K, s, b.data_ptr(), out.data_ptr(), k, B, work.data_ptr(), _stream(P),

@@ -94,18 +94,15 @@ _SIGNATURES = {
     "tg_dense_trsv_fit": [_I, _I, ctypes.POINTER(_I)],
     # L, s, Dinv, X (workspace), rows, cols, m, n, out, cluster size, B, stream
     "tg_dense_selinv": [_P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _P],
-    # data, dstride, src, dst, ntab, tperm, P, K, s, ws, dom, boost, logdet, flags,
-    # work (inverted diagonal tiles), cluster size, B, stream
-    "tg_bt_factor": [_P, _L, _P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    # data, dstride, src, dst, ntab, tperm, P, K, s, ws, dom, boost, logdet, flags, cluster size, B, stream
+    "tg_bt_factor": [_P, _L, _P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P],
     # cluster size, out: how many such clusters of K11's factorization the card holds
     "tg_bt_factor_fit": [_I, ctypes.POINTER(_I)],
-    # P, K, s, n, perm, b, out, k, mode, B, work (block layout, inverses, scratch), stream
+    # P, K, s, n, perm, b, out, k, mode, B, work (block layout, scratch), stream
     "tg_bt_trsv": [_P, _I, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P],
-    # P, K, s, B, Dinv, Linv, stream: K12's inversion alone (timed apart by chip_smoke.py)
-    "tg_bt_invert": [_P, _I, _I, _I, _P, _P, _P],
-    # D, E, P, K, s, logdet, flags, work (inverted diagonal tiles), cluster size, B, stream
-    "tg_bt_factor_blocks": [_P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _P],
-    # P, K, s, b, out, k, B, work (inverted diagonal tiles, block inverses, scratch), stream
+    # D, E, P, K, s, logdet, flags, cluster size, B, stream
+    "tg_bt_factor_blocks": [_P, _P, _P, _I, _I, _P, _P, _I, _I, _P],
+    # P, K, s, b, out, k, B, work (one block row of scratch), stream
     "tg_bt_trsv_blocks": [_P, _I, _I, _P, _P, _I, _I, _P, _P],
     # alpha, beta, gamma, r, P, ns, k, Lr, factored, s, work, bad (int flag), logdet, stream
     "tg_spike_reduced": [_P, _P, _P, _P, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P],

@@ -58,8 +58,16 @@ class ParameterizedOffset:
         return as_tensor(self.builder(**{k: theta[k] for k in self.hyperparameters}))
 
 
+def _like(A, t: torch.Tensor):
+    """A in t's dtype: a float64 FEM operator applied to a float32 field is cast, not the field."""
+    if A.dtype == t.dtype:
+        return A
+    return SparseMatrix(A.data.to(t.dtype), A.pattern) if isinstance(A, SparseMatrix) else A.to(t.dtype)
+
+
 def _apply(A, x):
-    """A x for a SparseMatrix (K4) or a dense (m, n) tensor."""
+    """A x for a SparseMatrix (K4) or a dense (m, n) tensor, in x's dtype."""
+    A = _like(A, x)
     return A.matvec(x) if isinstance(A, SparseMatrix) else x @ A.mT
 
 
@@ -97,13 +105,15 @@ class LinearlyTransformedLikelihood(ObservationLikelihood):
 
     def loggrad(self, x):
         g_eta = self.base.loggrad(self._eta(x))
-        return self.A.rmatvec(g_eta) if isinstance(self.A, SparseMatrix) else g_eta @ self.A
+        A = _like(self.A, g_eta)
+        return A.rmatvec(g_eta) if isinstance(A, SparseMatrix) else g_eta @ A
 
     def loghessian(self, x) -> SparseMatrix:
         h_eta = self.base.loghessian_diag(self._eta(x))
-        if isinstance(self.A, SparseMatrix):
-            return self.A.T @ (spdiag(h_eta) @ self.A)  # Aᵀ D A, two K5 SpGEMMs on cached plans
-        H = torch.einsum("...k,...ki,...kj->...ij", h_eta, self.A, self.A)
+        A = _like(self.A, h_eta)
+        if isinstance(A, SparseMatrix):
+            return A.T @ (spdiag(h_eta) @ A)  # Aᵀ D A, two K5 SpGEMMs on cached plans
+        H = torch.einsum("...k,...ki,...kj->...ij", h_eta, A, A)
         n = H.shape[-1]
         return SparseMatrix(H.reshape(H.shape[:-2] + (n * n,)), dense_pattern(n))
 

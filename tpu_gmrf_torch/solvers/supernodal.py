@@ -8,8 +8,11 @@ reference library.
   are the reference's NumPy code, copied verbatim (fill-reducing ordering by
   the native core in ``tpu_gmrf_torch.native``, etree, supernodes, relaxed
   amalgamation, the two-segment level schedule, the ELL reduction tables),
-  so a plan equals the reference's table by table. The reference's pickle
-  disk cache for n >= 50,000 is not ported.
+  so a plan equals the reference's table by table. Plans of n >= 50,000
+  are also kept on disk when ``TPU_GMRF_PLAN_CACHE`` names a directory:
+  one ``np.savez`` file per (pattern, width, ordering, format version),
+  loaded with ``allow_pickle=False``; a file that is missing, unreadable or
+  of another version is rebuilt, not trusted.
 * **Device numeric, per value vector.** The level schedule is a host loop
   over levels. Each level's class batches are launches of hand-written
   kernels over all chains: K6 `sn_panel` (factor; one launch per level and
@@ -46,13 +49,16 @@ reference library.
   (reference ``supernodal.py:1105-1165``).
 
 Not ported from the reference: the staged multi-dispatch path (a TPU
-compile-helper workaround) and ``solve_refined``.
+compile-helper workaround).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import hashlib
+import json
+import os
 
 import numpy as np
 import torch
@@ -99,6 +105,13 @@ __all__ = [
 _PLAN_CACHE: dict = {}
 
 _SELINV_CACHE: dict = {}
+
+# bump when the plan dict layout changes (invalidates the disk cache)
+_PLAN_VERSION = 5
+
+# plans below this size rebuild faster than they load: no disk cache
+# (module-level so tests can lower it to exercise the round trip)
+_DISK_MIN_N = 50_000
 
 _TOP_MAX = 48  # supernode budget for the exactly-unrolled top segment
 
@@ -442,6 +455,12 @@ def supernodal_plan(
     plan = _PLAN_CACHE.get(key)
     if plan is not None:
         return plan
+    disk = _disk_path(pattern, max_width, ordering)
+    if disk is not None:
+        plan = _load_plan(disk)
+        if plan is not None:
+            _PLAN_CACHE[key] = plan
+            return plan
 
     from .. import native
 
@@ -742,7 +761,81 @@ def supernodal_plan(
         top_fwd_ells=top_fwd_ells,
     )
     _PLAN_CACHE[key] = plan
+    if disk is not None:
+        _save_plan(disk, plan)
     return plan
+
+
+# ---- the plan's disk cache ----------------------------------------------------------
+
+
+def _disk_path(pattern: SparsePattern, max_width: int, ordering: str):
+    """The cache file of a plan of n >= _DISK_MIN_N under $TPU_GMRF_PLAN_CACHE
+    (None below that size or without the variable): keyed by the pattern's
+    content hash, the width, the ordering and the format version."""
+    root = os.environ.get("TPU_GMRF_PLAN_CACHE")
+    if pattern.shape[0] < _DISK_MIN_N or not root:
+        return None
+    tag = hashlib.sha1(pattern._digest + f"|{max_width}|{ordering}|v{_PLAN_VERSION}".encode()).hexdigest()[:24]
+    return os.path.join(root, f"plan_{pattern.shape[0]}_{tag}.npz")
+
+
+def _flatten(obj, path: str, arrays: dict):
+    """A JSON skeleton of the plan, its arrays moved into `arrays` by path."""
+    if isinstance(obj, dict):
+        return {"d": {k: _flatten(v, f"{path}/{k}", arrays) for k, v in obj.items()}}
+    if isinstance(obj, (list, tuple)):
+        return {"l": [_flatten(v, f"{path}/{i}", arrays) for i, v in enumerate(obj)]}
+    if isinstance(obj, np.ndarray):
+        arrays[path] = obj
+        return {"a": path}
+    if obj is None:
+        return None
+    if isinstance(obj, (bool, np.bool_)):
+        return {"b": bool(obj)}
+    if isinstance(obj, (int, np.integer)):
+        return {"i": int(obj)}
+    if isinstance(obj, (float, np.floating)):
+        return {"f": float(obj)}
+    raise TypeError(f"plan entry {path} of type {type(obj).__name__}")
+
+
+def _unflatten(node, arrays):
+    if node is None:
+        return None
+    (kind, v), = node.items()
+    if kind == "d":
+        return {k: _unflatten(x, arrays) for k, x in v.items()}
+    if kind == "l":
+        return [_unflatten(x, arrays) for x in v]
+    if kind == "a":
+        return arrays[v]
+    return {"b": bool, "i": int, "f": float}[kind](v)
+
+
+def _save_plan(path: str, plan: dict) -> None:
+    arrays: dict = {}
+    skeleton = _flatten(plan, "", arrays)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tmp = f"{path}.tmp{os.getpid()}.npz"
+    np.savez(tmp, __version__=np.array(_PLAN_VERSION), __skeleton__=np.array(json.dumps(skeleton)),
+             **{f"a{i}": a for i, a in enumerate(arrays.values())},
+             __names__=np.array(json.dumps(list(arrays))))
+    os.replace(tmp, path)
+
+
+def _load_plan(path: str):
+    """The plan stored at `path`, or None when the file is missing, unreadable
+    or of another format version (then it is rebuilt and written anew)."""
+    try:
+        with np.load(path, allow_pickle=False) as f:
+            if int(f["__version__"]) != _PLAN_VERSION:
+                return None
+            names = json.loads(str(f["__names__"]))
+            arrays = {name: f[f"a{i}"] for i, name in enumerate(names)}
+            return _unflatten(json.loads(str(f["__skeleton__"])), arrays)
+    except (OSError, ValueError, KeyError, TypeError, AttributeError):
+        return None
 
 
 # ---- device half: tables on the device, once per (plan, device) -------------------
@@ -1219,6 +1312,20 @@ class SupernodalFactor(DirectFactor):
         xp = self._ops["segsum"](dp["perm"], rows, y=self._scale_rows(k))
         xp = self._backward(self._forward(xp, k), k)
         return self._unrows(self._unperm(xp, k), b, k)
+
+    def solve_refined(self, Q: SparseMatrix, b: torch.Tensor, iters: int = 2) -> torch.Tensor:
+        """Solve with `iters` steps of iterative refinement against the true
+        matrix, on every chain: x ← x + F⁻¹(b − Qx), the residual by Q's
+        matvec (K4). Recovers solve accuracy lost to float32 rounding (and,
+        partially, to a pivot boost) at one sparse matvec and one pair of
+        triangular solves per step."""
+        x = self.solve(b)
+        B, n = self.vals.shape[0], self.n
+        for _ in range(iters):
+            xr = x.reshape(B, n, -1)
+            Qx = torch.stack([Q.matvec(xr[..., j].contiguous()) for j in range(xr.shape[-1])], -1)
+            x = x + self.solve(b - Qx.reshape(x.shape))
+        return x
 
     def forward_solve(self, b: torch.Tensor) -> torch.Tensor:
         """L x = S·b in the permuted basis (whitening), returned unpermuted to

@@ -52,8 +52,7 @@ class SparsePattern:
         self.cols.setflags(write=False)
         self.shape = (int(shape[0]), int(shape[1]))
         self.indptr = np.zeros(self.shape[0] + 1, dtype=np.int32)
-        np.add.at(self.indptr, rows + 1, 1)
-        self.indptr = np.cumsum(self.indptr, dtype=np.int32)
+        self.indptr[1:] = np.cumsum(np.bincount(rows, minlength=self.shape[0]), dtype=np.int32)
         self.indptr.setflags(write=False)
         h = hashlib.sha1()
         h.update(np.int64(self.shape[0]).tobytes())
@@ -119,10 +118,6 @@ class SparsePattern:
         colptr = np.cumsum(colptr, dtype=np.int32)
         return colptr, self.rows[perm], perm
 
-    def position_map(self):
-        """Dict (row, col) -> entry index. O(nnz) memory; host-side only."""
-        return {(int(r), int(c)): i for i, (r, c) in enumerate(zip(self.rows, self.cols))}
-
     def scatter_map(self, sub: "SparsePattern") -> np.ndarray:
         """Positions of `sub`'s entries inside this pattern.
 
@@ -132,14 +127,19 @@ class SparsePattern:
         """
         if sub.shape != self.shape:
             raise ValueError("shape mismatch")
-        pos = self.position_map()
-        try:
-            return np.array(
-                [pos[(int(r), int(c))] for r, c in zip(sub.rows, sub.cols)],
-                dtype=np.int32,
-            )
-        except KeyError as e:  # pragma: no cover
-            raise ValueError(f"sub-pattern entry {e} not contained in pattern") from e
+        # canonical order is ascending (row, col) key order: a binary search per entry
+        keys, want = self._keys, sub._keys
+        pos = np.minimum(np.searchsorted(keys, want), max(self.nnz - 1, 0))
+        miss = np.nonzero(keys[pos] != want)[0] if self.nnz else np.arange(sub.nnz)
+        if len(miss):
+            k = miss[0]
+            raise ValueError(f"sub-pattern entry {(int(sub.rows[k]), int(sub.cols[k]))} not contained in pattern")
+        return pos.astype(np.int32)
+
+    @cached_property
+    def _keys(self) -> np.ndarray:
+        """row·ncols + col per entry, ascending."""
+        return self.rows.astype(np.int64) * self.shape[1] + self.cols
 
     @classmethod
     def from_dense_mask(cls, mask: np.ndarray) -> "SparsePattern":
@@ -176,14 +176,11 @@ def union_patterns(*patterns: SparsePattern) -> SparsePattern:
     prior∪obs-Hessian pattern construction
     (src/workspace/latent_model_integration.jl:116-134)."""
     shape = patterns[0].shape
-    keys = set()
     for p in patterns:
         if p.shape != shape:
             raise ValueError("shape mismatch in union")
-        keys.update(zip(p.rows.tolist(), p.cols.tolist()))
-    rows = np.fromiter((k[0] for k in keys), dtype=np.int32, count=len(keys))
-    cols = np.fromiter((k[1] for k in keys), dtype=np.int32, count=len(keys))
-    return SparsePattern(rows, cols, shape)
+    keys = np.unique(np.concatenate([p._keys for p in patterns]))
+    return SparsePattern(keys // shape[1], keys % shape[1], shape)
 
 
 def spgemm_pattern(a: SparsePattern, b: SparsePattern):
