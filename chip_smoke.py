@@ -155,7 +155,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    precision Q_t ⊗ Q_s (AR1 over Nt=128, ρ=0.9; Matérn α=2 at g=16, ns=450)
    in P=4 chunks on one card, f64: x, logdet and the gradient of bᵀQ⁻¹b with
    respect to diag, sub and b, the solve's and the gradient's time split by
-   kernel, against the supernodal solve and logdet of the assembled sparse Q (residual by SymmetricBlockTridiagonalMap) and the
+   kernel, against the supernodal solve and logdet of the assembled sparse Q at Nt=32 (residual by
+   SymmetricBlockTridiagonalMap; the SPIKE solve at that Nt in the same chunks) and the
    plain path on CPU tensors; example 12 part 3 with its own limits; the
    public pbtridiag_solve / pbtridiag_logdet on a one-rank NCCL DeviceMesh
    and supernodal_factorize(mesh=) on it at n=5741;
@@ -235,12 +236,27 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    (c) example 11 as written (dense, f64) against its four literals; (d)
    example 14 on icosphere(3) (supernodal, f64) against its literals, and
    solve_refined against the plain solve; (e) example 15 as written (580
-   points, Bernoulli through PointEvaluationObsModel, f32), its assertions.
+   points, Bernoulli through PointEvaluationObsModel, f32), its assertions;
+27. samplers breadth and chains over a mesh, on a one-rank NCCL DeviceMesh
+   whose dimension is named "chains": (a) at the flagship's width (AR1(500),
+   Poisson, f32) run_smc over 256 particles (example 12's split of the
+   log-density; the λ schedule, the log evidence and the seconds per stage),
+   run_advi with 256 ELBO draws, run_nuts and run_hmc over the mesh equal to
+   the same calls without it (256 chains, 4 + 4 draws), and
+   run_nuts_checkpointed interrupted after 4 draws and resumed to 8, equal to
+   an uninterrupted run; SMC's first λ and evidence increment and ADVI's
+   first gradient at fixed noise on the kernels (f32, f64) against the f64
+   plain path on CPU tensors; (b) example 12 parts 1-2 as written on the mesh
+   (NUTS at n=64, 2 chains, draws cut to 50 + 50; SMC over 32 particles), its
+   assertion; (c) example 07 as written (CAR on N=21, 4 chains, 300 + 500
+   draws, max_depth 8, auto -> dense), both truths in their 95% intervals, the
+   logpdf at the truth on the port's draw against a NumPy f64 dense oracle;
+   (d) the dryrun_multichip twin (tpu_gmrf_torch/multichip.py) on the mesh.
 
 Every kernel's launch counter is zeroed just before each main path (phases
 4-5, the flagship; 7-8, the spatial slice; 9, 10 and 11) and read after
 it, and so before and after each of the paths 12, 13, 13b, 14, 15, 16, 17, 18,
-19, 20, 21, 22 and 23, and each of phase 24's five, phase 25's six and phase 26's five;
+19, 20, 21, 22 and 23, and each of phase 24's five, phase 25's six, phase 26's five and phase 27's four;
 a kernel of the path that was never launched fails the run. Each phase's
 seconds are printed when the next begins. The line before the last is one
 JSON object with the kernels' launches, errors, times and bounds; the last
@@ -482,6 +498,10 @@ PATH_TOL = {"data": 1e-9, "logdet": 1e-10, "stat": 1e-8}
 # diag[t] = Q_t[t, t]·Q_s, sub[t] = Q_t[t+1, t]·Q_s. Example 12 part 3 (examples/12_multichip_sharding.py:
 # 104-134) as written: P = 8, Nt = 4P, ns = 8, f32, seed 3, with its own limits.
 SPIKE_NT, SPIKE_P, SPIKE_RHO = 128, 4, 0.9
+# Phase 17's check against the supernodal solve of the assembled Q runs at Nt = 32 (n = 14,400), the SPIKE solve
+# at that Nt in the same P chunks: at Nt = 128 (n = 57,600, 77 M entries) the check took 154 s (assembly 20.4 s,
+# plan + factor + solve 133.8 s) of a 1064.9 s script, 135 s inside its 1200 s limit, on the H100.
+SPIKE_ORACLE_NT = 32
 EX12_P, EX12_NS, EX12_SEED = 8, 8, 3
 EX12_LIMITS = {"x": 1e-3, "logdet": 0.05}
 SPIKE_KERNELS = ("bt_factor_blocks", "bt_trsv_blocks", "spike_reduced")
@@ -1568,17 +1588,21 @@ def flagship_y() -> np.ndarray:
     return rng.poisson(np.exp(np.clip(x, -3, 3))).astype(np.float32)
 
 
+def flagship_spec():
+    """The flagship's ParamSpec (bench.py:445-504): τ log-normal through log, ρ flat on (−1, 1) through logit."""
+    from tpu_gmrf_torch.samplers import LogitTransform, LogTransform, ParamSpec
+
+    return ParamSpec(tau=(LogTransform(), lambda t: -0.5 * torch.log(t) ** 2),
+                     rho=(LogitTransform(-1.0, 1.0), lambda r: 0.0))
+
+
 def logdensity(y):
     import tpu_gmrf_torch as tg
-    from tpu_gmrf_torch.samplers import LogitTransform, LogTransform, ParamSpec, make_logdensity
+    from tpu_gmrf_torch.samplers import make_logdensity
 
     model, obs = tg.AR1Model(N), tg.ExponentialFamily("poisson")
-    spec = ParamSpec(
-        tau=(LogTransform(), lambda t: -0.5 * torch.log(t) ** 2),
-        rho=(LogitTransform(-1.0, 1.0), lambda r: 0.0),
-    )
     opts = tg.GAOptions(max_iter=GA_MAX_ITER)
-    return make_logdensity(lambda th: tg.laplace_marginal(model, obs, y, th, options=opts), spec)
+    return make_logdensity(lambda th: tg.laplace_marginal(model, obs, y, th, options=opts), flagship_spec())
 
 
 def tg_resolve(model) -> str:
@@ -1981,10 +2005,13 @@ def timed_value_and_grad(ld, z):
 
 def nuts_line(res, secs: float) -> str:
     chains, samples = res.samples.shape[:2]
+    eps = res.step_size.double().cpu()
+    steps = (f"step sizes {[round(x, 4) for x in eps.tolist()]}" if chains <= 8 else "step size quartiles "
+             f"{[round(x, 4) for x in torch.quantile(eps, torch.tensor([0.25, 0.5, 0.75], dtype=eps.dtype)).tolist()]}")
     return (f"{chains * samples / secs:.4f} samples/s ({chains} chains x {samples} draws in {secs:.1f} s, warmup "
             f"included), depth per sampling transition mean {res.depth.float().mean():.2f} max "
             f"{int(res.depth.max())}, mean acceptance {res.accept_prob.mean():.3f}, divergences "
-            f"{int(res.diverging.sum())}, step sizes {[round(x, 4) for x in res.step_size.tolist()]}")
+            f"{int(res.diverging.sum())}, {steps}")
 
 
 def nuts_fixed_draws(ld, z, step_size, inv_mass, depth: int, dev):
@@ -3341,16 +3368,17 @@ def glasso_path(gp: dict, held_out: np.ndarray, dev, card):
 # ---- phases 3f, 17, 18: the SPIKE solve and fault 3.1 ----------------------------------------
 
 
-def spike_system(dn_model, dtype, dev):
-    """Phase 17's blocks: diag (Nt, ns, ns), sub (Nt-1, ns, ns) of Q_t ⊗ Q_s and b (Nt, ns)."""
+def spike_system(dn_model, dtype, dev, nt: int | None = None):
+    """Phase 17's blocks: diag (Nt, ns, ns), sub (Nt-1, ns, ns) of Q_t ⊗ Q_s and b (Nt, ns); Nt = SPIKE_NT unless given."""
     from tpu_gmrf_torch import AR1Model
 
+    nt = SPIKE_NT if nt is None else nt
     one = torch.ones((), dtype=torch.float64, device=dev)
-    Qt = AR1Model(SPIKE_NT).precision(one, SPIKE_RHO * one).todense()
+    Qt = AR1Model(nt).precision(one, SPIKE_RHO * one).todense()
     Qs = matern_precision(dn_model, torch.float64, dev).todense()
     a, c = torch.diagonal(Qt), torch.diagonal(Qt, -1)
     diag, sub = a[:, None, None] * Qs, c[:, None, None] * Qs
-    b = torch.tensor(np.random.default_rng(17).normal(size=(SPIKE_NT, Qs.shape[0])), device=dev)
+    b = torch.tensor(np.random.default_rng(17).normal(size=(nt, Qs.shape[0])), device=dev)
     return diag.to(dtype), sub.to(dtype), b.to(dtype)
 
 
@@ -3610,25 +3638,28 @@ def spike_path(dn_model, sp_model, dev, card):
             f"{row['bt_factor_blocks']:.2f} + K12-blocks {row['bt_trsv_blocks']:.2f} + K18 {row['spike_reduced']:.2f} "
             f"+ torch code between them {row['rest']:.2f}")
 
+    xd = x.detach()
+    d32, s32, b32 = spike_system(dn_model, torch.float64, dev, SPIKE_ORACLE_NT)
+    with torch.no_grad():
+        x32, ld32 = _pbtridiag_chunks(d32, s32, b32, SPIKE_P)
     t0 = time.perf_counter()
-    Qmap = SymmetricBlockTridiagonalMap(diag, sub)
+    Qmap = SymmetricBlockTridiagonalMap(d32, s32)
     Qsp = block_tridiag_to_sparse(Qmap)
     asm_s = time.perf_counter() - t0
     f = tg.factorize(Qsp, tg.SolverSpec(kind="supernodal"))
-    xs, lds = f.solve(b.reshape(-1)).reshape(Nt, ns), f.logdet()
+    xs, lds = f.solve(b32.reshape(-1)).reshape(SPIKE_ORACLE_NT, ns), f.logdet()
     torch.cuda.synchronize()
     oracle_s = time.perf_counter() - t0 - asm_s
-    xd = x.detach()
-    x_err = float((xd - xs).norm() / xs.norm())
-    res = float((Qmap.matvec(xd.reshape(-1)) - b.reshape(-1)).norm() / b.norm())
-    ld_err = abs(float(logdet) - float(lds)) / abs(float(lds))
-    log(f"  against the supernodal solve of the assembled Q (n={Nt * ns}, nnz={Qsp.nnz}; assembly {asm_s:.1f} s, "
-        f"plan + factor + solve {oracle_s:.1f} s): x rel {x_err:.3e} (tol {SPIKE_TOL['x']:.0e}), residual "
-        f"{res:.3e} (tol {SPIKE_TOL['residual']:.0e}), logdet {float(logdet):.6f} vs {float(lds):.6f} rel "
-        f"{ld_err:.3e} (tol {SPIKE_TOL['logdet']:.0e})")
+    x_err = float((x32 - xs).norm() / xs.norm())
+    res = float((Qmap.matvec(x32.reshape(-1)) - b32.reshape(-1)).norm() / b32.norm())
+    ld_err = abs(float(ld32) - float(lds)) / abs(float(lds))
+    log(f"  at Nt={SPIKE_ORACLE_NT} (P={SPIKE_P}) against the supernodal solve of the assembled Q (n="
+        f"{SPIKE_ORACLE_NT * ns}, nnz={Qsp.nnz}; assembly {asm_s:.1f} s, plan + factor + solve {oracle_s:.1f} s): x rel "
+        f"{x_err:.3e} (tol {SPIKE_TOL['x']:.0e}), residual {res:.3e} (tol {SPIKE_TOL['residual']:.0e}), logdet "
+        f"{float(ld32):.6f} vs {float(lds):.6f} rel {ld_err:.3e} (tol {SPIKE_TOL['logdet']:.0e})")
     if not (x_err <= SPIKE_TOL["x"] and res <= SPIKE_TOL["residual"] and ld_err <= SPIKE_TOL["logdet"]):
         raise AssertionError("the SPIKE solve disagrees with the supernodal solve of the assembled Q")
-    del Qsp, f
+    del Qsp, f, d32, s32, b32, x32
 
     t0 = time.perf_counter()
     cpu = [t.detach().cpu().requires_grad_() for t in (diag, sub, b)]
@@ -5891,6 +5922,298 @@ def fem_path(dn_model, dev, card):
     return counts
 
 
+# ---- phase 27: samplers breadth and chains over a mesh ----------------------------------------------------------
+
+# (a) the flagship's width (bench.py:445-504: AR1(500), Poisson, the flagship's ParamSpec, max_iter 25, f32), with
+# example 12's split of the log-density for SMC (log_prior = −½ z·z, log_lik = ld + ½ z·z)
+SMC_FLAGSHIP = dict(particles=256, num_move_steps=2, hmc_num_steps=4, step_size=0.2)
+ADVI_FLAGSHIP = dict(num_elbo_samples=256, num_steps=50)
+MESH_FLAGSHIP = dict(chains=256, warmup=4, samples=4, depth=4, hmc_steps=8)
+CKPT_FLAGSHIP = dict(warmup=4, chunk=2, first=4, then=8)
+# SMC's first stage and ADVI's first gradient at fixed noise, against the f64 plain path on CPU tensors: f64 on
+# the kernels as the slice's f64 bounds; f32 on the kernels within 1e-2 (λ₁, the evidence's increment: the
+# bisection moves with the f32 log-likelihood's 1e-4) and SLICE_TOL's f32 gradient bound
+SAMPLER_TOL = {"f64": 1e-8, "f64_grad": 1e-6, "f32": 1e-2, "f32_grad": 5e-3, "car": 1e-6}
+# (b) example 12 parts 1-2 as written (examples/12_multichip_sharding.py:64-105), 2 chains and 32 particles a card;
+# part 1's draws cut from 100 + 100 to 50 + 50 to keep the phase near 120 s (49.2 s uncut on the H100)
+EX12_RUN = dict(n=64, chains=2, warmup=50, samples=50, particles=32)
+# (c) example 07 as written (examples/07_autodiff_mcmc.py): CAR on N=21, 4 chains, 300 + 500 draws, max_depth 8
+EX07_RUN = dict(N=21, chains=4, warmup=300, samples=500, depth=8, truth=dict(rho=0.85, sigma=0.01))
+EX07_GOLDEN = 24.138412  # tools/golden_values.py:224, on the JAX package's draw: printed, not held
+DENSE_KERNELS = ("dense_chol", "dense_trsv", "dense_selinv")
+DRYRUN_KERNELS = FLAGSHIP_KERNELS + ("fct_init", "sn_panel", "bt_factor_blocks", "bt_trsv_blocks", "spike_reduced")
+
+
+def tempered_split(ld):
+    """Example 12's (log_prior, log_lik) for SMC from a log-density on (log τ, atanh ρ)."""
+    def log_prior(z):
+        return -0.5 * (z * z).sum(-1)
+
+    def log_lik(z):
+        return ld(z) + 0.5 * (z * z).sum(-1)
+
+    return log_prior, log_lik
+
+
+def synced(fn):
+    """(fn(), its wall seconds, synchronized)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def same_result(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def flagship_samplers(mesh, dev, card) -> dict:
+    """(a): run_smc, run_advi, run_nuts and run_hmc over the mesh against the same calls without it, and
+    run_nuts_checkpointed interrupted and resumed against an uninterrupted run, on the flagship in f32."""
+    import tempfile
+
+    import tpu_gmrf_torch as tg
+
+    ld = logdensity(flagship_y())
+    log_prior, log_lik = tempered_split(ld)
+    f32 = dict(dtype=torch.float32, device=dev)
+    smc_init = torch.tensor(0.5 * np.random.default_rng(7).normal(size=(SMC_FLAGSHIP["particles"], 2)), **f32)
+    moves = {k: SMC_FLAGSHIP[k] for k in ("num_move_steps", "hmc_num_steps", "step_size")}
+    cfg, ck = MESH_FLAGSHIP, CKPT_FLAGSHIP
+    z0 = torch.zeros(cfg["chains"], 2, **f32)
+    out = {}
+
+    def run():
+        out["smc"], out["smc_s"] = synced(lambda: tg.run_smc(log_prior, log_lik, 21, smc_init, mesh=mesh, **moves))
+        out["advi"], out["advi_s"] = synced(lambda: tg.run_advi(ld, 22, torch.zeros(2, **f32), mesh=mesh,
+                                                                **ADVI_FLAGSHIP))
+        for name, fn in (("run_nuts", lambda m: tg.run_nuts(ld, 23, z0, cfg["warmup"], cfg["samples"], cfg["depth"],
+                                                              mesh=m)),
+                         ("run_hmc", lambda m: tg.run_hmc(ld, 24, z0, cfg["warmup"], cfg["samples"], cfg["hmc_steps"],
+                                                            mesh=m))):
+            out[name], out[name + "_s"] = synced(lambda: fn(mesh))
+            out[name + " no mesh"], out[name + " no mesh_s"] = synced(lambda: fn(None))
+        with tempfile.TemporaryDirectory() as tmp:
+            kw = dict(num_warmup=ck["warmup"], chunk_size=ck["chunk"], max_depth=cfg["depth"])
+            (first, _), out["ckpt_first_s"] = synced(lambda: tg.run_nuts_checkpointed(
+                ld, 25, z0, os.path.join(tmp, "a"), num_samples=ck["first"], **kw))
+            (resumed, _), out["ckpt_resume_s"] = synced(lambda: tg.run_nuts_checkpointed(
+                ld, 25, z0, os.path.join(tmp, "a"), num_samples=ck["then"], **kw))
+            (whole, _), out["ckpt_whole_s"] = synced(lambda: tg.run_nuts_checkpointed(
+                ld, 25, z0, os.path.join(tmp, "b"), num_samples=ck["then"], **kw))
+        out["ckpt"] = (first, resumed, whole)
+
+    counts = {}
+    _, secs = example_cell("phase 27(a) flagship samplers", lambda _: run(), FLAGSHIP_KERNELS, dev, counts)
+    bad = []
+    smc = out["smc"]
+    k = smc.num_stages
+    log(f"  (a) run_smc, {SMC_FLAGSHIP['particles']} particles, {moves}: {k} stages, λ "
+        f"{[round(x, 6) for x in smc.lambdas[:k].tolist()]}, log evidence {float(smc.log_evidence):.6f}; "
+        f"{out['smc_s']:.2f} s, {out['smc_s'] / max(k, 1):.3f} s per stage (host clock) on {card}")
+    asserted("SMC particles finite, log evidence finite, λ reaches 1",
+             bool(torch.isfinite(smc.particles).all()) and bool(torch.isfinite(smc.log_evidence))
+             and float(smc.lambdas[k - 1]) >= 1.0, bad)
+    advi = out["advi"]
+    log(f"  (a) run_advi, {ADVI_FLAGSHIP}: ELBO {float(advi.elbo_trace[0]):.4f} -> {float(advi.elbo_trace[-1]):.4f}, "
+        f"mean {[round(x, 4) for x in advi.mean.tolist()]}, std {[round(x, 4) for x in advi.log_std.exp().tolist()]}; "
+        f"{out['advi_s']:.2f} s, {out['advi_s'] / ADVI_FLAGSHIP['num_steps'] * 1e3:.1f} ms per step on {card}")
+    asserted("ADVI trace finite", bool(torch.isfinite(advi.elbo_trace).all()), bad)
+    for name in ("run_nuts", "run_hmc"):
+        a, b = out[name], out[name + " no mesh"]
+        log(f"  (a) {name} over the one-rank mesh: {nuts_line(a, out[name + '_s'])}; without the mesh "
+            f"{out[name + ' no mesh_s']:.1f} s; on {card}")
+        asserted(f"{name} over the mesh equal to the call without it (samples, depths, step sizes, every field)",
+                 same_result(a, b), bad)
+    first, resumed, whole = out["ckpt"]
+    log(f"  (a) run_nuts_checkpointed, chunks of {ck['chunk']}: {ck['first']} draws {out['ckpt_first_s']:.1f} s "
+        f"(warmup {ck['warmup']} included), resumed to {ck['then']} {out['ckpt_resume_s']:.1f} s, uninterrupted "
+        f"{ck['then']} {out['ckpt_whole_s']:.1f} s")
+    asserted("the resumed run keeps the first draws and equals the uninterrupted one",
+             torch.equal(resumed[:, :ck["first"]], first) and torch.equal(resumed, whole), bad)
+    bad += flagship_sampler_pieces(ld, smc_init, moves, smc, dev)
+    log(f"  (a) seconds on the counted path {secs:.1f}")
+    if bad:
+        raise AssertionError(f"phase 27 (a) failed: {bad}")
+    return counts
+
+
+def flagship_sampler_pieces(ld, smc_init, moves, smc, dev) -> list:
+    """SMC's first stage (λ₁, the evidence's increment) and ADVI's first gradient at its first noise, on the
+    kernels in f32 and f64 against the f64 plain path on CPU tensors."""
+    import tpu_gmrf_torch as tg
+    from tpu_gmrf_torch.samplers.vi import elbo_and_grad
+
+    bad = []
+    y = flagship_y()
+    first = {}
+    for label, dtype, device in (("f32", torch.float32, dev), ("f64", torch.float64, dev),
+                                 ("plain", torch.float64, torch.device("cpu"))):
+        ld_ = ld if dtype == torch.float32 else logdensity(y.astype(np.float64))
+        prior, lik = tempered_split(ld_)
+        stage = tg.run_smc(prior, lik, 21, smc_init.to(device, dtype), max_stages=1,
+                           **dict(moves, num_move_steps=0))
+        eps = torch.randn((ADVI_FLAGSHIP["num_elbo_samples"], 2), generator=torch.Generator(device=dev).manual_seed(22),
+                          dtype=torch.float32, device=dev)
+        x0 = torch.zeros(2, dtype=dtype, device=device)
+        elbo, gm, gs = elbo_and_grad(ld_, x0, torch.full_like(x0, -1.0), eps.to(device, dtype))
+        first[label] = (float(stage.lambdas[0]), float(stage.log_evidence), float(elbo), torch.cat([gm, gs]).cpu().double())
+    p = first["plain"]
+    for label in ("f64", "f32"):
+        lam, inc, elbo, g = first[label]
+        errs = (abs(lam - p[0]) / abs(p[0]), abs(inc - p[1]) / abs(p[1]), abs(elbo - p[2]) / abs(p[2]),
+                float((g - p[3]).norm() / p[3].norm()))
+        tol, gtol = SAMPLER_TOL[label], SAMPLER_TOL[label + "_grad"]
+        asserted(f"{label} on the kernels vs the f64 plain path: SMC λ₁ {lam:.9f} / {p[0]:.9f} rel {errs[0]:.2e}, "
+                 f"increment {inc:.6f} / {p[1]:.6f} rel {errs[1]:.2e} (tol {tol:.0e}); ADVI's first ELBO rel "
+                 f"{errs[2]:.2e} (tol {tol:.0e}), gradient {g.tolist()} rel {errs[3]:.2e} (tol {gtol:.0e})",
+                 max(errs[:3]) <= tol and errs[3] <= gtol, bad)
+    asserted(f"the f32 first-stage λ₁ {first['f32'][0]!r} equals the main run's {float(smc.lambdas[0])!r}",
+             first["f32"][0] == float(smc.lambdas[0]), bad)
+    return bad
+
+
+def ex12_logdensity(dev):
+    """Example 12's flagship posterior at n=64: AR1, Poisson(2) counts from seed 0, the flagship's ParamSpec, f32."""
+    import tpu_gmrf_torch as tg
+    from tpu_gmrf_torch.samplers import make_logdensity
+
+    n = EX12_RUN["n"]
+    y = np.random.default_rng(0).poisson(2.0, size=n).astype(np.float32)
+    model, obs = tg.AR1Model(n), tg.ExponentialFamily("poisson")
+    return make_logdensity(lambda th: tg.laplace_marginal(model, obs, torch.tensor(y, device=dev), th),
+                           flagship_spec())
+
+
+def example12_parts(mesh, dev, card, counts: dict) -> list:
+    """(b): example 12 parts 1-2 on the mesh: chain-parallel NUTS and particle-parallel SMC, its assertion."""
+    import tpu_gmrf_torch as tg
+
+    cfg = EX12_RUN
+    ld = ex12_logdensity(dev)
+    log_prior, log_lik = tempered_split(ld)
+    init_p = torch.tensor(0.5 * np.random.default_rng(1).normal(size=(cfg["particles"], 2)), dtype=torch.float32,
+                          device=dev)
+
+    def run():
+        res = tg.run_nuts(ld, 0, torch.zeros(cfg["chains"], 2, dtype=torch.float32, device=dev),
+                          num_warmup=cfg["warmup"], num_samples=cfg["samples"], mesh=mesh)
+        smc = tg.run_smc(log_prior, log_lik, 2, init_p, num_move_steps=2, hmc_num_steps=4, step_size=0.2, mesh=mesh)
+        return res, smc
+
+    (res, smc), secs = example_cell("phase 27(b) example 12", lambda _: run(), FLAGSHIP_KERNELS, dev, counts)
+    tau_post = torch.exp(res.samples[..., 0]).double()
+    tau_smc = torch.exp(smc.particles[:, 0]).double()
+    log(f"  (b) example 12 part 1: NUTS {cfg['chains']} chains x {cfg['samples']} draws (+{cfg['warmup']} warmup), "
+        f"n={cfg['n']}: τ {float(tau_post.mean()):.3f} ± {float(tau_post.std(unbiased=False)):.3f}, depth mean "
+        f"{res.depth.float().mean():.2f}; part 2: SMC {cfg['particles']} particles, {smc.num_stages} stages, τ mean "
+        f"{float(tau_smc.mean()):.3f}, log evidence {float(smc.log_evidence):.4f}; {secs:.1f} s on {card}")
+    bad = []
+    asserted("samples finite", bool(torch.isfinite(res.samples).all()), bad)
+    asserted("|SMC τ mean − NUTS τ mean| < NUTS τ std",
+             abs(float(tau_smc.mean() - tau_post.mean())) < float(tau_post.std(unbiased=False)), bad)
+    return bad
+
+
+def ex07_weights():
+    """Example 07's 21-point chain graph with 1/|k| weights at lags 1 and 2."""
+    import scipy.sparse as sp
+
+    N = EX07_RUN["N"]
+    rows, cols, vals = [], [], []
+    for i in range(N):
+        for k in (-2, -1, 1, 2):
+            if 0 <= i + k < N:
+                rows.append(i)
+                cols.append(i + k)
+                vals.append(1.0 / abs(k))
+    return sp.csr_matrix((vals, (rows, cols)), shape=(N, N))
+
+
+def example07(dev, card, counts: dict) -> list:
+    """(c): example 07 as written on the card: the CAR draw, NUTS over (ρ, σ) auto -> dense, the 95% intervals;
+    the logpdf at the truth on the port's draw against a NumPy f64 dense oracle."""
+    import tpu_gmrf_torch as tg
+    from tpu_gmrf_torch.samplers import LogitTransform, ParamSpec, make_logdensity
+
+    cfg, W = EX07_RUN, ex07_weights()
+    truth = cfg["truth"]
+    spec = ParamSpec(rho=(LogitTransform(0.5, 0.99), lambda r: 0.0), sigma=(LogitTransform(0.001, 0.1), lambda s: 0.0))
+
+    def run():
+        true_car = tg.generate_car_model(W, torch.tensor(truth["rho"], device=dev), sigma=truth["sigma"])
+        y = true_car.sample(torch.Generator(device=dev).manual_seed(123))
+        ld = make_logdensity(lambda th: tg.generate_car_model(W, th["rho"], sigma=th["sigma"]).logpdf(y), spec)
+        res = tg.run_nuts(ld, 456, torch.zeros(cfg["chains"], 2, dtype=torch.float32, device=dev),
+                          num_warmup=cfg["warmup"], num_samples=cfg["samples"], max_depth=cfg["depth"])
+        return y, res
+
+    (y, res), secs = example_cell("phase 27(c) example 07", lambda _: run(), DENSE_KERNELS, dev, counts)
+    bad = []
+    Q = tg.CARModel(W).precision(torch.tensor(truth["rho"], dtype=torch.float64, device=dev), truth["sigma"])
+    log(f"  (c) example 07: CAR N={cfg['N']}, {cfg['chains']} chains x {cfg['samples']} draws (+{cfg['warmup']} "
+        f"warmup), max_depth {cfg['depth']}, inner solver auto -> {tg.SolverSpec().resolve(Q.pattern).kind}: "
+        f"{nuts_line(res, secs)} on {card}")
+    draws = spec.constrain(res.samples.double())
+    for name in ("rho", "sigma"):
+        s = draws[name].flatten().cpu().numpy()
+        lo, hi = np.quantile(s, [0.025, 0.975])
+        asserted(f"{name}: posterior mean {s.mean():.4f} ± {s.std():.4f}, 95% interval [{lo:.4f}, {hi:.4f}] holds "
+                 f"the truth {truth[name]}", lo <= truth[name] <= hi, bad)
+    y64 = y.double()
+    ll = float(tg.generate_car_model(W, torch.tensor(truth["rho"], dtype=torch.float64, device=dev),
+                                     sigma=truth["sigma"]).logpdf(y64))
+    Wd, yd = W.toarray(), y64.cpu().numpy()
+    Qd = (np.diag(Wd.sum(1)) - truth["rho"] * Wd) / truth["sigma"]
+    oracle = 0.5 * np.linalg.slogdet(Qd)[1] - 0.5 * yd @ Qd @ yd - 0.5 * cfg["N"] * np.log(2 * np.pi)
+    asserted(f"logpdf at the truth on the port's draw {ll:.6f} vs the NumPy f64 dense oracle {oracle:.6f}, rel "
+             f"{abs(ll - oracle) / abs(oracle):.2e} (tol {SAMPLER_TOL['car']:.0e}); the golden {EX07_GOLDEN} is on "
+             f"the JAX package's draw (held by the CPU tests)", abs(ll - oracle) <= SAMPLER_TOL["car"] * abs(oracle), bad)
+    return bad
+
+
+def samplers_path(dev, card) -> dict:
+    """Phase 27 on a one-rank NCCL DeviceMesh whose dimension is named "chains": (a) the flagship samplers,
+    (b) example 12 parts 1-2, (c) example 07, (d) the dryrun_multichip twin; the kernels counted from zero for
+    each part and required to have launched there."""
+    import socket
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from tpu_gmrf_torch.multichip import dryrun_multichip
+
+    with socket.socket() as sock:  # a free port on this host for the one-rank process group
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1, rank=0)
+    try:
+        mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("chains",))
+        t0 = time.perf_counter()
+        counts = flagship_samplers(mesh, dev, card)
+        log(f"  (a) {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        bad = example12_parts(mesh, dev, card, counts)
+        log(f"  (b) {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        bad += example07(dev, card, counts)
+        log(f"  (c) {time.perf_counter() - t0:.1f} s")
+        out, secs = example_cell("phase 27(d) dryrun_multichip", lambda _: dryrun_multichip(mesh), DRYRUN_KERNELS, dev,
+                                 counts)
+        log(f"  (d) dryrun_multichip twin on the one-rank mesh, seven parts: {secs:.1f} s; NUTS step accept "
+            f"{float(out['step']['accept']):.3f}, run_nuts depth mean {out['nuts'].depth.float().mean():.2f}, SPIKE "
+            f"logdet {float(out['spike']['logdet']):.6f}, SMC log evidence {float(out['smc'].log_evidence):.6f}, "
+            f"ADVI last ELBO {float(out['advi'].elbo_trace[-1]):.6f}, supernodal logdet {float(out['supernodal']['single']):.4f}"
+            f" / {float(out['supernodal']['mesh']):.4f}, run_hmc accept {out['hmc'].accept_prob.mean():.3f}; on {card}")
+    finally:
+        dist.destroy_process_group()
+    if bad:
+        raise AssertionError(f"phase 27 failed: {bad}")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6169,10 +6492,14 @@ def main() -> int:
     log(f"phase 26 space-time and FEM breadth: example 04 (Nt=71, n=14,271); advection-diffusion at g={DN_GRID} "
         f"(ns={dn_model.n}, Nt={ST_NT}, n={dn_model.n * ST_NT}) with Poisson counts; examples 11, 14 and 15; on {card}")
     counts26 = fem_path(dn_model, dev, card)
+    log(f"phase 27 samplers breadth on a one-rank NCCL mesh: run_smc, run_advi, run_nuts/run_hmc(mesh=) and "
+        f"run_nuts_checkpointed on the flagship (B={MESH_FLAGSHIP['chains']}, n={N}, f32); example 12 parts 1-2; "
+        f"example 07 (CAR N={EX07_RUN['N']}, auto -> dense); the dryrun_multichip twin; on {card}")
+    counts27 = samplers_path(dev, card)
 
     paths = (counts, sp_counts, counts9, counts10, counts11, counts12, counts13, counts13b, counts14, counts15,
              counts16, counts17, counts18, counts19, counts20, counts21, counts22, counts23, counts24, counts25,
-             counts26)
+             counts26, counts27)
     report = {
         "kernels": [
             {"name": name, "route": "cuda", "source": SOURCES[name][0], "replaces": SOURCES[name][1],

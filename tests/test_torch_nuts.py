@@ -221,7 +221,7 @@ def test_run_nuts_gaussian_moments():
     assert ((v.mean(0) - _t(np.diag(cov))).abs() < 5 * se_v).all(), (v.mean(0), se_v)
 
 
-def test_run_hmc_and_result_fields_match_reference_layout():
+def test_run_hmc_and_result_fields_match_reference_layout(tmp_path):
     def jld(z):
         return -0.5 * jnp.sum(z**2)
 
@@ -237,8 +237,19 @@ def test_run_hmc_and_result_fields_match_reference_layout():
     for res in (got, hmc):
         for a, b in zip(res, ref):
             assert a.shape == b.shape and a.dtype == b.dtype
-    with pytest.raises(NotImplementedError, match="chains over several devices"):
-        tg.run_nuts(ld, 0, torch.zeros(2, 3, dtype=F64), num_samples=1, mesh=object())
+    # mesh= (ported): over a one-rank process group the run is the one-process run
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    dist.init_process_group("gloo", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cpu", (1,), mesh_dim_names=("chains",))
+        meshed = tg.run_nuts(ld, 0, torch.zeros(2, 3, dtype=F64), num_warmup=3, num_samples=4, max_depth=3,
+                             mesh=mesh)
+    finally:
+        dist.destroy_process_group()
+    for a, b in zip(meshed, got):
+        assert torch.equal(a, b)
 
 
 def test_default_device_is_the_card_and_never_falls_back():

@@ -22,6 +22,8 @@ from .observations.exponential_family import EFLikelihood
 from .samplers.adaptation import DualAveragingState, WelfordState
 from .samplers.hmc import HMCState
 from .samplers.run import NUTSResult
+from .samplers.smc import SMCResult
+from .samplers.vi import ADVIResult
 from .solvers.base import SolverSpec
 from .sparse.matrix import SparseMatrix
 from .sparse.pattern import SparsePattern
@@ -29,7 +31,8 @@ from .sparse.pattern import SparsePattern
 __all__ = [
     "sparse_from_numpy", "gmrf_from_numpy", "constrained_gmrf_from_numpy", "ef_likelihood_from_numpy", "hmc_state_from_numpy",
     "plan_to_numpy", "matern_model_from_numpy", "nuts_result_from_numpy", "da_state_from_numpy",
-    "welford_state_from_numpy", "bsr_from_numpy", "block_tridiag_mv_from_numpy",
+    "welford_state_from_numpy", "bsr_from_numpy", "block_tridiag_mv_from_numpy", "smc_result_from_numpy",
+    "advi_result_from_numpy",
 ]
 
 
@@ -83,6 +86,19 @@ def nuts_result_from_numpy(samples, logdensity, step_size, inv_mass, accept_prob
         *(_t(a, dtype, device) for a in (samples, logdensity, step_size, inv_mass, accept_prob)),
         _t(diverging, torch.bool, device), _t(depth, torch.long, device),
     )
+
+
+def smc_result_from_numpy(particles, log_evidence, num_stages, lambdas, *, dtype=torch.float64,
+                          device=None) -> SMCResult:
+    """The fields of the reference's SMCResult, in its order."""
+    return SMCResult(_t(particles, dtype, device), _t(log_evidence, dtype, device), int(np.asarray(num_stages)),
+                     _t(lambdas, dtype, device))
+
+
+def advi_result_from_numpy(mean, log_std, elbo_trace, *, dtype=torch.float64, device=None) -> ADVIResult:
+    """The fields of the reference's ADVIResult, in its order; e.g. a starting
+    point (init, −1, an empty trace) for `samplers.vi.advi_step`."""
+    return ADVIResult(*(_t(a, dtype, device) for a in (mean, log_std, elbo_trace)))
 
 
 def da_state_from_numpy(log_step, log_step_avg, avg_error, mu, count, *, dtype=torch.float64,

@@ -1,7 +1,9 @@
 from .adaptation import da_init, da_update, warmup_schedule, welford_init, welford_update, welford_variance
 from .hmc import HMCState, hmc_init, hmc_kernel, hmc_transition, leapfrog, value_and_grad
 from .nuts import NUTSDraws, NUTSInfo, nuts_kernel, nuts_transition
+from .checkpoint import run_nuts_checkpointed
 from .run import NUTSResult, run_hmc, run_nuts
+from .smc import SMCResult, run_smc
 from .transforms import (
     IdentityTransform,
     LogitTransform,
@@ -10,6 +12,7 @@ from .transforms import (
     Transform,
     make_logdensity,
 )
+from .vi import ADVIResult, run_advi
 
 __all__ = [
     "HMCState",
@@ -37,4 +40,9 @@ __all__ = [
     "LogitTransform",
     "ParamSpec",
     "make_logdensity",
+    "run_advi",
+    "ADVIResult",
+    "run_smc",
+    "SMCResult",
+    "run_nuts_checkpointed",
 ]

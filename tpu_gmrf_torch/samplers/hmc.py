@@ -4,7 +4,10 @@ Counterpart of ``tpu_gmrf.samplers.hmc``. Positions are (B, d), one row per
 chain; the log-density maps (B, d) to (B,), and its gradient comes from
 ``torch.autograd.grad(ld.sum(), z)`` (chains are independent, so the sum's
 gradient is each chain's own). Momenta and accept draws come from a
-``torch.Generator``.
+``torch.Generator``. A kernel's step takes ``rows=(total, start)`` when its
+B chains are rows start..start+B of a batch of `total` chains laid over
+several processes: it draws the whole batch's numbers and keeps its own
+rows, so each chain sees the numbers it would see in one process.
 """
 
 from __future__ import annotations
@@ -69,14 +72,24 @@ def hmc_transition(logdensity_fn, state: HMCState, r0, u, step_size, inv_mass, n
     return new_state, {"accept_prob": accept_prob, "accepted": accept, "energy": h1}
 
 
-def hmc_kernel(logdensity_fn: Callable, num_steps: int = 32):
-    """Returns step(generator, state, step_size, inv_mass) -> (state, info)."""
+def own_rows(draw, shape: tuple, rows: tuple | None) -> torch.Tensor:
+    """draw(shape) for this process's B = shape[0] chains: with rows =
+    (total, start), draw(total, *shape[1:]) and keep rows start..start+B."""
+    if rows is None:
+        return draw(shape)
+    total, start = rows
+    return draw((total,) + tuple(shape[1:]))[start: start + shape[0]]
 
-    def step(generator: torch.Generator, state: HMCState, step_size, inv_mass):
+
+def hmc_kernel(logdensity_fn: Callable, num_steps: int = 32):
+    """Returns step(generator, state, step_size, inv_mass, rows=None) -> (state, info)."""
+
+    def step(generator: torch.Generator, state: HMCState, step_size, inv_mass, rows=None):
         pos = state.position
-        r0 = torch.randn(pos.shape, generator=generator, dtype=pos.dtype, device=pos.device)
+        kw = dict(generator=generator, dtype=pos.dtype, device=pos.device)
+        r0 = own_rows(lambda s: torch.randn(s, **kw), pos.shape, rows)
         r0 = r0 * torch.sqrt(1.0 / torch.as_tensor(inv_mass, dtype=pos.dtype, device=pos.device))
-        u = torch.rand(pos.shape[:1], generator=generator, dtype=pos.dtype, device=pos.device)
+        u = own_rows(lambda s: torch.rand(s, **kw), pos.shape[:1], rows)
         return hmc_transition(logdensity_fn, state, r0, u, step_size, inv_mass, num_steps)
 
     return step

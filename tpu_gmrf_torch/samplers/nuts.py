@@ -31,7 +31,7 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
-from .hmc import HMCState, leapfrog
+from .hmc import HMCState, leapfrog, own_rows
 
 __all__ = ["nuts_kernel", "nuts_transition", "NUTSInfo", "NUTSDraws"]
 
@@ -196,18 +196,20 @@ def nuts_transition(logdensity_fn: Callable, state: HMCState, draws: NUTSDraws, 
 
 
 def nuts_kernel(logdensity_fn: Callable, max_depth: int = 10):
-    """Returns step(generator, state, step_size, inv_mass) -> (state, NUTSInfo)."""
+    """Returns step(generator, state, step_size, inv_mass, rows=None) ->
+    (state, NUTSInfo); `rows` as in `hmc_kernel`."""
 
-    def step(generator: torch.Generator, state: HMCState, step_size, inv_mass):
+    def step(generator: torch.Generator, state: HMCState, step_size, inv_mass, rows=None):
         pos = state.position
         B, d = pos.shape
         kw = dict(generator=generator, dtype=pos.dtype, device=pos.device)
+        randn, rand = (lambda s: torch.randn(s, **kw)), (lambda s: torch.rand(s, **kw))
         inv_mass = torch.as_tensor(inv_mass, dtype=pos.dtype, device=pos.device)
         draws = NUTSDraws(
-            momentum=torch.randn((B, d), **kw) * torch.sqrt(1.0 / inv_mass),
-            direction=torch.rand((B, max_depth), **kw),
-            accept=torch.rand((B, max_depth), **kw),
-            leaf=torch.rand((B, max_depth, 2 ** (max_depth - 1)), **kw),
+            momentum=own_rows(randn, (B, d), rows) * torch.sqrt(1.0 / inv_mass),
+            direction=own_rows(rand, (B, max_depth), rows),
+            accept=own_rows(rand, (B, max_depth), rows),
+            leaf=own_rows(rand, (B, max_depth, 2 ** (max_depth - 1)), rows),
         )
         return nuts_transition(logdensity_fn, state, draws, step_size, inv_mass, max_depth)
 
