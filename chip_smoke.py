@@ -251,12 +251,28 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    assertion; (c) example 07 as written (CAR on N=21, 4 chains, 300 + 500
    draws, max_depth 8, auto -> dense), both truths in their 95% intervals, the
    logpdf at the truth on the port's draw against a NumPy f64 dense oracle;
-   (d) the dryrun_multichip twin (tpu_gmrf_torch/multichip.py) on the mesh.
+   (d) the dryrun_multichip twin (tpu_gmrf_torch/multichip.py) on the mesh;
+28. the formula interface and shapefile contiguity (tpu_gmrf/formula/, geo.py):
+   (a) example 06's jittered districts at 100 x 100 (N=10,000) written as one
+   .shp, read back, queen and rook W (symmetric, equal to W from the polygons
+   in memory, 8 and 4 neighbours inside), each step's host seconds; (b) the
+   disease map at that N: "y ~ 1 + aff + Besag(district, W) + IID(district)"
+   and "y ~ 1 + aff + BYM2(district, W)" (20,002 unknowns each, Poisson with
+   exposure, example 06's recipe at seed 7), 4 chains, f64: what SolverSpec()
+   resolves the posterior to and its host seconds, laplace_marginal's value
+   and θ-gradient against the plain path on CPU tensors, the constrained
+   modes' residual, at one θ the posterior mean, std and 400 draws for
+   P(RR > 1), the example's recovery checks; (c) example 06 as written
+   (56 districts, both forms) with its asserts; (d) every term (IID + RW1,
+   Besag with exposure, BYM2, Separable, predict_cols with and without fixed
+   terms, AR1, RW2, a Matérn term on 200 points) through
+   gaussian_approximation on the kernels against the plain path.
 
 Every kernel's launch counter is zeroed just before each main path (phases
 4-5, the flagship; 7-8, the spatial slice; 9, 10 and 11) and read after
 it, and so before and after each of the paths 12, 13, 13b, 14, 15, 16, 17, 18,
-19, 20, 21, 22 and 23, and each of phase 24's five, phase 25's six, phase 26's five and phase 27's four;
+19, 20, 21, 22 and 23, and each of phase 24's five, phase 25's six, phase 26's five, phase 27's four and
+phase 28's (b)-(d);
 a kernel of the path that was never launched fails the run. Each phase's
 seconds are printed when the next begins. The line before the last is one
 JSON object with the kernels' launches, errors, times and bounds; the last
@@ -265,9 +281,11 @@ line is the result object. Needs no network and imports no JAX.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
+import struct
 import subprocess
 import sys
 import time
@@ -6214,6 +6232,382 @@ def samplers_path(dev, card) -> dict:
     return counts
 
 
+# ---- phase 28: the formula interface, shapefile contiguity and example 06 --------------------------------------
+
+# (a) example 06's synthetic districts (examples/06_bym_disease_mapping.py:26-52) at nx = ny = FORMULA_GRID, N = 10,000,
+# written as one .shp and read back; queen and rook W. (b) the disease map at that N: example 06's recipe at seed 7
+# (the truth's centres rescaled to the 8 x 7 map's extent), each formula 20,002 unknowns (two fixed effects beside
+# 20,000 random ones), Poisson with exposure E, FORMULA_CHAINS chains, f64: laplace_marginal's value and θ-gradient on
+# the kernels against the plain path (CPU tensors) with SLICE_TOL's f64 bounds, as phase 20; every chain's mode on its
+# constraint to FORMULA_MODE_TOL; at the example's θ the posterior mean, std and FORMULA_DRAWS draws, and the example's
+# recovery checks. (c) example 06 as written (56 districts). (d) every term at tests/test_formula.py's sizes, plus AR1,
+# RW2 and a Matérn term on 200 points, through gaussian_approximation on the kernels against the plain path: means and
+# stds at FORMULA_TOL (the kernels add in another order; a constrained mode is fixed only to ~√eps by the line
+# search, tests/test_torch_constrained_ga.py).
+FORMULA_GRID, FORMULA_CHAINS, FORMULA_DRAWS, FORMULA_MODE_TOL = 100, 4, 400, 1e-10
+FORMULA_TOL = {"free": 1e-8, "constrained": 1e-7}
+FORMULA_BYM = ("y ~ 1 + aff + Besag(district, W) + IID(district)",
+               {"tau_besag": [1.0, 2.0, 4.0, 8.0], "tau_iid": [16.0] * 4}, {"tau_besag": 4.0, "tau_iid": 16.0})
+FORMULA_BYM2 = ("y ~ 1 + aff + BYM2(district, W)",
+                {"tau_bym2": [1.0, 2.0, 4.0, 8.0], "phi_bym2": [0.2, 0.4, 0.6, 0.8]}, {"tau_bym2": 2.0, "phi_bym2": 0.4})
+FORMULA_BASE_KERNELS = ("csr_spmv", "gather_segsum")
+FORMULA_TERM_KERNELS = FORMULA_BASE_KERNELS + ("tridiag_factor", "tridiag_solve", "dense_chol", "dense_trsv")
+
+
+def ex06_districts(nx: int = 8, ny: int = 7, seed: int = 0):
+    """examples/06_bym_disease_mapping.py:26-52: a grid of quads with jittered interior vertices (shared between
+    neighbours), as (polygons, centres)."""
+    rng = np.random.default_rng(seed)
+    VX, VY = np.meshgrid(np.arange(nx + 1, dtype=float), np.arange(ny + 1, dtype=float), indexing="ij")
+    jit = 0.25 * rng.uniform(-1, 1, size=VX.shape + (2,))
+    jit[0, :, :] = jit[-1, :, :] = 0.0
+    jit[:, 0, :] = jit[:, -1, :] = 0.0
+    VX, VY = VX + jit[..., 0], VY + jit[..., 1]
+    polys = []
+    for i in range(nx):
+        for j in range(ny):
+            corners = [(i, j), (i + 1, j), (i + 1, j + 1), (i, j + 1), (i, j)]
+            polys.append([np.array([[VX[a, b], VY[a, b]] for a, b in corners])])
+    centers = np.array([p[0][:-1].mean(axis=0) for p in polys])
+    return polys, centers
+
+
+def write_polygon_shapefile(path, polygons) -> None:
+    """A minimal .shp of one-ring polygon records (tests/test_parity_layers.py:166-194, for any rings)."""
+    body = []
+    for k, (ring,) in enumerate(polygons):
+        ring = np.asarray(ring, dtype="<f8")
+        content = struct.pack("<i", 5) + struct.pack("<4d", *ring.min(0), *ring.max(0))
+        content += struct.pack("<iii", 1, len(ring), 0) + ring.tobytes()  # one part of len(ring) points, at 0
+        body.append(struct.pack(">ii", k + 1, len(content) // 2) + content)
+    body = b"".join(body)
+    header = struct.pack(">i", 9994) + b"\x00" * 20 + struct.pack(">i", (100 + len(body)) // 2)
+    header += struct.pack("<ii", 1000, 5) + struct.pack("<8d", 0, 0, 0, 0, 0, 0, 0, 0)
+    with open(path, "wb") as f:
+        f.write(header + body)
+
+
+def ex06_data(nx: int = 8, ny: int = 7):
+    """Example 06's data (examples/06_bym_disease_mapping.py:55-74, seed 7), the truth's centres rescaled to the
+    8 x 7 map's extent: (polygons, data, η_true)."""
+    rng = np.random.default_rng(7)
+    polys, centers = ex06_districts(nx, ny)
+    n_d = len(polys)
+    c = centers * np.array([8.0 / nx, 7.0 / ny])
+    aff = rng.uniform(0.0, 0.3, size=n_d)
+    u_true = 0.6 * np.sin(1.2 * c[:, 0]) * np.cos(0.9 * c[:, 1])
+    v_true = 0.15 * rng.standard_normal(n_d)
+    eta_true = -0.2 + 2.0 * aff + u_true + v_true
+    E = rng.uniform(5.0, 80.0, size=n_d)
+    y = rng.poisson(E * np.exp(eta_true)).astype(np.float64)
+    return polys, {"y": y, "aff": aff, "E": E, "district": np.arange(n_d)}, eta_true
+
+
+@contextlib.contextmanager
+def default_on(device):
+    """A context in which the port's default device is `device` (the plain path: FixedEffectsModel's ridge and a
+    formula's design go there)."""
+    import tpu_gmrf_torch as tg
+
+    before = tg.default_device()
+    tg.set_default_device(device)
+    try:
+        yield
+    finally:
+        tg.set_default_device(before)
+
+
+def on_cpu(comps):
+    """A formula's observation model with its design copied to CPU tensors."""
+    import tpu_gmrf_torch as tg
+    from tpu_gmrf_torch.sparse import SparseMatrix
+
+    return tg.LinearlyTransformedObservationModel(comps.obs_model.base_model,
+                                                  SparseMatrix(comps.A.data.cpu(), comps.A.pattern))
+
+
+def formula_vg(comps, obs, theta: dict, opts):
+    """laplace_marginal (B,) and its θ-gradient (B, k) through a formula-built model."""
+    import tpu_gmrf_torch as tg
+
+    th = {k: v.detach().clone().requires_grad_() for k, v in theta.items()}
+    v = tg.laplace_marginal(comps.combined_model, obs, comps.y, th, options=opts)
+    v.sum().backward()
+    return v.detach(), torch.stack([th[k].grad for k in comps.hyperparameters], -1)
+
+
+def auto_costs(pattern) -> str:
+    """The two costs SolverSpec()'s auto rule weighs on a large pattern (solvers/base.py::_large_sparse_kind); the
+    plans are cached by then."""
+    from tpu_gmrf_torch.solvers.banded import banded_plan
+    from tpu_gmrf_torch.solvers.supernodal import supernodal_symbolic_summary
+
+    bp, sm = banded_plan(pattern, None), supernodal_symbolic_summary(pattern)
+    return (f"banded: blocks of {bp['s']}, n·s² = {float(bp['npad']) * float(bp['s']) ** 2:.4g}; supernodal: "
+            f"4·flops + 2e7·buckets = {sm['flops'] * 4.0 + sm['nbuckets'] * 2.0e7:.4g} ({sm['nbuckets']} buckets)")
+
+
+def geo_cell(card):
+    """Phase 28(a): example 06's districts at N = 10,000 through a shapefile, queen and rook."""
+    import tempfile
+
+    import tpu_gmrf_torch as tg
+
+    secs = {}
+    t0 = time.perf_counter()
+    polys, _ = ex06_districts(FORMULA_GRID, FORMULA_GRID)
+    secs["polygons"] = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "districts.shp")
+        t0 = time.perf_counter()
+        write_polygon_shapefile(path, polys)
+        secs["write"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        read = tg.read_shapefile_polygons(path)
+        secs["read"] = time.perf_counter() - t0
+        W = {}
+        for crit in ("queen", "rook"):
+            t0 = time.perf_counter()
+            W[crit] = tg.contiguity_adjacency(read, crit)
+            secs[crit] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mem = {crit: tg.contiguity_adjacency(polys, crit) for crit in W}
+    secs["in memory, both"] = time.perf_counter() - t0
+    bad = []
+    N = len(polys)
+    interior = (FORMULA_GRID // 2) * FORMULA_GRID + FORMULA_GRID // 2  # district (50, 50)
+    log(f"  (a) {N} districts written to one .shp and read back ({len(read)} polygons); host seconds: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in secs.items()) + f"; on {card}")
+    for crit, want in (("queen", 8), ("rook", 4)):
+        w = W[crit]
+        asserted(f"{crit} W: {w.nnz} entries, symmetric", (abs(w - w.T)).nnz == 0 and w.shape == (N, N), bad)
+        asserted(f"{crit} W from the file equals W from the polygons in memory",
+                 (abs(w - mem[crit])).nnz == 0 and w.nnz == mem[crit].nnz, bad)
+        asserted(f"{crit}: interior district {interior} has {w[interior].nnz} neighbours (want {want})",
+                 w[interior].nnz == want, bad)
+    return W["queen"], bad
+
+
+def disease_map_cell(W, dev, card, counts: dict) -> list:
+    """Phase 28(b): the BYM and BYM2 disease maps at N = 10,000 (20,002 unknowns each) on the card."""
+    import tpu_gmrf_torch as tg
+    from tpu_gmrf_torch import kernels
+    from tpu_gmrf_torch.formula import build_formula_components
+    from tpu_gmrf_torch.inference.gaussian_approximation import _posterior_pair
+
+    _, data, eta_true = ex06_data(FORMULA_GRID, FORMULA_GRID)
+    opts = tg.GAOptions(max_iter=GA_MAX_ITER)
+    bad = []
+    for label, (formula, chains, one) in (("BYM", FORMULA_BYM), ("BYM2", FORMULA_BYM2)):
+        t0 = time.perf_counter()
+        comps = build_formula_components(formula, data, family="poisson", exposure="E", context={"W": W})
+        build_s = time.perf_counter() - t0
+        n = comps.A.shape[1]
+        th = on(chains, torch.float64, dev)
+        with torch.no_grad():  # the posterior's pattern, as the Newton loop forms it, and the backend auto picks
+            prior = comps.combined_model(**th)
+            lik = comps.obs_model(comps.y)
+            pattern = _posterior_pair(prior.Q, lik.loghessian(torch.zeros_like(prior.mean))).pattern
+        t0 = time.perf_counter()
+        kind = tg.SolverSpec().resolve(pattern).kind
+        choice_s = time.perf_counter() - t0
+        prior_kind = tg.SolverSpec().resolve(prior.Q.pattern).kind
+        path = FORMULA_BASE_KERNELS + BACKEND_KERNELS[kind] + (SELINV_KERNELS if kind != "dense" else ())
+        kernels.reset_launches()
+        # ---- the disease map's main path: value+grad twice, the modes, one θ's posterior, std and draws ----
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = formula_vg(comps, comps.obs_model, th, opts)
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        got2 = formula_vg(comps, comps.obs_model, th, opts)
+        torch.cuda.synchronize()
+        vg_ms = (time.perf_counter() - t0) * 1e3
+        with torch.no_grad():
+            prior = comps.combined_model(**th)
+            modes = tg.gaussian_approximation(prior, comps.obs_model(comps.y), options=opts)
+            resid = float((modes.mean @ prior.A.T - prior.e).abs().max())
+            t0 = time.perf_counter()
+            post = tg.gaussian_approximation(comps.combined_model(**on(one, torch.float64, dev)),
+                                             comps.obs_model(comps.y), options=opts)
+            mean, std = post.mean, post.std()
+            draws = post.sample(torch.Generator(device=dev).manual_seed(0), (FORMULA_DRAWS,))
+            p_exc = (comps.A.matvec(draws) > 0.0).double().mean(0)
+            eta = comps.A.matvec(mean)
+            torch.cuda.synchronize()
+            post_s = time.perf_counter() - t0
+        got_counts = kernels.launches()
+        # ---- end of the disease map's main path ----
+        launched(got_counts, path, f"phase 28(b) {label}")
+        counts.update({k: counts.get(k, 0) + v for k, v in got_counts.items()})
+        iters = verbose_iterations(lambda: tg.laplace_marginal(
+            comps.combined_model, comps.obs_model, comps.y, th, options=dataclasses.replace(opts, verbose=True)))
+        log(f"  (b) {label} `{formula}`: n={n} ({comps.meta['term_sizes']}), {FORMULA_CHAINS} chains, f64; built in "
+            f"{build_s:.2f} s (host clock); SolverSpec() resolves the posterior (nnz {pattern.nnz}) to {kind} in "
+            f"{choice_s:.2f} s of host ({auto_costs(pattern)}; the prior's pattern to {prior_kind}); value+grad {first_ms:.1f} ms first call, {vg_ms:.1f} ms second "
+            f"(host clock); Newton iterations (slowest chain) {iters}; one θ's posterior, std and {FORMULA_DRAWS} draws "
+            f"{post_s:.2f} s; launches {dict((k, v) for k, v in got_counts.items() if v)}; on {card}")
+        if not bool((got[0] == got2[0]).all()):
+            bad.append(f"{label}: two value+grads of the same θ differ")
+        t0 = time.perf_counter()
+        with default_on("cpu"):
+            ref = formula_vg(comps, on_cpu(comps), on(chains, torch.float64, "cpu"), opts)
+        log(f"    (the plain value+grad on CPU tensors took {time.perf_counter() - t0:.1f} s of host)")
+        hold_f64(f"{label} N={W.shape[0]}", got, ref, FORMULA_CHAINS)
+        asserted(f"{label} modes: max |A x* - e| {resid:.3e} <= {FORMULA_MODE_TOL:.0e}", resid <= FORMULA_MODE_TOL, bad)
+        mean, std, eta, p_exc = (t.double().cpu().numpy() for t in (mean, std, eta, p_exc))
+        b_aff, s_aff = mean[-1], std[-1]
+        r = np.corrcoef(eta, eta_true)[0, 1]
+        log(f"    at {one}: intercept {mean[-2]:.4f} ± {1.96 * std[-2]:.4f}, aff {b_aff:.4f} ± {1.96 * s_aff:.4f} "
+            f"(truth -0.2, 2.0); corr(η̂, η_true) {r:.4f}; districts with P(RR > 1) > 0.8: {int((p_exc > 0.8).sum())}")
+        asserted(f"{label} aff coefficient {b_aff:.4f} within 3·1.96·std + 0.5 of 2.0",
+                 abs(b_aff - 2.0) < 3 * 1.96 * s_aff + 0.5, bad)
+        asserted(f"{label} std finite", bool(np.isfinite(std).all()), bad)
+        if label == "BYM":
+            asserted(f"BYM corr(η̂, η_true) {r:.4f} > 0.9", r > 0.9, bad)
+    return bad
+
+
+def run_ex06(dev) -> dict:
+    """examples/06_bym_disease_mapping.py as written (its θ as Python numbers), on `dev`."""
+    import tpu_gmrf_torch as tg
+    from tpu_gmrf_torch.formula import build_formula_components
+
+    polys, data, eta_true = ex06_data()
+    W = tg.contiguity_adjacency(polys, criterion="queen")
+    with default_on(dev):
+        comp = build_formula_components("y ~ 1 + aff + Besag(district, W) + IID(district)", data, family="poisson",
+                                        exposure="E", context={"W": W})
+        post = tg.gaussian_approximation(comp.combined_model(tau_besag=4.0, tau_iid=16.0), comp.obs_model(comp.y))
+        eta = comp.A.matvec(post.mean)
+        samp = post.sample(torch.Generator(device=dev).manual_seed(0), (400,))
+        p_exc = (comp.A.matvec(samp) > 0.0).double().mean(0)
+        comp2 = build_formula_components("y ~ 1 + aff + BYM2(district, W)", data, family="poisson", exposure="E",
+                                         context={"W": W})
+        post2 = tg.gaussian_approximation(comp2.combined_model(tau_bym2=2.0, phi_bym2=0.4), comp2.obs_model(comp2.y))
+        eta2 = comp2.A.matvec(post2.mean)
+        mean, std = post.mean.cpu().numpy(), post.std().cpu().numpy()
+    eta, eta2 = eta.cpu().numpy(), eta2.cpu().numpy()
+    return {"n": comp.A.shape[1], "dtype": str(post.mean.dtype), "W edges": int(W.nnz // 2), "mean": mean, "std": std,
+            "r": np.corrcoef(eta, eta_true)[0, 1], "r2": np.corrcoef(eta2, eta_true)[0, 1],
+            "p_exc": int((p_exc.cpu().numpy() > 0.8).sum())}
+
+
+def formula_term_cases():
+    """name: (formula, data, family, build keywords, θ of the prior, θ of the likelihood); tests/test_formula.py's
+    cases at its sizes (rng(42)), plus AR1, RW2 and a Matérn term on 200 points."""
+    from tpu_gmrf_torch.formula import IID, RW1, Separable
+
+    cases = {}
+    rng = np.random.default_rng(42)
+    group, t, x = rng.integers(0, 5, size=60), rng.integers(0, 10, size=60), rng.normal(size=60)
+    cases["IID + RW1"] = ("y ~ 1 + x + IID(group) + RW1(time)",
+                          {"y": rng.normal(size=60) + x * 0.5, "x": x, "group": group, "time": t}, "normal", {},
+                          {"tau_iid": 1.0, "tau_rw1": 1.0}, {"sigma": 1.0})
+    rng = np.random.default_rng(42)
+    region, E = rng.integers(0, 16, size=48), rng.uniform(0.5, 2.0, size=48)
+    cases["Besag + exposure"] = ("y ~ 1 + Besag(region, W)", {"y": rng.poisson(E * 1.5), "region": region, "E": E},
+                                 "poisson", {"exposure": "E", "context": {"W": grid_adjacency(4, 4)}}, {"tau_besag": 1.0}, {})
+    rng = np.random.default_rng(42)
+    cases["BYM2"] = ("y ~ BYM2(region, W)", {"y": rng.poisson(2.0, size=27), "region": rng.integers(0, 9, size=27)},
+                     "poisson", {"context": {"W": grid_adjacency(3, 3)}}, {"tau_bym2": 1.0, "phi_bym2": 0.5}, {})
+    rng = np.random.default_rng(42)
+    g, t = rng.integers(0, 3, size=40), rng.integers(0, 4, size=40)
+    cases["Separable"] = ([Separable(RW1("t"), IID("g"))], {"y": rng.normal(size=40), "g": g, "t": t}, "normal", {},
+                          {"tau_rw1_separable": 1.0, "tau_iid_separable": 2.0}, {"sigma": 1.0})
+    rng = np.random.default_rng(42)
+    group = rng.integers(0, 4, size=30)
+    cases["IID (predict_cols)"] = ("y ~ IID(group)", {"y": rng.normal(size=30), "group": group}, "normal", {},
+                                   {"tau_iid": 1.0}, {"sigma": 1.0})
+    rng = np.random.default_rng(42)
+    group, x = rng.integers(0, 4, size=30), rng.normal(size=30)
+    cases["x + IID (predict_cols)"] = ("y ~ x + IID(group)", {"y": rng.normal(size=30), "group": group, "x": x},
+                                       "normal", {}, {"tau_iid": 1.0}, {"sigma": 1.0})
+    rng = np.random.default_rng(42)
+    t = rng.integers(0, 12, size=40)
+    cases["AR1"] = ("y ~ 1 + AR1(t)", {"y": rng.poisson(np.exp(0.3 * np.sin(t)), size=40), "t": t}, "poisson", {},
+                    {"tau_ar1": 2.0, "rho_ar1": 0.6}, {})
+    rng = np.random.default_rng(42)
+    t = rng.integers(0, 30, size=90)
+    cases["RW2"] = ("y ~ 1 + RW2(t)", {"y": np.sin(t / 5.0) + 0.2 * rng.normal(size=90), "t": t}, "normal", {},
+                    {"tau_rw2": 4.0}, {"sigma": 0.2})
+    rng = np.random.default_rng(42)
+    px, py = rng.uniform(size=200), rng.uniform(size=200)
+    cases["Matern"] = ("y ~ 1 + z + Matern(['px', 'py'], smoothness=1)",
+                       {"y": np.sin(3 * px) * np.cos(2 * py) + 0.1 * rng.normal(size=200), "px": px, "py": py,
+                        "z": rng.normal(size=200)}, "normal", {}, {"tau_matern": 1.0, "range_matern": 0.5},
+                       {"sigma": 0.3})
+    return cases
+
+
+FORMULA_NEWDATA = {"IID (predict_cols)": {"group": np.array([0, 2, 3])},
+                   "x + IID (predict_cols)": {"group": np.array([1, 3]), "x": np.array([0.5, -2.0])},
+                   "Matern": {"px": np.array([0.2, 0.7]), "py": np.array([0.5, 0.4]), "z": np.array([1.0, -1.0])}}
+
+
+def formula_terms(dev):
+    """Phase 28(d) on `dev`: each case's components, posterior mean and std, and predicted η for new data."""
+    import tpu_gmrf_torch as tg
+    from tpu_gmrf_torch.formula import build_formula_components, predict_cols
+
+    out = {}
+    with default_on(dev):
+        for name, (formula, data, family, kw, th_prior, th_lik) in formula_term_cases().items():
+            comps = build_formula_components(formula, data, family=family, **kw)
+            prior = comps.combined_model(**on(th_prior, torch.float64, dev))
+            post = tg.gaussian_approximation(prior, comps.obs_model(comps.y, **on(th_lik, torch.float64, dev)),
+                                             options=tg.GAOptions(max_iter=50, mean_change_tol=1e-10,
+                                                                  newton_dec_tol=1e-14))
+            res = {"n": comps.A.shape[1], "constrained": comps.combined_model.constraints() is not None,
+                   "mean": post.mean, "std": post.std(), "A": comps.A.todense()}
+            if name in FORMULA_NEWDATA:
+                A_new = predict_cols(comps, FORMULA_NEWDATA[name])
+                res["A_new"] = A_new.todense()
+                if A_new.shape[1] == comps.A.shape[1]:
+                    res["eta_new"] = A_new.matvec(post.mean)
+            out[name] = {k: v.cpu() if isinstance(v, torch.Tensor) else v for k, v in res.items()}
+    return out
+
+
+def formula_path(dev, card):
+    """Phase 28: (a) geo at N = 10,000, (b) the disease maps at N = 10,000, (c) example 06 as written, (d) every term
+    at the reference tests' sizes; the kernels counted from zero for (b), (c) and (d) and required there."""
+    counts = {}
+    t0 = time.perf_counter()
+    W, bad = geo_cell(card)
+    log(f"  (a) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    bad += disease_map_cell(W, dev, card, counts)
+    log(f"  (b) {time.perf_counter() - t0:.1f} s")
+    v, secs = example_cell("phase 28(c) example 06", run_ex06, FORMULA_BASE_KERNELS
+                           + ("dense_chol", "dense_trsv", "dense_selinv"), dev, counts)
+    log(f"  (c) example 06 as written ({v['W edges']} contiguity edges, n={v['n']}, {v['dtype']}) in {secs:.2f} s on "
+        f"{card}: aff {v['mean'][-1]:.4f} ± {1.96 * v['std'][-1]:.4f}, districts with P(RR>1) > 0.8: {v['p_exc']}")
+    asserted(f"aff coefficient {v['mean'][-1]:.4f} within 3·1.96·std + 0.5 of 2.0",
+             abs(v["mean"][-1] - 2.0) < 3 * 1.96 * v["std"][-1] + 0.5, bad)
+    asserted(f"corr(η̂, η_true) {v['r']:.4f} > 0.9", v["r"] > 0.9, bad)
+    asserted(f"BYM2 corr {v['r2']:.4f} > 0.85", v["r2"] > 0.85, bad)
+    asserted("std finite", bool(np.all(np.isfinite(v["std"]))), bad)
+    got, secs = example_cell("phase 28(d) formula terms", formula_terms, FORMULA_TERM_KERNELS, dev, counts)
+    t0 = time.perf_counter()
+    ref = formula_terms(torch.device("cpu"))
+    log(f"  (d) every term on the card in {secs:.2f} s (the plain path on CPU tensors {time.perf_counter() - t0:.2f} "
+        f"s), f64, kernels vs plain, on {card}:")
+    for name, g in got.items():
+        r = ref[name]
+        tol = FORMULA_TOL["constrained" if g["constrained"] else "free"]
+        errs = {k: float((g[k] - r[k]).abs().max() / r[k].abs().max().clamp_min(1e-300))
+                for k in ("mean", "std", "eta_new") if k in g}
+        same = all(bool(torch.equal(g[k], r[k])) for k in ("A", "A_new") if k in g)
+        asserted(f"{name} (n={g['n']}{', constrained' if g['constrained'] else ''}): design equal {same}, "
+                 + ", ".join(f"{k} max rel {e:.2e}" for k, e in errs.items()) + f" (tol {tol:.0e})",
+                 same and all(e <= tol for e in errs.values()), bad)
+    if bad:
+        raise AssertionError(f"phase 28 failed: {bad}")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6496,10 +6890,14 @@ def main() -> int:
         f"run_nuts_checkpointed on the flagship (B={MESH_FLAGSHIP['chains']}, n={N}, f32); example 12 parts 1-2; "
         f"example 07 (CAR N={EX07_RUN['N']}, auto -> dense); the dryrun_multichip twin; on {card}")
     counts27 = samplers_path(dev, card)
+    log(f"phase 28 the formula interface and shapefile contiguity: example 06's districts at N={FORMULA_GRID ** 2} "
+        f"through a .shp; the BYM and BYM2 disease maps (n={2 * FORMULA_GRID ** 2 + 2}, {FORMULA_CHAINS} chains, "
+        f"f64); example 06 as written; every term at the reference tests' sizes; on {card}")
+    counts28 = formula_path(dev, card)
 
     paths = (counts, sp_counts, counts9, counts10, counts11, counts12, counts13, counts13b, counts14, counts15,
              counts16, counts17, counts18, counts19, counts20, counts21, counts22, counts23, counts24, counts25,
-             counts26, counts27)
+             counts26, counts27, counts28)
     report = {
         "kernels": [
             {"name": name, "route": "cuda", "source": SOURCES[name][0], "replaces": SOURCES[name][1],

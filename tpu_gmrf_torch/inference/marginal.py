@@ -10,6 +10,8 @@ chain.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from ..models.base import LatentModel
@@ -18,6 +20,15 @@ from ..observations.base import ObservationLikelihood, ObservationModel
 from .gaussian_approximation import GAOptions, gaussian_approximation
 
 __all__ = ["marginal_loglikelihood", "laplace_marginal"]
+
+
+def _observations_on(y, device):
+    """y on `device`: an array or tensor, or an observation box (``PoissonObservations``,
+    ``BinomialObservations``, …) whose tensor fields are moved there."""
+    if dataclasses.is_dataclass(y) and not isinstance(y, type):
+        return dataclasses.replace(y, **{f.name: getattr(y, f.name).to(device) for f in dataclasses.fields(y)
+                                         if isinstance(getattr(y, f.name), torch.Tensor)})
+    return torch.as_tensor(y, device=device)
 
 
 def marginal_loglikelihood(prior, obs_lik: ObservationLikelihood, posterior=None,
@@ -45,11 +56,11 @@ def laplace_marginal(
 
     θ entries are routed by name: latent-model hyperparameters go to the
     model, the rest to the observation model factory. y goes to the device
-    of the θ tensors."""
+    of the θ tensors, also inside an observation box (a formula's `y`)."""
     latent_names = set(model.hyperparameters)
     theta_latent = {k: v for k, v in theta.items() if k in latent_names}
     theta_obs = {k: v for k, v in theta.items() if k not in latent_names}
     prior = model(**theta_latent)
-    obs_lik = obs_model(torch.as_tensor(y, device=prior.Q.device), **theta_obs)
+    obs_lik = obs_model(_observations_on(y, prior.Q.device), **theta_obs)
     posterior = gaussian_approximation(prior, obs_lik, options=options)
     return marginal_loglikelihood(prior, obs_lik, posterior=posterior)
