@@ -7,10 +7,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
 
 1. the device: needs CUDA; prints the card's name and power limit;
 2. the build: compiles the kernels K1-K25 (K5 with its second entry,
-   fct_init; K7 with its multiply mode and that mode's transpose; K10 with its
-   second entry, dense_selinv; K11 and K12 with their block entries,
-   bt_factor_blocks and bt_trsv_blocks; K13 with its second entry, bt_sqrt,
-   and that entry's transpose mode) from
+   fct_init; K7 with its multiply mode and that mode's transpose,
+   sn_multiply_t; K10 with its second entry, dense_selinv; K11 and K12 with
+   their block entries, bt_factor_blocks and bt_trsv_blocks; K13 with its
+   second entry, bt_sqrt, and that entry's transpose mode, bt_sqrt_t) from
    tpu_gmrf_torch/csrc with nvcc (one nvcc per source, in parallel) and
    the host symbolic core with g++;
 3. K1-K4 against their plain PyTorch versions on the card, at the flagship
@@ -49,7 +49,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    Takahashi sweep) against their plain versions and against the
    library call, where one computes the same function or its blocks (K11:
    cholesky_ex of the K blocks and solve_triangular for the M_k; K12:
-   solve_triangular both ways on each block), in float64 and float32;
+   solve_triangular both ways on each block; the whole banded Σ:
+   cholesky_inverse of the densified factor, then the gather onto the
+   blocks), in float64 and float32;
 3d. the multiply kernels against their plain versions, in float64 and
    float32: K13 bt_matvec and K14 bsr_spmm at the bench_spmv operator
    (Matérn α=2 on 100x100 points, n=14058, 8 vectors) and at the 316x316
@@ -100,8 +102,11 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    sqrt_matvec): K23 tridiag_factor_adjoint at the flagship's shape, K24
    bt_factor_adjoint on the banded blocks (n=5741, B=4, K=12, s=512), K25
    sn_panel_adjoint launch by launch over phase 3b's supernodal schedule, and
-   the transpose modes of bt_sqrt and K7's multiply at k=16 on those factors,
-   against their plain versions (float64 on the kernels' inputs) and the
+   the transpose products, one launch each, on those factors at k=16, 1 and 40
+   (bt_sqrt_t; sn_multiply_t over the whole schedule, also at n=14058, B=1;
+   each twice, equal bit for bit, an Lᵀz through the supernodal factor
+   counted as one K7 launch), against their plain versions (float64 on the
+   kernels' inputs) and the
    library's (autograd through torch.linalg.cholesky of the densified,
    permuted, equilibrated matrix; the densified factor's transpose times the
    rows), in float32 and float64;
@@ -418,8 +423,11 @@ SOURCES = {
     "bt_factor": ("tpu_gmrf_torch/csrc/banded.cu", "tpu_gmrf/solvers/banded.py:354"),
     "bt_trsv": ("tpu_gmrf_torch/csrc/banded.cu", "tpu_gmrf/solvers/banded.py:145"),
     "sn_multiply": ("tpu_gmrf_torch/csrc/supernodal.cu", "tpu_gmrf/solvers/supernodal.py:1287"),
+    # the transpose products: JAX's AD of sqrt_matvec (no kernel of its own there)
+    "sn_multiply_t": ("tpu_gmrf_torch/csrc/supernodal.cu", "tpu_gmrf/solvers/supernodal.py:1287"),
     "bt_matvec": ("tpu_gmrf_torch/csrc/banded.cu", "tpu_gmrf/solvers/banded.py:297"),
     "bt_sqrt": ("tpu_gmrf_torch/csrc/banded.cu", "tpu_gmrf/solvers/banded.py:272"),
+    "bt_sqrt_t": ("tpu_gmrf_torch/csrc/banded.cu", "tpu_gmrf/solvers/banded.py:272"),
     "bsr_spmm": ("tpu_gmrf_torch/csrc/bsr.cu", "tpu_gmrf/kernels/bsr_spmv.py:182"),
     "bsr_outer": ("tpu_gmrf_torch/csrc/bsr.cu", "tpu_gmrf/kernels/bsr_spmv.py:215"),
     "kl_columns": ("tpu_gmrf_torch/csrc/kl.cu", "tpu_gmrf/kl_cholesky.py:116"),
@@ -674,12 +682,18 @@ HESSIAN_VAR_KERNELS = ("fct_init", "sn_panel", "sn_takahashi_prep", "sn_takahash
 # Phase 3h: the factorizations' adjoints K23-K25 (the cotangent of Q from that of its factor L) and the transpose modes
 # of K13's second entry and K7, against their plain versions on the same inputs: K23 at the flagship's shape
 # (B = 256, n = 500), K24 on phase 11's banded blocks (n = 5741, B = 4, K = 12, s = 512), K25 launch by launch over
-# phase 3b's supernodal schedule, the transpose modes at k = 16 on those factors; the plain versions in float64 on
-# the kernels' inputs. float64: 1e-12 normwise. float32: K24, K25 and K7's transpose mode compute in float64 and round
-# once on the way out, K23 replays its recurrence in float32 (as K19 does) and K13's transpose mode sums in float32;
+# phase 3b's supernodal schedule, the transpose modes at k = 16, 1 and 40 on those factors (each one launch a product,
+# two launches equal bit for bit; K7's mode 3 also at phase 14's shape, B = 1, n = 14058); the plain versions in
+# float64 on the kernels' inputs. float64: 1e-12 normwise. float32: K24, K25 and K7's transpose mode compute in
+# float64 and round once on the way out, K23 replays its recurrence in float32 (as K19 does) and K13's transpose
+# mode sums in float32;
 # the limits sit above the rounding that implies (K23 read 7.8e-8 against the float64 plain version on the H100).
 ADJOINT_F32 = {"tridiag_factor_adjoint": 1e-5, "bt_factor_adjoint": 1e-5, "sn_panel_adjoint": 1e-5, "bt_sqrt_t": 1e-5,
                "sn_multiply_t": 1e-5}
+# right-hand sides per chain of the transpose products' checks: all of a chain's in one pass (16, 1), and in three
+# (40: bt_sqrt_t's later passes, each streaming the slab again; sn_multiply_t's later chunks)
+TRANSPOSE_KS = (16, 1, 40)
+BT_WIDE_S = 3000  # bt_sqrt_t's blocks in phase 3h's wide check: above every phase's s (a slab of 1,504 rows)
 SN_TOL[torch.float64].update({k: 1e-12 for k in ADJOINT_F32})
 SN_TOL[torch.float32].update(ADJOINT_F32)
 # Phase 25: pathwise gradients through the factor: θ ↦ (1/k) Σ_k f(μ + L⁻ᵀz_k) per chain, f the Poisson log-likelihood
@@ -708,9 +722,10 @@ PATH_DRAWS, PATHWISE_H, SPIKE_CD_H, MC_CHUNKS, MC_DRAWS = 16, 1e-4, 1e-5, 64, 16
 PATHWISE_TOL = {"f64": 1e-10, "spatial": 1e-8, "cd": 1e-6, "cd_spatial": 2e-6, "f32_factor": 2.0, "f32_floor": 1e-6,
                 "mc": 5.0, "spike_cd": 1e-6, "ranks": 1e-9, "hvp": 1e-9}
 PATHWISE_FLAGSHIP_KERNELS = ("tridiag_factor", "tridiag_solve", "tridiag_factor_adjoint")
-PATHWISE_SN_KERNELS = ("fct_init", "sn_panel", "sn_trsv", "sn_multiply", "sn_takahashi_prep", "sn_panel_adjoint",
-                       "gather_segsum")
-PATHWISE_BANDED_KERNELS = ("bt_factor", "bt_trsv", "bt_sqrt", "sn_takahashi_prep", "bt_factor_adjoint", "gather_segsum")
+PATHWISE_SN_KERNELS = ("fct_init", "sn_panel", "sn_trsv", "sn_multiply", "sn_multiply_t", "sn_takahashi_prep",
+                       "sn_panel_adjoint", "gather_segsum")
+PATHWISE_BANDED_KERNELS = ("bt_factor", "bt_trsv", "bt_sqrt", "bt_sqrt_t", "sn_takahashi_prep", "bt_factor_adjoint",
+                           "gather_segsum")
 PATHWISE_DENSE_KERNELS = ("dense_chol", "dense_trsv")
 PATHWISE_MC_KERNELS = ("tridiag_factor", "tridiag_solve", "tridiag_selinv", "tridiag_factor_adjoint",
                        "tridiag_selinv_tangent")
@@ -1797,13 +1812,42 @@ def check_dense_kernels(dn_model, sp_model, dtype, dev):
                     f" bound_ms={bound(*cost, dtype)['bound_ms']:.4f} ({launch_count(kern, lambda: fn(kern))} launches)")
     plain = (kernels.sn_takahashi_prep_plain, kernels.sn_takahashi_sweep_plain)
     whole = bound(prep_cost[0] + sweep_cost[0], prep_cost[1], dtype)
+    library = banded_sigma_library(P)
     check("sn_takahashi banded sigma, prep + sweep", dtype, tb._sigma_vals(P, meta), tb._sigma_vals(P, meta, plain),
           "sn_takahashi", {},
           extra=f" kernel_ms={cuda_ms(lambda: tb._sigma_vals(P, meta), 3, 1):.3f} plain_ms="
-                f"{cuda_ms(lambda: tb._sigma_vals(P, meta, plain), 3, 1):.3f} (whole sweep) "
-                f"bound_ms={whole['bound_ms']:.4f} ({whole['bound_by']}; {prep_cost[0] + sweep_cost[0]:.3e} flops, "
-                f"{prep_cost[1] / 1e6:.1f} MB)")
+                f"{cuda_ms(lambda: tb._sigma_vals(P, meta, plain), 3, 1):.3f} library_ms="
+                f"{cuda_ms(library, 3, 1):.3f} (whole sweep; library: torch.cholesky_inverse of the densified "
+                f"factor, then the gather onto the blocks) bound_ms={whole['bound_ms']:.4f} ({whole['bound_by']}; "
+                f"{prep_cost[0] + sweep_cost[0]:.3e} flops, {prep_cost[1] / 1e6:.1f} MB)")
+    del library
     return results
+
+
+def banded_factor_dense(P):
+    """K11's factor P (B, K, 2s, s) densified: L (B, K s, K s) with L_k (its lower triangle) on the diagonal blocks
+    and M_k below them, in the factor's permuted, padded basis."""
+    B, K, _, s = P.shape
+    L = P.new_zeros(B, K * s, K * s)
+    for k in range(K):
+        o = slice(k * s, (k + 1) * s)
+        L[:, o, o] = P[:, k, :s].tril()
+        if k < K - 1:
+            L[:, (k + 1) * s:(k + 2) * s, o] = P[:, k, s:]
+    return L
+
+
+def banded_sigma_library(P):
+    """The banded Σ's library yardstick (`_sigma_blocks`, the function K8's two entries compute on the blocks):
+    torch.cholesky_inverse of the densified factor, then the gather of Σ onto the blocks' layout (B, K, 2s, s)
+    (row k s + r, column k s + c of panel k; the last panel's lower half reads the last row), as a callable; the
+    densified factor and the gather's indices are built outside it."""
+    B, K, s2, s = P.shape
+    L = banded_factor_dense(P)
+    k, r, c = (torch.arange(n, device=P.device) for n in (K, s2, s))
+    rows = (k[:, None, None] * s + r[None, :, None]).clamp(max=K * s - 1).expand(K, s2, s)
+    cols = (k[:, None, None] * s + c[None, None, :]).expand(K, s2, s)
+    return lambda: torch.cholesky_inverse(L)[:, rows, cols]
 
 
 def dense_rel(got, ref) -> float:
@@ -4761,7 +4805,7 @@ def check_bt_adjoint(sp_model, dtype, dev, results):
     """K24 at n=5741, B=4, K=12, s=512 (phase 11's banded configuration): its one launch against its plain version
     in float64 on copies of its inputs (the L̄ of k=16 draws, `BandedFactor._factor_adjoint`'s), the library's Q̄
     (autograd through cholesky of the densified, permuted, padded matrix, fed the densified L̄); and bt_sqrt's
-    transpose mode at k=16 against its plain version and the library's product with the densified factor."""
+    transpose mode at k=16, 1 and 40 against its plain version and the library's product with the densified factor."""
     import tpu_gmrf_torch as tg
     from tpu_gmrf_torch import kernels
     from tpu_gmrf_torch.solvers import banded as bd
@@ -4803,25 +4847,24 @@ def check_bt_adjoint(sp_model, dtype, dev, results):
           tangent_costs(ns, m, B, Q.data.element_size(), "panel"), cuda_ms(library, 2, 1), shape,
           op_dtype=torch.float64)
     del Ad, Lb, library
-    rows = U.transpose(1, 2).reshape(B * 16, -1).contiguous()
     t = bd._TABLES[f.meta]
-    yt = kernels.bt_sqrt(P, t, rows, 16, transpose=True)
-    yp = kernels.bt_sqrt_t_plain(P64, t, f64(rows), 16)
-    Ld = torch.zeros(B, npad, npad, dtype=dtype, device=dev)
-    for k in range(K):
-        o = slice(k * s, (k + 1) * s)
-        Ld[:, o, o] = P[:, k, :s].tril()
-        if k < K - 1:
-            Ld[:, (k + 1) * s:(k + 2) * s, o] = P[:, k, s:]
+    Ld = banded_factor_dense(P)
     perm = t.on(dev)["perm_l"]
-    zb = U.new_zeros(B, npad, 16)
-    zb[:, : sp_model.n] = U[:, perm]
-    el = Q.data.element_size()
+    el, n = Q.data.element_size(), sp_model.n
     tri = B * (K * s * (s + 1) / 2 + (K - 1) * s * s)
-    check("bt_sqrt transpose", dtype, (yt,), (yp,), "bt_sqrt_t", results, cuda_ms(lambda: kernels.bt_sqrt(P, t, rows, 16, True)),
-          cuda_ms(lambda: kernels.bt_sqrt_t_plain(P, t, rows, 16)),
-          " (library: the densified factor's transpose times the permuted rows, one matmul)",
-          (2 * tri * 16, el * (tri + 2 * B * 16 * sp_model.n)), cuda_ms(lambda: Ld.mT @ zb), shape + " k=16")
+    more = np.random.default_rng(33).normal(size=(B, n, max(TRANSPOSE_KS) - U.shape[-1]))
+    Z = torch.cat([U, torch.tensor(more, dtype=dtype, device=dev)], -1)
+    for k in TRANSPOSE_KS:
+        rows = Z[..., :k].transpose(1, 2).reshape(B * k, -1).contiguous()
+        zb = Z.new_zeros(B, npad, k)
+        zb[:, :n] = Z[:, perm, :k]
+        run = lambda: kernels.bt_sqrt_t(P, t, rows, k)  # noqa: E731
+        yt = transpose_launches(run, kernels.bt_sqrt_t, f"bt_sqrt transpose k={k}")
+        check(f"bt_sqrt transpose k={k}", dtype, (yt,), (kernels.bt_sqrt_t_plain(P64, t, f64(rows), k),), "bt_sqrt_t",
+              results if k == 16 else {}, cuda_ms(run), cuda_ms(lambda: kernels.bt_sqrt_t_plain(P, t, rows, k)),
+              f" device_ms={kernel_device_ms(lambda: [run() for _ in range(REPS)], ('bt_sqrt_t',), REPS):.4f} a "
+              f"launch (library: the densified factor's transpose times the permuted rows, one matmul)",
+              (2 * tri * k, el * (tri + 2 * B * k * n)), cuda_ms(lambda: Ld.mT @ zb), shape + f" k={k}")
     return f
 
 
@@ -4870,39 +4913,102 @@ def check_sn_adjoint(sp_model, dtype, dev, results):
           " (library: autograd through cholesky of the densified, permuted, equilibrated matrix, f64)",
           tangent_costs(*shapes, B, el, "panel", tabs), cuda_ms(library, 2, 1), shape, op_dtype=torch.float64)
     del Lbar, library
-    rows, k = f._rows(U)
-    yp_in = kernels.gather_segsum(dp["perm"], rows, y=1.0 / f._scale_rows(k))
-
-    def transposed(ops_mul, v):
-        out = torch.zeros_like(yp_in)
-        for lv in dp["levels"]:
-            ops_mul(v, lv.group, out, yp_in, None, k, transpose=True)
-        return out
-
-    yt = transposed(kernels.sn_multiply, vals)
-    out64 = torch.zeros_like(f64(yp_in))
-    for lv in dp["levels"]:
-        kernels.sn_multiply_plain(vals64, lv.group, out64, f64(yp_in), None, k, transpose=True)
-    zr = yp_in[:, : sp_model.n].reshape(B, k, -1).transpose(1, 2)
-    nnzL = vals.shape[1] - 1
-    cost = (2 * B * k * nnzL, el * (B * nnzL + 2 * B * k * sp_model.n))
-    check("sn_multiply transpose", dtype, (yt,), (out64,), "sn_multiply_t", results,
-          cuda_ms(lambda: transposed(kernels.sn_multiply, vals)),
-          cuda_ms(lambda: transposed(kernels.sn_multiply_plain, vals), 2, 1),
-          " (library: the densified factor's transpose times the permuted rows, one matmul)", cost,
-          cuda_ms(lambda: L.mT @ zr), shape + f" k={k}")
+    check_sn_transpose(f, dtype, results, shape)
     return f
 
 
-def check_adjoint_kernels(sp_model, dev) -> dict:
+def check_bt_sqrt_t_wide(dtype, dev, s=BT_WIDE_S, K=2, B=1, k=16):
+    """bt_sqrt_t on blocks wider than any phase's banded plan (s = BT_WIDE_S, where a unit's slab spans s / 2 rows):
+    a random P (B, K, 2s, s) under a random permutation, the last block cut short, against its plain version in
+    float64 on the same inputs, one launch a product, twice equal bit for bit."""
+    from tpu_gmrf_torch import kernels
+
+    n = K * s - 37
+    rng = np.random.default_rng(34)
+    plan = dict(n=n, s=s, K=K, npad=K * s, d_idx=(np.zeros(0, np.int64),) * 4, e_idx=(np.zeros(0, np.int64),) * 4,
+                pad_diag=np.zeros(0, np.int64), perm=rng.permutation(n))
+    t = kernels.BandedTables(plan)
+    P = torch.tensor(rng.normal(size=(B, K, 2 * s, s)) / np.sqrt(s), dtype=dtype, device=dev)
+    rows = torch.tensor(rng.normal(size=(B * k, n)), dtype=dtype, device=dev)
+    got = transpose_launches(lambda: kernels.bt_sqrt_t(P, t, rows, k), kernels.bt_sqrt_t, f"bt_sqrt_t s={s}")
+    check(f"bt_sqrt transpose wide blocks B={B} K={K} s={s} k={k}", dtype, (got,),
+          (kernels.bt_sqrt_t_plain(f64(P), t, f64(rows), k),), "bt_sqrt_t", {})
+
+
+def transpose_launches(run, wrapper, label):
+    """run() twice: the result of its first call, required equal to the second's bit for bit, with one launch
+    counted by `wrapper` per call."""
+    before = wrapper.launches
+    got = run()
+    counted = wrapper.launches - before
+    again = run()
+    torch.cuda.synchronize()
+    if counted != 1:
+        raise AssertionError(f"{label}: {counted} launches of {wrapper.__name__} counted per call, not one")
+    if not torch.equal(got, again):
+        raise AssertionError(f"{label}: two launches on the same inputs differ")
+    return got
+
+
+def check_sn_transpose(f, dtype, results, shape):
+    """K7's mode 3 on factor f at k = 16, 1 and 40: one launch over the whole schedule, against its plain version in
+    float64 over the same table, twice equal bit for bit, its device time from a trace, the library's product
+    with the densified factor; and an Lᵀz through the factor (`_tri`) counted as one K7 launch."""
+    from tpu_gmrf_torch import kernels
+    from tpu_gmrf_torch.solvers import supernodal as sn
+    from tpu_gmrf_torch.solvers.base import TRI_LT
+
+    B, n, vals, el = f.vals.shape[0], f.n, f.vals, f.vals.element_size()
+    dp = sn._device_plan(f.meta, vals.device)
+    L, _, _ = dense_factor(vals, f.meta)
+    nnzL = vals.shape[1] - 1
+    rng = np.random.default_rng(31)
+    U = torch.tensor(rng.normal(size=(B, n, 16)), dtype=vals.dtype, device=vals.device)
+    more = rng.normal(size=(B, n, max(TRANSPOSE_KS) - 16))
+    U = torch.cat([U, torch.tensor(more, dtype=vals.dtype, device=vals.device)], -1)
+    for k in TRANSPOSE_KS:
+        rows, _ = f._rows(U[..., :k])
+        yp_in = kernels.gather_segsum(dp["perm"], rows, y=1.0 / f._scale_rows(k))
+
+        def transposed(mul, v, z=yp_in):
+            out = torch.zeros_like(z)
+            mul(v, dp["schedule"], out, z, k)
+            return out
+
+        run = lambda: transposed(kernels.sn_multiply_t, vals)  # noqa: E731
+        yt = transpose_launches(run, kernels.sn_multiply_t, f"sn_multiply transpose k={k}")
+        transpose_launches(lambda: f._tri(TRI_LT, U[..., :k]), kernels.sn_multiply_t,
+                           f"Lᵀz through the factor k={k}")
+        zr = yp_in[:, :n].reshape(B, k, -1).transpose(1, 2)
+        ref = transposed(kernels.sn_multiply_t_plain, f64(vals), f64(yp_in))
+        check(f"sn_multiply transpose k={k}", dtype, (yt,), (ref,), "sn_multiply_t",
+              results if k == 16 and B > 1 else {}, cuda_ms(run),
+              cuda_ms(lambda: transposed(kernels.sn_multiply_t_plain, vals), 2, 1),
+              f" device_ms={kernel_device_ms(lambda: [run() for _ in range(REPS)], ('sn_multiply_t',), REPS):.4f} "
+              f"a launch, {len(dp['schedule']['classes'])} class batches (library: the densified factor's "
+              f"transpose times the permuted rows, one matmul)",
+              (2 * B * k * nnzL, el * (B * nnzL + 2 * B * k * n)), cuda_ms(lambda: L.mT @ zr), shape + f" k={k}")
+
+
+def check_sn_transpose_large(model, dtype, dev):
+    """K7's mode 3 at phase 14's shape (B = 1, n = 14058), k = 16, 1 and 40 (`check_sn_transpose`)."""
+    import tpu_gmrf_torch as tg
+
+    f = tg.factorize(random_posterior(model, 1, dtype, dev, seed=32), tg.SolverSpec(kind="supernodal"))
+    check_sn_transpose(f, dtype, {}, f"B=1 n={model.n}")
+
+
+def check_adjoint_kernels(sp_model, dev, stats_model) -> dict:
     """Phase 3h: K23-K25 and the transpose modes of K13's second entry and K7 against their plain versions, in
-    float32 and float64."""
+    float32 and float64; K7's mode 3 also at phase 14's shape."""
     results = {}
     for dtype in (torch.float32, torch.float64):
         out = results if dtype == torch.float64 else {}
         check_tridiag_adjoint(dtype, dev, out)
         check_bt_adjoint(sp_model, dtype, dev, out)
         check_sn_adjoint(sp_model, dtype, dev, out)
+        check_sn_transpose_large(stats_model, dtype, dev)
+        check_bt_sqrt_t_wide(dtype, dev)
     return results
 
 
@@ -5248,8 +5354,8 @@ def pathwise_cell(label, build, y, p, dev, seed, tol, cd_tol, f32=False, sqrt=Fa
     kernel path against the f64 plain path, held to twice the float32 plain path's own distance from it plus
     PATHWISE_TOL's floor: the plain path on CPU tensors, or with `plain_build` (the same GMRF on the plain versions)
     on the card, per chain, for the chains whose factor the kernels did not boost, the boosted chains required to be
-    those the plain versions boost on the same inputs. Returns the launches of K13's second entry and K7's multiply
-    mode in the backward."""
+    those the plain versions boost on the same inputs. Returns the launches of the transpose products bt_sqrt_t and
+    sn_multiply_t in the backward."""
     from tpu_gmrf_torch import kernels
 
     y64 = torch.as_tensor(y, dtype=torch.float64)
@@ -5268,11 +5374,11 @@ def pathwise_cell(label, build, y, p, dev, seed, tol, cd_tol, f32=False, sqrt=Fa
     v = fn(pp)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    before = [kernels.bt_sqrt.launches, kernels.sn_multiply.launches]
+    before = [kernels.bt_sqrt_t.launches, kernels.sn_multiply_t.launches]
     grads = torch.autograd.grad(v.sum(), (pp,) if zqd is None else (pp, zqd))
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    back = [a - b for a, b in zip((kernels.bt_sqrt.launches, kernels.sn_multiply.launches), before)]
+    back = [a - b for a, b in zip((kernels.bt_sqrt_t.launches, kernels.sn_multiply_t.launches), before)]
     v, g, gz = v.detach(), grads[0], (grads[1] if sqrt else None)
     zqp = None if zq is None else zq.clone().requires_grad_()
     vp, gp, gzp = path_grads(draw_objective(build, y64, z.cpu(), zqp, w), p, zqp)
@@ -5286,7 +5392,7 @@ def pathwise_cell(label, build, y, p, dev, seed, tol, cd_tol, f32=False, sqrt=Fa
               f"h={PATHWISE_H:g} (tol {cd_tol:.0e})")
     ok = all(errs[k] <= tol for k in errs if k != "cd") and errs["cd"] <= cd_tol
     if sqrt:
-        line += f"; the backward's launches of bt_sqrt / sn_multiply {back[0]} / {back[1]}"
+        line += f"; the backward's launches of bt_sqrt_t / sn_multiply_t {back[0]} / {back[1]}"
     if f32:
         z32 = z.float()
         zq32 = None if zq is None else zq.float().requires_grad_()
@@ -6684,8 +6790,9 @@ def main() -> int:
     results.update(check_tangent_kernels(sp_model, dev))
     log(f"phase 3h the factorizations' adjoints K23-K25 and the transpose modes vs plain and library: K23 at "
         f"B={CHAINS} n={N}, K24 and bt_sqrt's transpose on the banded blocks, K25 and K7's transpose over phase 3b's "
-        f"schedule (n={sp_model.n}, B={SP_CHAINS}, k=16), f32 and f64, on {card}")
-    results.update(check_adjoint_kernels(sp_model, dev))
+        f"schedule (n={sp_model.n}, B={SP_CHAINS}; the transposes at k={' and '.join(map(str, TRANSPOSE_KS))}), K7's "
+        f"transpose at n={stats_model.n}, B=1, f32 and f64, on {card}")
+    results.update(check_adjoint_kernels(sp_model, dev, stats_model))
 
     log(f"phase 4 flagship slice: laplace_marginal value+grad, B={CHAINS}, n={N}, max_iter={GA_MAX_ITER}")
     y = flagship_y()

@@ -39,11 +39,24 @@
 //       (E'_k = M'_k L_k^-1 with M'_k less (A'_{k+1} + A'_{k+1}^T) M_k, then
 //       the Cholesky adjoint of L_k), on K22's workspace and tiles. Bound,
 //       like K22, by the float64 tensor-core rate of the cluster's SMs.
-//   K13's second entry has a transpose mode (`bt_sqrt`, transpose): y_k =
-//       L_k^T z_k + M_k^T z_{k+1}, the z-cotangent of sqrt_matvec; a thread
-//       per column of a block reads its column of L_k and M_k down the rows
-//       (a warp's loads coalesced along a row), z_k's rows staged in shared
-//       memory, between K13's rows_in and rows_out.
+//   K13's second entry has a transpose mode (`bt_sqrt_t`): y_k = L_k^T z_k
+//       + M_k^T z_{k+1}, the z-cotangent of sqrt_matvec. It must read L_k's
+//       lower triangle and M_k once (B (K s (s + 1) / 2 + (K - 1) s^2)
+//       values) and z and y once: bound by those bytes (n = 5741, B = 4,
+//       K = 12, s = 512: 71 MB in f32, 0.022 ms; 143 MB in f64, 0.044 ms),
+//       k flops per value. One launch: a unit is a slab of rows of a panel
+//       [L_k; M_k] by 128 columns, streamed by cp.async through a ring in
+//       shared memory and used by all k <= 16 right-hand sides of its chain,
+//       so P is read once (beyond 16, each pass of 16 streams it again);
+//       the rows above L_k's diagonal are skipped; the slabs of one column
+//       tile are a cluster of up to 4, which adds their partials in rank
+//       order in distributed shared memory and writes y through the
+//       permutation, z gathered through it a window of rows at a time: no
+//       rows_in, no rows_out, no workspace. float32 sums in float32, float64
+//       in float64, each in a fixed order. In practice (an H100) the ring's
+//       streaming at two blocks an SM bounds it (at k = 1 P streams at
+//       1.8 TB/s in f32, 2.2 in f64), then the products at k = 16 (details
+//       at bt_sqrt_t_kernel).
 //   K11 and K12 have a block entry each, for the SPIKE solve
 //   (tpu_gmrf/parallel/pbtridiag.py): `bt_factor_blocks` is :53 `_bt_chol`,
 //   L_k = chol(D_k - M_{k-1} M_{k-1}^T), M_k = E_k L_k^-T, on blocks D, E
@@ -1263,69 +1276,235 @@ int factor_adjoint_fit(int cs, int* count) {
 }
 
 // ---- K13's second entry, transpose mode ----------------------------------------
+//
+// y_k = L_k^T z_k + M_k^T z_{k+1} = [L_k; M_k]^T w_k with w_k(r) = zp(k s + r), r < 2s: panel k of a chain, its
+// 2s rows row-major (L_k's s rows, then M_k's), meets the permuted, padded z at k s + r, one window per block.
+// A unit is (slab, column tile, chain and block): rows r0 .. r0 + R of panel k (s rows only in the last panel,
+// whose M is zero) against columns j0 .. j0 + 128. The cs = ceil(2s / R) <= 4 slabs of a tile (column tile,
+// chain, block) are the ranks of a thread-block cluster (small clusters: the card holds few of 8 or 16). A
+// unit reads its rows from j0 on (above, L_k's rows hold nothing for the tile's columns); a slab wholly above
+// reads nothing and only takes its share of the cluster's sum.
+//
+// A unit streams its rows through a ring of 4 stages of 16 KB (32 rows of float32, 16 of float64, by 128
+// columns) in shared memory, filled by cp.async (16 bytes a copy where the rows allow, else a value a copy;
+// columns past s zero-filled): 3 stages' copies are in flight while one is used. It takes its rows in windows of
+// WS stages (the whole slab at every phase's s): a window's w is gathered through perm by cp.async with its
+// first stage (each unit of a tile's 128 columns gathers them, so a chain's z is read s / 128 times per block,
+// from L2), its stages streamed, and the ring drained before the next window's w; so shared memory does not
+// grow with R, and no s is too large. Thread (CPT columns, VPT right-hand sides, row group) sums its rows in
+// order, in T (float32 sums in float32), masking only the rows that meet L_k's diagonal; the row groups'
+// partials are added in order in shared memory (over the ring, once it is spent); the cluster then adds its
+// slabs' partials in rank order through distributed shared memory, each block a share of the tile's outputs,
+// written straight through perm into y (no row permutation of its own, no workspace). All k <= 16 right-hand
+// sides of a chain share each pass, so P is read once; for k > 16 the passes of 16 stream the slab again (a
+// slab kept resident for them held one block an SM and was slower at k = 40 in float32). Nothing is atomic: a
+// product is the same bit for bit from run to run.
 
-constexpr int kSqtThr = 128;  // threads (columns) of a block of the transpose mode
+constexpr int kSqtCols = 128;          // columns of a unit
+constexpr int kSqtStageBytes = 16384;  // bytes of a ring stage: 32 rows of float32, 16 of float64
+constexpr int kSqtRing = 4;            // stages of the ring
+constexpr int kSqtMaxCluster = 4;      // slabs of a cluster, at most
 
-// Block (column tile, k, chain chunk): y_k = L_k^T x_k + M_k^T x_{k+1} at its columns j, NV vectors of the
-// (B chunks NV, K s) rows of xp (rows_in) into yb. Thread j walks column j of L_k (rows j..s) and of M_k down the
-// rows, x's rows staged in shared memory 64 at a time; every sum in row order.
+__device__ __forceinline__ unsigned smem_u32(const void* p) { return (unsigned)__cvta_generic_to_shared(p); }
+
+// Thread t of a unit: column group t % CG (CPT columns, one 16-byte load), right-hand sides VPT (t / CG % VG) ..,
+// row group t / (CG VG).
 template <typename T, int NV>
-__global__ void __launch_bounds__(kSqtThr)
-    bt_sqrt_t_kernel(const T* __restrict__ P, int K, int s, int chunks, const T* __restrict__ xp,
-                     T* __restrict__ yb) {
-  __shared__ T xs[kMvR][NV];
-  const int tid = threadIdx.x, j0 = blockIdx.x * kSqtThr, j = j0 + tid, k = blockIdx.y;
-  const long long cb = blockIdx.z, b = cb / chunks, Ks = (long long)K * s;
-  const T* Lk = P + (b * K + k) * 2LL * s * s;
-  const T* xv = xp + cb * NV * Ks;
-  T acc[NV];
-#pragma unroll
-  for (int v = 0; v < NV; ++v) acc[v] = T(0);
-  for (int part = 0; part < (k < K - 1 ? 2 : 1); ++part) {  // L_k with x_k, then M_k with x_{k+1}
-    const T* Mt = Lk + (long long)part * s * s;
-    const long long xo = (long long)(k + part) * s;
-    for (int r0 = part ? 0 : j0; r0 < s; r0 += kMvR) {  // L_k: rows r >= j only
-      const int rows = min(kMvR, s - r0);
-      __syncthreads();
-      for (int e = tid; e < rows * NV; e += kSqtThr) xs[e / NV][e % NV] = xv[(e % NV) * Ks + xo + r0 + e / NV];
-      __syncthreads();
-      if (j < s)
-        for (int r = 0; r < rows; ++r) {
-          const int gr = r0 + r;
-          const T l = (part || gr >= j) ? __ldcs(Mt + (long long)gr * s + j) : T(0);
-#pragma unroll
-          for (int v = 0; v < NV; ++v) acc[v] += l * xs[r][v];
-        }
-    }
-  }
-  if (j < s)
-#pragma unroll
-    for (int v = 0; v < NV; ++v) yb[(cb * NV + v) * Ks + (long long)k * s + j] = acc[v];
+struct SqtShape {
+  static constexpr int ROWS = kSqtStageBytes / (kSqtCols * (int)sizeof(T));  // rows of a ring stage
+  static constexpr int CPT = 16 / (int)sizeof(T);                            // columns a thread
+  static constexpr int CG = kSqtCols / CPT;                                  // groups of them
+  static constexpr int VPT = NV < 8 ? NV : 8;                                // right-hand sides a thread
+  static constexpr int VG = NV / VPT;                                        // groups of them
+  static constexpr int RG = tgtile::kThr / (CG * VG);                        // row groups
+};
+
+// Dynamic shared memory of a unit taking windows of WS stages: the ring, a window's w (WS ROWS x NV), and the
+// row groups' partials (RG NV 128), which take the ring's place once it is spent.
+template <typename T, int NV>
+__host__ __device__ constexpr size_t sqrt_t_smem(int WS) {
+  using Sh = SqtShape<T, NV>;
+  const size_t ring = (size_t)kSqtRing * kSqtStageBytes, red = sizeof(T) * Sh::RG * NV * kSqtCols;
+  return (ring > red ? ring : red) + sizeof(T) * (size_t)WS * Sh::ROWS * NV;
 }
 
-// bt_sqrt's transpose mode: y (B kk, n) rows = L^T x of K11's factor P (B, K, 2s, s) on rows x (B kk, n),
-// chain-major, in the original numbering: rows_in, the column blocks, rows_out. work: xp, yb (B kp K s each).
+// The rows of panel k that slab q of R rows streams for the column tile at j0: lo .. hi (none: lo >= hi). Its
+// rows end at min(r0 + R, rmax); every L_k row r < j0 is above the diagonal for the tile's columns.
+__device__ __forceinline__ int2 slab_rows(int q, int R, int rmax, int j0) {
+  const int r0 = q * R;
+  return make_int2(max(r0, j0), min(r0 + R, rmax));
+}
+
+template <typename T, int NV>
+__global__ void __launch_bounds__(tgtile::kThr, 2)
+    bt_sqrt_t_kernel(const T* __restrict__ P, int K, int s, int n, int R, int WS, const int* __restrict__ perm,
+                     const T* __restrict__ z, T* __restrict__ y, int kk, int vec) {
+  using Sh = SqtShape<T, NV>;
+  constexpr int ROWS = Sh::ROWS, CPT = Sh::CPT, CG = Sh::CG, VPT = Sh::VPT, VG = Sh::VG, RG = Sh::RG;
+  constexpr int kThr = tgtile::kThr, S = kSqtRing;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  namespace cg = cooperative_groups;
+  cg::cluster_group cl = cg::this_cluster();
+  const int cs = (int)cl.num_blocks(), rank = (int)cl.block_rank();
+  T* const ring = reinterpret_cast<T*>(smem_raw);  // [S][ROWS][128]
+  const size_t ring_vals = (size_t)S * ROWS * kSqtCols, red_vals = (size_t)RG * NV * kSqtCols;
+  T* const red = ring;  // [RG][NV][128]; slot 0 then the unit's partial
+  T* const w = ring + (ring_vals > red_vals ? ring_vals : red_vals);  // [WS ROWS][NV]
+  const int tid = threadIdx.x, cgi = tid % CG, vg = (tid / CG) % VG, rg = tid / (CG * VG);
+  const int j0 = blockIdx.y * kSqtCols, cols = min(kSqtCols, s - j0);
+  const long long bk = blockIdx.z, b = bk / K;
+  const int k = (int)(bk % K), rmax = k < K - 1 ? 2 * s : s;
+  const int2 span = slab_rows(rank, R, rmax, j0);
+  const int lo = span.x, rows = span.y - span.x;  // rows <= 0: nothing to read
+  const int stages = rows > 0 ? (rows + ROWS - 1) / ROWS : 0;
+  const T* src = P + (bk * 2 * s + lo) * (long long)s + j0;
+  // rows lo + ROWS st .. of the slab into ring slot st % S (none at or past `end`), then a commit
+  auto copy_stage = [&](int st, int end) {
+    if (st < end) {
+      T* dst = ring + (size_t)(st % S) * ROWS * kSqtCols;
+      const int rn = min(ROWS, rows - st * ROWS);
+      const T* from = src + (long long)st * ROWS * s;
+      if (vec) {  // 16-byte copies: s and the columns' start are multiples of 16 bytes
+        constexpr int per = 16 / sizeof(T), chunks = kSqtCols / per;
+        for (int e = tid; e < rn * chunks; e += kThr) {
+          const int r = e / chunks, c = (e % chunks) * per;
+          const bool ok = c < cols;
+          asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst + r * kSqtCols + c)),
+                       "l"(from + (long long)r * s + (ok ? c : 0)), "r"(ok ? 16 : 0)
+                       : "memory");
+        }
+      } else {
+        for (int e = tid; e < rn * kSqtCols; e += kThr) {
+          const int r = e / kSqtCols, c = e % kSqtCols;
+          const bool ok = c < cols;
+          asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(smem_u32(dst + r * kSqtCols + c)),
+                       "l"(from + (long long)r * s + (ok ? c : 0)), "n"(sizeof(T)), "r"(ok ? (int)sizeof(T) : 0)
+                       : "memory");
+        }
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+  for (int c0 = 0; c0 < kk; c0 += NV) {
+    if (rows > 0) {
+      T acc[CPT][VPT];
+#pragma unroll
+      for (int e = 0; e < CPT; ++e)
+#pragma unroll
+        for (int v = 0; v < VPT; ++v) acc[e][v] = T(0);
+      const int j = j0 + CPT * cgi;  // the thread's first column; L_k's row gr meets column c where gr >= c
+      for (int w0 = 0; w0 < stages; w0 += WS) {  // a window of stages w0 .. wend
+        const int wend = min(stages, w0 + WS), wrows = min(rows, wend * ROWS) - w0 * ROWS;
+        // w(r, v) = zp(k s + lo + w0 ROWS + r) of right-hand side c0 + v: z's value at perm, zero past n and kk;
+        // by cp.async in the first stage's group
+        const long long pos0 = (long long)k * s + lo + w0 * ROWS;
+        for (int e = tid; e < wrows * NV; e += kThr) {
+          const long long pos = pos0 + e / NV;
+          const bool ok = pos < n && c0 + e % NV < kk;
+          asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(smem_u32(w + e)),
+                       "l"(ok ? z + (b * kk + c0 + e % NV) * (long long)n + perm[pos] : z), "n"(sizeof(T)),
+                       "r"(ok ? (int)sizeof(T) : 0)
+                       : "memory");
+        }
+        for (int st = w0; st < w0 + S; ++st) copy_stage(st, wend);  // S groups in flight (the first with w)
+        for (int st = w0; st < wend; ++st) {
+          asm volatile("cp.async.wait_group %0;\n" ::"n"(S - 1) : "memory");  // stage st has arrived
+          __syncthreads();
+          const T* stg = ring + (size_t)(st % S) * ROWS * kSqtCols;
+          const int rn = min(ROWS, rows - st * ROWS);
+          for (int r = rg; r < rn; r += RG) {
+            const int gr = lo + st * ROWS + r;
+            T p[CPT];
+            load_vec<T, CPT>(stg + r * kSqtCols + CPT * cgi, p);
+            if (gr < s && gr < j0 + kSqtCols) {  // a row that meets L_k's diagonal: its lower triangle only
+#pragma unroll
+              for (int e = 0; e < CPT; ++e) p[e] = gr >= j + e ? p[e] : T(0);
+            }
+            T wv[VPT];
+            load_vec<T, VPT>(w + ((st - w0) * ROWS + r) * NV + vg * VPT, wv);
+#pragma unroll
+            for (int e = 0; e < CPT; ++e)
+#pragma unroll
+              for (int v = 0; v < VPT; ++v) acc[e][v] += p[e] * wv[v];
+          }
+          __syncthreads();           // every thread is done with slot st % S
+          copy_stage(st + S, wend);  // its next rows (an empty group past the window)
+        }
+        // nothing may still land in the ring or w: the next window's w, or the partials, take their place
+        asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+        __syncthreads();
+      }
+#pragma unroll
+      for (int v = 0; v < VPT; ++v)
+#pragma unroll
+        for (int e = 0; e < CPT; ++e)
+          red[((size_t)rg * NV + vg * VPT + v) * kSqtCols + CPT * cgi + e] = acc[e][v];
+      __syncthreads();
+      for (int o = tid; o < NV * kSqtCols; o += kThr) {  // the row groups in order, into slot 0
+        T sum = red[o];
+        for (int g = 1; g < RG; ++g) sum += red[(size_t)g * NV * kSqtCols + o];
+        red[o] = sum;
+      }
+    }
+    cl.sync();
+    const int share = (NV * kSqtCols + cs - 1) / cs;
+    for (int e = tid; e < share; e += kThr) {  // this block's share of the tile's outputs
+      const int o = rank * share + e, v = o / kSqtCols, jj = o % kSqtCols;
+      const long long pos = (long long)k * s + j0 + jj;
+      if (o >= NV * kSqtCols || jj >= cols || pos >= n || c0 + v >= kk) continue;
+      T part[kSqtMaxCluster];
+#pragma unroll
+      for (int q = 0; q < kSqtMaxCluster; ++q) {  // every slab's partial requested before any is added
+        const int2 sq = slab_rows(q, R, rmax, j0);
+        part[q] = q < cs && sq.y > sq.x ? cl.map_shared_rank(red, q)[o] : T(0);
+      }
+      T sum = part[0];
+#pragma unroll
+      for (int q = 1; q < kSqtMaxCluster; ++q) sum += part[q];  // in rank order (a slab with no rows adds +0)
+      y[(b * kk + c0 + v) * (long long)n + perm[pos]] = sum;
+    }
+    cl.sync();
+  }
+}
+
+// bt_sqrt's transpose mode: y (B kk, n) rows = L^T z of K11's factor P (B, K, 2s, s) on rows z (B kk, n),
+// chain-major, in the original numbering; slabs of R rows taken in windows of WS stages, nv right-hand sides a
+// pass (1, 4, 8 or 16).
+template <typename T, int NV>
+int launch_sqrt_t_nv(const T* P, int K, int s, int n, int R, int WS, const int* perm, const T* z, T* y, int kk,
+                     int B, cudaStream_t st) {
+  const int cs = (2 * s + R - 1) / R;
+  const int vec = (s * sizeof(T)) % 16 == 0 && reinterpret_cast<unsigned long long>(P) % 16 == 0;
+  return tgtile::launch_cluster(bt_sqrt_t_kernel<T, NV>, dim3(cs, (s + kSqtCols - 1) / kSqtCols, B * K), cs,
+                                sqrt_t_smem<T, NV>(WS), st, P, K, s, n, R, WS, perm, z, y, kk, vec);
+}
+
 template <typename T>
-int launch_sqrt_t(const T* P, int K, int s, int n, const int* perm, const T* x, T* y, int kk, int B, int nv,
-                  int chunks, T* work, void* stream) {
+int launch_sqrt_t(const T* P, int K, int s, int n, int R, int WS, const int* perm, const T* z, T* y, int kk, int B,
+                  int nv, void* stream) {
   if (B == 0 || kk == 0 || n == 0) return 0;
+  const int rows = kSqtStageBytes / (kSqtCols * (int)sizeof(T));
+  if (R < rows || R % rows || (2 * s + R - 1) / R > kSqtMaxCluster || WS < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const int kp = chunks * nv;
-  const long long Ks = (long long)K * s;
-  T* xp = work;
-  T* yb = xp + (long long)B * kp * Ks;
-  int rc = rows_in<T>(x, perm, n, kk, kp, B, Ks, xp, kp * Ks, Ks, 1, st);
-  if (rc) return rc;
-  const dim3 grid((s + kSqtThr - 1) / kSqtThr, K, B * chunks);
   switch (nv) {
-    case 1: bt_sqrt_t_kernel<T, 1><<<grid, kSqtThr, 0, st>>>(P, K, s, chunks, xp, yb); break;
-    case 4: bt_sqrt_t_kernel<T, 4><<<grid, kSqtThr, 0, st>>>(P, K, s, chunks, xp, yb); break;
-    case 8: bt_sqrt_t_kernel<T, 8><<<grid, kSqtThr, 0, st>>>(P, K, s, chunks, xp, yb); break;
+    case 1: return launch_sqrt_t_nv<T, 1>(P, K, s, n, R, WS, perm, z, y, kk, B, st);
+    case 4: return launch_sqrt_t_nv<T, 4>(P, K, s, n, R, WS, perm, z, y, kk, B, st);
+    case 8: return launch_sqrt_t_nv<T, 8>(P, K, s, n, R, WS, perm, z, y, kk, B, st);
+    case 16: return launch_sqrt_t_nv<T, 16>(P, K, s, n, R, WS, perm, z, y, kk, B, st);
     default: return (int)cudaErrorInvalidValue;
   }
-  rc = (int)cudaGetLastError();
-  if (rc) return rc;
-  return rows_out<T>(yb, kp * Ks, Ks, 1, perm, n, kk, kp, B, y, nullptr, 0, K, s, st);
+}
+
+// How many clusters of cs units (windows of WS stages, nv right-hand sides a pass) the card holds at once.
+template <typename T>
+int sqrt_t_fit(int cs, int WS, int nv, int* count) {
+  switch (nv) {
+    case 1: return tgtile::cluster_fit(bt_sqrt_t_kernel<T, 1>, cs, sqrt_t_smem<T, 1>(WS), count);
+    case 4: return tgtile::cluster_fit(bt_sqrt_t_kernel<T, 4>, cs, sqrt_t_smem<T, 4>(WS), count);
+    case 8: return tgtile::cluster_fit(bt_sqrt_t_kernel<T, 8>, cs, sqrt_t_smem<T, 8>(WS), count);
+    case 16: return tgtile::cluster_fit(bt_sqrt_t_kernel<T, 16>, cs, sqrt_t_smem<T, 16>(WS), count);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -1369,10 +1548,11 @@ extern "C" {
     return launch_factor_adjoint<T>(P, pre, G, ps, K, s, work, B, cs, stream);                                \
   }                                                                                                           \
   int tg_bt_factor_adjoint_fit_##SUF(int cs, int* count) { return factor_adjoint_fit<T>(cs, count); }         \
-  int tg_bt_sqrt_t_##SUF(const T* P, int K, int s, int n, const int* perm, const T* x, T* y, int kk, int B,   \
-                         int nv, int chunks, T* work, void* stream) {                                         \
-    return launch_sqrt_t<T>(P, K, s, n, perm, x, y, kk, B, nv, chunks, work, stream);                         \
-  }
+  int tg_bt_sqrt_t_##SUF(const T* P, int K, int s, int n, int R, int WS, const int* perm, const T* z, T* y,   \
+                         int kk, int B, int nv, void* stream) {                                               \
+    return launch_sqrt_t<T>(P, K, s, n, R, WS, perm, z, y, kk, B, nv, stream);                                \
+  }                                                                                                           \
+  int tg_bt_sqrt_t_fit_##SUF(int cs, int WS, int nv, int* count) { return sqrt_t_fit<T>(cs, WS, nv, count); }
 
 TG_BT_ENTRY(f32, float)
 TG_BT_ENTRY(f64, double)

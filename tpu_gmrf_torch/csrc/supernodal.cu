@@ -26,9 +26,20 @@
 //       (csrc/tangent.cuh `panel_adjoint`, a cluster per (supernode, chain)
 //       as K20); the Schur update's adjoint is read through the Schur table
 //       (the ancestors' cotangents, final when the levels run descending).
-//   K7's mode 3, the transpose product (`sn_multiply`, transpose):
-//       x[cols] = Ld^T z[cols] + Lb^T z[rows] per supernode, the z-cotangent
-//       of :1287 `sqrt_matvec`; each supernode writes only its own columns.
+//   K7's mode 3, the transpose product (`sn_multiply_t`, the kernel
+//       sn_multiply_t_kernel): x[cols] = Ld^T z[cols] + Lb^T z[rows] per
+//       supernode, the z-cotangent of :1287 `sqrt_matvec`; each supernode
+//       reads only z and writes only its own columns, so the whole schedule
+//       is one launch, a block per (64-column tile, chain, up to 16
+//       right-hand sides), the deepest first. It moves the factor once per
+//       chain (B nnzL values) and 2 B k n of z and x: at n = 5741, B = 4,
+//       k = 16, 5.4 us (f32) and 10.9 us (f64) at the card's 3.35 TB/s. What
+//       bounds it in practice is latency: a unit's chain of dependent loads
+//       (up to ns + m - j0 rows, 475 at n = 5741, dealt over 4 warps a
+//       column half in steps of 4 rows, three steps' loads in flight) and
+//       the three blocks an SM its registers allow (a warp holding the whole
+//       64 x 16 float64 tile, 64 accumulator registers a thread, would leave
+//       room for one).
 //
 // Layout. `vals` / `sig` hold, per chain, the flat CSC values of L / Sigma on
 // the amalgamated fill pattern plus one DUMMY slot (index nnzL). A class
@@ -63,8 +74,9 @@
 // from its diagonal, then the rows below), so L(r, c) is one load at
 // base[c] + r - c. The class batches of a level do not depend on each
 // other: K7 takes them all in one launch and K6 in one launch per path, a
-// table of `Batch` descriptors telling each block its batch. K6 has two
-// paths (kernels/supernodal.py panel_launch):
+// table of `Batch` descriptors telling each block its batch (K7's mode 3
+// needs no level at all: one table over every level's batches, one
+// launch). K6 has two paths (kernels/supernodal.py panel_launch):
 //   - one block per (supernode, chain) for panels W <= 64 where the batch
 //     fills the card or has at most 64 rows below: the diagonal block in
 //     shared memory, factored with tgtile::factor_tile_smem (16-column warp
@@ -510,8 +522,7 @@ size_t trsv_smem(int Wmax) {
 // widest batch of the launch), chain b, its right-hand sides chunk NT ..
 // chunk NT + kc - 1 (rows b k + ... of x, z and u). Mode 0: L y = x
 // (forward, u = Lb y); 1: L^T y = x with x's rows below known (backward);
-// 2: x[cols] += Ld z[cols], u = Lb z[cols] (the product, not a solve);
-// 3: x[cols] = Ld^T z[cols] + Lb^T z[rows] (the transpose product).
+// 2: x[cols] += Ld z[cols], u = Lb z[cols] (the product, not a solve).
 template <typename T, int NT>
 __global__ void __launch_bounds__(kThr)
     sn_trsv_kernel(const T* __restrict__ vals, long long vs, const Batch* __restrict__ bt, int ng, int Wmax,
@@ -655,23 +666,6 @@ __global__ void __launch_bounds__(kThr)
       }
       __syncthreads();
     }
-  } else if (mode == 3) {
-    for (int J = 0; J < nt; ++J) {  // x[cols]_J = sum_{q >= j0 + i} L(q, j0 + i) z_q + Lb^T z[rows]
-      const int j0 = J * kT, tj = min(kT, ns - j0);
-      Acc<double, NT> acc;
-      acc.zero();
-      sn::gather_mma<NT>(
-          acc, [&](int i, int q) { return q >= i ? L(j0 + q, j0 + i) : 0.0; },
-          [&](int q, int c) { return Y[(j0 + q) * LY + c]; }, tj, kc, ns - j0, [](int) { return false; }, st);
-      if (m > 0)
-        sn::gather_mma<NT>(
-            acc, [&](int i, int q) { return L(ns + q, j0 + i); },
-            [&](int q, int c) { return double(z[(row0 + c) * xs + ridx[q]]); }, tj, kc, m, [](int) { return false; },
-            st);
-      sn::acc_each<NT>(acc, [&](int r, int c, double& v) {
-        if (r < tj && c < kc) x[(row0 + c) * xs + cidx[j0 + r]] = T(v);
-      });
-    }
   } else {
     for (int J = 0; J < nt; ++J) {  // x[cols]_J += sum_{q <= j0 + i} L(j0 + i, q) z_q
       const int j0 = J * kT, tj = min(kT, ns - j0);
@@ -690,7 +684,7 @@ __global__ void __launch_bounds__(kThr)
       const int j = e / ns, r = e % ns;
       if (j < kc) x[(row0 + j) * xs + cidx[r]] = T(Y[r * LY + j]);
     }
-  if (mode == 1 || mode == 3 || m == 0) return;
+  if (mode == 1 || m == 0) return;
   for (int r0 = 0; r0 < m; r0 += kT) {  // u = Lb y (Lb z)
     Acc<double, NT> acc;
     acc.zero();
@@ -700,6 +694,153 @@ __global__ void __launch_bounds__(kThr)
       if (r0 + r < m && c < kc) u[(row0 + c) * us + ubase + (long long)p * M + r0 + r] = T(v);
     });
   }
+}
+
+// ---- K7's mode 3, the transpose product ---------------------------------------
+//
+// x[cols] = Ld^T z[cols] + Lb^T z[rows] for every supernode of the schedule in
+// one launch: a supernode reads only z and writes only its own columns, so no
+// supernode waits for another. Unit (x, b, chunk) is one 64-column tile of one
+// supernode's live columns, chain b and right-hand sides 8 NB chunk .. of that
+// chain; the host's unit table (kernels/supernodal.py `multiply_t_units`,
+// kMtUnit ints a unit: batch, supernode, first column, live columns, live
+// rows) lists the live tiles only, the deepest first, so the top separators'
+// long units start first and no block looks for its work.
+
+constexpr int kMtUnit = 5;   // ints of a unit's entry
+constexpr int kMtStages = 3;  // steps of loads in flight per warp
+
+// Dynamic shared memory of K7's mode 3: two partial tiles of the warps' tree
+// (float64), then the z column of each row of the deepest unit (`rows`).
+template <int NB>
+size_t multiply_t_smem(int rows) {
+  return sizeof(double) * 2 * kT * 8 * NB + sizeof(int) * (size_t)rows;
+}
+
+// The unit forms acc(i, c) = sum_q L(q, j0 + i) z_q(c) over its live rows q
+// from j0 on (the lower triangle of Ld, then Lb) on the float64 tensor cores
+// (m16n8k4). Warp w owns columns 32 (w % 2) .. + 31 of the tile (two m16
+// tiles) and every fourth step of 4 rows (w / 2, w / 2 + 4, ...), from the
+// half's first column down (above it the half is zero); it reads its A
+// fragments straight from vals (column c of a supernode is consecutive from
+// its diagonal down, L(q, c) = vals[base[c] - c + q]) with kMtStages steps'
+// loads in flight. The four partials of a column half are then added in a
+// fixed tree (quarter 2 into 0, 3 into 1, then 1 into 0) through shared
+// memory, so the result is the same bit for bit from run to run. float32
+// values are multiplied and added in float64 and rounded once.
+template <typename T, int NB>
+__global__ void __launch_bounds__(kThr, 3)
+    sn_multiply_t_kernel(const T* __restrict__ vals, long long vs, const Batch* __restrict__ bt,
+                         const int* __restrict__ units, T* __restrict__ x, long long xs, int k,
+                         const T* __restrict__ z) {
+  constexpr int NT = 8 * NB, kQuarters = kThr / 64, kStep = 4 * kQuarters;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  double* red = reinterpret_cast<double*>(smem_raw);  // [2][kT][NT]
+  int* zcol = reinterpret_cast<int*>(red + 2 * kT * NT);  // z's column of live row j0 + q
+  const int* ud = units + (long long)blockIdx.x * kMtUnit;
+  const Batch& bat = bt[ud[0]];
+  const int p = ud[1], j0 = ud[2], ns = ud[3], m = ud[4];
+  const int W = (int)bat.W, M = (int)bat.M;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, q4 = lane & 3;
+  const int half = warp & 1, quarter = warp >> 1, c0 = 32 * half;  // the warp's columns c0 .. c0 + 31
+  const long long b = blockIdx.y;
+  const int k0 = blockIdx.z * NT, kc = min(NT, k - k0);
+  const long long row0 = b * k + k0;  // the first right-hand side's row of x and z
+  const int tj = min(kT, ns - j0), depth = ns + m - j0;
+  const int* pidx = bat.panel + (long long)p * (W + M) * W;
+  const int* cidx = bat.cols + (long long)p * W;
+  const int* ridx = bat.rows + (long long)p * M;
+  for (int q = tid; q < depth; q += kThr) zcol[q] = j0 + q < ns ? cidx[j0 + q] : ridx[j0 + q - ns];
+  const T* vb = vals + b * vs;
+  long long off[2][2];  // columns c0 + 16 mi + 8 h + g of the lane's A fragments: L(q, c) = vb[off + q]
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = c0 + 16 * mi + 8 * h + g;
+      off[mi][h] = i < tj ? (long long)pidx[(long long)(j0 + i) * W + j0 + i] - (j0 + i) : 0;
+    }
+  __syncthreads();
+  double acc[2][NB][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int jb = 0; jb < NB; ++jb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][jb][e] = 0.0;
+  // the fragments of the step of rows j0 + s0 .. j0 + s0 + 3: A(i, d) = L(j0 + s0 + d, j0 + c0 + i) (zero above
+  // the diagonal and past the live rows), B(d, c) = z_{j0 + s0 + d}(c)
+  double a[kMtStages][2][2], bz[kMtStages][NB];
+  auto load = [&](int s0, double (&av)[2][2], double (&bv)[NB]) {
+    const int q = s0 + q4, r = j0 + q;
+    const bool in = s0 < depth && q < depth;
+    const int zc = in ? zcol[q] : 0;
+#pragma unroll
+    for (int jb = 0; jb < NB; ++jb) {
+      const int c = 8 * jb + g;
+      bv[jb] = in && c < kc ? double(z[(row0 + c) * xs + zc]) : 0.0;
+    }
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i = c0 + 16 * mi + 8 * h + g;
+        av[mi][h] = in && i < tj && r >= j0 + i ? double(vb[off[mi][h] + r]) : 0.0;
+      }
+  };
+  const int first = c0 + 4 * quarter;  // rows above the half's first column hold nothing for it
+  if (c0 < tj) {
+#pragma unroll
+    for (int st = 0; st < kMtStages; ++st) load(first + st * kStep, a[st], bz[st]);
+    for (int s0 = first; s0 < depth; s0 += kMtStages * kStep) {
+#pragma unroll
+      for (int st = 0; st < kMtStages; ++st) {
+        if (s0 + st * kStep < depth) {
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+            for (int jb = 0; jb < NB; ++jb)
+              asm volatile(
+                  "mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 {%0,%1,%2,%3}, {%4,%5}, {%6}, {%0,%1,%2,%3};\n"
+                  : "+d"(acc[mi][jb][0]), "+d"(acc[mi][jb][1]), "+d"(acc[mi][jb][2]), "+d"(acc[mi][jb][3])
+                  : "d"(a[st][mi][0]), "d"(a[st][mi][1]), "d"(bz[st][jb]));
+          load(s0 + (st + kMtStages) * kStep, a[st], bz[st]);  // the step kMtStages ahead, into this stage
+        }
+      }
+    }
+  }
+  // accumulator (mi, jb, e) sits at row c0 + 16 mi + g + 8 (e / 2), column 8 jb + 2 q4 + e % 2 of the tile
+  auto at = [&](int slot, int mi, int jb, int e) {
+    return red + ((long long)slot * kT + c0 + 16 * mi + g + 8 * (e >> 1)) * NT + 8 * jb + 2 * q4 + (e & 1);
+  };
+  for (int span = 2; span >= 1; span >>= 1) {  // quarters span .. 2 span - 1 hand their partials to 0 .. span - 1
+    if (quarter >= span && quarter < 2 * span)
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int jb = 0; jb < NB; ++jb)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) *at(quarter - span, mi, jb, e) = acc[mi][jb][e];
+    __syncthreads();
+    if (quarter < span)
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int jb = 0; jb < NB; ++jb)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mi][jb][e] += *at(quarter, mi, jb, e);
+    __syncthreads();
+  }
+  if (quarter == 0)
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int jb = 0; jb < NB; ++jb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = c0 + 16 * mi + g + 8 * (e >> 1), c = 8 * jb + 2 * q4 + (e & 1);
+          if (i < tj && c < kc) x[(row0 + c) * xs + cidx[j0 + i]] = T(acc[mi][jb][e]);
+        }
 }
 
 // ---- K8 -------------------------------------------------------------------
@@ -1032,10 +1173,35 @@ template <typename T>
 int launch_trsv(const T* vals, long long vs, const Batch* bt, int ng, int units, int Wmax, int dummy, T* x,
                 long long xs, int k, T* u, long long us, int mode, int B, const T* z, int nt, void* stream) {
   if (units == 0 || B == 0 || k == 0) return 0;
-  if ((mode >= 2 && z == nullptr) || mode > 3 || (nt != 8 && nt != 64)) return (int)cudaErrorInvalidValue;
+  if ((mode == 2 && z == nullptr) || mode > 2 || (nt != 8 && nt != 64)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (nt == 8) return launch_trsv_nt<T, 8>(vals, vs, bt, ng, units, Wmax, dummy, x, xs, k, u, us, mode, B, z, st);
   return launch_trsv_nt<T, 64>(vals, vs, bt, ng, units, Wmax, dummy, x, xs, k, u, us, mode, B, z, st);
+}
+
+// K7's mode 3 over `units` live 64-column tiles (the unit table on the card;
+// bt, the class batches' descriptors it points into), `rows` the deepest
+// unit's rows, for B chains of k right-hand sides each, 8 nb (8 or 16) of
+// them per block.
+template <typename T>
+int launch_multiply_t(const T* vals, long long vs, const Batch* bt, const int* units, int nunits, int rows, T* x,
+                      long long xs, int k, const T* z, int B, int nb, void* stream) {
+  if (nunits == 0 || B == 0 || k == 0) return 0;
+  if (z == nullptr || (nb != 1 && nb != 2)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const dim3 grid(nunits, B, (k + 8 * nb - 1) / (8 * nb));
+  if (nb == 1) {
+    const size_t smem = multiply_t_smem<1>(rows);
+    int rc = tgtile::smem_attr(sn_multiply_t_kernel<T, 1>, smem);
+    if (rc) return rc;
+    sn_multiply_t_kernel<T, 1><<<grid, kThr, smem, st>>>(vals, vs, bt, units, x, xs, k, z);
+  } else {
+    const size_t smem = multiply_t_smem<2>(rows);
+    int rc = tgtile::smem_attr(sn_multiply_t_kernel<T, 2>, smem);
+    if (rc) return rc;
+    sn_multiply_t_kernel<T, 2><<<grid, kThr, smem, st>>>(vals, vs, bt, units, x, xs, k, z);
+  }
+  return (int)cudaGetLastError();
 }
 
 // Dynamic shared memory of K8's first entry's tile path: X = Ld^-1 beside
@@ -1297,6 +1463,11 @@ extern "C" {
                        void* stream) {                                                                           \
     return launch_trsv<T>(vals, vs, static_cast<const Batch*>(batches), ng, units, Wmax, dummy, x, xs, k, u, us,   \
                           mode, B, z, nt, stream);                                                               \
+  }                                                                                                              \
+  int tg_sn_multiply_t_##SUF(const T* vals, long long vs, const void* batches, const int* units, int nunits,     \
+                             int rows, T* x, long long xs, int k, const T* z, int B, int nb, void* stream) {     \
+    return launch_multiply_t<T>(vals, vs, static_cast<const Batch*>(batches), units, nunits, rows, x, xs, k, z, B, \
+                                nb, stream);                                                                      \
   }                                                                                                              \
   int tg_sn_takahashi_prep_##SUF(const T* vals, long long vs, T* pre, long long ps,                 \
                                  const int* panel_idx, int P, int W, int M, int dummy, double* work, \

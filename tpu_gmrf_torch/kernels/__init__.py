@@ -11,8 +11,10 @@ K18 ``spike_reduced``, and the tangents of the selected inverse K19
 ``sn_takahashi_tangent`` and K22 ``bt_factor_tangent``, and the factorizations'
 adjoints (the derivative of a sample, a triangular solve or L·z) K23
 ``tridiag_factor_adjoint``, K24 ``bt_factor_adjoint`` and K25
-``sn_panel_adjoint``; K7 has a second mode, ``sn_multiply`` (with its
-transpose), K13's second entry ``bt_sqrt`` a transpose mode, and K11 and K12
+``sn_panel_adjoint``; K7 has a second mode, ``sn_multiply``, and a transpose
+product of its own, ``sn_multiply_t`` (one launch over the whole schedule), K13's
+second entry ``bt_sqrt`` a transpose product, ``bt_sqrt_t`` (a cluster of row slabs
+per column tile, each block of the factor read once), and K11 and K12
 a block entry each, ``bt_factor_blocks`` and ``bt_trsv_blocks`` (the SPIKE
 solve's chunk elimination).
 Sources are in ``tpu_gmrf_torch/csrc/``; ``build`` compiles them with nvcc
@@ -34,6 +36,7 @@ from .banded import (
     bt_matvec_plain,
     bt_sqrt,
     bt_sqrt_plain,
+    bt_sqrt_t,
     bt_sqrt_t_plain,
     bt_trsv,
     bt_trsv_blocks,
@@ -69,9 +72,10 @@ from .supernodal import (
     BACKWARD,
     FORWARD,
     MULTIPLY,
-    MULTIPLY_T,
     sn_multiply,
     sn_multiply_plain,
+    sn_multiply_t,
+    sn_multiply_t_plain,
     sn_panel,
     sn_panel_adjoint,
     sn_panel_adjoint_plain,
@@ -129,7 +133,8 @@ __all__ = [
     "sn_panel_tangent", "sn_panel_tangent_plain", "sn_takahashi_tangent", "sn_takahashi_tangent_plain",
     "bt_factor_tangent", "bt_factor_tangent_plain",
     "tridiag_factor_adjoint", "tridiag_factor_adjoint_plain", "bt_factor_adjoint", "bt_factor_adjoint_plain",
-    "bt_sqrt_t_plain", "sn_panel_adjoint", "sn_panel_adjoint_plain", "MULTIPLY_T",
+    "bt_sqrt_t_plain", "sn_panel_adjoint", "sn_panel_adjoint_plain", "sn_multiply_t", "bt_sqrt_t",
+    "sn_multiply_t_plain",
 ]
 
 KERNELS = {
@@ -142,6 +147,7 @@ KERNELS = {
     "sn_panel": sn_panel,
     "sn_trsv": sn_trsv,
     "sn_multiply": sn_multiply,
+    "sn_multiply_t": sn_multiply_t,
     "sn_takahashi_prep": sn_takahashi_prep,
     "sn_takahashi": sn_takahashi,
     "dense_chol": dense_chol,
@@ -151,6 +157,7 @@ KERNELS = {
     "bt_trsv": bt_trsv,
     "bt_matvec": bt_matvec,
     "bt_sqrt": bt_sqrt,
+    "bt_sqrt_t": bt_sqrt_t,
     "bsr_spmm": bsr_spmm,
     "bsr_outer": bsr_outer,
     "kl_columns": kl_columns,

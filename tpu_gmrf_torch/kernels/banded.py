@@ -52,9 +52,12 @@ place, block after block, a thread-block cluster per chain
 is its adjoint: from P, A_k and the factor's cotangent (L̄_k, M̄_k in P's
 layout) it gives the cotangent of Q's blocks (the lower entries of D_k and
 E_k) in place, the blocks walked backwards, in K22's design.
-`bt_sqrt(..., transpose=True)` is K13's second entry's transpose mode,
-y_k = L_kᵀz_k + M_kᵀz_{k+1}: a block of threads per column tile of a block,
-each thread walking its column down the rows.
+`bt_sqrt_t` is K13's second entry's transpose mode, y_k = L_kᵀz_k +
+M_kᵀz_{k+1}, one launch: a unit is a slab of rows of [L_k; M_k] by 128
+columns streamed through shared memory and used by all k ≤ 16 right-hand sides (each block of P read once), the slabs above L_k's
+diagonal skipped, the slabs of a column tile a cluster that adds their
+partials and writes y through the permutation (`sqrt_t_launch`,
+`sqrt_t_slabs`).
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises. ``<wrapper>.launches`` counts launches.
@@ -75,13 +78,20 @@ from .tridiag import SOLVE_BOTH, SOLVE_L, SOLVE_LT, _fn, _on_cuda, _stream
 __all__ = ["BandedTables", "bt_factor", "bt_factor_plain", "bt_trsv", "bt_trsv_plain",
            "bt_matvec", "bt_matvec_plain", "bt_sqrt", "bt_sqrt_plain", "matvec_split", "trsv_workspace",
            "bt_factor_blocks", "bt_factor_blocks_plain", "bt_trsv_blocks", "bt_trsv_blocks_plain",
-           "factor_cluster", "bt_factor_adjoint", "bt_factor_adjoint_plain", "bt_sqrt_t_plain"]
+           "factor_cluster", "bt_factor_adjoint", "bt_factor_adjoint_plain", "bt_sqrt_t_plain", "bt_sqrt_t",
+           "sqrt_t_launch", "sqrt_t_slabs", "sqrt_t_smem"]
 
 MV_ROWS = 64  # kMvR of the source: rows of a matrix block per unit of K13
 MV_CLUSTER = 8  # the largest cluster of K13's units (portable)
 MV_THREADS = (256, 192)  # threads of a unit, by preference (the source takes up to 512)
 TILE = 64  # kT of csrc/tiles.cuh: the row tile of the factorization and of the block entry's solves
 MAX_CLUSTER = 16  # the largest (non-portable) cluster of the card
+SMEM_MAX = 232448  # a block's shared memory on the card (227 KB)
+SQT_COLS = 128  # kSqtCols of the source: the columns of a unit of bt_sqrt's transpose mode
+SQT_STAGE_BYTES = 16384  # kSqtStageBytes: bytes of a stage of its ring
+SQT_RING = 4  # kSqtRing: stages of the ring
+SQT_CLUSTER = 4  # kSqtMaxCluster: slabs of a cluster, at most
+SQT_WINDOW_BYTES = 32768  # a window's rows of z, at most (two units an SM: 64 KB of ring and 32 KB of z each)
 
 
 def factor_cluster(s: int, B: int, fit, name: str = "bt_factor", most: int | None = None) -> int:
@@ -119,14 +129,14 @@ _FIT: dict = {}  # the card's cluster counts, per (entry, type, cluster size, ar
 
 
 def _fit(entry: str, dtype, name: str, args: tuple = ()):
-    """``fit(cs)`` of `factor_cluster` on this card for the kernel whose
-    cluster counts the C entry `entry` gives (called as
-    ``entry(cs, *args, &count)``), each asked once."""
-    def fit(cs):
-        key = (entry, dtype, cs, args)
+    """``fit(cs, *more)`` of `factor_cluster` on this card for the kernel
+    whose cluster counts the C entry `entry` gives (called as
+    ``entry(cs, *args, *more, &count)``), each asked once."""
+    def fit(cs, *more):
+        key = (entry, dtype, cs, args + more)
         if key not in _FIT:
             held = ctypes.c_int(0)
-            build.check(_fn(entry, dtype)(cs, *args, ctypes.byref(held)), name)
+            build.check(_fn(entry, dtype)(cs, *args, *more, ctypes.byref(held)), name)
             _FIT[key] = held.value
         return _FIT[key]
 
@@ -556,36 +566,112 @@ def bt_matvec(D: torch.Tensor, E: torch.Tensor, perm: torch.Tensor, x: torch.Ten
     return y
 
 
-def bt_sqrt(P: torch.Tensor, tables: BandedTables, z: torch.Tensor, k: int = 1, transpose: bool = False) -> torch.Tensor:
-    """K13's second entry: y = L z (or, with `transpose`, Lᵀ z) with K11's
-    factor P (B, K, 2s, s) on rows z (B·k, n), chain-major, in the original
-    numbering. Not differentiable."""
+def bt_sqrt(P: torch.Tensor, tables: BandedTables, z: torch.Tensor, k: int = 1) -> torch.Tensor:
+    """K13's second entry: y = L z with K11's factor P (B, K, 2s, s) on rows
+    z (B·k, n), chain-major, in the original numbering (Lᵀ z is `bt_sqrt_t`).
+    Not differentiable."""
     K, s, n = tables.K, tables.s, tables.n
     if P.shape[1:] != (K, 2 * s, s) or z.ndim != 2 or z.shape != (P.shape[0] * k, n):
         raise ValueError(f"bt_sqrt: shapes P {tuple(P.shape)}, z {tuple(z.shape)}, k={k}")
     if torch.is_grad_enabled() and P.requires_grad:
         raise NotImplementedError("bt_sqrt has no backward; call it under torch.no_grad()")
     if not _on_cuda("bt_sqrt", P, z):
-        return (bt_sqrt_t_plain if transpose else bt_sqrt_plain)(P, tables, z, k)
+        return bt_sqrt_plain(P, tables, z, k)
     P = P.contiguous()
-    if transpose:
-        perm = tables.on(z.device)["perm"]
-        z = z.contiguous()
-        y = torch.empty_like(z)
-        B = P.shape[0]
-        nv = 1 if k <= 1 else 4 if k <= 4 else 8
-        chunks = -(-k // nv)
-        work = z.new_empty(2 * B * chunks * nv * K * s)
-        code = _fn("tg_bt_sqrt_t", z.dtype)(P.data_ptr(), K, s, n, perm.data_ptr(), z.data_ptr(), y.data_ptr(), k, B,
-                                          nv, chunks, work.data_ptr(), _stream(z))
-        build.check(code, "bt_sqrt", f" (transpose) at B={B} K={K} s={s} k={k} {z.dtype}")
-        bt_sqrt.launches += 1
-        return y
     panel = 2 * s * s
     sub = P.data_ptr() + s * s * P.element_size()  # M_k: rows s..2s of panel k
     y = _launch_matvec("bt_sqrt", P, panel, K * panel, sub, panel, K * panel, K, s, n,
                        tables.on(z.device)["perm"], z, k, P.shape[0], 1, 0)
     bt_sqrt.launches += 1
+    return y
+
+
+def sqrt_t_rows(el: int) -> int:
+    """Rows of a stage of bt_sqrt's transpose-mode ring (16 KB of 128 columns: 32 in float32, 16 in float64)."""
+    return SQT_STAGE_BYTES // (SQT_COLS * el)
+
+
+def sqrt_t_smem(nv: int, el: int, ws: int) -> int:
+    """Shared memory bytes of a unit of bt_sqrt's transpose mode taking its
+    rows in windows of ws ring stages (`sqrt_t_smem` in the source): a ring
+    of 4 stages of 16 KB, a window's rows of z (ws × stage rows × nv), and
+    the row groups' partials (RG × nv × 128, RG = 256 threads over 128
+    columns by 16 bytes and nv by up to 8), which take the ring's place once
+    it is spent."""
+    rg = 256 // (SQT_COLS // (16 // el) * (nv // min(nv, 8)))
+    ring, red = SQT_RING * SQT_STAGE_BYTES, el * rg * nv * SQT_COLS
+    return max(ring, red) + el * ws * sqrt_t_rows(el) * nv
+
+
+def sqrt_t_launch(s: int, k: int, el: int, fit) -> tuple:
+    """(rows per slab R, slabs per cluster cs, right-hand sides per pass nv,
+    ring stages per window ws) of bt_sqrt's transpose mode on blocks of s
+    with k right-hand sides per chain and values of el bytes. A unit is R
+    rows of a panel [L_k; M_k] (2s rows) by 128 columns; the ⌈2s/R⌉ slabs of
+    a column tile are one cluster, which adds their partials. R is the
+    smallest multiple of a ring stage's rows that keeps the cluster within 4
+    blocks (the card holds few clusters of 8 or 16); nv is 1, 4, 8 or 16, all
+    k ≤ 16 of a chain in one pass, so each block of P is read once, streamed
+    through a ring of 4 stages (for k > 16 each pass of 16 streams it again).
+    A unit gathers its rows of z a window at a time: the whole slab where its
+    z takes at most 32 KB of shared memory (at k ≤ 16 every s up to 512 in
+    float64, 1024 in float32), else windows of that size, so every s has a
+    shape. ``fit(cs, ws, nv)``
+    is how many such clusters the card holds at once."""
+    nv = 1 if k <= 1 else 4 if k <= 4 else 8 if k <= 8 else 16
+    rows = sqrt_t_rows(el)
+    R = rows * -(-2 * s // (rows * SQT_CLUSTER))
+    cs = -(-2 * s // R)
+    ws = min(R // rows, SQT_WINDOW_BYTES // (el * rows * nv))
+    if sqrt_t_smem(nv, el, ws) > SMEM_MAX or fit(cs, ws, nv) < 1:
+        raise RuntimeError(f"bt_sqrt: the card holds no cluster of the transpose mode at s={s}, k={k}")
+    return R, cs, nv, ws
+
+
+def sqrt_t_slabs(s: int, K: int, R: int) -> list:
+    """The rows that bt_sqrt's transpose mode reads, as the kernel decides
+    (`slab_rows`): (block k, first column, slab's first row, first row read,
+    rows read) of panel k's 2s rows (s in the last block, whose M is zero) by
+    128 columns; a slab reads its rows from the tile's first column on (L_k's
+    rows above it hold nothing for the tile), and a slab wholly above reads
+    none and is left out."""
+    out = []
+    for k in range(K):
+        rmax = 2 * s if k < K - 1 else s
+        for j0 in range(0, s, SQT_COLS):
+            for r0 in range(0, 2 * s, R):
+                lo, hi = max(r0, j0), min(r0 + R, rmax)
+                if hi > lo:
+                    out.append((k, j0, r0, lo, hi - lo))
+    return out
+
+
+@functools.cache
+def _sqrt_t_shape(s: int, k: int, dtype) -> tuple:
+    """`sqrt_t_launch` on this card, worked out once per shape and type."""
+    return sqrt_t_launch(s, k, torch.finfo(dtype).bits // 8, _fit("tg_bt_sqrt_t_fit", dtype, "bt_sqrt_t"))
+
+
+def bt_sqrt_t(P: torch.Tensor, tables: BandedTables, z: torch.Tensor, k: int = 1) -> torch.Tensor:
+    """bt_sqrt's transpose mode: y = Lᵀ z, y_k = L_kᵀz_k + M_kᵀz_{k+1}, with
+    K11's factor P (B, K, 2s, s) on rows z (B·k, n), chain-major, in the
+    original numbering, in one launch (`sqrt_t_launch`): each block of P read
+    once for k ≤ 16, z gathered and y written through the permutation inside
+    the kernel. Not differentiable."""
+    K, s, n = tables.K, tables.s, tables.n
+    if P.shape[1:] != (K, 2 * s, s) or z.ndim != 2 or z.shape != (P.shape[0] * k, n):
+        raise ValueError(f"bt_sqrt_t: shapes P {tuple(P.shape)}, z {tuple(z.shape)}, k={k}")
+    if not _on_cuda("bt_sqrt_t", P, z):
+        return bt_sqrt_t_plain(P, tables, z, k)
+    P, z = P.contiguous(), z.contiguous()
+    y = torch.empty_like(z)
+    B = P.shape[0]
+    R, cs, nv, ws = _sqrt_t_shape(s, k, z.dtype)
+    code = _fn("tg_bt_sqrt_t", z.dtype)(P.data_ptr(), K, s, n, R, ws, tables.on(z.device)["perm"].data_ptr(),
+                                       z.data_ptr(), y.data_ptr(), k, B, nv, _stream(z))
+    build.check(code, "bt_sqrt_t", f" at B={B} K={K} s={s} k={k} slabs of {R} rows, windows of {ws} stages, "
+                f"cluster {cs} {z.dtype}")
+    bt_sqrt_t.launches += 1
     return y
 
 
@@ -663,3 +749,4 @@ bt_factor_blocks.launches = 0
 bt_trsv_blocks.launches = 0
 bt_matvec.launches = 0
 bt_sqrt.launches = 0
+bt_sqrt_t.launches = 0

@@ -54,6 +54,9 @@ _SIGNATURES = {
     # vals, vstride, batch table, batches, supernodes, widest W, dummy, x, xstride, k, u, ustride, mode,
     # B (chains), z (mode 2), column tile (8 or 64), stream
     "tg_sn_trsv": [_P, _L, _P, _I, _I, _I, _I, _P, _L, _I, _P, _L, _I, _I, _P, _I, _P],
+    # vals, vstride, batch table, unit table (int32, 5 per unit), units, the deepest unit's rows, x, xstride, k, z,
+    # B (chains), 8-column groups per block (1 or 2), stream: K7's mode 3
+    "tg_sn_multiply_t": [_P, _L, _P, _P, _I, _I, _P, _L, _I, _P, _I, _I, _P],
     # vals, vstride, pre, pstride, panel_idx, P, W, M, dummy, work (float64; W > 64 only), B, stream
     "tg_sn_takahashi_prep": [_P, _L, _P, _L, _P, _I, _I, _I, _I, _P, _I, _P],
     # pre, pstride, sig, sstride, panel_idx, schur_idx, P, W, M, dummy, cluster size (0: the two product launches),
@@ -77,8 +80,11 @@ _SIGNATURES = {
     # cluster size, stream
     "tg_bt_factor_adjoint": [_P, _P, _P, _L, _I, _I, _P, _I, _I, _P],
     "tg_bt_factor_adjoint_fit": [_I, ctypes.POINTER(_I)],
-    # P, K, s, n, perm, x, y, kk, B, nv, chunks, work, stream: bt_sqrt's transpose mode
-    "tg_bt_sqrt_t": [_P, _I, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+    # P, K, s, n, rows per slab, ring stages per window, perm, z, y, kk, B, right-hand sides per pass, stream:
+    # bt_sqrt's transpose mode
+    "tg_bt_sqrt_t": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _I, _I, _P],
+    # cluster size, ring stages per window, right-hand sides per pass, out: how many such clusters the card holds
+    "tg_bt_sqrt_t_fit": [_I, _I, _I, ctypes.POINTER(_I)],
     # P, pre, dP, pstride (pre's and dP's, per chain), K, s, work (float64, `bt_tangent_work` per chain), B,
     # cluster size, stream
     "tg_bt_factor_tangent": [_P, _P, _P, _L, _I, _I, _P, _I, _I, _P],

@@ -22,8 +22,11 @@ K25 `sn_panel_adjoint` is the adjoint of K6 (the derivative of a sample, a
 triangular solve or L·z): from the factor's cotangent on vals' layout it
 gives the cotangent of a class batch's panel inputs in place, reading the
 ancestors' through the Schur table; the solver runs it level by level,
-descending, in K20's design. `sn_multiply(..., transpose=True)` is K7's mode
-3, the product with Lᵀ: x[cols] = Ldᵀ·z[cols] + Lbᵀ·z[rows].
+descending, in K20's design. `sn_multiply_t` is K7's mode 3, the product
+with Lᵀ: x[cols] = Ldᵀ·z[cols] + Lbᵀ·z[rows],
+one launch over every class batch of the schedule (no supernode of it waits
+for another), a block per 64-column tile of a supernode, chain and up to 16
+right-hand sides, the deepest units first (`multiply_t_units`).
 A class batch `c` is a dict of device tables for the P supernodes of this
 level: ``panel`` (P, W+M, W), ``cols`` (P, W), ``rows`` (P, M) and
 ``schur`` (P, M, M), int32, padded with ``dummy`` (= nnzL) / ``ndummy``
@@ -45,6 +48,7 @@ from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
 
 from . import build
@@ -55,10 +59,11 @@ __all__ = [
     "sn_panel_plain", "sn_trsv_plain", "sn_multiply_plain", "sn_takahashi_prep_plain", "sn_takahashi_sweep_plain",
     "sn_takahashi_plain", "FORWARD", "BACKWARD", "MULTIPLY",
     "sn_panel_tangent", "sn_panel_tangent_plain", "sn_takahashi_tangent", "sn_takahashi_tangent_plain",
-    "sn_panel_adjoint", "sn_panel_adjoint_plain", "panel_adjoint_math", "MULTIPLY_T",
+    "sn_panel_adjoint", "sn_panel_adjoint_plain", "panel_adjoint_math",
+    "sn_multiply_t", "sn_multiply_t_plain", "multiply_t_units", "multiply_t_chunks",
 ]
 
-FORWARD, BACKWARD, MULTIPLY, MULTIPLY_T = 0, 1, 2, 3
+FORWARD, BACKWARD, MULTIPLY = 0, 1, 2
 K8_TILE = 64  # the products' row tile (kT in csrc/tiles.cuh): K6's one-block path and K8's first entry stop at it
 K8_CLUSTER_MAX = 8  # blocks per cluster of K8's one-launch form (the portable limit)
 
@@ -181,12 +186,18 @@ def sn_multiply_plain(vals, group, out, z, u, k: int = 1, transpose: bool = Fals
     """K7's mode MULTIPLY (``supernodal.py:1296`` `sqrt_step`) on the class
     batches of `group`: out[cols] += Ld·z[cols] without the padded columns'
     unit diagonal, u = Lb·z[cols]; out, z (B·k, n+1) rows, chain-major. With
-    `transpose` (mode MULTIPLY_T): out[cols] = Ldᵀ·z[cols] + Lbᵀ·z[rows]."""
+    `transpose` (mode 3, `sn_multiply_t`'s function): out[cols] =
+    Ldᵀ·z[cols] + Lbᵀ·z[rows]."""
     for c in group["classes"]:
         if transpose:
             _multiply_t_plain(vals, c, out, z, k)
         else:
             _multiply_plain(vals, c, out, z, u, k)
+
+
+def sn_multiply_t_plain(vals, group, out, z, k: int = 1):
+    """`sn_multiply_t`'s plain version: `sn_multiply_plain` with `transpose`."""
+    sn_multiply_plain(vals, group, out, z, None, k, True)
 
 
 def _multiply_plain(vals, c, out, z, u, k):
@@ -409,6 +420,46 @@ def trsv_launch(W: int, k: int, units: int, sms: int) -> tuple:
     return nt, -(-k // nt)
 
 
+def multiply_t_units(live) -> np.ndarray:
+    """The unit table of K7's mode 3 over class batches whose supernodes have
+    live columns and rows ``live = [(ns, m), ...]`` (an int array each, per
+    batch), all of the schedule's whatever their level (no supernode of the
+    transpose product waits for another): one unit per 64-column tile of a
+    supernode's live columns, int32 rows (batch, supernode, first column,
+    live columns, live rows), the deepest first (by the rows the
+    unit reads, ns + m − first column; ties in table order), so that the top
+    separators' long units start first and do not form the launch's tail."""
+    parts = []
+    for g, (ns, m) in enumerate(live):
+        ns, m = np.asarray(ns, np.int64), np.asarray(m, np.int64)
+        tiles = -(-ns // K8_TILE)
+        p = np.repeat(np.arange(len(ns)), tiles)
+        j0 = (np.arange(int(tiles.sum())) - np.repeat(np.cumsum(tiles) - tiles, tiles)) * K8_TILE
+        parts.append(np.stack([np.full(len(p), g), p, j0, ns[p], m[p]], 1))
+    units = np.concatenate(parts) if parts else np.zeros((0, 5), np.int64)
+    order = np.argsort(-(units[:, 3] + units[:, 4] - units[:, 2]), kind="stable")
+    return units[order].astype(np.int32)
+
+
+def _live_dims(c) -> tuple:
+    """(ns, m): each supernode's live column and row counts in class batch c, NumPy, read as the kernels read
+    them (padding points at the DUMMY slot: the diagonal of Ld, column 0 of Lb)."""
+    pan, W = c["panel"], c["W"]
+    ar = torch.arange(W, device=pan.device)
+    ns = (pan[:, ar, ar] != c["dummy"]).sum(1).cpu().numpy()
+    m = (pan[:, W:, 0] != c["dummy"]).sum(1).cpu().numpy() if c["M"] else np.zeros(len(ns), np.int64)
+    return ns, m
+
+
+def multiply_t_chunks(k: int) -> tuple:
+    """(8-column groups per block, blocks per chain and unit) of K7's mode 3
+    on k right-hand sides per chain: all k ≤ 16 of a chain in one block (one
+    group for k ≤ 8), so a chain's factor is read once; beyond, ⌈k/16⌉
+    blocks, which read it from L2."""
+    nb = 1 if k <= 8 else 2
+    return nb, -(-k // (8 * nb))
+
+
 def _panel_slice(W: int, M: int) -> int:
     """Values of K6's cluster-path workspace per (supernode, chain), in the factor's type (`panel_slice` in the
     source)."""
@@ -514,20 +565,52 @@ def _launch_trsv(name, vals, group, x, u, mode, k, z):
     build.check(code, name, f" at {_shapes(group)} rows={x.shape[0]} {vals.dtype}")
 
 
-def sn_multiply(vals, group, out, z, u, k: int = 1, transpose: bool = False):
+def sn_multiply(vals, group, out, z, u, k: int = 1):
     """K7, mode MULTIPLY: out[cols] += Ld·z[cols] and Lb·z[cols] into u at
     each batch's fbase, for the class batches of `group`; out and z are (B·k,
     n+1) rows. The supernodes of a product do not depend on each other; the
-    caller adds u into out through the level's forward ELL plans (K5). With
-    `transpose`, mode MULTIPLY_T: out[cols] = Ldᵀ·z[cols] + Lbᵀ·z[rows] (u
-    unused), each supernode writing only its own columns."""
+    caller adds u into out through the level's forward ELL plans (K5). The
+    product with Lᵀ is `sn_multiply_t`."""
     if out.shape != z.shape or out.shape[0] != vals.shape[0] * k:
         raise ValueError("sn_multiply: out and z must hold k rows of n+1 per chain")
     if not _on_cuda("sn_multiply", vals, out, z, *([u] if u is not None else [])):
-        return sn_multiply_plain(vals, group, out, z, u, k, transpose)
-    _launch_trsv("sn_multiply", vals, group, out, None if transpose else u, MULTIPLY_T if transpose else MULTIPLY,
-                 k, z)
+        return sn_multiply_plain(vals, group, out, z, u, k)
+    _launch_trsv("sn_multiply", vals, group, out, u, MULTIPLY, k, z)
     sn_multiply.launches += 1
+
+
+def sn_multiply_t(vals, group, out, z, k: int = 1):
+    """K7's mode 3, the transpose product, in one launch over every class
+    batch of `group` (the whole schedule: {"classes": [...]}, whatever their
+    level): out[cols] = Ldᵀ·z[cols] + Lbᵀ·z[rows] of each supernode, out and z
+    (B·k, n+1) rows; only live columns of out are written. Its batch and unit
+    tables are built once and kept on `group` (`multiply_t_units`)."""
+    if out.shape != z.shape or out.shape[0] != vals.shape[0] * k:
+        raise ValueError("sn_multiply_t: out and z must hold k rows of n+1 per chain")
+    if not _on_cuda("sn_multiply_t", vals, out, z):
+        return sn_multiply_t_plain(vals, group, out, z, k)
+    if vals.ndim != 2:
+        raise ValueError(f"sn_multiply_t: vals must be (B, nnzL+1), got {tuple(vals.shape)}")
+    if out.data_ptr() == z.data_ptr():
+        raise ValueError("sn_multiply_t: out must not be z")
+    key = ("_multiply_t", str(vals.device))
+    ln = group.get(key)
+    if ln is None:
+        batches = group["classes"]
+        for cc in batches:
+            _check_class("sn_multiply_t", cc, vals)
+        units = multiply_t_units([_live_dims(cc) for cc in batches])
+        ln = group[key] = dict(desc=_descriptors(batches, vals.device), nunits=len(units),
+                               units=torch.as_tensor(units, device=vals.device),
+                               rows=int((units[:, 3] + units[:, 4] - units[:, 2]).max(initial=0)))
+    nb, _ = multiply_t_chunks(k)
+    code = _fn("tg_sn_multiply_t", vals.dtype)(
+        vals.data_ptr(), vals.shape[1], ln["desc"].data_ptr(), ln["units"].data_ptr(), ln["nunits"], ln["rows"],
+        out.data_ptr(), out.shape[1], k, z.data_ptr(), vals.shape[0], nb, _stream(vals),
+    )
+    build.check(code, "sn_multiply_t", f" at {ln['nunits']} tiles of {len(group['classes'])} class batches "
+                f"rows={out.shape[0]} {vals.dtype}")
+    sn_multiply_t.launches += 1
 
 
 def sweep_launch(W: int, M: int, units: int, sms: int) -> tuple:
@@ -679,5 +762,6 @@ sn_takahashi_tangent.launches = 0
 sn_panel.launches = 0
 sn_trsv.launches = 0
 sn_multiply.launches = 0
+sn_multiply_t.launches = 0
 sn_takahashi_prep.launches = 0
 sn_takahashi.launches = 0

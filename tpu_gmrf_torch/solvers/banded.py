@@ -52,6 +52,7 @@ from ..kernels import (
     bt_factor_tangent,
     bt_matvec,
     bt_sqrt,
+    bt_sqrt_t,
     bt_trsv,
     gather_segsum,
     sn_takahashi,
@@ -415,12 +416,13 @@ class BandedFactor(DirectFactor):
         """op(L) z for L = PᵀL_bP, L_b the block factor in the RCM order
         (`FactorTriangular`; the permutation of isotropic noise is immaterial
         to sampling): the solves on K12, L z and Lᵀ z on K13's second entry
-        (`bt_sqrt`, its transpose mode). z (*batch, n) or (*batch, n, k)."""
+        (`bt_sqrt`, its transpose mode `bt_sqrt_t`). z (*batch, n) or (*batch, n, k)."""
         if op == TRI_LINV:
             return self._solve(z, SOLVE_L)
         if op == TRI_LINVT:
             return self._solve(z, SOLVE_LT)
-        return self._on_rows(z, lambda rows, k: bt_sqrt(self.P, _TABLES[self.meta], rows, k, transpose=op != TRI_L))
+        product = bt_sqrt if op == TRI_L else bt_sqrt_t
+        return self._on_rows(z, lambda rows, k: product(self.P, _TABLES[self.meta], rows, k))
 
     def _blocks(self, x: torch.Tensor) -> torch.Tensor:
         """x (*batch, n[, k]) as permuted, zero-padded blocks (B, K, s, k)."""

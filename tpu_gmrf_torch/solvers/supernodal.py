@@ -38,7 +38,7 @@ reference library.
   through `FactorTriangular`: L̄ gathered onto the fill by torch products,
   the factorization's reverse sweep level by level, descending (K25, A from
   K8's first entry), then Q̄ at the pattern's entries with the scaling
-  undone (K5); Lᵀ z is K7's mode MULTIPLY_T.
+  undone (K5); Lᵀ z is K7's mode 3 (`sn_multiply_t`).
 
 * **A mesh (``mesh=``, a ``DeviceMesh``).** Each class batch of the scan
   levels is split over the ranks of the mesh's first dimension, padded with
@@ -75,6 +75,8 @@ from ..kernels import (
     gather_segsum_plain,
     sn_multiply,
     sn_multiply_plain,
+    sn_multiply_t,
+    sn_multiply_t_plain,
     sn_panel,
     sn_panel_adjoint,
     sn_panel_adjoint_plain,
@@ -842,14 +844,14 @@ def _load_plan(path: str):
 
 _DEVICE_CACHE: dict = {}
 
-_KERNEL_OPS = dict(init=fct_init, panel=sn_panel, trsv=sn_trsv, multiply=sn_multiply, prep=sn_takahashi_prep,
-                   takahashi=sn_takahashi, segsum=gather_segsum, panel_tangent=sn_panel_tangent,
+_KERNEL_OPS = dict(init=fct_init, panel=sn_panel, trsv=sn_trsv, multiply=sn_multiply, multiply_t=sn_multiply_t,
+                   prep=sn_takahashi_prep, takahashi=sn_takahashi, segsum=gather_segsum, panel_tangent=sn_panel_tangent,
                    takahashi_tangent=sn_takahashi_tangent, panel_adjoint=sn_panel_adjoint)
 # the plain versions, for comparisons of the kernels with them on the card
 _PLAIN_OPS = dict(init=fct_init_plain, panel=sn_panel_plain, trsv=sn_trsv_plain, multiply=sn_multiply_plain,
-                  prep=sn_takahashi_prep_plain, takahashi=sn_takahashi_sweep_plain, segsum=gather_segsum_plain,
-                  panel_tangent=sn_panel_tangent_plain, takahashi_tangent=sn_takahashi_tangent_plain,
-                  panel_adjoint=sn_panel_adjoint_plain)
+                  multiply_t=sn_multiply_t_plain, prep=sn_takahashi_prep_plain, takahashi=sn_takahashi_sweep_plain,
+                  segsum=gather_segsum_plain, panel_tangent=sn_panel_tangent_plain,
+                  takahashi_tangent=sn_takahashi_tangent_plain, panel_adjoint=sn_panel_adjoint_plain)
 
 
 @dataclasses.dataclass
@@ -960,6 +962,7 @@ def _device_plan(meta, device):
     dp = dict(
         levels=levels,
         prep=_prep_batches([c for lv in levels for c in lv.classes]),
+        schedule=dict(classes=[c for lv in levels for c in lv.classes]),  # K7's mode 3: one launch for all levels
         init=InitPlan(pattern.transpose_perm, pattern.diag_positions, pattern.rows, pattern.cols,
                       plan["a_src"], plan["a_dst"]),
         perm=_one_term(perm, yi=perm, rows=n + 1),  # (s·b)[perm], then the NDUMMY zero
@@ -1339,8 +1342,9 @@ class SupernodalFactor(DirectFactor):
         numbering, columns in the permuted one (z of `backward_solve`, the
         result of L⁻¹): L⁻¹ and L⁻ᵀ on K7's forward and backward modes over the
         level schedule, L z on its mode MULTIPLY with the forward ELL plans
-        (K5) adding Lb·z into the rows, Lᵀ z on its mode MULTIPLY_T; the
-        permutations and the scaling are K5 launches."""
+        (K5) adding Lb·z into the rows, Lᵀ z on its mode 3 (`sn_multiply_t`), one
+        launch over the whole schedule (no supernode of it waits for another);
+        the permutations and the scaling are K5 launches."""
         rows, k = self._rows(z)
         ops = self._ops
         dp = _device_plan(self.meta, z.device)
@@ -1362,8 +1366,7 @@ class SupernodalFactor(DirectFactor):
             return self._unrows(x, z, k)
         yp = ops["segsum"](dp["perm"], rows, y=1.0 / self._scale_rows(k))
         out = torch.zeros_like(yp)
-        for lv in self._levels():
-            ops["multiply"](self.vals, lv.group, out, yp, None, k, transpose=True)
+        ops["multiply_t"](self.vals, dp["schedule"], out, yp, k)
         return self._unrows(out[:, : self.n], z, k)
 
     def _fill_rows_cols(self, device):
